@@ -1,0 +1,24 @@
+"""raft_tpu_torch — the PyTorch/CUDA port of raft_tpu for NVIDIA Hopper.
+
+The JAX package ``raft_tpu`` is the reference; this package runs the same
+replication data plane on one H100 with hand-written CUDA kernels
+(``csrc/``), each beside a plain PyTorch version of the same function:
+
+- ``core.ring_cuda``  — K1, the fused ring-window write;
+- ``core.step_cuda``  — K2 (steady step), K3 (steady flight), K4 (turnover).
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``, which
+runs the plain versions. This package never imports JAX.
+"""
+
+from raft_tpu_torch.config import RaftConfig
+from raft_tpu_torch.core.state import ReplicaState, init_state
+from raft_tpu_torch.transport import SingleDeviceTransport, make_transport
+
+__all__ = [
+    "RaftConfig",
+    "ReplicaState",
+    "SingleDeviceTransport",
+    "init_state",
+    "make_transport",
+]

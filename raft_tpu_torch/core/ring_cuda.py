@@ -1,0 +1,90 @@
+"""Kernel K1: the fused ring-window write (port of
+``raft_tpu/core/ring_pallas.py:145`` ``write_window_both_tpu``).
+
+``write_window_both`` writes a B-row window into the payload ring and the
+term ring in place, and returns the per-row Raft §5.3 conflict flags. On a
+CUDA tensor it launches the hand-written kernel in ``csrc/ring.cu`` (its
+header states the design and the bound); on a CPU tensor it runs
+``write_window_both_plain``, the same function built from the ring twins
+of ``core.ring`` — the JAX package's XLA formulation of this step.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raft_tpu_torch import cuda_build
+from raft_tpu_torch.core.ring import (
+    read_window,
+    write_window_cols_xla,
+    write_window_rows,
+)
+
+#: kernel launches, counted where each wrapper launches its kernel
+LAUNCHES = {"write_window_both": 0}
+
+
+def write_window_both_plain(buf_p, buf_t, win, win_t, s, count, ws, accept,
+                            last_index) -> torch.Tensor:
+    """The plain version of K1: the XLA formulation of
+    ``core/step.py:369-382``. Returns any_mm int32[L] (1 = conflict)."""
+    L = buf_t.shape[0]
+    B, M = win.shape
+    j = torch.arange(B, device=buf_t.device, dtype=torch.int32)
+    my_win_t = read_window(buf_t, s, B)                     # [L, B] old terms
+    exists = (ws + j)[None, :] <= last_index[:, None]
+    mismatch = exists & (my_win_t != win_t[None, :]) & (j < count)[None, :]
+    write_window_cols_xla(buf_p, win, s, count,
+                          accept.repeat_interleave(M // L))
+    write_window_rows(buf_t, win_t, s, count, accept)
+    return mismatch.any(dim=1).to(torch.int32)
+
+
+def _scalar(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int32).reshape(())
+    return torch.full((), int(x), dtype=torch.int32, device=device)
+
+
+def vec4_ok(M: int, L: int, *tensors) -> bool:
+    """Whether a kernel may move 16-byte lane vectors: each replica's lane
+    block is a whole number of int4s and every row starts 16-byte aligned."""
+    return M % 4 == 0 and (M // L) % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def write_window_both(buf_p: torch.Tensor, buf_t: torch.Tensor,
+                      win: torch.Tensor, win_t: torch.Tensor, s, count, ws,
+                      accept: torch.Tensor,
+                      last_index: torch.Tensor) -> torch.Tensor:
+    """In-place masked write of window ``win`` [B, M] / ``win_t`` [B] into
+    ``buf_p`` [C, M] and ``buf_t`` [L, C] at slots [s, s+count) mod C,
+    rows where ``accept`` [L]; returns any_mm int32[L], nonzero for a row
+    with an existing entry (``ws + j <= last_index``) of another term inside
+    the window. ``s``, ``count``, ``ws``: ints or 0-d tensors."""
+    if not buf_p.is_cuda:
+        return write_window_both_plain(buf_p, buf_t, win, win_t, s, count, ws,
+                                       accept, last_index)
+    dev = buf_p.device
+    L, C = buf_t.shape
+    B, M = win.shape
+    if L > 32 or M % L or 2 * B > C or buf_p.shape != (C, M):
+        raise ValueError(f"unsupported ring shapes: buf_p {tuple(buf_p.shape)}"
+                         f" buf_t {tuple(buf_t.shape)} win {tuple(win.shape)}")
+    for name, t in (("buf_p", buf_p), ("buf_t", buf_t), ("win", win)):
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name} must be contiguous int32 on {dev}")
+    win_t = win_t.to(device=dev, dtype=torch.int32).contiguous()
+    acc = accept.to(device=dev, dtype=torch.bool).contiguous()
+    last = last_index.to(device=dev, dtype=torch.int32).contiguous()
+    s_t, c_t, ws_t = (_scalar(x, dev) for x in (s, count, ws))
+    mm = torch.zeros(L, dtype=torch.int32, device=dev)
+    lib = cuda_build.lib("ring")
+    rc = lib.rt_write_window_both(
+        buf_p.data_ptr(), buf_t.data_ptr(), win.data_ptr(), win_t.data_ptr(),
+        s_t.data_ptr(), c_t.data_ptr(), ws_t.data_ptr(), acc.data_ptr(),
+        last.data_ptr(), mm.data_ptr(), C, M, L, B,
+        int(vec4_ok(M, L, buf_p, win)), cuda_build.stream_of(buf_p))
+    cuda_build.check("ring", rc, "write_window_both")
+    LAUNCHES["write_window_both"] += 1
+    return mm

@@ -1,0 +1,206 @@
+// Shared pieces of the port's Hopper kernels (sm_90a): integer helpers,
+// the packed state-vector layout, and the steady step's scalar core
+// (prologue, window merge, epilogue) used by both the per-step kernel and
+// the persistent pipeline kernel in steady.cu.
+//
+// Index arithmetic follows the JAX package: % floors there and truncates
+// in C++, so every modular expression that can go negative uses floor_mod.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// Rows a kernel supports: the conflict bits of one step travel as one
+// 32-bit mask (bit l = row l).
+#define RT_LMAX 32
+
+// Rows of the packed (6, L) state-vector block, as in core/step_pallas.py.
+enum { VT = 0, VV = 1, VL = 2, VC = 3, VMI = 4, VMT = 5 };
+#define RT_NO_VOTE (-1)
+
+__host__ __device__ inline int floor_mod(int a, int m) {
+  int r = a % m;
+  return r < 0 ? r + m : r;
+}
+
+// Per-call constants of a steady step (the JAX kernel's params operand).
+struct SteadyParams {
+  int leader, lterm, tfloor, rfloor, fpt;
+  int quorum;    // commit quorum when no member mask is given
+  int ec_floor;  // EC durability floor clamping a member majority (0: none)
+  int L, C, B, M, W;
+};
+
+// What a step's prologue derives; every block computes the same plan.
+struct StepPlan {
+  int count, ws, s, lcur;
+  unsigned acc, heard;
+  int meff[RT_LMAX];
+  int prev_ts[RT_LMAX];
+};
+
+__device__ inline bool ackm_of(const uint8_t* alive, const uint8_t* member,
+                               int l) {
+  return alive[l] && (member == nullptr || member[l]);
+}
+
+__device__ inline int quorum_of(const uint8_t* member, const SteadyParams& p) {
+  if (member == nullptr) return p.quorum;
+  int n = 0;
+  for (int l = 0; l < p.L; ++l) n += member[l] != 0;
+  return max(n / 2 + 1, p.ec_floor);
+}
+
+// Frontier accounting and per-row masks (step_pallas.py _steady_kernel
+// prologue). ``vec`` is the (6, L) block at the start of the step; the
+// prev-term column is read from the term ring through L2 (another block
+// may have written it during the previous step of a persistent flight).
+__device__ inline void step_prologue(const int* vec, int cnt_in,
+                                     const int* log_term,
+                                     const uint8_t* alive,
+                                     const uint8_t* slow,
+                                     const SteadyParams& p, StepPlan& pl) {
+  const int L = p.L, C = p.C;
+  const int last0 = vec[VL * L + p.leader];
+  const int commit0 = vec[VC * L + p.leader];
+  const int term0 = vec[VT * L + p.leader];
+  const bool legit = p.lterm >= 1;
+  const bool lcur = legit && term0 <= p.lterm;
+  const int room = C - (last0 - commit0);
+  const int clipped = min(max(cnt_in, 0), p.B);
+  const int count = lcur ? min(clipped, max(room, 0)) : 0;
+  const int ws = last0 + 1;
+  const int leader_last = last0 + count;
+  const int prev_slot = floor_mod(max(ws - 1, 1) - 1, C);
+  for (int l = 0; l < L; ++l)
+    pl.prev_ts[l] = __ldcg(log_term + (size_t)l * C + prev_slot);
+  int prev_term = (ws - 1 < p.rfloor) ? p.fpt : pl.prev_ts[p.leader];
+  if (ws == 1) prev_term = 0;
+  unsigned acc = 0, heard_bits = 0;
+  for (int l = 0; l < L; ++l) {
+    const bool has_prev =
+        (ws == 1) || (vec[VL * L + l] >= ws - 1 && pl.prev_ts[l] == prev_term);
+    const bool heard = alive[l] && legit && p.lterm >= vec[VT * L + l];
+    const bool ingest = (p.leader == l) && lcur;
+    int m0 = (vec[VMT * L + l] == p.lterm) ? vec[VMI * L + l] : 0;
+    if (ingest) m0 = leader_last;
+    const bool a = (heard && !slow[l] && has_prev) || ingest;
+    acc |= (unsigned)a << l;
+    heard_bits |= (unsigned)heard << l;
+    pl.meff[l] = m0;
+  }
+  pl.count = count;
+  pl.ws = ws;
+  pl.s = floor_mod(ws - 1, C);
+  pl.lcur = lcur;
+  pl.acc = acc;
+  pl.heard = heard_bits;
+}
+
+// The window merge: window row jj lands in slot (s + jj) mod C. Payload
+// lanes of accepting rows take the window; the term ring takes the
+// leader's term; the Raft §5.3 conflict bit of row l is set where an
+// existing entry (index <= last[l]) carries another term. Only touched
+// slots are read or written; the payload ring is never read.
+template <int V>
+__device__ inline void step_merge(int* __restrict__ buf_p, int* log_term,
+                                  const int* __restrict__ win,
+                                  const StepPlan& pl, const int* last,
+                                  const SteadyParams& p, unsigned* mm,
+                                  long gtid, long gstride) {
+  const int MV = p.M / V;
+  const long n = (long)pl.count * MV;
+  for (long e = gtid; e < n; e += gstride) {
+    const int jj = (int)(e / MV);
+    const int v = (int)(e - (long)jj * MV);
+    const int l = (v * V) / p.W;
+    if (!((pl.acc >> l) & 1u)) continue;
+    int d = pl.s + jj;
+    if (d >= p.C) d -= p.C;
+    if (V == 4) {
+      reinterpret_cast<int4*>(buf_p + (size_t)d * p.M)[v] =
+          reinterpret_cast<const int4*>(win + (size_t)jj * p.M)[v];
+    } else {
+      buf_p[(size_t)d * p.M + v] = win[(size_t)jj * p.M + v];
+    }
+  }
+  unsigned bits = 0;
+  for (long jj = gtid; jj < pl.count; jj += gstride) {
+    int d = pl.s + (int)jj;
+    if (d >= p.C) d -= p.C;
+    const int widx = pl.ws + (int)jj;
+    for (int l = 0; l < p.L; ++l) {
+      int* tp = log_term + (size_t)l * p.C + d;
+      const int old = __ldcg(tp);
+      if (widx <= last[l] && old != p.lterm) bits |= 1u << l;
+      if ((pl.acc >> l) & 1u) *tp = p.lterm;
+    }
+  }
+  if (bits) atomicOr(mm, bits);
+}
+
+// State advance + k-th-order quorum commit (step_pallas.py _steady_kernel
+// epilogue), in place on ``vec``. Writes match[L] and
+// scal = {commit, max_term, count, next start slot, repair_start = 0}.
+__device__ inline void step_epilogue(int* vec, const StepPlan& pl,
+                                     unsigned mmbits, const uint8_t* alive,
+                                     const uint8_t* slow,
+                                     const uint8_t* member,
+                                     const SteadyParams& p, int* match,
+                                     int* scal) {
+  const int L = p.L;
+  const bool legit = p.lterm >= 1;
+  const int ws = pl.ws, count = pl.count;
+  const int we = ws + count - 1;
+  int meffs[RT_LMAX];
+  for (int l = 0; l < L; ++l) {
+    const bool a = (pl.acc >> l) & 1u;
+    const bool mm = (mmbits >> l) & 1u;
+    const int last0 = vec[VL * L + l];
+    vec[VL * L + l] =
+        a ? (mm ? max(we, ws - 1) : max(last0, we)) : last0;
+    const int m1 = a ? max(pl.meff[l], we) : pl.meff[l];
+    meffs[l] = m1;
+    match[l] = ackm_of(alive, member, l) ? m1 : 0;
+  }
+  const int q = quorum_of(member, p);
+  int cand = 0;
+  for (int l = 0; l < L; ++l) {
+    int cnt = 0;
+    for (int j = 0; j < L; ++j) cnt += match[j] >= match[l];
+    cand = max(cand, cnt >= q ? match[l] : 0);
+  }
+  const bool commit_ok = legit && cand >= 1 && cand >= p.tfloor;
+  const int lcommit = vec[VC * L + p.leader];
+  const int g = commit_ok ? max(lcommit, cand) : lcommit;
+  int max_term = 0;
+  for (int l = 0; l < L; ++l) {
+    const bool heard = (pl.heard >> l) & 1u;
+    const bool ingest = (p.leader == l) && pl.lcur;
+    const int t0 = vec[VT * L + l];
+    const bool adopt = heard && p.lterm > t0;
+    const int t1 = heard ? max(t0, p.lterm) : t0;
+    vec[VT * L + l] = t1;
+    if (adopt) vec[VV * L + l] = RT_NO_VOTE;
+    const int my_commit = (p.leader == l) ? g : min(g, meffs[l]);
+    if ((heard && !slow[l]) || ingest)
+      vec[VC * L + l] = max(vec[VC * L + l], my_commit);
+    if (heard || ingest) {
+      vec[VMI * L + l] = meffs[l];
+      vec[VMT * L + l] = p.lterm;
+    }
+    max_term = max(max_term, alive[l] ? t1 : 0);
+  }
+  scal[0] = g;
+  scal[1] = max_term;
+  scal[2] = count;
+  scal[3] = floor_mod(ws - 1 + count, p.C);
+  scal[4] = 0;
+}
+
+#define RT_EXPORT extern "C" __attribute__((visibility("default")))
+
+// Every library built from these sources names its CUDA errors.
+RT_EXPORT const char* rt_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
