@@ -5,7 +5,13 @@ replication data plane on one H100 with hand-written CUDA kernels
 (``csrc/``), each beside a plain PyTorch version of the same function:
 
 - ``core.ring_cuda``  — K1, the fused ring-window write;
-- ``core.step_cuda``  — K2 (steady step), K3 (steady flight), K4 (turnover).
+- ``core.step_cuda``  — K2 (steady step), K3 (steady flight), K4 (turnover),
+  each also in its in-kernel RS parity mode (K2-4·ec);
+- ``ec``              — the RS(n, k) erasure-coded data plane: GF(2^8) and
+  the codec (``ec.gf``, ``ec.rs``), K6 (parity encode / reconstruction
+  decode) and K7 (fused encode-fold) in ``ec.kernels``, reconstruction
+  reads and heal in ``ec.reconstruct``; ``northstar.run_device_ec`` drives
+  BASELINE config 3.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``, which
 runs the plain versions. This package never imports JAX.

@@ -1,5 +1,5 @@
 """Kernels K2-K4: the steady replication data plane (port of
-``raft_tpu/core/step_pallas.py``, non-EC, resident layout).
+``raft_tpu/core/step_pallas.py``, resident layout).
 
 - K2 ``steady_step`` — one whole steady step (``_invoke`` :404 /
   ``_steady_kernel`` :145): prologue (frontier room, backpressure,
@@ -12,6 +12,13 @@
   start slot, so the flight equals the per-step scan for every input.
 - K4 ``turnover_flight`` — the write-only all-accept flight that turns the
   ring over (``_run_turnover`` :1189 / ``_turnover_kernel`` :1130).
+
+With ``ec_consts`` (the [m, k, 8] table of ``ec.kernels.parity_consts``)
+each kernel runs in its in-kernel RS parity mode (K2-4·ec,
+``_encode_parity_lanes`` :93): the windows carry only the k data-lane
+blocks (``Mk = k*W`` lanes) and the merge computes the m parity lane
+blocks. Full-lane windows must come without it; any other combination
+raises, as ``step_pallas.py:974-978`` does.
 
 Each wrapper launches its CUDA kernel (``csrc/steady.cu``, whose header
 states the design and the bound) for CUDA tensors and runs its plain
@@ -29,11 +36,13 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from raft_tpu_torch import cuda_build
 from raft_tpu_torch.core.ring_cuda import vec4_ok, write_window_both_plain
 from raft_tpu_torch.core.state import NO_VOTE, ReplicaState
+from raft_tpu_torch.ec.kernels import apply_bits_plain
 
 # packed state-vector rows (the (6, L) block)
 _VT, _VV, _VL, _VC, _VMI, _VMT = range(6)
@@ -46,10 +55,14 @@ _MAL, _MSL, _MAK = range(3)
 WK_PLAN, WK_S0, WK_RAN3, WK_RAN4 = 5, 6, 7, 8
 _WORK_WORDS = 16
 
-#: kernel launches, counted where each wrapper launches its kernel
-LAUNCHES = {"steady_step": 0, "pipeline_flight": 0, "turnover_flight": 0}
+#: kernel launches, counted where each wrapper launches its kernel; the
+#: in-kernel parity mode counts under its own ``*_ec`` keys
+LAUNCHES = {"steady_step": 0, "pipeline_flight": 0, "turnover_flight": 0,
+            "steady_step_ec": 0, "pipeline_flight_ec": 0,
+            "turnover_flight_ec": 0}
 
 _workspaces: dict = {}
+_ec_tables: dict = {}
 
 
 def workspace(device) -> torch.Tensor:
@@ -115,6 +128,55 @@ def mk_info(out: torch.Tensor, L: int):
         max_term=out[..., L + 1], repair_start=out[..., L + 4],
         frontier_len=out[..., L + 2],
     )
+
+
+# ------------------------------------------------------- in-kernel parity
+def check_lanes(M: int, Mk: int, L: int, ec_consts) -> None:
+    """Windows of ``Mk = k*W`` data lanes need ``ec_consts`` [L-k, k, 8];
+    full-lane windows (``Mk = M``) must not have them."""
+    if (Mk != M) != (ec_consts is not None):
+        raise ValueError(
+            f"window lanes {Mk} vs payload lanes {M}: data-lane-only "
+            "windows require ec_consts (in-kernel parity), full-lane "
+            "windows must not")
+    if ec_consts is not None:
+        m, k, eight = ec_consts.shape
+        W = M // L
+        if eight != 8 or Mk != k * W or (k + m) * W != M:
+            raise ValueError(
+                f"ec_consts {tuple(ec_consts.shape)} do not fit {Mk} data "
+                f"lanes of a {L}-row ring with {W} words per row")
+
+
+def encode_parity_lanes_plain(win: torch.Tensor, ec_consts,
+                              W: int) -> torch.Tensor:
+    """The plain in-kernel parity: i32[..., k*W] data lanes -> i32[...,
+    (k+m)*W] full lanes, parity block p the GF(2^8) combination of the k
+    data blocks (``step_pallas._encode_parity_lanes``, byte for byte)."""
+    lead, Mk = win.shape[:-1], win.shape[-1]
+    k = Mk // W
+    m = ec_consts.shape[0]
+    src = win.contiguous().view(torch.uint8).reshape(-1, k, 4 * W)
+    parity = apply_bits_plain(ec_consts, src.permute(1, 0, 2))
+    words = parity.permute(1, 0, 2).contiguous().view(torch.int32)
+    return torch.cat([win, words.reshape(*lead, m * W)], dim=-1)
+
+
+def _ec_table(ec_consts, device):
+    """The parity table as a device u8 tensor (cached per device)."""
+    key = (str(torch.device(device)), ec_consts.tobytes(), ec_consts.shape)
+    if key not in _ec_tables:
+        _ec_tables[key] = torch.from_numpy(
+            np.array(ec_consts, dtype=np.uint8)).to(device)
+    return _ec_tables[key]
+
+
+def _full_lanes(win, ec_consts, log_term, log_payload):
+    """The windows the plain versions merge: as given, or parity-expanded."""
+    if ec_consts is None:
+        return win
+    W = log_payload.shape[1] // log_term.shape[0]
+    return encode_parity_lanes_plain(win, ec_consts, W)
 
 
 # ------------------------------------------------------------ plain core
@@ -233,9 +295,11 @@ def _plain_step(v, log_payload, log_term, win, cnt, masks, prm, C):
 
 
 def steady_step_plain(vecs, log_payload, log_term, win, count, alive, slow,
-                      member, prm: StepParams, out) -> None:
+                      member, prm: StepParams, out, ec_consts=None) -> None:
     """The plain version of K2 (same arguments and outputs)."""
-    C = log_term.shape[1]
+    L, C = log_term.shape
+    check_lanes(log_payload.shape[1], win.shape[1], L, ec_consts)
+    win = _full_lanes(win, ec_consts, log_term, log_payload)
     v = vecs.tolist()
     match, scal, nxt = _plain_step(v, log_payload, log_term, win, int(count),
                                    _masks(alive, slow, member), prm, C)
@@ -245,11 +309,12 @@ def steady_step_plain(vecs, log_payload, log_term, win, count, alive, slow,
 
 def pipeline_flight_plain(vecs, log_payload, log_term, wins, counts, alive,
                           slow, member, prm: StepParams, br, turnover_ok,
-                          out, work) -> None:
+                          out, work, ec_consts=None) -> None:
     """The plain version of K3: decide the turnover branch (publishing it
     in ``work`` as the kernel does) or run the T steps."""
     L, C = log_term.shape
-    P, B, _ = wins.shape
+    P, B, Mk = wins.shape
+    check_lanes(log_payload.shape[1], Mk, L, ec_consts)
     T = counts.shape[0]
     s0, prev0 = start_slot_and_prev(vecs, log_term, prm.leader, C, L)
     turnover = False
@@ -263,6 +328,7 @@ def pipeline_flight_plain(vecs, log_payload, log_term, wins, counts, alive,
     work[WK_S0] = int(s0)
     if turnover:
         return
+    wins = _full_lanes(wins, ec_consts, log_term, log_payload)
     v = vecs.tolist()
     masks = _masks(alive, slow, member)
     cnts = counts.tolist()
@@ -275,14 +341,16 @@ def pipeline_flight_plain(vecs, log_payload, log_term, wins, counts, alive,
 
 
 def turnover_flight_plain(vecs, log_payload, log_term, wins, T, prm,
-                          out, work) -> None:
+                          out, work, ec_consts=None) -> None:
     """The plain version of K4: step t writes every lane of slots
     [s0 + t*B, s0 + (t+1)*B) mod C (later steps overwrite earlier laps),
     every term slot becomes the leader's term, and the bookkeeping is the
     closed form of ``step_pallas.py:1161-1186``."""
+    L, C = log_term.shape
+    check_lanes(log_payload.shape[1], wins.shape[2], L, ec_consts)
     if int(work[WK_PLAN]) == 0:
         return
-    L, C = log_term.shape
+    wins = _full_lanes(wins, ec_consts, log_term, log_payload)
     P, B, _ = wins.shape
     s0 = int(work[WK_S0])
     j = torch.arange(B, device=log_payload.device, dtype=torch.int64)
@@ -388,18 +456,22 @@ def _ptr(t):
 
 
 def steady_step(vecs, log_payload, log_term, win, count, alive, slow,
-                member, prm: StepParams, out) -> None:
+                member, prm: StepParams, out, ec_consts=None) -> None:
     """K2: one steady step in place on ``vecs`` (6, L) and both rings.
     ``count``: host int, or a one-element device tensor (a scan passes a
     view of its counts). Writes ``out`` = match[L] | {commit, max_term,
-    frontier_len, next start slot, repair_start} | next_prev[L]."""
+    frontier_len, next start slot, repair_start} | next_prev[L]. With
+    ``ec_consts`` the window carries data lanes only (parity mode)."""
     if not log_payload.is_cuda:
         steady_step_plain(vecs, log_payload, log_term, win, count, alive,
-                          slow, member, prm, out)
+                          slow, member, prm, out, ec_consts)
         return
     L, C = log_term.shape
-    B, M = win.shape
+    M = log_payload.shape[1]
+    B, Mk = win.shape
+    check_lanes(M, Mk, L, ec_consts)
     _check_rings(vecs, log_payload, log_term, L)
+    ec = None if ec_consts is None else _ec_table(ec_consts, vecs.device)
     if isinstance(count, torch.Tensor):
         count = count.to(device=vecs.device, dtype=torch.int32).contiguous()
         cnt_ptr, cnt_val = count.data_ptr(), 0
@@ -408,16 +480,17 @@ def steady_step(vecs, log_payload, log_term, win, count, alive, slow,
     rc = cuda_build.lib("steady").rt_steady_step(
         vecs.data_ptr(), log_payload.data_ptr(), log_term.data_ptr(),
         win.data_ptr(), cnt_ptr, cnt_val, alive.data_ptr(), slow.data_ptr(),
-        _ptr(member), *prm, L, C, B, M, out.data_ptr(),
-        workspace(vecs.device).data_ptr(),
-        int(vec4_ok(M, L, log_payload, win)), cuda_build.stream_of(vecs))
+        _ptr(member), *prm, L, C, B, M, Mk, out.data_ptr(),
+        workspace(vecs.device).data_ptr(), _ptr(ec),
+        int(ec is None and vec4_ok(M, L, log_payload, win)),
+        cuda_build.stream_of(vecs))
     cuda_build.check("steady", rc, "steady_step")
-    LAUNCHES["steady_step"] += 1
+    LAUNCHES["steady_step" if ec is None else "steady_step_ec"] += 1
 
 
 def pipeline_flight(vecs, log_payload, log_term, wins, counts, alive, slow,
                     member, prm: StepParams, br: int, turnover_ok: bool,
-                    out) -> int:
+                    out, ec_consts=None) -> int:
     """K3: a T-step flight over ``wins`` [P, B, M] (step t reads
     wins[t % P]) and device ``counts`` [T], in place. With ``turnover_ok``
     it first decides on the device whether the flight belongs to K4 and,
@@ -428,47 +501,54 @@ def pipeline_flight(vecs, log_payload, log_term, wins, counts, alive, slow,
     if not log_payload.is_cuda:
         pipeline_flight_plain(vecs, log_payload, log_term, wins, counts,
                               alive, slow, member, prm, br, turnover_ok,
-                              out, work)
+                              out, work, ec_consts)
         return 0
     import ctypes
 
     L, C = log_term.shape
-    P, B, M = wins.shape
+    M = log_payload.shape[1]
+    P, B, Mk = wins.shape
     T = counts.shape[0]
+    check_lanes(M, Mk, L, ec_consts)
     _check_rings(vecs, log_payload, log_term, L)
+    ec = None if ec_consts is None else _ec_table(ec_consts, vecs.device)
     grid = ctypes.c_int(0)
     rc = cuda_build.lib("steady").rt_steady_pipeline(
         vecs.data_ptr(), log_payload.data_ptr(), log_term.data_ptr(),
         wins.data_ptr(), counts.data_ptr(), T, P, alive.data_ptr(),
-        slow.data_ptr(), _ptr(member), *prm, L, C, B, M, int(br),
-        int(turnover_ok), out.data_ptr(), work.data_ptr(),
-        int(vec4_ok(M, L, log_payload, wins)), cuda_build.stream_of(vecs),
-        ctypes.byref(grid))
+        slow.data_ptr(), _ptr(member), *prm, L, C, B, M, Mk, int(br),
+        int(turnover_ok), out.data_ptr(), work.data_ptr(), _ptr(ec),
+        int(ec is None and vec4_ok(M, L, log_payload, wins)),
+        cuda_build.stream_of(vecs), ctypes.byref(grid))
     cuda_build.check("steady", rc, "pipeline_flight")
-    LAUNCHES["pipeline_flight"] += 1
+    LAUNCHES["pipeline_flight" if ec is None else "pipeline_flight_ec"] += 1
     return grid.value
 
 
 def turnover_flight(vecs, log_payload, log_term, wins, T: int,
-                    prm: StepParams, out) -> None:
+                    prm: StepParams, out, ec_consts=None) -> None:
     """K4: the write-only turnover flight. Runs only behind a
     ``pipeline_flight`` launched with ``turnover_ok`` on the same stream,
     and does its work only when that launch chose it."""
     work = workspace(vecs.device)
     if not log_payload.is_cuda:
         turnover_flight_plain(vecs, log_payload, log_term, wins, T, prm,
-                              out, work)
+                              out, work, ec_consts)
         return
     L, C = log_term.shape
-    P, B, M = wins.shape
+    M = log_payload.shape[1]
+    P, B, Mk = wins.shape
+    check_lanes(M, Mk, L, ec_consts)
     _check_rings(vecs, log_payload, log_term, L)
+    ec = None if ec_consts is None else _ec_table(ec_consts, vecs.device)
     rc = cuda_build.lib("steady").rt_turnover(
         vecs.data_ptr(), log_payload.data_ptr(), log_term.data_ptr(),
-        wins.data_ptr(), T, P, prm.lterm, prm.tfloor, L, C, B, M,
-        out.data_ptr(), work.data_ptr(),
-        int(vec4_ok(M, L, log_payload, wins)), cuda_build.stream_of(vecs))
+        wins.data_ptr(), T, P, prm.lterm, prm.tfloor, L, C, B, M, Mk,
+        out.data_ptr(), work.data_ptr(), _ptr(ec),
+        int(ec is None and vec4_ok(M, L, log_payload, wins)),
+        cuda_build.stream_of(vecs))
     cuda_build.check("steady", rc, "turnover_flight")
-    LAUNCHES["turnover_flight"] += 1
+    LAUNCHES["turnover_flight" if ec is None else "turnover_flight_ec"] += 1
 
 
 # ------------------------------------------------------ public functions
@@ -487,34 +567,38 @@ def _prepare(state, leader, leader_term, term_floor, repair_floor,
 def steady_replicate_step(state: ReplicaState, client_payload, client_count,
                           leader, leader_term, alive, slow, floor_prev_term,
                           repair_floor, member, term_floor,
-                          commit_quorum=None, ec=False):
+                          commit_quorum=None, ec=False, ec_consts=None):
     """One steady-state replication step (``steady_replicate_step_tpu``):
     the same (state, RepInfo) as ``core.step.replicate_step(repair=False)``
-    given a correct ``term_floor``. Consumes ``state``."""
+    given a correct ``term_floor``. ``ec_consts`` selects the in-kernel
+    parity mode (data-lane windows; implies ``ec``). Consumes ``state``."""
     L = state.term.shape[0]
     prm, alive, slow, member = _prepare(
         state, leader, leader_term, term_floor, repair_floor,
-        floor_prev_term, alive, slow, member, commit_quorum, ec)
+        floor_prev_term, alive, slow, member, commit_quorum,
+        ec or ec_consts is not None)
     vecs = pack(state)
     out = torch.empty(2 * L + 5, dtype=torch.int32, device=state.device)
     steady_step(vecs, state.log_payload, state.log_term,
-                client_payload.contiguous(), client_count, alive, slow,
-                member, prm, out)
+                client_payload.to(state.device).contiguous(), client_count,
+                alive, slow, member, prm, out, ec_consts)
     return unpack(vecs, state.log_term, state.log_payload), mk_info(out, L)
 
 
 def steady_scan_replicate(state: ReplicaState, payloads, counts, leader,
                           leader_term, alive, slow, floor_prev_term,
                           repair_floor, member, term_floor,
-                          commit_quorum=None, ec=False):
+                          commit_quorum=None, ec=False, ec_consts=None):
     """T steady steps (``steady_scan_replicate_tpu``): T back-to-back K2
     launches on the packed state, no host work in between. Returns the
-    stacked RepInfo (fields with a leading [T] axis). Consumes ``state``."""
+    stacked RepInfo (fields with a leading [T] axis). ``ec_consts`` as in
+    ``steady_replicate_step``. Consumes ``state``."""
     L = state.term.shape[0]
     dev = state.device
     prm, alive, slow, member = _prepare(
         state, leader, leader_term, term_floor, repair_floor,
-        floor_prev_term, alive, slow, member, commit_quorum, ec)
+        floor_prev_term, alive, slow, member, commit_quorum,
+        ec or ec_consts is not None)
     payloads = payloads.to(dev).contiguous()
     counts = torch.as_tensor(counts).to(device=dev, dtype=torch.int32)
     T = counts.shape[0]
@@ -522,22 +606,26 @@ def steady_scan_replicate(state: ReplicaState, payloads, counts, leader,
     outs = torch.zeros(T, 2 * L + 5, dtype=torch.int32, device=dev)
     for t in range(T):
         steady_step(vecs, state.log_payload, state.log_term, payloads[t],
-                    counts[t:t + 1], alive, slow, member, prm, outs[t])
+                    counts[t:t + 1], alive, slow, member, prm, outs[t],
+                    ec_consts)
     return unpack(vecs, state.log_term, state.log_payload), mk_info(outs, L)
 
 
 def steady_pipeline(state: ReplicaState, wins, counts, leader, leader_term,
                     alive, slow, floor_prev_term, repair_floor, member,
-                    term_floor, commit_quorum=None, ec=False):
+                    term_floor, commit_quorum=None, ec=False,
+                    ec_consts=None):
     """T saturated steady steps as one flight (``steady_pipeline_tpu``):
     K3, then K4 when ``T*B >= C``; the device decides which one writes
-    (K4 only when every row accepts). Returns (state, final RepInfo).
-    Consumes ``state``."""
+    (K4 only when every row accepts). ``ec_consts`` as in
+    ``steady_replicate_step``. Returns (state, final RepInfo). Consumes
+    ``state``."""
     L, C = state.log_term.shape
     dev = state.device
     prm, alive, slow, member = _prepare(
         state, leader, leader_term, term_floor, repair_floor,
-        floor_prev_term, alive, slow, member, commit_quorum, ec)
+        floor_prev_term, alive, slow, member, commit_quorum,
+        ec or ec_consts is not None)
     wins = wins.to(dev).contiguous()
     counts = torch.as_tensor(counts).to(device=dev, dtype=torch.int32)
     P, B, _ = wins.shape
@@ -549,8 +637,8 @@ def steady_pipeline(state: ReplicaState, wins, counts, leader, leader_term,
     out = torch.empty(L + 5, dtype=torch.int32, device=dev)
     pipeline_flight(vecs, state.log_payload, state.log_term, wins, counts,
                     alive, slow, member, prm, pick_br(B, C), turnover_ok,
-                    out)
+                    out, ec_consts)
     if turnover_ok:
         turnover_flight(vecs, state.log_payload, state.log_term, wins, T,
-                        prm, out)
+                        prm, out, ec_consts)
     return unpack(vecs, state.log_term, state.log_payload), mk_info(out, L)

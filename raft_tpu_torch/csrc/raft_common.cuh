@@ -1,7 +1,8 @@
 // Shared pieces of the port's Hopper kernels (sm_90a): integer helpers,
 // the packed state-vector layout, and the steady step's scalar core
-// (prologue, window merge, epilogue) used by both the per-step kernel and
-// the persistent pipeline kernel in steady.cu.
+// (prologue, window merge with its optional in-kernel RS parity, epilogue)
+// used by both the per-step kernel and the persistent pipeline kernel in
+// steady.cu.
 //
 // Index arithmetic follows the JAX package: % floors there and truncates
 // in C++, so every modular expression that can go negative uses floor_mod.
@@ -10,9 +11,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gf_packed.cuh"
+
 // Rows a kernel supports: the conflict bits of one step travel as one
 // 32-bit mask (bit l = row l).
 #define RT_LMAX 32
+// Bytes of the in-kernel parity table [m][k][8] with m + k <= RT_LMAX.
+#define RT_EC_BYTES (16 * 16 * 8)
 
 // Rows of the packed (6, L) state-vector block, as in core/step_pallas.py.
 enum { VT = 0, VV = 1, VL = 2, VC = 3, VMI = 4, VMT = 5 };
@@ -29,6 +34,7 @@ struct SteadyParams {
   int quorum;    // commit quorum when no member mask is given
   int ec_floor;  // EC durability floor clamping a member majority (0: none)
   int L, C, B, M, W;
+  int Mk;        // window lanes: M, or k*W in the in-kernel parity mode
 };
 
 // What a step's prologue derives; every block computes the same plan.
@@ -97,17 +103,44 @@ __device__ inline void step_prologue(const int* vec, int cnt_in,
   pl.heard = heard_bits;
 }
 
+// Lane v of a full-width ring row, taken from window row ``row``: the
+// window lane itself or, in the in-kernel parity mode (EC), a data lane of
+// the k data-lane blocks the window carries, or a parity lane computed
+// from the k data words at its own word offset (step_pallas.py:93
+// _encode_parity_lanes). ``ec`` is the [L-k][k][8] constant table.
+template <bool EC>
+__device__ __forceinline__ int window_lane(const int* row, int v,
+                                           const SteadyParams& p,
+                                           const uint8_t* ec) {
+  if (!EC) return row[v];
+  const int l = v / p.W;
+  const int k = p.Mk / p.W;
+  if (l < k) return row[v];
+  return (int)gf_parity_word(row, l - k, k, p.W, v - l * p.W, ec);
+}
+
+// Copy the parity table into shared memory (every thread of the block
+// takes part; the caller synchronises before use).
+__device__ inline void load_ec_table(uint8_t* dst, const uint8_t* ec,
+                                     const SteadyParams& p) {
+  const int k = p.Mk / p.W;
+  const int n = (p.L - k) * k * 8;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = ec[i];
+}
+
 // The window merge: window row jj lands in slot (s + jj) mod C. Payload
-// lanes of accepting rows take the window; the term ring takes the
-// leader's term; the Raft §5.3 conflict bit of row l is set where an
-// existing entry (index <= last[l]) carries another term. Only touched
-// slots are read or written; the payload ring is never read.
-template <int V>
+// lanes of accepting rows take the window (with its parity lanes encoded
+// here in EC mode); the term ring takes the leader's term; the Raft §5.3
+// conflict bit of row l is set where an existing entry (index <= last[l])
+// carries another term. Only touched slots are read or written; the
+// payload ring is never read. EC mode moves single words (V == 1).
+template <int V, bool EC>
 __device__ inline void step_merge(int* __restrict__ buf_p, int* log_term,
                                   const int* __restrict__ win,
                                   const StepPlan& pl, const int* last,
-                                  const SteadyParams& p, unsigned* mm,
-                                  long gtid, long gstride) {
+                                  const SteadyParams& p, const uint8_t* ec,
+                                  unsigned* mm, long gtid, long gstride) {
+  static_assert(!EC || V == 1, "the parity mode moves single words");
   const int MV = p.M / V;
   const long n = (long)pl.count * MV;
   for (long e = gtid; e < n; e += gstride) {
@@ -119,9 +152,10 @@ __device__ inline void step_merge(int* __restrict__ buf_p, int* log_term,
     if (d >= p.C) d -= p.C;
     if (V == 4) {
       reinterpret_cast<int4*>(buf_p + (size_t)d * p.M)[v] =
-          reinterpret_cast<const int4*>(win + (size_t)jj * p.M)[v];
+          reinterpret_cast<const int4*>(win + (size_t)jj * p.Mk)[v];
     } else {
-      buf_p[(size_t)d * p.M + v] = win[(size_t)jj * p.M + v];
+      buf_p[(size_t)d * p.M + v] =
+          window_lane<EC>(win + (size_t)jj * p.Mk, v, p, ec);
     }
   }
   unsigned bits = 0;

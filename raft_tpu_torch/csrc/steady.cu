@@ -11,8 +11,18 @@
 // K4 replaces step_pallas.py:1189 _run_turnover (pallas_call :1221, body
 //    _turnover_kernel :1130): the write-only all-accept flight that turns
 //    the whole ring over (T*B >= C).
+// K2-4·ec, the in-kernel RS parity mode of all three (step_pallas.py:93
+//    _encode_parity_lanes and :109 _mul_const_packed, reached at :231-237,
+//    :766-767 and :1152-1153): the windows carry only the k data-lane
+//    blocks (Mk = k*W lanes) and the merge computes the m parity lane
+//    blocks itself. A thread on a parity lane reads the k data words at its
+//    own word offset from the WINDOW (never from the ring) and writes their
+//    GF(2^8) combination (gf_packed.cuh); K4's thread, which owns a
+//    destination slot, does the same for the window row it takes. The
+//    [m][k][8] constant table lives in shared memory. Parity lanes are
+//    single words, so this mode always runs the V = 1 instantiation.
 //
-// Bound: bytes. A step reads its window (count*M*4 B), writes the
+// Bound: bytes. A step reads its window (count*Mk*4 B), writes the
 // accepted payload lanes, and reads and writes count*L term slots; the
 // scalar core is O(L^2) integer operations. K4 writes the whole payload
 // and term rings once and reads the T*B window rows that survive.
@@ -56,15 +66,18 @@ enum {
   WK_RAN3 = 7, WK_RAN4 = 8, WK_N = 9
 };
 
-template <int V>
+template <int V, bool EC>
 __global__ void steady_step_kernel(int* vec, int* buf_p, int* log_term,
                                    const int* __restrict__ win,
                                    const int* cnt_ptr, int cnt_val,
                                    const uint8_t* alive, const uint8_t* slow,
                                    const uint8_t* member, SteadyParams p,
-                                   int* out, unsigned* work) {
+                                   int* out, unsigned* work,
+                                   const uint8_t* ec) {
   __shared__ StepPlan pl;
   __shared__ int is_last;
+  __shared__ uint8_t ec_sh[EC ? RT_EC_BYTES : 1];
+  if (EC) load_ec_table(ec_sh, ec, p);
   if (threadIdx.x == 0) {
     const int cnt = cnt_ptr ? *cnt_ptr : cnt_val;
     step_prologue(vec, cnt, log_term, alive, slow, p, pl);
@@ -72,8 +85,8 @@ __global__ void steady_step_kernel(int* vec, int* buf_p, int* log_term,
   __syncthreads();
   const long gtid = (long)blockIdx.x * blockDim.x + threadIdx.x;
   const long gstride = (long)gridDim.x * blockDim.x;
-  step_merge<V>(buf_p, log_term, win, pl, vec + VL * p.L, p, &work[WK_MM],
-                gtid, gstride);
+  step_merge<V, EC>(buf_p, log_term, win, pl, vec + VL * p.L, p, ec_sh,
+                    &work[WK_MM], gtid, gstride);
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence();
@@ -133,7 +146,7 @@ __device__ bool flight_all_accept(const int* vec, const int* counts, int T,
   return feasible && all;
 }
 
-template <int V>
+template <int V, bool EC>
 __global__ void steady_pipeline_kernel(int* vec_g, int* buf_p, int* log_term,
                                        const int* __restrict__ wins,
                                        const int* counts, int T, int P,
@@ -141,14 +154,16 @@ __global__ void steady_pipeline_kernel(int* vec_g, int* buf_p, int* log_term,
                                        const uint8_t* slow,
                                        const uint8_t* member, SteadyParams p,
                                        int br, int turnover_ok, int* out,
-                                       unsigned* work) {
+                                       unsigned* work, const uint8_t* ec) {
   cg::grid_group grid = cg::this_grid();
   __shared__ int vec[6 * RT_LMAX];
   __shared__ StepPlan pl;
   __shared__ int match[RT_LMAX];
   __shared__ int scal[5];
   __shared__ int turnover;
+  __shared__ uint8_t ec_sh[EC ? RT_EC_BYTES : 1];
   const int L = p.L;
+  if (EC) load_ec_table(ec_sh, ec, p);
   if (threadIdx.x == 0) {
     for (int i = 0; i < 6 * L; ++i) vec[i] = vec_g[i];
     int s0 = 0;
@@ -170,8 +185,9 @@ __global__ void steady_pipeline_kernel(int* vec_g, int* buf_p, int* log_term,
     if (threadIdx.x == 0)
       step_prologue(vec, counts[t], log_term, alive, slow, p, pl);
     __syncthreads();
-    step_merge<V>(buf_p, log_term, wins + (size_t)(t % P) * p.B * p.M, pl,
-                  vec + VL * L, p, &work[WK_MM3 + t % 3], gtid, gstride);
+    step_merge<V, EC>(buf_p, log_term, wins + (size_t)(t % P) * p.B * p.Mk,
+                      pl, vec + VL * L, p, ec_sh, &work[WK_MM3 + t % 3], gtid,
+                      gstride);
     grid.sync();
     if (threadIdx.x == 0) {
       const unsigned mm = __ldcg(&work[WK_MM3 + t % 3]);
@@ -190,11 +206,16 @@ __global__ void steady_pipeline_kernel(int* vec_g, int* buf_p, int* log_term,
   }
 }
 
-template <int V>
+template <int V, bool EC>
 __global__ void turnover_kernel(int* vec_g, int* buf_p, int* log_term,
                                 const int* __restrict__ wins, int T, int P,
                                 SteadyParams p, int* out,
-                                unsigned* work) {
+                                unsigned* work, const uint8_t* ec) {
+  __shared__ uint8_t ec_sh[EC ? RT_EC_BYTES : 1];
+  if (EC) {
+    load_ec_table(ec_sh, ec, p);
+    __syncthreads();
+  }
   if (__ldcg(&work[WK_PLAN]) == 0) return;  // K3 ran the flight
   const int s0 = (int)__ldcg(&work[WK_S0]);
   const int C = p.C, B = p.B, M = p.M, L = p.L;
@@ -210,12 +231,12 @@ __global__ void turnover_kernel(int* vec_g, int* buf_p, int* log_term,
     const long pos = k + ((TB - 1 - k) / C) * C;
     const int t = (int)(pos / B);
     const int jj = (int)(pos - (long)t * B);
-    const int* src = wins + ((size_t)(t % P) * B + jj) * M;
+    const int* src = wins + ((size_t)(t % P) * B + jj) * p.Mk;
     if (V == 4) {
       reinterpret_cast<int4*>(buf_p + (size_t)d * M)[v] =
           reinterpret_cast<const int4*>(src)[v];
     } else {
-      buf_p[(size_t)d * M + v] = src[v];
+      buf_p[(size_t)d * M + v] = window_lane<EC>(src, v, p, ec_sh);
     }
   }
   for (long e = gtid; e < (long)L * C; e += gstride) log_term[e] = p.lterm;
@@ -247,7 +268,7 @@ __global__ void turnover_kernel(int* vec_g, int* buf_p, int* log_term,
 
 static SteadyParams make_params(int leader, int lterm, int tfloor, int rfloor,
                                 int fpt, int quorum, int ec_floor, int L,
-                                int C, int B, int M) {
+                                int C, int B, int M, int Mk) {
   SteadyParams p;
   p.leader = leader;
   p.lterm = lterm;
@@ -261,6 +282,7 @@ static SteadyParams make_params(int leader, int lterm, int tfloor, int rfloor,
   p.B = B;
   p.M = M;
   p.W = M / L;
+  p.Mk = Mk;
   return p;
 }
 
@@ -273,37 +295,40 @@ static int blocks_for(long work) {
 // K2: one steady step in place on vec (6, L), buf_p and log_term.
 // out = match[L] | scal[5] | next_prev[L]. cnt_ptr (device) overrides
 // cnt_val when not null. work must hold WK_N zeros on the first call;
-// the kernel leaves it zeroed.
+// the kernel leaves it zeroed. ec (device u8[L-k][k][8], or null) selects
+// the in-kernel parity mode, whose windows carry Mk = k*W lanes.
 RT_EXPORT int rt_steady_step(void* vec, void* buf_p, void* log_term,
                              const void* win, const void* cnt_ptr,
                              int cnt_val, const void* alive, const void* slow,
                              const void* member, int leader, int lterm,
                              int tfloor, int rfloor, int fpt, int quorum,
-                             int ec_floor, int L, int C, int B, int M,
-                             void* out, void* work, int vec4, void* stream) {
+                             int ec_floor, int L, int C, int B, int M, int Mk,
+                             void* out, void* work, const void* ec, int vec4,
+                             void* stream) {
   const SteadyParams p = make_params(leader, lterm, tfloor, rfloor, fpt,
-                                     quorum, ec_floor, L, C, B, M);
-  const int blocks = blocks_for((long)B * (vec4 ? M / 4 : M));
+                                     quorum, ec_floor, L, C, B, M, Mk);
+  const bool v4 = vec4 && !ec;
+  const int blocks = blocks_for((long)B * (v4 ? M / 4 : M));
   cudaStream_t st = (cudaStream_t)stream;
-  if (vec4) {
-    steady_step_kernel<4><<<blocks, kThreads, 0, st>>>(
-        (int*)vec, (int*)buf_p, (int*)log_term, (const int*)win,
-        (const int*)cnt_ptr, cnt_val, (const uint8_t*)alive,
-        (const uint8_t*)slow, (const uint8_t*)member, p, (int*)out,
-        (unsigned*)work);
+#define RT_K2_ARGS                                                         \
+  (int*)vec, (int*)buf_p, (int*)log_term, (const int*)win,                 \
+      (const int*)cnt_ptr, cnt_val, (const uint8_t*)alive,                 \
+      (const uint8_t*)slow, (const uint8_t*)member, p, (int*)out,          \
+      (unsigned*)work, (const uint8_t*)ec
+  if (ec) {
+    steady_step_kernel<1, true><<<blocks, kThreads, 0, st>>>(RT_K2_ARGS);
+  } else if (v4) {
+    steady_step_kernel<4, false><<<blocks, kThreads, 0, st>>>(RT_K2_ARGS);
   } else {
-    steady_step_kernel<1><<<blocks, kThreads, 0, st>>>(
-        (int*)vec, (int*)buf_p, (int*)log_term, (const int*)win,
-        (const int*)cnt_ptr, cnt_val, (const uint8_t*)alive,
-        (const uint8_t*)slow, (const uint8_t*)member, p, (int*)out,
-        (unsigned*)work);
+    steady_step_kernel<1, false><<<blocks, kThreads, 0, st>>>(RT_K2_ARGS);
   }
+#undef RT_K2_ARGS
   return (int)cudaGetLastError();
 }
 
 // Co-resident block count of the pipeline kernel, per device (queried
 // once: the occupancy calculator is not free on the tick path).
-template <int V>
+template <int V, bool EC>
 static cudaError_t resident_blocks(int dev, int* resident) {
   static int cache[64] = {0};
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
@@ -316,7 +341,7 @@ static cudaError_t resident_blocks(int dev, int* resident) {
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, steady_pipeline_kernel<V>, kThreads, 0);
+          &per_sm, steady_pipeline_kernel<V, EC>, kThreads, 0);
     if (e != cudaSuccess) return e;
     if (per_sm * sms < 1) return cudaErrorCooperativeLaunchTooLarge;
     cache[dev] = per_sm * sms;
@@ -325,13 +350,13 @@ static cudaError_t resident_blocks(int dev, int* resident) {
   return cudaSuccess;
 }
 
-template <int V>
+template <int V, bool EC>
 static int launch_pipeline(void** args, long work_items, cudaStream_t st,
                            int* grid_out) {
-  auto kern = steady_pipeline_kernel<V>;
+  auto kern = steady_pipeline_kernel<V, EC>;
   int dev = 0, resident = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = resident_blocks<V>(dev, &resident);
+  if (e == cudaSuccess) e = resident_blocks<V, EC>(dev, &resident);
   if (e != cudaSuccess) return (int)e;
   const int grid = min(resident, blocks_for(work_items));
   *grid_out = grid;
@@ -342,46 +367,52 @@ static int launch_pipeline(void** args, long work_items, cudaStream_t st,
 }
 
 // K3 (+ K4 behind it when turnover_ok): a T-step flight over wins
-// i32[P, B, M] (step t reads wins[t % P]) and counts i32[T] on device.
-// out = match[L] | scal[5]. grid_out reports K3's grid size.
+// i32[P, B, Mk] (step t reads wins[t % P]) and counts i32[T] on device.
+// out = match[L] | scal[5]. grid_out reports K3's grid size. ec as K2.
 RT_EXPORT int rt_steady_pipeline(void* vec, void* buf_p, void* log_term,
                                  const void* wins, const void* counts, int T,
                                  int P, const void* alive, const void* slow,
                                  const void* member, int leader, int lterm,
                                  int tfloor, int rfloor, int fpt, int quorum,
                                  int ec_floor, int L, int C, int B, int M,
-                                 int br, int turnover_ok, void* out,
-                                 void* work, int vec4, void* stream,
-                                 int* grid_out) {
+                                 int Mk, int br, int turnover_ok, void* out,
+                                 void* work, const void* ec, int vec4,
+                                 void* stream, int* grid_out) {
   SteadyParams p = make_params(leader, lterm, tfloor, rfloor, fpt, quorum,
-                               ec_floor, L, C, B, M);
+                               ec_floor, L, C, B, M, Mk);
   void* args[] = {&vec,   &buf_p,  &log_term, &wins, &counts,
                   &T,     &P,      &alive,    &slow, &member,
-                  &p,     &br,     &turnover_ok, &out, &work};
-  const long items = (long)B * (vec4 ? M / 4 : M);
+                  &p,     &br,     &turnover_ok, &out, &work, &ec};
+  const bool v4 = vec4 && !ec;
+  const long items = (long)B * (v4 ? M / 4 : M);
   cudaStream_t st = (cudaStream_t)stream;
-  return vec4 ? launch_pipeline<4>(args, items, st, grid_out)
-              : launch_pipeline<1>(args, items, st, grid_out);
+  if (ec) return launch_pipeline<1, true>(args, items, st, grid_out);
+  return v4 ? launch_pipeline<4, false>(args, items, st, grid_out)
+            : launch_pipeline<1, false>(args, items, st, grid_out);
 }
 
 // K4: the write-only turnover flight; exits at once unless the preceding
-// K3 launch published the turnover decision in work.
+// K3 launch published the turnover decision in work. ec as K2.
 RT_EXPORT int rt_turnover(void* vec, void* buf_p, void* log_term,
                           const void* wins, int T, int P, int lterm,
-                          int tfloor, int L, int C, int B, int M, void* out,
-                          void* work, int vec4, void* stream) {
+                          int tfloor, int L, int C, int B, int M, int Mk,
+                          void* out, void* work, const void* ec, int vec4,
+                          void* stream) {
   const SteadyParams p =
-      make_params(0, lterm, tfloor, 0, 0, 0, 0, L, C, B, M);
-  const int blocks = blocks_for((long)C * (vec4 ? M / 4 : M));
+      make_params(0, lterm, tfloor, 0, 0, 0, 0, L, C, B, M, Mk);
+  const bool v4 = vec4 && !ec;
+  const int blocks = blocks_for((long)C * (v4 ? M / 4 : M));
   cudaStream_t st = (cudaStream_t)stream;
-  if (vec4) {
-    turnover_kernel<4><<<blocks, kThreads, 0, st>>>(
-        (int*)vec, (int*)buf_p, (int*)log_term, (const int*)wins, T, P, p,
-        (int*)out, (unsigned*)work);
+#define RT_K4_ARGS                                                         \
+  (int*)vec, (int*)buf_p, (int*)log_term, (const int*)wins, T, P, p,       \
+      (int*)out, (unsigned*)work, (const uint8_t*)ec
+  if (ec) {
+    turnover_kernel<1, true><<<blocks, kThreads, 0, st>>>(RT_K4_ARGS);
+  } else if (v4) {
+    turnover_kernel<4, false><<<blocks, kThreads, 0, st>>>(RT_K4_ARGS);
   } else {
-    turnover_kernel<1><<<blocks, kThreads, 0, st>>>(
-        (int*)vec, (int*)buf_p, (int*)log_term, (const int*)wins, T, P, p,
-        (int*)out, (unsigned*)work);
+    turnover_kernel<1, false><<<blocks, kThreads, 0, st>>>(RT_K4_ARGS);
   }
+#undef RT_K4_ARGS
   return (int)cudaGetLastError();
 }

@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: library name -> its translation unit (headers are hashed into every one)
-SOURCES = {"ring": "ring.cu", "steady": "steady.cu"}
+SOURCES = {"ring": "ring.cu", "steady": "steady.cu", "ec": "ec.cu"}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -32,6 +32,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 #: C signatures of the exported launchers
 SIGNATURES = {
     "ring": {
@@ -41,12 +42,18 @@ SIGNATURES = {
     "steady": {
         "rt_error_string": ([_I], ctypes.c_char_p),
         "rt_steady_step": (
-            [_P] * 5 + [_I] + [_P] * 3 + [_I] * 11 + [_P, _P, _I, _P], _I),
-        "rt_steady_pipeline": (
-            [_P] * 5 + [_I, _I] + [_P] * 3 + [_I] * 13 + [_P, _P, _I, _P,
-                                                          ctypes.POINTER(_I)],
+            [_P] * 5 + [_I] + [_P] * 3 + [_I] * 12 + [_P] * 3 + [_I, _P],
             _I),
-        "rt_turnover": ([_P] * 4 + [_I] * 8 + [_P, _P, _I, _P], _I),
+        "rt_steady_pipeline": (
+            [_P] * 5 + [_I, _I] + [_P] * 3 + [_I] * 14 + [_P] * 3
+            + [_I, _P, ctypes.POINTER(_I)],
+            _I),
+        "rt_turnover": ([_P] * 4 + [_I] * 9 + [_P] * 3 + [_I, _P], _I),
+    },
+    "ec": {
+        "rt_error_string": ([_I], ctypes.c_char_p),
+        "rt_gf_apply": ([_P, _L, _L, _P, _L, _L, _P] + [_I] * 4 + [_P], _I),
+        "rt_encode_fold": ([_P] * 3 + [_I] * 4 + [_P], _I),
     },
 }
 

@@ -1,4 +1,7 @@
-"""North-star device run (port of ``northstar.py``'s ``run_device``).
+"""North-star device runs: ``run_device`` (port of ``northstar.py``'s
+``run_device``) and ``run_device_ec``, the RS(5,3) erasure-coded run of
+BASELINE config 3 (``bench.py`` ``bench_rs53`` with the lap gate's
+read-back).
 
 The deterministic entry stream (``numpy.random.default_rng(seed)``, 256 B
 entries at the north-star config) is pushed through
@@ -8,6 +11,14 @@ window is read back from the follower rows (row 1 unless told otherwise)
 and folded into a SHA-256 per row in commit order, beside the SHA-256 of
 the submitted entries. The same stream through the JAX package (or its golden
 oracle) must give the same digest; only the tests join the two.
+
+``run_device_ec`` streams seeded entries as data-lane windows
+(``ec.kernels.fold_data_lanes``) through 32-step flights of
+``core.step_cuda.steady_pipeline`` with the in-kernel parity table: K3
+decides on the device and K4 turns the ring over, each writing the parity
+lanes itself. After every flight the committed window is reconstructed
+from every read set (any k rows; a set other than the data rows decodes
+with K6) and hashed in commit order beside the input's SHA-256.
 
 Run: python -m raft_tpu_torch.northstar [--entries N] [--seed S]
 """
@@ -25,6 +36,10 @@ import torch
 
 from raft_tpu_torch.config import RaftConfig
 from raft_tpu_torch.core.state import ReplicaState, fold_batch, log_entries
+from raft_tpu_torch.core.step_cuda import steady_pipeline
+from raft_tpu_torch.ec.kernels import fold_data_lanes, parity_consts
+from raft_tpu_torch.ec.reconstruct import reconstruct
+from raft_tpu_torch.ec.rs import RSCode
 from raft_tpu_torch.transport.device import SingleDeviceTransport
 
 CHUNK_STEPS = 32     # steps per flight; the ring holds one chunk
@@ -36,6 +51,14 @@ class DeviceRun(NamedTuple):
     state: ReplicaState    # the cluster after the last flight
     input_digest: str      # SHA-256 of the submitted entries, in log order
     row_digests: dict      # follower row -> SHA-256 of its read-back
+
+
+class ECDeviceRun(NamedTuple):
+    set_digests: dict      # read set (tuple of rows) -> SHA-256 of its reads
+    wall_s: float
+    state: ReplicaState    # the cluster after the last flight
+    input_digest: str      # SHA-256 of the submitted entries, in log order
+    flights: int
 
 
 def entry_block(rng: np.random.Generator, n: int, entry: int) -> np.ndarray:
@@ -91,6 +114,67 @@ def run_device(cfg: RaftConfig, n_entries: int, seed: int, device=None, *,
     digests = {r: h.hexdigest() for r, h in h_rows.items()}
     return DeviceRun(digests[rows[0]], wall, state, h_in.hexdigest(),
                      digests)
+
+
+def run_device_ec(cfg: RaftConfig, n_entries: int, seed: int, device=None,
+                  *, transport: SingleDeviceTransport | None = None,
+                  state: ReplicaState | None = None,
+                  read_sets=((0, 1, 2), (1, 2, 4))) -> ECDeviceRun:
+    """Pipeline ``n_entries`` of the seeded stream through an
+    erasure-coded cluster (``cfg.rs_k`` set) in flights of ``CHUNK_STEPS``
+    full batches (fewer when the ring is shorter: a flight never outruns
+    the read-back), led by row 0 in term 1 at the commit quorum of
+    ``cfg.commit_quorum``. After each flight the committed window is
+    reconstructed from every row set in ``read_sets`` and folded into
+    that set's SHA-256. Raises on a commit stall.
+
+    ``transport`` and ``state`` continue an existing cluster as in
+    ``run_device``; ``state`` is consumed."""
+    if not cfg.ec_enabled:
+        raise ValueError("run_device_ec needs an erasure-coded config "
+                         "(rs_k set)")
+    tr = transport or SingleDeviceTransport(cfg, device=device)
+    dev = tr.device
+    B, E, R = cfg.batch_size, cfg.entry_bytes, cfg.rows
+    code = RSCode(cfg.n_replicas, cfg.rs_k)
+    consts = parity_consts(code.n, code.k)
+    steps = max(1, min(CHUNK_STEPS, cfg.log_capacity // B))
+    rng = np.random.default_rng(seed)
+    state = tr.init() if state is None else state
+    alive = torch.ones(R, dtype=torch.bool, device=dev)
+    slow = torch.zeros(R, dtype=torch.bool, device=dev)
+    h_in = hashlib.sha256()
+    h_sets = {tuple(rs): hashlib.sha256() for rs in read_sets}
+    committed = int(state.commit_index[0])
+    goal = committed + n_entries
+    flights = 0
+    t0 = time.perf_counter()
+    while committed < goal:
+        take = min(goal - committed, steps * B)
+        T = -(-take // B)
+        counts = np.full(T, B, np.int32)
+        counts[-1] = take - (T - 1) * B
+        data = np.zeros((T * B, E), np.uint8)
+        data[:take] = entry_block(rng, take, E)
+        h_in.update(data[:take].tobytes())
+        wins = fold_data_lanes(torch.from_numpy(data).to(dev)).reshape(
+            T, B, E // 4)
+        state, info = steady_pipeline(
+            state, wins, torch.from_numpy(counts).to(dev), 0, 1, alive, slow,
+            0, 0, None, 1, commit_quorum=cfg.commit_quorum,
+            ec_consts=consts)
+        flights += 1
+        new_commit = int(info.commit_index)
+        if new_commit != committed + take:
+            raise RuntimeError(
+                f"commit stalled: {new_commit} != {committed + take}")
+        for rs, h in h_sets.items():
+            h.update(reconstruct(state, code, rs, committed + 1, new_commit)
+                     .tobytes())
+        committed = new_commit
+    wall = time.perf_counter() - t0
+    return ECDeviceRun({rs: h.hexdigest() for rs, h in h_sets.items()}, wall,
+                       state, h_in.hexdigest(), flights)
 
 
 def main():
