@@ -37,9 +37,37 @@ batch 1024, a 32 768-slot ring, commit quorum 4):
    the heal of row 4 (K6 encode), and a flight with rows 3 and 4 dead (no
    commit, the committed bytes still read); every EC kernel must have
    launched on it;
-8. times each EC kernel as in 5, and the EC path's device idle share;
-9. prints the kernel table, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+8. times each EC kernel as in 5, and the EC path's device idle share.
+
+Then the multi-Raft group data plane at the two deployments the JAX
+package's bench runs on it: config A (16 groups of 3 replicas, 256-byte
+entries, batch 256, a 4096-slot ring each; ``bench.py``
+``bench_multi_group``) and config B (1024 groups, 64-byte entries, batch
+16, a 1024-slot ring each, 32-tick fused launches; ``_group_shard_sweep``):
+
+9. holds K5 (the masked ring-window write, one launch for all groups)
+   against its plain version on the card, bit for bit, at both shapes with
+   per-group seam starts, counts and lane masks, all lanes rejected, and
+   one group; then a randomized 8-group schedule at config A's widths
+   (elections, slow and dead rows, masked groups, term changes, fused
+   launches, stale-term conflicts) with the group programs on the card and
+   their plain versions on the host;
+10. drives config A through ``group_vote_step`` and
+    ``group_replicate_step`` (a slow follower in half the groups healed by
+    the repair window, a masked group left bit-unchanged, 64 saturated
+    steps) and config B through ``fused_group_scan`` (4 clean launches, a
+    launch in which 64 groups lose two rows and halt, a launch with
+    ``halted0`` that leaves them bit-unchanged); every committed entry of
+    every group is read back from a follower row once a ring lap and its
+    per-group SHA-256 must equal the input's; one config-A group must
+    equal the single-group ``replicate_step`` path, and K5 must have
+    launched on both paths;
+11. times K5 at both shapes, config A's ms per 16-group step and config
+    B's µs per group tick of a fused launch (CUDA events; the counterparts
+    of ``bench.py``'s ``device_scan_us_per_step`` and
+    ``single_device_us_per_group_tick``) and both device idle shares;
+12. prints the kernel table, the card line, and last
+    ``{"ok": true, "device": {...}}``.
 
 Any failure ends the run with a nonzero exit code before the last line.
 It needs the repository checkout around it and a CUDA device.
@@ -741,9 +769,14 @@ def _device_events(fn, reps, before=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    pad = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # a one-word fill on each side of the window: late in a long run a
+        # profile now and then loses the device records at its edges
+        pad.add_(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
             if before:
@@ -751,6 +784,8 @@ def _device_events(fn, reps, before=None):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        pad.add_(1)
+        torch.cuda.synchronize()
     dev = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     return dev, wall
@@ -761,14 +796,15 @@ KERNEL_FN = {"K1": "write_window_both_kernel", "K2": "steady_step_kernel",
              "K3": "steady_pipeline_kernel", "K4": "turnover_kernel",
              "K6 encode": "parity_kernel", "K6 decode": "parity_kernel",
              "K7": "encode_fold_kernel", "K2·ec": "steady_step_kernel",
-             "K3·ec": "steady_pipeline_kernel", "K4·ec": "turnover_kernel"}
+             "K3·ec": "steady_pipeline_kernel", "K4·ec": "turnover_kernel",
+             "K5": "write_window_cols_kernel"}
 
 
 def kernel_ms(key, fn, reps, before=None, inner=1):
     """The kernel's device time per launch (median, profiler), and the
     wrapper's time per call (CUDA events around back-to-back calls)."""
     call_ms = _events_ms(fn, reps, inner=inner, before=before)
-    for attempt in range(3):
+    for attempt in range(6):
         dev, _ = _device_events(fn, reps, before=before)
         mine = [us for name, us in dev if KERNEL_FN[key] in name]
         if len(mine) == reps:
@@ -1434,6 +1470,619 @@ def profile_ec_flights(ecfg, dev, flights=4):
             "device_ms_by_kind": {k: v / 1e3 for k, v in by_name.items()}}
 
 
+# ------------------------------------------ the multi-Raft group plane
+GROUP_K = 32          # ticks per fused launch at config B
+
+
+def group_config_a():
+    """Config A, "multi-Raft G=16" (``bench.py`` ``bench_multi_group`` row
+    G=16 and its device leg ``_multi_device_scan``): 16 groups of 3
+    replicas, 256-byte entries (W = 64, M = 192), batch 256, a 4096-slot
+    ring per group."""
+    from raft_tpu_torch.config import RaftConfig
+
+    return RaftConfig(n_replicas=3, entry_bytes=256, batch_size=256,
+                      log_capacity=1 << 12, transport="single"), 16
+
+
+def group_config_b():
+    """Config B, "multi-Raft G=1024 fused" (``bench.py``
+    ``_group_shard_sweep`` row G=1024, its single-device leg): 1024 groups
+    of 3 replicas, 64-byte entries (W = 16, M = 48), batch 16, a 1024-slot
+    ring per group, K = 32 ticks per fused launch."""
+    from raft_tpu_torch.config import RaftConfig
+
+    return RaftConfig(n_replicas=3, entry_bytes=64, batch_size=16,
+                      log_capacity=1 << 10, transport="single"), 1024
+
+
+def dev_rand(rng, shape, dev):
+    """Random int32 words of ``shape`` made on the card from a seed."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    return torch.randint(-2**31, 2**31 - 1, shape, generator=g, device=dev,
+                         dtype=torch.int32)
+
+
+def lane_masks(rng, G, M, R):
+    """Per-group lane masks: random lanes (partly selected 16-byte
+    vectors), whole replica blocks (what the group step passes), and every
+    lane (the whole-vector path)."""
+    m = rng.random((G, M)) < 0.6
+    for g in range(0, G, 3):
+        m[g] = np.repeat(rng.random(R) < 0.7, M // R)
+    m[1::7] = True
+    return m
+
+
+def k5_case(dev, buf, win, starts, counts, lanes):
+    """K5 and its plain version on clones of ``buf``, on the card: (max
+    error, the kernel's result)."""
+    import torch
+
+    from raft_tpu_torch.core import ring_cuda
+    from raft_tpu_torch.core.ring import write_window_cols_xla
+
+    s = torch.tensor(starts, dtype=torch.int32, device=dev)
+    c = torch.tensor(counts, dtype=torch.int32, device=dev)
+    sel = torch.tensor(lanes, dtype=torch.bool, device=dev)
+    a, b = buf.clone(), buf.clone()
+    ring_cuda.write_window_cols(a, win, s, c, sel)
+    write_window_cols_xla(b, win, s, c, sel)
+    torch.cuda.synchronize()
+    return max_err([(a, b)]), a
+
+
+class GroupLockstep:
+    """G groups held twice — the group programs (K5) on the card, their
+    plain versions on the host — and stepped in lock step: every output
+    and every state leaf must agree after every call."""
+
+    def __init__(self, cfg, G, dev):
+        from raft_tpu_torch.core.state import init_group_state
+
+        self.dev = dev
+        self.sts = {"k": init_group_state(cfg, G, device=dev),
+                    "p": init_group_state(cfg, G, device="cpu")}
+
+    def __call__(self, fn, *args):
+        import torch
+
+        from raft_tpu_torch.core.state import FIELDS
+
+        outs = {}
+        for side, d in (("k", self.dev), ("p", "cpu")):
+            conv = [a.to(d) if isinstance(a, torch.Tensor) else a
+                    for a in args]
+            self.sts[side], *outs[side] = fn(self.sts[side], *conv)
+        for a, b in zip(outs["k"], outs["p"]):
+            for x, y in zip(*(t if isinstance(t, tuple) else (t,)
+                              for t in (a, b))):
+                check(torch.equal(x.cpu(), y), "group schedule output")
+        for f in FIELDS:
+            check(torch.equal(getattr(self.sts["k"], f).cpu(),
+                              getattr(self.sts["p"], f)),
+                  f"group schedule: state.{f}")
+        return outs["k"]
+
+
+def random_group_schedule(cfg, G, dev, n, rng):
+    """Elections, repair-capable and steady group ticks and fused launches
+    under random slow rows, dead rows, masked groups, term changes and
+    member masks, with a fabricated stale-term conflict now and then.
+    Returns (steps, truncating conflicts seen)."""
+    import torch
+
+    from raft_tpu_torch.core.step import (fused_group_scan,
+                                          group_replicate_step,
+                                          group_vote_step)
+
+    R, B, W = cfg.rows, cfg.batch_size, cfg.shard_words
+    C = cfg.log_capacity
+    vote = group_vote_step(R)
+    rep = {r: group_replicate_step(R, repair=r) for r in (True, False)}
+    fused = fused_group_scan(R)
+    ls = GroupLockstep(cfg, G, dev)
+    gi = np.arange(G)
+    leader, term = gi % R, np.ones(G, np.int64)
+
+    def t(a, dtype=torch.int32):
+        return torch.from_numpy(np.asarray(a)).to(dtype)
+
+    def words(*lead):
+        return dev_rand(rng, lead + (B, W), dev)
+
+    ls(vote, t(leader), t(term), torch.ones(G, R, dtype=torch.bool))
+    counts_of = [0, 1, 17, B - 1, B]
+    steps = conflicts = 0
+    while steps < n:
+        elect = rng.random(G) < 0.1
+        if elect.any():
+            term = term + elect * rng.integers(1, 3, G)
+            leader = np.where(elect, rng.integers(0, R, G), leader)
+            al = (rng.random((G, R)) > 0.2) & elect[:, None]
+            al[gi, leader] = elect
+            ls(vote, t(leader), t(term), t(al, torch.bool))
+        alive = rng.random((G, R)) > 0.1
+        alive[gi, leader] = True
+        slow = rng.random((G, R)) < 0.15
+        masked = rng.random(G) < 0.15
+        alive[masked] = False
+        terms = np.where(masked, 0, term)
+        member = np.ones((G, R), bool)
+        if rng.random() < 0.2:
+            member = rng.random((G, R)) < 0.8
+            member[gi, leader] = True
+        masks = (t(alive, torch.bool), t(slow, torch.bool),
+                 t(member, torch.bool))
+        if rng.random() < 0.2:
+            K = int(rng.integers(2, 5))
+            counts = rng.choice(counts_of, (K, G))
+            ls(fused, words(K, G), t(counts), int(rng.integers(1, K + 1)),
+               t(rng.random(G) < 0.2, torch.bool), t(leader), t(terms),
+               *masks)
+            steps += K
+        else:
+            counts = rng.choice(counts_of, G)
+            ls(rep[bool(rng.random() < 0.7)], words(G).repeat(1, 1, R),
+               t(counts), t(leader), t(terms), *masks)
+            steps += 1
+        if steps % 10 < 2:
+            conflicts += group_conflict(ls, vote, rep[True], leader, term,
+                                        words(G).repeat(1, 1, R), C)
+    return steps, conflicts
+
+
+def group_conflict(ls, vote, rep, leader, term, pays, C):
+    """A stale-term conflict in one group: a caught-up follower is given
+    two entries of the current term past the leader's log; the leader is
+    re-elected in the next term, and its one-entry window must truncate the
+    follower to it. Returns 1 when a group qualified, else 0."""
+    import torch
+
+    p = ls.sts["p"]
+    G, R = p.term.shape
+    for g in range(G):
+        lg = int(leader[g])
+        last = int(p.last_index[g, lg])
+        rows = [r for r in range(R) if r != lg
+                and int(p.last_index[g, r]) == last and last > 0
+                and int(p.log_term[g, r, (last - 1) % C])
+                == int(p.log_term[g, lg, (last - 1) % C])
+                and int(p.term[g, r]) <= int(term[g])]
+        if rows:
+            break
+    else:
+        return 0
+    r = rows[0]
+    for st in ls.sts.values():
+        st.last_index[g, r] = last + 2
+        st.log_term[g, r, [last % C, (last + 1) % C]] = int(term[g])
+    term[g] += 1
+    one = torch.zeros(G, R, dtype=torch.bool)
+    one[g] = True
+    ls(vote, torch.from_numpy(leader.astype(np.int32)),
+       torch.from_numpy(term.astype(np.int32)), one)
+    counts = torch.zeros(G, dtype=torch.int32)
+    counts[g] = 1
+    ls(rep, pays, counts, torch.from_numpy(leader.astype(np.int32)),
+       torch.from_numpy(np.where(np.arange(G) == g, term, 0).astype(
+           np.int32)), one, torch.zeros(G, R, dtype=torch.bool),
+       torch.ones(G, R, dtype=torch.bool))
+    check(int(ls.sts["p"].last_index[g, r]) == last + 1,
+          "the stale-term conflict did not truncate")
+    return 1
+
+
+def phase_group_kernels(dev, n_random=60):
+    """K5 against its plain version on the card, bit for bit, at both
+    group configurations' shapes, then a randomized multi-group schedule at
+    config A's widths (kernel path on the card, plain path on the host)."""
+    import torch
+
+    from raft_tpu_torch.core import ring_cuda
+    from raft_tpu_torch.core.ring import write_window_cols_xla
+
+    rng = np.random.default_rng(SEED + 20)
+    err, cases = 0, 0
+    for cfg, G in (group_config_a(), group_config_b()):
+        C, B, R = cfg.log_capacity, cfg.batch_size, cfg.rows
+        M = R * cfg.shard_words
+        seam = [0, C // 2 + 5, C - B, C - B + 11, C - 1]
+        cnts = [0, 1, 17, B - 1, B]
+        starts = [seam[g % 5] for g in range(G)]
+        counts = [cnts[(g + g // 5) % 5] for g in range(G)]
+        buf = dev_rand(rng, (G, C, M), dev)
+        win = dev_rand(rng, (G, B, M), dev)
+        e, _ = k5_case(dev, buf, win, starts, counts,
+                       lane_masks(rng, G, M, R))
+        err, cases = max(err, e), cases + 1
+        e, out = k5_case(dev, buf, win, starts, [B] * G,
+                         np.zeros((G, M), bool))
+        check(torch.equal(out, buf), "K5 with every lane rejected wrote")
+        err, cases = max(err, e), cases + 1
+        # G = 1: one ring, unbatched and batched
+        for one in (buf[0], buf[:1]):
+            a, b = one.clone(), one.clone()
+            sel = torch.from_numpy(rng.random(M) < 0.6).to(dev)
+            sel = sel if one.dim() == 2 else sel[None]
+            w = win[0] if one.dim() == 2 else win[:1]
+            s = torch.tensor(C - B + 11, dtype=torch.int32, device=dev)
+            ring_cuda.write_window_cols(a, w, s, B - 3, sel)
+            write_window_cols_xla(b, w, s, B - 3, sel)
+            err, cases = max(err, max_err([(a, b)])), cases + 1
+        del buf, win
+    cfg, _ = group_config_a()
+    steps, conflicts = random_group_schedule(cfg, 8, dev, n_random, rng)
+    check(err == 0, f"K5 differs from its plain version by {err}")
+    check(conflicts > 0, "no stale-term conflict in the group schedule")
+    res = {"phase": "group_kernels_vs_plain", "cases": cases,
+           "max_abs_err": err, "random_schedule_steps": steps,
+           "random_schedule_groups": 8, "conflicts_truncated": conflicts}
+    emit(res)
+    return res
+
+
+class GroupStream:
+    """Each group's client stream: seeded entries, the group's input hash
+    in index order, and the hash of what one follower row (``(g + 1) %
+    R``; the leader is ``g % R``) has committed, read back once a ring lap
+    at the latest."""
+
+    def __init__(self, cfg, G, seed):
+        self.rng = np.random.default_rng(seed)
+        self.cfg, self.G = cfg, G
+        self.rows = [(g + 1) % cfg.rows for g in range(G)]
+        self.h_in = [hashlib.sha256() for _ in range(G)]
+        self.h_row = [hashlib.sha256() for _ in range(G)]
+        self.done = np.zeros(G, np.int64)
+        self.submitted = np.zeros(G, np.int64)
+
+    def entries(self, counts, dev):
+        """Entries for windows of ``counts`` [T, G] (zero past each count),
+        as untiled words i32[T, G, B, W] on ``dev``."""
+        import torch
+
+        T, G = counts.shape
+        B, E = self.cfg.batch_size, self.cfg.entry_bytes
+        data = self.rng.integers(0, 256, (T, G, B, E), dtype=np.uint8)
+        keep = np.arange(B)[None, None, :] < counts[:, :, None]
+        data[~keep] = 0
+        for g in range(G):
+            self.h_in[g].update(data[:, g][keep[:, g]].tobytes())
+        self.submitted += counts.sum(axis=0)
+        return torch.from_numpy(data).to(dev).view(torch.int32)
+
+    def read_back(self, state):
+        """Hash every entry each group's follower row committed since the
+        last read, checking that none was overwritten before it."""
+        import torch
+
+        C, R = self.cfg.log_capacity, self.cfg.rows
+        W, G = self.cfg.shard_words, self.G
+        dev = state.device
+        rows = torch.tensor(self.rows, device=dev)
+        gi = torch.arange(G, device=dev)
+        hi = state.commit_index[gi, rows].cpu().numpy().astype(np.int64)
+        last = state.last_index.amax(dim=1).cpu().numpy().astype(np.int64)
+        lo = self.done + 1
+        check(bool((lo > last - C).all()),
+              "a committed entry was overwritten before its read-back")
+        n = int((hi - lo + 1).max())
+        if n <= 0:
+            return
+        idx = np.clip(lo[:, None] + np.arange(n)[None, :], 1, None)
+        slots = torch.from_numpy((idx - 1) % C).to(dev)
+        words = state.log_payload.view(G, C, R, W)[
+            gi[:, None], slots, rows[:, None]]
+        got = words.cpu().numpy().view(np.uint8)
+        for g in range(G):
+            k = int(hi[g] - lo[g] + 1)
+            if k > 0:
+                self.h_row[g].update(got[g, :k].tobytes())
+        self.done = np.maximum(self.done, hi)
+
+    def check_digests(self, what):
+        check(bool((self.done == self.submitted).all()),
+              f"{what}: not every submitted entry was read back")
+        bad = [g for g in range(self.G)
+               if self.h_row[g].digest() != self.h_in[g].digest()]
+        check(not bad, f"{what}: read-back of groups {bad[:8]} differs "
+                       f"from their input")
+
+
+def group_leaves(state, groups):
+    """Clones of the given groups' leaves (for bit-unchanged checks)."""
+    from raft_tpu_torch.core.state import FIELDS
+
+    return [getattr(state, f)[groups].clone() for f in FIELDS]
+
+
+def group_main_a(dev):
+    """Config A through the group programs: round-robin election, 8
+    repair-capable ticks with a slow follower in half the groups and one
+    group masked, heal by the repair window, then T = 64 saturated steps
+    in which every group commits 64·B; per-group read-back, and one group
+    held against the single-group port path fed the same inputs."""
+    import torch
+
+    from raft_tpu_torch.core import ring_cuda
+    from raft_tpu_torch.core.comm import SingleDeviceComm, take_groups
+    from raft_tpu_torch.core.state import (FIELDS, group_view,
+                                           init_group_state, init_state)
+    from raft_tpu_torch.core.step import (group_replicate_step,
+                                          group_vote_step, replicate_step,
+                                          vote_step)
+
+    cfg, G = group_config_a()
+    R, B, C = cfg.rows, cfg.batch_size, cfg.log_capacity
+    T, SH, MASKED = 64, 4, G - 1
+    vote, rep = group_vote_step(R), group_replicate_step(R)
+    S = GroupStream(cfg, G, SEED + 21)
+    gi = torch.arange(G, device=dev)
+    leaders = (gi % R).to(torch.int32)
+    ones = torch.ones(G, dtype=torch.int32, device=dev)
+    alive = torch.ones(G, R, dtype=torch.bool, device=dev)
+    quiet = torch.zeros(G, R, dtype=torch.bool, device=dev)
+    comm = SingleDeviceComm(R)
+    ring_cuda.LAUNCHES["write_window_cols"] = 0
+    t0 = time.perf_counter()
+    state = init_group_state(cfg, G, device=dev)
+    shadow = init_state(cfg, device=dev)
+    state, vi = vote(state, leaders, ones, alive)
+    check(vi.votes.tolist() == [R] * G, "round-robin election")
+    shadow, _ = vote_step(comm, shadow, SH % R, 1, alive[SH])
+
+    def tick(counts, slow=quiet, alive_=alive, terms=ones):
+        nonlocal state, shadow
+        cnt = np.asarray(counts, np.int64)
+        pays = S.entries(cnt[None], dev)[0].repeat(1, 1, R)
+        c = torch.from_numpy(cnt.astype(np.int32)).to(dev)
+        state, info = rep(state, pays, c, leaders, terms, alive_, slow,
+                          alive)
+        shadow, _ = replicate_step(comm, shadow, pays[SH], c[SH], SH % R,
+                                   terms[SH], alive_[SH], slow[SH],
+                                   member=alive[SH])
+        check(torch.equal(info.frontier_len, c), "group ingest")
+        return info
+
+    # 8 repair-capable ticks: row 2 slow in the first 8 groups it does not
+    # lead (half the groups), group 15 masked
+    slow = quiet.clone()
+    lagging = [g for g in range(G) if g % R != 2][:G // 2]
+    slow[lagging, 2] = True
+    live = alive.clone()
+    live[MASKED] = False
+    terms = ones.clone()
+    terms[MASKED] = 0
+    masked0 = group_leaves(state, [MASKED])
+    full = [B] * G
+    full[MASKED] = 0
+    for _ in range(8):
+        info = tick(full, slow, live, terms)
+    check(not info.match[lagging, 2].any(), "slow rows stayed behind")
+    for a, b in zip(masked0, group_leaves(state, [MASKED])):
+        check(torch.equal(a, b), "the masked group changed")
+    # heal: heartbeat ticks; each repair window (K5) carries B entries
+    heal = 0
+    while True:
+        lag = take_groups(state.last_index, leaders)[:, None] \
+            - state.match_index
+        if not bool(lag.any()):
+            break
+        before = state.match_index[lagging, 2].clone()
+        info = tick([0] * G)
+        heal += 1
+        moved = state.match_index[lagging, 2] - before
+        check(bool((moved == B).all()) or heal > 1,
+              "the first repair window did not carry B entries")
+        check(heal <= 10, "the repair window did not heal the slow rows")
+    S.read_back(state)
+    # T saturated steps: every group ingests and commits a full batch
+    c0 = take_groups(state.commit_index, leaders).clone()
+    for step in range(T):
+        tick([B] * G)
+        if (step + 1) % (C // B) == 0:
+            S.read_back(state)
+    S.read_back(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ring_cuda.LAUNCHES["write_window_cols"]
+    commit = take_groups(state.commit_index, leaders)
+    check(torch.equal(commit - c0, torch.full_like(c0, T * B)),
+          "every group commits 64·B in the saturated steps")
+    check(commit.tolist() == S.submitted.tolist(), "every entry committed")
+    S.check_digests("config A")
+    view = group_view(state, SH)
+    for f in FIELDS:
+        check(torch.equal(getattr(view, f), getattr(shadow, f)),
+              f"group {SH} differs from the single-group path: {f}")
+    check(launches > 0, "K5 never ran on config A's path")
+    return {"groups": G, "entries_committed": int(S.submitted.sum()),
+            "entries_per_group": int(S.submitted[0]),
+            "ring_laps": int(S.submitted[0]) // C, "heal_ticks": heal,
+            "saturated_steps": T, "k5_launches": launches,
+            "sha256_group0": S.h_in[0].hexdigest(),
+            "wall_s": wall}
+
+
+def group_main_b(dev):
+    """Config B through ``fused_group_scan``: 4 chained K = 32 launches
+    with no escape (every group commits 128·B, 2 ring laps, read back per
+    launch), then a launch in which 64 groups lose two rows (they escape
+    at their first tick and halt; the rest commit K·B), then a launch with
+    ``halted0`` that must leave the halted groups bit-unchanged."""
+    import torch
+
+    from raft_tpu_torch.core import ring_cuda
+    from raft_tpu_torch.core.comm import take_groups
+    from raft_tpu_torch.core.state import init_group_state
+    from raft_tpu_torch.core.step import fused_group_scan, group_vote_step
+
+    cfg, G = group_config_b()
+    R, B, K = cfg.rows, cfg.batch_size, GROUP_K
+    fused, vote = fused_group_scan(R), group_vote_step(R)
+    S = GroupStream(cfg, G, SEED + 22)
+    gi = torch.arange(G, device=dev)
+    leaders = (gi % R).to(torch.int32)
+    ones = torch.ones(G, dtype=torch.int32, device=dev)
+    alive = torch.ones(G, R, dtype=torch.bool, device=dev)
+    quiet = torch.zeros(G, R, dtype=torch.bool, device=dev)
+    none = torch.zeros(G, dtype=torch.bool, device=dev)
+    full = np.full((K, G), B, np.int64)
+    counts = torch.full((K, G), B, dtype=torch.int32, device=dev)
+    ring_cuda.LAUNCHES["write_window_cols"] = 0
+    t0 = time.perf_counter()
+    state = init_group_state(cfg, G, device=dev)
+    state, vi = vote(state, leaders, ones, alive)
+    check(vi.votes.tolist() == [R] * G, "round-robin election")
+
+    def commits():
+        return take_groups(state.commit_index, leaders)
+
+    for _ in range(4):
+        state, _, esc, _, halted = fused(state, S.entries(full, dev), counts,
+                                         K, none, leaders, ones, alive,
+                                         quiet, alive)
+        check(not bool(esc.any()) and not bool(halted.any()),
+              "a clean launch escaped")
+        S.read_back(state)
+    check(commits().tolist() == [4 * K * B] * G, "every group commits 128·B")
+    S.check_digests("config B")
+    # 64 groups lose both followers: a commit stall at their first tick
+    lost = gi[::G // 64]
+    cut = alive.clone()
+    cut[lost] = False
+    cut[lost, leaders[lost].long()] = True
+    pays = dev_rand(np.random.default_rng(SEED + 23),
+                    (K, G, B, cfg.shard_words), dev)
+    c0 = commits().clone()
+    state, _, esc, ran, halted = fused(state, pays, counts, K, none,
+                                       leaders, ones, cut, quiet, alive)
+    want = torch.zeros(G, dtype=torch.bool, device=dev)
+    want[lost] = True
+    check(torch.equal(halted, want) and torch.equal(esc[0].bool(), want)
+          and int(esc.sum()) == len(lost), "the cut groups escape at once")
+    check(not bool(ran[1:, lost].any()), "a halted group ran on")
+    gain = commits() - c0
+    check(bool((gain[~want] == K * B).all()) and not bool(gain[want].any()),
+          "the other groups commit K·B, the cut ones nothing")
+    kept = group_leaves(state, lost)
+    state, _, esc, ran, halted2 = fused(state, pays, counts, K, halted,
+                                        leaders, ones, alive, quiet, alive)
+    for a, b in zip(kept, group_leaves(state, lost)):
+        check(torch.equal(a, b), "a halted group changed")
+    check(torch.equal(halted2, halted) and not bool(ran[:, lost].any()),
+          "halted0 did not thread across the launch")
+    check(bool((commits() - c0)[~want].eq(2 * K * B).all()),
+          "the running groups commit on")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ring_cuda.LAUNCHES["write_window_cols"]
+    check(launches > 0, "K5 never ran on config B's path")
+    return {"groups": G, "ticks_per_launch": K,
+            "entries_committed_read_back": int(S.submitted.sum()),
+            "entries_per_group": int(S.submitted[0]),
+            "ring_laps": int(S.submitted[0]) // cfg.log_capacity,
+            "escaped_groups": int(len(lost)), "k5_launches": launches,
+            "sha256_group0": S.h_in[0].hexdigest(), "wall_s": wall}
+
+
+def phase_group_main_path(dev):
+    res = {"phase": "group_main_path", "config_a": group_main_a(dev),
+           "config_b": group_main_b(dev)}
+    emit(res)
+    return res
+
+
+def phase_group_timing(dev, card_line, reps=21):
+    """K5 per launch at both configurations' frontier windows beside its
+    plain version and byte bound; µs per group tick of config A's step
+    and of config B's fused launch (CUDA events); the device idle share
+    of both (torch.profiler)."""
+    import torch
+
+    from raft_tpu_torch.core import ring_cuda
+    from raft_tpu_torch.core.ring import write_window_cols_xla
+    from raft_tpu_torch.core.state import init_group_state
+    from raft_tpu_torch.core.step import (fused_group_scan,
+                                          group_replicate_step,
+                                          group_vote_step)
+
+    rng = np.random.default_rng(SEED + 24)
+    rate = mem_rate(card_line)
+    res = {"phase": "group_timing", "card": card_line,
+           "mem_bytes_per_s": rate}
+    for name, (cfg, G) in (("A", group_config_a()), ("B", group_config_b())):
+        C, B, R, W = cfg.log_capacity, cfg.batch_size, cfg.rows, \
+            cfg.shard_words
+        M = R * W
+        # K5 on a frontier window: every row accepts, count = B
+        buf = dev_rand(rng, (G, C, M), dev)
+        win = dev_rand(rng, (G, B, M), dev)
+        s = torch.from_numpy(rng.integers(0, C, G).astype(np.int32)).to(dev)
+        cnt = torch.full((G,), B, dtype=torch.int32, device=dev)
+        sel = torch.ones(G, M, dtype=torch.bool, device=dev)
+        ms, call_ms = kernel_ms("K5", lambda: ring_cuda.write_window_cols(
+            buf, win, s, cnt, sel), reps, inner=20)
+        plain = _host_ms(lambda: write_window_cols_xla(buf, win, s, cnt, sel),
+                         reps)
+        nbytes = 2 * G * B * M * 4 + G * M + 2 * G * 4
+        res[f"K5 {name}"] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain,
+                             "bytes": nbytes, "bound_ms": nbytes / rate * 1e3}
+        del buf, win
+        # the group tick on a steady cluster: every group ingests B
+        gi = torch.arange(G, device=dev)
+        leaders = (gi % R).to(torch.int32)
+        ones = torch.ones(G, dtype=torch.int32, device=dev)
+        alive = torch.ones(G, R, dtype=torch.bool, device=dev)
+        quiet = torch.zeros(G, R, dtype=torch.bool, device=dev)
+        box = {"st": group_vote_step(R)(init_group_state(cfg, G, device=dev),
+                                        leaders, ones, alive)[0]}
+        if name == "A":
+            rep = group_replicate_step(R)
+            pays = dev_rand(rng, (G, B, W), dev).repeat(1, 1, R)
+
+            def fn():
+                box["st"], _ = rep(box["st"], pays, cnt, leaders, ones,
+                                   alive, quiet, alive)
+
+            ticks = G
+        else:
+            fused = fused_group_scan(R)
+            pays = dev_rand(rng, (GROUP_K, G, B, W), dev)
+            counts = torch.full((GROUP_K, G), B, dtype=torch.int32,
+                                device=dev)
+            none = torch.zeros(G, dtype=torch.bool, device=dev)
+
+            def fn():
+                box["st"], *_ = fused(box["st"], pays, counts, GROUP_K, none,
+                                      leaders, ones, alive, quiet, alive)
+
+            ticks = G * GROUP_K
+        call = _events_ms(fn, 7 if name == "A" else 3)
+        events, wall = _device_events(fn, 4 if name == "A" else 2)
+        busy = sum(us for _, us in events)
+        k5_us = sum(us for n_, us in events if KERNEL_FN["K5"] in n_)
+        launches = 4 if name == "A" else 2
+        res[f"group_tick_{name}"] = {
+            # config A's call is one G-group step: bench.py's
+            # device_scan_us_per_step; config B's us_per_group_tick is
+            # bench.py's single_device_us_per_group_tick
+            "ms_per_call": call, "us_per_group_tick": call * 1e3 / ticks,
+            # a host-clock-bound rate over CUDA events, not a device rate
+            "entries_per_s_events": ticks * B / (call * 1e-3),
+            "device_busy_ms": busy / 1e3,
+            "k5_ms_per_call": k5_us / 1e3 / launches,
+            "device_idle_share": 1.0 - busy / (wall * 1e6),
+            # less the two one-word fills around the profiled window
+            "device_kernels_per_call": (len(events) - 2) / launches}
+    torch.cuda.synchronize()
+    emit(res)
+    return res
+
+
 KERNELS = [
     ("K1", "write_window_both", "raft_tpu_torch/csrc/ring.cu",
      "raft_tpu/core/ring_pallas.py:145"),
@@ -1483,6 +2132,9 @@ def main() -> int:
     ec_errs = phase_ec_kernels(ecfg, dev)
     ec_main = phase_ec_main_path(ecfg, dev)
     ec_timing = phase_ec_timing(ecfg, dev, card_line)
+    group_errs = phase_group_kernels(dev)
+    group_main = phase_group_main_path(dev)
+    group_timing = phase_group_timing(dev, card_line)
     kernels = []
     for table, err, main, tim in ((KERNELS, errs, main_res, timing),
                                   (EC_KERNELS, ec_errs, ec_main, ec_timing)):
@@ -1496,6 +2148,19 @@ def main() -> int:
                 "bound_by": "bytes", "library_ms": None,
                 "matches_plain": True,
             })
+    for key, cfg_key, label in (("K5 A", "config_a", "multi-Raft G=16"),
+                                ("K5 B", "config_b",
+                                 "multi-Raft G=1024 fused")):
+        t = group_timing[key]
+        kernels.append({
+            "name": f"K5 write_window_cols ({label})", "route": "cuda",
+            "source": "raft_tpu_torch/csrc/ring.cu",
+            "replaces": "raft_tpu/core/ring_pallas.py:208",
+            "launches": group_main[cfg_key]["k5_launches"],
+            "max_abs_err": group_errs["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "matches_plain": True,
+        })
     emit({"kernels": kernels})
     print(card_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

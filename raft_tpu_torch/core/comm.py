@@ -19,6 +19,19 @@ def take(x: torch.Tensor, idx, dim: int = 0) -> torch.Tensor:
     return x.select(dim, int(idx))
 
 
+def take_groups(x: torch.Tensor, idx: torch.Tensor,
+                dim: int = 1) -> torch.Tensor:
+    """The batched ``take``: for every group g, ``x[g]`` indexed at
+    ``idx[g]`` along ``dim`` (``x`` [G, ...], ``idx`` [G]) — one
+    ``gather``, no host sync."""
+    shape = [1] * x.dim()
+    shape[0] = x.shape[0]
+    size = list(x.shape)
+    size[dim] = 1
+    index = idx.long().reshape(shape).expand(size)
+    return x.gather(dim, index).squeeze(dim)
+
+
 class SingleDeviceComm:
     """All R replica rows resident on one device (L == R)."""
 
@@ -42,3 +55,10 @@ class SingleDeviceComm:
         [B, L*w] -> [B, L*w]."""
         blocks = win.reshape(win.shape[0], self.n_replicas, w)
         return take(blocks, leader, 1).repeat(1, self.n_replicas)
+
+    def group_leader_cols(self, win: torch.Tensor, leaders: torch.Tensor,
+                          w: int) -> torch.Tensor:
+        """``leader_cols`` per group: [G, B, L*w] with ``leaders`` [G]."""
+        G, B = win.shape[:2]
+        blocks = win.reshape(G, B, self.n_replicas, w)
+        return take_groups(blocks, leaders, 2).repeat(1, 1, self.n_replicas)

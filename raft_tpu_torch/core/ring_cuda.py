@@ -1,12 +1,18 @@
-"""Kernel K1: the fused ring-window write (port of
-``raft_tpu/core/ring_pallas.py:145`` ``write_window_both_tpu``).
+"""The ring kernels (port of ``raft_tpu/core/ring_pallas.py``).
 
-``write_window_both`` writes a B-row window into the payload ring and the
-term ring in place, and returns the per-row Raft §5.3 conflict flags. On a
-CUDA tensor it launches the hand-written kernel in ``csrc/ring.cu`` (its
-header states the design and the bound); on a CPU tensor it runs
-``write_window_both_plain``, the same function built from the ring twins
-of ``core.ring`` — the JAX package's XLA formulation of this step.
+- K1 ``write_window_both`` (``write_window_both_tpu`` :145) writes a B-row
+  window into the payload ring and the term ring in place, and returns
+  the per-row Raft §5.3 conflict flags. Its plain version,
+  ``write_window_both_plain``, is built from the ring twins of
+  ``core.ring`` — the JAX package's XLA formulation of this step.
+- K5 ``write_window_cols`` (``write_window_cols_tpu`` :208) is the masked
+  payload window write with a per-lane mask, for one ring or, with a
+  leading group axis, for G rings in one launch (the group programs of
+  ``core.step``). Its plain version is ``core.ring.write_window_cols_xla``.
+
+On a CUDA tensor each wrapper launches its hand-written kernel in
+``csrc/ring.cu`` (whose comments state the design and the bound); on a
+CPU tensor it runs the plain version.
 """
 
 from __future__ import annotations
@@ -15,13 +21,14 @@ import torch
 
 from raft_tpu_torch import cuda_build
 from raft_tpu_torch.core.ring import (
+    per_group,
     read_window,
     write_window_cols_xla,
     write_window_rows,
 )
 
 #: kernel launches, counted where each wrapper launches its kernel
-LAUNCHES = {"write_window_both": 0}
+LAUNCHES = {"write_window_both": 0, "write_window_cols": 0}
 
 
 def write_window_both_plain(buf_p, buf_t, win, win_t, s, count, ws, accept,
@@ -88,3 +95,40 @@ def write_window_both(buf_p: torch.Tensor, buf_t: torch.Tensor,
     cuda_build.check("ring", rc, "write_window_both")
     LAUNCHES["write_window_both"] += 1
     return mm
+
+
+def write_window_cols(buf: torch.Tensor, win: torch.Tensor, s, count,
+                      lane_sel: torch.Tensor) -> torch.Tensor:
+    """In-place masked write of window ``win`` [B, M] into ``buf`` [C, M]
+    at slots [s, s+B) mod C: window rows j < count, lanes where
+    ``lane_sel`` [M]. With a leading group axis — ``buf`` [G, C, M],
+    ``win`` [G, B, M], ``lane_sel`` [G, M], ``s``/``count`` [G] device
+    tensors — one launch writes every group's window. ``s`` and ``count``
+    are never read back to the host. Returns ``buf``."""
+    if not buf.is_cuda:
+        return write_window_cols_xla(buf, win, s, count, lane_sel)
+    dev = buf.device
+    grouped = buf.dim() == 3
+    G = buf.shape[0] if grouped else 1
+    C, M = buf.shape[-2:]
+    B = win.shape[-2]
+    lead = (G,) if grouped else ()
+    if (buf.dim() not in (2, 3) or tuple(win.shape) != lead + (B, M)
+            or tuple(lane_sel.shape) != lead + (M,) or 2 * B > C
+            or G * B * M >= 2 ** 31):
+        raise ValueError(f"unsupported window write: buf {tuple(buf.shape)} "
+                         f"win {tuple(win.shape)} lane_sel "
+                         f"{tuple(lane_sel.shape)}")
+    for name, t in (("buf", buf), ("win", win)):
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name} must be contiguous int32 on {dev}")
+    sel = lane_sel.to(device=dev, dtype=torch.bool).contiguous()
+    s_t, c_t = (per_group(x, G, dev, torch.int32).contiguous()
+                for x in (s, count))
+    rc = cuda_build.lib("ring").rt_write_window_cols(
+        buf.data_ptr(), win.data_ptr(), s_t.data_ptr(), c_t.data_ptr(),
+        sel.data_ptr(), C, M, B, G, int(vec4_ok(M, 1, buf, win)),
+        cuda_build.stream_of(buf))
+    cuda_build.check("ring", rc, "write_window_cols")
+    LAUNCHES["write_window_cols"] += 1
+    return buf

@@ -112,10 +112,40 @@ def init_state(cfg: RaftConfig, rows: Optional[int] = None,
     )
 
 
+def init_group_state(cfg: RaftConfig, n_groups: int,
+                     rows: Optional[int] = None,
+                     device="cuda") -> ReplicaState:
+    """Zero state for ``n_groups`` independent Raft groups as one batched
+    state: every leaf of ``init_state`` gains a leading group axis G
+    (``log_term`` [G, R, C], ``log_payload`` [G, C, R*W]), so the group
+    programs of ``core.step`` move all G groups in one batched call. The
+    shape-derived properties (``words_per_entry``) assume the unbatched
+    layout: slice a group out with ``group_view`` first."""
+    one = init_state(cfg, rows, device)
+    return ReplicaState(*(
+        getattr(one, f).unsqueeze(0).repeat(
+            (n_groups,) + (1,) * getattr(one, f).dim())
+        for f in FIELDS))
+
+
+def group_view(state: ReplicaState, g: int) -> ReplicaState:
+    """Group ``g`` of a group-batched state as an unbatched state. Its
+    leaves are views sharing the batched storage: a step run on the view
+    updates the group in place; ``clone()`` it to keep a copy."""
+    return ReplicaState(*(getattr(state, f)[g] for f in FIELDS))
+
+
+def as_group(state: ReplicaState) -> ReplicaState:
+    """An unbatched state as a group-batched one with G = 1 (views); the
+    inverse of ``group_view(state, 0)``."""
+    return ReplicaState(*(getattr(state, f)[None] for f in FIELDS))
+
+
 def state_from_numpy(fields: dict, device="cuda") -> ReplicaState:
     """A state from numpy leaves keyed by field name — e.g. a JAX
     ``ReplicaState`` taken through ``jax.tree.map(np.asarray, ...)`` and
-    ``dataclasses.asdict``-style access. Every leaf becomes int32."""
+    ``dataclasses.asdict``-style access. Every leaf becomes int32 and keeps
+    its shape, so group-batched states carry across too."""
     return ReplicaState(*(
         torch.from_numpy(np.array(fields[f], dtype=np.int32, copy=True))
         .to(device) for f in FIELDS
@@ -196,7 +226,8 @@ def committed_payloads(state: ReplicaState, replica: int) -> np.ndarray:
 
 
 def last_log_term(state: ReplicaState) -> torch.Tensor:
-    """Term of each replica's last entry (0 for an empty log) — i32[R]."""
+    """Term of each replica's last entry (0 for an empty log) — i32[R], or
+    i32[G, R] for a group-batched state."""
     slot = slot_of(state.last_index.clamp(min=1), state.capacity)
-    t = torch.gather(state.log_term, 1, slot[:, None].long())[:, 0]
+    t = torch.gather(state.log_term, -1, slot[..., None].long())[..., 0]
     return torch.where(state.last_index > 0, t, 0)

@@ -62,6 +62,85 @@ __global__ void write_window_both_kernel(
   }
 }
 
+// K5 — the masked ring-window write, for Hopper (sm_90a).
+//
+// Replaces raft_tpu/core/ring_pallas.py:208 write_window_cols_tpu (the
+// pallas_call at :241, body _write_kernel :49), which the JAX group
+// programs reach under jax.vmap: for every group g, window rows
+// jj < min(count[g], B) and lanes where lane_sel[g, lane],
+// buf[g, (s[g] + jj) mod C, lane] = win[g, jj, lane]; nothing else moves.
+// buf i32[G, C, M], win i32[G, B, M], s/count i32[G], lane_sel u8[G, M].
+//
+// Bound: bytes — read the selected window lanes once, write them once.
+//
+// Design: the TPU kernel walks 128-row destination blocks in grid order
+// and carries the previous window block in VMEM to rotate the misaligned
+// rows into place; vmap adds a grid axis over G. Here, as in K1, one
+// thread owns one (group, window row, lane vector) triple and stores
+// straight to slot (s[g] + jj) mod C: no ring read, no rotation, nothing
+// carried between blocks. The group axis is folded into the thread index,
+// and each thread reads its group's s and count from device memory, so
+// the caller never syncs with the host and one launch serves all groups.
+// The lane mask is per lane: a 16-byte vector whose four lanes are all
+// selected moves as one int4, a partly selected one lane by lane.
+template <int V>
+__global__ void write_window_cols_kernel(
+    int* __restrict__ buf, const int* __restrict__ win,
+    const int* __restrict__ s_p, const int* __restrict__ count_p,
+    const uint8_t* __restrict__ lane_sel, int C, int M, int B, int G) {
+  const unsigned MV = M / V;
+  const unsigned per_group = (unsigned)B * MV;
+  const unsigned n = per_group * (unsigned)G;
+  const unsigned stride = gridDim.x * blockDim.x;
+  for (unsigned e = blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += stride) {
+    const unsigned g = e / per_group;
+    const unsigned r = e - g * per_group;
+    const int jj = (int)(r / MV);
+    const int v = (int)(r - (unsigned)jj * MV);
+    if (jj >= min(count_p[g], B)) continue;
+    const uint8_t* sel = lane_sel + (size_t)g * M + (size_t)v * V;
+    const int d = floor_mod(s_p[g] + jj, C);
+    int* dst = buf + ((size_t)g * C + d) * M + (size_t)v * V;
+    const int* src = win + ((size_t)g * B + jj) * M + (size_t)v * V;
+    if (V == 4) {
+      const int4 w = *reinterpret_cast<const int4*>(src);
+      if (sel[0] && sel[1] && sel[2] && sel[3]) {
+        *reinterpret_cast<int4*>(dst) = w;
+      } else {
+        if (sel[0]) dst[0] = w.x;
+        if (sel[1]) dst[1] = w.y;
+        if (sel[2]) dst[2] = w.z;
+        if (sel[3]) dst[3] = w.w;
+      }
+    } else if (sel[0]) {
+      dst[0] = src[0];
+    }
+  }
+}
+
+// G * B * (M / V) must fit in 31 bits (the wrapper checks). vec4: rows are
+// 16-byte aligned and M % 4 == 0.
+RT_EXPORT int rt_write_window_cols(void* buf, const void* win, const void* s,
+                                   const void* count, const void* lane_sel,
+                                   int C, int M, int B, int G, int vec4,
+                                   void* stream) {
+  const int threads = 256;
+  const long work = (long)G * B * (vec4 ? M / 4 : M);
+  const int blocks = (int)max(1L, min((work + threads - 1) / threads, 16384L));
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec4) {
+    write_window_cols_kernel<4><<<blocks, threads, 0, st>>>(
+        (int*)buf, (const int*)win, (const int*)s, (const int*)count,
+        (const uint8_t*)lane_sel, C, M, B, G);
+  } else {
+    write_window_cols_kernel<1><<<blocks, threads, 0, st>>>(
+        (int*)buf, (const int*)win, (const int*)s, (const int*)count,
+        (const uint8_t*)lane_sel, C, M, B, G);
+  }
+  return (int)cudaGetLastError();
+}
+
 // mm must hold L zeros on entry. vec4: window and ring rows are 16-byte
 // aligned and W % 4 == 0, so a thread moves one int4.
 RT_EXPORT int rt_write_window_both(void* buf_p, void* buf_t, const void* win,

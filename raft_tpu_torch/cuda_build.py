@@ -38,6 +38,7 @@ SIGNATURES = {
     "ring": {
         "rt_error_string": ([_I], ctypes.c_char_p),
         "rt_write_window_both": ([_P] * 10 + [_I] * 5 + [_P], _I),
+        "rt_write_window_cols": ([_P] * 5 + [_I] * 5 + [_P], _I),
     },
     "steady": {
         "rt_error_string": ([_I], ctypes.c_char_p),

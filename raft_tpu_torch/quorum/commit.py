@@ -22,15 +22,19 @@ def majority(n: int) -> int:
 
 
 def commit_from_match(match: torch.Tensor, quorum=None) -> torch.Tensor:
-    """Largest N with |{r : match[r] >= N}| >= quorum — i32[] from i32[R].
+    """Largest N with |{r : match[r] >= N}| >= quorum — i32[] from i32[R],
+    or i32[G] from i32[G, R] (one cluster per group).
 
-    ``quorum`` (int or 0-d tensor) defaults to strict majority. The answer
-    is the largest value covered by >= quorum elements, 0 when none is.
+    ``quorum`` (int, 0-d tensor, or i32[G] per group) defaults to strict
+    majority. The answer is the largest value covered by >= quorum
+    elements, 0 when none is.
     """
-    n = match.shape[0]
+    n = match.shape[-1]
     q = majority(n) if quorum is None else quorum
-    cnt = (match[None, :] >= match[:, None]).to(torch.int32).sum(dim=1)
-    return torch.where(cnt >= q, match, 0).max().to(torch.int32)
+    if isinstance(q, torch.Tensor) and q.dim():
+        q = q.unsqueeze(-1)
+    cnt = (match[..., None, :] >= match[..., :, None]).to(torch.int32).sum(-1)
+    return torch.where(cnt >= q, match, 0).amax(dim=-1).to(torch.int32)
 
 
 def reference_bucket_commit(follower_match: torch.Tensor, n_nodes: int,

@@ -27,6 +27,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import sys; sys.path.insert(0, %r)\n"
         "import raft_tpu_torch, raft_tpu_torch.northstar\n"
         "import raft_tpu_torch.core.step_cuda, raft_tpu_torch.core.ring_cuda\n"
+        "import raft_tpu_torch.core.step, raft_tpu_torch.core.ring\n"
+        "import raft_tpu_torch.core.state, raft_tpu_torch.core.comm\n"
         "import raft_tpu_torch.ec, raft_tpu_torch.ec.gf, raft_tpu_torch.ec.rs\n"
         "import raft_tpu_torch.ec.kernels, raft_tpu_torch.ec.reconstruct\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax') or "
