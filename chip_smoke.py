@@ -66,7 +66,36 @@ entries, batch 256, a 4096-slot ring each; ``bench.py``
     B's µs per group tick of a fused launch (CUDA events; the counterparts
     of ``bench.py``'s ``device_scan_us_per_step`` and
     ``single_device_us_per_group_tick``) and both device idle shares;
-12. prints the kernel table, the card line, and last
+
+Then the replica mesh: one replica row per rank of a ``torch.distributed``
+gloo group, all ranks on the one card (three processes time-sharing it,
+not a multi-card run), built through ``make_transport`` with
+``transport="tpu_mesh"``:
+
+12. holds K2·mesh, K3·mesh and K4·mesh of every row against their plain
+    versions, bit for bit, at the north star (R = 3) and at config 3 (R =
+    5, the EC quorum): random gathered planes and prev columns, then the
+    seam, partial, slow-row, dead-row, member-shrunk, infeasible and
+    lapped-turnover cases; then randomized multi-term schedules that keep
+    the engine's invariants, each row's mesh kernels against the resident
+    kernels on the whole cluster;
+13. spawns 3 ranks (kernels built here first) and drives the multichip
+    dry run's ladder on them — an election, repair-capable ticks (K1 on
+    the local row) healing a slow row, a fused step (K2·mesh), a scan —
+    then the north star's 1 048 576 entries through 32-step flights
+    (``northstar.run_device``; K3·mesh decides, K4·mesh turns the ring
+    over) and a flight with row 2 slow and one with row 2 dead (K3·mesh);
+    after every stage every rank's scalars, rings and info must equal its
+    row of the same schedule run here through ``SingleDeviceTransport``,
+    each follower rank's committed bytes must hash to the input's, and
+    every rank's mesh kernels and K1 must have launched;
+14. spawns 5 ranks at config 3 (K7-encoded windows, 4 turnover flights)
+    and holds every rank's ring to its row of the single-device run;
+15. times K2·mesh, K3·mesh and K4·mesh beside their plain versions and
+    byte bounds, ``bench.py``'s ``bench_mesh1`` (a 1-rank group against
+    the resident transport, per 32-step flight) and the 3-rank north
+    star's wall per flight and launch-collective time;
+16. prints the kernel table, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failure ends the run with a nonzero exit code before the last line.
@@ -769,14 +798,20 @@ def _device_events(fn, reps, before=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    pad = torch.zeros(1, device="cuda")
+    # the pads are float64 fills, a type the port never uses on the card,
+    # so their records can be told apart and dropped
+    pad = torch.zeros(1, dtype=torch.float64, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        # a one-word fill on each side of the window: late in a long run a
-        # profile now and then loses the device records at its edges
-        pad.add_(1)
+        # one-word fills on each side of the window, and a pause before
+        # it: late in a long run a profile loses the first device records
+        # of a session (up to five of 21 short launches, every session of
+        # the process alike), and now and then the last ones
+        for _ in range(32):
+            pad.add_(1)
         torch.cuda.synchronize()
+        time.sleep(0.05)
         t0 = time.perf_counter()
         for _ in range(reps):
             if before:
@@ -784,10 +819,12 @@ def _device_events(fn, reps, before=None):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        pad.add_(1)
+        for _ in range(32):
+            pad.add_(1)
         torch.cuda.synchronize()
     dev = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and "CUDAFunctorOnSelf_add<double>" not in e.name]
     return dev, wall
 
 
@@ -797,7 +834,10 @@ KERNEL_FN = {"K1": "write_window_both_kernel", "K2": "steady_step_kernel",
              "K6 encode": "parity_kernel", "K6 decode": "parity_kernel",
              "K7": "encode_fold_kernel", "K2·ec": "steady_step_kernel",
              "K3·ec": "steady_pipeline_kernel", "K4·ec": "turnover_kernel",
-             "K5": "write_window_cols_kernel"}
+             "K5": "write_window_cols_kernel",
+             "K2·mesh": "steady_step_kernel",
+             "K3·mesh": "steady_pipeline_kernel",
+             "K4·mesh": "turnover_kernel"}
 
 
 def kernel_ms(key, fn, reps, before=None, inner=1):
@@ -2076,9 +2116,811 @@ def phase_group_timing(dev, card_line, reps=21):
             "device_busy_ms": busy / 1e3,
             "k5_ms_per_call": k5_us / 1e3 / launches,
             "device_idle_share": 1.0 - busy / (wall * 1e6),
-            # less the two one-word fills around the profiled window
-            "device_kernels_per_call": (len(events) - 2) / launches}
+            "device_kernels_per_call": len(events) / launches}
     torch.cuda.synchronize()
+    emit(res)
+    return res
+
+
+# ------------------------------------------------------- the replica mesh
+MESH_RANKS = 3
+#: a spawned rank still running after this many seconds fails the run
+MESH_DEADLINE_S = 420.0
+
+
+def local_row(st, r, W):
+    """Row ``r`` of a resident state as the rank-local state of the mesh
+    (vectors [1], terms [1, C], payload [C, W]), as fresh tensors."""
+    from raft_tpu_torch.core.state import ReplicaState
+
+    return ReplicaState(
+        *(getattr(st, f)[r:r + 1].clone() for f in
+          ("term", "voted_for", "last_index", "commit_index", "match_index",
+           "match_term", "log_term")),
+        st.log_payload[:, r * W:(r + 1) * W].contiguous())
+
+
+def prev_column(st, leader):
+    """What the launch gather gives every rank: each row's term at the
+    slot before the leader's frontier (i32[R])."""
+    C = st.capacity
+    prev_slot = (max(int(st.last_index[leader]), 1) - 1) % C
+    return st.log_term[:, prev_slot].contiguous()
+
+
+def rand_plane(rng, R, C, dev):
+    """A random gathered plane (6, R), prev column, local rings: any
+    input, for holding a mesh kernel against its plain version."""
+    import torch
+
+    last = rng.integers(0, 3 * C, R)
+    vecs = np.stack([
+        rng.integers(0, 5, R), rng.integers(-1, R, R), last,
+        np.maximum(last - rng.integers(0, C + 8, R), 0),
+        np.minimum(last, rng.integers(0, 3 * C, R)), rng.integers(0, 5, R),
+    ]).astype(np.int32)
+    prev = rng.integers(-1, 5, R).astype(np.int32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return t(vecs), t(prev)
+
+
+def mesh_step_case(cfg, dev, rng, vecs, prev, lp, lt, r, count, alive, slow,
+                   member=None, leader=0, lterm=1, tfloor=1):
+    """K2·mesh of row ``r`` and its plain version on clones: max error."""
+    import torch
+
+    from raft_tpu_torch.core import step_cuda as sc
+
+    R, W = cfg.rows, cfg.shard_words
+    prm = sc.step_params(leader, lterm, tfloor, 0, 0, cfg.commit_quorum, R,
+                         ec=cfg.ec_enabled)
+    al = torch.tensor(alive, dtype=torch.bool, device=dev)
+    sl = torch.tensor(slow, dtype=torch.bool, device=dev)
+    mem = None if member is None else torch.tensor(member, device=dev)
+    win = rand_window(rng, cfg.batch_size, W, dev)
+    res = []
+    for fn in (sc.steady_step, sc.steady_step_plain):
+        v, p, t = vecs.clone(), lp.clone(), lt.clone()
+        out = torch.zeros(2 * R + 5, dtype=torch.int32, device=dev)
+        fn(v, p, t, win, count, al, sl, mem, prm, out, None, r, prev)
+        res.append((v, p, t, out))
+    return max_err(list(zip(*res)))
+
+
+def mesh_flight_case(cfg, dev, rng, st, r, T, P, counts, alive, slow,
+                     turnover_ok, member=None):
+    """K3·mesh (and K4·mesh behind it with ``turnover_ok``) of row ``r``
+    from the resident cluster ``st``, and their plain versions. Returns
+    (whether K4 wrote it, max error)."""
+    import torch
+
+    from raft_tpu_torch.core import step_cuda as sc
+
+    C, B, R, W = cfg.log_capacity, cfg.batch_size, cfg.rows, cfg.shard_words
+    prm = sc.step_params(0, 1, 1, 0, 0, cfg.commit_quorum, R,
+                         ec=cfg.ec_enabled)
+    al = torch.tensor(alive, dtype=torch.bool, device=dev)
+    sl = torch.tensor(slow, dtype=torch.bool, device=dev)
+    mem = None if member is None else torch.tensor(member, device=dev)
+    wins = torch.stack([rand_window(rng, B, W, dev) for _ in range(P)])
+    cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
+    prev = prev_column(st, 0)
+    work = sc.workspace(dev)
+    br = sc.pick_br(B, C)
+    res = []
+    for kernel in (True, False):
+        loc = local_row(st, r, W)
+        v = sc.pack(st)
+        out = torch.zeros(R + 5, dtype=torch.int32, device=dev)
+        r4 = int(work[sc.WK_RAN4])
+        if kernel:
+            sc.pipeline_flight(v, loc.log_payload, loc.log_term, wins, cnt,
+                               al, sl, mem, prm, br, turnover_ok, out,
+                               my_row=r, prev=prev)
+            if turnover_ok:
+                sc.turnover_flight(v, loc.log_payload, loc.log_term, wins, T,
+                                   prm, out, my_row=r)
+        else:
+            sc.pipeline_flight_plain(v, loc.log_payload, loc.log_term, wins,
+                                     cnt, al, sl, mem, prm, br, turnover_ok,
+                                     out, work, None, r, prev)
+            if turnover_ok:
+                sc.turnover_flight_plain(v, loc.log_payload, loc.log_term,
+                                         wins, T, prm, out, work)
+        res.append((v, loc.log_payload, loc.log_term, out,
+                    int(work[sc.WK_RAN4]) - r4))
+    (vk, pk, tk, ok_, k4k), (vp, pp, tp, op, k4p) = res
+    check(k4k == k4p, "mesh flight: kernel and plain took different branches")
+    return bool(k4k), max_err([(vk, vp), (pk, pp), (tk, tp), (ok_, op)])
+
+
+def mesh_cases(cfg, dev, rng, note, n_random):
+    """The mesh kernels of every row against their plain versions."""
+    from raft_tpu_torch.core import step_cuda as sc
+
+    C, B, R, W = cfg.log_capacity, cfg.batch_size, cfg.rows, cfg.shard_words
+    on, off = [1] * R, [0] * R
+    slow_last = off[:-1] + [1]
+    dead_last = on[:-1] + [0]
+    shrunk = [1] + [0] * (R - 1)
+    base = steady_state(cfg, dev, 5 * B, rng=rng)
+    seam = steady_state(cfg, dev, 3 * C - B + 300, rng=rng)
+    T = STEPS_PER_FLIGHT
+    for r in range(R):
+        for _ in range(n_random):            # any input
+            vecs, prev = rand_plane(rng, R, C, dev)
+            lp = rand_window(rng, C, W, dev)
+            lt = rand_window(rng, 1, C, dev).remainder(5)
+            note("K2·mesh", mesh_step_case(
+                cfg, dev, rng, vecs, prev, lp, lt, r,
+                int(rng.integers(-2, B + 4)), list(rng.random(R) < 0.85),
+                list(rng.random(R) < 0.2), leader=int(rng.integers(0, R)),
+                lterm=int(rng.integers(0, 4)),
+                tfloor=int(rng.integers(0, 2 * C))))
+        for st, count, alive, slow, member in (
+                (base, B, on, off, None), (seam, B, on, off, None),
+                (seam, 777, on, slow_last, None),
+                (base, B, dead_last, off, None),
+                (base, B, on, off, shrunk)):
+            loc = local_row(st, r, W)
+            note("K2·mesh", mesh_step_case(
+                cfg, dev, rng, sc.pack(st), prev_column(st, 0),
+                loc.log_payload, loc.log_term, r, count, alive, slow,
+                member))
+        part = [B] * T
+        part[5], part[17] = 300, 0
+        for args, want in (
+                ((base, T, 4, [B] * T, on, off, False), "K3"),
+                ((base, T, 4, [B] * T, on, slow_last, True), "K3"),
+                ((base, T, 4, [B] * T, dead_last, off, True), "K3"),
+                ((base, T, 4, [B] * T, on, off, True, shrunk), "K3"),
+                ((base, T, 3, part, on, slow_last, True), "K3"),
+                ((seam, 8, 8, [B] * 8, on, off, True), "K3"),
+                ((base, T, T, [B] * T, on, off, True), "K4"),
+                ((base, 2 * T + 5, 7, [B] * (2 * T + 5), on, off, True),
+                 "K4")):
+            k4, err = mesh_flight_case(cfg, dev, rng, args[0], r, *args[1:])
+            which = "K4" if k4 else "K3"
+            check(which == want, f"mesh flight of row {r}: {which} ran, "
+                                 f"{want} expected")
+            note(which + "·mesh", err)
+
+
+def mesh_vs_resident(cfg, dev, n, rng):
+    """A randomized multi-term schedule that keeps the engine's invariants
+    (one leader a term, appending before it replicates), run twice on the
+    card: the resident kernels (K2, K3, K4) on the whole cluster, and each
+    row's mesh kernels on that row alone, fed the plane and prev column a
+    launch gather would give. After every step each row's rings, the whole
+    plane and the outputs must agree; a row's closed-form next prev term
+    must be the leader's term exactly where the resident one is. Now and
+    then the followers are resynchronised to the leader's log (what the
+    repair window would do), so the quorum stays alive."""
+    import torch
+
+    from raft_tpu_torch.core import step_cuda as sc
+    from raft_tpu_torch.core.comm import SingleDeviceComm
+    from raft_tpu_torch.core.state import init_state
+    from raft_tpu_torch.core.step import vote_step
+
+    C, B, R, W = cfg.log_capacity, cfg.batch_size, cfg.rows, cfg.shard_words
+    comm = SingleDeviceComm(R)
+    st = init_state(cfg, device=dev)
+    ones = torch.ones(R, dtype=torch.bool, device=dev)
+    term, leader = 1, 0
+    st, _ = vote_step(comm, st, 0, 1, ones)
+    floor = 1
+    locs = [local_row(st, r, W) for r in range(R)]
+    steps = flights = 0
+    stalled = False
+    while steps < n:
+        if rng.random() < 0.07:
+            term += int(rng.integers(1, 3))
+            lasts = st.last_index.tolist()
+            leader = int(rng.choice([r for r in range(R)
+                                     if lasts[r] == max(lasts)]))
+            st, _ = vote_step(comm, st, leader, term, ones)
+            floor = int(st.last_index[leader]) + 1
+        if stalled or rng.random() < 0.15:     # resync the followers
+            for r in range(R):
+                st.log_payload[:, r * W:(r + 1) * W] = \
+                    st.log_payload[:, leader * W:(leader + 1) * W]
+                st.log_term[r] = st.log_term[leader]
+            for f in ("last_index", "commit_index"):
+                getattr(st, f).fill_(int(getattr(st, f)[leader]))
+            locs = [local_row(st, r, W) for r in range(R)]
+        alive = torch.tensor(rng.random(R) > 0.1, device=dev)
+        alive[leader] = True
+        slow = torch.tensor(rng.random(R) < 0.1, device=dev)
+        member = None
+        if rng.random() < 0.15:
+            member = torch.tensor(rng.random(R) < 0.8, device=dev)
+            member[leader] = True
+        prm = sc.step_params(leader, term, floor, 0, 0, cfg.commit_quorum, R,
+                             ec=cfg.ec_enabled)
+        vecs0 = sc.pack(st)
+        prev0 = prev_column(st, leader)
+        kind = rng.choice(["step", "scan", "flight"], p=[0.4, 0.35, 0.25])
+        if kind == "flight":
+            counts = flight_counts(rng, B, C)
+            T = len(counts)
+            wins = rand_window(rng, T * B, R * W, dev).reshape(T, B, R * W)
+            cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
+            outs = []
+            for r in [None] + list(range(R)):
+                v = vecs0.clone()
+                o = torch.zeros(R + 5, dtype=torch.int32, device=dev)
+                if r is None:
+                    lp, lt, w, kw = st.log_payload, st.log_term, wins, {}
+                else:
+                    lp, lt = locs[r].log_payload, locs[r].log_term
+                    w = wins[..., r * W:(r + 1) * W].contiguous()
+                    kw = dict(my_row=r)
+                sc.pipeline_flight(v, lp, lt, w, cnt, alive, slow, member,
+                                   prm, sc.pick_br(B, C), T * B >= C, o,
+                                   prev=None if r is None else prev0, **kw)
+                if T * B >= C:
+                    sc.turnover_flight(v, lp, lt, w, T, prm, o, **kw)
+                outs.append((v, o))
+            steps += T
+            flights += 1
+        else:
+            T = 1 if kind == "step" else int(rng.integers(2, 5))
+            wins = rand_window(rng, T * B, R * W, dev).reshape(T, B, R * W)
+            counts = [int(rng.choice([0, 3, 17, 777, B])) for _ in range(T)]
+            outs = []
+            for r in [None] + list(range(R)):
+                v = vecs0.clone()
+                prev = prev0
+                o = torch.zeros(2 * R + 5, dtype=torch.int32, device=dev)
+                for t in range(T):
+                    if r is None:
+                        sc.steady_step(v, st.log_payload, st.log_term,
+                                       wins[t], counts[t], alive, slow,
+                                       member, prm, o)
+                    else:
+                        sc.steady_step(
+                            v, locs[r].log_payload, locs[r].log_term,
+                            wins[t, :, r * W:(r + 1) * W].contiguous(),
+                            counts[t], alive, slow, member, prm, o, None, r,
+                            prev)
+                        prev = o[R + 5:].clone()
+                outs.append((v, o))
+            steps += T
+            # where the next window's prev check can pass (a row at or
+            # past the leader's new tail), the closed form must agree
+            # with the ring about whether the row holds the leader's term
+            vr = outs[0][0]
+            reach = vr[2] >= vr[2, leader]
+            nxt = outs[0][1][R + 5:]
+            for _, o in outs[1:]:
+                closed = o[R + 5:]
+                check(torch.equal((closed == term)[reach],
+                                  (nxt == term)[reach]),
+                      "a closed-form next prev term disagrees with the ring")
+        (vres, ores) = outs[0]
+        for r, (v, o) in enumerate(outs[1:]):
+            check(torch.equal(v, vres), f"mesh row {r}: plane after {kind}")
+            check(torch.equal(o[:R + 5], ores[:R + 5]),
+                  f"mesh row {r}: outputs after {kind}")
+        stalled = int(vres[3, leader]) == int(vecs0[3, leader])
+        st = sc.unpack(vres, st.log_term, st.log_payload)
+        for r in range(R):
+            check(torch.equal(locs[r].log_payload,
+                              st.log_payload[:, r * W:(r + 1) * W]),
+                  f"mesh row {r}: payload ring after {kind}")
+            check(torch.equal(locs[r].log_term[0], st.log_term[r]),
+                  f"mesh row {r}: term ring after {kind}")
+    return {"steps": steps, "flights": flights, "final_term": term,
+            "final_commit": int(st.commit_index[leader])}
+
+
+def phase_mesh_kernels(cfg, ecfg, dev, n_random=8):
+    """K2·mesh, K3·mesh and K4·mesh of every row against their plain
+    versions (the north star, R = 3, and config 3, R = 5 with the EC
+    quorum), then the randomized schedule against the resident kernels."""
+    errs = {"K2·mesh": 0, "K3·mesh": 0, "K4·mesh": 0}
+    cases = dict.fromkeys(errs, 0)
+
+    def note(key, err):
+        errs[key] = max(errs[key], err)
+        cases[key] += 1
+
+    rng = np.random.default_rng(SEED + 20)
+    mesh_cases(cfg, dev, rng, note, n_random)
+    mesh_cases(ecfg, dev, rng, note, n_random // 2)
+    sched = {"north_star": mesh_vs_resident(cfg, dev, 160, rng),
+             "config_3": mesh_vs_resident(ecfg, dev, 80, rng)}
+    for k in errs:
+        check(errs[k] == 0, f"{k} differs from its plain version by "
+                            f"{errs[k]}")
+    emit({"phase": "mesh_kernels_vs_plain", "cases": cases,
+          "max_abs_err": errs, "schedules_vs_resident": sched})
+    return errs
+
+
+def mesh_counters(dev):
+    from raft_tpu_torch.core import ring_cuda, step_cuda
+    from raft_tpu_torch.ec import kernels as ek
+
+    w = step_cuda.workspace(dev)
+    return {"K1": ring_cuda.LAUNCHES["write_window_both"],
+            "K2·mesh": step_cuda.LAUNCHES["steady_step_mesh"],
+            "K3·mesh": step_cuda.LAUNCHES["pipeline_flight_mesh"],
+            "K4·mesh": step_cuda.LAUNCHES["turnover_flight_mesh"],
+            "K7": ek.LAUNCHES["encode_fold"],
+            "K3_flights_run": int(w[step_cuda.WK_RAN3]),
+            "K4_flights_run": int(w[step_cuda.WK_RAN4])}
+
+
+def row_digest(st, r, info, dispatch, local):
+    """A stage's record of row ``r``: its six scalars, the SHA-256 of its
+    term ring and payload lanes, the call's info, the dispatch witness.
+    ``local``: ``st`` is a rank's own row."""
+    W = st.words_per_entry
+    i = 0 if local else r
+    lanes = st.log_payload[:, i * W:(i + 1) * W].contiguous()
+    return {
+        "vec": [int(getattr(st, f)[i]) for f in (
+            "term", "voted_for", "last_index", "commit_index",
+            "match_index", "match_term")],
+        "terms": hashlib.sha256(st.log_term[i].cpu().numpy()
+                                .tobytes()).hexdigest(),
+        "payload": hashlib.sha256(lanes.cpu().numpy().tobytes()).hexdigest(),
+        "info": None if info is None else {
+            f: getattr(info, f).cpu().tolist() for f in info._fields},
+        "dispatch": dispatch,
+    }
+
+
+def mesh_drive(tr, cfg, dev, entries, record):
+    """The mesh main path's schedule on any transport: the multichip dry
+    run's ladder — an election, repair-capable ticks with row 2 slow and
+    its heal (K1), a fused step, a scan — then the north star's flights
+    (``northstar.run_device``), a flight with row 2 slow and one with row
+    2 dead. ``record(stage, state, info)`` runs after every stage. Returns
+    (state, the run_device result)."""
+    import torch
+
+    from raft_tpu_torch.northstar import run_device
+
+    R, B = cfg.rows, cfg.batch_size
+    S = Stream(cfg, rows=())
+    alive = torch.ones(R, dtype=torch.bool, device=dev)
+    quiet = torch.zeros(R, dtype=torch.bool, device=dev)
+    slow2 = torch.tensor([False, False, True], device=dev)
+    dead2 = torch.tensor([True, True, False], device=dev)
+    state = tr.init()
+    state, vi = tr.request_votes(state, 0, 1, alive)
+    check(int(vi.votes) == R, "mesh election of row 0")
+    record("election", state, vi)
+    for _ in range(4):
+        state, info = tr.replicate(state, S.batches(1, [B])[0], B, 0, 1,
+                                   alive, slow2)
+    check(int(info.commit_index) == S.submitted, "mesh tick commit")
+    record("ticks_row2_slow", state, info)
+    heal = 0
+    while int(info.match[2]) < S.submitted:
+        state, info = tr.replicate(state, S.batches(1, [0])[0], 0, 0, 1,
+                                   alive, quiet)
+        heal += 1
+        check(heal <= 8, "the repair window did not heal row 2")
+    record("heal", state, info)
+    state, info = tr.replicate(state, S.batches(1, [B])[0], B, 0, 1, alive,
+                               quiet, repair=False, term_floor=1)
+    check(int(info.commit_index) == S.submitted, "mesh fused step commit")
+    record("fused_step", state, info)
+    state, infos = tr.replicate_many(
+        state, S.batches(8, [B] * 8), torch.full((8,), B, dtype=torch.int32,
+                                                 device=dev),
+        0, 1, alive, quiet, repair=False, term_floor=1)
+    check(int(infos.commit_index[-1]) == S.submitted, "mesh scan commit")
+    record("scan", state, infos)
+    rows = tuple(range(1, R))
+    run = run_device(cfg, entries, SEED + 3, transport=tr, state=state,
+                     rows=rows)
+    state = run.state
+    S.skip(entries)
+    record("north_star", state, None)
+    for name, al, sl in (("flight_row2_slow", alive, slow2),
+                         ("flight_row2_dead", dead2, quiet)):
+        Tk = 8
+        state, info = tr.replicate_pipeline(
+            state, S.batches(Tk, [B] * Tk), torch.full(
+                (Tk,), B, dtype=torch.int32, device=dev), 0, 1, al, sl,
+            term_floor=1)
+        check(int(info.commit_index) == S.submitted, f"mesh {name} commit")
+        record(name, state, info)
+    return state, run
+
+
+def _timed_gathers():
+    """Wrap the mesh's launch collectives in a host timer: returns the
+    list the calls' seconds are appended to."""
+    import raft_tpu_torch.core.step_mesh as sm
+
+    spent = []
+    inner = sm._gather_plane
+
+    def gather(*args):
+        t0 = time.perf_counter()
+        res = inner(*args)
+        spent.append(time.perf_counter() - t0)
+        return res
+
+    sm._gather_plane = gather
+    return spent
+
+
+def rank_device(device):
+    """A spawned rank's device: every rank shares the one card."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def mesh_rank_main(rank, world, cfg, device, entries):
+    """One rank of the north-star mesh (spawned; ``cfg.transport`` is
+    "tpu_mesh")."""
+    import torch
+
+    import raft_tpu_torch.core.step_mesh as sm
+    from raft_tpu_torch.transport import MeshTransport, make_transport
+
+    dev = rank_device(device)
+    tr = make_transport(cfg, device=dev)
+    check(isinstance(tr, MeshTransport) and tr.rank == rank,
+          f"rank {rank} did not get a MeshTransport")
+    spent = _timed_gathers()
+    zero_counters(dev)
+    stages = {}
+
+    def record(name, st, info):
+        stages[name] = row_digest(st, rank, info, sm.LAST_DISPATCH, True)
+        sm.LAST_DISPATCH = None
+
+    t0 = time.perf_counter()
+    state, run = mesh_drive(tr, cfg, dev, entries, record)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    flights = -(-entries // (STEPS_PER_FLIGHT * cfg.batch_size))
+    calls, spent_s = len(spent), sum(spent)
+    # the two launch collectives alone: every rank enters them together
+    # (after a barrier), so no rank waits for another's host work
+    alone = []
+    for _ in range(21):
+        torch.distributed.barrier()
+        t1 = time.perf_counter()
+        sm._gather_plane(tr.comm, state, 0)
+        alone.append(time.perf_counter() - t1)
+    return {"stages": stages, "launches": mesh_counters(dev),
+            "row_digests": {str(r): d for r, d in run.row_digests.items()},
+            "input_digest": run.input_digest,
+            "north_star_wall_s": run.wall_s, "flights": flights,
+            "gather_calls": calls, "gather_s": spent_s,
+            "gather_alone_ms": statistics.median(alone) * 1e3,
+            "main_path_wall_s": wall}
+
+
+def phase_mesh_main_path(cfg, dev, entries=ENTRIES):
+    """The north star on a 3-rank gloo mesh sharing ``dev`` (three
+    processes time-sharing one card), every stage of every rank held
+    against its row of the same schedule run by ``SingleDeviceTransport``
+    here on the card."""
+    import dataclasses
+
+    from raft_tpu_torch.transport.device import SingleDeviceTransport
+    from raft_tpu_torch.transport.launch import run_ranks
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_rank_main, MESH_RANKS,
+                      (dataclasses.replace(cfg, transport="tpu_mesh"),
+                       str(dev), entries), timeout=MESH_DEADLINE_S)
+    ranks_wall = time.perf_counter() - t0
+    dispatch = {"election": None, "ticks_row2_slow": None, "heal": None,
+                "fused_step": "step", "scan": "scan",
+                "north_star": "pipeline", "flight_row2_slow": "pipeline",
+                "flight_row2_dead": "pipeline"}
+    ref = {}
+
+    def record(name, st, info):
+        ref[name] = [row_digest(st, r, info, dispatch[name], False)
+                     for r in range(MESH_RANKS)]
+        ref[name + ":commit"] = int(st.commit_index[0])
+
+    tr = SingleDeviceTransport(cfg, device=dev)
+    mesh_drive(tr, cfg, dev, entries, record)
+    for r, res in enumerate(ranks):
+        check(list(res["stages"]) == list(dispatch), f"rank {r} stages")
+        for name in dispatch:
+            got, want = res["stages"][name], ref[name][r]
+            for k in ("vec", "terms", "payload", "info", "dispatch"):
+                check(got[k] == want[k],
+                      f"rank {r} after {name}: {k} {got[k]} != {want[k]}")
+        for k in ("K1", "K2·mesh", "K3·mesh", "K4·mesh", "K3_flights_run",
+                  "K4_flights_run"):
+            # (a rehearsal on the CPU runs the plain versions: no launch)
+            check(res["launches"][k] > 0 or dev.type != "cuda",
+                  f"rank {r}: {k} never ran")
+        if r > 0:
+            check(res["row_digests"][str(r)] == res["input_digest"],
+                  f"rank {r}'s committed bytes differ from the input")
+    flights = ranks[0]["flights"]
+    result = {
+        "phase": "mesh_main_path", "ranks": MESH_RANKS,
+        "backend": "gloo, all ranks on cuda:0 (three processes "
+                   "time-sharing one card)",
+        "entries_committed": ref["flight_row2_dead:commit"],
+        "north_star_entries": entries, "north_star_flights": flights,
+        "stages_matched": list(dispatch),
+        "sha256_input": ranks[0]["input_digest"],
+        "sha256_rows": {str(r): ranks[r]["row_digests"].get(str(r))
+                        for r in range(1, MESH_RANKS)},
+        "launches_per_rank": [res["launches"] for res in ranks],
+        "launches": {k: sum(res["launches"][k] for res in ranks)
+                     for k in ranks[0]["launches"]},
+        "north_star_wall_s_per_rank": [res["north_star_wall_s"]
+                                       for res in ranks],
+        "north_star_ms_per_flight": max(res["north_star_wall_s"]
+                                        for res in ranks) * 1e3 / flights,
+        "gather_calls_per_rank": ranks[0]["gather_calls"],
+        # host ms in the launch collectives per call on the main path
+        # (waiting for the slowest rank included), and alone after a
+        # barrier (median of 21)
+        "gather_ms_per_call": [res["gather_s"] * 1e3 / res["gather_calls"]
+                               for res in ranks],
+        "gather_alone_ms": [res["gather_alone_ms"] for res in ranks],
+        "ranks_wall_s": ranks_wall,
+    }
+    emit(result)
+    return result
+
+
+def mesh_ec_drive(tr, cfg, dev, flights, record):
+    """Config 3 on any transport: an election, then ``flights`` 32-step
+    flights of K7-encoded windows (each rank's lane block its RS shard)."""
+    import torch
+
+    from raft_tpu_torch.ec.kernels import encode_fold_device
+    from raft_tpu_torch.ec.rs import RSCode
+
+    R, B, E = cfg.rows, cfg.batch_size, cfg.entry_bytes
+    T = STEPS_PER_FLIGHT
+    code = RSCode(cfg.n_replicas, cfg.rs_k)
+    rng = np.random.default_rng(SEED + 21)
+    alive = torch.ones(R, dtype=torch.bool, device=dev)
+    quiet = torch.zeros(R, dtype=torch.bool, device=dev)
+    state = tr.init()
+    state, vi = tr.request_votes(state, 0, 1, alive)
+    check(int(vi.votes) == R, "mesh ec election")
+    record("election", state, vi)
+    counts = torch.full((T,), B, dtype=torch.int32, device=dev)
+    for f in range(flights):
+        raw = rand_bytes(rng, (T * B, E), dev)
+        wins = encode_fold_device(code, raw).reshape(T, B, -1)
+        state, info = tr.replicate_pipeline(state, wins, counts, 0, 1, alive,
+                                            quiet, term_floor=1)
+        check(int(info.commit_index) == (f + 1) * T * B,
+              "mesh ec flight commit")
+        record(f"flight_{f}", state, info)
+    return state
+
+
+def mesh_ec_rank_main(rank, world, cfg, device, flights):
+    """One rank of the config-3 mesh (spawned; ``cfg.transport`` is
+    "tpu_mesh")."""
+    import raft_tpu_torch.core.step_mesh as sm
+    from raft_tpu_torch.transport import MeshTransport, make_transport
+
+    dev = rank_device(device)
+    tr = make_transport(cfg, device=dev)
+    check(isinstance(tr, MeshTransport), f"rank {rank}: no MeshTransport")
+    zero_counters(dev)
+    zero_ec_counters(dev)
+    stages = {}
+
+    def record(name, st, info):
+        stages[name] = row_digest(st, rank, info, sm.LAST_DISPATCH, True)
+        sm.LAST_DISPATCH = None
+
+    mesh_ec_drive(tr, cfg, dev, flights, record)
+    return {"stages": stages, "launches": mesh_counters(dev)}
+
+
+def phase_mesh_ec_path(ecfg, dev, flights=4):
+    """BASELINE config 3 on a 5-rank gloo mesh sharing ``dev``: every
+    rank's ring and scalars after every flight equal its row of the
+    single-device run of the same K7-encoded windows."""
+    import dataclasses
+
+    from raft_tpu_torch.transport.device import SingleDeviceTransport
+    from raft_tpu_torch.transport.launch import run_ranks
+
+    ranks = run_ranks(mesh_ec_rank_main, ecfg.rows,
+                      (dataclasses.replace(ecfg, transport="tpu_mesh"),
+                       str(dev), flights), timeout=MESH_DEADLINE_S)
+    ref = {}
+    mesh_ec_drive(SingleDeviceTransport(ecfg, device=dev), ecfg, dev,
+                  flights, lambda n, st, i: ref.__setitem__(
+                      n, [row_digest(st, r, i, None, False)
+                          for r in range(ecfg.rows)]))
+    for r, res in enumerate(ranks):
+        check(list(res["stages"]) == list(ref), f"ec rank {r} stages")
+        for name, rows in ref.items():
+            want = dict(rows[r], dispatch=None if name == "election"
+                        else "pipeline")
+            check(res["stages"][name] == want,
+                  f"ec rank {r} after {name} differs from its row")
+        for k in ("K3·mesh", "K4·mesh", "K7", "K4_flights_run"):
+            check(res["launches"][k] > 0 or dev.type != "cuda",
+                  f"ec rank {r}: {k} never ran")
+    res = {"phase": "mesh_ec_path", "ranks": ecfg.rows, "flights": flights,
+           "entries_committed": flights * STEPS_PER_FLIGHT *
+           ecfg.batch_size, "stages_matched": list(ref),
+           "launches": {k: sum(x["launches"][k] for x in ranks)
+                        for k in ranks[0]["launches"]}}
+    emit(res)
+    return res
+
+
+def mesh1_rank_main(rank, world, device, reps):
+    """``bench.py`` ``bench_mesh1`` on the card: one rank, n_replicas=1,
+    32-step saturated flights through ``MeshTransport`` (K3·mesh decides,
+    K4·mesh writes, two launch collectives) and through
+    ``SingleDeviceTransport`` (K3, K4) at the same shape, in turns, and
+    the launch collectives alone. Host µs per call, medians."""
+    import torch
+
+    import raft_tpu_torch.core.step_mesh as sm
+    from raft_tpu_torch.config import RaftConfig
+    from raft_tpu_torch.transport import MeshTransport, SingleDeviceTransport
+
+    dev = rank_device(device)
+    cfg = RaftConfig(n_replicas=1, transport="tpu_mesh")
+    T, B = STEPS_PER_FLIGHT, cfg.batch_size
+    rng = np.random.default_rng(SEED + 30)
+    wins = rand_window(rng, B, cfg.shard_words, dev)[None]
+    counts = torch.full((T,), B, dtype=torch.int32, device=dev)
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    zero = torch.zeros(1, dtype=torch.bool, device=dev)
+    trs = {"mesh_of_1": MeshTransport(cfg, device=dev),
+           "co_located": SingleDeviceTransport(cfg, device=dev)}
+    states = {}
+    for name, tr in trs.items():
+        st, _ = tr.request_votes(tr.init(), 0, 1, one)
+        st, info = tr.replicate_pipeline(st, wins, counts, 0, 1, one, zero,
+                                         term_floor=1)
+        check(int(info.commit_index) == T * B, "mesh1 commit")
+        states[name] = st
+
+    def timed(fn):
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (
+            lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e6
+
+    samples = {k: [] for k in (*trs, "gather_plane")}
+    for _ in range(reps):
+        for name, tr in trs.items():
+            def flight(name=name, tr=tr):
+                states[name] = tr.replicate_pipeline(
+                    states[name], wins, counts, 0, 1, one, zero,
+                    term_floor=1)[0]
+            samples[name].append(timed(flight))
+        samples["gather_plane"].append(timed(lambda: sm._gather_plane(
+            trs["mesh_of_1"].comm, states["mesh_of_1"], 0)))
+    return {k: statistics.median(v) for k, v in samples.items()}
+
+
+def time_mesh_kernels(cfg, dev, rng, reps, rate):
+    """K2·mesh, K3·mesh and K4·mesh of row 1 at the north star's widths:
+    device time per launch, the plain versions' time, the byte bounds."""
+    import torch
+
+    from raft_tpu_torch.core import step_cuda as sc
+
+    C, B, R, W = cfg.log_capacity, cfg.batch_size, cfg.rows, cfg.shard_words
+    T, r = STEPS_PER_FLIGHT, 1
+    al = torch.ones(R, dtype=torch.bool, device=dev)
+    sl = torch.zeros(R, dtype=torch.bool, device=dev)
+    prm = sc.step_params(0, 1, 1, 0, 0, cfg.commit_quorum, R)
+    st = steady_state(cfg, dev, 5 * B, rng=rng)
+    loc = local_row(st, r, W)
+    vecs = sc.pack(st)
+    prev = prev_column(st, 0)
+    win = rand_window(rng, B, W, dev)
+    o2 = torch.zeros(2 * R + 5, dtype=torch.int32, device=dev)
+    args = (loc.log_payload, loc.log_term)
+
+    def k2():
+        sc.steady_step(vecs, *args, win, B, al, sl, None, prm, o2, None, r,
+                       prev)
+
+    def k2p():
+        sc.steady_step_plain(vecs, *args, win, B, al, sl, None, prm, o2,
+                             None, r, prev)
+
+    # bytes: window read, payload write (one row's lanes), term write (one
+    # row, no read), the plane in and out, the prev column, the out block
+    step_bytes = 2 * B * W * 4 + B * 4 + 2 * 6 * R * 4 + R * 4 + \
+        (2 * R + 5) * 4 + 2 * R
+    out = {"K2·mesh": (kernel_ms("K2·mesh", k2, reps, inner=20),
+                       _host_ms(k2p, reps), step_bytes)}
+    wins = torch.stack([rand_window(rng, B, W, dev) for _ in range(T)])
+    counts = torch.full((T,), B, dtype=torch.int32, device=dev)
+    o3 = torch.zeros(R + 5, dtype=torch.int32, device=dev)
+    br = sc.pick_br(B, C)
+
+    def k3(turnover_ok=False):
+        sc.pipeline_flight(vecs, *args, wins, counts, al, sl, None, prm, br,
+                           turnover_ok, o3, None, r, prev)
+
+    def k3p():
+        sc.pipeline_flight_plain(vecs, *args, wins, counts, al, sl, None,
+                                 prm, br, False, o3, sc.workspace(dev),
+                                 None, r, prev)
+
+    out["K3·mesh"] = (kernel_ms("K3·mesh", k3, reps), _host_ms(k3p, reps),
+                      T * step_bytes)
+
+    def plan():
+        k3(turnover_ok=True)
+
+    def k4():
+        sc.turnover_flight(vecs, *args, wins, T, prm, o3, None, r)
+
+    def k4p():
+        w = sc.workspace(dev)
+        sc.pipeline_flight_plain(vecs, *args, wins, counts, al, sl, None,
+                                 prm, br, True, o3, w, None, r, prev)
+        sc.turnover_flight_plain(vecs, *args, wins, T, prm, o3, w)
+
+    work = sc.workspace(dev)
+    ran4 = int(work[sc.WK_RAN4])
+    k4_time = kernel_ms("K4·mesh", k4, reps, before=plan)
+    check(int(work[sc.WK_RAN4]) - ran4 == 2 * reps + 2,
+          "timed K4·mesh launches did not all run the flight")
+    # the T*B = C window rows read once, the row's C slots of payload and
+    # terms written once, the plane in and out
+    k4_bytes = T * B * W * 4 + C * W * 4 + C * 4 + 2 * 6 * R * 4
+    out["K4·mesh"] = (k4_time, _host_ms(k4p, reps), k4_bytes)
+    return {k: {"ms": ms, "call_ms": call_ms, "plain_ms": pms,
+                "bytes": nbytes, "bound_ms": nbytes / rate * 1e3}
+            for k, ((ms, call_ms), pms, nbytes) in out.items()}
+
+
+def phase_mesh_timing(cfg, dev, card_line, kernels, main, reps=21):
+    """The mesh kernels' times (``kernels``, taken before any rank was
+    spawned), ``bench_mesh1``'s counterpart and the 3-rank north star's
+    flight and collective times (``main``)."""
+    from raft_tpu_torch.transport.launch import run_ranks
+
+    res = {"phase": "mesh_timing", "card": card_line,
+           "mem_bytes_per_s": mem_rate(card_line)}
+    res.update(kernels)
+    m1 = run_ranks(mesh1_rank_main, 1, (str(dev), reps),
+                   timeout=MESH_DEADLINE_S)[0]
+    res["bench_mesh1"] = dict(
+        m1, unit="host us per 32-step flight (gather_plane: per call of "
+                 "the two launch collectives), medians, in turns",
+        per_device_overhead_us=m1["mesh_of_1"] - m1["co_located"])
+    res["north_star_3_ranks"] = {
+        "note": "three processes time-sharing one card (gloo), not a "
+                "multi-card figure",
+        "ms_per_flight": main["north_star_ms_per_flight"],
+        "gather_ms_per_call": main["gather_ms_per_call"],
+        "gather_alone_ms": main["gather_alone_ms"],
+        "gather_calls_per_rank": main["gather_calls_per_rank"]}
     emit(res)
     return res
 
@@ -2110,6 +2952,17 @@ EC_KERNELS = [
 ]
 
 
+#: the replica mesh's kernels: the mesh-local mode of K2, K3 and K4
+MESH_KERNELS = [
+    ("K2·mesh", "steady_step (mesh-local)", "raft_tpu_torch/csrc/steady.cu",
+     "raft_tpu/core/step_pallas.py:217"),
+    ("K3·mesh", "pipeline_flight (mesh-local)",
+     "raft_tpu_torch/csrc/steady.cu", "raft_tpu/core/step_pallas.py:751"),
+    ("K4·mesh", "turnover_flight (mesh-local)",
+     "raft_tpu_torch/csrc/steady.cu", "raft_tpu/core/step_pallas.py:1155"),
+]
+
+
 def main() -> int:
     if not (HERE / "raft_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py needs the repository around it: "
@@ -2135,9 +2988,18 @@ def main() -> int:
     group_errs = phase_group_kernels(dev)
     group_main = phase_group_main_path(dev)
     group_timing = phase_group_timing(dev, card_line)
+    mesh_errs = phase_mesh_kernels(cfg, ecfg, dev)
+    mesh_kernel_times = time_mesh_kernels(
+        cfg, dev, np.random.default_rng(SEED + 31), 21, mem_rate(card_line))
+    mesh_main = phase_mesh_main_path(cfg, dev)
+    phase_mesh_ec_path(ecfg, dev)
+    mesh_timing = phase_mesh_timing(cfg, dev, card_line, mesh_kernel_times,
+                                    mesh_main)
     kernels = []
     for table, err, main, tim in ((KERNELS, errs, main_res, timing),
-                                  (EC_KERNELS, ec_errs, ec_main, ec_timing)):
+                                  (EC_KERNELS, ec_errs, ec_main, ec_timing),
+                                  (MESH_KERNELS, mesh_errs, mesh_main,
+                                   mesh_timing)):
         for key, name, src, replaces in table:
             t = tim[key]
             kernels.append({

@@ -11,7 +11,11 @@ replication data plane on one H100 with hand-written CUDA kernels
   the codec (``ec.gf``, ``ec.rs``), K6 (parity encode / reconstruction
   decode) and K7 (fused encode-fold) in ``ec.kernels``, reconstruction
   reads and heal in ``ec.reconstruct``; ``northstar.run_device_ec`` drives
-  BASELINE config 3.
+  BASELINE config 3;
+- ``transport.MeshTransport`` — the replica mesh, one row per rank of a
+  ``torch.distributed`` group (``core.comm.MeshComm``), whose steady
+  steps run the mesh-local mode of K2-K4 (``core.step_mesh``);
+  ``transport.launch.run_ranks`` starts R local ranks.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``, which
 runs the plain versions. This package never imports JAX.
@@ -19,9 +23,14 @@ runs the plain versions. This package never imports JAX.
 
 from raft_tpu_torch.config import RaftConfig
 from raft_tpu_torch.core.state import ReplicaState, init_state
-from raft_tpu_torch.transport import SingleDeviceTransport, make_transport
+from raft_tpu_torch.transport import (
+    MeshTransport,
+    SingleDeviceTransport,
+    make_transport,
+)
 
 __all__ = [
+    "MeshTransport",
     "RaftConfig",
     "ReplicaState",
     "SingleDeviceTransport",

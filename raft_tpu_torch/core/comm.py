@@ -1,10 +1,17 @@
-"""Replica-axis communication on the resident layout (port of
-``raft_tpu/core/comm.py:87`` ``SingleDeviceComm``).
+"""Replica-axis communication (port of ``raft_tpu/core/comm.py``).
 
-All R replica rows live on one device, so the "collectives" are plain
-indexing. Indices may be Python ints or 0-d device tensors; a tensor index
-goes through ``index_select``, which never reads the value back to the
-host. The mesh placement waits for the distributed slice.
+The protocol steps of ``core.step`` reach other replica rows only through
+this interface — ``replica_ids``, ``local``, ``all_gather``,
+``select_row`` and ``leader_cols`` — so one body runs in two placements:
+
+- ``SingleDeviceComm`` (``comm.py:87``): all R rows resident on one
+  device (L = R); the "collectives" are plain indexing.
+- ``MeshComm`` (``comm.py:112``): one replica row per rank of a
+  ``torch.distributed`` process group (L = 1, the rank is the row); the
+  collectives are ``dist.all_gather`` over that group.
+
+Indices may be Python ints or 0-d device tensors; a tensor index goes
+through ``index_select``, which never reads the value back to the host.
 """
 
 from __future__ import annotations
@@ -62,3 +69,61 @@ class SingleDeviceComm:
         G, B = win.shape[:2]
         blocks = win.reshape(G, B, self.n_replicas, w)
         return take_groups(blocks, leaders, 2).repeat(1, 1, self.n_replicas)
+
+
+class MeshComm:
+    """One replica row per rank of a ``torch.distributed`` group (L = 1).
+
+    Each collective is one list-form ``dist.all_gather`` on ``group`` (the
+    default group when None), which must have ``n_replicas`` ranks. A
+    gloo group stages a CUDA operand through a host copy and puts the
+    result back on the operand's device: gloo's collectives move host
+    memory. Bool operands travel as uint8. Every rank must make the same
+    calls in the same order, as the mirrored programs of the transport
+    do."""
+
+    def __init__(self, n_replicas: int, group=None):
+        import torch.distributed as dist
+
+        size = dist.get_world_size(group)
+        if size != n_replicas:
+            raise ValueError(
+                f"MeshComm over {n_replicas} replicas needs a process "
+                f"group of {n_replicas} ranks, got {size}")
+        self.n_replicas = n_replicas
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self._staged = dist.get_backend(group) == "gloo"
+
+    def replica_ids(self, device) -> torch.Tensor:
+        return torch.full((1,), self.rank, dtype=torch.int32, device=device)
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        return x[self.rank:self.rank + 1]
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """[1, ...] per-rank values -> [R, ...] on every rank."""
+        import torch.distributed as dist
+
+        src = x.contiguous()
+        if src.dtype == torch.bool:
+            src = src.to(torch.uint8)
+        if self._staged and src.is_cuda:
+            src = src.cpu()
+        parts = [torch.empty_like(src) for _ in range(self.n_replicas)]
+        dist.all_gather(parts, src, group=self.group)
+        return torch.cat(parts, 0).to(device=x.device, dtype=x.dtype)
+
+    def all_gather_host(self, x: torch.Tensor) -> torch.Tensor:
+        """``all_gather`` with the result on the host, for decisions taken
+        there: one copy to the host under gloo, a device gather and one
+        copy under a device backend."""
+        return self.all_gather(x.cpu() if self._staged else x).cpu()
+
+    def select_row(self, x: torch.Tensor, idx) -> torch.Tensor:
+        return take(self.all_gather(x), idx, 0)
+
+    def leader_cols(self, win: torch.Tensor, leader, w: int) -> torch.Tensor:
+        """The leader rank's lane block [B, w] (``w`` = the local lanes)."""
+        blocks = self.all_gather(win[None])           # [R, B, w]
+        return take(blocks, leader, 0)

@@ -10,6 +10,10 @@ across with ``state_from_numpy`` / ``state_to_numpy``:
   bytes for slot c are lanes [r*W, (r+1)*W) of row c, W = shard_bytes // 4
   words, packed little-endian exactly as numpy's ``view(np.int32)``.
 
+On the mesh transport each rank holds one row of that layout (R = 1:
+vectors [1], ``log_term`` [1, C], ``log_payload`` [C, W]); ``cut_row`` and
+``stack_rows`` carry between the two.
+
 Log indices are 1-based; index i lives in ring slot ``(i - 1) % C``.
 
 The device step functions update the two rings **in place** and return a
@@ -156,6 +160,30 @@ def state_to_numpy(state: ReplicaState) -> dict:
     """Numpy leaves keyed by field name (the inverse of
     ``state_from_numpy``)."""
     return {f: getattr(state, f).cpu().numpy() for f in FIELDS}
+
+
+def cut_row(fields: dict, r: int) -> dict:
+    """Replica row ``r`` of a whole-cluster state given as numpy leaves
+    (``state_to_numpy``, or ``np.asarray`` of each leaf of a JAX
+    ``TpuMeshTransport`` state): the rank-local state of the mesh
+    transport — vectors [1], ``log_term`` [1, C], ``log_payload`` [C, W]."""
+    R = np.shape(fields["term"])[0]
+    W = np.shape(fields["log_payload"])[1] // R
+    out = {f: np.array(fields[f][r:r + 1], dtype=np.int32)
+           for f in FIELDS if f != "log_payload"}
+    out["log_payload"] = np.array(
+        fields["log_payload"][:, r * W:(r + 1) * W], dtype=np.int32)
+    return out
+
+
+def stack_rows(parts) -> dict:
+    """The inverse of ``cut_row``: R rank-local numpy states, in rank
+    order, stacked back into one whole-cluster state."""
+    out = {f: np.concatenate([p[f] for p in parts], axis=0)
+           for f in FIELDS if f != "log_payload"}
+    out["log_payload"] = np.concatenate([p["log_payload"] for p in parts],
+                                        axis=1)
+    return out
 
 
 def slot_of(index, capacity: int):

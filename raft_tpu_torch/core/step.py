@@ -13,6 +13,15 @@
 - ``fused_steady_scan`` — K steady ticks with exact early exit
   (``:633``), each through the general path (K1).
 
+These four reach other replica rows only through ``comm``, where the JAX
+package does (``core.comm``): under ``SingleDeviceComm`` every row is
+resident, under ``MeshComm`` each rank holds its own row (L = 1) and the
+steady forms go to the mesh kernels of ``core.step_mesh`` exactly where
+the JAX package dispatches to them (``:225-245``, ``:584-598``): with
+``term_floor``, ``repair`` off or ``ec`` on, 128 | B and 128 | C, and a
+window of the full local lanes. Everywhere else the general path runs on
+the one local row.
+
 The multi-Raft group data plane — G independent groups, every operand
 with a leading group axis (state from ``core.state.init_group_state``):
 
@@ -37,7 +46,12 @@ from typing import NamedTuple
 
 import torch
 
-from raft_tpu_torch.core.comm import SingleDeviceComm, take, take_groups
+from raft_tpu_torch.core.comm import (
+    MeshComm,
+    SingleDeviceComm,
+    take,
+    take_groups,
+)
 from raft_tpu_torch.core.ring import (
     group_read_window,
     group_read_window_cols,
@@ -87,8 +101,18 @@ def _mask(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.bool).to(device)
 
 
+def _mesh_kernel_ok(comm, cap: int, B: int, lanes: int, state) -> bool:
+    """Whether a steady call under ``comm`` goes to the mesh kernels: the
+    JAX package's dispatch rule (``core/step.py:225-231``,
+    ``ring._pallas_ok``), kept as narrow as it is there because the
+    kernels' closed forms hold only under the engine's steady-program
+    invariants (``core.step_mesh``)."""
+    return (isinstance(comm, MeshComm) and B % 128 == 0 and cap % 128 == 0
+            and lanes == state.log_payload.shape[1])
+
+
 def replicate_step(
-    comm: SingleDeviceComm,
+    comm,
     state: ReplicaState,
     client_payload: torch.Tensor,  # i32[B, L*W] folded batch
     client_count,                  # valid entries in client_payload (<= B)
@@ -111,7 +135,18 @@ def replicate_step(
     dev = state.device
     if member is not None:
         member = membership_voters(_as_member(member, dev))
-    if term_floor is not None and (not repair or ec):
+    cap = state.capacity
+    B, M = client_payload.shape
+    steady = term_floor is not None and (not repair or ec)
+    if steady and _mesh_kernel_ok(comm, cap, B, M, state):
+        from raft_tpu_torch.core.step_mesh import mesh_replicate_step
+
+        return mesh_replicate_step(
+            comm, state, client_payload, client_count, leader, leader_term,
+            alive, slow, floor_prev_term, repair_floor, member, term_floor,
+            commit_quorum=commit_quorum, ec=ec,
+        )
+    if steady and isinstance(comm, SingleDeviceComm):
         from raft_tpu_torch.core.step_cuda import steady_replicate_step
 
         return steady_replicate_step(
@@ -119,8 +154,6 @@ def replicate_step(
             slow, floor_prev_term, repair_floor, member, term_floor,
             commit_quorum=commit_quorum, ec=ec,
         )
-    cap = state.capacity
-    B, M = client_payload.shape
     L = state.term.shape[0]
     W = M // L
     client_payload = client_payload.to(dev)
@@ -132,15 +165,18 @@ def replicate_step(
     slow = _mask(slow, dev)
     ids = comm.replica_ids(dev)
     is_leader_row = ids == leader
+    alive_l = comm.local(alive)
+    slow_l = comm.local(slow)
     term0 = state.term
     barange = torch.arange(B, dtype=torch.int32, device=dev)
     client_count = _i32(client_count, dev).clamp(0, B)
     legit = leader_term >= 1
 
     # ---- 1. frontier accounting (the leader's client batch)
-    leader_current = legit & (take(term0, leader) <= leader_term)
-    leader_last0 = take(state.last_index, leader)
-    leader_commit0 = take(state.commit_index, leader)
+    leader_current = legit & (take(comm.all_gather(term0), leader)
+                              <= leader_term)
+    leader_last0 = take(comm.all_gather(state.last_index), leader)
+    leader_commit0 = take(comm.all_gather(state.commit_index), leader)
     room = cap - (leader_last0 - leader_commit0)
     frontier_count = torch.where(
         leader_current, torch.minimum(client_count, room.clamp(min=0)), 0)
@@ -149,12 +185,12 @@ def replicate_step(
     leader_last = leader_last0 + frontier_count
 
     # ---- 2. verified match bookkeeping
-    heard = alive & legit & (leader_term >= term0)
+    heard = alive_l & legit & (leader_term >= term0)
     m_eff = torch.where(state.match_term == leader_term, state.match_index, 0)
     m_eff = torch.where(ingest_row, leader_last, m_eff)
 
     def leader_prev_term(lt, ws, prev_slot):
-        ring_term = take(take(lt, prev_slot, 1), leader)
+        ring_term = comm.select_row(take(lt, prev_slot, 1), leader)
         attested = torch.where(ws - 1 < repair_floor, floor_prev_term,
                                ring_term)
         return torch.where(ws == 1, 0, attested)
@@ -165,7 +201,7 @@ def replicate_step(
         my_prev_t = take(log_term, prev_slot, 1)
         has_prev = (ws == 1) | ((last_index >= ws - 1)
                                 & (my_prev_t == prev_term))
-        accept = heard & ~slow & has_prev
+        accept = heard & ~slow_l & has_prev
         if force_leader_row:
             accept = accept | ingest_row
         start_slot = slot_of(ws, cap)
@@ -185,11 +221,13 @@ def replicate_step(
     carry = (state.log_term, state.log_payload, state.last_index, m_eff)
     repair_ws = torch.zeros((), dtype=torch.int32, device=dev)
     if not ec and repair:
+        matches0 = comm.all_gather(m_eff)
         repair_mask = alive & ~slow
         horizon = (leader_last - cap + 1).clamp(min=1)
         horizon = torch.maximum(horizon, repair_floor)
         repair_ws = torch.maximum(
-            torch.where(repair_mask, m_eff, leader_last0).min() + 1, horizon)
+            torch.where(repair_mask, matches0, leader_last0).min() + 1,
+            horizon)
         repair_count = torch.where(
             legit, (leader_last0 - repair_ws + 1).clamp(0, B), 0)
         # The JAX step skips the window under lax.cond when repair_count
@@ -199,7 +237,7 @@ def replicate_step(
         lt, lp = carry[0], carry[1]
         rslot = slot_of(repair_ws, cap)
         win_p = comm.leader_cols(read_window_cols(lp, rslot, B), leader, W)
-        win_t = take(read_window(lt, rslot, B), leader)
+        win_t = comm.select_row(read_window(lt, rslot, B), leader)
         prev_slot = slot_of(torch.clamp(repair_ws - 1, min=1), cap)
         prev_term = leader_prev_term(lt, repair_ws, prev_slot)
         fixed = apply_window(carry, repair_ws, repair_count, win_p, win_t,
@@ -231,17 +269,17 @@ def replicate_step(
         if ec and commit_quorum is not None:
             quorum = quorum.clamp(min=commit_quorum)
         ack_mask = alive & member
-    match = torch.where(ack_mask, m_eff, 0)
+    match = torch.where(ack_mask, comm.all_gather(m_eff), 0)
     commit_cand = commit_from_match(match, quorum)
     cand_slot = slot_of(commit_cand.clamp(min=1), cap)
-    cand_term = take(take(log_term, cand_slot, 1), leader)
+    cand_term = comm.select_row(take(log_term, cand_slot, 1), leader)
     commit_ok = legit & (commit_cand >= 1) & (cand_term == leader_term)
     global_commit = torch.where(
         commit_ok, torch.maximum(leader_commit0, commit_cand), leader_commit0)
     my_commit = torch.where(is_leader_row, global_commit,
                             torch.minimum(global_commit, m_eff))
     commit_index = torch.where(
-        (heard & ~slow) | (is_leader_row & leader_current),
+        (heard & ~slow_l) | (is_leader_row & leader_current),
         torch.maximum(state.commit_index, my_commit), state.commit_index)
 
     new_state = ReplicaState(
@@ -259,7 +297,8 @@ def replicate_step(
     info = RepInfo(
         commit_index=global_commit.to(torch.int32),
         match=match.to(torch.int32),
-        max_term=torch.where(alive, term, 0).max().to(torch.int32),
+        max_term=torch.where(alive, comm.all_gather(term), 0).max()
+        .to(torch.int32),
         repair_start=repair_ws.to(torch.int32),
         frontier_len=frontier_count.to(torch.int32),
     )
@@ -280,7 +319,17 @@ def scan_replicate(comm, ec, commit_quorum, repair, state, payloads, counts,
     dev = state.device
     if member is not None:
         member = membership_voters(_as_member(member, dev))
-    if term_floor is not None and (not repair or ec):
+    steady = term_floor is not None and (not repair or ec)
+    if steady and _mesh_kernel_ok(comm, state.capacity, payloads.shape[1],
+                                  payloads.shape[2], state):
+        from raft_tpu_torch.core.step_mesh import mesh_scan_replicate
+
+        return mesh_scan_replicate(
+            comm, state, payloads, counts, leader, leader_term, alive, slow,
+            floor_prev_term, repair_floor, member, term_floor,
+            commit_quorum=commit_quorum, ec=ec,
+        )
+    if steady and isinstance(comm, SingleDeviceComm):
         from raft_tpu_torch.core.step_cuda import steady_scan_replicate
 
         return steady_scan_replicate(
@@ -340,7 +389,7 @@ def fused_steady_scan(comm, commit_quorum, state, staging, start_slot,
     start = _i32(start_slot, dev)
     n_run = _i32(n_run, dev)
     halted = _mask(halted0, dev).reshape(())
-    prev_last = take(state.last_index, leader)
+    prev_last = take(comm.all_gather(state.last_index), leader)
     infos, escaped, ran = [], [], []
     for j in range(K):
         run = ~halted & (j < n_run)
@@ -360,27 +409,46 @@ def fused_steady_scan(comm, commit_quorum, state, staging, start_slot,
             torch.stack(ran).to(torch.int32), halted)
 
 
-def vote_step(comm: SingleDeviceComm, state: ReplicaState, candidate,
-              cand_term, alive) -> tuple[ReplicaState, VoteInfo]:
+def vote_step(comm, state: ReplicaState, candidate, cand_term,
+              alive) -> tuple[ReplicaState, VoteInfo]:
     """One election round: every replica votes at once, with per-term votes
     and the §5.4.1 up-to-date check (``raft_tpu/core/step.py:928``). The
-    one-group case of ``_vote``."""
-    new, info = _vote(as_group(state), candidate, cand_term,
-                      _mask(alive, state.device)[None])
-    return (state.replace(term=new.term[0], voted_for=new.voted_for[0]),
-            VoteInfo(*(f[0] for f in info)))
+    candidate's last index and last-log term and the grants cross the
+    rows through ``comm`` (``:969-993``); the vote itself is the one-group
+    case of ``_vote``."""
+    alive = _mask(alive, state.device)
+    my_lterm = last_log_term(state)
+    new, grant = _vote(as_group(state), candidate, cand_term,
+                       comm.local(alive)[None],
+                       comm.all_gather(state.last_index)[None],
+                       comm.all_gather(my_lterm)[None], my_lterm[None])
+    term = new.term[0]
+    info = _vote_info(comm.all_gather(grant[0]) & alive,
+                      comm.all_gather(term), alive)
+    return state.replace(term=term, voted_for=new.voted_for[0]), info
 
 
-def _vote(state, candidates, cand_terms, alive):
-    """G groups' election rounds (``state`` group-batched, ``alive``
-    [G, R], ``candidates``/``cand_terms`` per group)."""
+def _vote_info(grants, terms, alive) -> VoteInfo:
+    """A round's VoteInfo from every row's grant and new term ([..., R]):
+    only rows the candidate could reach count or report their term."""
+    return VoteInfo(
+        votes=grants.to(torch.int32).sum(-1).to(torch.int32),
+        max_term=torch.where(alive, terms, 0).amax(-1).to(torch.int32),
+        grants=grants,
+    )
+
+
+def _vote(state, candidates, cand_terms, alive, lasts, lterms, my_lterm):
+    """The vote of G groups' local rows (``state`` group-batched, ``alive``
+    the local rows' [G, L] mask, ``lasts``/``lterms`` every row's last
+    index and last-log term [G, R], ``my_lterm`` the local rows' [G, L]).
+    Returns (state with the new terms and votes, local grants [G, L])."""
     G, dev = state.term.shape[0], state.device
     col = (slice(None), None)                       # [G] -> [G, 1]
     cand = per_group(candidates, G, dev, torch.int32)
     cand_term = per_group(cand_terms, G, dev, torch.int32)[col]
-    my_lterm = last_log_term(state)
-    cand_last = take_groups(state.last_index, cand)[col]
-    cand_lterm = take_groups(my_lterm, cand)[col]
+    cand_last = take_groups(lasts, cand)[col]
+    cand_lterm = take_groups(lterms, cand)[col]
     newer = cand_term > state.term
     term = torch.maximum(state.term, cand_term)
     vf = torch.where(newer, NO_VOTE, state.voted_for)
@@ -391,15 +459,9 @@ def _vote(state, candidates, cand_terms, alive):
     voted_for = torch.where(grant, cand[col], vf)
     term = torch.where(alive, term, state.term)
     voted_for = torch.where(alive, voted_for, state.voted_for)
-    grants = grant & alive
     new_state = state.replace(term=term.to(torch.int32),
                               voted_for=voted_for.to(torch.int32))
-    info = VoteInfo(
-        votes=grants.to(torch.int32).sum(dim=1).to(torch.int32),
-        max_term=torch.where(alive, term, 0).amax(dim=1).to(torch.int32),
-        grants=grants,
-    )
-    return new_state, info
+    return new_state, grant
 
 
 # ------------------------------------------------- multi-Raft group plane
@@ -581,8 +643,11 @@ def group_vote_step(n_replicas: int):
     campaign passes an all-False ``alive`` row and is left unchanged."""
 
     def vote(state, candidates, cand_terms, alive):
-        return _vote(state, candidates, cand_terms,
-                     _mask(alive, state.device))
+        alive = _mask(alive, state.device)
+        lterms = last_log_term(state)
+        new, grant = _vote(state, candidates, cand_terms, alive,
+                           state.last_index, lterms, lterms)
+        return new, _vote_info(grant & alive, new.term, alive)
 
     return vote
 

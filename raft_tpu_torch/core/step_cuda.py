@@ -13,6 +13,20 @@
 - K4 ``turnover_flight`` — the write-only all-accept flight that turns the
   ring over (``_run_turnover`` :1189 / ``_turnover_kernel`` :1130).
 
+With ``my_row >= 0`` each kernel runs in its mesh-local mode (K2·mesh,
+K3·mesh, K4·mesh: the ``local=True`` branches, ``step_pallas.py:217``,
+:245, :268, :292, :361, :751, :775, :816, :1155), driven by
+``core.step_mesh``. The (6, R) state block is the plane gathered from
+every rank, and the scalar core runs over all R rows of it as before; the
+rings hold the local row only (payload [C, W], terms [1, C]). The merge
+writes the local row where it accepts and reads no old term; the §5.3
+conflict bit and the next prev-term column are replaced by their closed
+forms (an accepting row's tail is exactly the window end; the next prev
+term is the leader's term for accepting rows and -1 for the rest), which
+hold under the engine's steady-program invariants (``core.step_mesh``).
+The prev-term column comes in as an operand (``prev`` [R]) instead of from
+the ring. No parity mode: mesh windows arrive pre-encoded.
+
 With ``ec_consts`` (the [m, k, 8] table of ``ec.kernels.parity_consts``)
 each kernel runs in its in-kernel RS parity mode (K2-4·ec,
 ``_encode_parity_lanes`` :93): the windows carry only the k data-lane
@@ -59,7 +73,8 @@ _WORK_WORDS = 16
 #: in-kernel parity mode counts under its own ``*_ec`` keys
 LAUNCHES = {"steady_step": 0, "pipeline_flight": 0, "turnover_flight": 0,
             "steady_step_ec": 0, "pipeline_flight_ec": 0,
-            "turnover_flight_ec": 0}
+            "turnover_flight_ec": 0, "steady_step_mesh": 0,
+            "pipeline_flight_mesh": 0, "turnover_flight_mesh": 0}
 
 _workspaces: dict = {}
 _ec_tables: dict = {}
@@ -225,14 +240,19 @@ def _quorum(member, prm: StepParams) -> int:
 
 
 def _epilogue(v, pl: _Plan, mm, alive, slow, member, prm: StepParams, C):
-    """In place on the list-of-lists ``v``; returns (match, scal)."""
+    """In place on the list-of-lists ``v``; returns (match, scal). ``mm``
+    None is the mesh-local mode: an accepting row's tail is the window end
+    (``step_pallas.py:292-298``)."""
     L = len(v[0])
     legit = prm.lterm >= 1
     we = pl.ws + pl.count - 1
     meffs, match = [], []
     for l in range(L):
         last0 = v[_VL][l]
-        if pl.acc[l]:
+        if mm is None:
+            if pl.acc[l] and pl.count > 0:
+                v[_VL][l] = we
+        elif pl.acc[l]:
             v[_VL][l] = max(we, pl.ws - 1) if mm[l] else max(last0, we)
         m1 = max(pl.meff[l], we) if pl.acc[l] else pl.meff[l]
         meffs.append(m1)
@@ -270,22 +290,37 @@ def _masks(alive, slow, member):
             None if member is None else member.tolist())
 
 
-def _plain_step(v, log_payload, log_term, win, cnt, masks, prm, C):
+def _plain_step(v, log_payload, log_term, win, cnt, masks, prm, C, my=-1,
+                prev_ts=None):
     """One plain steady step on the host list ``v``; returns
-    (match, scal, next_prev)."""
+    (match, scal, next_prev). ``my >= 0`` is the mesh-local mode: the
+    rings hold row ``my`` only and ``prev_ts`` is every row's prev term."""
     alive, slow, member = masks
     B = win.shape[0]
-    prev_slot = (max(v[_VL][prm.leader], 1) - 1) % C
-    prev_ts = log_term[:, prev_slot].tolist()
+    if my < 0:
+        prev_slot = (max(v[_VL][prm.leader], 1) - 1) % C
+        prev_ts = log_term[:, prev_slot].tolist()
     pl = _prologue(v, cnt, prev_ts, alive, slow, prm, C, B)
     dev = log_term.device
-    last = torch.tensor(v[_VL], dtype=torch.int32, device=dev)
+    rows = [my] if my >= 0 else range(len(v[0]))
     mm = write_window_both_plain(
         log_payload, log_term, win,
         torch.full((B,), prm.lterm, dtype=torch.int32, device=dev),
         pl.s, pl.count, pl.ws,
-        torch.tensor(pl.acc, dtype=torch.bool, device=dev), last,
+        torch.tensor([pl.acc[l] for l in rows], dtype=torch.bool,
+                     device=dev),
+        torch.tensor([v[_VL][l] for l in rows], dtype=torch.int32,
+                     device=dev),
     ).tolist()
+    if my >= 0:
+        # closed forms (step_pallas.py:292-298, :361-373): no conflict
+        # bit, and the next prev column without reading other rows' terms
+        match, scal = _epilogue(v, pl, None, alive, slow, member, prm, C)
+        if pl.count > 0:
+            nxt = [prm.lterm if a else -1 for a in pl.acc]
+        else:
+            nxt = pl.prev_ts
+        return match, scal, nxt
     match, scal = _epilogue(v, pl, mm, alive, slow, member, prm, C)
     if pl.count > 0:
         nxt = log_term[:, (pl.s + pl.count - 1) % C].tolist()
@@ -295,31 +330,43 @@ def _plain_step(v, log_payload, log_term, win, cnt, masks, prm, C):
 
 
 def steady_step_plain(vecs, log_payload, log_term, win, count, alive, slow,
-                      member, prm: StepParams, out, ec_consts=None) -> None:
-    """The plain version of K2 (same arguments and outputs)."""
-    L, C = log_term.shape
-    check_lanes(log_payload.shape[1], win.shape[1], L, ec_consts)
+                      member, prm: StepParams, out, ec_consts=None,
+                      my_row=-1, prev=None) -> None:
+    """The plain version of K2 (same arguments and outputs), and of
+    K2·mesh with ``my_row >= 0``."""
+    L, C = vecs.shape[1], log_term.shape[1]
+    check_lanes(log_payload.shape[1], win.shape[1], log_term.shape[0],
+                ec_consts)
     win = _full_lanes(win, ec_consts, log_term, log_payload)
     v = vecs.tolist()
-    match, scal, nxt = _plain_step(v, log_payload, log_term, win, int(count),
-                                   _masks(alive, slow, member), prm, C)
+    match, scal, nxt = _plain_step(
+        v, log_payload, log_term, win, int(count),
+        _masks(alive, slow, member), prm, C, my_row,
+        None if prev is None else prev.tolist())
     vecs.copy_(torch.tensor(v, dtype=torch.int32))
     out.copy_(torch.tensor(match + scal + nxt, dtype=torch.int32))
 
 
 def pipeline_flight_plain(vecs, log_payload, log_term, wins, counts, alive,
                           slow, member, prm: StepParams, br, turnover_ok,
-                          out, work, ec_consts=None) -> None:
+                          out, work, ec_consts=None, my_row=-1,
+                          prev=None) -> None:
     """The plain version of K3: decide the turnover branch (publishing it
-    in ``work`` as the kernel does) or run the T steps."""
-    L, C = log_term.shape
+    in ``work`` as the kernel does) or run the T steps; K3·mesh with
+    ``my_row >= 0``, the prev column carried step to step in closed
+    form."""
+    L, C = vecs.shape[1], log_term.shape[1]
     P, B, Mk = wins.shape
-    check_lanes(log_payload.shape[1], Mk, L, ec_consts)
+    check_lanes(log_payload.shape[1], Mk, log_term.shape[0], ec_consts)
     T = counts.shape[0]
-    s0, prev0 = start_slot_and_prev(vecs, log_term, prm.leader, C, L)
+    if my_row >= 0:
+        s0 = int(vecs[_VL, prm.leader]) % C
+        prev0 = prev.reshape(L, 1)
+    else:
+        s0, prev0 = start_slot_and_prev(vecs, log_term, prm.leader, C, L)
     turnover = False
     if turnover_ok:
-        params, masks = params_and_masks(prm, alive, slow, member)
+        params, masks = params_and_masks(prm, alive, slow, member, my_row)
         feasible, accept0 = launch_feasibility(
             vecs, masks, params, prev0, counts, s0, br, B, L, prm.leader,
             prm.lterm, prm.rfloor, prm.fpt)
@@ -332,9 +379,11 @@ def pipeline_flight_plain(vecs, log_payload, log_term, wins, counts, alive,
     v = vecs.tolist()
     masks = _masks(alive, slow, member)
     cnts = counts.tolist()
+    prev_ts = prev0[:, 0].tolist()
     for t in range(T):
-        match, scal, _ = _plain_step(v, log_payload, log_term, wins[t % P],
-                                     cnts[t], masks, prm, C)
+        match, scal, prev_ts = _plain_step(
+            v, log_payload, log_term, wins[t % P], cnts[t], masks, prm, C,
+            my_row, prev_ts)
     work[WK_RAN3] += 1
     vecs.copy_(torch.tensor(v, dtype=torch.int32))
     out.copy_(torch.tensor(match + scal, dtype=torch.int32))
@@ -345,9 +394,11 @@ def turnover_flight_plain(vecs, log_payload, log_term, wins, T, prm,
     """The plain version of K4: step t writes every lane of slots
     [s0 + t*B, s0 + (t+1)*B) mod C (later steps overwrite earlier laps),
     every term slot becomes the leader's term, and the bookkeeping is the
-    closed form of ``step_pallas.py:1161-1186``."""
-    L, C = log_term.shape
-    check_lanes(log_payload.shape[1], wins.shape[2], L, ec_consts)
+    closed form of ``step_pallas.py:1161-1186``. The same for K4·mesh,
+    whose term ring is the one local row."""
+    L, C = vecs.shape[1], log_term.shape[1]
+    check_lanes(log_payload.shape[1], wins.shape[2], log_term.shape[0],
+                ec_consts)
     if int(work[WK_PLAN]) == 0:
         return
     wins = _full_lanes(wins, ec_consts, log_term, log_payload)
@@ -387,16 +438,16 @@ def start_slot_and_prev(vecs, log_term, leader, cap, L):
     return s, log_term[:, prev_slot:prev_slot + 1].to(torch.int32)
 
 
-def params_and_masks(prm: StepParams, alive, slow, member):
-    """The JAX kernels' params (1, 7) and masks (3, L) operands (the
-    resident layout: no mesh row, so _MYROW is -1)."""
+def params_and_masks(prm: StepParams, alive, slow, member, my=-1):
+    """The JAX kernels' params (1, 7) and masks (3, L) operands; ``my`` is
+    the mesh row (_MYROW), -1 on the resident layout."""
     if member is None:
         quorum, ackm = prm.quorum, alive
     else:
         quorum = _quorum(member.tolist(), prm)
         ackm = alive & member
     params = torch.tensor([[prm.leader, prm.lterm, prm.tfloor, prm.rfloor,
-                            prm.fpt, quorum, -1]],
+                            prm.fpt, quorum, int(my)]],
                           dtype=torch.int32, device=alive.device)
     masks = torch.stack([alive, slow, ackm]).to(torch.int32)
     return params, masks
@@ -455,21 +506,45 @@ def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
 
+def _mode(vecs, log_term, ec_consts, my_row, prev, kind):
+    """The launch counter key of a wrapper call, checking the mesh-local
+    operands: the local row's one term row and an R-long prev column
+    (K2·mesh and K3·mesh), and no parity table."""
+    if my_row < 0:
+        return kind if ec_consts is None else kind + "_ec"
+    R = vecs.shape[1]
+    if not 0 <= my_row < R or log_term.shape[0] != 1 or \
+            ec_consts is not None:
+        raise ValueError(
+            f"mesh-local mode: row {my_row} of {R}, term ring "
+            f"{tuple(log_term.shape)} (one row), no ec_consts")
+    if kind != "turnover_flight" and (
+            prev is None or prev.shape != (R,) or prev.dtype != torch.int32
+            or not prev.is_contiguous() or prev.device != vecs.device):
+        raise ValueError("mesh-local mode needs the prev-term column as a "
+                         f"contiguous int32[{R}] on {vecs.device}")
+    return kind + "_mesh"
+
+
 def steady_step(vecs, log_payload, log_term, win, count, alive, slow,
-                member, prm: StepParams, out, ec_consts=None) -> None:
+                member, prm: StepParams, out, ec_consts=None, my_row=-1,
+                prev=None) -> None:
     """K2: one steady step in place on ``vecs`` (6, L) and both rings.
     ``count``: host int, or a one-element device tensor (a scan passes a
     view of its counts). Writes ``out`` = match[L] | {commit, max_term,
     frontier_len, next start slot, repair_start} | next_prev[L]. With
-    ``ec_consts`` the window carries data lanes only (parity mode)."""
+    ``ec_consts`` the window carries data lanes only (parity mode). With
+    ``my_row >= 0``, K2·mesh: the rings hold that row only and ``prev``
+    is every row's prev term [L]."""
+    key = _mode(vecs, log_term, ec_consts, my_row, prev, "steady_step")
     if not log_payload.is_cuda:
         steady_step_plain(vecs, log_payload, log_term, win, count, alive,
-                          slow, member, prm, out, ec_consts)
+                          slow, member, prm, out, ec_consts, my_row, prev)
         return
-    L, C = log_term.shape
+    L, C = vecs.shape[1], log_term.shape[1]
     M = log_payload.shape[1]
     B, Mk = win.shape
-    check_lanes(M, Mk, L, ec_consts)
+    check_lanes(M, Mk, log_term.shape[0], ec_consts)
     _check_rings(vecs, log_payload, log_term, L)
     ec = None if ec_consts is None else _ec_table(ec_consts, vecs.device)
     if isinstance(count, torch.Tensor):
@@ -482,34 +557,36 @@ def steady_step(vecs, log_payload, log_term, win, count, alive, slow,
         win.data_ptr(), cnt_ptr, cnt_val, alive.data_ptr(), slow.data_ptr(),
         _ptr(member), *prm, L, C, B, M, Mk, out.data_ptr(),
         workspace(vecs.device).data_ptr(), _ptr(ec),
-        int(ec is None and vec4_ok(M, L, log_payload, win)),
-        cuda_build.stream_of(vecs))
-    cuda_build.check("steady", rc, "steady_step")
-    LAUNCHES["steady_step" if ec is None else "steady_step_ec"] += 1
+        int(ec is None and vec4_ok(M, log_term.shape[0], log_payload, win)),
+        int(my_row), _ptr(prev), cuda_build.stream_of(vecs))
+    cuda_build.check("steady", rc, key)
+    LAUNCHES[key] += 1
 
 
 def pipeline_flight(vecs, log_payload, log_term, wins, counts, alive, slow,
                     member, prm: StepParams, br: int, turnover_ok: bool,
-                    out, ec_consts=None) -> int:
+                    out, ec_consts=None, my_row=-1, prev=None) -> int:
     """K3: a T-step flight over ``wins`` [P, B, M] (step t reads
     wins[t % P]) and device ``counts`` [T], in place. With ``turnover_ok``
     it first decides on the device whether the flight belongs to K4 and,
     if so, publishes that and does nothing else. Writes ``out`` =
-    match[L] | scal[5] when it runs the flight. Returns the kernel's grid
-    size in blocks (0 for the plain version)."""
+    match[L] | scal[5] when it runs the flight. With ``my_row >= 0``,
+    K3·mesh, ``prev`` the gathered prev column [L] (``steady_step``).
+    Returns the kernel's grid size in blocks (0 for the plain version)."""
+    key = _mode(vecs, log_term, ec_consts, my_row, prev, "pipeline_flight")
     work = workspace(vecs.device)
     if not log_payload.is_cuda:
         pipeline_flight_plain(vecs, log_payload, log_term, wins, counts,
                               alive, slow, member, prm, br, turnover_ok,
-                              out, work, ec_consts)
+                              out, work, ec_consts, my_row, prev)
         return 0
     import ctypes
 
-    L, C = log_term.shape
+    L, C = vecs.shape[1], log_term.shape[1]
     M = log_payload.shape[1]
     P, B, Mk = wins.shape
     T = counts.shape[0]
-    check_lanes(M, Mk, L, ec_consts)
+    check_lanes(M, Mk, log_term.shape[0], ec_consts)
     _check_rings(vecs, log_payload, log_term, L)
     ec = None if ec_consts is None else _ec_table(ec_consts, vecs.device)
     grid = ctypes.c_int(0)
@@ -518,44 +595,51 @@ def pipeline_flight(vecs, log_payload, log_term, wins, counts, alive, slow,
         wins.data_ptr(), counts.data_ptr(), T, P, alive.data_ptr(),
         slow.data_ptr(), _ptr(member), *prm, L, C, B, M, Mk, int(br),
         int(turnover_ok), out.data_ptr(), work.data_ptr(), _ptr(ec),
-        int(ec is None and vec4_ok(M, L, log_payload, wins)),
-        cuda_build.stream_of(vecs), ctypes.byref(grid))
-    cuda_build.check("steady", rc, "pipeline_flight")
-    LAUNCHES["pipeline_flight" if ec is None else "pipeline_flight_ec"] += 1
+        int(ec is None and vec4_ok(M, log_term.shape[0], log_payload, wins)),
+        int(my_row), _ptr(prev), cuda_build.stream_of(vecs),
+        ctypes.byref(grid))
+    cuda_build.check("steady", rc, key)
+    LAUNCHES[key] += 1
     return grid.value
 
 
 def turnover_flight(vecs, log_payload, log_term, wins, T: int,
-                    prm: StepParams, out, ec_consts=None) -> None:
+                    prm: StepParams, out, ec_consts=None,
+                    my_row=-1) -> None:
     """K4: the write-only turnover flight. Runs only behind a
     ``pipeline_flight`` launched with ``turnover_ok`` on the same stream,
-    and does its work only when that launch chose it."""
+    and does its work only when that launch chose it. With ``my_row >=
+    0``, K4·mesh: one payload row and one term row."""
+    key = _mode(vecs, log_term, ec_consts, my_row, None, "turnover_flight")
     work = workspace(vecs.device)
     if not log_payload.is_cuda:
         turnover_flight_plain(vecs, log_payload, log_term, wins, T, prm,
                               out, work, ec_consts)
         return
-    L, C = log_term.shape
+    L, C = vecs.shape[1], log_term.shape[1]
     M = log_payload.shape[1]
     P, B, Mk = wins.shape
-    check_lanes(M, Mk, L, ec_consts)
+    check_lanes(M, Mk, log_term.shape[0], ec_consts)
     _check_rings(vecs, log_payload, log_term, L)
     ec = None if ec_consts is None else _ec_table(ec_consts, vecs.device)
     rc = cuda_build.lib("steady").rt_turnover(
         vecs.data_ptr(), log_payload.data_ptr(), log_term.data_ptr(),
         wins.data_ptr(), T, P, prm.lterm, prm.tfloor, L, C, B, M, Mk,
         out.data_ptr(), work.data_ptr(), _ptr(ec),
-        int(ec is None and vec4_ok(M, L, log_payload, wins)),
-        cuda_build.stream_of(vecs))
-    cuda_build.check("steady", rc, "turnover_flight")
-    LAUNCHES["turnover_flight" if ec is None else "turnover_flight_ec"] += 1
+        int(ec is None and vec4_ok(M, log_term.shape[0], log_payload, wins)),
+        int(my_row), cuda_build.stream_of(vecs))
+    cuda_build.check("steady", rc, key)
+    LAUNCHES[key] += 1
 
 
 # ------------------------------------------------------ public functions
 def _prepare(state, leader, leader_term, term_floor, repair_floor,
-             floor_prev_term, alive, slow, member, commit_quorum, ec):
+             floor_prev_term, alive, slow, member, commit_quorum, ec,
+             rows=None):
+    """Host params and device masks of a call; ``rows`` is the plane width
+    when it is not the state's row count (the mesh)."""
     dev = state.device
-    L = state.term.shape[0]
+    L = state.term.shape[0] if rows is None else rows
     prm = step_params(leader, leader_term, term_floor, repair_floor,
                       floor_prev_term, commit_quorum, L, ec=ec)
     alive = _bool_mask(alive, dev)

@@ -2,7 +2,9 @@
 // the packed state-vector layout, and the steady step's scalar core
 // (prologue, window merge with its optional in-kernel RS parity, epilogue)
 // used by both the per-step kernel and the persistent pipeline kernel in
-// steady.cu.
+// steady.cu, in the resident layout and in the mesh-local one (LOCAL: the
+// scalar core runs over all L = R rows of the gathered plane while the
+// rings hold row p.my only).
 //
 // Index arithmetic follows the JAX package: % floors there and truncates
 // in C++, so every modular expression that can go negative uses floor_mod.
@@ -35,6 +37,8 @@ struct SteadyParams {
   int ec_floor;  // EC durability floor clamping a member majority (0: none)
   int L, C, B, M, W;
   int Mk;        // window lanes: M, or k*W in the in-kernel parity mode
+  int my;        // the ring's row in the mesh-local mode (W = M); -1 when
+                 // the rings hold all L rows
 };
 
 // What a step's prologue derives; every block computes the same plan.
@@ -60,9 +64,12 @@ __device__ inline int quorum_of(const uint8_t* member, const SteadyParams& p) {
 // Frontier accounting and per-row masks (step_pallas.py _steady_kernel
 // prologue). ``vec`` is the (6, L) block at the start of the step; the
 // prev-term column is read from the term ring through L2 (another block
-// may have written it during the previous step of a persistent flight).
+// may have written it during the previous step of a persistent flight),
+// or from ``prev_col`` [L] when it is given (the mesh-local mode, whose
+// ring holds one row).
 __device__ inline void step_prologue(const int* vec, int cnt_in,
                                      const int* log_term,
+                                     const int* prev_col,
                                      const uint8_t* alive,
                                      const uint8_t* slow,
                                      const SteadyParams& p, StepPlan& pl) {
@@ -79,7 +86,8 @@ __device__ inline void step_prologue(const int* vec, int cnt_in,
   const int leader_last = last0 + count;
   const int prev_slot = floor_mod(max(ws - 1, 1) - 1, C);
   for (int l = 0; l < L; ++l)
-    pl.prev_ts[l] = __ldcg(log_term + (size_t)l * C + prev_slot);
+    pl.prev_ts[l] = prev_col ? prev_col[l]
+                             : __ldcg(log_term + (size_t)l * C + prev_slot);
   int prev_term = (ws - 1 < p.rfloor) ? p.fpt : pl.prev_ts[p.leader];
   if (ws == 1) prev_term = 0;
   unsigned acc = 0, heard_bits = 0;
@@ -134,19 +142,23 @@ __device__ inline void load_ec_table(uint8_t* dst, const uint8_t* ec,
 // conflict bit of row l is set where an existing entry (index <= last[l])
 // carries another term. Only touched slots are read or written; the
 // payload ring is never read. EC mode moves single words (V == 1).
-template <int V, bool EC>
+// LOCAL (K2-4·mesh, step_pallas.py:245-250, :268-271): the rings hold row
+// p.my only, written where that row accepts; no old term is read and no
+// conflict bit is set — the epilogue's closed form stands in for it.
+template <int V, bool EC, bool LOCAL>
 __device__ inline void step_merge(int* __restrict__ buf_p, int* log_term,
                                   const int* __restrict__ win,
                                   const StepPlan& pl, const int* last,
                                   const SteadyParams& p, const uint8_t* ec,
                                   unsigned* mm, long gtid, long gstride) {
   static_assert(!EC || V == 1, "the parity mode moves single words");
+  static_assert(!(EC && LOCAL), "mesh windows arrive pre-encoded");
   const int MV = p.M / V;
   const long n = (long)pl.count * MV;
   for (long e = gtid; e < n; e += gstride) {
     const int jj = (int)(e / MV);
     const int v = (int)(e - (long)jj * MV);
-    const int l = (v * V) / p.W;
+    const int l = LOCAL ? p.my : (v * V) / p.W;
     if (!((pl.acc >> l) & 1u)) continue;
     int d = pl.s + jj;
     if (d >= p.C) d -= p.C;
@@ -157,6 +169,16 @@ __device__ inline void step_merge(int* __restrict__ buf_p, int* log_term,
       buf_p[(size_t)d * p.M + v] =
           window_lane<EC>(win + (size_t)jj * p.Mk, v, p, ec);
     }
+  }
+  if (LOCAL) {
+    if ((pl.acc >> p.my) & 1u) {
+      for (long jj = gtid; jj < pl.count; jj += gstride) {
+        int d = pl.s + (int)jj;
+        if (d >= p.C) d -= p.C;
+        log_term[d] = p.lterm;
+      }
+    }
+    return;
   }
   unsigned bits = 0;
   for (long jj = gtid; jj < pl.count; jj += gstride) {
@@ -176,6 +198,9 @@ __device__ inline void step_merge(int* __restrict__ buf_p, int* log_term,
 // State advance + k-th-order quorum commit (step_pallas.py _steady_kernel
 // epilogue), in place on ``vec``. Writes match[L] and
 // scal = {commit, max_term, count, next start slot, repair_start = 0}.
+// LOCAL: an accepting row's new tail is exactly the window end when the
+// window is not empty (step_pallas.py:292-298; mmbits is 0 there).
+template <bool LOCAL>
 __device__ inline void step_epilogue(int* vec, const StepPlan& pl,
                                      unsigned mmbits, const uint8_t* alive,
                                      const uint8_t* slow,
@@ -191,8 +216,10 @@ __device__ inline void step_epilogue(int* vec, const StepPlan& pl,
     const bool a = (pl.acc >> l) & 1u;
     const bool mm = (mmbits >> l) & 1u;
     const int last0 = vec[VL * L + l];
-    vec[VL * L + l] =
-        a ? (mm ? max(we, ws - 1) : max(last0, we)) : last0;
+    if (LOCAL)
+      vec[VL * L + l] = (a && count > 0) ? we : last0;
+    else
+      vec[VL * L + l] = a ? (mm ? max(we, ws - 1) : max(last0, we)) : last0;
     const int m1 = a ? max(pl.meff[l], we) : pl.meff[l];
     meffs[l] = m1;
     match[l] = ackm_of(alive, member, l) ? m1 : 0;

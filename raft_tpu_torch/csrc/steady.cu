@@ -50,6 +50,26 @@
 //    turnover branch, K3 publishes that decision and exits untouched; K4,
 //    launched right behind it on the same stream, reads the decision and
 //    either writes the flight or exits. No host read picks the branch.
+//
+// K2·mesh, K3·mesh, K4·mesh (LOCAL = true) replace the local=True
+//    branches of the same three kernels (step_pallas.py:217, :245, :268,
+//    :292, :361 in _steady_kernel; :751, :775, :816 in
+//    _steady_pipeline_kernel; :1155 in _turnover_kernel), driven by
+//    core/step_mesh.py: one replica row per rank. The (6, R) block is the
+//    plane gathered from every rank and the scalar core runs over all R
+//    rows of it, as above; the rings hold the rank's own row (payload
+//    [C, W], terms [1, C], p.my the row). The merge writes that row where
+//    it accepts and reads no old term; the §5.3 conflict bit and the next
+//    prev-term column are closed forms (the row's tail is the window end;
+//    the next prev term is lterm for accepting rows, -1 for the rest),
+//    exact under the engine's steady-program invariants. The prev column
+//    comes in as an operand: K2·mesh writes the next one to
+//    out[L+5 : 2L+5] for the next launch of a scan, K3·mesh carries it in
+//    shared memory beside the state block and decides feasibility on the
+//    gathered column, so every rank takes the same branch. K4·mesh writes
+//    C*W payload words and one term row. Bound: bytes, as above, with the
+//    traffic of one row (a step moves count*W*4 B in and out and count
+//    term words).
 #include <cooperative_groups.h>
 
 #include "raft_common.cuh"
@@ -66,27 +86,28 @@ enum {
   WK_RAN3 = 7, WK_RAN4 = 8, WK_N = 9
 };
 
-template <int V, bool EC>
+template <int V, bool EC, bool LOCAL>
 __global__ void steady_step_kernel(int* vec, int* buf_p, int* log_term,
                                    const int* __restrict__ win,
                                    const int* cnt_ptr, int cnt_val,
                                    const uint8_t* alive, const uint8_t* slow,
                                    const uint8_t* member, SteadyParams p,
                                    int* out, unsigned* work,
-                                   const uint8_t* ec) {
+                                   const uint8_t* ec, const int* prev_col) {
   __shared__ StepPlan pl;
   __shared__ int is_last;
   __shared__ uint8_t ec_sh[EC ? RT_EC_BYTES : 1];
   if (EC) load_ec_table(ec_sh, ec, p);
   if (threadIdx.x == 0) {
     const int cnt = cnt_ptr ? *cnt_ptr : cnt_val;
-    step_prologue(vec, cnt, log_term, alive, slow, p, pl);
+    step_prologue(vec, cnt, log_term, LOCAL ? prev_col : nullptr, alive,
+                  slow, p, pl);
   }
   __syncthreads();
   const long gtid = (long)blockIdx.x * blockDim.x + threadIdx.x;
   const long gstride = (long)gridDim.x * blockDim.x;
-  step_merge<V, EC>(buf_p, log_term, win, pl, vec + VL * p.L, p, ec_sh,
-                    &work[WK_MM], gtid, gstride);
+  step_merge<V, EC, LOCAL>(buf_p, log_term, win, pl, vec + VL * p.L, p,
+                           ec_sh, &work[WK_MM], gtid, gstride);
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence();
@@ -98,21 +119,29 @@ __global__ void steady_step_kernel(int* vec, int* buf_p, int* log_term,
     __threadfence();
     const unsigned mm = atomicExch(&work[WK_MM], 0u);
     const int L = p.L;
-    step_epilogue(vec, pl, mm, alive, slow, member, p, out, out + L);
+    step_epilogue<LOCAL>(vec, pl, mm, alive, slow, member, p, out, out + L);
     // the next step's prev-term column: the term now at the window's last
-    // slot, or the unchanged column after an empty window
+    // slot (LOCAL: its closed form), or the unchanged column after an
+    // empty window
     const int q = floor_mod(pl.s + pl.count - 1, p.C);
-    for (int l = 0; l < L; ++l)
-      out[L + 5 + l] = pl.count > 0
-          ? __ldcg(log_term + (size_t)l * p.C + q) : pl.prev_ts[l];
+    for (int l = 0; l < L; ++l) {
+      int nxt = pl.prev_ts[l];
+      if (pl.count > 0)
+        nxt = LOCAL ? (((pl.acc >> l) & 1u) ? p.lterm : -1)
+                    : __ldcg(log_term + (size_t)l * p.C + q);
+      out[L + 5 + l] = nxt;
+    }
     atomicExch(&work[WK_TICKET], 0u);
   }
 }
 
 // step_pallas.py:889 _launch_feasibility, restricted to what the
 // dispatch needs: whether the flight is feasible AND every row accepts.
+// ``prev`` [L] is the gathered prev-term column of the mesh-local mode;
+// null reads every row's prev term from the ring.
 __device__ bool flight_all_accept(const int* vec, const int* counts, int T,
-                                  const int* log_term, const uint8_t* alive,
+                                  const int* log_term, const int* prev,
+                                  const uint8_t* alive,
                                   const uint8_t* slow, const uint8_t* member,
                                   const SteadyParams& p, int br, int* s0) {
   const int L = p.L, C = p.C;
@@ -124,7 +153,9 @@ __device__ bool flight_all_accept(const int* vec, const int* counts, int T,
   *s0 = floor_mod(ws0 - 1, C);
   const int prev_slot = floor_mod(max(ws0 - 1, 1) - 1, C);
   int prev_term = (ws0 - 1 < p.rfloor)
-      ? p.fpt : __ldcg(log_term + (size_t)p.leader * C + prev_slot);
+      ? p.fpt
+      : (prev ? prev[p.leader]
+              : __ldcg(log_term + (size_t)p.leader * C + prev_slot));
   if (ws0 == 1) prev_term = 0;
   int n_acc = 0;
   bool all = true;
@@ -134,7 +165,8 @@ __device__ bool flight_all_accept(const int* vec, const int* counts, int T,
         (alive[l] && !slow[l] && ack && p.lterm >= vec[VT * L + l] &&
          vec[VL * L + l] == last0 &&
          (ws0 == 1 ||
-          __ldcg(log_term + (size_t)l * C + prev_slot) == prev_term)) ||
+          (prev ? prev[l] : __ldcg(log_term + (size_t)l * C + prev_slot)) ==
+              prev_term)) ||
         (l == p.leader && ack);
     n_acc += a;
     all = all && a;
@@ -146,7 +178,7 @@ __device__ bool flight_all_accept(const int* vec, const int* counts, int T,
   return feasible && all;
 }
 
-template <int V, bool EC>
+template <int V, bool EC, bool LOCAL>
 __global__ void steady_pipeline_kernel(int* vec_g, int* buf_p, int* log_term,
                                        const int* __restrict__ wins,
                                        const int* counts, int T, int P,
@@ -154,9 +186,11 @@ __global__ void steady_pipeline_kernel(int* vec_g, int* buf_p, int* log_term,
                                        const uint8_t* slow,
                                        const uint8_t* member, SteadyParams p,
                                        int br, int turnover_ok, int* out,
-                                       unsigned* work, const uint8_t* ec) {
+                                       unsigned* work, const uint8_t* ec,
+                                       const int* prev0) {
   cg::grid_group grid = cg::this_grid();
   __shared__ int vec[6 * RT_LMAX];
+  __shared__ int prevc[RT_LMAX];  // LOCAL: the carried prev-term column
   __shared__ StepPlan pl;
   __shared__ int match[RT_LMAX];
   __shared__ int scal[5];
@@ -166,10 +200,13 @@ __global__ void steady_pipeline_kernel(int* vec_g, int* buf_p, int* log_term,
   if (EC) load_ec_table(ec_sh, ec, p);
   if (threadIdx.x == 0) {
     for (int i = 0; i < 6 * L; ++i) vec[i] = vec_g[i];
+    if (LOCAL)
+      for (int l = 0; l < L; ++l) prevc[l] = prev0[l];
     int s0 = 0;
-    turnover = turnover_ok && flight_all_accept(vec, counts, T, log_term,
-                                                alive, slow, member, p, br,
-                                                &s0);
+    turnover = turnover_ok &&
+               flight_all_accept(vec, counts, T, log_term,
+                                 LOCAL ? prevc : nullptr, alive, slow,
+                                 member, p, br, &s0);
     if (blockIdx.x == 0) {
       work[WK_MM3] = work[WK_MM3 + 1] = work[WK_MM3 + 2] = 0;
       work[WK_PLAN] = turnover;
@@ -183,15 +220,20 @@ __global__ void steady_pipeline_kernel(int* vec_g, int* buf_p, int* log_term,
   const long gstride = (long)gridDim.x * blockDim.x;
   for (int t = 0; t < T; ++t) {
     if (threadIdx.x == 0)
-      step_prologue(vec, counts[t], log_term, alive, slow, p, pl);
+      step_prologue(vec, counts[t], log_term, LOCAL ? prevc : nullptr, alive,
+                    slow, p, pl);
     __syncthreads();
-    step_merge<V, EC>(buf_p, log_term, wins + (size_t)(t % P) * p.B * p.Mk,
-                      pl, vec + VL * L, p, ec_sh, &work[WK_MM3 + t % 3], gtid,
-                      gstride);
+    step_merge<V, EC, LOCAL>(buf_p, log_term,
+                             wins + (size_t)(t % P) * p.B * p.Mk, pl,
+                             vec + VL * L, p, ec_sh, &work[WK_MM3 + t % 3],
+                             gtid, gstride);
     grid.sync();
     if (threadIdx.x == 0) {
       const unsigned mm = __ldcg(&work[WK_MM3 + t % 3]);
-      step_epilogue(vec, pl, mm, alive, slow, member, p, match, scal);
+      step_epilogue<LOCAL>(vec, pl, mm, alive, slow, member, p, match, scal);
+      if (LOCAL && pl.count > 0)  // step_pallas.py:816-820
+        for (int l = 0; l < L; ++l)
+          prevc[l] = ((pl.acc >> l) & 1u) ? p.lterm : -1;
       // three conflict words rotate: the one cleared here was last read
       // before this step's sync and is next written after the next one
       if (blockIdx.x == 0) work[WK_MM3 + (t + 2) % 3] = 0;
@@ -206,7 +248,7 @@ __global__ void steady_pipeline_kernel(int* vec_g, int* buf_p, int* log_term,
   }
 }
 
-template <int V, bool EC>
+template <int V, bool EC, bool LOCAL>
 __global__ void turnover_kernel(int* vec_g, int* buf_p, int* log_term,
                                 const int* __restrict__ wins, int T, int P,
                                 SteadyParams p, int* out,
@@ -239,7 +281,8 @@ __global__ void turnover_kernel(int* vec_g, int* buf_p, int* log_term,
       buf_p[(size_t)d * M + v] = window_lane<EC>(src, v, p, ec_sh);
     }
   }
-  for (long e = gtid; e < (long)L * C; e += gstride) log_term[e] = p.lterm;
+  const long terms = (long)(LOCAL ? 1 : L) * C;  // LOCAL: one term row
+  for (long e = gtid; e < terms; e += gstride) log_term[e] = p.lterm;
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     work[WK_RAN4] += 1;
     // closed-form epilogue, step by step (step_pallas.py:1161-1186)
@@ -268,7 +311,7 @@ __global__ void turnover_kernel(int* vec_g, int* buf_p, int* log_term,
 
 static SteadyParams make_params(int leader, int lterm, int tfloor, int rfloor,
                                 int fpt, int quorum, int ec_floor, int L,
-                                int C, int B, int M, int Mk) {
+                                int C, int B, int M, int Mk, int my) {
   SteadyParams p;
   p.leader = leader;
   p.lterm = lterm;
@@ -281,8 +324,9 @@ static SteadyParams make_params(int leader, int lterm, int tfloor, int rfloor,
   p.C = C;
   p.B = B;
   p.M = M;
-  p.W = M / L;
+  p.W = my >= 0 ? M : M / L;
   p.Mk = Mk;
+  p.my = my;
   return p;
 }
 
@@ -297,6 +341,8 @@ static int blocks_for(long work) {
 // cnt_val when not null. work must hold WK_N zeros on the first call;
 // the kernel leaves it zeroed. ec (device u8[L-k][k][8], or null) selects
 // the in-kernel parity mode, whose windows carry Mk = k*W lanes.
+// my_row >= 0 selects K2·mesh: the rings hold that row only and prev
+// (device i32[L]) is every row's prev term.
 RT_EXPORT int rt_steady_step(void* vec, void* buf_p, void* log_term,
                              const void* win, const void* cnt_ptr,
                              int cnt_val, const void* alive, const void* slow,
@@ -304,9 +350,10 @@ RT_EXPORT int rt_steady_step(void* vec, void* buf_p, void* log_term,
                              int tfloor, int rfloor, int fpt, int quorum,
                              int ec_floor, int L, int C, int B, int M, int Mk,
                              void* out, void* work, const void* ec, int vec4,
-                             void* stream) {
+                             int my_row, const void* prev, void* stream) {
   const SteadyParams p = make_params(leader, lterm, tfloor, rfloor, fpt,
-                                     quorum, ec_floor, L, C, B, M, Mk);
+                                     quorum, ec_floor, L, C, B, M, Mk,
+                                     my_row);
   const bool v4 = vec4 && !ec;
   const int blocks = blocks_for((long)B * (v4 ? M / 4 : M));
   cudaStream_t st = (cudaStream_t)stream;
@@ -314,13 +361,23 @@ RT_EXPORT int rt_steady_step(void* vec, void* buf_p, void* log_term,
   (int*)vec, (int*)buf_p, (int*)log_term, (const int*)win,                 \
       (const int*)cnt_ptr, cnt_val, (const uint8_t*)alive,                 \
       (const uint8_t*)slow, (const uint8_t*)member, p, (int*)out,          \
-      (unsigned*)work, (const uint8_t*)ec
+      (unsigned*)work, (const uint8_t*)ec, (const int*)prev
   if (ec) {
-    steady_step_kernel<1, true><<<blocks, kThreads, 0, st>>>(RT_K2_ARGS);
+    steady_step_kernel<1, true, false><<<blocks, kThreads, 0, st>>>(
+        RT_K2_ARGS);
+  } else if (my_row >= 0) {
+    if (v4)
+      steady_step_kernel<4, false, true><<<blocks, kThreads, 0, st>>>(
+          RT_K2_ARGS);
+    else
+      steady_step_kernel<1, false, true><<<blocks, kThreads, 0, st>>>(
+          RT_K2_ARGS);
   } else if (v4) {
-    steady_step_kernel<4, false><<<blocks, kThreads, 0, st>>>(RT_K2_ARGS);
+    steady_step_kernel<4, false, false><<<blocks, kThreads, 0, st>>>(
+        RT_K2_ARGS);
   } else {
-    steady_step_kernel<1, false><<<blocks, kThreads, 0, st>>>(RT_K2_ARGS);
+    steady_step_kernel<1, false, false><<<blocks, kThreads, 0, st>>>(
+        RT_K2_ARGS);
   }
 #undef RT_K2_ARGS
   return (int)cudaGetLastError();
@@ -328,7 +385,7 @@ RT_EXPORT int rt_steady_step(void* vec, void* buf_p, void* log_term,
 
 // Co-resident block count of the pipeline kernel, per device (queried
 // once: the occupancy calculator is not free on the tick path).
-template <int V, bool EC>
+template <int V, bool EC, bool LOCAL>
 static cudaError_t resident_blocks(int dev, int* resident) {
   static int cache[64] = {0};
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
@@ -341,7 +398,7 @@ static cudaError_t resident_blocks(int dev, int* resident) {
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, steady_pipeline_kernel<V, EC>, kThreads, 0);
+          &per_sm, steady_pipeline_kernel<V, EC, LOCAL>, kThreads, 0);
     if (e != cudaSuccess) return e;
     if (per_sm * sms < 1) return cudaErrorCooperativeLaunchTooLarge;
     cache[dev] = per_sm * sms;
@@ -350,13 +407,13 @@ static cudaError_t resident_blocks(int dev, int* resident) {
   return cudaSuccess;
 }
 
-template <int V, bool EC>
+template <int V, bool EC, bool LOCAL>
 static int launch_pipeline(void** args, long work_items, cudaStream_t st,
                            int* grid_out) {
-  auto kern = steady_pipeline_kernel<V, EC>;
+  auto kern = steady_pipeline_kernel<V, EC, LOCAL>;
   int dev = 0, resident = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = resident_blocks<V, EC>(dev, &resident);
+  if (e == cudaSuccess) e = resident_blocks<V, EC, LOCAL>(dev, &resident);
   if (e != cudaSuccess) return (int)e;
   const int grid = min(resident, blocks_for(work_items));
   *grid_out = grid;
@@ -368,7 +425,8 @@ static int launch_pipeline(void** args, long work_items, cudaStream_t st,
 
 // K3 (+ K4 behind it when turnover_ok): a T-step flight over wins
 // i32[P, B, Mk] (step t reads wins[t % P]) and counts i32[T] on device.
-// out = match[L] | scal[5]. grid_out reports K3's grid size. ec as K2.
+// out = match[L] | scal[5]. grid_out reports K3's grid size. ec, my_row
+// and prev (the gathered column at the flight's start) as K2.
 RT_EXPORT int rt_steady_pipeline(void* vec, void* buf_p, void* log_term,
                                  const void* wins, const void* counts, int T,
                                  int P, const void* alive, const void* slow,
@@ -377,29 +435,33 @@ RT_EXPORT int rt_steady_pipeline(void* vec, void* buf_p, void* log_term,
                                  int ec_floor, int L, int C, int B, int M,
                                  int Mk, int br, int turnover_ok, void* out,
                                  void* work, const void* ec, int vec4,
-                                 void* stream, int* grid_out) {
+                                 int my_row, const void* prev, void* stream,
+                                 int* grid_out) {
   SteadyParams p = make_params(leader, lterm, tfloor, rfloor, fpt, quorum,
-                               ec_floor, L, C, B, M, Mk);
+                               ec_floor, L, C, B, M, Mk, my_row);
   void* args[] = {&vec,   &buf_p,  &log_term, &wins, &counts,
                   &T,     &P,      &alive,    &slow, &member,
-                  &p,     &br,     &turnover_ok, &out, &work, &ec};
+                  &p,     &br,     &turnover_ok, &out, &work, &ec, &prev};
   const bool v4 = vec4 && !ec;
   const long items = (long)B * (v4 ? M / 4 : M);
   cudaStream_t st = (cudaStream_t)stream;
-  if (ec) return launch_pipeline<1, true>(args, items, st, grid_out);
-  return v4 ? launch_pipeline<4, false>(args, items, st, grid_out)
-            : launch_pipeline<1, false>(args, items, st, grid_out);
+  if (ec) return launch_pipeline<1, true, false>(args, items, st, grid_out);
+  if (my_row >= 0)
+    return v4 ? launch_pipeline<4, false, true>(args, items, st, grid_out)
+              : launch_pipeline<1, false, true>(args, items, st, grid_out);
+  return v4 ? launch_pipeline<4, false, false>(args, items, st, grid_out)
+            : launch_pipeline<1, false, false>(args, items, st, grid_out);
 }
 
 // K4: the write-only turnover flight; exits at once unless the preceding
-// K3 launch published the turnover decision in work. ec as K2.
+// K3 launch published the turnover decision in work. ec and my_row as K2.
 RT_EXPORT int rt_turnover(void* vec, void* buf_p, void* log_term,
                           const void* wins, int T, int P, int lterm,
                           int tfloor, int L, int C, int B, int M, int Mk,
                           void* out, void* work, const void* ec, int vec4,
-                          void* stream) {
+                          int my_row, void* stream) {
   const SteadyParams p =
-      make_params(0, lterm, tfloor, 0, 0, 0, 0, L, C, B, M, Mk);
+      make_params(0, lterm, tfloor, 0, 0, 0, 0, L, C, B, M, Mk, my_row);
   const bool v4 = vec4 && !ec;
   const int blocks = blocks_for((long)C * (v4 ? M / 4 : M));
   cudaStream_t st = (cudaStream_t)stream;
@@ -407,11 +469,20 @@ RT_EXPORT int rt_turnover(void* vec, void* buf_p, void* log_term,
   (int*)vec, (int*)buf_p, (int*)log_term, (const int*)wins, T, P, p,       \
       (int*)out, (unsigned*)work, (const uint8_t*)ec
   if (ec) {
-    turnover_kernel<1, true><<<blocks, kThreads, 0, st>>>(RT_K4_ARGS);
+    turnover_kernel<1, true, false><<<blocks, kThreads, 0, st>>>(RT_K4_ARGS);
+  } else if (my_row >= 0) {
+    if (v4)
+      turnover_kernel<4, false, true><<<blocks, kThreads, 0, st>>>(
+          RT_K4_ARGS);
+    else
+      turnover_kernel<1, false, true><<<blocks, kThreads, 0, st>>>(
+          RT_K4_ARGS);
   } else if (v4) {
-    turnover_kernel<4, false><<<blocks, kThreads, 0, st>>>(RT_K4_ARGS);
+    turnover_kernel<4, false, false><<<blocks, kThreads, 0, st>>>(
+        RT_K4_ARGS);
   } else {
-    turnover_kernel<1, false><<<blocks, kThreads, 0, st>>>(RT_K4_ARGS);
+    turnover_kernel<1, false, false><<<blocks, kThreads, 0, st>>>(
+        RT_K4_ARGS);
   }
 #undef RT_K4_ARGS
   return (int)cudaGetLastError();

@@ -43,13 +43,14 @@ SIGNATURES = {
     "steady": {
         "rt_error_string": ([_I], ctypes.c_char_p),
         "rt_steady_step": (
-            [_P] * 5 + [_I] + [_P] * 3 + [_I] * 12 + [_P] * 3 + [_I, _P],
+            [_P] * 5 + [_I] + [_P] * 3 + [_I] * 12 + [_P] * 3
+            + [_I, _I, _P, _P],
             _I),
         "rt_steady_pipeline": (
             [_P] * 5 + [_I, _I] + [_P] * 3 + [_I] * 14 + [_P] * 3
-            + [_I, _P, ctypes.POINTER(_I)],
+            + [_I, _I, _P, _P, ctypes.POINTER(_I)],
             _I),
-        "rt_turnover": ([_P] * 4 + [_I] * 9 + [_P] * 3 + [_I, _P], _I),
+        "rt_turnover": ([_P] * 4 + [_I] * 9 + [_P] * 3 + [_I, _I, _P], _I),
     },
     "ec": {
         "rt_error_string": ([_I], ctypes.c_char_p),

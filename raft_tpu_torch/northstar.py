@@ -6,7 +6,9 @@ read-back).
 The deterministic entry stream (``numpy.random.default_rng(seed)``, 256 B
 entries at the north-star config) is pushed through
 ``SingleDeviceTransport.replicate_pipeline`` in chunks of ``CHUNK_STEPS``
-full batches — one K3/K4 flight each. After every chunk the just-committed
+full batches — one K3/K4 flight each — or, given a ``MeshTransport``,
+through every rank's ``replicate_pipeline`` (K3·mesh/K4·mesh), each rank
+reading back its own row. After every chunk the just-committed
 window is read back from the follower rows (row 1 unless told otherwise)
 and folded into a SHA-256 per row in commit order, beside the SHA-256 of
 the submitted entries. The same stream through the JAX package (or its golden
@@ -46,7 +48,8 @@ CHUNK_STEPS = 32     # steps per flight; the ring holds one chunk
 
 
 class DeviceRun(NamedTuple):
-    digest: str            # SHA-256 of follower row ``rows[0]``'s read-back
+    digest: str            # SHA-256 of row ``rows[0]``'s read-back (None on a
+    #                        mesh rank that does not hold it)
     wall_s: float
     state: ReplicaState    # the cluster after the last flight
     input_digest: str      # SHA-256 of the submitted entries, in log order
@@ -66,8 +69,7 @@ def entry_block(rng: np.random.Generator, n: int, entry: int) -> np.ndarray:
 
 
 def run_device(cfg: RaftConfig, n_entries: int, seed: int, device=None, *,
-               transport: SingleDeviceTransport | None = None,
-               state: ReplicaState | None = None,
+               transport=None, state: ReplicaState | None = None,
                rows=(1,)) -> DeviceRun:
     """Pipeline ``n_entries`` of the seeded stream through chunked flights
     led by row 0 in term 1, reading every committed chunk back from each
@@ -76,7 +78,9 @@ def run_device(cfg: RaftConfig, n_entries: int, seed: int, device=None, *,
     By default a fresh cluster is made on ``device``. ``transport`` and
     ``state`` continue an existing one instead: row 0 must lead it in term
     1 with everything it holds committed, and the stream's entries follow
-    its commit index. ``state`` is consumed; the run returns the new one."""
+    its commit index. ``state`` is consumed; the run returns the new one.
+    On a ``MeshTransport`` every rank makes this call and reads back its
+    own row where it is in ``rows``."""
     tr = transport or SingleDeviceTransport(cfg, device=device)
     dev = tr.device
     B, E, R = cfg.batch_size, cfg.entry_bytes, cfg.n_replicas
@@ -85,8 +89,14 @@ def run_device(cfg: RaftConfig, n_entries: int, seed: int, device=None, *,
     alive = torch.ones(cfg.rows, dtype=torch.bool, device=dev)
     slow = torch.zeros(cfg.rows, dtype=torch.bool, device=dev)
     h_in = hashlib.sha256()
-    h_rows = {r: hashlib.sha256() for r in rows}
-    committed = int(state.commit_index[0])
+    comm = getattr(tr, "comm", None)         # a mesh rank holds one row
+    if comm is not None:
+        local = {r: 0 for r in rows if r == comm.rank}
+        committed = int(comm.all_gather(state.commit_index)[0])
+    else:
+        local = {r: r for r in rows}
+        committed = int(state.commit_index[0])
+    h_rows = {r: hashlib.sha256() for r in local}
     goal = committed + n_entries
     t0 = time.perf_counter()
     while committed < goal:
@@ -107,13 +117,13 @@ def run_device(cfg: RaftConfig, n_entries: int, seed: int, device=None, *,
                 f"commit stalled: {new_commit} != {committed + take}")
         # replication fidelity: read the window back from the followers
         for r, h in h_rows.items():
-            h.update(log_entries(state, r, committed + 1, new_commit)
+            h.update(log_entries(state, local[r], committed + 1, new_commit)
                      .tobytes())
         committed = new_commit
     wall = time.perf_counter() - t0
     digests = {r: h.hexdigest() for r, h in h_rows.items()}
-    return DeviceRun(digests[rows[0]], wall, state, h_in.hexdigest(),
-                     digests)
+    return DeviceRun(digests.get(rows[0]) if rows else None, wall, state,
+                     h_in.hexdigest(), digests)
 
 
 def run_device_ec(cfg: RaftConfig, n_entries: int, seed: int, device=None,

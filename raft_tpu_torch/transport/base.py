@@ -1,12 +1,14 @@
 """The ``Transport`` plugin boundary (port of ``raft_tpu/transport/base.py``).
 
 A transport owns where replica state lives and how the collective steps
-run. This slice ports the resident single-device transport; the mesh and
-multihost placements wait for the distributed slice.
+run: ``SingleDeviceTransport`` holds every row on one device,
+``MeshTransport`` one row per rank of a ``torch.distributed`` group. The
+multihost placement is not ported yet.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Protocol, Tuple
 
 from raft_tpu_torch.config import RaftConfig
@@ -32,12 +34,37 @@ class Transport(Protocol):
         ...
 
 
-def make_transport(cfg: RaftConfig, device=None) -> "Transport":
-    """Build the configured device transport (``"single"`` only so far)."""
+logger = logging.getLogger(__name__)
+
+
+def make_transport(cfg: RaftConfig, device=None, group=None) -> "Transport":
+    """Build the configured device transport. ``"tpu_mesh"`` gives a
+    ``MeshTransport`` over ``group`` (default: the world group) when an
+    initialised process group has ``cfg.rows`` ranks; otherwise, as the
+    JAX package does when too few devices are visible, it warns and falls
+    back to the resident layout, which runs the same program with the same
+    kernels on one device."""
+    import torch.distributed as dist
+
     from raft_tpu_torch.transport.device import SingleDeviceTransport
 
     if cfg.transport == "single":
         return SingleDeviceTransport(cfg, device=device)
+    if cfg.transport == "tpu_mesh":
+        from raft_tpu_torch.transport.mesh import MeshTransport
+
+        ranks = (dist.get_world_size(group)
+                 if dist.is_available() and dist.is_initialized() else 0)
+        if ranks == cfg.rows:
+            return MeshTransport(cfg, group=group, device=device)
+        # Loud on purpose: a run that believes it ran on a mesh must not
+        # silently have run resident.
+        logger.warning(
+            "tpu_mesh transport needs an initialised process group of %d "
+            "ranks (one replica row each) but %s; falling back to "
+            "SingleDeviceTransport", cfg.rows,
+            f"the group has {ranks}" if ranks else "none is initialised")
+        return SingleDeviceTransport(cfg, device=device)
     raise ValueError(
-        f"transport {cfg.transport!r} is not ported yet; the port runs the "
-        "resident layout (transport='single')")
+        f"transport {cfg.transport!r} is not ported yet; the port runs "
+        "transport='single' or 'tpu_mesh'")

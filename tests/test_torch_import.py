@@ -4,6 +4,7 @@ and the transport refuses to run on a machine without CUDA unless the
 caller asks for the CPU."""
 
 import ast
+import logging
 import os
 import subprocess
 import sys
@@ -31,6 +32,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import raft_tpu_torch.core.state, raft_tpu_torch.core.comm\n"
         "import raft_tpu_torch.ec, raft_tpu_torch.ec.gf, raft_tpu_torch.ec.rs\n"
         "import raft_tpu_torch.ec.kernels, raft_tpu_torch.ec.reconstruct\n"
+        "import raft_tpu_torch.core.step_mesh, raft_tpu_torch.transport.mesh\n"
+        "import raft_tpu_torch.transport.launch\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax') or "
         "m == 'raft_tpu' or m.startswith(('jax.', 'raft_tpu.')))\n"
         "print(bad); sys.exit(1 if bad else 0)\n" % str(ROOT)
@@ -70,13 +73,23 @@ def test_transport_without_device_needs_cuda():
     assert SingleDeviceTransport(cfg, device="cpu").init().device.type == "cpu"
 
 
-def test_make_transport_single_only():
-    from raft_tpu_torch import RaftConfig, make_transport
+def test_make_transport_single_only(caplog):
+    """``transport="single"`` is the resident layout; ``"tpu_mesh"`` is a
+    ``MeshTransport`` inside a process group of ``cfg.rows`` ranks and,
+    outside one, the resident layout after a logged warning."""
+    from raft_tpu_torch import MeshTransport, RaftConfig, make_transport
+    from raft_tpu_torch.transport.launch import run_ranks
+    from tests._mesh_ranks import transport_kind
 
-    cfg = RaftConfig(n_replicas=3, entry_bytes=8, batch_size=128,
-                     log_capacity=256, transport="single")
-    assert make_transport(cfg, device="cpu").device.type == "cpu"
+    kw = dict(n_replicas=3, entry_bytes=8, batch_size=128, log_capacity=256)
+    assert make_transport(RaftConfig(**kw, transport="single"),
+                          device="cpu").device.type == "cpu"
+    assert run_ranks(transport_kind, 3, (kw,), timeout=120) == [
+        "MeshTransport"] * 3
+    with caplog.at_level(logging.WARNING):
+        tr = make_transport(RaftConfig(**kw), device="cpu")
+    assert not isinstance(tr, MeshTransport)
+    assert tr.init().log_term.shape == (3, 256)
+    assert "falling back to SingleDeviceTransport" in caplog.text
     with pytest.raises(ValueError, match="not ported"):
-        make_transport(RaftConfig(n_replicas=3, entry_bytes=8,
-                                  batch_size=128, log_capacity=256),
-                       device="cpu")
+        make_transport(RaftConfig(**kw, transport="multihost"), device="cpu")
