@@ -2179,7 +2179,8 @@ def mesh_step_case(cfg, dev, rng, vecs, prev, lp, lt, r, count, alive, slow,
                          ec=cfg.ec_enabled)
     al = torch.tensor(alive, dtype=torch.bool, device=dev)
     sl = torch.tensor(slow, dtype=torch.bool, device=dev)
-    mem = None if member is None else torch.tensor(member, device=dev)
+    mem = None if member is None else torch.tensor(member, dtype=torch.bool,
+                                                   device=dev)
     win = rand_window(rng, cfg.batch_size, W, dev)
     res = []
     for fn in (sc.steady_step, sc.steady_step_plain):
@@ -2204,7 +2205,8 @@ def mesh_flight_case(cfg, dev, rng, st, r, T, P, counts, alive, slow,
                          ec=cfg.ec_enabled)
     al = torch.tensor(alive, dtype=torch.bool, device=dev)
     sl = torch.tensor(slow, dtype=torch.bool, device=dev)
-    mem = None if member is None else torch.tensor(member, device=dev)
+    mem = None if member is None else torch.tensor(member, dtype=torch.bool,
+                                                   device=dev)
     wins = torch.stack([rand_window(rng, B, W, dev) for _ in range(P)])
     cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
     prev = prev_column(st, 0)

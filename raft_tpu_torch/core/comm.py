@@ -75,12 +75,13 @@ class MeshComm:
     """One replica row per rank of a ``torch.distributed`` group (L = 1).
 
     Each collective is one list-form ``dist.all_gather`` on ``group`` (the
-    default group when None), which must have ``n_replicas`` ranks. A
-    gloo group stages a CUDA operand through a host copy and puts the
-    result back on the operand's device: gloo's collectives move host
-    memory. Bool operands travel as uint8. Every rank must make the same
-    calls in the same order, as the mirrored programs of the transport
-    do."""
+    default group when None), which must be a gloo group of
+    ``n_replicas`` ranks: the mesh has run only so, R processes on the CPU
+    or sharing one GPU. A CUDA operand is staged through a host copy and
+    the result put back on the operand's device, since gloo's collectives
+    move host memory. Bool operands travel as uint8. Every rank must make
+    the same calls in the same order, as the mirrored programs of the
+    transport do."""
 
     def __init__(self, n_replicas: int, group=None):
         import torch.distributed as dist
@@ -90,10 +91,15 @@ class MeshComm:
             raise ValueError(
                 f"MeshComm over {n_replicas} replicas needs a process "
                 f"group of {n_replicas} ranks, got {size}")
+        backend = dist.get_backend(group)
+        if backend != "gloo":
+            raise ValueError(
+                f"MeshComm runs over a gloo group, got {backend!r}: a "
+                "device backend (NCCL, one GPU per rank) is not tried yet "
+                "(ROADMAP A15)")
         self.n_replicas = n_replicas
         self.group = group
         self.rank = dist.get_rank(group)
-        self._staged = dist.get_backend(group) == "gloo"
 
     def replica_ids(self, device) -> torch.Tensor:
         return torch.full((1,), self.rank, dtype=torch.int32, device=device)
@@ -108,7 +114,7 @@ class MeshComm:
         src = x.contiguous()
         if src.dtype == torch.bool:
             src = src.to(torch.uint8)
-        if self._staged and src.is_cuda:
+        if src.is_cuda:
             src = src.cpu()
         parts = [torch.empty_like(src) for _ in range(self.n_replicas)]
         dist.all_gather(parts, src, group=self.group)
@@ -116,9 +122,8 @@ class MeshComm:
 
     def all_gather_host(self, x: torch.Tensor) -> torch.Tensor:
         """``all_gather`` with the result on the host, for decisions taken
-        there: one copy to the host under gloo, a device gather and one
-        copy under a device backend."""
-        return self.all_gather(x.cpu() if self._staged else x).cpu()
+        there: one copy of the operand to the host, none back."""
+        return self.all_gather(x.cpu())
 
     def select_row(self, x: torch.Tensor, idx) -> torch.Tensor:
         return take(self.all_gather(x), idx, 0)

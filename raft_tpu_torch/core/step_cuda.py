@@ -502,6 +502,17 @@ def _check_rings(vecs, log_payload, log_term, L):
             raise ValueError(f"{name} must be contiguous int32")
 
 
+def _check_masks(vecs, alive, slow, member):
+    """The kernels read each mask as L bytes on the card."""
+    L = vecs.shape[1]
+    for name, t in (("alive", alive), ("slow", slow), ("member", member)):
+        if t is not None and (
+                t.dtype != torch.bool or not t.is_contiguous()
+                or t.shape != (L,) or t.device != vecs.device):
+            raise ValueError(f"{name} must be a contiguous bool[{L}] on "
+                             f"{vecs.device}")
+
+
 def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
@@ -546,6 +557,7 @@ def steady_step(vecs, log_payload, log_term, win, count, alive, slow,
     B, Mk = win.shape
     check_lanes(M, Mk, log_term.shape[0], ec_consts)
     _check_rings(vecs, log_payload, log_term, L)
+    _check_masks(vecs, alive, slow, member)
     ec = None if ec_consts is None else _ec_table(ec_consts, vecs.device)
     if isinstance(count, torch.Tensor):
         count = count.to(device=vecs.device, dtype=torch.int32).contiguous()
@@ -588,6 +600,7 @@ def pipeline_flight(vecs, log_payload, log_term, wins, counts, alive, slow,
     T = counts.shape[0]
     check_lanes(M, Mk, log_term.shape[0], ec_consts)
     _check_rings(vecs, log_payload, log_term, L)
+    _check_masks(vecs, alive, slow, member)
     ec = None if ec_consts is None else _ec_table(ec_consts, vecs.device)
     grid = ctypes.c_int(0)
     rc = cuda_build.lib("steady").rt_steady_pipeline(

@@ -89,13 +89,8 @@ def run_device(cfg: RaftConfig, n_entries: int, seed: int, device=None, *,
     alive = torch.ones(cfg.rows, dtype=torch.bool, device=dev)
     slow = torch.zeros(cfg.rows, dtype=torch.bool, device=dev)
     h_in = hashlib.sha256()
-    comm = getattr(tr, "comm", None)         # a mesh rank holds one row
-    if comm is not None:
-        local = {r: 0 for r in rows if r == comm.rank}
-        committed = int(comm.all_gather(state.commit_index)[0])
-    else:
-        local = {r: r for r in rows}
-        committed = int(state.commit_index[0])
+    local = {r: i for r in rows if (i := tr.local_row(r)) is not None}
+    committed = tr.commit_index(state, 0)
     h_rows = {r: hashlib.sha256() for r in local}
     goal = committed + n_entries
     t0 = time.perf_counter()

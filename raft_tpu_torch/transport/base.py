@@ -23,6 +23,15 @@ class Transport(Protocol):
         """Fresh cluster state placed for this backend."""
         ...
 
+    def local_row(self, row: int):
+        """Index of replica ``row`` in the state this process holds, or
+        None when another process holds it."""
+        ...
+
+    def commit_index(self, state: ReplicaState, row: int) -> int:
+        """Replica ``row``'s commit index, wherever that row is held."""
+        ...
+
     def replicate(self, state: ReplicaState, client_payload, client_count,
                   leader, leader_term, alive, slow, repair: bool = True,
                   member=None, repair_floor=0, floor_prev_term=0,
@@ -37,13 +46,13 @@ class Transport(Protocol):
 logger = logging.getLogger(__name__)
 
 
-def make_transport(cfg: RaftConfig, device=None, group=None) -> "Transport":
+def make_transport(cfg: RaftConfig, device=None) -> "Transport":
     """Build the configured device transport. ``"tpu_mesh"`` gives a
-    ``MeshTransport`` over ``group`` (default: the world group) when an
-    initialised process group has ``cfg.rows`` ranks; otherwise, as the
-    JAX package does when too few devices are visible, it warns and falls
-    back to the resident layout, which runs the same program with the same
-    kernels on one device."""
+    ``MeshTransport`` over the world group when an initialised process
+    group has ``cfg.rows`` ranks; otherwise, as the JAX package does when
+    too few devices are visible, it warns and falls back to the resident
+    layout, which runs the same program with the same kernels on one
+    device."""
     import torch.distributed as dist
 
     from raft_tpu_torch.transport.device import SingleDeviceTransport
@@ -53,10 +62,10 @@ def make_transport(cfg: RaftConfig, device=None, group=None) -> "Transport":
     if cfg.transport == "tpu_mesh":
         from raft_tpu_torch.transport.mesh import MeshTransport
 
-        ranks = (dist.get_world_size(group)
+        ranks = (dist.get_world_size()
                  if dist.is_available() and dist.is_initialized() else 0)
         if ranks == cfg.rows:
-            return MeshTransport(cfg, group=group, device=device)
+            return MeshTransport(cfg, device=device)
         # Loud on purpose: a run that believes it ran on a mesh must not
         # silently have run resident.
         logger.warning(

@@ -116,6 +116,13 @@ class SingleDeviceTransport:
             return x.cpu().numpy()
         return np.asarray(x)
 
+    def local_row(self, row: int) -> int:
+        """Index of replica ``row`` in the state: every row is here."""
+        return row
+
+    def commit_index(self, state: ReplicaState, row: int) -> int:
+        return int(state.commit_index[row])
+
     def _member(self, member):
         if member is None and self._member_mode:
             return torch.ones(self.cfg.rows, dtype=torch.bool,

@@ -1,14 +1,15 @@
 """Start R local ranks of a replica mesh: ``run_ranks`` spawns one process
 per rank (``torch.multiprocessing``, the ``spawn`` start method), joins
-them into one process group through a ``file://`` rendezvous in a fresh
-temporary directory, runs ``fn(rank, world_size, *args)`` in each and
-returns the results in rank order.
+them into one gloo process group through a ``file://`` rendezvous in a
+fresh temporary directory, runs ``fn(rank, world_size, *args)`` in each
+and returns the results in rank order.
 
 This is how one host runs the mesh transport with several ranks: R
-processes on the CPU (gloo, the tests) or R processes sharing one GPU
-(gloo: NCCL refuses two ranks on one device). Build the CUDA kernels in
-the parent before the spawn (``cuda_build.build_all``) so that the ranks
-load one build instead of racing to make it.
+processes on the CPU (the tests) or R processes sharing one GPU. The
+group is gloo in both cases (NCCL refuses two ranks on one device).
+Build the CUDA kernels in the parent before the spawn
+(``cuda_build.build_all``) so that the ranks load one build instead of
+racing to make it.
 
 A rank that raises, or any rank still running at the deadline, fails the
 whole run: every rank is stopped and ``RuntimeError`` names the rank and
@@ -26,13 +27,13 @@ import traceback
 from pathlib import Path
 
 
-def _rank_main(fn, rank, world_size, init, backend, out_dir, timeout, args):
+def _rank_main(fn, rank, world_size, init, out_dir, timeout, args):
     import torch.distributed as dist
 
     out = Path(out_dir)
     try:
         dist.init_process_group(
-            backend, init_method=init, rank=rank, world_size=world_size,
+            "gloo", init_method=init, rank=rank, world_size=world_size,
             timeout=datetime.timedelta(seconds=timeout))
         try:
             result = fn(rank, world_size, *args)
@@ -46,10 +47,10 @@ def _rank_main(fn, rank, world_size, init, backend, out_dir, timeout, args):
         raise
 
 
-def run_ranks(fn, world_size: int, args=(), *, timeout: float = 600.0,
-              backend: str = "gloo") -> list:
+def run_ranks(fn, world_size: int, args=(), *,
+              timeout: float = 600.0) -> list:
     """Run ``fn(rank, world_size, *args)`` on ``world_size`` spawned ranks
-    of one ``backend`` process group; return each rank's (picklable)
+    of one gloo process group; return each rank's (picklable)
     result, in rank order. ``fn`` must be importable by the children (a
     module-level function). Raises ``RuntimeError`` when a rank fails or
     the ranks outlive ``timeout`` seconds."""
@@ -59,7 +60,7 @@ def run_ranks(fn, world_size: int, args=(), *, timeout: float = 600.0,
     with tempfile.TemporaryDirectory(prefix="raft_ranks_") as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")
         procs = [ctx.Process(target=_rank_main,
-                             args=(fn, r, world_size, init, backend, tmp,
+                             args=(fn, r, world_size, init, tmp,
                                    timeout, tuple(args)), daemon=True)
                  for r in range(world_size)]
         for p in procs:

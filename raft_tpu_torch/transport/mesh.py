@@ -12,8 +12,9 @@ go to the mesh kernels (``core.step_mesh``, two launch collectives a
 call), the repair-capable tick and the election run the general path on
 the local row, with K1 writing its windows.
 
-A gloo group serves ranks that share one GPU (NCCL refuses two ranks on
-one device) and the CPU tests; a host with one GPU per rank uses NCCL.
+The group is gloo: ranks that share one GPU (NCCL refuses two ranks on
+one device) or run on the CPU, as the tests do. A device backend, one GPU
+per rank, is not tried yet and ``MeshComm`` refuses it.
 Payloads may be given whole (the folded [..., R*W] batch, of which each
 rank keeps its own lane block) or already cut (``shard_rows``).
 
@@ -77,6 +78,16 @@ class MeshTransport:
         if isinstance(x, torch.Tensor):
             return x.cpu().numpy()
         return np.asarray(x)
+
+    def local_row(self, row: int):
+        """Index of replica ``row`` in this rank's state, or None when
+        another rank holds it."""
+        return 0 if row == self.rank else None
+
+    def commit_index(self, state: ReplicaState, row: int) -> int:
+        """Replica ``row``'s commit index (a collective: every rank calls
+        it)."""
+        return int(self.comm.all_gather(state.commit_index)[row])
 
     def shard_rows(self, payload) -> torch.Tensor:
         """This rank's lane block of a folded [..., R*W] batch, on the

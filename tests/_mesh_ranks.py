@@ -102,6 +102,16 @@ def transport_kind(rank: int, world: int, cfg_kw: dict) -> str:
     return type(make_transport(cfg, device="cpu")).__name__
 
 
+def row_placement(rank: int, world: int, cfg_kw: dict):
+    """A MeshTransport's ``local_row`` for every row, and row 0's commit
+    index as every rank reads it (rank r's commit is 10 + r)."""
+    tr = MeshTransport(RaftConfig(**cfg_kw, transport="tpu_mesh"),
+                       device="cpu")
+    st = tr.init()
+    st.commit_index.fill_(10 + rank)
+    return [tr.local_row(r) for r in range(world)], tr.commit_index(st, 0)
+
+
 def fail_on(rank: int, world: int, bad: int) -> int:
     """Rank ``bad`` raises; the others return their rank."""
     if rank == bad:

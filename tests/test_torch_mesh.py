@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from raft_tpu.config import RaftConfig as JConfig
 from raft_tpu.core.state import fold_batch as jfold_batch
@@ -31,7 +32,7 @@ from raft_tpu.transport import SingleDeviceTransport as JSingle
 from raft_tpu.transport import TpuMeshTransport
 from raft_tpu_torch.core.state import FIELDS, cut_row, stack_rows
 from raft_tpu_torch.transport.launch import run_ranks
-from tests._mesh_ranks import fail_on, hang, run_programs
+from tests._mesh_ranks import fail_on, hang, row_placement, run_programs
 from tests._torch_port import pallas_interpret
 
 B = 128
@@ -318,3 +319,33 @@ def test_a_failed_or_hung_rank_fails_the_run():
     assert "fails on purpose" in str(err.value)
     with pytest.raises(RuntimeError, match="still running after 3 s"):
         run_ranks(hang, 2, (120,), timeout=3)
+
+
+def test_mesh_comm_takes_a_gloo_group_only(monkeypatch):
+    """The mesh has run only over gloo; a group of another backend is
+    refused before any collective."""
+    import torch.distributed as dist
+
+    from raft_tpu_torch.core.comm import MeshComm
+
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 3)
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: "nccl")
+    with pytest.raises(ValueError, match="gloo group, got 'nccl'"):
+        MeshComm(3)
+
+
+def test_transport_places_rows():
+    """``local_row``/``commit_index``: the resident layout holds every row
+    at its own index; a mesh rank holds its own row only, and every rank
+    reads row 0's commit from rank 0."""
+    from raft_tpu_torch.config import RaftConfig
+    from raft_tpu_torch.transport import SingleDeviceTransport
+
+    kw = dict(n_replicas=3, entry_bytes=8, batch_size=B, log_capacity=256)
+    tr = SingleDeviceTransport(RaftConfig(**kw), device="cpu")
+    st = tr.init()
+    st.commit_index[:] = torch.tensor([7, 5, 6], dtype=torch.int32)
+    assert [tr.local_row(r) for r in range(3)] == [0, 1, 2]
+    assert [tr.commit_index(st, r) for r in range(3)] == [7, 5, 6]
+    assert run_ranks(row_placement, 3, (kw,), timeout=120) == [
+        ([0, None, None], 10), ([None, 0, None], 10), ([None, None, 0], 10)]

@@ -263,3 +263,21 @@ def test_mesh_mode_checks_its_operands():
     tsc.steady_step(vecs, lp, lt, win, B, ones, ~ones, None, prm, out,
                     my_row=1, prev=torch.zeros(3, dtype=torch.int32))
     assert tsc.LAUNCHES == counts     # the plain version launches nothing
+
+
+@pytest.mark.parametrize("name,mask", [
+    ("alive", torch.tensor([1, 0, 0])),                  # int64 bytes
+    ("slow", torch.zeros(6, dtype=torch.bool)[::2]),     # not contiguous
+    ("member", torch.ones(4, dtype=torch.bool)),         # wrong length
+])
+def test_kernel_masks_are_bool_bytes(name, mask):
+    """The kernels read alive, slow and member as L bytes: the wrappers
+    refuse any other mask before they launch."""
+    vecs = torch.zeros(6, 3, dtype=torch.int32)
+    masks = dict(alive=torch.ones(3, dtype=torch.bool),
+                 slow=torch.zeros(3, dtype=torch.bool), member=None)
+    tsc._check_masks(vecs, **masks)
+    masks[name] = mask
+    with pytest.raises(ValueError, match=f"{name} must be a contiguous "
+                                         r"bool\[3\]"):
+        tsc._check_masks(vecs, **masks)
