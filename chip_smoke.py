@@ -11,16 +11,21 @@ deployments. First the north star (3 replicas, 256-byte entries, batch
 2. builds the kernels (all ``nvcc`` runs in parallel) and prints the time;
 3. holds every kernel against its plain PyTorch version on the card, bit
    for bit, on seam, partial, slow-row, dead-row, conflict, infeasible and
-   turnover cases, then through a 200-step randomized multi-term schedule
-   (kernel path on the card, plain path on the host);
+   turnover cases (a K3 flight also phase by phase: its plan's per-step
+   record and outputs against ``pipeline_plan_plain``, its writer's
+   payload ring against ``pipeline_write_plain``), then through a
+   200-step randomized multi-term schedule (kernel path on the card,
+   plain path on the host);
 4. drives the main path through ``SingleDeviceTransport``: election,
    repair-capable ticks healing a slow row, steady ticks, then the port's
    ``northstar.run_device`` on the same cluster with pipeline flights
    until 1 048 576 entries have committed (32 ring laps), a leader kill
    with re-election and catch-up; follower read-back hashes must equal the
    input stream's, and every kernel must have launched;
-5. times each kernel (CUDA events, median of >= 20) beside its plain
-   version and its byte bound, and the main path per step.
+5. times each kernel (profiler medians of 21; K3 as its plan plus its
+   writer, printed apart as ``k3_split``, with the turnover decision
+   alone and an 8-step dead-row flight) beside its plain version and its
+   byte bound, and the main path per step.
 
 Then BASELINE config 3 (5 replicas, RS(5,3) shards of 264-byte entries,
 batch 1024, a 32 768-slot ring, commit quorum 4):
@@ -29,7 +34,8 @@ batch 1024, a 32 768-slot ring, commit quorum 4):
    their in-kernel parity mode against their plain versions on the card,
    bit for bit (seam, partial, dead-row, slow-row, conflict, turnover and
    two-dead-row cases, then randomized multi-term schedules at config 3
-   and at RS(4,2) with 8-byte entries and B = 128);
+   and at RS(4,2) with 8-byte entries and B = 128, and K3·ec/K4·ec
+   flights at the odd shard widths W = 1 and 3);
 7. drives the EC main path on a fresh cluster: election, K7-fed ticks
    (K2), a data-lane steady scan (K2·ec), ``northstar.run_device_ec`` to
    1 048 576 committed entries read back through rows (0,1,2) and (1,2,4)
@@ -83,14 +89,16 @@ not a multi-card run), built through ``make_transport`` with
     dry run's ladder on them — an election, repair-capable ticks (K1 on
     the local row) healing a slow row, a fused step (K2·mesh), a scan —
     then the north star's 1 048 576 entries through 32-step flights
-    (``northstar.run_device``; K3·mesh decides, K4·mesh turns the ring
-    over) and a flight with row 2 slow and one with row 2 dead (K3·mesh);
-    after every stage every rank's scalars, rings and info must equal its
-    row of the same schedule run here through ``SingleDeviceTransport``,
-    each follower rank's committed bytes must hash to the input's, and
-    every rank's mesh kernels and K1 must have launched;
-14. spawns 5 ranks at config 3 (K7-encoded windows, 4 turnover flights)
-    and holds every rank's ring to its row of the single-device run;
+    (``northstar.run_device``; the host decides and K4·mesh alone turns
+    the ring over) and a flight with row 2 slow and one with row 2 dead
+    (K3·mesh: 6 launches over the 3 ranks, against 96 of K4·mesh); after
+    every stage every rank's scalars, rings and info must equal its row
+    of the same schedule run here through ``SingleDeviceTransport``, each
+    follower rank's committed bytes must hash to the input's, and every
+    rank's mesh kernels and K1 must have launched;
+14. spawns 5 ranks at config 3 (K7-encoded windows, 4 turnover flights:
+    K4·mesh alone, no K3·mesh launch) and holds every rank's ring to its
+    row of the single-device run;
 15. times K2·mesh, K3·mesh and K4·mesh beside their plain versions and
     byte bounds, ``bench.py``'s ``bench_mesh1`` (a 1-rank group against
     the resident transport, per 32-step flight) and the 3-rank north
@@ -161,8 +169,10 @@ def phase_build():
     from raft_tpu_torch import cuda_build
 
     report = cuda_build.build_all()
+    # each kernel's entry line (its mangled name), registers, spills
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln][:24]
+                    if "entry function" in ln or "registers" in ln
+                    or "spill" in ln][:90]
              for name, log in report["logs"].items()}
     for name in cuda_build.SOURCES:
         cuda_build.lib(name)
@@ -283,11 +293,40 @@ def scan_case(cfg, dev, rng, st, counts, alive, slow, consts=None):
                    + [(getattr(ik, f), getattr(ip, f)) for f in ik._fields])
 
 
+def phase_check(what, rec, before, got, wins, cnt, al, sl, mem, prm, br,
+                turnover_ok, consts=None, my=-1, prev=None):
+    """K3's two phases apart, on the card, for a flight the plan ran:
+    ``rec`` (the plan kernel's per-step record) and the plan's outputs
+    against ``pipeline_plan_plain`` from the same inputs (``before`` =
+    copies of the plane, payload ring and term ring taken before the
+    flight), then the writer's payload ring against
+    ``pipeline_write_plain``. ``got`` = the kernel flight's (plane, out,
+    payload ring, term ring). A mismatch names its phase."""
+    import torch
+
+    from raft_tpu_torch.core import step_cuda as sc
+
+    v, lp, lt = (x.clone() for x in before)
+    out = torch.zeros_like(got[1])
+    prec = sc.pipeline_plan_plain(v, lt, cnt, wins.shape[1], al, sl, mem,
+                                  prm, br, turnover_ok, out,
+                                  sc.workspace(v.device), my, prev)
+    check(prec is not None and torch.equal(rec, prec),
+          f"{what} plan: the per-step record differs from the plain plan's")
+    check(max_err([(v, got[0]), (out, got[1]), (lt, got[3])]) == 0,
+          f"{what} plan: plane, out or term ring differs from the plain "
+          "plan's")
+    sc.pipeline_write_plain(lp, lt, wins, prec, consts, my)
+    check(max_err([(lp, got[2])]) == 0,
+          f"{what} writer: payload ring differs from the plain writer's")
+
+
 def flight_case(cfg, dev, rng, st, T, P, counts, alive, slow, turnover_ok,
                 consts=None):
     """One T-step flight over P windows through K3 (and K4 behind it when
     ``turnover_ok``) and through their plain versions, on clones of
-    ``st``. Returns (whether K4 wrote it, max error, the commit index)."""
+    ``st``; a flight K3 ran is also held phase by phase (``phase_check``).
+    Returns (whether K4 wrote it, max error, the commit index)."""
     import torch
 
     from raft_tpu_torch.core import step_cuda as sc
@@ -309,8 +348,9 @@ def flight_case(cfg, dev, rng, st, T, P, counts, alive, slow, turnover_ok,
         out = torch.zeros(L + 5, dtype=torch.int32, device=dev)
         r4 = int(work[sc.WK_RAN4])
         if kernel:
-            sc.pipeline_flight(v, s2.log_payload, s2.log_term, wins, cnt, al,
-                               sl, None, prm, br, turnover_ok, out, consts)
+            rec = sc.pipeline_flight(v, s2.log_payload, s2.log_term, wins,
+                                     cnt, al, sl, None, prm, br, turnover_ok,
+                                     out, consts).clone()
             if turnover_ok:
                 sc.turnover_flight(v, s2.log_payload, s2.log_term, wins, T,
                                    prm, out, consts)
@@ -324,6 +364,11 @@ def flight_case(cfg, dev, rng, st, T, P, counts, alive, slow, turnover_ok,
         res.append((v, s2, out, int(work[sc.WK_RAN4]) - r4))
     (vk, sk, ok_, k4k), (vp, sp, op, k4p) = res
     check(k4k == k4p, "flight: kernel and plain took different branches")
+    if not k4k:
+        phase_check("K3" if consts is None else "K3·ec", rec,
+                    (sc.pack(st), st.log_payload, st.log_term),
+                    (vk, ok_, sk.log_payload, sk.log_term), wins, cnt, al,
+                    sl, None, prm, br, turnover_ok, consts)
     return bool(k4k), max_err(
         [(vk, vp), (ok_, op), (sk.log_payload, sp.log_payload),
          (sk.log_term, sp.log_term)]), int(ok_[L])
@@ -828,39 +873,58 @@ def _device_events(fn, reps, before=None):
     return dev, wall
 
 
-#: the CUDA function behind each kernel, as the profiler names it
-KERNEL_FN = {"K1": "write_window_both_kernel", "K2": "steady_step_kernel",
-             "K3": "steady_pipeline_kernel", "K4": "turnover_kernel",
-             "K6 encode": "parity_kernel", "K6 decode": "parity_kernel",
-             "K7": "encode_fold_kernel", "K2·ec": "steady_step_kernel",
-             "K3·ec": "steady_pipeline_kernel", "K4·ec": "turnover_kernel",
-             "K5": "write_window_cols_kernel",
-             "K2·mesh": "steady_step_kernel",
-             "K3·mesh": "steady_pipeline_kernel",
-             "K4·mesh": "turnover_kernel"}
+#: the CUDA functions behind each kernel, as the profiler names them (a
+#: K3 flight is two launches: the plan and the writer)
+KERNEL_FN = {"K1": ("write_window_both_kernel",),
+             "K2": ("steady_step_kernel",),
+             "K3": ("flight_plan_kernel", "flight_write_kernel"),
+             "K4": ("turnover_kernel",),
+             "K6 encode": ("parity_kernel",), "K6 decode": ("parity_kernel",),
+             "K7": ("encode_fold_kernel",), "K2·ec": ("steady_step_kernel",),
+             "K3·ec": ("flight_plan_kernel", "flight_write_ec_kernel"),
+             "K4·ec": ("turnover_ec_kernel",),
+             "K5": ("write_window_cols_kernel",),
+             "K2·mesh": ("steady_step_kernel",),
+             "K3·mesh": ("flight_plan_kernel", "flight_write_kernel"),
+             "K4·mesh": ("turnover_kernel",)}
 
 
-def kernel_ms(key, fn, reps, before=None, inner=1):
-    """The kernel's device time per launch (median, profiler), and the
-    wrapper's time per call (CUDA events around back-to-back calls)."""
+def kernel_of(name):
+    """The kernel a profiler record belongs to (the first in KERNEL_FN),
+    or None."""
+    return next((k for k, fns in KERNEL_FN.items()
+                 if any(f in name for f in fns)), None)
+
+
+def kernel_ms(key, fn, reps, before=None, inner=1, split=None):
+    """The kernel's device time per call (profiler medians; for a kernel
+    of several CUDA functions the sum of their medians, each put in
+    ``split`` by name), and the wrapper's time per call (CUDA events
+    around back-to-back calls)."""
     call_ms = _events_ms(fn, reps, inner=inner, before=before)
+    fns = KERNEL_FN[key]
     for attempt in range(6):
         dev, _ = _device_events(fn, reps, before=before)
-        mine = [us for name, us in dev if KERNEL_FN[key] in name]
-        if len(mine) == reps:
-            return statistics.median(mine) / 1e3, call_ms
+        mine = {f: [us for name, us in dev if f in name] for f in fns}
+        if all(len(v) == reps for v in mine.values()):
+            med = {f: statistics.median(v) / 1e3 for f, v in mine.items()}
+            if split is not None:
+                split.update(med)
+            return sum(med.values()), call_ms
         # a profiler session now and then records no device activity
-        print(f"profiler session {attempt + 1} recorded {len(mine)} of "
-              f"{reps} launches of {KERNEL_FN[key]} ({len(dev)} device "
-              f"events: {sorted({n for n, _ in dev})[:4]})", file=sys.stderr)
+        print(f"profiler session {attempt + 1} recorded "
+              f"{ {f: len(v) for f, v in mine.items()} } of {reps} "
+              f"launches ({len(dev)} device events: "
+              f"{sorted({n for n, _ in dev})[:4]})", file=sys.stderr)
     raise RuntimeError(f"the profiler did not record the launches of "
-                       f"{KERNEL_FN[key]}")
+                       f"{fns}")
 
 
 def time_steady_kernels(cfg, dev, rng, reps, consts=None):
     """K2, K3 and K4 (their in-kernel parity mode with ``consts``) at a
     main-path shape: {key: ((device ms, wrapper ms), plain ms, bytes)},
-    and the flight's operands for further K3 timings."""
+    and the flight's operands for further K3 timings (with K3's split
+    into plan and writer)."""
     import torch
 
     from raft_tpu_torch.core import step_cuda as sc
@@ -914,10 +978,15 @@ def time_steady_kernels(cfg, dev, rng, reps, consts=None):
                                  counts, al, sl, None, prm, br, False, o3,
                                  sc.workspace(dev), consts)
 
-    out["K3" + tag] = (kernel_ms("K3" + tag, k3, reps), _host_ms(k3p, reps),
-                       T * step_bytes)
+    split = {}
+    out["K3" + tag] = (kernel_ms("K3" + tag, k3, reps, split=split),
+                       _host_ms(k3p, reps), T * step_bytes)
+    split["record_matches_plain"] = record_matches_plain(
+        "K3" + tag, k3, (vecs, st.log_payload, st.log_term), o3, wins32,
+        counts, al, sl, None, prm, br, consts)
 
-    # K4: the turnover flight (K3 decides on the device, K4 writes)
+    # K4: the turnover flight (K3's plan decides on the device, its writer
+    # exits, K4 writes)
     def plan():
         k3(turnover_ok=True)
 
@@ -944,8 +1013,22 @@ def time_steady_kernels(cfg, dev, rng, reps, consts=None):
     k4_bytes = T * B * Mk * 4 + C * M * 4 + L * C * 4 + 2 * 6 * L * 4
     out["K4" + tag] = (k4_time, _host_ms(k4p, reps), k4_bytes)
     flight = dict(k3=k3, plan=plan, wins=wins32, counts=counts, prm=prm,
-                  br=br, out=o3, slow=sl)
+                  br=br, out=o3, slow=sl, split=split)
     return out, flight
+
+
+def record_matches_plain(what, flight, state, out, wins, cnt, al, sl, mem,
+                         prm, br, consts=None, my=-1, prev=None):
+    """One more flight at the timed shape (``flight()`` runs it in place on
+    ``state`` = (plane, payload ring, term ring) and ``out``, and returns
+    the plan's record), held phase by phase against the plain plan and
+    writer (``phase_check``)."""
+    before = tuple(x.clone() for x in state)
+    rec = flight().clone()
+    v, lp, lt = state
+    phase_check(what, rec, before, (v, out, lp, lt), wins, cnt, al, sl, mem,
+                prm, br, False, consts, my, prev)
+    return True
 
 
 def phase_timing(cfg, dev, card_line, reps=21):
@@ -984,8 +1067,9 @@ def phase_timing(cfg, dev, card_line, reps=21):
 
     steady, fl = time_steady_kernels(cfg, dev, rng, reps)
     out.update(steady)
-    grid = fl["k3"]()
-    plan_ms = kernel_ms("K3", fl["plan"], reps)
+    # the turnover decision alone: the plan decides, the writer exits
+    decision = {}
+    plan_ms = kernel_ms("K3", fl["plan"], reps, split=decision)
 
     # K3 as it runs a flight on the main path (after the leader kill): 8
     # steps with a dead row, on a cluster of its own. Only the live rows'
@@ -1001,17 +1085,18 @@ def phase_timing(cfg, dev, card_line, reps=21):
                            fl["slow"], None, fl["prm"], fl["br"], False,
                            fl["out"])
 
-    dead_ms = kernel_ms("K3", k3_dead, reps)
+    dead_split = {}
+    dead_ms = kernel_ms("K3", k3_dead, reps, split=dead_split)
     live = L - 1
     dead_bytes = T8 * (2 * B * live * cfg.shard_words * 4
                        + 2 * live * B * 4) + 2 * 6 * L * 4 + (L + 5) * 4
     torch.cuda.synchronize()
     res = {"phase": "timing", "card": card_line, "mem_bytes_per_s": rate,
-           "k3_grid_blocks": grid, "k3_decision_only": {
-               "ms": plan_ms[0], "call_ms": plan_ms[1]},
+           "k3_split": fl["split"], "k3_decision_only": {
+               "ms": plan_ms[0], "call_ms": plan_ms[1], "split": decision},
            "k3_dead_row_8_steps": {
                "ms": dead_ms[0], "call_ms": dead_ms[1], "bytes": dead_bytes,
-               "bound_ms": dead_bytes / rate * 1e3}}
+               "bound_ms": dead_bytes / rate * 1e3, "split": dead_split}}
     for k, ((ms, call_ms), pms, nbytes) in out.items():
         res[k] = {"ms": ms, "call_ms": call_ms, "plain_ms": pms,
                   "bytes": nbytes, "bound_ms": nbytes / rate * 1e3}
@@ -1040,8 +1125,7 @@ def profile_flights(cfg, dev, flights=4):
         check(d == box["run"].input_digest, f"profiled read-back of row {r}")
     by_name = {}
     for name, us in events:
-        key = next((k for k, f in KERNEL_FN.items() if f in name),
-                   "copy" if "emcpy" in name else "other")
+        key = kernel_of(name) or ("copy" if "emcpy" in name else "other")
         by_name[key] = by_name.get(key, 0.0) + us
     busy = sum(by_name.values())
     kern = by_name.get("K3", 0.0) + by_name.get("K4", 0.0)
@@ -1178,6 +1262,27 @@ def phase_ec_kernels(ecfg, dev, n_random=120):
     codec_cases(RSCode(4, 2), dev, rng, 128, 8, 512, note)
     rsteps["rs42_e8_b128"] = random_ec_schedule(small, dev, n_random // 2,
                                                 rng)
+    # odd shard widths, W = 1 and W = 3 words: there K3·ec's and K4·ec's
+    # row writers move single words instead of word pairs
+    import dataclasses
+
+    sc4 = parity_consts(4, 2)
+    odd = {}
+    for ocfg in (small, dataclasses.replace(small, entry_bytes=24)):
+        ob = steady_state(ocfg, dev, 5 * 128, rng=rng)
+        for T_, P_, alive_, slow_, want in (
+                (4, 4, [1, 1, 1, 0], [0] * 4, "K3·ec"),
+                (6, 4, [1] * 4, [0, 0, 1, 0], "K3·ec"),      # 1.5 laps
+                (4, 4, [1] * 4, [0] * 4, "K4·ec"),
+                (7, 3, [1] * 4, [0] * 4, "K4·ec")):          # lapped
+            k4, err, _ = flight_case(ocfg, dev, rng, ob, T_, P_, [128] * T_,
+                                     alive_, slow_, True, sc4)
+            which = "K4·ec" if k4 else "K3·ec"
+            check(which == want, f"odd-W flight: {which} ran, {want} "
+                                 "expected")
+            note(which, err)
+        odd[f"W={ocfg.shard_words}"] = 4
+    rsteps["odd_w_flights"] = odd
     for k in errs:
         check(errs[k] == 0, f"{k} differs from its plain version by "
                             f"{errs[k]}")
@@ -1465,9 +1570,14 @@ def phase_ec_timing(ecfg, dev, card_line, reps=21):
         _host_ms(lambda: ek.decode_bitwise(code, shards, rows), reps),
         2 * code.k * C * sk)
 
-    out.update(time_steady_kernels(ecfg, dev, rng, reps, consts)[0])
+    steady, fl = time_steady_kernels(ecfg, dev, rng, reps, consts)
+    out.update(steady)
+    decision = {}
+    plan_ms = kernel_ms("K3·ec", fl["plan"], reps, split=decision)
     torch.cuda.synchronize()
-    res = {"phase": "ec_timing", "card": card_line, "mem_bytes_per_s": rate}
+    res = {"phase": "ec_timing", "card": card_line, "mem_bytes_per_s": rate,
+           "k3_split": fl["split"], "k3_decision_only": {
+               "ms": plan_ms[0], "call_ms": plan_ms[1], "split": decision}}
     for k, ((ms, call_ms), pms, nbytes) in out.items():
         res[k] = {"ms": ms, "call_ms": call_ms, "plain_ms": pms,
                   "bytes": nbytes, "bound_ms": nbytes / rate * 1e3}
@@ -1493,11 +1603,10 @@ def profile_ec_flights(ecfg, dev, flights=4):
     events, wall = _device_events(run, 1)
     for rs, d in box["run"].set_digests.items():
         check(d == box["run"].input_digest, f"profiled read set {rs}")
-    names = {"K3·ec": "steady_pipeline_kernel", "K4·ec": "turnover_kernel",
-             "K6 decode": "parity_kernel"}
     by_name = {}
     for name, us in events:
-        key = next((k for k, f in names.items() if f in name),
+        key = next((k for k in ("K3·ec", "K4·ec", "K6 decode")
+                    if any(f in name for f in KERNEL_FN[k])),
                    "copy" if "emcpy" in name else "other")
         by_name[key] = by_name.get(key, 0.0) + us
     busy = sum(by_name.values())
@@ -2104,7 +2213,8 @@ def phase_group_timing(dev, card_line, reps=21):
         call = _events_ms(fn, 7 if name == "A" else 3)
         events, wall = _device_events(fn, 4 if name == "A" else 2)
         busy = sum(us for _, us in events)
-        k5_us = sum(us for n_, us in events if KERNEL_FN["K5"] in n_)
+        k5_us = sum(us for n_, us in events
+                    if KERNEL_FN["K5"][0] in n_)
         launches = 4 if name == "A" else 2
         res[f"group_tick_{name}"] = {
             # config A's call is one G-group step: bench.py's
@@ -2193,12 +2303,16 @@ def mesh_step_case(cfg, dev, rng, vecs, prev, lp, lt, r, count, alive, slow,
 
 def mesh_flight_case(cfg, dev, rng, st, r, T, P, counts, alive, slow,
                      turnover_ok, member=None):
-    """K3·mesh (and K4·mesh behind it with ``turnover_ok``) of row ``r``
-    from the resident cluster ``st``, and their plain versions. Returns
-    (whether K4 wrote it, max error)."""
+    """Row ``r``'s flight from the resident cluster ``st`` as the mesh runs
+    it: with ``turnover_ok`` the host's decision on the gathered plane
+    (``step_mesh.flight_branch``) picks K4·mesh and its start slot;
+    otherwise K3·mesh runs (held phase by phase too). The kernels and
+    their plain versions on clones. Returns (whether K4·mesh wrote it,
+    max error)."""
     import torch
 
     from raft_tpu_torch.core import step_cuda as sc
+    from raft_tpu_torch.core.step_mesh import flight_branch
 
     C, B, R, W = cfg.log_capacity, cfg.batch_size, cfg.rows, cfg.shard_words
     prm = sc.step_params(0, 1, 1, 0, 0, cfg.commit_quorum, R,
@@ -2212,31 +2326,36 @@ def mesh_flight_case(cfg, dev, rng, st, r, T, P, counts, alive, slow,
     prev = prev_column(st, 0)
     work = sc.workspace(dev)
     br = sc.pick_br(B, C)
+    branch, s0 = "flight", None
+    if turnover_ok:
+        branch, s0 = flight_branch(
+            sc.pack(st).cpu(), prev.cpu(), cnt.cpu(), al.cpu(), sl.cpu(),
+            None if mem is None else mem.cpu(), prm, B, C, r)
+    k4 = branch == "turnover"
     res = []
     for kernel in (True, False):
         loc = local_row(st, r, W)
         v = sc.pack(st)
         out = torch.zeros(R + 5, dtype=torch.int32, device=dev)
-        r4 = int(work[sc.WK_RAN4])
-        if kernel:
-            sc.pipeline_flight(v, loc.log_payload, loc.log_term, wins, cnt,
-                               al, sl, mem, prm, br, turnover_ok, out,
-                               my_row=r, prev=prev)
-            if turnover_ok:
-                sc.turnover_flight(v, loc.log_payload, loc.log_term, wins, T,
-                                   prm, out, my_row=r)
+        args = (v, loc.log_payload, loc.log_term, wins)
+        if k4 and kernel:
+            sc.turnover_flight(*args, T, prm, out, my_row=r, s0=s0)
+        elif k4:
+            sc.turnover_flight_plain(*args, T, prm, out, work, None, s0)
+        elif kernel:
+            rec = sc.pipeline_flight(*args, cnt, al, sl, mem, prm, br, False,
+                                     out, my_row=r, prev=prev).clone()
         else:
-            sc.pipeline_flight_plain(v, loc.log_payload, loc.log_term, wins,
-                                     cnt, al, sl, mem, prm, br, turnover_ok,
+            sc.pipeline_flight_plain(*args, cnt, al, sl, mem, prm, br, False,
                                      out, work, None, r, prev)
-            if turnover_ok:
-                sc.turnover_flight_plain(v, loc.log_payload, loc.log_term,
-                                         wins, T, prm, out, work)
-        res.append((v, loc.log_payload, loc.log_term, out,
-                    int(work[sc.WK_RAN4]) - r4))
-    (vk, pk, tk, ok_, k4k), (vp, pp, tp, op, k4p) = res
-    check(k4k == k4p, "mesh flight: kernel and plain took different branches")
-    return bool(k4k), max_err([(vk, vp), (pk, pp), (tk, tp), (ok_, op)])
+        res.append((v, loc.log_payload, loc.log_term, out))
+    (vk, pk, tk, ok_), (vp, pp, tp, op) = res
+    if not k4:
+        loc = local_row(st, r, W)
+        phase_check("K3·mesh", rec, (sc.pack(st), loc.log_payload,
+                                     loc.log_term), (vk, ok_, pk, tk), wins,
+                    cnt, al, sl, mem, prm, br, False, None, r, prev)
+    return k4, max_err([(vk, vp), (pk, pp), (tk, tp), (ok_, op)])
 
 
 def mesh_cases(cfg, dev, rng, note, n_random):
@@ -2307,6 +2426,7 @@ def mesh_vs_resident(cfg, dev, n, rng):
     from raft_tpu_torch.core.comm import SingleDeviceComm
     from raft_tpu_torch.core.state import init_state
     from raft_tpu_torch.core.step import vote_step
+    from raft_tpu_torch.core.step_mesh import flight_branch
 
     C, B, R, W = cfg.log_capacity, cfg.batch_size, cfg.rows, cfg.shard_words
     comm = SingleDeviceComm(R)
@@ -2352,20 +2472,30 @@ def mesh_vs_resident(cfg, dev, n, rng):
             wins = rand_window(rng, T * B, R * W, dev).reshape(T, B, R * W)
             cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
             outs = []
+            branch, s0 = flight_branch(
+                vecs0.cpu(), prev0.cpu(), cnt.cpu(), alive.cpu(), slow.cpu(),
+                None if member is None else member.cpu(), prm, B, C, 0)
             for r in [None] + list(range(R)):
                 v = vecs0.clone()
                 o = torch.zeros(R + 5, dtype=torch.int32, device=dev)
-                if r is None:
-                    lp, lt, w, kw = st.log_payload, st.log_term, wins, {}
+                if r is None:       # resident: K3 decides on the device
+                    sc.pipeline_flight(v, st.log_payload, st.log_term, wins,
+                                       cnt, alive, slow, member, prm,
+                                       sc.pick_br(B, C), T * B >= C, o)
+                    if T * B >= C:
+                        sc.turnover_flight(v, st.log_payload, st.log_term,
+                                           wins, T, prm, o)
+                    outs.append((v, o))
+                    continue
+                lp, lt = locs[r].log_payload, locs[r].log_term
+                w = wins[..., r * W:(r + 1) * W].contiguous()
+                if branch == "turnover":     # the mesh decides on the host
+                    sc.turnover_flight(v, lp, lt, w, T, prm, o, my_row=r,
+                                       s0=s0)
                 else:
-                    lp, lt = locs[r].log_payload, locs[r].log_term
-                    w = wins[..., r * W:(r + 1) * W].contiguous()
-                    kw = dict(my_row=r)
-                sc.pipeline_flight(v, lp, lt, w, cnt, alive, slow, member,
-                                   prm, sc.pick_br(B, C), T * B >= C, o,
-                                   prev=None if r is None else prev0, **kw)
-                if T * B >= C:
-                    sc.turnover_flight(v, lp, lt, w, T, prm, o, **kw)
+                    sc.pipeline_flight(v, lp, lt, w, cnt, alive, slow,
+                                       member, prm, sc.pick_br(B, C), False,
+                                       o, my_row=r, prev=prev0)
                 outs.append((v, o))
             steps += T
             flights += 1
@@ -2655,6 +2785,13 @@ def phase_mesh_main_path(cfg, dev, entries=ENTRIES):
             check(res["row_digests"][str(r)] == res["input_digest"],
                   f"rank {r}'s committed bytes differ from the input")
     flights = ranks[0]["flights"]
+    if dev.type == "cuda":
+        # the turnover flights go to K4·mesh from the host's decision;
+        # K3·mesh runs only the slow-row and dead-row flights, on each rank
+        k3 = sum(res["launches"]["K3·mesh"] for res in ranks)
+        k4 = sum(res["launches"]["K4·mesh"] for res in ranks)
+        check(k3 == 2 * MESH_RANKS and k4 == flights * MESH_RANKS,
+              f"mesh main path: {k3} K3·mesh and {k4} K4·mesh launches")
     result = {
         "phase": "mesh_main_path", "ranks": MESH_RANKS,
         "backend": "gloo, all ranks on cuda:0 (three processes "
@@ -2760,9 +2897,11 @@ def phase_mesh_ec_path(ecfg, dev, flights=4):
                         else "pipeline")
             check(res["stages"][name] == want,
                   f"ec rank {r} after {name} differs from its row")
-        for k in ("K3·mesh", "K4·mesh", "K7", "K4_flights_run"):
+        for k in ("K4·mesh", "K7", "K4_flights_run"):
             check(res["launches"][k] > 0 or dev.type != "cuda",
                   f"ec rank {r}: {k} never ran")
+        check(res["launches"]["K3·mesh"] == 0,
+              f"ec rank {r}: a turnover flight launched K3·mesh")
     res = {"phase": "mesh_ec_path", "ranks": ecfg.rows, "flights": flights,
            "entries_committed": flights * STEPS_PER_FLIGHT *
            ecfg.batch_size, "stages_matched": list(ref),
@@ -2774,7 +2913,7 @@ def phase_mesh_ec_path(ecfg, dev, flights=4):
 
 def mesh1_rank_main(rank, world, device, reps):
     """``bench.py`` ``bench_mesh1`` on the card: one rank, n_replicas=1,
-    32-step saturated flights through ``MeshTransport`` (K3·mesh decides,
+    32-step saturated flights through ``MeshTransport`` (the host decides,
     K4·mesh writes, two launch collectives) and through
     ``SingleDeviceTransport`` (K3, K4) at the same shape, in turns, and
     the launch collectives alone. Host µs per call, medians."""
@@ -2863,42 +3002,48 @@ def time_mesh_kernels(cfg, dev, rng, reps, rate):
     o3 = torch.zeros(R + 5, dtype=torch.int32, device=dev)
     br = sc.pick_br(B, C)
 
-    def k3(turnover_ok=False):
-        sc.pipeline_flight(vecs, *args, wins, counts, al, sl, None, prm, br,
-                           turnover_ok, o3, None, r, prev)
+    def k3():
+        return sc.pipeline_flight(vecs, *args, wins, counts, al, sl, None,
+                                  prm, br, False, o3, None, r, prev)
 
     def k3p():
         sc.pipeline_flight_plain(vecs, *args, wins, counts, al, sl, None,
                                  prm, br, False, o3, sc.workspace(dev),
                                  None, r, prev)
 
-    out["K3·mesh"] = (kernel_ms("K3·mesh", k3, reps), _host_ms(k3p, reps),
-                      T * step_bytes)
+    split = {}
+    out["K3·mesh"] = (kernel_ms("K3·mesh", k3, reps, split=split),
+                      _host_ms(k3p, reps), T * step_bytes)
+    split["record_matches_plain"] = record_matches_plain(
+        "K3·mesh", k3, (vecs, *args), o3, wins, counts, al, sl, None, prm,
+        br, None, r, prev)
 
-    def plan():
-        k3(turnover_ok=True)
+    # K4·mesh as the mesh launches it: alone, from the host's decision and
+    # start slot (the leader's tail here; the timed flights keep it a
+    # multiple of C)
+    s0 = int(vecs[2, 0]) % C
 
     def k4():
-        sc.turnover_flight(vecs, *args, wins, T, prm, o3, None, r)
+        sc.turnover_flight(vecs, *args, wins, T, prm, o3, None, r, s0)
 
     def k4p():
-        w = sc.workspace(dev)
-        sc.pipeline_flight_plain(vecs, *args, wins, counts, al, sl, None,
-                                 prm, br, True, o3, w, None, r, prev)
-        sc.turnover_flight_plain(vecs, *args, wins, T, prm, o3, w)
+        sc.turnover_flight_plain(vecs, *args, wins, T, prm, o3,
+                                 sc.workspace(dev), None, s0)
 
     work = sc.workspace(dev)
     ran4 = int(work[sc.WK_RAN4])
-    k4_time = kernel_ms("K4·mesh", k4, reps, before=plan)
+    k4_time = kernel_ms("K4·mesh", k4, reps)
     check(int(work[sc.WK_RAN4]) - ran4 == 2 * reps + 2,
           "timed K4·mesh launches did not all run the flight")
     # the T*B = C window rows read once, the row's C slots of payload and
     # terms written once, the plane in and out
     k4_bytes = T * B * W * 4 + C * W * 4 + C * 4 + 2 * 6 * R * 4
     out["K4·mesh"] = (k4_time, _host_ms(k4p, reps), k4_bytes)
-    return {k: {"ms": ms, "call_ms": call_ms, "plain_ms": pms,
-                "bytes": nbytes, "bound_ms": nbytes / rate * 1e3}
-            for k, ((ms, call_ms), pms, nbytes) in out.items()}
+    res = {k: {"ms": ms, "call_ms": call_ms, "plain_ms": pms,
+               "bytes": nbytes, "bound_ms": nbytes / rate * 1e3}
+           for k, ((ms, call_ms), pms, nbytes) in out.items()}
+    res["k3_split"] = split
+    return res
 
 
 def phase_mesh_timing(cfg, dev, card_line, kernels, main, reps=21):

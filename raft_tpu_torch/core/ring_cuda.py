@@ -31,20 +31,29 @@ from raft_tpu_torch.core.ring import (
 LAUNCHES = {"write_window_both": 0, "write_window_cols": 0}
 
 
+def write_window_terms_plain(buf_t, win_t, s, count, ws, accept,
+                             last_index) -> torch.Tensor:
+    """The term half of K1's plain version: the window's terms into
+    ``buf_t`` where ``accept``, and any_mm int32[L] (1 = a row holds an
+    entry of another term inside the window)."""
+    B = win_t.shape[0]
+    j = torch.arange(B, device=buf_t.device, dtype=torch.int32)
+    my_win_t = read_window(buf_t, s, B)                     # [L, B] old terms
+    exists = (ws + j)[None, :] <= last_index[:, None]
+    mismatch = exists & (my_win_t != win_t[None, :]) & (j < count)[None, :]
+    write_window_rows(buf_t, win_t, s, count, accept)
+    return mismatch.any(dim=1).to(torch.int32)
+
+
 def write_window_both_plain(buf_p, buf_t, win, win_t, s, count, ws, accept,
                             last_index) -> torch.Tensor:
     """The plain version of K1: the XLA formulation of
     ``core/step.py:369-382``. Returns any_mm int32[L] (1 = conflict)."""
     L = buf_t.shape[0]
-    B, M = win.shape
-    j = torch.arange(B, device=buf_t.device, dtype=torch.int32)
-    my_win_t = read_window(buf_t, s, B)                     # [L, B] old terms
-    exists = (ws + j)[None, :] <= last_index[:, None]
-    mismatch = exists & (my_win_t != win_t[None, :]) & (j < count)[None, :]
     write_window_cols_xla(buf_p, win, s, count,
-                          accept.repeat_interleave(M // L))
-    write_window_rows(buf_t, win_t, s, count, accept)
-    return mismatch.any(dim=1).to(torch.int32)
+                          accept.repeat_interleave(win.shape[1] // L))
+    return write_window_terms_plain(buf_t, win_t, s, count, ws, accept,
+                                    last_index)
 
 
 def _scalar(x, device) -> torch.Tensor:
@@ -58,6 +67,13 @@ def vec4_ok(M: int, L: int, *tensors) -> bool:
     block is a whole number of int4s and every row starts 16-byte aligned."""
     return M % 4 == 0 and (M // L) % 4 == 0 and all(
         t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def vec2_ok(W: int, *tensors) -> bool:
+    """Whether the parity-mode row writer may move 8-byte word pairs: the
+    shard width W is even (so every window and ring row, a whole number of
+    shards, is too) and every tensor starts 8-byte aligned."""
+    return W % 2 == 0 and all(t.data_ptr() % 8 == 0 for t in tensors)
 
 
 def write_window_both(buf_p: torch.Tensor, buf_t: torch.Tensor,

@@ -7,9 +7,12 @@
   epilogue (last/match/commit advance, term adoption with vote reset, the
   k-th-order quorum commit behind the ``term_floor`` gate). It also emits
   the next window's start slot and prev-term column.
-- K3 ``pipeline_flight`` — T steady steps in one launch (``_run_pipeline``
-  :1045 / ``_steady_pipeline_kernel`` :664). Each step runs at its true
-  start slot, so the flight equals the per-step scan for every input.
+- K3 ``pipeline_flight`` — T steady steps as one flight (``_run_pipeline``
+  :1045 / ``_steady_pipeline_kernel`` :664), in two launches: a one-block
+  plan (the scalar core and the term-ring merge, step by step, and a
+  per-step record) and a writer that stores each payload destination from
+  the last step that covers it and accepts its row. Each step runs at its
+  true start slot, so the flight equals the per-step scan for every input.
 - K4 ``turnover_flight`` — the write-only all-accept flight that turns the
   ring over (``_run_turnover`` :1189 / ``_turnover_kernel`` :1130).
 
@@ -25,7 +28,9 @@ forms (an accepting row's tail is exactly the window end; the next prev
 term is the leader's term for accepting rows and -1 for the rest), which
 hold under the engine's steady-program invariants (``core.step_mesh``).
 The prev-term column comes in as an operand (``prev`` [R]) instead of from
-the ring. No parity mode: mesh windows arrive pre-encoded.
+the ring. The mesh takes the turnover decision on the host, so K3·mesh
+never decides and K4·mesh takes its start slot from the caller. No parity
+mode: mesh windows arrive pre-encoded.
 
 With ``ec_consts`` (the [m, k, 8] table of ``ec.kernels.parity_consts``)
 each kernel runs in its in-kernel RS parity mode (K2-4·ec,
@@ -34,16 +39,22 @@ blocks (``Mk = k*W`` lanes) and the merge computes the m parity lane
 blocks. Full-lane windows must come without it; any other combination
 raises, as ``step_pallas.py:974-978`` does.
 
-Each wrapper launches its CUDA kernel (``csrc/steady.cu``, whose header
+Each wrapper launches its CUDA kernels (``csrc/steady.cu``, whose header
 states the design and the bound) for CUDA tensors and runs its plain
 version, in this module, for CPU tensors. The six [L] state vectors travel
 packed as one (6, L) int32 block that the kernels update in place, as do
 the two rings: a state handed to these functions is consumed.
 
 Host scalars (leader, terms, floors, quorum) go to the kernels by value;
-masks and counts stay on the device. The branch between K3 and K4 is taken
-on the device (K3 publishes it in the workspace, K4 reads it), so a flight
-costs two launches and no host read.
+masks and counts stay on the device. On the resident layout the branch
+between K3 and K4 is taken on the device (K3's plan publishes it in the
+workspace, K3's writer and K4 read it), so a flight costs three launches
+and no host read.
+
+The flight's two phases also have plain versions of their own,
+``pipeline_plan_plain`` (returning the per-step record) and
+``pipeline_write_plain``: the tests and ``chip_smoke.py`` hold the split
+against ``pipeline_flight_plain``; nothing on the main path calls them.
 """
 
 from __future__ import annotations
@@ -54,7 +65,12 @@ import numpy as np
 import torch
 
 from raft_tpu_torch import cuda_build
-from raft_tpu_torch.core.ring_cuda import vec4_ok, write_window_both_plain
+from raft_tpu_torch.core.ring_cuda import (
+    vec2_ok,
+    vec4_ok,
+    write_window_both_plain,
+    write_window_terms_plain,
+)
 from raft_tpu_torch.core.state import NO_VOTE, ReplicaState
 from raft_tpu_torch.ec.kernels import apply_bits_plain
 
@@ -68,6 +84,11 @@ _MAL, _MSL, _MAK = range(3)
 # its WK_N words)
 WK_PLAN, WK_S0, WK_RAN3, WK_RAN4 = 5, 6, 7, 8
 _WORK_WORDS = 16
+# fields of the flight plan's per-step record: the window's start slot,
+# its count, the accept mask (bit l = row l) and the flight position of
+# its first row (step t covers positions [pos, pos + count), slot
+# (s_0 + position) mod C)
+REC_S, REC_N, REC_ACC, REC_POS = range(4)
 
 #: kernel launches, counted where each wrapper launches its kernel; the
 #: in-kernel parity mode counts under its own ``*_ec`` keys
@@ -78,6 +99,7 @@ LAUNCHES = {"steady_step": 0, "pipeline_flight": 0, "turnover_flight": 0,
 
 _workspaces: dict = {}
 _ec_tables: dict = {}
+_records: dict = {}
 
 
 def workspace(device) -> torch.Tensor:
@@ -88,6 +110,17 @@ def workspace(device) -> torch.Tensor:
         _workspaces[key] = torch.zeros(_WORK_WORDS, dtype=torch.int32,
                                        device=device)
     return _workspaces[key]
+
+
+def plan_record(device, T: int) -> torch.Tensor:
+    """The plan kernel's per-step record, int32[T, 4]: a view of a
+    per-device buffer that grows with T, rewritten by every flight."""
+    key = str(torch.device(device))
+    buf = _records.get(key)
+    if buf is None or buf.shape[0] < T:
+        buf = _records[key] = torch.empty(max(T, 64), 4, dtype=torch.int32,
+                                          device=device)
+    return buf[:T]
 
 
 class StepParams(NamedTuple):
@@ -290,28 +323,30 @@ def _masks(alive, slow, member):
             None if member is None else member.tolist())
 
 
-def _plain_step(v, log_payload, log_term, win, cnt, masks, prm, C, my=-1,
-                prev_ts=None):
+def _plain_step(v, log_payload, log_term, win, cnt, masks, prm, C, B,
+                my=-1, prev_ts=None):
     """One plain steady step on the host list ``v``; returns
-    (match, scal, next_prev). ``my >= 0`` is the mesh-local mode: the
-    rings hold row ``my`` only and ``prev_ts`` is every row's prev term."""
+    (pl, match, scal, next_prev). ``my >= 0`` is the mesh-local mode: the
+    rings hold row ``my`` only and ``prev_ts`` is every row's prev term.
+    With ``log_payload`` None only the term ring is merged (the plan)."""
     alive, slow, member = masks
-    B = win.shape[0]
     if my < 0:
         prev_slot = (max(v[_VL][prm.leader], 1) - 1) % C
         prev_ts = log_term[:, prev_slot].tolist()
     pl = _prologue(v, cnt, prev_ts, alive, slow, prm, C, B)
     dev = log_term.device
     rows = [my] if my >= 0 else range(len(v[0]))
-    mm = write_window_both_plain(
-        log_payload, log_term, win,
-        torch.full((B,), prm.lterm, dtype=torch.int32, device=dev),
-        pl.s, pl.count, pl.ws,
-        torch.tensor([pl.acc[l] for l in rows], dtype=torch.bool,
-                     device=dev),
-        torch.tensor([v[_VL][l] for l in rows], dtype=torch.int32,
-                     device=dev),
-    ).tolist()
+    merge = (pl.s, pl.count, pl.ws,
+             torch.tensor([pl.acc[l] for l in rows], dtype=torch.bool,
+                          device=dev),
+             torch.tensor([v[_VL][l] for l in rows], dtype=torch.int32,
+                          device=dev))
+    terms = torch.full((B,), prm.lterm, dtype=torch.int32, device=dev)
+    if log_payload is None:
+        mm = write_window_terms_plain(log_term, terms, *merge).tolist()
+    else:
+        mm = write_window_both_plain(log_payload, log_term, win, terms,
+                                     *merge).tolist()
     if my >= 0:
         # closed forms (step_pallas.py:292-298, :361-373): no conflict
         # bit, and the next prev column without reading other rows' terms
@@ -320,13 +355,13 @@ def _plain_step(v, log_payload, log_term, win, cnt, masks, prm, C, my=-1,
             nxt = [prm.lterm if a else -1 for a in pl.acc]
         else:
             nxt = pl.prev_ts
-        return match, scal, nxt
+        return pl, match, scal, nxt
     match, scal = _epilogue(v, pl, mm, alive, slow, member, prm, C)
     if pl.count > 0:
         nxt = log_term[:, (pl.s + pl.count - 1) % C].tolist()
     else:
         nxt = pl.prev_ts
-    return match, scal, nxt
+    return pl, match, scal, nxt
 
 
 def steady_step_plain(vecs, log_payload, log_term, win, count, alive, slow,
@@ -334,17 +369,44 @@ def steady_step_plain(vecs, log_payload, log_term, win, count, alive, slow,
                       my_row=-1, prev=None) -> None:
     """The plain version of K2 (same arguments and outputs), and of
     K2·mesh with ``my_row >= 0``."""
-    L, C = vecs.shape[1], log_term.shape[1]
+    C = log_term.shape[1]
     check_lanes(log_payload.shape[1], win.shape[1], log_term.shape[0],
                 ec_consts)
     win = _full_lanes(win, ec_consts, log_term, log_payload)
     v = vecs.tolist()
-    match, scal, nxt = _plain_step(
+    _, match, scal, nxt = _plain_step(
         v, log_payload, log_term, win, int(count),
-        _masks(alive, slow, member), prm, C, my_row,
+        _masks(alive, slow, member), prm, C, win.shape[0], my_row,
         None if prev is None else prev.tolist())
     vecs.copy_(torch.tensor(v, dtype=torch.int32))
     out.copy_(torch.tensor(match + scal + nxt, dtype=torch.int32))
+
+
+def _decide(vecs, log_term, counts, alive, slow, member, prm, br,
+            turnover_ok, B, work, my_row, prev):
+    """A flight's start: whether it belongs to K4 (the launch-feasibility
+    predicate and every row accepting; the resident layout only, as the
+    mesh decides on the host), published in ``work`` with the start slot
+    as the plan kernel does. Returns (turnover, the prev-term column
+    [L, 1])."""
+    L, C = vecs.shape[1], log_term.shape[1]
+    if my_row >= 0:
+        if turnover_ok:
+            raise ValueError("the mesh takes the turnover decision on the "
+                             "host: K3·mesh runs with turnover_ok=False")
+        s0, prev0 = int(vecs[_VL, prm.leader]) % C, prev.reshape(L, 1)
+    else:
+        s0, prev0 = start_slot_and_prev(vecs, log_term, prm.leader, C, L)
+    turnover = False
+    if turnover_ok:
+        params, masks = params_and_masks(prm, alive, slow, member)
+        feasible, accept0 = launch_feasibility(
+            vecs, masks, params, prev0, counts, s0, br, B, L, prm.leader,
+            prm.lterm, prm.rfloor, prm.fpt)
+        turnover = bool(feasible) and bool(accept0.all())
+    work[WK_PLAN] = int(turnover)
+    work[WK_S0] = int(s0)
+    return turnover, prev0
 
 
 def pipeline_flight_plain(vecs, log_payload, log_term, wins, counts, alive,
@@ -352,58 +414,111 @@ def pipeline_flight_plain(vecs, log_payload, log_term, wins, counts, alive,
                           out, work, ec_consts=None, my_row=-1,
                           prev=None) -> None:
     """The plain version of K3: decide the turnover branch (publishing it
-    in ``work`` as the kernel does) or run the T steps; K3·mesh with
-    ``my_row >= 0``, the prev column carried step to step in closed
+    in ``work`` as the kernel does) or run the T steps in order; K3·mesh
+    with ``my_row >= 0``, the prev column carried step to step in closed
     form."""
-    L, C = vecs.shape[1], log_term.shape[1]
+    C = log_term.shape[1]
     P, B, Mk = wins.shape
     check_lanes(log_payload.shape[1], Mk, log_term.shape[0], ec_consts)
-    T = counts.shape[0]
-    if my_row >= 0:
-        s0 = int(vecs[_VL, prm.leader]) % C
-        prev0 = prev.reshape(L, 1)
-    else:
-        s0, prev0 = start_slot_and_prev(vecs, log_term, prm.leader, C, L)
-    turnover = False
-    if turnover_ok:
-        params, masks = params_and_masks(prm, alive, slow, member, my_row)
-        feasible, accept0 = launch_feasibility(
-            vecs, masks, params, prev0, counts, s0, br, B, L, prm.leader,
-            prm.lterm, prm.rfloor, prm.fpt)
-        turnover = bool(feasible) and bool(accept0.all())
-    work[WK_PLAN] = int(turnover)
-    work[WK_S0] = int(s0)
+    turnover, prev0 = _decide(vecs, log_term, counts, alive, slow, member,
+                              prm, br, turnover_ok, B, work, my_row, prev)
     if turnover:
         return
     wins = _full_lanes(wins, ec_consts, log_term, log_payload)
     v = vecs.tolist()
     masks = _masks(alive, slow, member)
-    cnts = counts.tolist()
     prev_ts = prev0[:, 0].tolist()
-    for t in range(T):
-        match, scal, prev_ts = _plain_step(
-            v, log_payload, log_term, wins[t % P], cnts[t], masks, prm, C,
+    for t, cnt in enumerate(counts.tolist()):
+        _, match, scal, prev_ts = _plain_step(
+            v, log_payload, log_term, wins[t % P], cnt, masks, prm, C, B,
             my_row, prev_ts)
     work[WK_RAN3] += 1
     vecs.copy_(torch.tensor(v, dtype=torch.int32))
     out.copy_(torch.tensor(match + scal, dtype=torch.int32))
 
 
+def pipeline_plan_plain(vecs, log_term, counts, B, alive, slow, member,
+                        prm: StepParams, br, turnover_ok, out, work,
+                        my_row=-1, prev=None):
+    """The plain version of K3's plan: the turnover decision (as
+    ``pipeline_flight_plain``) or the T steps' scalar core and term-ring
+    merge, in place on ``vecs`` and ``log_term``, ``out`` = match[L] |
+    scal[5]. Returns the per-step record int32[T, 4] (``REC_*``), or None
+    when the flight belongs to K4."""
+    C = log_term.shape[1]
+    turnover, prev0 = _decide(vecs, log_term, counts, alive, slow, member,
+                              prm, br, turnover_ok, B, work, my_row, prev)
+    if turnover:
+        return None
+    v = vecs.tolist()
+    masks = _masks(alive, slow, member)
+    prev_ts = prev0[:, 0].tolist()
+    record, pos = [], 0
+    for cnt in counts.tolist():
+        pl, match, scal, prev_ts = _plain_step(
+            v, None, log_term, None, cnt, masks, prm, C, B, my_row, prev_ts)
+        acc = sum(1 << l for l, a in enumerate(pl.acc) if a)
+        record.append([pl.s, pl.count, acc - (1 << 32) * (acc >> 31), pos])
+        pos += pl.count
+    work[WK_RAN3] += 1
+    vecs.copy_(torch.tensor(v, dtype=torch.int32))
+    out.copy_(torch.tensor(match + scal, dtype=torch.int32))
+    return torch.tensor(record, dtype=torch.int32, device=vecs.device)
+
+
+def pipeline_write_plain(log_payload, log_term, wins, record, ec_consts=None,
+                         my_row=-1) -> None:
+    """The plain version of K3's writer: every payload destination (slot,
+    row) takes the window row of the LAST step of ``record`` whose window
+    covers the slot and whose accept mask holds the row; a destination no
+    such step covers keeps its words. Nothing to do for a flight that went
+    to K4 (``record`` None)."""
+    if record is None:
+        return
+    C, M = log_payload.shape
+    check_lanes(M, wins.shape[2], log_term.shape[0], ec_consts)
+    wins = _full_lanes(wins, ec_consts, log_term, log_payload)
+    P = wins.shape[0]
+    rows = [my_row] if my_row >= 0 else range(log_term.shape[0])
+    W = M // len(rows)
+    rec = record.to(device=log_payload.device, dtype=torch.int64)
+    first, acc = rec[:, REC_POS].contiguous(), rec[:, REC_ACC]
+    s0 = int(rec[0, REC_S])
+    N = int(rec[-1, REC_POS] + rec[-1, REC_N])
+    k = torch.arange(min(N, C), device=log_payload.device)
+    for i, l in enumerate(rows):
+        src = torch.full_like(k, -1)          # the source flight position
+        for lap in range((N - 1) // C, -1, -1):
+            kk = k + lap * C
+            t = torch.searchsorted(first, kk, right=True) - 1
+            take = (kk < N) & (src < 0) & (((acc[t] >> l) & 1) == 1)
+            src = torch.where(take, kk, src)
+        hit = src >= 0
+        t = torch.searchsorted(first, src[hit], right=True) - 1
+        lanes = wins[t % P, src[hit] - first[t]]
+        if my_row < 0:
+            lanes = lanes[:, l * W:(l + 1) * W]
+        log_payload[(s0 + k[hit]) % C, i * W:(i + 1) * W] = lanes
+
+
 def turnover_flight_plain(vecs, log_payload, log_term, wins, T, prm,
-                          out, work, ec_consts=None) -> None:
+                          out, work, ec_consts=None, s0=None) -> None:
     """The plain version of K4: step t writes every lane of slots
     [s0 + t*B, s0 + (t+1)*B) mod C (later steps overwrite earlier laps),
     every term slot becomes the leader's term, and the bookkeeping is the
     closed form of ``step_pallas.py:1161-1186``. The same for K4·mesh,
-    whose term ring is the one local row."""
+    whose term ring is the one local row and whose start slot ``s0`` the
+    caller gives; otherwise the plan's decision and start slot in
+    ``work``."""
     L, C = vecs.shape[1], log_term.shape[1]
     check_lanes(log_payload.shape[1], wins.shape[2], log_term.shape[0],
                 ec_consts)
-    if int(work[WK_PLAN]) == 0:
-        return
+    if s0 is None:
+        if int(work[WK_PLAN]) == 0:
+            return
+        s0 = int(work[WK_S0])
     wins = _full_lanes(wins, ec_consts, log_term, log_payload)
     P, B, _ = wins.shape
-    s0 = int(work[WK_S0])
     j = torch.arange(B, device=log_payload.device, dtype=torch.int64)
     for t in range(T):
         log_payload.index_copy_(0, (s0 + t * B + j) % C, wins[t % P])
@@ -575,25 +690,40 @@ def steady_step(vecs, log_payload, log_term, win, count, alive, slow,
     LAUNCHES[key] += 1
 
 
+def _lane_width(ec, M, L, W, *tensors) -> int:
+    """The kernels' vector width: 16-byte lane vectors (4) or single
+    words; in the parity mode, word pairs (2) or single words."""
+    if ec is not None:
+        return 2 if vec2_ok(W, *tensors) else 1
+    return 4 if vec4_ok(M, L, *tensors) else 1
+
+
+def _check_index_range(C, M, wins):
+    if C * M >= 2 ** 31 or wins.numel() >= 2 ** 31:
+        raise ValueError("the flight kernels index the rings and windows "
+                         "in 32 bits")
+
+
 def pipeline_flight(vecs, log_payload, log_term, wins, counts, alive, slow,
                     member, prm: StepParams, br: int, turnover_ok: bool,
-                    out, ec_consts=None, my_row=-1, prev=None) -> int:
+                    out, ec_consts=None, my_row=-1, prev=None):
     """K3: a T-step flight over ``wins`` [P, B, M] (step t reads
-    wins[t % P]) and device ``counts`` [T], in place. With ``turnover_ok``
-    it first decides on the device whether the flight belongs to K4 and,
-    if so, publishes that and does nothing else. Writes ``out`` =
-    match[L] | scal[5] when it runs the flight. With ``my_row >= 0``,
-    K3·mesh, ``prev`` the gathered prev column [L] (``steady_step``).
-    Returns the kernel's grid size in blocks (0 for the plain version)."""
+    wins[t % P]) and device ``counts`` [T], in place: the plan kernel (one
+    block) and the writer behind it. With ``turnover_ok`` the plan first
+    decides on the device whether the flight belongs to K4 and, if so,
+    publishes that and does nothing else. Writes ``out`` = match[L] |
+    scal[5] when it runs the flight. With ``my_row >= 0``, K3·mesh,
+    ``prev`` the gathered prev column [L] (``steady_step``); the mesh
+    decides turnover on the host, so ``turnover_ok`` must be False there.
+    Returns the plan's per-step record (``plan_record``, valid until the
+    next flight) on the card, None for the plain version."""
     key = _mode(vecs, log_term, ec_consts, my_row, prev, "pipeline_flight")
     work = workspace(vecs.device)
     if not log_payload.is_cuda:
         pipeline_flight_plain(vecs, log_payload, log_term, wins, counts,
                               alive, slow, member, prm, br, turnover_ok,
                               out, work, ec_consts, my_row, prev)
-        return 0
-    import ctypes
-
+        return None
     L, C = vecs.shape[1], log_term.shape[1]
     M = log_payload.shape[1]
     P, B, Mk = wins.shape
@@ -601,46 +731,58 @@ def pipeline_flight(vecs, log_payload, log_term, wins, counts, alive, slow,
     check_lanes(M, Mk, log_term.shape[0], ec_consts)
     _check_rings(vecs, log_payload, log_term, L)
     _check_masks(vecs, alive, slow, member)
+    _check_index_range(C, M, wins)
+    if T < 1 or (my_row >= 0 and turnover_ok):
+        raise ValueError("a flight needs at least one step, and K3·mesh "
+                         "runs with turnover_ok=False (the mesh takes the "
+                         "turnover decision on the host)")
     ec = None if ec_consts is None else _ec_table(ec_consts, vecs.device)
-    grid = ctypes.c_int(0)
+    rec = plan_record(vecs.device, T)
+    W = M if my_row >= 0 else M // L
     rc = cuda_build.lib("steady").rt_steady_pipeline(
         vecs.data_ptr(), log_payload.data_ptr(), log_term.data_ptr(),
         wins.data_ptr(), counts.data_ptr(), T, P, alive.data_ptr(),
         slow.data_ptr(), _ptr(member), *prm, L, C, B, M, Mk, int(br),
         int(turnover_ok), out.data_ptr(), work.data_ptr(), _ptr(ec),
-        int(ec is None and vec4_ok(M, log_term.shape[0], log_payload, wins)),
-        int(my_row), _ptr(prev), cuda_build.stream_of(vecs),
-        ctypes.byref(grid))
+        _lane_width(ec, M, log_term.shape[0], W, log_payload, wins),
+        int(my_row), _ptr(prev), rec.data_ptr(), cuda_build.stream_of(vecs))
     cuda_build.check("steady", rc, key)
     LAUNCHES[key] += 1
-    return grid.value
+    return rec
 
 
 def turnover_flight(vecs, log_payload, log_term, wins, T: int,
-                    prm: StepParams, out, ec_consts=None,
-                    my_row=-1) -> None:
-    """K4: the write-only turnover flight. Runs only behind a
-    ``pipeline_flight`` launched with ``turnover_ok`` on the same stream,
-    and does its work only when that launch chose it. With ``my_row >=
-    0``, K4·mesh: one payload row and one term row."""
+                    prm: StepParams, out, ec_consts=None, my_row=-1,
+                    s0=None) -> None:
+    """K4: the write-only turnover flight. On the resident layout it runs
+    only behind a ``pipeline_flight`` launched with ``turnover_ok`` on the
+    same stream, and does its work only when that launch chose it. With
+    ``my_row >= 0``, K4·mesh: one payload row and one term row, from the
+    start slot ``s0`` that the mesh's host decision gives."""
     key = _mode(vecs, log_term, ec_consts, my_row, None, "turnover_flight")
+    if (my_row >= 0) != (s0 is not None):
+        raise ValueError("K4·mesh takes its start slot from the caller; "
+                         "the resident K4 reads the plan's")
     work = workspace(vecs.device)
     if not log_payload.is_cuda:
         turnover_flight_plain(vecs, log_payload, log_term, wins, T, prm,
-                              out, work, ec_consts)
+                              out, work, ec_consts, s0)
         return
     L, C = vecs.shape[1], log_term.shape[1]
     M = log_payload.shape[1]
     P, B, Mk = wins.shape
     check_lanes(M, Mk, log_term.shape[0], ec_consts)
     _check_rings(vecs, log_payload, log_term, L)
+    _check_index_range(C, M, wins)
     ec = None if ec_consts is None else _ec_table(ec_consts, vecs.device)
+    W = M if my_row >= 0 else M // L
     rc = cuda_build.lib("steady").rt_turnover(
         vecs.data_ptr(), log_payload.data_ptr(), log_term.data_ptr(),
         wins.data_ptr(), T, P, prm.lterm, prm.tfloor, L, C, B, M, Mk,
         out.data_ptr(), work.data_ptr(), _ptr(ec),
-        int(ec is None and vec4_ok(M, log_term.shape[0], log_payload, wins)),
-        int(my_row), cuda_build.stream_of(vecs))
+        _lane_width(ec, M, log_term.shape[0], W, log_payload, wins),
+        int(my_row), -1 if s0 is None else int(s0) % C,
+        cuda_build.stream_of(vecs))
     cuda_build.check("steady", rc, key)
     LAUNCHES[key] += 1
 

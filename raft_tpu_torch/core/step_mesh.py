@@ -153,6 +153,26 @@ def mesh_scan_replicate(comm, state: ReplicaState, payloads, counts, leader,
     return _unpack_local(comm, vecs, state), mk_info(outs, comm.n_replicas)
 
 
+def flight_branch(vecs, prev, counts, alive, slow, member, prm, B: int,
+                  C: int, rank: int):
+    """The regime of a mesh flight, decided on host copies of the gathered
+    plane ``vecs`` (6, R), prev column [R], ``counts`` [T] and masks:
+    "turnover" (T·B >= C, feasible, every row accepting: K4·mesh),
+    "flight" (feasible: K3·mesh) or "scan" (K2·mesh); and the start slot.
+    Every rank decides alike on the same plane."""
+    R = vecs.shape[1]
+    params, masks = params_and_masks(prm, alive, slow, member, rank)
+    s0 = int(vecs[_VL, prm.leader]) % C
+    feasible, accept0 = launch_feasibility(
+        vecs, masks, params, prev[:, None], counts, s0, pick_br(B, C), B, R,
+        prm.leader, prm.lterm, prm.rfloor, prm.fpt)
+    if not bool(feasible):
+        return "scan", s0
+    if counts.shape[0] * B >= C and bool(accept0.all()):
+        return "turnover", s0
+    return "flight", s0
+
+
 def mesh_pipeline(comm, state: ReplicaState, wins, counts, leader,
                   leader_term, alive, slow, floor_prev_term, repair_floor,
                   member, term_floor, commit_quorum=None, ec=False):
@@ -160,10 +180,11 @@ def mesh_pipeline(comm, state: ReplicaState, wins, counts, leader,
     wins[t % P]) in the JAX package's three regimes: the write-only
     turnover (K4·mesh) when T·B >= C, the flight is feasible and every
     row accepts; otherwise the flight (K3·mesh) when it is feasible; else
-    the per-step scan (K2·mesh). Feasibility is ``launch_feasibility`` on
-    the gathered plane, so every rank takes the same branch; K3·mesh
-    makes the turnover decision on the device from the same column.
-    Returns (state, the final step's RepInfo). Consumes ``state``."""
+    the per-step scan (K2·mesh). All three are decided here
+    (``flight_branch``, on the host copy of the gathered plane), so every
+    rank takes the same branch and a turnover flight launches K4·mesh
+    alone. Returns (state, the final step's RepInfo). Consumes
+    ``state``."""
     global LAST_DISPATCH
     LAST_DISPATCH = "pipeline"
     R = comm.n_replicas
@@ -179,27 +200,21 @@ def mesh_pipeline(comm, state: ReplicaState, wins, counts, leader,
     T = counts.shape[0]
     if T < 1:
         raise ValueError("a flight needs at least one step")
-    br = pick_br(B, C)
-    # the launch-feasibility predicate on the host copy of the plane
     masks_h = torch.stack([alive, slow] + ([] if member is None
                                            else [member])).cpu()
-    params, masks = params_and_masks(
-        prm, masks_h[0], masks_h[1], None if member is None else masks_h[2],
-        comm.rank)
-    feasible, _ = launch_feasibility(
-        vecs_h, masks, params, prev_h[:, None], counts_h,
-        int(vecs_h[_VL, prm.leader]) % C, br, B, R, prm.leader, prm.lterm,
-        prm.rfloor, prm.fpt)
-    if not bool(feasible):
+    branch, s0 = flight_branch(
+        vecs_h, prev_h, counts_h, masks_h[0], masks_h[1],
+        None if member is None else masks_h[2], prm, B, C, comm.rank)
+    if branch == "scan":
         outs = _scan(comm, vecs, prev, state, lambda t: wins[t % P], counts,
                      alive, slow, member, prm)
         return _unpack_local(comm, vecs, state), mk_info(outs[-1], R)
-    turnover_ok = T * B >= C
     out = torch.empty(R + 5, dtype=torch.int32, device=dev)
-    pipeline_flight(vecs, state.log_payload, state.log_term, wins, counts,
-                    alive, slow, member, prm, br, turnover_ok, out,
-                    my_row=comm.rank, prev=prev)
-    if turnover_ok:
+    if branch == "turnover":
         turnover_flight(vecs, state.log_payload, state.log_term, wins, T,
-                        prm, out, my_row=comm.rank)
+                        prm, out, my_row=comm.rank, s0=s0)
+    else:
+        pipeline_flight(vecs, state.log_payload, state.log_term, wins,
+                        counts, alive, slow, member, prm, pick_br(B, C),
+                        False, out, my_row=comm.rank, prev=prev)
     return _unpack_local(comm, vecs, state), mk_info(out, R)

@@ -1,10 +1,10 @@
 // Shared pieces of the port's Hopper kernels (sm_90a): integer helpers,
 // the packed state-vector layout, and the steady step's scalar core
 // (prologue, window merge with its optional in-kernel RS parity, epilogue)
-// used by both the per-step kernel and the persistent pipeline kernel in
-// steady.cu, in the resident layout and in the mesh-local one (LOCAL: the
-// scalar core runs over all L = R rows of the gathered plane while the
-// rings hold row p.my only).
+// on one thread, as the per-step kernel K2 in steady.cu runs it, in the
+// resident layout and in the mesh-local one (LOCAL: the scalar core runs
+// over all L = R rows of the gathered plane while the rings hold row p.my
+// only). The flight's plan kernel runs the same core on a warp.
 //
 // Index arithmetic follows the JAX package: % floors there and truncates
 // in C++, so every modular expression that can go negative uses floor_mod.
@@ -41,7 +41,7 @@ struct SteadyParams {
                  // the rings hold all L rows
 };
 
-// What a step's prologue derives; every block computes the same plan.
+// What a step's prologue derives; every block of K2 computes the same plan.
 struct StepPlan {
   int count, ws, s, lcur;
   unsigned acc, heard;
@@ -63,10 +63,9 @@ __device__ inline int quorum_of(const uint8_t* member, const SteadyParams& p) {
 
 // Frontier accounting and per-row masks (step_pallas.py _steady_kernel
 // prologue). ``vec`` is the (6, L) block at the start of the step; the
-// prev-term column is read from the term ring through L2 (another block
-// may have written it during the previous step of a persistent flight),
-// or from ``prev_col`` [L] when it is given (the mesh-local mode, whose
-// ring holds one row).
+// prev-term column is read from the term ring through L2, or from
+// ``prev_col`` [L] when it is given (the mesh-local mode, whose ring holds
+// one row).
 __device__ inline void step_prologue(const int* vec, int cnt_in,
                                      const int* log_term,
                                      const int* prev_col,

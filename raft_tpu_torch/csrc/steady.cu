@@ -7,84 +7,114 @@
 //    term adoption and the k-th-order quorum commit behind the term_floor
 //    gate.
 // K3 replaces step_pallas.py:1045 _run_pipeline (pallas_call :1095, body
-//    _steady_pipeline_kernel :664): T steady steps in one launch.
+//    _steady_pipeline_kernel :664): T steady steps as one flight.
 // K4 replaces step_pallas.py:1189 _run_turnover (pallas_call :1221, body
 //    _turnover_kernel :1130): the write-only all-accept flight that turns
 //    the whole ring over (T*B >= C).
 // K2-4·ec, the in-kernel RS parity mode of all three (step_pallas.py:93
 //    _encode_parity_lanes and :109 _mul_const_packed, reached at :231-237,
 //    :766-767 and :1152-1153): the windows carry only the k data-lane
-//    blocks (Mk = k*W lanes) and the merge computes the m parity lane
-//    blocks itself. A thread on a parity lane reads the k data words at its
-//    own word offset from the WINDOW (never from the ring) and writes their
-//    GF(2^8) combination (gf_packed.cuh); K4's thread, which owns a
-//    destination slot, does the same for the window row it takes. The
-//    [m][k][8] constant table lives in shared memory. Parity lanes are
-//    single words, so this mode always runs the V = 1 instantiation.
-//
-// Bound: bytes. A step reads its window (count*Mk*4 B), writes the
-// accepted payload lanes, and reads and writes count*L term slots; the
-// scalar core is O(L^2) integer operations. K4 writes the whole payload
-// and term rings once and reads the T*B window rows that survive.
-//
-// Design. The TPU kernels compute the prologue in grid step 0 and the
-// epilogue in the last grid step, carrying masks and conflict bits through
-// SMEM from step to step. CUDA blocks run in no order, so:
-//  - every block recomputes the prologue (L <= 32 scalars) itself;
-//  - each thread owns (window row, 16-byte lane vector) pairs and writes
-//    slot (s + jj) mod C directly — the payload ring is never read;
-//  - conflict bits meet in one 32-bit word through atomicOr;
-//  - K2 runs its epilogue in the last block to finish (threadfence + an
-//    atomic ticket that the last block resets), and derives the window
-//    start slot and prev-term column from the state itself, so a scan is
-//    T back-to-back launches with no host work in between;
-//  - K3 is a persistent cooperative kernel (cudaLaunchCooperativeKernel,
-//    grid no larger than the co-resident block count). Each block keeps
-//    the (6, L) state block in shared memory and runs the same scalar
-//    core; one grid-wide sync per step orders the window writes before
-//    the epilogue and the next step's prev-term read. Every step runs at
-//    its true start slot, so K3 computes exactly the per-step scan for
-//    every input: the TPU's affine-geometry restriction does not apply.
-//  - K3 first evaluates the launch-feasibility predicate of
-//    step_pallas.py:889 on the device. When the flight qualifies for the
-//    turnover branch, K3 publishes that decision and exits untouched; K4,
-//    launched right behind it on the same stream, reads the decision and
-//    either writes the flight or exits. No host read picks the branch.
-//
+//    blocks (Mk = k*W lanes) and the writer computes the m parity lane
+//    blocks itself, from the k data words at its own word offset of the
+//    WINDOW row (never from the ring), as their GF(2^8) combination
+//    (gf_packed.cuh). The [m][k][8] constant table lives in shared memory.
 // K2·mesh, K3·mesh, K4·mesh (LOCAL = true) replace the local=True
 //    branches of the same three kernels (step_pallas.py:217, :245, :268,
 //    :292, :361 in _steady_kernel; :751, :775, :816 in
 //    _steady_pipeline_kernel; :1155 in _turnover_kernel), driven by
 //    core/step_mesh.py: one replica row per rank. The (6, R) block is the
 //    plane gathered from every rank and the scalar core runs over all R
-//    rows of it, as above; the rings hold the rank's own row (payload
-//    [C, W], terms [1, C], p.my the row). The merge writes that row where
-//    it accepts and reads no old term; the §5.3 conflict bit and the next
-//    prev-term column are closed forms (the row's tail is the window end;
-//    the next prev term is lterm for accepting rows, -1 for the rest),
-//    exact under the engine's steady-program invariants. The prev column
-//    comes in as an operand: K2·mesh writes the next one to
-//    out[L+5 : 2L+5] for the next launch of a scan, K3·mesh carries it in
-//    shared memory beside the state block and decides feasibility on the
-//    gathered column, so every rank takes the same branch. K4·mesh writes
-//    C*W payload words and one term row. Bound: bytes, as above, with the
-//    traffic of one row (a step moves count*W*4 B in and out and count
-//    term words).
-#include <cooperative_groups.h>
+//    rows of it; the rings hold the rank's own row (payload [C, W], terms
+//    [1, C], p.my the row). The merge writes that row where it accepts and
+//    reads no old term; the §5.3 conflict bit and the next prev-term
+//    column are closed forms (the row's tail is the window end; the next
+//    prev term is lterm for accepting rows, -1 for the rest), exact under
+//    the engine's steady-program invariants. The prev column comes in as
+//    an operand. The mesh decides the turnover branch on the host from the
+//    gathered plane, so K3·mesh never decides and K4·mesh takes its start
+//    slot from the caller.
+//
+// Bound: bytes. A step reads its window (count*Mk*4 B), writes the
+// accepted payload lanes, and reads (only where a row already holds an
+// entry) and writes count*L term slots; the scalar core is O(L^2) integer
+// operations, O(L) on a warp. K4 writes the whole payload and term rings
+// once and reads the T*B window rows that survive.
+//
+// K2. Every block recomputes the prologue (L <= 32 scalars) on thread 0;
+// each thread owns (window row, lane vector) pairs and writes slot
+// (s + jj) mod C directly; conflict bits meet in one 32-bit word through
+// atomicOr; the last block to finish (threadfence + an atomic ticket)
+// runs the epilogue and derives the next start slot and prev-term column,
+// so a scan is T back-to-back launches with no host work in between.
+//
+// K3 is two ordinary launches on one stream, a plan and a writer. Within a
+// flight nothing reads the payload ring: only the term ring and the (6, L)
+// state block carry from one step to the next.
+//  - The plan is ONE block. Warp 0 first takes the turnover decision
+//    (step_pallas.py:889's launch-feasibility predicate and every row
+//    accepting; resident layout only). If it takes it, it publishes the
+//    decision and the start slot in the workspace and exits; K4, launched
+//    behind it, reads them. Otherwise warp 0 runs the T steps' scalar core
+//    with lane l = row l, the (6, L) block, the masks and the prev-term
+//    column in registers: ballots for the accept and heard masks, shuffles
+//    and a warp max for the k-th-order quorum commit. The block's threads
+//    share the term-ring merge: they write lterm into the accepting rows'
+//    window slots, and read an old term only where the row already holds
+//    an entry (index <= last[l]) for the §5.3 compare; the conflict bits
+//    meet in shared memory. The next step's prev term of a row is the term
+//    its merge left at the window's last slot — lterm where the row
+//    accepted, else the old term that the compare read (a row that holds
+//    no entry there cannot pass the next prev check). In steady state no
+//    row holds an entry inside the window, so nothing is read: warp 0 then
+//    plans up to 64 steps ahead of the block, which writes their terms as
+//    one batch (all the same value, so in any order); a step that must
+//    read is merged by the block after the batch. Only __syncthreads
+//    orders the steps. The plan writes a per-step record {start slot,
+//    count, accept mask, first flight position} (windows are
+//    consecutive: step t covers flight positions [pos_t, pos_t +
+//    count_t), slot (s_0 + position) mod C), the final (6, L) block and
+//    out.
+//  - The writer is an ordinary grid behind it, two 512-thread blocks an
+//    SM: few blocks, so that a writer that finds the flight handed to K4
+//    exits cheaply. A thread owns destinations (a slot and a lane vector;
+//    a word pair of every shard in EC mode), four a pass with their loads
+//    in flight together, and stores the window lane of the LAST step
+//    whose window covers the slot and whose accept mask holds the lane's
+//    row: it walks the slot's flight positions from the last lap down and
+//    looks each position's step up in the record (at once for full
+//    windows, else by a binary search). An untouched destination keeps
+//    its word. No atomics, no grid sync, 32-bit index arithmetic; each
+//    payload word is written at most once a flight.
+//  Every step runs at its true start slot, so K3 computes exactly the
+//  per-step scan for every input: the TPU's affine-geometry restriction
+//  does not apply.
+//
+// K4 writes every slot once from the last step of the flight that covers
+// it (grid-stride over C*M/V); K4·ec does it per (slot, word pair) with
+// the source window row worked out once per slot, the k data words loaded
+// once and the m parity words computed in registers (ec_row_write).
+#include <type_traits>
 
 #include "raft_common.cuh"
 
-namespace cg = cooperative_groups;
-
-// work[] layout shared by the three kernels (int32 words, zero on entry
-// to K2; K3 initialises its own words). WK_RAN3 / WK_RAN4 count the
-// flights K3 and K4 actually executed (a launch that finds the other
-// kernel chosen exits without work), so a caller can see which branch
-// its flights took without a host read per flight.
+// work[] layout shared by the kernels (int32 words, zero on entry to K2).
+// WK_RAN3 / WK_RAN4 count the flights K3 and K4 actually executed (a
+// launch that finds the other kernel chosen exits without work), so a
+// caller can see which branch its flights took without a host read per
+// flight.
 enum {
-  WK_MM = 0, WK_TICKET = 1, WK_MM3 = 2, WK_PLAN = 5, WK_S0 = 6,
-  WK_RAN3 = 7, WK_RAN4 = 8, WK_N = 9
+  WK_MM = 0, WK_TICKET = 1, WK_PLAN = 5, WK_S0 = 6, WK_RAN3 = 7,
+  WK_RAN4 = 8, WK_N = 9
 };
+
+static const int kThreads = 256;
+// the plan block: warp 0 runs the scalar core, all of it the term merge
+static const int kPlanThreads = 512;
+// the writer's grid: this many blocks an SM of kWriteThreads (each thread
+// takes kUnroll destinations a pass), few blocks so that a writer that
+// finds the flight handed to K4 exits cheaply
+static const int kWriteBlocksPerSM = 2;
+static const int kWriteThreads = 512;
 
 template <int V, bool EC, bool LOCAL>
 __global__ void steady_step_kernel(int* vec, int* buf_p, int* log_term,
@@ -135,131 +165,509 @@ __global__ void steady_step_kernel(int* vec, int* buf_p, int* log_term,
   }
 }
 
-// step_pallas.py:889 _launch_feasibility, restricted to what the
-// dispatch needs: whether the flight is feasible AND every row accepts.
-// ``prev`` [L] is the gathered prev-term column of the mesh-local mode;
-// null reads every row's prev term from the ring.
-__device__ bool flight_all_accept(const int* vec, const int* counts, int T,
-                                  const int* log_term, const int* prev,
-                                  const uint8_t* alive,
-                                  const uint8_t* slow, const uint8_t* member,
-                                  const SteadyParams& p, int br, int* s0) {
-  const int L = p.L, C = p.C;
-  const int last0 = vec[VL * L + p.leader];
-  const int commit0 = vec[VC * L + p.leader];
-  const int term0 = vec[VT * L + p.leader];
-  const bool lcur = p.lterm >= 1 && term0 <= p.lterm;
-  const int ws0 = last0 + 1;
-  *s0 = floor_mod(ws0 - 1, C);
-  const int prev_slot = floor_mod(max(ws0 - 1, 1) - 1, C);
-  int prev_term = (ws0 - 1 < p.rfloor)
-      ? p.fpt
-      : (prev ? prev[p.leader]
-              : __ldcg(log_term + (size_t)p.leader * C + prev_slot));
-  if (ws0 == 1) prev_term = 0;
-  int n_acc = 0;
-  bool all = true;
-  for (int l = 0; l < L; ++l) {
-    const bool ack = ackm_of(alive, member, l);
-    const bool a =
-        (alive[l] && !slow[l] && ack && p.lterm >= vec[VT * L + l] &&
-         vec[VL * L + l] == last0 &&
-         (ws0 == 1 ||
-          (prev ? prev[l] : __ldcg(log_term + (size_t)l * C + prev_slot)) ==
-              prev_term)) ||
-        (l == p.leader && ack);
-    n_acc += a;
-    all = all && a;
-  }
-  bool full = true;
-  for (int t = 0; t < T; ++t) full = full && counts[t] == p.B;
-  const bool feasible = lcur && commit0 == last0 && (*s0 % br) == 0 &&
-                        full && n_acc >= quorum_of(member, p);
-  return feasible && all;
+// ------------------------------------------------------------- K3: plan
+// Warp 0's view of the flight: lane l holds row l of the (6, L) block, its
+// masks and its prev term; a step's prologue results.
+struct LaneRow {
+  int vt, vv, vl, vc, vmi, vmt, prev;
+  bool al, sl, ack;
+};
+struct LaneStep {
+  int count, ws, s, m0;
+  unsigned acc, heard;
+  bool lcur;
+};
+
+// The step's prologue on warp 0 (raft_common.cuh step_prologue).
+__device__ __forceinline__ void lane_prologue(const LaneRow& r, int cnt_in,
+                                              const SteadyParams& p,
+                                              int lane, LaneStep& st) {
+  const unsigned full = 0xffffffffu;
+  const bool legit = p.lterm >= 1;
+  const int last0 = __shfl_sync(full, r.vl, p.leader);
+  const int commit0 = __shfl_sync(full, r.vc, p.leader);
+  const int term0 = __shfl_sync(full, r.vt, p.leader);
+  const int lead_prev = __shfl_sync(full, r.prev, p.leader);
+  st.lcur = legit && term0 <= p.lterm;
+  const int room = p.C - (last0 - commit0);
+  const int clipped = min(max(cnt_in, 0), p.B);
+  st.count = st.lcur ? min(clipped, max(room, 0)) : 0;
+  st.ws = last0 + 1;
+  st.s = floor_mod(st.ws - 1, p.C);
+  int prev_term = (st.ws - 1 < p.rfloor) ? p.fpt : lead_prev;
+  if (st.ws == 1) prev_term = 0;
+  const bool has_prev =
+      st.ws == 1 || (r.vl >= st.ws - 1 && r.prev == prev_term);
+  const bool heard = lane < p.L && r.al && legit && p.lterm >= r.vt;
+  const bool ingest = lane == p.leader && st.lcur;
+  st.m0 = (r.vmt == p.lterm) ? r.vmi : 0;
+  if (ingest) st.m0 = last0 + st.count;
+  st.acc = __ballot_sync(full, (heard && !r.sl && has_prev) || ingest);
+  st.heard = __ballot_sync(full, heard);
 }
 
-template <int V, bool EC, bool LOCAL>
-__global__ void steady_pipeline_kernel(int* vec_g, int* buf_p, int* log_term,
-                                       const int* __restrict__ wins,
-                                       const int* counts, int T, int P,
-                                       const uint8_t* alive,
-                                       const uint8_t* slow,
-                                       const uint8_t* member, SteadyParams p,
-                                       int br, int turnover_ok, int* out,
-                                       unsigned* work, const uint8_t* ec,
-                                       const int* prev0) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ int vec[6 * RT_LMAX];
-  __shared__ int prevc[RT_LMAX];  // LOCAL: the carried prev-term column
-  __shared__ StepPlan pl;
-  __shared__ int match[RT_LMAX];
-  __shared__ int scal[5];
-  __shared__ int turnover;
-  __shared__ uint8_t ec_sh[EC ? RT_EC_BYTES : 1];
-  const int L = p.L;
-  if (EC) load_ec_table(ec_sh, ec, p);
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < 6 * L; ++i) vec[i] = vec_g[i];
-    if (LOCAL)
-      for (int l = 0; l < L; ++l) prevc[l] = prev0[l];
-    int s0 = 0;
-    turnover = turnover_ok &&
-               flight_all_accept(vec, counts, T, log_term,
-                                 LOCAL ? prevc : nullptr, alive, slow,
-                                 member, p, br, &s0);
-    if (blockIdx.x == 0) {
-      work[WK_MM3] = work[WK_MM3 + 1] = work[WK_MM3 + 2] = 0;
+// The step's epilogue on warp 0 (raft_common.cuh step_epilogue): the state
+// advance, the k-th-order quorum commit as shuffles and a warp max, term
+// adoption. Returns the row's match; g and max_term come out uniform.
+__device__ __forceinline__ int lane_epilogue(LaneRow& r, const LaneStep& st,
+                                             unsigned mm, int q,
+                                             const SteadyParams& p, int lane,
+                                             int& g, int& max_term) {
+  const unsigned full = 0xffffffffu;
+  const bool row = lane < p.L;
+  const bool legit = p.lterm >= 1;
+  const bool a = (st.acc >> lane) & 1u;
+  const int we = st.ws + st.count - 1;
+  if (p.my >= 0)  // LOCAL: the tail is the window end (no conflict bit)
+    r.vl = (a && st.count > 0) ? we : r.vl;
+  else if (a)
+    r.vl = ((mm >> lane) & 1u) ? max(we, st.ws - 1) : max(r.vl, we);
+  const int m1 = a ? max(st.m0, we) : st.m0;
+  const int match = r.ack ? m1 : 0;
+  int n_ge = 0;
+  for (int j = 0; j < p.L; ++j)
+    n_ge += __shfl_sync(full, match, j) >= match;
+  const int cand =
+      max(0, __reduce_max_sync(full, (row && n_ge >= q) ? match : 0));
+  const bool commit_ok = legit && cand >= 1 && cand >= p.tfloor;
+  const int lcommit = __shfl_sync(full, r.vc, p.leader);
+  g = commit_ok ? max(lcommit, cand) : lcommit;
+  const bool heard = (st.heard >> lane) & 1u;
+  const bool ingest = lane == p.leader && st.lcur;
+  const int t1 = heard ? max(r.vt, p.lterm) : r.vt;
+  if (heard && p.lterm > r.vt) r.vv = RT_NO_VOTE;
+  r.vt = t1;
+  const int my_commit = lane == p.leader ? g : min(g, m1);
+  if ((heard && !r.sl) || ingest) r.vc = max(r.vc, my_commit);
+  if (heard || ingest) {
+    r.vmi = m1;
+    r.vmt = p.lterm;
+  }
+  max_term = max(0, __reduce_max_sync(full, (row && r.al) ? t1 : 0));
+  return match;
+}
+
+// Steps planned ahead of their term writes at most (one batch).
+static const int kBatch = 64;
+
+// The plan: warp 0 runs the steps' scalar core; the block writes the
+// terms. A step in which no row holds an entry inside its window reads no
+// old term, so its conflict bits are 0 and a rejecting row's prev term
+// cannot matter (the row cannot pass the next prev check); warp 0 runs
+// such steps ahead without the block, and the block then writes their
+// terms as one batch — every write is lterm into an accepting row's
+// window, so their order does not matter. A step in which some row holds
+// entries there (a stale suffix, a §5.3 conflict) is merged by the whole
+// block after the batch, reading the old terms as K2 does.
+template <bool LOCAL>
+__global__ void __launch_bounds__(kPlanThreads)
+    flight_plan_kernel(int* vec_g, int* log_term,
+                       const int* __restrict__ counts, int T,
+                       const uint8_t* alive, const uint8_t* slow,
+                       const uint8_t* member, SteadyParams p, int br,
+                       int turnover_ok, int* out, unsigned* work, int4* rec,
+                       const int* prev0) {
+  __shared__ int4 sh_rec[kBatch];   // the batch's records
+  __shared__ int sh_last[RT_LMAX];  // every row's last index at the step
+  __shared__ int sh_old[RT_LMAX];   // old term at the window's last slot
+  __shared__ int sh_ws;             // the merged step's window start index
+  __shared__ unsigned sh_mm;        // the merged step's §5.3 conflict bits
+  __shared__ int sh_run, sh_stop, sh_merge;
+  const int L = p.L, C = p.C;
+  const int lane = threadIdx.x & 31;
+  const bool w0 = threadIdx.x < 32;
+  const bool row = lane < L;
+  const unsigned full = 0xffffffffu;
+  LaneRow r = {0, 0, 0, 0, 0, 0, 0, false, false, false};
+  LaneStep st = {0, 0, 0, 0, 0u, 0u, false};
+  int q = 0, pos = 0, match = 0, g = 0, max_term = 0;
+  if (w0) {
+    // the loads that do not depend on the state first
+    bool saturated = true;
+    if (!LOCAL && turnover_ok)
+      for (int i = lane; i < T; i += 32)
+        saturated = saturated && __ldg(counts + i) == p.B;
+    int mem = 0;
+    if (row) {
+      r.al = alive[lane];
+      r.sl = slow[lane];
+      mem = member == nullptr || member[lane];
+      r.vt = vec_g[VT * L + lane];
+      r.vv = vec_g[VV * L + lane];
+      r.vl = vec_g[VL * L + lane];
+      r.vc = vec_g[VC * L + lane];
+      r.vmi = vec_g[VMI * L + lane];
+      r.vmt = vec_g[VMT * L + lane];
+      if (LOCAL) r.prev = prev0[lane];
+    }
+    r.ack = r.al && mem;
+    q = member == nullptr
+            ? p.quorum
+            : max(__popc(__ballot_sync(full, mem)) / 2 + 1, p.ec_floor);
+    const int last0 = __shfl_sync(full, r.vl, p.leader);
+    const int ws0 = last0 + 1;
+    if (!LOCAL && row)
+      r.prev = log_term[(size_t)lane * C + floor_mod(max(ws0 - 1, 1) - 1, C)];
+    int turnover = 0;
+    if (!LOCAL && turnover_ok) {
+      // step_pallas.py:889 _launch_feasibility, and every row accepting
+      const int commit0 = __shfl_sync(full, r.vc, p.leader);
+      const int term0 = __shfl_sync(full, r.vt, p.leader);
+      int prev_term = (ws0 - 1 < p.rfloor)
+                          ? p.fpt
+                          : __shfl_sync(full, r.prev, p.leader);
+      if (ws0 == 1) prev_term = 0;
+      const bool a =
+          row && ((r.al && !r.sl && r.ack && p.lterm >= r.vt &&
+                   r.vl == last0 && (ws0 == 1 || r.prev == prev_term)) ||
+                  (lane == p.leader && r.ack));
+      const unsigned am = __ballot_sync(full, a);
+      const unsigned rows = L == 32 ? full : (1u << L) - 1u;
+      turnover = p.lterm >= 1 && term0 <= p.lterm && commit0 == last0 &&
+                 floor_mod(ws0 - 1, C) % br == 0 &&
+                 __all_sync(full, saturated) && __popc(am) >= q && am == rows;
+    }
+    if (lane == 0) {
       work[WK_PLAN] = turnover;
-      work[WK_S0] = s0;
+      work[WK_S0] = floor_mod(ws0 - 1, C);
+      sh_run = !turnover;
+      sh_mm = 0;
     }
   }
   __syncthreads();
-  grid.sync();
-  if (turnover) return;  // the same decision in every block: K4 runs it
-  const long gtid = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long gstride = (long)gridDim.x * blockDim.x;
-  for (int t = 0; t < T; ++t) {
-    if (threadIdx.x == 0)
-      step_prologue(vec, counts[t], log_term, LOCAL ? prevc : nullptr, alive,
-                    slow, p, pl);
-    __syncthreads();
-    step_merge<V, EC, LOCAL>(buf_p, log_term,
-                             wins + (size_t)(t % P) * p.B * p.Mk, pl,
-                             vec + VL * L, p, ec_sh, &work[WK_MM3 + t % 3],
-                             gtid, gstride);
-    grid.sync();
-    if (threadIdx.x == 0) {
-      const unsigned mm = __ldcg(&work[WK_MM3 + t % 3]);
-      step_epilogue<LOCAL>(vec, pl, mm, alive, slow, member, p, match, scal);
-      if (LOCAL && pl.count > 0)  // step_pallas.py:816-820
-        for (int l = 0; l < L; ++l)
-          prevc[l] = ((pl.acc >> l) & 1u) ? p.lterm : -1;
-      // three conflict words rotate: the one cleared here was last read
-      // before this step's sync and is next written after the next one
-      if (blockIdx.x == 0) work[WK_MM3 + (t + 2) % 3] = 0;
+  if (!sh_run) return;  // the same decision in the whole block: K4 runs it
+  int t = 0;     // warp 0: the next step to plan
+  int from = 0;  // the first step whose terms are not written yet
+  for (;;) {
+    if (w0) {
+      bool merge = false;
+      // the counts of the round's steps, two per lane (kBatch = 64)
+      const int c0 = from + lane < T ? __ldg(counts + from + lane) : 0;
+      const int c1 = from + 32 + lane < T ? __ldg(counts + from + 32 + lane)
+                                          : 0;
+      for (; t < T && t - from < kBatch; ++t) {
+        const int u = t - from;
+        lane_prologue(r, __shfl_sync(full, u < 32 ? c0 : c1, u & 31), p,
+                      lane, st);
+        const int4 rc = make_int4(st.s, st.count, (int)st.acc, pos);
+        if (lane == 0) {
+          rec[t] = rc;
+          sh_rec[t - from] = rc;
+        }
+        pos += st.count;
+        if (!LOCAL && st.count > 0 &&
+            __any_sync(full, row && r.vl >= st.ws)) {
+          if (row) sh_last[lane] = r.vl;
+          if (lane == 0) sh_ws = st.ws;
+          merge = true;  // rows hold entries in the window: read them
+          break;
+        }
+        match = lane_epilogue(r, st, 0u, q, p, lane, g, max_term);
+        if (st.count > 0)
+          r.prev = ((st.acc >> lane) & 1u) ? p.lterm
+                                           : (LOCAL ? -1 : r.prev);
+      }
+      if (lane == 0) {
+        sh_stop = t;
+        sh_merge = merge;
+      }
     }
     __syncthreads();
+    const int stop = sh_stop;
+    const bool merge = sh_merge;
+    // the batch: lterm into every accepting row's window slots of the
+    // steps [from, stop)
+    for (int u = from; u < stop; ++u) {
+      const int4 rc = sh_rec[u - from];
+      const unsigned acc = (unsigned)rc.z;
+      for (int l = 0; l < (LOCAL ? 1 : L); ++l) {
+        if (!((acc >> (LOCAL ? p.my : l)) & 1u)) continue;
+        int* tr = log_term + (size_t)l * C;
+        for (int jj = threadIdx.x; jj < rc.y; jj += blockDim.x) {
+          int d = rc.x + jj;
+          if (d >= C) d -= C;
+          tr[d] = p.lterm;
+        }
+      }
+    }
+    if (merge) {
+      __syncthreads();  // the batch's terms before the step's reads
+      const int4 rc = sh_rec[stop - from];
+      const int n = rc.y, s = rc.x, wsb = sh_ws;
+      const unsigned acc = (unsigned)rc.z;
+      unsigned bits = 0;
+      for (int l = 0; l < L; ++l) {
+        const int last_l = sh_last[l];
+        const bool a = (acc >> l) & 1u;
+        if (!a && wsb > last_l) continue;  // nothing to read or write
+        int* tr = log_term + (size_t)l * C;
+        for (int jj = threadIdx.x; jj < n; jj += blockDim.x) {
+          int d = s + jj;
+          if (d >= C) d -= C;
+          if (wsb + jj <= last_l) {  // an existing entry: §5.3 compare
+            const int old = tr[d];
+            if (old != p.lterm) bits |= 1u << l;
+            if (jj == n - 1) sh_old[l] = old;
+          }
+          if (a) tr[d] = p.lterm;
+        }
+      }
+      bits = __reduce_or_sync(full, bits);
+      if (lane == 0 && bits) atomicOr(&sh_mm, bits);
+      __syncthreads();
+      if (w0) {
+        match = lane_epilogue(r, st, sh_mm, q, p, lane, g, max_term);
+        // the term the merge left at the window's last slot
+        r.prev = ((st.acc >> lane) & 1u) ? p.lterm : sh_old[lane];
+        ++t;
+      }
+    }
+    from = merge ? stop + 1 : stop;
+    if (from >= T) break;
+    __syncthreads();  // the batch is written before warp 0 plans the next
+    if (w0 && lane == 0) sh_mm = 0;
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    work[WK_RAN3] += 1;
-    for (int i = 0; i < 6 * L; ++i) vec_g[i] = vec[i];
-    for (int l = 0; l < L; ++l) out[l] = match[l];
-    for (int i = 0; i < 5; ++i) out[L + i] = scal[i];
+  if (w0) {
+    if (row) {
+      vec_g[VT * L + lane] = r.vt;
+      vec_g[VV * L + lane] = r.vv;
+      vec_g[VL * L + lane] = r.vl;
+      vec_g[VC * L + lane] = r.vc;
+      vec_g[VMI * L + lane] = r.vmi;
+      vec_g[VMT * L + lane] = r.vmt;
+      out[lane] = match;
+    }
+    if (lane == 0) {
+      out[L + 0] = g;
+      out[L + 1] = max_term;
+      out[L + 2] = st.count;
+      out[L + 3] = floor_mod(st.ws - 1 + st.count, C);
+      out[L + 4] = 0;
+      work[WK_RAN3] += 1;
+    }
   }
 }
 
-template <int V, bool EC, bool LOCAL>
+// ----------------------------------------------------------- K3: writer
+// The step whose window holds flight position kk: the last step whose
+// first position is <= kk (a step with count 0 shares its position with
+// the next one, which wins). Full windows give it at once; any other
+// record takes a binary search.
+__device__ __forceinline__ int step_at(const int4* rec, int T, int B,
+                                       int kk) {
+  const int g = min(kk / B, T - 1);
+  if (__ldg(&rec[g].w) <= kk && (g + 1 == T || __ldg(&rec[g + 1].w) > kk))
+    return g;
+  int lo = 0, hi = T - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (__ldg(&rec[mid].w) <= kk)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  return lo;
+}
+
+// Destinations a writer thread takes per pass, their loads in flight
+// together.
+static const int kUnroll = 4;
+
+template <int V, bool LOCAL>
+__global__ void __launch_bounds__(kWriteThreads)
+    flight_write_kernel(int* __restrict__ buf_p,
+                        const int* __restrict__ wins, const int4* rec, int T,
+                        int P, SteadyParams p, const unsigned* work) {
+  typedef typename std::conditional<V == 4, int4, int>::type U;
+  if (__ldcg(&work[WK_PLAN])) return;  // the flight went to K4
+  const int4 last = __ldg(&rec[T - 1]);
+  const int N = last.w + last.y;       // flight positions written
+  const int s0 = __ldg(&rec[0].x);
+  const int C = p.C, MV = p.M / V;
+  const unsigned items = (unsigned)min(N, C) * MV;
+  const unsigned stride = gridDim.x * blockDim.x;
+  for (unsigned e0 = blockIdx.x * blockDim.x + threadIdx.x; e0 < items;
+       e0 += kUnroll * stride) {
+    const U* src[kUnroll];
+    U* dst[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      src[u] = nullptr;
+      const unsigned e = e0 + u * stride;
+      if (e >= items) continue;
+      const int k = e / MV;
+      const int v = e - k * MV;
+      int d = s0 + k;
+      if (d >= C) d -= C;
+      dst[u] = reinterpret_cast<U*>(buf_p + d * p.M) + v;
+      const int l = LOCAL ? p.my : (v * V) / p.W;
+      for (int kk = k + (N - 1 - k) / C * C; kk >= 0; kk -= C) {
+        const int t = step_at(rec, T, p.B, kk);
+        const int4 r = __ldg(&rec[t]);
+        if (((unsigned)r.z >> l) & 1u) {
+          src[u] = reinterpret_cast<const U*>(
+                       wins + ((t % P) * p.B + (kk - r.w)) * p.Mk) + v;
+          break;
+        }
+      }
+    }
+    U val[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (src[u]) val[u] = *src[u];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (src[u]) *dst[u] = val[u];
+  }
+}
+
+// --------------------------------------------- EC rows (K3·ec, K4·ec)
+// The word-pair row routine: lanes (o in units of V2 words) of every shard
+// in ``rows`` of one ring row from one data-lane window row. The k data
+// vectors are loaded once; data rows store them, parity rows their GF(2^8)
+// combination (step_pallas.py:93 _encode_parity_lanes), computed in
+// registers from the [m][k][8] table. Codes wider than RT_KMAX data shards
+// take the rest from memory.
+#define RT_KMAX 8
+template <int V2>
+struct Lanes;
+template <>
+struct Lanes<1> {
+  typedef int T;
+  static __device__ __forceinline__ int mul(int x, const uint8_t* c) {
+    return (int)gf_mul_packed((unsigned)x, c);
+  }
+  static __device__ __forceinline__ int add(int a, int b) { return a ^ b; }
+};
+template <>
+struct Lanes<2> {
+  typedef int2 T;
+  static __device__ __forceinline__ int2 mul(int2 x, const uint8_t* c) {
+    return make_int2((int)gf_mul_packed((unsigned)x.x, c),
+                     (int)gf_mul_packed((unsigned)x.y, c));
+  }
+  static __device__ __forceinline__ int2 add(int2 a, int2 b) {
+    return make_int2(a.x ^ b.x, a.y ^ b.y);
+  }
+};
+
+template <int V2>
+__device__ inline void ec_row_write(int* dst_row, const int* src_row, int o,
+                                    unsigned rows, const SteadyParams& p,
+                                    const uint8_t* tbl) {
+  typedef Lanes<V2> X;
+  typedef typename X::T U;
+  const int W2 = p.W / V2, k = p.Mk / p.W;
+  const U* src = reinterpret_cast<const U*>(src_row) + o;
+  U* dst = reinterpret_cast<U*>(dst_row) + o;
+  U x[RT_KMAX];
+#pragma unroll
+  for (int j = 0; j < RT_KMAX; ++j) {
+    x[j] = U();
+    if (j < k) {
+      x[j] = src[j * W2];
+      if ((rows >> j) & 1u) dst[j * W2] = x[j];
+    }
+  }
+  for (int j = RT_KMAX; j < k; ++j)
+    if ((rows >> j) & 1u) dst[j * W2] = src[j * W2];
+  for (unsigned par = rows >> k; par; par &= par - 1) {
+    const int q = __ffs(par) - 1;
+    const uint8_t* c = tbl + q * k * 8;
+    U acc = U();
+#pragma unroll
+    for (int j = 0; j < RT_KMAX; ++j)
+      if (j < k) acc = X::add(acc, X::mul(x[j], c + j * 8));
+    for (int j = RT_KMAX; j < k; ++j)
+      acc = X::add(acc, X::mul(src[j * W2], c + j * 8));
+    dst[(k + q) * W2] = acc;
+  }
+}
+
+template <int V2>
+__global__ void __launch_bounds__(kWriteThreads)
+    flight_write_ec_kernel(int* __restrict__ buf_p,
+                           const int* __restrict__ wins, const int4* rec,
+                           int T, int P, SteadyParams p, const unsigned* work,
+                           const uint8_t* ec) {
+  __shared__ uint8_t ec_sh[RT_EC_BYTES];
+  if (__ldcg(&work[WK_PLAN])) return;  // the flight went to K4
+  load_ec_table(ec_sh, ec, p);
+  __syncthreads();
+  const int4 last = __ldg(&rec[T - 1]);
+  const int N = last.w + last.y;
+  const int s0 = __ldg(&rec[0].x);
+  const int C = p.C, W2 = p.W / V2;
+  const unsigned every = p.L == 32 ? 0xffffffffu : (1u << p.L) - 1u;
+  const unsigned items = (unsigned)min(N, C) * W2;
+  const unsigned stride = gridDim.x * blockDim.x;
+  for (unsigned e0 = blockIdx.x * blockDim.x + threadIdx.x; e0 < items;
+       e0 += kUnroll * stride) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const unsigned e = e0 + u * stride;
+      if (e >= items) break;
+      const int k = e / W2;
+      const int o = e - k * W2;
+      int d = s0 + k;
+      if (d >= C) d -= C;
+      unsigned left = every;  // rows still to be written
+      for (int kk = k + (N - 1 - k) / C * C; kk >= 0 && left; kk -= C) {
+        const int t = step_at(rec, T, p.B, kk);
+        const int4 r = __ldg(&rec[t]);
+        const unsigned take = left & (unsigned)r.z;
+        if (take) {
+          ec_row_write<V2>(buf_p + d * p.M,
+                           wins + ((t % P) * p.B + (kk - r.w)) * p.Mk, o,
+                           take, p, ec_sh);
+          left &= ~take;
+        }
+      }
+    }
+  }
+}
+
+// ----------------------------------------------------------------- K4
+// The closed-form epilogue of the turnover flight, step by step
+// (step_pallas.py:1161-1186).
+__device__ inline void turnover_epilogue(int* vec_g, int T,
+                                         const SteadyParams& p, int* out,
+                                         unsigned* work) {
+  const int L = p.L, B = p.B;
+  work[WK_RAN4] += 1;
+  int we = 0;
+  for (int t = 0; t < T; ++t) {
+    we = vec_g[VL * L + 0] + B;
+    const bool commit_ok = p.lterm >= 1 && we >= 1 && we >= p.tfloor;
+    for (int l = 0; l < L; ++l) {
+      const int t0 = vec_g[VT * L + l];
+      if (p.lterm > t0) vec_g[VV * L + l] = RT_NO_VOTE;
+      vec_g[VT * L + l] = max(t0, p.lterm);
+      vec_g[VL * L + l] = we;
+      vec_g[VMI * L + l] = we;
+      vec_g[VMT * L + l] = p.lterm;
+      if (commit_ok) vec_g[VC * L + l] = we;
+    }
+  }
+  for (int l = 0; l < L; ++l) out[l] = vec_g[VMI * L + l];
+  out[L + 0] = vec_g[VC * L + 0];
+  out[L + 1] = max(vec_g[VT * L + 0], p.lterm);
+  out[L + 2] = B;
+  out[L + 3] = floor_mod(we, p.C);
+  out[L + 4] = 0;
+}
+
+// s0 >= 0: the caller decided (K4·mesh); otherwise the plan's decision and
+// start slot in work.
+template <int V, bool LOCAL>
 __global__ void turnover_kernel(int* vec_g, int* buf_p, int* log_term,
                                 const int* __restrict__ wins, int T, int P,
-                                SteadyParams p, int* out,
-                                unsigned* work, const uint8_t* ec) {
-  __shared__ uint8_t ec_sh[EC ? RT_EC_BYTES : 1];
-  if (EC) {
-    load_ec_table(ec_sh, ec, p);
-    __syncthreads();
+                                SteadyParams p, int* out, unsigned* work,
+                                int s0) {
+  if (s0 < 0) {
+    if (__ldcg(&work[WK_PLAN]) == 0) return;  // K3 ran the flight
+    s0 = (int)__ldcg(&work[WK_S0]);
   }
-  if (__ldcg(&work[WK_PLAN]) == 0) return;  // K3 ran the flight
-  const int s0 = (int)__ldcg(&work[WK_S0]);
   const int C = p.C, B = p.B, M = p.M, L = p.L;
   const int MV = M / V;
   const long TB = (long)T * B;
@@ -278,35 +686,54 @@ __global__ void turnover_kernel(int* vec_g, int* buf_p, int* log_term,
       reinterpret_cast<int4*>(buf_p + (size_t)d * M)[v] =
           reinterpret_cast<const int4*>(src)[v];
     } else {
-      buf_p[(size_t)d * M + v] = window_lane<EC>(src, v, p, ec_sh);
+      buf_p[(size_t)d * M + v] = src[v];
     }
   }
   const long terms = (long)(LOCAL ? 1 : L) * C;  // LOCAL: one term row
   for (long e = gtid; e < terms; e += gstride) log_term[e] = p.lterm;
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    work[WK_RAN4] += 1;
-    // closed-form epilogue, step by step (step_pallas.py:1161-1186)
-    int we = 0;
-    for (int t = 0; t < T; ++t) {
-      we = vec_g[VL * L + 0] + B;
-      const bool commit_ok = p.lterm >= 1 && we >= 1 && we >= p.tfloor;
-      for (int l = 0; l < L; ++l) {
-        const int t0 = vec_g[VT * L + l];
-        if (p.lterm > t0) vec_g[VV * L + l] = RT_NO_VOTE;
-        vec_g[VT * L + l] = max(t0, p.lterm);
-        vec_g[VL * L + l] = we;
-        vec_g[VMI * L + l] = we;
-        vec_g[VMT * L + l] = p.lterm;
-        if (commit_ok) vec_g[VC * L + l] = we;
-      }
-    }
-    for (int l = 0; l < L; ++l) out[l] = vec_g[VMI * L + l];
-    out[L + 0] = vec_g[VC * L + 0];
-    out[L + 1] = max(vec_g[VT * L + 0], p.lterm);
-    out[L + 2] = B;
-    out[L + 3] = floor_mod(we, C);
-    out[L + 4] = 0;
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    turnover_epilogue(vec_g, T, p, out, work);
+}
+
+// K4·ec: one thread per (slot, word pair of the shard); the block's slots
+// come from blockIdx, and the source window row of each is worked out
+// once, by one thread, in 32-bit arithmetic.
+template <int V2>
+__global__ void __launch_bounds__(kThreads)
+    turnover_ec_kernel(int* vec_g, int* buf_p, int* log_term,
+                       const int* __restrict__ wins, int T, int P,
+                       SteadyParams p, int* out, unsigned* work,
+                       const uint8_t* ec) {
+  __shared__ uint8_t ec_sh[RT_EC_BYTES];
+  __shared__ int src_row[kThreads];
+  if (__ldcg(&work[WK_PLAN]) == 0) return;  // K3 ran the flight
+  load_ec_table(ec_sh, ec, p);
+  const int s0 = (int)__ldcg(&work[WK_S0]);
+  const int C = p.C, B = p.B, TB = T * B;
+  const int W2 = p.W / V2;
+  const int S = max(1, (int)blockDim.x / W2);  // slots per block
+  const int slot0 = blockIdx.x * S;
+  if ((int)threadIdx.x < S && slot0 + (int)threadIdx.x < C) {
+    int k = slot0 + threadIdx.x - s0;
+    if (k < 0) k += C;
+    const int pos = k + (TB - 1 - k) / C * C;  // the slot's last write
+    const int t = pos / B;
+    src_row[threadIdx.x] = ((t % P) * B + (pos - t * B)) * p.Mk;
   }
+  __syncthreads();
+  const unsigned every = p.L == 32 ? 0xffffffffu : (1u << p.L) - 1u;
+  for (int x = threadIdx.x; x < S * W2; x += blockDim.x) {
+    const int i = x / W2;
+    const int d = slot0 + i;
+    if (d < C)
+      ec_row_write<V2>(buf_p + d * p.M, wins + src_row[i], x - i * W2, every,
+                       p, ec_sh);
+  }
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < p.L * C;
+       e += gridDim.x * blockDim.x)
+    log_term[e] = p.lterm;
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    turnover_epilogue(vec_g, T, p, out, work);
 }
 
 static SteadyParams make_params(int leader, int lterm, int tfloor, int rfloor,
@@ -329,8 +756,6 @@ static SteadyParams make_params(int leader, int lterm, int tfloor, int rfloor,
   p.my = my;
   return p;
 }
-
-static const int kThreads = 256;
 
 static int blocks_for(long work) {
   return (int)max(1L, min((work + kThreads - 1) / kThreads, 8192L));
@@ -383,106 +808,118 @@ RT_EXPORT int rt_steady_step(void* vec, void* buf_p, void* log_term,
   return (int)cudaGetLastError();
 }
 
-// Co-resident block count of the pipeline kernel, per device (queried
-// once: the occupancy calculator is not free on the tick path).
-template <int V, bool EC, bool LOCAL>
-static cudaError_t resident_blocks(int dev, int* resident) {
-  static int cache[64] = {0};
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (cache[dev] == 0) {
-    int sms = 0, per_sm = 0, coop = 0;
-    cudaError_t e =
-        cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-    if (e == cudaSuccess && !coop) return cudaErrorNotSupported;
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, steady_pipeline_kernel<V, EC, LOCAL>, kThreads, 0);
-    if (e != cudaSuccess) return e;
-    if (per_sm * sms < 1) return cudaErrorCooperativeLaunchTooLarge;
-    cache[dev] = per_sm * sms;
-  }
-  *resident = cache[dev];
-  return cudaSuccess;
-}
-
-template <int V, bool EC, bool LOCAL>
-static int launch_pipeline(void** args, long work_items, cudaStream_t st,
-                           int* grid_out) {
-  auto kern = steady_pipeline_kernel<V, EC, LOCAL>;
-  int dev = 0, resident = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = resident_blocks<V, EC, LOCAL>(dev, &resident);
-  if (e != cudaSuccess) return (int)e;
-  const int grid = min(resident, blocks_for(work_items));
-  *grid_out = grid;
-  e = cudaLaunchCooperativeKernel((const void*)kern, dim3(grid),
-                                  dim3(kThreads), args, 0, st);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
-// K3 (+ K4 behind it when turnover_ok): a T-step flight over wins
-// i32[P, B, Mk] (step t reads wins[t % P]) and counts i32[T] on device.
-// out = match[L] | scal[5]. grid_out reports K3's grid size. ec, my_row
-// and prev (the gathered column at the flight's start) as K2.
-RT_EXPORT int rt_steady_pipeline(void* vec, void* buf_p, void* log_term,
+// K3: a T-step flight over wins i32[P, B, Mk] (step t reads wins[t % P])
+// and counts i32[T] on device: the plan (one block), then the writer
+// behind it on the same stream. out = match[L] | scal[5]; rec (device
+// int4[T]) takes the plan's per-step record. With turnover_ok the plan
+// first decides whether the flight belongs to K4 (resident layout only).
+// vec: the lane-vector width, 4 or 1 (EC: 2 or 1, word pairs). ec,
+// my_row and prev (the gathered column at the flight's start) as K2.
+RT_EXPORT int rt_steady_pipeline(void* vec_g, void* buf_p, void* log_term,
                                  const void* wins, const void* counts, int T,
                                  int P, const void* alive, const void* slow,
                                  const void* member, int leader, int lterm,
                                  int tfloor, int rfloor, int fpt, int quorum,
                                  int ec_floor, int L, int C, int B, int M,
                                  int Mk, int br, int turnover_ok, void* out,
-                                 void* work, const void* ec, int vec4,
-                                 int my_row, const void* prev, void* stream,
-                                 int* grid_out) {
-  SteadyParams p = make_params(leader, lterm, tfloor, rfloor, fpt, quorum,
-                               ec_floor, L, C, B, M, Mk, my_row);
-  void* args[] = {&vec,   &buf_p,  &log_term, &wins, &counts,
-                  &T,     &P,      &alive,    &slow, &member,
-                  &p,     &br,     &turnover_ok, &out, &work, &ec, &prev};
-  const bool v4 = vec4 && !ec;
-  const long items = (long)B * (v4 ? M / 4 : M);
+                                 void* work, const void* ec, int vec,
+                                 int my_row, const void* prev, void* rec,
+                                 void* stream) {
+  const SteadyParams p = make_params(leader, lterm, tfloor, rfloor, fpt,
+                                     quorum, ec_floor, L, C, B, M, Mk,
+                                     my_row);
   cudaStream_t st = (cudaStream_t)stream;
-  if (ec) return launch_pipeline<1, true, false>(args, items, st, grid_out);
+#define RT_PLAN_ARGS                                                       \
+  (int*)vec_g, (int*)log_term, (const int*)counts, T,                      \
+      (const uint8_t*)alive, (const uint8_t*)slow, (const uint8_t*)member, \
+      p, br, turnover_ok, (int*)out, (unsigned*)work, (int4*)rec,          \
+      (const int*)prev
   if (my_row >= 0)
-    return v4 ? launch_pipeline<4, false, true>(args, items, st, grid_out)
-              : launch_pipeline<1, false, true>(args, items, st, grid_out);
-  return v4 ? launch_pipeline<4, false, false>(args, items, st, grid_out)
-            : launch_pipeline<1, false, false>(args, items, st, grid_out);
+    flight_plan_kernel<true><<<1, kPlanThreads, 0, st>>>(RT_PLAN_ARGS);
+  else
+    flight_plan_kernel<false><<<1, kPlanThreads, 0, st>>>(RT_PLAN_ARGS);
+#undef RT_PLAN_ARGS
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  static int sms[64] = {0};  // SMs of each device, queried once
+  int dev = 0;
+  cudaError_t e2 = cudaGetDevice(&dev);
+  if (e2 == cudaSuccess && (dev < 0 || dev >= 64)) e2 = cudaErrorInvalidDevice;
+  if (e2 == cudaSuccess && sms[dev] == 0)
+    e2 = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                dev);
+  if (e2 != cudaSuccess) return (int)e2;
+  const long npos = min((long)T * B, (long)C);  // positions at most
+  const long per_slot = (ec ? p.W : M) / vec;
+  const int blocks =
+      (int)max(1L, min((npos * per_slot + kWriteThreads - 1) / kWriteThreads,
+                       (long)kWriteBlocksPerSM * sms[dev]));
+#define RT_WRITE_ARGS                                                      \
+  (int*)buf_p, (const int*)wins, (const int4*)rec, T, P, p,                \
+      (const unsigned*)work
+  if (ec) {
+    if (vec == 2)
+      flight_write_ec_kernel<2><<<blocks, kWriteThreads, 0, st>>>(
+          RT_WRITE_ARGS, (const uint8_t*)ec);
+    else
+      flight_write_ec_kernel<1><<<blocks, kWriteThreads, 0, st>>>(
+          RT_WRITE_ARGS, (const uint8_t*)ec);
+  } else if (my_row >= 0) {
+    if (vec == 4)
+      flight_write_kernel<4, true><<<blocks, kWriteThreads, 0, st>>>(
+          RT_WRITE_ARGS);
+    else
+      flight_write_kernel<1, true><<<blocks, kWriteThreads, 0, st>>>(
+          RT_WRITE_ARGS);
+  } else if (vec == 4) {
+    flight_write_kernel<4, false><<<blocks, kWriteThreads, 0, st>>>(
+        RT_WRITE_ARGS);
+  } else {
+    flight_write_kernel<1, false><<<blocks, kWriteThreads, 0, st>>>(
+        RT_WRITE_ARGS);
+  }
+#undef RT_WRITE_ARGS
+  return (int)cudaGetLastError();
 }
 
-// K4: the write-only turnover flight; exits at once unless the preceding
-// K3 launch published the turnover decision in work. ec and my_row as K2.
-RT_EXPORT int rt_turnover(void* vec, void* buf_p, void* log_term,
+// K4: the write-only turnover flight. With s0 < 0 it exits at once unless
+// the preceding plan published the turnover decision in work; with
+// s0 >= 0 (K4·mesh, decided on the host) it writes from that start slot.
+// vec, ec and my_row as rt_steady_pipeline.
+RT_EXPORT int rt_turnover(void* vec_g, void* buf_p, void* log_term,
                           const void* wins, int T, int P, int lterm,
                           int tfloor, int L, int C, int B, int M, int Mk,
-                          void* out, void* work, const void* ec, int vec4,
-                          int my_row, void* stream) {
+                          void* out, void* work, const void* ec, int vec,
+                          int my_row, int s0, void* stream) {
   const SteadyParams p =
       make_params(0, lterm, tfloor, 0, 0, 0, 0, L, C, B, M, Mk, my_row);
-  const bool v4 = vec4 && !ec;
-  const int blocks = blocks_for((long)C * (v4 ? M / 4 : M));
   cudaStream_t st = (cudaStream_t)stream;
-#define RT_K4_ARGS                                                         \
-  (int*)vec, (int*)buf_p, (int*)log_term, (const int*)wins, T, P, p,       \
-      (int*)out, (unsigned*)work, (const uint8_t*)ec
   if (ec) {
-    turnover_kernel<1, true, false><<<blocks, kThreads, 0, st>>>(RT_K4_ARGS);
-  } else if (my_row >= 0) {
-    if (v4)
-      turnover_kernel<4, false, true><<<blocks, kThreads, 0, st>>>(
-          RT_K4_ARGS);
+    const int S = max(1, kThreads / (p.W / vec));  // slots per block
+    const int blocks = (C + S - 1) / S;
+#define RT_K4EC_ARGS                                                       \
+  (int*)vec_g, (int*)buf_p, (int*)log_term, (const int*)wins, T, P, p,     \
+      (int*)out, (unsigned*)work, (const uint8_t*)ec
+    if (vec == 2)
+      turnover_ec_kernel<2><<<blocks, kThreads, 0, st>>>(RT_K4EC_ARGS);
     else
-      turnover_kernel<1, false, true><<<blocks, kThreads, 0, st>>>(
-          RT_K4_ARGS);
-  } else if (v4) {
-    turnover_kernel<4, false, false><<<blocks, kThreads, 0, st>>>(
-        RT_K4_ARGS);
+      turnover_ec_kernel<1><<<blocks, kThreads, 0, st>>>(RT_K4EC_ARGS);
+#undef RT_K4EC_ARGS
+    return (int)cudaGetLastError();
+  }
+  const int blocks = blocks_for((long)C * (M / vec));
+#define RT_K4_ARGS                                                         \
+  (int*)vec_g, (int*)buf_p, (int*)log_term, (const int*)wins, T, P, p,     \
+      (int*)out, (unsigned*)work, s0
+  if (my_row >= 0) {
+    if (vec == 4)
+      turnover_kernel<4, true><<<blocks, kThreads, 0, st>>>(RT_K4_ARGS);
+    else
+      turnover_kernel<1, true><<<blocks, kThreads, 0, st>>>(RT_K4_ARGS);
+  } else if (vec == 4) {
+    turnover_kernel<4, false><<<blocks, kThreads, 0, st>>>(RT_K4_ARGS);
   } else {
-    turnover_kernel<1, false, false><<<blocks, kThreads, 0, st>>>(
-        RT_K4_ARGS);
+    turnover_kernel<1, false><<<blocks, kThreads, 0, st>>>(RT_K4_ARGS);
   }
 #undef RT_K4_ARGS
   return (int)cudaGetLastError();

@@ -11,8 +11,9 @@ kernels with ``local=True`` (``step_pallas._invoke``, ``_run_pipeline``,
   the aliased pipeline faithfully) from a fully committed plane: all
   accept, a slow row, a dead row, a shrunk membership, no quorum, and a
   row whose prev term disagrees;
-- K4·mesh across ring laps (write-only, interpret-faithful), reached
-  through K3·mesh's turnover decision.
+- K4·mesh across ring laps (write-only, interpret-faithful), launched
+  with the start slot of the host's turnover decision (``core.step_mesh``
+  decides the branch; K3·mesh never does).
 
 B = 128, 8-byte entries (W = 2 words). Every vec word, ring word,
 match/scal word and next-prev word must be equal."""
@@ -200,12 +201,14 @@ def _flight_both(C, T, P, R, slow, alive=None, member=None, prev=None,
         work = tsc.workspace("cpu")
         ran3, ran4 = int(work[tsc.WK_RAN3]), int(work[tsc.WK_RAN4])
         twins = torch.from_numpy(wins)
-        tsc.pipeline_flight(vecs, lp, lt, twins, torch.from_numpy(counts),
-                            talive, tslow, tmember, prm, tsc.pick_br(B, C),
-                            T * B >= C, out, my_row=r,
-                            prev=torch.from_numpy(prev.copy()))
-        if T * B >= C:
-            tsc.turnover_flight(vecs, lp, lt, twins, T, prm, out, my_row=r)
+        if turnover:        # decided on the host, as core.step_mesh does
+            tsc.turnover_flight(vecs, lp, lt, twins, T, prm, out, my_row=r,
+                                s0=s0)
+        else:
+            tsc.pipeline_flight(vecs, lp, lt, twins, torch.from_numpy(counts),
+                                talive, tslow, tmember, prm,
+                                tsc.pick_br(B, C), False, out, my_row=r,
+                                prev=torch.from_numpy(prev.copy()))
         chosen.append("K4" if int(work[tsc.WK_RAN4]) > ran4 else
                       "K3" if int(work[tsc.WK_RAN3]) > ran3 else "none")
         np.testing.assert_array_equal(vecs.numpy(), np.asarray(jv), "vecs")
@@ -281,3 +284,76 @@ def test_kernel_masks_are_bool_bytes(name, mask):
     with pytest.raises(ValueError, match=f"{name} must be a contiguous "
                                          r"bool\[3\]"):
         tsc._check_masks(vecs, **masks)
+
+
+class _GatherFromWhole:
+    """``MeshComm`` for one rank of a mesh whose rows are the rows of a
+    resident plane: the two launch gathers return every row's scalars and
+    every row's prev term, as the collectives would."""
+
+    def __init__(self, rank, vecs, log_term, leader):
+        self.rank, self.n_replicas = rank, vecs.shape[1]
+        self.vecs, self.log_term, self.leader = vecs, log_term, leader
+
+    def all_gather_host(self, x):
+        if x.dim() == 2:                               # own scalars [1, 6]
+            return self.vecs.t().clone()
+        C = self.log_term.shape[1]
+        slot = (max(int(self.vecs[2, self.leader]), 1) - 1) % C
+        return self.log_term[:, slot].clone()
+
+
+def test_mesh_turnover_is_decided_on_the_host(monkeypatch):
+    """A turnover-eligible mesh flight (T·B >= C, feasible, every row
+    accepting) goes to K4·mesh from the host's decision alone: no K3·mesh
+    call (``LAUNCHES["pipeline_flight_mesh"]`` unchanged), one K4·mesh
+    call per rank, and every rank's row equals the JAX local=True
+    turnover."""
+    import raft_tpu_torch.core.step_mesh as sm
+    from raft_tpu_torch.core.state import ReplicaState
+
+    R, C, T, P, last = 3, 512, 7, 3, B
+    rng = np.random.default_rng(8)
+    vecs0 = _steady_plane(R, last)
+    wins = rng.integers(-2**31, 2**31, (P, B, W), dtype=np.int64) \
+        .astype(np.int32)
+    lp0 = rng.integers(-2**31, 2**31, (C, W), dtype=np.int64).astype(np.int32)
+    lt0 = np.ones((1, C), np.int32)
+    calls = {"k3": 0, "k4": 0}
+    k4 = sm.turnover_flight
+    monkeypatch.setattr(sm, "pipeline_flight", lambda *a, **k: calls.update(
+        k3=calls["k3"] + 1))
+    monkeypatch.setattr(sm, "turnover_flight", lambda *a, **k: (
+        calls.update(k4=calls["k4"] + 1), k4(*a, **k)))
+    launches = dict(tsc.LAUNCHES)
+    run = _j_flight(C, T, P, R, True)
+    ones = np.ones(R, bool)
+    for r in range(R):
+        params, masks = _j_params(r, 0, 1, 1, 0, 0, ones, ~ones, None, None,
+                                  R, False)
+        (jlp, jlt, jv), ji = run(
+            jnp.asarray(lp0), jnp.asarray(lt0), jnp.asarray(wins),
+            jnp.asarray(np.full((1, T), B, np.int32)),
+            jnp.asarray([last % C], jnp.int32),
+            jnp.ones((R, 1), jnp.int32), params, jnp.asarray(vecs0), masks)
+        own = torch.from_numpy(vecs0[:, r:r + 1].copy())      # [6, 1]
+        st = ReplicaState(*own, torch.from_numpy(lt0.copy()),
+                          torch.from_numpy(lp0.copy()))
+        comm = _GatherFromWhole(r, torch.from_numpy(vecs0),
+                                torch.from_numpy(np.ones((R, C), np.int32)),
+                                0)
+        st, info = sm.mesh_pipeline(
+            comm, st, torch.from_numpy(wins), torch.full((T,), B),
+            0, 1, torch.from_numpy(ones), torch.from_numpy(~ones), 0, 0,
+            None, 1)
+        np.testing.assert_array_equal(st.log_payload.numpy(),
+                                      np.asarray(jlp))
+        np.testing.assert_array_equal(st.log_term.numpy(), np.asarray(jlt))
+        for i, f in enumerate(("term", "voted_for", "last_index",
+                               "commit_index", "match_index", "match_term")):
+            assert int(getattr(st, f)[0]) == int(np.asarray(jv)[i, r]), f
+        np.testing.assert_array_equal(info.match.numpy(),
+                                      np.asarray(ji.match))
+        assert int(info.commit_index) == int(ji.commit_index) == last + T * B
+    assert calls == {"k3": 0, "k4": R}
+    assert tsc.LAUNCHES == launches
