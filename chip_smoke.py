@@ -25,12 +25,18 @@ deployments. First the north star (3 replicas, 256-byte entries, batch
 5. times each kernel (profiler medians of 21; K3 as its plan plus its
    writer, printed apart as ``k3_split``, with the turnover decision
    alone and an 8-step dead-row flight) beside its plain version and its
-   byte bound, and the main path per step.
+   byte bound (K4 and K4·mesh also beside ``library_ms``, the same ring
+   writes as one ``index_copy_`` and one ``fill_``), and the main path
+   per step.
 
 Then BASELINE config 3 (5 replicas, RS(5,3) shards of 264-byte entries,
 batch 1024, a 32 768-slot ring, commit quorum 4):
 
-6. holds K6 (encode; decode for all ten 3-row sets), K7 and K2/K3/K4 in
+6. holds K6 (encode; decode for all ten 3-row sets and the rotated set
+   (2,0,1); RS(4,2) with 8-byte entries, single words; RS(6,4)), K6's
+   decode of the log ring in place (``reconstruct``: the whole ring, a
+   window across the seam, a partial window, every decoding row set,
+   against the gathered window and the plain decode), K7 and K2/K3/K4 in
    their in-kernel parity mode against their plain versions on the card,
    bit for bit (seam, partial, dead-row, slow-row, conflict, turnover and
    two-dead-row cases, then randomized multi-term schedules at config 3
@@ -43,7 +49,10 @@ batch 1024, a 32 768-slot ring, commit quorum 4):
    the heal of row 4 (K6 encode), and a flight with rows 3 and 4 dead (no
    commit, the committed bytes still read); every EC kernel must have
    launched on it;
-8. times each EC kernel as in 5, and the EC path's device idle share.
+8. times each EC kernel as in 5 (``k6_bank_probe``: K6 decode on
+   all-zero bytes), ``k6_read_path`` (a decoding read of one flight's
+   window before, gathered and decoded contiguous, and after, K6 on the
+   ring), and the EC path's device idle share.
 
 Then the multi-Raft group data plane at the two deployments the JAX
 package's bench runs on it: config A (16 groups of 3 replicas, 256-byte
@@ -82,7 +91,9 @@ not a multi-card run), built through ``make_transport`` with
     versions, bit for bit, at the north star (R = 3) and at config 3 (R =
     5, the EC quorum): random gathered planes and prev columns, then the
     seam, partial, slow-row, dead-row, member-shrunk, infeasible and
-    lapped-turnover cases; then randomized multi-term schedules that keep
+    lapped-turnover cases; K4·mesh's bookkeeping (a leader term of 0, a
+    term floor beyond the last tail, mixed terms and votes) at 256-, 88-
+    and 12-byte rows; then randomized multi-term schedules that keep
     the engine's invariants, each row's mesh kernels against the resident
     kernels on the whole cluster;
 13. spawns 3 ranks (kernels built here first) and drives the multichip
@@ -100,9 +111,11 @@ not a multi-card run), built through ``make_transport`` with
     K4·mesh alone, no K3·mesh launch) and holds every rank's ring to its
     row of the single-device run;
 15. times K2·mesh, K3·mesh and K4·mesh beside their plain versions and
-    byte bounds, ``bench.py``'s ``bench_mesh1`` (a 1-rank group against
-    the resident transport, per 32-step flight) and the 3-rank north
-    star's wall per flight and launch-collective time;
+    byte bounds (``k4_mesh_split``: its payload row, term row and
+    bookkeeping each alone, the whole with the L2 cache flushed, and at
+    mesh config 3's rows), ``bench.py``'s ``bench_mesh1`` (a 1-rank
+    group against the resident transport, per 32-step flight) and the
+    3-rank north star's wall per flight and launch-collective time;
 16. prints the kernel table, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -879,14 +892,15 @@ KERNEL_FN = {"K1": ("write_window_both_kernel",),
              "K2": ("steady_step_kernel",),
              "K3": ("flight_plan_kernel", "flight_write_kernel"),
              "K4": ("turnover_kernel",),
-             "K6 encode": ("parity_kernel",), "K6 decode": ("parity_kernel",),
+             "K6 encode": ("gf_table_kernel",),
+             "K6 decode": ("gf_table_kernel",),
              "K7": ("encode_fold_kernel",), "K2·ec": ("steady_step_kernel",),
              "K3·ec": ("flight_plan_kernel", "flight_write_ec_kernel"),
              "K4·ec": ("turnover_ec_kernel",),
              "K5": ("write_window_cols_kernel",),
              "K2·mesh": ("steady_step_kernel",),
              "K3·mesh": ("flight_plan_kernel", "flight_write_kernel"),
-             "K4·mesh": ("turnover_kernel",)}
+             "K4·mesh": ("turnover_mesh_kernel",)}
 
 
 def kernel_of(name):
@@ -918,6 +932,42 @@ def kernel_ms(key, fn, reps, before=None, inner=1, split=None):
               f"{sorted({n for n, _ in dev})[:4]})", file=sys.stderr)
     raise RuntimeError(f"the profiler did not record the launches of "
                        f"{fns}")
+
+
+def ops_ms(fn, reps):
+    """Device time per call of everything ``fn`` runs on the card (a
+    library yardstick, a read path of several operations): over its CUDA
+    functions, n times the median of each one that runs n times a call,
+    summed, from a profiler session that saw every call of each."""
+    for attempt in range(6):
+        dev, _ = _device_events(fn, reps)
+        by_name = {}
+        for name, us in dev:
+            by_name.setdefault(name, []).append(us)
+        if by_name and all(len(v) % reps == 0 for v in by_name.values()):
+            return sum(len(v) // reps * statistics.median(v)
+                       for v in by_name.values()) / 1e3
+        print(f"profiler session {attempt + 1} recorded "
+              f"{ {n[:40]: len(v) for n, v in by_name.items()} } of {reps} "
+              "calls", file=sys.stderr)
+    raise RuntimeError("the profiler did not record the yardstick's calls")
+
+
+def ring_yardstick(log_payload, log_term, wins, s0, lterm):
+    """The turnover's ring writes as one ``index_copy_`` and one ``fill_``
+    (exact when T*B = C: every slot has one writer), timed beside K4 and
+    K4·mesh and used nowhere in the port."""
+    import torch
+
+    T, B, M = wins.shape
+    C = log_term.shape[1]
+    idx = (s0 + torch.arange(T * B, device=wins.device)) % C
+    rows = wins.reshape(T * B, M)
+
+    def yard():
+        log_payload.index_copy_(0, idx, rows)
+        log_term.fill_(lterm)
+    return yard
 
 
 def time_steady_kernels(cfg, dev, rng, reps, consts=None):
@@ -1014,6 +1064,11 @@ def time_steady_kernels(cfg, dev, rng, reps, consts=None):
     out["K4" + tag] = (k4_time, _host_ms(k4p, reps), k4_bytes)
     flight = dict(k3=k3, plan=plan, wins=wins32, counts=counts, prm=prm,
                   br=br, out=o3, slow=sl, split=split)
+    if consts is None:      # the parity mode has no library counterpart
+        check(T * B == C, "the yardstick needs one writer a slot")
+        flight["library_ms"] = ops_ms(ring_yardstick(
+            st.log_payload, st.log_term, wins32, int(vecs[2, 0]) % C, 1),
+            reps)
     return out, flight
 
 
@@ -1100,6 +1155,7 @@ def phase_timing(cfg, dev, card_line, reps=21):
     for k, ((ms, call_ms), pms, nbytes) in out.items():
         res[k] = {"ms": ms, "call_ms": call_ms, "plain_ms": pms,
                   "bytes": nbytes, "bound_ms": nbytes / rate * 1e3}
+    res["K4"]["library_ms"] = fl["library_ms"]
     res["main_path_profile"] = profile_flights(cfg, dev)
     emit(res)
     return res
@@ -1175,11 +1231,47 @@ def codec_cases(code, dev, rng, B, S, N, note):
                             (fold, ek.fold_shards_device(enc))]))
     data = rand_bytes(rng, (N, S), dev)
     shards = ek.encode_device(code, data)
-    for rows in combinations(range(code.n), code.k):
+    # every row set, and the data rows rotated: a decode matrix depends on
+    # the serving rows' order, and K6's tables are cached per ordered set
+    for rows in [*combinations(range(code.n), code.k),
+                 tuple(np.roll(np.arange(code.k), 1).tolist())]:
         sh = shards[list(rows)].contiguous()
         dec = ek.decode_device(code, sh, rows)
         note("K6 decode", max_err([(dec, ek.decode_bitwise(code, sh, rows)),
                                    (dec, data)]))
+
+
+def ring_read_cases(ecfg, dev, rng, note):
+    """K6 decoding reads of the log ring in place (``reconstruct`` on the
+    card) against the gather of the same window plus the plain decode, on
+    a config-3 ring: the whole ring from a slot inside it, a window across
+    the seam, a partial window; every decoding row set. Returns the cases
+    run."""
+    from itertools import combinations
+
+    from raft_tpu_torch.ec import kernels as ek
+    from raft_tpu_torch.ec.reconstruct import _reconstruct, \
+        gather_shard_window
+    from raft_tpu_torch.ec.rs import RSCode
+
+    C = ecfg.log_capacity
+    code = RSCode(ecfg.n_replicas, ecfg.rs_k)
+    st = steady_state(ecfg, dev, 3 * C + 777, rng=rng)
+    windows = {"whole_ring": (2 * C + 778, 3 * C + 777),
+               "seam": (3 * C - 300, 3 * C + 200),
+               "partial": (3 * C + 100, 3 * C + 419)}
+    sets = [rs for rs in combinations(range(code.n), code.k)
+            if rs != tuple(range(code.k))] + [(2, 0, 4)]
+    n = 0
+    for lo, hi in windows.values():
+        for rows in sets:
+            want = ek.decode_bitwise(
+                code, gather_shard_window(st, rows, lo, hi), rows)
+            note("K6 decode", max_err([(_reconstruct(st, code, rows, lo, hi),
+                                        want)]))
+            n += 1
+    return {"windows": {k: hi - lo + 1 for k, (lo, hi) in windows.items()},
+            "row_sets": len(sets), "cases": n}
 
 
 def phase_ec_kernels(ecfg, dev, n_random=120):
@@ -1187,6 +1279,7 @@ def phase_ec_kernels(ecfg, dev, n_random=120):
     versions on the same inputs, at config 3 and at RS(4,2) with 8-byte
     entries and B = 128."""
     from raft_tpu_torch.config import RaftConfig
+    from raft_tpu_torch.ec import kernels as ek
     from raft_tpu_torch.ec.kernels import parity_consts
     from raft_tpu_torch.ec.rs import RSCode
 
@@ -1203,8 +1296,10 @@ def phase_ec_kernels(ecfg, dev, n_random=120):
         cases[key] += 1
 
     # the codec at the main path's shapes: a B-entry tick batch, and a
-    # flight's read-back window (C entries) for every C(5,3) row set
+    # flight's read-back window (C entries) for every C(5,3) row set; the
+    # decode also as the read path runs it, on the ring in place
     codec_cases(code, dev, rng, B, ecfg.entry_bytes, C, note)
+    ring_reads = ring_read_cases(ecfg, dev, rng, note)
 
     def k2(*args, **kw):
         err, commit = k2_case(ecfg, dev, rng, *args, consts=consts, **kw)
@@ -1260,6 +1355,16 @@ def phase_ec_kernels(ecfg, dev, n_random=120):
     small = RaftConfig(n_replicas=4, entry_bytes=8, batch_size=128,
                        log_capacity=512, rs_k=2, rs_m=2, transport="single")
     codec_cases(RSCode(4, 2), dev, rng, 128, 8, 512, note)
+    codec_cases(RSCode(6, 4), dev, rng, B, 64, 4096, note)   # 4 data rows
+    # the widest code K6 takes, 16 rows in and out: 64 KB of tables, past
+    # the 48 KB a block gets without asking
+    wide = RSCode(32, 16)
+    data = rand_bytes(rng, (B, 16 * 8), dev)
+    enc = ek.encode_device(wide, data)
+    note("K6 encode", max_err([(enc, ek.encode_bitwise(wide, data))]))
+    rows = tuple(range(31, 15, -1))
+    sh = enc[list(rows)].contiguous()
+    note("K6 decode", max_err([(ek.decode_device(wide, sh, rows), data)]))
     rsteps["rs42_e8_b128"] = random_ec_schedule(small, dev, n_random // 2,
                                                 rng)
     # odd shard widths, W = 1 and W = 3 words: there K3·ec's and K4·ec's
@@ -1287,7 +1392,8 @@ def phase_ec_kernels(ecfg, dev, n_random=120):
         check(errs[k] == 0, f"{k} differs from its plain version by "
                             f"{errs[k]}")
     emit({"phase": "ec_kernels_vs_plain", "cases": cases,
-          "max_abs_err": errs, "random_schedule_steps": rsteps})
+          "max_abs_err": errs, "random_schedule_steps": rsteps,
+          "ring_reads": ring_reads})
     return errs
 
 
@@ -1569,6 +1675,12 @@ def phase_ec_timing(ecfg, dev, card_line, reps=21):
                   reps, inner=5),
         _host_ms(lambda: ek.decode_bitwise(code, shards, rows), reps),
         2 * code.k * C * sk)
+    # the bank probe: all-zero input bytes, so every table lookup of a
+    # warp reads one address (no bank conflicts)
+    zeros = torch.zeros_like(shards)
+    bank = kernel_ms("K6 decode", lambda: ek.decode_device(code, zeros, rows),
+                     reps, inner=5)[0]
+    read_path = time_read_path(ecfg, dev, rng, reps, rows, rate)
 
     steady, fl = time_steady_kernels(ecfg, dev, rng, reps, consts)
     out.update(steady)
@@ -1577,13 +1689,53 @@ def phase_ec_timing(ecfg, dev, card_line, reps=21):
     torch.cuda.synchronize()
     res = {"phase": "ec_timing", "card": card_line, "mem_bytes_per_s": rate,
            "k3_split": fl["split"], "k3_decision_only": {
-               "ms": plan_ms[0], "call_ms": plan_ms[1], "split": decision}}
+               "ms": plan_ms[0], "call_ms": plan_ms[1], "split": decision},
+           "k6_bank_probe": {"zero_bytes_ms": bank},
+           "k6_read_path": read_path}
     for k, ((ms, call_ms), pms, nbytes) in out.items():
         res[k] = {"ms": ms, "call_ms": call_ms, "plain_ms": pms,
                   "bytes": nbytes, "bound_ms": nbytes / rate * 1e3}
     res["ec_path_profile"] = profile_ec_flights(ecfg, dev)
     emit(res)
     return res
+
+
+def time_read_path(ecfg, dev, rng, reps, rows, rate):
+    """A decoding read of one flight's window (T*B = C entries, across the
+    seam) from a config-3 ring: before, the window gathered (three torch
+    copies) and decoded contiguous (``gather_shard_window`` +
+    ``decode_device``); after, ``reconstruct``'s path, K6 on the ring in
+    place. Device time per read (every CUDA function of it, profiler) and
+    CUDA-event time per call, and K6's own time on the ring."""
+    from raft_tpu_torch.ec import kernels as ek
+    from raft_tpu_torch.ec.reconstruct import _reconstruct, \
+        gather_shard_window
+    from raft_tpu_torch.ec.rs import RSCode
+
+    C, B, E = ecfg.log_capacity, ecfg.batch_size, ecfg.entry_bytes
+    code = RSCode(ecfg.n_replicas, ecfg.rs_k)
+    st = steady_state(ecfg, dev, 3 * C + 5 * B, rng=rng)
+    lo, hi = 2 * C + 5 * B + 1, 3 * C + 5 * B
+    check((lo - 1) % C != 0, "the timed window crosses the seam")
+
+    def before():
+        ek.decode_device(code, gather_shard_window(st, rows, lo, hi), rows)
+
+    def after():
+        _reconstruct(st, code, rows, lo, hi)
+
+    check(max_err([(_reconstruct(st, code, rows, lo, hi),
+                    ek.decode_device(code, gather_shard_window(
+                        st, rows, lo, hi), rows))]) == 0,
+          "the ring read differs from the gathered read")
+    nbytes = 2 * C * E                # three shards in, the entries out
+    return {"rows": list(rows), "entries": hi - lo + 1,
+            "before_device_ms": ops_ms(before, reps),
+            "before_call_ms": _events_ms(before, reps),
+            "after_device_ms": ops_ms(after, reps),
+            "after_call_ms": _events_ms(after, reps),
+            "k6_ring_ms": kernel_ms("K6 decode", after, reps)[0],
+            "bytes": nbytes, "bound_ms": nbytes / rate * 1e3}
 
 
 def profile_ec_flights(ecfg, dev, flights=4):
@@ -2410,6 +2562,62 @@ def mesh_cases(cfg, dev, rng, note, n_random):
             note(which + "·mesh", err)
 
 
+#: K4·mesh's bookkeeping cases (``mesh_turnover_cases``)
+TURNOVER_CASES = ("all_accept", "lterm_0", "tfloor_beyond", "mixed_plane",
+                  "lapped")
+
+
+def mesh_turnover_cases(cfg, dev, rng, note):
+    """K4·mesh of row 1 against the plain step loop, from a host-given
+    start slot, at ``cfg``'s row width: every row caught up (the main
+    path's flight), a leader term of 0 (nothing commits), a term floor
+    beyond the flight's last tail (nothing commits), rows at mixed terms,
+    votes and commits under a higher leader term (adoption and vote
+    reset), and a lapped flight (T·B > C, fewer windows than steps)."""
+    import torch
+
+    from raft_tpu_torch.core import step_cuda as sc
+
+    C, B, R, W = cfg.log_capacity, cfg.batch_size, cfg.rows, cfg.shard_words
+    last, r = 5 * B, 1
+    for name in TURNOVER_CASES:
+        T, P, lterm, tfloor = C // B, C // B, 1, 1
+        plane = np.stack([np.ones(R), np.zeros(R), np.full(R, last),
+                          np.full(R, last), np.full(R, last),
+                          np.ones(R)]).astype(np.int32)
+        if name == "lterm_0":
+            lterm = 0
+        elif name == "tfloor_beyond":
+            tfloor = last + T * B + 1
+        elif name == "mixed_plane":
+            lterm = 3
+            plane[0] = rng.integers(0, 5, R)
+            plane[1] = rng.integers(-1, R, R)
+            plane[3] = rng.integers(0, last + 1, R)
+            plane[5] = rng.integers(0, 4, R)
+        elif name == "lapped":
+            T, P = 2 * T + 5, 7
+        prm = sc.step_params(0, lterm, tfloor, 0, 0, cfg.commit_quorum, R,
+                             ec=cfg.ec_enabled)
+        wins = torch.stack([rand_window(rng, B, W, dev) for _ in range(P)])
+        lp0 = rand_window(rng, C, W, dev)
+        lt0 = rand_window(rng, 1, C, dev).remainder(4)
+        s0 = int(rng.integers(0, C))
+        res = []
+        for kernel in (True, False):
+            v = torch.from_numpy(plane.copy()).to(dev)
+            lp, lt = lp0.clone(), lt0.clone()
+            out = torch.zeros(R + 5, dtype=torch.int32, device=dev)
+            if kernel:
+                sc.turnover_flight(v, lp, lt, wins, T, prm, out, None, r, s0)
+            else:
+                sc.turnover_flight_plain(v, lp, lt, wins, T, prm, out,
+                                         sc.workspace(dev), None, s0)
+            res.append((v, lp, lt, out))
+        note("K4·mesh", max_err(list(zip(*res))))
+    return len(TURNOVER_CASES)
+
+
 def mesh_vs_resident(cfg, dev, n, rng):
     """A randomized multi-term schedule that keeps the engine's invariants
     (one leader a term, appending before it replicates), run twice on the
@@ -2564,13 +2772,21 @@ def phase_mesh_kernels(cfg, ecfg, dev, n_random=8):
     rng = np.random.default_rng(SEED + 20)
     mesh_cases(cfg, dev, rng, note, n_random)
     mesh_cases(ecfg, dev, rng, note, n_random // 2)
+    # K4·mesh's bookkeeping cases at 256-, 88- and 12-byte rows: 16-byte
+    # vectors, word pairs, single words
+    import dataclasses
+
+    turnover = {f"W={c.shard_words}": mesh_turnover_cases(c, dev, rng, note)
+                for c in (cfg, ecfg, dataclasses.replace(
+                    cfg, entry_bytes=12, batch_size=128, log_capacity=512))}
     sched = {"north_star": mesh_vs_resident(cfg, dev, 160, rng),
              "config_3": mesh_vs_resident(ecfg, dev, 80, rng)}
     for k in errs:
         check(errs[k] == 0, f"{k} differs from its plain version by "
                             f"{errs[k]}")
     emit({"phase": "mesh_kernels_vs_plain", "cases": cases,
-          "max_abs_err": errs, "schedules_vs_resident": sched})
+          "max_abs_err": errs, "schedules_vs_resident": sched,
+          "k4_mesh_bookkeeping_cases": turnover})
     return errs
 
 
@@ -3043,6 +3259,57 @@ def time_mesh_kernels(cfg, dev, rng, reps, rate):
                "bytes": nbytes, "bound_ms": nbytes / rate * 1e3}
            for k, ((ms, call_ms), pms, nbytes) in out.items()}
     res["k3_split"] = split
+    check(T * B == C, "the yardstick needs one writer a slot")
+    res["K4·mesh"]["library_ms"] = ops_ms(
+        ring_yardstick(*args, wins, s0, 1), reps)
+    res["k4_mesh_split"] = k4_mesh_split(cfg, dev, rng, reps, rate, k4, args,
+                                         wins, vecs, prm, o3, r, s0)
+    return res
+
+
+def k4_mesh_split(cfg, dev, rng, reps, rate, k4, rings, wins, vecs, prm,
+                  out, r, s0):
+    """K4·mesh's three parts, each launched alone (payload row, term row,
+    closed-form bookkeeping); the whole kernel with the L2 cache flushed
+    before each launch (the windows otherwise stay in the 50 MB L2 from
+    one timed launch to the next); and the whole kernel at mesh config 3's
+    88-byte rows (word pairs)."""
+    import torch
+
+    from raft_tpu_torch.core import step_cuda as sc
+
+    T = STEPS_PER_FLIGHT
+    res = {}
+    for name, parts in (("payload", sc.TURNOVER_PAYLOAD),
+                        ("terms", sc.TURNOVER_TERMS),
+                        ("bookkeeping", sc.TURNOVER_BOOK)):
+        def part(parts=parts):
+            sc.turnover_flight(vecs, *rings, wins, T, prm, out, None, r, s0,
+                               parts)
+        res[name + "_ms"] = kernel_ms("K4·mesh", part, reps)[0]
+    scrub = torch.empty(1 << 24, dtype=torch.int32, device=dev)   # 64 MB
+    res["cold_l2_ms"] = kernel_ms("K4·mesh", k4, reps,
+                                  before=lambda: scrub.fill_(0))[0]
+    ecfg = ec_config()
+    C, B, R, W = ecfg.log_capacity, ecfg.batch_size, ecfg.rows, \
+        ecfg.shard_words
+    st = steady_state(ecfg, dev, 5 * B, rng=rng)
+    loc = local_row(st, r, W)
+    v5 = sc.pack(st)
+    w5 = torch.stack([rand_window(rng, B, W, dev) for _ in range(T)])
+    p5 = sc.step_params(0, 1, 1, 0, 0, ecfg.commit_quorum, R, ec=True)
+    o5 = torch.zeros(R + 5, dtype=torch.int32, device=dev)
+    s5 = int(v5[2, 0]) % C
+
+    def k4_c3():
+        sc.turnover_flight(v5, loc.log_payload, loc.log_term, w5, T, p5, o5,
+                           None, r, s5)
+
+    c3_bytes = T * B * W * 4 + C * W * 4 + C * 4 + 2 * 6 * R * 4
+    res["config3_ms"] = kernel_ms("K4·mesh", k4_c3, reps)[0]
+    res["config3_bound_ms"] = c3_bytes / rate * 1e3
+    res["config3_library_ms"] = ops_ms(ring_yardstick(
+        loc.log_payload, loc.log_term, w5, s5, 1), reps)
     return res
 
 
@@ -3154,7 +3421,7 @@ def main() -> int:
                 "replaces": replaces, "launches": main["launches"][key],
                 "max_abs_err": err[key], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": "bytes", "library_ms": None,
+                "bound_by": "bytes", "library_ms": t.get("library_ms"),
                 "matches_plain": True,
             })
     for key, cfg_key, label in (("K5 A", "config_a", "multi-Raft G=16"),

@@ -751,18 +751,29 @@ def pipeline_flight(vecs, log_payload, log_term, wins, counts, alive, slow,
     return rec
 
 
+#: K4·mesh's parts (``csrc/steady.cu`` ``TURNOVER_*``): the payload row,
+#: the term row and the bookkeeping; the main path runs all three, and
+#: ``chip_smoke.py`` times each alone
+TURNOVER_PAYLOAD, TURNOVER_TERMS, TURNOVER_BOOK = 1, 2, 4
+TURNOVER_ALL = 7
+
+
 def turnover_flight(vecs, log_payload, log_term, wins, T: int,
                     prm: StepParams, out, ec_consts=None, my_row=-1,
-                    s0=None) -> None:
+                    s0=None, parts=TURNOVER_ALL) -> None:
     """K4: the write-only turnover flight. On the resident layout it runs
     only behind a ``pipeline_flight`` launched with ``turnover_ok`` on the
     same stream, and does its work only when that launch chose it. With
-    ``my_row >= 0``, K4·mesh: one payload row and one term row, from the
-    start slot ``s0`` that the mesh's host decision gives."""
+    ``my_row >= 0``, K4·mesh (a kernel of its own): one payload row and
+    one term row, from the start slot ``s0`` that the mesh's host decision
+    gives, with the bookkeeping of all T steps in closed form; ``parts``
+    (K4·mesh on the card only) runs a subset of its parts, for timing."""
     key = _mode(vecs, log_term, ec_consts, my_row, None, "turnover_flight")
     if (my_row >= 0) != (s0 is not None):
         raise ValueError("K4·mesh takes its start slot from the caller; "
                          "the resident K4 reads the plan's")
+    if parts != TURNOVER_ALL and not (my_row >= 0 and log_payload.is_cuda):
+        raise ValueError("parts selects a subset of K4·mesh on the card")
     work = workspace(vecs.device)
     if not log_payload.is_cuda:
         turnover_flight_plain(vecs, log_payload, log_term, wins, T, prm,
@@ -774,15 +785,23 @@ def turnover_flight(vecs, log_payload, log_term, wins, T: int,
     check_lanes(M, Mk, log_term.shape[0], ec_consts)
     _check_rings(vecs, log_payload, log_term, L)
     _check_index_range(C, M, wins)
-    ec = None if ec_consts is None else _ec_table(ec_consts, vecs.device)
-    W = M if my_row >= 0 else M // L
-    rc = cuda_build.lib("steady").rt_turnover(
-        vecs.data_ptr(), log_payload.data_ptr(), log_term.data_ptr(),
-        wins.data_ptr(), T, P, prm.lterm, prm.tfloor, L, C, B, M, Mk,
-        out.data_ptr(), work.data_ptr(), _ptr(ec),
-        _lane_width(ec, M, log_term.shape[0], W, log_payload, wins),
-        int(my_row), -1 if s0 is None else int(s0) % C,
-        cuda_build.stream_of(vecs))
+    lib, stream = cuda_build.lib("steady"), cuda_build.stream_of(vecs)
+    if my_row >= 0:       # 16-byte vectors, word pairs or single words
+        vec = 4 if vec4_ok(M, 1, log_payload, wins) else \
+            2 if vec2_ok(M, log_payload, wins) else 1
+        rc = lib.rt_turnover_mesh(
+            vecs.data_ptr(), log_payload.data_ptr(), log_term.data_ptr(),
+            wins.data_ptr(), T, P, prm.lterm, prm.tfloor, L, C, B, M,
+            int(s0) % C, out.data_ptr(), work.data_ptr(), vec, int(parts),
+            stream)
+    else:
+        ec = None if ec_consts is None else _ec_table(ec_consts,
+                                                      vecs.device)
+        rc = lib.rt_turnover(
+            vecs.data_ptr(), log_payload.data_ptr(), log_term.data_ptr(),
+            wins.data_ptr(), T, P, prm.lterm, prm.tfloor, L, C, B, M, Mk,
+            out.data_ptr(), work.data_ptr(), _ptr(ec),
+            _lane_width(ec, M, L, M // L, log_payload, wins), stream)
     cuda_build.check("steady", rc, key)
     LAUNCHES[key] += 1
 

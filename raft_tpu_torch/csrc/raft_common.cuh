@@ -260,6 +260,19 @@ __device__ inline void step_epilogue(int* vec, const StepPlan& pl,
 
 #define RT_EXPORT extern "C" __attribute__((visibility("default")))
 
+// SMs of the current device, queried once a device.
+static inline cudaError_t rt_sm_count(int* n) {
+  static int sms[64] = {0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && (dev < 0 || dev >= 64)) e = cudaErrorInvalidDevice;
+  if (e == cudaSuccess && sms[dev] == 0)
+    e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                               dev);
+  if (e == cudaSuccess) *n = sms[dev];
+  return e;
+}
+
 // Every library built from these sources names its CUDA errors.
 RT_EXPORT const char* rt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -18,21 +18,21 @@
 //    blocks itself, from the k data words at its own word offset of the
 //    WINDOW row (never from the ring), as their GF(2^8) combination
 //    (gf_packed.cuh). The [m][k][8] constant table lives in shared memory.
-// K2·mesh, K3·mesh, K4·mesh (LOCAL = true) replace the local=True
-//    branches of the same three kernels (step_pallas.py:217, :245, :268,
-//    :292, :361 in _steady_kernel; :751, :775, :816 in
-//    _steady_pipeline_kernel; :1155 in _turnover_kernel), driven by
-//    core/step_mesh.py: one replica row per rank. The (6, R) block is the
-//    plane gathered from every rank and the scalar core runs over all R
-//    rows of it; the rings hold the rank's own row (payload [C, W], terms
-//    [1, C], p.my the row). The merge writes that row where it accepts and
-//    reads no old term; the §5.3 conflict bit and the next prev-term
-//    column are closed forms (the row's tail is the window end; the next
-//    prev term is lterm for accepting rows, -1 for the rest), exact under
-//    the engine's steady-program invariants. The prev column comes in as
-//    an operand. The mesh decides the turnover branch on the host from the
-//    gathered plane, so K3·mesh never decides and K4·mesh takes its start
-//    slot from the caller.
+// K2·mesh, K3·mesh (LOCAL = true) and K4·mesh (turnover_mesh_kernel)
+//    replace the local=True branches of the same three kernels
+//    (step_pallas.py:217, :245, :268, :292, :361 in _steady_kernel; :751,
+//    :775, :816 in _steady_pipeline_kernel; :1155 in _turnover_kernel),
+//    driven by core/step_mesh.py: one replica row per rank. The (6, R)
+//    block is the plane gathered from every rank and the scalar core runs
+//    over all R rows of it; the rings hold the rank's own row (payload
+//    [C, W], terms [1, C], p.my the row). The merge writes that row where
+//    it accepts and reads no old term; the §5.3 conflict bit and the next
+//    prev-term column are closed forms (the row's tail is the window end;
+//    the next prev term is lterm for accepting rows, -1 for the rest),
+//    exact under the engine's steady-program invariants. The prev column
+//    comes in as an operand. The mesh decides the turnover branch on the
+//    host from the gathered plane, so K3·mesh never decides and K4·mesh
+//    takes its start slot from the caller.
 //
 // Bound: bytes. A step reads its window (count*Mk*4 B), writes the
 // accepted payload lanes, and reads (only where a row already holds an
@@ -93,6 +93,11 @@
 // it (grid-stride over C*M/V); K4·ec does it per (slot, word pair) with
 // the source window row worked out once per slot, the k data words loaded
 // once and the m parity words computed in registers (ec_row_write).
+// K4·mesh is a kernel of its own: the host knows the start slot, so a
+// block takes runs of slots whose source rows it works out once each, its
+// threads move 16-byte vectors (word pairs, or words, at rows that are not
+// 16-byte multiples) several at a time, and one warp of an extra block
+// writes the closed-form bookkeeping of all T steps at once.
 #include <type_traits>
 
 #include "raft_common.cuh"
@@ -657,17 +662,13 @@ __device__ inline void turnover_epilogue(int* vec_g, int T,
   out[L + 4] = 0;
 }
 
-// s0 >= 0: the caller decided (K4·mesh); otherwise the plan's decision and
-// start slot in work.
-template <int V, bool LOCAL>
+// The plan's decision and start slot come in work.
+template <int V>
 __global__ void turnover_kernel(int* vec_g, int* buf_p, int* log_term,
                                 const int* __restrict__ wins, int T, int P,
-                                SteadyParams p, int* out, unsigned* work,
-                                int s0) {
-  if (s0 < 0) {
-    if (__ldcg(&work[WK_PLAN]) == 0) return;  // K3 ran the flight
-    s0 = (int)__ldcg(&work[WK_S0]);
-  }
+                                SteadyParams p, int* out, unsigned* work) {
+  if (__ldcg(&work[WK_PLAN]) == 0) return;  // K3 ran the flight
+  const int s0 = (int)__ldcg(&work[WK_S0]);
   const int C = p.C, B = p.B, M = p.M, L = p.L;
   const int MV = M / V;
   const long TB = (long)T * B;
@@ -689,10 +690,128 @@ __global__ void turnover_kernel(int* vec_g, int* buf_p, int* log_term,
       buf_p[(size_t)d * M + v] = src[v];
     }
   }
-  const long terms = (long)(LOCAL ? 1 : L) * C;  // LOCAL: one term row
+  const long terms = (long)L * C;
   for (long e = gtid; e < terms; e += gstride) log_term[e] = p.lterm;
   if (blockIdx.x == 0 && threadIdx.x == 0)
     turnover_epilogue(vec_g, T, p, out, work);
+}
+
+// ------------------------------------------------------------ K4·mesh
+// The turnover bookkeeping in closed form, on one warp (lane l = row l).
+// Every row accepts every step and the commit condition only gets easier
+// as the tail grows, so the T steps of turnover_epilogue collapse into
+// one: the tail ends at VL[0] + T*B, a row adopts lterm (and drops its
+// vote) iff lterm exceeded its term at the start, and the commit moves to
+// the tail iff it may at the last step.
+__device__ inline void turnover_closed_form(int* vec_g, int T, int B, int C,
+                                            int L, int lterm, int tfloor,
+                                            int* out, unsigned* work) {
+  const int l = threadIdx.x;
+  const int last0 = vec_g[VL * L + 0];
+  int v[6] = {0, 0, 0, 0, 0, 0};
+  if (l < L)
+    for (int i = 0; i < 6; ++i) v[i] = vec_g[i * L + l];
+  __syncwarp();  // every lane has read VL[0] before lane 0 rewrites it
+  const int we = T > 0 ? last0 + T * B : 0;
+  if (T > 0) {
+    if (lterm > v[VT]) v[VV] = RT_NO_VOTE;
+    v[VT] = max(v[VT], lterm);
+    v[VL] = v[VMI] = we;
+    v[VMT] = lterm;
+    if (lterm >= 1 && we >= 1 && we >= tfloor) v[VC] = we;
+  }
+  if (l < L) {
+    for (int i = 0; i < 6; ++i) vec_g[i * L + l] = v[i];
+    out[l] = v[VMI];
+  }
+  if (l == 0) {
+    out[L + 0] = v[VC];
+    out[L + 1] = max(v[VT], lterm);
+    out[L + 2] = B;
+    out[L + 3] = floor_mod(we, C);
+    out[L + 4] = 0;
+    work[WK_RAN4] += 1;
+  }
+}
+
+// K4·mesh: the rank's payload row [C, W] and term row [1, C] from the
+// host's start slot s0. The last block runs the closed-form bookkeeping
+// on one warp; every other block takes runs of per = S * kUnroll slots
+// (S slots of W / V lane vectors a pass of its threads): the source row
+// of each slot is worked out once, by one thread, in 32-bit arithmetic,
+// into shared memory; then each thread moves kUnroll lane vectors with
+// their loads in flight together. A slot no step covers (T*B < C) keeps
+// its words, as the step loop leaves it.
+// parts (TURNOVER_*) selects what runs, all of it on the main path.
+enum { TURNOVER_PAYLOAD = 1, TURNOVER_TERMS = 2, TURNOVER_BOOK = 4 };
+
+template <int V>
+__global__ void __launch_bounds__(kWriteThreads)
+    turnover_mesh_kernel(int* vec_g, int* __restrict__ buf_p,
+                         int* __restrict__ log_term,
+                         const int* __restrict__ wins, int T, int P, int B,
+                         int C, int W, int L, int lterm, int tfloor, int s0,
+                         int* out, unsigned* work, int parts) {
+  typedef typename std::conditional<
+      V == 4, int4, typename std::conditional<V == 2, int2, int>::type>::type
+      U;
+  __shared__ int src_row[kWriteThreads * kUnroll];
+  const int copiers = gridDim.x - (parts & TURNOVER_BOOK ? 1 : 0);
+  if ((int)blockIdx.x == copiers) {
+    if (threadIdx.x < 32)
+      turnover_closed_form(vec_g, T, B, C, L, lterm, tfloor, out, work);
+    return;
+  }
+  const int WV = W / V;
+  const int S = max(1, (int)blockDim.x / WV);  // slots a pass of threads
+  const int per = S * kUnroll;                  // slots a block pass
+  const int so = threadIdx.x / WV;
+  const int ov0 = threadIdx.x - so * WV;
+  const int TB = T * B;
+  const int copy_end = parts & TURNOVER_PAYLOAD ? C : 0;
+  for (int base = blockIdx.x * per; base < copy_end;
+       base += copiers * per) {
+    __syncthreads();  // the last pass's sources are read
+    for (int i = threadIdx.x; i < per; i += blockDim.x) {
+      const int d = base + i;
+      if (d >= C) break;
+      int k = d - s0;
+      if (k < 0) k += C;
+      int row = -1;  // no step covers the slot
+      if (k < TB) {
+        const int pos = k + (TB - 1 - k) / C * C;  // the slot's last write
+        const int t = pos / B;
+        row = ((t % P) * B + (pos - t * B)) * W;
+      }
+      src_row[i] = row;
+    }
+    __syncthreads();
+    if (so >= S) continue;
+    for (int ov = ov0; ov < WV; ov += blockDim.x) {
+      U val[kUnroll];
+      int row[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int i = u * S + so;
+        row[u] = base + i < C ? src_row[i] : -1;
+        if (row[u] >= 0) val[u] = reinterpret_cast<const U*>(wins + row[u])[ov];
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (row[u] >= 0)
+          reinterpret_cast<U*>(buf_p + (size_t)(base + u * S + so) * W)[ov] =
+              val[u];
+    }
+  }
+  if (!(parts & TURNOVER_TERMS)) return;
+  // the term row, as 16-byte vectors where it is aligned
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = copiers * blockDim.x;
+  const int C4 = ((uintptr_t)log_term & 15) ? 0 : C / 4;
+  const int4 t4 = make_int4(lterm, lterm, lterm, lterm);
+  for (int e = tid; e < C4; e += stride)
+    reinterpret_cast<int4*>(log_term)[e] = t4;
+  for (int e = 4 * C4 + tid; e < C; e += stride) log_term[e] = lterm;
 }
 
 // K4·ec: one thread per (slot, word pair of the shard); the block's slots
@@ -841,19 +960,14 @@ RT_EXPORT int rt_steady_pipeline(void* vec_g, void* buf_p, void* log_term,
 #undef RT_PLAN_ARGS
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  static int sms[64] = {0};  // SMs of each device, queried once
-  int dev = 0;
-  cudaError_t e2 = cudaGetDevice(&dev);
-  if (e2 == cudaSuccess && (dev < 0 || dev >= 64)) e2 = cudaErrorInvalidDevice;
-  if (e2 == cudaSuccess && sms[dev] == 0)
-    e2 = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
-                                dev);
+  int sms = 0;
+  const cudaError_t e2 = rt_sm_count(&sms);
   if (e2 != cudaSuccess) return (int)e2;
   const long npos = min((long)T * B, (long)C);  // positions at most
   const long per_slot = (ec ? p.W : M) / vec;
   const int blocks =
       (int)max(1L, min((npos * per_slot + kWriteThreads - 1) / kWriteThreads,
-                       (long)kWriteBlocksPerSM * sms[dev]));
+                       (long)kWriteBlocksPerSM * sms));
 #define RT_WRITE_ARGS                                                      \
   (int*)buf_p, (const int*)wins, (const int4*)rec, T, P, p,                \
       (const unsigned*)work
@@ -882,17 +996,16 @@ RT_EXPORT int rt_steady_pipeline(void* vec_g, void* buf_p, void* log_term,
   return (int)cudaGetLastError();
 }
 
-// K4: the write-only turnover flight. With s0 < 0 it exits at once unless
-// the preceding plan published the turnover decision in work; with
-// s0 >= 0 (K4·mesh, decided on the host) it writes from that start slot.
-// vec, ec and my_row as rt_steady_pipeline.
+// K4: the write-only turnover flight. It exits at once unless the
+// preceding plan published the turnover decision in work. vec, ec as
+// rt_steady_pipeline.
 RT_EXPORT int rt_turnover(void* vec_g, void* buf_p, void* log_term,
                           const void* wins, int T, int P, int lterm,
                           int tfloor, int L, int C, int B, int M, int Mk,
                           void* out, void* work, const void* ec, int vec,
-                          int my_row, int s0, void* stream) {
+                          void* stream) {
   const SteadyParams p =
-      make_params(0, lterm, tfloor, 0, 0, 0, 0, L, C, B, M, Mk, my_row);
+      make_params(0, lterm, tfloor, 0, 0, 0, 0, L, C, B, M, Mk, -1);
   cudaStream_t st = (cudaStream_t)stream;
   if (ec) {
     const int S = max(1, kThreads / (p.W / vec));  // slots per block
@@ -910,17 +1023,45 @@ RT_EXPORT int rt_turnover(void* vec_g, void* buf_p, void* log_term,
   const int blocks = blocks_for((long)C * (M / vec));
 #define RT_K4_ARGS                                                         \
   (int*)vec_g, (int*)buf_p, (int*)log_term, (const int*)wins, T, P, p,     \
-      (int*)out, (unsigned*)work, s0
-  if (my_row >= 0) {
-    if (vec == 4)
-      turnover_kernel<4, true><<<blocks, kThreads, 0, st>>>(RT_K4_ARGS);
-    else
-      turnover_kernel<1, true><<<blocks, kThreads, 0, st>>>(RT_K4_ARGS);
-  } else if (vec == 4) {
-    turnover_kernel<4, false><<<blocks, kThreads, 0, st>>>(RT_K4_ARGS);
+      (int*)out, (unsigned*)work
+  if (vec == 4) {
+    turnover_kernel<4><<<blocks, kThreads, 0, st>>>(RT_K4_ARGS);
   } else {
-    turnover_kernel<1, false><<<blocks, kThreads, 0, st>>>(RT_K4_ARGS);
+    turnover_kernel<1><<<blocks, kThreads, 0, st>>>(RT_K4_ARGS);
   }
 #undef RT_K4_ARGS
+  return (int)cudaGetLastError();
+}
+
+// K4·mesh: the rank's payload row buf_p [C, W] and term row [1, C] from
+// the start slot s0 that the host decided, the (6, L) plane vec_g and out
+// = match[L] | scal[5]. vec: lane-vector width, 4, 2 or 1 (W a multiple of
+// it, every base aligned to it); parts: TURNOVER_* (7 = all).
+RT_EXPORT int rt_turnover_mesh(void* vec_g, void* buf_p, void* log_term,
+                               const void* wins, int T, int P, int lterm,
+                               int tfloor, int L, int C, int B, int W,
+                               int s0, void* out, void* work, int vec,
+                               int parts, void* stream) {
+  if (T < 0 || B < 1 || P < 1 || C < 1 || s0 < 0 || s0 >= C || L < 1 ||
+      L > 32 || (vec != 1 && vec != 2 && vec != 4) || W % vec)
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t e = rt_sm_count(&sms);
+  if (e != cudaSuccess) return (int)e;
+  const int per = max(1, kWriteThreads / (W / vec)) * kUnroll;
+  const int blocks =
+      max(1, min((C + per - 1) / per, kWriteBlocksPerSM * sms)) +
+      (parts & TURNOVER_BOOK ? 1 : 0);
+  cudaStream_t st = (cudaStream_t)stream;
+#define RT_K4M_ARGS                                                        \
+  (int*)vec_g, (int*)buf_p, (int*)log_term, (const int*)wins, T, P, B, C,  \
+      W, L, lterm, tfloor, s0, (int*)out, (unsigned*)work, parts
+  if (vec == 4)
+    turnover_mesh_kernel<4><<<blocks, kWriteThreads, 0, st>>>(RT_K4M_ARGS);
+  else if (vec == 2)
+    turnover_mesh_kernel<2><<<blocks, kWriteThreads, 0, st>>>(RT_K4M_ARGS);
+  else
+    turnover_mesh_kernel<1><<<blocks, kWriteThreads, 0, st>>>(RT_K4M_ARGS);
+#undef RT_K4M_ARGS
   return (int)cudaGetLastError();
 }

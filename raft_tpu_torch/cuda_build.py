@@ -32,7 +32,6 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_L = ctypes.c_longlong
 #: C signatures of the exported launchers
 SIGNATURES = {
     "ring": {
@@ -50,11 +49,14 @@ SIGNATURES = {
             [_P] * 5 + [_I, _I] + [_P] * 3 + [_I] * 14 + [_P] * 3
             + [_I, _I] + [_P] * 3,
             _I),
-        "rt_turnover": ([_P] * 4 + [_I] * 9 + [_P] * 3 + [_I] * 3 + [_P], _I),
+        "rt_turnover": ([_P] * 4 + [_I] * 9 + [_P] * 3 + [_I, _P], _I),
+        "rt_turnover_mesh": ([_P] * 4 + [_I] * 9 + [_P] * 2 + [_I] * 2
+                             + [_P], _I),
     },
     "ec": {
         "rt_error_string": ([_I], ctypes.c_char_p),
-        "rt_gf_apply": ([_P, _L, _L, _P, _L, _L, _P] + [_I] * 4 + [_P], _I),
+        "rt_gf_apply": ([_P, _P] + [_I] * 4 + [_P, _I, _I, _P] + [_I] * 4
+                        + [_P], _I),
         "rt_encode_fold": ([_P] * 3 + [_I] * 4 + [_P], _I),
     },
 }

@@ -4,12 +4,18 @@
 Multiplication by a constant c is GF(2)-linear in the bits of x, so
 ``mul(c, x) = XOR over set bits i of x of mul(c, 1 << i)``: one (output
 row, input row) term is 8 bit tests and XORs, and the per-code constants
-``mul(M[r, j], 1 << i)`` (``_bit_consts``) are all a device needs.
+``mul(M[r, j], 1 << i)`` (``_bit_consts``) are all the plain versions and
+K7 need. It is also a function of one byte, so K6 looks it up instead:
+``gf_tables`` packs ``mul(M[r, j], x)`` for four output rows r into one
+u32 per (input row j, byte x).
 
-- K6 (``csrc/ec.cu`` ``parity_kernel``; replaces ``_parity_pallas`` :77)
+- K6 (``csrc/ec.cu`` ``gf_table_kernel``; replaces ``_parity_pallas`` :77)
   applies such a matrix to k shard rows: the parity encode
   (``encode_device``) and, with a decode matrix, the reconstruction
-  decode (``decode_device``, replacing ``decode_pallas`` :240).
+  decode (``decode_device``, replacing ``decode_pallas`` :240). Its source
+  is described by a ``GfSource`` (row offsets, entry stride, a ring's
+  capacity and start slot), so ``decode_ring`` decodes a window of the
+  log ring in place, seam included, with no gather.
 - K7 (``csrc/ec.cu`` ``encode_fold_kernel``; replaces
   ``_encode_fold_pallas`` :161) encodes raw entries straight into the
   folded log layout (``encode_fold_device``).
@@ -25,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -63,6 +70,31 @@ def _decode_consts_key(n: int, k: int, rows: tuple) -> bytes:
     """Bit-decomposition constants of decode_matrix(rows), cached per
     (code, serving-row subset) — there are only C(n, k) of them."""
     return _bit_consts(RSCode(n, k).decode_matrix(list(rows))).tobytes()
+
+
+def gf_tables(matrix: np.ndarray) -> np.ndarray:
+    """u32[cols, ceil(rows / 4), 256]: entry x of table (j, g) holds
+    mul(matrix[4g + q, j], x) in byte q, for the output rows 4g + q that
+    exist (K6's lookup tables)."""
+    rows, cols = matrix.shape
+    x = np.arange(256, dtype=np.uint8)
+    out = np.zeros((cols, -(-rows // 4), 256), np.uint32)
+    for r in range(rows):
+        for j in range(cols):
+            out[j, r // 4] |= gf.mul(matrix[r, j], x).astype(np.uint32) \
+                << np.uint32(8 * (r % 4))
+    return out
+
+
+@lru_cache(maxsize=None)
+def _tables_on(device: torch.device, n: int, k: int, rows) -> torch.Tensor:
+    """K6's tables on ``device``, once per (code, row set): the parity
+    matrix's for ``rows=None``, else decode_matrix(rows) in the caller's
+    row order."""
+    code = RSCode(n, k)
+    m = code.parity_matrix if rows is None else code.decode_matrix(
+        list(rows))
+    return torch.from_numpy(gf_tables(m).view(np.int32)).to(device)
 
 
 def parity_consts(n: int, k: int) -> np.ndarray:
@@ -154,21 +186,51 @@ def _check_u8(name: str, t: torch.Tensor, ndim: int, sk_dim: int) -> None:
                          "whole 4-byte words")
 
 
-def _gf_apply(consts: np.ndarray, src: torch.Tensor, src_rs: int,
-              src_bs: int, out: torch.Tensor, out_rs: int, out_bs: int,
-              B: int, sk: int, what: str) -> None:
-    """Launch K6 over byte strides (see ``rt_gf_apply``)."""
-    rows, k, _ = consts.shape
-    if rows > MAX_ROWS or k > MAX_ROWS:
+class GfSource(NamedTuple):
+    """Where K6 reads its k input rows, in 4-byte words of the source: row
+    j of entry i at ``slot * entry + rows[j]``, ``slot = (start + i) mod
+    cap``."""
+
+    rows: tuple
+    entry: int
+    cap: int
+    start: int = 0
+
+
+def gather_source(src: torch.Tensor, source: GfSource, n: int,
+                  wk: int) -> torch.Tensor:
+    """The plain form of K6's source addressing: the k input rows of
+    entries [0, n) as u8[k, n, 4*wk], read from ``src`` (contiguous, any
+    dtype, as flat 4-byte words) where ``source`` says."""
+    flat = src.reshape(-1).view(torch.int32)
+    dev = src.device
+    slots = (source.start + torch.arange(n, device=dev)) % source.cap
+    idx = ((slots * source.entry)[None, :, None]
+           + torch.as_tensor(source.rows, device=dev)[:, None, None]
+           + torch.arange(wk, device=dev))
+    return flat[idx].view(torch.uint8).reshape(len(source.rows), n, 4 * wk)
+
+
+def _gf_apply(tables: torch.Tensor, rows_out: int, src: torch.Tensor,
+              source: GfSource, out: torch.Tensor, out_row: int,
+              out_entry: int, n: int, wk: int, what: str) -> None:
+    """Launch K6 (``rt_gf_apply``): ``n`` entries of ``wk`` words read
+    where ``source`` says, output row r of entry i at word ``r * out_row
+    + i * out_entry`` of ``out``."""
+    k = tables.shape[0]
+    if k > MAX_ROWS or rows_out > MAX_ROWS or len(source.rows) != k:
         raise ValueError(f"{what}: at most {MAX_ROWS} rows in and out")
     for t in (src, out):
-        if t.data_ptr() % 4:
-            raise ValueError(f"{what}: tensors must be 4-byte aligned")
-    table = np.ascontiguousarray(consts)
+        if t.data_ptr() % 4 or t.numel() * t.element_size() >= 2 ** 33:
+            raise ValueError(f"{what}: tensors must be 4-byte aligned and "
+                             "index in 32-bit words")
+    evens = (*source.rows, source.entry, out_row, out_entry, wk)
+    vec = 2 if all(o % 2 == 0 for o in evens) and all(
+        t.data_ptr() % 8 == 0 for t in (src, out)) else 1
     rc = cuda_build.lib("ec").rt_gf_apply(
-        src.data_ptr(), src_rs, src_bs, out.data_ptr(), out_rs, out_bs,
-        table.ctypes.data_as(ctypes.c_void_p), rows, k, B, sk // 4,
-        cuda_build.stream_of(src))
+        src.data_ptr(), (ctypes.c_int * k)(*source.rows), k, source.entry,
+        source.cap, source.start, out.data_ptr(), out_row, out_entry,
+        tables.data_ptr(), rows_out, n, wk, vec, cuda_build.stream_of(src))
     cuda_build.check("ec", rc, what)
 
 
@@ -186,9 +248,11 @@ def encode_device(code: RSCode, data: torch.Tensor) -> torch.Tensor:
     if sk % 4:
         raise ValueError(f"shard bytes {sk} must fill whole 4-byte words")
     parity = torch.empty(code.m, B, sk, dtype=torch.uint8, device=data.device)
-    if code.m:
-        _gf_apply(parity_consts(code.n, code.k), data, sk, S, parity, B * sk,
-                  sk, B, sk, "encode_device")
+    if code.m and B:
+        wk = sk // 4
+        src = GfSource(tuple(j * wk for j in range(code.k)), code.k * wk, B)
+        _gf_apply(_tables_on(data.device, code.n, code.k, None), code.m,
+                  data, src, parity, B * wk, wk, B, wk, "encode_device")
         LAUNCHES["encode"] += 1
     return torch.cat([d, parity])
 
@@ -197,18 +261,45 @@ def decode_device(code: RSCode, shards: torch.Tensor, rows) -> torch.Tensor:
     """u8[k, B, Sk] shards from ``rows`` -> u8[B, S] entries: K6 with the
     decode matrix of ``rows``, writing the entry layout directly (CUDA), or
     ``decode_bitwise`` (CPU)."""
-    rows = tuple(int(r) for r in rows)
-    if len(rows) != code.k:
-        raise ValueError(f"need exactly k={code.k} shard rows, got {rows}")
+    rows = _row_set(code, rows)
     if not shards.is_cuda:
         return decode_bitwise(code, shards, rows)
     _check_u8("shards", shards, 3, 2)
     shards = shards.contiguous()
     k, B, sk = shards.shape
-    out = torch.empty(B, k * sk, dtype=torch.uint8, device=shards.device)
-    _gf_apply(decode_consts(code.n, code.k, rows), shards, B * sk, sk, out,
-              sk, k * sk, B, sk, "decode_device")
-    LAUNCHES["decode"] += 1
+    wk = sk // 4
+    src = GfSource(tuple(j * B * wk for j in range(k)), wk, max(B, 1))
+    return _decode(code, rows, shards, src, B, wk, "decode_device")
+
+
+def decode_ring(code: RSCode, src: torch.Tensor, source: GfSource, n: int,
+                wk: int, rows) -> torch.Tensor:
+    """u8[n, S] entries decoded from the shard rows ``rows`` of ``n``
+    entries that ``source`` locates in ``src`` (a log ring, read in place:
+    ``ec.reconstruct.ring_source``): K6 (CUDA), or ``gather_source`` and
+    ``decode_bitwise`` (CPU)."""
+    rows = _row_set(code, rows)
+    if not src.is_cuda:
+        return decode_bitwise(code, gather_source(src, source, n, wk), rows)
+    if not src.is_contiguous():
+        raise ValueError("decode_ring reads a contiguous source")
+    return _decode(code, rows, src, source, n, wk, "decode_ring")
+
+
+def _row_set(code: RSCode, rows) -> tuple:
+    rows = tuple(int(r) for r in rows)
+    if len(rows) != code.k:
+        raise ValueError(f"need exactly k={code.k} shard rows, got {rows}")
+    return rows
+
+
+def _decode(code, rows, src, source, n, wk, what) -> torch.Tensor:
+    out = torch.empty(n, code.k * 4 * wk, dtype=torch.uint8,
+                      device=src.device)
+    if n:
+        _gf_apply(_tables_on(src.device, code.n, code.k, rows), code.k, src,
+                  source, out, wk, code.k * wk, n, wk, what)
+        LAUNCHES["decode"] += 1
     return out
 
 

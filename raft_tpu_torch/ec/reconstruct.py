@@ -10,11 +10,15 @@ analogue of Raft's InstallSnapshot.
 The fast path pays none of this: a read served by the k data rows needs no
 decode at all, and commit never decodes anything.
 
-Two differences of mechanism from the JAX package, none of result: the
-shard window is gathered on the device (only the requested slots move),
-and ``heal_replica`` re-encodes on the device with K6 where the JAX
-package uses its C++ host codec (``RSCode.encode_host``, equal to the
-NumPy ``encode``).
+Differences of mechanism from the JAX package, none of result: a
+decoding read hands K6 the log ring itself (``ring_source``: the serving
+rows' lane offsets, the ring's row stride, capacity and start slot), so
+the window is decoded in place on the card, seam included, where the JAX
+package copies the ring to the host and gathers the window there; the
+systematic read gathers only the requested slots on the device; and
+``heal_replica`` re-encodes on the device with K6 where the JAX package
+uses its C++ host codec (``RSCode.encode_host``, equal to the NumPy
+``encode``).
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.core.state import ReplicaState, slot_of
-from raft_tpu_torch.ec.kernels import decode_device, encode_device
+from raft_tpu_torch.ec.kernels import GfSource, decode_ring, encode_device
 from raft_tpu_torch.ec.rs import RSCode
 
 
@@ -44,21 +48,34 @@ def gather_shard_window(state: ReplicaState, rows: Sequence[int], lo: int,
     return words.permute(1, 0, 2).contiguous().view(torch.uint8)
 
 
+def ring_source(state: ReplicaState, rows: Sequence[int],
+                lo: int) -> GfSource:
+    """Where the shards of ``rows`` for log indices lo, lo+1, ... lie in
+    ``state.log_payload``: K6's source description of the ring (row
+    offsets ``rows[j] * W``, row stride ``R * W``, capacity C, start slot
+    ``(lo - 1) mod C``), in 4-byte words."""
+    w = state.words_per_entry
+    return GfSource(tuple(int(r) * w for r in rows),
+                    state.term.shape[0] * w, state.capacity,
+                    (lo - 1) % state.capacity)
+
+
 def _reconstruct(state: ReplicaState, code: RSCode, rows: Sequence[int],
                  lo: int, hi: int) -> torch.Tensor:
     """``reconstruct`` as a u8[hi-lo+1, S] tensor on the state's device."""
     rows = [int(r) for r in rows]
     if len(rows) != code.k:
         raise ValueError(f"need exactly k={code.k} shard rows, got {rows}")
-    shards = gather_shard_window(state, rows, lo, hi)
     if sorted(rows) == list(range(code.k)):
         # Systematic fast path: rows 0..k-1 hold the raw byte slices in
         # some order — reorder to shard id and stitch; no decode.
+        shards = gather_shard_window(state, rows, lo, hi)
         order = torch.as_tensor(np.argsort(np.asarray(rows)),
                                 device=shards.device)
         sh = shards.index_select(0, order)
         return sh.permute(1, 0, 2).reshape(sh.shape[1], -1)
-    return decode_device(code, shards, rows)
+    return decode_ring(code, state.log_payload, ring_source(state, rows, lo),
+                       hi - lo + 1, state.words_per_entry, rows)
 
 
 def reconstruct(state: ReplicaState, code: RSCode, rows: Sequence[int],
@@ -68,7 +85,7 @@ def reconstruct(state: ReplicaState, code: RSCode, rows: Sequence[int],
 
     ``rows`` picks which replicas serve the read (any k live ones): the
     data rows 0..k-1 in any order need no decode; any other set is decoded
-    by K6 on the device."""
+    by K6, which reads the ring in place on the card."""
     return _reconstruct(state, code, rows, lo, hi).cpu().numpy()
 
 

@@ -13,7 +13,12 @@ kernels with ``local=True`` (``step_pallas._invoke``, ``_run_pipeline``,
   row whose prev term disagrees;
 - K4·mesh across ring laps (write-only, interpret-faithful), launched
   with the start slot of the host's turnover decision (``core.step_mesh``
-  decides the branch; K3·mesh never does).
+  decides the branch; K3·mesh never does), and its bookkeeping on planes
+  the main path does not give: a leader term of 0, a term floor beyond
+  the flight's last tail, rows at mixed terms, votes and commits;
+- a Python mirror of K4·mesh's closed-form bookkeeping (all T steps at
+  once, ``csrc/steady.cu`` ``turnover_closed_form``) against the plain
+  step loop on random planes.
 
 B = 128, 8-byte entries (W = 2 words). Every vec word, ring word,
 match/scal word and next-prev word must be equal."""
@@ -170,13 +175,15 @@ def _steady_plane(R, last, lterm=1):
 
 
 def _flight_both(C, T, P, R, slow, alive=None, member=None, prev=None,
-                 turnover=False, last=0, seed=3):
+                 turnover=False, last=0, seed=3, lterm=1, tfloor=1,
+                 plane=None):
     """One flight of every row through the JAX local kernel (pipeline or
-    turnover) and the port's K3·mesh (+ K4·mesh) plain version."""
+    turnover) and the port's K3·mesh (+ K4·mesh) plain version, from
+    ``plane`` (default: every row caught up at ``last``)."""
     rng = np.random.default_rng(seed)
     alive = np.ones(R, bool) if alive is None else np.asarray(alive)
     slow = np.asarray(slow)
-    vecs0 = _steady_plane(R, last)
+    vecs0 = _steady_plane(R, last) if plane is None else plane
     prev = np.full(R, 1 if last else 0, np.int32) if prev is None else prev
     wins = rng.integers(-2**31, 2**31, (P, B, W), dtype=np.int64) \
         .astype(np.int32)
@@ -187,7 +194,7 @@ def _flight_both(C, T, P, R, slow, alive=None, member=None, prev=None,
     run = _j_flight(C, T, P, R, turnover)
     chosen = []
     for r in range(R):
-        scal = (0, 1, 1, 0, 0, alive, slow, member, None, R, False)
+        scal = (0, lterm, tfloor, 0, 0, alive, slow, member, None, R, False)
         params, masks = _j_params(r, *scal)
         (jlp, jlt, jv), ji = run(
             jnp.asarray(lp0), jnp.asarray(lt0), jnp.asarray(wins),
@@ -247,6 +254,80 @@ def test_k4_mesh_turnover_across_laps_matches_pallas_local(T, P):
     assert (vecs[3] == B + T * B).all()
 
 
+def _mixed_plane(R, last, seed=4):
+    """Rows caught up at ``last`` but at mixed terms, votes, commits and
+    match terms."""
+    rng = np.random.default_rng(seed)
+    plane = _steady_plane(R, last)
+    plane[0] = rng.integers(0, 5, R)
+    plane[1] = rng.integers(-1, R, R)
+    plane[3] = rng.integers(0, last + 1, R)
+    plane[5] = rng.integers(0, 4, R)
+    return plane
+
+
+#: K4·mesh's bookkeeping off the main path (C = 512, T = 4 flights of B
+#: from a tail of B: the last tail is 5·B)
+BOOKKEEPING = {
+    "lterm_0": dict(lterm=0),                     # no commit
+    "tfloor_beyond": dict(tfloor=5 * B + 1),      # no commit
+    "mixed_plane": dict(lterm=3, plane=_mixed_plane(3, B)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BOOKKEEPING))
+def test_k4_mesh_bookkeeping_matches_pallas_local(name):
+    kw = BOOKKEEPING[name]
+    vecs = _flight_both(512, 4, 4, 3, [False] * 3, turnover=True, last=B,
+                        **kw)
+    start = kw.get("plane", _steady_plane(3, B))
+    # only the mixed plane's flight may commit (a leader term, no floor)
+    want_commit = 5 * B if name == "mixed_plane" else start[3]
+    np.testing.assert_array_equal(vecs[3], want_commit)
+    np.testing.assert_array_equal(vecs[5], kw.get("lterm", 1))
+
+
+def _closed_form(v, T, B, C, lterm, tfloor):
+    """Python mirror of K4·mesh's bookkeeping (``turnover_closed_form``):
+    the new (6, R) plane and out = match[R] | scal[5]."""
+    v = v.copy()
+    we = int(v[2, 0]) + T * B if T > 0 else 0
+    if T > 0:
+        v[1] = np.where(lterm > v[0], -1, v[1])
+        v[0] = np.maximum(v[0], lterm)
+        v[2] = v[4] = we
+        v[5] = lterm
+        if lterm >= 1 and we >= 1 and we >= tfloor:
+            v[3] = we
+    return v, [*v[4], v[3, 0], max(v[0, 0], lterm), B, we % C, 0]
+
+
+def test_k4_mesh_closed_form_mirror_matches_step_loop():
+    rng = np.random.default_rng(11)
+    C = 512
+    for _ in range(150):
+        R, T = int(rng.integers(1, 6)), int(rng.integers(0, 10))
+        last = rng.integers(0, 3 * C, R)
+        plane = np.stack([
+            rng.integers(0, 5, R), rng.integers(-1, R, R), last,
+            np.minimum(last, rng.integers(0, 3 * C, R)),
+            rng.integers(0, 3 * C, R), rng.integers(0, 5, R),
+        ]).astype(np.int32)
+        lterm = int(rng.integers(0, 5))
+        tfloor = int(rng.integers(0, int(last[0]) + T * B + 2 * B))
+        prm = tsc.step_params(0, lterm, tfloor, 0, 0, None, R)
+        vecs = torch.from_numpy(plane.copy())
+        out = torch.zeros(R + 5, dtype=torch.int32)
+        tsc.turnover_flight_plain(
+            vecs, torch.zeros(C, W, dtype=torch.int32),
+            torch.zeros(1, C, dtype=torch.int32),
+            torch.zeros(2, B, W, dtype=torch.int32), T, prm, out,
+            tsc.workspace("cpu"), None, int(rng.integers(0, C)))
+        want_v, want_out = _closed_form(plane, T, B, C, lterm, tfloor)
+        np.testing.assert_array_equal(vecs.numpy(), want_v)
+        np.testing.assert_array_equal(out.numpy(), want_out)
+
+
 def test_mesh_mode_checks_its_operands():
     vecs = torch.zeros(6, 3, dtype=torch.int32)
     lp = torch.zeros(512, W, dtype=torch.int32)
@@ -262,6 +343,9 @@ def test_mesh_mode_checks_its_operands():
         tsc.steady_step(vecs, lp, torch.zeros(3, 512, dtype=torch.int32),
                         win, B, ones, ~ones, None, prm, out, my_row=1,
                         prev=torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="parts selects"):
+        tsc.turnover_flight(vecs, lp, lt, win[None], 4, prm, out[:8],
+                            my_row=1, s0=0, parts=tsc.TURNOVER_PAYLOAD)
     counts = dict(tsc.LAUNCHES)
     tsc.steady_step(vecs, lp, lt, win, B, ones, ~ones, None, prm, out,
                     my_row=1, prev=torch.zeros(3, dtype=torch.int32))
