@@ -3,16 +3,19 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``raft_tpu_torch/csrc`` and runs two
-deployments. First the north star (3 replicas, 256-byte entries, batch
+Builds the port's CUDA kernels from ``raft_tpu_torch/csrc`` and runs the
+port's deployments. First the north star (3 replicas, 256-byte entries, batch
 1024, a 32 768-slot ring):
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the kernels (all ``nvcc`` runs in parallel) and prints the time;
 3. holds every kernel against its plain PyTorch version on the card, bit
    for bit, on seam, partial, slow-row, dead-row, conflict, infeasible and
-   turnover cases (a K3 flight also phase by phase: its plan's per-step
-   record and outputs against ``pipeline_plan_plain``, its writer's
+   turnover cases (K1 also where rows hold entries of the window's own
+   terms, with conflicts on two rows, a one-entry window and 88-byte rows;
+   K2 also on an empty window, a stale leader, a member mask, conflicts on
+   two rows and the term_floor gate; a K3 flight also phase by phase: its
+   plan's per-step record and outputs against ``pipeline_plan_plain``, its writer's
    payload ring against ``pipeline_write_plain``), then through a
    200-step randomized multi-term schedule (kernel path on the card,
    plain path on the host);
@@ -21,13 +24,29 @@ deployments. First the north star (3 replicas, 256-byte entries, batch
    ``northstar.run_device`` on the same cluster with pipeline flights
    until 1 048 576 entries have committed (32 ring laps), a leader kill
    with re-election and catch-up; follower read-back hashes must equal the
-   input stream's, and every kernel must have launched;
+   input stream's, every kernel must have launched, and the north star's
+   own metric, the p50/p99 of per-step time (probe flights on a fresh
+   cluster, CUDA events around each), is printed on the same line;
 5. times each kernel (profiler medians of 21; K3 as its plan plus its
    writer, printed apart as ``k3_split``, with the turnover decision
-   alone and an 8-step dead-row flight) beside its plain version and its
-   byte bound (K4 and K4·mesh also beside ``library_ms``, the same ring
-   writes as one ``index_copy_`` and one ``fill_``), and the main path
-   per step.
+   alone and an 8-step dead-row flight; ``k2_split``, K2's device time
+   against its wrapper's CUDA-event time per call) beside its plain
+   version and its byte bound (K4 and K4·mesh also beside
+   ``library_ms``, the same ring writes as one ``index_copy_`` and one
+   ``fill_``; K1 beside its write yardstick, two ``index_copy_`` calls),
+   ``launch_floor`` (the device time of a one-element ``fill_``), and
+   the main path per step.
+
+Then BASELINE config 4 (5 replicas, 256-byte entries, batch 1024, a
+32 768-slot ring, row 4 induced-slow):
+
+5a. runs both of ``bench.py``'s programs on fresh clusters: 8 flights of
+    32 steps with ``allow_turnover=False`` (K3, no K4) and 64
+    repair-capable ticks (the general path, K1 twice a tick); each must
+    read back row 1 hash-equal to its input with commit equal to
+    submitted at rows 0-3 and row 4's log unmoved; prints their K3 and
+    K1 launches, entries/s, per-step p50/p99 (CUDA events), a profile of
+    one call (device time by kernel, idle share) and the faster program.
 
 Then BASELINE config 3 (5 replicas, RS(5,3) shards of 264-byte entries,
 batch 1024, a 32 768-slot ring, commit quorum 4):
@@ -39,7 +58,8 @@ batch 1024, a 32 768-slot ring, commit quorum 4):
    against the gathered window and the plain decode), K7 and K2/K3/K4 in
    their in-kernel parity mode against their plain versions on the card,
    bit for bit (seam, partial, dead-row, slow-row, conflict, turnover and
-   two-dead-row cases, then randomized multi-term schedules at config 3
+   two-dead-row cases, K2·ec's edges as K2's, its member mask under the
+   EC floor, then randomized multi-term schedules at config 3
    and at RS(4,2) with 8-byte entries and B = 128, and K3·ec/K4·ec
    flights at the odd shard widths W = 1 and 3);
 7. drives the EC main path on a fresh cluster: election, K7-fed ticks
@@ -77,7 +97,9 @@ entries, batch 256, a 4096-slot ring each; ``bench.py``
     per-group SHA-256 must equal the input's; one config-A group must
     equal the single-group ``replicate_step`` path, and K5 must have
     launched on both paths;
-11. times K5 at both shapes, config A's ms per 16-group step and config
+11. times K5 at both shapes (beside its write yardstick, one
+    ``index_copy_`` over the flattened group rings), config A's ms per
+    16-group step and config
     B's µs per group tick of a fused launch (CUDA events; the counterparts
     of ``bench.py``'s ``device_scan_us_per_step`` and
     ``single_device_us_per_group_tick``) and both device idle shares;
@@ -91,7 +113,7 @@ not a multi-card run), built through ``make_transport`` with
     versions, bit for bit, at the north star (R = 3) and at config 3 (R =
     5, the EC quorum): random gathered planes and prev columns, then the
     seam, partial, slow-row, dead-row, member-shrunk, infeasible and
-    lapped-turnover cases; K4·mesh's bookkeeping (a leader term of 0, a
+    lapped-turnover cases, and K2·mesh's edges as K2's (W = 64 and 22); K4·mesh's bookkeeping (a leader term of 0, a
     term floor beyond the last tail, mixed terms and votes) at 256-, 88-
     and 12-byte rows; then randomized multi-term schedules that keep
     the engine's invariants, each row's mesh kernels against the resident
@@ -111,7 +133,7 @@ not a multi-card run), built through ``make_transport`` with
     K4·mesh alone, no K3·mesh launch) and holds every rank's ring to its
     row of the single-device run;
 15. times K2·mesh, K3·mesh and K4·mesh beside their plain versions and
-    byte bounds (``k4_mesh_split``: its payload row, term row and
+    byte bounds (``k2_split`` as in 5; ``k4_mesh_split``: its payload row, term row and
     bookkeeping each alone, the whole with the L2 cache flushed, and at
     mesh config 3's rows), ``bench.py``'s ``bench_mesh1`` (a 1-rank
     group against the resident transport, per 32-step flight) and the
@@ -249,7 +271,7 @@ def window_lanes(cfg, consts):
 
 
 def k2_case(cfg, dev, rng, st, count, alive, slow, consts=None, lterm=1,
-            tfloor=1):
+            tfloor=1, member=None):
     """One step of K2 (K2·ec with ``consts``) and of its plain version on
     clones of ``st``. Returns (max error, the kernel's commit index)."""
     import torch
@@ -261,18 +283,60 @@ def k2_case(cfg, dev, rng, st, count, alive, slow, consts=None, lterm=1,
                          ec=cfg.ec_enabled)
     al = torch.tensor(alive, dtype=torch.bool, device=dev)
     sl = torch.tensor(slow, dtype=torch.bool, device=dev)
+    mem = None if member is None else torch.tensor(member, dtype=torch.bool,
+                                                   device=dev)
     win = rand_window(rng, cfg.batch_size, window_lanes(cfg, consts), dev)
     outs = []
     for fn in (sc.steady_step, sc.steady_step_plain):
         s2 = st.clone()
         v = sc.pack(s2)
         out = torch.zeros(2 * L + 5, dtype=torch.int32, device=dev)
-        fn(v, s2.log_payload, s2.log_term, win, count, al, sl, None, prm, out,
+        fn(v, s2.log_payload, s2.log_term, win, count, al, sl, mem, prm, out,
            consts)
         outs.append((v, s2, out))
     (vk, sk, ok_), (vp, sp, op) = outs
     return max_err([(vk, vp), (ok_, op), (sk.log_payload, sp.log_payload),
                     (sk.log_term, sp.log_term)]), int(ok_[L])
+
+
+def k2_edge_states(cfg, dev, rng):
+    """States for K2's edge cases (all three modes), from a caught-up
+    cluster at 5·B: ``stale``, whose leader (row 0) is in term 3, so a
+    step in term 2 is stale; ``two``, whose rows 1 and 2 hold suffixes
+    past the leader's tail (term 1, some slots term 0), so a step in term
+    2 raises the §5.3 conflict on both."""
+    B = cfg.batch_size
+    base = steady_state(cfg, dev, 5 * B, rng=rng)
+    stale = base.clone()
+    stale.term[0] = 3
+    two = base.clone()
+    two.last_index[1] = 5 * B + 500
+    two.last_index[2] = 5 * B + 700
+    two.log_term[1, 5 * B + 100:5 * B + 200] = 0
+    two.log_term[2, 5 * B:5 * B + 300] = 0
+    return base, stale, two
+
+
+def k2_edge_cases(cfg, dev, rng, k2, quorum_member):
+    """K2's edges through ``k2(state, count, alive, slow, **kw)`` (which
+    returns the commit index): an empty window, a stale leader, a member
+    mask (``quorum_member``; in the parity mode the EC floor clamps its
+    majority), conflicts on two rows, and the term_floor gate holding the
+    commit back. Checks what each must commit."""
+    B, L = cfg.batch_size, cfg.rows
+    ones, none = [1] * L, [0] * L
+    base, stale, two = k2_edge_states(cfg, dev, rng)
+    check(k2(base, 0, ones, none) == 5 * B, "K2 empty window")
+    check(k2(stale, B, ones, none, lterm=2) == 5 * B,
+          "K2 stale leader must not commit")
+    member, want = quorum_member
+    check(k2(base, B, ones, none, member=member) == want,
+          f"K2 member mask {member} commits to {want}")
+    check(k2(two, B, ones, none, lterm=2, tfloor=5 * B + 1) == 6 * B,
+          "K2 conflicts on two rows")
+    check(k2(base, B, ones, none, tfloor=6 * B + 1) == 5 * B,
+          "K2 term_floor holds the commit back")
+    return 5
 
 
 def scan_case(cfg, dev, rng, st, counts, alive, slow, consts=None):
@@ -387,6 +451,58 @@ def flight_case(cfg, dev, rng, st, T, P, counts, alive, slow, turnover_ok,
          (sk.log_term, sp.log_term)]), int(ok_[L])
 
 
+def k1_case(dev, rng, L, M, C, B, s, count, acc, kind):
+    """K1 and its plain version on the same random rings and window (L
+    rows of M / L lanes): ``kind`` "random" (random terms and last
+    indices around the window), "conflict" (row 1 holds a stale term in
+    the window's middle), "conflict2" (rows 0 and L-1 hold stale terms,
+    at the window's last and first entries), "same_term" (every row holds
+    entries of the window's own terms across it: the old terms are read
+    and no flag may rise). Returns the max error; checks the flags."""
+    import torch
+
+    from raft_tpu_torch.core import ring_cuda
+
+    buf_p = rand_window(rng, C, M, dev)
+    buf_t = torch.from_numpy(rng.integers(1, 4, (L, C)).astype(
+        np.int32)).to(dev)
+    win = rand_window(rng, B, M, dev)
+    win_t = torch.from_numpy(rng.integers(1, 4, B).astype(np.int32)).to(dev)
+    ws = s + 1 + 3 * C
+    last = torch.from_numpy(rng.integers(ws - 5, ws + B + 5, L).astype(
+        np.int32)).to(dev)
+    slots = (s + torch.arange(B, device=dev)) % C
+    n = min(count, B)
+    if kind in ("conflict", "conflict2"):
+        win_t.fill_(3)
+        buf_t[:, slots] = 3
+        last.fill_(ws + B + 9)
+        if kind == "conflict":
+            buf_t[1, slots[n // 2]] = 2
+        else:
+            buf_t[0, slots[max(n - 1, 0)]] = 2
+            buf_t[L - 1, slots[0]] = 1
+    elif kind == "same_term":
+        buf_t[:, slots] = win_t
+        last.fill_(ws + B + 9)
+    accept = torch.tensor(acc, dtype=torch.bool, device=dev)
+    a = (buf_p.clone(), buf_t.clone())
+    b = (buf_p.clone(), buf_t.clone())
+    mm_k = ring_cuda.write_window_both(a[0], a[1], win, win_t, s, count, ws,
+                                       accept, last)
+    mm_p = ring_cuda.write_window_both_plain(b[0], b[1], win, win_t, s,
+                                             count, ws, accept, last)
+    flags = mm_k.tolist()
+    if kind == "conflict" and count:
+        check(flags[1] == 1, "K1 conflict flag not raised")
+    if kind == "conflict2" and count:
+        check(flags[0] == 1 and flags[L - 1] == 1 and sum(flags) == 2,
+              f"K1 two-row conflict flags {flags}")
+    if kind == "same_term":
+        check(sum(flags) == 0, f"K1 raised {flags} on matching terms")
+    return max_err([(a[0], b[0]), (a[1], b[1]), (mm_k, mm_p)])
+
+
 def phase_kernels(cfg, dev, n_random=200):
     """Every kernel against its plain version on the same inputs."""
     import torch
@@ -403,44 +519,45 @@ def phase_kernels(cfg, dev, n_random=200):
         errs[key] = max(errs[key], err)
         cases[key] += 1
 
-    # K1 — seam, partial count, mixed accept, truncating conflict
-    for s, count, acc, conflict in [
-            (0, B, [1, 1, 1], False), (C - B + 300, B, [1, 0, 1], False),
-            (C - 1, 777, [1, 1, 0], False), (4096, 777, [0, 0, 0], False),
-            (C - 200, B, [1, 1, 1], True), (12345, 0, [1, 1, 1], True)]:
-        buf_p = rand_window(rng, C, M, dev)
-        buf_t = torch.from_numpy(rng.integers(1, 4, (L, C)).astype(
-            np.int32)).to(dev)
-        win = rand_window(rng, B, M, dev)
-        win_t = torch.from_numpy(rng.integers(1, 4, B).astype(
-            np.int32)).to(dev)
-        ws = s + 1 + 3 * C
-        last = torch.from_numpy(rng.integers(ws - 5, ws + B + 5, L).astype(
-            np.int32)).to(dev)
-        if conflict:
-            win_t.fill_(3)
-            slots = (s + torch.arange(B, device=dev)) % C
-            buf_t[:, slots] = 3
-            buf_t[1, slots[min(count, B) // 2]] = 2   # stale term, row 1
-            last.fill_(ws + B + 9)
-        accept = torch.tensor(acc, dtype=torch.bool, device=dev)
-        a = (buf_p.clone(), buf_t.clone())
-        b = (buf_p.clone(), buf_t.clone())
-        mm_k = ring_cuda.write_window_both(a[0], a[1], win, win_t, s, count,
-                                           ws, accept, last)
-        mm_p = ring_cuda.write_window_both_plain(
-            b[0], b[1], win, win_t, s, count, ws, accept, last)
-        if conflict and count:
-            check(int(mm_k[1]) == 1, "K1 conflict flag not raised")
-        note("K1", max_err([(a[0], b[0]), (a[1], b[1]), (mm_k, mm_p)]))
+    # K1 — seam, partial count, mixed accept, truncating conflict; rows
+    # that hold entries of the window's own terms (the read path, no
+    # flag), conflicts on two rows, a one-entry window; then 88-byte rows
+    # (config 3's M = 110, moved word by word)
+    k1_rows = {}
+    for L_, M_, table in (
+            (L, M, [(0, B, [1, 1, 1], "random"),
+                    (C - B + 300, B, [1, 0, 1], "random"),
+                    (C - 1, 777, [1, 1, 0], "random"),
+                    (4096, 777, [0, 0, 0], "random"),
+                    (C - 200, B, [1, 1, 1], "conflict"),
+                    (12345, 0, [1, 1, 1], "conflict"),
+                    (0, B, [1, 1, 1], "same_term"),
+                    (C - 300, B, [1, 0, 1], "conflict2"),
+                    (4097, 1, [1, 1, 1], "random"),
+                    (C - 1, 1, [1, 1, 1], "conflict")]),
+            (5, 110, [(C - B + 77, B, [1, 1, 0, 1, 1], "random"),
+                      (5, 500, [1, 1, 1, 1, 1], "conflict2"),
+                      (C - 40, B, [1, 0, 1, 1, 1], "same_term"),
+                      (99, 1, [1, 1, 1, 1, 1], "conflict")])):
+        for s, count, acc, kind in table:
+            note("K1", k1_case(dev, rng, L_, M_, C, B, s, count, acc, kind))
+            k1_rows[f"M={M_}"] = k1_rows.get(f"M={M_}", 0) + 1
+
+    def k2_commit(key, *args, **kw):
+        err, commit = k2_case(cfg, dev, rng, *args, **kw)
+        note(key, err)
+        return commit
 
     def k2(*args, **kw):
-        note("K2", k2_case(cfg, dev, rng, *args, **kw)[0])
+        k2_commit("K2", *args, **kw)
 
     base = steady_state(cfg, dev, 5 * B, rng=rng)
     seam = steady_state(cfg, dev, 3 * C - B + 300, rng=rng)
     k2(base, B, [1, 1, 1], [0, 0, 0])
     k2(seam, B, [1, 1, 1], [0, 0, 0])                     # wrap seam
+    cases["K2 edges"] = k2_edge_cases(
+        cfg, dev, rng, lambda *a, **kw: k2_commit("K2", *a, **kw),
+        ([1, 1, 0], 6 * B))
     k2(seam, 777, [1, 1, 1], [0, 0, 1])                   # partial, slow row
     k2(base, B, [1, 1, 0], [0, 0, 0])                     # dead row
     k2(base, B, [1, 1, 1], [0, 1, 1])                     # no quorum
@@ -491,7 +608,7 @@ def phase_kernels(cfg, dev, n_random=200):
     for k in errs:
         check(errs[k] == 0, f"{k} differs from its plain version by "
                             f"{errs[k]}")
-    emit({"phase": "kernels_vs_plain", "cases": cases,
+    emit({"phase": "kernels_vs_plain", "cases": cases, "k1_cases": k1_rows,
           "max_abs_err": errs, "random_schedule_steps": rsteps})
     return errs
 
@@ -737,7 +854,9 @@ def phase_main_path(cfg, dev, entries=ENTRIES):
     # 32 ring laps of 32 x 1024 entries, read back from both followers
     flights = -(-entries // (T * B))
     run = run_device(cfg, entries, SEED + 3, transport=tr, state=state,
-                     rows=S.rows)
+                     rows=S.rows, measure_latency=True)
+    check(run.latency_method == "device", "north-star latency not from the "
+                                          "device")
     state = run.state
     S.skip(entries)
     check(state.commit_index.tolist()[0] == S.submitted, "flight commit")
@@ -805,10 +924,151 @@ def phase_main_path(cfg, dev, entries=ENTRIES):
         "pipeline_wall_s": run.wall_s,
         "pipeline_us_per_step_wall": run.wall_s * 1e6 / (flights * T),
         "pipeline_entries_per_s_wall": entries / run.wall_s,
+        # the north star's metric: per-step time of 32-step probe flights
+        # on a fresh cluster, CUDA events around each flight / 32
+        "p50_us_per_step": run.p50_us, "p99_us_per_step": run.p99_us,
+        "latency_method": run.latency_method,
         "main_path_wall_s": wall,
     }
     emit(result)
     return result
+
+
+# ---------------------------------------------------- BASELINE config 4
+C4_CALLS = 8          # calls of each program
+C4_TICKS = 8          # repair-capable ticks a call (64 in all)
+
+
+def c4_config():
+    """BASELINE config 4 (``bench.py`` ``c4_slow``, :3214-3231): 5
+    replicas, 256-byte entries, batch 1024, a 32 768-slot ring, one
+    induced-slow follower (row 4); commit at a majority, which the four
+    rows that accept hold."""
+    from raft_tpu_torch.config import RaftConfig
+
+    return RaftConfig(n_replicas=5, entry_bytes=256, batch_size=1024,
+                      log_capacity=1 << 15, transport="single")
+
+
+def phase_config4_main_path(dev):
+    """Config 4 through ``SingleDeviceTransport``, both of the JAX bench's
+    programs, each on a fresh cluster (row 0 elected in term 1, row 4
+    slow): 8 flights of 32 steps with ``allow_turnover=False`` (262 144
+    entries of K3, no K4), and 64 repair-capable ticks as 8
+    ``replicate_many(..., repair=True)`` calls of 8 (the general path,
+    two K1 launches a tick). For each: row 1's read-back SHA-256 against
+    the input's, commit equal to submitted and held by rows 0-3 (4 of 5),
+    row 4's log unmoved, the K3 and K1 launches (counted from zero just
+    before the program), entries/s on the host clock over the program
+    (generation, upload, calls, read-back, hashing), and per-step p50/p99
+    from CUDA events around each call (uploads outside them), all but the
+    last call, which runs under the profiler (device time by kernel, idle
+    share). The faster program is the one with the lower p50 per
+    step, as ``bench.py``'s ``_best_program`` picks it."""
+    import torch
+
+    from raft_tpu_torch.transport.device import SingleDeviceTransport
+
+    cfg = c4_config()
+    R, B = cfg.rows, cfg.batch_size
+    alive = torch.ones(R, dtype=torch.bool, device=dev)
+    slow4 = torch.tensor([False] * 4 + [True], device=dev)
+    programs = {
+        "steady_flights": (STEPS_PER_FLIGHT, lambda tr, st, pay, cnt:
+                           tr.replicate_pipeline(
+                               st, pay, cnt, 0, 1, alive, slow4,
+                               term_floor=1, allow_turnover=False)),
+        "repair_capable_ticks": (C4_TICKS, lambda tr, st, pay, cnt:
+                                 tr.replicate_many(st, pay, cnt, 0, 1,
+                                                   alive, slow4,
+                                                   repair=True)),
+    }
+    res = {"phase": "config4_main_path", "n_replicas": R,
+           "entry_bytes": cfg.entry_bytes, "batch": B,
+           "capacity": cfg.log_capacity, "slow_row": 4,
+           "commit_quorum": cfg.commit_quorum}
+    for name, (steps, call) in programs.items():
+        tr = SingleDeviceTransport(cfg, device=dev)
+        S = Stream(cfg, rows=(1,))
+        state, vi = tr.request_votes(tr.init(), 0, 1, alive)
+        check(int(vi.votes) == R, f"config 4 {name}: election of row 0")
+        row4_last = int(state.last_index[4])
+        cnt = torch.full((steps,), B, dtype=torch.int32, device=dev)
+        zero_counters(dev)
+        times = []
+        box = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(C4_CALLS):
+            if i == C4_CALLS - 1:
+                wall = time.perf_counter() - t0
+            pay = S.batches(steps, [B] * steps).to(dev)
+            if i < C4_CALLS - 1:
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                state, info = call(tr, state, pay, cnt)
+                b.record()
+                b.synchronize()
+                times.append(a.elapsed_time(b) * 1e3 / steps)
+            else:       # the last call under the profiler
+                def one(st=state, pay=pay):
+                    box["out"] = call(tr, st, pay, cnt)
+
+                events, pwall = _device_events(one, 1)
+                state, info = box.pop("out")
+            S.read_back(state)
+        counters = read_counters(dev)
+        n = S.submitted
+        check(n == C4_CALLS * steps * B, f"config 4 {name}: submitted")
+        by_kind = {}
+        for ev, us in events:
+            kind = kernel_of(ev) or ("copy" if "emcpy" in ev else "other")
+            by_kind[kind] = by_kind.get(kind, 0.0) + us
+        busy = sum(by_kind.values())
+        check(state.commit_index.tolist()[:4] == [n] * 4
+              and state.last_index.tolist()[:4] == [n] * 4,
+              f"config 4 {name}: commit {state.commit_index.tolist()} is "
+              f"not {n} on rows 0-3")
+        check(int(state.last_index[4]) == row4_last,
+              f"config 4 {name}: the slow row's log moved")
+        check(S.h_row[1].hexdigest() == S.h_in.hexdigest(),
+              f"config 4 {name}: row 1's read-back differs from the input")
+        if name == "steady_flights":
+            check(counters["K3_flights_run"] == C4_CALLS
+                  and counters["K4"] == 0 and counters["K1"] == 0,
+                  f"config 4 flights: launches {counters}")
+        else:
+            check(counters["K1"] == 2 * C4_CALLS * steps
+                  and counters["K3"] == 0,
+                  f"config 4 ticks: launches {counters}")
+        res[name] = {
+            "calls": C4_CALLS, "steps_per_call": steps, "entries": n,
+            "commit": int(state.commit_index[0]), "holders": 4,
+            "row4_last_index": int(state.last_index[4]),
+            "sha256_input": S.h_in.hexdigest(),
+            "sha256_row1": S.h_row[1].hexdigest(),
+            "launches": counters,
+            # all calls but the last: host clock (generation, upload, the
+            # call, read-back, hashing) and CUDA events per call
+            "timed_calls": C4_CALLS - 1, "wall_s": wall,
+            "entries_per_s_wall": (C4_CALLS - 1) * steps * B / wall,
+            "p50_us_per_step": float(np.percentile(times, 50)),
+            "p99_us_per_step": float(np.percentile(times, 99)),
+            "latency_method": "device",
+            # the last call under the profiler: where its time went
+            "profiled_call": {
+                "wall_ms": pwall * 1e3, "device_busy_ms": busy / 1e3,
+                "device_idle_share": 1.0 - busy / (pwall * 1e6),
+                "device_us_per_step": busy / steps,
+                "device_ms_by_kind": {k: v / 1e3
+                                      for k, v in by_kind.items()}},
+        }
+        del state, tr
+    res["faster_program"] = min(
+        programs, key=lambda k: res[k]["p50_us_per_step"])
+    emit(res)
+    return res
 
 
 # --------------------------------------------------------------- phase 5
@@ -910,13 +1170,14 @@ def kernel_of(name):
                  if any(f in name for f in fns)), None)
 
 
-def kernel_ms(key, fn, reps, before=None, inner=1, split=None):
+def kernel_ms(key, fn, reps, before=None, inner=1, split=None, fns=None):
     """The kernel's device time per call (profiler medians; for a kernel
     of several CUDA functions the sum of their medians, each put in
     ``split`` by name), and the wrapper's time per call (CUDA events
-    around back-to-back calls)."""
+    around back-to-back calls). ``fns`` names the CUDA functions when
+    ``key`` is not in KERNEL_FN."""
     call_ms = _events_ms(fn, reps, inner=inner, before=before)
-    fns = KERNEL_FN[key]
+    fns = fns or KERNEL_FN[key]
     for attempt in range(6):
         dev, _ = _device_events(fn, reps, before=before)
         mine = {f: [us for name, us in dev if f in name] for f in fns}
@@ -1007,8 +1268,11 @@ def time_steady_kernels(cfg, dev, rng, reps, consts=None):
 
     step_bytes = B * Mk * 4 + B * M * 4 + 2 * L * B * 4 + 2 * 6 * L * 4 + \
         (2 * L + 5) * 4 + 2 * L
+    # what this step needs: no row holds an entry inside its window, so
+    # its terms are written and none is read (the prev column is)
+    k2_bytes = step_bytes - L * B * 4 + L * 4
     out["K2" + tag] = (kernel_ms("K2" + tag, k2, reps, inner=20),
-                       _host_ms(k2p, reps), step_bytes)
+                       _host_ms(k2p, reps), k2_bytes)
 
     # K3: one main-path flight, 32 steps over 32 distinct windows (every
     # row accepting, turnover not allowed), so each step reads its own
@@ -1072,6 +1336,15 @@ def time_steady_kernels(cfg, dev, rng, reps, consts=None):
     return out, flight
 
 
+def k2_split(timed):
+    """Where a K2 call's time goes: the kernel's device time against the
+    wrapper's CUDA-event time per call over back-to-back calls (the
+    difference is host work the device waits for)."""
+    (ms, call_ms), _, _ = timed
+    return {"device_ms": ms, "events_ms_per_call": call_ms,
+            "host_us_per_call": (call_ms - ms) * 1e3}
+
+
 def record_matches_plain(what, flight, state, out, wins, cnt, al, sl, mem,
                          prm, br, consts=None, my=-1, prev=None):
     """One more flight at the timed shape (``flight()`` runs it in place on
@@ -1115,10 +1388,26 @@ def phase_timing(cfg, dev, card_line, reps=21):
         ring_cuda.write_window_both_plain(st.log_payload, st.log_term, win,
                                           win_t, s, cnt, ws, al, last)
 
-    # bytes: window read + payload write, term read + write, win_t, masks
-    k1_bytes = 2 * B * M * 4 + 2 * L * B * 4 + B * 4 + 2 * L * 4 + 12
+    # bytes: window read + payload write, term writes (no row holds an
+    # entry in the window, so no old term is read), win_t, masks, scalars
+    k1_bytes = 2 * B * M * 4 + L * B * 4 + B * 4 + 2 * L * 4 + 12
     out["K1"] = (kernel_ms("K1", k1, reps, inner=20), _host_ms(k1p, reps),
                  k1_bytes)
+    # its write yardstick: the same window rows and terms as two
+    # index_copy_ calls (all rows accept, nothing to compare)
+    idx = (5 * B + torch.arange(B, device=dev)) % C
+    wt_rows = win_t[None].expand(L, B).contiguous()
+
+    def k1_yard():
+        st.log_payload.index_copy_(0, idx, win)
+        st.log_term.index_copy_(1, idx, wt_rows)
+
+    k1_library = ops_ms(k1_yard, reps)
+    # the launch floor: the device time of a one-element fill_, by the
+    # same method
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    floor_ms = kernel_ms("launch_floor", lambda: one.fill_(7), reps,
+                         inner=20, fns=("FillFunctor",))[0]
 
     steady, fl = time_steady_kernels(cfg, dev, rng, reps)
     out.update(steady)
@@ -1147,6 +1436,8 @@ def phase_timing(cfg, dev, card_line, reps=21):
                        + 2 * live * B * 4) + 2 * 6 * L * 4 + (L + 5) * 4
     torch.cuda.synchronize()
     res = {"phase": "timing", "card": card_line, "mem_bytes_per_s": rate,
+           "launch_floor_ms": floor_ms,
+           "k2_split": k2_split(out["K2"]),
            "k3_split": fl["split"], "k3_decision_only": {
                "ms": plan_ms[0], "call_ms": plan_ms[1], "split": decision},
            "k3_dead_row_8_steps": {
@@ -1156,6 +1447,7 @@ def phase_timing(cfg, dev, card_line, reps=21):
         res[k] = {"ms": ms, "call_ms": call_ms, "plain_ms": pms,
                   "bytes": nbytes, "bound_ms": nbytes / rate * 1e3}
     res["K4"]["library_ms"] = fl["library_ms"]
+    res["K1"]["library_ms"] = k1_library
     res["main_path_profile"] = profile_flights(cfg, dev)
     emit(res)
     return res
@@ -1316,6 +1608,10 @@ def phase_ec_kernels(ecfg, dev, n_random=120):
           "K2·ec commits at 4 of 5")                           # 4 of 5
     check(k2(base, B, [1, 1, 1, 0, 0], none) == 5 * B,         # two dead
           "K2·ec must not commit with two rows dead")
+    # the edges; three members hold a majority of 2, which the EC floor
+    # lifts to 4: no commit
+    cases["K2·ec edges"] = k2_edge_cases(ecfg, dev, rng, k2,
+                                         ([1, 1, 1, 0, 0], 5 * B))
     conflict = base.clone()                                    # stale suffix
     conflict.last_index[2] = 5 * B + 700
     conflict.log_term[2, 5 * B:5 * B + 300] = 0
@@ -1688,6 +1984,7 @@ def phase_ec_timing(ecfg, dev, card_line, reps=21):
     plan_ms = kernel_ms("K3·ec", fl["plan"], reps, split=decision)
     torch.cuda.synchronize()
     res = {"phase": "ec_timing", "card": card_line, "mem_bytes_per_s": rate,
+           "k2_split": k2_split(out["K2·ec"]),
            "k3_split": fl["split"], "k3_decision_only": {
                "ms": plan_ms[0], "call_ms": plan_ms[1], "split": decision},
            "k6_bank_probe": {"zero_bytes_ms": bank},
@@ -2330,9 +2627,17 @@ def phase_group_timing(dev, card_line, reps=21):
         plain = _host_ms(lambda: write_window_cols_xla(buf, win, s, cnt, sel),
                          reps)
         nbytes = 2 * G * B * M * 4 + G * M + 2 * G * 4
+        # its write yardstick: every group's window rows as one
+        # index_copy_ over the flattened (group, slot) rows
+        idx = (torch.arange(G, device=dev)[:, None] * C
+               + (s.long()[:, None] + torch.arange(B, device=dev)) % C
+               ).reshape(-1)
+        flat, rows = buf.view(G * C, M), win.view(G * B, M)
+        library = ops_ms(lambda: flat.index_copy_(0, idx, rows), reps)
         res[f"K5 {name}"] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain,
-                             "bytes": nbytes, "bound_ms": nbytes / rate * 1e3}
-        del buf, win
+                             "bytes": nbytes, "bound_ms": nbytes / rate * 1e3,
+                             "library_ms": library}
+        del buf, win, flat, rows
         # the group tick on a steady cluster: every group ingests B
         gi = torch.arange(G, device=dev)
         leaders = (gi % R).to(torch.int32)
@@ -2519,7 +2824,7 @@ def mesh_cases(cfg, dev, rng, note, n_random):
     slow_last = off[:-1] + [1]
     dead_last = on[:-1] + [0]
     shrunk = [1] + [0] * (R - 1)
-    base = steady_state(cfg, dev, 5 * B, rng=rng)
+    base, stale, two = k2_edge_states(cfg, dev, rng)
     seam = steady_state(cfg, dev, 3 * C - B + 300, rng=rng)
     T = STEPS_PER_FLIGHT
     for r in range(R):
@@ -2533,16 +2838,25 @@ def mesh_cases(cfg, dev, rng, note, n_random):
                 list(rng.random(R) < 0.2), leader=int(rng.integers(0, R)),
                 lterm=int(rng.integers(0, 4)),
                 tfloor=int(rng.integers(0, 2 * C))))
-        for st, count, alive, slow, member in (
-                (base, B, on, off, None), (seam, B, on, off, None),
-                (seam, 777, on, slow_last, None),
-                (base, B, dead_last, off, None),
-                (base, B, on, off, shrunk)):
+        # the seam, a partial window, slow, dead and member-shrunk rows;
+        # then the edges: an empty window, a stale leader, a member mask
+        # (at config 3 the EC floor lifts its majority), two rows past
+        # the leader's tail, the term_floor gate
+        for st, count, alive, slow, member, kw in (
+                (base, B, on, off, None, {}), (seam, B, on, off, None, {}),
+                (seam, 777, on, slow_last, None, {}),
+                (base, B, dead_last, off, None, {}),
+                (base, B, on, off, shrunk, {}),
+                (base, 0, on, off, None, {}),
+                (stale, B, on, off, None, dict(lterm=2)),
+                (base, B, on, off, on[:3] + off[3:], {}),
+                (two, B, on, off, None, dict(lterm=2, tfloor=5 * B + 1)),
+                (base, B, on, off, None, dict(tfloor=6 * B + 1))):
             loc = local_row(st, r, W)
             note("K2·mesh", mesh_step_case(
                 cfg, dev, rng, sc.pack(st), prev_column(st, 0),
                 loc.log_payload, loc.log_term, r, count, alive, slow,
-                member))
+                member, **kw))
         part = [B] * T
         part[5], part[17] = 300, 0
         for args, want in (
@@ -3258,6 +3572,7 @@ def time_mesh_kernels(cfg, dev, rng, reps, rate):
     res = {k: {"ms": ms, "call_ms": call_ms, "plain_ms": pms,
                "bytes": nbytes, "bound_ms": nbytes / rate * 1e3}
            for k, ((ms, call_ms), pms, nbytes) in out.items()}
+    res["k2_split"] = k2_split(out["K2·mesh"])
     res["k3_split"] = split
     check(T * B == C, "the yardstick needs one writer a slot")
     res["K4·mesh"]["library_ms"] = ops_ms(
@@ -3377,6 +3692,21 @@ MESH_KERNELS = [
 ]
 
 
+#: config 4's two programs (``phase_config4_main_path``)
+C4_PROGRAMS = ("steady_flights", "repair_capable_ticks")
+#: what each row's library_ms times (None: no library call computes it)
+LIBRARY_IS = {
+    "K1": "write-only yardstick: index_copy_ of the window rows and of "
+          "the window terms (all rows accepting, no conflict to check)",
+    "K4": "index_copy_ of the T*B = C window rows and fill_ of the term "
+          "ring",
+    "K4·mesh": "index_copy_ of the T*B = C window rows and fill_ of the "
+               "term row",
+    "K5": "write-only yardstick: one index_copy_ of every group's window "
+          "rows over the flattened (group, slot) rows, all lanes selected",
+}
+
+
 def main() -> int:
     if not (HERE / "raft_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py needs the repository around it: "
@@ -3395,6 +3725,7 @@ def main() -> int:
     errs = phase_kernels(cfg, dev)
     main_res = phase_main_path(cfg, dev)
     timing = phase_timing(cfg, dev, card_line)
+    c4_main = phase_config4_main_path(dev)
     ecfg = ec_config()
     ec_errs = phase_ec_kernels(ecfg, dev)
     ec_main = phase_ec_main_path(ecfg, dev)
@@ -3416,12 +3747,20 @@ def main() -> int:
                                    mesh_timing)):
         for key, name, src, replaces in table:
             t = tim[key]
+            by_path = {"main": main["launches"][key]}
+            if main is main_res and key in ("K1", "K3"):
+                # config 4's programs run K1 (the ticks) and K3 (the
+                # flights) on their own main path
+                by_path["config4"] = sum(c4_main[p]["launches"][key]
+                                         for p in C4_PROGRAMS)
             kernels.append({
                 "name": f"{key} {name}", "route": "cuda", "source": src,
-                "replaces": replaces, "launches": main["launches"][key],
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
                 "max_abs_err": err[key], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": "bytes", "library_ms": t.get("library_ms"),
+                "library_is": LIBRARY_IS.get(key),
                 "matches_plain": True,
             })
     for key, cfg_key, label in (("K5 A", "config_a", "multi-Raft G=16"),
@@ -3435,7 +3774,8 @@ def main() -> int:
             "launches": group_main[cfg_key]["k5_launches"],
             "max_abs_err": group_errs["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": "bytes", "library_ms": None, "matches_plain": True,
+            "bound_by": "bytes", "library_ms": t["library_ms"],
+            "library_is": LIBRARY_IS["K5"], "matches_plain": True,
         })
     emit({"kernels": kernels})
     print(card_line, flush=True)

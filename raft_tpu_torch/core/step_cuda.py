@@ -684,7 +684,8 @@ def steady_step(vecs, log_payload, log_term, win, count, alive, slow,
         win.data_ptr(), cnt_ptr, cnt_val, alive.data_ptr(), slow.data_ptr(),
         _ptr(member), *prm, L, C, B, M, Mk, out.data_ptr(),
         workspace(vecs.device).data_ptr(), _ptr(ec),
-        int(ec is None and vec4_ok(M, log_term.shape[0], log_payload, win)),
+        _lane_width(ec, M, log_term.shape[0], M // log_term.shape[0],
+                    log_payload, win),
         int(my_row), _ptr(prev), cuda_build.stream_of(vecs))
     cuda_build.check("steady", rc, key)
     LAUNCHES[key] += 1
@@ -872,12 +873,14 @@ def steady_scan_replicate(state: ReplicaState, payloads, counts, leader,
 def steady_pipeline(state: ReplicaState, wins, counts, leader, leader_term,
                     alive, slow, floor_prev_term, repair_floor, member,
                     term_floor, commit_quorum=None, ec=False,
-                    ec_consts=None):
+                    ec_consts=None, allow_turnover=True):
     """T saturated steady steps as one flight (``steady_pipeline_tpu``):
-    K3, then K4 when ``T*B >= C``; the device decides which one writes
-    (K4 only when every row accepts). ``ec_consts`` as in
-    ``steady_replicate_step``. Returns (state, final RepInfo). Consumes
-    ``state``."""
+    K3, then K4 when ``allow_turnover`` and ``T*B >= C``; the device
+    decides which one writes (K4 only when every row accepts). A caller
+    that expects the general regime (a slow row, spare rows) passes
+    ``allow_turnover=False`` and gets K3 alone (``step_pallas.py:1016``).
+    ``ec_consts`` as in ``steady_replicate_step``. Returns (state, final
+    RepInfo). Consumes ``state``."""
     L, C = state.log_term.shape
     dev = state.device
     prm, alive, slow, member = _prepare(
@@ -890,7 +893,7 @@ def steady_pipeline(state: ReplicaState, wins, counts, leader, leader_term,
     T = counts.shape[0]
     if T < 1:
         raise ValueError("a flight needs at least one step")
-    turnover_ok = T * B >= C
+    turnover_ok = bool(allow_turnover) and T * B >= C
     vecs = pack(state)
     out = torch.empty(L + 5, dtype=torch.int32, device=dev)
     pipeline_flight(vecs, state.log_payload, state.log_term, wins, counts,

@@ -154,12 +154,13 @@ def mesh_scan_replicate(comm, state: ReplicaState, payloads, counts, leader,
 
 
 def flight_branch(vecs, prev, counts, alive, slow, member, prm, B: int,
-                  C: int, rank: int):
+                  C: int, rank: int, allow_turnover: bool = True):
     """The regime of a mesh flight, decided on host copies of the gathered
     plane ``vecs`` (6, R), prev column [R], ``counts`` [T] and masks:
-    "turnover" (T·B >= C, feasible, every row accepting: K4·mesh),
-    "flight" (feasible: K3·mesh) or "scan" (K2·mesh); and the start slot.
-    Every rank decides alike on the same plane."""
+    "turnover" (``allow_turnover``, T·B >= C, feasible, every row
+    accepting: K4·mesh), "flight" (feasible: K3·mesh) or "scan"
+    (K2·mesh); and the start slot. Every rank decides alike on the same
+    plane."""
     R = vecs.shape[1]
     params, masks = params_and_masks(prm, alive, slow, member, rank)
     s0 = int(vecs[_VL, prm.leader]) % C
@@ -168,22 +169,23 @@ def flight_branch(vecs, prev, counts, alive, slow, member, prm, B: int,
         prm.leader, prm.lterm, prm.rfloor, prm.fpt)
     if not bool(feasible):
         return "scan", s0
-    if counts.shape[0] * B >= C and bool(accept0.all()):
+    if allow_turnover and counts.shape[0] * B >= C and bool(accept0.all()):
         return "turnover", s0
     return "flight", s0
 
 
 def mesh_pipeline(comm, state: ReplicaState, wins, counts, leader,
                   leader_term, alive, slow, floor_prev_term, repair_floor,
-                  member, term_floor, commit_quorum=None, ec=False):
+                  member, term_floor, commit_quorum=None, ec=False,
+                  allow_turnover=True):
     """T saturated steps on the mesh (``wins`` [P, B, W], step t takes
     wins[t % P]) in the JAX package's three regimes: the write-only
-    turnover (K4·mesh) when T·B >= C, the flight is feasible and every
-    row accepts; otherwise the flight (K3·mesh) when it is feasible; else
-    the per-step scan (K2·mesh). All three are decided here
-    (``flight_branch``, on the host copy of the gathered plane), so every
-    rank takes the same branch and a turnover flight launches K4·mesh
-    alone. Returns (state, the final step's RepInfo). Consumes
+    turnover (K4·mesh) when ``allow_turnover``, T·B >= C, the flight is
+    feasible and every row accepts; otherwise the flight (K3·mesh) when
+    it is feasible; else the per-step scan (K2·mesh). All three are
+    decided here (``flight_branch``, on the host copy of the gathered
+    plane), so every rank takes the same branch and a turnover flight
+    launches K4·mesh alone. Returns (state, the final step's RepInfo). Consumes
     ``state``."""
     global LAST_DISPATCH
     LAST_DISPATCH = "pipeline"
@@ -204,7 +206,8 @@ def mesh_pipeline(comm, state: ReplicaState, wins, counts, leader,
                                            else [member])).cpu()
     branch, s0 = flight_branch(
         vecs_h, prev_h, counts_h, masks_h[0], masks_h[1],
-        None if member is None else masks_h[2], prm, B, C, comm.rank)
+        None if member is None else masks_h[2], prm, B, C, comm.rank,
+        bool(allow_turnover))
     if branch == "scan":
         outs = _scan(comm, vecs, prev, state, lambda t: wins[t % P], counts,
                      alive, slow, member, prm)

@@ -22,16 +22,3 @@ __device__ __forceinline__ unsigned gf_mul_packed(unsigned x,
     acc ^= ((x >> i) & 0x01010101u) * (unsigned)c8[i];
   return acc;
 }
-
-// Parity word p at word offset o of a window row that holds k data lane
-// blocks of W words each (step_pallas.py:93 _encode_parity_lanes);
-// ``consts`` is the [m][k][8] bit-decomposition table of the parity matrix.
-__device__ __forceinline__ unsigned gf_parity_word(const int* row, int p,
-                                                   int k, int W, int o,
-                                                   const uint8_t* consts) {
-  unsigned acc = 0;
-  for (int j = 0; j < k; ++j)
-    acc ^= gf_mul_packed((unsigned)row[(size_t)j * W + o],
-                         consts + (p * k + j) * 8);
-  return acc;
-}

@@ -36,16 +36,42 @@
 //
 // Bound: bytes. A step reads its window (count*Mk*4 B), writes the
 // accepted payload lanes, and reads (only where a row already holds an
-// entry) and writes count*L term slots; the scalar core is O(L^2) integer
-// operations, O(L) on a warp. K4 writes the whole payload and term rings
-// once and reads the T*B window rows that survive.
+// entry) and writes count*L term slots; the scalar core is O(L) on a
+// warp. K4 writes the whole payload and term rings once and reads the T*B
+// window rows that survive.
 //
-// K2. Every block recomputes the prologue (L <= 32 scalars) on thread 0;
-// each thread owns (window row, lane vector) pairs and writes slot
-// (s + jj) mod C directly; conflict bits meet in one 32-bit word through
-// atomicOr; the last block to finish (threadfence + an atomic ticket)
-// runs the epilogue and derives the next start slot and prev-term column,
-// so a scan is T back-to-back launches with no host work in between.
+// K2 moves well under a megabyte, so below its bytes the launch floor and
+// the chains of dependent loads bound it. Its design shortens the chains:
+//  - The scalar core runs on warp 0 of every block (lane l = row l,
+//    raft_common.cuh): the (6, L) block, the masks and the prev-term column
+//    load in parallel, one lane a row (the column from the ring in the
+//    resident mode, after the leader's tail; from prev_col on the mesh).
+//  - Meanwhile the other threads have already issued their window loads
+//    (the window always holds B rows); only the stores wait for count, the
+//    start slot and the accept bits. The parity mode prefetches its k data
+//    words into L1 instead, since ec_row_write loads them itself.
+//  - The merge walks rows: a thread's lane vector (a word pair of every
+//    shard in the parity mode) is fixed, and each window row's slot is
+//    (s + jj), wrapped once, in 32-bit arithmetic. 16-byte vectors, two
+//    rows a thread in flight (one row with the parity writer). The grid is
+//    sized by SM count, at most two blocks an SM, so the window spreads
+//    over the card (four rows a thread kept it on 52 of the 132 SMs) and a
+//    few hundred blocks at most take the ticket.
+//  - The term merge is spread over the block, one thread a (row, window
+//    row), and reads an old term only where the row already holds an entry
+//    (ws + jj <= last[l]), as K3's does; the conflict bits meet through a
+//    warp OR and one shared atomic a warp.
+//  - The parity mode writes its rows through ec_row_write (the k data words
+//    loaded once a word pair, the m parity words in registers).
+//  - The ticket: every block adds 1 (and 1 << 16 when it raised a conflict
+//    bit, after its atomicOr and a fence); warp 0 of the last block runs
+//    the epilogue from the registers its prologue left. It reads the
+//    conflict word only when the ticket says a block raised one, and needs
+//    no other block's stores: the next prev-term column is lterm for an
+//    accepting row and, for the rest, the old term at the window's last
+//    slot, which warp 0 loaded right after the prologue (nothing in the
+//    step writes it). So a scan is T back-to-back launches with no host
+//    work in between.
 //
 // K3 is two ordinary launches on one stream, a plan and a writer. Within a
 // flight nothing reads the payload ring: only the term ring and the (6, L)
@@ -121,137 +147,277 @@ static const int kPlanThreads = 512;
 static const int kWriteBlocksPerSM = 2;
 static const int kWriteThreads = 512;
 
-template <int V, bool EC, bool LOCAL>
-__global__ void steady_step_kernel(int* vec, int* buf_p, int* log_term,
-                                   const int* __restrict__ win,
-                                   const int* cnt_ptr, int cnt_val,
-                                   const uint8_t* alive, const uint8_t* slow,
-                                   const uint8_t* member, SteadyParams p,
-                                   int* out, unsigned* work,
-                                   const uint8_t* ec, const int* prev_col) {
-  __shared__ StepPlan pl;
-  __shared__ int is_last;
-  __shared__ uint8_t ec_sh[EC ? RT_EC_BYTES : 1];
-  if (EC) load_ec_table(ec_sh, ec, p);
-  if (threadIdx.x == 0) {
-    const int cnt = cnt_ptr ? *cnt_ptr : cnt_val;
-    step_prologue(vec, cnt, log_term, LOCAL ? prev_col : nullptr, alive,
-                  slow, p, pl);
+// ------------------------------------- EC rows (K2·ec, K3·ec, K4·ec)
+// The word-pair row routine: lanes (o in units of V2 words) of every shard
+// in ``rows`` of one ring row from one data-lane window row. The k data
+// vectors are loaded once; data rows store them, parity rows their GF(2^8)
+// combination (step_pallas.py:93 _encode_parity_lanes), computed in
+// registers from the [m][k][8] table. Codes wider than RT_KMAX data shards
+// take the rest from memory.
+#define RT_KMAX 8
+template <int V2>
+struct Lanes;
+template <>
+struct Lanes<1> {
+  typedef int T;
+  static __device__ __forceinline__ int mul(int x, const uint8_t* c) {
+    return (int)gf_mul_packed((unsigned)x, c);
   }
-  __syncthreads();
-  const long gtid = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long gstride = (long)gridDim.x * blockDim.x;
-  step_merge<V, EC, LOCAL>(buf_p, log_term, win, pl, vec + VL * p.L, p,
-                           ec_sh, &work[WK_MM], gtid, gstride);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    const unsigned ticket = atomicAdd(&work[WK_TICKET], 1u);
-    is_last = ticket == gridDim.x - 1;
+  static __device__ __forceinline__ int add(int a, int b) { return a ^ b; }
+};
+template <>
+struct Lanes<2> {
+  typedef int2 T;
+  static __device__ __forceinline__ int2 mul(int2 x, const uint8_t* c) {
+    return make_int2((int)gf_mul_packed((unsigned)x.x, c),
+                     (int)gf_mul_packed((unsigned)x.y, c));
   }
-  __syncthreads();
-  if (is_last && threadIdx.x == 0) {
-    __threadfence();
-    const unsigned mm = atomicExch(&work[WK_MM], 0u);
-    const int L = p.L;
-    step_epilogue<LOCAL>(vec, pl, mm, alive, slow, member, p, out, out + L);
-    // the next step's prev-term column: the term now at the window's last
-    // slot (LOCAL: its closed form), or the unchanged column after an
-    // empty window
-    const int q = floor_mod(pl.s + pl.count - 1, p.C);
-    for (int l = 0; l < L; ++l) {
-      int nxt = pl.prev_ts[l];
-      if (pl.count > 0)
-        nxt = LOCAL ? (((pl.acc >> l) & 1u) ? p.lterm : -1)
-                    : __ldcg(log_term + (size_t)l * p.C + q);
-      out[L + 5 + l] = nxt;
+  static __device__ __forceinline__ int2 add(int2 a, int2 b) {
+    return make_int2(a.x ^ b.x, a.y ^ b.y);
+  }
+};
+
+template <int V2>
+__device__ inline void ec_row_write(int* dst_row, const int* src_row, int o,
+                                    unsigned rows, const SteadyParams& p,
+                                    const uint8_t* tbl) {
+  typedef Lanes<V2> X;
+  typedef typename X::T U;
+  const int W2 = p.W / V2, k = p.Mk / p.W;
+  const U* src = reinterpret_cast<const U*>(src_row) + o;
+  U* dst = reinterpret_cast<U*>(dst_row) + o;
+  U x[RT_KMAX];
+#pragma unroll
+  for (int j = 0; j < RT_KMAX; ++j) {
+    x[j] = U();
+    if (j < k) {
+      x[j] = src[j * W2];
+      if ((rows >> j) & 1u) dst[j * W2] = x[j];
     }
-    atomicExch(&work[WK_TICKET], 0u);
+  }
+  for (int j = RT_KMAX; j < k; ++j)
+    if ((rows >> j) & 1u) dst[j * W2] = src[j * W2];
+  for (unsigned par = rows >> k; par; par &= par - 1) {
+    const int q = __ffs(par) - 1;
+    const uint8_t* c = tbl + q * k * 8;
+    U acc = U();
+#pragma unroll
+    for (int j = 0; j < RT_KMAX; ++j)
+      if (j < k) acc = X::add(acc, X::mul(x[j], c + j * 8));
+    for (int j = RT_KMAX; j < k; ++j)
+      acc = X::add(acc, X::mul(src[j * W2], c + j * 8));
+    dst[(k + q) * W2] = acc;
+  }
+}
+
+// ----------------------------------------------------------------- K2
+// Window rows a K2 thread takes per pass, their loads in flight together
+// (one row in the parity mode, whose row writer loads its k data words
+// itself), and the blocks an SM takes at most.
+static const int kStepUnroll = 2;
+static const int kStepBlocksPerSM = 2;
+
+// One steady step (see the header). V: the lane-vector width (4 or 1; in
+// the parity mode word pairs, 2, or words). A thread owns lane vector ov0
+// (a word pair of every shard in the parity mode) of window rows base +
+// u*S + so, u < KU, in passes of gridDim.x * S * KU rows.
+template <int V, bool EC, bool LOCAL>
+__global__ void __launch_bounds__(kThreads)
+    steady_step_kernel(int* vec, int* __restrict__ buf_p, int* log_term,
+                       const int* __restrict__ win, const int* cnt_ptr,
+                       int cnt_val, const uint8_t* alive, const uint8_t* slow,
+                       const uint8_t* member, SteadyParams p, int* out,
+                       unsigned* work, const uint8_t* ec,
+                       const int* prev_col) {
+  static_assert(!(EC && LOCAL), "mesh windows arrive pre-encoded");
+  typedef typename std::conditional<V == 4, int4, int>::type U;
+  constexpr int KU = EC ? 1 : kStepUnroll;
+  __shared__ LaneStep sh_st;        // the step's prologue results
+  __shared__ int sh_last[RT_LMAX];  // every row's last index at the start
+  __shared__ unsigned sh_mm;        // the block's §5.3 conflict bits
+  __shared__ unsigned sh_ticket;
+  __shared__ uint8_t ec_sh[EC ? RT_EC_BYTES : 1];
+  const unsigned full = 0xffffffffu;
+  const int L = p.L, C = p.C, B = p.B;
+  const int lane = threadIdx.x & 31;
+  const bool w0 = threadIdx.x < 32;
+  const bool row = lane < L;
+  const int WV = (EC ? p.W : p.M) / V;
+  const int S = max(1, (int)blockDim.x / WV);
+  const int so = threadIdx.x / WV;
+  const int ov0 = threadIdx.x - so * WV;
+  const bool mover = so < S;
+  const int per = S * KU;
+  const int stride = gridDim.x * per;
+  const int base0 = blockIdx.x * per;
+
+  // the first pass's window loads, before the prologue: the window always
+  // holds B rows, and only the stores wait for the step's scalars
+  U val[KU];
+  if (mover) {
+#pragma unroll
+    for (int u = 0; u < KU; ++u) {
+      const int jj = base0 + u * S + so;
+      if (jj >= B) continue;
+      const int* src = win + (size_t)jj * p.Mk;
+      if constexpr (EC) {
+        for (int j = 0; j < p.Mk / p.W; ++j)
+          prefetch_l1(src + j * p.W + ov0 * V);
+      } else {
+        val[u] = reinterpret_cast<const U*>(src)[ov0];
+      }
+    }
+  }
+  if (EC) load_ec_table(ec_sh, ec, p);
+
+  // the prologue on warp 0, lane l = row l
+  LaneRow r = {0, 0, 0, 0, 0, 0, 0, false, false, false};
+  LaneStep st = {0, 0, 0, 0, 0u, 0u, false};
+  int q = 0, old_q = 0;
+  if (w0) {
+    const int cnt = cnt_ptr ? *cnt_ptr : cnt_val;
+    const bool mem = lane_load(vec, alive, slow, member, L, lane, r);
+    if (LOCAL) {
+      if (row) r.prev = prev_col[lane];
+    } else {
+      // the prev-term column: every row's term at the slot before the
+      // leader's frontier
+      const int last0 = __shfl_sync(full, r.vl, p.leader);
+      if (row)
+        r.prev = __ldcg(log_term + (size_t)lane * C +
+                        floor_mod(max(last0, 1) - 1, C));
+    }
+    q = lane_quorum(mem, member, p);
+    lane_prologue(r, cnt, p, lane, st);
+    // the term a row that does not accept keeps at the window's last slot
+    // (its next prev term; the step writes no term of that row)
+    if (!LOCAL && row && st.count > 0 && !((st.acc >> lane) & 1u))
+      old_q = __ldcg(log_term + (size_t)lane * C +
+                     floor_mod(st.s + st.count - 1, C));
+    if (row) sh_last[lane] = r.vl;
+    if (lane == 0) {
+      sh_st = st;
+      sh_mm = 0;
+    }
+  }
+  __syncthreads();
+  const int count = sh_st.count, s = sh_st.s, ws = sh_st.ws;
+  const unsigned acc = sh_st.acc;
+
+  // the payload merge: the accepting rows' lanes of window rows jj < count
+  // into slot (s + jj) mod C
+  if (mover) {
+    bool loaded = true;  // val holds (base0, ov0)
+    for (int base = base0, ov = ov0; base < count;) {
+      if constexpr (EC) {
+        const int jj = base + so;
+        if (jj < count) {
+          int d = s + jj;
+          if (d >= C) d -= C;
+          ec_row_write<V>(buf_p + (size_t)d * p.M, win + (size_t)jj * p.Mk,
+                          ov, acc, p, ec_sh);
+        }
+      } else {
+        const int l = LOCAL ? p.my : (ov * V) / p.W;
+        if ((acc >> l) & 1u) {
+          if (!loaded) {
+#pragma unroll
+            for (int u = 0; u < KU; ++u) {
+              const int jj = base + u * S + so;
+              if (jj < count)
+                val[u] = reinterpret_cast<const U*>(
+                    win + (size_t)jj * p.Mk)[ov];
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < KU; ++u) {
+            const int jj = base + u * S + so;
+            if (jj >= count) continue;
+            int d = s + jj;
+            if (d >= C) d -= C;
+            reinterpret_cast<U*>(buf_p + (size_t)d * p.M)[ov] = val[u];
+          }
+        }
+      }
+      loaded = false;
+      ov += blockDim.x;
+      if (ov >= WV) {
+        ov = ov0;
+        base += stride;
+      }
+    }
+  }
+
+  // the term merge, one thread a (row, window row) of the block's rows:
+  // lterm into the accepting rows' slots; an old term is read only where
+  // the row holds an entry (LOCAL: no read, one row)
+  unsigned bits = 0;
+  const int rows = LOCAL ? 1 : L;
+  for (int base = base0; base < count; base += stride) {
+    for (int i = threadIdx.x; i < per * rows; i += blockDim.x) {
+      const int l = i / per;
+      const int jj = base + (i - l * per);
+      if (jj >= count) continue;
+      int d = s + jj;
+      if (d >= C) d -= C;
+      int* tp = log_term + (size_t)l * C + d;
+      if (!LOCAL && ws + jj <= sh_last[l] && __ldcg(tp) != p.lterm)
+        bits |= 1u << l;
+      if ((acc >> (LOCAL ? p.my : l)) & 1u) *tp = p.lterm;
+    }
+  }
+  if (!LOCAL) {
+    bits = __reduce_or_sync(full, bits);
+    if (lane == 0 && bits) atomicOr(&sh_mm, bits);
+  }
+  __syncthreads();
+
+  // the ticket: 1 a block, plus 1 << 16 from a block that raised a
+  // conflict bit (published before it)
+  if (threadIdx.x == 0) {
+    unsigned add = 1;
+    if (sh_mm) {
+      atomicOr(&work[WK_MM], sh_mm);
+      __threadfence();
+      add += 1u << 16;
+    }
+    sh_ticket = atomicAdd(&work[WK_TICKET], add) + add;
+  }
+  __syncthreads();
+  const unsigned ticket = sh_ticket;
+  if (!w0 || (ticket & 0xffffu) != gridDim.x) return;
+
+  // the last block's warp 0: the epilogue, from the prologue's registers
+  unsigned mm = 0;
+  if (ticket >> 16) {
+    __threadfence();
+    if (lane == 0) mm = atomicExch(&work[WK_MM], 0u);
+    mm = __shfl_sync(full, mm, 0);
+  }
+  int g = 0, max_term = 0;
+  const int match = lane_epilogue(r, st, mm, q, p, lane, g, max_term);
+  lane_store(vec, r, L, lane);
+  if (row) {
+    out[lane] = match;
+    // the next step's prev-term column: the term now at the window's last
+    // slot (LOCAL: its closed form, -1 for a row that did not accept), or
+    // the unchanged column after an empty window
+    int nxt = r.prev;
+    if (st.count > 0)
+      nxt = ((st.acc >> lane) & 1u) ? p.lterm : (LOCAL ? -1 : old_q);
+    out[L + 5 + lane] = nxt;
+  }
+  if (lane == 0) {
+    out[L + 0] = g;
+    out[L + 1] = max_term;
+    out[L + 2] = st.count;
+    out[L + 3] = floor_mod(st.ws - 1 + st.count, C);
+    out[L + 4] = 0;
+    work[WK_TICKET] = 0;
   }
 }
 
 // ------------------------------------------------------------- K3: plan
-// Warp 0's view of the flight: lane l holds row l of the (6, L) block, its
-// masks and its prev term; a step's prologue results.
-struct LaneRow {
-  int vt, vv, vl, vc, vmi, vmt, prev;
-  bool al, sl, ack;
-};
-struct LaneStep {
-  int count, ws, s, m0;
-  unsigned acc, heard;
-  bool lcur;
-};
-
-// The step's prologue on warp 0 (raft_common.cuh step_prologue).
-__device__ __forceinline__ void lane_prologue(const LaneRow& r, int cnt_in,
-                                              const SteadyParams& p,
-                                              int lane, LaneStep& st) {
-  const unsigned full = 0xffffffffu;
-  const bool legit = p.lterm >= 1;
-  const int last0 = __shfl_sync(full, r.vl, p.leader);
-  const int commit0 = __shfl_sync(full, r.vc, p.leader);
-  const int term0 = __shfl_sync(full, r.vt, p.leader);
-  const int lead_prev = __shfl_sync(full, r.prev, p.leader);
-  st.lcur = legit && term0 <= p.lterm;
-  const int room = p.C - (last0 - commit0);
-  const int clipped = min(max(cnt_in, 0), p.B);
-  st.count = st.lcur ? min(clipped, max(room, 0)) : 0;
-  st.ws = last0 + 1;
-  st.s = floor_mod(st.ws - 1, p.C);
-  int prev_term = (st.ws - 1 < p.rfloor) ? p.fpt : lead_prev;
-  if (st.ws == 1) prev_term = 0;
-  const bool has_prev =
-      st.ws == 1 || (r.vl >= st.ws - 1 && r.prev == prev_term);
-  const bool heard = lane < p.L && r.al && legit && p.lterm >= r.vt;
-  const bool ingest = lane == p.leader && st.lcur;
-  st.m0 = (r.vmt == p.lterm) ? r.vmi : 0;
-  if (ingest) st.m0 = last0 + st.count;
-  st.acc = __ballot_sync(full, (heard && !r.sl && has_prev) || ingest);
-  st.heard = __ballot_sync(full, heard);
-}
-
-// The step's epilogue on warp 0 (raft_common.cuh step_epilogue): the state
-// advance, the k-th-order quorum commit as shuffles and a warp max, term
-// adoption. Returns the row's match; g and max_term come out uniform.
-__device__ __forceinline__ int lane_epilogue(LaneRow& r, const LaneStep& st,
-                                             unsigned mm, int q,
-                                             const SteadyParams& p, int lane,
-                                             int& g, int& max_term) {
-  const unsigned full = 0xffffffffu;
-  const bool row = lane < p.L;
-  const bool legit = p.lterm >= 1;
-  const bool a = (st.acc >> lane) & 1u;
-  const int we = st.ws + st.count - 1;
-  if (p.my >= 0)  // LOCAL: the tail is the window end (no conflict bit)
-    r.vl = (a && st.count > 0) ? we : r.vl;
-  else if (a)
-    r.vl = ((mm >> lane) & 1u) ? max(we, st.ws - 1) : max(r.vl, we);
-  const int m1 = a ? max(st.m0, we) : st.m0;
-  const int match = r.ack ? m1 : 0;
-  int n_ge = 0;
-  for (int j = 0; j < p.L; ++j)
-    n_ge += __shfl_sync(full, match, j) >= match;
-  const int cand =
-      max(0, __reduce_max_sync(full, (row && n_ge >= q) ? match : 0));
-  const bool commit_ok = legit && cand >= 1 && cand >= p.tfloor;
-  const int lcommit = __shfl_sync(full, r.vc, p.leader);
-  g = commit_ok ? max(lcommit, cand) : lcommit;
-  const bool heard = (st.heard >> lane) & 1u;
-  const bool ingest = lane == p.leader && st.lcur;
-  const int t1 = heard ? max(r.vt, p.lterm) : r.vt;
-  if (heard && p.lterm > r.vt) r.vv = RT_NO_VOTE;
-  r.vt = t1;
-  const int my_commit = lane == p.leader ? g : min(g, m1);
-  if ((heard && !r.sl) || ingest) r.vc = max(r.vc, my_commit);
-  if (heard || ingest) {
-    r.vmi = m1;
-    r.vmt = p.lterm;
-  }
-  max_term = max(0, __reduce_max_sync(full, (row && r.al) ? t1 : 0));
-  return match;
-}
-
 // Steps planned ahead of their term writes at most (one batch).
 static const int kBatch = 64;
 
@@ -292,23 +458,9 @@ __global__ void __launch_bounds__(kPlanThreads)
     if (!LOCAL && turnover_ok)
       for (int i = lane; i < T; i += 32)
         saturated = saturated && __ldg(counts + i) == p.B;
-    int mem = 0;
-    if (row) {
-      r.al = alive[lane];
-      r.sl = slow[lane];
-      mem = member == nullptr || member[lane];
-      r.vt = vec_g[VT * L + lane];
-      r.vv = vec_g[VV * L + lane];
-      r.vl = vec_g[VL * L + lane];
-      r.vc = vec_g[VC * L + lane];
-      r.vmi = vec_g[VMI * L + lane];
-      r.vmt = vec_g[VMT * L + lane];
-      if (LOCAL) r.prev = prev0[lane];
-    }
-    r.ack = r.al && mem;
-    q = member == nullptr
-            ? p.quorum
-            : max(__popc(__ballot_sync(full, mem)) / 2 + 1, p.ec_floor);
+    const bool mem = lane_load(vec_g, alive, slow, member, L, lane, r);
+    if (LOCAL && row) r.prev = prev0[lane];
+    q = lane_quorum(mem, member, p);
     const int last0 = __shfl_sync(full, r.vl, p.leader);
     const int ws0 = last0 + 1;
     if (!LOCAL && row)
@@ -433,15 +585,8 @@ __global__ void __launch_bounds__(kPlanThreads)
     if (w0 && lane == 0) sh_mm = 0;
   }
   if (w0) {
-    if (row) {
-      vec_g[VT * L + lane] = r.vt;
-      vec_g[VV * L + lane] = r.vv;
-      vec_g[VL * L + lane] = r.vl;
-      vec_g[VC * L + lane] = r.vc;
-      vec_g[VMI * L + lane] = r.vmi;
-      vec_g[VMT * L + lane] = r.vmt;
-      out[lane] = match;
-    }
+    lane_store(vec_g, r, L, lane);
+    if (row) out[lane] = match;
     if (lane == 0) {
       out[L + 0] = g;
       out[L + 1] = max_term;
@@ -523,69 +668,6 @@ __global__ void __launch_bounds__(kWriteThreads)
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
       if (src[u]) *dst[u] = val[u];
-  }
-}
-
-// --------------------------------------------- EC rows (K3·ec, K4·ec)
-// The word-pair row routine: lanes (o in units of V2 words) of every shard
-// in ``rows`` of one ring row from one data-lane window row. The k data
-// vectors are loaded once; data rows store them, parity rows their GF(2^8)
-// combination (step_pallas.py:93 _encode_parity_lanes), computed in
-// registers from the [m][k][8] table. Codes wider than RT_KMAX data shards
-// take the rest from memory.
-#define RT_KMAX 8
-template <int V2>
-struct Lanes;
-template <>
-struct Lanes<1> {
-  typedef int T;
-  static __device__ __forceinline__ int mul(int x, const uint8_t* c) {
-    return (int)gf_mul_packed((unsigned)x, c);
-  }
-  static __device__ __forceinline__ int add(int a, int b) { return a ^ b; }
-};
-template <>
-struct Lanes<2> {
-  typedef int2 T;
-  static __device__ __forceinline__ int2 mul(int2 x, const uint8_t* c) {
-    return make_int2((int)gf_mul_packed((unsigned)x.x, c),
-                     (int)gf_mul_packed((unsigned)x.y, c));
-  }
-  static __device__ __forceinline__ int2 add(int2 a, int2 b) {
-    return make_int2(a.x ^ b.x, a.y ^ b.y);
-  }
-};
-
-template <int V2>
-__device__ inline void ec_row_write(int* dst_row, const int* src_row, int o,
-                                    unsigned rows, const SteadyParams& p,
-                                    const uint8_t* tbl) {
-  typedef Lanes<V2> X;
-  typedef typename X::T U;
-  const int W2 = p.W / V2, k = p.Mk / p.W;
-  const U* src = reinterpret_cast<const U*>(src_row) + o;
-  U* dst = reinterpret_cast<U*>(dst_row) + o;
-  U x[RT_KMAX];
-#pragma unroll
-  for (int j = 0; j < RT_KMAX; ++j) {
-    x[j] = U();
-    if (j < k) {
-      x[j] = src[j * W2];
-      if ((rows >> j) & 1u) dst[j * W2] = x[j];
-    }
-  }
-  for (int j = RT_KMAX; j < k; ++j)
-    if ((rows >> j) & 1u) dst[j * W2] = src[j * W2];
-  for (unsigned par = rows >> k; par; par &= par - 1) {
-    const int q = __ffs(par) - 1;
-    const uint8_t* c = tbl + q * k * 8;
-    U acc = U();
-#pragma unroll
-    for (int j = 0; j < RT_KMAX; ++j)
-      if (j < k) acc = X::add(acc, X::mul(x[j], c + j * 8));
-    for (int j = RT_KMAX; j < k; ++j)
-      acc = X::add(acc, X::mul(src[j * W2], c + j * 8));
-    dst[(k + q) * W2] = acc;
   }
 }
 
@@ -884,39 +966,51 @@ static int blocks_for(long work) {
 // out = match[L] | scal[5] | next_prev[L]. cnt_ptr (device) overrides
 // cnt_val when not null. work must hold WK_N zeros on the first call;
 // the kernel leaves it zeroed. ec (device u8[L-k][k][8], or null) selects
-// the in-kernel parity mode, whose windows carry Mk = k*W lanes.
+// the in-kernel parity mode, whose windows carry Mk = k*W lanes. vec: the
+// lane-vector width, 4 or 1 (the parity mode: 2 or 1, word pairs).
 // my_row >= 0 selects K2·mesh: the rings hold that row only and prev
 // (device i32[L]) is every row's prev term.
-RT_EXPORT int rt_steady_step(void* vec, void* buf_p, void* log_term,
+RT_EXPORT int rt_steady_step(void* vec_g, void* buf_p, void* log_term,
                              const void* win, const void* cnt_ptr,
                              int cnt_val, const void* alive, const void* slow,
                              const void* member, int leader, int lterm,
                              int tfloor, int rfloor, int fpt, int quorum,
                              int ec_floor, int L, int C, int B, int M, int Mk,
-                             void* out, void* work, const void* ec, int vec4,
+                             void* out, void* work, const void* ec, int vec,
                              int my_row, const void* prev, void* stream) {
   const SteadyParams p = make_params(leader, lterm, tfloor, rfloor, fpt,
                                      quorum, ec_floor, L, C, B, M, Mk,
                                      my_row);
-  const bool v4 = vec4 && !ec;
-  const int blocks = blocks_for((long)B * (v4 ? M / 4 : M));
+  if (L < 1 || L > RT_LMAX || B < 1 || (ec ? p.W : M) % vec)
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t e = rt_sm_count(&sms);
+  if (e != cudaSuccess) return (int)e;
+  const int WV = (ec ? p.W : M) / vec;
+  const int per = max(1, kThreads / WV) * (ec ? 1 : kStepUnroll);
+  const int blocks =
+      max(1, min((B + per - 1) / per, kStepBlocksPerSM * sms));
   cudaStream_t st = (cudaStream_t)stream;
 #define RT_K2_ARGS                                                         \
-  (int*)vec, (int*)buf_p, (int*)log_term, (const int*)win,                 \
+  (int*)vec_g, (int*)buf_p, (int*)log_term, (const int*)win,               \
       (const int*)cnt_ptr, cnt_val, (const uint8_t*)alive,                 \
       (const uint8_t*)slow, (const uint8_t*)member, p, (int*)out,          \
       (unsigned*)work, (const uint8_t*)ec, (const int*)prev
   if (ec) {
-    steady_step_kernel<1, true, false><<<blocks, kThreads, 0, st>>>(
-        RT_K2_ARGS);
+    if (vec == 2)
+      steady_step_kernel<2, true, false><<<blocks, kThreads, 0, st>>>(
+          RT_K2_ARGS);
+    else
+      steady_step_kernel<1, true, false><<<blocks, kThreads, 0, st>>>(
+          RT_K2_ARGS);
   } else if (my_row >= 0) {
-    if (v4)
+    if (vec == 4)
       steady_step_kernel<4, false, true><<<blocks, kThreads, 0, st>>>(
           RT_K2_ARGS);
     else
       steady_step_kernel<1, false, true><<<blocks, kThreads, 0, st>>>(
           RT_K2_ARGS);
-  } else if (v4) {
+  } else if (vec == 4) {
     steady_step_kernel<4, false, false><<<blocks, kThreads, 0, st>>>(
         RT_K2_ARGS);
   } else {

@@ -22,6 +22,10 @@ lanes itself. After every flight the committed window is reconstructed
 from every read set (any k rows; a set other than the data rows decodes
 with K6) and hashed in commit order beside the input's SHA-256.
 
+``run_device(..., measure_latency=True)`` also reports the p50 and p99 of
+per-step time over separate probe flights (CUDA events on the card, the
+host clock on the CPU), as the JAX ``northstar.run_device`` does.
+
 Run: python -m raft_tpu_torch.northstar [--entries N] [--seed S]
 """
 
@@ -54,6 +58,9 @@ class DeviceRun(NamedTuple):
     state: ReplicaState    # the cluster after the last flight
     input_digest: str      # SHA-256 of the submitted entries, in log order
     row_digests: dict      # follower row -> SHA-256 of its read-back
+    p50_us: float = float("nan")   # per-step time of the probe flights
+    p99_us: float = float("nan")
+    latency_method: str = "skipped"  # "device", "wall" or "skipped"
 
 
 class ECDeviceRun(NamedTuple):
@@ -70,7 +77,7 @@ def entry_block(rng: np.random.Generator, n: int, entry: int) -> np.ndarray:
 
 def run_device(cfg: RaftConfig, n_entries: int, seed: int, device=None, *,
                transport=None, state: ReplicaState | None = None,
-               rows=(1,)) -> DeviceRun:
+               rows=(1,), measure_latency: bool = False) -> DeviceRun:
     """Pipeline ``n_entries`` of the seeded stream through chunked flights
     led by row 0 in term 1, reading every committed chunk back from each
     follower row in ``rows``.
@@ -80,7 +87,12 @@ def run_device(cfg: RaftConfig, n_entries: int, seed: int, device=None, *,
     1 with everything it holds committed, and the stream's entries follow
     its commit index. ``state`` is consumed; the run returns the new one.
     On a ``MeshTransport`` every rank makes this call and reads back its
-    own row where it is in ``rows``."""
+    own row where it is in ``rows``.
+
+    ``measure_latency`` adds the p50 and p99 of per-step time
+    (``step_latency``: separate probe flights on a fresh cluster, after
+    the certified stream), as the JAX package's ``northstar.run_device``
+    reports them; without it they are NaN and the method "skipped"."""
     tr = transport or SingleDeviceTransport(cfg, device=device)
     dev = tr.device
     B, E, R = cfg.batch_size, cfg.entry_bytes, cfg.n_replicas
@@ -117,8 +129,54 @@ def run_device(cfg: RaftConfig, n_entries: int, seed: int, device=None, *,
         committed = new_commit
     wall = time.perf_counter() - t0
     digests = {r: h.hexdigest() for r, h in h_rows.items()}
+    lat = step_latency(tr, cfg, rng) if measure_latency else ()
     return DeviceRun(digests.get(rows[0]) if rows else None, wall, state,
-                     h_in.hexdigest(), digests)
+                     h_in.hexdigest(), digests, *lat)
+
+
+def step_latency(tr, cfg: RaftConfig, rng: np.random.Generator,
+                 samples: int = 6) -> tuple:
+    """(p50_us, p99_us, method) of per-step time: probe flights of
+    ``CHUNK_STEPS`` full windows of seeded entries, led by row 0 in term
+    1 on a fresh cluster of ``tr`` (one warm-up flight first), each timed
+    alone and divided by its steps. On the card, CUDA events around each
+    flight (``samples`` of them; method "device"); on the CPU, the host
+    clock around each of 4 (method "wall"). Every rank of a
+    ``MeshTransport`` makes this call."""
+    dev = tr.device
+    B, E, R, T = cfg.batch_size, cfg.entry_bytes, cfg.n_replicas, \
+        CHUNK_STEPS
+    probe = fold_batch(entry_block(rng, T * B, E), R, device=dev).reshape(
+        T, B, -1)
+    counts = torch.full((T,), B, dtype=torch.int32, device=dev)
+    alive = torch.ones(cfg.rows, dtype=torch.bool, device=dev)
+    slow = torch.zeros(cfg.rows, dtype=torch.bool, device=dev)
+    box = {"state": tr.init()}
+
+    def flight():
+        box["state"], _ = tr.replicate_pipeline(
+            box["state"], probe, counts, 0, 1, alive, slow, term_floor=1)
+
+    flight()
+    times = []
+    if dev.type == "cuda":
+        method = "device"
+        for _ in range(samples):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            flight()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) * 1e3 / T)
+    else:
+        method = "wall"
+        for _ in range(4):
+            t0 = time.perf_counter()
+            flight()
+            times.append((time.perf_counter() - t0) * 1e6 / T)
+    return (float(np.percentile(times, 50)), float(np.percentile(times, 99)),
+            method)
 
 
 def run_device_ec(cfg: RaftConfig, n_entries: int, seed: int, device=None,
@@ -188,11 +246,13 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     cfg = RaftConfig(log_capacity=CHUNK_STEPS * 1024)
-    run = run_device(cfg, args.entries, args.seed)
+    run = run_device(cfg, args.entries, args.seed, measure_latency=True)
     print(json.dumps({"north_star": {
         "entries": args.entries, "sha256": run.digest,
         "sha256_input": run.input_digest,
         "read_back_ok": run.digest == run.input_digest, "wall_s": run.wall_s,
+        "p50_us": run.p50_us, "p99_us": run.p99_us,
+        "method": run.latency_method,
         "device": torch.cuda.get_device_name(0),
     }}))
 

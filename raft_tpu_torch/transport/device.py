@@ -159,12 +159,15 @@ class SingleDeviceTransport:
 
     def replicate_pipeline(self, state, payloads, counts, leader, leader_term,
                            alive, slow, member=None, repair_floor=0,
-                           floor_prev_term=0,
-                           term_floor=1) -> Tuple[ReplicaState, RepInfo]:
+                           floor_prev_term=0, term_floor=1,
+                           allow_turnover=True
+                           ) -> Tuple[ReplicaState, RepInfo]:
         """T saturated steps as one flight (kernel K3, or K4 when the flight
         turns the ring over with every row accepting — decided on the
-        device). Returns the FINAL step's info only."""
+        device; ``allow_turnover=False`` keeps it to K3, as the JAX
+        transport's flag does). Returns the FINAL step's info only."""
         return self._pipeline(
             state, payloads, counts, leader, leader_term, alive, slow,
             floor_prev_term, repair_floor, self._member(member), term_floor,
+            allow_turnover=bool(allow_turnover),
         )

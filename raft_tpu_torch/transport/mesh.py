@@ -142,18 +142,20 @@ class MeshTransport:
 
     def replicate_pipeline(self, state, payloads, counts, leader, leader_term,
                            alive, slow, member=None, repair_floor=0,
-                           floor_prev_term=0,
-                           term_floor=1) -> Tuple[ReplicaState, RepInfo]:
+                           floor_prev_term=0, term_floor=1,
+                           allow_turnover=True
+                           ) -> Tuple[ReplicaState, RepInfo]:
         """T saturated steps as one flight on every rank (K4·mesh, K3·mesh
-        or the K2·mesh scan, ``core.step_mesh.mesh_pipeline``); two launch
-        collectives, then no communication. Returns the FINAL step's
-        info only."""
+        or the K2·mesh scan, ``core.step_mesh.mesh_pipeline``; no K4·mesh
+        with ``allow_turnover=False``); two launch collectives, then no
+        communication. Returns the FINAL step's info only."""
         cfg = self.cfg
         return mesh_pipeline(
             self.comm, state, self._local(payloads), counts, leader,
             leader_term, alive, slow, floor_prev_term, repair_floor,
             self._member(member), term_floor,
-            commit_quorum=cfg.commit_quorum, ec=cfg.ec_enabled)
+            commit_quorum=cfg.commit_quorum, ec=cfg.ec_enabled,
+            allow_turnover=allow_turnover)
 
     def replicate_fused(self, state, staging, start_slot, counts, n_run,
                         halted0, leader, leader_term, alive, slow,

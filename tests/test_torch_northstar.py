@@ -3,10 +3,12 @@
 - raft_tpu_torch.northstar.run_device, the JAX package's
   northstar.run_device and the golden oracle consume the same seeded entry
   stream and must produce the same SHA-256 over the committed bytes (the
-  port and the JAX device path read them back from follower row 1). The
-  first chunk turns the ring over with every row accepting (the turnover
-  flight); the partial last chunk is an infeasible flight. A run may also
-  continue a cluster that an earlier run left.
+  port and the JAX device path read them back from follower row 1): at
+  B = 128 with 8-byte entries, where the first chunk turns the ring over
+  with every row accepting (the turnover flight) and the partial last
+  chunk is an infeasible flight, and at the north-star config itself
+  (20 480 entries). A run may also continue a cluster that an earlier run
+  left, and reports per-step latency on request.
 - raft_tpu_torch.northstar.run_device_ec (RS(5,3)) against a JAX
   composition over the same stream: steady_scan_replicate_tpu with the
   in-kernel parity table, then raft_tpu.ec.reconstruct.reconstruct, for a
@@ -57,6 +59,37 @@ def test_port_jax_and_golden_hashes_agree():
     assert port_hash == jax_hash
     assert port_hash == run_golden(N, KW["entry_bytes"], seed=3, batch=B)
     assert port_hash == run.input_digest
+
+
+NS_N = 20_480
+
+
+def test_port_jax_and_golden_agree_at_the_north_star_config():
+    """20 480 entries at ``RaftConfig()`` defaults (3 replicas, 256-byte
+    entries, B = 1024, C = 32 768), the size ``tests/test_northstar.py``
+    certifies: the port on the CPU, the JAX device path and the golden
+    oracle hash the same committed bytes."""
+    run = run_device(TConfig(), NS_N, seed=3, device="cpu")
+    jax_hash, *_ = jax_run_device(JConfig(), NS_N, seed=3,
+                                  measure_latency=False)
+    assert run.digest == run.input_digest
+    assert run.digest == jax_hash
+    assert run.digest == run_golden(NS_N, JConfig().entry_bytes, seed=3)
+    assert run.state.commit_index.tolist() == [NS_N] * 3
+
+
+def test_run_reports_per_step_latency():
+    """``measure_latency`` adds p50/p99 of per-step time from probe
+    flights; on the CPU the method is the host clock."""
+    run = run_device(TConfig(**KW), 2 * B + 3, seed=7, device="cpu",
+                     measure_latency=True)
+    assert run.latency_method == "wall"
+    assert np.isfinite(run.p50_us) and np.isfinite(run.p99_us)
+    assert 0 < run.p50_us <= run.p99_us
+    assert run.digest == run.input_digest
+    quiet = run_device(TConfig(**KW), B, seed=7, device="cpu")
+    assert quiet.latency_method == "skipped"
+    assert np.isnan(quiet.p50_us) and np.isnan(quiet.p99_us)
 
 
 def test_run_continues_a_cluster():
