@@ -48,6 +48,24 @@ Then BASELINE config 4 (5 replicas, 256-byte entries, batch 1024, a
     K1 launches, entries/s, per-step p50/p99 (CUDA events), a profile of
     one call (device time by kernel, idle share) and the faster program.
 
+Then the engine's tick loop (``raft_tpu_torch.raft.RaftEngine``):
+
+5b. drives the north star through the engine at the same deployment: an
+    election, 65 536 entries in two halves through the tick loop (64 full
+    leader ticks: K1 while repairing, K2 once steady), one
+    ``submit_pipelined`` chunk of 32 768 entries that the gate must admit
+    (one K3/K4 flight), the leader failed, a re-election and 4 096 more
+    entries; every window read back through ``committed_entries`` and
+    every live follower, and the apply stream over all of it, must hash
+    to the input's, and K1-K4 must all have launched; prints entries/s on
+    the host clock, CUDA-event ms per leader tick, and a profiled window
+    of ticks (kernels per tick, device idle share);
+5c. runs BASELINE config 5, ``bench.py``'s ``bench_storm`` (3 replicas,
+    256-byte entries, B = 64, C = 4096, seed 2; both variants), through
+    the engine on the card and again on the CPU: the nodelog lines,
+    terms, commit latencies, committed bytes and state must be equal;
+    prints ``bench_storm_once``'s fields and the storm's host wall.
+
 Then BASELINE config 3 (5 replicas, RS(5,3) shards of 264-byte entries,
 batch 1024, a 32 768-slot ring, commit quorum 4):
 
@@ -57,7 +75,9 @@ batch 1024, a 32 768-slot ring, commit quorum 4):
    window across the seam, a partial window, every decoding row set,
    against the gathered window and the plain decode), K7 and K2/K3/K4 in
    their in-kernel parity mode against their plain versions on the card,
-   bit for bit (seam, partial, dead-row, slow-row, conflict, turnover and
+   bit for bit (K7 also on one entry, a batch that leaves a block partly
+   idle, an odd shard width, k = 4 with m = 1 and RS(32,16), the widest
+   code it takes; seam, partial, dead-row, slow-row, conflict, turnover and
    two-dead-row cases, K2·ec's edges as K2's, its member mask under the
    EC floor, then randomized multi-term schedules at config 3
    and at RS(4,2) with 8-byte entries and B = 128, and K3·ec/K4·ec
@@ -69,7 +89,9 @@ batch 1024, a 32 768-slot ring, commit quorum 4):
    the heal of row 4 (K6 encode), and a flight with rows 3 and 4 dead (no
    commit, the committed bytes still read); every EC kernel must have
    launched on it;
-8. times each EC kernel as in 5 (``k6_bank_probe``: K6 decode on
+8. times each EC kernel as in 5 (K7 beside its copy yardstick, one
+   strided ``copy_`` of the data words into the folded layout, and the
+   launch floor again, ``k7_vs_floor``; ``k6_bank_probe``: K6 decode on
    all-zero bytes), ``k6_read_path`` (a decoding read of one flight's
    window before, gathered and decoded contiguous, and after, K6 on the
    ring), and the EC path's device idle share.
@@ -1071,6 +1093,292 @@ def phase_config4_main_path(dev):
     return res
 
 
+# ------------------------------------------------- the engine (A9a)
+ENGINE_TICK_ENTRIES = 1 << 16      # 64 full leader ticks, in two halves
+ENGINE_FLIGHT_ENTRIES = 1 << 15    # one submit_pipelined chunk: one ring
+ENGINE_AFTER_ENTRIES = 4096        # committed after the leader failover
+ENGINE_PROFILED_TICKS = 8
+
+
+class EngineInput:
+    """Seeded entries for the engine phase, kept for window read-backs,
+    with the input stream's running SHA-256."""
+
+    def __init__(self, cfg):
+        self.rng = np.random.default_rng(SEED + 40)
+        self.E = cfg.entry_bytes
+        self.blobs = []            # one bytes object per submitted batch
+        self.h = hashlib.sha256()
+
+    def take(self, n):
+        blob = self.rng.integers(0, 256, n * self.E, dtype=np.uint8).tobytes()
+        self.blobs.append(blob)
+        self.h.update(blob)
+        return [blob[i * self.E:(i + 1) * self.E] for i in range(n)]
+
+    def window(self, lo, hi):
+        """The input bytes of log indices [lo, hi] (1-based; every entry
+        committed in submit order)."""
+        whole = b"".join(self.blobs)
+        return whole[(lo - 1) * self.E:hi * self.E]
+
+
+def engine_read_back(e, inp, lo, hi, what):
+    """Indices [lo, hi] read through ``committed_entries`` and from every
+    live follower's ring: each SHA-256 must be the input's."""
+    from raft_tpu_torch.core.state import log_entries
+
+    want = hashlib.sha256(inp.window(lo, hi)).hexdigest()
+    got = {"committed_entries": hashlib.sha256(
+        e.committed_entries(lo, hi).tobytes()).hexdigest()}
+    for r in range(e.cfg.rows):
+        if r != e.leader_id and e.alive[r]:
+            check(int(e.state.commit_index[r]) >= hi,
+                  f"{what}: row {r} has not committed {hi}")
+            got[f"row{r}"] = hashlib.sha256(
+                log_entries(e.state, r, lo, hi).tobytes()).hexdigest()
+    for k, v in got.items():
+        check(v == want, f"{what}: {k}'s read-back of [{lo}, {hi}] differs "
+                         "from the input")
+    return {"lo": lo, "hi": hi, "sha256": want, "readers": sorted(got)}
+
+
+def phase_engine_main_path(cfg, dev):
+    """The north star through ``RaftEngine`` at ``RaftConfig()``'s
+    deployment (3 replicas, 256-byte entries, B = 1024, C = 32 768, the
+    ring on the card): an election; 65 536 entries through the tick loop
+    (64 full leader ticks: K1 while repairing, K2 once steady) in two
+    halves, each read back; one ``submit_pipelined`` chunk of 32 768 (the
+    gate admits it: one K3/K4 flight); the leader failed, a re-election,
+    4 096 more committed; every committed window read back through
+    ``committed_entries`` and every live follower, and the apply stream's
+    SHA-256 over all of it. The K1-K4 launch counters must all move.
+    Recorded, not gated: entries/s on the host clock, CUDA-event ms per
+    leader tick, and a profiled window of ticks (kernels per tick, device
+    idle share)."""
+    import torch
+
+    from raft_tpu_torch.obs import profiling
+    from raft_tpu_torch.raft import RaftEngine
+    from raft_tpu_torch.transport.device import SingleDeviceTransport
+
+    B = cfg.batch_size
+    tr = SingleDeviceTransport(cfg, device=dev)
+    flights = []
+    run_flight = tr.replicate_pipeline
+
+    def counted_flight(*a, **k):
+        flights.append(int(a[2].shape[0]))
+        return run_flight(*a, **k)
+
+    tr.replicate_pipeline = counted_flight
+    e = RaftEngine(cfg, tr)
+    inp = EngineInput(cfg)
+    h_apply = hashlib.sha256()
+    applied = [0]
+
+    def apply(idx, payload):
+        check(idx == applied[0] + 1, "the apply stream skipped an index")
+        applied[0] = idx
+        h_apply.update(payload)
+
+    e.register_apply(apply)
+    tick_events = []
+    run_tick = e._fire_leader_tick
+
+    def timed_tick(r):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run_tick(r)
+        b.record()
+        tick_events.append((a, b))
+
+    e._fire_leader_tick = timed_tick
+    res = {"phase": "engine_main_path", "n_replicas": cfg.n_replicas,
+           "entry_bytes": cfg.entry_bytes, "batch": B,
+           "capacity": cfg.log_capacity}
+    zero_counters(dev)
+    e.run_until_leader()
+    res["first_leader"] = e.leader_id
+    res["first_leader_virtual_s"] = e.clock.now
+    # 2. two halves of 32 768 entries through the tick loop
+    reads = []
+    half = ENGINE_TICK_ENTRIES // 2
+    for h in range(2):
+        seqs = [e.submit(p) for p in inp.take(half)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if h == 1:
+            # a profiled window of leader ticks, annotated by launch
+            ticks0 = e._tick_count
+
+            def window():
+                with profiling.annotating():
+                    while e._tick_count < ticks0 + ENGINE_PROFILED_TICKS:
+                        e.step_event()
+
+            events, pwall = _device_events(window, 1)
+            # the launch annotations show as device ranges of their own
+            # (``leader_tick#n``, spanning each tick's work): not device
+            # work, so kept out of the busy time and the counts
+            annotations = [n for n, _ in events
+                           if n.startswith("leader_tick#")]
+            events = [(n, us) for n, us in events
+                      if not n.startswith("leader_tick#")]
+        e.run_until_committed(seqs[-1])
+        torch.cuda.synchronize()
+        if h == 0:        # the unprofiled half: the host-clock rate
+            tick_wall = time.perf_counter() - t0
+        check(e.commit_watermark == (h + 1) * half,
+              f"engine: commit {e.commit_watermark} after half {h}")
+        reads.append(engine_read_back(e, inp, h * half + 1, (h + 1) * half,
+                                      f"engine ticks, half {h}"))
+    ticks = len(tick_events)
+    tick_ms = [a.elapsed_time(b) for a, b in tick_events]
+    res["ticks"] = {
+        "leader_ticks": ticks, "entries": ENGINE_TICK_ENTRIES,
+        "entries_per_s_wall": half / tick_wall,
+        "rate_over": "the first half (32 768 entries, not profiled)",
+        "wall_s": tick_wall,
+        "ms_per_tick_p50": float(np.percentile(tick_ms, 50)),
+        "ms_per_tick_p99": float(np.percentile(tick_ms, 99)),
+        "ms_per_tick_mean": float(np.mean(tick_ms)),
+        "latency_method": "CUDA events around each leader tick (host "
+                          "work inside)"}
+    by_kind = {}
+    for name, us in events:
+        kind = kernel_of(name) or ("copy" if "emcpy" in name else "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + us
+    busy = sum(by_kind.values())
+    kernels = [n for n, _ in events if "emcpy" not in n and "emset" not in n]
+    by_name = {}
+    for name, us in events:
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    res["profiled_ticks"] = {
+        "ticks": ENGINE_PROFILED_TICKS, "wall_ms": pwall * 1e3,
+        "launch_annotations": len(annotations),
+        "kernels_per_tick": len(kernels) / ENGINE_PROFILED_TICKS,
+        "device_ops_per_tick": len(events) / ENGINE_PROFILED_TICKS,
+        "device_busy_ms": busy / 1e3,
+        "device_idle_share": 1.0 - busy / (pwall * 1e6),
+        "device_ms_by_kind": {k: v / 1e3 for k, v in by_kind.items()},
+        "device_ms_top_names": {k: v / 1e3 for k, v in top}}
+    tick_counts = read_counters(dev)
+    check(tick_counts["K1"] > 0 and tick_counts["K2"] > 0,
+          f"engine ticks: K1 and K2 must both launch: {tick_counts}")
+    # 3. one pipelined chunk of one ring: the gate must admit it
+    leader_last = int(e.state.last_index[e.leader_id])
+    payloads = inp.take(ENGINE_FLIGHT_ENTRIES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e.submit_pipelined(payloads)
+    torch.cuda.synchronize()
+    flight_wall = time.perf_counter() - t0
+    check(flights == [cfg.log_capacity // B],
+          f"engine: the pipeline gate did not admit the chunk: {flights}")
+    check(e.commit_watermark == leader_last + ENGINE_FLIGHT_ENTRIES,
+          f"engine: the flight committed {e.commit_watermark}")
+    reads.append(engine_read_back(e, inp, leader_last + 1,
+                                  e.commit_watermark, "engine flight"))
+    res["flight"] = {"entries": ENGINE_FLIGHT_ENTRIES, "steps": flights[0],
+                     "wall_s": flight_wall,
+                     "entries_per_s_wall": ENGINE_FLIGHT_ENTRIES
+                     / flight_wall}
+    # 5. fail the leader, re-elect, commit 4 096 more
+    old = e.leader_id
+    e.fail(old)
+    e.run_until_leader()
+    res["failover"] = {"failed": old, "new_leader": e.leader_id,
+                       "term": int(e.leader_term)}
+    lo = e.commit_watermark + 1
+    seqs = [e.submit(p) for p in inp.take(ENGINE_AFTER_ENTRIES)]
+    e.run_until_committed(seqs[-1])
+    reads.append(engine_read_back(e, inp, lo, e.commit_watermark,
+                                  "engine after failover"))
+    total = ENGINE_TICK_ENTRIES + ENGINE_FLIGHT_ENTRIES + ENGINE_AFTER_ENTRIES
+    check(e.commit_watermark == total and applied[0] == total,
+          f"engine: commit {e.commit_watermark}, applied {applied[0]}, "
+          f"submitted {total}")
+    check(h_apply.hexdigest() == inp.h.hexdigest(),
+          "engine: the apply stream differs from the input")
+    counters = read_counters(dev)
+    for k in ("K1", "K2", "K3", "K4"):
+        check(counters[k] > 0, f"engine: {k} never launched: {counters}")
+    check(counters["K4_flights_run"] == 1,
+          f"engine: the turnover flight did not run: {counters}")
+    res.update({"entries": total, "commit_watermark": e.commit_watermark,
+                "sha256_input": inp.h.hexdigest(),
+                "sha256_apply_stream": h_apply.hexdigest(),
+                "read_backs": reads, "launches": counters,
+                "launches_in_ticks": tick_counts,
+                "nodelog": "off (no trace attached)"})
+    emit(res)
+    return res
+
+
+def phase_config5_storm(dev):
+    """BASELINE config 5 (``bench.py`` ``bench_storm``, both variants)
+    through the port's engine on the card, then the same storm through it
+    on the CPU: the trace lines, terms, commit latencies, committed bytes
+    and state must be equal, which holds K1 and K2 inside the engine
+    against their plain versions. Prints ``bench_storm_once``'s fields
+    (virtual-clock figures, deterministic per seed) and the storm's host
+    wall on the card."""
+    import torch
+
+    from raft_tpu_torch.core.state import state_to_numpy
+    from raft_tpu_torch.raft import RaftEngine
+    from raft_tpu_torch.storm import storm, storm_config
+    from raft_tpu_torch.transport.device import SingleDeviceTransport
+
+    def runner(device):
+        tr = SingleDeviceTransport(storm_config(2, False), device=device)
+        return lambda seed, prevote, trace: RaftEngine(
+            storm_config(seed, prevote), tr, trace=trace)
+
+    zero_counters(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = storm(runner(dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counters = read_counters(dev)
+    t0 = time.perf_counter()
+    host = storm(runner("cpu"))
+    host_wall = time.perf_counter() - t0
+    variants = {}
+    for name, c, h in (("reference_dynamics", card, host),
+                       ("prevote_checkquorum", card["hardened_run"],
+                        host["hardened_run"])):
+        ce, he = c["engine"], h["engine"]
+        check(c["trace"] == h["trace"], f"config 5 {name}: the card's "
+              "nodelog lines differ from the CPU's")
+        check(np.array_equal(ce.terms, he.terms)
+              and np.array_equal(ce.commit_latencies(),
+                                 he.commit_latencies())
+              and c["apply_sha256"] == h["apply_sha256"]
+              and c["ring_read_sha256"] == h["ring_read_sha256"],
+              f"config 5 {name}: the card's run differs from the CPU's")
+        cs, hs = state_to_numpy(ce.state), state_to_numpy(he.state)
+        check(all(np.array_equal(cs[f], hs[f]) for f in cs),
+              f"config 5 {name}: the card's state differs from the CPU's")
+        check(c["committed"] > 0, f"config 5 {name}: nothing committed")
+        variants[name] = {"nodelog_lines": len(c["trace"]),
+                          "terms": [int(x) for x in ce.terms]}
+    check(counters["K1"] > 0 and counters["K2"] > 0,
+          f"config 5: K1 and K2 must both launch: {counters}")
+    fields = {k: v for k, v in card.items()
+              if k not in ("engine", "trace", "hardened_run")}
+    emit({"phase": "config5_storm", "bench_storm": fields,
+          "card_equals_cpu": variants, "launches": counters,
+          "wall_s_card": wall, "wall_s_cpu": host_wall,
+          "note": "virtual-clock figures are deterministic per seed; the "
+                  "walls are host clocks"})
+    return {"launches": counters}
+
+
 # --------------------------------------------------------------- phase 5
 def _events_ms(fn, reps, inner=1, before=None):
     """Median device ms of one ``fn`` call: CUDA events around ``inner``
@@ -1154,7 +1462,7 @@ KERNEL_FN = {"K1": ("write_window_both_kernel",),
              "K4": ("turnover_kernel",),
              "K6 encode": ("gf_table_kernel",),
              "K6 decode": ("gf_table_kernel",),
-             "K7": ("encode_fold_kernel",), "K2·ec": ("steady_step_kernel",),
+             "K7": ("gf_table_kernel",), "K2·ec": ("steady_step_kernel",),
              "K3·ec": ("flight_plan_kernel", "flight_write_ec_kernel"),
              "K4·ec": ("turnover_ec_kernel",),
              "K5": ("write_window_cols_kernel",),
@@ -1533,6 +1841,30 @@ def codec_cases(code, dev, rng, B, S, N, note):
                                    (dec, data)]))
 
 
+#: K7's own cases beyond the codec's (code, batch, entry bytes): one
+#: entry; a batch that leaves a block partly idle; an odd shard width
+#: (Wk = 3, single words); k = 4 with m = 1; the widest code MAX_ROWS
+#: allows (16 rows in and out: 64 KB of tables)
+K7_CASES = {"config3_b1": ((5, 3), 1, 264),
+            "config3_partial_block": ((5, 3), 1000, 264),
+            "odd_wk": ((5, 3), 1024, 36),
+            "k4_m1": ((5, 4), 1024, 256),
+            "widest": ((32, 16), 1024, 128)}
+
+
+def k7_cases(dev, rng, note):
+    """K7 against ``encode_fold_plain`` on the card, bit for bit."""
+    from raft_tpu_torch.ec import kernels as ek
+    from raft_tpu_torch.ec.rs import RSCode
+
+    for (n, k), B, S in K7_CASES.values():
+        code = RSCode(n, k)
+        data = rand_bytes(rng, (B, S), dev)
+        note("K7", max_err([(ek.encode_fold_device(code, data),
+                             ek.encode_fold_plain(code, data))]))
+    return sorted(K7_CASES)
+
+
 def ring_read_cases(ecfg, dev, rng, note):
     """K6 decoding reads of the log ring in place (``reconstruct`` on the
     card) against the gather of the same window plus the plain decode, on
@@ -1592,6 +1924,7 @@ def phase_ec_kernels(ecfg, dev, n_random=120):
     # decode also as the read path runs it, on the ring in place
     codec_cases(code, dev, rng, B, ecfg.entry_bytes, C, note)
     ring_reads = ring_read_cases(ecfg, dev, rng, note)
+    k7_named = k7_cases(dev, rng, note)
 
     def k2(*args, **kw):
         err, commit = k2_case(ecfg, dev, rng, *args, consts=consts, **kw)
@@ -1689,7 +2022,7 @@ def phase_ec_kernels(ecfg, dev, n_random=120):
                             f"{errs[k]}")
     emit({"phase": "ec_kernels_vs_plain", "cases": cases,
           "max_abs_err": errs, "random_schedule_steps": rsteps,
-          "ring_reads": ring_reads})
+          "ring_reads": ring_reads, "k7_cases": k7_named})
     return errs
 
 
@@ -1963,6 +2296,16 @@ def phase_ec_timing(ecfg, dev, card_line, reps=21):
                   inner=20),
         _host_ms(lambda: ek.encode_fold_plain(code, data), reps),
         B * E + B * M * 4)
+    # K7's copy yardstick: one strided copy_ of the data words into the
+    # folded layout's systematic columns (no parity), and the launch floor
+    # measured beside it
+    folded = torch.empty(B, code.n, M // code.n, dtype=torch.int32,
+                         device=dev)
+    words = data.view(torch.int32).view(B, code.k, M // code.n)
+    k7_library = ops_ms(lambda: folded[:, :code.k].copy_(words), reps)
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    floor_ms = kernel_ms("launch_floor", lambda: one.fill_(7), reps,
+                         inner=20, fns=("FillFunctor",))[0]
     rows = (1, 2, 4)
     shards = ek.encode_device(code, rand_bytes(rng, (C, E), dev))[
         list(rows)].contiguous()
@@ -1988,10 +2331,14 @@ def phase_ec_timing(ecfg, dev, card_line, reps=21):
            "k3_split": fl["split"], "k3_decision_only": {
                "ms": plan_ms[0], "call_ms": plan_ms[1], "split": decision},
            "k6_bank_probe": {"zero_bytes_ms": bank},
-           "k6_read_path": read_path}
+           "k6_read_path": read_path,
+           "k7_vs_floor": {"launch_floor_ms": floor_ms}}
     for k, ((ms, call_ms), pms, nbytes) in out.items():
         res[k] = {"ms": ms, "call_ms": call_ms, "plain_ms": pms,
                   "bytes": nbytes, "bound_ms": nbytes / rate * 1e3}
+    res["K7"]["library_ms"] = k7_library
+    res["k7_vs_floor"]["k7_ms"] = res["K7"]["ms"]
+    res["k7_vs_floor"]["over_floor_us"] = (res["K7"]["ms"] - floor_ms) * 1e3
     res["ec_path_profile"] = profile_ec_flights(ecfg, dev)
     emit(res)
     return res
@@ -3704,6 +4051,8 @@ LIBRARY_IS = {
                "term row",
     "K5": "write-only yardstick: one index_copy_ of every group's window "
           "rows over the flattened (group, slot) rows, all lanes selected",
+    "K7": "copy yardstick: one strided copy_ of the data words into the "
+          "folded layout's systematic columns (no parity computed)",
 }
 
 
@@ -3726,6 +4075,8 @@ def main() -> int:
     main_res = phase_main_path(cfg, dev)
     timing = phase_timing(cfg, dev, card_line)
     c4_main = phase_config4_main_path(dev)
+    engine_main = phase_engine_main_path(cfg, dev)
+    c5 = phase_config5_storm(dev)
     ecfg = ec_config()
     ec_errs = phase_ec_kernels(ecfg, dev)
     ec_main = phase_ec_main_path(ecfg, dev)
@@ -3753,6 +4104,12 @@ def main() -> int:
                 # flights) on their own main path
                 by_path["config4"] = sum(c4_main[p]["launches"][key]
                                          for p in C4_PROGRAMS)
+            if main is main_res:
+                # launched by the engine: its north-star path, and K1/K2
+                # in config 5's storm on the card
+                by_path["engine"] = engine_main["launches"][key]
+                if key in ("K1", "K2"):
+                    by_path["config5"] = c5["launches"][key]
             kernels.append({
                 "name": f"{key} {name}", "route": "cuda", "source": src,
                 "replaces": replaces, "launches": sum(by_path.values()),

@@ -15,7 +15,10 @@ replication data plane on one H100 with hand-written CUDA kernels
 - ``transport.MeshTransport`` — the replica mesh, one row per rank of a
   ``torch.distributed`` group (``core.comm.MeshComm``), whose steady
   steps run the mesh-local mode of K2-K4 (``core.step_mesh``);
-  ``transport.launch.run_ranks`` starts R local ranks.
+  ``transport.launch.run_ranks`` starts R local ranks;
+- ``raft.RaftEngine`` — the engine's tick loop (timers, roles, elections,
+  the leader tick, pipelined ingest, commit, the archive and the apply
+  stream) over the transports; ``storm`` drives BASELINE config 5.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``, which
 runs the plain versions. This package never imports JAX.

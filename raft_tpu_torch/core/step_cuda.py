@@ -144,6 +144,14 @@ def step_params(leader, leader_term, term_floor, repair_floor,
                       int(ec_floor))
 
 
+def shape_ok(C: int, B: int) -> bool:
+    """The JAX kernels' shape gate (``ring._pallas_ok`` without its
+    backend test): 128-row blocks dividing both the window and the ring.
+    The engine's single-launch flight gate keeps it, so both engines take
+    the flight on the same shapes."""
+    return B % 128 == 0 and C % 128 == 0
+
+
 def pick_br(B: int, C: int) -> int:
     """The JAX kernels' row-block size (``step_pallas._pick_br``). It only
     enters the launch-feasibility predicate here: a flight whose start slot

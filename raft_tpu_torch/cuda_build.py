@@ -55,9 +55,8 @@ SIGNATURES = {
     },
     "ec": {
         "rt_error_string": ([_I], ctypes.c_char_p),
-        "rt_gf_apply": ([_P, _P] + [_I] * 4 + [_P, _I, _I, _P] + [_I] * 4
+        "rt_gf_apply": ([_P, _P] + [_I] * 4 + [_P, _I, _I, _P] + [_I] * 5
                         + [_P], _I),
-        "rt_encode_fold": ([_P] * 3 + [_I] * 4 + [_P], _I),
     },
 }
 

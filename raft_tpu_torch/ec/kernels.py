@@ -4,10 +4,11 @@
 Multiplication by a constant c is GF(2)-linear in the bits of x, so
 ``mul(c, x) = XOR over set bits i of x of mul(c, 1 << i)``: one (output
 row, input row) term is 8 bit tests and XORs, and the per-code constants
-``mul(M[r, j], 1 << i)`` (``_bit_consts``) are all the plain versions and
-K7 need. It is also a function of one byte, so K6 looks it up instead:
-``gf_tables`` packs ``mul(M[r, j], x)`` for four output rows r into one
-u32 per (input row j, byte x).
+``mul(M[r, j], 1 << i)`` (``_bit_consts``) are all the plain versions
+need. It is also a function of one byte, so the kernel looks it up
+instead: ``gf_tables`` packs ``mul(M[r, j], x)`` for four output rows r
+into one u32 per (input row j, byte x), and the kernel builds those
+tables on chip from their single-bit entries (``gf_bits``).
 
 - K6 (``csrc/ec.cu`` ``gf_table_kernel``; replaces ``_parity_pallas`` :77)
   applies such a matrix to k shard rows: the parity encode
@@ -15,16 +16,21 @@ u32 per (input row j, byte x).
   decode (``decode_device``, replacing ``decode_pallas`` :240). Its source
   is described by a ``GfSource`` (row offsets, entry stride, a ring's
   capacity and start slot), so ``decode_ring`` decodes a window of the
-  log ring in place, seam included, with no gather.
-- K7 (``csrc/ec.cu`` ``encode_fold_kernel``; replaces
+  log ring in place, seam included, with no gather; its output by a
+  ``GfOutput`` (base, row and entry strides).
+- K7 (the same kernel with its input rows passed through; replaces
   ``_encode_fold_pallas`` :161) encodes raw entries straight into the
-  folded log layout (``encode_fold_device``).
+  folded log layout (``encode_fold_device``, described by
+  ``encode_fold_layout``).
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 bit-sliced version (``encode_bitwise`` / ``decode_bitwise``, the
 select-and-XOR of ``_mul_const_bits`` :51 in torch ops) for a CPU tensor.
-The folds (``fold_shards_device``, ``fold_data_lanes``) are views of
-contiguous bytes as little-endian int32 words and need no kernel.
+``gf_apply_plain`` is the described apply in plain form (it gathers by
+the ``GfSource`` and scatters by the ``GfOutput``), so the tests hold the
+kernel's layouts on the CPU. The folds (``fold_shards_device``,
+``fold_data_lanes``) are views of contiguous bytes as little-endian int32
+words and need no kernel.
 """
 
 from __future__ import annotations
@@ -86,15 +92,26 @@ def gf_tables(matrix: np.ndarray) -> np.ndarray:
     return out
 
 
-@lru_cache(maxsize=None)
-def _tables_on(device: torch.device, n: int, k: int, rows) -> torch.Tensor:
-    """K6's tables on ``device``, once per (code, row set): the parity
-    matrix's for ``rows=None``, else decode_matrix(rows) in the caller's
-    row order."""
+def gf_bits(matrix: np.ndarray) -> np.ndarray:
+    """u32[cols, ceil(rows / 4), 8]: the single-bit entries of
+    ``gf_tables(matrix)`` (entry 1 << b of each table), from which the
+    kernel builds every table on chip: entry x is their XOR over the set
+    bits b of x."""
+    return np.ascontiguousarray(gf_tables(matrix)[:, :, 1 << np.arange(8)])
+
+
+def _matrix(n: int, k: int, rows) -> np.ndarray:
+    """The parity matrix for ``rows=None``, else decode_matrix(rows) in
+    the caller's row order."""
     code = RSCode(n, k)
-    m = code.parity_matrix if rows is None else code.decode_matrix(
+    return code.parity_matrix if rows is None else code.decode_matrix(
         list(rows))
-    return torch.from_numpy(gf_tables(m).view(np.int32)).to(device)
+
+
+@lru_cache(maxsize=None)
+def _bits_of(n: int, k: int, rows) -> np.ndarray:
+    """K6's table constants, once per (code, row set)."""
+    return gf_bits(_matrix(n, k, rows))
 
 
 def parity_consts(n: int, k: int) -> np.ndarray:
@@ -211,26 +228,78 @@ def gather_source(src: torch.Tensor, source: GfSource, n: int,
     return flat[idx].view(torch.uint8).reshape(len(source.rows), n, 4 * wk)
 
 
-def _gf_apply(tables: torch.Tensor, rows_out: int, src: torch.Tensor,
-              source: GfSource, out: torch.Tensor, out_row: int,
-              out_entry: int, n: int, wk: int, what: str) -> None:
-    """Launch K6 (``rt_gf_apply``): ``n`` entries of ``wk`` words read
-    where ``source`` says, output row r of entry i at word ``r * out_row
-    + i * out_entry`` of ``out``."""
-    k = tables.shape[0]
-    if k > MAX_ROWS or rows_out > MAX_ROWS or len(source.rows) != k:
+class GfOutput(NamedTuple):
+    """Where K6 writes, in 4-byte words of the output: output row r of
+    entry i at ``base + r * row + i * entry``; with ``passthrough`` the k
+    input rows too, input row j at ``base + (j - k) * row + i * entry``
+    (K7's systematic words, stored from the registers the lookups read)."""
+
+    base: int
+    row: int
+    entry: int
+    passthrough: bool = False
+
+
+def encode_fold_layout(code: RSCode, B: int, wk: int):
+    """K7 as a described apply: raw entries u8[B, k*Wk*4] (row j at word
+    ``j * Wk`` of entry i, entry stride ``k * Wk``) in, the folded layout
+    i32[B, n*Wk] out — the m parity rows from word ``k * Wk`` of each
+    entry, the k data rows passed through before them, row stride Wk,
+    entry stride ``n * Wk``."""
+    return (GfSource(tuple(j * wk for j in range(code.k)), code.k * wk,
+                     max(B, 1)),
+            GfOutput(code.k * wk, wk, code.n * wk, passthrough=True))
+
+
+def gf_apply_plain(consts: np.ndarray, src: torch.Tensor, source: GfSource,
+                   out: torch.Tensor, output: GfOutput, n: int,
+                   wk: int) -> None:
+    """The plain form of K6's described apply: the k input rows of entries
+    [0, n) gathered where ``source`` says, ``apply_bits_plain`` with the
+    bit table ``consts`` u8[rows, k, 8], and every row stored where
+    ``output`` says into ``out`` (contiguous, any dtype, as flat 4-byte
+    words)."""
+    x = gather_source(src, source, n, wk)              # u8[k, n, 4*wk]
+    rows = [apply_bits_plain(consts, x)]
+    first = 0
+    if output.passthrough:
+        rows.insert(0, x)
+        first = -len(source.rows)
+    y = torch.cat(rows).view(torch.int32)              # i32[rows, n, wk]
+    dev = out.device
+    idx = (output.base
+           + torch.arange(first, first + y.shape[0], device=dev)[:, None,
+                                                                  None]
+           * output.row
+           + torch.arange(n, device=dev)[None, :, None] * output.entry
+           + torch.arange(wk, device=dev))
+    out.reshape(-1).view(torch.int32)[idx.reshape(-1)] = y.reshape(-1)
+
+
+def _gf_apply(code: RSCode, rows, rows_out: int, src: torch.Tensor,
+              source: GfSource, out: torch.Tensor, output: GfOutput, n: int,
+              wk: int, what: str) -> None:
+    """Launch K6 (``rt_gf_apply``) with the matrix of ``code`` and
+    ``rows`` (``_matrix``): ``n`` entries of ``wk`` words read where
+    ``source`` says, written where ``output`` says."""
+    k = len(source.rows)
+    if k > MAX_ROWS or rows_out > MAX_ROWS:
         raise ValueError(f"{what}: at most {MAX_ROWS} rows in and out")
     for t in (src, out):
         if t.data_ptr() % 4 or t.numel() * t.element_size() >= 2 ** 33:
             raise ValueError(f"{what}: tensors must be 4-byte aligned and "
                              "index in 32-bit words")
-    evens = (*source.rows, source.entry, out_row, out_entry, wk)
+    evens = (*source.rows, source.entry, output.base, output.row,
+             output.entry, wk)
     vec = 2 if all(o % 2 == 0 for o in evens) and all(
         t.data_ptr() % 8 == 0 for t in (src, out)) else 1
+    bits = _bits_of(code.n, code.k, rows)
     rc = cuda_build.lib("ec").rt_gf_apply(
         src.data_ptr(), (ctypes.c_int * k)(*source.rows), k, source.entry,
-        source.cap, source.start, out.data_ptr(), out_row, out_entry,
-        tables.data_ptr(), rows_out, n, wk, vec, cuda_build.stream_of(src))
+        source.cap, source.start, out.data_ptr() + 4 * output.base,
+        output.row, output.entry, bits.ctypes.data_as(ctypes.c_void_p),
+        rows_out, n, wk, vec, int(output.passthrough),
+        cuda_build.stream_of(src))
     cuda_build.check("ec", rc, what)
 
 
@@ -251,8 +320,8 @@ def encode_device(code: RSCode, data: torch.Tensor) -> torch.Tensor:
     if code.m and B:
         wk = sk // 4
         src = GfSource(tuple(j * wk for j in range(code.k)), code.k * wk, B)
-        _gf_apply(_tables_on(data.device, code.n, code.k, None), code.m,
-                  data, src, parity, B * wk, wk, B, wk, "encode_device")
+        _gf_apply(code, None, code.m, data, src, parity,
+                  GfOutput(0, B * wk, wk), B, wk, "encode_device")
         LAUNCHES["encode"] += 1
     return torch.cat([d, parity])
 
@@ -297,8 +366,8 @@ def _decode(code, rows, src, source, n, wk, what) -> torch.Tensor:
     out = torch.empty(n, code.k * 4 * wk, dtype=torch.uint8,
                       device=src.device)
     if n:
-        _gf_apply(_tables_on(src.device, code.n, code.k, rows), code.k, src,
-                  source, out, wk, code.k * wk, n, wk, what)
+        _gf_apply(code, rows, code.k, src, source, out,
+                  GfOutput(0, wk, code.k * wk), n, wk, what)
         LAUNCHES["decode"] += 1
     return out
 
@@ -320,11 +389,9 @@ def encode_fold_device(code: RSCode, data: torch.Tensor) -> torch.Tensor:
                          f"rows and at most {MAX_ROWS} data rows")
     wk = S // code.k // 4
     out = torch.empty(B, code.n * wk, dtype=torch.int32, device=data.device)
-    table = np.ascontiguousarray(parity_consts(code.n, code.k))
-    rc = cuda_build.lib("ec").rt_encode_fold(
-        data.data_ptr(), out.data_ptr(),
-        table.ctypes.data_as(ctypes.c_void_p), B, code.k, code.m, wk,
-        cuda_build.stream_of(data))
-    cuda_build.check("ec", rc, "encode_fold_device")
-    LAUNCHES["encode_fold"] += 1
+    if B:
+        source, output = encode_fold_layout(code, B, wk)
+        _gf_apply(code, None, code.m, data, source, out, output, B, wk,
+                  "encode_fold_device")
+        LAUNCHES["encode_fold"] += 1
     return out

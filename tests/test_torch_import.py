@@ -34,6 +34,12 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import raft_tpu_torch.ec.kernels, raft_tpu_torch.ec.reconstruct\n"
         "import raft_tpu_torch.core.step_mesh, raft_tpu_torch.transport.mesh\n"
         "import raft_tpu_torch.transport.launch\n"
+        "import raft_tpu_torch.raft, raft_tpu_torch.raft.engine\n"
+        "import raft_tpu_torch.raft.ledger, raft_tpu_torch.storm\n"
+        "import raft_tpu_torch.admission, raft_tpu_torch.admission.retry\n"
+        "import raft_tpu_torch.faults, raft_tpu_torch.faults.plan\n"
+        "import raft_tpu_torch.ckpt, raft_tpu_torch.ckpt.ship\n"
+        "import raft_tpu_torch.obs, raft_tpu_torch.obs.profiling\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax') or "
         "m == 'raft_tpu' or m.startswith(('jax.', 'raft_tpu.')))\n"
         "print(bad); sys.exit(1 if bad else 0)\n" % str(ROOT)
