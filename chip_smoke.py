@@ -94,7 +94,33 @@ batch 1024, a 32 768-slot ring, commit quorum 4):
    launch floor again, ``k7_vs_floor``; ``k6_bank_probe``: K6 decode on
    all-zero bytes), ``k6_read_path`` (a decoding read of one flight's
    window before, gathered and decoded contiguous, and after, K6 on the
-   ring), and the EC path's device idle share.
+   ring), and the EC path's device idle share;
+8a. drives config 3 through the erasure-coded engine (``RaftEngine`` with
+    ``rs_k=3``, a vote log in a temporary directory): an election and
+    65 536 entries through 64 full leader ticks (K7 encodes each batch,
+    K2 replicates it at the quorum of 4), one ``submit_pipelined`` ring
+    (one K4 flight), a data row failed and 8 192 entries committed at 4
+    of 5 and read back through a parity row (K6 decoding the ring), a
+    second row slow under 2 048 uncommitted entries while the first
+    recovers (healed by reconstruction: K6 decode, K6 encode, install;
+    the suffix re-served: K6 encode), the second row failed and lapped
+    by 40 960 entries (ticks, then a K3 flight with the dead row) and
+    recovered (the heal refuses, the snapshot stream installs chunks
+    until the heal can finish), a leader failover with 4 096 entries,
+    then ``save_checkpoint``, a vote after it, ``RaftEngine.restore`` on
+    a fresh transport with the vote log, an election and 4 096 entries;
+    every read-back, every live row's shard column (against a fresh K6
+    encode), the apply stream and the restored terms and votedFor are
+    checked, and K7, K6 encode, K6 decode, K2 and K3 or K4 must launch;
+    prints entries/s, CUDA-event ms per leader tick, a profiled window of
+    steady EC ticks and the walls of the stream, the save and the
+    restore;
+8b. runs 8a's steps at a 4 096-slot ring on the card and on the CPU
+    (the CPU's flight gate opened, so both fly the same chunks): the
+    nodelog lines, terms, commit stamps, state leaves and committed bytes
+    of the engine before the crash and of the restored one must be
+    equal, which holds K6 and K7 inside the engine against their plain
+    versions.
 
 Then the multi-Raft group data plane at the two deployments the JAX
 package's bench runs on it: config A (16 groups of 3 replicas, 256-byte
@@ -1376,6 +1402,481 @@ def phase_config5_storm(dev):
           "wall_s_card": wall, "wall_s_cpu": host_wall,
           "note": "virtual-clock figures are deterministic per seed; the "
                   "walls are host clocks"})
+    return {"launches": counters}
+
+
+# ------------------------------------- the erasure-coded engine (A9b, A9e)
+#: entries per step of ``ec_engine_run``: BASELINE config 3's ring at full
+#: depth, and the same steps cut to a 4 096-slot ring for the card-equals-
+#: CPU run (each step's count a multiple of 256, so every flight starts
+#: on a block-aligned tail)
+EC_ENGINE_STEPS = {
+    "full": dict(capacity=1 << 15, ticks=65536, flight=32768, degraded=8192,
+                 suffix=2048, lapped_ticks=8192, lapped_flight=32768,
+                 after_failover=4096, after_restore=4096),
+    "reduced": dict(capacity=4096, ticks=2048, flight=4096, degraded=1024,
+                    suffix=512, lapped_ticks=1024, lapped_flight=4096,
+                    after_failover=1024, after_restore=1024),
+}
+
+
+def ec_engine_config(capacity):
+    """BASELINE config 3 (``ec_config``) with a ring of ``capacity``."""
+    from raft_tpu_torch.config import RaftConfig
+
+    return RaftConfig(n_replicas=5, entry_bytes=264, batch_size=1024,
+                      log_capacity=capacity, rs_k=3, rs_m=2,
+                      transport="single")
+
+
+def read_engine_ec_counters(dev):
+    from raft_tpu_torch.ec import kernels as ek
+
+    out = read_counters(dev)
+    out.update({"K6 encode": ek.LAUNCHES["encode"],
+                "K6 decode": ek.LAUNCHES["decode"],
+                "K7": ek.LAUNCHES["encode_fold"]})
+    return out
+
+
+def shard_columns_match(e, inp, what):
+    """Every live row's shard column over the newest window its ring
+    holds equals that row of a fresh K6 encode of the input's bytes."""
+    import torch
+
+    from raft_tpu_torch.ec.kernels import encode_device
+    from raft_tpu_torch.ec.reconstruct import gather_shard_window
+
+    hi = e.commit_watermark
+    live = [r for r in range(e.cfg.rows) if e.alive[r]]
+    lo = max([hi - e.state.capacity + 1, 1]
+             + [int(e._ring_floor[r]) for r in live])
+    data = np.frombuffer(inp.window(lo, hi), np.uint8).reshape(-1,
+                                                               inp.E)
+    fresh = encode_device(e._code, torch.from_numpy(data.copy()).to(
+        e.state.device))
+    for r in live:
+        got = gather_shard_window(e.state, [r], lo, hi)[0]
+        check(torch.equal(got, fresh[r]),
+              f"{what}: row {r}'s shard column of [{lo}, {hi}] differs "
+              "from a fresh encode of the input")
+    return {"lo": lo, "hi": hi, "rows": live}
+
+
+def ec_engine_run(cfg, dev, steps, tmp, timed):
+    """BASELINE config 3 through ``RaftEngine`` (RS(5,3), 264-byte
+    entries, B = 1024) on ``dev`` with a vote log, in seven steps:
+
+    1. an election, then ``ticks`` entries through full leader ticks (K7
+       encodes each batch, K2 replicates it at the EC quorum of 4);
+    2. one ``submit_pipelined`` chunk of one ring the gate admits (K7,
+       then one K4 flight: every row accepts);
+    3. a data row failed and ``degraded`` entries committed at 4 of 5,
+       read back through ``committed_entries`` (K6 decodes the ring);
+    4. a second row made slow (3 acks: commit blocks) under ``suffix``
+       uncommitted entries, then the failed row recovered: ``_ec_heal``
+       heals it by reconstruction (K6 decode, K6 encode, install) and
+       re-serves the suffix (K6 encode), and commit resumes; the slow row
+       is released and healed too;
+    5. the second row failed, more than one ring committed past it
+       (``lapped_ticks`` through ticks, then a ring as one K3 flight with
+       the dead row), the row recovered: the heal refuses (every donor
+       ring lapped it) and the snapshot stream installs it chunk by chunk
+       (K6 encode per chunk) until its match reaches the watermark;
+    6. the leader failed, a re-election, ``after_failover`` entries;
+    7. ``save_checkpoint``, a forced candidacy after it (a vote the log
+       must carry), the process dropped, ``RaftEngine.restore`` on a
+       fresh transport with the same vote log (K6 encodes the ring's
+       tail once), an election and ``after_restore`` entries.
+
+    Every committed window is read back through ``committed_entries``
+    and must hash to the input's; the shard columns of every live row
+    must equal a fresh K6 encode after steps 5 and 7; the apply stream
+    over both engines must hash to the input's; the restored terms and
+    votedFor must equal the checkpoint merged with the vote log, and the
+    pre-crash engine's. ``timed`` adds the host-clock rate, CUDA events
+    per leader tick and a profiled window of steady EC ticks (card
+    only). Returns (result, fingerprint), the fingerprint being what the
+    card-equals-CPU comparison holds equal."""
+    import os
+
+    import torch
+
+    from raft_tpu_torch.ckpt import EngineCheckpoint, merge_restored
+    from raft_tpu_torch.core.state import state_to_numpy
+    from raft_tpu_torch.obs import profiling
+    from raft_tpu_torch.raft import RaftEngine
+    from raft_tpu_torch.transport.device import SingleDeviceTransport
+
+    on_card = torch.device(dev).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    B = cfg.batch_size
+    C = cfg.log_capacity
+    vote_log = os.path.join(tmp, "votes.log")
+    ck_path = os.path.join(tmp, "cluster.npz")
+    tr = SingleDeviceTransport(cfg, device=dev)
+    flights = []
+    run_flight = tr.replicate_pipeline
+
+    def counted_flight(*a, **k):
+        flights.append(int(a[2].shape[0]))
+        return run_flight(*a, **k)
+
+    tr.replicate_pipeline = counted_flight
+    lines = []
+    e = RaftEngine(cfg, tr, trace=lines.append, vote_log=vote_log)
+    inp = EngineInput(cfg)
+    h_apply = hashlib.sha256()
+    applied = [0]
+
+    def apply(idx, payload):
+        check(idx == applied[0] + 1, "the apply stream skipped an index")
+        applied[0] = idx
+        h_apply.update(payload)
+
+    e.register_apply(apply)
+    res = {"n_replicas": cfg.n_replicas, "entry_bytes": cfg.entry_bytes,
+           "rs": [cfg.rows, cfg.rs_k], "commit_quorum": cfg.commit_quorum,
+           "batch": B, "capacity": C, "device": str(dev), "steps": steps}
+    reads = []
+    walls = {}
+
+    def read_back(e, lo, what):
+        hi = e.commit_watermark
+        got = hashlib.sha256(e.committed_entries(lo, hi).tobytes())
+        want = hashlib.sha256(inp.window(lo, hi)).hexdigest()
+        check(got.hexdigest() == want,
+              f"{what}: committed_entries of [{lo}, {hi}] differ from the "
+              "input")
+        reads.append({"what": what, "lo": lo, "hi": hi, "sha256": want})
+
+    def commit(e, n, what, heartbeats=0):
+        lo = e.commit_watermark + 1
+        seqs = [e.submit(p) for p in inp.take(n)]
+        e.run_until_committed(seqs[-1])
+        if heartbeats:
+            e.run_for(heartbeats * cfg.heartbeat_period)
+        check(e.commit_watermark == lo - 1 + n,
+              f"{what}: commit {e.commit_watermark}, want {lo - 1 + n}")
+        read_back(e, lo, what)
+
+    def heal_lines(r, msg, since):
+        return [ln for ln in lines[since:]
+                if ln.startswith(f"[Server{r}:") and msg in ln]
+
+    def other_row(cands, *not_rows):
+        return next(r for r in cands
+                    if r != e.leader_id and r not in not_rows)
+
+    # 1. an election, then full leader ticks (K7 + K2)
+    e.run_until_leader()
+    res["first_leader"] = e.leader_id
+    half = steps["ticks"] // 2
+    tick_events = []
+    if timed:
+        run_tick = e._fire_leader_tick
+
+        def timed_tick(r):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            run_tick(r)
+            b.record()
+            tick_events.append((a, b))
+
+        e._fire_leader_tick = timed_tick
+    for h in range(2):
+        lo = e.commit_watermark + 1
+        seqs = [e.submit(p) for p in inp.take(half)]
+        sync()
+        t0 = time.perf_counter()
+        if timed and h == 1:
+            ticks0 = e._tick_count
+
+            def window():
+                with profiling.annotating():
+                    while e._tick_count < ticks0 + ENGINE_PROFILED_TICKS:
+                        e.step_event()
+
+            events, pwall = _device_events(window, 1)
+            events = [(n, us) for n, us in events
+                      if not n.startswith("leader_tick#")]
+        e.run_until_committed(seqs[-1])
+        sync()
+        if h == 0:
+            walls["ticks_first_half_s"] = time.perf_counter() - t0
+        read_back(e, lo, f"ticks, half {h}")
+    if timed:
+        e._fire_leader_tick = run_tick
+        tick_ms = [a.elapsed_time(b) for a, b in tick_events]
+        res["ticks"] = {
+            "leader_ticks": len(tick_events), "entries": steps["ticks"],
+            "entries_per_s_wall": half / walls["ticks_first_half_s"],
+            "rate_over": f"the first half ({half} entries, not profiled)",
+            "ms_per_tick_p50": float(np.percentile(tick_ms, 50)),
+            "ms_per_tick_p99": float(np.percentile(tick_ms, 99)),
+            "ms_per_tick_mean": float(np.mean(tick_ms)),
+            "latency_method": "CUDA events around each leader tick (host "
+                              "work inside)"}
+        by_kind = {}
+        for name, us in events:
+            kind = kernel_of(name) or ("copy" if "emcpy" in name
+                                       else "other")
+            if kind in ("K6 encode", "K6 decode", "K7"):
+                kind = "gf_table_kernel (K7 on these ticks)"
+            by_kind[kind] = by_kind.get(kind, 0.0) + us
+        busy = sum(by_kind.values())
+        copies = [n for n, _ in events if "emcpy" in n]
+        kernels = [n for n, _ in events
+                   if "emcpy" not in n and "emset" not in n]
+        by_name = {}
+        for name, us in events:
+            by_name[name[:60]] = by_name.get(name[:60], 0.0) + us
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        res["profiled_ticks"] = {
+            "ticks": ENGINE_PROFILED_TICKS, "wall_ms": pwall * 1e3,
+            "kernels_per_tick": len(kernels) / ENGINE_PROFILED_TICKS,
+            "copies_per_tick": len(copies) / ENGINE_PROFILED_TICKS,
+            "device_ops_per_tick": len(events) / ENGINE_PROFILED_TICKS,
+            "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / (pwall * 1e6),
+            "device_ms_by_kind": {k: v / 1e3 for k, v in by_kind.items()},
+            "device_ms_top_names": {k: v / 1e3 for k, v in top}}
+    # 2. one ring as one flight (every row accepts: K4)
+    lo = e.commit_watermark + 1
+    sync()
+    t0 = time.perf_counter()
+    e.submit_pipelined(inp.take(steps["flight"]))
+    sync()
+    walls["flight_s"] = time.perf_counter() - t0
+    check(flights == [C // B],
+          f"the pipeline gate did not admit the chunk: {flights}")
+    check(e.commit_watermark == lo - 1 + steps["flight"],
+          f"the flight committed {e.commit_watermark}")
+    read_back(e, lo, "flight")
+    # 3. a data row failed: commit at 4 of 5, decoding reads
+    a = other_row((1, 0, 2))
+    e.fail(a)
+    commit(e, steps["degraded"], f"row {a} dead")
+    res["degraded_read_rows"] = [
+        r for r in range(cfg.rows) if e.alive[r]][:cfg.rs_k]
+    # 4. a second row slow (commit blocks), the first recovered
+    b = other_row((2, 0, 1, 3, 4), a)
+    e.set_slow(b, True)
+    wm = e.commit_watermark
+    seqs = [e.submit(p) for p in inp.take(steps["suffix"])]
+    e.run_for(3 * cfg.heartbeat_period)
+    check(e.commit_watermark == wm
+          and int(e.state.last_index[e.leader_id]) == wm + steps["suffix"],
+          f"rows {a} dead and {b} slow: the suffix must sit uncommitted")
+    mark = len(lines)
+    e.recover(a)
+    e.run_until_committed(seqs[-1])
+    check(heal_lines(a, "healed by reconstruction", mark)
+          and heal_lines(a, "suffix re-served", mark),
+          f"row {a} was not healed and re-served: {lines[mark:][:12]}")
+    read_back(e, wm + 1, f"suffix re-served to row {a}")
+    mark = len(lines)
+    e.set_slow(b, False)
+    e.run_for(3 * cfg.heartbeat_period)
+    check(heal_lines(b, "healed by reconstruction", mark),
+          f"slow row {b} was not healed: {lines[mark:][:12]}")
+    # 5. the second row failed and lapped, then streamed a snapshot
+    e.fail(b)
+    commit(e, steps["lapped_ticks"], f"row {b} dead (ticks)")
+    lo = e.commit_watermark + 1
+    e.submit_pipelined(inp.take(steps["lapped_flight"]))
+    check(flights == [C // B] * 2,
+          f"the gate did not admit the dead-row chunk: {flights}")
+    check(e.commit_watermark == lo - 1 + steps["lapped_flight"],
+          f"the dead-row flight committed {e.commit_watermark}")
+    read_back(e, lo, f"row {b} dead (flight)")
+    mark = len(lines)
+    e.recover(b)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(4 * C // B):
+        e.run_for(cfg.heartbeat_period)
+        if int(e.state.match_index[b]) >= e.commit_watermark:
+            break
+    sync()
+    walls["snapshot_stream_s"] = time.perf_counter() - t0
+    ours = [ln for ln in lines[mark:] if ln.startswith(f"[Server{b}:")]
+    chunks = heal_lines(b, "snapshot chunk installed", mark)
+    # the heal refuses first (every donor ring lapped the row), so the
+    # first thing installed is a snapshot chunk; once the stream has
+    # brought the row back inside the donors' ring horizon, the heal by
+    # reconstruction may finish the range, as in the JAX engine
+    check(len(ours) >= 2 and "snapshot chunk installed" in ours[1],
+          f"lapped row {b} was not streamed: {ours[:12]}")
+    check(int(e.state.match_index[b]) >= e.commit_watermark,
+          f"row {b}'s match {int(e.state.match_index[b])} is below the "
+          f"watermark {e.commit_watermark} after the stream")
+    res["stream"] = {
+        "row": b, "chunks_installed": e._shipper.chunks_total,
+        "chunk_lines": len(chunks),
+        "completed_by_stream": bool(heal_lines(
+            b, "snapshot stream complete", mark)),
+        "then_healed_by_reconstruction": bool(heal_lines(
+            b, "healed by reconstruction", mark)),
+        "wall_s": walls["snapshot_stream_s"]}
+    shards = [shard_columns_match(e, inp, "after the stream")]
+    # 6. the leader failed, a re-election
+    old = e.leader_id
+    e.fail(old)
+    e.run_until_leader()
+    res["failover"] = {"failed": old, "new_leader": e.leader_id,
+                       "term": int(e.leader_term)}
+    commit(e, steps["after_failover"], "after the failover")
+    # 7. checkpoint, a vote after it, restore with the vote log
+    sync()
+    t0 = time.perf_counter()
+    e.save_checkpoint(ck_path)
+    walls["save_checkpoint_s"] = time.perf_counter() - t0
+    ck = EngineCheckpoint.load(ck_path)
+    e.force_campaign(other_row(range(cfg.rows), old))
+    pre_terms = e.terms.copy()
+    pre_vf = e.state.voted_for.cpu().numpy().astype(np.int64)
+    wm = e.commit_watermark
+    before = {"lines": list(lines), "terms": e.terms.tolist(),
+              "commit_time": dict(e.commit_time),
+              "state": state_to_numpy(e.state)}
+    del e
+    tr2 = SingleDeviceTransport(cfg, device=dev)
+    lines2 = []
+    sync()
+    t0 = time.perf_counter()
+    e2 = RaftEngine.restore(cfg, ck_path, tr2, trace=lines2.append,
+                            vote_log=vote_log)
+    sync()
+    walls["restore_s"] = time.perf_counter() - t0
+    want_terms, want_vf = merge_restored(
+        cfg.rows, ck.terms.astype(np.int64).copy(),
+        ck.voted_for.astype(np.int64).copy(), vote_log)
+    got_vf = e2.state.voted_for.cpu().numpy()
+    check(np.array_equal(e2.terms, want_terms)
+          and np.array_equal(got_vf, want_vf)
+          and np.array_equal(e2.terms, pre_terms)
+          and np.array_equal(got_vf, pre_vf),
+          f"restored terms {e2.terms.tolist()} / votedFor "
+          f"{got_vf.tolist()}: the checkpoint merged with the vote log "
+          f"gives {want_terms.tolist()} / {want_vf.tolist()}, the engine "
+          f"held {pre_terms.tolist()} / {pre_vf.tolist()}")
+    check(e2.commit_watermark == wm, f"restored to {e2.commit_watermark}")
+    e2.register_apply(apply)
+    e2.run_until_leader()
+    commit(e2, steps["after_restore"], "after the restore",
+           heartbeats=2)
+    shards.append(shard_columns_match(e2, inp, "after the restore"))
+    total = sum(v for k, v in steps.items() if k != "capacity")
+    check(e2.commit_watermark == total and applied[0] == total,
+          f"commit {e2.commit_watermark}, applied {applied[0]}, "
+          f"submitted {total}")
+    check(h_apply.hexdigest() == inp.h.hexdigest(),
+          "the apply stream differs from the input")
+    res.update({
+        "entries": total, "commit_watermark": e2.commit_watermark,
+        "checkpoint": {"base_index": ck.snap.base_index,
+                       "last_index": ck.snap.last_index,
+                       "bytes": os.path.getsize(ck_path)},
+        "restored_terms": e2.terms.tolist(),
+        "restored_voted_for": got_vf.tolist(),
+        "sha256_input": inp.h.hexdigest(),
+        "sha256_apply_stream": h_apply.hexdigest(),
+        "read_backs": len(reads), "shard_checks": shards,
+        "flights": flights, "walls_s": walls,
+        "nodelog_lines": len(lines) + len(lines2)})
+    fingerprint = {
+        "before": before,
+        "after": {"lines": lines2, "terms": e2.terms.tolist(),
+                  "commit_time": dict(e2.commit_time),
+                  "state": state_to_numpy(e2.state)},
+        "apply": h_apply.hexdigest(), "reads": reads}
+    return res, fingerprint
+
+
+def phase_engine_ec_path(dev):
+    """``ec_engine_run`` at BASELINE config 3's full depth on the card;
+    every check exact, and K7, K6 encode, K6 decode and K2 must launch,
+    with K3 or K4."""
+    import tempfile
+
+    zero_ec_counters(dev)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        steps = EC_ENGINE_STEPS["full"]
+        res, _ = ec_engine_run(ec_engine_config(steps["capacity"]), dev,
+                               steps, tmp, timed=True)
+    counters = read_engine_ec_counters(dev)
+    for k in ("K7", "K6 encode", "K6 decode", "K2"):
+        check(counters[k] > 0, f"engine_ec: {k} never launched: {counters}")
+    check(counters["K3"] + counters["K4"] > 0,
+          f"engine_ec: neither K3 nor K4 launched: {counters}")
+    res.update({"phase": "engine_ec_path", "launches": counters,
+                "phase_wall_s": time.perf_counter() - t0,
+                "nodelog": "on (heal and stream lines checked)"})
+    emit(res)
+    return res
+
+
+def phase_engine_ec_card_equals_cpu(dev):
+    """``ec_engine_run`` at a 4 096-slot ring, once with the transport on
+    the card and once on the CPU (both engines' flight gates open, so
+    the CPU flies the same chunks through the plain versions): the
+    nodelog lines, terms, commit stamps, every state leaf and the
+    committed bytes of the engine before the crash and of the restored
+    one must be equal. This holds K6 and K7 inside the engine against
+    their plain versions."""
+    import tempfile
+
+    import raft_tpu_torch.raft.engine as engine_mod
+
+    steps = EC_ENGINE_STEPS["reduced"]
+    cfg = ec_engine_config(steps["capacity"])
+    runs = {}
+    walls = {}
+    zero_ec_counters(dev)
+    for where in (dev, "cpu"):
+        hook = engine_mod._pipeline_backend_ok
+        if where == "cpu":
+            engine_mod._pipeline_backend_ok = lambda *a: True
+        try:
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory() as tmp:
+                runs[str(where)] = ec_engine_run(cfg, where, steps, tmp,
+                                                 timed=False)
+            walls[str(where)] = time.perf_counter() - t0
+        finally:
+            engine_mod._pipeline_backend_ok = hook
+        if where == dev:
+            counters = read_engine_ec_counters(dev)
+    (card, cf), (host, hf) = runs[str(dev)], runs["cpu"]
+    for part in ("before", "after"):
+        c, h = cf[part], hf[part]
+        check(c["lines"] == h["lines"],
+              f"card vs CPU ({part}): the nodelog lines differ")
+        check(c["terms"] == h["terms"] and c["commit_time"] == h["commit_time"],
+              f"card vs CPU ({part}): terms or commit stamps differ")
+        for f in c["state"]:
+            check(np.array_equal(c["state"][f], h["state"][f]),
+                  f"card vs CPU ({part}): state.{f} differs")
+    check(cf["apply"] == hf["apply"] and cf["reads"] == hf["reads"],
+          "card vs CPU: the committed bytes differ")
+    for k in ("K7", "K6 encode", "K6 decode", "K2"):
+        check(counters[k] > 0,
+              f"engine_ec card run: {k} never launched: {counters}")
+    emit({"phase": "engine_ec_card_equals_cpu", "steps": steps,
+          "entries": card["entries"],
+          "nodelog_lines": card["nodelog_lines"],
+          "read_backs": card["read_backs"], "flights": card["flights"],
+          "launches_card": counters, "walls_s": walls,
+          "equal": ["nodelog lines", "terms", "commit stamps",
+                    "every state leaf", "committed bytes (apply stream, "
+                    "every read-back)"]})
     return {"launches": counters}
 
 
@@ -4081,6 +4582,8 @@ def main() -> int:
     ec_errs = phase_ec_kernels(ecfg, dev)
     ec_main = phase_ec_main_path(ecfg, dev)
     ec_timing = phase_ec_timing(ecfg, dev, card_line)
+    engine_ec = phase_engine_ec_path(dev)
+    engine_ec_small = phase_engine_ec_card_equals_cpu(dev)
     group_errs = phase_group_kernels(dev)
     group_main = phase_group_main_path(dev)
     group_timing = phase_group_timing(dev, card_line)
@@ -4110,6 +4613,12 @@ def main() -> int:
                 by_path["engine"] = engine_main["launches"][key]
                 if key in ("K1", "K2"):
                     by_path["config5"] = c5["launches"][key]
+            if key in ("K2", "K3", "K4", "K6 encode", "K6 decode", "K7"):
+                # the erasure-coded engine at config 3, and its reduced
+                # run on the card against the CPU
+                by_path["engine_ec"] = engine_ec["launches"][key]
+                by_path["engine_ec_card_equals_cpu"] = \
+                    engine_ec_small["launches"][key]
             kernels.append({
                 "name": f"{key} {name}", "route": "cuda", "source": src,
                 "replaces": replaces, "launches": sum(by_path.values()),

@@ -150,6 +150,8 @@ def install_entries(state: ReplicaState, replica: int, start: int, shards,
     u8[N, Sk] (this replica's shard per entry) and ``terms`` i32[N], numpy
     or tensors."""
     dev = state.device
+    if isinstance(shards, np.ndarray):   # may be a read-only byte view
+        shards = np.require(shards, requirements=["C", "W"])
     shards = torch.as_tensor(shards, device=dev)
     terms = torch.as_tensor(terms, device=dev).to(torch.int32)
     n_entries, sk = shards.shape

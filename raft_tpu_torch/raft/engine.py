@@ -1,5 +1,5 @@
-"""The cluster engine's tick loop: timers and roles on the host, protocol
-steps on the device (port of ``raft_tpu/raft/engine.py``, ROADMAP A9a).
+"""The cluster engine: timers and roles on the host, protocol steps on the
+device (port of ``raft_tpu/raft/engine.py``, ROADMAP A9a, A9b and A9e).
 
 One host thread owns every replica's timers and roles on a virtual clock
 (a heap of timer events drawn from ``random.Random(cfg.seed)``); the
@@ -18,7 +18,22 @@ data plane is the transport's batched device program:
   otherwise;
 - commits stamp client sequence numbers, move the committed entries into
   the host archive (``ckpt.CheckpointStore``) and feed the apply stream
-  (``register_apply``).
+  (``register_apply``);
+- a replica the ring has lapped is streamed a snapshot of the archive in
+  admission-budgeted chunks (``_stream_snapshot``);
+- ``save_checkpoint`` / ``restore`` carry the durable state (the archived
+  committed tail, terms, votedFor, the configuration) through one
+  ``.npz`` file, and ``vote_log=`` makes every (term, votedFor)
+  transition durable before the engine acts on it (``ckpt.votelog``).
+
+With ``rs_k`` set the cluster is erasure-coded (BASELINE config 3): each
+replica stores one RS(n, k) shard of every entry. The leader encodes each
+batch into the folded shard layout with kernel K7 (``encode_fold_device``);
+reads, archive backfills and the heal of a replica that missed windows
+reconstruct from k shard rows (kernel K6 decoding the ring in place);
+heals, suffix re-serves and snapshot installs re-encode on the device
+(kernel K6 encode). The JAX engine encodes those with its C++ host codec;
+the bytes are the same.
 
 With the same ``RaftConfig`` and seed and the same sequence of calls, the
 engine gives byte-identical results to the JAX engine: nodelog lines, the
@@ -29,14 +44,12 @@ tensors on the transport's device; the host mirrors are numpy, as there.
 pass a transport built with ``device="cpu"`` to run the plain versions.
 
 Not ported yet; each raises ``NotImplementedError`` naming its ROADMAP
-item: snapshot streaming to a ring-lapped replica, checkpoints and the
-vote log (A9b); membership changes and ``max_replicas`` (A9c); reads and
-leases (A9d); erasure coding (A9e); K-tick fusion (A11); the tiered
-archive and the device event ring (A13); the multihost mirror digest
-(A15); the flight recorder (A16). The observability hooks of the JAX
-engine (``spans``, ``metrics``, ``hostprof``, ``auditor``, ``slo``,
-``status_board``) come with A16, and the engine has no such attributes
-until then.
+item: membership changes and ``max_replicas`` (A9c); reads and leases
+(A9d); K-tick fusion (A11); the tiered archive and the device event ring
+(A13); the multihost mirror digest (A15); the flight recorder (A16). The
+observability hooks of the JAX engine (``spans``, ``metrics``,
+``hostprof``, ``auditor``, ``slo``, ``status_board``) come with A16, and
+the engine has no such attributes until then.
 """
 
 from __future__ import annotations
@@ -50,15 +63,32 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.admission import AdmissionGate
-from raft_tpu_torch.ckpt import CheckpointStore, SnapshotShipper
+from raft_tpu_torch.ckpt import (
+    CheckpointStore,
+    EngineCheckpoint,
+    Snapshot,
+    SnapshotShipper,
+    VoteLog,
+    install_snapshot,
+    install_snapshot_all,
+    merge_restored,
+)
 from raft_tpu_torch.config import RaftConfig
 from raft_tpu_torch.core.state import (
+    NO_VOTE,
     ReplicaState,
     fold_batch,
     last_log_term,
     log_entries,
 )
 from raft_tpu_torch.core.step_cuda import pick_br, shape_ok
+from raft_tpu_torch.ec.kernels import encode_device, encode_fold_device
+from raft_tpu_torch.ec.reconstruct import (
+    heal_replica,
+    install_entries,
+    reconstruct,
+)
+from raft_tpu_torch.ec.rs import RSCode
 from raft_tpu_torch.obs import profiling as _profiling
 from raft_tpu_torch.raft.ledger import (
     durable_range_covers,
@@ -130,7 +160,7 @@ class RaftEngine:
         vote_log: Optional[str] = None,
         recorder=None,
     ):
-        self._refuse_unported(cfg, vote_log, recorder)
+        self._refuse_unported(cfg, recorder)
         self.cfg = cfg
         self.t: Transport = (transport if transport is not None
                              else make_transport(cfg))
@@ -146,6 +176,10 @@ class RaftEngine:
         self.member = np.ones(n, bool)
         #   The configuration: fixed here (every row a voter); membership
         #   changes are ROADMAP A9c. Quorums are counted over members.
+        self.learner = np.zeros(n, bool)
+        #   Non-voting learners: always empty until ROADMAP A9c makes them
+        #   live; kept so that restore, the heals and saved checkpoints
+        #   carry the configuration as the JAX engine's do.
         self.roles: List[str] = [FOLLOWER] * n
         self.terms = np.zeros(n, np.int64)     # host mirror for timer logic
         self.lead_terms = np.zeros(n, np.int64)
@@ -182,10 +216,15 @@ class RaftEngine:
         #   Mapped at ingestion time, because log indices and sequence
         #   numbers diverge once a leadership change drops queued entries.
         self._hb_payload = None                    # cached all-zero batch
+        self._code = RSCode(cfg.rows, cfg.rs_k) if cfg.ec_enabled else None
+        #   The RS(n, k) code of an erasure-coded cluster: shard i lives on
+        #   row i (None without EC).
         self._uncommitted: Dict[int, Tuple[bytes, int]] = {}
         #   log index -> (full payload, ingest term): entries move from
-        #   here into the archive when they commit. Bounded by ring
-        #   backpressure: leader_last - commit <= log_capacity entries.
+        #   here into the archive when they commit; under EC recovered
+        #   replicas are also re-served the uncommitted suffix from here
+        #   (fewer than commit_quorum rows hold its shards). Bounded by
+        #   ring backpressure: leader_last - commit <= log_capacity.
         self.store = CheckpointStore(
             cfg.entry_bytes, max_entries=2 * cfg.log_capacity
         )
@@ -194,8 +233,9 @@ class RaftEngine:
         self._shipper = SnapshotShipper(
             cfg.catchup_chunk_entries or cfg.batch_size
         )
-        #   Incremental snapshot shipping's bookkeeping (ckpt.ship); the
-        #   install itself is ROADMAP A9b.
+        #   Incremental snapshot shipping (ckpt.ship): lapped replicas
+        #   catch up in admission-budgeted chunks per leader tick
+        #   (_stream_snapshot).
         self._lasts_snapshot = None   # see _pre_lasts
         self._term_floor = 1   # first log index of the current leader's
         #   term (the §5.4.2 gate of the steady kernels): set to
@@ -228,16 +268,32 @@ class RaftEngine:
         self._q: List[Tuple[float, int, str, int]] = []  # (t, tiebreak, kind, replica)
         self._seq_events = 0
         self._timer_gen = [0] * n
+        self._votelog = None
+        self._persisted_terms = np.zeros(n, np.int64)
+        self._persisted_vf = np.full(n, NO_VOTE, np.int64)
+        if vote_log is not None:
+            # transition-time durability (ckpt.votelog): replay any
+            # existing records into the fresh state, so a restarted
+            # process cannot vote twice in a term it voted in, then keep
+            # appending at every (term, votedFor) transition
+            terms = self.terms.copy()
+            vf = self._fetch(self.state.voted_for).astype(np.int64)
+            terms, vf = merge_restored(n, terms, vf, vote_log)
+            if (terms != self.terms).any() or (
+                vf != self._fetch(self.state.voted_for)
+            ).any():
+                self._set_votes(terms, vf)
+                for r in range(n):
+                    self.nodelog(r, "vote log replayed")
+            self._attach_votelog(vote_log)
         for r in range(n):
             self._arm_follower(r)
 
     @staticmethod
-    def _refuse_unported(cfg: RaftConfig, vote_log, recorder) -> None:
+    def _refuse_unported(cfg: RaftConfig, recorder) -> None:
         """Raise for every configuration whose code is not ported yet."""
         if cfg.max_replicas is not None:
             raise _not_ported("max_replicas (membership headroom)", "A9c")
-        if cfg.ec_enabled:
-            raise _not_ported("the erasure-coded engine (rs_k)", "A9e")
         if cfg.read_lease:
             raise _not_ported("read_lease (leader leases)", "A9d")
         fuse_k = max(1, int(os.environ.get("RAFT_TPU_FUSE_K", "")
@@ -249,8 +305,6 @@ class RaftEngine:
         if cfg.mirror_check_every:
             raise _not_ported("the multihost mirror digest "
                               "(mirror_check_every)", "A15")
-        if vote_log is not None:
-            raise _not_ported("the vote log (vote_log=)", "A9b")
         if recorder is not None:
             raise _not_ported("the flight recorder (recorder=)", "A16")
 
@@ -265,6 +319,12 @@ class RaftEngine:
     def _dev_arr(self, x) -> torch.Tensor:
         """A host mask or count vector as a tensor on the device."""
         return torch.from_numpy(np.ascontiguousarray(x)).to(self._dev)
+
+    def _dev_bytes(self, data: np.ndarray) -> torch.Tensor:
+        """Host entry bytes u8[N, S] as a tensor on the device (the packed
+        batches may be read-only views of the payload bytes)."""
+        return torch.from_numpy(
+            np.require(data, requirements=["C", "W"])).to(self._dev)
 
     def _nodelog_at(self, r: int, msg: str, commit: int, last: int) -> str:
         """``nodelog`` with caller-supplied commit/last values."""
@@ -287,6 +347,47 @@ class RaftEngine:
             torch.stack([self.state.commit_index, self.state.last_index])
         )   # one fetch for both fields
         return self._nodelog_at(r, msg, int(ci_li[0, r]), int(ci_li[1, r]))
+
+    def _set_votes(self, terms: np.ndarray, vf: np.ndarray) -> None:
+        """Install per-replica (term, votedFor) into the device state and
+        the host term mirror (vote-log replay, restore)."""
+        st = self.state
+        self.state = st.replace(
+            term=torch.as_tensor(terms, dtype=st.term.dtype, device=st.device),
+            voted_for=torch.as_tensor(vf, dtype=st.voted_for.dtype,
+                                      device=st.device),
+        )
+        self.terms = terms
+
+    def _attach_votelog(self, path: str) -> None:
+        self._votelog = VoteLog(path)
+        self._persisted_terms = self.terms.astype(np.int64).copy()
+        self._persisted_vf = self._fetch(self.state.voted_for).astype(np.int64)
+
+    def _persist_votes(self, vf: Optional[np.ndarray] = None) -> None:
+        """Durably record every (term, votedFor) row that changed since
+        the last record — called BEFORE the engine acts on the transition
+        (the fence argument in ckpt.votelog). ``vf`` is the device
+        voted_for when the caller has it (vote rounds); without it,
+        adoption semantics apply: a row whose term advanced holds NO_VOTE
+        in the new term (the step resets voted_for on adoption)."""
+        if self._votelog is None:
+            return
+        rows = []
+        for r in range(self.cfg.rows):
+            t = int(self.terms[r])
+            if vf is not None:
+                v = int(vf[r])
+            elif t == self._persisted_terms[r]:
+                v = int(self._persisted_vf[r])
+            else:
+                v = NO_VOTE
+            if t != self._persisted_terms[r] or v != self._persisted_vf[r]:
+                rows.append((r, t, v))
+                self._persisted_terms[r] = t
+                self._persisted_vf[r] = v
+        if rows:
+            self._votelog.record_many(rows)
 
     def _push(self, t: float, kind: str, replica: int) -> None:
         heapq.heappush(self._q, (t, self._seq_events, kind, replica))
@@ -362,6 +463,7 @@ class RaftEngine:
         for the stale term."""
         self.roles[r] = FOLLOWER
         self.terms[r] = max_term
+        self._persist_votes()   # adopt the term durably before acting on it
         if self.leader_id == r:
             self.leader_id = None
         self.nodelog(r, "step down to follower")
@@ -426,8 +528,14 @@ class RaftEngine:
             if used:
                 counts[used - 1] = take - (used - 1) * B
             data = self._pack_entries(chunk, T * B)
-            payload_stack = fold_batch(data, cfg.rows,
-                                       device=self._dev).reshape(T, B, -1)
+            if cfg.ec_enabled:
+                # K7: the chunk's RS shard rows, folded into the log layout
+                payload_stack = encode_fold_device(
+                    self._code, self._dev_bytes(data)
+                ).reshape(T, B, -1)
+            else:
+                payload_stack = fold_batch(data, cfg.rows,
+                                           device=self._dev).reshape(T, B, -1)
             pre_lasts = self._pre_lasts()
             floor, fpt = self._floor_attest(r)
             if eligible:
@@ -503,7 +611,10 @@ class RaftEngine:
                         refused.append((seq, p))
                 pos += cnt
             pending = refused + pending[take:]
+            # durability fence first, as on the tick path: the chunk's
+            # term adoptions reach disk before _advance_commit acts
             self.terms[eff] = np.maximum(self.terms[eff], self.leader_term)
+            self._persist_votes()
             self._advance_commit(r, final_commit)
             self._update_steady(r, infos.match[-1], eff)
             if max_term > self.leader_term:
@@ -521,13 +632,15 @@ class RaftEngine:
                               leader_last: int, eff) -> None:
         """Durable accounting for the first ``n`` entries of a pipeline
         chunk at contiguous indices after ``leader_last``: seq and payload
-        bookkeeping, term adoption, then the commit advance. Shared by the
-        fast path's success and shortfall branches."""
+        bookkeeping, term adoption fenced to disk, then the commit
+        advance. Shared by the fast path's success and shortfall
+        branches."""
         for i, (seq, p) in enumerate(chunk[:n]):
             idx = leader_last + 1 + i
             self._seq_at_index[idx] = seq
             self._uncommitted[idx] = (p, self.leader_term)
         self.terms[eff] = np.maximum(self.terms[eff], self.leader_term)
+        self._persist_votes()
         self._advance_commit(r, leader_last + n)
 
     def _pipeline_eligible(self, r: int, take: int, T: int,
@@ -599,6 +712,8 @@ class RaftEngine:
         raise _not_ported("read_confirmed (batched ReadIndex)", "A9d")
 
     def read_linearizable(self, r: Optional[int] = None) -> int:
+        # the JAX engine fences its confirming round's term adoptions to
+        # the vote log here (_persist_votes); the fence comes with A9d
         raise _not_ported("read_linearizable (ReadIndex)", "A9d")
 
     def lease_read_index(self, r: int) -> Optional[int]:
@@ -886,9 +1001,14 @@ class RaftEngine:
         votes = int(info.votes)
         max_term = int(info.max_term)
         self.terms[eff] = np.maximum(self.terms[eff], cand_term)
+        # durability fence: every replica's (term, votedFor) transition
+        # from this vote round reaches disk before the engine acts on the
+        # outcome (promotion, timers, further steps) — ckpt.votelog
+        self._persist_votes(self._fetch(self.state.voted_for))
         if max_term > cand_term:
             # someone is ahead; fall back to follower in the newer term
             self.terms[r] = max_term
+            self._persist_votes()
             self.roles[r] = FOLLOWER
             self._arm_follower(r)
             return
@@ -1001,6 +1121,12 @@ class RaftEngine:
                     device=self._dev,
                 )
             payload = self._hb_payload
+        elif cfg.ec_enabled:
+            # K7: the batch's RS shard rows (row r is what replica r
+            # stores), folded into the log layout on the device
+            data = self._pack_entries(self._queue[:take], B)
+            payload = encode_fold_device(
+                self._code, self._dev_bytes(data))
         else:
             # pack only the real entries; fold_batch pads to B
             payload = fold_batch(
@@ -1027,6 +1153,7 @@ class RaftEngine:
             return
         # heard replicas adopted the leader's term on device
         self.terms[eff] = np.maximum(self.terms[eff], term)
+        self._persist_votes()   # term adoptions reach disk before commit acts
         # ring backpressure: the step ingests at most `room` entries;
         # anything it left behind stays queued for a later tick
         ingested = int(info.frontier_len)
@@ -1045,7 +1172,10 @@ class RaftEngine:
         if routed:
             # heal bookkeeping and the shared steady flag belong to the
             # routed leader only
-            self._snapshot_heal(r, info)
+            if cfg.ec_enabled:
+                self._ec_heal(r, info)
+            else:
+                self._snapshot_heal(r, info)
             self._update_steady(r, info.match, eff)
         self._reset_heard_timers(r)
         self._push(self.clock.now + cfg.heartbeat_period, "l:x", r)
@@ -1186,7 +1316,9 @@ class RaftEngine:
         primary source is the host ingest buffer, trusted only where its
         ingest term matches the committing leader's log at that index;
         the rest is read back from the leader's ring (inside it by
-        construction), unless the ring never held the range."""
+        construction), unless the ring never held the range. Under EC the
+        rows hold only shards: the rest is reconstructed from k holders
+        (the leader first), or left unarchived when fewer than k hold it."""
         slots_all = (np.arange(lo, hi + 1) - 1) % self.state.capacity
         lead_terms = self._fetch(self.state.log_term)[leader, slots_all]
         missing = []
@@ -1199,36 +1331,124 @@ class RaftEngine:
         if not missing:
             return
         mlo, mhi = min(missing), max(missing)
-        if int(self._ring_floor[leader]) > mlo:
-            return  # ring never held the range; archive stays short
         terms = lead_terms[mlo - lo:mhi - lo + 1]
-        data = log_entries(self.state, leader, mlo, mhi)
+        try:
+            if self.cfg.ec_enabled:
+                commits = self._fetch(self.state.commit_index)
+                # a donor's ring must actually HOLD the range: slots below
+                # its ring floor were never written (snapshot installs)
+                donors = [
+                    q
+                    for q in ([leader] + [
+                        p for p in range(self.cfg.rows) if p != leader
+                    ])
+                    if self.alive[q] and int(commits[q]) >= mhi
+                    and int(self._ring_floor[q]) <= mlo
+                    and self.connectivity[leader, q]
+                ]
+                if len(donors) < self.cfg.rs_k:
+                    return
+                data = reconstruct(
+                    self.state, self._code, donors[: self.cfg.rs_k], mlo, mhi
+                )
+            else:
+                if int(self._ring_floor[leader]) > mlo:
+                    return  # ring never held the range; archive stays short
+                data = log_entries(self.state, leader, mlo, mhi)
+        except ValueError:
+            return
         for idx in missing:
             self.store.put(idx, data[idx - mlo].tobytes(),
                            int(terms[idx - mlo]))
 
+    def _catchup_budget(self) -> int:
+        """Chunks the catch-up lane may ship this tick: the admission
+        gate's background-lane decision (throttled to 1 while the write
+        lane is congested), or the configured maximum when admission is
+        disabled."""
+        mx = self.cfg.catchup_max_chunks_per_tick
+        if self.admission is None:
+            return mx
+        return self.admission.catchup_chunks(len(self._queue), mx)
+
     def _stream_snapshot(self, replica: int, lo: int,
                          hi: int) -> Optional[int]:
-        raise _not_ported(
-            f"streaming a snapshot of [{lo}, {hi}] to ring-lapped replica "
-            f"{replica}", "A9b")
+        """Ship this tick's budget of snapshot chunks toward installing
+        the committed range [lo, hi] (clamped to one ring capacity) into
+        ``replica`` from the archive. Returns the index the replica is
+        installed through after this tick (None when nothing could ship:
+        an archive gap, or an empty range). Each chunk advances the
+        replica's device match, so the stream resumes from the last acked
+        chunk across kills, leader changes and restarts; under EC each
+        chunk is re-encoded into the replica's shard row on the device
+        (``ckpt.install_snapshot``, K6 encode on the card)."""
+        lo = max(lo, hi - self.state.capacity + 1, 1)
+        if hi < lo:
+            return None
+        streaming = self._shipper.is_streaming(replica)
+        prev_next = (
+            self._shipper.streams[replica].next if streaming else None
+        )
+        raise_floor = not streaming
+        chunks = self._shipper.plan(
+            replica, lo, hi, self._catchup_budget()
+        )
+        if prev_next is not None and chunks and chunks[0][0] > prev_next:
+            # the ring-tail clamp overtook the acked cursor mid-stream:
+            # indices [prev_next, new cursor) were SKIPPED, not installed,
+            # so the validity floor must rise past the gap
+            raise_floor = True
+        reached = None
+        for clo, chi in chunks:
+            if not self.store.covers(clo, chi):
+                break      # archive gap: the replica keeps waiting
+            self.state = install_snapshot(
+                self.state, replica, self.store.snapshot(clo, chi),
+                self.leader_term, self.cfg.batch_size, self._code,
+            )
+            if raise_floor:
+                # only [clo, ...] onward is being written; slots below
+                # this stream segment's start keep whatever they held, so
+                # the floor rises once per (re)based stream
+                self._ring_floor[replica] = max(
+                    self._ring_floor[replica], clo
+                )
+                raise_floor = False
+            self._shipper.acked(replica, chi)
+            reached = chi
+        if reached is not None:
+            self._lasts_snapshot = None  # last_index moved outside a step
+            self.nodelog(replica, f"snapshot chunk installed to {reached}")
+            if reached >= hi:
+                self._shipper.finish(replica)
+                self.nodelog(
+                    replica, f"snapshot stream complete at {hi}"
+                )
+        return reached
 
     def _snapshot_heal(self, leader: int, info) -> None:
-        """Detect ring-lapped replicas (plain replication): the repair
-        window cannot heal a replica whose next needed index is below the
-        leader's ring horizon. After two stalled ticks (one
-        leadership-change transient is forgiven) the JAX engine streams a
-        snapshot (``_stream_snapshot``, ROADMAP A9b)."""
+        """Snapshot install for ring-lapped replicas (plain replication).
+        The repair window cannot heal a replica whose next needed index is
+        below the leader's ring horizon: its verified match stays pinned
+        while everyone else progresses. After two stalled ticks (one
+        leadership-change transient is forgiven) the leader streams it a
+        snapshot of the committed prefix (``_stream_snapshot``) until the
+        repair window reaches it again."""
         cap = self.state.capacity
         match = self._effective_match(int(self.lead_terms[leader]), info.match)
         leader_last = int(self._fetch(self.state.last_index)[leader])
+        # the repair window cannot serve below the leader's ring-validity
+        # floor either (truncated-after-wrap slots hold junk)
         horizon = max(leader_last - cap + 1, int(self._ring_floor[leader]))
         for p in range(self.cfg.rows):
             if (p == leader or not self.alive[p] or self.slow[p]
-                    or not self.member[p]
+                    or not (self.member[p] or self.learner[p])
                     or not self.connectivity[leader, p]):
-                # a dead replica KEEPS its stream (resume-on-recover)
+                # a dead replica KEEPS its stream (resume-on-recover); a
+                # deconfigured row's is abandoned
                 self._match_stall[p] = 0
+                if not (self.member[p] or self.learner[p]):
+                    self._shipper.finish(p)
                 continue
             if int(match[p]) + 1 >= horizon:
                 self._match_stall[p] = 0
@@ -1240,6 +1460,167 @@ class RaftEngine:
             self._stream_snapshot(
                 p, int(match[p]) + 1, self.commit_watermark
             )
+
+    def _ec_heal(self, leader: int, info) -> None:
+        """Two-phase repair for erasure-coded logs. Under EC there is no
+        repair window (the leader holds only its own shard row), so a live
+        replica that missed windows is healed instead:
+
+        - the committed range is reconstructed from k shard holders and
+          the replica's re-encoded shards installed (``heal_replica``: K6
+          decode, K6 encode, install); below every donor's ring horizon
+          it is streamed a snapshot from the archive instead;
+        - the uncommitted suffix is re-served from the host ingest buffer
+          (fewer than commit_quorum rows hold its shards, so
+          reconstruction cannot), re-encoded on the device, with its terms
+          checked against the leader's log so a buffer entry superseded
+          across leadership changes is never installed."""
+        match = self._effective_match(int(self.lead_terms[leader]), info.match)
+        n, k = self.cfg.rows, self.cfg.rs_k
+        leader_last = int(self._fetch(self.state.last_index)[leader])
+        hi_rec = self.commit_watermark
+        for p in range(n):
+            if (p == leader or not self.alive[p] or self.slow[p]
+                    or not self.connectivity[leader, p]
+                    or not (self.member[p] or self.learner[p])):
+                continue
+            if match[p] >= leader_last:
+                continue
+            lo = int(match[p]) + 1
+            if lo <= hi_rec:
+                # donors are the rows whose own commit covers the range:
+                # committed entries are immutable, so their shards are
+                # valid even where a leadership change reset their
+                # current-term match
+                commits = self._fetch(self.state.commit_index)
+                donors = [
+                    q for q in range(n)
+                    if self.alive[q] and int(commits[q]) >= hi_rec
+                    and self.connectivity[leader, q]
+                ]
+                if len(donors) < k:
+                    continue
+                try:
+                    self.state = heal_replica(
+                        self.state, self._code, p, donors[:k], lo, hi_rec,
+                        self.leader_term, hi_rec, self.cfg.batch_size,
+                    )
+                    self._lasts_snapshot = None
+                    self.nodelog(p, f"healed by reconstruction to {hi_rec}")
+                except ValueError:
+                    # below every donor's ring horizon: stream a snapshot
+                    # of the committed prefix instead; the suffix re-serve
+                    # below waits until the stream completes
+                    reached = self._stream_snapshot(p, lo, hi_rec)
+                    if reached is None or reached < hi_rec:
+                        continue
+                lo = hi_rec + 1
+            if lo <= leader_last:
+                idx = list(range(lo, leader_last + 1))
+                missing = [i for i in idx if i not in self._uncommitted]
+                if missing:
+                    # the buffer lost these bytes across leadership
+                    # changes: k rows whose current-term match covers the
+                    # suffix rebuild them (Log Matching)
+                    self._refill_uncommitted_from_shards(leader, missing)
+                    missing = [i for i in idx if i not in self._uncommitted]
+                if missing:
+                    # still unservable: abandon the suffix if some index
+                    # survives on fewer than k rows anywhere, else wait
+                    # for a dead holder to recover
+                    if self._ec_abandon_lost_suffix(leader, missing):
+                        return
+                    continue
+                slots = (np.asarray(idx) - 1) % self.state.capacity
+                log_terms = self._fetch(self.state.log_term)[leader, slots]
+                if any(
+                    self._uncommitted[i][1] != int(t)
+                    for i, t in zip(idx, log_terms)
+                ):
+                    continue  # superseded across a leadership change
+                data = np.frombuffer(
+                    b"".join(self._uncommitted[i][0] for i in idx), np.uint8
+                ).reshape(len(idx), self.cfg.entry_bytes)
+                shards = encode_device(
+                    self._code, self._dev_bytes(data))[p]
+                self.state = install_entries(
+                    self.state, p, lo, shards, log_terms,
+                    self.leader_term, self.commit_watermark,
+                    self.cfg.batch_size,
+                )
+                self._lasts_snapshot = None
+                self.nodelog(p, f"suffix re-served to {leader_last}")
+
+    def _ec_abandon_lost_suffix(self, leader: int, missing) -> bool:
+        """Liveness escape for permanently unrecoverable UNCOMMITTED
+        entries: if some missing index's shards survive on fewer than k
+        rows in total (dead rows included), no decode can rebuild it and
+        the k+margin quorum is wedged for good. The leader truncates every
+        row's tail back to just below the first such index and re-queues
+        the dropped entries whose bytes it still holds. Returns True if a
+        truncation happened."""
+        cap = self.state.capacity
+        lasts = self._fetch(self.state.last_index)
+        lterms = self._fetch(self.state.log_term)
+        first_lost = None
+        for i in sorted(missing):
+            slot = (i - 1) % cap
+            want = int(lterms[leader, slot])
+            holders = sum(
+                1 for q in range(self.cfg.rows)
+                if int(lasts[q]) >= i
+                and int(lterms[q, slot]) == want
+                and int(lasts[q]) - cap + 1 <= i
+                and int(self._ring_floor[q]) <= i
+            )
+            if holders < self.cfg.rs_k:
+                first_lost = i
+                break
+        if first_lost is None:
+            return False
+        cut = first_lost - 1
+        old_last = int(lasts[leader])
+        n = self._truncate_uncommitted_tail(cut, lasts)
+        self.nodelog(
+            leader,
+            f"unrecoverable uncommitted suffix [{first_lost}, {old_last}] "
+            f"abandoned (< {self.cfg.rs_k} shard holders); "
+            f"{n} entries re-queued",
+        )
+        return True
+
+    def _refill_uncommitted_from_shards(self, leader: int, indices) -> None:
+        """Rebuild lost ingest-buffer bytes for UNCOMMITTED indices from
+        k replicas whose current-term verified match covers them (their
+        shards agree with the leader's log by Log Matching). Does nothing
+        when fewer than k such holders exist."""
+        k = self.cfg.rs_k
+        lo, hi = min(indices), max(indices)
+        matches = self._fetch(self.state.match_index)
+        mterms = self._fetch(self.state.match_term)
+        lasts = self._fetch(self.state.last_index)
+        donors = [
+            q for q in range(self.cfg.rows)
+            if self.alive[q] and self.connectivity[leader, q]
+            and int(mterms[q]) == self.leader_term
+            and int(matches[q]) >= hi
+            # the donor's ring must still HOLD the range: neither lapped
+            # nor below its install floor
+            and int(lasts[q]) - self.state.capacity + 1 <= lo
+            and int(self._ring_floor[q]) <= lo
+        ]
+        if len(donors) < k:
+            return
+        data = reconstruct(self.state, self._code, donors[:k], lo, hi)
+        slots = (np.arange(lo, hi + 1) - 1) % self.state.capacity
+        terms = self._fetch(self.state.log_term)[leader, slots]
+        for i in indices:
+            self._uncommitted[i] = (
+                data[i - lo].tobytes(), int(terms[i - lo])
+            )
+        self.nodelog(
+            leader, f"uncommitted suffix [{lo}, {hi}] rebuilt from shards"
+        )
 
     def register_apply(
         self, fn: Callable[[int, bytes], None], replay: bool = False
@@ -1311,16 +1692,33 @@ class RaftEngine:
 
     def _backfill_archive(self, idx: int, quiet: bool = False) -> bool:
         """Try to fill an archive gap at committed index ``idx`` from the
-        current leader's ring. False if still unavailable; a gap below the
-        ring horizon gets one loud nodelog (unless ``quiet``)."""
+        current leader's ring (or from k shard holders under EC). False if
+        still unavailable; a gap below every serving ring range gets one
+        loud nodelog (unless ``quiet``)."""
         r = self.leader_id
         if r is None:
             return False
+        # a ring serves idx only between its floor (below it the slot was
+        # never written) and its horizon (below it the slot was
+        # overwritten)
         lasts = self._fetch(self.state.last_index)
-        recoverable = idx >= max(
-            int(lasts[r]) - self.state.capacity + 1,
-            int(self._ring_floor[r]),
-        )
+
+        def serves(q: int) -> bool:
+            return idx >= max(
+                int(lasts[q]) - self.state.capacity + 1,
+                int(self._ring_floor[q]),
+            )
+
+        if self.cfg.ec_enabled:
+            commits = self._fetch(self.state.commit_index)
+            holders = sum(
+                1 for q in range(self.cfg.rows)
+                if self.alive[q] and int(commits[q]) >= idx and serves(q)
+                and self.connectivity[r, q]
+            )
+            recoverable = holders >= self.cfg.rs_k
+        else:
+            recoverable = serves(r)
         if not recoverable:
             if not quiet and idx not in self._lost_gaps:
                 self._lost_gaps.add(idx)
@@ -1338,8 +1736,11 @@ class RaftEngine:
 
     def committed_entries(self, lo: int, hi: int) -> np.ndarray:
         """Read committed entries [lo, hi] (1-based, inclusive) as
-        u8[hi-lo+1, entry_bytes] from a live replica's ring. Indices must
-        be committed and still within the ring horizon."""
+        u8[hi-lo+1, entry_bytes] from a live replica's ring; under EC the
+        window is decoded from the first k live shard holders
+        (``ec.reconstruct.reconstruct``: no decode when they are the data
+        rows, K6 on the ring otherwise). Indices must be committed and
+        still within the ring horizon."""
         if not (1 <= lo <= hi <= self.commit_watermark):
             raise ValueError(
                 f"range [{lo}, {hi}] not committed "
@@ -1360,16 +1761,147 @@ class RaftEngine:
                 f"index {lo} in its ring; read the checkpoint store for "
                 "compacted history"
             )
-        return log_entries(self.state, holders[0], lo, hi)
+        if not self.cfg.ec_enabled:
+            return log_entries(self.state, holders[0], lo, hi)
+        if len(holders) < self.cfg.rs_k:
+            raise ValueError(
+                f"need {self.cfg.rs_k} live shard holders to decode, "
+                f"have {len(holders)}"
+            )
+        return reconstruct(
+            self.state, self._code, holders[: self.cfg.rs_k], lo, hi
+        )
 
-    # -------------------------------------------- persistence (ROADMAP A9b)
+    # ----------------------------------------------------------- persistence
     def save_checkpoint(self, path: str) -> None:
-        raise _not_ported("save_checkpoint", "A9b")
+        """Write the cluster's durable state to one ``.npz`` file (the JAX
+        engine's layout): per-replica term and votedFor, the
+        configuration, and the archived committed tail.
+        ``RaftEngine.restore`` rebuilds a working cluster from it."""
+        hi = self.commit_watermark
+        floor = max(1, self.store.checkpoint_floor)
+        lo = self.store.covered_lo(hi, floor)
+        # an interior archive hole (the EC archive gives up when donors
+        # are short) would start the contiguous coverage ABOVE it: probe
+        # downward first, then refuse while committed entries above the
+        # compaction floor are still missing
+        while lo > floor and self._backfill_archive(lo - 1, quiet=True):
+            lo = self.store.covered_lo(hi, floor)
+        if hi == 0:  # nothing committed yet: empty snapshot
+            snap = Snapshot(
+                1, 0,
+                np.zeros((0, self.cfg.entry_bytes), np.uint8),
+                np.zeros(0, np.int32),
+            )
+        elif lo > hi:
+            raise RuntimeError(
+                f"committed entry {hi} is not archived; refusing to write "
+                "a checkpoint that would lose committed entries"
+            )
+        elif lo > floor:
+            holes = [
+                i for i in range(floor, lo) if self.store.get(i) is None
+            ]
+            shown = ", ".join(map(str, holes[:8])) + (
+                f", ... ({len(holes)} total)" if len(holes) > 8 else ""
+            )
+            raise RuntimeError(
+                f"committed entries {{{shown}}} are not archived and could "
+                "not be recovered; refusing to write a checkpoint that "
+                "would lose committed entries"
+            )
+        else:
+            # lo == compaction floor: history below it was compacted,
+            # recorded as the snapshot's base_index
+            snap = self.store.snapshot(lo, hi)
+        EngineCheckpoint(
+            snap=snap,
+            terms=self._fetch(self.state.term).astype(np.int32),
+            voted_for=self._fetch(self.state.voted_for).astype(np.int32),
+            member=self.member.copy(),
+            learner=self.learner.copy(),
+        ).save(path)
+        if self._votelog is not None:
+            # WAL rotation: the checkpoint just captured (term, votedFor)
+            self._votelog.truncate()
 
     @classmethod
-    def restore(cls, cfg: RaftConfig, path: str, transport=None, trace=None,
-                vote_log=None, recorder=None) -> "RaftEngine":
-        raise _not_ported("RaftEngine.restore", "A9b")
+    def restore(
+        cls,
+        cfg: RaftConfig,
+        path: str,
+        transport: Optional[Transport] = None,
+        trace: Optional[Callable[[str], None]] = None,
+        vote_log: Optional[str] = None,
+        recorder=None,
+    ) -> "RaftEngine":
+        """Rebuild an engine from ``save_checkpoint`` output (the port's or
+        the JAX engine's): every replica restarts as a follower holding the
+        archived committed tail (RS shards re-encoded on the device when
+        the cluster is erasure-coded) with its persisted term and
+        votedFor, overlaid with the vote log's newer transitions; then the
+        normal election path takes over. Uncommitted entries are lost."""
+        ck = EngineCheckpoint.load(path)
+        if ck.terms.shape != (cfg.rows,):
+            raise ValueError(
+                f"checkpoint has {ck.terms.shape[0]} replica rows, "
+                f"config has {cfg.rows}"
+            )
+        if ck.snap.entries.size and ck.snap.entries.shape[1] != cfg.entry_bytes:
+            raise ValueError(
+                f"checkpoint entry size {ck.snap.entries.shape[1]} != "
+                f"config entry_bytes {cfg.entry_bytes}"
+            )
+        if (ck.member is not None and not ck.member.all()) or (
+                ck.learner is not None and ck.learner.any()):
+            raise _not_ported("restoring a changed configuration (removed "
+                              "voters or learners)", "A9c")
+        eng = cls(cfg, transport, trace=trace, recorder=recorder)
+        snap = ck.snap
+        if snap.last_index >= snap.base_index:
+            # history below the snapshot base was compacted before the
+            # checkpoint was written: a later save_checkpoint must treat
+            # its absence as compaction, not as a hole to backfill
+            eng.store.set_floor(snap.base_index)
+            for i in range(snap.base_index, snap.last_index + 1):
+                eng.store.put(
+                    i,
+                    snap.entries[i - snap.base_index].tobytes(),
+                    int(snap.terms[i - snap.base_index]),
+                )
+            # verified for term 0: the next real leader's steps re-verify
+            # matches in its own term
+            eng.state = install_snapshot_all(
+                eng.state, snap, 0, cfg.batch_size, eng._code
+            )
+            eng.commit_watermark = snap.last_index
+            # rings are seeded only from the snapshot tail that fits one
+            # capacity; reads below it must go to the checkpoint store
+            eng._ring_floor[:] = max(
+                snap.base_index, snap.last_index - eng.state.capacity + 1
+            )
+        # persisted term + votedFor, overlaid with the vote log's
+        # transitions newer than the checkpoint
+        terms = ck.terms.astype(np.int64).copy()
+        vf = ck.voted_for.astype(np.int64).copy()
+        terms, vf = merge_restored(cfg.rows, terms, vf, vote_log)
+        eng._set_votes(terms, vf)
+        if vote_log is not None:
+            eng._attach_votelog(vote_log)
+        if ck.member is not None and ck.member.shape == (cfg.rows,):
+            # the committed configuration outranks cfg.n_replicas
+            eng.member = ck.member.copy()
+            for r in range(cfg.rows):
+                # rows that joined after the initial config need timers
+                if eng.member[r] and r >= cfg.n_replicas:
+                    eng._arm_follower(r)
+        if ck.learner is not None and ck.learner.shape == (cfg.rows,):
+            eng.learner = ck.learner.copy() & ~eng.member
+        for r in range(cfg.rows):
+            if eng.member[r]:
+                eng.nodelog(
+                    r, f"restored from checkpoint to {eng.commit_watermark}")
+        return eng
 
     def commit_latencies(self) -> np.ndarray:
         """Per-entry commit latency (seconds) for every durable entry."""

@@ -54,19 +54,38 @@ def payloads(n, seed, entry=32):
 
 
 class Pair:
-    """One cluster run by both engines, stepped in lock step."""
+    """One cluster run by both engines, stepped in lock step.
 
-    def __init__(self, seed=0, **over):
+    ``vote_logs`` is a (JAX path, port path) pair: each engine keeps its
+    own vote log, and the two files must stay byte-identical.
+    ``restore_from`` is a (JAX path, port path) pair of checkpoints: the
+    engines are built by ``RaftEngine.restore`` from them. ``replay``
+    registers the apply callbacks with ``replay=True``."""
+
+    def __init__(self, seed=0, vote_logs=None, restore_from=None,
+                 replay=False, **over):
         self.kw = {**KW, **over}
         jt, tt = transports(self.kw)
         self.jl, self.tl = [], []
-        self.j = JEngine(JConfig(**self.kw, seed=seed), jt,
-                         trace=self.jl.append)
-        self.t = TEngine(TConfig(**self.kw, seed=seed), tt,
-                         trace=self.tl.append)
+        self.vote_logs = vote_logs
+        jv, tv = vote_logs if vote_logs is not None else (None, None)
+        jcfg, tcfg = JConfig(**self.kw, seed=seed), TConfig(**self.kw,
+                                                            seed=seed)
+        if restore_from is None:
+            self.j = JEngine(jcfg, jt, trace=self.jl.append, vote_log=jv)
+            self.t = TEngine(tcfg, tt, trace=self.tl.append, vote_log=tv)
+        else:
+            self.j = JEngine.restore(jcfg, restore_from[0], jt,
+                                     trace=self.jl.append, vote_log=jv)
+            self.t = TEngine.restore(tcfg, restore_from[1], tt,
+                                     trace=self.tl.append, vote_log=tv)
         self.japp, self.tapp = [], []
-        self.j.register_apply(lambda i, p: self.japp.append((i, p)))
-        self.t.register_apply(lambda i, p: self.tapp.append((i, p)))
+        self.starts = (
+            self.j.register_apply(lambda i, p: self.japp.append((i, p)),
+                                  replay=replay),
+            self.t.register_apply(lambda i, p: self.tapp.append((i, p)),
+                                  replay=replay))
+        assert self.starts[0] == self.starts[1]
         self.check()
 
     def both(self, name, *args, **kw):
@@ -119,6 +138,9 @@ class Pair:
         assert t._steady == j._steady
         assert t._queue == j._queue
         assert t.next_event_time() == j.next_event_time()
+        if self.vote_logs is not None:
+            jb, tb = (open(f, "rb").read() for f in self.vote_logs)
+            assert tb == jb, "vote log files"
 
     def check_all(self, read_back=True):
         """Everything: the light checks, every state leaf, the stamps and
@@ -134,12 +156,16 @@ class Pair:
         assert t._seq_at_index == j._seq_at_index
         assert t._uncommitted == j._uncommitted
         np.testing.assert_array_equal(t._ring_floor, j._ring_floor)
+        assert t._match_stall == j._match_stall
+        assert (t.store.first, t.store.last) == (j.store.first, j.store.last)
+        for idx in range(t.store.first, t.store.last + 1):
+            assert t.store.get(idx) == j.store.get(idx), f"archive {idx}"
         assert t.applied_index == j.applied_index
         assert t.in_flight_count == j.in_flight_count
         assert t.committed_total == j.committed_total
         assert self.tapp == self.japp
         assert [i for i, _ in self.tapp] == list(
-            range(1, t.applied_index + 1))
+            range(self.starts[1], t.applied_index + 1))
         wm = t.commit_watermark
         if read_back and wm:
             lo = max(1, wm - t.state.capacity + 1)
@@ -347,7 +373,6 @@ DEFERRED_CALLS = [
     ("add_server", (1,), "A9c"), ("add_voter", (1,), "A9c"),
     ("remove_server", (1,), "A9c"), ("replace", (1, 2), "A9c"),
     ("run_until_voter", (1,), "A9c"), ("wipe", (1,), "A9c"),
-    ("save_checkpoint", ("ck.npz",), "A9b"),
     ("attach_device_obs", (), "A13"),
 ]
 
@@ -362,12 +387,10 @@ def test_deferred_call_raises(name, args, item):
 
 DEFERRED_CONFIGS = [
     (dict(max_replicas=5), {}, "A9c"),
-    (dict(rs_k=2, rs_m=1), {}, "A9e"),
     (dict(read_lease=True, prevote=True), {}, "A9d"),
     (dict(fuse_k=4), {}, "A11"),
     (dict(tiered_log_dir="tiers"), {}, "A13"),
     (dict(mirror_check_every=8), {}, "A15"),
-    ({}, dict(vote_log="votes.log"), "A9b"),
     ({}, dict(recorder=object()), "A16"),
 ]
 
@@ -378,14 +401,6 @@ def test_deferred_config_raises(over, kwargs, item):
     cfg = TConfig(**{**KW, **over})
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         TEngine(cfg, transports(KW)[1], **kwargs)
-
-
-def test_restore_and_snapshot_stream_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-        TEngine.restore(TConfig(**KW), "ck.npz")
-    e = TEngine(TConfig(**KW), transports(KW)[1])
-    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-        e._stream_snapshot(1, 1, 10)
 
 
 def test_engine_without_transport_runs_on_cuda():

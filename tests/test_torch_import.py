@@ -39,6 +39,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import raft_tpu_torch.admission, raft_tpu_torch.admission.retry\n"
         "import raft_tpu_torch.faults, raft_tpu_torch.faults.plan\n"
         "import raft_tpu_torch.ckpt, raft_tpu_torch.ckpt.ship\n"
+        "import raft_tpu_torch.ckpt.snapshot, raft_tpu_torch.ckpt.votelog\n"
         "import raft_tpu_torch.obs, raft_tpu_torch.obs.profiling\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax') or "
         "m == 'raft_tpu' or m.startswith(('jax.', 'raft_tpu.')))\n"
