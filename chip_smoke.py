@@ -70,7 +70,8 @@ Then BASELINE config 3 (5 replicas, RS(5,3) shards of 264-byte entries,
 batch 1024, a 32 768-slot ring, commit quorum 4):
 
 6. holds K6 (encode; decode for all ten 3-row sets and the rotated set
-   (2,0,1); RS(4,2) with 8-byte entries, single words; RS(6,4)), K6's
+   (2,0,1); RS(6,3) at config 3's widths, all twenty 3-row sets, with
+   K7; RS(4,2) with 8-byte entries, single words; RS(6,4)), K6's
    decode of the log ring in place (``reconstruct``: the whole ring, a
    window across the seam, a partial window, every decoding row set,
    against the gathered window and the plain decode), K7 and K2/K3/K4 in
@@ -120,7 +121,30 @@ batch 1024, a 32 768-slot ring, commit quorum 4):
     nodelog lines, terms, commit stamps, state leaves and committed bytes
     of the engine before the crash and of the restored one must be
     equal, which holds K6 and K7 inside the engine against their plain
-    versions.
+    versions;
+8c. drives the replicated KV store (``raft_tpu_torch.examples``:
+    ``ReplicatedKV`` and ``ReplicatedCounter`` on one log) through the
+    engine at the north star's deployment with headroom (3 voters of 5
+    rows, PreVote, CheckQuorum, leader leases, C = 32 768): 64 full ticks
+    of SETs (8-byte keys over 16 384, 243-byte values) with lease reads,
+    one ``submit_pipelined`` ring under the voter plane, ``add_server(3)``
+    and ``add_server(4)`` (snapshot stream, repair, promotion; ReadIndex
+    rounds and write-confirmed ticket batches under the packed
+    voter|learner mask meanwhile), 16 ticks at 5 voters (a profiled
+    window of 8 with reads), a voter wiped and ``replace``d by itself,
+    counter increments blindly retried across ``remove_server(leader)``,
+    and a partitioned minority leader refusing; every get equals the
+    model at its read index, the counter is exactly-once, the applied
+    SETs and every live voter's ring equal the input; prints ms per
+    leader tick and per read round, tickets per round, lease reads per
+    host second, the join walls and the launches;
+8d. runs 8c at a 4 096-slot ring on the card and on the CPU: nodelog
+    lines, terms, roles, masks, commit stamps, read indices, tickets,
+    state, the store and the counter must be equal;
+8e. grows config 3's width with headroom (RS(6,3), 5 voters of 6 rows)
+    5 -> 6 with ``add_voter(5)`` under traffic, heals the joiner by
+    reconstruction, fails two rows, shrinks to 4 and refuses a removal
+    below the quorum, at C = 4 096 on the card and on the CPU, equal.
 
 Then the multi-Raft group data plane at the two deployments the JAX
 package's bench runs on it: config A (16 groups of 3 replicas, 256-byte
@@ -1880,6 +1904,777 @@ def phase_engine_ec_card_equals_cpu(dev):
     return {"launches": counters}
 
 
+# ------------------------ the replicated KV store (A9c, A9d, A10)
+#: per-step sizes of ``kv_run``: the north star's ring at full depth, and
+#: the same steps at a 4 096-slot ring for the card-equals-CPU run
+KV_STEPS = {
+    "full": dict(capacity=1 << 15, ticks=64, flight=1 << 15, after_ticks=16,
+                 learner_sets=256, tickets=64, rounds=2, gets=256,
+                 lease_reads=20000, counter_ops=64, profiled_ticks=8),
+    "reduced": dict(capacity=4096, ticks=8, flight=4096, after_ticks=4,
+                    learner_sets=256, tickets=16, rounds=2, gets=64,
+                    lease_reads=500, counter_ops=32, profiled_ticks=0),
+}
+KV_KEYS = 16384
+KV_VALUE_BYTES = 243
+#   the widest value a 256-byte entry holds after the 5-byte header and
+#   the 8-byte key (etcd's benchmark writes 256-byte values)
+COUNTER_CLIENTS = (0x10, 0x11, 0x12, 0x13)
+#   low bytes outside {1, 2}: the KV store reads a counter entry as an op
+#   it ignores
+
+
+def kv_config(capacity):
+    """The north star's deployment with membership headroom, grown the
+    way etcd's runtime-reconfiguration guide grows 3 members to 5
+    (``member add --learner``, then ``member promote``), reads served by
+    ReadIndex and leader leases: 3 voters of 5 rows, PreVote and
+    CheckQuorum, 256-byte entries, B = 1024."""
+    from raft_tpu_torch.config import RaftConfig
+
+    return RaftConfig(n_replicas=3, max_replicas=5, prevote=True,
+                      check_quorum=True, read_lease=True,
+                      log_capacity=capacity, transport="single")
+
+
+class CounterLog:
+    """The engine as ``ReplicatedCounter`` sees it when it shares the log
+    with the KV store: the counter's own entries only (a KV SET or DELETE
+    starts with op byte 1 or 2, a configuration entry with ``RCFG``)."""
+
+    def __init__(self, e):
+        self.e, self.cfg = e, e.cfg
+
+    def submit(self, payload):
+        return self.e.submit(payload)
+
+    def register_apply(self, fn, replay=False):
+        def mine(idx, payload):
+            if payload[0] not in (1, 2) and payload[:4] != b"RCFG":
+                fn(idx, payload)
+
+        return self.e.register_apply(mine, replay=replay)
+
+
+class KvClient:
+    """The client side of ``kv_run``: seeded SETs through
+    ``ReplicatedKV`` (8-byte keys over ``KV_KEYS``, 243-byte values), the
+    applied log recorded by index with its own decoder, and the model
+    every read is held to: the last SET to the key at or below the read
+    index, each applied SET checked against the submitted one."""
+
+    def __init__(self, e, kv, seed):
+        import struct
+
+        self.e, self.kv, self.E = e, kv, e.cfg.entry_bytes
+        self.hdr = struct.Struct("<BHH")
+        self.rng = np.random.default_rng(seed)
+        self.sets = []               # submitted SET entries, in seq order
+        self.set_seqs = []
+        self.applied = {}            # log index -> payload
+        self.n_applied_sets = 0
+        self.key_writes = {}         # key -> [(index, value)], applied order
+        self.h_in = hashlib.sha256()
+        self.h_sets = hashlib.sha256()
+        self.reads = []              # every read index served, in order
+        self.gets = 0
+
+    def on_apply(self, idx, payload):
+        check(idx not in self.applied, f"index {idx} applied twice")
+        self.applied[idx] = payload
+        if payload[0] != 1:
+            return
+        j = self.n_applied_sets
+        check(j < len(self.sets) and payload == self.sets[j],
+              f"the SET applied at {idx} is not the {j}-th submitted")
+        self.n_applied_sets += 1
+        _, klen, vlen = self.hdr.unpack_from(payload)
+        key = payload[5:5 + klen]
+        self.key_writes.setdefault(key, []).append(
+            (idx, payload[5 + klen:5 + klen + vlen]))
+        self.h_sets.update(payload)
+
+    def entries(self, n):
+        keys = self.rng.integers(0, KV_KEYS, n)
+        vals = self.rng.integers(0, 256, (n, KV_VALUE_BYTES), dtype=np.uint8)
+        out = []
+        for k, v in zip(keys.tolist(), vals):
+            key, val = int(k).to_bytes(8, "little"), v.tobytes()
+            body = self.hdr.pack(1, len(key), len(val)) + key + val
+            out.append((key, val, body + bytes(self.E - len(body))))
+        return out
+
+    def set_many(self, n):
+        """``n`` SETs through ``ReplicatedKV.set``; returns the seqs."""
+        seqs = []
+        for key, val, entry in self.entries(n):
+            self.sets.append(entry)
+            self.h_in.update(entry)
+            seqs.append(self.kv.set(key, val))
+        self.set_seqs += seqs
+        return seqs
+
+    def pipelined(self, n):
+        """``n`` SETs as one ``submit_pipelined`` call."""
+        ents = self.entries(n)
+        for _, _, entry in ents:     # before the call: it applies them
+            self.sets.append(entry)
+            self.h_in.update(entry)
+        seqs = self.e.submit_pipelined([x[2] for x in ents])
+        self.set_seqs += seqs
+        return seqs
+
+    def expect(self, key, idx):
+        """The model: the value of the last SET to ``key`` at or below
+        log index ``idx``."""
+        val = None
+        for i, v in self.key_writes.get(key, ()):
+            if i > idx:
+                break
+            val = v
+        return val
+
+    def check_gets(self, n, what):
+        """``n`` ``linearizable_get`` calls on seeded keys, each equal to
+        the model at its read index."""
+        for k in self.rng.integers(0, KV_KEYS, n).tolist():
+            key = int(k).to_bytes(8, "little")
+            mark = len(self.reads)
+            got = self.kv.linearizable_get(key)
+            check(len(self.reads) == mark + 1,
+                  f"{what}: linearizable_get read no index")
+            idx = self.reads[-1]
+            check(self.kv.last_applied >= idx,
+                  f"{what}: served below the read index")
+            check(got == self.expect(key, idx),
+                  f"{what}: key {k} at read index {idx} differs from the "
+                  "model")
+            self.gets += 1
+
+
+def kv_run(cfg, dev, plan, timed):
+    """The replicated KV store of ``kv_config`` through ``RaftEngine`` on
+    ``dev`` (``ReplicatedKV`` and ``ReplicatedCounter`` sharing the log):
+
+    1. an election; ``ticks`` full leader ticks of SETs (K1 repairing,
+       then K2 under the voter plane), ``gets`` linearizable gets (lease
+       reads) and ``lease_reads`` ``read_linearizable`` calls, none of
+       which may run a round;
+    2. one ``submit_pipelined`` chunk of one ring under the voter plane
+       (K3 decides; with spare rows outside the accept set K3 writes);
+    3. ``add_server(3)``, then ``add_server(4)``: each learner starts empty
+       behind the ring horizon, takes a snapshot stream, then the repair
+       window, and is promoted by the leader tick; while a learner is
+       attached the lease is off, so between ticks ``rounds``
+       ``read_linearizable`` calls each run one empty round under the
+       packed voter|learner mask (K1 while repairing, K2 at count 0 once
+       steady), then ``tickets`` ``submit_read`` tickets and
+       ``learner_sets`` SETs go in, and the next tick's write round must
+       confirm every ticket;
+    4. ``after_ticks`` full ticks at 5 voters, lease gets between them
+       (``profiled_ticks`` of them in a profiled window when ``timed``);
+    5. a voter failed, wiped and brought back with ``replace(dead,
+       dead)``: removal, learner, stream, promote;
+    6. ``counter_ops`` counter increments, half blindly retried, then
+       ``remove_server(leader)`` with more increments in flight: the
+       leader steps down once the removal commits, the others elect, and
+       every increment not yet durable is retried blindly;
+    7. the leader partitioned alone: past its lease, ``read_linearizable``
+       must raise ``LinearizableReadRefused``; the partition healed.
+
+    Checks (all exact): the member/learner masks after every step; every
+    linearizable get against the model at its read index; the counter
+    (and an independent decode of its applied entries) equal to the sum
+    over distinct (client, request) pairs; the applied SETs equal the
+    submitted ones in order (SHA-256); every live voter's ring window,
+    configuration entries taken out, equal to the applied log there.
+    Returns (result, fingerprint)."""
+    import struct
+
+    import torch
+
+    from raft_tpu_torch.core.state import log_entries, state_to_numpy
+    from raft_tpu_torch.core import ring_cuda, step_cuda
+    from raft_tpu_torch.examples import ReplicatedCounter, ReplicatedKV
+    from raft_tpu_torch.obs import profiling
+    from raft_tpu_torch.raft import RaftEngine
+    from raft_tpu_torch.raft.engine import LinearizableReadRefused
+    from raft_tpu_torch.transport.device import SingleDeviceTransport
+
+    on_card = torch.device(dev).type == "cuda"
+    timed = timed and on_card
+    B, C, HB = cfg.batch_size, cfg.log_capacity, cfg.heartbeat_period
+    tr = SingleDeviceTransport(cfg, device=dev)
+    flights, packed_rounds = [], {"calls": 0, "K1": 0, "K2": 0}
+    rounds = [0]
+    run_flight, run_rep = tr.replicate_pipeline, tr.replicate
+
+    def counted_flight(*a, **k):
+        flights.append(int(a[2].shape[0]))
+        check(k["member"] is not None and k["member"].dtype == torch.bool,
+              "the flight must take the bool voter plane")
+        return run_flight(*a, **k)
+
+    def counted_round(*a, **k):
+        rounds[0] += 1
+        m = k.get("member")
+        check(m is not None, "a headroom cluster's step got no member mask")
+        if m.dtype == torch.bool:
+            return run_rep(*a, **k)
+        k1 = ring_cuda.LAUNCHES["write_window_both"]
+        k2 = step_cuda.LAUNCHES["steady_step"]
+        out = run_rep(*a, **k)
+        packed_rounds["calls"] += 1
+        packed_rounds["K1"] += ring_cuda.LAUNCHES["write_window_both"] - k1
+        packed_rounds["K2"] += step_cuda.LAUNCHES["steady_step"] - k2
+        return out
+
+    tr.replicate_pipeline, tr.replicate = counted_flight, counted_round
+    lines = []
+    e = RaftEngine(cfg, tr, trace=lines.append)
+    kv = ReplicatedKV(e)
+    cl = KvClient(e, kv, SEED + 70)
+    e.register_apply(cl.on_apply)
+    ctr = ReplicatedCounter(CounterLog(e))
+    tickets = []                     # (ticket, confirmed read index)
+    round_ms, tick_ms = [], []
+    run_read = e.read_linearizable
+
+    def recorded_read(r=None):
+        r0 = rounds[0]
+        if timed:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+        idx = run_read(r)
+        if timed and rounds[0] > r0:
+            b.record()
+            torch.cuda.synchronize()
+            round_ms.append(a.elapsed_time(b))
+        cl.reads.append(idx)
+        return idx
+
+    e.read_linearizable = recorded_read
+    if timed:
+        run_tick = e._fire_leader_tick
+
+        def timed_tick(r):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            run_tick(r)
+            b.record()
+            tick_ms.append((a, b))
+
+        e._fire_leader_tick = timed_tick
+    res = {"n_replicas": cfg.n_replicas, "max_replicas": cfg.max_replicas,
+           "entry_bytes": cfg.entry_bytes, "batch": B, "capacity": C,
+           "device": str(dev), "plan": plan}
+
+    def masks(member, learner, what):
+        got = (e.member.astype(int).tolist(), e.learner.astype(int).tolist())
+        check(got == (member, learner),
+              f"{what}: member/learner {got}, expected {(member, learner)}")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def until(cond, what, limit=2000.0):
+        end = e.clock.now + limit
+        while not cond():
+            check(e.clock.now < end and e._q, f"{what}: not reached")
+            e.step_event()
+
+    # 1. an election, full ticks of SETs, lease reads
+    e.run_until_leader()
+    masks([1, 1, 1, 0, 0], [0] * 5, "elected")
+    res["first_leader"] = e.leader_id
+    seqs = cl.set_many(plan["ticks"] * B)
+    sync()
+    t0 = time.perf_counter()
+    e.run_until_committed(seqs[-1])
+    sync()
+    res["tick_phase"] = {"entries": len(seqs),
+                         "wall_s": time.perf_counter() - t0,
+                         "leader_ticks": e._tick_count}
+    check(e.commit_watermark == len(seqs), "ticks: commit != submitted")
+    r0 = rounds[0]
+    cl.check_gets(plan["gets"], "lease gets")
+    n = plan["lease_reads"]
+    lease0 = e.read_class_counts.get("lease", 0)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        idx = run_read()             # the engine's own call, unwrapped
+    wall = time.perf_counter() - t0
+    cl.reads.append(idx)
+    check(rounds[0] == r0 and e.read_class_counts["lease"] == lease0 + n
+          and idx == e.commit_watermark,
+          "a lease read ran a replication round, or read a stale index")
+    res["lease_reads"] = {"reads": n + plan["gets"], "rounds": 0,
+                          "wall_s": wall, "per_host_s": n / wall}
+    # 2. one pipelined ring under the voter plane
+    last = e.commit_watermark
+    cl.pipelined(plan["flight"])
+    check(flights == [C // B], f"the pipeline gate did not admit the ring: "
+                               f"{flights}")
+    check(e.commit_watermark == last + plan["flight"],
+          "the flight's commit")
+    # 3. add_server(3) and add_server(4), reads while the learner hears
+    joins = {}
+    confirmed_per_round = []
+    before = {"K1": ring_cuda.LAUNCHES["write_window_both"],
+              "K2": step_cuda.LAUNCHES["steady_step"]}
+    for r in (3, 4):
+        m0 = e.member.astype(int).tolist()
+        t0, v0, ticks0 = time.perf_counter(), e.clock.now, e._tick_count
+        s_add = e.add_server(r)
+        pending = []
+        saw = {"learner": False, "stream": False}
+        while not e.member[r]:
+            check(e.clock.now < v0 + 2000.0, f"add_server({r}) stalled")
+            t = e._tick_count
+            e.step_event()
+            if e.learner[r]:
+                saw["learner"] = True
+            if e._tick_count == t or e.leader_id is None \
+                    or not e.learner.any():
+                continue
+            # a leader tick ran: its write round confirmed the tickets
+            if pending:
+                got = [e.read_confirmed(tk) for tk in pending]
+                check(all(g is not None for g in got),
+                      "a write round left read tickets unconfirmed")
+                tickets.extend(zip(pending, got))
+                confirmed_per_round.append(len(got))
+            for _ in range(plan["rounds"]):
+                cl.check_gets(1, f"ReadIndex get, learner {r}")
+            pending = [e.submit_read() for _ in range(plan["tickets"])]
+            check(all(e.read_ticket_class(tk) == "read_index"
+                      for tk in pending), "a lease served with a learner")
+            cl.set_many(plan["learner_sets"])
+        if pending:
+            t = e._tick_count
+            until(lambda: e._tick_count > t, "the next write round")
+            got = [e.read_confirmed(tk) for tk in pending]
+            check(all(g is not None for g in got),
+                  "a write round left read tickets unconfirmed")
+            tickets.extend(zip(pending, got))
+            confirmed_per_round.append(len(got))
+        saw["stream"] = any(ln.startswith(f"[Server{r}:")
+                            and "snapshot chunk installed" in ln
+                            for ln in lines)
+        check(saw["learner"] and saw["stream"],
+              f"row {r} joined without a learner phase or a stream: {saw}")
+        wall = time.perf_counter() - t0
+        m0[r] = 1
+        masks(m0, [0] * 5, f"row {r} promoted")
+        e.run_until_committed(s_add)
+        joins[r] = {"wall_s": wall, "virtual_s": e.clock.now - v0,
+                    "leader_ticks": e._tick_count - ticks0}
+    e.run_until_committed(cl.set_seqs[-1])
+    res["joins"] = joins
+    res["read_index"] = {
+        "rounds_packed_mask": dict(packed_rounds),
+        "launches_in_learner_windows": {
+            "K1": ring_cuda.LAUNCHES["write_window_both"] - before["K1"],
+            "K2": step_cuda.LAUNCHES["steady_step"] - before["K2"]},
+        "tickets_confirmed": len(tickets),
+        "tickets_per_write_round": (float(np.mean(confirmed_per_round))
+                                    if confirmed_per_round else 0.0)}
+    check(packed_rounds["calls"] > 0,
+          "no step ran under the packed voter|learner mask")
+    # 4. full ticks at 5 voters, lease reads between them
+    masks([1] * 5, [0] * 5, "5 voters")
+    seqs = cl.set_many(plan["after_ticks"] * B)
+    if timed and plan["profiled_ticks"]:
+        ticks0 = e._tick_count
+
+        def window():
+            with profiling.annotating():
+                while e._tick_count < ticks0 + plan["profiled_ticks"]:
+                    t = e._tick_count
+                    e.step_event()
+                    if e._tick_count != t:
+                        cl.check_gets(4, "profiled lease gets")
+                        tk = e.submit_read()
+                        check(e.read_confirmed(tk) is not None,
+                              "a lease ticket was not ready")
+
+        events, pwall = _device_events(window, 1)
+        events = [(n_, us) for n_, us in events
+                  if not n_.startswith("leader_tick#")]
+        busy = sum(us for _, us in events)
+        by_kind = {}
+        for name, us in events:
+            kind = kernel_of(name) or ("copy" if "emcpy" in name
+                                       else "other")
+            by_kind[kind] = by_kind.get(kind, 0.0) + us
+        res["profiled_ticks"] = {
+            "ticks": plan["profiled_ticks"], "wall_ms": pwall * 1e3,
+            "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / (pwall * 1e6),
+            "device_ops_per_tick": len(events) / plan["profiled_ticks"],
+            "device_ms_by_kind": {k: v / 1e3 for k, v in by_kind.items()},
+            "reads_per_tick": 5}
+    e.run_until_committed(seqs[-1])
+    cl.check_gets(plan["gets"], "gets at 5 voters")
+    # 5. a voter failed, wiped, replaced by itself
+    lead = e.leader_id
+    dead = next(r for r in (1, 2, 0, 3, 4) if r != lead)
+    e.fail(dead)
+    e.wipe(dead)
+    check(int(e.state.last_index[dead]) == 0 and e._wiped[dead],
+          "wipe left the row's log")
+    s_rm = e.replace(dead, dead)
+    end = e.clock.now + 2000.0
+    phases = []
+    while not (e.alive[dead] and e.member[dead]):
+        check(e.clock.now < end, "the replace ladder stalled")
+        if not e.alive[dead]:
+            e.recover(dead)            # refused until the removal commits
+        e.run_for(HB)
+        state = (bool(e.member[dead]), bool(e.learner[dead]))
+        if not phases or phases[-1] != state:
+            phases.append(state)
+    check(e.is_durable(s_rm), "the removal of the wiped row")
+    check(phases[:1] == [(False, False)] and (False, True) in phases,
+          f"the replace ladder's steps: {phases}")
+    masks([1] * 5, [0] * 5, "replaced")
+    res["replace"] = {"row": dead, "ladder": phases}
+    # 6. counter increments with blind retries across a removed leader
+    e.run_for(4 * HB)
+    pairs = {}                       # (client, request) -> [amount, seqs]
+
+    def add(i, retry=None):
+        if retry is None:
+            client = COUNTER_CLIENTS[i % len(COUNTER_CLIENTS)]
+            amount = 1 + (i * 7919) % 1000
+            seq, req = ctr.add(client, amount)
+            pairs[(client, req)] = [amount, [seq]]
+        else:                          # the same (client, request) again
+            seq, _ = ctr.add(retry[0], pairs[retry][0],
+                             request_id=retry[1])
+            pairs[retry][1].append(seq)
+
+    n_ops = plan["counter_ops"]
+    for i in range(n_ops // 2):
+        add(i)
+        if i % 2:
+            add(i, retry=list(pairs)[-1])
+    e.run_until_committed(max(s for _, ss in pairs.values() for s in ss))
+    old = e.leader_id
+    for i in range(n_ops // 2, n_ops):
+        add(i)
+    s_rm = e.remove_server(old)
+    for i in range(n_ops, n_ops + n_ops // 4):
+        add(i)
+    until(lambda: e.leader_id is not None and e.leader_id != old
+          and e.is_durable(s_rm), "the removed leader's successor")
+    check(not e.member[old] and e.roles[old] == "follower",
+          "the removed leader did not step down")
+    check(any(ln.startswith(f"[Server{old}:")
+              and ln.endswith("step down to follower (removed)")
+              for ln in lines), "no removed-leader step-down line")
+    for key, (_, ss) in list(pairs.items()):
+        if not any(e.is_durable(s) for s in ss):
+            add(None, retry=key)     # the ack never came: retry blindly
+    until(lambda: all(any(e.is_durable(s) for s in ss)
+                      for _, ss in pairs.values()), "the counter's ops")
+    e.run_for(2 * HB)
+    want = sum(a for a, _ in pairs.values())
+    hdr = struct.Struct("<QQq")
+    seen, indep = set(), 0
+    for idx in sorted(cl.applied):
+        p = cl.applied[idx]
+        if p[0] in (1, 2) or p[:4] == b"RCFG":
+            continue
+        client, req, amount = hdr.unpack_from(p)
+        if client and (client, req) not in seen:
+            seen.add((client, req))
+            indep += amount
+    check(ctr.value == want == indep,
+          f"counter {ctr.value}, pairs {want}, applied {indep}")
+    m = [1] * 5
+    m[old] = 0
+    masks(m, [0] * 5, "leader removed")
+    res["counter"] = {"value": ctr.value, "pairs": len(pairs),
+                      "duplicates_dropped": ctr.duplicates_dropped,
+                      "removed_leader": old, "new_leader": e.leader_id}
+    # 7. a minority leader past its lease refuses
+    lead = e.leader_id
+    others = [r for r in range(cfg.rows) if e.member[r] and r != lead]
+    e.partition([[lead], others])
+    e.run_for(cfg.lease_duration_s + HB / 4)
+    check(e.roles[lead] == "leader", "the minority leader stepped down early")
+    for call in (lambda: e.read_linearizable(lead),
+                 lambda: kv.linearizable_get(b"\0" * 8)):
+        try:
+            call()
+        except LinearizableReadRefused:
+            continue
+        check(False, "a minority leader served a linearizable read")
+    e.heal_partition()
+    until(lambda: e.leader_id is not None and e.roles[e.leader_id]
+          == "leader" and not any(e.roles[r] == "leader"
+                                  for r in range(cfg.rows)
+                                  if r != e.leader_id), "a healed leader")
+    e.run_for(4 * HB)
+    cl.check_gets(plan["gets"], "gets after the partition")
+    # the whole log: SETs in order; every live voter's ring window
+    check(cl.n_applied_sets == len(cl.sets)
+          and cl.h_sets.hexdigest() == cl.h_in.hexdigest(),
+          "the applied SETs differ from the submitted ones")
+    hi = e.commit_watermark
+    check(sorted(cl.applied) == list(range(1, hi + 1)),
+          "the apply stream has a gap")
+    rows = {}
+    for r in range(cfg.rows):
+        if not (e.alive[r] and e.member[r]):
+            continue
+        top = int(e.state.commit_index[r])
+        lo = max(1, top - C + 1, int(e._ring_floor[r]))
+        got = [bytes(x) for x in log_entries(e.state, r, lo, top)]
+        want_ = [cl.applied[i] for i in range(lo, top + 1)]
+        data = [x for x in got if x[:4] != b"RCFG"]
+        check(hashlib.sha256(b"".join(data)).hexdigest()
+              == hashlib.sha256(b"".join(
+                  x for x in want_ if x[:4] != b"RCFG")).hexdigest()
+              and got == want_, f"row {r}'s ring differs from the log")
+        rows[r] = {"lo": lo, "hi": top, "entries": len(data)}
+    res.update({
+        "commit_watermark": hi, "sets": len(cl.sets), "gets": cl.gets,
+        "sha256_sets": cl.h_in.hexdigest(), "rows_checked": rows,
+        "config_entries": sum(1 for p in cl.applied.values()
+                              if p[:4] == b"RCFG"),
+        "read_classes": dict(e.read_class_counts),
+        "flights": flights, "nodelog_lines": len(lines)})
+    if timed:
+        ms = [a.elapsed_time(b) for a, b in tick_ms]
+        res["ms_per_leader_tick"] = {
+            "p50": float(np.percentile(ms, 50)),
+            "p99": float(np.percentile(ms, 99)), "ticks": len(ms),
+            "method": "CUDA events around each leader tick (host work "
+                      "inside)"}
+        res["ms_per_read_round"] = {
+            "p50": float(np.percentile(round_ms, 50)),
+            "p99": float(np.percentile(round_ms, 99)),
+            "rounds": len(round_ms),
+            "method": "CUDA events around read_linearizable calls that ran "
+                      "an empty round"}
+    fingerprint = {
+        "lines": lines, "terms": e.terms.tolist(), "roles": list(e.roles),
+        "member": e.member.tolist(), "learner": e.learner.tolist(),
+        "commit_time": dict(e.commit_time), "reads": list(cl.reads),
+        "tickets": tickets, "state": state_to_numpy(e.state),
+        "kv": hashlib.sha256(repr(sorted(kv._data.items())).encode())
+        .hexdigest(),
+        "counter": (ctr.value, ctr.duplicates_dropped)}
+    return res, fingerprint
+
+
+def phase_kv_main_path(dev):
+    """``kv_run`` at the north star's full ring (C = 32 768) on the card:
+    every check exact; K1, K2 and K3 must launch on the path."""
+    zero_counters(dev)
+    t0 = time.perf_counter()
+    res, _ = kv_run(kv_config(KV_STEPS["full"]["capacity"]), dev,
+                    KV_STEPS["full"], timed=True)
+    counters = read_counters(dev)
+    for k in ("K1", "K2", "K3"):
+        check(counters[k] > 0, f"kv: {k} never launched: {counters}")
+    packed = res["read_index"]["rounds_packed_mask"]
+    check(packed["K1"] > 0 and packed["K2"] > 0,
+          f"kv: K1 and K2 must both run under the packed mask: {packed}")
+    res = {"phase": "kv_main_path", **res, "launches": counters,
+           "phase_wall_s": time.perf_counter() - t0}
+    emit(res)
+    return res
+
+
+def card_vs_cpu(runner, cfg, dev, plan, what):
+    """``runner`` on the card, then on the CPU with the engine's flight
+    gate opened (so both fly the same chunks): returns (card result, the
+    card's launch counters, walls); every fingerprint field must match."""
+    import raft_tpu_torch.raft.engine as engine_mod
+
+    runs, walls = {}, {}
+    zero_ec_counters(dev)
+    counters = None
+    for where in (dev, "cpu"):
+        hook = engine_mod._pipeline_backend_ok
+        if where == "cpu":
+            engine_mod._pipeline_backend_ok = lambda *a: True
+        try:
+            t0 = time.perf_counter()
+            runs[str(where)] = runner(cfg, where, plan, timed=False)
+            walls[str(where)] = time.perf_counter() - t0
+        finally:
+            engine_mod._pipeline_backend_ok = hook
+        if where == dev:
+            counters = read_engine_ec_counters(dev)
+    (card, cf), (_, hf) = runs[str(dev)], runs["cpu"]
+    for k in cf:
+        if k == "state":
+            for f in cf[k]:
+                check(np.array_equal(cf[k][f], hf[k][f]),
+                      f"{what}, card vs CPU: state.{f} differs")
+        else:
+            check(cf[k] == hf[k], f"{what}, card vs CPU: {k} differs")
+    return card, counters, walls, sorted(cf)
+
+
+def phase_kv_card_equals_cpu(dev):
+    """``kv_run`` at a 4 096-slot ring on the card and on the CPU: nodelog
+    lines, terms, roles, member/learner masks, commit stamps, every read
+    index and ticket result, state leaves, the KV store and the counter
+    must be equal."""
+    plan = KV_STEPS["reduced"]
+    card, counters, walls, equal = card_vs_cpu(
+        kv_run, kv_config(plan["capacity"]), dev, plan, "kv")
+    for k in ("K1", "K2", "K3"):
+        check(counters[k] > 0, f"kv card run: {k} never launched")
+    emit({"phase": "kv_card_equals_cpu", "plan": plan,
+          "commit_watermark": card["commit_watermark"],
+          "nodelog_lines": card["nodelog_lines"],
+          "read_classes": card["read_classes"], "joins": card["joins"],
+          "launches_card": counters, "walls_s": walls, "equal": equal})
+    return {"launches": counters}
+
+
+#: ``ec_membership_run`` at config 3's width with headroom (RS(6,3)):
+#: entries per step, every count a multiple of B
+EC_MEMBERSHIP_STEPS = dict(capacity=4096, pre=2048, mid=2048, post=2048,
+                           tail=2048)
+
+
+def ec_membership_config(capacity):
+    """BASELINE config 3's width (264-byte entries, B = 1024, quorum 4)
+    with one row of headroom: 5 voters of 6 rows, RS(6,3)."""
+    from raft_tpu_torch.config import RaftConfig
+
+    return RaftConfig(n_replicas=5, max_replicas=6, entry_bytes=264,
+                      batch_size=1024, log_capacity=capacity, rs_k=3,
+                      rs_m=2, transport="single")
+
+
+def ec_membership_run(cfg, dev, plan, timed=False):
+    """JAX ``tests/test_membership.py`` ``TestECLifecycle`` at config 3's
+    width: ``pre`` entries; ``add_voter(5)`` with ``mid`` entries in
+    flight (K7 at RS(6,3) every tick); the joiner healed by
+    reconstruction into its shard row (K6 decode and encode at RS(6,3));
+    two original rows failed and ``post`` entries committed at 4 of 6,
+    read back through the parity rows; the rows recovered; a non-leader
+    voter removed with ``tail`` entries in flight, then another (4
+    voters), and a removal below the quorum refused. Each committed
+    window read back through ``committed_entries`` must equal the applied
+    input there. Returns (result, fingerprint)."""
+    from raft_tpu_torch.core.state import state_to_numpy
+    from raft_tpu_torch.raft import RaftEngine
+    from raft_tpu_torch.transport.device import SingleDeviceTransport
+
+    HB = cfg.heartbeat_period
+    tr = SingleDeviceTransport(cfg, device=dev)
+    lines = []
+    e = RaftEngine(cfg, tr, trace=lines.append)
+    inp = EngineInput(cfg)
+    index = {}                       # log index -> input bytes
+    h_apply = hashlib.sha256()
+
+    def apply(idx, payload):
+        if payload[:4] != b"RCFG":
+            h_apply.update(payload)
+            index[idx] = payload
+
+    e.register_apply(apply)
+    reads = []
+
+    def read_back(what):
+        hi = e.commit_watermark
+        lo = max(1, hi - cfg.log_capacity + 1)
+        got = [bytes(x) for x in e.committed_entries(lo, hi)]
+        data = b"".join(x for x in got if x[:4] != b"RCFG")
+        want = b"".join(index[i] for i in range(lo, hi + 1) if i in index)
+        check(data == want, f"{what}: committed_entries of [{lo}, {hi}] "
+                            "differ from the applied input")
+        reads.append({"what": what, "lo": lo, "hi": hi,
+                      "sha256": hashlib.sha256(data).hexdigest()})
+
+    def commit(n, what, limit=900.0):
+        seqs = [e.submit(p) for p in inp.take(n)]
+        e.run_until_committed(seqs[-1], limit=limit)
+        return seqs
+
+    e.run_until_leader()
+    commit(plan["pre"], "pre")
+    read_back("pre")
+    s_add = e.add_voter(5)
+    seqs = [e.submit(p) for p in inp.take(plan["mid"])]
+    e.run_until_committed(s_add)
+    check(int(e.member.sum()) == 6 and e.member[5], "row 5 joined")
+    e.run_until_committed(seqs[-1])
+    e.run_for(8 * HB)
+    check(int(e.state.commit_index[5]) >= e.commit_watermark - cfg.batch_size
+          and any(ln.startswith("[Server5:") and "healed by reconstruction"
+                  in ln for ln in lines),
+          "the joiner was not healed by reconstruction")
+    read_back("grown")
+    lead = e.leader_id
+    dead = [r for r in range(5) if r != lead][:2]
+    for r in dead:
+        e.fail(r)
+    commit(plan["post"], "post")
+    read_back("two rows dead")
+    for r in dead:
+        e.recover(r)
+    e.run_for(8 * HB)
+    victim = next(r for r in range(6) if e.member[r] and r != e.leader_id)
+    s_rm = e.remove_server(victim)
+    seqs = [e.submit(p) for p in inp.take(plan["tail"])]
+    e.run_until_committed(s_rm, limit=900.0)
+    e.run_until_committed(seqs[-1], limit=900.0)
+    check(int(e.member.sum()) == 5 and not e.member[victim], "shrunk to 5")
+    read_back("shrunk")
+    extra = next(r for r in range(6) if e.member[r] and r != e.leader_id)
+    e.run_until_committed(e.remove_server(extra), limit=900.0)
+    last = next(r for r in range(6) if e.member[r] and r != e.leader_id)
+    try:
+        e.remove_server(last)
+        check(False, "a removal below the EC commit quorum was accepted")
+    except ValueError as ex:
+        check("commit quorum" in str(ex), f"the refusal: {ex}")
+    check(h_apply.hexdigest() == inp.h.hexdigest(),
+          "the applied entries differ from the input")
+    res = {"rs": [cfg.rows, cfg.rs_k], "commit_quorum": cfg.commit_quorum,
+           "joined": 5, "failed": dead, "removed": [victim, extra],
+           "commit_watermark": e.commit_watermark, "read_backs": reads,
+           "nodelog_lines": len(lines)}
+    fingerprint = {"lines": lines, "terms": e.terms.tolist(),
+                   "member": e.member.tolist(),
+                   "commit_time": dict(e.commit_time), "reads": reads,
+                   "apply": h_apply.hexdigest(),
+                   "state": state_to_numpy(e.state)}
+    return res, fingerprint
+
+
+def phase_ec_membership_card_equals_cpu(dev):
+    """``ec_membership_run`` at C = 4 096 on the card and on the CPU:
+    nodelog lines, terms, masks, commit stamps, read-backs, the applied
+    bytes and every state leaf must be equal; K7, K6 encode, K6 decode
+    and K2 must launch on the card (all at RS(6,3))."""
+    card, counters, walls, equal = card_vs_cpu(
+        ec_membership_run, ec_membership_config(
+            EC_MEMBERSHIP_STEPS["capacity"]), dev, EC_MEMBERSHIP_STEPS,
+        "ec membership")
+    for k in ("K7", "K6 encode", "K6 decode", "K2"):
+        check(counters[k] > 0, f"ec membership card run: {k} never "
+                               f"launched: {counters}")
+    card = {"phase": "ec_membership_card_equals_cpu", **card,
+            "launches_card": counters, "walls_s": walls, "equal": equal}
+    emit(card)
+    return {"launches": counters}
+
+
 # --------------------------------------------------------------- phase 5
 def _events_ms(fn, reps, inner=1, before=None):
     """Median device ms of one ``fn`` call: CUDA events around ``inner``
@@ -2347,6 +3142,7 @@ def codec_cases(code, dev, rng, B, S, N, note):
 #: (Wk = 3, single words); k = 4 with m = 1; the widest code MAX_ROWS
 #: allows (16 rows in and out: 64 KB of tables)
 K7_CASES = {"config3_b1": ((5, 3), 1, 264),
+            "rs63_b1": ((6, 3), 1, 264),
             "config3_partial_block": ((5, 3), 1000, 264),
             "odd_wk": ((5, 3), 1024, 36),
             "k4_m1": ((5, 4), 1024, 256),
@@ -2426,6 +3222,14 @@ def phase_ec_kernels(ecfg, dev, n_random=120):
     codec_cases(code, dev, rng, B, ecfg.entry_bytes, C, note)
     ring_reads = ring_read_cases(ecfg, dev, rng, note)
     k7_named = k7_cases(dev, rng, note)
+    # RS(6,3): config 3 with a row of headroom (the EC membership path),
+    # at config 3's widths: K6 encode, decode for all 20 row sets and a
+    # rotated one, K7 on a full and a partial batch
+    from itertools import combinations
+
+    rs63 = RSCode(6, 3)
+    codec_cases(rs63, dev, rng, B, ecfg.entry_bytes, C, note)
+    rs63_sets = len(list(combinations(range(6), 3)))
 
     def k2(*args, **kw):
         err, commit = k2_case(ecfg, dev, rng, *args, consts=consts, **kw)
@@ -2523,7 +3327,9 @@ def phase_ec_kernels(ecfg, dev, n_random=120):
                             f"{errs[k]}")
     emit({"phase": "ec_kernels_vs_plain", "cases": cases,
           "max_abs_err": errs, "random_schedule_steps": rsteps,
-          "ring_reads": ring_reads, "k7_cases": k7_named})
+          "ring_reads": ring_reads, "k7_cases": k7_named,
+          "rs63": {"decode_row_sets": rs63_sets + 1, "entry_bytes":
+                   ecfg.entry_bytes, "decode_entries": C, "batch": B}})
     return errs
 
 
@@ -4554,6 +5360,17 @@ LIBRARY_IS = {
           "rows over the flattened (group, slot) rows, all lanes selected",
     "K7": "copy yardstick: one strided copy_ of the data words into the "
           "folded layout's systematic columns (no parity computed)",
+    "K2": "none: no single PyTorch call computes it (a ring merge, then a "
+          "quorum commit behind the term floor, in one step)",
+    "K3": "none: no single PyTorch call computes it (T dependent steps: "
+          "each step's accept set follows from the last)",
+    "K2·ec": "none: PyTorch has no GF(2^8) arithmetic, and K2 has no call",
+    "K3·ec": "none: PyTorch has no GF(2^8) arithmetic, and K3 has no call",
+    "K4·ec": "none: PyTorch has no GF(2^8) arithmetic for the parity lanes",
+    "K6 encode": "none: PyTorch has no GF(2^8) matrix product",
+    "K6 decode": "none: PyTorch has no GF(2^8) matrix product",
+    "K2·mesh": "none: no single PyTorch call computes it (as K2)",
+    "K3·mesh": "none: no single PyTorch call computes it (as K3)",
 }
 
 
@@ -4584,6 +5401,9 @@ def main() -> int:
     ec_timing = phase_ec_timing(ecfg, dev, card_line)
     engine_ec = phase_engine_ec_path(dev)
     engine_ec_small = phase_engine_ec_card_equals_cpu(dev)
+    kv_main = phase_kv_main_path(dev)
+    kv_small = phase_kv_card_equals_cpu(dev)
+    ec_member = phase_ec_membership_card_equals_cpu(dev)
     group_errs = phase_group_kernels(dev)
     group_main = phase_group_main_path(dev)
     group_timing = phase_group_timing(dev, card_line)
@@ -4613,12 +5433,19 @@ def main() -> int:
                 by_path["engine"] = engine_main["launches"][key]
                 if key in ("K1", "K2"):
                     by_path["config5"] = c5["launches"][key]
+                # the replicated KV store under member masks, and its
+                # reduced run on the card against the CPU
+                by_path["kv"] = kv_main["launches"][key]
+                by_path["kv_card_equals_cpu"] = kv_small["launches"][key]
             if key in ("K2", "K3", "K4", "K6 encode", "K6 decode", "K7"):
                 # the erasure-coded engine at config 3, and its reduced
                 # run on the card against the CPU
                 by_path["engine_ec"] = engine_ec["launches"][key]
                 by_path["engine_ec_card_equals_cpu"] = \
                     engine_ec_small["launches"][key]
+                # RS(6,3): the EC cluster grown 5 -> 6 -> 4 on the card
+                by_path["ec_membership_card_equals_cpu"] = \
+                    ec_member["launches"][key]
             kernels.append({
                 "name": f"{key} {name}", "route": "cuda", "source": src,
                 "replaces": replaces, "launches": sum(by_path.values()),

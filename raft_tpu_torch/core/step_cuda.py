@@ -71,7 +71,11 @@ from raft_tpu_torch.core.ring_cuda import (
     write_window_both_plain,
     write_window_terms_plain,
 )
-from raft_tpu_torch.core.state import NO_VOTE, ReplicaState
+from raft_tpu_torch.core.state import (
+    NO_VOTE,
+    ReplicaState,
+    membership_voters,
+)
 from raft_tpu_torch.ec.kernels import apply_bits_plain
 
 # packed state-vector rows (the (6, L) block)
@@ -820,14 +824,17 @@ def _prepare(state, leader, leader_term, term_floor, repair_floor,
              floor_prev_term, alive, slow, member, commit_quorum, ec,
              rows=None):
     """Host params and device masks of a call; ``rows`` is the plane width
-    when it is not the state's row count (the mesh)."""
+    when it is not the state's row count (the mesh). ``member`` is a bool
+    voter plane or a packed voter|learner mask (``pack_membership``),
+    decoded to its voter plane on the device."""
     dev = state.device
     L = state.term.shape[0] if rows is None else rows
     prm = step_params(leader, leader_term, term_floor, repair_floor,
                       floor_prev_term, commit_quorum, L, ec=ec)
     alive = _bool_mask(alive, dev)
     slow = _bool_mask(slow, dev)
-    member = None if member is None else _bool_mask(member, dev)
+    if member is not None:
+        member = _bool_mask(membership_voters(torch.as_tensor(member)), dev)
     return prm, alive, slow, member
 
 

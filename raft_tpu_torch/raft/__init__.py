@@ -1,6 +1,6 @@
-"""The cluster engine (port of ``raft_tpu/raft``): the tick loop of
-``RaftEngine`` on the port's transports (ROADMAP A9a), and the shared
-commit-stamp ledger."""
+"""The cluster engine (port of ``raft_tpu/raft``): ``RaftEngine`` on the
+port's transports (ROADMAP A9a-A9e), the leader-lease table
+(``raft.lease``) and the shared commit-stamp ledger."""
 
 from raft_tpu_torch.raft.engine import RaftEngine, VirtualClock
 

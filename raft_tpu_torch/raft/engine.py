@@ -1,5 +1,5 @@
 """The cluster engine: timers and roles on the host, protocol steps on the
-device (port of ``raft_tpu/raft/engine.py``, ROADMAP A9a, A9b and A9e).
+device (port of ``raft_tpu/raft/engine.py``, ROADMAP A9a-A9e).
 
 One host thread owns every replica's timers and roles on a virtual clock
 (a heap of timer events drawn from ``random.Random(cfg.seed)``); the
@@ -24,7 +24,18 @@ data plane is the transport's batched device program:
 - ``save_checkpoint`` / ``restore`` carry the durable state (the archived
   committed tail, terms, votedFor, the configuration) through one
   ``.npz`` file, and ``vote_log=`` makes every (term, votedFor)
-  transition durable before the engine acts on it (``ckpt.votelog``).
+  transition durable before the engine acts on it (``ckpt.votelog``);
+- with ``max_replicas`` headroom the configuration changes one server at
+  a time through log entries that activate when appended (``add_learner``,
+  ``promote``, ``add_server``, ``add_voter``, ``remove_server``,
+  ``replace``, ``wipe``): every device step counts its quorum over the
+  voter plane, handed to the kernels as a bool mask, or packed with the
+  learners (``core.state.pack_membership``) while a learner is attached;
+- linearizable reads confirm leadership with a quorum round
+  (``read_linearizable``: one empty round, K2 at count 0 or K1 while
+  repairing), ride the write rounds in batches (``submit_read`` /
+  ``read_confirmed``), or, with ``read_lease``, serve from a leader lease
+  with no round at all (``raft.lease``).
 
 With ``rs_k`` set the cluster is erasure-coded (BASELINE config 3): each
 replica stores one RS(n, k) shard of every entry. The leader encodes each
@@ -37,15 +48,15 @@ the bytes are the same.
 
 With the same ``RaftConfig`` and seed and the same sequence of calls, the
 engine gives byte-identical results to the JAX engine: nodelog lines, the
-rng and the event heap, commit stamps, terms and roles, committed bytes
-and the apply stream. The device state is a ``ReplicaState`` of torch
-tensors on the transport's device; the host mirrors are numpy, as there.
-``RaftEngine(cfg)`` builds ``make_transport(cfg)``, which runs on CUDA;
-pass a transport built with ``device="cpu"`` to run the plain versions.
+rng and the event heap, commit stamps, terms and roles, the membership
+masks, read indices, committed bytes and the apply stream. The device
+state is a ``ReplicaState`` of torch tensors on the transport's device;
+the host mirrors are numpy, as there. ``RaftEngine(cfg)`` builds
+``make_transport(cfg)``, which runs on CUDA; pass a transport built with
+``device="cpu"`` to run the plain versions.
 
 Not ported yet; each raises ``NotImplementedError`` naming its ROADMAP
-item: membership changes and ``max_replicas`` (A9c); reads and leases
-(A9d); K-tick fusion (A11); the tiered archive and the device event ring
+item: K-tick fusion (A11); the tiered archive and the device event ring
 (A13); the multihost mirror digest (A15); the flight recorder (A16). The
 observability hooks of the JAX engine (``spans``, ``metrics``,
 ``hostprof``, ``auditor``, ``slo``, ``status_board``) come with A16, and
@@ -57,12 +68,13 @@ from __future__ import annotations
 import heapq
 import os
 import random
+from itertools import islice
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from raft_tpu_torch.admission import AdmissionGate
+from raft_tpu_torch.admission import AdmissionGate, Overloaded
 from raft_tpu_torch.ckpt import (
     CheckpointStore,
     EngineCheckpoint,
@@ -80,6 +92,7 @@ from raft_tpu_torch.core.state import (
     fold_batch,
     last_log_term,
     log_entries,
+    pack_membership,
 )
 from raft_tpu_torch.core.step_cuda import pick_br, shape_ok
 from raft_tpu_torch.ec.kernels import encode_device, encode_fold_device
@@ -90,6 +103,7 @@ from raft_tpu_torch.ec.reconstruct import (
 )
 from raft_tpu_torch.ec.rs import RSCode
 from raft_tpu_torch.obs import profiling as _profiling
+from raft_tpu_torch.raft.lease import LeaseTable
 from raft_tpu_torch.raft.ledger import (
     durable_range_covers,
     evict_commit_stamps,
@@ -117,16 +131,27 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 class LinearizableReadRefused(Exception):
-    """``read_linearizable`` could not confirm leadership (the JAX
-    engine's exception; the read paths are ROADMAP A9d)."""
+    # not a RuntimeError: ReplicatedKV.linearizable_get's other failure
+    # mode (the apply stream paused behind an archive gap) raises
+    # RuntimeError, and the two call for different recovery actions
+    """``read_linearizable`` could not confirm leadership: the caller is
+    not leader, was deposed during the confirmation round, or cannot
+    reach a quorum of the configuration (a minority-side leader during a
+    partition). The read must be retried against the real leader."""
 
 
 class TicketEvicted(LinearizableReadRefused):
-    """A ``submit_read`` ticket was evicted before it was polled."""
+    """A ``submit_read`` ticket was FIFO-evicted at the outstanding-ticket
+    cap (``READ_TICKET_CAP``), or idle past the admission TTL, before it
+    was polled; a consumed ticket polled after the eviction floor passed
+    it reads the same. The recovery is to re-issue the read."""
 
 
 class LearnerLagging(RuntimeError):
-    """``promote`` refused: the learner is still too far behind."""
+    """``promote`` refused: the learner's current-term verified match is
+    more than ``cfg.promote_max_lag`` entries behind the leader's last
+    index (or the learner is down). The staged promotion of
+    ``add_server`` / ``replace`` retries every leader tick."""
 
 
 class MirrorDesyncError(Exception):
@@ -144,13 +169,24 @@ class VirtualClock:
 
 
 class RaftEngine:
-    """One process hosting all replica control planes (the JAX engine's
-    tick loop; see the module docstring for what is not ported yet).
+    """One process hosting all replica control planes (the JAX engine's;
+    see the module docstring for what is not ported yet).
 
     Fault masks (``alive``/``slow``) are first-class: a "dead" replica's
     timers do not fire and the device step ignores it; ``connectivity``
-    expresses link-level partitions (``partition``/``heal_partition``).
+    expresses link-level partitions (``partition``/``heal_partition``)
+    and ``member``/``learner`` the current configuration.
+
+    ``READ_TICKET_CAP``: outstanding ``submit_read`` tickets kept before
+    FIFO eviction (a class attribute, so tests reach the eviction path
+    at a test-sized volume).
     """
+
+    READ_TICKET_CAP = 1 << 16
+    READ_TICKET_TTL_FACTOR = 3.0
+    #   With admission configured, a ticket idle this many max election
+    #   timeouts is abandoned and evicted at the gate (submit_read): the
+    #   age analogue of the FIFO cap, which a smaller bound never reaches.
 
     def __init__(
         self,
@@ -173,13 +209,23 @@ class RaftEngine:
         #   Leader ticks fired so far (the launch annotation's step)
 
         n = cfg.rows
-        self.member = np.ones(n, bool)
-        #   The configuration: fixed here (every row a voter); membership
-        #   changes are ROADMAP A9c. Quorums are counted over members.
+        self.member = np.zeros(n, bool)
+        self.member[: cfg.n_replicas] = True
+        #   The current configuration's voters (single-server changes):
+        #   rows beyond n_replicas idle masked out until a change adds
+        #   them. Quorums are counted over voters; the device step gets
+        #   the mask for its denominator (_member_arg).
         self.learner = np.zeros(n, bool)
-        #   Non-voting learners: always empty until ROADMAP A9c makes them
-        #   live; kept so that restore, the heals and saved checkpoints
-        #   carry the configuration as the JAX engine's do.
+        #   Non-voting learners (§4.2.1): they hear replication, repair and
+        #   snapshot installs (the replication reach) but never vote,
+        #   count toward a commit or CheckQuorum, or campaign.
+        self._wiped = np.zeros(n, bool)
+        #   Rows whose durable state ``wipe`` destroyed while a voter:
+        #   ``recover`` refuses them until a removal of the row commits.
+        self._staged_config: List[Tuple[str, int]] = []
+        #   Deferred single-server steps ("add_learner" / "promote", row)
+        #   of add_server and replace; the routed leader tick drives the
+        #   head whenever no change is in flight.
         self.roles: List[str] = [FOLLOWER] * n
         self.terms = np.zeros(n, np.int64)     # host mirror for timer logic
         self.lead_terms = np.zeros(n, np.int64)
@@ -198,6 +244,16 @@ class RaftEngine:
         self._last_heard = np.full(n, -1e18)
         #   When each replica last heard a leader's traffic (virtual
         #   clock) — the §9.6 leader-stickiness evidence for PreVote.
+        self._reads: Dict[int, list] = {}
+        self._next_read_ticket = 0
+        #   Batched ReadIndex queue: ticket -> [row, noted index, bound
+        #   term, status, mint time, class].
+        self._read_buckets: Dict[Tuple[int, int], set] = {}
+        #   (row, bound term) -> pending tickets: a confirming round pops
+        #   exactly its own bucket.
+        self._read_evict_floor = 0
+        #   Every ticket below this was consumed or evicted; polling one
+        #   raises TicketEvicted.
         self._quorum_contact_at: Dict[int, float] = {}
         #   Per-leader: when it last contacted a member majority
         #   (CheckQuorum's lease clock).
@@ -237,6 +293,9 @@ class RaftEngine:
         #   catch up in admission-budgeted chunks per leader tick
         #   (_stream_snapshot).
         self._lasts_snapshot = None   # see _pre_lasts
+        self._match_snapshot = None
+        #   cached host (match_index, match_term) for _effective_match,
+        #   dropped whenever a step or a host-side install moves them
         self._term_floor = 1   # first log index of the current leader's
         #   term (the §5.4.2 gate of the steady kernels): set to
         #   last_index+1 on every election win, clamped down when a
@@ -259,10 +318,32 @@ class RaftEngine:
         #   State-machine apply cursor (see register_apply).
         self._lost_gaps: set = set()   # unrecoverable apply gaps, logged once
         self._queue: List[Tuple[int, bytes]] = []  # pending (seq, payload)
+        self.lease = None
+        if cfg.read_lease:
+            # leader leases (raft.lease): every quorum round grants, and a
+            # valid lease serves linearizable reads with no round; volatile
+            # by design (a restored engine starts with no grants)
+            self.lease = LeaseTable(
+                cfg.follower_timeout[0], cfg.clock_drift_bound
+            )
+        self._row_commit = np.zeros(n, np.int64)
+        #   The commit index each row's OWN rounds last reported: lease
+        #   reads serve at it (a partitioned stale leader's view freezes).
+        self._lease_ok_term = np.full(n, -1, np.int64)
+        #   §6.4's gate: a lease serves only once a watermark advance rode
+        #   one of r's own rounds in its current lead term.
+        self.read_class_counts: Dict[str, int] = {}
+        #   served reads by class (lease / read_index)
         self.admission = AdmissionGate.from_config(cfg, self.clock)
-        #   Bounded admission (None = unbounded): submit arrivals pass
-        #   the gate before anything is queued, and the leader tick feeds
-        #   it the head-of-queue sojourn for the delay controller.
+        #   Bounded admission (None = unbounded): submit and submit_read
+        #   arrivals pass the gate before anything is queued, and the
+        #   leader tick feeds it the head-of-queue sojourn.
+        self._config_seqs: Dict[int, Tuple[tuple, tuple]] = {}
+        #   seq -> ((old member, old learner), (new member, new learner))
+        #   of a configuration entry not yet ingested
+        self._pending_config: Optional[Tuple[int, tuple, tuple, int]] = None
+        #   (log index, old masks, new masks, ingest term) of the one
+        #   uncommitted change
         self._fault_events: list = []              # FaultPlan merge targets
         self._next_seq = 1
         self._q: List[Tuple[float, int, str, int]] = []  # (t, tiebreak, kind, replica)
@@ -287,15 +368,12 @@ class RaftEngine:
                     self.nodelog(r, "vote log replayed")
             self._attach_votelog(vote_log)
         for r in range(n):
-            self._arm_follower(r)
+            if self.member[r]:
+                self._arm_follower(r)
 
     @staticmethod
     def _refuse_unported(cfg: RaftConfig, recorder) -> None:
         """Raise for every configuration whose code is not ported yet."""
-        if cfg.max_replicas is not None:
-            raise _not_ported("max_replicas (membership headroom)", "A9c")
-        if cfg.read_lease:
-            raise _not_ported("read_lease (leader leases)", "A9d")
         fuse_k = max(1, int(os.environ.get("RAFT_TPU_FUSE_K", "")
                             or cfg.fuse_k))
         if fuse_k > 1:
@@ -466,6 +544,8 @@ class RaftEngine:
         self._persist_votes()   # adopt the term durably before acting on it
         if self.leader_id == r:
             self.leader_id = None
+        if self.lease is not None:
+            self.lease.break_(r)
         self.nodelog(r, "step down to follower")
         self._arm_follower(r)
 
@@ -493,6 +573,15 @@ class RaftEngine:
                 )
         seqs = [self.submit(p) for p in payloads]
         pending, self._queue = self._queue, []
+        # configuration entries do not ride a chunk (it would keep
+        # committing past the entry under the stale mask): stop before
+        # the first one; the tick path ingests it with the new mask
+        cut = next((i for i, (q, _) in enumerate(pending)
+                    if q in self._config_seqs), None)
+        deferred: List[Tuple[int, bytes]] = []
+        if cut is not None:
+            deferred = pending[cut:]
+            pending = pending[:cut]
         B = cfg.batch_size
         T_ring = cfg.log_capacity // B
         while pending:
@@ -546,7 +635,11 @@ class RaftEngine:
                 self.state, info = self.t.replicate_pipeline(
                     self.state, payload_stack, self._dev_arr(counts), r,
                     self.leader_term, self._dev_arr(eff),
-                    self._dev_arr(self.slow), member=None,
+                    self._dev_arr(self.slow),
+                    # the flight takes the bool voter plane, never the
+                    # packed form
+                    member=(self._dev_arr(self.member)
+                            if cfg.max_replicas is not None else None),
                     repair_floor=floor, floor_prev_term=fpt,
                     term_floor=self._term_floor,
                     allow_turnover=all_accept,
@@ -566,7 +659,8 @@ class RaftEngine:
                         self._fetch(self.state.last_index),
                     )
                     self._queue = (
-                        list(chunk[done:]) + pending[take:] + self._queue
+                        list(chunk[done:]) + pending[take:] + deferred
+                        + self._queue
                     )
                     raise RuntimeError(
                         f"pipeline chunk shortfall: committed "
@@ -577,6 +671,9 @@ class RaftEngine:
                     )
                 self._account_chunk_prefix(r, chunk, take, leader_last, eff)
                 pending = pending[take:]
+                self._confirm_reads(
+                    r, self.leader_term, eff, int(info.max_term)
+                )
                 self._update_steady(r, info.match, eff)
                 if int(info.max_term) > self.leader_term:
                     self._step_down_leader(r, int(info.max_term))
@@ -607,6 +704,7 @@ class RaftEngine:
                         idx += 1
                         self._seq_at_index[idx] = seq
                         self._uncommitted[idx] = (p, self.leader_term)
+                        self._note_config_ingest(idx, seq, self.leader_term)
                     else:
                         refused.append((seq, p))
                 pos += cnt
@@ -616,6 +714,7 @@ class RaftEngine:
             self.terms[eff] = np.maximum(self.terms[eff], self.leader_term)
             self._persist_votes()
             self._advance_commit(r, final_commit)
+            self._confirm_reads(r, self.leader_term, eff, max_term)
             self._update_steady(r, infos.match[-1], eff)
             if max_term > self.leader_term:
                 # deposed mid-chunk: hand the rest back to the queue
@@ -623,7 +722,7 @@ class RaftEngine:
                 break
             if refused:
                 break  # no progress is possible right now; don't spin
-        self._queue = pending + self._queue
+        self._queue = pending + deferred + self._queue
         if self.leader_id == r:
             self._reset_heard_timers(r)
         return seqs
@@ -694,6 +793,13 @@ class RaftEngine:
         # stashed for the caller: the lap gate and allow_turnover must
         # see the SAME accept set this gate counted
         self._gate_accept = accept
+        if cfg.max_replicas is not None:
+            # the kernels' member quorum: a voter majority, clamped to the
+            # static commit_quorum under EC; acks count over voters only
+            quorum = int(self.member.sum()) // 2 + 1
+            if cfg.ec_enabled:
+                quorum = max(quorum, cfg.commit_quorum)
+            return int((accept & self.member).sum()) >= quorum
         return int(accept.sum()) >= cfg.commit_quorum
 
     @property
@@ -704,51 +810,537 @@ class RaftEngine:
             if seq not in self.commit_time
         )
 
-    # --------------------------------------------------- reads (ROADMAP A9d)
+    # ------------------------------------------------- batched ReadIndex
     def submit_read(self, r: Optional[int] = None) -> int:
-        raise _not_ported("submit_read (batched ReadIndex)", "A9d")
+        """Queue a linearizable read (batched ReadIndex over §6.4): note
+        the current watermark now, and let the next successful quorum
+        round (a write tick, a pipelined chunk, or an explicit
+        ``read_linearizable``) confirm every queued read at once. Under
+        write load a read costs no extra round; an idle cluster pays one
+        empty round for the whole queue. Returns a ticket for
+        ``read_confirmed``; with a valid lease the ticket is minted
+        already confirmed at the leader's own commit view.
+
+        Refusals match ``read_linearizable`` (not a live leader, deposed,
+        quorum unreachable); leadership lost while a ticket waits shows
+        at its next poll. With admission configured, tickets idle for
+        ``READ_TICKET_TTL_FACTOR`` max election timeouts are evicted
+        first, then an arrival past ``admission_max_reads`` raises
+        ``admission.Overloaded``; past ``READ_TICKET_CAP`` outstanding
+        tickets the oldest are FIFO-evicted (they poll as
+        ``TicketEvicted``)."""
+        if self.admission is not None:
+            ttl = self.READ_TICKET_TTL_FACTOR * self.cfg.follower_timeout[1]
+            # tickets mint in order and dict order survives deletes: the
+            # front is the oldest, so stop at the first young ticket
+            for tk in list(self._reads):
+                if self.clock.now - self._reads[tk][4] < ttl:
+                    break
+                self._drop_read_ticket(tk)
+                self._read_evict_floor = max(self._read_evict_floor, tk + 1)
+            self.admission.admit_read(len(self._reads))
+        if r is None:
+            r = self.leader_id
+        if r is None or self.roles[r] != LEADER or not self.alive[r]:
+            raise LinearizableReadRefused("not a live leader")
+        if int(self.terms[r]) > int(self.lead_terms[r]):
+            self._step_down_leader(r, int(self.terms[r]))
+            raise LinearizableReadRefused("deposed (higher term seen)")
+        # the lease before the reach check: a lease holder serves with no
+        # knowledge of the cluster beyond its drift-bounded clock
+        lease_idx = self.lease_read_index(r)
+        if lease_idx is None:
+            voters = self._voter_reach(r)
+            if int(voters.sum()) <= int(self.member.sum()) // 2:
+                raise LinearizableReadRefused(
+                    f"quorum unreachable ({int(voters.sum())} of "
+                    f"{int(self.member.sum())} members)"
+                )
+        tk = self._next_read_ticket
+        self._next_read_ticket += 1
+        bind = (r, int(self.lead_terms[r]))
+        if lease_idx is not None:
+            # a zero-round lease serve: confirmed at r's own commit view,
+            # in no confirmation bucket
+            self._reads[tk] = [
+                r, lease_idx, bind[1], "ready", self.clock.now, "lease",
+            ]
+        else:
+            self._reads[tk] = [
+                r, self.commit_watermark, bind[1], "pending",
+                self.clock.now, "read_index",
+            ]
+            self._read_buckets.setdefault(bind, set()).add(tk)
+        n_evict = len(self._reads) - self.READ_TICKET_CAP
+        if n_evict > 0:
+            # FIFO past the cap: the first keys are the oldest tickets
+            for old in list(islice(iter(self._reads), n_evict)):
+                self._drop_read_ticket(old)
+                self._read_evict_floor = max(self._read_evict_floor, old + 1)
+        return tk
+
+    def read_ticket_class(self, ticket: int) -> Optional[str]:
+        """Served class of an outstanding ticket ("lease" or
+        "read_index"); None once consumed or evicted."""
+        rec = self._reads.get(ticket)
+        if rec is None:
+            return None
+        return rec[5]
+
+    def _drop_read_ticket(self, ticket: int) -> None:
+        """Remove a ticket from the queue and its (row, term) bucket."""
+        rec = self._reads.pop(ticket, None)
+        if rec is None:
+            return
+        bucket = self._read_buckets.get((rec[0], rec[2]))
+        if bucket is not None:
+            bucket.discard(ticket)
+            if not bucket:
+                del self._read_buckets[(rec[0], rec[2])]
 
     def read_confirmed(self, ticket: int) -> Optional[int]:
-        raise _not_ported("read_confirmed (batched ReadIndex)", "A9d")
-
-    def read_linearizable(self, r: Optional[int] = None) -> int:
-        # the JAX engine fences its confirming round's term adoptions to
-        # the vote log here (_persist_votes); the fence comes with A9d
-        raise _not_ported("read_linearizable (ReadIndex)", "A9d")
-
-    def lease_read_index(self, r: int) -> Optional[int]:
-        raise _not_ported("lease_read_index (leader leases)", "A9d")
-
-    # ---------------------------------------------- membership (ROADMAP A9c)
-    def _member_arg(self):
-        """The membership mask for device steps: None on a
-        fixed-membership cluster (the steps count the static quorum);
-        the mask forms of ``max_replicas`` clusters are ROADMAP A9c."""
+        """Poll a ``submit_read`` ticket: the confirmed read index once a
+        quorum round has run (serve from state applied to at least that
+        index), None while pending, ``LinearizableReadRefused`` once the
+        ticket's (row, term) binding can no longer confirm. Terminal
+        outcomes pop the ticket."""
+        rec = self._reads.get(ticket)
+        if rec is None:
+            if 0 <= ticket < self._read_evict_floor:
+                raise TicketEvicted(
+                    f"ticket {ticket} was evicted at the outstanding-read "
+                    "cap before confirmation; re-issue the read"
+                )
+            raise KeyError(f"unknown or already-consumed ticket {ticket}")
+        row, idx, tterm, st = rec[:4]
+        if st == "ready":
+            self._drop_read_ticket(ticket)
+            self._note_read_served(rec[5])
+            return idx
+        if (self.roles[row] != LEADER or not self.alive[row]
+                or int(self.lead_terms[row]) != tterm
+                or int(self.terms[row]) > tterm):
+            self._drop_read_ticket(ticket)
+            raise LinearizableReadRefused(
+                "leadership lost before confirmation"
+            )
         return None
 
+    def _lease_renew(self, r: int, term: int, eff, max_term: int) -> None:
+        """A quorum round sourced at ``r`` completed: renew its lease when
+        it reached a voter majority, surfaced no higher term, and no
+        configuration change is in flight."""
+        if self.lease is None or max_term > term:
+            return
+        if int((eff & self.member).sum()) <= int(self.member.sum()) // 2:
+            return
+        if (self._pending_config is not None or self._staged_config
+                or self._config_seqs or self.learner.any()):
+            return
+        self.lease.grant(r, term, self.clock.now)
+
+    def lease_read_index(self, r: int) -> Optional[int]:
+        """Zero-round read index for live leader ``r`` (its own commit
+        view, ``_row_commit``), or None when the lease cannot serve: the
+        plane off, the lease expired or absent, a higher term seen, a
+        configuration change in flight, or no commit yet in r's term
+        (§6.4's fresh-leader gate). Reads only host mirrors and the
+        virtual clock."""
+        if self.lease is None:
+            return None
+        term = int(self.lead_terms[r])
+        if int(self.terms[r]) > term:
+            return None
+        if (self._pending_config is not None or self._staged_config
+                or self._config_seqs or self.learner.any()):
+            return None
+        if int(self._lease_ok_term[r]) != term:
+            return None
+        if not self.lease.valid(r, term, self.clock.now):
+            return None
+        return int(self._row_commit[r])
+
+    def set_lease_rate(self, r: int, rate: float) -> None:
+        """Clock-skew injection: row ``r``'s lease clock runs at ``rate``
+        local seconds per true second (no-op without leases)."""
+        if self.lease is not None:
+            self.lease.set_rate(r, rate)
+
+    def _note_read_served(self, cls: str) -> None:
+        """One read served under class ``cls`` (lease / read_index)."""
+        self.read_class_counts[cls] = self.read_class_counts.get(cls, 0) + 1
+        if self.admission is not None:
+            self.admission.note_read_class(cls)
+
+    def _confirm_reads(self, r: int, term: int, eff, max_term: int) -> None:
+        """A quorum round sourced at ``r`` just completed: when it reached
+        a voter majority and surfaced no higher term it confirms every
+        read queued on ``r`` in this term (the one (r, term) bucket) and
+        renews r's lease."""
+        self._lease_renew(r, term, eff, max_term)
+        if not self._reads:
+            return
+        # counted over reachable voters: learners' acks confirm nothing
+        if max_term > term or (
+            int((eff & self.member).sum()) <= int(self.member.sum()) // 2
+        ):
+            return
+        bucket = self._read_buckets.pop((r, term), None)
+        if not bucket:
+            return
+        for tk in bucket:
+            rec = self._reads.get(tk)
+            if rec is not None and rec[3] == "pending":
+                rec[3] = "ready"
+
+    def read_linearizable(self, r: Optional[int] = None) -> int:
+        """ReadIndex (§6.4): confirm leadership, then return the commit
+        index a read may be served at (from state applied to at least
+        it). With a valid lease no round runs. Otherwise the leader notes
+        the watermark, checks that it reaches a voter majority, and runs
+        one empty replication round (``_empty_round``); a higher term in
+        it deposes the leader. Raises ``LinearizableReadRefused`` when
+        leadership cannot be confirmed. Reads queued by ``submit_read``
+        share the round. ``r`` defaults to the routed leader; pass a row
+        to probe a specific (possibly stale) leader."""
+        if r is None:
+            r = self.leader_id
+        if r is None or self.roles[r] != LEADER or not self.alive[r]:
+            raise LinearizableReadRefused("not a live leader")
+        term = int(self.lead_terms[r])
+        if int(self.terms[r]) > term:
+            self._step_down_leader(r, int(self.terms[r]))
+            raise LinearizableReadRefused("deposed (higher term seen)")
+        lease_idx = self.lease_read_index(r)
+        if lease_idx is not None:
+            self._note_read_served("lease")
+            return lease_idx
+        read_index = self.commit_watermark
+        eff = self._reach(r)
+        # the quorum check first: it needs no round, and a minority-side
+        # leader must be refused even while its side is quiet
+        confirmed = int((eff & self.member).sum())
+        if confirmed <= int(self.member.sum()) // 2:
+            raise LinearizableReadRefused(
+                f"quorum unreachable ({confirmed} of "
+                f"{int(self.member.sum())} members)"
+            )
+        info = self._empty_round(r, term, eff)
+        max_term = int(info.max_term)
+        if max_term > term:
+            self._step_down_leader(r, max_term)
+            raise LinearizableReadRefused("deposed during confirmation")
+        self.terms[eff] = np.maximum(self.terms[eff], term)
+        self._persist_votes()   # the round's adoptions reach disk first
+        self._advance_commit(r, int(info.commit_index))
+        self._confirm_reads(r, term, eff, max_term)
+        self._reset_heard_timers(r)
+        self._note_read_served("read_index")
+        return read_index
+
+    def _empty_round(self, r: int, term: int, eff):
+        """One zero-entry replication round sourced at ``r``: the device
+        half of a heartbeat (the tick's take == 0 branch), K2 at count 0
+        on a steady cluster, K1's general path while repairing."""
+        cfg = self.cfg
+        if self._hb_payload is None:
+            self._hb_payload = torch.zeros(
+                (cfg.batch_size, cfg.rows * cfg.shard_words),
+                dtype=torch.int32, device=self._dev,
+            )
+        pre_lasts = self._pre_lasts()
+        floor, fpt = self._floor_attest(r)
+        self.state, info = self.t.replicate(
+            self.state, self._hb_payload, 0, r, term, self._dev_arr(eff),
+            self._dev_arr(self.slow), repair=self._repair_program(),
+            member=self._member_arg(),
+            repair_floor=floor, floor_prev_term=fpt,
+            term_floor=self._term_floor,
+        )
+        self._note_truncations(pre_lasts)
+        return info
+
+    # ------------------------------------------------------------- membership
+    def _member_arg(self):
+        """The membership mask for device steps: None on a
+        fixed-membership cluster (the static quorum), the bool voter
+        plane while no learner is attached, the packed voter|learner mask
+        (``core.state.pack_membership``) otherwise; the step takes the
+        voter plane of it on the device (``membership_voters``).
+        ``replicate_pipeline`` takes the bool plane directly."""
+        if self.cfg.max_replicas is None:
+            return None
+        if self.learner.any():
+            return self._dev_arr(pack_membership(self.member, self.learner))
+        return self._dev_arr(self.member)
+
+    def _config_payload(self, member: np.ndarray,
+                        learner: np.ndarray) -> bytes:
+        """A configuration entry: ``RCFG``, the voter bitmap (u64 LE), and
+        a learner bitmap only when the new configuration has learners."""
+        bits = int(sum(1 << i for i in np.flatnonzero(member)))
+        body = b"RCFG" + bits.to_bytes(8, "little")
+        if np.asarray(learner, bool).any():
+            lbits = int(sum(1 << i for i in np.flatnonzero(learner)))
+            body += lbits.to_bytes(8, "little")
+        if len(body) > self.cfg.entry_bytes:
+            raise ValueError(
+                "entry_bytes too small to carry a configuration entry"
+            )
+        return body + bytes(self.cfg.entry_bytes - len(body))
+
+    def _change_membership(self, new_member: np.ndarray,
+                           new_learner: np.ndarray) -> int:
+        if self.cfg.max_replicas is None:
+            raise ValueError(
+                "membership change needs max_replicas headroom in RaftConfig"
+            )
+        if (np.asarray(new_member, bool)
+                & np.asarray(new_learner, bool)).any():
+            raise ValueError("a row cannot be both voter and learner")
+        if self._pending_config is not None or any(
+            q in self._config_seqs for q, _ in self._queue
+        ):
+            # one at a time (§4.1), a change still queued included
+            raise RuntimeError(
+                "a configuration change is already in flight; one at a "
+                "time (dissertation §4.1's single-server rule)"
+            )
+        if self.leader_id is None:
+            raise RuntimeError("membership change needs a current leader")
+        seq = self.submit(self._config_payload(new_member, new_learner))
+        self._config_seqs[seq] = (
+            (tuple(bool(x) for x in self.member),
+             tuple(bool(x) for x in self.learner)),
+            (tuple(bool(x) for x in new_member),
+             tuple(bool(x) for x in new_learner)),
+        )
+        return seq
+
     def add_learner(self, r: int) -> int:
-        raise _not_ported("add_learner", "A9c")
+        """Attach row ``r`` as a non-voting learner (§4.2.1): replicated,
+        repaired and snapshot-installed like a voter, never counted.
+        Returns the configuration entry's seq."""
+        if not (0 <= r < self.cfg.rows):
+            raise ValueError(f"replica {r} out of range (rows={self.cfg.rows})")
+        if self.member[r]:
+            raise ValueError(f"replica {r} is already a voter")
+        if self.learner[r]:
+            raise ValueError(f"replica {r} is already a learner")
+        new_l = self.learner.copy()
+        new_l[r] = True
+        return self._change_membership(self.member.copy(), new_l)
+
+    def _promote_lag_bound(self) -> int:
+        lag = self.cfg.promote_max_lag
+        return lag if lag is not None else 2 * self.cfg.batch_size
 
     def promote(self, r: int) -> int:
-        raise _not_ported("promote", "A9c")
+        """Promote learner ``r`` to a voter (one configuration entry).
+        Raises ``LearnerLagging`` while it is down or its current-term
+        verified match is more than ``promote_max_lag`` entries behind
+        the leader's last index."""
+        if not self.learner[r]:
+            raise ValueError(f"replica {r} is not a learner")
+        lead = self.leader_id
+        if lead is None:
+            raise RuntimeError("promotion needs a current leader")
+        if not self.alive[r]:
+            raise LearnerLagging(
+                f"learner {r} is down; promotion requires a live, "
+                "caught-up learner"
+            )
+        lasts_matches = self._fetch(torch.stack([
+            self.state.last_index, self.state.match_index,
+            self.state.match_term,
+        ]))
+        leader_last = int(lasts_matches[0, lead])
+        eff_match = (
+            int(lasts_matches[1, r])
+            if int(lasts_matches[2, r]) == int(self.lead_terms[lead]) else 0
+        )
+        lag = leader_last - eff_match
+        if lag > self._promote_lag_bound():
+            raise LearnerLagging(
+                f"learner {r} is {lag} entries behind the leader "
+                f"(bound {self._promote_lag_bound()}); promote once "
+                "replication / snapshot install has caught it up"
+            )
+        new_m = self.member.copy()
+        new_m[r] = True
+        new_l = self.learner.copy()
+        new_l[r] = False
+        return self._change_membership(new_m, new_l)
 
     def add_server(self, r: int) -> int:
-        raise _not_ported("add_server", "A9c")
+        """Grow the cluster by one server, learner first (§4.2.1): row
+        ``r`` joins as a learner (the returned seq is that entry's), is
+        healed, and the leader tick promotes it once its match is within
+        ``promote_max_lag``. ``run_until_voter`` waits for the promote."""
+        seq = self.add_learner(r)
+        self._staged_config.append(("promote", r))
+        return seq
 
     def add_voter(self, r: int) -> int:
-        raise _not_ported("add_voter", "A9c")
+        """Grow the cluster by one immediate voter (a configuration entry
+        that takes effect when appended). The row joins empty and counts
+        against the quorum until it catches up; ``add_server`` avoids
+        that."""
+        if not (0 <= r < self.cfg.rows):
+            raise ValueError(f"replica {r} out of range (rows={self.cfg.rows})")
+        if self.member[r]:
+            raise ValueError(f"replica {r} is already a member")
+        new = self.member.copy()
+        new[r] = True
+        new_l = self.learner.copy()
+        new_l[r] = False   # promoting a learner directly is allowed
+        return self._change_membership(new, new_l)
 
     def remove_server(self, r: int) -> int:
-        raise _not_ported("remove_server", "A9c")
+        """Shrink the cluster by one server (voter or learner). A removed
+        leader keeps leading until the entry commits, then steps down
+        (§4.2.2). Under EC the voters may not fall below
+        ``commit_quorum``."""
+        if self.learner[r]:
+            new_l = self.learner.copy()
+            new_l[r] = False
+            return self._change_membership(self.member.copy(), new_l)
+        if not self.member[r]:
+            raise ValueError(f"replica {r} is not a member")
+        new = self.member.copy()
+        new[r] = False
+        if int(new.sum()) < 1:
+            raise ValueError("cannot remove the last member")
+        if self.cfg.ec_enabled and int(new.sum()) < self.cfg.commit_quorum:
+            raise ValueError(
+                f"removing replica {r} leaves {int(new.sum())} members, "
+                f"below the EC commit quorum ({self.cfg.commit_quorum})"
+            )
+        return self._change_membership(new, self.learner.copy())
 
     def replace(self, dead: int, spare: int) -> int:
-        raise _not_ported("replace", "A9c")
+        """Replace a dead voter with ``spare``: remove ``dead`` now
+        (returns that entry's seq), then, staged one change at a time,
+        add ``spare`` as a learner, heal it and promote it.
+        ``spare == dead`` re-admits the row under a fresh identity, the
+        only way back for a row whose durable state was lost (``wipe``)."""
+        if not self.member[dead]:
+            raise ValueError(f"replica {dead} is not a member")
+        if self.alive[dead]:
+            raise ValueError(
+                f"replica {dead} is alive; replace() is for dead servers "
+                "(fail() it first, or use remove_server/add_server)"
+            )
+        if not (0 <= spare < self.cfg.rows):
+            raise ValueError(f"spare {spare} out of range")
+        if spare != dead and (self.member[spare] or self.learner[spare]):
+            raise ValueError(f"spare {spare} is already configured")
+        seq = self.remove_server(dead)
+        self._staged_config.extend(
+            [("add_learner", spare), ("promote", spare)]
+        )
+        return seq
+
+    def _drive_staged_config(self, r: int) -> None:
+        """Advance the head of the staged ladder when no change is in
+        flight (the routed leader's tick); a lagging learner's promote
+        waits for a later tick."""
+        if not self._staged_config:
+            return
+        if self._pending_config is not None or any(
+            q in self._config_seqs for q, _ in self._queue
+        ):
+            return
+        kind, row = self._staged_config[0]
+        if kind == "add_learner":
+            if self.member[row] or self.learner[row]:
+                self._staged_config.pop(0)   # already in: the ladder moves
+                return
+            try:
+                self.add_learner(row)
+            except (RuntimeError, ValueError, Overloaded):
+                return   # no leader yet / admission shedding: retry later
+            self._staged_config.pop(0)
+        elif kind == "promote":
+            if self.member[row] or not self.learner[row]:
+                # already a voter, or the learner was removed or rolled
+                # back under the ladder: the step is moot
+                self._staged_config.pop(0)
+                return
+            try:
+                self.promote(row)
+            except LearnerLagging:
+                return                       # still catching up: retry
+            except (RuntimeError, ValueError, Overloaded):
+                return
+            self._staged_config.pop(0)
 
     def run_until_voter(self, r: int, limit: float = 600.0) -> None:
-        raise _not_ported("run_until_voter", "A9c")
+        """Run the event loop until row ``r`` is a voter (the end of
+        ``add_server``'s ladder, or of ``replace``'s)."""
+        end = self.clock.now + limit
+        while not self.member[r] and self.clock.now < end and self._q:
+            self.step_event()
+        assert self.member[r], (
+            f"replica {r} not promoted to voter within {limit}s "
+            f"(learner={bool(self.learner[r])}, "
+            f"staged={self._staged_config})"
+        )
 
-    def wipe(self, r: int) -> None:
-        raise _not_ported("wipe", "A9c")
+    def _note_config_ingest(self, idx: int, seq: int, term: int) -> None:
+        """A configuration entry reached the leader's log: the new
+        configuration is active from now (append-time activation, §4.1)."""
+        ch = self._config_seqs.pop(seq, None)   # consumed exactly once
+        if ch is None:
+            return
+        old, new = ch
+        self._pending_config = (idx, old, new, term)
+        self._apply_membership(np.array(new[0], bool),
+                               np.array(new[1], bool))
+
+    def _rollback_pending_config(self, r: int, reason: str) -> None:
+        """Roll the uncommitted change back to its old masks (the entry
+        left the relevant logs); its seq never reads durable."""
+        _, old_masks, _, _ = self._pending_config
+        self._pending_config = None
+        self._apply_membership(
+            np.array(old_masks[0], bool), np.array(old_masks[1], bool)
+        )
+        self.nodelog(r, reason)
+
+    def _apply_membership(self, new: np.ndarray,
+                          new_learner: np.ndarray) -> None:
+        added = new & ~self.member
+        removed = self.member & ~new
+        l_added = new_learner & ~self.learner
+        l_removed = self.learner & ~new_learner
+        self.member = new
+        self.learner = new_learner
+        self._steady = False
+        for p in np.flatnonzero(added):
+            p = int(p)
+            self.roles[p] = FOLLOWER
+            if l_removed[p]:
+                self.nodelog(p, "promoted from learner to voter")
+            else:
+                self.nodelog(p, "added to configuration")
+            self._arm_follower(p)
+        for p in np.flatnonzero(removed):
+            p = int(p)
+            self.nodelog(p, "removed from configuration")
+            # _wiped clears only when the removal commits (_advance_commit):
+            # an append-time activation can still roll back. A removed
+            # leader keeps serving until then.
+            if self.roles[p] != LEADER:
+                self.roles[p] = FOLLOWER
+        for p in np.flatnonzero(l_added):
+            p = int(p)
+            self.roles[p] = FOLLOWER
+            self.nodelog(p, "added to configuration as learner")
+            # learners arm no election timers: they never campaign
+        for p in np.flatnonzero(l_removed & ~added):
+            p = int(p)
+            self.nodelog(p, "learner removed from configuration")
 
     # --------------------------------------- device observability (A13)
     def attach_device_obs(self, obs=None, capacity: int = 4096):
@@ -764,14 +1356,69 @@ class RaftEngine:
         if self.leader_id == r:
             self.leader_id = None
         self.roles[r] = FOLLOWER
+        if self.lease is not None:
+            self.lease.break_(r)   # a dead row's grant is dead evidence
         self.nodelog(r, "killed")
 
     def recover(self, r: int) -> None:
+        if self._wiped[r]:
+            # a wiped voter whose identity has not durably left the
+            # configuration must not run again (it could vote twice in a
+            # term or un-ack committed data); the flag clears when a
+            # removal commits, and replace() is the way back. A quiet
+            # refusal, so seeded fault schedules stay executable.
+            self.nodelog(
+                r, "recover refused: wiped voter must rejoin via replace()"
+            )
+            return
         self._steady = False
         self.alive[r] = True
         self.roles[r] = FOLLOWER
         self.nodelog(r, "recovered")
         self._arm_follower(r)
+
+    def wipe(self, r: int) -> None:
+        """Destroy a dead row's durable and volatile state (log, term,
+        vote, match, commit): total disk loss. If the row was a voter it
+        is marked wiped, and ``recover`` refuses it until ``replace`` has
+        removed the old identity; it rejoins from nothing as a learner."""
+        if self.alive[r]:
+            raise ValueError(
+                f"replica {r} is alive; wipe() models disk loss of a "
+                "crashed server (fail() it first)"
+            )
+        st = self.state
+        w = st.words_per_entry
+        rows = torch.arange(self.cfg.rows, device=st.device) == r
+
+        def zeroed(v, fill=0):
+            return torch.where(rows, fill, v).to(v.dtype)
+
+        st.log_term[r].zero_()
+        st.log_payload[:, r * w:(r + 1) * w].zero_()
+        self.state = st.replace(
+            term=zeroed(st.term),
+            voted_for=zeroed(st.voted_for, NO_VOTE),
+            last_index=zeroed(st.last_index),
+            commit_index=zeroed(st.commit_index),
+            match_index=zeroed(st.match_index),
+            match_term=zeroed(st.match_term),
+        )
+        self.terms[r] = 0
+        self.lead_terms[r] = 0
+        self.roles[r] = FOLLOWER
+        self._ring_floor[r] = 1
+        self._match_stall[r] = 0
+        self._last_heard[r] = -1e18
+        self._persisted_terms[r] = 0
+        self._persisted_vf[r] = NO_VOTE
+        self._quorum_contact_at.pop(r, None)
+        self._lasts_snapshot = None
+        self._match_snapshot = None
+        self._steady = False
+        if self.member[r]:
+            self._wiped[r] = True
+        self.nodelog(r, "wiped (durable state destroyed)")
 
     def set_slow(self, r: int, is_slow: bool) -> None:
         """Induced-slow follower: receives traffic, appends nothing (stale
@@ -798,13 +1445,16 @@ class RaftEngine:
 
     def _reach(self, src: int) -> np.ndarray:
         """Effective alive mask for a REPLICATION step sourced at ``src``:
-        a live member, link-reachable from it (``src`` included)."""
-        return self.alive & self.connectivity[src] & self.member
+        a live voter or learner, link-reachable from it (``src``
+        included). Every quorum count intersects it with ``member``."""
+        return (
+            self.alive & self.connectivity[src]
+            & (self.member | self.learner)
+        )
 
     def _voter_reach(self, src: int) -> np.ndarray:
-        """Reachable live VOTERS from ``src`` — the mask every vote round
-        and CheckQuorum counts over (the same as ``_reach`` while the
-        configuration has no learners, ROADMAP A9c)."""
+        """Reachable live VOTERS from ``src``: the mask every vote round,
+        CheckQuorum and read-quorum check counts over."""
         return self.alive & self.connectivity[src] & self.member
 
     def _pre_lasts(self):
@@ -840,6 +1490,7 @@ class RaftEngine:
                 int(pre_lasts[q]) - self.state.capacity + 1,
             )
         self._lasts_snapshot = post
+        self._match_snapshot = None   # the step moved match state
 
     def partition(self, groups) -> None:
         """Install a link-level partition: replicas exchange messages only
@@ -1018,9 +1669,30 @@ class RaftEngine:
                 # watermark: drop the index->seq mappings of uncommitted
                 # entries (their seqs read as lost), and the ingest-buffer
                 # entries no replica's log still holds.
+                if (self._pending_config is not None
+                        and self._pending_config[0] > self.commit_watermark):
+                    # a server uses the latest configuration entry in its
+                    # log: a winner holding the in-flight entry (same
+                    # slot, same ingest term) keeps it; otherwise it rolls
+                    # back
+                    cidx, _, _, cterm = self._pending_config
+                    cslot = (cidx - 1) % self.state.capacity
+                    holds = bool(
+                        int(self._fetch(self.state.last_index)[r]) >= cidx
+                        and int(self._fetch(
+                            self.state.log_term)[r, cslot]) == cterm
+                    )
+                    if not holds:
+                        self._rollback_pending_config(
+                            r, "uncommitted configuration rolled back"
+                        )
+                kept_cfg = (
+                    self._pending_config[0]
+                    if self._pending_config is not None else None
+                )
                 self._seq_at_index = {
                     i: s for i, s in self._seq_at_index.items()
-                    if i <= self.commit_watermark
+                    if i <= self.commit_watermark or i == kept_cfg
                 }
                 above = sorted(
                     i for i in self._uncommitted if i > self.commit_watermark
@@ -1111,9 +1783,31 @@ class RaftEngine:
                 self.nodelog(r, "admission shedding OFF (delay back "
                                 "under target)")
         if routed:
+            # the staged ladders first: they queue at most one
+            # configuration entry, which the clamp below then handles
+            self._drive_staged_config(r)
             # before the batch is taken: it may prepend re-queued entries
             self._make_room_for_current_term(r, term)
         take = min(len(self._queue), B) if routed else 0
+        step_member = None
+        if take:
+            for qi, (qseq, _) in enumerate(self._queue[:take]):
+                ch = self._config_seqs.get(qseq)
+                if ch is not None:
+                    # append-time activation: the step that APPENDS a
+                    # configuration entry already counts its commits under
+                    # the new voter plane, so the batch ends at the entry;
+                    # if the ring cannot take the entry this tick it stays
+                    # queued and the step keeps the old mask
+                    last0 = int(self._fetch(self.state.last_index)[r])
+                    commit0 = int(self._fetch(self.state.commit_index)[r])
+                    room = self.state.capacity - (last0 - commit0)
+                    if room >= qi + 1:
+                        take = qi + 1
+                        step_member = np.array(ch[1][0], bool)
+                    else:
+                        take = qi    # everything before the entry only
+                    break
         if take == 0:
             if self._hb_payload is None:
                 self._hb_payload = torch.zeros(
@@ -1136,11 +1830,13 @@ class RaftEngine:
         pre_lasts = self._pre_lasts()
         floor, fpt = self._floor_attest(r)
         repair = self._repair_program()
+        member_arg = (self._dev_arr(step_member) if step_member is not None
+                      else self._member_arg())
         with _profiling.launch_annotation("leader_tick", self._tick_count):
             self.state, info = self.t.replicate(
                 self.state, payload, take, r, term, self._dev_arr(eff),
                 self._dev_arr(self.slow), repair=repair,
-                member=self._member_arg(),
+                member=member_arg,
                 repair_floor=floor, floor_prev_term=fpt,
                 term_floor=self._term_floor,
             )
@@ -1161,14 +1857,24 @@ class RaftEngine:
             last = int(self._fetch(self.state.last_index)[r])  # post-ingest
             base = last - ingested
             chunk = self._queue[:ingested]
-            self._seq_at_index.update(
-                zip(range(base + 1, last + 1), (s for s, _ in chunk))
-            )
-            self._uncommitted.update(
-                (base + 1 + i, (p, term)) for i, (_, p) in enumerate(chunk)
-            )
+            if self._config_seqs:
+                for i, (seq, p) in enumerate(chunk):
+                    idx = base + 1 + i
+                    self._seq_at_index[idx] = seq
+                    self._uncommitted[idx] = (p, term)
+                    self._note_config_ingest(idx, seq, term)
+            else:
+                self._seq_at_index.update(
+                    zip(range(base + 1, last + 1), (s for s, _ in chunk))
+                )
+                self._uncommitted.update(
+                    (base + 1 + i, (p, term))
+                    for i, (_, p) in enumerate(chunk)
+                )
             self._queue = self._queue[ingested:]
         self._advance_commit(r, int(info.commit_index))
+        # every successful tick round is also the §6.4 read confirmation
+        self._confirm_reads(r, term, eff, max_term)
         if routed:
             # heal bookkeeping and the shared steady flag belong to the
             # routed leader only
@@ -1190,11 +1896,22 @@ class RaftEngine:
         assert cut >= self.commit_watermark
         cap = self.state.capacity
         old_max = int(np.max(np.asarray(lasts)))
+        # an in-flight configuration entry in the truncated range leaves
+        # every log: roll the membership back and drop its bytes (its seq
+        # reads as lost) rather than re-queue them as a data entry
+        cfg_idx = None
+        if self._pending_config is not None and \
+                cut < self._pending_config[0] <= old_max:
+            cfg_idx = self._pending_config[0]
+            self._rollback_pending_config(
+                self.leader_id if self.leader_id is not None else 0,
+                "uncommitted configuration rolled back (entry truncated)",
+            )
         requeue = []
         for i in range(cut + 1, old_max + 1):
             ent = self._uncommitted.pop(i, None)
             seq = self._seq_at_index.pop(i, None)
-            if ent is not None and seq is not None:
+            if ent is not None and seq is not None and i != cfg_idx:
                 requeue.append((seq, ent[0]))
         self._queue = requeue + self._queue
         for q in range(self.cfg.rows):
@@ -1209,6 +1926,7 @@ class RaftEngine:
             match_index=torch.minimum(self.state.match_index, cut_t),
         )
         self._lasts_snapshot = None
+        self._match_snapshot = None
         self._steady = False
         # re-appends land at cut+1 under the current term
         self._term_floor = min(self._term_floor, cut + 1)
@@ -1246,10 +1964,21 @@ class RaftEngine:
         return not self._steady
 
     def _effective_match(self, term: int, match) -> np.ndarray:
-        """Host view of the step's verified match vector. The JAX engine
-        fills learner rows in from device state here; without learners
-        (ROADMAP A9c) it is the step's vector as is."""
-        return self._fetch(match)
+        """Host view of the step's verified match vector with the learner
+        rows filled in from the device state: ``RepInfo.match`` counts
+        voters only (a learner's ack never counts toward a commit), but
+        the heals and the steady flag need a learner's real progress.
+        One cached (match_index, match_term) fetch a step, and none
+        without learners."""
+        match = self._fetch(match)
+        if self.learner.any():
+            if self._match_snapshot is None:
+                self._match_snapshot = self._fetch(torch.stack(
+                    [self.state.match_index, self.state.match_term]))
+            mi_mt = self._match_snapshot
+            lr = self.learner
+            match[lr] = np.where(mi_mt[1][lr] == term, mi_mt[0][lr], 0)
+        return match
 
     def _update_steady(self, r: int, match, eff=None) -> None:
         """After a replicate step: every live non-slow reachable follower
@@ -1266,9 +1995,19 @@ class RaftEngine:
 
     def _advance_commit(self, r: int, commit: int) -> None:
         """Host bookkeeping for a device-reported commit advance: stamp
-        durable seqs, archive, prune buffers, feed the apply stream."""
+        durable seqs, archive, prune buffers, commit a pending
+        configuration, feed the apply stream."""
+        if commit > self._row_commit[r]:
+            # r's own view of the commit index, kept for every round:
+            # lease reads serve the leader's local knowledge
+            self._row_commit[r] = commit
         if commit <= self.commit_watermark:
             return
+        if (self.roles[r] == LEADER
+                and int(self.terms[r]) == int(self.lead_terms[r])):
+            # an advance riding r's own round commits a current-term
+            # entry: the §6.4 lease precondition
+            self._lease_ok_term[r] = int(self.lead_terms[r])
         old_wm = self.commit_watermark
         now = self.clock.now
         sq_get = self._seq_at_index.get
@@ -1281,6 +2020,20 @@ class RaftEngine:
         self._archive_committed(r, self.commit_watermark + 1, commit)
         self.commit_watermark = commit
         self.nodelog(r, f"commit index changed to {commit}")
+        if self._pending_config is not None and self._pending_config[0] <= commit:
+            idx = self._pending_config[0]
+            self._pending_config = None
+            self.nodelog(r, f"configuration committed at {idx}")
+            # a wiped voter's identity is gone only now that its removal
+            # is durable: it may restart (as a fresh learner)
+            self._wiped &= self.member
+            lead = self.leader_id
+            if lead is not None and not self.member[lead]:
+                # the leader removed itself: with the change durable it
+                # steps down (§4.2.2) and the remaining voters elect
+                self.roles[lead] = FOLLOWER
+                self.leader_id = None
+                self.nodelog(lead, "step down to follower (removed)")
         for idx in range(old_wm + 1, commit + 1):
             self._uncommitted.pop(idx, None)
             self._seq_at_index.pop(idx, None)
@@ -1296,9 +2049,11 @@ class RaftEngine:
         #   against its own leadership (§9.6 stickiness)
         for p in range(self.cfg.rows):
             if p == r or not self.alive[p] or not self.connectivity[r, p]\
-                    or not self.member[p]:
+                    or not (self.member[p] or self.learner[p]):
                 continue   # unreachable replicas hear nothing
             self._last_heard[p] = self.clock.now   # §9.6 stickiness clock
+            if not self.member[p]:
+                continue   # learners run no election timers
             if self.roles[p] == FOLLOWER:
                 self._arm_follower(p)
             elif self.roles[p] == CANDIDATE:
@@ -1418,6 +2173,7 @@ class RaftEngine:
             reached = chi
         if reached is not None:
             self._lasts_snapshot = None  # last_index moved outside a step
+            self._match_snapshot = None  # ...and so did match_index
             self.nodelog(replica, f"snapshot chunk installed to {reached}")
             if reached >= hi:
                 self._shipper.finish(replica)
@@ -1506,6 +2262,7 @@ class RaftEngine:
                         self.leader_term, hi_rec, self.cfg.batch_size,
                     )
                     self._lasts_snapshot = None
+                    self._match_snapshot = None
                     self.nodelog(p, f"healed by reconstruction to {hi_rec}")
                 except ValueError:
                     # below every donor's ring horizon: stream a snapshot
@@ -1549,6 +2306,7 @@ class RaftEngine:
                     self.cfg.batch_size,
                 )
                 self._lasts_snapshot = None
+                self._match_snapshot = None
                 self.nodelog(p, f"suffix re-served to {leader_last}")
 
     def _ec_abandon_lost_suffix(self, leader: int, missing) -> bool:
@@ -1852,10 +2610,6 @@ class RaftEngine:
                 f"checkpoint entry size {ck.snap.entries.shape[1]} != "
                 f"config entry_bytes {cfg.entry_bytes}"
             )
-        if (ck.member is not None and not ck.member.all()) or (
-                ck.learner is not None and ck.learner.any()):
-            raise _not_ported("restoring a changed configuration (removed "
-                              "voters or learners)", "A9c")
         eng = cls(cfg, transport, trace=trace, recorder=recorder)
         snap = ck.snap
         if snap.last_index >= snap.base_index:
@@ -1889,13 +2643,16 @@ class RaftEngine:
         if vote_log is not None:
             eng._attach_votelog(vote_log)
         if ck.member is not None and ck.member.shape == (cfg.rows,):
-            # the committed configuration outranks cfg.n_replicas
+            # the committed configuration outranks cfg.n_replicas: a row
+            # removed before the checkpoint does not return as a voter
             eng.member = ck.member.copy()
             for r in range(cfg.rows):
                 # rows that joined after the initial config need timers
                 if eng.member[r] and r >= cfg.n_replicas:
                     eng._arm_follower(r)
         if ck.learner is not None and ck.learner.shape == (cfg.rows,):
+            # learners resume as learners (no timers); their catch-up
+            # restarts from the restored snapshot
             eng.learner = ck.learner.copy() & ~eng.member
         for r in range(cfg.rows):
             if eng.member[r]:

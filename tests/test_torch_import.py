@@ -36,6 +36,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import raft_tpu_torch.transport.launch\n"
         "import raft_tpu_torch.raft, raft_tpu_torch.raft.engine\n"
         "import raft_tpu_torch.raft.ledger, raft_tpu_torch.storm\n"
+        "import raft_tpu_torch.raft.lease, raft_tpu_torch.examples\n"
+        "import raft_tpu_torch.examples.kv, raft_tpu_torch.examples.sessions\n"
         "import raft_tpu_torch.admission, raft_tpu_torch.admission.retry\n"
         "import raft_tpu_torch.faults, raft_tpu_torch.faults.plan\n"
         "import raft_tpu_torch.ckpt, raft_tpu_torch.ckpt.ship\n"

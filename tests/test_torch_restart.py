@@ -158,20 +158,6 @@ def test_restore_rejects_mismatched_config(tmp_path):
         TEngine.restore(TConfig(**wide), path, transports(wide)[1])
 
 
-def test_restore_of_a_changed_configuration_raises(tmp_path):
-    """Learners and removed voters are ROADMAP A9c: a checkpoint that
-    carries them is refused, naming the item."""
-    path = str(tmp_path / "learner.npz")
-    JCheckpoint(
-        snap=TSnapshot(1, 0, np.zeros((0, 16), np.uint8),
-                       np.zeros(0, np.int32)),
-        terms=np.zeros(3, np.int32), voted_for=np.full(3, -1, np.int32),
-        learner=np.array([False, False, True])).save(path)
-    kw = dict(PLAIN, transport="single")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9c"):
-        TEngine.restore(TConfig(**kw), path, transports(kw)[1])
-
-
 def test_empty_checkpoint_round_trips(tmp_path):
     p = Pair(9, **PLAIN)
     p2 = Pair(9, restore_from=save_both(p, tmp_path), **PLAIN)
