@@ -60,7 +60,26 @@ Then the engine's tick loop (``raft_tpu_torch.raft.RaftEngine``):
     to the input's, and K1-K4 must all have launched; prints entries/s on
     the host clock, CUDA-event ms per leader tick, and a profiled window
     of ticks (kernels per tick, device idle share);
-5c. runs BASELINE config 5, ``bench.py``'s ``bench_storm`` (3 replicas,
+5c. runs K-tick fusion through the engine (``engine_fused_path``): first
+    ``replicate_fused`` (one replay of a captured CUDA graph of K ticks)
+    against ``fused_steady_scan`` run uncaptured on the card at the north
+    star's shape, K = 8 and 32 (a full window across the ring seam,
+    ``n_run < K``, an escape mid-window, an escape on a follower's raised
+    term, ``halted0``, two launches pipelined, a launch after an unbooked
+    escape, a second launch at a size captured between the two), every
+    leaf and output equal; then the north star through ``RaftEngine`` at
+    ``fuse_k`` 1, 8 and 32 on one schedule (an election, 65 536 entries in
+    bursts of 8 192 drained by ``run_for``, idle heartbeats, the leader
+    failed, a re-election and 4 096 more), every burst read back through
+    ``committed_entries`` and every live follower, the apply stream equal
+    to the input's, and K = 8 and 32 equal to K = 1 in nodelog lines,
+    commit stamps, terms, state and read-backs; then the same schedule at
+    a 4 096-slot ring with ``fuse_k`` 8 on the card and on the CPU,
+    equal; prints ms per leader tick and entries/s of the drain per K,
+    the graphs captured and replayed, a profiled burst (device busy, idle
+    share, kernels per launch) and the ``HostProfiler``'s phases per
+    leader tick;
+5d. runs BASELINE config 5, ``bench.py``'s ``bench_storm`` (3 replicas,
     256-byte entries, B = 64, C = 4096, seed 2; both variants), through
     the engine on the card and again on the CPU: the nodelog lines,
     terms, commit latencies, committed bytes and state must be equal;
@@ -219,6 +238,7 @@ It needs the repository checkout around it and a CUDA device.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import statistics
@@ -1364,6 +1384,460 @@ def phase_engine_main_path(cfg, dev):
                 "read_backs": reads, "launches": counters,
                 "launches_in_ticks": tick_counts,
                 "nodelog": "off (no trace attached)"})
+    emit(res)
+    return res
+
+
+# ------------------------------------------------ 5c. the fused engine
+FUSED_KS = (8, 32)            # fuse_k of the fused runs (K = 1 beside them)
+FUSED_BURST = 8192            # entries per burst: 8 full batches
+FUSED_BURSTS = 8              # 65 536 entries
+FUSED_TIMED_BURSTS = 6        # the host-clock drain; burst 6 runs under the
+#                               HostProfiler, burst 7 under torch.profiler
+FUSED_AFTER = 4096            # committed after the leader failover
+FUSED_SMALL_CAPACITY = 4096   # the card-vs-CPU run's ring
+
+
+def fused_config(capacity, fuse_k):
+    from raft_tpu_torch.config import RaftConfig
+
+    return RaftConfig(n_replicas=3, entry_bytes=256, batch_size=1024,
+                      log_capacity=capacity, transport="single",
+                      fuse_k=fuse_k)
+
+
+def host_leaves(state):
+    """Every state leaf as a host copy (never a view of a live tensor)."""
+    from raft_tpu_torch.core.state import FIELDS
+
+    return {f: getattr(state, f).cpu().numpy().copy() for f in FIELDS}
+
+
+def fused_outputs(state, infos, esc, ran, halted):
+    out = host_leaves(state)
+    for f in infos._fields:
+        out[f"info.{f}"] = getattr(infos, f).cpu().numpy().copy()
+    out["escaped"] = esc.cpu().numpy().copy()
+    out["ran"] = ran.cpu().numpy().copy()
+    out["halted"] = np.array(bool(halted))
+    for k in ("escaped", "ran"):
+        check(out[k].dtype == np.int32, f"{k} dtype {out[k].dtype}")
+    return out
+
+
+def same_outputs(a, b, what):
+    check(a.keys() == b.keys(), f"{what}: outputs {sorted(a)} vs {sorted(b)}")
+    for k in a:
+        check(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]),
+              f"{what}: {k} differs (graph replay vs the uncaptured loop)")
+
+
+def fused_graph_vs_loop(cfg, dev):
+    """``SingleDeviceTransport.replicate_fused`` (one replay of the captured
+    graph) against ``fused_steady_scan`` run uncaptured on the card, at the
+    north star's shape with K = 8 and 32: a full window crossing the ring
+    seam, ``n_run < K``, an escape mid-window (a quorum lost after three
+    heartbeats), an escape at the first tick (a follower's term raised on
+    the device), ``halted0`` set, two launches pipelined, a launch after
+    an unbooked escape fed the first launch's device ``halted``, a
+    second launch at a size first captured between the two, a launch on
+    new ring tensors (recaptured), and the bool and packed member masks.
+    Every state leaf, infos, ``escaped``, ``ran`` and ``halted`` must be
+    equal."""
+    import torch
+
+    from raft_tpu_torch.core.comm import SingleDeviceComm
+    from raft_tpu_torch.core.step import fused_steady_scan
+    from raft_tpu_torch.transport.device import SingleDeviceTransport
+
+    rng = np.random.default_rng(SEED + 60)
+    B, C, W, R = (cfg.batch_size, cfg.log_capacity, cfg.shard_words,
+                  cfg.rows)
+    last = C - 3 * B + 5                       # a window crosses the seam
+    base = steady_state(cfg, dev, last, rng=rng)
+    gst, lst = base.clone(), base.clone()       # rings kept for the run
+    tr = SingleDeviceTransport(cfg, device=dev)
+    comm = SingleDeviceComm(R)
+    full = np.ones(R, bool)
+    lone = np.array([True] + [False] * (R - 1))
+    slow = np.zeros(R, bool)
+    floor = last - C + 1
+    fpt = 1
+    cases = []
+
+    def reset(st, term_raise=False):
+        from raft_tpu_torch.core.state import FIELDS
+
+        for f in FIELDS:
+            getattr(st, f).copy_(getattr(base, f))
+        if term_raise:
+            st.term[R - 1] = 99
+
+    def launch(st_g, st_l, staging, start, counts, n_run, h_g, h_l, alive,
+               member=None, tr=tr, comm=comm, cfg=cfg, slow=slow):
+        g = tr.replicate_fused(st_g, staging, start, counts, n_run, h_g, 0,
+                               1, alive, slow, member=member,
+                               repair_floor=floor, floor_prev_term=fpt)
+        lo = fused_steady_scan(
+            comm, cfg.commit_quorum, st_l, staging,
+            torch.tensor(start, dtype=torch.int32, device=dev),
+            torch.from_numpy(counts).to(dev),
+            torch.tensor(n_run, dtype=torch.int32, device=dev),
+            h_l if isinstance(h_l, torch.Tensor)
+            else torch.tensor(h_l, device=dev),
+            torch.tensor(0, dtype=torch.int32, device=dev),
+            torch.tensor(1, dtype=torch.int32, device=dev),
+            torch.from_numpy(alive).to(dev), torch.from_numpy(slow).to(dev),
+            torch.tensor(fpt, dtype=torch.int32, device=dev),
+            torch.tensor(floor, dtype=torch.int32, device=dev),
+            None if member is None else torch.from_numpy(member).to(dev))
+        return g, lo
+
+    for K in FUSED_KS:
+        S = 2 * K
+        staging = torch.from_numpy(rng.integers(
+            -2**31, 2**31, (S, B, W), dtype=np.int64).astype(np.int32)).to(
+                dev)
+        start = S - 3                           # windows wrap the staging
+        fullc = np.full(K, B, np.int32)
+        part = fullc.copy()
+        part[K - 4] = B - 100
+        mid = fullc.copy()
+        mid[:3] = 0
+        singles = [("full", fullc, K, False, full, False),
+                   ("partial_n_run", part, K - 3, False, full, False),
+                   ("escape_mid_window", mid, K, False, lone, False),
+                   ("escape_term_raised", fullc, K, False, full, True),
+                   ("halted0", fullc, K, True, full, False)]
+        for name, counts, n_run, h0, alive, raise_ in singles:
+            reset(gst, raise_)
+            reset(lst, raise_)
+            g, lo = launch(gst, lst, staging, start, counts, n_run, h0, h0,
+                           alive)
+            a, b = fused_outputs(*g), fused_outputs(*lo)
+            same_outputs(a, b, f"K={K} {name}")
+            cases.append({"K": K, "case": name, "ran": int(b["ran"].sum()),
+                          "escaped_at": (int(np.argmax(b["escaped"]))
+                                         if b["escaped"].any() else None),
+                          "equal": True})
+        for name, alive1 in (("pipelined", full),
+                             ("pipelined_after_escape", lone)):
+            reset(gst)
+            reset(lst)
+            g1, l1 = launch(gst, lst, staging, start, fullc, K, False,
+                            False, alive1)
+            g2, l2 = launch(g1[0], l1[0], staging, (start + K) % S, fullc,
+                            K, g1[4], l1[4], full)
+            # launch 1's outputs are read only after launch 2 replayed
+            a1, b1 = fused_outputs(*g1), fused_outputs(*l1)
+            a2, b2 = fused_outputs(*g2), fused_outputs(*l2)
+            for k in list(a1):
+                if "." not in k and k not in ("escaped", "ran", "halted"):
+                    del a1[k], b1[k]     # the state: consumed by launch 2
+            same_outputs(a1, b1, f"K={K} {name}, launch 1")
+            same_outputs(a2, b2, f"K={K} {name}, launch 2")
+            cases.append({"K": K, "case": name,
+                          "ran": [int(b1["ran"].sum()),
+                                  int(b2["ran"].sum())], "equal": True})
+        # a window's second launch at a size not captured yet: its
+        # capture runs between the two launches, and the halted flag the
+        # first left must survive the warm-up
+        reset(gst)
+        reset(lst)
+        half = np.full(K // 2, B, np.int32)
+        g1, l1 = launch(gst, lst, staging, start, fullc, K, False, False,
+                        full)
+        g2, l2 = launch(g1[0], l1[0], staging, (start + K) % S, half,
+                        K // 2, g1[4], l1[4], full)
+        a1, b1 = fused_outputs(*g1), fused_outputs(*l1)
+        a2, b2 = fused_outputs(*g2), fused_outputs(*l2)
+        same_outputs({k: v for k, v in a1.items() if k in b1
+                      and ("." in k or k in ("escaped", "ran", "halted"))},
+                     {k: v for k, v in b1.items()
+                      if "." in k or k in ("escaped", "ran", "halted")},
+                     f"K={K} new size, launch 1")
+        same_outputs(a2, b2, f"K={K} new size, launch 2")
+        check(int(b2["ran"].sum()) == K // 2,
+              f"K={K}: the second launch did not run")
+        cases.append({"K": K, "case": "pipelined_into_a_new_size",
+                      "ran": [K, K // 2], "equal": True})
+    # new ring tensors (as after a restore): the transport drops its
+    # graphs for that shape and captures anew, never copying the ring
+    rec0 = tr.graphs.recaptures
+    staging = staging[:16].clone()
+    g, lo = launch(base.clone(), base.clone(), staging, 3,
+                   np.full(8, B, np.int32), 8, False, False, full)
+    same_outputs(fused_outputs(*g), fused_outputs(*lo),
+                 "K=8 on new rings")
+    check(tr.graphs.recaptures == rec0 + 1,
+          f"new rings: {tr.graphs.recaptures - rec0} recaptures")
+    cases.append({"K": 8, "case": "recapture_on_new_rings", "ran": 8,
+                  "equal": True})
+    # member modes (the graph key's third part): 3 voters of 5 rows, the
+    # voter plane as a bool mask and packed with a learner on row 3
+    from raft_tpu_torch.core.state import pack_membership
+
+    mcfg = dataclasses.replace(fused_config(4096, 1), max_replicas=5)
+    mtr = SingleDeviceTransport(mcfg, device=dev)
+    mbase = steady_state(mcfg, dev, 3 * B + 11, rng=rng)
+    floor, fpt = 1, 0
+    voters = np.array([True, True, True, False, False])
+    learner = np.array([False, False, False, True, False])
+    for name, member in (("member_bool", voters),
+                         ("member_packed", pack_membership(voters,
+                                                           learner))):
+        mg, ml = mbase.clone(), mbase.clone()
+        stg = staging[:4]
+        counts = np.full(8, B, np.int32)
+        g, lo = launch(mg, ml, stg, 1, counts, 8, False, False,
+                       np.array([True, True, False, True, True]),
+                       member=member, tr=mtr, comm=SingleDeviceComm(5),
+                       cfg=mcfg, slow=np.zeros(5, bool))
+        a, b = fused_outputs(*g), fused_outputs(*lo)
+        same_outputs(a, b, f"K=8 {name}")
+        check(int(b["info.commit_index"][-1]) == 3 * B + 11 + 8 * B,
+              f"{name}: the window did not commit")
+        cases.append({"K": 8, "case": name, "ran": int(b["ran"].sum()),
+                      "equal": True})
+    torch.cuda.synchronize()
+    g = tr.graphs
+    return {"cases": cases, "graphs_captured": g.captures,
+            "replays": g.replays, "recaptures": g.recaptures,
+            "shape": {"R": R, "B": B, "C": C, "W": W, "last": last}}
+
+
+def fused_engine_run(cfg, dev, timed):
+    """The fused phase's schedule through ``RaftEngine`` at ``cfg`` on
+    ``dev``: an election; 65 536 entries in bursts of 8 192, each drained
+    by ``run_for`` and read back (its last C entries when the ring is
+    smaller) through ``committed_entries`` and every live follower; idle
+    heartbeats; the leader failed, a re-election and 4 096 more. Bursts
+    0-5 are timed on the host clock, burst 6 runs under a
+    ``HostProfiler``, and with ``timed`` burst 7 under torch.profiler.
+    Returns what the K runs and the two devices are compared on, and what
+    is recorded."""
+    import torch
+
+    from raft_tpu_torch.obs import HostProfiler
+    from raft_tpu_torch.raft import RaftEngine
+    from raft_tpu_torch.transport.device import SingleDeviceTransport
+
+    cuda = torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    B, C = cfg.batch_size, cfg.log_capacity
+    hb = cfg.heartbeat_period
+    tr = SingleDeviceTransport(cfg, device=dev)
+    lines = []
+    e = RaftEngine(cfg, tr, trace=lines.append)
+    inp = EngineInput(cfg)
+    h_apply = hashlib.sha256()
+    applied = [0]
+
+    def apply(idx, payload):
+        check(idx == applied[0] + 1, "the apply stream skipped an index")
+        applied[0] = idx
+        h_apply.update(payload)
+
+    e.register_apply(apply)
+    windows = [0]
+    if e._fused_driver is not None:
+        run_window = e._fused_driver._run_window
+
+        def counted_window(*a):
+            windows[0] += 1
+            return run_window(*a)
+
+        e._fused_driver._run_window = counted_window
+    res = {"fuse_k": e.fuse_k, "capacity": C, "device": str(dev)}
+    e.run_until_leader()
+    reads = []
+
+    def read_back(hi, what):
+        lo = max(hi - C + 1, hi - FUSED_BURST + 1, 1)
+        reads.append(engine_read_back(e, inp, lo, hi, what))
+
+    wall = 0.0
+    ticks = 0
+    capture_in_drain = 0.0
+    burst_ms = []
+
+    def capture_s():
+        return tr.graphs.capture_s if tr.graphs is not None else 0.0
+
+    for b in range(FUSED_BURSTS):
+        c0 = capture_s()
+        seqs = [e.submit(p) for p in inp.take(FUSED_BURST)]
+        t0n, f0, w0 = e._tick_count, e.fused_launches, windows[0]
+        if b == FUSED_TIMED_BURSTS:
+            e.hostprof = hp = HostProfiler()
+        sync()
+        t0 = time.perf_counter()
+        if b == FUSED_TIMED_BURSTS + 1 and timed:
+            events, pwall = _device_events(
+                lambda: e.run_for((FUSED_BURST // B + 2) * hb), 1)
+        else:
+            e.run_for((FUSED_BURST // B + 2) * hb)
+        sync()
+        dt = time.perf_counter() - t0
+        burst_ms.append(dt * 1e3)
+        check(e.is_durable(seqs[-1]),
+              f"fuse_k={e.fuse_k}: burst {b} did not drain")
+        if b < FUSED_TIMED_BURSTS:
+            wall += dt
+            ticks += e._tick_count - t0n
+            capture_in_drain += capture_s() - c0
+        elif b == FUSED_TIMED_BURSTS:
+            e.hostprof = None
+            lt = e._tick_count - t0n
+            res["hostprof"] = {
+                "leader_ticks": lt, "events": hp.ticks,
+                "us_per_leader_tick": {p: s / lt * 1e6 for p, s in
+                                       sorted(hp.totals().items())},
+                "us_per_event": hp.us_per_tick(),
+                "note": "one event is one popped heap entry: a whole "
+                        "fused window, or one tick"}
+        elif timed:
+            launches = e.fused_launches - f0
+            wins = windows[0] - w0
+            lt = e._tick_count - t0n
+            kern = [n for n, _ in events
+                    if "emcpy" not in n and "emset" not in n]
+            busy = sum(us for _, us in events)
+            by_name = {}
+            for n, us in events:
+                k = kernel_of(n) or ("copy" if "emcpy" in n else "other")
+                by_name[k] = by_name.get(k, 0.0) + us
+            res["profiled_burst"] = {
+                "entries": FUSED_BURST, "leader_ticks": lt,
+                "fused_windows": wins, "fused_launches": launches,
+                "wall_ms": pwall * 1e3,
+                "device_busy_ms": busy / 1e3,
+                "device_idle_share": 1.0 - busy / (pwall * 1e6),
+                "kernels": len(kern), "device_ops": len(events),
+                "kernels_per_leader_tick": len(kern) / max(lt, 1),
+                "kernels_per_fused_launch": (len(kern) / launches
+                                             if launches else None),
+                "kernels_per_fused_window": (len(kern) / wins
+                                             if wins else None),
+                "device_ms_by_kind": {k: v / 1e3
+                                      for k, v in by_name.items()}}
+        read_back(e.commit_watermark, f"fuse_k={e.fuse_k} burst {b}")
+    res["drain"] = {
+        "entries": FUSED_TIMED_BURSTS * FUSED_BURST, "leader_ticks": ticks,
+        "wall_s": wall, "entries_per_s_wall": FUSED_TIMED_BURSTS
+        * FUSED_BURST / wall, "ms_per_leader_tick": wall / ticks * 1e3,
+        "ms_per_leader_tick_without_captures":
+            (wall - capture_in_drain) / ticks * 1e3,
+        "ms_per_burst": burst_ms,
+        "method": "host clock around run_for, synchronized at both ends; "
+                  "the drain includes the first captures of the graphs "
+                  "its windows need"}
+    e.run_for(20 * hb)                           # idle heartbeats
+    old = e.leader_id
+    e.fail(old)
+    e.run_until_leader()
+    seqs = [e.submit(p) for p in inp.take(FUSED_AFTER)]
+    e.run_for((FUSED_AFTER // B + 4) * hb)
+    check(e.is_durable(seqs[-1]),
+          f"fuse_k={e.fuse_k}: the entries after the failover did not "
+          "commit")
+    read_back(e.commit_watermark, f"fuse_k={e.fuse_k} after failover")
+    total = FUSED_BURSTS * FUSED_BURST + FUSED_AFTER
+    check(e.commit_watermark == total and applied[0] == total,
+          f"fuse_k={e.fuse_k}: commit {e.commit_watermark}, applied "
+          f"{applied[0]}, submitted {total}")
+    check(h_apply.hexdigest() == inp.h.hexdigest(),
+          f"fuse_k={e.fuse_k}: the apply stream differs from the input")
+    sync()
+    res.update({
+        "failover": {"failed": old, "new_leader": e.leader_id,
+                     "term": int(e.leader_term)},
+        "fused_windows": windows[0], "fused_launches": e.fused_launches,
+        "fused_ticks": e.fused_ticks, "leader_ticks": e._tick_count,
+        "nodelog_lines": len(lines),
+        "sha256_apply_stream": h_apply.hexdigest(), "read_backs": len(reads),
+    })
+    if tr.graphs is not None:
+        res["graphs"] = {"captured": tr.graphs.captures,
+                         "replays": tr.graphs.replays,
+                         "recaptures": tr.graphs.recaptures,
+                         "k1_launches": tr.graphs.k1_launches,
+                         "capture_s": tr.graphs.capture_s,
+                         "capture_s_in_drain": capture_in_drain}
+    keep = {"lines": lines, "commit_time": dict(e.commit_time),
+            "terms": e.terms.tolist(), "roles": list(e.roles),
+            "state": host_leaves(e.state), "reads": reads}
+    return res, keep
+
+
+def same_runs(a, b, what):
+    """Two runs of the schedule: equal nodelog lines, commit stamps, terms,
+    roles, state leaves and read-backs."""
+    check(a["lines"] == b["lines"], f"{what}: nodelog lines differ")
+    check(a["commit_time"] == b["commit_time"],
+          f"{what}: commit stamps differ")
+    check(a["terms"] == b["terms"] and a["roles"] == b["roles"],
+          f"{what}: terms or roles differ")
+    for f in a["state"]:
+        check(np.array_equal(a["state"][f], b["state"][f]),
+              f"{what}: state.{f} differs")
+    check(a["reads"] == b["reads"], f"{what}: read-backs differ")
+
+
+def phase_engine_fused_path(dev):
+    """K-tick fusion through ``RaftEngine`` on the card: the graph against
+    the uncaptured loop (``fused_graph_vs_loop``); the north star's
+    deployment at C = 32 768 with ``fuse_k`` 1, 8 and 32 on one schedule
+    (``fused_engine_run``: every burst read back, the apply stream equal
+    to the input's, and the K > 1 runs equal to K = 1's in nodelog lines,
+    commit stamps, terms, state and read-backs, with fused launches); the
+    same schedule at C = 4 096 and ``fuse_k`` 8 on the card and on the
+    CPU, equal. Recorded, not gated: ms per leader tick and entries/s of
+    the drain per K, a profiled burst (device busy, idle share, kernels
+    per launch), the graphs captured and replayed, and the HostProfiler's
+    phases per leader tick."""
+    import torch
+
+    t_phase = time.perf_counter()
+    res = {"phase": "engine_fused_path"}
+    res["graph_vs_loop"] = fused_graph_vs_loop(fused_config(
+        STEPS_PER_FLIGHT * 1024, 1), dev)
+    zero_counters(dev)
+    runs, keeps = {}, {}
+    for k in (1,) + FUSED_KS:
+        runs[k], keeps[k] = fused_engine_run(
+            fused_config(STEPS_PER_FLIGHT * 1024, k), dev, timed=True)
+    res["launches"] = read_counters(dev)
+    for k in FUSED_KS:
+        same_runs(keeps[1], keeps[k], f"fuse_k={k} against fuse_k=1")
+        check(runs[k]["fused_launches"] > 0,
+              f"fuse_k={k}: no fused launch")
+        check(runs[k]["graphs"]["k1_launches"] > 0,
+              f"fuse_k={k}: no K1 launch from a graph replay")
+    check(runs[1]["fused_launches"] == 0, "fuse_k=1 fused")
+    res["runs"] = {str(k): v for k, v in runs.items()}
+    res["fused_k1_launches"] = sum(runs[k]["graphs"]["k1_launches"]
+                                   for k in FUSED_KS)
+    zero_counters(dev)
+    small = fused_config(FUSED_SMALL_CAPACITY, 8)
+    t0 = time.perf_counter()
+    card, card_keep = fused_engine_run(small, dev, timed=False)
+    t1 = time.perf_counter()
+    res["card_equals_cpu_launches"] = read_counters(dev)
+    cpu, cpu_keep = fused_engine_run(small, "cpu", timed=False)
+    t2 = time.perf_counter()
+    same_runs(card_keep, cpu_keep, "C = 4 096, fuse_k = 8: card vs CPU")
+    check(card["fused_launches"] == cpu["fused_launches"] > 0
+          and card["fused_ticks"] == cpu["fused_ticks"],
+          "card vs CPU: fused launches or ticks differ")
+    res["card_equals_cpu"] = {
+        "capacity": FUSED_SMALL_CAPACITY, "fuse_k": 8, "equal": True,
+        "fused_launches": card["fused_launches"],
+        "fused_ticks": card["fused_ticks"],
+        "nodelog_lines": card["nodelog_lines"],
+        "card_s": t1 - t0, "cpu_s": t2 - t1}
+    torch.cuda.synchronize()
+    res["phase_s"] = time.perf_counter() - t_phase
     emit(res)
     return res
 
@@ -5394,6 +5868,7 @@ def main() -> int:
     timing = phase_timing(cfg, dev, card_line)
     c4_main = phase_config4_main_path(dev)
     engine_main = phase_engine_main_path(cfg, dev)
+    engine_fused = phase_engine_fused_path(dev)
     c5 = phase_config5_storm(dev)
     ecfg = ec_config()
     ec_errs = phase_ec_kernels(ecfg, dev)
@@ -5431,6 +5906,14 @@ def main() -> int:
                 # launched by the engine: its north-star path, and K1/K2
                 # in config 5's storm on the card
                 by_path["engine"] = engine_main["launches"][key]
+                if key in ("K1", "K2"):
+                    # the engine with K-tick fusion (K1 in the replayed
+                    # graphs, K1/K2 in the ticks around the windows), and
+                    # its reduced run on the card against the CPU
+                    by_path["engine_fused"] = \
+                        engine_fused["launches"][key]
+                    by_path["engine_fused_card_equals_cpu"] = \
+                        engine_fused["card_equals_cpu_launches"][key]
                 if key in ("K1", "K2"):
                     by_path["config5"] = c5["launches"][key]
                 # the replicated KV store under member masks, and its

@@ -1,0 +1,293 @@
+"""The fused steady window as CUDA graphs (this module has no counterpart
+in the JAX package: it plays the part of the JAX transport's ``jax.jit``
+of the K-tick scan, ``transport/device.py:56-76`` ``_fused_program``).
+
+``core.step.fused_steady_scan`` is a Python loop of K general-path ticks,
+each of which launches kernel K1 once and a few dozen small torch ops.
+Nothing in it reads the device back, so the whole loop is captured once
+into a ``torch.cuda.CUDAGraph`` and each fused launch of the engine is one
+replay.
+
+- **Cache.** :class:`FusedGraphs` (one per transport) keeps one graph per
+  (member mode, launch size K, B, W, S), all in one shared graph pool;
+  its rows and commit quorum are the transport's. The engine's window
+  planner picks power-of-two launch sizes up to ``fuse_k``, so about
+  log2(K) graphs are captured.
+- **Static state.** A graph reads and writes fixed addresses: the
+  cluster's own ring tensors (K1 writes them in place), the staging
+  buffer, and static copies of the six small state leaves. A replay
+  first copies the caller's small leaves into the static ones when they
+  are other tensors, and the captured region ends by copying the final
+  small leaves back into them; the returned state holds the static
+  leaves (the next replay overwrites them, as every call consumes the
+  state it is given). A ring or staging buffer that has changed identity
+  (a restore, or anything else that hands the engine new ring tensors)
+  drops the graphs and captures anew, never a silent copy of the ring.
+- **Per-launch inputs.** start slot, ``n_run``, the halted mode, leader,
+  term, repair floor, its attested term, the K counts and the
+  alive/slow/member planes are one int32 host array, uploaded with one
+  asynchronous copy from a ring of pinned buffers (a slot is reused only
+  after its copy's event has completed). They are host values (the
+  engine passes Python numbers and numpy masks); a tensor is read back
+  to the host first.
+- **Warm-up.** Before capture the loop runs once, eagerly on a side
+  stream, with every tick the masked no-op (halted), so the state passes
+  through bit for bit; the device halted flag it sets is put back, since
+  a launch of another size earlier in the same window may have left it
+  for the launch being captured.
+- **Pipelining.** The outputs live at fixed addresses in the pool, so
+  each replay is followed by one stream-ordered clone of its packed
+  output; the returned infos, ``escaped``, ``ran`` and ``halted`` are
+  views of that clone. ``halted`` also stays on the device: passing the
+  last returned ``halted`` back as ``halted0`` reads it there, with no
+  host round trip.
+- **Launch counts.** Capture launches nothing, so K1's count
+  (``core.ring_cuda.LAUNCHES``) is restored after capture, and each
+  replay adds the K1 launches the graph holds.
+- **No fallback.** A capture or replay that fails raises; nothing falls
+  back to the eager loop.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from raft_tpu_torch.core import ring_cuda
+from raft_tpu_torch.core.comm import SingleDeviceComm
+from raft_tpu_torch.core.state import ReplicaState
+from raft_tpu_torch.core.step import RepInfo, fused_steady_scan
+
+#: the six small state leaves (the rings are captured in place)
+SMALL = ("term", "voted_for", "last_index", "commit_index", "match_index",
+         "match_term")
+#: the scalar head of the packed inputs, then counts[K], alive[R],
+#: slow[R] and (with a member mode) member[R]
+HEAD = ("start_slot", "n_run", "halted", "leader", "leader_term",
+        "repair_floor", "floor_prev_term")
+_H = {name: i for i, name in enumerate(HEAD)}
+#: the ``halted`` input: 0 / 1 from the host, or the device flag the
+#: previous launch left
+HALTED_ON_DEVICE = 2
+#: pinned upload buffers per graph (at most two launches are in flight:
+#: the engine books launch i, which fetches it, before dispatching i+2)
+PINNED = 4
+
+
+def member_kind(member) -> str:
+    """"none", "bool" (the voter plane) or "packed" (voter|learner)."""
+    if member is None:
+        return "none"
+    dtype = member.dtype
+    is_bool = dtype == torch.bool if isinstance(member, torch.Tensor) \
+        else np.dtype(dtype) == np.bool_
+    return "bool" if is_bool else "packed"
+
+
+class _Graph:
+    """One captured launch size: the graph, its packed input buffer on
+    the card, the pinned upload ring, its packed output, and the K1
+    launches it holds."""
+
+    def __init__(self, K: int, n_inputs: int, device):
+        self.K = K
+        self.graph = torch.cuda.CUDAGraph()
+        self.inp = torch.zeros(n_inputs, dtype=torch.int32, device=device)
+        self.pinned = [torch.zeros(n_inputs, dtype=torch.int32,
+                                   pin_memory=True) for _ in range(PINNED)]
+        self.events = [None] * PINNED
+        self.next = 0
+        self.out: Optional[torch.Tensor] = None
+        self.k1 = 0
+
+    def upload(self, host: np.ndarray) -> None:
+        """One asynchronous copy of the packed inputs, from a pinned
+        buffer whose previous copy has completed."""
+        i = self.next
+        self.next = (i + 1) % PINNED
+        if self.events[i] is not None:
+            self.events[i].synchronize()
+        self.pinned[i].numpy()[:] = host
+        self.inp.copy_(self.pinned[i], non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        self.events[i] = ev
+
+
+class _GraphSet:
+    """The graphs of one member mode and staging shape over one cluster's
+    rings and one staging buffer, with the static small leaves and the
+    device halted flag they share."""
+
+    def __init__(self, state: ReplicaState, staging: torch.Tensor):
+        self.log_term = state.log_term
+        self.log_payload = state.log_payload
+        self.staging = staging
+        self.small = {f: torch.empty_like(getattr(state, f)) for f in SMALL}
+        self.halted = torch.zeros((), dtype=torch.bool, device=state.device)
+        self.last_halted: Optional[torch.Tensor] = None
+        self.graphs: Dict[int, _Graph] = {}
+
+    def holds(self, state: ReplicaState, staging: torch.Tensor) -> bool:
+        return (state.log_term is self.log_term
+                and state.log_payload is self.log_payload
+                and staging is self.staging)
+
+    def state(self) -> ReplicaState:
+        return ReplicaState(**self.small, log_term=self.log_term,
+                            log_payload=self.log_payload)
+
+
+class FusedGraphs:
+    """CUDA graphs of ``fused_steady_scan`` for one transport's cluster
+    shape (``rows``, ``commit_quorum``) on ``device``; see the module
+    doc. ``captures``, ``replays`` and ``k1_launches`` (the K1 launches
+    the replays ran) count what it did."""
+
+    def __init__(self, rows: int, commit_quorum, device):
+        self.rows = rows
+        self.commit_quorum = commit_quorum
+        self.device = torch.device(device)
+        self.comm = SingleDeviceComm(rows)
+        self.pool = None
+        self.sets: Dict[Tuple, _GraphSet] = {}
+        self.captures = 0
+        self.replays = 0
+        self.k1_launches = 0
+        self.capture_s = 0.0    # host seconds spent warming up and capturing
+        self.recaptures = 0
+        #   graph sets dropped because a ring or the staging buffer
+        #   changed identity
+
+    # ------------------------------------------------------------ capture
+    def _body(self, gs: _GraphSet, inp: torch.Tensor, K: int,
+              kind: str) -> torch.Tensor:
+        """The captured region: the K-tick loop over the static state,
+        its final small leaves and halted flag written back in place, and
+        the outputs packed into one int32 tensor."""
+        R = self.rows
+        head = inp[:len(HEAD)]
+        counts = inp[len(HEAD):len(HEAD) + K]
+        planes = inp[len(HEAD) + K:].reshape(-1, R)
+        member = None
+        if kind == "bool":
+            member = planes[2] != 0
+        elif kind == "packed":
+            member = planes[2]
+        mode = head[_H["halted"]]
+        halted0 = torch.where(mode == HALTED_ON_DEVICE, gs.halted, mode == 1)
+        st, infos, esc, ran, halted = fused_steady_scan(
+            self.comm, self.commit_quorum, gs.state(), gs.staging,
+            head[_H["start_slot"]], counts, head[_H["n_run"]], halted0,
+            head[_H["leader"]], head[_H["leader_term"]], planes[0] != 0,
+            planes[1] != 0, head[_H["floor_prev_term"]],
+            head[_H["repair_floor"]], member)
+        for f in SMALL:
+            gs.small[f].copy_(getattr(st, f))
+        gs.halted.copy_(halted)
+        return torch.cat([
+            infos.commit_index, infos.frontier_len, infos.max_term,
+            infos.repair_start, esc, ran,
+            halted.to(torch.int32).reshape(1), infos.match.reshape(-1)])
+
+    def _capture(self, gs: _GraphSet, K: int, kind: str) -> _Graph:
+        t0 = time.perf_counter()
+        planes = 2 + (kind != "none")
+        g = _Graph(K, len(HEAD) + K + planes * self.rows, self.device)
+        # warm-up: every tick the masked no-op, so the state passes
+        # through bit for bit (and the kernels' library loads here). It
+        # leaves the shared halted flag set, which a launch of another
+        # size, dispatched earlier in this window, may have left for the
+        # next one to read: keep it.
+        g.inp[_H["halted"]] = 1
+        flag = gs.halted.clone()
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self._body(gs, g.inp, K, kind)
+        cur.wait_stream(side)
+        gs.halted.copy_(flag)
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        before = ring_cuda.LAUNCHES["write_window_both"]
+        # capture_begin/capture_end on a side stream: what the
+        # torch.cuda.graph context does, without its full gc.collect()
+        # (tens of ms under an engine's host state) and empty_cache()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            g.graph.capture_begin(pool=self.pool)
+            try:
+                g.out = self._body(gs, g.inp, K, kind)
+            finally:
+                g.graph.capture_end()
+        cur.wait_stream(side)
+        g.k1 = ring_cuda.LAUNCHES["write_window_both"] - before
+        ring_cuda.LAUNCHES["write_window_both"] = before
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+        return g
+
+    # -------------------------------------------------------------- run
+    def run(self, state: ReplicaState, staging: torch.Tensor, start_slot,
+            counts, n_run, halted0, leader, leader_term, alive, slow,
+            member, repair_floor, floor_prev_term):
+        """One fused launch: ``fused_steady_scan``'s arguments and
+        results (``state, infos, escaped, ran, halted``), by one replay."""
+        K = int(counts.shape[0])
+        S, B, W = staging.shape
+        kind = member_kind(member)
+        key = (kind, B, W, S)
+        gs = self.sets.get(key)
+        if gs is None or not gs.holds(state, staging):
+            if gs is not None:
+                self.recaptures += 1
+            gs = self.sets[key] = _GraphSet(state, staging)
+        for f in SMALL:
+            src = getattr(state, f)
+            if src is not gs.small[f]:
+                gs.small[f].copy_(src)
+        g = gs.graphs.get(K)
+        if g is None:
+            g = gs.graphs[K] = self._capture(gs, K, kind)
+        R = self.rows
+        host = np.zeros(g.inp.shape[0], np.int32)
+        scalars = dict(start_slot=start_slot, n_run=n_run, leader=leader,
+                       leader_term=leader_term, repair_floor=repair_floor,
+                       floor_prev_term=floor_prev_term)
+        for name, v in scalars.items():
+            host[_H[name]] = _host(v)
+        if isinstance(halted0, torch.Tensor) and halted0.is_cuda:
+            if halted0 is not gs.last_halted:
+                gs.halted.copy_(halted0.reshape(()))
+            host[_H["halted"]] = HALTED_ON_DEVICE
+        else:
+            host[_H["halted"]] = int(bool(_host(halted0)))
+        base = len(HEAD)
+        for v, n in ((counts, K), (alive, R), (slow, R), (member, R)):
+            if v is not None:
+                host[base:base + n] = _host(v).reshape(-1)
+                base += n
+        g.upload(host)
+        g.graph.replay()
+        ring_cuda.LAUNCHES["write_window_both"] += g.k1
+        self.k1_launches += g.k1
+        self.replays += 1
+        snap = g.out.clone()
+        views = [snap[i * K:(i + 1) * K] for i in range(6)]
+        ci, fl, mt, rs, esc, ran = views
+        halted = snap.view(torch.uint8)[4 * 6 * K].view(torch.bool)
+        gs.last_halted = halted
+        infos = RepInfo(commit_index=ci, match=snap[6 * K + 1:].reshape(K, R),
+                        max_term=mt, repair_start=rs, frontier_len=fl)
+        return gs.state(), infos, esc, ran, halted
+
+
+def _host(x) -> np.ndarray:
+    """A per-launch input as int32 numpy (a tensor is read back)."""
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    return np.asarray(x).astype(np.int32)

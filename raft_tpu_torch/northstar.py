@@ -26,6 +26,10 @@ with K6) and hashed in commit order beside the input's SHA-256.
 per-step time over separate probe flights (CUDA events on the card, the
 host clock on the CPU), as the JAX ``northstar.run_device`` does.
 
+``run_golden`` feeds the same stream through the port's golden oracle
+(``raft_tpu_torch.golden``, the reference's semantics) and hashes its
+committed log in commit order: the digest the device run must match.
+
 Run: python -m raft_tpu_torch.northstar [--entries N] [--seed S]
 """
 
@@ -240,6 +244,40 @@ def run_device_ec(cfg: RaftConfig, n_entries: int, seed: int, device=None,
                        state, h_in.hexdigest(), flights)
 
 
+def run_golden(n_entries: int, entry: int, seed: int, batch: int = 1024,
+               n_replicas: int = 3) -> str:
+    """The SHA-256 of the golden oracle's committed log for the seeded
+    stream of ``n_entries`` ``entry``-byte entries, fed ``batch`` at a
+    time and hashed in commit order (the JAX ``northstar.run_golden``)."""
+    from raft_tpu_torch.golden import GoldenCluster
+
+    c = GoldenCluster(n_replicas, seed=0)
+    lead = c.run_until_leader()
+    rng = np.random.default_rng(seed)
+    h = hashlib.sha256()
+    done = 0
+    while done < n_entries:
+        take = min(n_entries - done, batch)
+        for row in entry_block(rng, take, entry):
+            lead.client_append(row.tobytes())
+        guard = 0
+        while lead.commit_index < lead.last_applied:
+            c._leader_tick(lead)
+            guard += 1
+            if guard >= 100:
+                raise RuntimeError("golden commit stalled")
+        # the oracle's stored committed bytes (its log, not the input
+        # echo), in commit order: what the device side hashes from a
+        # follower row
+        for e in lead.log[done:done + take]:
+            h.update(e.payload)
+        done += take
+    if lead.commit_index != n_entries:
+        raise RuntimeError(f"golden committed {lead.commit_index} of "
+                           f"{n_entries}")
+    return h.hexdigest()
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--entries", type=int, default=1 << 20)
@@ -247,14 +285,20 @@ def main():
     args = ap.parse_args()
     cfg = RaftConfig(log_capacity=CHUNK_STEPS * 1024)
     run = run_device(cfg, args.entries, args.seed, measure_latency=True)
+    golden = run_golden(args.entries, cfg.entry_bytes, args.seed,
+                        n_replicas=cfg.n_replicas)
     print(json.dumps({"north_star": {
         "entries": args.entries, "sha256": run.digest,
         "sha256_input": run.input_digest,
-        "read_back_ok": run.digest == run.input_digest, "wall_s": run.wall_s,
+        "read_back_ok": run.digest == run.input_digest,
+        "byte_identical": run.digest == golden, "wall_s": run.wall_s,
         "p50_us": run.p50_us, "p99_us": run.p99_us,
         "method": run.latency_method,
         "device": torch.cuda.get_device_name(0),
     }}))
+    if run.digest != golden:
+        raise SystemExit("FAIL: committed logs diverge from the golden "
+                         "oracle's")
 
 
 if __name__ == "__main__":

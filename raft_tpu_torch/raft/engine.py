@@ -55,12 +55,19 @@ the host mirrors are numpy, as there. ``RaftEngine(cfg)`` builds
 ``make_transport(cfg)``, which runs on CUDA; pass a transport built with
 ``device="cpu"`` to run the plain versions.
 
+With ``fuse_k > 1`` (or ``RAFT_TPU_FUSE_K``), ``run_for`` drives runs of
+steady leader ticks K at a time (``raft.steady``): one launch of K ticks
+(on the card, one replay of a captured CUDA graph) and one host pass that
+books them exactly as K ticks would. ``hostprof`` takes an
+``obs.hostprof.HostProfiler`` that splits each event's host time into
+phases.
+
 Not ported yet; each raises ``NotImplementedError`` naming its ROADMAP
-item: K-tick fusion (A11); the tiered archive and the device event ring
-(A13); the multihost mirror digest (A15); the flight recorder (A16). The
-observability hooks of the JAX engine (``spans``, ``metrics``,
-``hostprof``, ``auditor``, ``slo``, ``status_board``) come with A16, and
-the engine has no such attributes until then.
+item: the tiered archive and the device event ring (A13); the multihost
+mirror digest (A15); the flight recorder (A16). The other observability
+hooks of the JAX engine (``spans``, ``metrics``, ``auditor``, ``slo``,
+``status_board``) come with A16, and the engine has no such attributes
+until then.
 """
 
 from __future__ import annotations
@@ -207,6 +214,12 @@ class RaftEngine:
         self._trace = trace
         self._tick_count = 0
         #   Leader ticks fired so far (the launch annotation's step)
+        self.hostprof = None
+        #   obs.hostprof.HostProfiler (None = off): phase timers tiling
+        #   step_event (heap_pop, host_pre, pack, dispatch, device_wait,
+        #   host_post). Detached it costs one None check per site and no
+        #   device sync: the profiler's synchronize is reached only
+        #   through HostProfiler.sync.
 
         n = cfg.rows
         self.member = np.zeros(n, bool)
@@ -318,6 +331,20 @@ class RaftEngine:
         #   State-machine apply cursor (see register_apply).
         self._lost_gaps: set = set()   # unrecoverable apply gaps, logged once
         self._queue: List[Tuple[int, bytes]] = []  # pending (seq, payload)
+        self.fuse_k = max(
+            1, int(os.environ.get("RAFT_TPU_FUSE_K", "") or cfg.fuse_k)
+        )
+        #   K-tick steady-state fusion (raft.steady): above 1, run_for
+        #   drives runs of steady leader ticks as single launches; the
+        #   environment override points a run at the fused path without
+        #   touching its config. Results are byte-identical either way.
+        self.fused_launches = 0
+        self.fused_ticks = 0
+        self._fused_driver = None
+        if self.fuse_k > 1:
+            from raft_tpu_torch.raft.steady import FusedDriver
+
+            self._fused_driver = FusedDriver(self)
         self.lease = None
         if cfg.read_lease:
             # leader leases (raft.lease): every quorum round grants, and a
@@ -374,10 +401,6 @@ class RaftEngine:
     @staticmethod
     def _refuse_unported(cfg: RaftConfig, recorder) -> None:
         """Raise for every configuration whose code is not ported yet."""
-        fuse_k = max(1, int(os.environ.get("RAFT_TPU_FUSE_K", "")
-                            or cfg.fuse_k))
-        if fuse_k > 1:
-            raise _not_ported("K-tick fusion (fuse_k > 1)", "A11")
         if os.environ.get("RAFT_TPU_TIERED_DIR", "") or cfg.tiered_log_dir:
             raise _not_ported("the tiered archive (tiered_log_dir)", "A13")
         if cfg.mirror_check_every:
@@ -504,6 +527,11 @@ class RaftEngine:
         self._next_seq += 1
         self._queue.append((seq, payload))
         self.submit_time[seq] = self.clock.now
+        if self._fused_driver is not None:
+            # stage the batch this entry completed into the device
+            # staging ring (a client-side cost: the fused drain reads it
+            # by slot)
+            self._fused_driver.on_submit()
         return seq
 
     def is_durable(self, seq: int) -> bool:
@@ -571,8 +599,16 @@ class RaftEngine:
                 raise ValueError(
                     f"payload must be exactly {cfg.entry_bytes} bytes"
                 )
-        seqs = [self.submit(p) for p in payloads]
+        # the pipelined path owns the queue wholesale from here on, which
+        # the staging mirror cannot track: detach the driver around the
+        # intake (no staging copy per batch that the reset would drop)
+        drv, self._fused_driver = self._fused_driver, None
+        try:
+            seqs = [self.submit(p) for p in payloads]
+        finally:
+            self._fused_driver = drv
         pending, self._queue = self._queue, []
+        self._queue_replaced()
         # configuration entries do not ride a chunk (it would keep
         # committing past the entry under the stale mask): stop before
         # the first one; the tick path ingests it with the new mask
@@ -662,6 +698,7 @@ class RaftEngine:
                         list(chunk[done:]) + pending[take:] + deferred
                         + self._queue
                     )
+                    self._queue_replaced()
                     raise RuntimeError(
                         f"pipeline chunk shortfall: committed "
                         f"{final_commit}, expected {leader_last + take} "
@@ -723,9 +760,16 @@ class RaftEngine:
             if refused:
                 break  # no progress is possible right now; don't spin
         self._queue = pending + deferred + self._queue
+        self._queue_replaced()
         if self.leader_id == r:
             self._reset_heard_timers(r)
         return seqs
+
+    def _queue_replaced(self) -> None:
+        """The queue was swapped or prepended to: the staging ring's
+        mirror of it is void."""
+        if self._fused_driver is not None:
+            self._fused_driver.on_queue_replaced()
 
     def _account_chunk_prefix(self, r: int, chunk, n: int,
                               leader_last: int, eff) -> None:
@@ -1532,22 +1576,39 @@ class RaftEngine:
 
     # ------------------------------------------------------------- event loop
     def step_event(self, horizon: Optional[float] = None) -> bool:
-        """Advance the clock to the next timer and handle it. ``horizon``
-        is accepted for the JAX signature: it only matters to K-tick
-        fusion (ROADMAP A11)."""
+        """Advance the clock to the next timer and handle it.
+
+        ``horizon`` (set by ``run_for``) is the end of the caller's drive
+        window: with ``fuse_k > 1``, a popped leader tick whose successors
+        provably fit before both the horizon and the next event that
+        matters is handled as one fused window (``raft.steady``) instead
+        of tick by tick. Without a horizon the engine cannot know how far
+        the caller meant to drive, so fusion never engages."""
         if not self._q:
             return False
+        hp = self.hostprof
+        if hp is not None:
+            hp.tick_begin()
         t, _, kind, r = heapq.heappop(self._q)
         self.clock.now = max(self.clock.now, t)
         tag, _, gen = kind.partition(":")
-        if tag in ("e", "c") and int(gen) != self._timer_gen[r]:
-            return True   # stale timer generation (reset since armed)
-        if tag == "e":
+        stale = tag in ("e", "c") and int(gen) != self._timer_gen[r]
+        #   a stale timer generation (reset since armed): no action
+        if hp is not None:
+            hp.mark("heap_pop")
+        if stale:
+            pass
+        elif tag == "e":
             self._fire_follower(r)
         elif tag == "c":
             self._fire_candidate(r)
         elif tag == "l":
-            self._fire_leader_tick(r)
+            if not (
+                self._fused_driver is not None
+                and horizon is not None
+                and self._fused_driver.fire(r, horizon)
+            ):
+                self._fire_leader_tick(r)
         elif tag == "f":
             ev = self._fault_events[int(gen)]
             {
@@ -1559,6 +1620,8 @@ class RaftEngine:
                 "partition": lambda p: self.partition(ev.groups),
                 "heal_partition": lambda p: self.heal_partition(),
             }[ev.action](ev.replica)
+        if hp is not None:
+            hp.tick_end()
         return True
 
     def next_event_time(self) -> Optional[float]:
@@ -1808,6 +1871,11 @@ class RaftEngine:
                     else:
                         take = qi    # everything before the entry only
                     break
+        hp = self.hostprof
+        if hp is not None:
+            # pre-dispatch bookkeeping up to here is host_pre; the payload
+            # build below is the ingest-batching (pack) phase
+            hp.mark("host_pre")
         if take == 0:
             if self._hb_payload is None:
                 self._hb_payload = torch.zeros(
@@ -1827,9 +1895,15 @@ class RaftEngine:
                 self._pack_entries(self._queue[:take], take),
                 cfg.rows, B, device=self._dev,
             )
+        if hp is not None:
+            hp.mark("pack")
         pre_lasts = self._pre_lasts()
         floor, fpt = self._floor_attest(r)
         repair = self._repair_program()
+        if hp is not None:
+            # the floor attest and cached-lasts fetches are part of the
+            # tick's host round trip: host_pre, not device_wait
+            hp.mark("host_pre")
         member_arg = (self._dev_arr(step_member) if step_member is not None
                       else self._member_arg())
         with _profiling.launch_annotation("leader_tick", self._tick_count):
@@ -1840,6 +1914,9 @@ class RaftEngine:
                 repair_floor=floor, floor_prev_term=fpt,
                 term_floor=self._term_floor,
             )
+        if hp is not None:
+            hp.mark("dispatch")
+            hp.sync(self.state, info)
         self._note_truncations(pre_lasts)
         max_term = int(info.max_term)
         if max_term > term:
@@ -1872,6 +1949,8 @@ class RaftEngine:
                     for i, (_, p) in enumerate(chunk)
                 )
             self._queue = self._queue[ingested:]
+            if self._fused_driver is not None:
+                self._fused_driver.on_consumed(ingested)
         self._advance_commit(r, int(info.commit_index))
         # every successful tick round is also the §6.4 read confirmation
         self._confirm_reads(r, term, eff, max_term)
@@ -1914,6 +1993,7 @@ class RaftEngine:
             if ent is not None and seq is not None and i != cfg_idx:
                 requeue.append((seq, ent[0]))
         self._queue = requeue + self._queue
+        self._queue_replaced()   # a prepend breaks the staging mirror
         for q in range(self.cfg.rows):
             if int(lasts[q]) > cut:
                 self._ring_floor[q] = max(

@@ -5,6 +5,10 @@ All R replica rows live on one device. Entry points run on CUDA unless
 the caller passes ``device="cpu"`` (which runs every kernel's plain
 version); there is no fallback to the CPU when no GPU is found.
 
+``replicate_fused`` runs K steady ticks as one launch: on the card one
+replay of a CUDA graph of the K-tick loop (``core.graphs``), on the CPU
+the loop itself.
+
 Every call consumes the state it is given: the rings are updated in place
 and the returned state holds them.
 """
@@ -23,6 +27,7 @@ from raft_tpu_torch.core.state import ReplicaState, init_state
 from raft_tpu_torch.core.step import (
     RepInfo,
     VoteInfo,
+    fused_steady_scan,
     replicate_step,
     scan_replicate,
     vote_step,
@@ -73,6 +78,14 @@ def _pipeline_program(rows: int, ec: bool, commit_quorum):
     return _PROGRAMS[key]
 
 
+def _fused_program(rows: int, commit_quorum):
+    key = ("fused", rows, commit_quorum)
+    if key not in _PROGRAMS:
+        _PROGRAMS[key] = partial(fused_steady_scan, _comm_for(rows),
+                                 commit_quorum)
+    return _PROGRAMS[key]
+
+
 def resolve_device(device=None) -> torch.device:
     """``device``, or CUDA when none is named — which must then exist."""
     if device is None:
@@ -106,6 +119,10 @@ class SingleDeviceTransport:
         self._vote = _vote_program(cfg.rows)
         self._pipeline = _pipeline_program(cfg.rows, cfg.ec_enabled,
                                            cfg.commit_quorum)
+        self._fused = _fused_program(cfg.rows, cfg.commit_quorum)
+        self.graphs = None
+        #   core.graphs.FusedGraphs on the card, built at the first fused
+        #   launch
 
     def init(self) -> ReplicaState:
         return init_state(self.cfg, device=self.device)
@@ -171,3 +188,37 @@ class SingleDeviceTransport:
             floor_prev_term, repair_floor, self._member(member), term_floor,
             allow_turnover=bool(allow_turnover),
         )
+
+    def replicate_fused(self, state, staging, start_slot, counts, n_run,
+                        halted0, leader, leader_term, alive, slow,
+                        member=None, repair_floor=0, floor_prev_term=0,
+                        ring=None):
+        """K steady ticks with exact early exit (``fused_steady_scan``):
+        ``staging`` i32[S, B, W] holds untiled payload words and
+        ``start_slot``/``counts`` (i32[K])/``n_run`` select the window;
+        ``halted0`` is a bool, or the ``halted`` a previous launch
+        returned. Scalars and masks may be host values or tensors. On the
+        card the call is one replay of a captured CUDA graph
+        (``core.graphs``); on the CPU it runs the loop. Returns
+        ``(state, infos, escaped, ran, halted)``; the passed state is
+        consumed. The recorded variant (``ring=``) is not ported yet."""
+        if ring is not None:
+            raise NotImplementedError(
+                "the recorded fused program (ring=) is not ported to "
+                "raft_tpu_torch yet (ROADMAP A13)")
+        if member is None and self._member_mode:
+            member = np.ones(self.cfg.rows, bool)
+        if self.device.type == "cuda":
+            if self.graphs is None:
+                from raft_tpu_torch.core.graphs import FusedGraphs
+
+                self.graphs = FusedGraphs(self.cfg.rows,
+                                          self.cfg.commit_quorum,
+                                          self.device)
+            return self.graphs.run(
+                state, staging, start_slot, counts, n_run, halted0, leader,
+                leader_term, alive, slow, member, repair_floor,
+                floor_prev_term)
+        return self._fused(
+            state, staging, start_slot, counts, n_run, halted0, leader,
+            leader_term, alive, slow, floor_prev_term, repair_floor, member)

@@ -408,7 +408,6 @@ def test_deferred_call_raises(name, args, item):
 
 
 DEFERRED_CONFIGS = [
-    (dict(fuse_k=4), {}, "A11"),
     (dict(tiered_log_dir="tiers"), {}, "A13"),
     (dict(mirror_check_every=8), {}, "A15"),
     ({}, dict(recorder=object()), "A16"),

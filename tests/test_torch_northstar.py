@@ -1,7 +1,8 @@
 """The slices end to end.
 
 - raft_tpu_torch.northstar.run_device, the JAX package's
-  northstar.run_device and the golden oracle consume the same seeded entry
+  northstar.run_device and the port's golden oracle
+  (raft_tpu_torch.northstar.run_golden) consume the same seeded entry
   stream and must produce the same SHA-256 over the committed bytes (the
   port and the JAX device path read them back from follower row 1): at
   B = 128 with 8-byte entries, where the first chunk turns the ring over
@@ -25,7 +26,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from northstar import run_device as jax_run_device, run_golden  # noqa: E402
+from northstar import run_device as jax_run_device  # noqa: E402
 from raft_tpu.config import RaftConfig as JConfig  # noqa: E402
 from raft_tpu.core import state as jst  # noqa: E402
 from raft_tpu.core.step_pallas import steady_scan_replicate_tpu  # noqa: E402
@@ -38,6 +39,7 @@ from raft_tpu_torch.northstar import (  # noqa: E402
     CHUNK_STEPS,
     run_device,
     run_device_ec,
+    run_golden,
 )
 from raft_tpu_torch.transport.device import SingleDeviceTransport  # noqa: E402
 
