@@ -79,7 +79,34 @@ Then the engine's tick loop (``raft_tpu_torch.raft.RaftEngine``):
     the graphs captured and replayed, a profiled burst (device busy, idle
     share, kernels per launch) and the ``HostProfiler``'s phases per
     leader tick;
-5d. runs BASELINE config 5, ``bench.py``'s ``bench_storm`` (3 replicas,
+5d. drives the engine with the host observability plane attached
+    (``engine_obs_path``): the north star through ``RaftEngine`` at
+    ``fuse_k`` 1 and 8 (64 full leader ticks in bursts of 8 192, one
+    ``submit_pipelined`` ring, a failover, 4 096 more; every submit in a
+    span of its own), each run detached, with spans, metrics, auditor,
+    SLO and status board but no recorder or trace, and with the full
+    plane (recorder, trace, an ``OpsServer`` scraped from a thread during
+    the run); exact: the recorder's nodelog lines equal the trace, the
+    read-backs and apply stream equal the detached run's, every span
+    reaches committed (and applied, off the pipelined chunk), no audit
+    violation and the auditor's commit digest equal to one recomputed
+    from the read-back bytes, the Prometheus text round-trips with
+    ``raft_commits_total`` = ``committed_total``, every ``/status``,
+    ``/metrics``, ``/slo`` and ``/healthz`` answer 200 and the board's
+    snapshot, ``fuse_k`` 8's recorder dump, span table, metrics text and
+    auditor summary (bar its count of audited events) equal to
+    ``fuse_k`` 1's, a bundle explained by ``python -m raft_tpu_torch.obs
+    --explain`` naming every term's last leader, and the attached plane's
+    device fetches equal to the detached run's (``_fetch`` calls, and
+    the profiler's device-to-host copies over one burst); prints ms per
+    leader tick detached and attached, fetches and copies per leader
+    tick with and without a recorder, events and spans per leader tick,
+    one ``/status`` and one ``/metrics`` request, the bundle's size and
+    write time; then (``obs_card_equals_cpu``) the full plane at a
+    4 096-slot ring and ``fuse_k`` 8 on the card and on the CPU: recorder
+    dumps, span tables, Prometheus text, auditor, SLO and status
+    snapshots equal;
+5e. runs BASELINE config 5, ``bench.py``'s ``bench_storm`` (3 replicas,
     256-byte entries, B = 64, C = 4096, seed 2; both variants), through
     the engine on the card and again on the CPU: the nodelog lines,
     terms, commit latencies, committed bytes and state must be equal;
@@ -1840,6 +1867,553 @@ def phase_engine_fused_path(dev):
     res["phase_s"] = time.perf_counter() - t_phase
     emit(res)
     return res
+
+
+# ------------------------------------ 5c'. the engine with the obs plane
+#: ``engine_obs_path``'s schedule: 64 full leader ticks in bursts of 8 192
+#: drained by ``run_for``, one ``submit_pipelined`` ring, a failover and
+#: 4 096 more entries (``engine_main_path``'s deployment and schedule)
+OBS_PLAN = dict(bursts=8, burst=8192, after=4096)
+OBS_PROFILED_BURST = 2        # the burst run under torch.profiler
+OBS_SMALL_CAPACITY = 4096     # obs_card_equals_cpu's ring
+OBS_SCRAPE_PATHS = ("/status", "/metrics", "/slo", "/healthz")
+
+
+def obs_plane(cfg):
+    """The plane ``engine_obs_path`` attaches: an ``ObsStack`` with the
+    safety auditor and one commit objective, and a status board."""
+    from raft_tpu_torch.obs import ObsStack, SLObjective, StatusBoard
+
+    stack = ObsStack.build(audit=True, slo_objectives=(
+        SLObjective("commit_fast", "commit",
+                    threshold_s=2 * cfg.heartbeat_period, target=0.99),))
+    return stack, StatusBoard()
+
+
+class Scraper:
+    """A client thread that GETs the ops endpoints in a loop while the
+    engine runs on the main thread; every answer is kept."""
+
+    def __init__(self, port):
+        import threading
+
+        self.port = port
+        self.answers = []             # (path, status, body)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    def get(self, path):
+        import urllib.error
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{self.port}{path}", timeout=30) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as ex:
+            return ex.code, ex.read().decode()
+
+    def _loop(self):
+        while not self._stop.is_set():
+            for path in OBS_SCRAPE_PATHS:
+                self.answers.append((path, *self.get(path)))
+            self._stop.wait(0.02)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+
+def span_table_sha(spans):
+    """SHA-256 of the span table: every field and annotation of every
+    span in order (the fields ``Span.to_jsonable`` dumps)."""
+    h = hashlib.sha256()
+    for sp in spans.spans:
+        h.update(json.dumps(
+            [sp.trace_id, sp.op, sp.t_start, sp.t_end, sp.state, sp.seq,
+             sp.ticket, sp.queue_delay_s, sp.replication_rounds,
+             sp.read_class, sp.refusal_reasons, sp.annotations],
+            default=repr).encode())
+    return h.hexdigest()
+
+
+def audit_digest_from_bytes(e, inp, max_entries):
+    """The auditor's committed-prefix CRC (``SafetyAuditor.commit_digest``)
+    recomputed from the input bytes the read-backs matched and the
+    archive's terms, over the archive's retention horizon."""
+    import zlib
+
+    wm = e.commit_watermark
+    crc = zlib.crc32(f"wm:{wm}".encode())
+    lo = max(1, wm - max_entries + 1)
+    whole = inp.window(lo, wm)
+    E = e.cfg.entry_bytes
+    for i, idx in enumerate(range(lo, wm + 1)):
+        term = e.store.get(idx)[1]
+        pc = zlib.crc32(whole[i * E:(i + 1) * E]) & 0xFFFFFFFF
+        crc = zlib.crc32(f"{idx}:{term}:{pc:08x}".encode(), crc)
+    return f"{crc:08x}"
+
+
+def obs_engine_run(cfg, dev, mode, plan=OBS_PLAN, serve=False,
+                   profile=False):
+    """``engine_obs_path``'s schedule through ``RaftEngine`` at ``cfg`` on
+    ``dev``: an election; ``plan["bursts"]`` bursts of ``plan["burst"]``
+    entries, each drained by ``run_for`` (full leader ticks; fused windows
+    at ``fuse_k`` > 1) and read back; one ``submit_pipelined`` ring that
+    the gate must admit (one flight); the leader failed, a re-election and
+    ``plan["after"]`` more. ``mode``: "detached" (nothing attached),
+    "plane" (spans, metrics, auditor, SLO and board, no recorder, no
+    trace) or "full" (the plane, a flight recorder and a trace). Every
+    submit opens a span of its own when spans are attached. ``serve``
+    runs an ``OpsServer`` scraped from a thread during the run;
+    ``profile`` counts the device-to-host copies of one burst under
+    torch.profiler. Returns (recorded values, what runs are compared on,
+    the plane)."""
+    import torch
+
+    from raft_tpu_torch.obs import OpsServer, parse_prometheus
+    from raft_tpu_torch.raft import RaftEngine
+    from raft_tpu_torch.transport.device import SingleDeviceTransport
+
+    cuda = torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    B, C = cfg.batch_size, cfg.log_capacity
+    hb = cfg.heartbeat_period
+    tr = SingleDeviceTransport(cfg, device=dev)
+    flights = []
+    run_flight = tr.replicate_pipeline
+
+    def counted_flight(*a, **k):
+        flights.append(int(a[2].shape[0]))
+        return run_flight(*a, **k)
+
+    tr.replicate_pipeline = counted_flight
+    stack = board = None
+    lines = [] if mode == "full" else None
+    if mode != "detached":
+        stack, board = obs_plane(cfg)
+    e = RaftEngine(cfg, tr, trace=lines.append if lines is not None else None,
+                   recorder=stack.recorder if mode == "full" else None)
+    if stack is not None:
+        stack.attach(e)
+        e.status_board = board
+        if mode == "plane":
+            e.recorder = None
+    published = {}
+    if serve:
+        publish = board.publish
+
+        def keep_publish(snapshot, section="engine"):
+            publish(snapshot, section)
+            # snapshot text -> the first generation that published it
+            text = json.dumps(snapshot, sort_keys=True)
+            published.setdefault(text, board.generation)
+            published[None] = text
+
+        board.publish = keep_publish
+    # device fetches: the engine's _fetch calls inside its events
+    fetch = e._fetch
+    counts = {"fetches": 0, "in_events": 0}
+
+    def counted_fetch(x):
+        counts["fetches"] += 1
+        return fetch(x)
+
+    e._fetch = counted_fetch
+    step = e.step_event
+    per_tick_ms = []
+
+    def timed_step(horizon=None):
+        t0n, f0 = e._tick_count, counts["fetches"]
+        t0 = time.perf_counter()
+        got = step(horizon)
+        dt = time.perf_counter() - t0
+        counts["in_events"] += counts["fetches"] - f0
+        if e._tick_count > t0n:
+            per_tick_ms.append(dt * 1e3 / (e._tick_count - t0n))
+        return got
+
+    e.step_event = timed_step
+    inp = EngineInput(cfg)
+    h_apply = hashlib.sha256()
+    applied = [0]
+
+    def apply(idx, payload):
+        check(idx == applied[0] + 1, "the apply stream skipped an index")
+        applied[0] = idx
+        h_apply.update(payload)
+
+    e.register_apply(apply)
+    spans = stack.spans if stack is not None else None
+    tick_seqs = []
+
+    def submit_all(ps, ticked):
+        seqs = []
+        for p in ps:
+            if spans is not None:
+                spans.current = spans.begin("write", e.clock.now)
+            seqs.append(e.submit(p))
+        if spans is not None:
+            spans.current = None
+        if ticked:
+            tick_seqs.extend(seqs)
+        return seqs
+
+    what = f"obs {mode} fuse_k={e.fuse_k} on {dev}"
+    res = {"mode": mode, "fuse_k": e.fuse_k, "capacity": C,
+           "device": str(dev)}
+    srv = scraper = None
+    if serve:
+        srv = OpsServer(board=board, registry=stack.registry, slo=stack.slo,
+                        auditor=stack.audit, spans=spans, port=0)
+        srv.start()
+        scraper = Scraper(srv.port).__enter__()
+    reads = []
+    try:
+        sync()
+        t_run = time.perf_counter()
+        e.run_until_leader()
+        for b in range(plan["bursts"]):
+            seqs = submit_all(inp.take(plan["burst"]), True)
+            drain = (plan["burst"] // B + 2) * hb
+            if profile and b == OBS_PROFILED_BURST:
+                t0n, f0 = e._tick_count, counts["fetches"]
+                events, _ = _device_events(lambda: e.run_for(drain), 1)
+                lt = e._tick_count - t0n
+                dtoh = sum(1 for n, _ in events if "DtoH" in n)
+                res["profiled_burst"] = {
+                    "leader_ticks": lt, "dtoh_copies": dtoh,
+                    "dtoh_per_leader_tick": dtoh / lt,
+                    "fetches": counts["fetches"] - f0,
+                    "fetches_per_leader_tick":
+                        (counts["fetches"] - f0) / lt}
+            else:
+                e.run_for(drain)
+            check(e.is_durable(seqs[-1]), f"{what}: burst {b} did not drain")
+        sync()
+        ticks_wall = time.perf_counter() - t_run
+        tick_ticks = e._tick_count
+        reads.append(engine_read_back(e, inp, max(1, e.commit_watermark
+                                                  - C + 1),
+                                      e.commit_watermark, f"{what} ticks"))
+        # one ring through submit_pipelined: the entries are submitted
+        # first (each in its span), then the chunk takes the queue
+        leader_last = e.commit_watermark
+        submit_all(inp.take(C), False)
+        e.submit_pipelined([])
+        check(flights == [C // B],
+              f"{what}: the pipeline gate did not admit the ring: {flights}")
+        check(e.commit_watermark == leader_last + C,
+              f"{what}: the flight committed {e.commit_watermark}")
+        reads.append(engine_read_back(e, inp, leader_last + 1,
+                                      e.commit_watermark, f"{what} flight"))
+        old = e.leader_id
+        e.fail(old)
+        e.run_until_leader()
+        lo = e.commit_watermark + 1
+        seqs = submit_all(inp.take(plan["after"]), True)
+        e.run_for((plan["after"] // B + 4) * hb)
+        check(e.is_durable(seqs[-1]),
+              f"{what}: the entries after the failover did not commit")
+        reads.append(engine_read_back(e, inp, lo, e.commit_watermark,
+                                      f"{what} after failover"))
+        sync()
+        run_wall = time.perf_counter() - t_run
+    finally:
+        if scraper is not None:
+            scraper.__exit__()
+    total = plan["bursts"] * plan["burst"] + C + plan["after"]
+    check(e.commit_watermark == total and applied[0] == total,
+          f"{what}: commit {e.commit_watermark}, applied {applied[0]}, "
+          f"submitted {total}")
+    check(h_apply.hexdigest() == inp.h.hexdigest(),
+          f"{what}: the apply stream differs from the input")
+    lt = e._tick_count
+    res.update({
+        "leader_ticks": lt, "leader_ticks_in_bursts": tick_ticks,
+        "fused_launches": e.fused_launches, "fused_ticks": e.fused_ticks,
+        "ms_per_leader_tick_p50": float(np.percentile(per_tick_ms, 50)),
+        "ms_per_leader_tick_p99": float(np.percentile(per_tick_ms, 99)),
+        "ms_per_leader_tick_mean_bursts": ticks_wall * 1e3 / tick_ticks,
+        "tick_samples": len(per_tick_ms),
+        "timing": "host clock around each step_event, divided by the "
+                  "leader ticks it fired (a fused window is one sample)",
+        "run_wall_s": run_wall, "fetches": counts["fetches"],
+        "fetches_in_events": counts["in_events"],
+        "fetches_per_leader_tick": counts["in_events"] / lt})
+    keep = {"reads": reads, "apply_sha256": h_apply.hexdigest(),
+            "commit_watermark": e.commit_watermark,
+            "fetches_in_events": counts["in_events"],
+            "terms": e.terms.tolist(),
+            "commit_time": dict(e.commit_time)}
+    if stack is None:
+        return res, keep, None
+    # the plane's own checks
+    rec, reg, aud, slo = stack.recorder, stack.registry, stack.audit, \
+        stack.slo
+    n_spans = len(spans.spans)
+    check(n_spans == total, f"{what}: {n_spans} spans for {total} submits")
+    ticked = set(tick_seqs)
+    for sp in spans.spans:
+        names = {a[1] for a in sp.annotations}
+        check("committed" in names, f"{what}: seq {sp.seq} not committed "
+                                    "in its span")
+        # the pipelined chunk books no ingest and so no apply annotation,
+        # in the JAX engine as here
+        check(sp.seq not in ticked or "applied" in names,
+              f"{what}: seq {sp.seq} not applied in its span")
+    check(aud.total_violations == 0,
+          f"{what}: {aud.total_violations} audit violations")
+    digest = aud.commit_digest()
+    check(digest == audit_digest_from_bytes(e, inp, e.store.max_entries),
+          f"{what}: the auditor's commit digest differs from the one of "
+          "the read-back bytes")
+    text = reg.to_prometheus()
+    parsed = parse_prometheus(text)
+    snap = reg.snapshot()
+    for name, m in snap.items():
+        if m["type"] in ("counter", "gauge"):
+            for s in m["series"]:
+                key = tuple(sorted((k, str(v)) for k, v in
+                                   s["labels"].items()))
+                check(parsed[name][key] == s["value"],
+                      f"{what}: {name}{key} does not round-trip")
+    check(parsed["raft_commits_total"][(("group", "0"),)] == e.committed_total
+          == total, f"{what}: raft_commits_total differs from "
+                    "committed_total")
+    status = e._status_snapshot()
+    json.dumps(status)
+    keep.update({
+        "spans_sha256": span_table_sha(spans), "prometheus": text,
+        "audit_summary": aud.summary(), "commit_digest": digest,
+        "slo": slo.snapshot(), "status": status})
+    res.update({"spans": n_spans, "spans_per_leader_tick": n_spans / lt,
+                "commit_digest": digest,
+                "audit_violations": aud.total_violations})
+    if mode == "full":
+        check(rec.nodelog_lines() == lines,
+              f"{what}: the recorder's nodelog lines differ from the trace")
+        keep["events_sha256"] = hashlib.sha256(json.dumps(
+            rec.to_jsonable()).encode()).hexdigest()
+        keep["lines"] = lines
+        res.update({"events": rec.total_recorded,
+                    "events_per_leader_tick": rec.total_recorded / lt,
+                    "nodelog_lines": len(lines),
+                    "leaders_by_term": {str(t): sorted(v) for t, v in
+                                        rec.leaders_by_term().items()}})
+    if serve:
+        answers = scraper.answers
+        check(answers, f"{what}: no endpoint answered during the run")
+        for path, status_code, body in answers:
+            check(status_code == 200, f"{what}: GET {path} -> {status_code}")
+            if path == "/status":
+                got = json.loads(body)
+                gen = got.pop("board_generation")
+                # a snapshot the board published (compose() reads the
+                # generation after the sections, so publishes landing in
+                # between leave it behind the generation, never ahead by
+                # more than the one being published)
+                if gen == 0:
+                    # nothing published yet: the server adds the live
+                    # auditor's summary to the empty board
+                    got.pop("audit", None)
+                g = published.get(json.dumps(got, sort_keys=True))
+                check(got == {} or (g is not None and g <= gen + 1),
+                      f"{what}: /status answered a snapshot the board "
+                      f"never published (generation {gen})")
+            elif path == "/healthz":
+                got = json.loads(body)
+                check(got["status"] == "ok" and set(got) == {
+                    "status", "t_virtual", "generation"},
+                    f"{what}: /healthz answered {got}")
+            elif path == "/metrics":
+                parse_prometheus(body)
+            else:
+                check(set(json.loads(body)) >= {"objectives", "digests"},
+                      f"{what}: /slo answered {body[:80]}")
+        walls = {}
+        for path in ("/status", "/metrics"):
+            t0 = time.perf_counter()
+            code, body = scraper.get(path)
+            walls[path] = (time.perf_counter() - t0) * 1e3
+            check(code == 200, f"{what}: GET {path} after the run")
+        final = json.loads(scraper.get("/status")[1])
+        check(final.pop("board_generation") == board.generation
+              and json.dumps(final, sort_keys=True) == published[None],
+              f"{what}: the final /status is not the last snapshot")
+        srv.stop()
+        res["ops"] = {
+            "answers_during_run": len(answers),
+            "by_path": {p: sum(1 for a in answers if a[0] == p)
+                        for p in OBS_SCRAPE_PATHS},
+            "status_request_ms": walls["/status"],
+            "metrics_request_ms": walls["/metrics"],
+            "metrics_bytes": len(body), "board_generation":
+                board.generation}
+    return res, keep, stack
+
+
+def obs_bundle(e_cfg, stack, tmpdir):
+    """A repro bundle of ``stack`` through ``write_bundle``, explained by
+    ``python -m raft_tpu_torch.obs --explain`` in a process of its own:
+    the explanation must name the last leader of every term."""
+    import os
+
+    from raft_tpu_torch.obs import write_bundle
+
+    t0 = time.perf_counter()
+    path = write_bundle(tmpdir, kind="engine_obs", seed=SEED,
+                        expected="LINEARIZABLE", verdict="LINEARIZABLE",
+                        config=e_cfg, obs=stack)
+    write_s = time.perf_counter() - t0
+    env = dict(os.environ, PYTHONPATH=str(HERE))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "raft_tpu_torch.obs",
+                          "--explain", path], capture_output=True,
+                         text=True, timeout=300, cwd=str(HERE), env=env)
+    explain_s = time.perf_counter() - t0
+    check(out.returncode == 0, f"--explain failed: {out.stderr[-2000:]}")
+    named = {}
+    for term, ev in stack.recorder.last_leader_per_term().items():
+        check(f"term {term}: {ev.node} " in out.stdout,
+              f"--explain does not name {ev.node} as term {term}'s leader")
+        named[str(term)] = ev.node
+    return {"bytes": os.path.getsize(path), "write_s": write_s,
+            "explain_s": explain_s, "last_leader_per_term": named,
+            "explain_lines": len(out.stdout.splitlines())}
+
+
+def phase_engine_obs_path(dev):
+    """The observed engine at the north star's deployment (3 replicas,
+    256-byte entries, B = 1024, C = 32 768): ``obs_engine_run``'s schedule
+    at ``fuse_k`` 1 and 8, each detached, with the plane but no recorder
+    or trace, and with the full plane (recorder, trace, an ``OpsServer``
+    scraped from a thread during the run). Exact checks: the recorder's
+    nodelog lines equal the trace; read-backs and the apply stream equal
+    the detached run's; every span committed (and applied, off the
+    pipelined chunk); no audit violation and the auditor's digest equal
+    to the read-back bytes'; the Prometheus text round-trips with
+    ``raft_commits_total`` = ``committed_total``; every answer of the
+    server 200 and the board's snapshot; at ``fuse_k`` 8 the recorder
+    dump, span table, metrics text and auditor summary (apart from its
+    count of audited events) equal ``fuse_k`` 1's; a bundle explained by
+    the CLI names every term's last leader; and the device fetches of
+    the plane-attached run equal the detached run's, by ``_fetch`` and by
+    the profiler's device-to-host copies. Recorded: ms per leader tick
+    (p50, p99) detached and attached, fetches and copies per leader tick
+    with and without a recorder, events and spans per leader tick, one
+    ``/status`` and one ``/metrics`` request, the bundle's size and
+    write time."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    res = {"phase": "engine_obs_path", "plan": OBS_PLAN}
+    zero_counters(dev)
+    keeps = {}
+    for k in (1, 8):
+        cfg = fused_config(STEPS_PER_FLIGHT * 1024, k)
+        runs = {}
+        for mode in ("detached", "plane", "full"):
+            runs[mode], keeps[(k, mode)], stack = obs_engine_run(
+                cfg, dev, mode, serve=(mode == "full"),
+                profile=(mode != "full" or k == 1))
+            if mode == "full" and k == 8:
+                with tempfile.TemporaryDirectory() as tmp:
+                    res["bundle"] = obs_bundle(cfg, stack, tmp)
+            stack = None
+        d, p, f = (keeps[(k, m)] for m in ("detached", "plane", "full"))
+        for m, kp in (("plane", p), ("full", f)):
+            for key in ("reads", "apply_sha256", "commit_watermark",
+                        "terms", "commit_time"):
+                check(kp[key] == d[key],
+                      f"fuse_k={k}: {m} run's {key} differs from the "
+                      "detached run's")
+        check(p["fetches_in_events"] == d["fetches_in_events"],
+              f"fuse_k={k}: the attached plane fetched "
+              f"{p['fetches_in_events']} times, detached "
+              f"{d['fetches_in_events']}")
+        check(runs["plane"]["profiled_burst"]["dtoh_copies"]
+              == runs["detached"]["profiled_burst"]["dtoh_copies"],
+              f"fuse_k={k}: the attached plane's device-to-host copies "
+              "differ from the detached run's")
+        for key in ("spans_sha256", "prometheus", "audit_summary",
+                    "commit_digest", "slo", "status"):
+            check(p[key] == f[key], f"fuse_k={k}: {key} differs between "
+                                    "the plane and the full run")
+        res[f"fuse_k={k}"] = runs
+    a, b = keeps[(1, "full")], keeps[(8, "full")]
+    check(b["lines"] == a["lines"], "fuse_k=8: nodelog lines differ")
+    for key in ("events_sha256", "spans_sha256", "prometheus",
+                "commit_digest", "reads", "apply_sha256"):
+        check(b[key] == a[key], f"fuse_k=8: {key} differs from fuse_k=1's")
+    sa, sb = dict(a["audit_summary"]), dict(b["audit_summary"])
+    res["ticks_audited"] = {"fuse_k=1": sa.pop("ticks_audited"),
+                            "fuse_k=8": sb.pop("ticks_audited")}
+    check(sa == sb, "fuse_k=8: the auditor's summary differs from fuse_k=1's")
+    check(res["fuse_k=8"]["full"]["fused_launches"] > 0,
+          "fuse_k=8: no fused launch")
+    res["launches"] = read_counters(dev)
+    for key in ("K1", "K2", "K3", "K4"):
+        check(res["launches"][key] > 0,
+              f"engine_obs_path: {key} never launched")
+    torch.cuda.synchronize()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+def phase_obs_card_equals_cpu(dev):
+    """``obs_engine_run`` with the full plane at a 4 096-slot ring and
+    ``fuse_k`` 8 on the card and on the CPU (the CPU's flight gate
+    opened, so both fly the same ring): the recorder dumps, nodelog
+    lines, span tables, Prometheus text, auditor summaries, SLO and
+    status snapshots, read-backs and apply streams must be equal."""
+    import raft_tpu_torch.raft.engine as engine_mod
+
+    t_phase = time.perf_counter()
+    cfg = fused_config(OBS_SMALL_CAPACITY, 8)
+    keeps, walls, runs = {}, {}, {}
+    zero_counters(dev)
+    counters = None
+    for where in (dev, "cpu"):
+        hook = engine_mod._pipeline_backend_ok
+        if where == "cpu":
+            engine_mod._pipeline_backend_ok = lambda *a: True
+        try:
+            t0 = time.perf_counter()
+            runs[str(where)], keeps[str(where)], _ = obs_engine_run(
+                cfg, where, "full")
+            walls[str(where)] = time.perf_counter() - t0
+        finally:
+            engine_mod._pipeline_backend_ok = hook
+        if where == dev:
+            counters = read_counters(dev)
+    card, cpu = keeps[str(dev)], keeps["cpu"]
+    equal = sorted(k for k in card if k != "fetches_in_events")
+    for key in equal:
+        check(card[key] == cpu[key], f"obs card vs CPU: {key} differs")
+    check(runs[str(dev)]["fused_launches"] == runs["cpu"]["fused_launches"]
+          > 0, "obs card vs CPU: fused launches differ")
+    for key in ("K1", "K3", "K4"):
+        # K1 in the ticks and the fused graphs, K3's plan and K4's writes
+        # in the flight (every steady tick of this run is fused)
+        check(counters[key] > 0, f"obs card run: {key} never launched")
+    emit({"phase": "obs_card_equals_cpu", "capacity": OBS_SMALL_CAPACITY,
+          "fuse_k": 8, "equal": equal,
+          "events": runs[str(dev)]["events"],
+          "spans": runs[str(dev)]["spans"],
+          "leader_ticks": runs[str(dev)]["leader_ticks"],
+          "fused_launches": runs[str(dev)]["fused_launches"],
+          "launches_card": counters, "walls_s": walls,
+          "phase_s": time.perf_counter() - t_phase})
+    return {"launches": counters}
 
 
 def phase_config5_storm(dev):
@@ -5869,6 +6443,8 @@ def main() -> int:
     c4_main = phase_config4_main_path(dev)
     engine_main = phase_engine_main_path(cfg, dev)
     engine_fused = phase_engine_fused_path(dev)
+    engine_obs = phase_engine_obs_path(dev)
+    engine_obs_small = phase_obs_card_equals_cpu(dev)
     c5 = phase_config5_storm(dev)
     ecfg = ec_config()
     ec_errs = phase_ec_kernels(ecfg, dev)
@@ -5914,6 +6490,11 @@ def main() -> int:
                         engine_fused["launches"][key]
                     by_path["engine_fused_card_equals_cpu"] = \
                         engine_fused["card_equals_cpu_launches"][key]
+                # the engine with the observability plane attached, and its
+                # reduced run on the card against the CPU
+                by_path["engine_obs"] = engine_obs["launches"][key]
+                by_path["engine_obs_card_equals_cpu"] = \
+                    engine_obs_small["launches"][key]
                 if key in ("K1", "K2"):
                     by_path["config5"] = c5["launches"][key]
                 # the replicated KV store under member masks, and its

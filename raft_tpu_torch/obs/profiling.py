@@ -7,8 +7,8 @@ launch while a capture is active, so a trace segments by launch, and the
 shared null context otherwise — the detached cost is one module-bool test
 per launch, no device traffic. ``annotating()`` marks a capture active
 around a block (a caller that runs ``torch.profiler`` over engine ticks).
-The on-demand capture and the timeline merge of the JAX module are
-ROADMAP A16.
+The on-demand capture (``/profile``) and the timeline merge of the JAX
+module wait for ROADMAP A16b.
 """
 
 from __future__ import annotations

@@ -62,12 +62,17 @@ books them exactly as K ticks would. ``hostprof`` takes an
 ``obs.hostprof.HostProfiler`` that splits each event's host time into
 phases.
 
+The host observability plane attaches as in the JAX engine:
+``recorder=`` (an ``obs.events.FlightRecorder``) and the ``spans``,
+``metrics``, ``auditor``, ``slo`` and ``status_board`` attributes
+(``obs.forensics.ObsStack.attach`` sets them together). Every hook is
+host code reading host mirrors: with no recorder and no trace attached
+the engine makes exactly the device fetches it makes with nothing
+attached, and the artifacts equal the JAX engine's.
+
 Not ported yet; each raises ``NotImplementedError`` naming its ROADMAP
 item: the tiered archive and the device event ring (A13); the multihost
-mirror digest (A15); the flight recorder (A16). The other observability
-hooks of the JAX engine (``spans``, ``metrics``, ``auditor``, ``slo``,
-``status_board``) come with A16, and the engine has no such attributes
-until then.
+mirror digest (A15).
 """
 
 from __future__ import annotations
@@ -203,7 +208,7 @@ class RaftEngine:
         vote_log: Optional[str] = None,
         recorder=None,
     ):
-        self._refuse_unported(cfg, recorder)
+        self._refuse_unported(cfg)
         self.cfg = cfg
         self.t: Transport = (transport if transport is not None
                              else make_transport(cfg))
@@ -212,8 +217,37 @@ class RaftEngine:
         self.rng = random.Random(cfg.seed)
         self.clock = VirtualClock()
         self._trace = trace
+        self.recorder = recorder
+        #   obs.events.FlightRecorder (None = off): every nodelog call
+        #   site records a typed Event whose ``.nodelog()`` rendering is
+        #   the legacy trace line, plus the transitions that have no line
+        #   (_record_event). With neither a recorder nor a trace attached,
+        #   nodelog skips its device fetch.
+        self.spans = None
+        #   obs.spans.SpanTracker (None = off): submit/submit_read bind the
+        #   ambient span to their seq or ticket; ingest, commit and apply
+        #   annotate it.
+        self.metrics = None
+        #   obs.registry.MetricsRegistry (None = off): protocol counters,
+        #   gauges and the commit-latency histogram, labeled group="0".
+        self.auditor = None
+        #   obs.audit.SafetyAuditor (None = off): election wins, commit
+        #   advances, archive feeds and tick boundaries checked against
+        #   Raft's invariants during the run, from host mirrors only.
+        self.slo = None
+        #   obs.slo.SloTracker (None = off): commit, read and queue-delay
+        #   latency digests with burn-rate evaluation on the virtual clock.
+        self.status_board = None
+        #   obs.serve.StatusBoard (None = off): a host-only snapshot
+        #   published at each event-loop flush boundary, which the ops
+        #   server reads from its own thread.
+        #   None of these five fetches anything from the device.
+        self._floor_event_hwm: Dict[int, int] = {}
+        #   per row: the highest repair floor a repair_floor_raise event
+        #   has reported (the recorder-only event fires on a raise)
         self._tick_count = 0
-        #   Leader ticks fired so far (the launch annotation's step)
+        #   Leader ticks fired so far (the launch annotation's step and
+        #   the span tracker's replication-round clock)
         self.hostprof = None
         #   obs.hostprof.HostProfiler (None = off): phase timers tiling
         #   step_event (heap_pop, host_pre, pack, dispatch, device_wait,
@@ -399,15 +433,13 @@ class RaftEngine:
                 self._arm_follower(r)
 
     @staticmethod
-    def _refuse_unported(cfg: RaftConfig, recorder) -> None:
+    def _refuse_unported(cfg: RaftConfig) -> None:
         """Raise for every configuration whose code is not ported yet."""
         if os.environ.get("RAFT_TPU_TIERED_DIR", "") or cfg.tiered_log_dir:
             raise _not_ported("the tiered archive (tiered_log_dir)", "A13")
         if cfg.mirror_check_every:
             raise _not_ported("the multihost mirror digest "
                               "(mirror_check_every)", "A15")
-        if recorder is not None:
-            raise _not_ported("the flight recorder (recorder=)", "A16")
 
     # ------------------------------------------------------------------ util
     def _fetch(self, x) -> np.ndarray:
@@ -427,27 +459,61 @@ class RaftEngine:
         return torch.from_numpy(
             np.require(data, requirements=["C", "W"])).to(self._dev)
 
-    def _nodelog_at(self, r: int, msg: str, commit: int, last: int) -> str:
-        """``nodelog`` with caller-supplied commit/last values."""
-        if self._trace is None:
+    def _nodelog_at(self, r: int, msg: str, commit: int, last: int,
+                    kind: Optional[str] = None, **fields) -> str:
+        """``nodelog`` with caller-supplied commit/last values (the fused
+        booking's emission path: no device fetch mid-booking). ``commit``
+        and ``last`` are Python ints; the line and the recorded event
+        are :meth:`nodelog`'s."""
+        rec = self.recorder
+        if rec is None and self._trace is None:
             return ""
         line = (
             f"[Server{r}:{self.terms[r]}:{commit}:{last}]"
             f"[{self.roles[r]}]{msg}"
         )
-        self._trace(line)
+        if rec is not None:
+            rec.record(
+                node=f"Server{r}", term=int(self.terms[r]), kind=kind,
+                t_virtual=self.clock.now, state=self.roles[r],
+                commit_index=commit, last_index=last, msg=msg, **fields,
+            )
+        if self._trace is not None:   # not truthiness: empty sinks are falsy
+            self._trace(line)
         return line
 
-    def nodelog(self, r: int, msg: str) -> str:
+    def nodelog(self, r: int, msg: str, kind: Optional[str] = None,
+                **fields) -> str:
         """The reference's trace schema (main.go:399-401) — the
         differential join key: [Id:Term:CommitIndex:LastApplied][state]msg.
-        With no trace sink attached the device fetch is skipped."""
-        if self._trace is None:
+        With a flight recorder attached the same emission records a typed
+        ``obs.events.Event`` (``kind`` explicit or classified from the
+        message). With neither a recorder nor a trace attached the device
+        fetch is skipped."""
+        if self.recorder is None and self._trace is None:
             return ""
         ci_li = self._fetch(
             torch.stack([self.state.commit_index, self.state.last_index])
         )   # one fetch for both fields
-        return self._nodelog_at(r, msg, int(ci_li[0, r]), int(ci_li[1, r]))
+        return self._nodelog_at(r, msg, int(ci_li[0, r]), int(ci_li[1, r]),
+                                kind, **fields)
+
+    def _record_event(self, r: int, kind: str, **fields) -> None:
+        """Record a structured event that has no nodelog line (it never
+        enters the trace stream). Reads only host mirrors."""
+        if self.recorder is not None:
+            self.recorder.record(
+                node=f"Server{r}", term=int(self.terms[r]), kind=kind,
+                t_virtual=self.clock.now, state=self.roles[r], **fields,
+            )
+
+    def _metric_inc(self, name: str, help_: str = "", **labels) -> None:
+        """Guarded counter bump (no-op without a registry). The single
+        engine is group "0"; extra labels (a shed ``reason``) ride along."""
+        if self.metrics is None:
+            return
+        labels.setdefault("group", "0")
+        self.metrics.counter(name, help_, tuple(labels)).inc(**labels)
 
     def _set_votes(self, terms: np.ndarray, vf: np.ndarray) -> None:
         """Install per-replica (term, votedFor) into the device state and
@@ -522,11 +588,26 @@ class RaftEngine:
                 f"payload must be exactly {self.cfg.entry_bytes} bytes"
             )
         if self.admission is not None:
-            self.admission.admit_write(len(self._queue), client)
+            try:
+                self.admission.admit_write(len(self._queue), client)
+            except Overloaded as ex:
+                # refused before anything queued: the ambient span and the
+                # shed counter record the reason
+                if self.spans is not None:
+                    self.spans.note_refusal(ex.reason, self.clock.now)
+                self._metric_inc("raft_sheds_total", reason=ex.reason)
+                raise
         seq = self._next_seq
         self._next_seq += 1
         self._queue.append((seq, payload))
         self.submit_time[seq] = self.clock.now
+        if self.spans is not None:
+            self.spans.note_submit(seq, self.clock.now)
+        if self.metrics is not None:
+            self.metrics.gauge(
+                "raft_queue_depth_high_water",
+                "max host write-queue depth observed", ("group",),
+            ).set_max(len(self._queue), group="0")
         if self._fused_driver is not None:
             # stage the batch this entry completed into the device
             # staging ring (a client-side cost: the fused drain reads it
@@ -575,6 +656,7 @@ class RaftEngine:
         if self.lease is not None:
             self.lease.break_(r)
         self.nodelog(r, "step down to follower")
+        self._metric_inc("raft_term_adoptions_total")
         self._arm_follower(r)
 
     def submit_pipelined(self, payloads: List[bytes]) -> List[int]:
@@ -882,24 +964,36 @@ class RaftEngine:
                     break
                 self._drop_read_ticket(tk)
                 self._read_evict_floor = max(self._read_evict_floor, tk + 1)
-            self.admission.admit_read(len(self._reads))
+            try:
+                self.admission.admit_read(len(self._reads))
+            except Overloaded as ex:
+                if self.spans is not None:
+                    self.spans.note_refusal(ex.reason, self.clock.now)
+                self._metric_inc("raft_sheds_total", reason=ex.reason)
+                raise
         if r is None:
             r = self.leader_id
-        if r is None or self.roles[r] != LEADER or not self.alive[r]:
-            raise LinearizableReadRefused("not a live leader")
-        if int(self.terms[r]) > int(self.lead_terms[r]):
-            self._step_down_leader(r, int(self.terms[r]))
-            raise LinearizableReadRefused("deposed (higher term seen)")
-        # the lease before the reach check: a lease holder serves with no
-        # knowledge of the cluster beyond its drift-bounded clock
-        lease_idx = self.lease_read_index(r)
-        if lease_idx is None:
-            voters = self._voter_reach(r)
-            if int(voters.sum()) <= int(self.member.sum()) // 2:
-                raise LinearizableReadRefused(
-                    f"quorum unreachable ({int(voters.sum())} of "
-                    f"{int(self.member.sum())} members)"
-                )
+        lease_idx = None
+        try:
+            if r is None or self.roles[r] != LEADER or not self.alive[r]:
+                raise LinearizableReadRefused("not a live leader")
+            if int(self.terms[r]) > int(self.lead_terms[r]):
+                self._step_down_leader(r, int(self.terms[r]))
+                raise LinearizableReadRefused("deposed (higher term seen)")
+            # the lease before the reach check: a lease holder serves with
+            # no knowledge of the cluster beyond its drift-bounded clock
+            lease_idx = self.lease_read_index(r)
+            if lease_idx is None:
+                voters = self._voter_reach(r)
+                if int(voters.sum()) <= int(self.member.sum()) // 2:
+                    raise LinearizableReadRefused(
+                        f"quorum unreachable ({int(voters.sum())} of "
+                        f"{int(self.member.sum())} members)"
+                    )
+        except LinearizableReadRefused as ex:
+            if self.spans is not None:
+                self.spans.note_read_refused(None, str(ex), self.clock.now)
+            raise
         tk = self._next_read_ticket
         self._next_read_ticket += 1
         bind = (r, int(self.lead_terms[r]))
@@ -921,6 +1015,8 @@ class RaftEngine:
             for old in list(islice(iter(self._reads), n_evict)):
                 self._drop_read_ticket(old)
                 self._read_evict_floor = max(self._read_evict_floor, old + 1)
+        if self.spans is not None:
+            self.spans.note_read_ticket(tk, self.clock.now)
         return tk
 
     def read_ticket_class(self, ticket: int) -> Optional[str]:
@@ -958,13 +1054,29 @@ class RaftEngine:
             raise KeyError(f"unknown or already-consumed ticket {ticket}")
         row, idx, tterm, st = rec[:4]
         if st == "ready":
+            cls = rec[5]
             self._drop_read_ticket(ticket)
-            self._note_read_served(rec[5])
+            if self.spans is not None:
+                self.spans.note_read_confirmed(
+                    ticket, idx, self.clock.now, cls=cls,
+                    rounds=0 if cls == "lease" else None,
+                )
+            if self.slo is not None:
+                # read latency: ticket mint -> confirmation (rec[4])
+                self.slo.observe(
+                    "read", self.clock.now - rec[4], self.clock.now
+                )
+            self._note_read_served(cls, self.clock.now - rec[4])
             return idx
         if (self.roles[row] != LEADER or not self.alive[row]
                 or int(self.lead_terms[row]) != tterm
                 or int(self.terms[row]) > tterm):
             self._drop_read_ticket(ticket)
+            if self.spans is not None:
+                self.spans.note_read_refused(
+                    ticket, "leadership lost before confirmation",
+                    self.clock.now,
+                )
             raise LinearizableReadRefused(
                 "leadership lost before confirmation"
             )
@@ -1010,11 +1122,17 @@ class RaftEngine:
         if self.lease is not None:
             self.lease.set_rate(r, rate)
 
-    def _note_read_served(self, cls: str) -> None:
-        """One read served under class ``cls`` (lease / read_index)."""
+    def _note_read_served(self, cls: str, latency_s: float) -> None:
+        """One read served under class ``cls`` (lease / read_index): the
+        host count, ``raft_reads_total{class}`` and the per-class SLO
+        latency digest."""
         self.read_class_counts[cls] = self.read_class_counts.get(cls, 0) + 1
+        self._metric_inc("raft_reads_total", "reads served by class",
+                         **{"class": cls})
         if self.admission is not None:
             self.admission.note_read_class(cls)
+        if self.slo is not None:
+            self.slo.observe(f"read_{cls}", latency_s, self.clock.now)
 
     def _confirm_reads(self, r: int, term: int, eff, max_term: int) -> None:
         """A quorum round sourced at ``r`` just completed: when it reached
@@ -1057,7 +1175,13 @@ class RaftEngine:
             raise LinearizableReadRefused("deposed (higher term seen)")
         lease_idx = self.lease_read_index(r)
         if lease_idx is not None:
-            self._note_read_served("lease")
+            # zero rounds, no device dispatch: the lease's drift-bounded
+            # validity is the leadership confirmation
+            if self.spans is not None:
+                self.spans.note_read_served(
+                    "lease", self.clock.now, index=lease_idx, rounds=0,
+                )
+            self._note_read_served("lease", 0.0)
             return lease_idx
         read_index = self.commit_watermark
         eff = self._reach(r)
@@ -1079,7 +1203,11 @@ class RaftEngine:
         self._advance_commit(r, int(info.commit_index))
         self._confirm_reads(r, term, eff, max_term)
         self._reset_heard_timers(r)
-        self._note_read_served("read_index")
+        if self.spans is not None:
+            self.spans.note_read_served(
+                "read_index", self.clock.now, index=read_index, rounds=1,
+            )
+        self._note_read_served("read_index", 0.0)
         return read_index
 
     def _empty_round(self, r: int, term: int, eff):
@@ -1462,6 +1590,10 @@ class RaftEngine:
         self._steady = False
         if self.member[r]:
             self._wiped[r] = True
+        if self.auditor is not None:
+            # a wipe legally resets the row's term to 0: the auditor's
+            # per-node term watermark resets with it
+            self.auditor.note_wipe(f"Server{r}")
         self.nodelog(r, "wiped (durable state destroyed)")
 
     def set_slow(self, r: int, is_slow: bool) -> None:
@@ -1516,6 +1648,15 @@ class RaftEngine:
         cap = self.state.capacity
         lap = int(self._pre_lasts()[r]) - cap + 1
         floor = max(int(self._ring_floor[r]), lap)
+        if (self.recorder is not None and floor > 1
+                and floor > self._floor_event_hwm.get(r, 0)):
+            # the repair floor rose (lap horizon or truncation): a
+            # recorder-only event, no nodelog line
+            self._floor_event_hwm[r] = floor
+            self._record_event(
+                r, "repair_floor_raise", floor=floor, lap_horizon=lap,
+                ring_floor=int(self._ring_floor[r]),
+            )
         if floor <= 1:
             return floor, 0
         ent = self.store.get(floor - 1)
@@ -1620,10 +1761,68 @@ class RaftEngine:
                 "partition": lambda p: self.partition(ev.groups),
                 "heal_partition": lambda p: self.heal_partition(),
             }[ev.action](ev.replica)
+        # the online plane's flush boundary: the invariant scan over host
+        # mirrors, the SLO window evaluation and the status publish. Host
+        # work only (no device fetch, no rng); before hp.tick_end, so the
+        # profiler's phases still tile the event.
+        if self.auditor is not None:
+            self.auditor.note_state(
+                self.terms, self.commit_watermark, self.clock.now
+            )
+        if self.slo is not None:
+            self.slo.maybe_evaluate(self.clock.now)
+        if self.status_board is not None:
+            self.status_board.publish(self._status_snapshot())
         if hp is not None:
             hp.tick_end()
         return True
 
+    def _status_snapshot(self) -> dict:
+        """The ``/status`` snapshot (``obs.serve``): leader map,
+        watermarks, replication lag (ingested, uncommitted depth), queue
+        depths, audit summary. Host values only (Python ints, floats,
+        str, lists and dicts, never a tensor), built fresh per publish so
+        the server thread reads an immutable dict."""
+        lead = self.leader_id
+        snap = {
+            "t_virtual": self.clock.now,
+            "groups": 1,
+            "leaders": {
+                "0": (
+                    {"replica": lead, "term": int(self.lead_terms[lead])}
+                    if lead is not None else None
+                )
+            },
+            "terms": [int(x) for x in self.terms],
+            "roles": list(self.roles),
+            "alive": [bool(a) for a in self.alive],
+            "commit_watermark": {"0": int(self.commit_watermark)},
+            "applied_index": {"0": int(self.applied_index)},
+            "replication_lag": {"0": len(self._seq_at_index)},
+            "queue_depth": {"0": len(self._queue)},
+            "reads_pending": len(self._reads),
+            "committed_total": self.committed_total,
+            "fused": {
+                "launches": self.fused_launches,
+                "ticks": self.fused_ticks,
+            },
+        }
+        if self.admission is not None:
+            snap["shedding"] = bool(self.admission.shedding)
+        if self.lease is not None or self.read_class_counts:
+            reads = {"by_class": dict(self.read_class_counts)}
+            if self.lease is not None and lead is not None:
+                reads["lease"] = self.lease.summary(
+                    lead, int(self.lead_terms[lead]), self.clock.now
+                )
+            snap["reads"] = reads
+        # the JAX snapshot's "tiered" section comes with the tiered
+        # archive (ROADMAP A13)
+        if self._shipper.streams or self._shipper.chunks_total:
+            snap["catchup"] = self._shipper.summary()
+        if self.auditor is not None:
+            snap["audit"] = self.auditor.summary()
+        return snap
     def next_event_time(self) -> Optional[float]:
         """Virtual-clock time of the next pending event, or None."""
         return self._q[0][0] if self._q else None
@@ -1788,6 +1987,16 @@ class RaftEngine:
                     self.roles[p] = FOLLOWER
                     self._arm_follower(p)
             self.nodelog(r, "state changed to leader")
+            if self.auditor is not None:
+                # Election Safety, online: at most one winner per term
+                self.auditor.note_elect(
+                    f"Server{r}", cand_term, self.clock.now
+                )
+            self._metric_inc("raft_elections_total")
+            if self.metrics is not None:
+                self.metrics.gauge(
+                    "raft_term", "highest term seen", ("group",),
+                ).set_max(int(self.terms.max()), group="0")
             self._push(self.clock.now, f"l:{self._timer_gen[r]}", r)
         else:
             self._arm_candidate(r)
@@ -1807,6 +2016,7 @@ class RaftEngine:
             return
         cfg = self.cfg
         self._tick_count += 1
+        self._metric_inc("raft_heartbeat_ticks_total")
         if cfg.check_quorum:
             # §9.6 CheckQuorum: a leader cut off from a voter majority for
             # a full minimum election timeout demotes itself
@@ -1826,14 +2036,18 @@ class RaftEngine:
         B = cfg.batch_size
         routed = self.leader_id == r
         eff = self._reach(r)
-        if routed and self.admission is not None:
-            # the delay controller's head-of-queue sojourn (0 on an empty
-            # queue, which is what exits the shedding state)
+        if routed and (self.admission is not None or self.slo is not None):
+            # the head-of-queue sojourn (0 on an empty queue, which is
+            # what exits the shedding state): the delay controller's input
+            # and the SLO tracker's queue-delay series
             head_delay = 0.0
             if self._queue:
                 head_delay = self.clock.now - self.submit_time.get(
                     self._queue[0][0], self.clock.now
                 )
+            if self.slo is not None:
+                self.slo.observe("queue_delay", head_delay, self.clock.now)
+        if routed and self.admission is not None:
             transition = self.admission.observe_delay(head_delay)
             if transition == "shed_start":
                 self.nodelog(
@@ -1900,6 +2114,8 @@ class RaftEngine:
         pre_lasts = self._pre_lasts()
         floor, fpt = self._floor_attest(r)
         repair = self._repair_program()
+        if repair:
+            self._metric_inc("raft_repair_rounds_total")
         if hp is not None:
             # the floor attest and cached-lasts fetches are part of the
             # tick's host round trip: host_pre, not device_wait
@@ -1934,12 +2150,16 @@ class RaftEngine:
             last = int(self._fetch(self.state.last_index)[r])  # post-ingest
             base = last - ingested
             chunk = self._queue[:ingested]
-            if self._config_seqs:
+            if self._config_seqs or self.spans is not None:
                 for i, (seq, p) in enumerate(chunk):
                     idx = base + 1 + i
                     self._seq_at_index[idx] = seq
                     self._uncommitted[idx] = (p, term)
                     self._note_config_ingest(idx, seq, term)
+                    if self.spans is not None:
+                        self.spans.note_ingest(
+                            seq, idx, self.clock.now, self._tick_count
+                        )
             else:
                 self._seq_at_index.update(
                     zip(range(base + 1, last + 1), (s for s, _ in chunk))
@@ -2089,16 +2309,35 @@ class RaftEngine:
             # entry: the §6.4 lease precondition
             self._lease_ok_term[r] = int(self.lead_terms[r])
         old_wm = self.commit_watermark
+        slo_lat = [] if self.slo is not None else None
         now = self.clock.now
         sq_get = self._seq_at_index.get
+        st_get = self.submit_time.get
         ct = self.commit_time
+        need_lat = self.metrics is not None or slo_lat is not None
         for idx in range(self.commit_watermark + 1, commit + 1):
             seq = sq_get(idx)
             if seq is not None and seq not in ct:
                 ct[seq] = now
                 self.committed_total += 1
+                lat = (now - st_get(seq, now)) if need_lat else 0.0
+                if self.spans is not None:
+                    self.spans.note_commit(seq, now, self._tick_count)
+                if self.metrics is not None:
+                    self._metric_inc("raft_commits_total")
+                    self.metrics.histogram(
+                        "raft_commit_latency_seconds",
+                        "submit -> durable, virtual seconds", ("group",),
+                    ).observe(lat, group="0")
+                if slo_lat is not None:
+                    slo_lat.append(lat)
+        if slo_lat:
+            # one vectorized digest and window update per advance
+            self.slo.observe_batch("commit", slo_lat, now)
         self._archive_committed(r, self.commit_watermark + 1, commit)
         self.commit_watermark = commit
+        if self.auditor is not None:
+            self.auditor.note_commit(commit, self.clock.now)
         self.nodelog(r, f"commit index changed to {commit}")
         if self._pending_config is not None and self._pending_config[0] <= commit:
             idx = self._pending_config[0]
@@ -2157,12 +2396,21 @@ class RaftEngine:
         slots_all = (np.arange(lo, hi + 1) - 1) % self.state.capacity
         lead_terms = self._fetch(self.state.log_term)[leader, slots_all]
         missing = []
+        aud = self.auditor
+        fed = [] if aud is not None else None
         for i, idx in enumerate(range(lo, hi + 1)):
             ent = self._uncommitted.get(idx)
             if ent is not None and ent[1] == int(lead_terms[i]):
                 self.store.put(idx, ent[0], ent[1])
+                if fed is not None:
+                    fed.append((idx, ent[0], ent[1]))
             else:
                 missing.append(idx)
+        if fed:
+            # the committed-prefix immutability feed: a fresh contiguous
+            # run records as one lazy span; a re-archive of a recorded
+            # index is compared byte for byte
+            aud.note_entries(fed, self.clock.now)
         if not missing:
             return
         mlo, mhi = min(missing), max(missing)
@@ -2193,8 +2441,12 @@ class RaftEngine:
         except ValueError:
             return
         for idx in missing:
-            self.store.put(idx, data[idx - mlo].tobytes(),
-                           int(terms[idx - mlo]))
+            payload = data[idx - mlo].tobytes()
+            self.store.put(idx, payload, int(terms[idx - mlo]))
+            if self.auditor is not None:
+                self.auditor.note_entry(
+                    idx, int(terms[idx - mlo]), payload, self.clock.now
+                )
 
     def _catchup_budget(self) -> int:
         """Chunks the catch-up lane may ship this tick: the admission
@@ -2250,12 +2502,17 @@ class RaftEngine:
                 )
                 raise_floor = False
             self._shipper.acked(replica, chi)
+            self._metric_inc(
+                "raft_snapshot_chunks_total",
+                "incremental snapshot-install chunks shipped",
+            )
             reached = chi
         if reached is not None:
             self._lasts_snapshot = None  # last_index moved outside a step
             self._match_snapshot = None  # ...and so did match_index
             self.nodelog(replica, f"snapshot chunk installed to {reached}")
             if reached >= hi:
+                self._metric_inc("raft_snapshot_installs_total")
                 self._shipper.finish(replica)
                 self.nodelog(
                     replica, f"snapshot stream complete at {hi}"
@@ -2518,6 +2775,8 @@ class RaftEngine:
             # advance first, then deliver to every eligible callback even
             # if one raises (collect + re-raise)
             self.applied_index += 1
+            if self.spans is not None:
+                self.spans.note_apply(self.applied_index, self.clock.now)
             err: Optional[BaseException] = None
             for fn, fn_start in self._apply_fns:
                 if self.applied_index >= fn_start:

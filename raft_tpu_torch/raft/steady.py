@@ -36,10 +36,11 @@ Three pieces:
   tick-at-a-time engine's byte for byte: committed log, stamps, rng,
   heap and nodelog lines.
 
-The JAX booking also feeds spans, metrics, the safety auditor, the SLO
-tracker, the flight recorder and the device event ring; the port's
-engine has none of those yet (ROADMAP A13, A16a), and the booking does
-what the JAX booking does with each of them detached.
+The booking feeds the host observability plane as the JAX booking does
+(spans, metrics, the safety auditor, the SLO tracker, the flight
+recorder), all of it host code after the launch: nothing of it runs
+inside the captured graph. The device event ring the JAX booking also
+flushes waits for ROADMAP A13.
 """
 
 from __future__ import annotations
@@ -482,6 +483,7 @@ class _WindowBook:
         e.clock.now = max(e.clock.now, t_j)
         e._tick_count += 1
         e.fused_ticks += 1
+        e._metric_inc("raft_heartbeat_ticks_total")
         if cfg.check_quorum:
             # the voter quorum is reachable by the eligibility proof: the
             # contact renews exactly as the tick path's branch would
@@ -504,6 +506,12 @@ class _WindowBook:
                     r, "admission shedding OFF (delay back under "
                     "target)", e.commit_watermark, self.last,
                 )
+        if self.g > 0 and e.recorder is not None:
+            # the tick path fires repair_floor_raise inside tick j's
+            # pre-dispatch _floor_attest, from the previous tick's last:
+            # replay it there with that value (tick 0's event fired in
+            # _run_window's own _floor_attest)
+            self._replay_floor_event(self.last)
         if escape and max_term > term:
             # the step that surfaced a higher term: the tick path books
             # nothing from it (no ingest mapping, no commit, no re-arm, no
@@ -526,6 +534,8 @@ class _WindowBook:
                 idx = self.last + 1 + i
                 e._seq_at_index[idx] = seq
                 e._uncommitted[idx] = (p, term)
+                if e.spans is not None:
+                    e.spans.note_ingest(seq, idx, t_j, e._tick_count)
             e._advance_commit(r, commit)
         self.qpos += frontier
         self.last = new_last
@@ -567,13 +577,39 @@ class _WindowBook:
         term = self.term
         n = len(chunk)
         s0, sl = chunk[0][0], chunk[-1][0]
-        if sl - s0 + 1 == n:
+        if (e.spans is None and e.metrics is None and e.slo is None
+                and sl - s0 + 1 == n):
             e.commit_time.update(dict.fromkeys(range(s0, sl + 1), t_j))
         else:
-            for seq, _ in chunk:
+            slo_lat = [] if e.slo is not None else None
+            for i, (seq, p) in enumerate(chunk):
                 e.commit_time[seq] = t_j
+                if e.spans is not None:
+                    e.spans.note_ingest(
+                        seq, new_last - n + 1 + i, t_j, e._tick_count
+                    )
+                    e.spans.note_commit(seq, t_j, e._tick_count)
+                if e.metrics is not None:
+                    e._metric_inc("raft_commits_total")
+                    e.metrics.histogram(
+                        "raft_commit_latency_seconds",
+                        "submit -> durable, virtual seconds", ("group",),
+                    ).observe(
+                        t_j - e.submit_time.get(seq, t_j), group="0",
+                    )
+                if slo_lat is not None:
+                    slo_lat.append(t_j - e.submit_time.get(seq, t_j))
+            if slo_lat:
+                e.slo.observe_batch("commit", slo_lat, t_j)
         e.committed_total += n
         e.store.put_span(new_last - n + 1, chunk, term, pick=1)
+        if e.auditor is not None:
+            # the span-granularity audit feed, O(1) per launch like
+            # put_span: entries resolve lazily inside the auditor
+            e.auditor.note_entry_span(
+                new_last - n + 1, chunk, term, t_j, pick=1
+            )
+            e.auditor.note_commit(commit, t_j)
         if commit > e._row_commit[r]:
             e._row_commit[r] = commit
         e._lease_ok_term[r] = term
@@ -581,9 +617,25 @@ class _WindowBook:
         #   riding r's own round: _advance_commit's lease gate
         e.commit_watermark = commit
         e._nodelog_at(r, f"commit index changed to {commit}",
-                      commit, new_last)
+                      commit, new_last, kind="commit")
         e._evict_commit_stamps()
         e._drain_apply()
+
+    def _replay_floor_event(self, last: int) -> None:
+        """The tick path's ``_floor_attest`` records a recorder-only event
+        when the lap horizon raises the repair floor past its high-water
+        mark; replay it at the tick where it would fire."""
+        e = self.d.e
+        r = self.r
+        cap = e.state.capacity
+        lap = last - cap + 1
+        floor = max(int(e._ring_floor[r]), lap)
+        if floor > 1 and floor > e._floor_event_hwm.get(r, 0):
+            e._floor_event_hwm[r] = floor
+            e._record_event(
+                r, "repair_floor_raise", floor=floor, lap_horizon=lap,
+                ring_floor=int(e._ring_floor[r]),
+            )
 
     # ------------------------------------------------------------ close
     def finish(self, lasts0: np.ndarray) -> None:

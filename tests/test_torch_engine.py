@@ -60,25 +60,31 @@ class Pair:
     own vote log, and the two files must stay byte-identical.
     ``restore_from`` is a (JAX path, port path) pair of checkpoints: the
     engines are built by ``RaftEngine.restore`` from them. ``replay``
-    registers the apply callbacks with ``replay=True``."""
+    registers the apply callbacks with ``replay=True``. ``recorders`` is
+    a (JAX, port) pair of flight recorders handed to the constructors."""
 
     def __init__(self, seed=0, vote_logs=None, restore_from=None,
-                 replay=False, **over):
+                 replay=False, recorders=(None, None), **over):
         self.kw = {**KW, **over}
         jt, tt = transports(self.kw)
         self.jl, self.tl = [], []
         self.vote_logs = vote_logs
         jv, tv = vote_logs if vote_logs is not None else (None, None)
+        jr, tr = recorders
         jcfg, tcfg = JConfig(**self.kw, seed=seed), TConfig(**self.kw,
                                                             seed=seed)
         if restore_from is None:
-            self.j = JEngine(jcfg, jt, trace=self.jl.append, vote_log=jv)
-            self.t = TEngine(tcfg, tt, trace=self.tl.append, vote_log=tv)
+            self.j = JEngine(jcfg, jt, trace=self.jl.append, vote_log=jv,
+                             recorder=jr)
+            self.t = TEngine(tcfg, tt, trace=self.tl.append, vote_log=tv,
+                             recorder=tr)
         else:
             self.j = JEngine.restore(jcfg, restore_from[0], jt,
-                                     trace=self.jl.append, vote_log=jv)
+                                     trace=self.jl.append, vote_log=jv,
+                                     recorder=jr)
             self.t = TEngine.restore(tcfg, restore_from[1], tt,
-                                     trace=self.tl.append, vote_log=tv)
+                                     trace=self.tl.append, vote_log=tv,
+                                     recorder=tr)
         self.japp, self.tapp = [], []
         self.starts = (
             self.j.register_apply(lambda i, p: self.japp.append((i, p)),
@@ -408,18 +414,17 @@ def test_deferred_call_raises(name, args, item):
 
 
 DEFERRED_CONFIGS = [
-    (dict(tiered_log_dir="tiers"), {}, "A13"),
-    (dict(mirror_check_every=8), {}, "A15"),
-    ({}, dict(recorder=object()), "A16"),
+    (dict(tiered_log_dir="tiers"), "A13"),
+    (dict(mirror_check_every=8), "A15"),
 ]
 
 
-@pytest.mark.parametrize("over,kwargs,item", DEFERRED_CONFIGS,
-                         ids=[c[2] for c in DEFERRED_CONFIGS])
-def test_deferred_config_raises(over, kwargs, item):
+@pytest.mark.parametrize("over,item", DEFERRED_CONFIGS,
+                         ids=[c[1] for c in DEFERRED_CONFIGS])
+def test_deferred_config_raises(over, item):
     cfg = TConfig(**{**KW, **over})
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        TEngine(cfg, transports(KW)[1], **kwargs)
+        TEngine(cfg, transports(KW)[1])
 
 
 def test_engine_without_transport_runs_on_cuda():

@@ -44,6 +44,11 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import raft_tpu_torch.ckpt.snapshot, raft_tpu_torch.ckpt.votelog\n"
         "import raft_tpu_torch.obs, raft_tpu_torch.obs.profiling\n"
         "import raft_tpu_torch.obs.hostprof, raft_tpu_torch.obs.slo\n"
+        "import raft_tpu_torch.obs.events, raft_tpu_torch.obs.trace\n"
+        "import raft_tpu_torch.obs.registry, raft_tpu_torch.obs.spans\n"
+        "import raft_tpu_torch.obs.audit, raft_tpu_torch.obs.metrics\n"
+        "import raft_tpu_torch.obs.serve, raft_tpu_torch.obs.blackbox\n"
+        "import raft_tpu_torch.obs.forensics, raft_tpu_torch.obs.__main__\n"
         "import raft_tpu_torch.raft.steady, raft_tpu_torch.core.graphs\n"
         "import raft_tpu_torch.golden, raft_tpu_torch.golden.model\n"
         "import raft_tpu_torch.demo\n"
