@@ -110,7 +110,41 @@ Then the engine's tick loop (``raft_tpu_torch.raft.RaftEngine``):
     256-byte entries, B = 64, C = 4096, seed 2; both variants), through
     the engine on the card and again on the CPU: the nodelog lines,
     terms, commit latencies, committed bytes and state must be equal;
-    prints ``bench_storm_once``'s fields and the storm's host wall.
+    prints ``bench_storm_once``'s fields and the storm's host wall;
+5f. builds the port's C++ host codec (``raft_tpu_torch/native``, ``g++``;
+    a missing compiler fails the phase) and holds it on one 4 MiB segment
+    at RS(6,4) (``native_codec``): ``encode_host`` equal to the NumPy
+    oracle, ``decode_host`` giving the segment back from all fifteen
+    4-of-6 row sets; prints host ms of encode and decode against the
+    oracle's and the host CPU;
+5g. drives the tiered archive through the engine (``engine_tiered_path``):
+    the north star with ``tiered_log_dir`` in a temporary directory, 16
+    ring laps (524 288 entries: leader ticks and one ``submit_pipelined``
+    ring), 28 segments of C/2 sealed behind the 65 536-entry hot tail (~170
+    MiB of shard files); ``register_apply(replay=True)`` from index 1 must
+    hash to the input; the same run with the tier off must make the same
+    ``_fetch`` calls; a second run (hot tail C/2, segments of C/4) keeps a
+    follower dead for 3 laps and recovers it through the snapshot stream
+    from the sealed tier (its ring window equal to the input), reads back
+    a segment with one data shard bit-flipped and another deleted, and
+    saves and restores a checkpoint with the tier; then the first run at
+    C = 4 096 on the card and on the CPU: nodelog lines, state leaves,
+    read-backs and shard files equal; prints ms a seal, entries/s with
+    the tier on and off and replay entries/s; the files are deleted;
+5h. drives the device event ring through the engine
+    (``engine_device_obs_path``): ``fused_graph_vs_loop``'s cases again
+    with an event ring on both sides (the recorded K-tick graph against
+    the uncaptured recorded loop, on every state leaf and the ring's four
+    tensors; a new event ring recaptures); ``engine_obs_path``'s schedule
+    at ``fuse_k`` 1 and 8 detached and with ``attach_device_obs(4096)``:
+    state leaves, read-backs, nodelog lines and K1-K4 launches equal, the
+    decoded elect/commit lines equal to the trace's, the device counters
+    equal to the host tallies, exactly one fetch more per launch
+    boundary; at capacity 64 with every flush held to the end,
+    ``dropped`` = total - 64 and the survivors equal to the full ring's
+    last 64; then at C = 4 096 on the card and on the CPU, the packed ring
+    and the decoded events equal; prints ms a leader tick and device ops a
+    leader tick attached and detached at K = 1 and 8.
 
 Then BASELINE config 3 (5 replicas, RS(5,3) shards of 264-byte entries,
 batch 1024, a 32 768-slot ring, commit quorum 4):
@@ -1459,7 +1493,7 @@ def same_outputs(a, b, what):
               f"{what}: {k} differs (graph replay vs the uncaptured loop)")
 
 
-def fused_graph_vs_loop(cfg, dev):
+def fused_graph_vs_loop(cfg, dev, record=False):
     """``SingleDeviceTransport.replicate_fused`` (one replay of the captured
     graph) against ``fused_steady_scan`` run uncaptured on the card, at the
     north star's shape with K = 8 and 32: a full window crossing the ring
@@ -1470,11 +1504,14 @@ def fused_graph_vs_loop(cfg, dev):
     second launch at a size first captured between the two, a launch on
     new ring tensors (recaptured), and the bool and packed member masks.
     Every state leaf, infos, ``escaped``, ``ran`` and ``halted`` must be
-    equal."""
+    equal. With ``record`` both sides record into event rings of their
+    own (``ring=``; the loop with ``record=True``), compared on all four
+    ring tensors after every case, and a new event ring recaptures."""
     import torch
 
     from raft_tpu_torch.core.comm import SingleDeviceComm
     from raft_tpu_torch.core.step import fused_steady_scan
+    from raft_tpu_torch.obs.device import init_ring
     from raft_tpu_torch.transport.device import SingleDeviceTransport
 
     rng = np.random.default_rng(SEED + 60)
@@ -1491,6 +1528,16 @@ def fused_graph_vs_loop(cfg, dev):
     floor = last - C + 1
     fpt = 1
     cases = []
+    rings = [init_ring(4096, dev), init_ring(4096, dev)] if record else None
+
+    def same_rings(what):
+        if rings is None:
+            return
+        for name, a, b in zip(("buf", "count", "tick", "counters"),
+                              rings[0].tensors(), rings[1].tensors()):
+            check(torch.equal(a, b),
+                  f"{what}: the recorded ring's {name} differs (graph "
+                  "replay vs the uncaptured loop)")
 
     def reset(st, term_raise=False):
         from raft_tpu_torch.core.state import FIELDS
@@ -1504,7 +1551,9 @@ def fused_graph_vs_loop(cfg, dev):
                member=None, tr=tr, comm=comm, cfg=cfg, slow=slow):
         g = tr.replicate_fused(st_g, staging, start, counts, n_run, h_g, 0,
                                1, alive, slow, member=member,
-                               repair_floor=floor, floor_prev_term=fpt)
+                               repair_floor=floor, floor_prev_term=fpt,
+                               ring=rings[0] if rings else None)
+        rec = {"ring": rings[1], "record": True} if rings else {}
         lo = fused_steady_scan(
             comm, cfg.commit_quorum, st_l, staging,
             torch.tensor(start, dtype=torch.int32, device=dev),
@@ -1517,8 +1566,9 @@ def fused_graph_vs_loop(cfg, dev):
             torch.from_numpy(alive).to(dev), torch.from_numpy(slow).to(dev),
             torch.tensor(fpt, dtype=torch.int32, device=dev),
             torch.tensor(floor, dtype=torch.int32, device=dev),
-            None if member is None else torch.from_numpy(member).to(dev))
-        return g, lo
+            None if member is None else torch.from_numpy(member).to(dev),
+            **rec)
+        return g[:5], lo[:5]
 
     for K in FUSED_KS:
         S = 2 * K
@@ -1543,6 +1593,7 @@ def fused_graph_vs_loop(cfg, dev):
                            alive)
             a, b = fused_outputs(*g), fused_outputs(*lo)
             same_outputs(a, b, f"K={K} {name}")
+            same_rings(f"K={K} {name}")
             cases.append({"K": K, "case": name, "ran": int(b["ran"].sum()),
                           "escaped_at": (int(np.argmax(b["escaped"]))
                                          if b["escaped"].any() else None),
@@ -1563,6 +1614,7 @@ def fused_graph_vs_loop(cfg, dev):
                     del a1[k], b1[k]     # the state: consumed by launch 2
             same_outputs(a1, b1, f"K={K} {name}, launch 1")
             same_outputs(a2, b2, f"K={K} {name}, launch 2")
+            same_rings(f"K={K} {name}")
             cases.append({"K": K, "case": name,
                           "ran": [int(b1["ran"].sum()),
                                   int(b2["ran"].sum())], "equal": True})
@@ -1584,6 +1636,7 @@ def fused_graph_vs_loop(cfg, dev):
                       if "." in k or k in ("escaped", "ran", "halted")},
                      f"K={K} new size, launch 1")
         same_outputs(a2, b2, f"K={K} new size, launch 2")
+        same_rings(f"K={K} new size")
         check(int(b2["ran"].sum()) == K // 2,
               f"K={K}: the second launch did not run")
         cases.append({"K": K, "case": "pipelined_into_a_new_size",
@@ -1596,10 +1649,23 @@ def fused_graph_vs_loop(cfg, dev):
                    np.full(8, B, np.int32), 8, False, False, full)
     same_outputs(fused_outputs(*g), fused_outputs(*lo),
                  "K=8 on new rings")
+    same_rings("K=8 on new rings")
     check(tr.graphs.recaptures == rec0 + 1,
           f"new rings: {tr.graphs.recaptures - rec0} recaptures")
     cases.append({"K": 8, "case": "recapture_on_new_rings", "ran": 8,
                   "equal": True})
+    if rings is not None:
+        # a new event ring (a new attachment) on the same state rings
+        rings[0], rings[1] = init_ring(64, dev), init_ring(64, dev)
+        g, lo = launch(g[0], lo[0], staging, 11, np.full(8, B, np.int32),
+                       8, False, False, full)
+        same_outputs(fused_outputs(*g), fused_outputs(*lo),
+                     "K=8 on a new event ring")
+        same_rings("K=8 on a new event ring")
+        check(tr.graphs.recaptures == rec0 + 2,
+              "a new event ring did not recapture")
+        cases.append({"K": 8, "case": "recapture_on_a_new_event_ring",
+                      "ran": 8, "equal": True})
     # member modes (the graph key's third part): 3 voters of 5 rows, the
     # voter plane as a bool mask and packed with a learner on row 3
     from raft_tpu_torch.core.state import pack_membership
@@ -1622,15 +1688,21 @@ def fused_graph_vs_loop(cfg, dev):
                        cfg=mcfg, slow=np.zeros(5, bool))
         a, b = fused_outputs(*g), fused_outputs(*lo)
         same_outputs(a, b, f"K=8 {name}")
+        same_rings(f"K=8 {name}")
         check(int(b["info.commit_index"][-1]) == 3 * B + 11 + 8 * B,
               f"{name}: the window did not commit")
         cases.append({"K": 8, "case": name, "ran": int(b["ran"].sum()),
                       "equal": True})
     torch.cuda.synchronize()
     g = tr.graphs
-    return {"cases": cases, "graphs_captured": g.captures,
-            "replays": g.replays, "recaptures": g.recaptures,
-            "shape": {"R": R, "B": B, "C": C, "W": W, "last": last}}
+    out = {"cases": cases, "graphs_captured": g.captures,
+           "replays": g.replays, "recaptures": g.recaptures,
+           "shape": {"R": R, "B": B, "C": C, "W": W, "last": last}}
+    if rings is not None:
+        out["ring"] = {"count": int(rings[0].count),
+                       "tick": int(rings[0].tick),
+                       "counters": rings[0].counters.tolist()}
+    return out
 
 
 def fused_engine_run(cfg, dev, timed):
@@ -6422,6 +6494,708 @@ LIBRARY_IS = {
 }
 
 
+
+# ---------------------------------- 5f. the host RS codec (ROADMAP A12)
+#: one sealed segment of the north star's tier: C/2 = 16 384 entries of
+#: 256 bytes (4 MiB) at the default file code RS(6,4)
+NATIVE_SEGMENT_BYTES = 16384 * 256
+NATIVE_CODE = (6, 4)
+
+
+def host_cpu_name():
+    """The host CPU as ``/proc/cpuinfo`` names it: its ``model name``, or
+    where that is missing or "unknown" the identifying fields it does have
+    (vendor, family, model, clock; implementer and part on Arm), with the
+    number of processors."""
+    fields, procs = {}, 0
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, val = line.partition(":")
+                key, val = key.strip(), val.strip()
+                if key == "processor":
+                    procs += 1
+                elif val and key not in fields:
+                    fields[key] = val
+    except OSError:
+        return "unknown (/proc/cpuinfo unreadable)"
+    if fields.get("model name", "unknown") != "unknown":
+        name = fields["model name"]
+    else:
+        keys = ("vendor_id", "cpu family", "model", "cpu MHz",
+                "CPU implementer", "CPU architecture", "CPU part")
+        name = ", ".join(f"{k} {fields[k]}" for k in keys if k in fields) \
+            or "unnamed"
+    return f"{name} ({procs} processors)"
+
+
+def phase_native_codec(card_line):
+    """The port's C++ host codec (``raft_tpu_torch.native``, built with
+    ``g++`` here; a missing compiler fails the phase) on one 4 MiB segment
+    at RS(6,4): ``encode_host`` equal to the NumPy oracle's ``encode``,
+    ``decode_host`` giving the segment back from every 4-of-6 row set,
+    and the oracle's ``decode`` equal on a set missing two data rows.
+    Prints host ms of encode and decode against the oracle's, with the
+    host CPU beside the card."""
+    import itertools
+
+    from raft_tpu_torch import native
+    from raft_tpu_torch.ec.rs import RSCode
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 90)
+    flat = rng.integers(0, 256, NATIVE_SEGMENT_BYTES, dtype=np.uint8)
+    code = RSCode(*NATIVE_CODE)
+    shards = code.encode_host(flat)
+    check(np.array_equal(shards, code.encode(flat)),
+          "native_codec: encode_host differs from the NumPy oracle")
+    sets = list(itertools.combinations(range(code.n), code.k))
+    for rows in sets:
+        check(np.array_equal(code.decode_host(shards[list(rows)], rows),
+                             flat),
+              f"native_codec: decode_host from rows {rows} differs")
+    rows = (1, 3, 4, 5)
+    check(np.array_equal(code.decode(shards[list(rows)], rows), flat),
+          "native_codec: the oracle's decode differs")
+
+    def ms(fn, reps):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    sub = shards[list(rows)]
+    times = {
+        "encode_host_ms": ms(lambda: code.encode_host(flat), 9),
+        "decode_host_ms": ms(lambda: code.decode_host(sub, rows), 9),
+        "encode_oracle_ms": ms(lambda: code.encode(flat), 3),
+        "decode_oracle_ms": ms(lambda: code.decode(sub, rows), 3),
+    }
+    mb = NATIVE_SEGMENT_BYTES / 2**20
+    emit({"phase": "native_codec", "code": list(NATIVE_CODE),
+          "segment_bytes": NATIVE_SEGMENT_BYTES, "row_sets": len(sets),
+          "equal": True, "build_s": build_s, "library": str(native.lib_path()),
+          **times,
+          "encode_host_MiB_per_s": mb / times["encode_host_ms"] * 1e3,
+          "decode_host_MiB_per_s": mb / times["decode_host_ms"] * 1e3,
+          "host_cpu": host_cpu_name(), "card": card_line,
+          "method": "host clock, median of 9 calls (oracle: of 3)",
+          "phase_s": time.perf_counter() - t_phase})
+    print(f"host CPU: {host_cpu_name()}", flush=True)
+    return times
+
+
+# ------------------------- 5g. the tiered archive through the engine (A13)
+TIER_LAPS = 16                # 524 288 entries through the north star
+TIER_PIPELINED_LAP = 7        # the lap that goes as one submit_pipelined ring
+TIER_DEAD_LAPS = 3            # laps a follower misses in the second run
+TIER_SMALL_CAPACITY = 4096    # the card-vs-CPU run's ring
+
+
+def tier_config(capacity, tier_dir, **over):
+    from raft_tpu_torch.config import RaftConfig
+
+    return RaftConfig(n_replicas=3, entry_bytes=256, batch_size=1024,
+                      log_capacity=capacity, transport="single",
+                      tiered_log_dir=tier_dir, **over)
+
+
+class fly_on_cpu:
+    """Open the engine's flight gate while ``where`` is the CPU, so a run
+    there flies the same chunks as on the card."""
+
+    def __init__(self, where):
+        self.cpu = str(where) == "cpu"
+
+    def __enter__(self):
+        import raft_tpu_torch.raft.engine as engine_mod
+
+        self.hook = engine_mod._pipeline_backend_ok
+        if self.cpu:
+            engine_mod._pipeline_backend_ok = lambda *a: True
+        return self
+
+    def __exit__(self, *exc):
+        import raft_tpu_torch.raft.engine as engine_mod
+
+        engine_mod._pipeline_backend_ok = self.hook
+
+
+def counted_fetches(e):
+    """Wrap ``e._fetch`` with a counter; returns the counter."""
+    n = [0]
+    orig = e._fetch
+
+    def fetch(x):
+        n[0] += 1
+        return orig(x)
+
+    e._fetch = fetch
+    return n
+
+
+def tier_files(store):
+    """SHA-256 of every file of a tiered store's directory, by name."""
+    root = Path(store.root)
+    return {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(root.iterdir()) if p.is_file()}
+
+
+def tier_engine_run(cfg, dev, laps=TIER_LAPS, replay=True):
+    """``engine_tiered_path``'s schedule at ``cfg`` on ``dev``: an
+    election, then ``laps`` ring laps of entries, each lap in bursts of C
+    drained by ``run_for`` (leader ticks) except lap
+    ``TIER_PIPELINED_LAP``, which goes as one ``submit_pipelined`` ring
+    (one flight); every lap's window read back. With ``replay`` a
+    ``register_apply(replay=True)`` from index 1 must hash to the input.
+    Returns (recorded values, what runs are compared on, the engine)."""
+    import torch
+
+    from raft_tpu_torch.raft import RaftEngine
+    from raft_tpu_torch.transport.device import SingleDeviceTransport
+
+    cuda = torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    B, C = cfg.batch_size, cfg.log_capacity
+    hb = cfg.heartbeat_period
+    tr = SingleDeviceTransport(cfg, device=dev)
+    flights = []
+    run_flight = tr.replicate_pipeline
+
+    def counted_flight(*a, **k):
+        flights.append(int(a[2].shape[0]))
+        return run_flight(*a, **k)
+
+    tr.replicate_pipeline = counted_flight
+    lines = []
+    e = RaftEngine(cfg, tr, trace=lines.append)
+    fetches = counted_fetches(e)
+    inp = EngineInput(cfg)
+    tiered = e._tiered_store is not None
+    what = f"tier {'on' if tiered else 'off'} C={C} on {dev}"
+    reads = []
+    e.run_until_leader()
+    sync()
+    t0 = time.perf_counter()
+    for lap in range(laps):
+        lo = e.commit_watermark + 1
+        if lap == TIER_PIPELINED_LAP:
+            e.submit_pipelined(inp.take(C))
+            check(flights == [C // B],
+                  f"{what}: the pipeline gate did not admit the ring")
+        else:
+            seqs = [e.submit(p) for p in inp.take(C)]
+            e.run_for((C // B + 2) * hb)
+            check(e.is_durable(seqs[-1]), f"{what}: lap {lap} did not drain")
+        reads.append(engine_read_back(e, inp, lo, e.commit_watermark,
+                                      f"{what} lap {lap}"))
+    sync()
+    wall = time.perf_counter() - t0
+    total = laps * C
+    check(e.commit_watermark == total, f"{what}: commit {e.commit_watermark}")
+    res = {"capacity": C, "device": str(dev), "tiered": tiered,
+           "entries": total, "wall_s": wall,
+           "entries_per_s_wall": total / wall,
+           "leader_ticks": e._tick_count, "fetches": fetches[0],
+           "method": "host clock around the laps (submits, run_for, the "
+                     "flight and every lap's read-back), synchronized"}
+    if tiered:
+        st = e._tiered_store
+        snap = e._status_snapshot()
+        check("tiered" in snap, f"{what}: no tiered section in /status")
+        sealed = st.stats["segments_sealed"]
+        want = (total - st.hot_entries) // st.segment_entries
+        check(sealed == want, f"{what}: {sealed} segments sealed, want {want}")
+        files = tier_files(st)
+        res.update({
+            "segments_sealed": sealed,
+            "segment_entries": st.segment_entries,
+            "hot_entries": st.hot_entries,
+            "shard_files_bytes": sum(p.stat().st_size for p in
+                                     Path(st.root).iterdir()),
+            "shard_files": len(files),
+            "seal_ms": st.seal_wall_s / max(sealed, 1) * 1e3,
+            "seal_method": "host clock inside TieredStore._seal_range "
+                           "(encode_host and the shard writes), per "
+                           "segment",
+            "host_bytes": st.host_bytes(),
+            "status_tiered": {k: v for k, v in snap["tiered"].items()
+                              if k != "seal_wall_s"}})
+    if replay:
+        h = hashlib.sha256()
+        n = [0]
+
+        def apply(idx, payload):
+            check(idx == n[0] + 1, f"{what}: the replay skipped an index")
+            n[0] = idx
+            h.update(payload)
+
+        t1 = time.perf_counter()
+        start = e.register_apply(apply, replay=True)
+        replay_s = time.perf_counter() - t1
+        check(start == 1 and n[0] == total,
+              f"{what}: replay started at {start}, reached {n[0]}")
+        check(h.hexdigest() == inp.h.hexdigest(),
+              f"{what}: the replay differs from the input")
+        res.update({"replay_s": replay_s,
+                    "replay_entries_per_s": total / replay_s,
+                    "replay_sha256": h.hexdigest()})
+    keep = {"lines": lines, "commit_time": dict(e.commit_time),
+            "state": host_leaves(e.state), "reads": reads}
+    if tiered:
+        keep["files"] = tier_files(e._tiered_store)
+    return res, keep, e
+
+
+def tier_dead_follower_run(cfg, dev, tmp):
+    """The second run: ``tiered_hot_entries`` C/2 and ``segment_entries``
+    C/4; a follower dead for ``TIER_DEAD_LAPS`` laps, then recovered: the
+    snapshot stream serves it from the sealed tier (``segment_loads``
+    rises) and its ring window must equal the input. Then one segment
+    loses a data shard to a bit flip and another to deletion and must
+    still read back exactly; then ``save_checkpoint`` and ``restore``
+    with the tier, and the restored cluster commits more."""
+    import os
+
+    import torch
+
+    from raft_tpu_torch.core.state import log_entries
+    from raft_tpu_torch.raft import RaftEngine
+    from raft_tpu_torch.transport.device import SingleDeviceTransport
+
+    cuda = torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    B, C = cfg.batch_size, cfg.log_capacity
+    hb = cfg.heartbeat_period
+    tr = SingleDeviceTransport(cfg, device=dev)
+    e = RaftEngine(cfg, tr)
+    st = e._tiered_store
+    inp = EngineInput(cfg)
+    lead = e.run_until_leader()
+    dead = (lead + 1) % cfg.rows
+    e.fail(dead)
+    for _ in range(TIER_DEAD_LAPS):
+        seqs = [e.submit(p) for p in inp.take(C)]
+        e.run_for((C // B + 2) * hb)
+        check(e.is_durable(seqs[-1]), "tier dead follower: a lap stuck")
+    wm = e.commit_watermark
+    loads0 = st.stats["segment_loads"]
+    sync()
+    t0 = time.perf_counter()
+    e.recover(dead)
+    ticks0 = e._tick_count
+    while int(e._fetch(e.state.match_index)[dead]) < wm:
+        check(e._tick_count - ticks0 < 400,
+              "tier dead follower: the stream did not catch up")
+        e.run_for(hb)
+    sync()
+    rejoin_s = time.perf_counter() - t0
+    check(st.stats["segment_loads"] > loads0,
+          "tier dead follower: the stream read no segment")
+    lo = wm - C + 1
+    got = log_entries(e.state, dead, lo, wm).tobytes()
+    check(got == inp.window(lo, wm),
+          "tier dead follower: the rejoined ring window differs")
+    res = {"capacity": C, "hot_entries": st.hot_entries,
+           "segment_entries": st.segment_entries, "dead_laps":
+           TIER_DEAD_LAPS, "committed": wm,
+           "segment_loads": st.stats["segment_loads"] - loads0,
+           "snapshot_chunks": e._shipper.chunks_total,
+           "rejoin_ticks": e._tick_count - ticks0, "rejoin_s": rejoin_s}
+    # one segment: a data shard bit-flipped, another deleted
+    slo, shi = st._sealed[1]
+    name = st.io.name(slo, shi)
+    p0 = st.io.shard_path(name, 0)
+    blob = bytearray(open(p0, "rb").read())
+    blob[len(blob) // 3] ^= 0x10
+    open(p0, "wb").write(bytes(blob))
+    os.unlink(st.io.shard_path(name, 2))
+    st._cache.clear()
+    st._cache_order.clear()
+    rec0 = st.stats["segment_reconstructs"]
+    back = b"".join(st.get(i)[0] for i in range(slo, shi + 1))
+    check(back == inp.window(slo, shi),
+          "tier: the damaged segment did not read back exactly")
+    check(st.stats["segment_reconstructs"] == rec0 + 1,
+          "tier: the damaged segment did not go through the decode")
+    res["damaged_segment"] = {"lo": slo, "hi": shi, "flipped": 0,
+                              "deleted": 2, "reconstructed": True}
+    # checkpoint and restore with the tier
+    path = str(Path(tmp) / "tier_ckpt.npz")
+    t0 = time.perf_counter()
+    e.save_checkpoint(path)
+    t1 = time.perf_counter()
+    e2 = RaftEngine.restore(cfg, path, SingleDeviceTransport(cfg, device=dev))
+    t2 = time.perf_counter()
+    check(e2.commit_watermark == wm and e2._tiered_store is not None
+          and e2.store.root != st.root,
+          "tier restore: watermark or archive directory wrong")
+    check(e2.store.get(wm)[0] == inp.window(wm, wm),
+          "tier restore: the last committed entry differs")
+    e2.run_until_leader()
+    seqs = [e2.submit(p) for p in inp.take(B)]
+    e2.run_until_committed(seqs[-1])
+    check("tiered" in e2._status_snapshot(), "tier restore: no /status tier")
+    res["restore"] = {"save_s": t1 - t0, "restore_s": t2 - t1,
+                      "committed_after": e2.commit_watermark}
+    return res
+
+
+def phase_engine_tiered_path(dev):
+    """The tiered archive through ``RaftEngine`` on the card (module doc,
+    5g): the north star with ``tiered_log_dir`` (524 288 entries, 16 ring
+    laps, segments of C/2 sealed behind the 2C hot tail), replayed from
+    index 1; the same run with the tier off (equal ``_fetch`` counts);
+    the dead-follower run with a damaged segment, a checkpoint and a
+    restore; and the card against the CPU at C = 4 096 (nodelog lines,
+    state leaves, read-backs and shard files equal). The shard files are
+    deleted after the phase."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tier_")
+    res = {"phase": "engine_tiered_path"}
+    try:
+        zero_counters(dev)
+        C = STEPS_PER_FLIGHT * 1024
+        on, on_keep, e = tier_engine_run(tier_config(C, tmp), dev)
+        res["launches"] = read_counters(dev)
+        del e
+        off, off_keep, e = tier_engine_run(tier_config(C, None), dev,
+                                           replay=False)
+        del e
+        check(on["fetches"] == off["fetches"],
+              f"tier on vs off: {on['fetches']} vs {off['fetches']} fetches")
+        check(on_keep["lines"] == off_keep["lines"]
+              and on_keep["reads"] == off_keep["reads"],
+              "tier on vs off: nodelog lines or read-backs differ")
+        res["tier_on"], res["tier_off"] = on, off
+        for k in ("K1", "K2", "K3", "K4"):
+            check(res["launches"][k] > 0, f"engine_tiered_path: {k} never "
+                                          "launched")
+        zero_counters(dev)
+        res["dead_follower"] = tier_dead_follower_run(
+            tier_config(C, tmp, tiered_hot_entries=C // 2,
+                        segment_entries=C // 4), dev, tmp)
+        dl = read_counters(dev)
+        res["launches"] = {k: res["launches"][k] + dl[k]
+                           for k in res["launches"]}
+        zero_counters(dev)
+        small = {}
+        walls = {}
+        for where in (dev, "cpu"):
+            with fly_on_cpu(where):
+                t0 = time.perf_counter()
+                small[str(where)] = tier_engine_run(
+                    tier_config(TIER_SMALL_CAPACITY, tmp), where)
+                walls[str(where)] = time.perf_counter() - t0
+            if where == dev:
+                res["card_equals_cpu_launches"] = read_counters(dev)
+        (_, ck, _), (_, hk, _) = small[str(dev)], small["cpu"]
+        for k in ck:
+            if k == "state":
+                for f in ck[k]:
+                    check(np.array_equal(ck[k][f], hk[k][f]),
+                          f"tier card vs CPU: state.{f} differs")
+            else:
+                check(ck[k] == hk[k], f"tier card vs CPU: {k} differs")
+        res["card_equals_cpu"] = {
+            "capacity": TIER_SMALL_CAPACITY, "equal": sorted(ck),
+            "shard_files": len(ck["files"]), "walls_s": walls,
+            "segments_sealed": small[str(dev)][0]["segments_sealed"]}
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+# --------------------- 5h. the device event ring through the engine (A13)
+DEV_OBS_CAPACITY = 4096
+DEV_OBS_LAP_CAPACITY = 64
+DEV_OBS_PROFILED_BURST = 2
+
+
+def host_twin_lines(lines):
+    """The host trace lines the device ring also records: election wins
+    and commit advances."""
+    return [ln for ln in lines if ln.endswith("]state changed to leader")
+            or "]commit index changed to " in ln]
+
+
+def dev_obs_engine_run(cfg, dev, capacity, plan=OBS_PLAN, profile=False,
+                       defer_flush=False):
+    """``engine_obs_path``'s schedule (an election; ``plan["bursts"]``
+    bursts drained by ``run_for``; one ``submit_pipelined`` ring; idle
+    heartbeats; the leader failed, a re-election and ``plan["after"]``
+    more) with the device plane attached at ``capacity`` (None:
+    detached), a trace and a metrics registry (the host tallies) in
+    either case. ``defer_flush`` holds every flush until the end (one
+    flush: the ring laps in between). ``profile`` runs burst
+    ``DEV_OBS_PROFILED_BURST`` under torch.profiler. Returns (recorded
+    values, what runs are compared on, the DeviceObs)."""
+    import torch
+
+    from raft_tpu_torch.obs.registry import MetricsRegistry
+    from raft_tpu_torch.raft import RaftEngine
+    from raft_tpu_torch.transport.device import SingleDeviceTransport
+
+    cuda = torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    B, C = cfg.batch_size, cfg.log_capacity
+    hb = cfg.heartbeat_period
+    tr = SingleDeviceTransport(cfg, device=dev)
+    flights = []
+    run_flight = tr.replicate_pipeline
+
+    def counted_flight(*a, **k):
+        flights.append(int(a[2].shape[0]))
+        return run_flight(*a, **k)
+
+    tr.replicate_pipeline = counted_flight
+    lines = []
+    e = RaftEngine(cfg, tr, trace=lines.append)
+    e.metrics = MetricsRegistry()
+    fetches = counted_fetches(e)
+    dobs = None
+    flushes = [0]
+    if capacity is not None:
+        dobs = e.attach_device_obs(capacity=capacity)
+        flush = e._flush_device_obs
+
+        def counted_flush():
+            flushes[0] += 1
+            if not defer_flush:
+                flush()
+
+        e._flush_device_obs = counted_flush
+    inp = EngineInput(cfg)
+    h_apply = hashlib.sha256()
+    e.register_apply(lambda i, p: h_apply.update(p))
+    what = (f"device obs {capacity} fuse_k={e.fuse_k} C={C} on {dev}")
+    res = {"capacity": capacity, "fuse_k": e.fuse_k, "log_capacity": C,
+           "device": str(dev)}
+    reads = []
+    e.run_until_leader()
+    burst_wall, burst_ticks = 0.0, 0
+    for b in range(plan["bursts"]):
+        seqs = [e.submit(p) for p in inp.take(plan["burst"])]
+        drain = (plan["burst"] // B + 2) * hb
+        t0n = e._tick_count
+        sync()
+        t0 = time.perf_counter()
+        if profile and b == DEV_OBS_PROFILED_BURST:
+            events, pwall = _device_events(lambda: e.run_for(drain), 1)
+            lt = e._tick_count - t0n
+            kern = [n for n, _ in events
+                    if "emcpy" not in n and "emset" not in n]
+            res["profiled_burst"] = {
+                "leader_ticks": lt, "device_ops": len(events),
+                "device_ops_per_leader_tick": len(events) / lt,
+                "kernels_per_leader_tick": len(kern) / lt,
+                "device_busy_ms": sum(us for _, us in events) / 1e3,
+                "wall_ms": pwall * 1e3}
+        else:
+            e.run_for(drain)
+            sync()
+            burst_wall += time.perf_counter() - t0
+            burst_ticks += e._tick_count - t0n
+        check(e.is_durable(seqs[-1]), f"{what}: burst {b} did not drain")
+    reads.append(engine_read_back(e, inp, max(1, e.commit_watermark - C + 1),
+                                  e.commit_watermark, f"{what} ticks"))
+    leader_last = e.commit_watermark
+    e.submit_pipelined(inp.take(C))
+    check(flights == [C // B],
+          f"{what}: the pipeline gate did not admit the ring: {flights}")
+    reads.append(engine_read_back(e, inp, leader_last + 1,
+                                  e.commit_watermark, f"{what} flight"))
+    e.run_for(4 * hb)            # followers learn the final commit
+    old = e.leader_id
+    e.fail(old)
+    e.run_until_leader()
+    lo = e.commit_watermark + 1
+    seqs = [e.submit(p) for p in inp.take(plan["after"])]
+    e.run_for((plan["after"] // B + 4) * hb)
+    check(e.is_durable(seqs[-1]),
+          f"{what}: the entries after the failover did not commit")
+    reads.append(engine_read_back(e, inp, lo, e.commit_watermark,
+                                  f"{what} after failover"))
+    sync()
+    if defer_flush:
+        e._flush_device_obs = flush
+        flush()
+    total = plan["bursts"] * plan["burst"] + C + plan["after"]
+    check(e.commit_watermark == total and
+          h_apply.hexdigest() == inp.h.hexdigest(),
+          f"{what}: commit {e.commit_watermark} of {total}, or the apply "
+          "stream differs")
+    snap = e.metrics.snapshot()
+
+    def tally(name):
+        series = snap.get(name, {}).get("series", [])
+        return int(sum(s["value"] for s in series))
+
+    res.update({
+        "leader_ticks": e._tick_count, "leader_ticks_in_bursts": burst_ticks,
+        "ms_per_leader_tick": burst_wall / max(burst_ticks, 1) * 1e3,
+        "ms_method": "host clock around each burst's run_for, "
+                     "synchronized (the profiled burst left out)",
+        "fused_launches": e.fused_launches, "fetches": fetches[0],
+        "flushes": flushes[0], "flights": len(flights),
+        "host_tallies": {
+            "elections": tally("raft_elections_total"),
+            "commits": tally("raft_commits_total"),
+            "heartbeat_ticks": tally("raft_heartbeat_ticks_total")}})
+    if dobs is not None:
+        res["device"] = {"total": dobs.total_recorded,
+                         "dropped": dobs.dropped, "laps": dobs.laps,
+                         "events": len(dobs.events),
+                         "counters": {k: v.get("0", 0) for k, v in
+                                      dobs.counters.items()}}
+    keep = {"lines": lines, "commit_time": dict(e.commit_time),
+            "terms": e.terms.tolist(), "roles": list(e.roles),
+            "state": host_leaves(e.state), "reads": reads}
+    if dobs is not None:
+        from raft_tpu_torch.obs.device import packed_flush
+
+        keep["packed"] = packed_flush(e._dev_ring).cpu().numpy().tolist()
+        keep["events"] = [ev.to_jsonable() for ev in dobs.events]
+    return res, keep, dobs
+
+
+def phase_engine_device_obs_path(dev):
+    """The device event ring through ``RaftEngine`` on the card (module
+    doc, 5h): the recorded K-tick graph against the uncaptured recorded
+    loop (``fused_graph_vs_loop(record=True)``); the north star at
+    ``fuse_k`` 1 and 8, detached and with ``attach_device_obs(4096)``:
+    every state leaf, read-back, nodelog line and launch count equal, the
+    decoded ``elect``/``commit`` lines equal to the trace's, the device
+    counters equal to the host tallies, and exactly one fetch more per
+    launch boundary; at capacity 64 with the flushes held to the end,
+    ``dropped`` = total - 64 and the survivors equal to the 4096 run's
+    last 64 records; and the card against the CPU at C = 4 096 (packed
+    ring and decoded events equal)."""
+    import torch
+
+    from raft_tpu_torch.obs.device import decode_records
+
+    t_phase = time.perf_counter()
+    C = STEPS_PER_FLIGHT * 1024
+    res = {"phase": "engine_device_obs_path"}
+    res["graph_vs_loop"] = fused_graph_vs_loop(fused_config(C, 1), dev,
+                                               record=True)
+    runs = {}
+    launches = {}
+    for k in (1, 8):
+        cfg = fused_config(C, k)
+        for mode, cap in (("detached", None), ("attached", DEV_OBS_CAPACITY)):
+            zero_counters(dev)
+            runs[(k, mode)] = dev_obs_engine_run(cfg, dev, cap, profile=True)
+            launches[(k, mode)] = read_counters(dev)
+        (det, dk, _), (att, ak, dobs) = runs[(k, "detached")], \
+            runs[(k, "attached")]
+        what = f"device obs fuse_k={k}"
+        for key in ("lines", "commit_time", "terms", "roles", "reads"):
+            check(dk[key] == ak[key], f"{what}: {key} differ attached")
+        for f in dk["state"]:
+            check(np.array_equal(dk["state"][f], ak["state"][f]),
+                  f"{what}: state.{f} differs attached")
+        check(launches[(k, "detached")] == launches[(k, "attached")],
+              f"{what}: launch counts differ attached: "
+              f"{launches[(k, 'detached')]} vs {launches[(k, 'attached')]}")
+        check(att["fetches"] == det["fetches"] + att["flushes"],
+              f"{what}: {att['fetches']} fetches attached, "
+              f"{det['fetches']} detached, {att['flushes']} flushes")
+        check(dobs.nodelog_lines() == host_twin_lines(ak["lines"]),
+              f"{what}: the decoded elect/commit lines differ from the "
+              "trace's")
+        cnt, tl = att["device"]["counters"], att["host_tallies"]
+        chunk_steps = C // 1024
+        check(cnt["raft_device_elections_total"] == tl["elections"]
+              and cnt["raft_device_commits_total"] == tl["commits"]
+              and cnt["raft_device_heartbeat_ticks_total"]
+              == tl["heartbeat_ticks"] + chunk_steps,
+              f"{what}: device counters {cnt} vs host tallies {tl}")
+        check(att["device"]["dropped"] == 0, f"{what}: records dropped")
+        if k > 1:
+            check(att["fused_launches"] > 0, f"{what}: no fused launch")
+        res[f"fuse_k_{k}"] = {
+            "detached": det, "attached": att,
+            "ms_per_leader_tick": {"detached": det["ms_per_leader_tick"],
+                                   "attached": att["ms_per_leader_tick"]},
+            "device_ops_per_leader_tick": {
+                m: r["profiled_burst"]["device_ops_per_leader_tick"]
+                for m, r in (("detached", det), ("attached", att))},
+            "launches": launches[(k, "attached")]}
+    res["launches"] = {key: launches[(1, "attached")][key]
+                       + launches[(8, "attached")][key]
+                       for key in launches[(1, "attached")]}
+    # laps: capacity 64, every flush held to the end
+    zero_counters(dev)
+    lap, lap_keep, lap_obs = dev_obs_engine_run(
+        fused_config(C, 8), dev, DEV_OBS_LAP_CAPACITY, defer_flush=True)
+    lap_launches = read_counters(dev)
+    full_keep = runs[(8, "attached")][1]
+    total = lap["device"]["total"]
+    check(total == runs[(8, "attached")][0]["device"]["total"],
+          "capacity 64: a different number of records")
+    check(lap["device"]["dropped"] == total - DEV_OBS_LAP_CAPACITY
+          and lap["device"]["events"] == DEV_OBS_LAP_CAPACITY,
+          f"capacity 64: dropped {lap['device']['dropped']} of {total}")
+    strip = [{k: v for k, v in ev.items() if k != "t_virtual"}
+             for ev in full_keep["events"][-DEV_OBS_LAP_CAPACITY:]]
+    check([{k: v for k, v in ev.items() if k != "t_virtual"}
+           for ev in lap_keep["events"]] == strip,
+          "capacity 64: the surviving records differ from the full ring's")
+    survivors = decode_records(np.asarray(lap_keep["packed"], np.int32),
+                               0)[0]
+    check(len(survivors) == DEV_OBS_LAP_CAPACITY,
+          "capacity 64: the packed ring does not decode")
+    res["laps"] = {"capacity": DEV_OBS_LAP_CAPACITY, "total": total,
+                   "dropped": lap["device"]["dropped"],
+                   "laps": lap["device"]["laps"], "survivors_equal": True,
+                   "flushes_held": lap["flushes"]}
+    res["launches"] = {key: res["launches"][key] + lap_launches[key]
+                       for key in res["launches"]}
+    # card vs CPU at C = 4 096, fuse_k 8, attached
+    zero_counters(dev)
+    small = {}
+    walls = {}
+    for where in (dev, "cpu"):
+        with fly_on_cpu(where):
+            t0 = time.perf_counter()
+            small[str(where)] = dev_obs_engine_run(
+                fused_config(OBS_SMALL_CAPACITY, 8), where, DEV_OBS_CAPACITY)
+            walls[str(where)] = time.perf_counter() - t0
+        if where == dev:
+            res["card_equals_cpu_launches"] = read_counters(dev)
+    ck, hk = small[str(dev)][1], small["cpu"][1]
+    for key in ck:
+        if key == "state":
+            for f in ck[key]:
+                check(np.array_equal(ck[key][f], hk[key][f]),
+                      f"device obs card vs CPU: state.{f} differs")
+        else:
+            check(ck[key] == hk[key], f"device obs card vs CPU: {key} "
+                                      "differs")
+    res["card_equals_cpu"] = {"capacity": OBS_SMALL_CAPACITY, "fuse_k": 8,
+                              "equal": sorted(ck), "walls_s": walls,
+                              "records": small[str(dev)][0]["device"]}
+    torch.cuda.synchronize()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 def main() -> int:
     if not (HERE / "raft_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py needs the repository around it: "
@@ -6446,6 +7220,9 @@ def main() -> int:
     engine_obs = phase_engine_obs_path(dev)
     engine_obs_small = phase_obs_card_equals_cpu(dev)
     c5 = phase_config5_storm(dev)
+    phase_native_codec(card_line)
+    engine_tiered = phase_engine_tiered_path(dev)
+    engine_dev_obs = phase_engine_device_obs_path(dev)
     ecfg = ec_config()
     ec_errs = phase_ec_kernels(ecfg, dev)
     ec_main = phase_ec_main_path(ecfg, dev)
@@ -6501,6 +7278,14 @@ def main() -> int:
                 # reduced run on the card against the CPU
                 by_path["kv"] = kv_main["launches"][key]
                 by_path["kv_card_equals_cpu"] = kv_small["launches"][key]
+                # the tiered archive and the device event ring through the
+                # engine, and their reduced runs on the card against the
+                # CPU
+                for path, ph in (("engine_tiered", engine_tiered),
+                                 ("engine_device_obs", engine_dev_obs)):
+                    by_path[path] = ph["launches"][key]
+                    by_path[f"{path}_card_equals_cpu"] = \
+                        ph["card_equals_cpu_launches"][key]
             if key in ("K2", "K3", "K4", "K6 encode", "K6 decode", "K7"):
                 # the erasure-coded engine at config 3, and its reduced
                 # run on the card against the CPU

@@ -1,6 +1,7 @@
 """Checkpoints, snapshot install, the committed-entry archive, the snapshot
-shipper's bookkeeping and the vote log (port of ``raft_tpu/ckpt``). The
-tiered store (``TieredStore``) is ROADMAP A13."""
+shipper's bookkeeping, the vote log and the tiered archive (``TieredStore``:
+a hot RAM tail over RS-coded on-disk segments) (port of
+``raft_tpu/ckpt``)."""
 
 from raft_tpu_torch.ckpt.ship import SnapshotShipper
 from raft_tpu_torch.ckpt.snapshot import (
@@ -10,13 +11,17 @@ from raft_tpu_torch.ckpt.snapshot import (
     install_snapshot,
     install_snapshot_all,
 )
+from raft_tpu_torch.ckpt.tiered import SegmentCorrupt, SegmentIO, TieredStore
 from raft_tpu_torch.ckpt.votelog import VoteLog, merge_restored
 
 __all__ = [
     "CheckpointStore",
     "EngineCheckpoint",
+    "SegmentCorrupt",
+    "SegmentIO",
     "Snapshot",
     "SnapshotShipper",
+    "TieredStore",
     "VoteLog",
     "install_snapshot",
     "install_snapshot_all",

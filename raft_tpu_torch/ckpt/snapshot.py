@@ -28,7 +28,8 @@ other. One difference of mechanism, none of result: under EC the shard
 rows are encoded on the state's device with ``ec.kernels.encode_device``
 (kernel K6 on the card, its plain ``encode_bitwise`` on the CPU) where the
 JAX package uses its C++ host codec (``RSCode.encode_host``); the bytes
-are the same. The tiered store (``TieredStore``) is ROADMAP A13.
+are the same. The tiered archive (``ckpt.tiered.TieredStore``) subclasses
+``CheckpointStore``.
 """
 
 from __future__ import annotations
@@ -196,8 +197,8 @@ class CheckpointStore:
     long-dead replica can be re-seeded. (In a multi-host deployment each
     host would persist its own replica's feed; in this single-process
     engine one store serves the cluster.) Retention is ``max_entries``
-    in RAM (the JAX package's ``ckpt.tiered.TieredStore`` subclass, ROADMAP
-    A13, seals the same horizon into RS-coded on-disk segments instead).
+    in RAM (the ``ckpt.tiered.TieredStore`` subclass seals the same horizon
+    into RS-coded on-disk segments instead).
     """
 
     def __init__(self, entry_bytes: int, max_entries: Optional[int] = None):

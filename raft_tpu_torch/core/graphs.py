@@ -9,7 +9,8 @@ into a ``torch.cuda.CUDAGraph`` and each fused launch of the engine is one
 replay.
 
 - **Cache.** :class:`FusedGraphs` (one per transport) keeps one graph per
-  (member mode, launch size K, B, W, S), all in one shared graph pool;
+  (member mode, launch size K, B, W, S, record mode), all in one shared
+  graph pool;
   its rows and commit quorum are the transport's. The engine's window
   planner picks power-of-two launch sizes up to ``fuse_k``, so about
   log2(K) graphs are captured.
@@ -23,6 +24,11 @@ replay.
   state it is given). A ring or staging buffer that has changed identity
   (a restore, or anything else that hands the engine new ring tensors)
   drops the graphs and captures anew, never a silent copy of the ring.
+- **Recorded mode.** With an ``obs.device.EventRing`` (``ring=``) the
+  captured region is ``fused_steady_scan(..., ring=, record=True)``: the
+  ring's four tensors are written in place by the replay, like the state
+  rings, and a ring of another identity (a new attachment) drops the
+  set and captures anew.
 - **Per-launch inputs.** start slot, ``n_run``, the halted mode, leader,
   term, repair floor, its attested term, the K counts and the
   alive/slow/member planes are one int32 host array, uploaded with one
@@ -34,7 +40,9 @@ replay.
   stream, with every tick the masked no-op (halted), so the state passes
   through bit for bit; the device halted flag it sets is put back, since
   a launch of another size earlier in the same window may have left it
-  for the launch being captured.
+  for the launch being captured. The warm-up's masked ticks also
+  advance a recorded ring's ``tick``: the ring's four tensors are saved
+  before it and put back after.
 - **Pipelining.** The outputs live at fixed addresses in the pool, so
   each replay is followed by one stream-ordered clone of its packed
   output; the returned infos, ``escaped``, ``ran`` and ``halted`` are
@@ -122,19 +130,26 @@ class _GraphSet:
     rings and one staging buffer, with the static small leaves and the
     device halted flag they share."""
 
-    def __init__(self, state: ReplicaState, staging: torch.Tensor):
+    def __init__(self, state: ReplicaState, staging: torch.Tensor,
+                 ring=None):
         self.log_term = state.log_term
         self.log_payload = state.log_payload
         self.staging = staging
+        self.ring = ring
         self.small = {f: torch.empty_like(getattr(state, f)) for f in SMALL}
         self.halted = torch.zeros((), dtype=torch.bool, device=state.device)
         self.last_halted: Optional[torch.Tensor] = None
         self.graphs: Dict[int, _Graph] = {}
 
-    def holds(self, state: ReplicaState, staging: torch.Tensor) -> bool:
+    def holds(self, state: ReplicaState, staging: torch.Tensor,
+              ring) -> bool:
         return (state.log_term is self.log_term
                 and state.log_payload is self.log_payload
-                and staging is self.staging)
+                and staging is self.staging
+                and (ring is None) == (self.ring is None)
+                and (ring is None or all(
+                    a is b for a, b in zip(ring.tensors(),
+                                           self.ring.tensors()))))
 
     def state(self) -> ReplicaState:
         return ReplicaState(**self.small, log_term=self.log_term,
@@ -179,12 +194,13 @@ class FusedGraphs:
             member = planes[2]
         mode = head[_H["halted"]]
         halted0 = torch.where(mode == HALTED_ON_DEVICE, gs.halted, mode == 1)
+        rec = {} if gs.ring is None else {"ring": gs.ring, "record": True}
         st, infos, esc, ran, halted = fused_steady_scan(
             self.comm, self.commit_quorum, gs.state(), gs.staging,
             head[_H["start_slot"]], counts, head[_H["n_run"]], halted0,
             head[_H["leader"]], head[_H["leader_term"]], planes[0] != 0,
             planes[1] != 0, head[_H["floor_prev_term"]],
-            head[_H["repair_floor"]], member)
+            head[_H["repair_floor"]], member, **rec)[:5]
         for f in SMALL:
             gs.small[f].copy_(getattr(st, f))
         gs.halted.copy_(halted)
@@ -204,6 +220,7 @@ class FusedGraphs:
         # next one to read: keep it.
         g.inp[_H["halted"]] = 1
         flag = gs.halted.clone()
+        saved = gs.ring.save() if gs.ring is not None else None
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
@@ -211,6 +228,8 @@ class FusedGraphs:
             self._body(gs, g.inp, K, kind)
         cur.wait_stream(side)
         gs.halted.copy_(flag)
+        if saved is not None:
+            gs.ring.restore(saved)
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         before = ring_cuda.LAUNCHES["write_window_both"]
@@ -234,18 +253,19 @@ class FusedGraphs:
     # -------------------------------------------------------------- run
     def run(self, state: ReplicaState, staging: torch.Tensor, start_slot,
             counts, n_run, halted0, leader, leader_term, alive, slow,
-            member, repair_floor, floor_prev_term):
+            member, repair_floor, floor_prev_term, ring=None):
         """One fused launch: ``fused_steady_scan``'s arguments and
-        results (``state, infos, escaped, ran, halted``), by one replay."""
+        results (``state, infos, escaped, ran, halted``, and ``ring`` when
+        one is given), by one replay."""
         K = int(counts.shape[0])
         S, B, W = staging.shape
         kind = member_kind(member)
-        key = (kind, B, W, S)
+        key = (kind, B, W, S, ring is not None)
         gs = self.sets.get(key)
-        if gs is None or not gs.holds(state, staging):
+        if gs is None or not gs.holds(state, staging, ring):
             if gs is not None:
                 self.recaptures += 1
-            gs = self.sets[key] = _GraphSet(state, staging)
+            gs = self.sets[key] = _GraphSet(state, staging, ring)
         for f in SMALL:
             src = getattr(state, f)
             if src is not gs.small[f]:
@@ -283,7 +303,8 @@ class FusedGraphs:
         gs.last_halted = halted
         infos = RepInfo(commit_index=ci, match=snap[6 * K + 1:].reshape(K, R),
                         max_term=mt, repair_start=rs, frontier_len=fl)
-        return gs.state(), infos, esc, ran, halted
+        out = (gs.state(), infos, esc, ran, halted)
+        return out if ring is None else out + (ring,)
 
 
 def _host(x) -> np.ndarray:

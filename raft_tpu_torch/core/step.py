@@ -128,10 +128,35 @@ def replicate_step(
     commit_quorum: int | None = None,
     repair: bool = True,
     term_floor=None,               # first log index of the leader's term
+    ring=None,                     # obs.device.EventRing when record=True
+    record: bool = False,
+    group_id: int = -1,            # group tag recorded events carry
 ) -> tuple[ReplicaState, RepInfo]:
     """One leader tick, on device: the same (state, RepInfo) as
     ``raft_tpu.core.step.replicate_step`` (see its docstring for the
-    protocol). Consumes ``state``."""
+    protocol). Consumes ``state``.
+
+    ``record=True`` (``:152-213``) runs the step unrecorded, through
+    whichever formulation the dispatch picks (K2 or the general path),
+    then records its events into ``ring`` in place from the (old, new,
+    info) triple (``obs.device.record_replicate_events``); the old small
+    leaves are copied out first, since K2 writes them in place. Returns
+    ``(state, info, ring)``."""
+    if record:
+        from raft_tpu_torch.obs.device import pre_of, record_replicate_events
+
+        if ring is None:
+            raise ValueError("record=True requires an EventRing")
+        old = pre_of(state)
+        new_state, info = replicate_step(
+            comm, state, client_payload, client_count, leader, leader_term,
+            alive, slow, floor_prev_term, repair_floor, member, ec=ec,
+            commit_quorum=commit_quorum, repair=repair,
+            term_floor=term_floor)
+        record_replicate_events(
+            ring, comm, old, new_state, info, leader, leader_term,
+            group_id, repair=bool(repair and not ec))
+        return new_state, info, ring
     dev = state.device
     if member is not None:
         member = membership_voters(_as_member(member, dev))
@@ -313,10 +338,31 @@ def _as_member(member, device) -> torch.Tensor:
 
 def scan_replicate(comm, ec, commit_quorum, repair, state, payloads, counts,
                    leader, leader_term, alive, slow, floor_prev_term=0,
-                   repair_floor=0, member=None, term_floor=None):
+                   repair_floor=0, member=None, term_floor=None, ring=None,
+                   record=False, group_id=-1):
     """T replication steps (``payloads`` i32[T, B, L*W], ``counts`` i32[T]);
-    returns (state, RepInfo with a leading [T] axis on every field)."""
+    returns (state, RepInfo with a leading [T] axis on every field).
+
+    ``record=True`` (``:535-570``) runs T recorded general-path steps into
+    ``ring`` and returns ``(state, infos, ring, interesting)``, with
+    ``interesting`` i32[T] 1 for every step that recorded an event."""
     dev = state.device
+    if record:
+        if ring is None:
+            raise ValueError("record=True requires an EventRing")
+        counts = torch.as_tensor(counts).to(device=dev, dtype=torch.int32)
+        infos, interesting = [], []
+        for t in range(counts.shape[0]):
+            c0 = ring.count.clone()
+            state, info, ring = replicate_step(
+                comm, state, payloads[t], counts[t], leader, leader_term,
+                alive, slow, floor_prev_term, repair_floor, member, ec=ec,
+                commit_quorum=commit_quorum, repair=repair, ring=ring,
+                record=True, group_id=group_id)
+            infos.append(info)
+            interesting.append(ring.count > c0)
+        return (state, _stack_infos(infos), ring,
+                torch.stack(interesting).to(torch.int32))
     if member is not None:
         member = membership_voters(_as_member(member, dev))
     steady = term_floor is not None and (not repair or ec)
@@ -366,7 +412,8 @@ def _escape(run, info, cnt, term, prev_last):
 
 def fused_steady_scan(comm, commit_quorum, state, staging, start_slot,
                       counts, n_run, halted0, leader, leader_term, alive,
-                      slow, floor_prev_term=0, repair_floor=0, member=None):
+                      slow, floor_prev_term=0, repair_floor=0, member=None,
+                      ring=None, record=False, group_id=-1):
     """K steady leader ticks with exact early exit (``core/step.py:633``).
 
     Tick j reads staging slot ``(start_slot + j) % S`` of ``staging``
@@ -377,7 +424,14 @@ def fused_steady_scan(comm, commit_quorum, state, staging, start_slot,
     the masked no-op (term 0, dead cluster, count 0: the state passes
     through bit for bit). Nothing is read back to the host.
 
-    Returns ``(state, infos[K], escaped i32[K], ran i32[K], halted)``."""
+    ``record=True`` (``:636-746``) records every tick into ``ring`` in
+    place: ``ring.tick`` advances on every tick, the masked ones included,
+    and a masked tick records nothing.
+
+    Returns ``(state, infos[K], escaped i32[K], ran i32[K], halted[,
+    ring])``."""
+    if record and ring is None:
+        raise ValueError("record=True requires an EventRing")
     dev = state.device
     S, K = staging.shape[0], counts.shape[0]
     reps = state.log_payload.shape[1] // staging.shape[2]
@@ -395,27 +449,45 @@ def fused_steady_scan(comm, commit_quorum, state, staging, start_slot,
         run = ~halted & (j < n_run)
         cnt = counts[j]
         win = take(staging, (start + j) % S).repeat(1, reps)
-        state, info = replicate_step(
+        out = replicate_step(
             comm, state, win, torch.where(run, cnt, 0), leader,
             torch.where(run, leader_term, 0), alive & run, slow,
             floor_prev_term, repair_floor, member,
-            commit_quorum=commit_quorum, repair=False)
+            commit_quorum=commit_quorum, repair=False, ring=ring,
+            record=record, group_id=group_id)
+        state, info = out[:2]
         esc, prev_last = _escape(run, info, cnt, leader_term, prev_last)
         halted = halted | esc
         infos.append(info)
         escaped.append(esc)
         ran.append(run)
-    return (state, _stack_infos(infos), torch.stack(escaped).to(torch.int32),
-            torch.stack(ran).to(torch.int32), halted)
+    out = (state, _stack_infos(infos), torch.stack(escaped).to(torch.int32),
+           torch.stack(ran).to(torch.int32), halted)
+    return out + (ring,) if record else out
 
 
 def vote_step(comm, state: ReplicaState, candidate, cand_term,
-              alive) -> tuple[ReplicaState, VoteInfo]:
+              alive, *, ring=None, record: bool = False, quorum=0,
+              group_id: int = -1) -> tuple[ReplicaState, VoteInfo]:
     """One election round: every replica votes at once, with per-term votes
     and the §5.4.1 up-to-date check (``raft_tpu/core/step.py:928``). The
     candidate's last index and last-log term and the grants cross the
     rows through ``comm`` (``:969-993``); the vote itself is the one-group
-    case of ``_vote``."""
+    case of ``_vote``.
+
+    ``record=True`` (``:935-965``) also records the round into ``ring`` in
+    place (``obs.device.record_vote_events``; a win is ``votes > quorum``
+    with no higher term heard) and returns ``(state, info, ring)``."""
+    if record:
+        from raft_tpu_torch.obs.device import pre_of, record_vote_events
+
+        if ring is None:
+            raise ValueError("record=True requires an EventRing")
+        old = pre_of(state)
+        new_state, info = vote_step(comm, state, candidate, cand_term, alive)
+        record_vote_events(ring, comm, old, new_state, info, candidate,
+                           cand_term, quorum, group_id)
+        return new_state, info, ring
     alive = _mask(alive, state.device)
     my_lterm = last_log_term(state)
     new, grant = _vote(as_group(state), candidate, cand_term,

@@ -8,8 +8,10 @@ decode), and the m = n - k parity rows form a Cauchy matrix
 submatrix of a Cauchy matrix is invertible, so any k of the n shard rows
 reconstruct the entry (BASELINE config 3).
 
-This module holds the matrices and the NumPy oracle (``encode``,
-``decode``). The device paths — the CUDA kernels K6/K7 and their plain
+This module holds the matrices, the NumPy oracle (``encode``, ``decode``)
+and the same two on the C++ host codec (``encode_host``, ``decode_host``,
+``raft_tpu_torch.native``: the tiered archive's segment codec). The device
+paths — the CUDA kernels K6/K7 and their plain
 bit-sliced versions — live in ``raft_tpu_torch.ec.kernels``; the JAX
 package's LUT-gather XLA path has no counterpart here.
 """
@@ -94,3 +96,21 @@ class RSCode:
         prods = gf.mul(D.reshape(self.k, self.k, *([1] * (sh.ndim - 1))),
                        sh[None])
         return self.unsplit(np.bitwise_xor.reduce(prods, axis=1))
+
+    # ---------------------------------------------------- C++ host codec
+    def encode_host(self, data: np.ndarray) -> np.ndarray:
+        """``encode`` on the C++ host codec (``raft_tpu_torch.native``,
+        built on first use; raises when it cannot be built)."""
+        from raft_tpu_torch import native
+
+        d = self.split(np.ascontiguousarray(data))      # [k, ..., S/k]
+        return np.concatenate([d, native.apply_matrix(self.parity_matrix,
+                                                      d)])
+
+    def decode_host(self, shards: np.ndarray,
+                    rows: Sequence[int]) -> np.ndarray:
+        """``decode`` on the C++ host codec."""
+        from raft_tpu_torch import native
+
+        return self.unsplit(native.apply_matrix(self.decode_matrix(rows),
+                                                shards))

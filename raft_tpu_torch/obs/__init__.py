@@ -22,12 +22,18 @@
 - ``hostprof``  — per-tick and per-pump-iteration host-time attribution.
 - ``profiling`` — the launch annotation the engine wraps around each
   launch.
+- ``device``    — the device plane: an event ring and a metrics vector on
+  the engine's device, recorded beside the protocol steps (inside the
+  fused window's CUDA graph too), flushed once per launch boundary into
+  ``DeviceObs`` and interleaved with the recorder by
+  ``merged_timeline``. Its names are exported lazily: an engine with no
+  device plane attached never loads the module.
 
 Every artifact (recorder dumps, span tables, Prometheus text, SLO and
 status snapshots, bundles, journals) has the JAX package's format, so
-either package's tools read either's. Not ported yet: the device event
-ring (``device``, ROADMAP A13) and the compile, memory and on-demand
-profiler planes (``compile``, ``memory``, ``/profile``, ROADMAP A16b).
+either package's tools read either's (the device ring's packed flush
+too). Not ported yet: the compile, memory and on-demand profiler planes
+(``compile``, ``memory``, ``/profile``, ROADMAP A16b).
 """
 
 from raft_tpu_torch.obs import blackbox
@@ -62,6 +68,13 @@ from raft_tpu_torch.obs.trace import TraceRecord, TraceRecorder
 __all__ = [
     "AuditViolation",
     "BlackboxJournal",
+    "COUNTER_METRICS",
+    "COUNTER_NAMES",
+    "DeviceObs",
+    "EventRing",
+    "KIND_NAMES",
+    "REC_W",
+    "ROLE_NAMES",
     "Event",
     "FlightRecorder",
     "HostProfiler",
@@ -82,14 +95,32 @@ __all__ = [
     "TraceRecord",
     "TraceRecorder",
     "blackbox",
+    "decode_records",
+    "dev_record",
     "explain",
     "explain_journal",
     "explain_stall",
+    "init_ring",
     "kind_of",
     "load_bundle",
+    "merged_timeline",
+    "packed_flush",
     "parse_prometheus",
     "read_journal",
     "serve_demo",
     "summarize_engine",
     "write_bundle",
 ]
+
+#: the device plane's exports, loaded on first use (module doc)
+_DEVICE = ("COUNTER_METRICS", "COUNTER_NAMES", "KIND_NAMES", "REC_W",
+           "ROLE_NAMES", "DeviceObs", "EventRing", "decode_records",
+           "dev_record", "init_ring", "merged_timeline", "packed_flush")
+
+
+def __getattr__(name):
+    if name in _DEVICE:
+        from raft_tpu_torch.obs import device
+
+        return getattr(device, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -15,10 +15,11 @@ The JAX package's chaos runners write bundles whenever a run ends in
 anything but its expected verdict and a destination is configured
 (``bundle_dir=`` argument, or the ``RAFT_TPU_BUNDLE_DIR`` environment
 variable); the port's runners come with ROADMAP A17. The bundle format is
-the JAX package's, so either package's CLI explains either's bundles. The
-device event ring (``ObsStack.build(device=True)``) waits for ROADMAP
-A13, the compile and memory planes (``compile_plane=True``) for A16b;
-both raise.
+the JAX package's, so either package's CLI explains either's bundles.
+``ObsStack.build(device=True)`` adds the device plane (``obs.device``): a
+bundle then carries the decoded device ring, which ``explain`` summarises
+and interleaves into the timeline. The compile and memory planes
+(``compile_plane=True``) wait for ROADMAP A16b and raise.
 
 Joined wire forensics: a bundle may carry TWO span tables —
 ``spans`` (the process's own) and ``client_spans`` (the wire-client
@@ -49,13 +50,16 @@ BUNDLE_FORMAT = "raft_tpu.obs/bundle.v1"   # shared with the JAX package
 class ObsStack:
     """The per-run observability plane a run attaches: one flight
     recorder, span tracker and metrics registry, plus the safety auditor
-    and SLO tracker when asked for, shared by every engine the run boots
-    (across crash-restore cycles too). The JAX stack's device, compile
-    and memory planes wait for ROADMAP A13 and A16b."""
+    and SLO tracker when asked for, and with ``device=True`` the device
+    plane (``obs.device.DeviceObs``, decoded at every launch boundary),
+    shared by every engine the run boots (across crash-restore cycles
+    too: each fresh engine gets a fresh ring, the DeviceObs accumulates).
+    The JAX stack's compile and memory planes wait for ROADMAP A16b."""
 
     recorder: Any
     spans: Any
     registry: Any
+    device: Any = None
     audit: Any = None          # obs.audit.SafetyAuditor (online plane)
     slo: Any = None            # obs.slo.SloTracker (online plane)
 
@@ -67,9 +71,11 @@ class ObsStack:
         from raft_tpu_torch.obs.registry import MetricsRegistry
         from raft_tpu_torch.obs.spans import SpanTracker
 
+        dev = None
         if device:
-            raise _not_ported("the device event ring (device=True)",
-                              "A13")
+            from raft_tpu_torch.obs.device import DeviceObs
+
+            dev = DeviceObs()
         if compile_plane:
             raise _not_ported("the compile and memory planes "
                               "(compile_plane=True)", "A16b")
@@ -89,6 +95,7 @@ class ObsStack:
             recorder=recorder,
             spans=SpanTracker(),
             registry=registry,
+            device=dev,
             audit=auditor,
             slo=tracker,
         )
@@ -105,6 +112,8 @@ class ObsStack:
             self.audit.on_attach(engine)
         if self.slo is not None:
             engine.slo = self.slo
+        if self.device is not None and hasattr(engine, "attach_device_obs"):
+            engine.attach_device_obs(self.device)
 
     def close(self) -> None:
         """The JAX stack detaches its compile watch here; this stack

@@ -70,9 +70,18 @@ host code reading host mirrors: with no recorder and no trace attached
 the engine makes exactly the device fetches it makes with nothing
 attached, and the artifacts equal the JAX engine's.
 
-Not ported yet; each raises ``NotImplementedError`` naming its ROADMAP
-item: the tiered archive and the device event ring (A13); the multihost
-mirror digest (A15).
+With ``tiered_log_dir`` (or ``RAFT_TPU_TIERED_DIR``) the archive is a
+``ckpt.TieredStore``: the hot tail in RAM, older committed entries sealed
+into RS-coded segment files (the C++ host codec) under a fresh
+``tier_`` subdirectory per engine, read back through the same calls, so
+``register_apply(replay=True)`` reaches the whole history.
+``attach_device_obs`` attaches the device plane (``obs.device``): the
+ticks, vote rounds and fused windows record into an event ring on the
+device and each launch boundary flushes it with one fetch; pipelined
+chunks record at chunk granularity.
+
+Not ported yet, raising ``NotImplementedError`` naming its ROADMAP item:
+the multihost mirror digest (A15).
 """
 
 from __future__ import annotations
@@ -92,6 +101,7 @@ from raft_tpu_torch.ckpt import (
     EngineCheckpoint,
     Snapshot,
     SnapshotShipper,
+    TieredStore,
     VoteLog,
     install_snapshot,
     install_snapshot_all,
@@ -242,6 +252,16 @@ class RaftEngine:
         #   published at each event-loop flush boundary, which the ops
         #   server reads from its own thread.
         #   None of these five fetches anything from the device.
+        self.device_obs = None
+        #   obs.device.DeviceObs (None = off): attach_device_obs allocates
+        #   an EventRing on the transport's device that the replicate and
+        #   vote launches record into (the steps' record=True mode), and
+        #   every launch boundary flushes ONE packed fetch of the ring and
+        #   its counters into this host plane. Detached, the engine runs
+        #   exactly the unrecorded launches and fetches.
+        self._dev_ring = None
+        self._dev_flushed = 0
+        self._dev_counters_folded = None
         self._floor_event_hwm: Dict[int, int] = {}
         #   per row: the highest repair floor a repair_floor_raise event
         #   has reported (the recorder-only event fires on a raise)
@@ -328,11 +348,44 @@ class RaftEngine:
         #   replicas are also re-served the uncommitted suffix from here
         #   (fewer than commit_quorum rows hold its shards). Bounded by
         #   ring backpressure: leader_last - commit <= log_capacity.
-        self.store = CheckpointStore(
-            cfg.entry_bytes, max_entries=2 * cfg.log_capacity
+        tiered_root = (
+            os.environ.get("RAFT_TPU_TIERED_DIR", "") or cfg.tiered_log_dir
         )
+        if tiered_root:
+            # Tiered archive (ckpt.tiered): hot tail in RAM, sealed
+            # RS-coded segments on disk, so coverage reaches the whole
+            # history at bounded RAM. Each engine seals under its own
+            # fresh subdirectory (a restore rebuilds its archive from the
+            # checkpoint, not from an earlier engine's segment files).
+            # The environment override flips the tier without a config
+            # edit; results are byte-identical either way.
+            import tempfile
+
+            os.makedirs(tiered_root, exist_ok=True)
+            hot = cfg.tiered_hot_entries or 2 * cfg.log_capacity
+            self.store: CheckpointStore = TieredStore(
+                cfg.entry_bytes,
+                root=tempfile.mkdtemp(prefix="tier_", dir=tiered_root),
+                hot_entries=hot,
+                segment_entries=min(hot, (
+                    cfg.segment_entries
+                    or max(1, cfg.log_capacity // 2)
+                )),
+                rs_k=cfg.segment_rs_k,
+                rs_m=cfg.segment_rs_m,
+                on_seal=self._note_seal,
+                checkpoint_span=2 * cfg.log_capacity,
+            )
+        else:
+            self.store = CheckpointStore(
+                cfg.entry_bytes, max_entries=2 * cfg.log_capacity
+            )
         #   Host archive of the committed log (term + bytes per entry);
-        #   compacts beyond 2x the ring capacity.
+        #   the plain store compacts beyond 2x the ring capacity, the
+        #   tiered store seals that horizon to disk instead.
+        self._tiered_store = self.store if tiered_root else None
+        #   non-None when the archive is tiered: the apply-cursor seal
+        #   ceiling and the /status tier section key off it
         self._shipper = SnapshotShipper(
             cfg.catchup_chunk_entries or cfg.batch_size
         )
@@ -435,8 +488,6 @@ class RaftEngine:
     @staticmethod
     def _refuse_unported(cfg: RaftConfig) -> None:
         """Raise for every configuration whose code is not ported yet."""
-        if os.environ.get("RAFT_TPU_TIERED_DIR", "") or cfg.tiered_log_dir:
-            raise _not_ported("the tiered archive (tiered_log_dir)", "A13")
         if cfg.mirror_check_every:
             raise _not_ported("the multihost mirror digest "
                               "(mirror_check_every)", "A15")
@@ -514,6 +565,14 @@ class RaftEngine:
             return
         labels.setdefault("group", "0")
         self.metrics.counter(name, help_, tuple(labels)).inc(**labels)
+
+    def _note_seal(self, n_entries: int) -> None:
+        """Tiered-store seal callback: one segment of ``n_entries``
+        committed entries was RS-coded and spilled to disk."""
+        self._metric_inc(
+            "raft_segments_sealed_total",
+            "sealed cold-tier segments spilled to disk",
+        )
 
     def _set_votes(self, terms: np.ndarray, vf: np.ndarray) -> None:
         """Install per-replica (term, votedFor) into the device state and
@@ -745,6 +804,7 @@ class RaftEngine:
                                            device=self._dev).reshape(T, B, -1)
             pre_lasts = self._pre_lasts()
             floor, fpt = self._floor_attest(r)
+            dev_pre = self._dev_pre_chunk()
             if eligible:
                 # the saturated fast path: the whole chunk as ONE flight;
                 # the host gate implies the kernel's feasibility
@@ -763,6 +823,7 @@ class RaftEngine:
                     allow_turnover=all_accept,
                 )
                 self._note_truncations(pre_lasts)
+                self._dev_record_chunk(dev_pre, info, r, self.leader_term, T)
                 final_commit = int(info.commit_index)
                 if final_commit != leader_last + take:
                     # gate and kernel out of sync: account the committed
@@ -809,6 +870,13 @@ class RaftEngine:
                 term_floor=self._term_floor,
             )
             self._note_truncations(pre_lasts)
+            if dev_pre is not None:
+                # the scan stacks per-step infos; the chunk's transition
+                # is judged against the final step's
+                self._dev_record_chunk(
+                    dev_pre, type(infos)(*(f[-1] for f in infos)), r,
+                    self.leader_term, T,
+                )
             # ---- one host sync for the whole chunk ----
             frontier = self._fetch(infos.frontier_len)
             max_term = int(np.max(self._fetch(infos.max_term)))
@@ -1222,15 +1290,22 @@ class RaftEngine:
             )
         pre_lasts = self._pre_lasts()
         floor, fpt = self._floor_attest(r)
-        self.state, info = self.t.replicate(
+        out = self.t.replicate(
             self.state, self._hb_payload, 0, r, term, self._dev_arr(eff),
             self._dev_arr(self.slow), repair=self._repair_program(),
             member=self._member_arg(),
             repair_floor=floor, floor_prev_term=fpt,
-            term_floor=self._term_floor,
+            term_floor=self._term_floor, **self._ring_arg(),
         )
+        self.state, info = out[:2]
+        self._flush_device_obs()
         self._note_truncations(pre_lasts)
         return info
+
+    def _ring_arg(self) -> dict:
+        """The recorded launch's ``ring=`` while the device plane is
+        attached; nothing otherwise (the unrecorded program)."""
+        return {} if self._dev_ring is None else {"ring": self._dev_ring}
 
     # ------------------------------------------------------------- membership
     def _member_arg(self):
@@ -1514,10 +1589,97 @@ class RaftEngine:
             p = int(p)
             self.nodelog(p, "learner removed from configuration")
 
-    # --------------------------------------- device observability (A13)
+    # ------------------------------------------- device observability plane
     def attach_device_obs(self, obs=None, capacity: int = 4096):
-        raise _not_ported("attach_device_obs (the device event ring)",
-                          "A13")
+        """Attach the device-resident observability plane (``obs.device``):
+        later replicate and vote launches record into an event ring on
+        the device (their states equal the unrecorded launches'), and
+        each launch boundary flushes the ring and its counters into
+        ``obs`` (a ``DeviceObs``; one is made when omitted). Passing an
+        existing DeviceObs lets one plane span crash-restore cycles: each
+        attachment opens a new epoch. The pipelined chunks record at
+        chunk granularity (``_dev_record_chunk``). Returns the
+        DeviceObs."""
+        from raft_tpu_torch.obs.device import N_COUNTERS, DeviceObs, init_ring
+
+        self.device_obs = obs if obs is not None else DeviceObs(capacity)
+        self.device_obs.new_epoch()
+        self._dev_ring = init_ring(self.device_obs.capacity,
+                                   device=self.state.device)
+        self._dev_flushed = 0
+        self._dev_counters_folded = np.zeros(N_COUNTERS, np.int64)
+        return self.device_obs
+
+    def detach_device_obs(self) -> None:
+        """Back to the unrecorded launches; the DeviceObs keeps everything
+        already flushed."""
+        self._flush_device_obs()
+        self.device_obs = None
+        self._dev_ring = None
+
+    def _flush_device_obs(self) -> None:
+        """One fetch per launch boundary: the packed ring (buffer, seq
+        counter, metrics vector), decoded into ``obs.events.Event``s, with
+        the counter deltas folded into ``self.metrics``. A pure read: no
+        engine decision depends on it."""
+        if self.device_obs is None or self._dev_ring is None:
+            return
+        from raft_tpu_torch.obs.device import (
+            COUNTER_METRICS,
+            decode_records,
+            packed_flush,
+        )
+
+        packed = self._fetch(packed_flush(self._dev_ring))
+        events, count, lost, counters, _tick = decode_records(
+            packed, self._dev_flushed, t_virtual=self.clock.now,
+        )
+        if count == self._dev_flushed and not np.any(
+            counters - self._dev_counters_folded
+        ):
+            return
+        self.device_obs.ingest(
+            events, total=count, lost=lost, counters=counters, group=None,
+        )
+        self._dev_flushed = count
+        if self.metrics is not None:
+            for i, name in enumerate(COUNTER_METRICS):
+                delta = int(counters[i] - self._dev_counters_folded[i])
+                if delta:
+                    self.metrics.counter(
+                        name, "on-device protocol counter", ("group",)
+                    ).inc(delta, group="0")
+        self._dev_counters_folded = counters
+
+    def _dev_pre_chunk(self):
+        """The small leaves chunk recording reads, copied out BEFORE a
+        pipelined launch (the flights write them in place); None when
+        the device plane is detached."""
+        if self._dev_ring is None:
+            return None
+        from raft_tpu_torch.obs.device import pre_of
+
+        return pre_of(self.state)
+
+    def _dev_record_chunk(self, pre, info, r: int, term: int,
+                          ticks: int) -> None:
+        """Chunk-granularity recording of a pipelined launch
+        (``submit_pipelined``): the flight kernels carry no per-step
+        ring, so the chunk records its aggregate transition, one commit
+        advance (the one host nodelog commit line a chunk produces) plus
+        term adoptions, step-down evidence and counter deltas, with
+        ``heartbeat_ticks`` charged the chunk's step count; then one
+        flush."""
+        if self._dev_ring is None or pre is None:
+            return
+        from raft_tpu_torch.core.comm import SingleDeviceComm
+        from raft_tpu_torch.obs.device import record_replicate_events
+
+        record_replicate_events(
+            self._dev_ring, SingleDeviceComm(self.cfg.rows), pre,
+            self.state, info, r, term, -1, repair=False, ticks=ticks,
+        )
+        self._flush_device_obs()
 
     # ---------------------------------------------------------- fault toggles
     def fail(self, r: int) -> None:
@@ -1816,8 +1978,9 @@ class RaftEngine:
                     lead, int(self.lead_terms[lead]), self.clock.now
                 )
             snap["reads"] = reads
-        # the JAX snapshot's "tiered" section comes with the tiered
-        # archive (ROADMAP A13)
+        if self._tiered_store is not None:
+            # seal/spill tallies, host bytes, RS reconstructs
+            snap["tiered"] = self._tiered_store.tier_summary()
         if self._shipper.streams or self._shipper.chunks_total:
             snap["catchup"] = self._shipper.summary()
         if self.auditor is not None:
@@ -1908,9 +2071,16 @@ class RaftEngine:
         main.go:253-284)."""
         cand_term = int(self.terms[r])
         eff = self._voter_reach(r)
-        self.state, info = self.t.request_votes(
-            self.state, r, cand_term, self._dev_arr(eff)
-        )
+        if self._dev_ring is not None:
+            self.state, info, _ = self.t.request_votes(
+                self.state, r, cand_term, self._dev_arr(eff),
+                ring=self._dev_ring, quorum=int(self.member.sum()) // 2,
+            )
+            self._flush_device_obs()
+        else:
+            self.state, info = self.t.request_votes(
+                self.state, r, cand_term, self._dev_arr(eff)
+            )
         votes = int(info.votes)
         max_term = int(info.max_term)
         self.terms[eff] = np.maximum(self.terms[eff], cand_term)
@@ -2123,16 +2293,21 @@ class RaftEngine:
         member_arg = (self._dev_arr(step_member) if step_member is not None
                       else self._member_arg())
         with _profiling.launch_annotation("leader_tick", self._tick_count):
-            self.state, info = self.t.replicate(
+            out = self.t.replicate(
                 self.state, payload, take, r, term, self._dev_arr(eff),
                 self._dev_arr(self.slow), repair=repair,
                 member=member_arg,
                 repair_floor=floor, floor_prev_term=fpt,
-                term_floor=self._term_floor,
+                term_floor=self._term_floor, **self._ring_arg(),
             )
+            self.state, info = out[:2]
         if hp is not None:
             hp.mark("dispatch")
             hp.sync(self.state, info)
+        # the device-plane flush AFTER the profiler's dispatch and
+        # device_wait marks: its fetch syncs, and inside the dispatch
+        # window it would be charged to the step
+        self._flush_device_obs()
         self._note_truncations(pre_lasts)
         max_term = int(info.max_term)
         if max_term > term:
@@ -2757,6 +2932,11 @@ class RaftEngine:
         if not self._apply_fns:
             self.applied_index = max(self.applied_index, self.commit_watermark)
         self._apply_fns.append((fn, start))
+        if self._tiered_store is not None:
+            # with apply consumers registered, the tiered store seals only
+            # history the apply stream has consumed: the next apply index
+            # never pays a segment read
+            self._tiered_store.apply_cursor = self.applied_index
         return lo
 
     def _drain_apply(self) -> None:
@@ -2786,6 +2966,8 @@ class RaftEngine:
                         err = err if err is not None else ex
             if err is not None:
                 raise err
+        if self._tiered_store is not None and self._apply_fns:
+            self._tiered_store.apply_cursor = self.applied_index
 
     def _backfill_archive(self, idx: int, quiet: bool = False) -> bool:
         """Try to fill an archive gap at committed index ``idx`` from the

@@ -39,8 +39,10 @@ Three pieces:
 The booking feeds the host observability plane as the JAX booking does
 (spans, metrics, the safety auditor, the SLO tracker, the flight
 recorder), all of it host code after the launch: nothing of it runs
-inside the captured graph. The device event ring the JAX booking also
-flushes waits for ROADMAP A13.
+inside the captured graph. With the device plane attached
+(``RaftEngine.attach_device_obs``) each launch records its ticks into
+the engine's event ring inside the graph (``replicate_fused(ring=)``),
+and the booking flushes the ring once per launch boundary.
 """
 
 from __future__ import annotations
@@ -387,11 +389,13 @@ class FusedDriver:
             with profiling.launch_annotation(
                 "fused_window", e.fused_launches
             ):
-                e.state, infos, escaped, ran, halted = e.t.replicate_fused(
+                out = e.t.replicate_fused(
                     e.state, st.buf, start_batch % st.S, cnt, n_run,
                     halted, r, term, alive, slow, member=member,
                     repair_floor=floor, floor_prev_term=fpt,
+                    ring=e._dev_ring,
                 )
+            e.state, infos, escaped, ran, halted = out[:5]
             e.fused_launches += 1
             if hp is not None:
                 hp.mark("dispatch")
@@ -457,6 +461,7 @@ class _WindowBook:
         if hp is not None:
             hp.sync(infos.commit_index, escaped, ran)
         ci, fl, mt, esc, rn, match = _launch_outputs(infos, escaped, ran)
+        e._flush_device_obs()
         n_run = int(rn.sum())
         for j in range(n_run):
             last_exec = (j == n_run - 1) and bool(esc[j])

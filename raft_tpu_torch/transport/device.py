@@ -149,13 +149,17 @@ class SingleDeviceTransport:
     def replicate(self, state, client_payload, client_count, leader,
                   leader_term, alive, slow, repair=True, member=None,
                   repair_floor=0, floor_prev_term=0,
-                  term_floor=None) -> Tuple[ReplicaState, RepInfo]:
+                  term_floor=None, ring=None) -> Tuple[ReplicaState, RepInfo]:
         """One leader tick. ``repair=False`` with ``term_floor`` runs the
-        whole-step kernel; otherwise the general path (ring kernel)."""
+        whole-step kernel; otherwise the general path (ring kernel).
+        ``ring`` (``obs.device.EventRing``) records the step into it and
+        makes the return ``(state, info, ring)``; ``None`` runs exactly
+        the unrecorded program."""
+        rec = {} if ring is None else {"ring": ring, "record": True}
         return self._replicate[bool(repair)](
             state, client_payload.to(self.device), client_count, leader,
             leader_term, alive, slow, floor_prev_term, repair_floor,
-            self._member(member), term_floor=term_floor,
+            self._member(member), term_floor=term_floor, **rec,
         )
 
     def replicate_many(self, state, payloads, counts, leader, leader_term,
@@ -170,8 +174,14 @@ class SingleDeviceTransport:
             term_floor=term_floor,
         )
 
-    def request_votes(self, state, candidate, cand_term,
-                      alive) -> Tuple[ReplicaState, VoteInfo]:
+    def request_votes(self, state, candidate, cand_term, alive, ring=None,
+                      quorum=0) -> Tuple[ReplicaState, VoteInfo]:
+        """One election round. ``ring`` records it (the return is then a
+        triple); ``quorum`` is the engine's win threshold (members // 2)
+        the recorded election win uses."""
+        if ring is not None:
+            return self._vote(state, candidate, cand_term, alive, ring=ring,
+                              record=True, quorum=quorum)
         return self._vote(state, candidate, cand_term, alive)
 
     def replicate_pipeline(self, state, payloads, counts, leader, leader_term,
@@ -199,13 +209,10 @@ class SingleDeviceTransport:
         ``halted0`` is a bool, or the ``halted`` a previous launch
         returned. Scalars and masks may be host values or tensors. On the
         card the call is one replay of a captured CUDA graph
-        (``core.graphs``); on the CPU it runs the loop. Returns
-        ``(state, infos, escaped, ran, halted)``; the passed state is
-        consumed. The recorded variant (``ring=``) is not ported yet."""
-        if ring is not None:
-            raise NotImplementedError(
-                "the recorded fused program (ring=) is not ported to "
-                "raft_tpu_torch yet (ROADMAP A13)")
+        (``core.graphs``); on the CPU it runs the loop. ``ring``
+        (``obs.device.EventRing``) records every tick into it in place
+        (on the card inside the graph). Returns ``(state, infos, escaped,
+        ran, halted[, ring])``; the passed state is consumed."""
         if member is None and self._member_mode:
             member = np.ones(self.cfg.rows, bool)
         if self.device.type == "cuda":
@@ -218,7 +225,9 @@ class SingleDeviceTransport:
             return self.graphs.run(
                 state, staging, start_slot, counts, n_run, halted0, leader,
                 leader_term, alive, slow, member, repair_floor,
-                floor_prev_term)
+                floor_prev_term, ring=ring)
+        rec = {} if ring is None else {"ring": ring, "record": True}
         return self._fused(
             state, staging, start_slot, counts, n_run, halted0, leader,
-            leader_term, alive, slow, floor_prev_term, repair_floor, member)
+            leader_term, alive, slow, floor_prev_term, repair_floor, member,
+            **rec)

@@ -19,7 +19,8 @@ Payloads may be given whole (the folded [..., R*W] batch, of which each
 rank keeps its own lane block) or already cut (``shard_rows``).
 
 Not ported yet, and refused with a ``ValueError``: ``payload_shards > 1``
-(the 2-D mesh) and the recorded ``ring=`` programs (ROADMAP A15, A13).
+(the 2-D mesh) and the recorded ``ring=`` programs, which come with the
+engine over the mesh (ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ from raft_tpu_torch.transport.device import resolve_device
 def _no_ring(ring) -> None:
     if ring is not None:
         raise ValueError("the recorded mesh programs (ring=) are not ported "
-                         "yet (ROADMAP A13)")
+                         "yet (ROADMAP A15)")
 
 
 class MeshTransport:

@@ -400,21 +400,7 @@ def test_committed_log_equals_golden():
         np.testing.assert_array_equal(committed_payloads(e.state, r), want)
 
 
-DEFERRED_CALLS = [
-    ("attach_device_obs", (), "A13"),
-]
-
-
-@pytest.mark.parametrize("name,args,item", DEFERRED_CALLS,
-                         ids=[c[0] for c in DEFERRED_CALLS])
-def test_deferred_call_raises(name, args, item):
-    e = TEngine(TConfig(**KW), transports(KW)[1])
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        getattr(e, name)(*args)
-
-
 DEFERRED_CONFIGS = [
-    (dict(tiered_log_dir="tiers"), "A13"),
     (dict(mirror_check_every=8), "A15"),
 ]
 

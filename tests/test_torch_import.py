@@ -52,6 +52,9 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import raft_tpu_torch.raft.steady, raft_tpu_torch.core.graphs\n"
         "import raft_tpu_torch.golden, raft_tpu_torch.golden.model\n"
         "import raft_tpu_torch.demo\n"
+        "import raft_tpu_torch.native, raft_tpu_torch.ckpt.tiered\n"
+        "import raft_tpu_torch.cluster, raft_tpu_torch.cluster.storage\n"
+        "import raft_tpu_torch.obs.device\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax') or "
         "m == 'raft_tpu' or m.startswith(('jax.', 'raft_tpu.')))\n"
         "print(bad); sys.exit(1 if bad else 0)\n" % str(ROOT)

@@ -9,8 +9,8 @@ JAX package's.
   both packages, and each CLI reads the other's bundle alike.
 - ``BlackboxJournal`` journals and a ``StallWatchdog`` stall bundle
   (fired by a 0.2-s budget) explain the same through both packages.
-- ``ObsStack.build(device=True)`` refuses naming ROADMAP A13,
-  ``compile_plane=True`` naming A16b.
+- ``ObsStack.build(compile_plane=True)`` refuses naming ROADMAP A16b
+  (``device=True`` is covered in ``tests/test_torch_device_obs.py``).
 """
 
 import json
@@ -192,9 +192,8 @@ def test_stall_watchdog_fires_and_explains(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(device=True), "A13"),
     (dict(compile_plane=True), "A16b"),
-], ids=["device", "compile"])
+], ids=["compile"])
 def test_obs_stack_refuses_unported_planes(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tforensics.ObsStack.build(**kw)
