@@ -249,12 +249,42 @@ entries, batch 256, a 4096-slot ring each; ``bench.py``
     per-group SHA-256 must equal the input's; one config-A group must
     equal the single-group ``replicate_step`` path, and K5 must have
     launched on both paths;
-11. times K5 at both shapes (beside its write yardstick, one
-    ``index_copy_`` over the flattened group rings), config A's ms per
-    16-group step and config
+11. times K5 at both shapes and at ``multi_card_equals_cpu``'s G = 4
+    (beside its write yardstick, one ``index_copy_`` over the flattened
+    group rings), config A's ms per 16-group step and config
     B's µs per group tick of a fused launch (CUDA events; the counterparts
     of ``bench.py``'s ``device_scan_us_per_step`` and
     ``single_device_us_per_group_tick``) and both device idle shares;
+11a. drives config A through ``raft_tpu_torch.multi.MultiEngine`` with
+    ``Router`` and ``ShardedKV`` (``engine_multi_path``, ``bench.py``'s
+    seed 9): round-robin leaders, SETs in four waves (a warm batch a
+    group; 2 048 a group timed from submit to durable ack, as
+    ``bench_multi_group``; then a wave after the leaders of a quarter of
+    the groups fail, through the Router's retries and the re-elections,
+    and a profiled wave); each group's ``register_apply`` stream and
+    ``committed_payloads`` against the input's SHA-256, gets against the
+    model; prints ``bench_multi_group``'s metrics (entries/s, virtual
+    commit p50/p99), ms per tick round (median and maximum) and per
+    launch, and a profiled wave's kernels per round and idle share;
+11b. runs config B through the engine (``engine_multi_fused_path``):
+    ``core.graphs.FusedGroupGraphs`` (one replay of the captured K-tick
+    group loop) against ``fused_group_scan`` uncaptured on the card,
+    unrecorded and recorded (every leaf, output and event ring; 16
+    cases: a clean window, ``n_run < K``, 64 groups escaping, masked
+    groups, ``halted0``, K = 16, a new ring, a new group-id tensor);
+    the launch alone, graph and loop in turns (16 a side); then 8 waves
+    of 64 entries a group at ``fuse_k`` 32 with the graphs and without
+    them, wave for wave in turns, and at 1, each read back against the
+    input's SHA-256 and all three equal in every state leaf, commit
+    stamp and clock; prints every fused window's ms and booking ms, the
+    timed waves' entries/s, kernels and idle share of a profiled instant
+    per run;
+11c. ``multi_card_equals_cpu``: 4 groups at a 256-slot ring, ``fuse_k``
+    8, a flight recorder, a trace and the device event ring,
+    ``ShardedKV`` waves through fused windows and ticks, a slow follower
+    healed and a leader failed and re-elected through the Router, on
+    the card and on the CPU: nodelog lines, recorder events, state
+    leaves, the packed group rings, decoded events and the store equal;
 
 Then the replica mesh: one replica row per rank of a ``torch.distributed``
 gloo group, all ranks on the one card (three processes time-sharing it,
@@ -5368,15 +5398,45 @@ def phase_group_main_path(dev):
     return res
 
 
-def phase_group_timing(dev, card_line, reps=21):
-    """K5 per launch at both configurations' frontier windows beside its
-    plain version and byte bound; µs per group tick of config A's step
-    and of config B's fused launch (CUDA events); the device idle share
-    of both (torch.profiler)."""
+def k5_timing(cfg, G, dev, rng, rate, reps):
+    """K5 on a frontier window of ``G`` groups at ``cfg`` (every row
+    accepts, count = B): device ms, its plain version, the byte bound and
+    the write yardstick (every group's window rows as one ``index_copy_``
+    over the flattened (group, slot) rows)."""
     import torch
 
     from raft_tpu_torch.core import ring_cuda
     from raft_tpu_torch.core.ring import write_window_cols_xla
+
+    C, B, M = cfg.log_capacity, cfg.batch_size, cfg.rows * cfg.shard_words
+    buf = dev_rand(rng, (G, C, M), dev)
+    win = dev_rand(rng, (G, B, M), dev)
+    s = torch.from_numpy(rng.integers(0, C, G).astype(np.int32)).to(dev)
+    cnt = torch.full((G,), B, dtype=torch.int32, device=dev)
+    sel = torch.ones(G, M, dtype=torch.bool, device=dev)
+    ms, call_ms = kernel_ms("K5", lambda: ring_cuda.write_window_cols(
+        buf, win, s, cnt, sel), reps, inner=20)
+    plain = _host_ms(lambda: write_window_cols_xla(buf, win, s, cnt, sel),
+                     reps)
+    nbytes = 2 * G * B * M * 4 + G * M + 2 * G * 4
+    idx = (torch.arange(G, device=dev)[:, None] * C
+           + (s.long()[:, None] + torch.arange(B, device=dev)) % C
+           ).reshape(-1)
+    flat, rows = buf.view(G * C, M), win.view(G * B, M)
+    library = ops_ms(lambda: flat.index_copy_(0, idx, rows), reps)
+    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain,
+            "bytes": nbytes, "bound_ms": nbytes / rate * 1e3,
+            "library_ms": library}
+
+
+def phase_group_timing(dev, card_line, reps=21):
+    """K5 per launch at both configurations' frontier windows (and at
+    ``multi_card_equals_cpu``'s G = 4 shape) beside its plain version and
+    byte bound; µs per group tick of config A's step
+    and of config B's fused launch (CUDA events); the device idle share
+    of both (torch.profiler)."""
+    import torch
+
     from raft_tpu_torch.core.state import init_group_state
     from raft_tpu_torch.core.step import (fused_group_scan,
                                           group_replicate_step,
@@ -5387,31 +5447,9 @@ def phase_group_timing(dev, card_line, reps=21):
     res = {"phase": "group_timing", "card": card_line,
            "mem_bytes_per_s": rate}
     for name, (cfg, G) in (("A", group_config_a()), ("B", group_config_b())):
-        C, B, R, W = cfg.log_capacity, cfg.batch_size, cfg.rows, \
-            cfg.shard_words
-        M = R * W
-        # K5 on a frontier window: every row accepts, count = B
-        buf = dev_rand(rng, (G, C, M), dev)
-        win = dev_rand(rng, (G, B, M), dev)
-        s = torch.from_numpy(rng.integers(0, C, G).astype(np.int32)).to(dev)
+        B, R, W = cfg.batch_size, cfg.rows, cfg.shard_words
+        res[f"K5 {name}"] = k5_timing(cfg, G, dev, rng, rate, reps)
         cnt = torch.full((G,), B, dtype=torch.int32, device=dev)
-        sel = torch.ones(G, M, dtype=torch.bool, device=dev)
-        ms, call_ms = kernel_ms("K5", lambda: ring_cuda.write_window_cols(
-            buf, win, s, cnt, sel), reps, inner=20)
-        plain = _host_ms(lambda: write_window_cols_xla(buf, win, s, cnt, sel),
-                         reps)
-        nbytes = 2 * G * B * M * 4 + G * M + 2 * G * 4
-        # its write yardstick: every group's window rows as one
-        # index_copy_ over the flattened (group, slot) rows
-        idx = (torch.arange(G, device=dev)[:, None] * C
-               + (s.long()[:, None] + torch.arange(B, device=dev)) % C
-               ).reshape(-1)
-        flat, rows = buf.view(G * C, M), win.view(G * B, M)
-        library = ops_ms(lambda: flat.index_copy_(0, idx, rows), reps)
-        res[f"K5 {name}"] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain,
-                             "bytes": nbytes, "bound_ms": nbytes / rate * 1e3,
-                             "library_ms": library}
-        del buf, win, flat, rows
         # the group tick on a steady cluster: every group ingests B
         gi = torch.arange(G, device=dev)
         leaders = (gi % R).to(torch.int32)
@@ -5458,7 +5496,657 @@ def phase_group_timing(dev, card_line, reps=21):
             "k5_ms_per_call": k5_us / 1e3 / launches,
             "device_idle_share": 1.0 - busy / (wall * 1e6),
             "device_kernels_per_call": len(events) / launches}
+    res["K5 small"] = k5_timing(*multi_small_config(), dev, rng, rate, reps)
     torch.cuda.synchronize()
+    emit(res)
+    return res
+
+
+# ------------------------------------------------ the multi-Raft engine
+#: config A through the engine: entries per group in each wave: warm and
+#: timed as ``bench.py``'s ``bench_multi_group`` (one batch, then 2 048
+#: from submit to durable ack), then after the failover, and profiled
+MULTI_WAVES = (256, 2048, 256, 256)
+#: config B through the engine: entries per group in each of its waves
+MULTI_B_WAVE = 64
+#: config B's waves: the first window is cut short by the election
+#: timers, the second captures, the last is profiled, the rest are timed
+MULTI_B_WAVES = 10
+
+
+def multi_config(cfg, **over):
+    """A group configuration with ``bench.py``'s seed (``seed=9``)."""
+    return dataclasses.replace(cfg, seed=9, **over)
+
+
+class KvStream:
+    """``ShardedKV`` SETs, ``per_group`` for each group: 8-byte keys the
+    Router hashes onto the group, values filling the entry, each group's
+    encoded ops in order and their SHA-256; ``applied`` hashes each
+    group's ``register_apply`` stream."""
+
+    def __init__(self, router, per_group, seed):
+        from raft_tpu_torch.examples.kv import encode_op
+
+        eng = router.engine
+        E, G = eng.cfg.entry_bytes, eng.G
+        rng = np.random.default_rng(seed)
+        keys = [[] for _ in range(G)]
+        i = 0
+        while min(len(k) for k in keys) < per_group:
+            k = b"k%07d" % i
+            i += 1
+            g = router.group_of(k)
+            if len(keys[g]) < per_group:
+                keys[g].append(k)
+        vlen = E - 5 - 8
+        self.items = [[(k, rng.bytes(vlen)) for k in ks] for ks in keys]
+        self.h_in = [hashlib.sha256() for _ in range(G)]
+        for g in range(G):
+            for k, v in self.items[g]:
+                self.h_in[g].update(encode_op(E, 1, k, v))
+        self.h_apply = [hashlib.sha256() for _ in range(G)]
+        self.n_apply = np.zeros(G, np.int64)
+        for g in range(G):
+            eng.register_apply(g, self._apply(g))
+        self.at = 0
+
+    def _apply(self, g):
+        def fn(index, payload):
+            check(index == self.n_apply[g] + 1, f"group {g} apply order")
+            self.h_apply[g].update(payload)
+            self.n_apply[g] = index
+        return fn
+
+    def wave(self, n):
+        """The next ``n`` items of every group, groups interleaved."""
+        a, self.at = self.at, self.at + n
+        return [self.items[g][j] for j in range(a, self.at)
+                for g in range(len(self.items))]
+
+
+def drive_durable(e, placed):
+    for g, s in placed:
+        e.run_until_committed(g, s)
+
+
+def count_rounds(e):
+    """Wrap the engine's tick round and its launch: per-call host ms
+    (the launch synchronized) into the returned lists."""
+    import torch
+
+    box = {"rounds": [], "launches": []}
+    fire, rep = e._fire_leader_ticks, e._replicate_round
+
+    def timed_fire(ticks):
+        t0 = time.perf_counter()
+        fire(ticks)
+        box["rounds"].append((time.perf_counter() - t0) * 1e3)
+
+    def timed_rep(active):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rep(active)
+        box["launches"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    e._fire_leader_ticks, e._replicate_round = timed_fire, timed_rep
+    return box
+
+
+def pct(xs, q):
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def phase_engine_multi_path(dev):
+    """Config A through ``MultiEngine`` + ``Router`` + ``ShardedKV`` on the
+    card: round-robin leaders, SETs in four waves (a warm batch a group;
+    2 048 a group timed from submit to durable ack, as ``bench.py``'s
+    ``bench_multi_group``; then, outside the timed window, a wave after
+    the leaders of a quarter of the groups fail, through the Router's
+    retry and the re-elections, and a profiled wave); each group's apply
+    stream and committed payloads against the input's SHA-256, gets
+    against the model, one linearizable get a group."""
+    import torch
+
+    from raft_tpu_torch.core import ring_cuda
+    from raft_tpu_torch.examples import ShardedKV
+    from raft_tpu_torch.multi import MultiEngine, Router
+
+    cfg, G = group_config_a()
+    cfg = multi_config(cfg)
+    hb = cfg.heartbeat_period
+    ring_cuda.LAUNCHES["write_window_cols"] = 0
+    t_start = time.perf_counter()
+    e = MultiEngine(cfg, G)
+    e.seed_leaders()
+    check(sorted(e.leader_spread().values()) == [5, 5, 6],
+          "round-robin leader spread")
+    router = Router(e)
+    kv = ShardedKV(e, router)
+    S = KvStream(router, sum(MULTI_WAVES), SEED + 51)
+    drive_durable(e, kv.set_many(S.wave(MULTI_WAVES[0])))
+    box = count_rounds(e)
+    t_virtual0 = e.clock.now
+    t0 = time.perf_counter()
+    drive_durable(e, kv.set_many(S.wave(MULTI_WAVES[1])))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    timed = {k: list(v) for k, v in box.items()}
+    timed.update(wall=wall, entries=G * MULTI_WAVES[1])
+    lat = [e.commit_time[g][s] - e.submit_time[g][s]
+           for g in range(G) for s in e.commit_time[g]
+           if e.submit_time[g][s] >= t_virtual0]
+    # a quarter of the groups lose their leader; the Router's retries
+    # drive the event loop until they re-elect
+    lost = list(range(G // 4))
+    old = {g: e.leader_id[g] for g in lost}
+    for g in lost:
+        e.fail(g, old[g])
+    t1 = time.perf_counter()
+    drive_durable(e, kv.set_many(S.wave(MULTI_WAVES[2])))
+    failover_wall = time.perf_counter() - t1
+    for g in lost:
+        check(e.leader_id[g] not in (None, old[g]) and
+              int(e.lead_terms[g, e.leader_id[g]]) >= 2,
+              f"group {g} re-elected in a later term")
+    # profiled: one wave's rounds under torch.profiler
+    placed = kv.set_many(S.wave(MULTI_WAVES[3]))
+    n0 = len(box["rounds"])
+    events, pwall = _device_events(lambda: e.run_for(2 * hb), 1)
+    rounds = len(box["rounds"]) - n0
+    drive_durable(e, placed)
+    torch.cuda.synchronize()
+    k5 = ring_cuda.LAUNCHES["write_window_cols"]
+    total_wall = time.perf_counter() - t_start
+    check(k5 > 0, "K5 never ran on the multi engine's path")
+    check((S.n_apply == sum(MULTI_WAVES)).all(), "every SET applied")
+    bad = [g for g in range(G)
+           if S.h_apply[g].digest() != S.h_in[g].digest()]
+    check(not bad, f"apply streams of groups {bad} differ from the input")
+    for g in range(G):
+        h = hashlib.sha256(b"".join(e.committed_payloads(g)))
+        check(h.digest() == S.h_in[g].digest(),
+              f"group {g}'s committed payloads differ from the input")
+        k, v = S.items[g][-1]
+        check(kv.linearizable_get(k) == v and kv.get(S.items[g][0][0]) ==
+              S.items[g][0][1], f"group {g}'s gets")
+    busy = sum(us for _, us in events)
+    res = {
+        "phase": "engine_multi_path", "groups": G,
+        "entries": int(S.n_apply.sum()),
+        "entries_per_group": int(S.n_apply[0]),
+        "timed_entries": timed["entries"],
+        "timed_wall_s": timed["wall"],
+        # bench.py bench_multi_group's metrics over the timed wave
+        "entries_per_s_wall": timed["entries"] / timed["wall"],
+        "virtual_commit_p50_s": pct(lat, 50),
+        "virtual_commit_p99_s": pct(lat, 99),
+        # a few rounds: their median and their maximum, no tail percentile
+        "tick_rounds": len(timed["rounds"]),
+        "ms_per_tick_round_p50": pct(timed["rounds"], 50),
+        "ms_per_tick_round_max": max(timed["rounds"]),
+        "ms_per_launch_p50": pct(timed["launches"], 50),
+        "failover": {"groups": lost, "wall_s": failover_wall,
+                     "new_leaders": {str(g): e.leader_id[g] for g in lost}},
+        "profiled": {"rounds": rounds, "host_wall_s": pwall,
+                     "device_busy_ms": busy / 1e3,
+                     "device_idle_share": 1.0 - busy / (pwall * 1e6),
+                     "device_kernels_per_round": len(events) / rounds,
+                     "k5_per_round": sum(1 for n, _ in events
+                                         if KERNEL_FN["K5"][0] in n)
+                     / rounds},
+        "k5_launches": k5, "wall_s": total_wall,
+        "sha256_group0": S.h_in[0].hexdigest(),
+    }
+    emit(res)
+    return res
+
+
+def group_launch_case(graphs, program, sts, host, K, B, W, rings=None,
+                      gids=None, what=""):
+    """One fused group launch twice from the same packed inputs: by a
+    replay of ``graphs`` on ``sts[0]`` and by the uncaptured loop on
+    ``sts[1]`` (``rings`` likewise a pair, or None); every leaf, output
+    and ring equal. Returns the two new states."""
+    import torch
+
+    from raft_tpu_torch.core.graphs import run_group_launch
+    from raft_tpu_torch.obs.device import packed_flush
+
+    a = graphs.run(sts[0], host, K, B, W,
+                   *(() if rings is None else (rings[0], gids)))
+    b = run_group_launch(program, sts[1], torch.from_numpy(host).to(
+        sts[1].term.device), K, B, W,
+        *(() if rings is None else (rings[1], gids)))
+    oa, ob = fused_outputs(*a[:4], False), fused_outputs(*b[:4], False)
+    oa["halted"], ob["halted"] = (x[4].cpu().numpy() for x in (a, b))
+    same_outputs(oa, ob, what)
+    if rings is not None:
+        check(torch.equal(packed_flush(rings[0]), packed_flush(rings[1])),
+              f"{what}: the recorded rings differ")
+    return a[0], b[0], a[4]
+
+
+def group_graph_vs_loop(dev):
+    """``core.graphs.FusedGroupGraphs`` (one replay of the captured K-tick
+    group loop) against ``fused_group_scan`` run uncaptured on the card at
+    config B (G = 1024, B = 16, C = 1024), unrecorded and recorded: a
+    clean K = 32 window across the ring seam, ``n_run`` < K, 64 groups
+    losing two rows (escape at their first tick), masked groups,
+    ``halted0`` set, a K = 16 launch, a new event ring and a new group-id
+    tensor (each a recapture)."""
+    import torch
+
+    from raft_tpu_torch.core.graphs import FusedGroupGraphs, pack_group_launch
+    from raft_tpu_torch.core.state import init_group_state
+    from raft_tpu_torch.core.step import fused_group_scan, group_vote_step
+    from raft_tpu_torch.obs.device import init_group_rings
+
+    cfg, G = group_config_b()
+    R, B, W, K = cfg.rows, cfg.batch_size, cfg.shard_words, GROUP_K
+    rng = np.random.default_rng(SEED + 52)
+    leaders = (np.arange(G) % R).astype(np.int32)
+    st = group_vote_step(R)(init_group_state(cfg, G, device=dev),
+                            torch.from_numpy(leaders).to(dev), 1,
+                            torch.ones(G, R, dtype=torch.bool,
+                                       device=dev))[0]
+    graphs = FusedGroupGraphs(R, dev)
+    cases = 0
+
+    def host(k, n_run, counts=B, alive=None, terms=1, halted=None):
+        pays = rng.integers(-2**31, 2**31 - 1, (k, G, B, W)).astype(np.int32)
+        return pack_group_launch(
+            k, G, R, B, W, n_run=n_run,
+            halted0=np.zeros(G) if halted is None else halted,
+            leaders=leaders, terms=np.broadcast_to(terms, (G,)),
+            counts=np.broadcast_to(counts, (k, G)),
+            alive=np.ones((G, R)) if alive is None else alive,
+            slow=np.zeros((G, R)), member=np.ones((G, R)), payloads=pays)
+
+    cut = np.ones((G, R), bool)
+    lost = np.arange(0, G, G // 64)
+    cut[lost] = False
+    cut[lost, leaders[lost]] = True
+    masked_terms = np.ones(G, np.int32)
+    masked_terms[1::5] = 0
+    masked_alive = np.ones((G, R), bool)
+    masked_alive[1::5] = False
+    halted = np.zeros(G, bool)
+    halted[lost] = True
+    for record in (False, True):
+        prog = fused_group_scan(R, record=record)
+        sts = [st.clone(), st.clone()]
+        rings = gids = None
+        if record:
+            rings = [init_group_rings(256, G, device=dev) for _ in range(2)]
+            gids = torch.arange(G, dtype=torch.int32, device=dev)
+        plan = [(K, host(K, K)), (K, host(K, 20)), (K, host(K, K, alive=cut)),
+                (K, host(K, K, alive=masked_alive, terms=masked_terms)),
+                (K, host(K, K, halted=halted)), (16, host(16, 16)),
+                (K, host(K, K)), (K, host(K, K))]
+        for i, (k, h) in enumerate(plan):
+            if record and i == len(plan) - 2:
+                # a new event ring on both sides: the graphs recapture
+                rings = [init_group_rings(256, G, device=dev)
+                         for _ in range(2)]
+            if record and i == len(plan) - 1:
+                # a new group-id tensor of the same values: recapture
+                gids = gids.clone()
+            a, b, halted_out = group_launch_case(
+                graphs, prog, sts, h, k, B, W, rings, gids,
+                f"group graph case {i} (record={record})")
+            sts = [a, b]
+            cases += 1
+            if i == 2:
+                check(np.array_equal(halted_out.cpu().numpy(), halted),
+                      "the cut groups, and only they, escape and halt")
+    torch.cuda.synchronize()
+    check(graphs.recaptures == 2,
+          "a new event ring and a new group-id tensor each recapture")
+    return {"cases": cases, "captures": graphs.captures,
+            "replays": graphs.replays, "recaptures": graphs.recaptures,
+            "k5_in_replays": graphs.k5_launches,
+            "capture_s": graphs.capture_s}
+
+
+def group_launch_turns(dev, n=16):
+    """The fused group launch alone, at config B, graph against loop in
+    turns (ABBA, ``n`` a side after one launch each outside the count):
+    one clean K = 32 window from the same packed host inputs, timed on
+    the host clock (synchronized) from the upload to the five [K, G]
+    output planes the engine books from back on the host; both sides'
+    states equal at the end."""
+    import torch
+
+    from raft_tpu_torch.core.graphs import (FusedGroupGraphs,
+                                            pack_group_launch,
+                                            run_group_launch)
+    from raft_tpu_torch.core.state import init_group_state
+    from raft_tpu_torch.core.step import fused_group_scan, group_vote_step
+
+    cfg, G = group_config_b()
+    R, B, W, K = cfg.rows, cfg.batch_size, cfg.shard_words, GROUP_K
+    rng = np.random.default_rng(SEED + 55)
+    leaders = (np.arange(G) % R).astype(np.int32)
+    st = group_vote_step(R)(init_group_state(cfg, G, device=dev),
+                            torch.from_numpy(leaders).to(dev), 1,
+                            torch.ones(G, R, dtype=torch.bool,
+                                       device=dev))[0]
+    host = pack_group_launch(
+        K, G, R, B, W, n_run=K, halted0=np.zeros(G), leaders=leaders,
+        terms=np.ones(G), counts=np.full((K, G), B), alive=np.ones((G, R)),
+        slow=np.zeros((G, R)), member=np.ones((G, R)),
+        payloads=rng.integers(-2**31, 2**31 - 1, (K, G, B, W)))
+    graphs, prog = FusedGroupGraphs(R, dev), fused_group_scan(R)
+    sts = {"graph": st.clone(), "loop": st.clone()}
+
+    def one(side):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if side == "graph":
+            out = graphs.run(sts[side], host, K, B, W)
+        else:
+            out = run_group_launch(prog, sts[side], torch.from_numpy(
+                host).to(dev), K, B, W)
+        infos, esc, ran = out[1:4]
+        torch.stack([infos.commit_index, infos.frontier_len,
+                     infos.max_term, esc, ran]).cpu()
+        sts[side] = out[0]
+        return (time.perf_counter() - t0) * 1e3
+
+    first = {side: one(side) for side in ("graph", "loop")}
+    ms = {"graph": [], "loop": []}
+    for i in range(n):
+        for side in (("graph", "loop") if i % 2 == 0 else ("loop", "graph")):
+            ms[side].append(one(side))
+    a, b = host_leaves(sts["graph"]), host_leaves(sts["loop"])
+    for f in a:
+        check(np.array_equal(a[f], b[f]),
+              f"launch turns: state.{f} differs, graph against loop")
+    return {"launches_a_side": n, "first_ms": first,
+            **{f"{side}_ms_{k}": fn(ms[side]) for side in ms
+               for k, fn in (("p50", statistics.median), ("min", min),
+                             ("max", max))},
+            "graph_faster_in": sum(x < y for x, y in zip(ms["graph"],
+                                                         ms["loop"]))}
+
+
+class FusedMultiRun:
+    """Config B through ``MultiEngine`` at ``fuse_k``, a wave at a time:
+    round-robin leaders; each wave submits 64 entries a group and drains
+    them by ``run_for`` over 40 heartbeats, and every group's committed
+    bytes are read back from a follower row against the input's SHA-256.
+    At K = 32 the first wave's window is cut short by the leaders' first
+    election timers and the second captures the K = 32 graph. Every
+    fused window is timed on the host clock (synchronized), its booking
+    apart. With ``graphs=False`` the windows run the uncaptured loop on
+    the card."""
+
+    def __init__(self, dev, fuse_k, graphs=True, seed=SEED + 53):
+        import torch
+
+        from raft_tpu_torch.multi import MultiEngine
+
+        cfg, G = group_config_b()
+        self.cfg = cfg = multi_config(cfg, fuse_k=fuse_k)
+        self.e = e = MultiEngine(cfg, G, device=dev)
+        if not graphs:
+            e._graphs = None
+        e.seed_leaders()
+        self.S = GroupStream(cfg, G, seed)
+        # per wave: its fused windows as (ms, booking ms, ticks)
+        self.windows, self.walls, self.prof, self.k5 = [], [], None, 0
+        fire, book = e._fire_fused_window, e._book_fused_window
+        booked = []
+
+        def timed_book(*args):
+            t0 = time.perf_counter()
+            book(*args)
+            booked.append((time.perf_counter() - t0) * 1e3)
+
+        def timed_fire(ticks, horizon):
+            torch.cuda.synchronize()
+            t0, k0 = time.perf_counter(), e.fused_ticks
+            out = fire(ticks, horizon)
+            torch.cuda.synchronize()
+            if out:
+                self.windows[-1].append(((time.perf_counter() - t0) * 1e3,
+                                         booked.pop(), e.fused_ticks - k0))
+            return out
+
+        e._book_fused_window, e._fire_fused_window = timed_book, timed_fire
+
+    def wave(self, profile=False):
+        """One wave; ``profile``: its first leader instant (one fused
+        window at K = 32, the first tick round at K = 1) under
+        torch.profiler, the stale timers before it popped outside."""
+        import gc
+
+        import torch
+
+        from raft_tpu_torch.core import ring_cuda
+
+        e, cfg, G = self.e, self.cfg, self.e.G
+        hb = cfg.heartbeat_period
+        k5 = ring_cuda.LAUNCHES["write_window_cols"]
+        self.windows.append([])
+        counts = np.full((MULTI_B_WAVE // cfg.batch_size, G),
+                         cfg.batch_size, np.int64)
+        words = self.S.entries(counts, "cpu").numpy()     # [T, G, B, W]
+        gc.collect()
+        t0 = time.perf_counter()
+        for g in range(G):
+            for blk in words[:, g]:
+                for row in blk:
+                    e.submit(g, row.tobytes())
+        end = e.clock.now + 40 * hb
+        if profile:
+            while e._q[0][2] != "l":
+                e.step_event(horizon=end)
+            n0 = e.fused_launches
+            events, pwall = _device_events(
+                lambda: e.step_event(horizon=end), 1)
+            busy = sum(us for _, us in events)
+            self.prof = {"fused_launches": e.fused_launches - n0,
+                         "host_wall_ms": pwall * 1e3,
+                         "device_busy_ms": busy / 1e3,
+                         "device_idle_share": 1.0 - busy / (pwall * 1e6),
+                         "device_kernels": len(events)}
+        e.run_for(end - e.clock.now)
+        torch.cuda.synchronize()
+        self.walls.append(time.perf_counter() - t0)
+        self.k5 += ring_cuda.LAUNCHES["write_window_cols"] - k5
+        self.S.read_back(e.state)
+
+    def result(self, name):
+        """Checks every entry committed and read back; the run's figures,
+        its timed waves being all but the first two and the last."""
+        e, waves = self.e, len(self.walls)
+        check((e.commit_watermark == waves * MULTI_B_WAVE).all(),
+              f"{name}: every entry committed")
+        self.S.check_digests(f"config B through the engine ({name})")
+        timed = [w for ws in self.windows[2:-1] for w in ws]
+        out = {
+            "wave_walls_s": self.walls,
+            "timed_waves_entries_per_s": e.G * MULTI_B_WAVE * (waves - 3)
+            / sum(self.walls[2:-1]),
+            "fused_launches": e.fused_launches,
+            "fused_ticks": e.fused_ticks,
+            "windows_by_wave": [[{"ms": m, "booking_ms": bk, "ticks": k}
+                                 for m, bk, k in ws] for ws in self.windows],
+            "graphs": None if e._graphs is None else {
+                "captures": e._graphs.captures,
+                "replays": e._graphs.replays,
+                "recaptures": e._graphs.recaptures,
+                "capture_s": e._graphs.capture_s},
+            "profiled_first_instant": self.prof,
+            "k5_launches": self.k5,
+        }
+        if timed:
+            ms = [m for m, _, _ in timed]
+            book = [bk for _, bk, _ in timed]
+            rest = [m - bk for m, bk, _ in timed]
+            out["timed_windows"] = {
+                "n": len(timed), "ms_p50": statistics.median(ms),
+                "ms_min": min(ms), "ms_max": max(ms),
+                "booking_ms_p50": statistics.median(book),
+                # eligibility, pack, upload, the launch and its fetch
+                "rest_ms_p50": statistics.median(rest),
+                "rest_ms_min": min(rest), "rest_ms_max": max(rest)}
+        return out
+
+
+def phase_engine_multi_fused_path(dev):
+    """Config B (1 024 groups) through ``MultiEngine``: the graph against
+    the uncaptured loop (``group_graph_vs_loop``) and in turns
+    (``group_launch_turns``); the engine at ``fuse_k`` 32 with the graphs
+    and without them (the loop on the card), wave for wave in turns, then
+    at ``fuse_k`` 1, on one schedule: every group's bytes read back and
+    the three runs equal in every state leaf, commit stamp and clock."""
+    import torch
+
+    from raft_tpu_torch.core import ring_cuda
+
+    ring_cuda.LAUNCHES["write_window_cols"] = 0
+    cmp = group_graph_vs_loop(dev)
+    turns = group_launch_turns(dev)
+    ring_cuda.LAUNCHES["write_window_cols"] = 0
+    graph_run = FusedMultiRun(dev, GROUP_K, graphs=True)
+    loop_run = FusedMultiRun(dev, GROUP_K, graphs=False)
+    for w in range(MULTI_B_WAVES):
+        for run in ((graph_run, loop_run) if w % 2 == 0
+                    else (loop_run, graph_run)):
+            run.wave(profile=w == MULTI_B_WAVES - 1)
+    runs, ref = {}, None
+    for name, run in (("fuse_k_32", graph_run),
+                      ("fuse_k_32_no_graphs", loop_run), ("fuse_k_1", None)):
+        if run is None:
+            run = FusedMultiRun(dev, 1)
+            for w in range(MULTI_B_WAVES):
+                run.wave(profile=w == MULTI_B_WAVES - 1)
+        e = run.e
+        leaves = host_leaves(e.state)
+        stamps = [dict(d) for d in e.commit_time]
+        if ref is None:
+            ref = (leaves, stamps, e.clock.now)
+        else:
+            for f in leaves:
+                check(np.array_equal(leaves[f], ref[0][f]),
+                      f"{name}: state.{f} differs from fuse_k 32's")
+            check(stamps == ref[1] and e.clock.now == ref[2],
+                  f"{name}: commit stamps or clock differ")
+        runs[name] = run.result(name)
+        run.e = e = None
+    torch.cuda.synchronize()
+    k5 = ring_cuda.LAUNCHES["write_window_cols"]
+    check(k5 > 0 and runs["fuse_k_32"]["fused_launches"] > 0,
+          "K5 and the fused windows ran on config B's engine path")
+    # wave for wave (the waves ran in turns), graph against loop: the
+    # whole window, and its part outside the booking (which graphs
+    # leave unchanged)
+    timed = [[(ws[0]["ms"], ws[0]["ms"] - ws[0]["booking_ms"])
+              for ws in runs[name]["windows_by_wave"][2:-1] if ws]
+             for name in ("fuse_k_32", "fuse_k_32_no_graphs")]
+    pairs = list(zip(*timed))
+
+    def paired(i):
+        d = [g[i] - lp[i] for g, lp in pairs]
+        return {"graph_minus_loop_ms_p50": statistics.median(d),
+                "graph_faster_in": sum(x < 0 for x in d)}
+
+    res = {"phase": "engine_multi_fused_path", "groups": 1024,
+           "entries_per_group": MULTI_B_WAVES * MULTI_B_WAVE,
+           "graph_vs_loop": cmp, "launch_turns": turns, "runs": runs,
+           "window_pairs": {"n": len(pairs), "window": paired(0),
+                            "outside_booking": paired(1)},
+           "k5_launches": k5}
+    emit(res)
+    return res
+
+
+def multi_small_config(C=256):
+    """``multi_cmp_run``'s deployment: 4 groups of 3, 64-byte entries,
+    batch 16, a ``C``-slot ring, ``fuse_k`` 8, seed 9."""
+    from raft_tpu_torch.config import RaftConfig
+
+    return RaftConfig(n_replicas=3, entry_bytes=64, batch_size=16,
+                      log_capacity=C, transport="single", seed=9,
+                      fuse_k=8), 4
+
+
+def multi_cmp_run(dev, C=256):
+    """A ``MultiEngine`` of ``G`` groups at a ``C``-slot ring with a flight
+    recorder, a trace and the device event ring, at ``fuse_k`` 8 (fused
+    windows and ticks): ``ShardedKV`` waves, a leader failed and
+    re-elected through the Router, a slow follower healed. Runs on the
+    CPU too; returns what card and CPU must agree on."""
+    from raft_tpu_torch.core import ring_cuda
+    from raft_tpu_torch.examples import ShardedKV
+    from raft_tpu_torch.multi import MultiEngine
+    from raft_tpu_torch.obs.device import packed_flush
+    from raft_tpu_torch.obs.events import FlightRecorder
+
+    cfg, G = multi_small_config(C)
+    hb = cfg.heartbeat_period
+    lines, rec = [], FlightRecorder()
+    e = MultiEngine(cfg, G, trace=lines.append, recorder=rec, device=dev)
+    dobs = e.attach_device_obs(capacity=256)
+    e.seed_leaders()
+    kv = ShardedKV(e)
+    rng = np.random.default_rng(SEED + 54)
+    ring_cuda.LAUNCHES["write_window_cols"] = 0
+
+    def wave(n):
+        items = [(b"c%05d" % int(rng.integers(1 << 16)), rng.bytes(40))
+                 for _ in range(n)]
+        placed = kv.set_many(items)
+        e.run_for(12 * hb)
+        return placed
+
+    wave(96)
+    wave(96)
+    lead2 = e.leader_id[2]
+    e.set_slow(2, (lead2 + 1) % 3, True)
+    wave(64)
+    e.set_slow(2, (lead2 + 1) % 3, False)
+    wave(64)
+    wave(64)                    # every row caught up: fused windows again
+    # a leader fails: the Router re-elects it (the groups' ticks fall out
+    # of step, so the later instants run the tick path)
+    old = e.leader_id[1]
+    e.fail(1, old)
+    wave(96)
+    e.recover(1, old)
+    placed = wave(64)
+    drive_durable(e, placed)
+    return {"lines": lines, "events": rec.to_jsonable(),
+            "leaves": host_leaves(e.state),
+            "rings": packed_flush(e._dev_rings).cpu().numpy(),
+            "dev_events": [ev.to_jsonable() for ev in dobs.events],
+            "data": kv._data, "fused_launches": e.fused_launches,
+            "k5": ring_cuda.LAUNCHES["write_window_cols"]}
+
+
+def phase_multi_card_equals_cpu(dev):
+    """``multi_cmp_run`` on the card and on the CPU: nodelog lines,
+    recorder events, state leaves, the packed group rings, decoded device
+    events and the store equal."""
+    card = multi_cmp_run(dev)
+    cpu = multi_cmp_run("cpu")
+    for k in ("lines", "events", "dev_events", "data", "fused_launches"):
+        check(card[k] == cpu[k], f"multi card vs CPU: {k} differ")
+    for f in card["leaves"]:
+        check(np.array_equal(card["leaves"][f], cpu["leaves"][f]),
+              f"multi card vs CPU: state.{f} differs")
+    check(np.array_equal(card["rings"], cpu["rings"]),
+          "multi card vs CPU: the packed group rings differ")
+    check(card["k5"] > 0 and cpu["k5"] == 0 and card["fused_launches"] > 0,
+          "K5 ran on the card (and only there), fused windows too")
+    res = {"phase": "multi_card_equals_cpu", "groups": 4,
+           "lines": len(card["lines"]), "device_events":
+           len(card["dev_events"]), "fused_launches": card["fused_launches"],
+           "k5_launches": card["k5"]}
     emit(res)
     return res
 
@@ -7235,6 +7923,9 @@ def main() -> int:
     group_errs = phase_group_kernels(dev)
     group_main = phase_group_main_path(dev)
     group_timing = phase_group_timing(dev, card_line)
+    engine_multi = phase_engine_multi_path(dev)
+    engine_multi_fused = phase_engine_multi_fused_path(dev)
+    multi_small = phase_multi_card_equals_cpu(dev)
     mesh_errs = phase_mesh_kernels(cfg, ecfg, dev)
     mesh_kernel_times = time_mesh_kernels(
         cfg, dev, np.random.default_rng(SEED + 31), 21, mem_rate(card_line))
@@ -7305,15 +7996,29 @@ def main() -> int:
                 "library_is": LIBRARY_IS.get(key),
                 "matches_plain": True,
             })
-    for key, cfg_key, label in (("K5 A", "config_a", "multi-Raft G=16"),
-                                ("K5 B", "config_b",
-                                 "multi-Raft G=1024 fused")):
+    for key, cfg_key, label, engine_paths in (
+            # the group programs and the engine at config A
+            ("K5 A", "config_a", "multi-Raft G=16",
+             (("engine_multi", engine_multi),)),
+            # the group programs and the engine at config B: the runs at
+            # fuse_k 32 (with and without the graphs) and 1
+            ("K5 B", "config_b", "multi-Raft G=1024 fused",
+             (("engine_multi_fused", engine_multi_fused),)),
+            # the reduced engine run (G = 4, C = 256) on the card against
+            # the CPU, at its own shape
+            ("K5 small", None, "multi-Raft G=4 card vs CPU",
+             (("multi_card_equals_cpu", multi_small),))):
         t = group_timing[key]
+        by_path = ({} if cfg_key is None else
+                   {"group_main": group_main[cfg_key]["k5_launches"]})
+        for path, ph in engine_paths:
+            by_path[path] = ph["k5_launches"]
         kernels.append({
             "name": f"K5 write_window_cols ({label})", "route": "cuda",
             "source": "raft_tpu_torch/csrc/ring.cu",
             "replaces": "raft_tpu/core/ring_pallas.py:208",
-            "launches": group_main[cfg_key]["k5_launches"],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": group_errs["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": t["library_ms"],

@@ -18,7 +18,10 @@ replication data plane on one H100 with hand-written CUDA kernels
   ``transport.launch.run_ranks`` starts R local ranks;
 - ``raft.RaftEngine`` — the engine's tick loop (timers, roles, elections,
   the leader tick, pipelined ingest, commit, the archive and the apply
-  stream) over the transports; ``storm`` drives BASELINE config 5.
+  stream) over the transports; ``storm`` drives BASELINE config 5;
+- ``multi.MultiEngine`` — G independent Raft groups stepped by one batched
+  program (kernel K5 in every group launch; the fused K-tick window as a
+  CUDA graph), behind the key-routed ``multi.Router``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``, which
 runs the plain versions. This package never imports JAX.
@@ -26,6 +29,7 @@ runs the plain versions. This package never imports JAX.
 
 from raft_tpu_torch.config import RaftConfig
 from raft_tpu_torch.core.state import ReplicaState, init_state
+from raft_tpu_torch.multi import MultiEngine, Router
 from raft_tpu_torch.transport import (
     MeshTransport,
     SingleDeviceTransport,
@@ -34,8 +38,10 @@ from raft_tpu_torch.transport import (
 
 __all__ = [
     "MeshTransport",
+    "MultiEngine",
     "RaftConfig",
     "ReplicaState",
+    "Router",
     "SingleDeviceTransport",
     "init_state",
     "make_transport",

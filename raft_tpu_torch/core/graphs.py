@@ -54,10 +54,18 @@ replay.
   replay adds the K1 launches the graph holds.
 - **No fallback.** A capture or replay that fails raises; nothing falls
   back to the eager loop.
+
+:class:`FusedGroupGraphs` does the same for the multi-Raft fused window
+(``core.step.fused_group_scan``, G groups × K ticks, one K5 launch a
+tick), in the part of the JAX ``MultiEngine``'s ``jax.jit`` of the group
+scan (``multi/engine.py:194``): one graph per (G, K, B, W, record mode)
+over the engine's rings, every per-launch input (payload words
+included) one packed upload (:func:`pack_group_launch`).
 """
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Dict, Optional, Tuple
 
@@ -97,8 +105,8 @@ def member_kind(member) -> str:
 
 class _Graph:
     """One captured launch size: the graph, its packed input buffer on
-    the card, the pinned upload ring, its packed output, and the K1
-    launches it holds."""
+    the card, the pinned upload ring, its packed output, and the kernel
+    launches (K1 or K5) it holds."""
 
     def __init__(self, K: int, n_inputs: int, device):
         self.K = K
@@ -109,7 +117,7 @@ class _Graph:
         self.events = [None] * PINNED
         self.next = 0
         self.out: Optional[torch.Tensor] = None
-        self.k1 = 0
+        self.launches = 0
 
     def upload(self, host: np.ndarray) -> None:
         """One asynchronous copy of the packed inputs, from a pinned
@@ -220,32 +228,11 @@ class FusedGraphs:
         # next one to read: keep it.
         g.inp[_H["halted"]] = 1
         flag = gs.halted.clone()
-        saved = gs.ring.save() if gs.ring is not None else None
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            self._body(gs, g.inp, K, kind)
-        cur.wait_stream(side)
-        gs.halted.copy_(flag)
-        if saved is not None:
-            gs.ring.restore(saved)
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
-        before = ring_cuda.LAUNCHES["write_window_both"]
-        # capture_begin/capture_end on a side stream: what the
-        # torch.cuda.graph context does, without its full gc.collect()
-        # (tens of ms under an engine's host state) and empty_cache()
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            g.graph.capture_begin(pool=self.pool)
-            try:
-                g.out = self._body(gs, g.inp, K, kind)
-            finally:
-                g.graph.capture_end()
-        cur.wait_stream(side)
-        g.k1 = ring_cuda.LAUNCHES["write_window_both"] - before
-        ring_cuda.LAUNCHES["write_window_both"] = before
+        _capture(g, self.pool, self.device, gs.ring,
+                 lambda: self._body(gs, g.inp, K, kind),
+                 lambda: gs.halted.copy_(flag), "write_window_both")
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
         return g
@@ -293,8 +280,8 @@ class FusedGraphs:
                 base += n
         g.upload(host)
         g.graph.replay()
-        ring_cuda.LAUNCHES["write_window_both"] += g.k1
-        self.k1_launches += g.k1
+        ring_cuda.LAUNCHES["write_window_both"] += g.launches
+        self.k1_launches += g.launches
         self.replays += 1
         snap = g.out.clone()
         views = [snap[i * K:(i + 1) * K] for i in range(6)]
@@ -305,6 +292,229 @@ class FusedGraphs:
                         max_term=mt, repair_start=rs, frontier_len=fl)
         out = (gs.state(), infos, esc, ran, halted)
         return out if ring is None else out + (ring,)
+
+
+def _capture(g: _Graph, pool, device, ring, body, after_warm,
+             counter: str) -> None:
+    """Warm up and capture ``body`` into ``g``. The warm-up runs ``body``
+    once eagerly on a side stream (the caller has set its inputs to the
+    masked no-op); a recorded ring's four tensors are saved before it and
+    put back after, and ``after_warm`` restores whatever else the caller
+    keeps. The capture runs ``body`` again between capture_begin and
+    capture_end on a side stream: what the torch.cuda.graph context does,
+    without its full gc.collect() (tens of ms under an engine's host
+    state) and empty_cache(). Capture launches nothing, so the kernel
+    count ``ring_cuda.LAUNCHES[counter]`` is restored after it and the
+    launches the graph holds are kept in ``g.launches``."""
+    saved = ring.save() if ring is not None else None
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        body()
+    cur.wait_stream(side)
+    after_warm()
+    if saved is not None:
+        ring.restore(saved)
+    before = ring_cuda.LAUNCHES[counter]
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        g.graph.capture_begin(pool=pool)
+        try:
+            g.out = body()
+        finally:
+            g.graph.capture_end()
+    cur.wait_stream(side)
+    g.launches = ring_cuda.LAUNCHES[counter] - before
+    ring_cuda.LAUNCHES[counter] = before
+
+
+# ------------------------------------------------ the fused group window
+def _group_layout(K: int, G: int, R: int, B: int, W: int) -> dict:
+    """Name -> shape of each per-launch input of one fused group launch,
+    in upload order."""
+    return {"n_run": (), "halted0": (G,), "leaders": (G,), "terms": (G,),
+            "counts": (K, G), "alive": (G, R), "slow": (G, R),
+            "member": (G, R), "payloads": (K, G, B, W)}
+
+
+_BOOL = ("halted0", "alive", "slow", "member")
+
+
+def group_launch_size(K: int, G: int, R: int, B: int, W: int) -> int:
+    """Length of the packed int32 inputs of one fused group launch."""
+    return sum(math.prod(v) for v in _group_layout(K, G, R, B, W).values())
+
+
+def pack_group_launch(K: int, G: int, R: int, B: int, W: int,
+                      **parts) -> np.ndarray:
+    """The per-launch inputs of ``fused_group_scan`` as ONE int32 host
+    array, in ``_group_layout`` order (bools as 0/1; ``payloads`` the
+    untiled words [K, G, B, W]): the single upload a launch makes."""
+    return np.concatenate([
+        np.broadcast_to(np.asarray(parts[name], np.int32), shape).reshape(-1)
+        for name, shape in _group_layout(K, G, R, B, W).items()])
+
+
+def unpack_group_launch(inp: torch.Tensor, K: int, G: int, R: int, B: int,
+                        W: int) -> dict:
+    """The inverse of :func:`pack_group_launch` on a tensor: views of
+    ``inp`` shaped as ``fused_group_scan`` takes them (bools compared
+    against 0, which are new tensors)."""
+    out, at = {}, 0
+    for name, shape in _group_layout(K, G, R, B, W).items():
+        size = math.prod(shape)
+        v = inp[at:at + size].reshape(shape)
+        out[name] = v != 0 if name in _BOOL else v
+        at += size
+    return out
+
+
+def run_group_launch(program, state, inp: torch.Tensor, K: int, B: int,
+                     W: int, rings=None, gids=None):
+    """One fused group launch from its packed inputs ``inp`` (on the
+    state's device): ``program`` is ``fused_group_scan(R, record=)``."""
+    G, R = state.term.shape
+    a = unpack_group_launch(inp, K, G, R, B, W)
+    rec = () if rings is None else (rings, gids)
+    return program(state, a["payloads"], a["counts"], a["n_run"],
+                   a["halted0"], a["leaders"], a["terms"], a["alive"],
+                   a["slow"], a["member"], *rec)
+
+
+class _GroupGraphSet:
+    """The graphs of one (G, B, W, record) shape over one engine's rings
+    (and event rings with their group ids): the static small leaves
+    [G, R] they share."""
+
+    def __init__(self, state: ReplicaState, rings=None, gids=None):
+        self.log_term = state.log_term
+        self.log_payload = state.log_payload
+        self.rings = rings
+        self.gids = gids
+        self.small = {f: torch.empty_like(getattr(state, f)) for f in SMALL}
+        self.graphs: Dict[int, _Graph] = {}
+
+    def holds(self, state: ReplicaState, rings, gids) -> bool:
+        return (state.log_term is self.log_term
+                and state.log_payload is self.log_payload
+                and (rings is None) == (self.rings is None)
+                and gids is self.gids
+                and (rings is None or all(
+                    a is b for a, b in zip(rings.tensors(),
+                                           self.rings.tensors()))))
+
+    def state(self) -> ReplicaState:
+        return ReplicaState(**self.small, log_term=self.log_term,
+                            log_payload=self.log_payload)
+
+
+class FusedGroupGraphs:
+    """CUDA graphs of ``fused_group_scan`` (the multi-Raft fused window:
+    G groups × K ticks) for one ``MultiEngine`` on ``device``. The
+    counterpart of the JAX engine's ``jax.jit`` of the group scan
+    (``raft_tpu/multi/engine.py:194`` ``_fused_group_programs``), with
+    :class:`FusedGraphs`' rules:
+
+    - one graph per (G, K, B, W, recorded) and ring identity (the group
+      state's two rings and, recorded, the group event rings' four
+      tensors and the ``gids`` tensor): one of another identity drops
+      the set and captures anew (``recaptures``);
+    - every per-launch input (``n_run``, ``halted0``, leaders, terms, the
+      K × G counts, the alive/slow/member planes and the K × G × B × W
+      payload words) is one int32 array (:func:`pack_group_launch`),
+      uploaded with one asynchronous copy from a pinned buffer into the
+      graph's fixed input buffer;
+    - the small leaves live in static buffers the graph reads and writes
+      (the returned state holds them; the next replay overwrites them);
+    - the warm-up runs the loop with every group halted (the bit-exact
+      no-op) and puts a recorded ring's tensors back after it;
+    - the outputs are packed in the graph and cloned once per replay.
+
+    ``captures``, ``replays``, ``recaptures``, ``k5_launches`` (the K5
+    launches the replays ran) and ``capture_s`` count what it did."""
+
+    def __init__(self, rows: int, device):
+        from raft_tpu_torch.core.step import fused_group_scan
+
+        self.rows = rows
+        self.device = torch.device(device)
+        self.programs = {rec: fused_group_scan(rows, record=rec)
+                         for rec in (False, True)}
+        self.pool = None
+        self.sets: Dict[Tuple, _GroupGraphSet] = {}
+        self.captures = 0
+        self.replays = 0
+        self.recaptures = 0
+        self.k5_launches = 0
+        self.capture_s = 0.0
+
+    def _body(self, gs: _GroupGraphSet, inp: torch.Tensor, K: int, B: int,
+              W: int) -> torch.Tensor:
+        """The captured region: the K-tick group loop over the static
+        state, its final small leaves written back in place, and the
+        outputs packed into one int32 tensor: commit_index, frontier_len,
+        max_term, repair_start, escaped, ran (each [K, G]), halted [G],
+        match [K, G, R]."""
+        prog = self.programs[gs.rings is not None]
+        st, infos, esc, ran, halted = run_group_launch(
+            prog, gs.state(), inp, K, B, W, gs.rings, gs.gids)[:5]
+        for f in SMALL:
+            gs.small[f].copy_(getattr(st, f))
+        return torch.cat([
+            infos.commit_index.reshape(-1), infos.frontier_len.reshape(-1),
+            infos.max_term.reshape(-1), infos.repair_start.reshape(-1),
+            esc.reshape(-1), ran.reshape(-1),
+            halted.to(torch.int32), infos.match.reshape(-1)])
+
+    def _capture(self, gs: _GroupGraphSet, K: int, B: int, W: int) -> _Graph:
+        t0 = time.perf_counter()
+        G = gs.small["term"].shape[0]
+        g = _Graph(K, group_launch_size(K, G, self.rows, B, W), self.device)
+        # warm-up: n_run 0 and every group halted, the bit-exact no-op
+        g.inp[1:1 + G] = 1
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        _capture(g, self.pool, self.device, gs.rings,
+                 lambda: self._body(gs, g.inp, K, B, W),
+                 lambda: None, "write_window_cols")
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+        return g
+
+    def run(self, state: ReplicaState, host: np.ndarray, K: int, B: int,
+            W: int, rings=None, gids=None):
+        """One fused group launch from its packed host inputs ``host``
+        (:func:`pack_group_launch`) by one replay: ``fused_group_scan``'s
+        results ``(state, infos, escaped, ran, halted[, rings])``."""
+        G, R = state.term.shape
+        key = (G, B, W, rings is not None)
+        gs = self.sets.get(key)
+        if gs is None or not gs.holds(state, rings, gids):
+            if gs is not None:
+                self.recaptures += 1
+            gs = self.sets[key] = _GroupGraphSet(state, rings, gids)
+        for f in SMALL:
+            src = getattr(state, f)
+            if src is not gs.small[f]:
+                gs.small[f].copy_(src)
+        g = gs.graphs.get(K)
+        if g is None:
+            g = gs.graphs[K] = self._capture(gs, K, B, W)
+        g.upload(host)
+        g.graph.replay()
+        ring_cuda.LAUNCHES["write_window_cols"] += g.launches
+        self.k5_launches += g.launches
+        self.replays += 1
+        snap = g.out.clone()
+        n = K * G
+        ci, fl, mt, rs, esc, ran = (snap[i * n:(i + 1) * n].reshape(K, G)
+                                    for i in range(6))
+        halted = snap[6 * n:6 * n + G] != 0
+        infos = RepInfo(commit_index=ci, match=snap[6 * n + G:].reshape(
+            K, G, R), max_term=mt, repair_start=rs, frontier_len=fl)
+        out = (gs.state(), infos, esc, ran, halted)
+        return out if rings is None else out + (rings,)
 
 
 def _host(x) -> np.ndarray:

@@ -690,7 +690,8 @@ def _group_replicate(comm, state, payload, client_count, leader, leader_term,
     return new_state, info
 
 
-def group_replicate_step(n_replicas: int, *, repair: bool = True):
+def group_replicate_step(n_replicas: int, *, repair: bool = True,
+                         record: bool = False):
     """G independent groups' replication ticks as one batched program
     (``raft_tpu/core/step.py:843``). Returned callable, every leading axis
     G: ``(state, payloads[G,B,R*W], counts[G], leaders[G], terms[G],
@@ -698,33 +699,85 @@ def group_replicate_step(n_replicas: int, *, repair: bool = True):
 
     Masking: a group with nothing to do passes ``leader_term=0`` and an
     all-False ``alive`` row; its state passes through bit for bit. The
-    state is consumed (its rings are written in place)."""
+    state is consumed (its rings are written in place).
+
+    ``record=True`` (``:866-881``) takes two more operands, a group ring
+    (``obs.device.init_group_rings``) and the group ids ``gids`` [G] the
+    records carry, records every group's transitions into it in place
+    (``obs.device.record_replicate_events`` with the group axis) and
+    returns ``(state, info, rings)``; the state equals the unrecorded
+    program's bit for bit."""
     comm = SingleDeviceComm(n_replicas)
 
-    def step(state, payloads, counts, leaders, terms, alive, slow, member):
-        return _group_replicate(comm, state, payloads, counts, leaders,
-                                terms, alive, slow, member, repair)
+    def step(state, payloads, counts, leaders, terms, alive, slow, member,
+             rings=None, gids=None):
+        if not record:
+            return _group_replicate(comm, state, payloads, counts, leaders,
+                                    terms, alive, slow, member, repair)
+        return _recorded_replicate(comm, state, payloads, counts, leaders,
+                                   terms, alive, slow, member, repair,
+                                   rings, gids)
 
     return step
 
 
-def group_vote_step(n_replicas: int):
+def _recorded_replicate(comm, state, payloads, counts, leaders, terms,
+                        alive, slow, member, repair, rings, gids):
+    """One recorded group tick: the old small leaves copied out first
+    (``obs.device.pre_of``; the step consumes the state), the tick, then
+    the records of every group from the (old, new, info) triple."""
+    from raft_tpu_torch.obs.device import pre_of, record_replicate_events
+
+    if rings is None:
+        raise ValueError("record=True requires group rings")
+    G, dev = state.term.shape[0], state.device
+    leaders = per_group(leaders, G, dev, torch.int32)
+    terms = per_group(terms, G, dev, torch.int32)
+    old = pre_of(state)
+    new, info = _group_replicate(comm, state, payloads, counts, leaders,
+                                 terms, alive, slow, member, repair)
+    record_replicate_events(rings, comm, old, new, info, leaders, terms,
+                            gids, repair=repair)
+    return new, info, rings
+
+
+def group_vote_step(n_replicas: int, *, record: bool = False):
     """G groups' election rounds as one batched program
     (``raft_tpu/core/step.py:901``): ``(state, candidates[G],
     cand_terms[G], alive[G,R]) -> (state, VoteInfo[G])``. A group with no
-    campaign passes an all-False ``alive`` row and is left unchanged."""
+    campaign passes an all-False ``alive`` row and is left unchanged.
 
-    def vote(state, candidates, cand_terms, alive):
+    ``record=True`` takes ``rings`` and ``gids`` as
+    :func:`group_replicate_step` and returns ``(state, info, rings)``; the
+    recorded win threshold is the static strict majority of the R-row
+    cluster, ``n_replicas // 2`` (``:914-918``: fixed membership)."""
+    comm = SingleDeviceComm(n_replicas)
+
+    def vote(state, candidates, cand_terms, alive, rings=None, gids=None):
+        if record:
+            from raft_tpu_torch.obs.device import pre_of, record_vote_events
+
+            if rings is None:
+                raise ValueError("record=True requires group rings")
+            G, dev = state.term.shape[0], state.device
+            candidates = per_group(candidates, G, dev, torch.int32)
+            cand_terms = per_group(cand_terms, G, dev, torch.int32)
+            old = pre_of(state)
         alive = _mask(alive, state.device)
         lterms = last_log_term(state)
         new, grant = _vote(state, candidates, cand_terms, alive,
                            state.last_index, lterms, lterms)
-        return new, _vote_info(grant & alive, new.term, alive)
+        info = _vote_info(grant & alive, new.term, alive)
+        if not record:
+            return new, info
+        record_vote_events(rings, comm, old, new, info, candidates,
+                           cand_terms, n_replicas // 2, gids)
+        return new, info, rings
 
     return vote
 
 
-def fused_group_scan(n_replicas: int):
+def fused_group_scan(n_replicas: int, *, record: bool = False):
     """G groups × K ticks with exact per-group early exit
     (``raft_tpu/core/step.py:749``): tick j runs the steady group step
     (``repair=False``) for every group not yet halted while ``j < n_run``;
@@ -735,12 +788,15 @@ def fused_group_scan(n_replicas: int):
     No value is read back to the host.
 
     Returned callable: ``(state, payloads[K,G,B,W], counts[K,G], n_run,
-    halted0[G], leaders[G], terms[G], alive[G,R], slow[G,R], member[G,R])
-    -> (state, infos[K,G], escaped i32[K,G], ran i32[K,G], halted[G])``."""
+    halted0[G], leaders[G], terms[G], alive[G,R], slow[G,R], member[G,R]
+    [, rings, gids]) -> (state, infos[K,G], escaped i32[K,G], ran i32[K,G],
+    halted[G][, rings])``. ``record=True`` records every tick of every
+    group into ``rings`` (a masked tick advances the group's ``tick`` and
+    records nothing), as the recorded group step."""
     comm = SingleDeviceComm(n_replicas)
 
     def run(state, payloads, counts, n_run, halted0, leaders, terms, alive,
-            slow, member):
+            slow, member, rings=None, gids=None):
         G, dev = state.term.shape[0], state.device
         K = payloads.shape[0]
         reps = state.log_payload.shape[-1] // payloads.shape[-1]
@@ -757,17 +813,21 @@ def fused_group_scan(n_replicas: int):
             run_g = ~halted & (j < n_run)
             cnt = counts[j]
             win = payloads[j].repeat(1, 1, reps)
-            state, info = _group_replicate(
-                comm, state, win, torch.where(run_g, cnt, 0), leaders,
-                torch.where(run_g, terms, 0), alive & run_g[:, None], slow,
-                member, repair=False)
+            args = (comm, state, win, torch.where(run_g, cnt, 0), leaders,
+                    torch.where(run_g, terms, 0), alive & run_g[:, None],
+                    slow, member, False)
+            if record:
+                state, info, rings = _recorded_replicate(*args, rings, gids)
+            else:
+                state, info = _group_replicate(*args)
             esc, prev_last = _escape(run_g, info, cnt, terms, prev_last)
             halted = halted | esc
             infos.append(info)
             escaped.append(esc)
             ran.append(run_g)
-        return (state, _stack_infos(infos),
-                torch.stack(escaped).to(torch.int32),
-                torch.stack(ran).to(torch.int32), halted)
+        out = (state, _stack_infos(infos),
+               torch.stack(escaped).to(torch.int32),
+               torch.stack(ran).to(torch.int32), halted)
+        return out + (rings,) if record else out
 
     return run

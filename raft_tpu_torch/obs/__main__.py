@@ -28,7 +28,7 @@ artifacts (``obs.blackbox``) — nothing here re-runs a seed:
 - ``--metrics-dump BUNDLE``     — print the bundle's metrics snapshot
   as Prometheus text exposition (``--json`` for the raw snapshot).
 - ``--serve`` refuses: its demo boots a multi-Raft engine with the
-  compile and memory planes (ROADMAP A14, A16b).
+  compile and memory planes (ROADMAP A16b).
 """
 
 from __future__ import annotations
@@ -198,7 +198,7 @@ def main(argv: Optional[list] = None) -> int:
     g.add_argument("--metrics-dump", metavar="BUNDLE",
                    help="bundle metrics snapshot -> Prometheus text")
     g.add_argument("--serve", action="store_true",
-                   help="not ported yet (ROADMAP A14, A16b): the demo "
+                   help="not ported yet (ROADMAP A16b): the demo "
                         "ops server over a multi-Raft engine")
     ap.add_argument("-o", "--output", default=None,
                     help="output file (default stdout)")

@@ -50,7 +50,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from raft_tpu_torch.core.comm import take
+from raft_tpu_torch.core.comm import take_groups
 from raft_tpu_torch.obs.events import Event
 
 # ------------------------------------------------------------ record layout
@@ -143,6 +143,25 @@ def init_ring(capacity: int = 4096, device=None) -> EventRing:
     )
 
 
+def init_group_rings(capacity: int, n_groups: int,
+                     device=None) -> EventRing:
+    """G independent rings as one :class:`EventRing` whose four tensors
+    carry a leading group axis (``raft_tpu/obs/device.py:136``): ``buf``
+    [G, capacity, REC_W], ``count`` and ``tick`` [G], ``counters``
+    [G, N_COUNTERS]. The recorded group programs write every group's
+    records in one batched op each; group g's ring is JAX's ring of
+    group g byte for byte."""
+    one = init_ring(capacity, device)
+    return EventRing(*(t.unsqueeze(0).repeat((n_groups,) + (1,) * t.dim())
+                       for t in one.tensors()))
+
+
+def _grouped(ring: EventRing) -> EventRing:
+    """A one-group ring as a group ring with G = 1 (views: writes through
+    them land in the ring)."""
+    return EventRing(*(t[None] for t in ring.tensors()))
+
+
 class Pre(NamedTuple):
     """The three small leaves recording reads from the state BEFORE a
     step, copied out first: kernel K2, the flights and the captured
@@ -159,67 +178,99 @@ def pre_of(state) -> Pre:
 
 
 def _i32(x, like: torch.Tensor) -> torch.Tensor:
-    """``x`` as a 0-d int32 tensor on ``like``'s device (a fill for a
-    Python int, never a host copy: legal inside a graph capture)."""
+    """``x`` as int32 of ``like``'s shape on its device: a fill for a
+    Python int, never a host copy (legal inside a graph capture); a 0-d
+    tensor broadcasts over a group axis."""
     if isinstance(x, torch.Tensor):
-        return x.to(device=like.device, dtype=torch.int32).reshape(())
-    return like.new_full((), int(x))
+        return torch.broadcast_to(
+            x.to(device=like.device, dtype=torch.int32), like.shape)
+    return like.new_full(like.shape, int(x))
+
+
+def _as_bool(x, like: torch.Tensor) -> torch.Tensor:
+    """``x`` as bool of ``like``'s shape on its device (a bool tensor is
+    used as it is: no op)."""
+    if isinstance(x, torch.Tensor):
+        return torch.broadcast_to(
+            x.to(device=like.device, dtype=torch.bool), like.shape)
+    return like.new_full(like.shape, bool(x), dtype=torch.bool)
 
 
 def make_rec(kind: int, node, term, role: int, commit, last, aux,
              group, like: torch.Tensor) -> torch.Tensor:
-    """Fields 2.. of one record (i32[REC_W - 2]); ``seq`` and ``tick`` are
-    stamped by :func:`dev_record`. Scalars may be ints or 0-d tensors;
-    ``like`` names the device."""
+    """Fields 2.. of one record (i32[REC_W - 2]; [G, REC_W - 2] when
+    ``like`` is a group ring's [G] ``count``); ``seq`` and ``tick`` are
+    stamped by :func:`dev_record`. Scalars may be ints, 0-d or [G]
+    tensors; ``like`` names the device and the group axis."""
     return torch.stack([_i32(v, like) for v in (
-        node, group, kind, term, role, commit, last, aux)])
+        node, group, kind, term, role, commit, last, aux)], dim=-1)
 
 
 def dev_record(ring: EventRing, cond, rec: torch.Tensor) -> EventRing:
-    """Masked ring append, in place: write ``rec`` (the i32[REC_W - 2]
-    fields of :func:`make_rec`) at slot ``count % capacity`` stamped with
-    (count, tick), and bump ``count``, iff ``cond``; otherwise the ring is
-    left bit-unchanged. No value is read back to the host."""
+    """Masked ring append, in place: write ``rec`` (the fields of
+    :func:`make_rec`) at slot ``count % capacity`` stamped with (count,
+    tick), and bump ``count``, iff ``cond``; otherwise the ring is left
+    bit-unchanged. On a group ring ``cond`` is [G] and each group's
+    record goes to its own slot, all in one write. No value is read back
+    to the host."""
+    if ring.count.dim() == 0:
+        dev_record(_grouped(ring), _as_bool(cond, ring.count).reshape(1),
+                   rec[None])
+        return ring
+    G, cap = ring.count.shape[0], ring.capacity
     cond = _as_bool(cond, ring.count)
-    slot = torch.remainder(ring.count, ring.capacity).reshape(1).long()
-    full = torch.cat([ring.count.reshape(1), ring.tick.reshape(1),
-                      rec.to(torch.int32)])
-    cur = ring.buf.index_select(0, slot)
-    ring.buf.index_copy_(0, slot, torch.where(cond, full, cur[0])[None])
+    slot = torch.remainder(ring.count, cap).long()
+    if G > 1:
+        slot = slot + torch.arange(0, G * cap, cap, device=slot.device)
+    full = torch.cat([ring.count[:, None], ring.tick[:, None],
+                      rec.to(torch.int32)], dim=1)
+    flat = ring.buf.view(G * cap, REC_W)
+    cur = flat.index_select(0, slot)
+    flat.index_copy_(0, slot, torch.where(cond[:, None], full, cur))
     ring.count.add_(cond.to(torch.int32))
     return ring
 
 
 def dev_count(ring: EventRing, idx: int, amount) -> EventRing:
-    """Bump on-device metrics counter ``idx`` by ``amount`` (an int or a
-    0-d tensor), in place."""
-    ring.counters[idx:idx + 1].add_(_i32(amount, ring.count))
+    """Bump on-device metrics counter ``idx`` by ``amount`` (an int, a 0-d
+    or, on a group ring, a [G] tensor), in place."""
+    ring.counters[..., idx].add_(_i32(amount, ring.count))
     return ring
 
 
-def _as_bool(x, like: torch.Tensor) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x.to(device=like.device, dtype=torch.bool).reshape(())
-    return like.new_full((), bool(x), dtype=torch.bool)
-
-
 # ------------------------------------------------- step instrumentation
+def _gathered(comm, *states):
+    """(term, commit_index, last_index) of every row of each state, [R]
+    (or [G, R] for group states)."""
+    return [comm.all_gather(getattr(st, f)) for st in states
+            for f in ("term", "commit_index", "last_index")]
+
+
+def _as_group_args(ring, *values):
+    """A one-group recording's ring and values with a G = 1 axis."""
+    if ring.count.dim() > 0:
+        return (ring,) + values
+    return (_grouped(ring),) + tuple(
+        v[None] if isinstance(v, torch.Tensor) else v for v in values)
+
+
 def _adoptions(ring, old_term, new_term, new_commit, new_last,
                group_id) -> None:
-    """Per-row term adoption records (R conditional writes, in row order)
-    and the adoptions counter."""
+    """Per-row term adoption records (R conditional writes, in row order;
+    [G, R] operands) and the adoptions counter."""
     adopt = new_term > old_term
-    for p in range(new_term.shape[0]):
-        dev_record(ring, adopt[p], make_rec(
-            K_TERM_ADOPT, p, new_term[p], ROLE_FOLLOWER, new_commit[p],
-            new_last[p], old_term[p], group_id, ring.count,
+    for p in range(new_term.shape[-1]):
+        dev_record(ring, adopt[..., p], make_rec(
+            K_TERM_ADOPT, p, new_term[..., p], ROLE_FOLLOWER,
+            new_commit[..., p], new_last[..., p], old_term[..., p],
+            group_id, ring.count,
         ))
-    dev_count(ring, C_TERM_ADOPTIONS, adopt.to(torch.int32).sum())
+    dev_count(ring, C_TERM_ADOPTIONS, adopt.to(torch.int32).sum(-1))
 
 
 def record_replicate_events(
     ring: EventRing, comm, old, new, info, leader, leader_term,
-    group_id: int = -1, *, repair: bool = True, ticks=1,
+    group_id=-1, *, repair: bool = True, ticks=1,
 ) -> EventRing:
     """Record one replicate step's transitions, derived from the (old,
     new, info) triple alone (``raft_tpu/obs/device.py:182``): the commit
@@ -228,75 +279,80 @@ def record_replicate_events(
     counters: ticks (``ticks`` a legitimate step, so a chunk can charge
     its whole flight), commits (entry delta), term adoptions, repair
     rounds. ``old`` is a :class:`Pre` or a state whose small leaves the
-    step did not overwrite."""
-    like = ring.count
+    step did not overwrite.
+
+    On a group ring (:func:`init_group_rings`) every operand carries the
+    leading group axis (``leader``, ``leader_term``, ``group_id`` [G],
+    the states' leaves [G, R], ``info``'s fields [G]), as JAX's vmapped
+    body: each group's records go into its own ring in JAX's order, one
+    batched write per record kind, however many groups there are."""
+    ot, oc, ol, nt, nc, nl = _gathered(comm, old, new)
+    ring_g, ot, oc, ol, nt, nc, nl, commit, max_term, rstart = \
+        _as_group_args(ring, ot, oc, ol, nt, nc, nl, info.commit_index,
+                       info.max_term, info.repair_start)
+    like = ring_g.count
     leader = _i32(leader, like)
     leader_term = _i32(leader_term, like)
-    old_term = comm.all_gather(old.term)
-    new_term = comm.all_gather(new.term)
-    new_commit = comm.all_gather(new.commit_index)
-    new_last = comm.all_gather(new.last_index)
-    old_commit_l = take(comm.all_gather(old.commit_index), leader)
-    old_last_l = take(comm.all_gather(old.last_index), leader)
-    new_commit_l = take(new_commit, leader)
-    new_last_l = take(new_last, leader)
+    old_commit_l = take_groups(oc, leader)
+    old_last_l = take_groups(ol, leader)
+    new_commit_l = take_groups(nc, leader)
+    new_last_l = take_groups(nl, leader)
     legit = leader_term >= 1
 
-    ring.tick.add_(1)
-    dev_count(ring, C_TICKS, legit.to(torch.int32) * _i32(ticks, like))
+    ring_g.tick.add_(1)
+    dev_count(ring_g, C_TICKS, legit.to(torch.int32) * _i32(ticks, like))
 
-    commit_adv = legit & (info.commit_index > old_commit_l)
-    dev_record(ring, commit_adv, make_rec(
-        K_COMMIT, leader, leader_term, ROLE_LEADER, info.commit_index,
-        new_last_l, 0, group_id, like,
+    commit_adv = legit & (commit > old_commit_l)
+    dev_record(ring_g, commit_adv, make_rec(
+        K_COMMIT, leader, leader_term, ROLE_LEADER, commit, new_last_l, 0,
+        group_id, like,
     ))
-    dev_count(ring, C_COMMITS, torch.where(
-        commit_adv, info.commit_index - old_commit_l, 0))
+    dev_count(ring_g, C_COMMITS, torch.where(
+        commit_adv, commit - old_commit_l, 0))
 
-    _adoptions(ring, old_term, new_term, new_commit, new_last, group_id)
+    _adoptions(ring_g, ot, nt, nc, nl, group_id)
 
-    step_down = legit & (info.max_term > leader_term)
-    dev_record(ring, step_down, make_rec(
-        K_STEP_DOWN, leader, info.max_term, ROLE_FOLLOWER, new_commit_l,
+    step_down = legit & (max_term > leader_term)
+    dev_record(ring_g, step_down, make_rec(
+        K_STEP_DOWN, leader, max_term, ROLE_FOLLOWER, new_commit_l,
         new_last_l, leader_term, group_id, like,
     ))
 
     if repair:
-        moved = legit & (info.repair_start >= 1) & (
-            old_last_l >= info.repair_start)
-        dev_record(ring, moved, make_rec(
-            K_REPAIR, leader, leader_term, ROLE_LEADER, info.commit_index,
-            new_last_l, info.repair_start, group_id, like,
+        moved = legit & (rstart >= 1) & (old_last_l >= rstart)
+        dev_record(ring_g, moved, make_rec(
+            K_REPAIR, leader, leader_term, ROLE_LEADER, commit, new_last_l,
+            rstart, group_id, like,
         ))
-        dev_count(ring, C_REPAIRS, moved.to(torch.int32))
+        dev_count(ring_g, C_REPAIRS, moved.to(torch.int32))
     return ring
 
 
 def record_vote_events(
     ring: EventRing, comm, old, new, info, candidate, cand_term,
-    quorum, group_id: int = -1,
+    quorum, group_id=-1,
 ) -> EventRing:
     """Record one vote round (``raft_tpu/obs/device.py:260``): the
     election win (the host's "state changed to leader" twin: a vote
     majority, ``votes > quorum``, and no higher term heard) and per-row
-    term adoptions."""
-    like = ring.count
+    term adoptions. A group ring takes [G] operands, as
+    :func:`record_replicate_events`."""
+    ot, _oc, _ol, nt, nc, nl = _gathered(comm, old, new)
+    ring_g, ot, nt, nc, nl, votes, max_term = _as_group_args(
+        ring, ot, nt, nc, nl, info.votes, info.max_term)
+    like = ring_g.count
     candidate = _i32(candidate, like)
     cand_term = _i32(cand_term, like)
-    old_term = comm.all_gather(old.term)
-    new_term = comm.all_gather(new.term)
-    new_commit = comm.all_gather(new.commit_index)
-    new_last = comm.all_gather(new.last_index)
 
-    ring.tick.add_(1)
-    win = (info.votes > _i32(quorum, like)) & (info.max_term <= cand_term)
-    dev_record(ring, win, make_rec(
+    ring_g.tick.add_(1)
+    win = (votes > _i32(quorum, like)) & (max_term <= cand_term)
+    dev_record(ring_g, win, make_rec(
         K_ELECT, candidate, cand_term, ROLE_LEADER,
-        take(new_commit, candidate), take(new_last, candidate), info.votes,
+        take_groups(nc, candidate), take_groups(nl, candidate), votes,
         group_id, like,
     ))
-    dev_count(ring, C_ELECTIONS, win.to(torch.int32))
-    _adoptions(ring, old_term, new_term, new_commit, new_last, group_id)
+    dev_count(ring_g, C_ELECTIONS, win.to(torch.int32))
+    _adoptions(ring_g, ot, nt, nc, nl, group_id)
     return ring
 
 
@@ -304,12 +360,13 @@ def record_vote_events(
 def packed_flush(ring: EventRing) -> torch.Tensor:
     """The whole ring as ONE i32[capacity + 1, REC_W] tensor for a single
     device fetch per launch boundary: the buffer plus a trailer row
-    carrying (count, tick, counters...)."""
+    carrying (count, tick, counters...). A group ring packs as
+    i32[G, capacity + 1, REC_W] (``raft_tpu/obs/device.py:311``)."""
     trailer = torch.cat([
-        ring.count.reshape(1), ring.tick.reshape(1), ring.counters,
-        ring.count.new_zeros(REC_W - 2 - N_COUNTERS),
-    ])
-    return torch.cat([ring.buf, trailer[None]], dim=0)
+        ring.count[..., None], ring.tick[..., None], ring.counters,
+        ring.count.new_zeros(ring.count.shape + (REC_W - 2 - N_COUNTERS,)),
+    ], dim=-1)
+    return torch.cat([ring.buf, trailer[..., None, :]], dim=-2)
 
 
 flush_pack = packed_flush

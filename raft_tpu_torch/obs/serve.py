@@ -53,7 +53,8 @@ growing mid-render (new metric/label/digest key) — is retried a few
 times scrape-side, which is the standard answer for a pull endpoint.
 
 ``python -m raft_tpu_torch.obs --serve`` (the JAX package's demo boots a
-``MultiEngine``) refuses, naming ROADMAP A14 and A16b.
+``MultiEngine`` with the compile and memory watches) refuses, naming
+ROADMAP A16b.
 """
 
 from __future__ import annotations
@@ -271,7 +272,8 @@ def serve_demo(
     out=None,
 ) -> dict:
     """``python -m raft_tpu.obs --serve`` boots a demo multi-Raft engine
-    with the compile and memory planes attached; the port has neither
-    yet, and this raises naming them rather than serving a stand-in."""
+    with the compile and memory planes attached; the port has the engine
+    (``multi.MultiEngine``) but not those planes yet, and this raises
+    naming them rather than serving a stand-in."""
     raise _not_ported("the --serve demo (a MultiEngine with the compile "
-                      "and memory watches)", "A14, A16b")
+                      "and memory watches)", "A16b")

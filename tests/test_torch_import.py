@@ -55,6 +55,9 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import raft_tpu_torch.native, raft_tpu_torch.ckpt.tiered\n"
         "import raft_tpu_torch.cluster, raft_tpu_torch.cluster.storage\n"
         "import raft_tpu_torch.obs.device\n"
+        "import raft_tpu_torch.multi, raft_tpu_torch.multi.engine\n"
+        "import raft_tpu_torch.multi.router, raft_tpu_torch.multi.rebalancer\n"
+        "import raft_tpu_torch.examples.kv_sharded\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax') or "
         "m == 'raft_tpu' or m.startswith(('jax.', 'raft_tpu.')))\n"
         "print(bad); sys.exit(1 if bad else 0)\n" % str(ROOT)
