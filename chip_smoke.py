@@ -320,7 +320,35 @@ not a multi-card run), built through ``make_transport`` with
     mesh config 3's rows), ``bench.py``'s ``bench_mesh1`` (a 1-rank
     group against the resident transport, per 32-step flight) and the
     3-rank north star's wall per flight and launch-collective time;
-16. prints the kernel table, the card line, and last
+16. drives the north star through the engine over the mesh
+    (``engine_mesh_path``): ``RaftEngine`` as 3 lock-step mirrors, one
+    gloo rank a replica row (``transport="tpu_mesh"``, the mirror digest
+    every 64 decisions), all sharing the card: an election, 64 leader
+    ticks of B entries (K1 on the local row while repairing, K2·mesh once
+    steady; 8 of them profiled on rank 0), one ``submit_pipelined`` of 4
+    whole rings (one K4·mesh flight a ring), a leader failover and 4 096
+    more, a follower failed and lapped (a ring flown with the dead row:
+    K3·mesh; then 4 ticks) and rejoined by the snapshot stream,
+    ``save_checkpoint`` and ``RaftEngine.restore`` with the vote log and
+    4 096 more; every rank's read-backs (``committed_entries`` and every
+    live row) and apply stream against the input's SHA-256, its nodelog
+    lines equal across the ranks and to the single-device engine's run of
+    the same schedule here, its row equal to that engine's row, mirror
+    exchanges made with no desync; prints ms a leader tick (p50/p99),
+    entries/s through the ticks and the chunk, collectives and gathering
+    fetches a tick with host ms each, ms a mirror exchange, the save and
+    restore walls and the profiled ticks' idle share;
+17. drives config 3 through the mirrored engine on 5 ranks
+    (``engine_mesh_ec_path``): K7-fed ticks, a data row failed and a
+    decoding read through K6 from the gathered donor windows, the row
+    healed by reconstruction (K6 decode and encode), a restore (K6
+    encode) and 4 096 more, every read back exactly, every rank's row
+    and lines equal to the single-device engine's;
+18. runs 16's schedule at C = 4 096 with a flight recorder and a
+    256-record device event ring on 3 card ranks and on 3 CPU ranks
+    (``mesh_engine_card_equals_cpu``): nodelog lines, rows, packed rings,
+    decoded lines and read-backs equal;
+19. prints the kernel table, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failure ends the run with a nonzero exit code before the last line.
@@ -7116,6 +7144,637 @@ def phase_mesh_timing(cfg, dev, card_line, kernels, main, reps=21):
     return res
 
 
+# ------------------------------------ 16. the engine over the mesh (A15)
+#: the engine-over-the-mesh schedules: the north star's (full) and the
+#: card-vs-CPU run's (reduced); entries in batches of B
+ENGINE_MESH_PLANS = {
+    "full": dict(capacity=1 << 15, ticks=64, profiled=8, rings=4,
+                 after=4096, lap_ticks=4),
+    "reduced": dict(capacity=4096, ticks=8, profiled=0, rings=1,
+                    after=2048, lap_ticks=2),
+}
+ENGINE_MESH_CHECK_EVERY = 64       # mirror_check_every of the mesh engines
+ENGINE_MESH_EC_PLAN = dict(ticks=16, degraded=8, after=4096)
+ENGINE_MESH_DEV_RING = 256         # the card-vs-CPU run's event ring
+
+
+def engine_mesh_config(capacity, **over):
+    """The north star (3 replicas, 256-byte entries, B = 1024) through the
+    mesh engine, with the mirror digest checked every 64 decisions."""
+    from raft_tpu_torch.config import RaftConfig
+
+    kw = dict(n_replicas=3, entry_bytes=256, batch_size=1024,
+              log_capacity=capacity, transport="tpu_mesh",
+              mirror_check_every=ENGINE_MESH_CHECK_EVERY, seed=15)
+    kw.update(over)
+    return RaftConfig(**kw)
+
+
+def mesh_engine_counters(dev):
+    """The launches of every kernel the mesh engine can run, this
+    process."""
+    from raft_tpu_torch.core import ring_cuda, step_cuda
+    from raft_tpu_torch.ec import kernels as ek
+
+    return {"K1": ring_cuda.LAUNCHES["write_window_both"],
+            "K2": step_cuda.LAUNCHES["steady_step"],
+            "K3": step_cuda.LAUNCHES["pipeline_flight"],
+            "K4": step_cuda.LAUNCHES["turnover_flight"],
+            "K2·mesh": step_cuda.LAUNCHES["steady_step_mesh"],
+            "K3·mesh": step_cuda.LAUNCHES["pipeline_flight_mesh"],
+            "K4·mesh": step_cuda.LAUNCHES["turnover_flight_mesh"],
+            "K6 encode": ek.LAUNCHES["encode"],
+            "K6 decode": ek.LAUNCHES["decode"],
+            "K7": ek.LAUNCHES["encode_fold"]}
+
+
+def engine_transport(cfg, dev):
+    """The engine's transport: this rank's ``MeshTransport`` inside a
+    process group (``make_transport`` must pick it), else the resident
+    layout."""
+    import torch.distributed as dist
+
+    from raft_tpu_torch.transport import MeshTransport, make_transport
+    from raft_tpu_torch.transport.device import SingleDeviceTransport
+
+    if dist.is_available() and dist.is_initialized():
+        tr = make_transport(cfg, device=dev)
+        check(isinstance(tr, MeshTransport)
+              and tr.rank == dist.get_rank(),
+              "make_transport did not give this rank its MeshTransport")
+        return tr
+    return SingleDeviceTransport(dataclasses.replace(cfg, transport="single"),
+                                 device=dev)
+
+
+def rows_read_back(e, inp, lo, hi, what):
+    """Indices [lo, hi] through ``committed_entries`` and from every live
+    row's ring (on the mesh each a gathering fetch every rank makes):
+    each SHA-256 must be the input's."""
+    from raft_tpu_torch.core.state import log_entries
+
+    want = hashlib.sha256(inp.window(lo, hi)).hexdigest()
+    got = {"committed_entries": hashlib.sha256(
+        e.committed_entries(lo, hi).tobytes()).hexdigest()}
+    commits = e._rows(e.state.commit_index)
+    for r in range(e.cfg.rows):
+        if e.alive[r] and int(commits[r]) >= hi and e.cfg.rs_k is None:
+            got[f"row{r}"] = hashlib.sha256(log_entries(
+                e.state, r, lo, hi, e.t).tobytes()).hexdigest()
+    for k, v in got.items():
+        check(v == want, f"{what}: {k}'s read-back of [{lo}, {hi}] differs "
+                         "from the input")
+    return {"lo": lo, "hi": hi, "sha256": want, "readers": sorted(got)}
+
+
+def state_rows(e):
+    """Digest of every row this process holds (on the mesh its own)."""
+    n = e.state.term.shape[0]
+    rows = range(e.cfg.rows) if n == e.cfg.rows else [e.t.rank]
+    return {str(r): row_digest(e.state, r, None, None, n != e.cfg.rows)
+            for r in rows}
+
+
+class TickMeter:
+    """Host ms of every leader tick (ended by a synchronize, so its device
+    work is inside), with the collectives and gathering fetches it made
+    and their host seconds."""
+
+    def __init__(self, e):
+        import torch
+
+        self.e, self.rows, self.on = e, [], True
+        run = e._fire_leader_tick
+        comm = e.t.comm
+
+        def timed(r):
+            if not self.on:
+                return run(r)
+            c0 = getattr(comm, "collectives", 0)
+            cs0 = getattr(comm, "collective_s", 0.0)
+            f0 = getattr(e.t, "fetches", 0)
+            fs0 = getattr(e.t, "fetch_s", 0.0)
+            t0 = time.perf_counter()
+            out = run(r)
+            if e.state.device.type == "cuda":
+                torch.cuda.synchronize()
+            self.rows.append((
+                (time.perf_counter() - t0) * 1e3,
+                getattr(comm, "collectives", 0) - c0,
+                getattr(comm, "collective_s", 0.0) - cs0,
+                getattr(e.t, "fetches", 0) - f0,
+                getattr(e.t, "fetch_s", 0.0) - fs0))
+            return out
+
+        e._fire_leader_tick = timed
+
+    def summary(self):
+        if not self.rows:
+            return None
+        ms, col, col_s, fet, fet_s = (np.array(x, float)
+                                      for x in zip(*self.rows))
+        return {"leader_ticks": len(ms),
+                "ms_per_tick_p50": float(np.percentile(ms, 50)),
+                "ms_per_tick_p99": float(np.percentile(ms, 99)),
+                "ms_per_tick_mean": float(ms.mean()),
+                "collectives_per_tick": float(col.mean()),
+                "host_ms_per_collective": float(col_s.sum() * 1e3
+                                                / max(col.sum(), 1)),
+                "gathering_fetches_per_tick": float(fet.mean()),
+                "host_ms_per_gathering_fetch": float(fet_s.sum() * 1e3
+                                                     / max(fet.sum(), 1))}
+
+
+def caught_up(e, row, what, beats=64):
+    """Run heartbeats until ``row``'s verified match reaches the leader's
+    last index (each check a gathering fetch every rank makes)."""
+    import torch
+
+    for _ in range(beats):
+        e.run_for(e.cfg.heartbeat_period)
+        m, last = e._rows(torch.stack([e.state.match_index,
+                                       e.state.last_index]), 1)
+        if int(m[row]) >= int(last[e.leader_id]):
+            return
+    raise RuntimeError(f"check failed: {what} never caught up")
+
+
+def collective_alone_ms(tr, reps=21):
+    """Host ms of one small data-plane all_gather with every rank entering
+    together (after a barrier): the fabric's own cost, no rank's host
+    work waited for (median; None on the resident layout)."""
+    import torch
+    import torch.distributed as dist
+
+    if tr.resident:
+        return None
+    x = torch.zeros(1, 6, dtype=torch.int32, device=tr.device)
+    times = []
+    for _ in range(reps):
+        dist.barrier()
+        t0 = time.perf_counter()
+        tr.comm.all_gather_host(x)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def engine_mesh_run(cfg, dev, plan, tmp, profile=False, dev_ring=None):
+    """The north star through ``RaftEngine`` on ``engine_transport``: an
+    election; ``ticks`` leader ticks of B entries (K1 while repairing on
+    the local row, K2·mesh once steady); one ``submit_pipelined`` of
+    ``rings`` whole rings (one K4·mesh flight a ring); the leader failed,
+    re-elected, ``after`` more, the old leader recovered; a follower
+    failed and lapped (one ring as a flight with the dead row: K3·mesh,
+    then ``lap_ticks`` ticks), recovered and rejoined by the snapshot
+    stream; ``save_checkpoint`` and ``RaftEngine.restore`` with the vote
+    log, an election and ``after`` more. Every window read back through
+    ``committed_entries`` and every live row, the apply stream hashed.
+    ``profile``: a torch.profiler window of ``profiled`` ticks here.
+    ``dev_ring``: a flight recorder and a device event ring of that
+    capacity (the packed ring is returned)."""
+    import os
+
+    import torch
+
+    from raft_tpu_torch.obs import FlightRecorder
+    from raft_tpu_torch.obs.device import packed_flush
+    from raft_tpu_torch.raft import RaftEngine
+
+    B, C = cfg.batch_size, cfg.log_capacity
+    lines = []
+    vlog = os.path.join(tmp, "votes.log")
+    rec = FlightRecorder() if dev_ring else None
+    e = RaftEngine(cfg, engine_transport(cfg, dev), trace=lines.append,
+                   vote_log=vlog, recorder=rec)
+    dobs = e.attach_device_obs(capacity=dev_ring) if dev_ring else None
+    inp = EngineInput(cfg)
+    h_apply = hashlib.sha256()
+    applied = [0]
+
+    def apply(idx, payload):
+        check(idx == applied[0] + 1, "the apply stream skipped an index")
+        applied[0] = idx
+        h_apply.update(payload)
+
+    e.register_apply(apply)
+    flights = []
+    run_flight = e.t.replicate_pipeline
+
+    def counted_flight(*a, **k):
+        flights.append(bool(k.get("allow_turnover", True)))
+        return run_flight(*a, **k)
+
+    e.t.replicate_pipeline = counted_flight
+    meter = TickMeter(e)
+    res, reads = {}, []
+
+    def ticks(n):
+        for _ in range(n):
+            seqs = [e.submit(p) for p in inp.take(B)]
+            e.run_until_committed(seqs[-1])
+
+    e.run_until_leader()
+    res["first_leader"] = e.leader_id
+    # 1. leader ticks, read back ring by ring
+    t0 = time.perf_counter()
+    half = plan["ticks"] - plan["profiled"]
+    ticks(half)
+    tick_wall = time.perf_counter() - t0
+    res["ticks_entries_per_s_wall"] = half * B / tick_wall
+    # the tick statistics cover the unprofiled ticks only: the profiler
+    # on rank 0 holds every rank at its next collective
+    res["ticks"] = meter.summary()
+    meter.on = False
+    res["collective_alone_ms"] = collective_alone_ms(e.t)
+    if plan["profiled"]:
+        target = e._tick_count + plan["profiled"]
+        seqs = [e.submit(p) for p in inp.take(plan["profiled"] * B)]
+
+        def window():
+            while e._tick_count < target:
+                e.step_event()
+
+        if profile:
+            events, pwall = _device_events(window, 1)
+            busy = sum(us for _, us in events)
+            by_name = {}
+            for name, us in events:
+                k = kernel_of(name) or name[:40]
+                by_name[k] = by_name.get(k, 0.0) + us
+            res["profiled_ticks"] = {
+                "ticks": plan["profiled"], "wall_ms": pwall * 1e3,
+                "device_busy_ms": busy / 1e3,
+                "device_idle_share": 1.0 - busy / (pwall * 1e6),
+                "device_ops_per_tick": len(events) / plan["profiled"],
+                "device_ms_by_kind": {k: v / 1e3
+                                      for k, v in by_name.items()}}
+        else:
+            window()
+        e.run_until_committed(seqs[-1])
+    wm = e.commit_watermark
+    check(wm == plan["ticks"] * B, f"mesh engine ticks committed {wm}")
+    for a in range(max(1, wm - C + 1), wm + 1, C):
+        reads.append(rows_read_back(e, inp, a, min(wm, a + C - 1),
+                                    "mesh engine ticks"))
+    # 2. whole rings through submit_pipelined: one flight a ring
+    last0 = e.commit_watermark
+    n_pipe = plan["rings"] * C
+    payloads = inp.take(n_pipe)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e.submit_pipelined(payloads)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    chunk_wall = time.perf_counter() - t0
+    check(flights == [True] * plan["rings"],
+          f"mesh engine: the gate did not fly every ring: {flights}")
+    check(e.commit_watermark == last0 + n_pipe,
+          f"mesh engine: the chunk committed {e.commit_watermark}")
+    reads.append(rows_read_back(e, inp, e.commit_watermark - C + 1,
+                                e.commit_watermark, "mesh engine chunk"))
+    res["chunk"] = {"entries": n_pipe, "flights": len(flights),
+                    "wall_s": chunk_wall,
+                    "entries_per_s_wall": n_pipe / chunk_wall}
+    # 3. leader failover, then the old leader back
+    old = e.leader_id
+    e.fail(old)
+    e.run_until_leader()
+    res["failover"] = {"failed": old, "new_leader": e.leader_id,
+                       "term": int(e.leader_term)}
+    lo = e.commit_watermark + 1
+    ticks(plan["after"] // B)
+    reads.append(rows_read_back(e, inp, lo, e.commit_watermark,
+                                "mesh engine after failover"))
+    e.recover(old)
+    caught_up(e, old, "the old leader")
+    # 4. a follower lapped: a flight with the dead row, then ticks
+    lapped = next(q for q in range(cfg.rows) if q != e.leader_id)
+    e.fail(lapped)
+    e.run_for(2 * cfg.heartbeat_period)
+    n0 = len(flights)
+    e.submit_pipelined(inp.take(C))
+    check(flights[n0:] == [False],
+          f"mesh engine: the dead-row ring did not fly as K3: {flights}")
+    ticks(plan["lap_ticks"])
+    e.recover(lapped)
+    caught_up(e, lapped, "the lapped row")
+    check(e._shipper.chunks_total > 0,
+          "mesh engine: the lapped row was not streamed a snapshot")
+    res["lapped"] = {"row": lapped, "snapshot_chunks":
+                     int(e._shipper.chunks_total)}
+    reads.append(rows_read_back(e, inp, e.commit_watermark - C + 1,
+                                e.commit_watermark, "mesh engine rejoin"))
+    check(applied[0] == e.commit_watermark
+          and h_apply.hexdigest() == hashlib.sha256(
+              inp.window(1, e.commit_watermark)).hexdigest(),
+          "mesh engine: the apply stream differs from the input")
+    res["apply"] = {"entries": applied[0], "sha256": h_apply.hexdigest()}
+    res["mirror"] = {"decisions": e._mirror_decisions,
+                     "exchanges": e.mirror_exchanges,
+                     "ms_per_exchange": (e.mirror_exchange_s * 1e3
+                                         / max(e.mirror_exchanges, 1))}
+    packed = None if dobs is None else e._fetch(packed_flush(e._dev_ring))
+    # 5. checkpoint and restore (the vote log replayed over it)
+    path = os.path.join(tmp, "cluster.npz")
+    t0 = time.perf_counter()
+    e.save_checkpoint(path)
+    save_s = time.perf_counter() - t0
+    pre_lines = list(lines)
+    lines2 = []
+    t0 = time.perf_counter()
+    e2 = RaftEngine.restore(cfg, path, engine_transport(cfg, dev),
+                            trace=lines2.append, vote_log=vlog)
+    restore_s = time.perf_counter() - t0
+    wm0 = e2.commit_watermark
+    check(wm0 == e.commit_watermark, f"restored to {wm0}")
+    e2.run_until_leader()
+    lo = wm0 + 1
+    for _ in range(plan["after"] // B):
+        seqs = [e2.submit(p) for p in inp.take(B)]
+        e2.run_until_committed(seqs[-1])
+    reads.append(rows_read_back(e2, inp, lo, e2.commit_watermark,
+                                "mesh engine after restore"))
+    reads.append(rows_read_back(e2, inp, e2.commit_watermark - C + 1,
+                                e2.commit_watermark,
+                                "mesh engine restored ring"))
+    res.update({
+        "checkpoint": {"save_s": save_s, "restore_s": restore_s,
+                       "restored_to": wm0},
+        "entries": e2.commit_watermark,
+        "sha256_input": hashlib.sha256(
+            inp.window(1, e2.commit_watermark)).hexdigest(),
+        "read_backs": reads, "flights": flights,
+        "lines": len(pre_lines) + len(lines2),
+        "lines_sha256": hashlib.sha256(
+            "\n".join(pre_lines + ["--"] + lines2).encode()).hexdigest(),
+        "rows": state_rows(e2), "fetches": getattr(e.t, "fetches", 0)
+        + getattr(e2.t, "fetches", 0)})
+    if packed is not None:
+        res["packed_ring"] = packed
+        res["device_lines"] = dobs.nodelog_lines()
+        res["host_lines"] = [ev.nodelog() for ev in rec.events()
+                             if ev.kind in ("elect", "commit")]
+    return res
+
+
+def engine_mesh_rank_main(rank, world, cfg, device, plan, profile,
+                          dev_ring=None):
+    """One rank of the mirrored engine (spawned): the counts set to 0, the
+    schedule, the counts read."""
+    import tempfile
+
+    dev = rank_device(device)
+    zero_ec_counters(dev)
+    with tempfile.TemporaryDirectory(prefix=f"mesh_engine_{rank}_") as tmp:
+        with fly_on_cpu(dev.type):
+            res = engine_mesh_run(cfg, dev, plan, tmp,
+                                  profile=(profile and rank == 0
+                                           and dev.type == "cuda"),
+                                  dev_ring=dev_ring)
+    res["launches"] = mesh_engine_counters(dev)
+    return res
+
+
+def same_rows(ranks, ref, what):
+    """Every rank's own row equal to that row of ``ref`` (a run that holds
+    every row)."""
+    for r, res in enumerate(ranks):
+        check(res["rows"][str(r)] == ref["rows"][str(r)],
+              f"{what}: rank {r}'s row differs from the reference's")
+
+
+def phase_engine_mesh_path(dev):
+    """The north-star deployment through the mirrored engine on 3 gloo
+    ranks sharing ``dev`` (``engine_mesh_run`` at the full plan, the mirror
+    digest every 64 decisions): every rank's read-backs and apply stream
+    against the input's SHA-256, nodelog lines equal across the ranks and
+    equal to the single-device engine's on the same seed here, every
+    rank's row equal to that engine's row, mirror exchanges made with no
+    desync, and K1, K2·mesh, K3·mesh and K4·mesh launched on every rank."""
+    import tempfile
+
+    from raft_tpu_torch.transport.launch import run_ranks
+
+    plan = ENGINE_MESH_PLANS["full"]
+    cfg = engine_mesh_config(plan["capacity"])
+    t0 = time.perf_counter()
+    ranks = run_ranks(engine_mesh_rank_main, cfg.rows,
+                      (cfg, str(dev), plan, True), timeout=MESH_DEADLINE_S)
+    ranks_wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="mesh_engine_ref_") as tmp:
+        ref = engine_mesh_run(cfg, dev, plan, tmp)
+    for r, res in enumerate(ranks):
+        for k in ("lines_sha256", "lines", "entries", "sha256_input",
+                  "apply", "flights", "first_leader", "failover",
+                  "lapped"):
+            check(res[k] == ref[k], f"engine mesh rank {r}: {k} "
+                                    f"{res[k]} != {ref[k]}")
+        check([x["sha256"] for x in res["read_backs"]]
+              == [x["sha256"] for x in ref["read_backs"]],
+              f"engine mesh rank {r}: read-backs differ")
+        check(res["mirror"]["exchanges"] > 0,
+              f"engine mesh rank {r}: no mirror digest exchange")
+        for k in ("K1", "K2·mesh", "K3·mesh", "K4·mesh"):
+            check(res["launches"][k] > 0 or dev.type != "cuda",
+                  f"engine mesh rank {r}: {k} never launched")
+        check(res["launches"]["K2"] == res["launches"]["K3"]
+              == res["launches"]["K4"] == 0,
+              f"engine mesh rank {r}: a resident kernel ran on the mesh")
+    same_rows(ranks, ref, "engine mesh")
+    r0 = ranks[0]
+    out = {"phase": "engine_mesh_path", "ranks": cfg.rows,
+           "backend": "gloo, all ranks on one card (three processes "
+                      "time-sharing it, not a multi-card figure)",
+           "capacity": cfg.log_capacity, "batch": cfg.batch_size,
+           "entry_bytes": cfg.entry_bytes,
+           "mirror_check_every": cfg.mirror_check_every,
+           "entries": r0["entries"], "sha256_input": r0["sha256_input"],
+           "apply": r0["apply"], "read_backs": len(r0["read_backs"]),
+           "lines": r0["lines"], "flights": r0["flights"],
+           "failover": r0["failover"], "lapped": r0["lapped"],
+           "ticks_per_rank": [res["ticks"] for res in ranks],
+           "ticks_note": "the 56 unprofiled leader ticks; host ms a "
+                         "collective includes waiting for the slowest rank",
+           "collective_alone_ms": [res["collective_alone_ms"]
+                                   for res in ranks],
+           "ticks_entries_per_s_wall": [res["ticks_entries_per_s_wall"]
+                                        for res in ranks],
+           "chunk_per_rank": [res["chunk"] for res in ranks],
+           "mirror_per_rank": [res["mirror"] for res in ranks],
+           "checkpoint_per_rank": [res["checkpoint"] for res in ranks],
+           "gathering_fetches_per_rank": [res["fetches"] for res in ranks],
+           "profiled_ticks_rank0": r0.get("profiled_ticks"),
+           "single_device_ref": {"ticks": ref["ticks"],
+                                 "ticks_entries_per_s_wall":
+                                 ref["ticks_entries_per_s_wall"],
+                                 "chunk": ref["chunk"]},
+           "launches_per_rank": [res["launches"] for res in ranks],
+           "launches": {k: sum(res["launches"][k] for res in ranks)
+                        for k in r0["launches"]},
+           "ranks_wall_s": ranks_wall}
+    emit(out)
+    return out
+
+
+def engine_mesh_ec_run(cfg, dev, plan, tmp):
+    """Config 3 through the mirrored EC engine: an election, ``ticks``
+    leader ticks (K7 encodes each batch on every rank), a data row failed
+    and ``degraded`` ticks committed at 4 of 5, a decoding read through
+    K6 from the gathered donors, the row recovered and healed by
+    reconstruction, ``save_checkpoint`` and ``RaftEngine.restore`` (K6
+    encodes the restored shard rows), an election and ``after`` more;
+    every read back exactly."""
+    import os
+
+    from raft_tpu_torch.ec.reconstruct import reconstruct
+    from raft_tpu_torch.raft import RaftEngine
+
+    B = cfg.batch_size
+    lines = []
+    e = RaftEngine(cfg, engine_transport(cfg, dev), trace=lines.append)
+    inp = EngineInput(cfg)
+    res = {}
+
+    def ticks(eng, n):
+        for _ in range(n):
+            seqs = [eng.submit(p) for p in inp.take(B)]
+            eng.run_until_committed(seqs[-1])
+
+    def same(got, lo, hi, what):
+        check(hashlib.sha256(np.ascontiguousarray(got).tobytes())
+              .hexdigest() == hashlib.sha256(inp.window(lo, hi))
+              .hexdigest(), f"{what}: [{lo}, {hi}] differs from the input")
+
+    e.run_until_leader()
+    ticks(e, plan["ticks"])
+    dead = next(q for q in range(cfg.rs_k) if q != e.leader_id)
+    e.fail(dead)
+    lo = e.commit_watermark + 1
+    ticks(e, plan["degraded"])
+    hi = e.commit_watermark
+    holders = [q for q in range(cfg.rows) if e.alive[q]][:cfg.rs_k]
+    same(e.committed_entries(lo, hi), lo, hi, "decoding read")
+    res["decoding_read"] = {"lo": lo, "hi": hi, "rows": holders}
+    e.recover(dead)
+    caught_up(e, dead, "the dead row's heal")
+    rows = [dead] + [q for q in range(cfg.rows) if q != dead][:2]
+    same(reconstruct(e.state, e._code, rows, 1, e.commit_watermark,
+                     e.t), 1, e.commit_watermark, "healed row read")
+    res["healed"] = {"row": dead, "read_rows": rows}
+    path = os.path.join(tmp, "ec.npz")
+    e.save_checkpoint(path)
+    e2 = RaftEngine.restore(cfg, path, engine_transport(cfg, dev),
+                            trace=lines.append)
+    e2.run_until_leader()
+    lo = e2.commit_watermark + 1
+    ticks(e2, plan["after"] // B)
+    same(e2.committed_entries(1, e2.commit_watermark), 1,
+         e2.commit_watermark, "restored read")
+    same(reconstruct(e2.state, e2._code, [2, 3, 4], lo, e2.commit_watermark,
+                     e2.t), lo, e2.commit_watermark, "restored parity read")
+    res.update({"entries": e2.commit_watermark, "lines": len(lines),
+                "lines_sha256": hashlib.sha256(
+                    "\n".join(lines).encode()).hexdigest(),
+                "rows": state_rows(e2)})
+    return res
+
+
+def engine_mesh_ec_rank_main(rank, world, cfg, device, plan):
+    import tempfile
+
+    dev = rank_device(device)
+    zero_ec_counters(dev)
+    with tempfile.TemporaryDirectory(prefix=f"mesh_ec_{rank}_") as tmp:
+        res = engine_mesh_ec_run(cfg, dev, plan, tmp)
+    res["launches"] = mesh_engine_counters(dev)
+    return res
+
+
+def phase_engine_mesh_ec_path(dev):
+    """BASELINE config 3 (RS(5,3), 264-byte entries, B = 1024, C = 32 768)
+    through the mirrored engine on 5 gloo ranks sharing ``dev``: a dead
+    data row, a decoding read through K6 from the gathered donor windows,
+    the heal, a restore; exact read-backs, every rank's nodelog lines and
+    row equal to the single-device engine's, K7, K6 (encode and decode)
+    and K2·mesh launched on every rank."""
+    import tempfile
+
+    from raft_tpu_torch.transport.launch import run_ranks
+
+    cfg = dataclasses.replace(ec_engine_config(1 << 15),
+                              transport="tpu_mesh",
+                              mirror_check_every=ENGINE_MESH_CHECK_EVERY)
+    plan = ENGINE_MESH_EC_PLAN
+    t0 = time.perf_counter()
+    ranks = run_ranks(engine_mesh_ec_rank_main, cfg.rows,
+                      (cfg, str(dev), plan), timeout=MESH_DEADLINE_S)
+    ranks_wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="mesh_ec_ref_") as tmp:
+        ref = engine_mesh_ec_run(cfg, dev, plan, tmp)
+    for r, res in enumerate(ranks):
+        for k in ("lines_sha256", "entries", "decoding_read", "healed"):
+            check(res[k] == ref[k], f"engine mesh ec rank {r}: {k}")
+        for k in ("K7", "K6 encode", "K6 decode", "K2·mesh"):
+            check(res["launches"][k] > 0 or dev.type != "cuda",
+                  f"engine mesh ec rank {r}: {k} never launched")
+    same_rows(ranks, ref, "engine mesh ec")
+    out = {"phase": "engine_mesh_ec_path", "ranks": cfg.rows,
+           "backend": "gloo, all ranks on one card (five processes "
+                      "time-sharing it)",
+           "entries": ranks[0]["entries"],
+           "decoding_read": ranks[0]["decoding_read"],
+           "healed": ranks[0]["healed"], "lines": ranks[0]["lines"],
+           "launches_per_rank": [res["launches"] for res in ranks],
+           "launches": {k: sum(res["launches"][k] for res in ranks)
+                        for k in ranks[0]["launches"]},
+           "ranks_wall_s": ranks_wall}
+    emit(out)
+    return out
+
+
+def phase_mesh_engine_card_equals_cpu(dev):
+    """``engine_mesh_run`` at the reduced plan (C = 4 096) with a flight
+    recorder and a 256-record device event ring: 3 ranks on the card
+    against 3 ranks on the CPU (the CPU's flight gate opened), each rank's
+    nodelog lines, row, packed ring and read-backs equal."""
+    from raft_tpu_torch.transport.launch import run_ranks
+
+    plan = ENGINE_MESH_PLANS["reduced"]
+    cfg = engine_mesh_config(plan["capacity"])
+    runs = {}
+    for where in (str(dev), "cpu"):
+        t0 = time.perf_counter()
+        runs[where] = (run_ranks(
+            engine_mesh_rank_main, cfg.rows,
+            (cfg, where, plan, False, ENGINE_MESH_DEV_RING),
+            timeout=MESH_DEADLINE_S), time.perf_counter() - t0)
+    card, cpu = runs[str(dev)][0], runs["cpu"][0]
+    for r in range(cfg.rows):
+        a, b = card[r], cpu[r]
+        for k in ("lines_sha256", "rows", "apply", "flights",
+                  "device_lines", "host_lines"):
+            check(a[k] == b[k], f"mesh card vs cpu rank {r}: {k}")
+        check(np.array_equal(a["packed_ring"], b["packed_ring"]),
+              f"mesh card vs cpu rank {r}: packed rings differ")
+        check([x["sha256"] for x in a["read_backs"]]
+              == [x["sha256"] for x in b["read_backs"]],
+              f"mesh card vs cpu rank {r}: read-backs differ")
+        check(a["device_lines"] == a["host_lines"] and a["device_lines"],
+              f"mesh card rank {r}: the device ring's lines are not the "
+              "host's")
+    out = {"phase": "mesh_engine_card_equals_cpu", "ranks": cfg.rows,
+           "capacity": cfg.log_capacity, "entries": card[0]["entries"],
+           "device_ring": ENGINE_MESH_DEV_RING,
+           "device_lines": len(card[0]["device_lines"]),
+           "lines": card[0]["lines"], "flights": card[0]["flights"],
+           "launches": {k: sum(res["launches"][k] for res in card)
+                        for k in card[0]["launches"]},
+           "card_wall_s": runs[str(dev)][1], "cpu_wall_s": runs["cpu"][1]}
+    emit(out)
+    return out
+
+
 KERNELS = [
     ("K1", "write_window_both", "raft_tpu_torch/csrc/ring.cu",
      "raft_tpu/core/ring_pallas.py:145"),
@@ -7884,6 +8543,19 @@ def phase_engine_device_obs_path(dev):
     return res
 
 
+#: phases ``--only=a,b`` runs alone (after the card and the build): the
+#: mesh engine's, and the resident main paths whose host code the mesh
+#: engine's seam runs through (for comparing two trees in turns)
+ONLY_PHASES = {"main_path": lambda dev: phase_main_path(ns_config(), dev),
+               "engine_main_path":
+               lambda dev: phase_engine_main_path(ns_config(), dev),
+               "kv_main_path": phase_kv_main_path,
+               "engine_mesh_path": phase_engine_mesh_path,
+               "engine_mesh_ec_path": phase_engine_mesh_ec_path,
+               "mesh_engine_card_equals_cpu":
+               phase_mesh_engine_card_equals_cpu}
+
+
 def main() -> int:
     if not (HERE / "raft_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py needs the repository around it: "
@@ -7898,6 +8570,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card_line = phase_card()
     phase_build()
+    only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:]
+            if a.startswith("--only=")]
+    if only:
+        # a development run of some phases: no kernel table, no last line
+        for name in only[0]:
+            ONLY_PHASES[name](dev)
+        return 0
     cfg = ns_config()
     errs = phase_kernels(cfg, dev)
     main_res = phase_main_path(cfg, dev)
@@ -7931,6 +8610,10 @@ def main() -> int:
         cfg, dev, np.random.default_rng(SEED + 31), 21, mem_rate(card_line))
     mesh_main = phase_mesh_main_path(cfg, dev)
     phase_mesh_ec_path(ecfg, dev)
+    engine_mesh = {"engine_mesh": phase_engine_mesh_path(dev),
+                   "engine_mesh_ec": phase_engine_mesh_ec_path(dev),
+                   "mesh_engine_card_equals_cpu":
+                   phase_mesh_engine_card_equals_cpu(dev)}
     mesh_timing = phase_mesh_timing(cfg, dev, card_line, mesh_kernel_times,
                                     mesh_main)
     kernels = []
@@ -7986,6 +8669,12 @@ def main() -> int:
                 # RS(6,3): the EC cluster grown 5 -> 6 -> 4 on the card
                 by_path["ec_membership_card_equals_cpu"] = \
                     ec_member["launches"][key]
+            # the engine over the mesh: the mirrored ranks' launches
+            for path, ph in engine_mesh.items():
+                n = ph["launches"].get(key, 0)
+                if key in ("K1", "K2·mesh", "K3·mesh", "K4·mesh",
+                           "K6 encode", "K6 decode", "K7") and n:
+                    by_path[path] = n
             kernels.append({
                 "name": f"{key} {name}", "route": "cuda", "source": src,
                 "replaces": replaces, "launches": sum(by_path.values()),

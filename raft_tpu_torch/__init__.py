@@ -18,7 +18,9 @@ replication data plane on one H100 with hand-written CUDA kernels
   ``transport.launch.run_ranks`` starts R local ranks;
 - ``raft.RaftEngine`` — the engine's tick loop (timers, roles, elections,
   the leader tick, pipelined ingest, commit, the archive and the apply
-  stream) over the transports; ``storm`` drives BASELINE config 5;
+  stream) over the transports, on the mesh as R lock-step mirrors, one
+  rank a replica row (``transport.multihost``); ``storm`` drives BASELINE
+  config 5;
 - ``multi.MultiEngine`` — G independent Raft groups stepped by one batched
   program (kernel K5 in every group launch; the fused K-tick window as a
   CUDA graph), behind the key-routed ``multi.Router``.

@@ -380,18 +380,22 @@ def install_snapshot(
     leader_term: int,
     batch: int,
     code=None,
+    view=None,
 ) -> ReplicaState:
     """Install a snapshot into one replica's row; returns the new state.
 
     Only the ring-fitting tail is materialized (``_ring_tail``). ``code``
     re-encodes the replica's RS shard row when the cluster is
-    erasure-coded.
+    erasure-coded. On the mesh (``view``) only the rank holding the row
+    writes (no collective); the others return their state unchanged.
     """
+    if view is not None and view.local_row(replica) is None:
+        return state
     start, ents, terms = _ring_tail(snap, state.capacity)
     payload = ents if code is None else _shard_rows(state, code, ents)[replica]
     return install_entries(
         state, replica, start, payload, terms, leader_term,
-        commit_to=snap.last_index, batch=batch,
+        commit_to=snap.last_index, batch=batch, view=view,
     )
 
 
@@ -401,17 +405,21 @@ def install_snapshot_all(
     leader_term: int,
     batch: int,
     code=None,
+    rows=None,
+    view=None,
 ) -> ReplicaState:
     """``install_snapshot`` into EVERY replica row (the whole-cluster
     restore path), encoding the tail once — per-replica ``install_snapshot``
     would redo the full RS encode R times for R shard rows it already
-    produced."""
+    produced. ``rows`` is the cluster's row count (default: the state's);
+    on the mesh (``view``) each rank installs the row it holds."""
     start, ents, terms = _ring_tail(snap, state.capacity)
     shard_rows = None if code is None else _shard_rows(state, code, ents)
-    for r in range(state.term.shape[0]):
+    n_rows = state.term.shape[0] if rows is None else rows
+    for r in range(n_rows):
         payload = ents if shard_rows is None else shard_rows[r]
         state = install_entries(
             state, r, start, payload, terms, leader_term,
-            commit_to=snap.last_index, batch=batch,
+            commit_to=snap.last_index, batch=batch, view=view,
         )
     return state

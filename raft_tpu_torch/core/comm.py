@@ -16,6 +16,10 @@ through ``index_select``, which never reads the value back to the host.
 
 from __future__ import annotations
 
+import datetime
+import time
+
+import numpy as np
 import torch
 
 
@@ -81,9 +85,12 @@ class MeshComm:
     the result put back on the operand's device, since gloo's collectives
     move host memory. Bool operands travel as uint8. Every rank must make
     the same calls in the same order, as the mirrored programs of the
-    transport do."""
+    transport do. The mirror digest exchange (``exchange_int64``) runs
+    on a gloo group of its own, with ``exchange_timeout_s`` as its
+    timeout."""
 
-    def __init__(self, n_replicas: int, group=None):
+    def __init__(self, n_replicas: int, group=None,
+                 exchange_timeout_s: float = 60.0):
         import torch.distributed as dist
 
         size = dist.get_world_size(group)
@@ -96,10 +103,23 @@ class MeshComm:
             raise ValueError(
                 f"MeshComm runs over a gloo group, got {backend!r}: a "
                 "device backend (NCCL, one GPU per rank) is not tried yet "
-                "(ROADMAP A15)")
+                "(ROADMAP A15b)")
         self.n_replicas = n_replicas
         self.group = group
         self.rank = dist.get_rank(group)
+        self.collectives = 0
+        self.collective_s = 0.0
+        #   data-plane collectives made and the host seconds spent in them
+        #   (the mesh engine's per-tick communication cost)
+        # The mirror digest rides a gloo group of its own, so an exchange
+        # never interleaves with a data-plane collective; its timeout is
+        # the exchange bound. Creating it is itself a collective of the
+        # whole world, made here, where every rank builds its comm.
+        ranks = None if group is None else dist.get_process_group_ranks(
+            group)
+        self._digest_group = dist.new_group(
+            ranks=ranks, backend="gloo",
+            timeout=datetime.timedelta(seconds=exchange_timeout_s))
 
     def replica_ids(self, device) -> torch.Tensor:
         return torch.full((1,), self.rank, dtype=torch.int32, device=device)
@@ -117,13 +137,44 @@ class MeshComm:
         if src.is_cuda:
             src = src.cpu()
         parts = [torch.empty_like(src) for _ in range(self.n_replicas)]
+        t0 = time.perf_counter()
         dist.all_gather(parts, src, group=self.group)
+        self.collective_s += time.perf_counter() - t0
+        self.collectives += 1
         return torch.cat(parts, 0).to(device=x.device, dtype=x.dtype)
 
     def all_gather_host(self, x: torch.Tensor) -> torch.Tensor:
         """``all_gather`` with the result on the host, for decisions taken
         there: one copy of the operand to the host, none back."""
         return self.all_gather(x.cpu())
+
+    def broadcast_host(self, x: torch.Tensor, row: int) -> torch.Tensor:
+        """Rank ``row``'s ``x`` on the host of every rank: every rank
+        passes its own ``x`` of the same shape and dtype (the other
+        ranks' values are overwritten)."""
+        import torch.distributed as dist
+
+        buf = x.detach().to("cpu", copy=True).contiguous()
+        dtype = buf.dtype
+        if dtype == torch.bool:
+            buf = buf.to(torch.uint8)
+        src = row if self.group is None else dist.get_global_rank(
+            self.group, row)
+        t0 = time.perf_counter()
+        dist.broadcast(buf, src=src, group=self.group)
+        self.collective_s += time.perf_counter() - t0
+        self.collectives += 1
+        return buf.to(dtype)
+
+    def exchange_int64(self, value: int) -> np.ndarray:
+        """One int64 from every rank, in rank order, over the digest
+        group (the mirror digest exchange; ``RaftEngine``)."""
+        import torch.distributed as dist
+
+        mine = torch.tensor([int(value)], dtype=torch.int64)
+        parts = [torch.empty_like(mine) for _ in range(self.n_replicas)]
+        dist.all_gather(parts, mine, group=self._digest_group)
+        return torch.cat(parts).numpy()
 
     def select_row(self, x: torch.Tensor, idx) -> torch.Tensor:
         return take(self.all_gather(x), idx, 0)

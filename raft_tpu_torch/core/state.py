@@ -12,7 +12,12 @@ across with ``state_from_numpy`` / ``state_to_numpy``:
 
 On the mesh transport each rank holds one row of that layout (R = 1:
 vectors [1], ``log_term`` [1, C], ``log_payload`` [C, W]); ``cut_row`` and
-``stack_rows`` carry between the two.
+``stack_rows`` carry between the two. The functions here that read or
+write a given replica's row take ``view``: the row access of the
+transport that placed the state (``ResidentView`` for a state that holds
+every row, the default; ``transport.MeshTransport`` on the mesh, where a
+read of another rank's row is a collective every rank makes and a write
+lands only on the rank that holds the row).
 
 Log indices are 1-based; index i lives in ring slot ``(i - 1) % C``.
 
@@ -92,6 +97,49 @@ class ReplicaState:
 
     def clone(self) -> "ReplicaState":
         return ReplicaState(*(getattr(self, f).clone() for f in FIELDS))
+
+
+def host_copy(x) -> np.ndarray:
+    """A host copy of a tensor (never a view of a CPU tensor that a step
+    may later update in place)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True).numpy()
+    return np.array(x)
+
+
+class ResidentView:
+    """Row access of a state that holds every replica row (the resident
+    layout): replica r is row r, every read is a host copy and a host
+    [R, ...] value is placed whole. ``MeshTransport`` has the same
+    methods for one row a rank."""
+
+    resident = True
+
+    def local_row(self, row: int):
+        """Index of replica ``row`` in the state, or None when another
+        process holds it."""
+        return row
+
+    def fetch_rows(self, x: torch.Tensor, dim: int = 0) -> np.ndarray:
+        """Host view of every replica row of a row-sharded value (the row
+        axis at ``dim``)."""
+        return host_copy(x)
+
+    def fetch_row(self, x: torch.Tensor, row: int, dim: int = 0
+                  ) -> np.ndarray:
+        """Host view of replica ``row`` of a row-sharded value, the row
+        axis at ``dim`` removed."""
+        return host_copy(x.select(dim, row))
+
+    def place_rows(self, host, like: torch.Tensor,
+                   dim: int = 0) -> torch.Tensor:
+        """The rows this process holds of a host [R, ...] value (row axis
+        at ``dim``), as a tensor of ``like``'s dtype and device."""
+        return torch.as_tensor(np.asarray(host)).to(
+            device=like.device, dtype=like.dtype).contiguous()
+
+
+RESIDENT = ResidentView()
 
 
 def init_state(cfg: RaftConfig, rows: Optional[int] = None,
@@ -229,16 +277,21 @@ def unfold_bytes(words) -> np.ndarray:
 
 
 def log_entries(state: ReplicaState, replica: int, lo: int,
-                hi: int) -> np.ndarray:
+                hi: int, view=None) -> np.ndarray:
     """Host read of payload bytes u8[hi-lo+1, S] for indices [lo, hi] on
-    one replica row. Only the requested slots leave the device."""
+    one replica row. Only the requested slots leave the device; on the
+    mesh (``view``) the holder's slots reach every rank."""
     w = state.words_per_entry
     if hi < lo:
         return np.zeros((0, 4 * w), np.uint8)
     idx = torch.arange(lo, hi + 1, device=state.device, dtype=torch.int64)
     slots = (idx - 1) % state.capacity
-    rows = state.log_payload[:, replica * w:(replica + 1) * w]
-    return unfold_bytes(rows.index_select(0, slots))
+    if view is None or view.resident:
+        rows = state.log_payload[:, replica * w:(replica + 1) * w]
+        return unfold_bytes(rows.index_select(0, slots))
+    # this rank's row [N, W] with its row axis; the holder's reaches all
+    mine = state.log_payload.index_select(0, slots)[:, None]
+    return unfold_bytes(view.fetch_row(mine, replica, 1))
 
 
 def payload_slot_bytes(state: ReplicaState, replica: int) -> np.ndarray:
@@ -247,10 +300,12 @@ def payload_slot_bytes(state: ReplicaState, replica: int) -> np.ndarray:
     return unfold_bytes(state.log_payload[:, replica * w:(replica + 1) * w])
 
 
-def committed_payloads(state: ReplicaState, replica: int) -> np.ndarray:
+def committed_payloads(state: ReplicaState, replica: int,
+                       view=None) -> np.ndarray:
     """The committed log prefix of one replica as raw bytes [n, S]."""
-    hi = int(state.commit_index[replica])
-    return log_entries(state, replica, 1, hi)
+    view = RESIDENT if view is None else view
+    hi = int(view.fetch_rows(state.commit_index)[replica])
+    return log_entries(state, replica, 1, hi, view)
 
 
 def last_log_term(state: ReplicaState) -> torch.Tensor:

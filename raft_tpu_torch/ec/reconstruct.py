@@ -19,6 +19,11 @@ systematic read gathers only the requested slots on the device; and
 ``heal_replica`` re-encodes on the device with K6 where the JAX package
 uses its C++ host codec (``RSCode.encode_host``, equal to the NumPy
 ``encode``).
+
+On the mesh (``view`` a ``transport.MeshTransport``) each rank holds one
+row: a read gathers the k donor rows' windows onto every rank's device
+first (``gather_window``, a collective every rank makes) and K6 decodes
+that block; a write lands only on the rank that holds the row.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from raft_tpu_torch.core.state import ReplicaState, slot_of
+from raft_tpu_torch.core.state import RESIDENT, ReplicaState, slot_of
 from raft_tpu_torch.ec.kernels import GfSource, decode_ring, encode_device
 from raft_tpu_torch.ec.rs import RSCode
 
@@ -61,32 +66,50 @@ def ring_source(state: ReplicaState, rows: Sequence[int],
 
 
 def _reconstruct(state: ReplicaState, code: RSCode, rows: Sequence[int],
-                 lo: int, hi: int) -> torch.Tensor:
+                 lo: int, hi: int, view=None) -> torch.Tensor:
     """``reconstruct`` as a u8[hi-lo+1, S] tensor on the state's device."""
     rows = [int(r) for r in rows]
     if len(rows) != code.k:
         raise ValueError(f"need exactly k={code.k} shard rows, got {rows}")
+    view = RESIDENT if view is None else view
+    w = state.words_per_entry
+    n = hi - lo + 1
+    block = None
+    if not view.resident:
+        # the k donor windows, gathered onto this rank's device: i32[N, k*W]
+        block = view.gather_window(state, rows, lo, hi)
     if sorted(rows) == list(range(code.k)):
         # Systematic fast path: rows 0..k-1 hold the raw byte slices in
         # some order — reorder to shard id and stitch; no decode.
-        shards = gather_shard_window(state, rows, lo, hi)
+        if block is None:
+            shards = gather_shard_window(state, rows, lo, hi)
+        else:
+            shards = block.view(n, code.k, w).permute(1, 0, 2) \
+                .contiguous().view(torch.uint8)
         order = torch.as_tensor(np.argsort(np.asarray(rows)),
                                 device=shards.device)
         sh = shards.index_select(0, order)
         return sh.permute(1, 0, 2).reshape(sh.shape[1], -1)
-    return decode_ring(code, state.log_payload, ring_source(state, rows, lo),
-                       hi - lo + 1, state.words_per_entry, rows)
+    if block is None:
+        return decode_ring(code, state.log_payload,
+                           ring_source(state, rows, lo), n, w, rows)
+    # K6 over the gathered block: shard j at lane offset j*W, row stride
+    # k*W, capacity N from slot 0
+    return decode_ring(code, block,
+                       GfSource(tuple(j * w for j in range(code.k)),
+                                code.k * w, n, 0), n, w, rows)
 
 
 def reconstruct(state: ReplicaState, code: RSCode, rows: Sequence[int],
-                lo: int, hi: int) -> np.ndarray:
+                lo: int, hi: int, view=None) -> np.ndarray:
     """Decode entries [lo, hi] (1-based, inclusive) from the shard rows of
     the k replicas in ``rows`` -> u8[hi-lo+1, S] on the host.
 
     ``rows`` picks which replicas serve the read (any k live ones): the
     data rows 0..k-1 in any order need no decode; any other set is decoded
-    by K6, which reads the ring in place on the card."""
-    return _reconstruct(state, code, rows, lo, hi).cpu().numpy()
+    by K6, which reads the ring in place on the card (on the mesh, the
+    gathered donor windows)."""
+    return _reconstruct(state, code, rows, lo, hi, view).cpu().numpy()
 
 
 def install_window(state: ReplicaState, replica: int, start, count,
@@ -145,10 +168,14 @@ def install_window(state: ReplicaState, replica: int, start, count,
 
 def install_entries(state: ReplicaState, replica: int, start: int, shards,
                     terms, leader_term: int, commit_to: int,
-                    batch: int) -> ReplicaState:
+                    batch: int, view=None) -> ReplicaState:
     """Chunked ``install_window`` over a contiguous index range: ``shards``
     u8[N, Sk] (this replica's shard per entry) and ``terms`` i32[N], numpy
-    or tensors."""
+    or tensors. On the mesh only the rank holding ``replica`` writes; the
+    others return their state unchanged."""
+    replica = (RESIDENT if view is None else view).local_row(replica)
+    if replica is None:
+        return state
     dev = state.device
     if isinstance(shards, np.ndarray):   # may be a read-only byte view
         shards = np.require(shards, requirements=["C", "W"])
@@ -170,7 +197,7 @@ def install_entries(state: ReplicaState, replica: int, start: int, shards,
 def heal_replica(state: ReplicaState, code: RSCode, replica: int,
                  donor_rows: Sequence[int], lo: int, hi: int,
                  leader_term: int, commit_to: int,
-                 batch: int) -> ReplicaState:
+                 batch: int, view=None) -> ReplicaState:
     """Reconstruct entries [lo, hi] from ``donor_rows`` and install replica
     ``replica``'s re-encoded shards, ``batch`` entries at a time: each
     chunk is reconstructed (K6 decode unless the donors are the data rows),
@@ -179,8 +206,9 @@ def heal_replica(state: ReplicaState, code: RSCode, replica: int,
     Raises ``ValueError`` if any donor's ring has already lapped ``lo``
     (the slot would hold a newer entry's shard — decoding it would install
     silent garbage); such a replica needs a snapshot install instead."""
+    view = RESIDENT if view is None else view
     donor_rows = [int(r) for r in donor_rows]
-    donor_last = state.last_index.cpu().numpy()[donor_rows]
+    donor_last = view.fetch_rows(state.last_index)[donor_rows]
     horizon = int(donor_last.max()) - state.capacity + 1
     if lo < horizon:
         raise ValueError(
@@ -189,13 +217,19 @@ def heal_replica(state: ReplicaState, code: RSCode, replica: int,
     dev = state.device
     slots = (torch.arange(lo, hi + 1, device=dev, dtype=torch.int64) - 1) \
         % state.capacity
-    terms_all = state.log_term[donor_rows[0]].index_select(0, slots)
+    terms_all = torch.from_numpy(view.fetch_row(
+        state.log_term.index_select(1, slots), donor_rows[0]))
+    mine = view.local_row(replica) is not None
     for ofs in range(0, hi - lo + 1, batch):
         a = lo + ofs
         b = min(hi, a + batch - 1)
-        data = _reconstruct(state, code, donor_rows, a, b)     # [N, S]
-        shards = encode_device(code, data)[replica]             # [N, Sk]
-        state = install_entries(state, replica, a, shards,
-                                terms_all[ofs:ofs + b - a + 1], leader_term,
-                                commit_to, batch)
+        # every rank reconstructs (on the mesh the donor gather is a
+        # collective); only the rank holding the replica encodes its
+        # shards and installs them
+        data = _reconstruct(state, code, donor_rows, a, b, view)  # [N, S]
+        if mine:
+            shards = encode_device(code, data)[replica]           # [N, Sk]
+            state = install_entries(state, replica, a, shards,
+                                    terms_all[ofs:ofs + b - a + 1],
+                                    leader_term, commit_to, batch, view)
     return state

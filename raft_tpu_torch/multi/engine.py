@@ -45,7 +45,7 @@ stream equal the JAX ``MultiEngine``'s. ``MultiEngine(cfg, G)`` runs on
 CUDA; pass ``device="cpu"`` to run the plain versions. Not ported: the
 group-sharded layout (``transport="mesh_groups"`` or
 ``RAFT_TPU_GSHARD=1``, JAX ``transport/group_mesh.py``), which raises
-naming ROADMAP A15; on the resident layout every group lives on shard 0
+naming ROADMAP A15b; on the resident layout every group lives on shard 0
 and ``migrate_group`` refuses as in JAX.
 """
 
@@ -138,7 +138,7 @@ class UnsupportedMembership(ValueError):
 
 #: Transports that carry the GROUP axis, as in JAX: "single" (resident,
 #: one device) and "mesh_groups" (the group axis sharded over a mesh; not
-#: ported, ROADMAP A15). The per-row transports ("tpu_mesh",
+#: ported, ROADMAP A15b). The per-row transports ("tpu_mesh",
 #: "multihost") have no group dimension.
 GROUP_AXIS_TRANSPORTS = ("single", "mesh_groups")
 
@@ -204,7 +204,7 @@ class MultiEngine:
         if transport == "mesh_groups":
             raise _not_ported(
                 "the group-sharded layout (transport='mesh_groups' or "
-                "RAFT_TPU_GSHARD=1, transport.group_mesh)", "A15")
+                "RAFT_TPU_GSHARD=1, transport.group_mesh)", "A15b")
         self.cfg = cfg
         self.G = n_groups
         R = cfg.n_replicas

@@ -2,7 +2,7 @@
 copy of ``raft_tpu/multi/rebalancer.py``; host code). On the port's
 resident layout every group lives on shard 0: ``plan`` works on any
 snapshot, and ``step`` reaches ``MultiEngine.migrate_group``, which
-refuses there as in JAX (the sharded layout is ROADMAP A15).
+refuses there as in JAX (the sharded layout is ROADMAP A15b).
 
 The sharded layout (``transport.group_mesh``) makes WHERE a group lives
 a one-launch decision (``MultiEngine.migrate_group``); this module

@@ -20,8 +20,12 @@ plane, in two parts:
   is one JSON line, flushed to the kernel, so a SIGKILL'd or wedged
   process still leaves a durable record whose LAST line names the phase
   it never finished. The JAX package wires it through its mesh,
-  multihost and reform transports and its chaos runners; the port's
-  counterparts come with ROADMAP A15 and A17.
+  multihost and reform transports and its chaos runners. The port marks
+  the same points of its mesh and multihost transports (``mesh_build``,
+  ``mesh_ready``, ``allgather`` with a running id on every gathering
+  fetch, ``distributed_init``, ``device_enum``) and of the engine's
+  mirror digest exchange (``barrier_enter`` / ``barrier_exit``); the
+  reform marks wait for ROADMAP A15b and the chaos runners' for A17.
 
 - :class:`StallWatchdog` — a daemon thread that fires when no
   :meth:`StallWatchdog.pet` arrives for ``deadline_s`` seconds: it dumps

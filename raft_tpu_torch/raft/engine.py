@@ -80,8 +80,24 @@ ticks, vote rounds and fused windows record into an event ring on the
 device and each launch boundary flushes it with one fetch; pipelined
 chunks record at chunk granularity.
 
-Not ported yet, raising ``NotImplementedError`` naming its ROADMAP item:
-the multihost mirror digest (A15).
+Over the mesh (``transport.MeshTransport``, or ``"multihost"``:
+``transport.multihost``) the engine runs as R lock-step mirrors, one a
+rank, each rank holding its own replica row: every rank runs this same
+event loop with the same config and seed, so it takes the same decisions
+and makes the same collectives. A host read of the row-sharded state goes
+through the transport's gathering fetch (``_rows``: ``fetch_rows`` /
+``fetch_row``, a collective on the mesh; a host copy on the resident
+layout), a host write through its placement (``place_rows``,
+``local_row``: a rank writes only its own row), and the EC reads decode
+from the gathered donor windows. Every rank must attach the same
+observers (a trace, a recorder, the device plane), because ``nodelog``
+and the flushes fetch only while one is attached. With
+``mirror_check_every`` the decisions fold into a rolling digest that the
+ranks exchange every that many decisions (``_verify_mirror_digest``): a
+divergence, or an exchange that does not complete within
+``mirror_exchange_timeout_s``, raises ``MirrorDesyncError`` on every
+rank. In a one-process world the exchange is a no-op, as in the JAX
+engine.
 """
 
 from __future__ import annotations
@@ -124,6 +140,7 @@ from raft_tpu_torch.ec.reconstruct import (
     reconstruct,
 )
 from raft_tpu_torch.ec.rs import RSCode
+from raft_tpu_torch.obs import blackbox
 from raft_tpu_torch.obs import profiling as _profiling
 from raft_tpu_torch.raft.lease import LeaseTable
 from raft_tpu_torch.raft.ledger import (
@@ -218,7 +235,6 @@ class RaftEngine:
         vote_log: Optional[str] = None,
         recorder=None,
     ):
-        self._refuse_unported(cfg)
         self.cfg = cfg
         self.t: Transport = (transport if transport is not None
                              else make_transport(cfg))
@@ -268,6 +284,13 @@ class RaftEngine:
         self._tick_count = 0
         #   Leader ticks fired so far (the launch annotation's step and
         #   the span tracker's replication-round clock)
+        self._mirror_digest = 0
+        self._mirror_decisions = 0
+        #   the rolling digest of the decision stream and its length
+        #   (mirror_check_every)
+        self.mirror_exchanges = 0
+        self.mirror_exchange_s = 0.0
+        #   completed digest exchanges and their host seconds
         self.hostprof = None
         #   obs.hostprof.HostProfiler (None = off): phase timers tiling
         #   step_event (heap_pop, host_pre, pack, dispatch, device_wait,
@@ -472,11 +495,10 @@ class RaftEngine:
             # process cannot vote twice in a term it voted in, then keep
             # appending at every (term, votedFor) transition
             terms = self.terms.copy()
-            vf = self._fetch(self.state.voted_for).astype(np.int64)
-            terms, vf = merge_restored(n, terms, vf, vote_log)
-            if (terms != self.terms).any() or (
-                vf != self._fetch(self.state.voted_for)
-            ).any():
+            vf0 = self._rows(self.state.voted_for)
+            terms, vf = merge_restored(n, terms, vf0.astype(np.int64),
+                                       vote_log)
+            if (terms != self.terms).any() or (vf != vf0).any():
                 self._set_votes(terms, vf)
                 for r in range(n):
                     self.nodelog(r, "vote log replayed")
@@ -485,20 +507,38 @@ class RaftEngine:
             if self.member[r]:
                 self._arm_follower(r)
 
-    @staticmethod
-    def _refuse_unported(cfg: RaftConfig) -> None:
-        """Raise for every configuration whose code is not ported yet."""
-        if cfg.mirror_check_every:
-            raise _not_ported("the multihost mirror digest "
-                              "(mirror_check_every)", "A15")
-
     # ------------------------------------------------------------------ util
     def _fetch(self, x) -> np.ndarray:
-        """Host copy of a device value (never a view of a CPU tensor the
-        steps may later update in place)."""
-        if isinstance(x, torch.Tensor):
-            return x.detach().to("cpu", copy=True).numpy()
-        return np.array(x)
+        """Host copy of a device value that every rank holds whole (an
+        info, the event ring; never a view of a CPU tensor the steps may
+        later update in place): the transport's ``fetch`` (JAX :173)."""
+        return self.t.fetch(x)
+
+    def _rows(self, x, dim: int = 0) -> np.ndarray:
+        """Host view of every replica row of a row-sharded value (a state
+        leaf, or a value computed row by row from one) with the row axis
+        at ``dim``: ``_fetch`` on the resident layout; on the mesh one
+        gathering fetch, a collective every rank makes in lock step (JAX:
+        ``_fetch`` over a multi-process transport, ``tpu_mesh.py:228``)."""
+        if self.t.resident:
+            return self._fetch(x)
+        return self.t.fetch_rows(x, dim)
+
+    def _log_terms(self, idx, row: Optional[int] = None) -> np.ndarray:
+        """Host view of the term ring at 1-based log indices ``idx``: every
+        row's (``[R, n]``), or replica ``row``'s (``[n]``). On the resident
+        layout one fetch of the whole ring, as the JAX engine reads it; on
+        the mesh only the selected slots, gathered from every rank or
+        broadcast from the one holding ``row``."""
+        slots = (np.asarray(idx, np.int64) - 1) % self.state.capacity
+        if self.t.resident:
+            terms = self._fetch(self.state.log_term)
+            return terms[:, slots] if row is None else terms[row, slots]
+        sel = self.state.log_term.index_select(
+            1, torch.from_numpy(slots).to(self.state.device))
+        if row is None:
+            return self.t.fetch_rows(sel)
+        return self.t.fetch_row(sel, row, 0)
 
     def _dev_arr(self, x) -> torch.Tensor:
         """A host mask or count vector as a tensor on the device."""
@@ -543,8 +583,8 @@ class RaftEngine:
         fetch is skipped."""
         if self.recorder is None and self._trace is None:
             return ""
-        ci_li = self._fetch(
-            torch.stack([self.state.commit_index, self.state.last_index])
+        ci_li = self._rows(
+            torch.stack([self.state.commit_index, self.state.last_index]), 1
         )   # one fetch for both fields
         return self._nodelog_at(r, msg, int(ci_li[0, r]), int(ci_li[1, r]),
                                 kind, **fields)
@@ -579,16 +619,15 @@ class RaftEngine:
         the host term mirror (vote-log replay, restore)."""
         st = self.state
         self.state = st.replace(
-            term=torch.as_tensor(terms, dtype=st.term.dtype, device=st.device),
-            voted_for=torch.as_tensor(vf, dtype=st.voted_for.dtype,
-                                      device=st.device),
+            term=self.t.place_rows(terms, st.term),
+            voted_for=self.t.place_rows(vf, st.voted_for),
         )
         self.terms = terms
 
     def _attach_votelog(self, path: str) -> None:
         self._votelog = VoteLog(path)
         self._persisted_terms = self.terms.astype(np.int64).copy()
-        self._persisted_vf = self._fetch(self.state.voted_for).astype(np.int64)
+        self._persisted_vf = self._rows(self.state.voted_for).astype(np.int64)
 
     def _persist_votes(self, vf: Optional[np.ndarray] = None) -> None:
         """Durably record every (term, votedFor) row that changed since
@@ -764,7 +803,7 @@ class RaftEngine:
         while pending:
             if self.leader_id != r or not self.alive[r]:
                 break
-            leader_last = int(self._fetch(self.state.last_index)[r])
+            leader_last = int(self._rows(self.state.last_index)[r])
             eff = self._reach(r)
             steps = (
                 self.state.capacity - (leader_last - self.commit_watermark)
@@ -835,7 +874,7 @@ class RaftEngine:
                     )
                     self._truncate_uncommitted_tail(
                         leader_last + done,
-                        self._fetch(self.state.last_index),
+                        self._rows(self.state.last_index),
                     )
                     self._queue = (
                         list(chunk[done:]) + pending[take:] + deferred
@@ -967,10 +1006,10 @@ class RaftEngine:
             return False
         if np.any(self.terms[eff] > self.leader_term):
             return False
-        lasts, matches, mterms, dterms = self._fetch(torch.stack([
+        lasts, matches, mterms, dterms = self._rows(torch.stack([
             self.state.last_index, self.state.match_index,
             self.state.match_term, self.state.term,
-        ]))
+        ]), 1)
         verified = (
             (lasts == leader_last) & (dterms <= self.leader_term)
             & (
@@ -1397,10 +1436,10 @@ class RaftEngine:
                 f"learner {r} is down; promotion requires a live, "
                 "caught-up learner"
             )
-        lasts_matches = self._fetch(torch.stack([
+        lasts_matches = self._rows(torch.stack([
             self.state.last_index, self.state.match_index,
             self.state.match_term,
-        ]))
+        ]), 1)
         leader_last = int(lasts_matches[0, lead])
         eff_match = (
             int(lasts_matches[1, r])
@@ -1672,11 +1711,12 @@ class RaftEngine:
         flush."""
         if self._dev_ring is None or pre is None:
             return
-        from raft_tpu_torch.core.comm import SingleDeviceComm
         from raft_tpu_torch.obs.device import record_replicate_events
 
+        # the transport's comm: on the mesh the pre- and post-states are
+        # gathered, so every rank records the same events
         record_replicate_events(
-            self._dev_ring, SingleDeviceComm(self.cfg.rows), pre,
+            self._dev_ring, self.t.comm, pre,
             self.state, info, r, term, -1, repair=False, ticks=ticks,
         )
         self._flush_device_obs()
@@ -1722,22 +1762,24 @@ class RaftEngine:
                 "crashed server (fail() it first)"
             )
         st = self.state
-        w = st.words_per_entry
-        rows = torch.arange(self.cfg.rows, device=st.device) == r
+        i = self.t.local_row(r)   # None: another rank holds the row
+        if i is not None:
+            w = st.words_per_entry
+            rows = torch.arange(st.term.shape[0], device=st.device) == i
 
-        def zeroed(v, fill=0):
-            return torch.where(rows, fill, v).to(v.dtype)
+            def zeroed(v, fill=0):
+                return torch.where(rows, fill, v).to(v.dtype)
 
-        st.log_term[r].zero_()
-        st.log_payload[:, r * w:(r + 1) * w].zero_()
-        self.state = st.replace(
-            term=zeroed(st.term),
-            voted_for=zeroed(st.voted_for, NO_VOTE),
-            last_index=zeroed(st.last_index),
-            commit_index=zeroed(st.commit_index),
-            match_index=zeroed(st.match_index),
-            match_term=zeroed(st.match_term),
-        )
+            st.log_term[i].zero_()
+            st.log_payload[:, i * w:(i + 1) * w].zero_()
+            self.state = st.replace(
+                term=zeroed(st.term),
+                voted_for=zeroed(st.voted_for, NO_VOTE),
+                last_index=zeroed(st.last_index),
+                commit_index=zeroed(st.commit_index),
+                match_index=zeroed(st.match_index),
+                match_term=zeroed(st.match_term),
+            )
         self.terms[r] = 0
         self.lead_terms[r] = 0
         self.roles[r] = FOLLOWER
@@ -1801,7 +1843,7 @@ class RaftEngine:
         since, else one fresh fetch."""
         if self._lasts_snapshot is not None:
             return self._lasts_snapshot
-        return self._fetch(self.state.last_index)
+        return self._rows(self.state.last_index)
 
     def _floor_attest(self, r: int):
         """(repair_floor, attested term of floor-1) for leader ``r``: the
@@ -1828,7 +1870,7 @@ class RaftEngine:
         """Bump a row's ring-validity floor when a step truncated its log
         (§5.3 conflict): indices above ``pre_last - capacity`` were
         provably never overwritten by a wrapped generation."""
-        post = self._fetch(self.state.last_index)
+        post = self._rows(self.state.last_index)
         shrunk = np.flatnonzero(post < np.asarray(pre_lasts))
         for q in shrunk:
             q = int(q)
@@ -1923,6 +1965,9 @@ class RaftEngine:
                 "partition": lambda p: self.partition(ev.groups),
                 "heal_partition": lambda p: self.heal_partition(),
             }[ev.action](ev.replica)
+        if self.cfg.mirror_check_every:
+            self._mirror_digest_step(t, kind + ("|stale" if stale else ""),
+                                     r)
         # the online plane's flush boundary: the invariant scan over host
         # mirrors, the SLO window evaluation and the status publish. Host
         # work only (no device fetch, no rng); before hp.tick_end, so the
@@ -1986,6 +2031,94 @@ class RaftEngine:
         if self.auditor is not None:
             snap["audit"] = self.auditor.summary()
         return snap
+
+    # ------------------------------------------------ mirror desync guard
+    def _mirror_digest_step(self, t: float, kind: str, r: int) -> None:
+        """Fold one decision (the popped heap event and the whole host
+        mirror it leaves: roles, leader, watermark, terms and the timer
+        state that drives later decisions) into the rolling digest, with
+        the JAX engine's record bytes; every ``mirror_check_every``-th
+        decision, exchange digests across the ranks. A divergence enters
+        the digest at the very next decision, while the ranks' collectives
+        still align."""
+        import zlib
+
+        rec = (
+            f"{t:.9f}|{kind}|{r}|{self.commit_watermark}|"
+            f"{self.leader_id}|{','.join(self.roles)}|"
+            f"{self._timer_gen}|"
+            f"{sorted(self._quorum_contact_at.items())}"
+        ).encode() + self.terms.tobytes() + self._last_heard.tobytes()
+        self._mirror_digest = zlib.crc32(rec, self._mirror_digest)
+        self._mirror_decisions += 1
+        if self._mirror_decisions % self.cfg.mirror_check_every == 0:
+            self._verify_mirror_digest()
+
+    def _verify_mirror_digest(self) -> None:
+        """Exchange the digest with every rank (``transport.
+        exchange_digest``: one int64 a rank on the digest's own gloo
+        group; a no-op in a one-process world) and FAIL-STOP on a
+        mismatch. The exchange runs on a worker thread bounded by
+        ``cfg.mirror_exchange_timeout_s``: a rank that stalled, died or
+        diverged in decision count leaves this rank waiting inside it, and
+        a stall or an exchange error raises ``MirrorDesyncError`` like a
+        mismatch. The stuck daemon thread is abandoned: the raise is a
+        fail-stop and the process is expected to end."""
+        if self.t.processes == 1:
+            return
+        import threading
+        import time
+
+        # write-before-block: a wedged exchange leaves this barrier, its
+        # decision count and tick count as the journal's last line
+        blackbox.mark(
+            "barrier_enter", barrier="mirror_digest",
+            decisions=self._mirror_decisions, tick=self._tick_count,
+            digest=int(self._mirror_digest),
+        )
+        box: dict = {}
+
+        def _exchange() -> None:
+            try:
+                box["digests"] = np.asarray(
+                    self.t.exchange_digest(self._mirror_digest)).ravel()
+            except BaseException as ex:   # surfaced on the engine thread
+                box["error"] = ex
+
+        t0 = time.perf_counter()
+        th = threading.Thread(target=_exchange, daemon=True,
+                              name="mirror-digest-exchange")
+        th.start()
+        th.join(self.cfg.mirror_exchange_timeout_s)
+        if "digests" not in box:
+            err = box.get("error")
+            why = (
+                f"failed ({err!r})" if err is not None else
+                f"did not complete within "
+                f"{self.cfg.mirror_exchange_timeout_s:g}s — a peer "
+                "process stalled, died, or diverged in decision count"
+            )
+            raise MirrorDesyncError(
+                f"mirror digest exchange at decision "
+                f"{self._mirror_decisions} {why}. The mirrored control "
+                "planes can no longer be trusted to issue matching "
+                "collectives — failing stop instead of hanging."
+            )
+        self.mirror_exchanges += 1
+        self.mirror_exchange_s += time.perf_counter() - t0
+        blackbox.mark("barrier_exit", barrier="mirror_digest",
+                      decisions=self._mirror_decisions)
+        digests = box["digests"]
+        if not (digests == digests[0]).all():
+            raise MirrorDesyncError(
+                f"mirrored control planes diverged at decision "
+                f"{self._mirror_decisions}: per-process digests "
+                f"{[int(d) for d in digests]} (this process: "
+                f"{int(self._mirror_digest)}). A decision stream "
+                "divergence means collective launches can no longer be "
+                "trusted to match — failing stop instead of hanging."
+            )
+
     def next_event_time(self) -> Optional[float]:
         """Virtual-clock time of the next pending event, or None."""
         return self._q[0][0] if self._q else None
@@ -2049,8 +2182,8 @@ class RaftEngine:
         or when it heard a live leader within the minimum election
         timeout (leader stickiness). Nothing changes on the device."""
         eff = self._voter_reach(r)
-        lasts, last_terms = self._fetch(torch.stack(
-            [self.state.last_index, last_log_term(self.state)]))
+        lasts, last_terms = self._rows(torch.stack(
+            [self.state.last_index, last_log_term(self.state)]), 1)
         cand_key = (int(last_terms[r]), int(lasts[r]))
         cand_term = int(self.terms[r]) + 1
         stick = self.cfg.follower_timeout[0]
@@ -2087,7 +2220,7 @@ class RaftEngine:
         # durability fence: every replica's (term, votedFor) transition
         # from this vote round reaches disk before the engine acts on the
         # outcome (promotion, timers, further steps) — ckpt.votelog
-        self._persist_votes(self._fetch(self.state.voted_for))
+        self._persist_votes(self._rows(self.state.voted_for))
         if max_term > cand_term:
             # someone is ahead; fall back to follower in the newer term
             self.terms[r] = max_term
@@ -2108,11 +2241,9 @@ class RaftEngine:
                     # slot, same ingest term) keeps it; otherwise it rolls
                     # back
                     cidx, _, _, cterm = self._pending_config
-                    cslot = (cidx - 1) % self.state.capacity
                     holds = bool(
-                        int(self._fetch(self.state.last_index)[r]) >= cidx
-                        and int(self._fetch(
-                            self.state.log_term)[r, cslot]) == cterm
+                        int(self._rows(self.state.last_index)[r]) >= cidx
+                        and int(self._log_terms([cidx], r)[0]) == cterm
                     )
                     if not holds:
                         self._rollback_pending_config(
@@ -2130,10 +2261,8 @@ class RaftEngine:
                     i for i in self._uncommitted if i > self.commit_watermark
                 )
                 if above:
-                    idx = np.asarray(above)
-                    slots = (idx - 1) % self.state.capacity
-                    terms_all = self._fetch(self.state.log_term)[:, slots]
-                    lasts = self._fetch(self.state.last_index)
+                    terms_all = self._log_terms(above)
+                    lasts = self._rows(self.state.last_index)
                     for col, i in enumerate(above):
                         buf_t = self._uncommitted[i][1]
                         held = (
@@ -2246,8 +2375,8 @@ class RaftEngine:
                     # the new voter plane, so the batch ends at the entry;
                     # if the ring cannot take the entry this tick it stays
                     # queued and the step keeps the old mask
-                    last0 = int(self._fetch(self.state.last_index)[r])
-                    commit0 = int(self._fetch(self.state.commit_index)[r])
+                    last0 = int(self._rows(self.state.last_index)[r])
+                    commit0 = int(self._rows(self.state.commit_index)[r])
                     room = self.state.capacity - (last0 - commit0)
                     if room >= qi + 1:
                         take = qi + 1
@@ -2322,7 +2451,7 @@ class RaftEngine:
         # anything it left behind stays queued for a later tick
         ingested = int(info.frontier_len)
         if ingested:
-            last = int(self._fetch(self.state.last_index)[r])  # post-ingest
+            last = int(self._rows(self.state.last_index)[r])  # post-ingest
             base = last - ingested
             chunk = self._queue[:ingested]
             if self._config_seqs or self.spans is not None:
@@ -2417,9 +2546,7 @@ class RaftEngine:
         last = int(lasts[r])
         if last - self.commit_watermark < cap:
             return                        # room exists: no deadlock
-        tail_term = int(
-            self._fetch(self.state.log_term)[r, (last - 1) % cap]
-        )
+        tail_term = int(self._log_terms([last], r)[0])
         if tail_term >= term:
             return                        # current-term tail commits normally
         drop = min(self.cfg.batch_size, last - self.commit_watermark)
@@ -2448,8 +2575,8 @@ class RaftEngine:
         match = self._fetch(match)
         if self.learner.any():
             if self._match_snapshot is None:
-                self._match_snapshot = self._fetch(torch.stack(
-                    [self.state.match_index, self.state.match_term]))
+                self._match_snapshot = self._rows(torch.stack(
+                    [self.state.match_index, self.state.match_term]), 1)
             mi_mt = self._match_snapshot
             lr = self.learner
             match[lr] = np.where(mi_mt[1][lr] == term, mi_mt[0][lr], 0)
@@ -2465,7 +2592,7 @@ class RaftEngine:
         match = self._effective_match(int(self.lead_terms[r]), match)
         others = (self.alive if eff is None else eff) & ~self.slow
         others[r] = False
-        leader_last = int(self._fetch(self.state.last_index)[r])
+        leader_last = int(self._rows(self.state.last_index)[r])
         self._steady = bool((match[others] >= leader_last).all())
 
     def _advance_commit(self, r: int, commit: int) -> None:
@@ -2568,8 +2695,7 @@ class RaftEngine:
         construction), unless the ring never held the range. Under EC the
         rows hold only shards: the rest is reconstructed from k holders
         (the leader first), or left unarchived when fewer than k hold it."""
-        slots_all = (np.arange(lo, hi + 1) - 1) % self.state.capacity
-        lead_terms = self._fetch(self.state.log_term)[leader, slots_all]
+        lead_terms = self._log_terms(np.arange(lo, hi + 1), leader)
         missing = []
         aud = self.auditor
         fed = [] if aud is not None else None
@@ -2592,7 +2718,7 @@ class RaftEngine:
         terms = lead_terms[mlo - lo:mhi - lo + 1]
         try:
             if self.cfg.ec_enabled:
-                commits = self._fetch(self.state.commit_index)
+                commits = self._rows(self.state.commit_index)
                 # a donor's ring must actually HOLD the range: slots below
                 # its ring floor were never written (snapshot installs)
                 donors = [
@@ -2607,12 +2733,13 @@ class RaftEngine:
                 if len(donors) < self.cfg.rs_k:
                     return
                 data = reconstruct(
-                    self.state, self._code, donors[: self.cfg.rs_k], mlo, mhi
+                    self.state, self._code, donors[: self.cfg.rs_k], mlo,
+                    mhi, self.t,
                 )
             else:
                 if int(self._ring_floor[leader]) > mlo:
                     return  # ring never held the range; archive stays short
-                data = log_entries(self.state, leader, mlo, mhi)
+                data = log_entries(self.state, leader, mlo, mhi, self.t)
         except ValueError:
             return
         for idx in missing:
@@ -2666,7 +2793,7 @@ class RaftEngine:
                 break      # archive gap: the replica keeps waiting
             self.state = install_snapshot(
                 self.state, replica, self.store.snapshot(clo, chi),
-                self.leader_term, self.cfg.batch_size, self._code,
+                self.leader_term, self.cfg.batch_size, self._code, self.t,
             )
             if raise_floor:
                 # only [clo, ...] onward is being written; slots below
@@ -2704,7 +2831,7 @@ class RaftEngine:
         repair window reaches it again."""
         cap = self.state.capacity
         match = self._effective_match(int(self.lead_terms[leader]), info.match)
-        leader_last = int(self._fetch(self.state.last_index)[leader])
+        leader_last = int(self._rows(self.state.last_index)[leader])
         # the repair window cannot serve below the leader's ring-validity
         # floor either (truncated-after-wrap slots hold junk)
         horizon = max(leader_last - cap + 1, int(self._ring_floor[leader]))
@@ -2745,7 +2872,7 @@ class RaftEngine:
           across leadership changes is never installed."""
         match = self._effective_match(int(self.lead_terms[leader]), info.match)
         n, k = self.cfg.rows, self.cfg.rs_k
-        leader_last = int(self._fetch(self.state.last_index)[leader])
+        leader_last = int(self._rows(self.state.last_index)[leader])
         hi_rec = self.commit_watermark
         for p in range(n):
             if (p == leader or not self.alive[p] or self.slow[p]
@@ -2760,7 +2887,7 @@ class RaftEngine:
                 # committed entries are immutable, so their shards are
                 # valid even where a leadership change reset their
                 # current-term match
-                commits = self._fetch(self.state.commit_index)
+                commits = self._rows(self.state.commit_index)
                 donors = [
                     q for q in range(n)
                     if self.alive[q] and int(commits[q]) >= hi_rec
@@ -2772,6 +2899,7 @@ class RaftEngine:
                     self.state = heal_replica(
                         self.state, self._code, p, donors[:k], lo, hi_rec,
                         self.leader_term, hi_rec, self.cfg.batch_size,
+                        self.t,
                     )
                     self._lasts_snapshot = None
                     self._match_snapshot = None
@@ -2800,8 +2928,7 @@ class RaftEngine:
                     if self._ec_abandon_lost_suffix(leader, missing):
                         return
                     continue
-                slots = (np.asarray(idx) - 1) % self.state.capacity
-                log_terms = self._fetch(self.state.log_term)[leader, slots]
+                log_terms = self._log_terms(idx, leader)
                 if any(
                     self._uncommitted[i][1] != int(t)
                     for i, t in zip(idx, log_terms)
@@ -2810,13 +2937,15 @@ class RaftEngine:
                 data = np.frombuffer(
                     b"".join(self._uncommitted[i][0] for i in idx), np.uint8
                 ).reshape(len(idx), self.cfg.entry_bytes)
-                shards = encode_device(
-                    self._code, self._dev_bytes(data))[p]
-                self.state = install_entries(
-                    self.state, p, lo, shards, log_terms,
-                    self.leader_term, self.commit_watermark,
-                    self.cfg.batch_size,
-                )
+                if self.t.local_row(p) is not None:
+                    # only the rank holding row p encodes and installs
+                    shards = encode_device(
+                        self._code, self._dev_bytes(data))[p]
+                    self.state = install_entries(
+                        self.state, p, lo, shards, log_terms,
+                        self.leader_term, self.commit_watermark,
+                        self.cfg.batch_size, self.t,
+                    )
                 self._lasts_snapshot = None
                 self._match_snapshot = None
                 self.nodelog(p, f"suffix re-served to {leader_last}")
@@ -2830,8 +2959,8 @@ class RaftEngine:
         the dropped entries whose bytes it still holds. Returns True if a
         truncation happened."""
         cap = self.state.capacity
-        lasts = self._fetch(self.state.last_index)
-        lterms = self._fetch(self.state.log_term)
+        lasts = self._rows(self.state.last_index)
+        lterms = self._rows(self.state.log_term)
         first_lost = None
         for i in sorted(missing):
             slot = (i - 1) % cap
@@ -2866,9 +2995,9 @@ class RaftEngine:
         when fewer than k such holders exist."""
         k = self.cfg.rs_k
         lo, hi = min(indices), max(indices)
-        matches = self._fetch(self.state.match_index)
-        mterms = self._fetch(self.state.match_term)
-        lasts = self._fetch(self.state.last_index)
+        matches = self._rows(self.state.match_index)
+        mterms = self._rows(self.state.match_term)
+        lasts = self._rows(self.state.last_index)
         donors = [
             q for q in range(self.cfg.rows)
             if self.alive[q] and self.connectivity[leader, q]
@@ -2881,9 +3010,9 @@ class RaftEngine:
         ]
         if len(donors) < k:
             return
-        data = reconstruct(self.state, self._code, donors[:k], lo, hi)
-        slots = (np.arange(lo, hi + 1) - 1) % self.state.capacity
-        terms = self._fetch(self.state.log_term)[leader, slots]
+        data = reconstruct(self.state, self._code, donors[:k], lo, hi,
+                           self.t)
+        terms = self._log_terms(np.arange(lo, hi + 1), leader)
         for i in indices:
             self._uncommitted[i] = (
                 data[i - lo].tobytes(), int(terms[i - lo])
@@ -2980,7 +3109,7 @@ class RaftEngine:
         # a ring serves idx only between its floor (below it the slot was
         # never written) and its horizon (below it the slot was
         # overwritten)
-        lasts = self._fetch(self.state.last_index)
+        lasts = self._rows(self.state.last_index)
 
         def serves(q: int) -> bool:
             return idx >= max(
@@ -2989,7 +3118,7 @@ class RaftEngine:
             )
 
         if self.cfg.ec_enabled:
-            commits = self._fetch(self.state.commit_index)
+            commits = self._rows(self.state.commit_index)
             holders = sum(
                 1 for q in range(self.cfg.rows)
                 if self.alive[q] and int(commits[q]) >= idx and serves(q)
@@ -3025,8 +3154,8 @@ class RaftEngine:
                 f"range [{lo}, {hi}] not committed "
                 f"(watermark {self.commit_watermark})"
             )
-        commits = self._fetch(self.state.commit_index)
-        lasts = self._fetch(self.state.last_index)
+        commits = self._rows(self.state.commit_index)
+        lasts = self._rows(self.state.last_index)
         holders = [
             r for r in range(self.cfg.rows)
             if self.alive[r]
@@ -3041,14 +3170,14 @@ class RaftEngine:
                 "compacted history"
             )
         if not self.cfg.ec_enabled:
-            return log_entries(self.state, holders[0], lo, hi)
+            return log_entries(self.state, holders[0], lo, hi, self.t)
         if len(holders) < self.cfg.rs_k:
             raise ValueError(
                 f"need {self.cfg.rs_k} live shard holders to decode, "
                 f"have {len(holders)}"
             )
         return reconstruct(
-            self.state, self._code, holders[: self.cfg.rs_k], lo, hi
+            self.state, self._code, holders[: self.cfg.rs_k], lo, hi, self.t
         )
 
     # ----------------------------------------------------------- persistence
@@ -3095,8 +3224,8 @@ class RaftEngine:
             snap = self.store.snapshot(lo, hi)
         EngineCheckpoint(
             snap=snap,
-            terms=self._fetch(self.state.term).astype(np.int32),
-            voted_for=self._fetch(self.state.voted_for).astype(np.int32),
+            terms=self._rows(self.state.term).astype(np.int32),
+            voted_for=self._rows(self.state.voted_for).astype(np.int32),
             member=self.member.copy(),
             learner=self.learner.copy(),
         ).save(path)
@@ -3147,7 +3276,8 @@ class RaftEngine:
             # verified for term 0: the next real leader's steps re-verify
             # matches in its own term
             eng.state = install_snapshot_all(
-                eng.state, snap, 0, cfg.batch_size, eng._code
+                eng.state, snap, 0, cfg.batch_size, eng._code, cfg.rows,
+                eng.t,
             )
             eng.commit_watermark = snap.last_index
             # rings are seeded only from the snapshot tail that fits one

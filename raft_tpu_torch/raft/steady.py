@@ -43,6 +43,14 @@ inside the captured graph. With the device plane attached
 (``RaftEngine.attach_device_obs``) each launch records its ticks into
 the engine's event ring inside the graph (``replicate_fused(ring=)``),
 and the booking flushes the ring once per launch boundary.
+
+Over the mesh (``transport.MeshTransport``) every rank's mirrored engine
+plans and books the same windows from its identical host state, and
+``replicate_fused`` runs the K-tick loop eagerly over the comm, never as
+a captured graph (its collectives are gloo host calls). The JAX
+``FusedDriver`` refuses fusion when ``jax.process_count() > 1``; the
+port's mesh is R processes by construction, the counterpart of the JAX
+package's one-process mesh, which fuses, so the port fuses there too.
 """
 
 from __future__ import annotations
@@ -170,15 +178,6 @@ class StagingRing:
         return staged_new
 
 
-def _single_process() -> bool:
-    """No multi-process group around this engine (the JAX package's
-    ``jax.process_count() == 1``)."""
-    import torch.distributed as dist
-
-    return (not dist.is_available() or not dist.is_initialized()
-            or dist.get_world_size() == 1)
-
-
 class FusedDriver:
     """Plans, dispatches and books fused K-tick windows for one
     :class:`~raft_tpu_torch.raft.engine.RaftEngine` (see module doc)."""
@@ -193,7 +192,6 @@ class FusedDriver:
         slots = max(4, min(2 * engine.fuse_k, 256))
         self.staging = StagingRing(cfg.batch_size, cfg.shard_words, slots,
                                    device=engine._dev)
-        self._single_process = _single_process()
 
     # ------------------------------------------------------ engine hooks
     def on_submit(self) -> None:
@@ -252,8 +250,6 @@ class FusedDriver:
         e = self.e
         cfg = e.cfg
         if cfg.ec_enabled or cfg.mirror_check_every:
-            return False
-        if not self._single_process:
             return False
         if getattr(e.t, "replicate_fused", None) is None:
             return False

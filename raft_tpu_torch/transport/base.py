@@ -2,8 +2,9 @@
 
 A transport owns where replica state lives and how the collective steps
 run: ``SingleDeviceTransport`` holds every row on one device,
-``MeshTransport`` one row per rank of a ``torch.distributed`` group. The
-multihost placement is not ported yet.
+``MeshTransport`` one row per rank of a ``torch.distributed`` group
+(``"tpu_mesh"``, and ``"multihost"``: the same mesh over the world group,
+one process a failure domain, ``transport.multihost``).
 """
 
 from __future__ import annotations
@@ -74,6 +75,23 @@ def make_transport(cfg: RaftConfig, device=None) -> "Transport":
             "SingleDeviceTransport", cfg.rows,
             f"the group has {ranks}" if ranks else "none is initialised")
         return SingleDeviceTransport(cfg, device=device)
+    if cfg.transport == "multihost":
+        from raft_tpu_torch.transport.multihost import (
+            multihost_transport,
+            world_size,
+        )
+
+        try:
+            # only placement may fall back; a config error from the
+            # transport itself propagates, as for tpu_mesh
+            return multihost_transport(cfg, device=device)
+        except ValueError as e:
+            if world_size() == cfg.rows:
+                raise
+            logger.warning(
+                "multihost placement unavailable (%s); falling back to "
+                "SingleDeviceTransport", e)
+            return SingleDeviceTransport(cfg, device=device)
     raise ValueError(
         f"transport {cfg.transport!r} is not ported yet; the port runs "
-        "transport='single' or 'tpu_mesh'")
+        "transport='single', 'tpu_mesh' or 'multihost'")

@@ -23,7 +23,13 @@ import torch
 
 from raft_tpu_torch.config import RaftConfig
 from raft_tpu_torch.core.comm import SingleDeviceComm
-from raft_tpu_torch.core.state import ReplicaState, init_state
+from raft_tpu_torch.core.state import (
+    ReplicaState,
+    ResidentView,
+    host_copy,
+    init_state,
+    state_to_numpy,
+)
 from raft_tpu_torch.core.step import (
     RepInfo,
     VoteInfo,
@@ -97,10 +103,19 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-class SingleDeviceTransport:
+class SingleDeviceTransport(ResidentView):
+    """The resident layout. As the engine's seam it has the mesh
+    transport's row access (``core.state.ResidentView``: ``fetch_rows``,
+    ``fetch_row``, ``place_rows`` and ``local_row`` are plain host copies
+    and identities here) and a one-process mirror world
+    (``processes`` 1, ``exchange_digest``)."""
+
+    processes = 1
+
     def __init__(self, cfg: RaftConfig, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.comm = _comm_for(cfg.rows)
         self._member_mode = cfg.max_replicas is not None
         reps = (True,) if cfg.ec_enabled else (True, False)
         self._replicate = {
@@ -128,14 +143,16 @@ class SingleDeviceTransport:
         return init_state(self.cfg, device=self.device)
 
     def fetch(self, x):
-        """Host view of a device value."""
-        if isinstance(x, torch.Tensor):
-            return x.cpu().numpy()
-        return np.asarray(x)
+        """Host copy of a device value."""
+        return host_copy(x)
 
-    def local_row(self, row: int) -> int:
-        """Index of replica ``row`` in the state: every row is here."""
-        return row
+    def gather_state(self, state: ReplicaState) -> dict:
+        """The whole cluster's state as numpy leaves."""
+        return state_to_numpy(state)
+
+    def exchange_digest(self, value: int) -> np.ndarray:
+        """The mirror digests of a one-process world: this one."""
+        return np.array([int(value)], np.int64)
 
     def commit_index(self, state: ReplicaState, row: int) -> int:
         return int(state.commit_index[row])

@@ -408,9 +408,17 @@ DEFERRED_CONFIGS = [
 @pytest.mark.parametrize("over,item", DEFERRED_CONFIGS,
                          ids=[c[1] for c in DEFERRED_CONFIGS])
 def test_deferred_config_raises(over, item):
-    cfg = TConfig(**{**KW, **over})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        TEngine(cfg, transports(KW)[1])
+    """A configuration once deferred to its ROADMAP item now runs:
+    ``mirror_check_every`` (A15, the mirror digest) folds every decision
+    into the JAX engine's rolling digest, record for record, and in a
+    one-process world the exchange is a no-op in both engines."""
+    pair = Pair(seed=3, **over)
+    pair.until_leader()
+    pair.until_committed(pair.submit(payloads(12, 4))[-1])
+    pair.run_for(12 * pair.t.cfg.heartbeat_period)
+    assert pair.t._mirror_decisions == pair.j._mirror_decisions > 8
+    assert pair.t._mirror_digest == pair.j._mirror_digest
+    assert pair.t.mirror_exchanges == 0
 
 
 def test_engine_without_transport_runs_on_cuda():

@@ -33,6 +33,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import raft_tpu_torch.ec, raft_tpu_torch.ec.gf, raft_tpu_torch.ec.rs\n"
         "import raft_tpu_torch.ec.kernels, raft_tpu_torch.ec.reconstruct\n"
         "import raft_tpu_torch.core.step_mesh, raft_tpu_torch.transport.mesh\n"
+        "import raft_tpu_torch.transport.multihost\n"
         "import raft_tpu_torch.transport.launch\n"
         "import raft_tpu_torch.raft, raft_tpu_torch.raft.engine\n"
         "import raft_tpu_torch.raft.ledger, raft_tpu_torch.storm\n"
@@ -98,9 +99,10 @@ def test_transport_without_device_needs_cuda():
 
 
 def test_make_transport_single_only(caplog):
-    """``transport="single"`` is the resident layout; ``"tpu_mesh"`` is a
-    ``MeshTransport`` inside a process group of ``cfg.rows`` ranks and,
-    outside one, the resident layout after a logged warning."""
+    """``transport="single"`` is the resident layout; ``"tpu_mesh"`` (and
+    ``"multihost"``) is a ``MeshTransport`` inside a process group of
+    ``cfg.rows`` ranks and, outside one, the resident layout after a
+    logged warning; any other name is refused."""
     from raft_tpu_torch import MeshTransport, RaftConfig, make_transport
     from raft_tpu_torch.transport.launch import run_ranks
     from tests._mesh_ranks import transport_kind
@@ -115,5 +117,11 @@ def test_make_transport_single_only(caplog):
     assert not isinstance(tr, MeshTransport)
     assert tr.init().log_term.shape == (3, 256)
     assert "falling back to SingleDeviceTransport" in caplog.text
+    caplog.clear()
+    with caplog.at_level(logging.WARNING):
+        tr = make_transport(RaftConfig(**kw, transport="multihost"),
+                            device="cpu")
+    assert not isinstance(tr, MeshTransport)
+    assert "multihost placement unavailable" in caplog.text
     with pytest.raises(ValueError, match="not ported"):
-        make_transport(RaftConfig(**kw, transport="multihost"), device="cpu")
+        make_transport(RaftConfig(**kw, transport="loopback"), device="cpu")

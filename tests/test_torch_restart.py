@@ -8,8 +8,8 @@ the same arrays, each restored engine equals the other event for event
 stream), and a checkpoint written by either engine restores the other
 (the restored pair then runs on from one file). 3 replicas with 16-byte
 entries, or RS(5,3) with 12-byte entries; B = 4, C = 32 or 64. The two
-mesh restarts of the JAX tests wait for the engine over the mesh
-(ROADMAP A15).
+mesh restarts of the JAX tests run on the port's mirrored ranks in
+tests/test_torch_engine_mesh.py.
 """
 
 import numpy as np
