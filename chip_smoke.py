@@ -749,7 +749,13 @@ def phase_kernels(cfg, dev, n_random=200):
             (5, 110, [(C - B + 77, B, [1, 1, 0, 1, 1], "random"),
                       (5, 500, [1, 1, 1, 1, 1], "conflict2"),
                       (C - 40, B, [1, 0, 1, 1, 1], "same_term"),
-                      (99, 1, [1, 1, 1, 1, 1], "conflict")])):
+                      (99, 1, [1, 1, 1, 1, 1], "conflict")]),
+            # one row, as a mesh rank writes its local row: the 2-D
+            # mesh's slices, 32 words (the north star) and 11 (config 3)
+            *((1, m, [(C - B + 77, B, [1], "random"),
+                      (5, 500, [0], "random"),
+                      (C - 40, B, [1], "same_term"),
+                      (99, 1, [1], "random")]) for m in (32, 11))):
         for s, count, acc, kind in table:
             note("K1", k1_case(dev, rng, L_, M_, C, B, s, count, acc, kind))
             k1_rows[f"M={M_}"] = k1_rows.get(f"M={M_}", 0) + 1
@@ -6564,8 +6570,9 @@ def mesh_vs_resident(cfg, dev, n, rng):
 
 def phase_mesh_kernels(cfg, ecfg, dev, n_random=8):
     """K2·mesh, K3·mesh and K4·mesh of every row against their plain
-    versions (the north star, R = 3, and config 3, R = 5 with the EC
-    quorum), then the randomized schedule against the resident kernels."""
+    versions (the north star, R = 3; config 3, R = 5 with the EC quorum;
+    and config 3's 2-D slice, 11 words a row), then the randomized
+    schedule against the resident kernels."""
     errs = {"K2·mesh": 0, "K3·mesh": 0, "K4·mesh": 0}
     cases = dict.fromkeys(errs, 0)
 
@@ -6576,12 +6583,16 @@ def phase_mesh_kernels(cfg, ecfg, dev, n_random=8):
     rng = np.random.default_rng(SEED + 20)
     mesh_cases(cfg, dev, rng, note, n_random)
     mesh_cases(ecfg, dev, rng, note, n_random // 2)
-    # K4·mesh's bookkeeping cases at 256-, 88- and 12-byte rows: 16-byte
-    # vectors, word pairs, single words
+    # config 3's 2-D slice: 5 rows of 11 words under the EC quorum (a
+    # 44-byte shard), the scalar instantiations at an odd word count
     import dataclasses
 
+    slice11 = dataclasses.replace(ecfg, entry_bytes=132)
+    mesh_cases(slice11, dev, rng, note, n_random // 4)
+    # K4·mesh's bookkeeping cases at 256-, 88-, 44- and 12-byte rows:
+    # 16-byte vectors, word pairs, 11 single words, 3 single words
     turnover = {f"W={c.shard_words}": mesh_turnover_cases(c, dev, rng, note)
-                for c in (cfg, ecfg, dataclasses.replace(
+                for c in (cfg, ecfg, slice11, dataclasses.replace(
                     cfg, entry_bytes=12, batch_size=128, log_capacity=512))}
     sched = {"north_star": mesh_vs_resident(cfg, dev, 160, rng),
              "config_3": mesh_vs_resident(ecfg, dev, 80, rng)}
@@ -6614,17 +6625,24 @@ def row_digest(st, r, info, dispatch, local):
     ``local``: ``st`` is a rank's own row."""
     W = st.words_per_entry
     i = 0 if local else r
-    lanes = st.log_payload[:, i * W:(i + 1) * W].contiguous()
+    return {**part_digest(st, i, st.log_payload[:, i * W:(i + 1) * W]),
+            "info": None if info is None else {
+                f: getattr(info, f).cpu().tolist() for f in info._fields},
+            "dispatch": dispatch}
+
+
+def part_digest(st, i, lanes):
+    """Row ``i`` of ``st``: its six scalars and the SHA-256 of its term
+    ring and of ``lanes`` (the row's payload block, or a mesh rank's
+    slice of it)."""
     return {
         "vec": [int(getattr(st, f)[i]) for f in (
             "term", "voted_for", "last_index", "commit_index",
             "match_index", "match_term")],
         "terms": hashlib.sha256(st.log_term[i].cpu().numpy()
                                 .tobytes()).hexdigest(),
-        "payload": hashlib.sha256(lanes.cpu().numpy().tobytes()).hexdigest(),
-        "info": None if info is None else {
-            f: getattr(info, f).cpu().tolist() for f in info._fields},
-        "dispatch": dispatch,
+        "payload": hashlib.sha256(lanes.contiguous().cpu().numpy()
+                                  .tobytes()).hexdigest(),
     }
 
 
@@ -7155,6 +7173,12 @@ ENGINE_MESH_PLANS = {
 }
 ENGINE_MESH_CHECK_EVERY = 64       # mirror_check_every of the mesh engines
 ENGINE_MESH_EC_PLAN = dict(ticks=16, degraded=8, after=4096)
+#: the 2-D mesh's schedules (payload_shards = 2): the north star's, and
+#: config 3's (a cut of the 1-D plans' depth, not of any width)
+ENGINE_MESH2D_PLAN = dict(capacity=1 << 15, ticks=32, profiled=0, rings=2,
+                          after=4096, lap_ticks=4)
+ENGINE_MESH2D_EC_PLAN = dict(ticks=8, degraded=4, after=1024)
+MESH2D_SHARDS = 2
 ENGINE_MESH_DEV_RING = 256         # the card-vs-CPU run's event ring
 
 
@@ -7228,17 +7252,25 @@ def rows_read_back(e, inp, lo, hi, what):
 
 
 def state_rows(e):
-    """Digest of every row this process holds (on the mesh its own)."""
-    n = e.state.term.shape[0]
-    rows = range(e.cfg.rows) if n == e.cfg.rows else [e.t.rank]
-    return {str(r): row_digest(e.state, r, None, None, n != e.cfg.rows)
-            for r in rows}
+    """Digest of every part of the state this process holds, keyed by
+    mesh rank: on the mesh its own (row ``e.t.row``, its lane slice); on
+    the resident layout every rank's part of the whole (rank ``g`` of
+    ``rows * payload_shards``: row ``g // P`` with lane block ``g``)."""
+    P = e.cfg.payload_shards
+    st = e.state
+    if st.term.shape[0] != e.cfg.rows:
+        return {str(e.t.rank): part_digest(st, 0, st.log_payload)}
+    w = e.cfg.shard_words // P
+    return {str(g): part_digest(st, g // P,
+                                st.log_payload[:, g * w:(g + 1) * w])
+            for g in range(e.cfg.rows * P)}
 
 
 class TickMeter:
     """Host ms of every leader tick (ended by a synchronize, so its device
-    work is inside), with the collectives and gathering fetches it made
-    and their host seconds."""
+    work is inside), with the collectives (over the pshard column, and on
+    the 2-D mesh over the row group) and gathering fetches it made and
+    their host seconds."""
 
     def __init__(self, e):
         import torch
@@ -7252,6 +7284,8 @@ class TickMeter:
                 return run(r)
             c0 = getattr(comm, "collectives", 0)
             cs0 = getattr(comm, "collective_s", 0.0)
+            r0 = getattr(comm, "row_collectives", 0)
+            rs0 = getattr(comm, "row_collective_s", 0.0)
             f0 = getattr(e.t, "fetches", 0)
             fs0 = getattr(e.t, "fetch_s", 0.0)
             t0 = time.perf_counter()
@@ -7263,7 +7297,9 @@ class TickMeter:
                 getattr(comm, "collectives", 0) - c0,
                 getattr(comm, "collective_s", 0.0) - cs0,
                 getattr(e.t, "fetches", 0) - f0,
-                getattr(e.t, "fetch_s", 0.0) - fs0))
+                getattr(e.t, "fetch_s", 0.0) - fs0,
+                getattr(comm, "row_collectives", 0) - r0,
+                getattr(comm, "row_collective_s", 0.0) - rs0))
             return out
 
         e._fire_leader_tick = timed
@@ -7271,8 +7307,8 @@ class TickMeter:
     def summary(self):
         if not self.rows:
             return None
-        ms, col, col_s, fet, fet_s = (np.array(x, float)
-                                      for x in zip(*self.rows))
+        ms, col, col_s, fet, fet_s, row, row_s = (
+            np.array(x, float) for x in zip(*self.rows))
         return {"leader_ticks": len(ms),
                 "ms_per_tick_p50": float(np.percentile(ms, 50)),
                 "ms_per_tick_p99": float(np.percentile(ms, 99)),
@@ -7282,7 +7318,10 @@ class TickMeter:
                                                 / max(col.sum(), 1)),
                 "gathering_fetches_per_tick": float(fet.mean()),
                 "host_ms_per_gathering_fetch": float(fet_s.sum() * 1e3
-                                                     / max(fet.sum(), 1))}
+                                                     / max(fet.sum(), 1)),
+                "row_collectives_per_tick": float(row.mean()),
+                "host_ms_per_row_collective": float(row_s.sum() * 1e3
+                                                    / max(row.sum(), 1))}
 
 
 def caught_up(e, row, what, beats=64):
@@ -7771,6 +7810,200 @@ def phase_mesh_engine_card_equals_cpu(dev):
            "launches": {k: sum(res["launches"][k] for res in card)
                         for k in card[0]["launches"]},
            "card_wall_s": runs[str(dev)][1], "cpu_wall_s": runs["cpu"][1]}
+    emit(out)
+    return out
+
+
+# ----------------------------- 17. the 2-D payload mesh (A15b, first part)
+def engine_mesh2d_checks(ranks, ref, what, keys, kernels, dev):
+    """The checks of a 2-D engine phase: every rank's ``keys`` equal to
+    the single-device engine's on the same schedule, its slice equal to
+    its part of that engine's row, mirror exchanges made with no desync,
+    each of ``kernels`` launched on every rank and no resident kernel."""
+    for g, res in enumerate(ranks):
+        for k in keys:
+            check(res[k] == ref[k], f"{what} rank {g}: {k} "
+                                    f"{res[k]} != {ref[k]}")
+        check(res["rows"][str(g)] == ref["rows"][str(g)],
+              f"{what}: rank {g}'s slice differs from its part of the "
+              "single-device engine's row")
+        for k in kernels:
+            check(res["launches"][k] > 0 or dev.type != "cuda",
+                  f"{what} rank {g}: {k} never launched")
+        check(res["launches"]["K2"] == res["launches"]["K3"]
+              == res["launches"]["K4"] == 0,
+              f"{what} rank {g}: a resident kernel ran on the mesh")
+
+
+def phase_engine_mesh2d_path(dev):
+    """The north star on the 2-D mesh: 3 replicas x ``payload_shards`` 2
+    = 6 gloo ranks sharing ``dev`` (256-byte entries, 32 words a rank, B
+    = 1024, C = 32 768, the mirror digest every 64 decisions): an
+    election, 32 leader ticks (K1, then K2·mesh on each rank's slice), a
+    2-ring ``submit_pipelined`` (K4·mesh), a failover, a follower lapped
+    by a dead-row ring (K3·mesh) and rejoined by the snapshot stream, a
+    checkpoint and restore and 4 096 more. Every rank's read-backs (full
+    width, stitched over its row group) and apply stream against the
+    input's SHA-256, its lines equal across the six and to the
+    single-device engine's, its slice equal to its part of that engine's
+    row, mirror exchanges with no desync."""
+    import tempfile
+
+    from raft_tpu_torch.transport.launch import run_ranks
+
+    t_phase = time.perf_counter()
+    plan = ENGINE_MESH2D_PLAN
+    cfg = engine_mesh_config(plan["capacity"], payload_shards=MESH2D_SHARDS)
+    world = cfg.rows * MESH2D_SHARDS
+    t0 = time.perf_counter()
+    ranks = run_ranks(engine_mesh_rank_main, world,
+                      (cfg, str(dev), plan, False), timeout=MESH_DEADLINE_S)
+    ranks_wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="mesh2d_ref_") as tmp:
+        ref = engine_mesh_run(cfg, dev, plan, tmp)
+    engine_mesh2d_checks(
+        ranks, ref, "engine mesh2d",
+        ("lines_sha256", "lines", "entries", "sha256_input", "apply",
+         "flights", "first_leader", "failover", "lapped"),
+        ("K1", "K2·mesh", "K3·mesh", "K4·mesh"), dev)
+    for g, res in enumerate(ranks):
+        check([x["sha256"] for x in res["read_backs"]]
+              == [x["sha256"] for x in ref["read_backs"]],
+              f"engine mesh2d rank {g}: read-backs differ")
+        check(res["mirror"]["exchanges"] > 0,
+              f"engine mesh2d rank {g}: no mirror digest exchange")
+    r0 = ranks[0]
+    out = {"phase": "engine_mesh2d_path", "ranks": world,
+           "replicas": cfg.rows, "payload_shards": MESH2D_SHARDS,
+           "words_per_rank": cfg.shard_words // MESH2D_SHARDS,
+           "backend": "gloo, all six ranks on one card (six processes "
+                      "time-sharing it, not a multi-card figure)",
+           "capacity": cfg.log_capacity, "batch": cfg.batch_size,
+           "entry_bytes": cfg.entry_bytes,
+           "mirror_check_every": cfg.mirror_check_every,
+           "entries": r0["entries"], "sha256_input": r0["sha256_input"],
+           "apply": r0["apply"], "read_backs": len(r0["read_backs"]),
+           "lines": r0["lines"], "flights": r0["flights"],
+           "failover": r0["failover"], "lapped": r0["lapped"],
+           "ticks_per_rank": [res["ticks"] for res in ranks],
+           "ticks_note": "leader ticks; collectives_per_tick are the "
+                         "replica (pshard column) collectives, "
+                         "row_collectives_per_tick the row-group gathers; "
+                         "host ms a collective includes waiting for the "
+                         "slowest rank",
+           "collective_alone_ms": [res["collective_alone_ms"]
+                                   for res in ranks],
+           "ticks_entries_per_s_wall": [res["ticks_entries_per_s_wall"]
+                                        for res in ranks],
+           "chunk_per_rank": [res["chunk"] for res in ranks],
+           "mirror_per_rank": [res["mirror"] for res in ranks],
+           "checkpoint_per_rank": [res["checkpoint"] for res in ranks],
+           "gathering_fetches_per_rank": [res["fetches"] for res in ranks],
+           "single_device_ref": {"ticks": ref["ticks"],
+                                 "ticks_entries_per_s_wall":
+                                 ref["ticks_entries_per_s_wall"],
+                                 "chunk": ref["chunk"]},
+           "launches_per_rank": [res["launches"] for res in ranks],
+           "launches": {k: sum(res["launches"][k] for res in ranks)
+                        for k in r0["launches"]},
+           "ranks_wall_s": ranks_wall,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+def phase_engine_mesh2d_ec_path(dev):
+    """BASELINE config 3 on the 2-D mesh: RS(5,3), 264-byte entries (an
+    88-byte shard, 22 words, 11 a rank), B = 1024, C = 32 768, 5 replicas
+    x 2 = 10 gloo ranks sharing ``dev``: K7-fed ticks (each rank cuts
+    lane block g of the fold), a dead data row, a decoding read through
+    K6 from the donor block stitched over the row groups, the heal (K6
+    decode and encode, each rank installing its byte slice), a restore
+    and 1 024 more; every window exact, every rank's lines and slice
+    equal to the single-device EC engine's."""
+    import tempfile
+
+    from raft_tpu_torch.transport.launch import run_ranks
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(ec_engine_config(1 << 15),
+                              transport="tpu_mesh",
+                              mirror_check_every=ENGINE_MESH_CHECK_EVERY,
+                              payload_shards=MESH2D_SHARDS)
+    world = cfg.rows * MESH2D_SHARDS
+    plan = ENGINE_MESH2D_EC_PLAN
+    t0 = time.perf_counter()
+    ranks = run_ranks(engine_mesh_ec_rank_main, world,
+                      (cfg, str(dev), plan), timeout=MESH_DEADLINE_S)
+    ranks_wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="mesh2d_ec_ref_") as tmp:
+        ref = engine_mesh_ec_run(cfg, dev, plan, tmp)
+    engine_mesh2d_checks(
+        ranks, ref, "engine mesh2d ec",
+        ("lines_sha256", "entries", "decoding_read", "healed"),
+        ("K7", "K6 encode", "K6 decode", "K2·mesh"), dev)
+    out = {"phase": "engine_mesh2d_ec_path", "ranks": world,
+           "replicas": cfg.rows, "payload_shards": MESH2D_SHARDS,
+           "words_per_rank": cfg.shard_words // MESH2D_SHARDS,
+           "backend": "gloo, all ten ranks on one card (ten processes "
+                      "time-sharing it)",
+           "entries": ranks[0]["entries"],
+           "decoding_read": ranks[0]["decoding_read"],
+           "healed": ranks[0]["healed"], "lines": ranks[0]["lines"],
+           "launches_per_rank": [res["launches"] for res in ranks],
+           "launches": {k: sum(res["launches"][k] for res in ranks)
+                        for k in ranks[0]["launches"]},
+           "ranks_wall_s": ranks_wall,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+def phase_mesh2d_card_equals_cpu(dev):
+    """``engine_mesh_run`` at the reduced plan (C = 4 096) on the 2-D
+    mesh, with a flight recorder and a 256-record device event ring: 6
+    ranks on the card against 6 ranks on the CPU (the CPU's flight gate
+    opened), each rank's lines, slice, packed ring and read-backs
+    equal."""
+    from raft_tpu_torch.transport.launch import run_ranks
+
+    t_phase = time.perf_counter()
+    plan = ENGINE_MESH_PLANS["reduced"]
+    cfg = engine_mesh_config(plan["capacity"], payload_shards=MESH2D_SHARDS)
+    world = cfg.rows * MESH2D_SHARDS
+    runs = {}
+    for where in (str(dev), "cpu"):
+        t0 = time.perf_counter()
+        runs[where] = (run_ranks(
+            engine_mesh_rank_main, world,
+            (cfg, where, plan, False, ENGINE_MESH_DEV_RING),
+            timeout=MESH_DEADLINE_S), time.perf_counter() - t0)
+    card, cpu = runs[str(dev)][0], runs["cpu"][0]
+    for g in range(world):
+        a, b = card[g], cpu[g]
+        for k in ("lines_sha256", "rows", "apply", "flights",
+                  "device_lines", "host_lines"):
+            check(a[k] == b[k], f"mesh2d card vs cpu rank {g}: {k}")
+        check(np.array_equal(a["packed_ring"], b["packed_ring"]),
+              f"mesh2d card vs cpu rank {g}: packed rings differ")
+        check([x["sha256"] for x in a["read_backs"]]
+              == [x["sha256"] for x in b["read_backs"]],
+              f"mesh2d card vs cpu rank {g}: read-backs differ")
+        check(a["device_lines"] == a["host_lines"] and a["device_lines"],
+              f"mesh2d card rank {g}: the device ring's lines are not the "
+              "host's")
+    check(all(np.array_equal(card[0]["packed_ring"], c["packed_ring"])
+              for c in card), "mesh2d card: the ranks' packed rings differ")
+    out = {"phase": "mesh2d_card_equals_cpu", "ranks": world,
+           "payload_shards": MESH2D_SHARDS,
+           "capacity": cfg.log_capacity, "entries": card[0]["entries"],
+           "device_ring": ENGINE_MESH_DEV_RING,
+           "device_lines": len(card[0]["device_lines"]),
+           "lines": card[0]["lines"], "flights": card[0]["flights"],
+           "launches": {k: sum(res["launches"][k] for res in card)
+                        for k in card[0]["launches"]},
+           "card_wall_s": runs[str(dev)][1], "cpu_wall_s": runs["cpu"][1],
+           "phase_s": time.perf_counter() - t_phase}
     emit(out)
     return out
 
@@ -8544,16 +8777,23 @@ def phase_engine_device_obs_path(dev):
 
 
 #: phases ``--only=a,b`` runs alone (after the card and the build): the
-#: mesh engine's, and the resident main paths whose host code the mesh
-#: engine's seam runs through (for comparing two trees in turns)
-ONLY_PHASES = {"main_path": lambda dev: phase_main_path(ns_config(), dev),
+#: kernels against their plain versions, the mesh engine's (1-D and
+#: 2-D), and the resident main paths whose host code the mesh engine's
+#: seam runs through (for comparing two trees in turns)
+ONLY_PHASES = {"kernels": lambda dev: phase_kernels(ns_config(), dev),
+               "mesh_kernels": lambda dev: phase_mesh_kernels(
+                   ns_config(), ec_config(), dev),
+               "main_path": lambda dev: phase_main_path(ns_config(), dev),
                "engine_main_path":
                lambda dev: phase_engine_main_path(ns_config(), dev),
                "kv_main_path": phase_kv_main_path,
                "engine_mesh_path": phase_engine_mesh_path,
                "engine_mesh_ec_path": phase_engine_mesh_ec_path,
                "mesh_engine_card_equals_cpu":
-               phase_mesh_engine_card_equals_cpu}
+               phase_mesh_engine_card_equals_cpu,
+               "engine_mesh2d_path": phase_engine_mesh2d_path,
+               "engine_mesh2d_ec_path": phase_engine_mesh2d_ec_path,
+               "mesh2d_card_equals_cpu": phase_mesh2d_card_equals_cpu}
 
 
 def main() -> int:
@@ -8613,7 +8853,11 @@ def main() -> int:
     engine_mesh = {"engine_mesh": phase_engine_mesh_path(dev),
                    "engine_mesh_ec": phase_engine_mesh_ec_path(dev),
                    "mesh_engine_card_equals_cpu":
-                   phase_mesh_engine_card_equals_cpu(dev)}
+                   phase_mesh_engine_card_equals_cpu(dev),
+                   "engine_mesh2d": phase_engine_mesh2d_path(dev),
+                   "engine_mesh2d_ec": phase_engine_mesh2d_ec_path(dev),
+                   "mesh2d_card_equals_cpu":
+                   phase_mesh2d_card_equals_cpu(dev)}
     mesh_timing = phase_mesh_timing(cfg, dev, card_line, mesh_kernel_times,
                                     mesh_main)
     kernels = []

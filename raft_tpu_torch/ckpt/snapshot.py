@@ -386,8 +386,9 @@ def install_snapshot(
 
     Only the ring-fitting tail is materialized (``_ring_tail``). ``code``
     re-encodes the replica's RS shard row when the cluster is
-    erasure-coded. On the mesh (``view``) only the rank holding the row
-    writes (no collective); the others return their state unchanged.
+    erasure-coded. On the mesh (``view``) only the ranks holding the row
+    write (no collective; on the 2-D mesh each its byte slice,
+    ``install_entries``); the others return their state unchanged.
     """
     if view is not None and view.local_row(replica) is None:
         return state

@@ -7,8 +7,9 @@ this interface — ``replica_ids``, ``local``, ``all_gather``,
 - ``SingleDeviceComm`` (``comm.py:87``): all R rows resident on one
   device (L = R); the "collectives" are plain indexing.
 - ``MeshComm`` (``comm.py:112``): one replica row per rank of a
-  ``torch.distributed`` process group (L = 1, the rank is the row); the
-  collectives are ``dist.all_gather`` over that group.
+  ``torch.distributed`` process group (L = 1); on the 2-D mesh one lane
+  slice of a row per rank, the replica collectives running over the
+  ranks that hold the same slice of every row.
 
 Indices may be Python ints or 0-d device tensors; a tensor index goes
 through ``index_select``, which never reads the value back to the host.
@@ -78,26 +79,40 @@ class SingleDeviceComm:
 class MeshComm:
     """One replica row per rank of a ``torch.distributed`` group (L = 1).
 
-    Each collective is one list-form ``dist.all_gather`` on ``group`` (the
-    default group when None), which must be a gloo group of
-    ``n_replicas`` ranks: the mesh has run only so, R processes on the CPU
-    or sharing one GPU. A CUDA operand is staged through a host copy and
-    the result put back on the operand's device, since gloo's collectives
+    The group (the default group when None) must be a gloo group of
+    ``n_replicas * payload_shards`` ranks: the mesh has run only so, on
+    the CPU or with every rank sharing one GPU. Rank ``g`` of the group
+    holds replica row ``g // P`` and lane slice ``g % P`` of it
+    (``P = payload_shards``, the JAX package's ``(replica, pshard)``
+    mesh). The replica collectives (``all_gather``, ``broadcast_host``,
+    ``select_row``, ``leader_cols``) run over the rank's pshard
+    *column*, the ranks ``{r*P + p : r}``, whose subgroup rank is the
+    replica row (``rank``): the counterpart of JAX's ``MeshComm(rows,
+    "replica")`` under a 2-D ``shard_map``. ``all_gather_lanes`` runs
+    over the rank's *row*, ``{r*P + q : q}``, for reads that reassemble a
+    row's lanes. At P = 1 the column is the group itself and there is no
+    row group: the groups and collectives are those of the 1-D mesh.
+
+    Each collective is one list-form ``dist.all_gather`` (or one
+    broadcast). A CUDA operand is staged through a host copy and the
+    result put back on the operand's device, since gloo's collectives
     move host memory. Bool operands travel as uint8. Every rank must make
     the same calls in the same order, as the mirrored programs of the
     transport do. The mirror digest exchange (``exchange_int64``) runs
-    on a gloo group of its own, with ``exchange_timeout_s`` as its
-    timeout."""
+    over every rank of the group on a gloo group of its own, with
+    ``exchange_timeout_s`` as its timeout."""
 
     def __init__(self, n_replicas: int, group=None,
-                 exchange_timeout_s: float = 60.0):
+                 exchange_timeout_s: float = 60.0, payload_shards: int = 1):
         import torch.distributed as dist
 
+        P = payload_shards
         size = dist.get_world_size(group)
-        if size != n_replicas:
+        if size != n_replicas * P:
             raise ValueError(
-                f"MeshComm over {n_replicas} replicas needs a process "
-                f"group of {n_replicas} ranks, got {size}")
+                f"MeshComm over {n_replicas} replicas x {P} payload shards "
+                f"needs a process group of {n_replicas * P} ranks, got "
+                f"{size}")
         backend = dist.get_backend(group)
         if backend != "gloo":
             raise ValueError(
@@ -105,18 +120,36 @@ class MeshComm:
                 "device backend (NCCL, one GPU per rank) is not tried yet "
                 "(ROADMAP A15b)")
         self.n_replicas = n_replicas
-        self.group = group
-        self.rank = dist.get_rank(group)
+        self.payload_shards = P
+        self.group_rank = dist.get_rank(group)
+        self.rank = self.group_rank // P          # the replica row
+        self.pshard = self.group_rank % P         # the lane slice
         self.collectives = 0
         self.collective_s = 0.0
-        #   data-plane collectives made and the host seconds spent in them
-        #   (the mesh engine's per-tick communication cost)
-        # The mirror digest rides a gloo group of its own, so an exchange
-        # never interleaves with a data-plane collective; its timeout is
-        # the exchange bound. Creating it is itself a collective of the
-        # whole world, made here, where every rank builds its comm.
+        #   replica (column) collectives made and the host seconds spent
+        #   in them (the mesh engine's per-tick communication cost)
+        self.row_collectives = 0
+        self.row_collective_s = 0.0
+        #   the same for the row-group gathers (2-D mesh only)
         ranks = None if group is None else dist.get_process_group_ranks(
             group)
+        world = list(range(size)) if ranks is None else list(ranks)
+        # Every rank creates every group, in one order, before any
+        # collective: ``new_group`` is a collective of the whole world.
+        # At P = 1 the column is ``group`` itself and no row group exists.
+        # The mirror digest rides a gloo group of its own, so an exchange
+        # never interleaves with a data-plane collective; its timeout is
+        # the exchange bound.
+        self.group = group
+        self._row_group = None
+        if P > 1:
+            cols = [dist.new_group(ranks=world[p::P], backend="gloo")
+                    for p in range(P)]
+            rows = [dist.new_group(ranks=world[r * P:(r + 1) * P],
+                                   backend="gloo")
+                    for r in range(n_replicas)]
+            self.group = cols[self.pshard]
+            self._row_group = rows[self.rank]
         self._digest_group = dist.new_group(
             ranks=ranks, backend="gloo",
             timeout=datetime.timedelta(seconds=exchange_timeout_s))
@@ -148,6 +181,25 @@ class MeshComm:
         there: one copy of the operand to the host, none back."""
         return self.all_gather(x.cpu())
 
+    def all_gather_lanes(self, x: torch.Tensor) -> torch.Tensor:
+        """Every lane slice of this rank's row on the host: [..., w] per
+        rank -> [..., P*w], slice p at lanes [p*w, (p+1)*w) (one gather
+        over the row group; ``x`` on the host at P = 1)."""
+        import torch.distributed as dist
+
+        if self._row_group is None:
+            return x.detach().cpu()
+        src = x.detach().to("cpu", copy=True).contiguous()
+        dtype = src.dtype
+        if dtype == torch.bool:
+            src = src.to(torch.uint8)
+        parts = [torch.empty_like(src) for _ in range(self.payload_shards)]
+        t0 = time.perf_counter()
+        dist.all_gather(parts, src, group=self._row_group)
+        self.row_collective_s += time.perf_counter() - t0
+        self.row_collectives += 1
+        return torch.cat(parts, -1).to(dtype)
+
     def broadcast_host(self, x: torch.Tensor, row: int) -> torch.Tensor:
         """Rank ``row``'s ``x`` on the host of every rank: every rank
         passes its own ``x`` of the same shape and dtype (the other
@@ -167,12 +219,14 @@ class MeshComm:
         return buf.to(dtype)
 
     def exchange_int64(self, value: int) -> np.ndarray:
-        """One int64 from every rank, in rank order, over the digest
-        group (the mirror digest exchange; ``RaftEngine``)."""
+        """One int64 from every rank of the group (all R*P), in rank
+        order, over the digest group (the mirror digest exchange;
+        ``RaftEngine``)."""
         import torch.distributed as dist
 
         mine = torch.tensor([int(value)], dtype=torch.int64)
-        parts = [torch.empty_like(mine) for _ in range(self.n_replicas)]
+        parts = [torch.empty_like(mine)
+                 for _ in range(self.n_replicas * self.payload_shards)]
         dist.all_gather(parts, mine, group=self._digest_group)
         return torch.cat(parts).numpy()
 

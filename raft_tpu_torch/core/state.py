@@ -11,8 +11,9 @@ across with ``state_from_numpy`` / ``state_to_numpy``:
   words, packed little-endian exactly as numpy's ``view(np.int32)``.
 
 On the mesh transport each rank holds one row of that layout (R = 1:
-vectors [1], ``log_term`` [1, C], ``log_payload`` [C, W]); ``cut_row`` and
-``stack_rows`` carry between the two. The functions here that read or
+vectors [1], ``log_term`` [1, C], ``log_payload`` [C, W]; on the 2-D mesh
+of P payload shards, rank ``g`` holds row ``g // P`` with lane block
+``g``, [C, W/P]); ``cut_row`` and ``stack_rows`` carry between the two. The functions here that read or
 write a given replica's row take ``view``: the row access of the
 transport that placed the state (``ResidentView`` for a state that holds
 every row, the default; ``transport.MeshTransport`` on the mesh, where a
@@ -111,7 +112,7 @@ class ResidentView:
     """Row access of a state that holds every replica row (the resident
     layout): replica r is row r, every read is a host copy and a host
     [R, ...] value is placed whole. ``MeshTransport`` has the same
-    methods for one row a rank."""
+    methods for one row (or one lane slice of a row) a rank."""
 
     resident = True
 
@@ -138,16 +139,23 @@ class ResidentView:
         return torch.as_tensor(np.asarray(host)).to(
             device=like.device, dtype=like.dtype).contiguous()
 
+    def lane_slice(self, shards):
+        """The bytes this process holds of a shard batch u8[N, Sk]: all
+        of them (a 2-D mesh rank holds one slice)."""
+        return shards
+
 
 RESIDENT = ResidentView()
 
 
 def init_state(cfg: RaftConfig, rows: Optional[int] = None,
-               device="cuda") -> ReplicaState:
-    """Zero state for ``rows`` replica rows (default ``cfg.rows``): term 0,
-    no vote, empty log, commit 0."""
+               device="cuda", words: Optional[int] = None) -> ReplicaState:
+    """Zero state for ``rows`` replica rows (default ``cfg.rows``) of
+    ``words`` payload lanes each (default ``cfg.shard_words``; a 2-D mesh
+    rank holds W/P): term 0, no vote, empty log, commit 0."""
     r = cfg.rows if rows is None else rows
-    c, w = cfg.log_capacity, cfg.shard_words
+    c = cfg.log_capacity
+    w = cfg.shard_words if words is None else words
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.int32, device=device)
@@ -210,24 +218,30 @@ def state_to_numpy(state: ReplicaState) -> dict:
     return {f: getattr(state, f).cpu().numpy() for f in FIELDS}
 
 
-def cut_row(fields: dict, r: int) -> dict:
-    """Replica row ``r`` of a whole-cluster state given as numpy leaves
+def cut_row(fields: dict, r: int, payload_shards: int = 1) -> dict:
+    """Rank ``r``'s part of a whole-cluster state given as numpy leaves
     (``state_to_numpy``, or ``np.asarray`` of each leaf of a JAX
     ``TpuMeshTransport`` state): the rank-local state of the mesh
-    transport — vectors [1], ``log_term`` [1, C], ``log_payload`` [C, W]."""
+    transport — vectors [1], ``log_term`` [1, C] of replica row
+    ``r // payload_shards`` and ``log_payload`` [C, W/P], lane block ``r``
+    of the folded [R x P x W/P] layout (at P = 1 rank r is row r)."""
+    P = payload_shards
     R = np.shape(fields["term"])[0]
-    W = np.shape(fields["log_payload"])[1] // R
-    out = {f: np.array(fields[f][r:r + 1], dtype=np.int32)
+    w = np.shape(fields["log_payload"])[1] // (R * P)
+    row = r // P
+    out = {f: np.array(fields[f][row:row + 1], dtype=np.int32)
            for f in FIELDS if f != "log_payload"}
     out["log_payload"] = np.array(
-        fields["log_payload"][:, r * W:(r + 1) * W], dtype=np.int32)
+        fields["log_payload"][:, r * w:(r + 1) * w], dtype=np.int32)
     return out
 
 
-def stack_rows(parts) -> dict:
-    """The inverse of ``cut_row``: R rank-local numpy states, in rank
-    order, stacked back into one whole-cluster state."""
-    out = {f: np.concatenate([p[f] for p in parts], axis=0)
+def stack_rows(parts, payload_shards: int = 1) -> dict:
+    """The inverse of ``cut_row``: the R*P rank-local numpy states, in
+    rank order, stacked back into one whole-cluster state (each row's
+    vectors and terms taken from its first rank)."""
+    out = {f: np.concatenate([p[f] for p in parts[::payload_shards]],
+                             axis=0)
            for f in FIELDS if f != "log_payload"}
     out["log_payload"] = np.concatenate([p["log_payload"] for p in parts],
                                         axis=1)
@@ -280,18 +294,20 @@ def log_entries(state: ReplicaState, replica: int, lo: int,
                 hi: int, view=None) -> np.ndarray:
     """Host read of payload bytes u8[hi-lo+1, S] for indices [lo, hi] on
     one replica row. Only the requested slots leave the device; on the
-    mesh (``view``) the holder's slots reach every rank."""
+    mesh (``view``) the holder's slots reach every rank, at full width
+    (on the 2-D mesh stitched from the row's slices)."""
     w = state.words_per_entry
     if hi < lo:
-        return np.zeros((0, 4 * w), np.uint8)
+        full = w * getattr(view, "payload_shards", 1)
+        return np.zeros((0, 4 * full), np.uint8)
     idx = torch.arange(lo, hi + 1, device=state.device, dtype=torch.int64)
     slots = (idx - 1) % state.capacity
     if view is None or view.resident:
         rows = state.log_payload[:, replica * w:(replica + 1) * w]
         return unfold_bytes(rows.index_select(0, slots))
-    # this rank's row [N, W] with its row axis; the holder's reaches all
+    # this rank's row [N, w] with its row axis; the holder's reaches all
     mine = state.log_payload.index_select(0, slots)[:, None]
-    return unfold_bytes(view.fetch_row(mine, replica, 1))
+    return unfold_bytes(view.fetch_row_lanes(mine, replica, 1))
 
 
 def payload_slot_bytes(state: ReplicaState, replica: int) -> np.ndarray:

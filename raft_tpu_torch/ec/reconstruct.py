@@ -23,7 +23,10 @@ uses its C++ host codec (``RSCode.encode_host``, equal to the NumPy
 On the mesh (``view`` a ``transport.MeshTransport``) each rank holds one
 row: a read gathers the k donor rows' windows onto every rank's device
 first (``gather_window``, a collective every rank makes) and K6 decodes
-that block; a write lands only on the rank that holds the row.
+that block; a write lands only on the rank that holds the row. On the 2-D
+mesh the donor block is gathered at full width (each donor's P slices
+stitched over the row group) and decoded whole, and a write lands on each
+of the row's P ranks as its byte slice of the shard (``view.lane_slice``).
 """
 
 from __future__ import annotations
@@ -76,8 +79,10 @@ def _reconstruct(state: ReplicaState, code: RSCode, rows: Sequence[int],
     n = hi - lo + 1
     block = None
     if not view.resident:
-        # the k donor windows, gathered onto this rank's device: i32[N, k*W]
+        # the k donor windows at full width, gathered onto this rank's
+        # device: i32[N, k*W]
         block = view.gather_window(state, rows, lo, hi)
+        w = block.shape[1] // code.k
     if sorted(rows) == list(range(code.k)):
         # Systematic fast path: rows 0..k-1 hold the raw byte slices in
         # some order — reorder to shard id and stitch; no decode.
@@ -171,11 +176,14 @@ def install_entries(state: ReplicaState, replica: int, start: int, shards,
                     batch: int, view=None) -> ReplicaState:
     """Chunked ``install_window`` over a contiguous index range: ``shards``
     u8[N, Sk] (this replica's shard per entry) and ``terms`` i32[N], numpy
-    or tensors. On the mesh only the rank holding ``replica`` writes; the
-    others return their state unchanged."""
-    replica = (RESIDENT if view is None else view).local_row(replica)
+    or tensors. On the mesh only the rank holding ``replica`` writes (on
+    the 2-D mesh each of its P ranks writes its byte slice of every
+    shard); the others return their state unchanged."""
+    view = RESIDENT if view is None else view
+    replica = view.local_row(replica)
     if replica is None:
         return state
+    shards = view.lane_slice(shards)
     dev = state.device
     if isinstance(shards, np.ndarray):   # may be a read-only byte view
         shards = np.require(shards, requirements=["C", "W"])
@@ -224,8 +232,8 @@ def heal_replica(state: ReplicaState, code: RSCode, replica: int,
         a = lo + ofs
         b = min(hi, a + batch - 1)
         # every rank reconstructs (on the mesh the donor gather is a
-        # collective); only the rank holding the replica encodes its
-        # shards and installs them
+        # collective); only the ranks holding the replica encode its
+        # shards and install them
         data = _reconstruct(state, code, donor_rows, a, b, view)  # [N, S]
         if mine:
             shards = encode_device(code, data)[replica]           # [N, Sk]

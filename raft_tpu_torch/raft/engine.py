@@ -89,7 +89,11 @@ through the transport's gathering fetch (``_rows``: ``fetch_rows`` /
 ``fetch_row``, a collective on the mesh; a host copy on the resident
 layout), a host write through its placement (``place_rows``,
 ``local_row``: a rank writes only its own row), and the EC reads decode
-from the gathered donor windows. Every rank must attach the same
+from the gathered donor windows. On the 2-D mesh (``payload_shards`` P >
+1) each row is held by P ranks, one lane slice each: the engine is the
+same, and the transport's seam stitches payload reads to full width and
+cuts payload writes to the rank's slice (``lane_slice``, through
+``install_entries``). Every rank must attach the same
 observers (a trace, a recorder, the device plane), because ``nodelog``
 and the flushes fetch only while one is attached. With
 ``mirror_check_every`` the decisions fold into a rolling digest that the
@@ -2938,7 +2942,8 @@ class RaftEngine:
                     b"".join(self._uncommitted[i][0] for i in idx), np.uint8
                 ).reshape(len(idx), self.cfg.entry_bytes)
                 if self.t.local_row(p) is not None:
-                    # only the rank holding row p encodes and installs
+                    # only the ranks holding row p encode and install
+                    # (on the 2-D mesh each its byte slice of the shards)
                     shards = encode_device(
                         self._code, self._dev_bytes(data))[p]
                     self.state = install_entries(

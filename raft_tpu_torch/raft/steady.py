@@ -49,8 +49,10 @@ plans and books the same windows from its identical host state, and
 ``replicate_fused`` runs the K-tick loop eagerly over the comm, never as
 a captured graph (its collectives are gloo host calls). The JAX
 ``FusedDriver`` refuses fusion when ``jax.process_count() > 1``; the
-port's mesh is R processes by construction, the counterpart of the JAX
-package's one-process mesh, which fuses, so the port fuses there too.
+port's mesh is R (or R x P) processes by construction, the counterpart
+of the JAX package's one-process mesh, which fuses, so the port fuses
+there too. The staging ring keeps full-width words; on the 2-D mesh the
+transport hands the scan each rank's slice of them.
 """
 
 from __future__ import annotations

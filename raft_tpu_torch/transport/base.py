@@ -48,50 +48,68 @@ logger = logging.getLogger(__name__)
 
 
 def make_transport(cfg: RaftConfig, device=None) -> "Transport":
-    """Build the configured device transport. ``"tpu_mesh"`` gives a
-    ``MeshTransport`` over the world group when an initialised process
-    group has ``cfg.rows`` ranks; otherwise, as the JAX package does when
-    too few devices are visible, it warns and falls back to the resident
-    layout, which runs the same program with the same kernels on one
-    device."""
+    """Build the configured device transport, deciding as the JAX
+    package's ``make_transport`` does (``raft_tpu/transport/base.py``).
+    ``"tpu_mesh"`` needs ``n_replicas * payload_shards`` ranks: inside an
+    initialised process group of that many it gives a ``MeshTransport``
+    over the world group, which raises JAX's ``ValueError`` when the
+    config has membership headroom (``cfg.rows`` rows need ``rows * P``
+    ranks; build such a mesh with ``MeshTransport(cfg, ...)`` in a world
+    of that size). Otherwise, as the JAX package does when too few
+    devices are visible, it warns and falls back to the resident layout,
+    which runs the same program with the same kernels on one device.
+    ``"multihost"`` falls back only when placement fails."""
     import torch.distributed as dist
 
     from raft_tpu_torch.transport.device import SingleDeviceTransport
 
-    if cfg.transport == "single":
-        return SingleDeviceTransport(cfg, device=device)
     if cfg.transport == "tpu_mesh":
-        from raft_tpu_torch.transport.mesh import MeshTransport
+        from raft_tpu_torch.transport.mesh import (
+            MeshTransport,
+            check_mesh_size,
+        )
 
         ranks = (dist.get_world_size()
                  if dist.is_available() and dist.is_initialized() else 0)
-        if ranks == cfg.rows:
-            return MeshTransport(cfg, device=device)
+        need = cfg.n_replicas * cfg.payload_shards
+        if ranks >= need:
+            # JAX hands the transport the first ``need`` devices, whose
+            # size check refuses a config with headroom; a process world
+            # has no ranks to leave out, so a larger one is refused by
+            # the transport's own check
+            check_mesh_size(cfg.rows, cfg.payload_shards, need)
+            return MeshTransport(cfg, device=device,
+                                 payload_shards=cfg.payload_shards)
         # Loud on purpose: a run that believes it ran on a mesh must not
         # silently have run resident.
         logger.warning(
             "tpu_mesh transport needs an initialised process group of %d "
-            "ranks (one replica row each) but %s; falling back to "
-            "SingleDeviceTransport", cfg.rows,
+            "ranks (%d replicas x %d payload shards) but %s; falling back "
+            "to SingleDeviceTransport", need, cfg.n_replicas,
+            cfg.payload_shards,
             f"the group has {ranks}" if ranks else "none is initialised")
         return SingleDeviceTransport(cfg, device=device)
     if cfg.transport == "multihost":
         from raft_tpu_torch.transport.multihost import (
             multihost_transport,
-            world_size,
+            replica_devices_across_hosts,
         )
 
         try:
             # only placement may fall back; a config error from the
             # transport itself propagates, as for tpu_mesh
-            return multihost_transport(cfg, device=device)
+            replica_devices_across_hosts(cfg.n_replicas, cfg.payload_shards)
         except ValueError as e:
-            if world_size() == cfg.rows:
-                raise
             logger.warning(
                 "multihost placement unavailable (%s); falling back to "
                 "SingleDeviceTransport", e)
             return SingleDeviceTransport(cfg, device=device)
-    raise ValueError(
-        f"transport {cfg.transport!r} is not ported yet; the port runs "
-        "transport='single', 'tpu_mesh' or 'multihost'")
+        return multihost_transport(cfg, device=device)
+    if cfg.transport == "single":
+        return SingleDeviceTransport(cfg, device=device)
+    if cfg.transport == "loopback":
+        raise ValueError(
+            "the loopback golden model is host-side, not a device "
+            "transport; use raft_tpu_torch.golden directly (it exists for "
+            "differential tests)")
+    raise ValueError(f"unknown device transport {cfg.transport!r}")

@@ -1,16 +1,26 @@
 """Mesh transport: one replica row per rank of a ``torch.distributed``
-process group (port of ``raft_tpu/transport/tpu_mesh.py:61``
-``TpuMeshTransport``).
+process group, or one lane slice of a row per rank on the 2-D mesh (port
+of ``raft_tpu/transport/tpu_mesh.py:61`` ``TpuMeshTransport``).
 
 Every rank constructs the transport and makes the same calls in the same
 order with the same arguments, as the JAX package's mirrored programs do
-under ``shard_map``; each rank holds and returns its own row's state
-(vectors [1], ``log_term`` [1, C], ``log_payload`` [C, W]) and every rank
-gets the same replicated ``RepInfo``/``VoteInfo``. The protocol bodies are
-the single-device ones (``core.step``) over ``MeshComm``: the steady forms
-go to the mesh kernels (``core.step_mesh``, two launch collectives a
-call), the repair-capable tick and the election run the general path on
-the local row, with K1 writing its windows.
+under ``shard_map``; each rank holds and returns its own part of the
+state and every rank gets the same replicated ``RepInfo``/``VoteInfo``.
+The protocol bodies are the single-device ones (``core.step``) over
+``MeshComm``: the steady forms go to the mesh kernels (``core.step_mesh``,
+two launch collectives a call), the repair-capable tick and the election
+run the general path on the local row, with K1 writing its windows.
+
+``payload_shards`` P > 1 is the JAX package's 2-D ``(replica, pshard)``
+mesh: a world of ``rows * P`` ranks, rank ``g = r*P + p`` holding replica
+row ``r``'s vectors [1] and ``log_term`` [1, C] (the same on the row's P
+ranks, as JAX's ``P("replica")`` specs replicate them over ``pshard``)
+and ``log_payload`` [C, W/P], lane block ``g`` of the folded
+``[R x P x W/P]`` layout (JAX :106-111). The protocol bodies never reduce
+over the lanes (JAX :14-20), so each pshard column runs the 1-D mesh
+program on its own slice; the replica collectives ride the column and
+the reads that reassemble a row's lanes ride the row group
+(``MeshComm``).
 
 The group is gloo: ranks that share one GPU (NCCL refuses two ranks on
 one device) or run on the CPU, as the tests do. A device backend, one GPU
@@ -23,15 +33,15 @@ engine a rank, ``transport.multihost``): ``fetch`` is the host copy of a
 replicated value (an info, the event ring), ``fetch_rows``/``fetch_row``
 the host view of every row / one row of a row-sharded value, which is a
 collective every rank reaches in lock step (JAX: ``tpu_mesh.py:228``,
-the reshard to fully replicated), ``gather_window`` the EC donors'
-windows on this rank's device, and ``place_rows`` the inverse: this
-rank's row of a host [R, ...] value. The recorded programs (``ring=``)
-run the same steps with ``record=True``: every rank writes the identical
-event ring from gathered pre- and post-states. Nothing on the mesh is
-captured into a CUDA graph: a gloo collective is a host call.
-
-Not ported yet, and refused with a ``ValueError``: ``payload_shards > 1``
-(the 2-D mesh, ROADMAP A15b).
+the reshard to fully replicated), ``fetch_row_lanes`` and
+``gather_window`` the same for payload words at full width (stitched
+from the row group's slices), ``place_rows`` the inverse: this rank's
+row of a host [R, ...] value, and ``lane_slice`` this rank's byte slice
+of a shard batch, which every payload write goes through. The recorded
+programs (``ring=``) run the same steps with ``record=True``: every rank
+writes the identical event ring from gathered pre- and post-states.
+Nothing on the mesh is captured into a CUDA graph: a gloo collective is
+a host call.
 """
 
 from __future__ import annotations
@@ -64,41 +74,65 @@ from raft_tpu_torch.obs import blackbox
 from raft_tpu_torch.transport.device import resolve_device
 
 
+def check_mesh_size(rows: int, payload_shards: int, got: int) -> None:
+    """JAX's size check of a mesh (``tpu_mesh.py:74-79``): ``rows``
+    replica rows of ``payload_shards`` lane slices need that many ranks
+    (JAX: devices), membership headroom rows included."""
+    need = rows * payload_shards
+    if got != need:
+        raise ValueError(
+            f"need {need} devices ({rows} replica rows x "
+            f"{payload_shards} payload shards), got {got}")
+
+
 class MeshTransport:
     resident = False
 
-    def __init__(self, cfg: RaftConfig, group=None, device=None):
+    def __init__(self, cfg: RaftConfig, group=None, device=None,
+                 payload_shards=None):
         import torch.distributed as dist
 
-        if cfg.payload_shards != 1:
-            raise ValueError(
-                f"payload_shards={cfg.payload_shards}: the 2-D payload "
-                "mesh is not ported yet (ROADMAP A15b)")
         if not (dist.is_available() and dist.is_initialized()):
             raise RuntimeError("MeshTransport needs an initialised "
                                "torch.distributed process group")
+        P = cfg.payload_shards if payload_shards is None else payload_shards
+        # membership headroom allocates (and places) cfg.rows replica
+        # rows; spare rows idle behind the member mask until add_server
+        world = dist.get_world_size(group)
+        check_mesh_size(cfg.rows, P, world)
+        if cfg.shard_words % P:
+            raise ValueError(
+                f"per-entry stored words ({cfg.shard_words}) must divide "
+                f"evenly over {P} payload shards")
         self.cfg = cfg
+        self.payload_shards = P
         self.device = resolve_device(device)
         # write-before-block (obs.blackbox): the group checks and the
-        # digest group's creation below are the mesh's first collectives
-        blackbox.mark("mesh_build", rows=cfg.rows, payload_shards=1,
-                      devices=dist.get_world_size(group))
+        # groups' creation below are the mesh's first collectives
+        blackbox.mark("mesh_build", rows=cfg.rows, payload_shards=P,
+                      devices=world)
         self.comm = MeshComm(cfg.rows, group,
-                             exchange_timeout_s=cfg.mirror_exchange_timeout_s)
-        self.rank = self.comm.rank
-        self.processes = cfg.rows
+                             exchange_timeout_s=cfg.mirror_exchange_timeout_s,
+                             payload_shards=P)
+        self.rank = self.comm.group_rank
+        self.row = self.comm.rank
+        self.pshard = self.comm.pshard
+        self.processes = world
         self._member_mode = cfg.max_replicas is not None
-        self._words = cfg.shard_words
+        self._words = cfg.shard_words // P
+        #   the local lanes W/P of a payload row
         self.fetches = 0
         self.fetch_s = 0.0
         #   gathering fetches made (``fetch_rows``/``fetch_row``/
-        #   ``gather_window``) and the host seconds they took; the blackbox
-        #   journal's allgather id is ``fetches``
+        #   ``fetch_row_lanes``/``gather_window``) and the host seconds
+        #   they took; the blackbox journal's allgather id is ``fetches``
         blackbox.mark("mesh_ready", rows=cfg.rows)
 
     def init(self) -> ReplicaState:
-        """This rank's row of a fresh cluster."""
-        return init_state(self.cfg, rows=1, device=self.device)
+        """This rank's part of a fresh cluster: its row's vectors and
+        terms, and its [C, W/P] lane slice of the row's payload."""
+        return init_state(self.cfg, rows=1, device=self.device,
+                          words=self._words)
 
     def fetch(self, x):
         """Host copy of a replicated value (the infos, the event ring: the
@@ -115,8 +149,8 @@ class MeshTransport:
 
     def fetch_rows(self, x: torch.Tensor, dim: int = 0) -> np.ndarray:
         """Host view of every row of a row-sharded value (this rank's row
-        at ``dim``, size 1): one all_gather every rank makes in lock
-        step."""
+        at ``dim``, size 1; not payload lanes): one all_gather over the
+        column every rank makes in lock step."""
         t0 = self._gathering("fetch")
         out = self.comm.all_gather_host(x.detach().movedim(dim, 0))
         self.fetch_s += time.perf_counter() - t0
@@ -124,25 +158,40 @@ class MeshTransport:
 
     def fetch_row(self, x: torch.Tensor, row: int,
                   dim: int = 0) -> np.ndarray:
-        """Host view of replica ``row`` of a row-sharded value, the row
-        axis ``dim`` removed: one broadcast from the rank holding it."""
+        """Host view of replica ``row`` of a row-sharded value (not
+        payload lanes), the row axis ``dim`` removed: one broadcast from
+        the rank of this column holding it."""
         t0 = self._gathering("fetch_row")
         out = self.comm.broadcast_host(x.select(dim, 0), row)
         self.fetch_s += time.perf_counter() - t0
         return out.numpy()
 
+    def fetch_row_lanes(self, x: torch.Tensor, row: int,
+                        dim: int = 0) -> np.ndarray:
+        """``fetch_row`` of a value whose last axis is this rank's payload
+        lanes: replica ``row``'s value at full width, its P slices
+        stitched over the row group (a second collective, 2-D only)."""
+        t0 = self._gathering("fetch_row_lanes")
+        part = self.comm.broadcast_host(x.select(dim, 0), row)
+        out = self.comm.all_gather_lanes(part)
+        self.fetch_s += time.perf_counter() - t0
+        return out.numpy()
+
     def gather_window(self, state: ReplicaState, rows: Sequence[int],
                       lo: int, hi: int) -> torch.Tensor:
-        """The payload words of log indices [lo, hi] on replicas ``rows``,
-        gathered onto this rank's device: i32[hi-lo+1, len(rows)*W] (the
-        EC decode's donor block). One all_gather every rank makes."""
+        """The payload words of log indices [lo, hi] on replicas ``rows``
+        at full width, gathered onto this rank's device:
+        i32[hi-lo+1, len(rows)*W] (the EC decode's donor block). One
+        all_gather over the column, and on the 2-D mesh one over the row
+        group to stitch the slices, every rank makes."""
         t0 = self._gathering("window")
         slots = (torch.arange(lo, hi + 1, device=state.device,
                               dtype=torch.int64) - 1) % state.capacity
-        mine = state.log_payload.index_select(0, slots)       # [N, W]
-        every = self.comm.all_gather_host(mine[None])         # [R, N, W]
+        mine = state.log_payload.index_select(0, slots)       # [N, w]
+        every = self.comm.all_gather_host(mine[None])         # [R, N, w]
         pick = every.index_select(0, torch.as_tensor(list(rows),
                                                      dtype=torch.int64))
+        pick = self.comm.all_gather_lanes(pick)               # [k, N, W]
         out = pick.permute(1, 0, 2).reshape(hi - lo + 1, -1).to(self.device)
         self.fetch_s += time.perf_counter() - t0
         return out.contiguous()
@@ -153,26 +202,42 @@ class MeshTransport:
         as a tensor of ``like``'s dtype and device (JAX: ``device_put``
         under the transport's sharding)."""
         return torch.as_tensor(np.asarray(host)).narrow(
-            dim, self.rank, 1).to(device=like.device,
-                                  dtype=like.dtype).contiguous()
+            dim, self.row, 1).to(device=like.device,
+                                 dtype=like.dtype).contiguous()
+
+    def lane_slice(self, shards):
+        """This rank's byte slice of a shard batch u8[N, Sk] (host or
+        device; the whole batch at P = 1): bytes [p*Sk/P, (p+1)*Sk/P),
+        the words of lane block ``g`` of the row's shard. Every payload
+        write (``install_entries``) goes through it."""
+        if self.payload_shards == 1:
+            return shards
+        sk = shards.shape[-1] // self.payload_shards
+        return shards[..., self.pshard * sk:(self.pshard + 1) * sk]
 
     def gather_state(self, state: ReplicaState) -> dict:
-        """The whole cluster's state as numpy leaves (``stack_rows`` of
-        every rank's row; one all_gather a leaf, on every rank)."""
+        """The whole cluster's state as numpy leaves at full width
+        (``stack_rows`` of every row; one all_gather over the column a
+        leaf and, on the 2-D mesh, one over the row group for the
+        payload, on every rank)."""
         parts = {f: self.comm.all_gather_host(getattr(state, f)[None])
                  .numpy() for f in FIELDS}
-        return stack_rows([{f: parts[f][r] for f in FIELDS}
-                           for r in range(self.cfg.rows)])
+        lanes = self.comm.all_gather_lanes(
+            torch.from_numpy(parts["log_payload"])).numpy()   # [R, C, W]
+        return stack_rows([
+            {**{f: parts[f][r] for f in FIELDS}, "log_payload": lanes[r]}
+            for r in range(self.cfg.rows)])
 
     def exchange_digest(self, value: int) -> np.ndarray:
-        """Every rank's mirror digest, in rank order (``MeshComm``'s
-        digest group)."""
+        """Every rank's mirror digest (all R*P), in rank order
+        (``MeshComm``'s digest group)."""
         return self.comm.exchange_int64(value)
 
     def local_row(self, row: int):
         """Index of replica ``row`` in this rank's state, or None when
-        another rank holds it."""
-        return 0 if row == self.rank else None
+        another rank holds it (on the 2-D mesh each of the row's P ranks
+        holds its own slice of it)."""
+        return 0 if row == self.row else None
 
     def commit_index(self, state: ReplicaState, row: int) -> int:
         """Replica ``row``'s commit index (a collective: every rank calls
@@ -180,14 +245,16 @@ class MeshTransport:
         return int(self.comm.all_gather(state.commit_index)[row])
 
     def shard_rows(self, payload) -> torch.Tensor:
-        """This rank's lane block of a folded [..., R*W] batch, on the
-        device (the north star's scatter when the blocks are RS shards)."""
-        w, r = self._words, self.rank
+        """This rank's lane block ``g`` of a folded [..., R*W] batch, on
+        the device (the north star's scatter when the blocks are RS
+        shards; on the 2-D mesh a slice of one)."""
+        w, g = self._words, self.rank
         payload = torch.as_tensor(payload)
-        if payload.shape[-1] != self.cfg.rows * w:
-            raise ValueError(f"a folded batch has {self.cfg.rows * w} lanes, "
-                             f"got {payload.shape[-1]}")
-        return payload[..., r * w:(r + 1) * w].to(self.device).contiguous()
+        if payload.shape[-1] != self.cfg.rows * self.cfg.shard_words:
+            raise ValueError(f"a folded batch has "
+                             f"{self.cfg.rows * self.cfg.shard_words} "
+                             f"lanes, got {payload.shape[-1]}")
+        return payload[..., g * w:(g + 1) * w].to(self.device).contiguous()
 
     def _local(self, payload) -> torch.Tensor:
         payload = torch.as_tensor(payload)
@@ -255,11 +322,16 @@ class MeshTransport:
                         ring=None):
         """K steady ticks with exact early exit (``fused_steady_scan``)
         over the mesh: ``staging`` [S, B, W] holds untiled words, which on
-        a full-copy cluster are every rank's lane block. Returns
+        a full-copy cluster are every rank's lane block (on the 2-D mesh
+        this rank takes its slice of them). Returns
         ``(state, infos, escaped, ran, halted[, ring])``. Run eagerly:
         never captured into a CUDA graph (its collectives are host
         calls)."""
         rec = {} if ring is None else {"ring": ring, "record": True}
+        staging = torch.as_tensor(staging)
+        if staging.shape[-1] != self._words:     # JAX: P(None, None, pshard)
+            p, w = self.pshard, self._words
+            staging = staging[..., p * w:(p + 1) * w].contiguous()
         return fused_steady_scan(
             self.comm, self.cfg.commit_quorum, state, staging, start_slot,
             counts, n_run, halted0, leader, leader_term, alive, slow,

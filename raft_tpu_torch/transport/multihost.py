@@ -42,8 +42,12 @@ port goes:
    covering it is on disk.
 
 Placement (``replica_devices_across_hosts``) takes the JAX rules over any
-objects that carry ``process_index``; this port's mesh holds one row a
-rank, so a world of ``cfg.rows`` processes places replica r on rank r.
+objects that carry ``process_index``. This port's mesh holds one lane
+slice of a row a rank: a world of ``rows * payload_shards`` ranks places
+replica r on ranks ``r*P .. r*P + P - 1``, and the placement treats those
+P ranks as one host (a replica's payload shards never span hosts, as in
+JAX). A launcher must keep them so: start the P ranks of a replica on one
+host, since a host failure takes the whole replica, never part of it.
 """
 
 from __future__ import annotations
@@ -53,12 +57,13 @@ from typing import NamedTuple, Optional, Sequence
 
 from raft_tpu_torch.config import RaftConfig
 from raft_tpu_torch.obs import blackbox
-from raft_tpu_torch.transport.mesh import MeshTransport
+from raft_tpu_torch.transport.mesh import MeshTransport, check_mesh_size
 
 
 class RankDevice(NamedTuple):
     """One rank of the process group as a placement target: its id and
-    its failure domain (the rank itself: one process, one row)."""
+    its failure domain (its replica row's host: rank g of a world of
+    ``payload_shards`` ranks a row is on host ``g // payload_shards``)."""
 
     id: int
     process_index: int
@@ -106,7 +111,8 @@ def replica_devices_across_hosts(n_replicas: int, payload_shards: int = 1,
     if devices is None:
         blackbox.mark("device_enum", n_replicas=n_replicas,
                       payload_shards=payload_shards)
-        devices = [RankDevice(r, r) for r in range(world_size())]
+        devices = [RankDevice(g, g // payload_shards)
+                   for g in range(world_size())]
     by_proc: dict = {}
     for d in devices:
         by_proc.setdefault(getattr(d, "process_index", 0), []).append(d)
@@ -142,13 +148,20 @@ def replica_devices_across_hosts(n_replicas: int, payload_shards: int = 1,
     return picked
 
 
-def multihost_transport(cfg: RaftConfig, device=None) -> MeshTransport:
+def multihost_transport(cfg: RaftConfig, device=None,
+                        payload_shards: Optional[int] = None
+                        ) -> MeshTransport:
     """A ``MeshTransport`` over the world group, this rank holding its
-    own replica row on ``device`` (CUDA unless ``device="cpu"``). Raises
-    ``ValueError`` when the world cannot hold one row a rank."""
-    if world_size() != cfg.rows:
-        raise ValueError(
-            f"the mesh holds one replica row a rank: {cfg.rows} rows need "
-            f"a world of {cfg.rows} ranks, got {world_size()}")
-    replica_devices_across_hosts(cfg.rows, cfg.payload_shards)
-    return MeshTransport(cfg, device=device)
+    part of its replica row on ``device`` (CUDA unless ``device="cpu"``):
+    JAX's ``multihost_transport`` (``multihost.py:225``). The world must
+    be ``rows * P`` ranks (``P = payload_shards``, default
+    ``cfg.payload_shards``), ranks ``r*P .. r*P + P - 1`` holding replica
+    r; a launcher must keep those P ranks on one host. Raises
+    ``ValueError`` when placement fails (too few ranks for the
+    ``n_replicas`` replicas) and the transport's own size errors (a world
+    that is not ``rows * P``, membership headroom included)."""
+    shards = cfg.payload_shards if payload_shards is None else payload_shards
+    placed = replica_devices_across_hosts(cfg.n_replicas, shards)
+    # JAX's transport checks the placed devices: headroom rows are short
+    check_mesh_size(cfg.rows, shards, len(placed))
+    return MeshTransport(cfg, device=device, payload_shards=shards)

@@ -5,7 +5,8 @@ the CPU (each rank returns its own row's state leaves, the call's info and
 the ``core.step_mesh.LAST_DISPATCH`` witness after every stage, as numpy);
 for tests/test_torch_engine_mesh.py the engine scenarios (``SCENARIOS``)
 that the mirrored ranks, the JAX engine and the port's single-device
-engine all run; for tests/test_torch_multihost.py the multihost ranks.
+engine all run; for tests/test_torch_multihost.py the multihost ranks;
+for tests/test_torch_mesh2d.py the 2-D mesh's ranks (``mesh2d_rank``).
 
 This module imports neither JAX nor the JAX package: the spawned ranks
 import it."""
@@ -81,8 +82,9 @@ def info_numpy(info) -> dict:
 def run_programs(rank: int, world: int, programs: dict) -> dict:
     """Every program {name: (config keywords, stages)} from a fresh cluster
     on this rank's ``MeshTransport`` (built through ``make_transport``,
-    which must pick the mesh inside the group). Returns {name: [(leaves,
-    info, dispatch) per stage]}."""
+    which must pick the mesh inside the group; on the 2-D mesh the config
+    names ``payload_shards``). Returns {name: [(leaves, info, dispatch)
+    per stage]}."""
     torch.set_num_threads(1)
     results = {}
     for name, (cfg_kw, stages) in programs.items():
@@ -297,8 +299,8 @@ def sc_ec_heal(make, ops, tmp):
                 got=ops.reconstruct(e, rows, 1, 8)), e
 
 
-def sc_membership(make, ops, tmp):
-    e = make(dict(max_replicas=5, log_capacity=256, seed=11))
+def sc_membership(make, ops, tmp, rows=5):
+    e = make(dict(max_replicas=rows, log_capacity=256, seed=11))
     e.run_until_leader()
     seqs = [e.submit(p) for p in payloads(6, seed=12)]
     e.run_until_committed(seqs[-1])
@@ -319,7 +321,7 @@ def sc_membership(make, ops, tmp):
     tail = [e.submit(p) for p in payloads(2, seed=15)]
     e.run_until_committed(tail[-1])
     return dict(added=added, joiner=joiner, removed=removed,
-                committed=[ops.committed(e, r) for r in range(5)],
+                committed=[ops.committed(e, r) for r in range(rows)],
                 leader=e.leader_id), e
 
 
@@ -455,6 +457,41 @@ def sc_device_obs(make, ops, tmp):
                 packed=ops.packed(e)), e
 
 
+EC2D = dict(n_replicas=4, entry_bytes=32, rs_k=2, rs_m=2)
+
+
+def sc_ec2d_roundtrip(make, ops, tmp):
+    """tests/test_engine_mesh.py:140 TestECWithPayloadShardsOnMesh, its
+    round trip (RS(4,2), 32-byte entries; the 2-D config adds
+    ``payload_shards``)."""
+    e = make(dict(EC2D, seed=1))
+    e.run_until_leader()
+    ps = payloads(8, entry=32, seed=3)
+    seqs = [e.submit(p) for p in ps]
+    e.run_until_committed(seqs[-1])
+    return dict(ps=ps, got=[ops.reconstruct(e, rows, 1, 8) for rows in
+                            ([0, 1], [2, 3], [1, 2])]), e
+
+
+def sc_ec2d_heal(make, ops, tmp):
+    """TestECWithPayloadShardsOnMesh's slow follower: commit at k+1 = 3
+    of the other three, then the heal."""
+    e = make(dict(EC2D, seed=2))
+    lead = e.run_until_leader()
+    slow = (lead + 1) % 4
+    e.set_slow(slow, True)
+    ps = payloads(6, entry=32, seed=4)
+    seqs = [e.submit(p) for p in ps]
+    e.run_until_committed(seqs[-1])
+    before = int(ops.rows(e, "match_index")[slow])
+    e.set_slow(slow, False)
+    e.run_for(2 * e.cfg.heartbeat_period)
+    rows = [slow, (slow + 1) % 4]
+    return dict(ps=ps, before=before,
+                after=int(ops.rows(e, "match_index")[slow]),
+                got=ops.reconstruct(e, rows, 1, 6)), e
+
+
 SCENARIOS = {
     "submit": (3, sc_submit), "failover": (3, sc_failover),
     "slow_heal": (3, sc_slow_heal), "lapped": (3, sc_lapped),
@@ -463,6 +500,8 @@ SCENARIOS = {
     "ec_restart": (5, sc_ec_restart), "pipeline": (3, sc_pipeline),
     "pipeline_ec": (5, sc_pipeline_ec), "fused": (3, sc_fused),
     "device_obs": (3, sc_device_obs),
+    "membership4": (4, lambda m, o, t: sc_membership(m, o, t, rows=4)),
+    "ec2d_roundtrip": (4, sc_ec2d_roundtrip), "ec2d_heal": (4, sc_ec2d_heal),
     **{f"slow_window_{s}": (3, (lambda s: lambda m, o, t:
                                 sc_slow_window(m, o, t, s))(s))
        for s in (0, 1, 2)},
@@ -479,13 +518,15 @@ def run_scenario(name, make, ops, tmp):
     return dict(result=res, final=final_obs(e, ops)), e
 
 
-def port_make(transport: str, transport_of):
-    """``make`` for the port: configs carry ``transport`` and
-    ``transport_of(cfg)`` places the engine."""
+def port_make(transport: str, transport_of, extra=None):
+    """``make`` for the port: configs carry ``transport`` (and ``extra``,
+    the 2-D mesh's ``payload_shards``) and ``transport_of(cfg)`` places
+    the engine."""
     from raft_tpu_torch.raft import RaftEngine
 
     def make(over, restore=None, recorder=False, vote_log=None):
-        cfg = RaftConfig(**{**BASE, **over, "transport": transport})
+        cfg = RaftConfig(**{**BASE, **(extra or {}), **over,
+                            "transport": transport})
         lines = []
         kw = dict(trace=lines.append, vote_log=vote_log,
                   recorder=PortOps().recorder() if recorder else None)
@@ -498,10 +539,11 @@ def port_make(transport: str, transport_of):
     return make
 
 
-def engine_scenarios(rank: int, world: int, names) -> dict:
+def engine_scenarios(rank: int, world: int, names, extra=None) -> dict:
     """The named scenarios on this rank's mirrored engine (a
-    ``MeshTransport`` on the CPU), each from a fresh cluster; returns
-    {name: result, final observation, and this rank's own leaves}."""
+    ``MeshTransport`` on the CPU; ``extra`` config keywords, the 2-D
+    mesh's ``payload_shards``), each from a fresh cluster; returns {name:
+    result, final observation, and this rank's own leaves}."""
     import tempfile
 
     from raft_tpu_torch.core.state import state_to_numpy
@@ -509,7 +551,7 @@ def engine_scenarios(rank: int, world: int, names) -> dict:
     torch.set_num_threads(1)
     out = {}
     make = port_make("tpu_mesh",
-                     lambda cfg: MeshTransport(cfg, device="cpu"))
+                     lambda cfg: MeshTransport(cfg, device="cpu"), extra)
     for name in names:
         with tempfile.TemporaryDirectory(prefix=f"rank{rank}_") as tmp:
             obs, e = run_scenario(name, make, PortOps(), tmp)
@@ -631,9 +673,11 @@ def kernel_engine(rank: int, world: int) -> dict:
                 mark=(e.commit_watermark, _sha(np.asarray(got).tobytes())))
 
 
-def desync(rank: int, world: int) -> dict:
-    """tests/test_multiprocess.py:510: rank 1 perturbs a host mirror; the
-    digest splits at the next check and every rank fail-stops."""
+def desync(rank: int, world: int, payload_shards: int = 1,
+           bad: int = 1) -> dict:
+    """tests/test_multiprocess.py:510: rank ``bad`` perturbs a host
+    mirror; the digest splits at the next check and every rank
+    fail-stops (on the 2-D mesh every rank of every column)."""
     from raft_tpu_torch.raft import RaftEngine
     from raft_tpu_torch.raft.engine import MirrorDesyncError
     from raft_tpu_torch.transport import multihost_transport
@@ -641,7 +685,8 @@ def desync(rank: int, world: int) -> dict:
     torch.set_num_threads(1)
     cfg = RaftConfig(n_replicas=3, entry_bytes=16, batch_size=4,
                      log_capacity=64, transport="multihost", seed=7,
-                     mirror_check_every=8, mirror_exchange_timeout_s=30.0)
+                     mirror_check_every=8, mirror_exchange_timeout_s=30.0,
+                     payload_shards=payload_shards)
     e = RaftEngine(cfg, multihost_transport(cfg, device="cpu"))
     lead = e.run_until_leader()
     rng = np.random.default_rng(1)
@@ -649,7 +694,7 @@ def desync(rank: int, world: int) -> dict:
     seqs = [e.submit(p) for p in ps]
     e.run_until_committed(seqs[-1])
     out = dict(synced=e.commit_watermark, caught=None)
-    if rank == 1:
+    if rank == bad:
         victim = next(q for q in range(3) if q != lead)
         e.terms[victim] += 1
     try:
@@ -660,4 +705,69 @@ def desync(rank: int, world: int) -> dict:
                 break
     except MirrorDesyncError as ex:
         out["caught"] = str(ex)
+    return out
+
+
+# ----------------------------------------------------------- the 2-D mesh
+# tests/test_torch_mesh2d.py: one spawn of R x P ranks runs everything the
+# file compares (the transport programs, the engine scenarios, the
+# transport decisions, and last the forced desync).
+
+def collectives_1d(rank: int, world: int) -> dict:
+    """The 1-D engine's communication on 3 ranks at two shapes (the tick
+    path, and the kernel-eligible one): (column collectives, gathering
+    fetches, leader ticks) from the election's end to a settled commit of
+    40 entries."""
+    from raft_tpu_torch.raft import RaftEngine
+
+    torch.set_num_threads(1)
+    out = {}
+    for name, kw in (("tick", dict(batch_size=4, log_capacity=128)),
+                     ("kernel", dict(batch_size=128, log_capacity=256))):
+        cfg = RaftConfig(n_replicas=3, entry_bytes=16, seed=5,
+                         transport="tpu_mesh", **kw)
+        t = MeshTransport(cfg, device="cpu")
+        e = RaftEngine(cfg, t)
+        e.run_until_leader()
+        c0, f0, k0 = t.comm.collectives, t.fetches, e._tick_count
+        rng = np.random.default_rng(3)
+        seqs = [e.submit(rng.integers(0, 256, 16, np.uint8).tobytes())
+                for _ in range(40)]
+        e.run_until_committed(seqs[-1])
+        e.run_for(4 * cfg.heartbeat_period)
+        out[name] = (t.comm.collectives - c0, t.fetches - f0,
+                     e._tick_count - k0, t.comm.row_collectives)
+    return out
+
+
+def transport_decisions(rank: int, world: int, cases) -> list:
+    """``make_transport`` for each config (a dict), or ``MeshTransport``
+    built directly for a ``(config, payload_shards)`` pair: the class it
+    gives, or the ``ValueError`` text it raises."""
+    out = []
+    for case in cases:
+        try:
+            if isinstance(case, dict):
+                t = make_transport(RaftConfig(**case), device="cpu")
+            else:
+                t = MeshTransport(RaftConfig(**case[0]), device="cpu",
+                                  payload_shards=case[1])
+            out.append(type(t).__name__)
+        except ValueError as ex:
+            out.append(f"ValueError: {ex}")
+    return out
+
+
+def mesh2d_rank(rank: int, world: int, programs: dict, names,
+                decisions=(), desync_bad=None) -> dict:
+    """Everything one 2-D rank runs for tests/test_torch_mesh2d.py, in
+    one order on every rank: the transport's decisions, the transport
+    programs, the engine scenarios (``payload_shards=2``) and, last, the
+    forced desync on rank ``desync_bad``."""
+    out = dict(decisions=transport_decisions(rank, world, decisions),
+               programs=run_programs(rank, world, programs),
+               engine=engine_scenarios(rank, world, names,
+                                       dict(payload_shards=2)))
+    if desync_bad is not None:
+        out["desync"] = desync(rank, world, 2, desync_bad)
     return out

@@ -22,6 +22,7 @@ the port's results. The rank sets run once per module (3 and 5 ranks).
 """
 
 import logging
+import re
 
 import jax
 import numpy as np
@@ -208,6 +209,37 @@ class TestMeshFallbackIsLoud:
         warned = [r for r in caplog.records if "falling back" in r.message]
         assert {r.name for r in warned} == {"raft_tpu.transport.base",
                                             "raft_tpu_torch.transport.base"}
+
+    def test_fallback_names_the_payload_shards(self, caplog):
+        """Both packages' warnings name the mesh they wanted, ``n_replicas
+        x payload_shards`` (12 ranks here, 12 devices in JAX)."""
+        from raft_tpu.transport import make_transport as jmake
+        from raft_tpu_torch.transport import make_transport
+
+        kw = dict(n_replicas=3, entry_bytes=16, batch_size=4,
+                  log_capacity=64, transport="tpu_mesh", payload_shards=4)
+        with caplog.at_level(logging.WARNING):
+            jmake(JConfig(**kw))
+            make_transport(TConfig(**kw), device="cpu")
+        warned = {r.name: r.message for r in caplog.records
+                  if "falling back" in r.message}
+        for name in ("raft_tpu.transport.base",
+                     "raft_tpu_torch.transport.base"):
+            assert re.search(r"needs (an initialised process group of )?"
+                             r"12 ", warned[name]), warned[name]
+            assert "(3 replicas x 4 payload shards)" in warned[name]
+
+
+def test_one_row_a_rank_keeps_its_collectives():
+    """The 1-D mesh's communication is unchanged by the second axis: on 3
+    ranks, the column collectives, gathering fetches and leader ticks from
+    the election's end to a settled commit of 40 entries (at the tick
+    path's shape and the kernel-eligible one) are the counts the mesh
+    engine made before it (167, 65, 14 and 39, 20, 5), with no row-group
+    collective."""
+    outs = run_ranks(mr.collectives_1d, 3, timeout=240)
+    assert outs == [{"tick": (167, 65, 14, 0),
+                     "kernel": (39, 20, 5, 0)}] * 3
 
 
 class TestMembershipOverMesh:

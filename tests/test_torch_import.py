@@ -101,8 +101,10 @@ def test_transport_without_device_needs_cuda():
 def test_make_transport_single_only(caplog):
     """``transport="single"`` is the resident layout; ``"tpu_mesh"`` (and
     ``"multihost"``) is a ``MeshTransport`` inside a process group of
-    ``cfg.rows`` ranks and, outside one, the resident layout after a
-    logged warning; any other name is refused."""
+    ``n_replicas * payload_shards`` ranks and, outside one, the resident
+    layout after a logged warning; ``"loopback"`` and any other name are
+    refused with the JAX package's messages (the golden model named as
+    the port's own)."""
     from raft_tpu_torch import MeshTransport, RaftConfig, make_transport
     from raft_tpu_torch.transport.launch import run_ranks
     from tests._mesh_ranks import transport_kind
@@ -123,5 +125,13 @@ def test_make_transport_single_only(caplog):
                             device="cpu")
     assert not isinstance(tr, MeshTransport)
     assert "multihost placement unavailable" in caplog.text
-    with pytest.raises(ValueError, match="not ported"):
-        make_transport(RaftConfig(**kw, transport="loopback"), device="cpu")
+    from raft_tpu.config import RaftConfig as JConfig
+    from raft_tpu.transport import make_transport as jmake
+
+    for name in ("loopback", "carrier-pigeon"):
+        with pytest.raises(ValueError) as want:
+            jmake(JConfig(**kw, transport=name))
+        with pytest.raises(ValueError) as got:
+            make_transport(RaftConfig(**kw, transport=name), device="cpu")
+        assert str(got.value) == str(want.value).replace(
+            "raft_tpu.golden", "raft_tpu_torch.golden")
