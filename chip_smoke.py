@@ -285,6 +285,25 @@ entries, batch 256, a 4096-slot ring each; ``bench.py``
     healed and a leader failed and re-elected through the Router, on
     the card and on the CPU: nodelog lines, recorder events, state
     leaves, the packed group rings, decoded events and the store equal;
+11d. ``group_mesh_path``: config B on the group-sharded layout, two
+    shards of 512 groups on the one card (``GroupMesh([cuda:0,
+    cuda:0])``; not a multi-card run): ``group_main_b``'s schedule
+    through ``GroupMeshTransport`` (one graph set a shard) beside the
+    resident program, every leaf and output equal after each window, a
+    cross-shard ``swap_slots`` in place (data pointers kept, no graph
+    recaptured) and the window alone in turns against the resident
+    graphs; then ``MultiEngine`` + ``Router`` + ``ShardedKV`` at
+    ``fuse_k`` 32: 2 048 SETs a group through the sharded engine in waves
+    of 256, the first four taken in turns with the resident engine, a
+    ``Router.rebalance`` migration mid-traffic, every group's apply
+    stream and ring read-back against the input's SHA-256;
+    prints entries/s, ms a fused window, K5 launches of each layout,
+    graph captures and recaptures and fetches a round;
+11e. ``group_mesh_card_equals_cpu``: 8 groups over two shards at a
+    256-slot ring, ``fuse_k`` 8, a trace, a recorder and the device
+    ring: migrations, fused windows, ``drive_schedule`` with a leader
+    killed, on the card and on the CPU: nodelog lines, recorder events,
+    every gathered leaf, decoded events, committed bytes equal;
 
 Then the replica mesh: one replica row per rank of a ``torch.distributed``
 gloo group, all ranks on the one card (three processes time-sharing it,
@@ -5566,15 +5585,18 @@ class KvStream:
         E, G = eng.cfg.entry_bytes, eng.G
         rng = np.random.default_rng(seed)
         keys = [[] for _ in range(G)]
-        i = 0
-        while min(len(k) for k in keys) < per_group:
+        i = full = 0
+        while full < G:
             k = b"k%07d" % i
             i += 1
             g = router.group_of(k)
             if len(keys[g]) < per_group:
                 keys[g].append(k)
+                full += len(keys[g]) == per_group
         vlen = E - 5 - 8
-        self.items = [[(k, rng.bytes(vlen)) for k in ks] for ks in keys]
+        vals = rng.integers(0, 256, (G, per_group, vlen), dtype=np.uint8)
+        self.items = [[(k, vals[g, j].tobytes()) for j, k in enumerate(ks)]
+                      for g, ks in enumerate(keys)]
         self.h_in = [hashlib.sha256() for _ in range(G)]
         for g in range(G):
             for k, v in self.items[g]:
@@ -6180,6 +6202,500 @@ def phase_multi_card_equals_cpu(dev):
     res = {"phase": "multi_card_equals_cpu", "groups": 4,
            "lines": len(card["lines"]), "device_events":
            len(card["dev_events"]), "fused_launches": card["fused_launches"],
+           "k5_launches": card["k5"]}
+    emit(res)
+    return res
+
+
+# ------------------------------------- the group-sharded layout (A15b)
+#: config B through the sharded and resident engines: SETs a group in
+#: each wave; the first GMESH_TURNS waves run on both engines in turns
+#: (the sharded engine first on even waves), the rest on the sharded one
+GMESH_WAVE = 256
+GMESH_WAVES = 8           # 2 048 a group through the sharded engine
+GMESH_TURNS = 4           # 1 024 a group through the resident one
+GMESH_REBALANCE_WAVE = 5  # the Router's migration comes inside this wave
+
+
+def same_sharded(t, sts, st, what):
+    """Every leaf of the sharded blocks ``sts`` against the resident
+    ``st``, block by block on the card."""
+    import torch
+
+    from raft_tpu_torch.core.state import FIELDS
+
+    gps = t.groups_per_shard
+    for k, b in enumerate(sts):
+        for f in FIELDS:
+            check(torch.equal(getattr(b, f),
+                              getattr(st, f)[k * gps:(k + 1) * gps]),
+                  f"{what}: state.{f} of shard {k} differs")
+
+
+def group_mesh_transport(dev, n_turns=8):
+    """Config B's fused schedule (``group_main_b``) on two co-resident
+    shards (``GroupMesh([dev, dev])``, 512 groups each, one graph set a
+    shard) beside the resident program, launch for launch: 4 clean
+    chained windows, 64 cut groups escaping, ``halted0``; every leaf and
+    output equal after each. Then a cross-shard ``swap_slots`` in place
+    (data pointers kept) and a window through the same graphs (no
+    recapture), equal to the resident state permuted alike; the window
+    alone in turns, sharded graphs against resident graphs."""
+    import torch
+
+    from raft_tpu_torch.core import ring_cuda
+    from raft_tpu_torch.core.comm import take_groups
+    from raft_tpu_torch.core.graphs import (FusedGroupGraphs,
+                                            pack_group_launch)
+    from raft_tpu_torch.core.state import FIELDS, init_group_state
+    from raft_tpu_torch.core.step import fused_group_scan, group_vote_step
+    from raft_tpu_torch.transport.group_mesh import (GroupMesh,
+                                                     GroupMeshTransport)
+
+    cfg, G = group_config_b()
+    R, B, W, K = cfg.rows, cfg.batch_size, cfg.shard_words, GROUP_K
+    t = GroupMeshTransport(cfg, G, mesh=GroupMesh([dev, dev]))
+    gps = t.groups_per_shard
+    check(t.n_shards == 2 and gps == 512, "two shards of 512 groups")
+    fused, vote = fused_group_scan(R), group_vote_step(R)
+    graphs = FusedGroupGraphs(R, dev)
+    S = GroupStream(cfg, G, SEED + 61)
+    leaders = (np.arange(G) % R).astype(np.int32)
+    ones, full = np.ones(G, np.int32), np.full((K, G), B, np.int32)
+    allr, none_r = np.ones((G, R), bool), np.zeros((G, R), bool)
+
+    def host_parts(pays, counts, halted0, alive, lead=leaders):
+        return [pack_group_launch(
+            K, gps, R, B, W, n_run=K, halted0=halted0[sl],
+            leaders=lead[sl], terms=ones[sl], counts=counts[:, sl],
+            alive=alive[sl], slow=none_r[sl], member=allr[sl],
+            payloads=pays[:, sl])
+            for sl in (slice(k * gps, (k + 1) * gps) for k in range(2))]
+
+    def on(x, dtype=None):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    k5 = {"sharded": 0, "resident": 0}
+
+    def counted(side, fn, *args):
+        """``fn(*args)`` with its K5 launches (a capture's eager warm-up
+        included) counted to ``side``."""
+        c = ring_cuda.LAUNCHES["write_window_cols"]
+        out = fn(*args)
+        k5[side] += ring_cuda.LAUNCHES["write_window_cols"] - c
+        return out
+
+    def both(pays, counts, halted0, alive, what):
+        nonlocal st, sts
+        out_s = counted("sharded", t.replicate_fused_packed, sts, host_parts(
+            pays, counts, halted0, alive), K, B, W, graphs)
+        out_r = counted("resident", fused, st, on(pays), on(counts), K,
+                        on(halted0), on(leaders), on(ones), on(alive),
+                        on(none_r), on(allr))
+        sts, st = out_s[0], out_r[0]
+        for i, (a, b) in enumerate(zip(out_s[1:], out_r[1:])):
+            for x, y in zip(*((a, b) if isinstance(a, tuple)
+                              else ((a,), (b,)))):
+                check(torch.equal(x, y), f"{what}: output {i} differs")
+        same_sharded(t, sts, st, what)
+        return out_r
+
+    ring_cuda.LAUNCHES["write_window_cols"] = 0
+    t0 = time.perf_counter()
+    st = init_group_state(cfg, G, device=dev)
+    sts = t.shard_state(st)
+    st, vr = vote(st, on(leaders), on(ones), on(allr))
+    sts, vs = t.request_votes(sts, leaders, ones, allr)
+    check(torch.equal(vr.votes, vs.votes) and vr.votes.tolist() == [R] * G,
+          "round-robin election, sharded and resident")
+    same_sharded(t, sts, st, "election")
+    halted = np.zeros(G, bool)
+    for w in range(4):
+        pays = S.entries(full, "cpu").numpy()
+        both(pays, full, halted, allr, f"clean window {w}")
+        S.read_back(st)
+    commits = take_groups(st.commit_index, on(leaders))
+    check(commits.tolist() == [4 * K * B] * G, "every group commits 128·B")
+    S.check_digests("config B on two shards")
+    lost = np.arange(0, G, G // 64)
+    cut = allr.copy()
+    cut[lost] = False
+    cut[lost, leaders[lost]] = True
+    pays = np.random.default_rng(SEED + 62).integers(
+        -2**31, 2**31 - 1, (K, G, B, W)).astype(np.int32)
+    out = both(pays, full, halted, cut, "cut window")
+    want = np.zeros(G, bool)
+    want[lost] = True
+    check(out[4].cpu().numpy().tolist() == want.tolist(),
+          "the cut groups escape and halt, on both shards")
+    halted = out[4].cpu().numpy()
+    out = both(pays, full, halted, allr, "halted0 window")
+    check(not bool(out[3][:, lost].any()), "a halted group ran on")
+    # a cross-shard swap in place: slot 3 (shard 0) <-> slot 700 (shard 1)
+    swap = [3, gps + 188 % gps]
+    perm = np.arange(G)
+    perm[swap] = swap[::-1]
+    ptrs = [[getattr(b, f).data_ptr() for f in FIELDS] for b in sts]
+    caps = graphs.captures
+    sts = t.swap_slots(sts, perm)
+    check(ptrs == [[getattr(b, f).data_ptr() for f in FIELDS] for b in sts],
+          "swap_slots kept every block's tensors")
+    pt = on(perm, torch.long)
+    st = type(st)(*(getattr(st, f)[pt] for f in FIELDS))
+    halted = halted[perm]
+    leaders_p = leaders[perm]
+    pays = S.entries(full, "cpu").numpy()
+    out_s = counted("sharded", t.replicate_fused_packed, sts, host_parts(
+        pays, full, halted, allr, leaders_p), K, B, W, graphs)
+    out_r = counted("resident", fused, st, on(pays), on(full), K,
+                    on(halted), on(leaders_p), on(ones), on(allr),
+                    on(none_r), on(allr))
+    sts, st = out_s[0], out_r[0]
+    same_sharded(t, sts, st, "window after the swap")
+    check(graphs.recaptures == 0 and graphs.captures == caps,
+          "the swap recaptured a graph")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # the window alone in turns: sharded graphs vs resident graphs
+    rgraphs = FusedGroupGraphs(R, dev)
+    hosts = host_parts(pays, full, np.zeros(G, bool), allr, leaders_p)
+    rhost = pack_group_launch(
+        K, G, R, B, W, n_run=K, halted0=np.zeros(G), leaders=leaders_p,
+        terms=ones, counts=full, alive=allr, slow=none_r, member=allr,
+        payloads=pays)
+
+    def one(side):
+        nonlocal st, sts
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        if side == "sharded":
+            o = counted(side, t.replicate_fused_packed, sts, hosts, K, B,
+                        W, graphs)
+            sts = o[0]
+        else:
+            o = counted(side, rgraphs.run, st, rhost, K, B, W)
+            st = o[0]
+        torch.stack([o[1].commit_index, o[1].frontier_len, o[1].max_term,
+                     o[2], o[3]]).cpu()
+        return (time.perf_counter() - a) * 1e3
+
+    first = {side: one(side) for side in ("sharded", "resident")}
+    ms = {"sharded": [], "resident": []}
+    for i in range(n_turns):
+        for side in (("sharded", "resident") if i % 2 == 0
+                     else ("resident", "sharded")):
+            ms[side].append(one(side))
+    same_sharded(t, sts, st, "timed windows")
+    check(graphs.recaptures == 0, "the sharded graphs recaptured")
+    return {"groups": G, "shards": 2, "groups_per_shard": gps,
+            "ticks_per_launch": K,
+            "entries_read_back": int(S.submitted.sum()),
+            "escaped_groups": int(len(lost)), "swap": swap,
+            "k5_launches": k5,
+            "graphs": {"captures": graphs.captures,
+                       "replays": graphs.replays,
+                       "recaptures": graphs.recaptures},
+            "schedule_wall_s": wall, "first_window_ms": first,
+            "window_turns": n_turns,
+            **{f"{side}_window_ms_{k}": fn(ms[side]) for side in ms
+               for k, fn in (("p50", statistics.median), ("min", min),
+                             ("max", max))},
+            "sharded_faster_in": sum(x < y for x, y in zip(
+                ms["sharded"], ms["resident"]))}
+
+
+class GroupMeshRun:
+    """Config B through ``MultiEngine`` + ``Router`` + ``ShardedKV`` at
+    ``fuse_k`` 32, on the sharded layout (``mesh``) or the resident one,
+    a wave at a time: SETs a group, drained by ``run_for`` (their fused
+    windows timed), then each group's new entries read back from a
+    follower row of the ring through the engine's slot table."""
+
+    def __init__(self, dev, mesh=None, items=None):
+        import copy
+
+        import torch
+
+        from raft_tpu_torch.examples import ShardedKV
+        from raft_tpu_torch.multi import MultiEngine, Router
+
+        cfg, G = group_config_b()
+        over = {"fuse_k": GROUP_K}
+        if mesh is not None:
+            over["transport"] = "mesh_groups"
+        self.cfg = cfg = multi_config(cfg, **over)
+        self.e = e = MultiEngine(cfg, G, mesh=mesh, device=dev)
+        e.seed_leaders()
+        self.router = Router(e)
+        self.kv = ShardedKV(e, self.router)
+        if items is None:
+            self.S = KvStream(self.router, GMESH_WAVE * GMESH_WAVES,
+                              SEED + 63)
+        else:
+            # another run's items and input hashes, with apply hashes of
+            # this engine's own (the routers hash keys alike)
+            self.S = S = copy.copy(items)
+            S.h_apply = [hashlib.sha256() for _ in range(G)]
+            S.n_apply = np.zeros(G, np.int64)
+            S.at = 0
+            for g in range(G):
+                e.register_apply(g, S._apply(g))
+        self.h_ring = [hashlib.sha256() for _ in range(G)]
+        self.done = np.zeros(G, np.int64)
+        self.walls, self.windows, self.k5 = [], [], 0
+        self.fetch = {"round": [], "window": []}
+        self.migrations = []
+        n = [0]
+        fetch, fire, rep = e._fetch, e._fire_fused_window, e._replicate_round
+
+        def counted(x):
+            n[0] += 1
+            return fetch(x)
+
+        def timed_fire(ticks, horizon):
+            torch.cuda.synchronize()
+            a, n0 = time.perf_counter(), n[0]
+            out = fire(ticks, horizon)
+            torch.cuda.synchronize()
+            if out:
+                self.windows.append((time.perf_counter() - a) * 1e3)
+                self.fetch["window"].append(n[0] - n0)
+            return out
+
+        def counted_rep(active):
+            n0 = n[0]
+            out = rep(active)
+            self.fetch["round"].append(n[0] - n0)
+            return out
+
+        e._fetch, e._fire_fused_window = counted, timed_fire
+        e._replicate_round = counted_rep
+
+    def read_back(self):
+        """Each group's entries committed since the last read, from row
+        ``(g + 1) % R`` of its ring (read before the ring laps them)."""
+        from raft_tpu_torch.core.state import log_entries
+
+        e, R = self.e, self.cfg.rows
+        for g in range(e.G):
+            hi = int(e.commit_watermark[g])
+            lo = int(self.done[g]) + 1
+            if hi >= lo:
+                self.h_ring[g].update(log_entries(
+                    e._view(g), (g + 1) % R, lo, hi).tobytes())
+                self.done[g] = hi
+
+    def wave(self, w):
+        """Wave ``w``: its SETs, then ``run_for`` 40 heartbeats; in
+        ``GMESH_REBALANCE_WAVE`` shard 0's groups get theirs first and
+        ``Router.rebalance`` runs before the rest are placed."""
+        import torch
+
+        from raft_tpu_torch.core import ring_cuda
+
+        e = self.e
+        k5 = ring_cuda.LAUNCHES["write_window_cols"]
+        items = self.S.wave(GMESH_WAVE)
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        if w == GMESH_REBALANCE_WAVE:
+            first = set(range(0, e.G // 2))     # shard 0's slots, placed
+            hot = [it for it in items
+                   if self.router.group_of(it[0]) in first]
+            self.kv.set_many(hot)
+            out = self.router.rebalance()
+            self.migrations = out["migrations"]
+            self.kv.set_many([it for it in items
+                              if self.router.group_of(it[0]) not in first])
+        else:
+            self.kv.set_many(items)
+        e.run_for(40 * self.cfg.heartbeat_period)
+        torch.cuda.synchronize()
+        self.walls.append(time.perf_counter() - a)
+        self.k5 += ring_cuda.LAUNCHES["write_window_cols"] - k5
+        self.read_back()
+
+    def result(self, name):
+        """Checks every SET committed, applied and read back against the
+        input's SHA-256 (of the waves this run took); the run's figures,
+        entries/s over the waves taken in turns bar the first, and over
+        the later ones."""
+        from raft_tpu_torch.examples.kv import encode_op
+
+        e, S = self.e, self.S
+        waves = len(self.walls)
+        total = GMESH_WAVE * waves
+        check((e.commit_watermark == total).all(),
+              f"{name}: every SET committed")
+        check((S.n_apply == total).all(), f"{name}: every SET applied")
+        want = S.h_in
+        if total < len(S.items[0]):
+            want = [hashlib.sha256() for _ in range(e.G)]
+            for g in range(e.G):
+                for k, v in S.items[g][:total]:
+                    want[g].update(encode_op(self.cfg.entry_bytes, 1, k, v))
+        bad = [g for g in range(e.G)
+               if S.h_apply[g].digest() != want[g].digest()
+               or self.h_ring[g].digest() != want[g].digest()]
+        check(not bad, f"{name}: groups {bad[:8]} read back differently "
+                       "from their input")
+        rate = {}
+        for key, walls in (("in_turns", self.walls[1:GMESH_TURNS]),
+                           ("alone", self.walls[GMESH_TURNS:])):
+            if walls:
+                rate[key] = e.G * GMESH_WAVE * len(walls) / sum(walls)
+        return {
+            "transport": e.transport_mode, "shards": e.n_shards,
+            "entries_per_group": total,
+            "wave_walls_s": self.walls,
+            "entries_per_s": rate,
+            "fused_launches": e.fused_launches,
+            "fused_ticks": e.fused_ticks,
+            "window_ms_p50": statistics.median(self.windows),
+            "window_ms_min": min(self.windows),
+            "window_ms_max": max(self.windows),
+            "windows": len(self.windows),
+            "fetches_per_round": sorted(set(self.fetch["round"])),
+            "fetches_per_window": sorted(set(self.fetch["window"])),
+            "graphs": {"captures": e._graphs.captures,
+                       "replays": e._graphs.replays,
+                       "recaptures": e._graphs.recaptures},
+            "migrations": self.migrations,
+            "k5_launches": self.k5,
+            "sha256_group0": want[0].hexdigest(),
+        }
+
+
+def group_mesh_engine(dev):
+    """Config B through the sharded engine (two shards on ``dev``), its
+    first ``GMESH_TURNS`` waves in turns with the resident engine's; a
+    Router migration in the sharded run mid-traffic. Returns both runs'
+    figures."""
+    from raft_tpu_torch.transport.group_mesh import GroupMesh
+
+    sharded = GroupMeshRun(dev, GroupMesh([dev, dev]))
+    runs = {"sharded": sharded,
+            "resident": GroupMeshRun(dev, items=sharded.S)}
+    for w in range(GMESH_WAVES):
+        names = ("sharded", "resident") if w % 2 == 0 else \
+            ("resident", "sharded")
+        for name in names if w < GMESH_TURNS else ("sharded",):
+            runs[name].wave(w)
+    out = {name: run.result(name) for name, run in runs.items()}
+    sh, rs = out["sharded"], out["resident"]
+    check(sh["shards"] == 2 and rs["shards"] == 1, "the two layouts")
+    check(len(sh["migrations"]) == 1 and runs["sharded"].e.migrations == 1,
+          "the Router moved a group off the hot shard")
+    mv = sh["migrations"][0]
+    check(runs["sharded"].e.shard_of(mv["group"]) == mv["dst"],
+          "the moved group lives on its new shard")
+    check(sh["graphs"]["recaptures"] == 0,
+          "the migration recaptured the sharded graphs")
+    check(sh["fetches_per_round"] == rs["fetches_per_round"] == [1]
+          and sh["fetches_per_window"] == rs["fetches_per_window"],
+          "one fetch a round on either layout")
+    check(sh["k5_launches"] > 0 and sh["fused_launches"] > 0,
+          "K5 and the fused windows ran on the sharded engine")
+    return out
+
+
+def phase_group_mesh_path(dev):
+    """Config B on the group-sharded layout (``group_mesh_transport``,
+    then ``group_mesh_engine``)."""
+    from raft_tpu_torch.core import ring_cuda
+
+    t0 = time.perf_counter()
+    ring_cuda.LAUNCHES["write_window_cols"] = 0
+    tr = group_mesh_transport(dev)
+    ring_cuda.LAUNCHES["write_window_cols"] = 0
+    eng = group_mesh_engine(dev)
+    res = {"phase": "group_mesh_path", "transport": tr, "engine": eng,
+           "k5_launches": {
+               "transport_sharded": tr["k5_launches"]["sharded"],
+               "transport_resident": tr["k5_launches"]["resident"],
+               "engine_sharded": eng["sharded"]["k5_launches"],
+               "engine_resident": eng["resident"]["k5_launches"]},
+           "wall_s": time.perf_counter() - t0}
+    emit(res)
+    return res
+
+
+def gmesh_cmp_run(dev):
+    """The sharded engine, G = 8 over two shards on ``dev`` (B = 8, C =
+    256, ``fuse_k`` 8, a trace, a flight recorder and a 128-record
+    device ring): seeded leaders, two migrations, two bursts of fused
+    windows over every group, a third migration, then
+    ``tests/test_group_shard.py``'s ``drive_schedule``: traffic on every
+    group, a leader killed and re-elected, more traffic. Runs on the CPU
+    too; returns what card and CPU must agree on."""
+    from raft_tpu_torch.config import RaftConfig
+    from raft_tpu_torch.core import ring_cuda
+    from raft_tpu_torch.multi import MultiEngine
+    from raft_tpu_torch.obs.events import FlightRecorder
+    from raft_tpu_torch.transport.group_mesh import GroupMesh
+
+    cfg = RaftConfig(n_replicas=3, entry_bytes=64, batch_size=8,
+                     log_capacity=256, transport="mesh_groups", seed=5,
+                     fuse_k=8)
+    G = 8
+    rng = np.random.default_rng(SEED + 64)
+
+    def pays(n):
+        return [rng.bytes(64) for _ in range(n)]
+
+    lines, rec = [], FlightRecorder()
+    e = MultiEngine(cfg, G, trace=lines.append, recorder=rec,
+                    mesh=GroupMesh([dev, dev]), device=dev)
+    dobs = e.attach_device_obs(capacity=128)
+    ring_cuda.LAUNCHES["write_window_cols"] = 0
+    e.seed_leaders()
+    e.migrate_group(1, 1)
+    e.migrate_group(6, 0, partner=2)
+    for _ in range(2):
+        last = {g: [e.submit(g, p) for p in pays(48)][-1]
+                for g in range(G)}
+        e.run_for(40.0)
+        check(all(e.is_durable(g, s) for g, s in last.items()),
+              "the fused windows committed every group")
+    e.migrate_group(5, 0)
+    # drive_schedule
+    last = {g: [e.submit(g, p) for p in pays(12 + g)][-1] for g in range(G)}
+    for g in range(G):
+        e.run_until_committed(g, last[g])
+    e.fail(0, e.leader_id[0])
+    e.run_until_leader(0)
+    s = e.submit(0, pays(1)[0])
+    e.run_until_committed(0, s)
+    return {"lines": lines, "events": rec.to_jsonable(),
+            "leaves": e._gshard.gather_state(e.state),
+            "dev_events": [ev.to_jsonable() for ev in dobs.events],
+            "committed": [e.committed_payloads(g) for g in range(G)],
+            "slot": e._slot.tolist(), "fused_launches": e.fused_launches,
+            "recaptures": (None if e._graphs is None
+                           else e._graphs.recaptures),
+            "k5": ring_cuda.LAUNCHES["write_window_cols"]}
+
+
+def phase_group_mesh_card_equals_cpu(dev):
+    """``gmesh_cmp_run`` on the card and on the CPU: nodelog lines,
+    recorder events, every gathered leaf, decoded device events,
+    committed bytes and the slot table equal."""
+    card = gmesh_cmp_run(dev)
+    cpu = gmesh_cmp_run("cpu")
+    for k in ("lines", "events", "dev_events", "committed", "slot",
+              "fused_launches"):
+        check(card[k] == cpu[k], f"group mesh card vs CPU: {k} differ")
+    for f in card["leaves"]:
+        check(np.array_equal(card["leaves"][f], cpu["leaves"][f]),
+              f"group mesh card vs CPU: state.{f} differs")
+    check(card["k5"] > 0 and cpu["k5"] == 0 and card["fused_launches"] > 0
+          and card["recaptures"] == 0,
+          "K5 ran on the card (and only there), fused windows too, and "
+          "no migration recaptured a graph")
+    res = {"phase": "group_mesh_card_equals_cpu", "groups": 8, "shards": 2,
+           "lines": len(card["lines"]),
+           "device_events": len(card["dev_events"]),
+           "fused_launches": card["fused_launches"], "slot": card["slot"],
            "k5_launches": card["k5"]}
     emit(res)
     return res
@@ -8793,7 +9309,10 @@ ONLY_PHASES = {"kernels": lambda dev: phase_kernels(ns_config(), dev),
                phase_mesh_engine_card_equals_cpu,
                "engine_mesh2d_path": phase_engine_mesh2d_path,
                "engine_mesh2d_ec_path": phase_engine_mesh2d_ec_path,
-               "mesh2d_card_equals_cpu": phase_mesh2d_card_equals_cpu}
+               "mesh2d_card_equals_cpu": phase_mesh2d_card_equals_cpu,
+               "group_mesh_path": phase_group_mesh_path,
+               "group_mesh_card_equals_cpu":
+               phase_group_mesh_card_equals_cpu}
 
 
 def main() -> int:
@@ -8845,6 +9364,8 @@ def main() -> int:
     engine_multi = phase_engine_multi_path(dev)
     engine_multi_fused = phase_engine_multi_fused_path(dev)
     multi_small = phase_multi_card_equals_cpu(dev)
+    gmesh = phase_group_mesh_path(dev)
+    gmesh_small = phase_group_mesh_card_equals_cpu(dev)
     mesh_errs = phase_mesh_kernels(cfg, ecfg, dev)
     mesh_kernel_times = time_mesh_kernels(
         cfg, dev, np.random.default_rng(SEED + 31), 21, mem_rate(card_line))
@@ -8946,6 +9467,13 @@ def main() -> int:
                    {"group_main": group_main[cfg_key]["k5_launches"]})
         for path, ph in engine_paths:
             by_path[path] = ph["k5_launches"]
+        if key == "K5 B":
+            # the group-sharded layout: its two shards (one launch a shard
+            # a tick) and the resident program beside them
+            by_path.update({f"group_mesh_{k}": n for k, n
+                            in gmesh["k5_launches"].items()})
+        if key == "K5 small":
+            by_path["group_mesh_card_equals_cpu"] = gmesh_small["k5_launches"]
         kernels.append({
             "name": f"K5 write_window_cols ({label})", "route": "cuda",
             "source": "raft_tpu_torch/csrc/ring.cu",

@@ -383,11 +383,12 @@ def run_group_launch(program, state, inp: torch.Tensor, K: int, B: int,
 
 
 class _GroupGraphSet:
-    """The graphs of one (G, B, W, record) shape over one engine's rings
-    (and event rings with their group ids): the static small leaves
-    [G, R] they share."""
+    """The graphs of one (G, B, W, record, shard) shape over one block's
+    rings (and event rings with their group ids) on its device: the
+    static small leaves [G, R] they share."""
 
     def __init__(self, state: ReplicaState, rings=None, gids=None):
+        self.device = state.device
         self.log_term = state.log_term
         self.log_payload = state.log_payload
         self.rings = rings
@@ -416,10 +417,13 @@ class FusedGroupGraphs:
     (``raft_tpu/multi/engine.py:194`` ``_fused_group_programs``), with
     :class:`FusedGraphs`' rules:
 
-    - one graph per (G, K, B, W, recorded) and ring identity (the group
-      state's two rings and, recorded, the group event rings' four
+    - one graph per (G, K, B, W, recorded, shard) and ring identity (the
+      group state's two rings and, recorded, the group event rings' four
       tensors and the ``gids`` tensor): one of another identity drops
-      the set and captures anew (``recaptures``);
+      the set and captures anew (``recaptures``). ``shard`` keeps the
+      blocks of a group-sharded state (``transport.group_mesh``) in sets
+      of their own, each captured on its block's device, so two shards
+      of one shape on one card never drop each other's set;
     - every per-launch input (``n_run``, ``halted0``, leaders, terms, the
       K × G counts, the alive/slow/member planes and the K × G × B × W
       payload words) is one int32 array (:func:`pack_group_launch`),
@@ -470,12 +474,12 @@ class FusedGroupGraphs:
     def _capture(self, gs: _GroupGraphSet, K: int, B: int, W: int) -> _Graph:
         t0 = time.perf_counter()
         G = gs.small["term"].shape[0]
-        g = _Graph(K, group_launch_size(K, G, self.rows, B, W), self.device)
+        g = _Graph(K, group_launch_size(K, G, self.rows, B, W), gs.device)
         # warm-up: n_run 0 and every group halted, the bit-exact no-op
         g.inp[1:1 + G] = 1
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
-        _capture(g, self.pool, self.device, gs.rings,
+        _capture(g, self.pool, gs.device, gs.rings,
                  lambda: self._body(gs, g.inp, K, B, W),
                  lambda: None, "write_window_cols")
         self.captures += 1
@@ -483,12 +487,13 @@ class FusedGroupGraphs:
         return g
 
     def run(self, state: ReplicaState, host: np.ndarray, K: int, B: int,
-            W: int, rings=None, gids=None):
+            W: int, rings=None, gids=None, shard: int = 0):
         """One fused group launch from its packed host inputs ``host``
-        (:func:`pack_group_launch`) by one replay: ``fused_group_scan``'s
-        results ``(state, infos, escaped, ran, halted[, rings])``."""
+        (:func:`pack_group_launch`) by one replay of ``shard``'s set:
+        ``fused_group_scan``'s results ``(state, infos, escaped, ran,
+        halted[, rings])``."""
         G, R = state.term.shape
-        key = (G, B, W, rings is not None)
+        key = (G, B, W, rings is not None, shard)
         gs = self.sets.get(key)
         if gs is None or not gs.holds(state, rings, gids):
             if gs is not None:

@@ -30,6 +30,7 @@ state holding them, so a state passed to a step is consumed: keep a
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Optional
 
 import numpy as np
@@ -199,6 +200,112 @@ def as_group(state: ReplicaState) -> ReplicaState:
     """An unbatched state as a group-batched one with G = 1 (views); the
     inverse of ``group_view(state, 0)``."""
     return ReplicaState(*(getattr(state, f)[None] for f in FIELDS))
+
+
+# --------------------------------------------------------------------------
+# Group-axis mesh layout (``raft_tpu/core/state.py:218-314``): the group
+# axis of a group-batched state split over a ``gshard`` mesh axis, written
+# as a rule table over leaf names. A spec is a plain tuple of axis names:
+# ``(GROUP_AXIS,)`` splits the leading axis, ``()`` keeps the leaf whole on
+# every shard. A leaf that no rule names raises.
+
+#: Mesh axis names of the group layout: ``gshard`` splits the group axis;
+#: ``replica`` is kept for replica-row placement and has size 1 (each shard
+#: holds all R rows of its groups).
+GROUP_AXIS = "gshard"
+REPLICA_AXIS = "replica"
+
+
+def group_partition_rules():
+    """The (group, replica) layout as ``(regex, spec)`` pairs over leaf
+    names, matched in order: every ``ReplicaState`` leaf leads with the
+    group axis, and each is named explicitly (no catch-all)."""
+    return (
+        # the payload ring: [G, C, R*W] — slots and lanes stay local
+        (r"log_payload$", (GROUP_AXIS,)),
+        # the term ring: [G, R, C]
+        (r"log_term$", (GROUP_AXIS,)),
+        # per-replica scalar planes — [G, R]
+        (r"^(term|voted_for|last_index|commit_index"
+         r"|match_index|match_term)$", (GROUP_AXIS,)),
+    )
+
+
+def _map_named(fn, tree, prefix: str = ""):
+    """``fn(name, leaf)`` over a ``ReplicaState`` (or any dataclass) or a
+    dict of leaves, names '/'-joined from the field names and keys; the
+    result keeps the tree's structure."""
+    def name(key) -> str:
+        return f"{prefix}/{key}" if prefix else str(key)
+
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return type(tree)(**{
+            f.name: _map_named(fn, getattr(tree, f.name), name(f.name))
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: _map_named(fn, v, name(k)) for k, v in tree.items()}
+    return fn(prefix, tree)
+
+
+def match_partition_rules(rules, tree):
+    """Rule table -> the tree's specs: each leaf matched by name against
+    ``rules`` in order. A scalar or single-element leaf gets ``()``; a
+    leaf no rule matches raises (it would otherwise be copied whole onto
+    every shard)."""
+    def spec_of(name, leaf):
+        shape = np.shape(leaf)
+        if len(shape) == 0 or int(np.prod(shape)) == 1:
+            return ()
+        for rule, spec in rules:
+            if re.search(rule, name) is not None:
+                return spec
+        raise ValueError(f"no partition rule matched leaf {name!r}")
+
+    return _map_named(spec_of, tree)
+
+
+def make_shard_and_gather_fns(mesh, specs):
+    """Specs -> (shard_fns, gather_fns), in the specs' structure.
+    ``mesh`` is a ``transport.group_mesh.GroupMesh``. A shard function
+    takes a host array or tensor and returns one tensor a shard, each on
+    its shard's device: ``(GROUP_AXIS,)`` cuts the leading axis into
+    ``n_shards`` equal blocks, ``()`` copies the whole value. A gather
+    function takes those parts and returns the whole value as numpy."""
+    devices = list(mesh.devices)
+    n = len(devices)
+
+    def make_shard_fn(spec):
+        def shard_fn(x):
+            t = torch.as_tensor(np.asarray(x)) if not isinstance(
+                x, torch.Tensor) else x
+            if GROUP_AXIS not in spec:
+                return [t.to(d, copy=True) for d in devices]
+            if t.shape[0] % n:
+                raise ValueError(
+                    f"leading axis {t.shape[0]} does not split over "
+                    f"{n} shards")
+            b = t.shape[0] // n
+            return [t[k * b:(k + 1) * b].to(d, copy=True).contiguous()
+                    for k, d in enumerate(devices)]
+        return shard_fn
+
+    def make_gather_fn(spec):
+        def gather_fn(parts):
+            if GROUP_AXIS not in spec:
+                return host_copy(parts[0])
+            return np.concatenate([host_copy(p) for p in parts], axis=0)
+        return gather_fn
+
+    return (_map_named(lambda _, spec: make_shard_fn(spec), specs),
+            _map_named(lambda _, spec: make_gather_fn(spec), specs))
+
+
+def group_state_specs(cfg: RaftConfig, n_groups: int) -> ReplicaState:
+    """The group-batched state's specs through the rule table, from a
+    shape-only zero state (the ``meta`` device), so the specs follow the
+    dataclass."""
+    tmpl = init_group_state(cfg, n_groups, device="meta")
+    return match_partition_rules(group_partition_rules(), tmpl)
 
 
 def state_from_numpy(fields: dict, device="cuda") -> ReplicaState:

@@ -14,6 +14,8 @@ bitwise the single-group store over that group's log.
 Usage:
 
     eng = MultiEngine(cfg, n_groups=4)   # device="cpu" off the card
+    # or sharded: cfg with transport="mesh_groups" and
+    # mesh=GroupMesh(["cuda:0", "cuda:0"]) (two shards on one card)
     eng.seed_leaders()                    # round-robin leader placement
     kv = ShardedKV(eng)
     g, seq = kv.set(b"color", b"green")

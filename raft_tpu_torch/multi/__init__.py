@@ -1,8 +1,9 @@
 """Multi-Raft on the port (``raft_tpu/multi``): G independent consensus
 groups as one batched device program (``MultiEngine``, resident on one
-device) behind a key-routed sharding front end (``Router``) with a
-StatusBoard-driven placement controller (``Rebalancer``). See
-``multi.engine`` for the design notes."""
+device or split over a ``transport.group_mesh.GroupMesh``) behind a
+key-routed sharding front end (``Router``) with a StatusBoard-driven
+placement controller (``Rebalancer``). See ``multi.engine`` for the
+design notes."""
 
 from raft_tpu_torch.multi.engine import (
     GROUP_AXIS_TRANSPORTS,

@@ -39,14 +39,23 @@ bytes are archived on the host per group (bounded at ``2 *
 log_capacity``; with a tier configured the sweep seals RS-coded segments
 instead of dropping) for the ordered apply stream (``register_apply``).
 
+Placement (``transport.group_mesh``): with ``transport="mesh_groups"``
+(or ``RAFT_TPU_GSHARD=1``) and a mesh of more than one shard
+(``mesh=GroupMesh([...])``, or the visible cards), the group axis is
+split into one block a shard and every launch runs on each block. The
+slot table ``_slot`` (logical group -> physical slot; ``_phys_group`` its
+inverse) is the identity until ``migrate_group`` swaps two groups' slots,
+and every device-facing index goes through it: operands are packed in
+physical order, one upload a shard, and results are read back per
+logical group. Host mirrors (queues, stamps, rngs, the heap) are
+logical-indexed and never move. One shard (one device, or a G the device
+set cannot split) degrades to the resident layout, as in JAX.
+
 With the same ``RaftConfig``, seed and calls, every group's nodelog
 lines, terms, roles, watermarks, state leaves, committed bytes and apply
-stream equal the JAX ``MultiEngine``'s. ``MultiEngine(cfg, G)`` runs on
-CUDA; pass ``device="cpu"`` to run the plain versions. Not ported: the
-group-sharded layout (``transport="mesh_groups"`` or
-``RAFT_TPU_GSHARD=1``, JAX ``transport/group_mesh.py``), which raises
-naming ROADMAP A15b; on the resident layout every group lives on shard 0
-and ``migrate_group`` refuses as in JAX.
+stream equal the JAX ``MultiEngine``'s, on either layout.
+``MultiEngine(cfg, G)`` runs on CUDA; pass ``device="cpu"`` (and a mesh
+of CPU devices to shard) to run the plain versions.
 """
 
 from __future__ import annotations
@@ -83,7 +92,6 @@ from raft_tpu_torch.raft.engine import (
     FOLLOWER,
     LEADER,
     VirtualClock,
-    _not_ported,
 )
 from raft_tpu_torch.raft.ledger import (
     durable_range_covers,
@@ -137,9 +145,9 @@ class UnsupportedMembership(ValueError):
 
 
 #: Transports that carry the GROUP axis, as in JAX: "single" (resident,
-#: one device) and "mesh_groups" (the group axis sharded over a mesh; not
-#: ported, ROADMAP A15b). The per-row transports ("tpu_mesh",
-#: "multihost") have no group dimension.
+#: one device) and "mesh_groups" (the group axis sharded over a
+#: ``transport.group_mesh.GroupMesh``). The per-row transports
+#: ("tpu_mesh", "multihost") have no group dimension.
 GROUP_AXIS_TRANSPORTS = ("single", "mesh_groups")
 
 
@@ -178,6 +186,7 @@ class MultiEngine:
         n_groups: int,
         trace: Optional[Callable[[str], None]] = None,
         recorder=None,
+        mesh=None,
         device=None,
     ):
         if cfg.ec_enabled:
@@ -198,31 +207,66 @@ class MultiEngine:
             transport == "single"
             and (os.environ.get("RAFT_TPU_GSHARD", "") or "0") != "0"
         ):
+            # env upgrade, as RAFT_TPU_FUSE_K: degrades right back to the
+            # resident layout below when the device set cannot shard G
             transport = "mesh_groups"
         if n_groups < 1:
             raise ValueError("n_groups must be >= 1")
-        if transport == "mesh_groups":
-            raise _not_ported(
-                "the group-sharded layout (transport='mesh_groups' or "
-                "RAFT_TPU_GSHARD=1, transport.group_mesh)", "A15b")
         self.cfg = cfg
         self.G = n_groups
         R = cfg.n_replicas
-        self.device = resolve_device(device)
-        self.state: ReplicaState = init_group_state(cfg, n_groups,
-                                                    device=self.device)
-        self.transport_mode = "single"
-        self.n_shards = 1
+        # ---- group-axis placement (transport.group_mesh) -------------
+        # mesh_groups: ``mesh`` (a GroupMesh), else ``device`` alone, else
+        # the visible cards. One shard degrades to the resident layout.
+        self._gshard = None
+        if transport == "mesh_groups":
+            from raft_tpu_torch.transport.group_mesh import (
+                GroupMeshTransport,
+            )
+
+            t = GroupMeshTransport(
+                cfg, n_groups, mesh=mesh,
+                devices=None if device is None else [device])
+            self.device = t.devices[0]
+            if device is not None and \
+                    torch.device(device).type != self.device.type:
+                raise ValueError(
+                    f"device {device!r} is not the mesh's {self.device}")
+            if t.n_shards > 1:
+                self._gshard = t
+        else:
+            self.device = resolve_device(device)
+        self.transport_mode = (
+            "mesh_groups" if self._gshard is not None else "single"
+        )
+        self.n_shards = (
+            self._gshard.n_shards if self._gshard is not None else 1
+        )
+        self._gps = n_groups // self.n_shards   # groups a shard
+        self._devices = (self._gshard.devices if self._gshard is not None
+                         else [self.device])   # one a shard
+        self.state = init_group_state(cfg, n_groups, device=self.device)
+        #   a ReplicaState on the resident layout, one block a shard
+        #   (a list) on the sharded one
+        if self._gshard is not None:
+            self.state = self._gshard.shard_state(self.state)
+        self._slot = np.arange(n_groups)
+        #   logical group -> physical device slot: the identity until a
+        #   migration swaps two groups' slots
+        self._phys_group = np.arange(n_groups)
+        #   physical slot -> logical group (the inverse table)
         self.migrations = 0
         self._replicate = group_replicate_step(R)
         self._vote = group_vote_step(R)
-        self._member = torch.ones((n_groups, R), dtype=torch.bool,
-                                  device=self.device)
-        self._hb_payloads = None   # cached all-zero batch (ingest-free rounds)
+        self._member = [torch.ones((self._gps, R), dtype=torch.bool,
+                                   device=d) for d in self._devices]
+        self._hb_payloads = None
+        #   cached all-zero batch a shard (ingest-free rounds)
         self._graphs = (FusedGroupGraphs(R, self.device)
-                        if self.device.type == "cuda" else None)
-        #   the fused window's CUDA graphs (None off the card, where the
-        #   window runs the eager program)
+                        if all(d.type == "cuda" for d in self._devices)
+                        else None)
+        #   the fused window's CUDA graphs, one set a shard (None off the
+        #   card, where the window runs the eager program)
         self._last_host: Dict[str, np.ndarray] = {}
         #   the last round's one host fetch: match, last_index, frontier
 
@@ -384,10 +428,48 @@ class MultiEngine:
         programs may later update in place)."""
         return x.detach().to("cpu", copy=True).numpy()
 
-    def _upload(self, host: np.ndarray) -> torch.Tensor:
-        """One packed int32 host array on the device: a launch's single
-        upload."""
-        return torch.from_numpy(host).to(self.device)
+    def _upload(self, host: np.ndarray, shard: int = 0) -> torch.Tensor:
+        """One packed int32 host array on a shard's device: a launch's
+        single upload for that shard."""
+        return torch.from_numpy(host).to(self._devices[shard])
+
+    def _blocks(self) -> List[ReplicaState]:
+        """The state as one block a shard (one block when resident)."""
+        return self.state if self._gshard is not None else [self.state]
+
+    def _view(self, g: int) -> ReplicaState:
+        """Logical group ``g``'s unbatched state: views of its slot."""
+        k, i = divmod(int(self._slot[g]), self._gps)
+        return group_view(self._blocks()[k], i)
+
+    def _whole(self, leaf: str) -> torch.Tensor:
+        """A state leaf over every group in physical slot order (the
+        shards' blocks joined on the first shard's device)."""
+        if self._gshard is None:
+            return getattr(self.state, leaf)
+        return self._gshard.cat([getattr(b, leaf) for b in self.state])
+
+    def _launch(self, kind: str, *ops):
+        """One batched ``kind`` launch ("vote" or "replicate") from
+        per-shard operand lists ``ops``: through the group-mesh transport
+        on the sharded layout (each shard's block), the resident program
+        otherwise. The state (and the device rings) are replaced; returns
+        the info, group axis in physical slot order."""
+        rec = self._dev_rings is not None
+        ring_args = (self._dev_rings, self._dev_gids) if rec else ()
+        if self._gshard is not None:
+            fn = (self._gshard.request_votes if kind == "vote"
+                  else self._gshard.replicate)
+            out = fn(self.state, *ops, *ring_args)
+        else:
+            prog = {"vote": (self._vote, self._vote_rec),
+                    "replicate": (self._replicate,
+                                  self._replicate_rec)}[kind][rec]
+            out = prog(self.state, *(o[0] for o in ops), *ring_args)
+        self.state = out[0]
+        if rec:
+            self._dev_rings = out[2]
+        return out[1]
 
     def nodelog(self, g: int, r: int, msg: str,
                 kind: Optional[str] = None, **fields) -> str:
@@ -398,8 +480,9 @@ class MultiEngine:
         rec = self.recorder
         if self._trace is None and rec is None:
             return ""
+        gv = self._view(g)
         ci_li = self._fetch(torch.stack(
-            [self.state.commit_index[g, r], self.state.last_index[g, r]]))
+            [gv.commit_index[r], gv.last_index[r]]))
         line = (
             f"[g{g}/Server{r}:{self.terms[g, r]}:{int(ci_li[0])}:"
             f"{int(ci_li[1])}][{self.roles[g][r]}]{msg}"
@@ -439,10 +522,17 @@ class MultiEngine:
 
         self.device_obs = obs if obs is not None else DeviceObs(capacity)
         self.device_obs.new_epoch()
-        self._dev_rings = init_group_rings(self.device_obs.capacity, self.G,
-                                           device=self.device)
-        self._dev_gids = torch.arange(self.G, dtype=torch.int32,
-                                      device=self.device)
+        # ring slot s records the group resident at s: the gid operand
+        # carries the logical id, and a migration swaps the ring slots
+        # with the state (events stay with their logical group)
+        cap, gps = self.device_obs.capacity, self._gps
+        rings = [init_group_rings(cap, gps, device=d) for d in self._devices]
+        gids = [torch.tensor(self._phys_group[k * gps:(k + 1) * gps],
+                             dtype=torch.int32, device=d)
+                for k, d in enumerate(self._devices)]
+        if self._gshard is None:
+            rings, gids = rings[0], gids[0]
+        self._dev_rings, self._dev_gids = rings, gids
         self._dev_flushed = np.zeros(self.G, np.int64)
         self._dev_counters_folded = np.zeros((self.G, N_COUNTERS), np.int64)
         R = self.cfg.n_replicas
@@ -452,8 +542,9 @@ class MultiEngine:
 
     def _flush_device_obs(self) -> None:
         """Decode every group's new records from ONE packed fetch
-        (i32[G, capacity + 1, REC_W]); fold per-group counter deltas into
-        the registry (``raft_device_*``)."""
+        (i32[G, capacity + 1, REC_W], the shards' rings joined in slot
+        order; group g's ring is slot ``_slot[g]``); fold per-group
+        counter deltas into the registry (``raft_device_*``)."""
         if self.device_obs is None or self._dev_rings is None:
             return
         from raft_tpu_torch.obs.device import (
@@ -462,10 +553,14 @@ class MultiEngine:
             packed_flush,
         )
 
-        packed = self._fetch(packed_flush(self._dev_rings))
+        if self._gshard is None:
+            packed = self._fetch(packed_flush(self._dev_rings))
+        else:
+            packed = self._fetch(self._gshard.cat(
+                [packed_flush(r) for r in self._dev_rings]))
         for g in range(self.G):
             events, count, lost, counters, _tick = decode_records(
-                packed[g], int(self._dev_flushed[g]),
+                packed[self._slot[g]], int(self._dev_flushed[g]),
                 t_virtual=self.clock.now,
             )
             if count == self._dev_flushed[g] and not np.any(
@@ -715,7 +810,7 @@ class MultiEngine:
             eff = self._reach(g, target)
             if int(eff.sum()) <= self.cfg.n_replicas // 2:
                 continue
-            gv = group_view(self.state, g)
+            gv = self._view(g)
             lasts, lterms = self._fetch(
                 torch.stack([gv.last_index, last_log_term(gv)]))
             tkey = (int(lterms[target]), int(lasts[target]))
@@ -744,13 +839,20 @@ class MultiEngine:
 
     # ------------------------------------------------- group placement
     def shard_of(self, g: int) -> int:
-        """Physical shard holding group ``g``: always 0 on the resident
-        layout (the only one ported)."""
-        return 0
+        """Physical shard currently holding logical group ``g`` (block
+        layout over the ``gshard`` axis; always 0 on the resident
+        layout)."""
+        if self._gshard is None:
+            return 0
+        return int(self._slot[g]) // self._gps
 
     def groups_on_shard(self, shard: int) -> List[int]:
-        """Groups resident on ``shard``, in slot order."""
-        return list(range(self.G)) if shard == 0 else []
+        """Logical groups resident on ``shard``, in slot order."""
+        if self._gshard is None:
+            return list(range(self.G)) if shard == 0 else []
+        gps = self._gps
+        return [int(self._phys_group[s])
+                for s in range(shard * gps, (shard + 1) * gps)]
 
     def migrate_group(
         self,
@@ -759,14 +861,93 @@ class MultiEngine:
         partner: Optional[int] = None,
         catch_up_s: Optional[float] = None,
     ) -> Optional[dict]:
-        """Move group ``g`` onto ``dst_shard``: the sharded layout's
-        operation (JAX ``multi/engine.py:918``). The resident layout has a
-        single shard, and this raises the JAX engine's ``ValueError``."""
-        raise ValueError(
-            "migrate_group needs the sharded layout "
-            "(transport='mesh_groups' with >1 shard); the resident "
-            "path has a single shard"
+        """Move logical group ``g`` onto ``dst_shard`` by swapping slots
+        with a ``partner`` group resident there (JAX
+        ``multi/engine.py:918``), in three stages:
+
+        1. **catch-up**: drive the event loop for a bounded window
+           (default two heartbeats) until neither group has uncommitted
+           bookkeeping, so the move lands between rounds. Best-effort:
+           the move is safe regardless.
+        2. **install**: the two groups' slots swap on the devices, state
+           and event-ring slices (``GroupMeshTransport.swap_slots``, in
+           place); each group's rings, terms, votes and match state move
+           whole, so no divergent copy exists.
+        3. **release**: the placement tables swap and the ring gid map
+           follows. Host mirrors are logical-indexed and never move.
+
+        Returns a summary dict, or None when ``g`` already lives on
+        ``dst_shard``. Raises on the resident layout (one shard)."""
+        if self._gshard is None:
+            raise ValueError(
+                "migrate_group needs the sharded layout "
+                "(transport='mesh_groups' with >1 shard); the resident "
+                "path has a single shard"
+            )
+        if not (0 <= dst_shard < self.n_shards):
+            raise ValueError(
+                f"dst_shard {dst_shard} out of range "
+                f"[0, {self.n_shards})"
+            )
+        src = self.shard_of(g)
+        if src == dst_shard:
+            return None
+        if partner is None:
+            # deterministic choice: the destination group with the least
+            # queued work (ties by group id), the cheapest to bounce back
+            partner = min(
+                self.groups_on_shard(dst_shard),
+                key=lambda gg: (len(self._queue[gg]), gg),
+            )
+        elif self.shard_of(partner) != dst_shard:
+            raise ValueError(
+                f"partner group {partner} is not on shard {dst_shard}"
+            )
+        t0 = self.clock.now
+        # ---- 1. catch-up (bounded, best-effort) ----------------------
+        window = (
+            catch_up_s if catch_up_s is not None
+            else 2 * self.cfg.heartbeat_period
         )
+        end = self.clock.now + window
+        while (
+            (self._uncommitted[g] or self._seq_at_index[g]
+             or self._uncommitted[partner] or self._seq_at_index[partner])
+            and self.clock.now < end and self._q
+        ):
+            self.step_event()
+        # ---- 2. install: the two slots swap on the devices -----------
+        sa, sb = int(self._slot[g]), int(self._slot[partner])
+        perm = np.arange(self.G)
+        perm[[sa, sb]] = [sb, sa]
+        self.state = self._gshard.swap_slots(self.state, perm)
+        if self._dev_rings is not None:
+            self._dev_rings = self._gshard.swap_ring_slots(
+                self._dev_rings, perm
+            )
+        # ---- 3. release: placement tables + decode maps --------------
+        self._slot[g], self._slot[partner] = sb, sa
+        self._phys_group[sa], self._phys_group[sb] = (
+            self._phys_group[sb], self._phys_group[sa],
+        )
+        if self._dev_rings is not None:
+            # in place: a captured graph keeps reading the same tensor
+            for s in (sa, sb):
+                k, i = divmod(s, self._gps)
+                self._dev_gids[k][i] = int(self._phys_group[s])
+        self.migrations += 1
+        self._metric_inc(g, "raft_group_migrations_total",
+                         "group moves between shards")
+        self.nodelog(
+            g, self.leader_id[g] if self.leader_id[g] is not None else 0,
+            f"migrated shard {src} -> {dst_shard} "
+            f"(partner g{partner})", kind="migrate",
+        )
+        return {
+            "group": g, "partner": partner, "src": src,
+            "dst": dst_shard, "t_start": t0, "t_done": self.clock.now,
+            "catch_up_s": round(self.clock.now - t0, 6),
+        }
 
     # ---------------------------------------------------------- fault toggles
     def fail(self, g: int, r: int) -> None:
@@ -1041,28 +1222,31 @@ class MultiEngine:
     def _campaign_many(self, cands: List[Tuple[int, int]]) -> None:
         """One batched vote launch for every (group, candidate) pair;
         groups without a campaign are masked to the no-op. The operands
-        go up as one packed array and the votes and max terms come back
-        in one fetch."""
-        G, R = self.G, self.cfg.n_replicas
-        host = np.zeros((2 + R, G), np.int32)
-        #   rows: candidates, terms, then the reach planes transposed
+        go up as one packed array a shard, in physical slot order, and
+        the votes and max terms come back in one fetch, read per logical
+        group through the slot table."""
+        R, gps = self.cfg.n_replicas, self._gps
+        host = np.zeros((self.n_shards, 2 + R, gps), np.int32)
+        #   per shard, rows: candidates, terms, then the reach planes
+        #   transposed
         for g, r in cands:
-            host[0, g] = r
-            host[1, g] = int(self.terms[g, r])
-            host[2:, g] = self._reach(g, r)
-        inp = self._upload(host)
-        args = (self.state, inp[0], inp[1], inp[2:].t() != 0)
+            k, i = divmod(int(self._slot[g]), gps)
+            host[k, 0, i] = r
+            host[k, 1, i] = int(self.terms[g, r])
+            host[k, 2:, i] = self._reach(g, r)
+        inps = [self._upload(host[k], k) for k in range(self.n_shards)]
+        info = self._launch("vote", [x[0] for x in inps],
+                            [x[1] for x in inps],
+                            [x[2:].t() != 0 for x in inps])
         if self._dev_rings is not None:
-            self.state, info, self._dev_rings = self._vote_rec(
-                *args, self._dev_rings, self._dev_gids)
             self._flush_device_obs()
-        else:
-            self.state, info = self._vote(*args)
-        votes, max_terms = self._fetch(torch.stack([info.votes,
-                                                    info.max_term]))
-        eff = host[2:].T != 0
+        votes, max_terms = self._fetch(torch.stack(
+            [info.votes, info.max_term]))[:, self._slot]
+        # the packed operands, logical order
+        plan = host.transpose(1, 0, 2).reshape(2 + R, self.G)[:, self._slot]
+        eff = plan[2:].T != 0
         for g, r in cands:
-            cand_term = int(host[1, g])
+            cand_term = int(plan[1, g])
             e = eff[g]
             self.terms[g][e] = np.maximum(self.terms[g][e], cand_term)
             if int(max_terms[g]) > cand_term:
@@ -1117,65 +1301,70 @@ class MultiEngine:
 
     def _replicate_round(self, active: Dict[int, tuple]):
         """One batched replicate launch. ``active``: g -> (leader, term,
-        take, u8[take, entry_bytes] batch or None). One packed upload
-        carries counts, leaders, terms, the reach and slow planes and
-        (when anything is ingested) the untiled payload words, tiled to
-        the lane layout on the device; ONE fetch brings back the round's
-        max_term, commit_index, frontier_len, match and last_index
-        (``_last_host``). Returns (max_term[G], commit[G]) on the host;
-        ingest bookkeeping is the caller's."""
+        take, u8[take, entry_bytes] batch or None). One packed upload a
+        shard carries counts, leaders, terms, the reach and slow planes
+        and (when anything is ingested) the untiled payload words, tiled
+        to the lane layout on the device, all in physical slot order; ONE
+        fetch brings back the round's max_term, commit_index,
+        frontier_len, match and last_index (``_last_host``, logical
+        order). Returns (max_term[G], commit[G]) on the host; ingest
+        bookkeeping is the caller's."""
         cfg = self.cfg
-        G, R, B, W = self.G, cfg.n_replicas, cfg.batch_size, cfg.shard_words
+        R, B, W = cfg.n_replicas, cfg.batch_size, cfg.shard_words
+        n, gps = self.n_shards, self._gps
         hp = self.hostprof
         if hp is not None:
             hp.mark("host_pre")
             self._hp_groups.update(active)
         ingest = any(take for (_, _, take, _) in active.values())
-        small = 3 * G + 2 * G * R
-        host = np.zeros(small + (G * B * W if ingest else 0), np.int32)
+        small = 3 * gps + 2 * gps * R
+        host = np.zeros((n, small + (gps * B * W if ingest else 0)),
+                        np.int32)
         if ingest:
-            pays = host[small:].reshape(G, B, W)
+            pays = host[:, small:].reshape(n, gps, B, W)
             for g, (_, _, take, data) in active.items():
                 if take:
-                    pays[g, :take] = np.ascontiguousarray(data).view(np.int32)
+                    k, i = divmod(int(self._slot[g]), gps)
+                    pays[k, i, :take] = np.ascontiguousarray(data).view(
+                        np.int32)
         if hp is not None:
             hp.mark("pack")
-        head = host[:3 * G].reshape(3, G)       # counts, leaders, terms
-        eff = host[3 * G:small].reshape(2, G, R)  # reach, slow
+        head = host[:, :3 * gps].reshape(n, 3, gps)  # counts, leaders, terms
+        eff = host[:, 3 * gps:small].reshape(n, 2, gps, R)  # reach, slow
         for g, (r, term, take, _) in active.items():
-            head[:, g] = (take, r, term)
-            eff[0, g] = self._reach(g, r)
-        eff[1] = self.slow
+            k, i = divmod(int(self._slot[g]), gps)
+            head[k, :, i] = (take, r, term)
+            eff[k, 0, i] = self._reach(g, r)
+        eff[:, 1] = self.slow[self._phys_group].reshape(n, gps, R)
         if hp is not None:
             hp.mark("host_pre")
-        inp = self._upload(host)
-        planes = inp[3 * G:small].view(2, G, R) != 0
+        inps = [self._upload(host[k], k) for k in range(n)]
+        planes = [x[3 * gps:small].view(2, gps, R) != 0 for x in inps]
         if ingest:
-            payloads = inp[small:].view(G, B, W).repeat(1, 1, R)
+            payloads = [x[small:].view(gps, B, W).repeat(1, 1, R)
+                        for x in inps]
         else:
             # heartbeat / read-confirmation round: one device-resident
-            # zero batch instead of a fresh (G, B, R*W) buffer per round
+            # zero batch a shard instead of a fresh (G, B, R*W) buffer
             if self._hb_payloads is None:
-                self._hb_payloads = torch.zeros(
-                    (G, B, R * W), dtype=torch.int32, device=self.device)
+                self._hb_payloads = [
+                    torch.zeros((gps, B, R * W), dtype=torch.int32,
+                                device=d) for d in self._devices]
             payloads = self._hb_payloads
-        args = (self.state, payloads, inp[:G], inp[G:2 * G],
-                inp[2 * G:3 * G], planes[0], planes[1], self._member)
-        if self._dev_rings is not None:
-            self.state, info, self._dev_rings = self._replicate_rec(
-                *args, self._dev_rings, self._dev_gids)
-        else:
-            self.state, info = self._replicate(*args)
+        info = self._launch(
+            "replicate", payloads, [x[:gps] for x in inps],
+            [x[gps:2 * gps] for x in inps], [x[2 * gps:3 * gps] for x in inps],
+            [p[0] for p in planes], [p[1] for p in planes], self._member)
         if hp is not None:
             hp.mark("dispatch")
-            hp.sync(self.state.term, info.commit_index)
+            hp.sync(info.max_term, info.commit_index)
         # device-obs flush after the profiler marks (its packed fetch
         # syncs; inside the dispatch window it would misattribute)
         self._flush_device_obs()
         out = self._fetch(torch.cat([
             torch.stack([info.max_term, info.commit_index,
                          info.frontier_len], dim=1),
-            info.match, self.state.last_index], dim=1))
+            info.match, self._whole("last_index")], dim=1))[self._slot]
         self._last_host = {"match": out[:, 3:3 + R],
                            "last": out[:, 3 + R:],
                            "frontier": out[:, 2]}
@@ -1233,8 +1422,10 @@ class MultiEngine:
                 return False
         if not any(self._queue[g] for g in ticking):
             return False                 # pure-idle cluster: tick path
+        # one fetch, read per logical group through the slot table
         lasts, commits_dev = self._fetch(torch.stack(
-            [self.state.last_index, self.state.commit_index]))
+            [self._whole("last_index"),
+             self._whole("commit_index")]))[:, self._slot]
         for g in ticking:
             if not (lasts[g] == lasts[g, ticking[g]]).all():
                 return False             # someone lags: repair business
@@ -1261,20 +1452,24 @@ class MultiEngine:
             return False
         times = times[:n]
         # ---- pack: per-group per-tick batch plan + payload words -----
+        # (physical slot order: the device layout, identity until a
+        # migration), then one packed array a shard
+        slot, phys = self._slot, self._phys_group
         counts = np.zeros((n, G), np.int32)
         payloads = np.zeros((n, G, B, W), np.int32)
         leaders = np.zeros(G, np.int32)
         terms = np.zeros(G, np.int32)
         for g, r in ticks:
-            leaders[g] = r
-            terms[g] = int(self.lead_terms[g, r])
+            s = slot[g]
+            leaders[s] = r
+            terms[s] = int(self.lead_terms[g, r])
             q = self._queue[g]
             for j in range(n):
                 take = min(max(len(q) - j * B, 0), B)
-                counts[j, g] = take
+                counts[j, s] = take
                 if take:
                     chunk = q[j * B:j * B + take]
-                    payloads[j, g, :take] = np.frombuffer(
+                    payloads[j, s, :take] = np.frombuffer(
                         b"".join(p for _, p in chunk), np.uint8
                     ).reshape(take, cfg.entry_bytes).view(np.int32)
         hp = self.hostprof
@@ -1283,25 +1478,32 @@ class MultiEngine:
             hp.mark("host_pre")
         # groups NOT ticking this instant run masked no-op lanes (term 0
         # and a dead cluster), a leaderless group's launch treatment
-        alive = self.alive.copy()
+        alive = self.alive[phys].copy()
         for s in range(G):
-            if s not in ticking:
+            if int(phys[s]) not in ticking:
                 terms[s] = 0
                 alive[s] = False
-        host = pack_group_launch(
-            n, G, R, B, W, n_run=n, halted0=np.zeros(G), leaders=leaders,
-            terms=terms, counts=counts, alive=alive, slow=self.slow,
-            member=np.ones((G, R)), payloads=payloads)
+        slow, gps = self.slow[phys], self._gps
+        hosts = [pack_group_launch(
+            n, gps, R, B, W, n_run=n, halted0=np.zeros(gps),
+            leaders=leaders[sl], terms=terms[sl], counts=counts[:, sl],
+            alive=alive[sl], slow=slow[sl], member=np.ones((gps, R)),
+            payloads=payloads[:, sl])
+            for sl in (slice(k * gps, (k + 1) * gps)
+                       for k in range(self.n_shards))]
         if hp is not None:
             hp.mark("pack")
         record = self._dev_rings is not None
         rings = (self._dev_rings, self._dev_gids) if record else ()
-        if self._graphs is not None:
-            out = self._graphs.run(self.state, host, n, B, W, *rings)
+        if self._gshard is not None:
+            out = self._gshard.replicate_fused_packed(
+                self.state, hosts, n, B, W, self._graphs, *rings)
+        elif self._graphs is not None:
+            out = self._graphs.run(self.state, hosts[0], n, B, W, *rings)
         else:
             out = run_group_launch(fused_group_scan(R, record=record),
-                                   self.state, self._upload(host), n, B, W,
-                                   *rings)
+                                   self.state, self._upload(hosts[0]), n, B,
+                                   W, *rings)
         if record:
             (self.state, infos, escaped, ran, _halted,
              self._dev_rings) = out
@@ -1314,7 +1516,7 @@ class MultiEngine:
         self._flush_device_obs()
         ci, fl, mt, esc, rn = self._fetch(torch.stack(
             [infos.commit_index, infos.frontier_len, infos.max_term,
-             escaped, ran]))
+             escaped, ran]))[:, :, slot]
         self._book_fused_window(ticks, times, ci, fl, mt, esc, rn)
         return True
 
@@ -1576,7 +1778,7 @@ class MultiEngine:
             cap = self.cfg.log_capacity
             plo, phi = min(pend), max(pend)
             slots = (np.arange(plo, phi + 1) - 1) % cap
-            lead_terms = self._fetch(self.state.log_term[g, leader])[slots]
+            lead_terms = self._fetch(self._view(g).log_term[leader])[slots]
             missing = []
             for idx in pend:
                 ent = self._uncommitted[g].get(idx)
@@ -1588,8 +1790,7 @@ class MultiEngine:
                     missing.append(idx)
             if missing:
                 mlo, mhi = min(missing), max(missing)
-                data = log_entries(group_view(self.state, g), leader,
-                                   mlo, mhi)
+                data = log_entries(self._view(g), leader, mlo, mhi)
                 for idx in missing:
                     payload = data[idx - mlo].tobytes()
                     self._archive[g][idx] = payload
@@ -1747,8 +1948,7 @@ class MultiEngine:
 
         if replica is None:
             replica = self.leader_id[g] if self.leader_id[g] is not None else 0
-        return [bytes(row)
-                for row in _cp(group_view(self.state, g), replica)]
+        return [bytes(row) for row in _cp(self._view(g), replica)]
 
     def commit_latencies(self, g: Optional[int] = None) -> np.ndarray:
         """Per-entry commit latency (virtual seconds) for every durable

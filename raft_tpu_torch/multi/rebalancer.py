@@ -1,8 +1,8 @@
 """Dynamic group placement: a StatusBoard-fed shard-load controller (a
-copy of ``raft_tpu/multi/rebalancer.py``; host code). On the port's
-resident layout every group lives on shard 0: ``plan`` works on any
-snapshot, and ``step`` reaches ``MultiEngine.migrate_group``, which
-refuses there as in JAX (the sharded layout is ROADMAP A15b).
+copy of ``raft_tpu/multi/rebalancer.py``; host code). ``plan`` works on
+any snapshot; ``step`` carries a plan out through
+``MultiEngine.migrate_group``, which moves groups on the sharded layout
+and refuses on the resident one (every group on shard 0), as in JAX.
 
 The sharded layout (``transport.group_mesh``) makes WHERE a group lives
 a one-launch decision (``MultiEngine.migrate_group``); this module

@@ -24,8 +24,11 @@ plane, in two parts:
   the same points of its mesh and multihost transports (``mesh_build``,
   ``mesh_ready``, ``allgather`` with a running id on every gathering
   fetch, ``distributed_init``, ``device_enum``) and of the engine's
-  mirror digest exchange (``barrier_enter`` / ``barrier_exit``); the
-  reform marks wait for ROADMAP A15b and the chaos runners' for A17.
+  mirror digest exchange (``barrier_enter`` / ``barrier_exit``), the
+  group mesh's build (``group_mesh_build`` / ``group_mesh_ready``) and
+  re-formation's (``reform_enter``, ``reform_propose``, ``reform_done``,
+  ``reform_rejoin``, ``await_epoch``, ``await_epoch_done``,
+  ``declare_dead``); the chaos runners' wait for ROADMAP A17.
 
 - :class:`StallWatchdog` — a daemon thread that fires when no
   :meth:`StallWatchdog.pet` arrives for ``deadline_s`` seconds: it dumps

@@ -30,8 +30,9 @@ port goes:
 1. **Detection.** A peer that stops stalls the next collective; the
    bounded digest exchange turns that into a fail-stop.
 2. **Re-formation is a restart** of the process group over the processes
-   that remain (``transport/reform.py`` in the JAX package; not ported
-   yet, ROADMAP A15b).
+   that remain: ``transport.reform.Rendezvous`` agrees on the survivors,
+   the coordinator (``Epoch.init_method``, the next
+   ``initialize_multihost`` address) and the checkpoint to restore.
 3. **State comes from stable storage.** Checkpoints are cluster-wide
    (every process archives every commit: ``save_checkpoint`` writes the
    whole cluster's file) and every process writes its OWN vote log (give

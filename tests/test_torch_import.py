@@ -34,6 +34,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import raft_tpu_torch.ec.kernels, raft_tpu_torch.ec.reconstruct\n"
         "import raft_tpu_torch.core.step_mesh, raft_tpu_torch.transport.mesh\n"
         "import raft_tpu_torch.transport.multihost\n"
+        "import raft_tpu_torch.transport.group_mesh\n"
+        "import raft_tpu_torch.transport.reform\n"
         "import raft_tpu_torch.transport.launch\n"
         "import raft_tpu_torch.raft, raft_tpu_torch.raft.engine\n"
         "import raft_tpu_torch.raft.ledger, raft_tpu_torch.storm\n"

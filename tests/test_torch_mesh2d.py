@@ -156,6 +156,17 @@ DECISIONS = {
 DESYNC_RANK = 3          # replica row 1, pshard column 1
 
 
+@pytest.fixture(scope="module", autouse=True)
+def fresh_jax_traces_after():
+    """The JAX 2-D references below trace ``TpuMeshTransport`` programs
+    whose dispatch the JAX package's own tests witness at trace time
+    (``tests/test_step_mesh.py``, ``step_mesh.LAST_DISPATCH``); a later
+    test in the same process must trace them afresh, so JAX's caches are
+    cleared when this module ends."""
+    yield
+    jax.clear_caches()
+
+
 @pytest.fixture(scope="module")
 def ranks6():
     return run_ranks(mr.mesh2d_rank, 6,

@@ -69,16 +69,19 @@ class MPair:
 
     ``over`` overrides ``BASE``; ``recorders`` is a (JAX, port) pair of
     flight recorders; ``apply`` registers an apply callback on every
-    group of both engines (their streams must stay equal)."""
+    group of both engines (their streams must stay equal); ``meshes`` a
+    (JAX ``Mesh``, port ``GroupMesh``) pair for the sharded layout."""
 
-    def __init__(self, G, recorders=(None, None), apply=False, **over):
+    def __init__(self, G, recorders=(None, None), apply=False,
+                 meshes=(None, None), **over):
         self.kw = {**BASE, **over}
         self.G = G
         self.jl, self.tl = [], []
         self.j = JMulti(JConfig(**self.kw), G, trace=self.jl.append,
-                        recorder=recorders[0])
+                        recorder=recorders[0], mesh=meshes[0])
         self.t = MultiEngine(TConfig(**self.kw), G, trace=self.tl.append,
-                             recorder=recorders[1], device="cpu")
+                             recorder=recorders[1], mesh=meshes[1],
+                             device="cpu")
         self.japp = [[] for _ in range(G)]
         self.tapp = [[] for _ in range(G)]
         if apply:
@@ -165,7 +168,8 @@ class MPair:
             np.testing.assert_array_equal(getattr(t, f), getattr(j, f),
                                           err_msg=f)
         for f in ("_queue", "_seq_events", "fused_launches", "fused_ticks",
-                  "shed_by_group", "read_class_counts", "_track_match"):
+                  "shed_by_group", "read_class_counts", "_track_match",
+                  "migrations", "transport_mode", "n_shards"):
             assert getattr(t, f) == getattr(j, f), f
         assert self.tapp == self.japp, "apply streams"
 
@@ -174,7 +178,15 @@ class MPair:
         committed bytes, stamps, latencies, buffers and archives."""
         self.check()
         j, t = self.j, self.t
-        assert_states_equal(j.state, t.state, "group state")
+        if t._gshard is None:
+            assert_states_equal(j.state, t.state, "group state")
+        else:
+            got = t._gshard.gather_state(t.state)
+            for f, v in got.items():
+                np.testing.assert_array_equal(
+                    v, np.asarray(getattr(j.state, f)), err_msg=f)
+        np.testing.assert_array_equal(t._slot, j._slot)
+        np.testing.assert_array_equal(t._phys_group, j._phys_group)
         for g in range(self.G):
             assert t.committed_payloads(g) == j.committed_payloads(g), g
         for f in ("commit_time", "submit_time", "_seq_at_index",
@@ -827,13 +839,33 @@ def test_refusals_match_jax(over, exc, match):
     assert issubclass(exc, ValueError)
 
 
-def test_group_sharded_layout_refuses_naming_a15(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        MultiEngine(TConfig(**{**BASE, "transport": "mesh_groups"}), 2,
-                    device="cpu")
-    monkeypatch.setenv("RAFT_TPU_GSHARD", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        MultiEngine(TConfig(**BASE), 2, device="cpu")
+@pytest.mark.parametrize("how", ["transport", "env"])
+def test_group_sharded_layout_degrades_on_one_device(monkeypatch, how):
+    """``tests/test_group_shard.py:316`` through both packages:
+    ``mesh_groups`` (or ``RAFT_TPU_GSHARD=1``) on one device degrades to
+    the resident layout (one shard, placement the identity), commits, and
+    ``migrate_group`` refuses naming the sharded layout. The JAX side sees
+    one device as its test arranges; the port's ``device="cpu"`` is one."""
+    import jax
+
+    from raft_tpu.transport import group_mesh as jgm
+
+    one = jax.devices()[:1]
+    monkeypatch.setattr(jgm.jax, "devices", lambda: one)
+    over = {}
+    if how == "env":
+        monkeypatch.setenv("RAFT_TPU_GSHARD", "1")
+    else:
+        over["transport"] = "mesh_groups"
+    p = MPair(4, **over)
+    for e in p.engines:
+        assert (e.transport_mode, e.n_shards) == ("single", 1)
+    p.both("seed_leaders")
+    s = p.both("submit", 0, payloads(1, seed=1)[0])
+    p.until_committed(0, s)
+    p.check_all()
+    exc = p.both_raise("migrate_group", 0, 0)
+    assert isinstance(exc, ValueError) and "sharded layout" in str(exc)
     assert GROUP_AXIS_TRANSPORTS == ("single", "mesh_groups")
 
 
