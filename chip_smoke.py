@@ -304,6 +304,29 @@ entries, batch 256, a 4096-slot ring each; ``bench.py``
     ring: migrations, fused windows, ``drive_schedule`` with a leader
     killed, on the card and on the CPU: nodelog lines, recorder events,
     every gathered leaf, decoded events, committed bytes equal;
+11f. ``obs_planes_path``: the compile, memory and capture planes at the
+    north star, ``fuse_k`` 8. A compile watch and retrace sentinel are
+    installed, two bursts of 8 192 entries warm up, the sentinel freezes,
+    and at least 8 steady fused windows must show no violation, with
+    ``compile`` events on ``single.fused`` equal to the graph captures. A
+    memory watch's ``engine.state.*`` bytes must equal the state's leaf
+    bytes; its census must stay flat over the steady windows, flag a held
+    ``float32[123,7]`` orphan, and go flat once the orphan is gone. The
+    censuses and one labeled fused launch run under
+    ``torch.cuda.set_sync_debug_mode("error")``. An in-place audit is
+    made on one graph replay, and an S + 1 staging buffer must trip the
+    sentinel with ``int32[S+1,B,W]`` on ``single.fused``. Then a
+    save/restore onto a fresh transport runs frozen, and its captures,
+    seconds, violations and the allocator's bytes before and after the
+    old engine is collected are printed. The schedule is run detached and
+    attached in turns, with equal nodelog lines, state, read-back SHA-256
+    and ``_fetch`` count, and ms per leader tick printed for each.
+    ``capture_profile(0.5)`` runs while a thread drives the engine, and
+    must hold CUDA kernel events (K1's or K2's) and span events.
+    ``device_seconds`` of one K3 flight is printed beside its CUDA-event
+    time. Last, ``serve_demo`` runs on the card for 3 s, and
+    ``/compile``, ``/memory`` and ``/profile?seconds=0.2`` must answer
+    200;
 
 Then the replica mesh: one replica row per rank of a ``torch.distributed``
 gloo group, all ranks on the one card (three processes time-sharing it,
@@ -403,15 +426,20 @@ def check(cond, what: str) -> None:
 
 
 # --------------------------------------------------------------- phase 1
+def card_query():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0].strip()
+
+
 def phase_card():
     import torch
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    line = smi.stdout.strip().splitlines()[0].strip()
+    line = card_query()
     card = {"phase": "card", "nvidia_smi": line,
             "torch_name": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(),
@@ -9292,6 +9320,518 @@ def phase_engine_device_obs_path(dev):
     return res
 
 
+# ------------------------------------- the compile, memory and capture planes
+PLANES_BURST = 8192        # entries a burst: one fused window of 8 ticks
+PLANES_WARM = 2            # warm-up bursts before the freeze
+PLANES_STEADY = 8          # at least this many fused windows, frozen
+PLANES_NEUTRAL = 4         # bursts a neutrality run
+PLANES_CENSUSES = 5
+PLANES_WATCHDOG_S = 300    # the phase's stacks are dumped past this
+PLANES_SPAN_EVERY = 256    # a span on one submit in this many (capture)
+
+
+def planes_engine(cfg, dev, lines=None):
+    """A north-star ``RaftEngine`` on a fresh transport whose ``_fetch``
+    calls are counted (``e.fetches``)."""
+    from raft_tpu_torch.raft import RaftEngine
+    from raft_tpu_torch.transport.device import SingleDeviceTransport
+
+    e = RaftEngine(cfg, SingleDeviceTransport(cfg, device=dev),
+                   trace=None if lines is None else lines.append)
+    e.fetches = 0
+    fetch = e._fetch
+
+    def counted(x):
+        e.fetches += 1
+        return fetch(x)
+
+    e._fetch = counted
+    return e
+
+
+def planes_burst(e, inp, spans=None):
+    """Submit one burst (one submit in ``PLANES_SPAN_EVERY`` in a span of
+    its own when ``spans`` is given) and drain it; returns the leader
+    ticks it took."""
+    B, hb = e.cfg.batch_size, e.cfg.heartbeat_period
+    t0 = e._tick_count
+    seqs = []
+    for i, p in enumerate(inp.take(PLANES_BURST)):
+        traced = spans is not None and i % PLANES_SPAN_EVERY == 0
+        if traced:
+            spans.current = spans.begin("write", e.clock.now)
+        seqs.append(e.submit(p))
+        if traced:
+            spans.current = None
+    e.run_for((PLANES_BURST // B + 2) * hb)
+    check(e.is_durable(seqs[-1]), "a planes burst did not drain")
+    return e._tick_count - t0
+
+
+def fused_noop(e, state, staging):
+    """One fused launch of ``e``'s transport over ``staging`` with every
+    tick masked (``halted0``): the bit-exact no-op, so the engine stays
+    coherent."""
+    import torch
+
+    r = e.leader_id
+    return e.t.replicate_fused(
+        state, staging, 0, torch.zeros(e.fuse_k, dtype=torch.int32), 2,
+        True, r, int(e.lead_terms[r]), e.alive, e.slow)
+
+
+def planes_neutral_run(cfg, dev, attached):
+    """The neutrality schedule (an election, ``PLANES_NEUTRAL`` bursts,
+    idle heartbeats) on a fresh engine, detached or with the compile
+    watch (frozen after the first burst) and the memory watch (a census
+    after every burst) attached. Returns what the two must agree on and
+    the host ms per leader tick."""
+    import torch
+
+    from raft_tpu_torch.obs.compile import CompileWatch, RetraceSentinel
+    from raft_tpu_torch.obs.memory import MemoryWatch
+
+    sync = (torch.cuda.synchronize if torch.device(dev).type == "cuda"
+            else (lambda: None))
+    lines = []
+    e = planes_engine(cfg, dev, lines)
+    inp = EngineInput(cfg)
+    watch = mem = None
+    if attached:
+        watch = CompileWatch().install()
+        sentinel = RetraceSentinel(watch)
+        mem = MemoryWatch()
+        mem.watch_engine(e)
+        mem.census()
+    try:
+        e.run_until_leader()
+        ticks, wall, census_s = 0, 0.0, 0.0
+        for b in range(PLANES_NEUTRAL):
+            sync()
+            t0 = time.perf_counter()
+            lt = planes_burst(e, inp)
+            if mem is not None:
+                t1 = time.perf_counter()
+                mem.census()
+                if b:
+                    census_s += time.perf_counter() - t1
+            sync()
+            if b:
+                wall += time.perf_counter() - t0
+                ticks += lt
+            if watch is not None and not b:
+                sentinel.freeze()
+        e.run_for(20 * cfg.heartbeat_period)
+    finally:
+        if watch is not None:
+            watch.uninstall()
+    hi = e.commit_watermark
+    check(hi == PLANES_NEUTRAL * PLANES_BURST, "neutrality run: commit "
+          f"{hi} of {PLANES_NEUTRAL * PLANES_BURST}")
+    return {
+        "lines": lines, "state": host_leaves(e.state),
+        "sha256": hashlib.sha256(
+            e.committed_entries(max(1, hi - cfg.log_capacity + 1),
+                                hi).tobytes()).hexdigest(),
+        "input_sha256": hashlib.sha256(inp.window(
+            max(1, hi - cfg.log_capacity + 1), hi)).hexdigest(),
+        "fetches": e.fetches,
+        "ms_per_leader_tick": wall / ticks * 1e3,
+        "ms_per_leader_tick_without_census": (wall - census_s) / ticks * 1e3,
+        "violations": (None if watch is None
+                       else len(watch.sentinel.violations)),
+    }
+
+
+def planes_flight_seconds(cfg, dev, reps=7):
+    """``obs.profiling.device_seconds`` of one K3 flight (32 saturated
+    steps through ``replicate_pipeline`` from a fully committed ring, no
+    turnover) beside the CUDA-event ms of the same call."""
+    import torch
+
+    from raft_tpu_torch.core.state import ReplicaState
+    from raft_tpu_torch.obs import profiling
+    from raft_tpu_torch.transport.device import SingleDeviceTransport
+
+    rng = np.random.default_rng(SEED + 181)
+    tr = SingleDeviceTransport(cfg, device=dev)
+    st0 = steady_state(cfg, dev, 4 * cfg.log_capacity, rng=rng)
+    T, B = STEPS_PER_FLIGHT, cfg.batch_size
+    wins = torch.from_numpy(rng.integers(
+        -2**31, 2**31 - 1, (T, B, cfg.rows * cfg.shard_words),
+        dtype=np.int64).astype(np.int32)).to(dev)
+    counts = torch.full((T,), B, dtype=torch.int32, device=dev)
+    al = torch.ones(cfg.rows, dtype=torch.bool, device=dev)
+    sl = torch.zeros(cfg.rows, dtype=torch.bool, device=dev)
+
+    def mk():
+        return (ReplicaState(**{f: getattr(st0, f).clone()
+                                for f in st0.__dataclass_fields__}),)
+
+    def fly(st):
+        return tr.replicate_pipeline(st, wins, counts, 0, 1, al, sl,
+                                     term_floor=1, allow_turnover=False)
+
+    before = read_counters(dev)["K3_flights_run"]
+    dev_s = profiling.device_seconds(fly, mk)
+    box = {}
+    ev_ms = _events_ms(lambda: fly(*box["a"]), reps,
+                       before=lambda: box.update(a=mk()))
+    ran = read_counters(dev)["K3_flights_run"] - before
+    check(ran > 0, "the timed flights never ran K3")
+    check(dev_s == dev_s and dev_s > 0,
+          "device_seconds found no CUDA kernel in a K3 flight's trace")
+    return {"device_seconds_ms": dev_s * 1e3, "cuda_event_ms": ev_ms,
+            "k3_flights_run": ran, "steps": T, "batch": B}
+
+
+def planes_capture(cfg, dev, tmpdir):
+    """``capture_profile(0.5)`` from this thread while another, started
+    before it, drives the engine through the capture window (one submit
+    in ``PLANES_SPAN_EVERY`` in a span): the artifact must hold CUDA
+    kernel events, K1's or K2's among them, and span events."""
+    import threading
+
+    from raft_tpu_torch.obs import SpanTracker, profiling
+
+    e = planes_engine(cfg, dev)
+    e.spans = spans = SpanTracker()
+    inp = EngineInput(cfg)
+    e.run_until_leader()
+    planes_burst(e, inp, spans)          # captures the graphs first
+    go, stop = threading.Event(), threading.Event()
+    errors = []
+    bursts = [0]
+
+    def drive():
+        try:
+            go.wait(120)
+            while not stop.is_set():
+                planes_burst(e, inp, spans)
+                bursts[0] += 1
+                time.sleep(0.005)        # pace: bound the trace's volume
+        except Exception as ex:          # surfaced on the main thread
+            errors.append(ex)
+
+    def window(seconds):
+        # the engine thread (started before the capture) ticks for the
+        # capture window only: the profiler's start and the trace's
+        # export do not share the host with it
+        go.set()
+        time.sleep(seconds)
+        stop.set()
+        th.join(timeout=120)
+
+    th = threading.Thread(target=drive, daemon=True)
+    th.start()
+    t0 = time.perf_counter()
+    try:
+        got = profiling.capture_profile(0.5, spans=spans,
+                                        profile_dir=str(tmpdir),
+                                        sleep=window)
+    finally:
+        go.set()
+        stop.set()
+        th.join(timeout=120)
+    check(not errors, f"the engine thread failed: {errors}")
+    art = json.loads(Path(got["artifact"]).read_text())
+    kern = [ev["name"] for ev in art["traceEvents"]
+            if ev.get("cat") == "kernel"]
+    names = sorted({kernel_of(n) or "other" for n in kern})
+    check(art["format"] == profiling.PROFILE_FORMAT,
+          f"artifact format {art['format']!r}")
+    check(kern, "the capture's artifact holds no CUDA kernel event")
+    check(any(k in ("K1", "K2") for k in names),
+          f"no K1 or K2 kernel in the capture: {names}")
+    check(got["n_span_events"] > 0, "the capture's artifact holds no span")
+    return {"seconds": 0.5, "bursts": bursts[0],
+            "capture_wall_s": time.perf_counter() - t0,
+            "n_device_events": got["n_device_events"],
+            "n_kernel_events": got["n_kernel_events"],
+            "n_launch_annotations": got["n_launch_annotations"],
+            "n_span_events": got["n_span_events"],
+            "all_threads": got["all_threads"],
+            "kernels": {k: sum(1 for n in kern if (kernel_of(n) or "other")
+                               == k) for k in names},
+            "artifact_bytes": Path(got["artifact"]).stat().st_size}
+
+
+def planes_serve_demo(dev):
+    """``obs.serve.serve_demo`` on the card for about 3 s; ``/compile``,
+    ``/memory`` and ``/profile?seconds=0.2`` must each answer 200."""
+    import io
+    import threading
+
+    from raft_tpu_torch.obs.serve import serve_demo
+
+    out = io.StringIO()
+    box, errors = {}, []
+
+    def run():
+        try:
+            box["res"] = serve_demo(port=0, groups=4, duration_s=3.0,
+                                    out=out, device=dev)
+        except Exception as ex:
+            errors.append(ex)
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    t0 = time.perf_counter()
+    while "127.0.0.1:" not in out.getvalue():
+        check(not errors and time.perf_counter() - t0 < 120,
+              f"serve_demo did not start: {errors}")
+        time.sleep(0.02)
+    port = int(out.getvalue().split("127.0.0.1:")[1].split(" ")[0])
+    scr = Scraper(port)
+    time.sleep(0.5)
+    answers = {}
+    for path in ("/compile", "/memory", "/profile?seconds=0.2"):
+        t1 = time.perf_counter()
+        st, body = scr.get(path)
+        answers[path] = {"status": st, "ms": (time.perf_counter() - t1)
+                         * 1e3, "bytes": len(body)}
+        check(st == 200, f"serve_demo {path} answered {st}: {body[:200]}")
+        if path == "/profile?seconds=0.2":
+            answers[path]["n_kernel_events"] = json.loads(body)[
+                "n_kernel_events"]
+    th.join(timeout=120)
+    check(not errors and "res" in box, f"serve_demo failed: {errors}")
+    res = box["res"]
+    check(res["violations"] == 0, "serve_demo: an audit violation")
+    check(res["committed"] == res["submitted"],
+          f"serve_demo committed {res['committed']} of {res['submitted']}")
+    return {"result": res, "answers": answers}
+
+
+def phase_obs_planes_path(dev, card_line):
+    """The compile, memory and capture planes at the north star on the
+    card (module doc, 7b)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from raft_tpu_torch.obs.compile import CompileWatch, RetraceSentinel
+    from raft_tpu_torch.obs.memory import MemoryWatch, audit_donation
+    from raft_tpu_torch.obs.registry import MetricsRegistry
+    from raft_tpu_torch.raft import RaftEngine
+    from raft_tpu_torch.transport.device import SingleDeviceTransport
+
+    import faulthandler
+
+    t_phase = time.perf_counter()
+    # a phase that hangs dumps every thread's stack and ends the run
+    faulthandler.dump_traceback_later(PLANES_WATCHDOG_S, exit=True)
+
+    shown = set()
+
+    def step(name):
+        # progress, with what the steps before it found
+        new = {k: v for k, v in res.items() if k not in shown}
+        shown.update(new)
+        print(f"obs_planes_path: {name} at "
+              f"{time.perf_counter() - t_phase:.1f} s "
+              f"{json.dumps(new, default=str)}", flush=True)
+
+    cfg = fused_config(STEPS_PER_FLIGHT * 1024, 8)
+    res = {"phase": "obs_planes_path", "card": card_line, "fuse_k": 8,
+           "capacity": cfg.log_capacity, "batch": cfg.batch_size}
+    zero_counters(dev)
+    # ---- compile plane: warm-up, freeze, steady windows
+    reg = MetricsRegistry()
+    watch = CompileWatch(registry=reg).install()
+    sentinel = RetraceSentinel(watch)
+    try:
+        e = planes_engine(cfg, dev)
+        inp = EngineInput(cfg)
+        e.run_until_leader()
+        for _ in range(PLANES_WARM):
+            planes_burst(e, inp)
+        # ---- memory plane: attribution and the baseline
+        mem = MemoryWatch(registry=reg)
+        mem.watch_engine(e)
+        c = mem.census()
+        state_bytes = sum(getattr(e.state, f).untyped_storage().nbytes()
+                          for f in e.state.__dataclass_fields__)
+        got = sum(b for k, (_, b) in c.by_label.items()
+                  if k.startswith("engine.state."))
+        check(got == state_bytes, f"engine.state.* census bytes {got} != "
+                                  f"the state's leaf bytes {state_bytes}")
+        mem.set_baseline()
+        sentinel.freeze()
+        step("steady windows")
+        f0, graphs = e.fused_launches, e.t.graphs
+        n_captures = graphs.captures if graphs is not None else 0
+        bursts = 0
+        while e.fused_launches - f0 < PLANES_STEADY:
+            planes_burst(e, inp)
+            bursts += 1
+            check(bursts <= 4 * PLANES_STEADY, "too few fused windows")
+        check(sentinel.violations == [], "steady windows: "
+              + "; ".join(str(v) for v in sentinel.violations))
+        captures = watch.events("single.fused", "compile")
+        check(len(captures) == n_captures,
+              f"{len(captures)} compile events on single.fused, "
+              f"{n_captures} graph captures")
+        drift = mem.drift()
+        check(drift == [], f"census over the steady windows: {drift}")
+        res["steady"] = {
+            "fused_windows": e.fused_launches - f0, "bursts": bursts,
+            "violations": 0, "graph_captures": n_captures,
+            "compile_events_single_fused": len(captures),
+            "programs": watch.by_program(), "census_flat": True}
+        step("orphan")
+        # the orphan: flagged, then flat again
+        orphan = torch.zeros((123, 7), dtype=torch.float32, device=dev)
+        drift = mem.drift()
+        check(any("float32[123,7]" in ln for ln in drift),
+              f"the orphan was not flagged: {drift}")
+        del orphan
+        check(mem.drift() == [], "not flat once the orphan went")
+        res["orphan_drift"] = drift
+        # ms per census (metadata only; no sync: set_sync_debug_mode)
+        times = []
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(PLANES_CENSUSES):
+                t0 = time.perf_counter()
+                mem.census()
+                times.append((time.perf_counter() - t0) * 1e3)
+            win = e._fused_driver.staging
+            e.state = fused_noop(e, e.state, win.buf)[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        res["census"] = {"ms": statistics.median(times), "all_ms": times,
+                         "live_storages": mem.last.n_arrays,
+                         "live_bytes": mem.last.total_bytes,
+                         "allocator": mem.last.allocator,
+                         "gc_objects": len(gc.get_objects()),
+                         "sync_debug": "error mode raised nothing over "
+                                       "the censuses and one labeled "
+                                       "fused launch"}
+        step("donation audit")
+        # the in-place audit on one graph replay
+        rep = audit_donation(lambda st, buf: fused_noop(e, st, buf),
+                             (e.state, win.buf), donated=(0,), watch=mem)
+        res["donation"] = dict(rep.__dict__)
+        check(rep.engaged, f"donation audit on a graph replay: {rep}")
+        # the S+1 staging drift trips the sentinel
+        S, B, W = win.S, win.B, win.W
+        n0 = len(sentinel.violations)
+        drifted = torch.zeros((S + 1, B, W), dtype=torch.int32, device=dev)
+        e.state = fused_noop(e, e.state, drifted)[0]
+        new = sentinel.violations[n0:]
+        traces = [v for v in new if v.event == "trace"]
+        want = f"int32[{S + 1},{B},{W}]"
+        check(len(traces) == 1 and traces[0].program == "single.fused"
+              and want in (traces[0].arg_shapes or []),
+              f"S+1 drift: {[str(v) for v in new]}")
+        res["s_plus_1"] = {"violations": [str(v) for v in new],
+                           "events": [v.event for v in new]}
+        step("rebuild")
+        # the rebuild pattern, frozen: save, restore onto a fresh
+        # transport, drive the warm-up pattern again
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = f"{tmp}/ck.npz"
+            e.save_checkpoint(ck)
+            torch.cuda.synchronize()
+            c_old = mem.census(collect=True)
+            n0 = len(sentinel.violations)
+            a0 = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            e2 = RaftEngine.restore(
+                cfg, ck, transport=SingleDeviceTransport(cfg, device=dev))
+            e2.run_until_leader()
+            inp2 = EngineInput(cfg)
+            for _ in range(PLANES_WARM):
+                planes_burst(e2, inp2)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            a1 = torch.cuda.memory_allocated(dev)
+            new = sentinel.violations[n0:]
+            c_before = mem.census(collect=True)
+            mem.watch_engine(e2)
+            del e, graphs, win, drifted      # every reference to the old
+            gc.collect()
+            torch.cuda.synchronize()
+            a2 = torch.cuda.memory_allocated(dev)
+            c_after = mem.census(collect=True)
+        res["rebuild"] = {
+            "how": "save_checkpoint, RaftEngine.restore onto a fresh "
+                   "SingleDeviceTransport, election, 2 bursts of 8192 "
+                   "(sentinel frozen)",
+            "captures": getattr(e2.t.graphs, "captures", 0),
+            "capture_s": getattr(e2.t.graphs, "capture_s", 0.0),
+            "wall_s": wall,
+            "violations": len(new),
+            "violations_by_event": {k: sum(1 for v in new if v.event == k)
+                                    for k in ("trace", "compile")},
+            "violation_programs": sorted({v.program for v in new}),
+            "allocated_bytes_before_rebuild": a0,
+            "allocated_bytes_both_engines": a1,
+            "allocated_bytes_old_engine_collected": a2,
+            "allocator_delta_bytes": a2 - a0,
+            "unreachable_bytes_both": (c_before.allocator or {}).get(
+                "cuda_unreachable_bytes"),
+            "unreachable_bytes_after": (c_after.allocator or {}).get(
+                "cuda_unreachable_bytes"),
+            "census_bytes_old_engine": c_old.total_bytes,
+            "census_bytes_new_engine": c_after.total_bytes,
+            "buckets_changed": {
+                k: [c_old.by_shape.get(k, (0, 0)), c_after.by_shape.get(
+                    k, (0, 0))]
+                for k in set(c_old.by_shape) | set(c_after.by_shape)
+                if c_old.by_shape.get(k) != c_after.by_shape.get(k)},
+            "reserved_bytes_after": torch.cuda.memory_reserved(dev)}
+    finally:
+        watch.uninstall()
+    res["compile_snapshot"] = {k: v for k, v in watch.snapshot().items()
+                               if k not in ("log", "sentinel")}
+    # ---- neutrality: detached and attached in turns
+    step("neutrality")
+    runs = []
+    for attached in (False, True, True, False):
+        runs.append(planes_neutral_run(cfg, dev, attached))
+    ref = runs[0]
+    for r in runs[1:]:
+        check(r["lines"] == ref["lines"], "neutrality: nodelog lines differ")
+        for f in ref["state"]:
+            check(np.array_equal(r["state"][f], ref["state"][f]),
+                  f"neutrality: state.{f} differs")
+        check(r["sha256"] == ref["sha256"] == ref["input_sha256"],
+              "neutrality: read-back SHA-256 differs")
+        check(r["fetches"] == ref["fetches"],
+              f"neutrality: {r['fetches']} fetches vs {ref['fetches']}")
+    res["neutrality"] = {
+        "order": "detached, attached, attached, detached",
+        "ms_per_leader_tick": [r["ms_per_leader_tick"] for r in runs],
+        "ms_per_leader_tick_without_census": [
+            r["ms_per_leader_tick_without_census"] for r in runs],
+        "fetches": ref["fetches"], "nodelog_lines": len(ref["lines"]),
+        "sha256": ref["sha256"],
+        "attached_violations": [r["violations"] for r in runs]}
+    # ---- capture and device_seconds
+    step("capture")
+    with tempfile.TemporaryDirectory() as tmp:
+        res["capture"] = planes_capture(cfg, dev, tmp)
+    step("device_seconds")
+    res["k3_flight"] = planes_flight_seconds(cfg, dev)
+    res["launches"] = read_counters(dev)
+    # ---- the ops server's demo (K5 through its MultiEngine)
+    from raft_tpu_torch.core import ring_cuda
+
+    k5 = ring_cuda.LAUNCHES["write_window_cols"]
+    step("serve_demo")
+    res["serve_demo"] = planes_serve_demo(dev)
+    res["k5_launches"] = ring_cuda.LAUNCHES["write_window_cols"] - k5
+    check(res["k5_launches"] > 0, "serve_demo never launched K5")
+    torch.cuda.synchronize()
+    faulthandler.cancel_dump_traceback_later()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 #: phases ``--only=a,b`` runs alone (after the card and the build): the
 #: kernels against their plain versions, the mesh engine's (1-D and
 #: 2-D), and the resident main paths whose host code the mesh engine's
@@ -9312,7 +9852,9 @@ ONLY_PHASES = {"kernels": lambda dev: phase_kernels(ns_config(), dev),
                "mesh2d_card_equals_cpu": phase_mesh2d_card_equals_cpu,
                "group_mesh_path": phase_group_mesh_path,
                "group_mesh_card_equals_cpu":
-               phase_group_mesh_card_equals_cpu}
+               phase_group_mesh_card_equals_cpu,
+               "obs_planes_path":
+               lambda dev: phase_obs_planes_path(dev, card_query())}
 
 
 def main() -> int:
@@ -9366,6 +9908,7 @@ def main() -> int:
     multi_small = phase_multi_card_equals_cpu(dev)
     gmesh = phase_group_mesh_path(dev)
     gmesh_small = phase_group_mesh_card_equals_cpu(dev)
+    planes = phase_obs_planes_path(dev, card_line)
     mesh_errs = phase_mesh_kernels(cfg, ecfg, dev)
     mesh_kernel_times = time_mesh_kernels(
         cfg, dev, np.random.default_rng(SEED + 31), 21, mem_rate(card_line))
@@ -9413,6 +9956,10 @@ def main() -> int:
                     engine_obs_small["launches"][key]
                 if key in ("K1", "K2"):
                     by_path["config5"] = c5["launches"][key]
+                if planes["launches"].get(key):
+                    # the compile, memory and capture planes' engine
+                    # runs (K1 in the graphs) and their K3 flights
+                    by_path["obs_planes"] = planes["launches"][key]
                 # the replicated KV store under member masks, and its
                 # reduced run on the card against the CPU
                 by_path["kv"] = kv_main["launches"][key]
@@ -9474,6 +10021,8 @@ def main() -> int:
                             in gmesh["k5_launches"].items()})
         if key == "K5 small":
             by_path["group_mesh_card_equals_cpu"] = gmesh_small["k5_launches"]
+            # the ops server's demo MultiEngine (G = 4, C = 256, B = 8)
+            by_path["obs_planes_serve_demo"] = planes["k5_launches"]
         kernels.append({
             "name": f"K5 write_window_cols ({label})", "route": "cuda",
             "source": "raft_tpu_torch/csrc/ring.cu",

@@ -54,6 +54,10 @@ replay.
   replay adds the K1 launches the graph holds.
 - **No fallback.** A capture or replay that fails raises; nothing falls
   back to the eager loop.
+- **Compile plane.** Each capture is a ``compile`` event of the compile
+  plane (``obs.compile.emit``) with the capture's own seconds, attributed
+  to the labeled call it ran under (``single.fused``, ``group.fused``,
+  ``group_mesh.fused``).
 
 :class:`FusedGroupGraphs` does the same for the multi-Raft fused window
 (``core.step.fused_group_scan``, G groups × K ticks, one K5 launch a
@@ -76,6 +80,7 @@ from raft_tpu_torch.core import ring_cuda
 from raft_tpu_torch.core.comm import SingleDeviceComm
 from raft_tpu_torch.core.state import ReplicaState
 from raft_tpu_torch.core.step import RepInfo, fused_steady_scan
+from raft_tpu_torch.obs import compile as obs_compile
 
 #: the six small state leaves (the rings are captured in place)
 SMALL = ("term", "voted_for", "last_index", "commit_index", "match_index",
@@ -185,6 +190,12 @@ class FusedGraphs:
         #   graph sets dropped because a ring or the staging buffer
         #   changed identity
 
+    def buffers(self) -> dict:
+        """The tensors the graph sets hold (the memory plane's host
+        walk attributes them): per set its static leaves and halted flag,
+        per graph its packed input, output and pinned upload buffers."""
+        return _set_buffers(self.sets)
+
     # ------------------------------------------------------------ capture
     def _body(self, gs: _GraphSet, inp: torch.Tensor, K: int,
               kind: str) -> torch.Tensor:
@@ -234,7 +245,9 @@ class FusedGraphs:
                  lambda: self._body(gs, g.inp, K, kind),
                  lambda: gs.halted.copy_(flag), "write_window_both")
         self.captures += 1
-        self.capture_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.capture_s += dt
+        obs_compile.emit("compile", dt)
         return g
 
     # -------------------------------------------------------------- run
@@ -292,6 +305,15 @@ class FusedGraphs:
                         max_term=mt, repair_start=rs, frontier_len=fl)
         out = (gs.state(), infos, esc, ran, halted)
         return out if ring is None else out + (ring,)
+
+
+def _set_buffers(sets: dict) -> dict:
+    return {repr(key): {
+        "small": dict(gs.small),
+        "halted": getattr(gs, "halted", None),
+        "graphs": {K: {"inp": g.inp, "out": g.out, "pinned": g.pinned}
+                   for K, g in gs.graphs.items()},
+    } for key, gs in sets.items()}
 
 
 def _capture(g: _Graph, pool, device, ring, body, after_warm,
@@ -453,6 +475,10 @@ class FusedGroupGraphs:
         self.k5_launches = 0
         self.capture_s = 0.0
 
+    def buffers(self) -> dict:
+        """The tensors the graph sets hold, as :meth:`FusedGraphs.buffers`."""
+        return _set_buffers(self.sets)
+
     def _body(self, gs: _GroupGraphSet, inp: torch.Tensor, K: int, B: int,
               W: int) -> torch.Tensor:
         """The captured region: the K-tick group loop over the static
@@ -483,7 +509,9 @@ class FusedGroupGraphs:
                  lambda: self._body(gs, g.inp, K, B, W),
                  lambda: None, "write_window_cols")
         self.captures += 1
-        self.capture_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.capture_s += dt
+        obs_compile.emit("compile", dt)
         return g
 
     def run(self, state: ReplicaState, host: np.ndarray, K: int, B: int,

@@ -103,9 +103,13 @@ class ReplicaState:
 
 def host_copy(x) -> np.ndarray:
     """A host copy of a tensor (never a view of a CPU tensor that a step
-    may later update in place)."""
+    may later update in place). A CPU tensor is copied as numpy, so the
+    copy keeps no tensor alive (the memory plane's census counts live
+    tensors)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True).numpy()
+        if x.device.type == "cpu":
+            return x.detach().numpy().copy()
+        return x.detach().cpu().numpy()
     return np.array(x)
 
 

@@ -6,6 +6,9 @@ headers, so a build takes seconds. All sources build in parallel on first
 use into ``build/raft_tpu_torch/`` beside the package (override with
 ``RAFT_TPU_TORCH_BUILD_DIR``); a library's file name carries a hash of its
 sources, so an edited kernel is rebuilt and a current one is reused.
+With a compile watch installed (``obs.compile``), each library the cache
+finds or misses is a ``cache_hit`` / ``cache_miss`` event and each build
+a ``compile`` event.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
@@ -99,7 +102,14 @@ def build_all() -> dict:
     together. Returns {"seconds": wall seconds, "logs": {library: nvcc
     output}} (empty logs when nothing was missing); raises on a failed
     build."""
-    todo = [n for n in SOURCES if not _lib_path(n).exists()]
+    from raft_tpu_torch.obs import compile as obs_compile
+
+    todo = []
+    for n in SOURCES:
+        hit = _lib_path(n).exists()
+        obs_compile.emit("cache_hit" if hit else "cache_miss", 0.0)
+        if not hit:
+            todo.append(n)
     if not todo:
         return {"seconds": 0.0, "logs": {}}
     out = build_dir()
@@ -120,6 +130,7 @@ def build_all() -> dict:
             errors.append(f"nvcc failed for {SOURCES[n]}:\n{log}")
             continue
         os.replace(tmp, _lib_path(n))
+        obs_compile.emit("compile", time.perf_counter() - t0)
     if errors:
         raise RuntimeError("\n".join(errors))
     return {"seconds": time.perf_counter() - t0, "logs": logs}

@@ -97,6 +97,7 @@ from raft_tpu_torch.raft.ledger import (
     durable_range_covers,
     evict_commit_stamps,
 )
+from raft_tpu_torch.obs.compile import labeled
 from raft_tpu_torch.transport.device import resolve_device
 
 
@@ -169,6 +170,46 @@ class UnsupportedGroupTransport(ValueError):
         )
         self.transport = transport
         self.supported = GROUP_AXIS_TRANSPORTS
+
+
+
+_PROGRAMS: Dict[tuple, object] = {}
+
+
+def _programs(n_replicas: int, record: bool = False) -> tuple:
+    """Process-wide (replicate, vote) group programs per cluster size and
+    record mode (JAX ``multi/engine.py:172``), labeled ``group.replicate``
+    / ``group.vote`` for the compile plane."""
+    key = (n_replicas, record)
+    if key not in _PROGRAMS:
+        _PROGRAMS[key] = (
+            labeled("group.replicate",
+                    group_replicate_step(n_replicas, record=record)),
+            labeled("group.vote",
+                    group_vote_step(n_replicas, record=record)),
+        )
+    return _PROGRAMS[key]
+
+
+def _fused_window(state: ReplicaState, host: np.ndarray, K: int, B: int,
+                  W: int, graphs=None, rings=None, gids=None):
+    """One fused group window on the resident layout from its packed host
+    inputs: one replay of ``graphs`` (``core.graphs.FusedGroupGraphs``) on
+    the card, else the eager ``fused_group_scan`` from one upload."""
+    if graphs is not None:
+        return graphs.run(state, host, K, B, W, rings, gids)
+    R = state.term.shape[1]
+    key = (R, "fused", rings is not None)
+    if key not in _PROGRAMS:
+        _PROGRAMS[key] = fused_group_scan(R, record=rings is not None)
+    inp = torch.from_numpy(host).to(state.device)
+    return run_group_launch(_PROGRAMS[key], state, inp, K, B, W, rings,
+                            gids)
+
+
+#: the fused group window as the compile plane sees it (JAX
+#: ``multi/engine.py:201``): a capture on the card fires under this label
+_FUSED_WINDOW = labeled("group.fused", _fused_window)
 
 
 class MultiEngine:
@@ -256,8 +297,7 @@ class MultiEngine:
         self._phys_group = np.arange(n_groups)
         #   physical slot -> logical group (the inverse table)
         self.migrations = 0
-        self._replicate = group_replicate_step(R)
-        self._vote = group_vote_step(R)
+        self._replicate, self._vote = _programs(R)
         self._member = [torch.ones((self._gps, R), dtype=torch.bool,
                                    device=d) for d in self._devices]
         self._hb_payloads = None
@@ -536,8 +576,7 @@ class MultiEngine:
         self._dev_flushed = np.zeros(self.G, np.int64)
         self._dev_counters_folded = np.zeros((self.G, N_COUNTERS), np.int64)
         R = self.cfg.n_replicas
-        self._replicate_rec = group_replicate_step(R, record=True)
-        self._vote_rec = group_vote_step(R, record=True)
+        self._replicate_rec, self._vote_rec = _programs(R, record=True)
         return self.device_obs
 
     def _flush_device_obs(self) -> None:
@@ -1498,12 +1537,9 @@ class MultiEngine:
         if self._gshard is not None:
             out = self._gshard.replicate_fused_packed(
                 self.state, hosts, n, B, W, self._graphs, *rings)
-        elif self._graphs is not None:
-            out = self._graphs.run(self.state, hosts[0], n, B, W, *rings)
         else:
-            out = run_group_launch(fused_group_scan(R, record=record),
-                                   self.state, self._upload(hosts[0]), n, B,
-                                   W, *rings)
+            out = _FUSED_WINDOW(self.state, hosts[0], n, B, W, self._graphs,
+                                *rings)
         if record:
             (self.state, infos, escaped, ran, _halted,
              self._dev_rings) = out

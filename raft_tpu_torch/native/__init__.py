@@ -6,7 +6,8 @@ port's build directory (``cuda_build.build_dir()``, ``build/raft_tpu_torch``
 beside the package), under a name that carries a hash of the source, so an
 edited source is rebuilt and a current one is reused. The build compiles to
 a temporary name and renames it into place, so processes that build at the
-same moment never load a half-written library.
+same moment never load a half-written library. A build is a ``compile``
+event of the compile plane (``obs.compile``) when a watch is installed.
 
 There is no fallback: where the JAX package returns ``None`` and its
 callers take the NumPy oracle when ``g++`` or the library is missing, the
@@ -22,6 +23,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -75,9 +77,13 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
+        from raft_tpu_torch.obs import compile as obs_compile
+
         path = lib_path()
         if not path.exists():
+            t0 = time.perf_counter()
             _build(path)
+            obs_compile.emit("compile", time.perf_counter() - t0)
         try:
             lib = ctypes.CDLL(str(path))
         except OSError as ex:

@@ -21,7 +21,16 @@
   ``python -m raft_tpu_torch.obs --explain`` timeline reconstruction.
 - ``hostprof``  — per-tick and per-pump-iteration host-time attribution.
 - ``profiling`` — the launch annotation the engine wraps around each
-  launch.
+  launch, the on-demand ``torch.profiler`` capture (``/profile``) merged
+  with the span export into one timeline, and the bench device-time
+  helpers.
+- ``compile``   — the compile plane: ``CompileWatch`` records novel call
+  signatures at the labeled program seams, CUDA-graph captures and
+  kernel-library builds; the ``RetraceSentinel`` turns any post-
+  ``freeze()`` one on a registered hot path into a ``CompileViolation``.
+- ``memory``    — the memory plane: a live-tensor census by storage with
+  the CUDA allocator's view, baseline/drift leak detection, high-water
+  gauges, and the in-place (donation) audit.
 - ``device``    — the device plane: an event ring and a metrics vector on
   the engine's device, recorded beside the protocol steps (inside the
   fused window's CUDA graph too), flushed once per launch boundary into
@@ -32,8 +41,7 @@
 Every artifact (recorder dumps, span tables, Prometheus text, SLO and
 status snapshots, bundles, journals) has the JAX package's format, so
 either package's tools read either's (the device ring's packed flush
-too). Not ported yet: the compile, memory and on-demand profiler planes
-(``compile``, ``memory``, ``/profile``, ROADMAP A16b).
+too).
 """
 
 from raft_tpu_torch.obs import blackbox
@@ -45,6 +53,14 @@ from raft_tpu_torch.obs.blackbox import (
     explain_stall,
     read_journal,
 )
+from raft_tpu_torch.obs.compile import (
+    CompileRecord,
+    CompileViolation,
+    CompileWatch,
+    RecompileError,
+    RetraceSentinel,
+    assert_no_recompiles,
+)
 from raft_tpu_torch.obs.events import Event, FlightRecorder, kind_of
 from raft_tpu_torch.obs.forensics import (
     ObsStack,
@@ -53,6 +69,12 @@ from raft_tpu_torch.obs.forensics import (
     write_bundle,
 )
 from raft_tpu_torch.obs.hostprof import HostProfiler, PumpProfiler
+from raft_tpu_torch.obs.memory import (
+    DonationReport,
+    MemoryCensus,
+    MemoryWatch,
+    audit_donation,
+)
 from raft_tpu_torch.obs.metrics import LatencySummary, summarize_engine
 from raft_tpu_torch.obs.registry import MetricsRegistry, parse_prometheus
 from raft_tpu_torch.obs.serve import OpsServer, StatusBoard, serve_demo
@@ -70,20 +92,28 @@ __all__ = [
     "BlackboxJournal",
     "COUNTER_METRICS",
     "COUNTER_NAMES",
+    "CompileRecord",
+    "CompileViolation",
+    "CompileWatch",
     "DeviceObs",
-    "EventRing",
-    "KIND_NAMES",
-    "REC_W",
-    "ROLE_NAMES",
+    "DonationReport",
     "Event",
+    "EventRing",
     "FlightRecorder",
     "HostProfiler",
-    "PumpProfiler",
+    "KIND_NAMES",
     "LatencyDigest",
     "LatencySummary",
+    "MemoryCensus",
+    "MemoryWatch",
     "MetricsRegistry",
     "ObsStack",
     "OpsServer",
+    "PumpProfiler",
+    "REC_W",
+    "ROLE_NAMES",
+    "RecompileError",
+    "RetraceSentinel",
     "SLObjective",
     "SafetyAuditor",
     "SloAlert",
@@ -94,6 +124,8 @@ __all__ = [
     "StatusBoard",
     "TraceRecord",
     "TraceRecorder",
+    "assert_no_recompiles",
+    "audit_donation",
     "blackbox",
     "decode_records",
     "dev_record",

@@ -27,8 +27,11 @@ artifacts (``obs.blackbox``) — nothing here re-runs a seed:
   to a file, default stdout.
 - ``--metrics-dump BUNDLE``     — print the bundle's metrics snapshot
   as Prometheus text exposition (``--json`` for the raw snapshot).
-- ``--serve`` refuses: its demo boots a multi-Raft engine with the
-  compile and memory planes (ROADMAP A16b).
+- ``--serve``                  — boot a demo ``MultiEngine`` with the
+  full online plane, the compile watch and the memory watch, and serve
+  the ops endpoints while driving synthetic traffic
+  (``obs.serve.serve_demo``; ``--port``, ``--serve-groups``,
+  ``--serve-duration``, ``--device``: the card unless ``cpu`` is named).
 """
 
 from __future__ import annotations
@@ -198,22 +201,41 @@ def main(argv: Optional[list] = None) -> int:
     g.add_argument("--metrics-dump", metavar="BUNDLE",
                    help="bundle metrics snapshot -> Prometheus text")
     g.add_argument("--serve", action="store_true",
-                   help="not ported yet (ROADMAP A16b): the demo "
-                        "ops server over a multi-Raft engine")
+                   help="boot a demo MultiEngine with the full online "
+                        "plane attached (metrics registry, SLO tracker, "
+                        "safety auditor, status board, compile watch + "
+                        "retrace sentinel, memory census) and serve the "
+                        "ops endpoints /metrics /healthz /slo /status "
+                        "/compile /memory /profile while driving "
+                        "synthetic traffic (Ctrl-C to stop)")
     ap.add_argument("-o", "--output", default=None,
                     help="output file (default stdout)")
     ap.add_argument("--json", action="store_true",
                     help="with --metrics-dump: raw JSON snapshot instead "
                          "of Prometheus text")
+    ap.add_argument("--port", type=int, default=8900,
+                    help="with --serve: TCP port to bind (0 = ephemeral; "
+                         "default 8900)")
+    ap.add_argument("--serve-groups", type=int, default=4,
+                    help="with --serve: number of demo Raft groups")
+    ap.add_argument("--serve-duration", type=float, default=None,
+                    metavar="S",
+                    help="with --serve: stop after S wall seconds "
+                         "(default: run until Ctrl-C)")
+    ap.add_argument("--device", default=None,
+                    help="with --serve: the engine's device (default: "
+                         "the CUDA card; 'cpu' runs the plain versions)")
     args = ap.parse_args(argv)
 
     if args.serve:
         from raft_tpu_torch.obs.serve import serve_demo
 
-        try:
-            serve_demo()
-        except NotImplementedError as ex:
-            raise SystemExit(str(ex))
+        result = serve_demo(
+            port=args.port, groups=args.serve_groups,
+            duration_s=args.serve_duration, device=args.device,
+        )
+        print(json.dumps(result))
+        return 0
     if args.explain:
         text = (_explain_any(args.explain[0]) if len(args.explain) == 1
                 else _explain_many(args.explain))

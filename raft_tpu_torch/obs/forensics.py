@@ -18,8 +18,10 @@ variable); the port's runners come with ROADMAP A17. The bundle format is
 the JAX package's, so either package's CLI explains either's bundles.
 ``ObsStack.build(device=True)`` adds the device plane (``obs.device``): a
 bundle then carries the decoded device ring, which ``explain`` summarises
-and interleaves into the timeline. The compile and memory planes
-(``compile_plane=True``) wait for ROADMAP A16b and raise.
+and interleaves into the timeline. ``compile_plane=True`` adds the
+compile and memory planes (``obs.compile``, ``obs.memory``): a bundle
+then carries the compile log and the memory census, which ``explain``
+reads for ``RETRACE:`` and ``CENSUS GREW`` lines.
 
 Joined wire forensics: a bundle may carry TWO span tables —
 ``spans`` (the process's own) and ``client_spans`` (the wire-client
@@ -41,8 +43,6 @@ import re
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
-from raft_tpu_torch.obs.serve import _not_ported
-
 BUNDLE_FORMAT = "raft_tpu.obs/bundle.v1"   # shared with the JAX package
 
 
@@ -53,8 +53,9 @@ class ObsStack:
     and SLO tracker when asked for, and with ``device=True`` the device
     plane (``obs.device.DeviceObs``, decoded at every launch boundary),
     shared by every engine the run boots (across crash-restore cycles
-    too: each fresh engine gets a fresh ring, the DeviceObs accumulates).
-    The JAX stack's compile and memory planes wait for ROADMAP A16b."""
+    too: each fresh engine gets a fresh ring, the DeviceObs accumulates),
+    and with ``compile_plane=True`` the compile watch (with its retrace
+    sentinel) and the memory watch."""
 
     recorder: Any
     spans: Any
@@ -62,6 +63,8 @@ class ObsStack:
     device: Any = None
     audit: Any = None          # obs.audit.SafetyAuditor (online plane)
     slo: Any = None            # obs.slo.SloTracker (online plane)
+    compile: Any = None        # obs.compile.CompileWatch (compile plane)
+    memory: Any = None         # obs.memory.MemoryWatch (memory plane)
 
     @classmethod
     def build(cls, capacity: int = 65536, device: bool = False,
@@ -76,9 +79,6 @@ class ObsStack:
             from raft_tpu_torch.obs.device import DeviceObs
 
             dev = DeviceObs()
-        if compile_plane:
-            raise _not_ported("the compile and memory planes "
-                              "(compile_plane=True)", "A16b")
         recorder = FlightRecorder(capacity=capacity)
         registry = MetricsRegistry()
         auditor = tracker = None
@@ -91,6 +91,18 @@ class ObsStack:
                 objectives=tuple(slo_objectives or ()),
                 recorder=recorder, registry=registry,
             )
+        watch = memwatch = None
+        if compile_plane:
+            from raft_tpu_torch.obs.compile import (
+                CompileWatch,
+                RetraceSentinel,
+            )
+            from raft_tpu_torch.obs.memory import MemoryWatch
+
+            watch = CompileWatch(recorder=recorder, registry=registry)
+            RetraceSentinel(watch)
+            watch.install()
+            memwatch = MemoryWatch(registry=registry, recorder=recorder)
         return cls(
             recorder=recorder,
             spans=SpanTracker(),
@@ -98,6 +110,8 @@ class ObsStack:
             device=dev,
             audit=auditor,
             slo=tracker,
+            compile=watch,
+            memory=memwatch,
         )
 
     def attach(self, engine) -> None:
@@ -114,10 +128,18 @@ class ObsStack:
             engine.slo = self.slo
         if self.device is not None and hasattr(engine, "attach_device_obs"):
             engine.attach_device_obs(self.device)
+        if self.memory is not None:
+            # re-attachment replaces the previous generation's weakref
+            # getters: the census follows the LIVE engine across
+            # crash-restore cycles (old generations must collect away)
+            self.memory.watch_engine(engine)
 
     def close(self) -> None:
-        """The JAX stack detaches its compile watch here; this stack
-        holds no process-global hook, so there is nothing to detach."""
+        """Detach the process-global hook (the installed compile watch).
+        Runners call this when the run ends so one run's plane never
+        bleeds into the next."""
+        if self.compile is not None:
+            self.compile.uninstall()
 
 
 def resolve_bundle_dir(bundle_dir: Optional[str]) -> Optional[str]:

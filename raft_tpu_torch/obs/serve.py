@@ -37,12 +37,16 @@ scrapeable while the engine runs, without locks on the hot path:
               ``PumpProfiler`` is attached) when a
               ``raft_tpu.net.IngestServer`` publishes to the same
               board — JSON
-  /compile    the compile watch's snapshot; with none attached (the
-              port has no compile plane before ROADMAP A16b) a 404
-              with the JAX package's body
-  /memory     the memory watch's snapshot, likewise 404 until A16b
-  /profile    an error naming ROADMAP A16b (the on-demand profiler
-              capture is not ported yet)
+  /compile    the compile watch's snapshot (programs, traces, compiles,
+              the event log, the retrace sentinel's verdicts)
+  /memory     the memory watch's snapshot after a fresh census (the
+              CUDA allocator's counters beside it on the card)
+  /profile    ``?seconds=N`` (clamped to [0.05, 30], default 1):
+              capture N seconds of ``torch.profiler`` trace while the
+              engine runs, merged with the span export into one
+              timeline artifact; answers the artifact path and event
+              counts, 400 for a non-finite N, 409 while another
+              capture runs
   ==========  ==========================================================
 
 Thread-safety contract: ``/status`` and ``/healthz`` serve from
@@ -52,17 +56,19 @@ values are plain in-place updates); the one racy case — a container
 growing mid-render (new metric/label/digest key) — is retried a few
 times scrape-side, which is the standard answer for a pull endpoint.
 
-``python -m raft_tpu_torch.obs --serve`` (the JAX package's demo boots a
-``MultiEngine`` with the compile and memory watches) refuses, naming
-ROADMAP A16b.
+``python -m raft_tpu_torch.obs --serve`` boots the demo (:func:`serve_demo`):
+a ``MultiEngine`` with the full online plane and the compile and memory
+watches, on the card unless ``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
+from urllib.parse import parse_qs, urlparse
 
 
 class StatusBoard:
@@ -222,9 +228,30 @@ class OpsServer:
                     )
                     self._send(200, body)
                 elif path == "/profile":
-                    self._send(501, json.dumps({"error": str(
-                        _not_ported("the on-demand profiler capture "
-                                    "(/profile)", "A16b"))}))
+                    from raft_tpu_torch.obs import profiling
+
+                    try:
+                        seconds = float(
+                            parse_qs(
+                                urlparse(self.path).query
+                            ).get("seconds", ["1"])[0]
+                        )
+                    except ValueError:
+                        seconds = float("nan")
+                    if not math.isfinite(seconds):
+                        self._send(400, json.dumps(
+                            {"error": "seconds must be a finite number"}))
+                        return
+                    seconds = min(max(seconds, 0.05), 30.0)
+                    try:
+                        result = profiling.capture_profile(
+                            seconds, spans=ops.spans,
+                            profile_dir=ops.profile_dir,
+                        )
+                    except profiling.CaptureBusy as ex:
+                        self._send(409, json.dumps({"error": str(ex)}))
+                        return
+                    self._send(200, json.dumps(result))
                 else:
                     self._send(404, json.dumps({
                         "error": f"unknown path {path!r}",
@@ -260,20 +287,98 @@ class OpsServer:
         self.stop()
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to raft_tpu_torch yet (ROADMAP {item})")
-
-
 def serve_demo(
     port: int = 0,
     groups: int = 4,
     duration_s: Optional[float] = None,
     out=None,
+    device=None,
 ) -> dict:
-    """``python -m raft_tpu.obs --serve`` boots a demo multi-Raft engine
-    with the compile and memory planes attached; the port has the engine
-    (``multi.MultiEngine``) but not those planes yet, and this raises
-    naming them rather than serving a stand-in."""
-    raise _not_ported("the --serve demo (a MultiEngine with the compile "
-                      "and memory watches)", "A16b")
+    """``python -m raft_tpu_torch.obs --serve``: boot a demo
+    ``MultiEngine`` with the full online plane attached (registry, SLO
+    tracker with a commit objective, safety auditor, status board, the
+    compile watch with its retrace sentinel, the memory watch), drive
+    synthetic traffic, and serve the ops endpoints until ``duration_s``
+    wall seconds elapse (or forever, until Ctrl-C, when ``None``). The
+    engine runs on the card unless ``device="cpu"`` is passed. Returns a
+    small result dict (the smoke test's hook)."""
+    import time as _time
+
+    from raft_tpu_torch.config import RaftConfig
+    from raft_tpu_torch.multi.engine import MultiEngine
+    from raft_tpu_torch.obs.audit import SafetyAuditor
+    from raft_tpu_torch.obs.compile import CompileWatch, RetraceSentinel
+    from raft_tpu_torch.obs.events import FlightRecorder
+    from raft_tpu_torch.obs.memory import MemoryWatch
+    from raft_tpu_torch.obs.registry import MetricsRegistry
+    from raft_tpu_torch.obs.slo import SLObjective, SloTracker
+
+    cfg = RaftConfig(
+        n_replicas=3, entry_bytes=64, batch_size=8, log_capacity=256,
+        transport="single",
+    )
+    eng = MultiEngine(cfg, groups, recorder=FlightRecorder(), device=device)
+    eng.metrics = MetricsRegistry()
+    eng.auditor = SafetyAuditor(
+        recorder=eng.recorder, registry=eng.metrics,
+        max_entries=2 * cfg.log_capacity,
+    )
+    eng.slo = SloTracker(
+        objectives=(
+            SLObjective("commit_fast", "commit",
+                        threshold_s=2 * cfg.heartbeat_period),
+        ),
+        recorder=eng.recorder, registry=eng.metrics,
+    )
+    board = StatusBoard()
+    eng.status_board = board
+    watch = CompileWatch(
+        recorder=eng.recorder, registry=eng.metrics
+    ).install()
+    RetraceSentinel(watch)
+    memory = MemoryWatch(registry=eng.metrics, recorder=eng.recorder)
+    memory.watch_engine(eng, name="multi")
+    eng.seed_leaders()
+    server = OpsServer(
+        board=board, registry=eng.metrics, slo=eng.slo,
+        auditor=eng.auditor, compile_watch=watch, memory=memory,
+        port=port,
+    )
+    bound = server.start()
+    line = (f"raft_tpu ops endpoint on http://127.0.0.1:{bound} "
+            "(/metrics /healthz /slo /status /compile /memory "
+            "/profile); Ctrl-C to stop")
+    print(line, file=out, flush=True)
+    t0 = _time.monotonic()
+    submitted = 0
+    try:
+        while duration_s is None or _time.monotonic() - t0 < duration_s:
+            for g in range(groups):
+                if eng.leader_id[g] is None:
+                    continue
+                for i in range(cfg.batch_size):
+                    payload = (f"g{g}op{submitted}".encode()
+                               .ljust(cfg.entry_bytes, b"\0"))
+                    eng.submit(g, payload[:cfg.entry_bytes])
+                    submitted += 1
+            eng.run_for(2 * cfg.heartbeat_period)
+            if watch.sentinel is not None and not watch.sentinel.frozen:
+                # warmup over: the demo's program set is built after the
+                # first driven window; freeze so /compile shows the
+                # sentinel armed
+                watch.sentinel.freeze()
+            memory.census()
+            _time.sleep(0.02)        # pace the virtual cluster for wall
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
+        watch.uninstall()
+    return {
+        "port": bound,
+        "submitted": submitted,
+        "committed": int(eng.commit_watermark.sum()),
+        "violations": eng.auditor.total_violations,
+        "compiles": watch.total_compiles,
+        "compile_violations": len(watch.sentinel.violations),
+    }

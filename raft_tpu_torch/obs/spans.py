@@ -316,10 +316,13 @@ class SpanTracker:
         group (0 for single-group), tid = client id; spans are ``X``
         slices, annotations ``i`` instants. ``ts`` is microseconds, so
         virtual seconds are scaled 1e6 and a 300-virtual-second run
-        spans a readable 5-minute timeline."""
+        spans a readable 5-minute timeline. The spans are read from a
+        snapshot of the table, so an engine thread that keeps opening
+        spans (a ``/profile`` capture while it runs) cannot keep the
+        export from ending."""
         evs: List[dict] = []
         pids = set()
-        for sp in self.spans:
+        for sp in list(self.spans):
             pid = sp.group if sp.group is not None else 0
             tid = sp.client if isinstance(sp.client, int) else 0
             pids.add(pid)

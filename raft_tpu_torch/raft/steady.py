@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.obs import profiling
+from raft_tpu_torch.obs.compile import labeled
 
 
 def _batch_words(chunk, count: int, batch: int,
@@ -76,6 +77,18 @@ def _batch_words(chunk, count: int, batch: int,
             b"".join(p for _, p in chunk[:count]), np.uint8
         ).reshape(count, entry_bytes)
     return torch.from_numpy(words.view(np.int32))
+
+
+def _stage_write(buf: torch.Tensor, words: torch.Tensor,
+                 slot: int) -> torch.Tensor:
+    buf[slot].copy_(words)
+    return buf
+
+
+#: the shared staging-slot writer: one copy per staged batch, labeled as
+#: the JAX package's process-wide slot writer (the compile plane's
+#: "single.stage" hot path)
+_STAGE = labeled("single.stage", _stage_write)
 
 
 class StagingRing:
@@ -148,8 +161,9 @@ class StagingRing:
         rebuilds). ``offset`` is the queue position of the tail's first
         entry."""
         self._alloc()
-        self.buf[self.staged % self.S].copy_(_batch_words(
-            queue[offset:offset + count], count, self.B, entry_bytes))
+        _STAGE(self.buf, _batch_words(queue[offset:offset + count], count,
+                                      self.B, entry_bytes),
+               self.staged % self.S)
         self.stage_tail_events += 1
 
     def top_up(self, queue: List, entry_bytes: int,
@@ -172,8 +186,9 @@ class StagingRing:
             if max_new is not None and staged_new >= max_new:
                 break
             lo = self.staged * B - self.consumed     # queue offset
-            self.buf[self.staged % self.S].copy_(
-                _batch_words(queue[lo:lo + B], B, B, entry_bytes))
+            _STAGE(self.buf, _batch_words(queue[lo:lo + B], B, B,
+                                          entry_bytes),
+                   self.staged % self.S)
             self.staged += 1
             staged_new += 1
             self.stage_events += 1

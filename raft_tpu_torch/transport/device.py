@@ -39,10 +39,13 @@ from raft_tpu_torch.core.step import (
     vote_step,
 )
 from raft_tpu_torch.core.step_cuda import steady_pipeline
+from raft_tpu_torch.obs.compile import labeled, labeled_method
 
 #: process-wide program cache, keyed like the JAX transport's: every
 #: transport over the same cluster shape shares one bound step function
-#: per entry point.
+#: per entry point, wrapped ``obs.compile.labeled`` when stored (the
+#: fused window is labeled on ``replicate_fused`` as a whole, since on the
+#: card it replays a graph and never reaches its partial).
 _PROGRAMS: dict = {}
 _COMMS: dict = {}
 
@@ -56,31 +59,33 @@ def _comm_for(rows: int) -> SingleDeviceComm:
 def _replicate_program(rows: int, ec: bool, commit_quorum, rep: bool):
     key = ("replicate", rows, ec, commit_quorum, rep)
     if key not in _PROGRAMS:
-        _PROGRAMS[key] = partial(replicate_step, _comm_for(rows), ec=ec,
-                                 commit_quorum=commit_quorum, repair=rep)
+        _PROGRAMS[key] = labeled("single.replicate", partial(
+            replicate_step, _comm_for(rows), ec=ec,
+            commit_quorum=commit_quorum, repair=rep))
     return _PROGRAMS[key]
 
 
 def _vote_program(rows: int):
     key = ("vote", rows)
     if key not in _PROGRAMS:
-        _PROGRAMS[key] = partial(vote_step, _comm_for(rows))
+        _PROGRAMS[key] = labeled("single.vote",
+                                 partial(vote_step, _comm_for(rows)))
     return _PROGRAMS[key]
 
 
 def _replicate_many_program(rows: int, ec: bool, commit_quorum, rep: bool):
     key = ("replicate_many", rows, ec, commit_quorum, rep)
     if key not in _PROGRAMS:
-        _PROGRAMS[key] = partial(scan_replicate, _comm_for(rows), ec,
-                                 commit_quorum, rep)
+        _PROGRAMS[key] = labeled("single.replicate_many", partial(
+            scan_replicate, _comm_for(rows), ec, commit_quorum, rep))
     return _PROGRAMS[key]
 
 
 def _pipeline_program(rows: int, ec: bool, commit_quorum):
     key = ("pipeline", rows, ec, commit_quorum)
     if key not in _PROGRAMS:
-        _PROGRAMS[key] = partial(steady_pipeline,
-                                 commit_quorum=commit_quorum, ec=ec)
+        _PROGRAMS[key] = labeled("single.pipeline", partial(
+            steady_pipeline, commit_quorum=commit_quorum, ec=ec))
     return _PROGRAMS[key]
 
 
@@ -216,6 +221,7 @@ class SingleDeviceTransport(ResidentView):
             allow_turnover=bool(allow_turnover),
         )
 
+    @labeled_method("single.fused")
     def replicate_fused(self, state, staging, start_slot, counts, n_run,
                         halted0, leader, leader_term, alive, slow,
                         member=None, repair_floor=0, floor_prev_term=0,

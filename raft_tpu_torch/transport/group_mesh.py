@@ -34,6 +34,9 @@ What differs from the JAX transport is the mechanism, not the result:
 - Swaps write both slots in place, so the rings keep their addresses and
   a captured CUDA graph of the fused window stays valid; a swap between
   two devices copies across.
+- The compile plane's labels (``group_mesh.replicate``, ``.vote``,
+  ``.fused``, ``.swap``, ``.ring_swap``) sit on the methods, where JAX
+  labels the cached ``shard_map`` programs.
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ from raft_tpu_torch.core.step import (
     group_vote_step,
 )
 from raft_tpu_torch.obs import blackbox
+from raft_tpu_torch.obs.compile import labeled_method
 
 
 def n_shards_for(n_groups: int, n_devices: int) -> int:
@@ -240,6 +244,7 @@ class GroupMeshTransport:
         return cls(*(self.cat([getattr(i, f) for i in infos], dim)
                      for f in cls._fields))
 
+    @labeled_method("group_mesh.replicate")
     def replicate(self, state, payloads, counts, leaders, lterms, eff,
                   slow, member, rings=None, gids=None):
         """One batched replicate launch on every shard: the operand
@@ -253,6 +258,7 @@ class GroupMeshTransport:
         out = (blocks, self._join(infos, RepInfo))
         return out if rg is None else out + (rg,)
 
+    @labeled_method("group_mesh.vote")
     def request_votes(self, state, candidates, cterms, eff, rings=None,
                       gids=None):
         """One batched vote launch on every shard (``group_vote_step``'s
@@ -269,6 +275,7 @@ class GroupMeshTransport:
                self.cat([r[2] for r in rest], 0))
         return out if rg is None else out + (rg,)
 
+    @labeled_method("group_mesh.fused")
     def replicate_fused(self, state, payloads, counts, n_run, halted0,
                         leaders, terms, alive, slow, member, rings=None,
                         gids=None):
@@ -284,6 +291,7 @@ class GroupMeshTransport:
         return self._fused_out(*self._each("fused", state, ops, rings,
                                            gids))
 
+    @labeled_method("group_mesh.fused")
     def replicate_fused_packed(self, state, hosts, K: int, B: int, W: int,
                                graphs=None, rings=None, gids=None):
         """The fused window from packed host inputs, one array a shard
@@ -330,6 +338,7 @@ class GroupMeshTransport:
                 dst = self._at(parts, s)
                 dst.copy_(v.to(dst.device))
 
+    @labeled_method("group_mesh.swap")
     def swap_slots(self, state, perm) -> List[ReplicaState]:
         """Permute the group axis by ``perm`` (i32[G], physical order; new
         slot ``s`` holds old slot ``perm[s]``): the device side of a group
@@ -339,6 +348,7 @@ class GroupMeshTransport:
         self._permute([[getattr(b, f) for b in state] for f in FIELDS], perm)
         return state
 
+    @labeled_method("group_mesh.ring_swap")
     def swap_ring_slots(self, rings, perm) -> list:
         """The event rings ride the same slot permutation, in place
         (recorded events stay with their logical group)."""

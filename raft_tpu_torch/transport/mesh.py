@@ -41,7 +41,9 @@ of a shard batch, which every payload write goes through. The recorded
 programs (``ring=``) run the same steps with ``record=True``: every rank
 writes the identical event ring from gathered pre- and post-states.
 Nothing on the mesh is captured into a CUDA graph: a gloo collective is
-a host call.
+a host call. The compile plane's labels keep the JAX text
+(``tpu_mesh.replicate``, ``.replicate_many``, ``.pipeline``, ``.fused``,
+``.vote``) and sit on the methods, where JAX labels its cached programs.
 """
 
 from __future__ import annotations
@@ -71,6 +73,7 @@ from raft_tpu_torch.core.step import (
 )
 from raft_tpu_torch.core.step_mesh import mesh_pipeline
 from raft_tpu_torch.obs import blackbox
+from raft_tpu_torch.obs.compile import labeled_method
 from raft_tpu_torch.transport.device import resolve_device
 
 
@@ -268,6 +271,7 @@ class MeshTransport:
                               device=self.device)
         return member
 
+    @labeled_method("tpu_mesh.replicate")
     def replicate(self, state, client_payload, client_count, leader,
                   leader_term, alive, slow, repair=True, member=None,
                   repair_floor=0, floor_prev_term=0, term_floor=None,
@@ -286,6 +290,7 @@ class MeshTransport:
             commit_quorum=cfg.commit_quorum, repair=bool(repair),
             term_floor=term_floor, **rec)
 
+    @labeled_method("tpu_mesh.replicate_many")
     def replicate_many(self, state, payloads, counts, leader, leader_term,
                        alive, slow, repair=True, member=None, repair_floor=0,
                        floor_prev_term=0,
@@ -299,6 +304,7 @@ class MeshTransport:
             slow, floor_prev_term, repair_floor, self._member(member),
             term_floor=term_floor)
 
+    @labeled_method("tpu_mesh.pipeline")
     def replicate_pipeline(self, state, payloads, counts, leader, leader_term,
                            alive, slow, member=None, repair_floor=0,
                            floor_prev_term=0, term_floor=1,
@@ -316,6 +322,7 @@ class MeshTransport:
             commit_quorum=cfg.commit_quorum, ec=cfg.ec_enabled,
             allow_turnover=allow_turnover)
 
+    @labeled_method("tpu_mesh.fused")
     def replicate_fused(self, state, staging, start_slot, counts, n_run,
                         halted0, leader, leader_term, alive, slow,
                         member=None, repair_floor=0, floor_prev_term=0,
@@ -337,6 +344,7 @@ class MeshTransport:
             counts, n_run, halted0, leader, leader_term, alive, slow,
             floor_prev_term, repair_floor, self._member(member), **rec)
 
+    @labeled_method("tpu_mesh.vote")
     def request_votes(self, state, candidate, cand_term, alive,
                       ring=None, quorum=0) -> Tuple[ReplicaState, VoteInfo]:
         """One election round; ``ring`` records it (with ``quorum``, the

@@ -58,12 +58,51 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import raft_tpu_torch.native, raft_tpu_torch.ckpt.tiered\n"
         "import raft_tpu_torch.cluster, raft_tpu_torch.cluster.storage\n"
         "import raft_tpu_torch.obs.device\n"
+        "import raft_tpu_torch.obs.compile, raft_tpu_torch.obs.memory\n"
         "import raft_tpu_torch.multi, raft_tpu_torch.multi.engine\n"
         "import raft_tpu_torch.multi.router, raft_tpu_torch.multi.rebalancer\n"
         "import raft_tpu_torch.examples.kv_sharded\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax') or "
         "m == 'raft_tpu' or m.startswith(('jax.', 'raft_tpu.')))\n"
         "print(bad); sys.exit(1 if bad else 0)\n" % str(ROOT)
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-I", "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_obs_exports_the_jax_planes_names():
+    """``raft_tpu_torch.obs`` exports every name of JAX's
+    ``raft_tpu/obs/__init__.py`` (the device plane's lazily), the compile
+    and memory planes' among them."""
+    import raft_tpu.obs as jobs
+    import raft_tpu_torch.obs as tobs
+
+    assert set(jobs.__all__) <= set(tobs.__all__)
+    for name in ("CompileRecord", "CompileViolation", "CompileWatch",
+                 "RecompileError", "RetraceSentinel", "assert_no_recompiles",
+                 "DonationReport", "MemoryCensus", "MemoryWatch",
+                 "audit_donation", "serve_demo"):
+        assert getattr(tobs, name).__module__.startswith("raft_tpu_torch.")
+
+
+def test_compile_plane_import_stays_off_the_device():
+    """The transports import ``obs.compile`` on the hot path: it imports
+    no torch of its own and touches no device, and importing it leaves
+    CUDA uninitialised and ``obs.device`` unloaded."""
+    src = (ROOT / "raft_tpu_torch" / "obs" / "compile.py").read_text()
+    tree = ast.parse(src)
+    mods = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+            for a in n.names} | {n.module for n in ast.walk(tree)
+                                 if isinstance(n, ast.ImportFrom)}
+    assert not any(m and m.split(".")[0] == "torch" for m in mods)
+    code = (
+        "import sys; sys.path.insert(0, %r)\n"
+        "import raft_tpu_torch.obs.compile, torch\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert 'raft_tpu_torch.obs.device' not in sys.modules\n"
+        % str(ROOT)
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-I", "-c", code], env=env,

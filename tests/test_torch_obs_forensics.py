@@ -9,8 +9,14 @@ JAX package's.
   both packages, and each CLI reads the other's bundle alike.
 - ``BlackboxJournal`` journals and a ``StallWatchdog`` stall bundle
   (fired by a 0.2-s budget) explain the same through both packages.
-- ``ObsStack.build(compile_plane=True)`` refuses naming ROADMAP A16b
-  (``device=True`` is covered in ``tests/test_torch_device_obs.py``).
+- ``ObsStack.build(compile_plane=True)`` builds the compile and memory
+  planes (the case that checked its refusal before they were ported keeps
+  its name), and a bundle carries JAX's ``compile_log`` and ``memory``
+  sections: each package's ``--explain`` prints the same ``RETRACE:`` and
+  ``CENSUS GREW`` lines for the other's bundle
+  (``tests/test_obs_forensics.py``'s
+  ``test_explain_flags_retrace_and_census_growth``; ``device=True`` is
+  covered in ``tests/test_torch_device_obs.py``).
 """
 
 import json
@@ -195,5 +201,106 @@ def test_stall_watchdog_fires_and_explains(tmp_path, capsys):
     (dict(compile_plane=True), "A16b"),
 ], ids=["compile"])
 def test_obs_stack_refuses_unported_planes(kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tforensics.ObsStack.build(**kw)
+    """Once the refusal of ROADMAP ``item``; the planes now build: a
+    compile watch installed with its sentinel and a memory watch on the
+    stack's registry, attached to an engine by ``attach`` and detached by
+    ``close``."""
+    from raft_tpu_torch.obs import compile as tcompile
+    from raft_tpu_torch.obs.compile import CompileWatch, RetraceSentinel
+    from raft_tpu_torch.obs.memory import MemoryWatch
+    from tests.test_torch_memory_plane import mk_engine
+
+    stack = tforensics.ObsStack.build(**kw)
+    try:
+        assert isinstance(stack.compile, CompileWatch)
+        assert isinstance(stack.compile.sentinel, RetraceSentinel)
+        assert stack.compile.installed and tcompile.active()
+        assert isinstance(stack.memory, MemoryWatch)
+        assert stack.memory.registry is stack.registry
+        e = mk_engine("torch")
+        stack.attach(e)
+        assert stack.memory.snapshot()["roots"] == [
+            "engine.host", "engine.ring", "engine.state"]
+    finally:
+        stack.close()
+    assert not stack.compile.installed
+
+
+def bundle_with_retrace_and_growth(pkg, tmp_path):
+    """JAX's case through ``pkg``: a post-freeze retrace on
+    ``single.fused`` and a held ``float32[99,3]`` buffer, then a bundle."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    fmod = {"jax": jforensics, "torch": tforensics}[pkg]
+    if pkg == "jax":
+        from raft_tpu.obs.compile import labeled
+
+        prog, mk = jax.jit(lambda x: x - 2), jnp.ones
+        zeros = lambda: jnp.zeros((99, 3), jnp.float32)  # noqa: E731
+    else:
+        from raft_tpu_torch.obs.compile import labeled
+
+        prog, mk = (lambda x: x - 2), torch.ones
+        zeros = lambda: torch.zeros((99, 3))  # noqa: E731
+    obs = fmod.ObsStack.build(compile_plane=True)
+    try:
+        probe = labeled("single.fused", prog)
+        a, b = mk(5), mk(6)
+        probe(a)
+        obs.compile.sentinel.freeze()
+        probe(b)                                   # post-freeze retrace
+        assert obs.compile.sentinel.violations
+        obs.memory.set_baseline()
+        leak = zeros()                             # census growth
+        obs.memory.final_drift = obs.memory.drift()
+        assert obs.memory.final_drift
+        path = fmod.write_bundle(
+            str(tmp_path / pkg), kind="torture", seed=1,
+            expected="LINEARIZABLE", verdict="VIOLATION", obs=obs)
+        del leak
+    finally:
+        obs.close()
+    return path
+
+
+def flagged(text):
+    return [ln for ln in text.splitlines()
+            if "RETRACE:" in ln or "CENSUS GREW" in ln]
+
+
+def test_explain_flags_retrace_and_census_growth(tmp_path, capsys):
+    paths = {pkg: bundle_with_retrace_and_growth(pkg, tmp_path)
+             for pkg in ("jax", "torch")}
+    b = tforensics.load_bundle(paths["torch"])
+    jb = jforensics.load_bundle(paths["jax"])
+    assert set(b["compile_log"]) == set(jb["compile_log"])
+    assert set(b["memory"]) == set(jb["memory"])
+    assert b["compile_log"]["sentinel"]["violations"]
+    assert b["memory"]["census"]["n_arrays"] > 0
+    texts = {}
+    for reader, main in MAINS.items():
+        for writer, path in paths.items():
+            assert main(["--explain", path]) == 0
+            texts[reader, writer] = flagged(capsys.readouterr().out)
+    for writer in paths:
+        got = texts["torch", writer]
+        assert got == texts["jax", writer], writer
+        assert any("RETRACE: post-freeze" in ln and "single.fused" in ln
+                   for ln in got)
+        assert any("CENSUS GREW" in ln for ln in got)
+    # the port's bundle: its one trace on the hot path; the same census
+    # growth as JAX's (the same buffers, the same bytes; the totals
+    # around it are whatever else the process holds)
+    retrace = [ln for ln in texts["torch", "torch"] if "RETRACE" in ln]
+    assert len(retrace) == 1
+    assert retrace[0].startswith(
+        "  RETRACE: post-freeze trace on 'single.fused' at t_wall=")
+    assert retrace[0].endswith("s args=(float32[6])")
+    grew = {w: [ln.split(" (")[0] + " " + ln.split(") ")[-1]
+                for ln in texts["torch", w] if "CENSUS GREW" in ln]
+            for w in paths}
+    assert grew["torch"] == grew["jax"] == [
+        "  CENSUS GREW: +1188 bytes over baseline — possible leak across "
+        "crash-restore/migration"]
