@@ -327,6 +327,24 @@ entries, batch 256, a 4096-slot ring each; ``bench.py``
     time. Last, ``serve_demo`` runs on the card for 3 s, and
     ``/compile``, ``/memory`` and ``/profile?seconds=0.2`` must answer
     200;
+11g. ``chaos_path``: the chaos harness (``raft_tpu_torch.chaos``) on
+    the card, every run held against the same run on the CPU field by
+    field (report, nemesis log, message counts, and every op of the
+    client history with its virtual times): the pinned membership seeds
+    11/14/22/27 at ``phases=4`` at ``fuse_k`` 1 and at
+    ``RAFT_TPU_FUSE_K=4`` (fused windows must run); seed 17 at
+    ``phases=6`` with the compile and memory planes, first at ``fuse_k``
+    4 with the graph pool off (the crash cycles' captures after the
+    freeze, printed), then at ``fuse_k`` 1 and 4 with it on: LINEARIZABLE
+    with crash cycles, no sentinel violation, a flat census, no
+    recapture, and the same run as with the pool off; the broken
+    ``dirty_reads`` variant rejected; ``torture_run_multi``,
+    ``overload_run``, ``reconfig_run``, ``reads_run`` (correct and
+    ``lease_skew``), ``segment_storage_run`` and ``migration_run`` on two
+    shards of the card; then membership seed 11 at the north star's
+    widths (3 -> 5 voters, 256-byte entries, B = 1 024, C = 32 768),
+    LINEARIZABLE, its wall and ms a leader tick printed, and the same at
+    C = 4 096 against the CPU. K1, K2 and K5 must launch;
 
 Then the replica mesh: one replica row per rank of a ``torch.distributed``
 gloo group, all ranks on the one card (three processes time-sharing it,
@@ -9832,6 +9850,369 @@ def phase_obs_planes_path(dev, card_line):
     return res
 
 
+# ------------------------------------------------------------ chaos path
+CHAOS_SEEDS = (11, 14, 22, 27)  # the pinned membership seeds
+CHAOS_WATCHDOG_S = 400          # the phase's stacks are dumped past this
+
+
+def chaos_fingerprint(rep):
+    """The chaos determinism fingerprint (the JAX package's tests'
+    tuple): verdict, commit CRC, op count, op counts, crashes, shed ops,
+    membership ops."""
+    return (rep.verdict, rep.commit_digest, rep.ops, rep.op_counts,
+            rep.crashes, rep.shed_ops, rep.membership_ops)
+
+
+def chaos_plain(v):
+    if hasattr(v, "verdict") and hasattr(v, "steps"):
+        return (v.verdict, v.steps, v.key, v.detail)
+    if isinstance(v, dict):
+        return {k: chaos_plain(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return type(v)(chaos_plain(x) for x in v)
+    return v
+
+
+def chaos_run(fn, *args, **kw):
+    """``raft_tpu_torch.chaos.runner.fn(*args, **kw)`` -> (trace, report):
+    the trace is every report field but the live objects, and every
+    history the checker was handed, one tuple an op (client, op, key,
+    value, invoke and complete times, status, read class)."""
+    from raft_tpu_torch.chaos import runner
+
+    seen = []
+    saved = {n: getattr(runner, n)
+             for n in ("check_history", "check_read_classes")}
+    for name, orig in saved.items():
+        def wrap(history, *a, _orig=orig, **k):
+            seen.append([(r.client, r.op, r.key, r.value, r.invoke_t,
+                          r.complete_t, r.status,
+                          getattr(r, "read_class", None))
+                         for r in history.ops])
+            return _orig(history, *a, **k)
+        setattr(runner, name, wrap)
+    try:
+        rep = getattr(runner, fn)(*args, **kw)
+    finally:
+        for name, orig in saved.items():
+            setattr(runner, name, orig)
+    trace = {f.name: chaos_plain(getattr(rep, f.name))
+             for f in dataclasses.fields(rep)
+             if f.name not in ("obs", "bundle_path")}
+    trace["verdict"] = rep.verdict
+    trace["histories"] = seen
+    return trace, rep
+
+
+def chaos_same(a, b, what):
+    for k in b:
+        check(a.get(k) == b[k], f"{what}: {k} differs: "
+              f"{str(a.get(k))[:300]} != {str(b[k])[:300]}")
+    check(a.keys() == b.keys(), f"{what}: report fields differ")
+
+
+class chaos_env:
+    """``RAFT_TPU_FUSE_K`` for a block (None removes it)."""
+
+    def __init__(self, k):
+        self.k = k
+
+    def __enter__(self):
+        import os
+
+        self.old = os.environ.get("RAFT_TPU_FUSE_K")
+        if self.k is None:
+            os.environ.pop("RAFT_TPU_FUSE_K", None)
+        else:
+            os.environ["RAFT_TPU_FUSE_K"] = str(self.k)
+
+    def __exit__(self, *exc):
+        import os
+
+        if self.old is None:
+            os.environ.pop("RAFT_TPU_FUSE_K", None)
+        else:
+            os.environ["RAFT_TPU_FUSE_K"] = self.old
+
+
+def chaos_graph_use(fn):
+    """Run ``fn()`` counting what every ``FusedGraphs`` launch did during
+    it (a graph set built in the run or taken from the graph pool):
+    (result, captures, recaptures and replays made in the run, and the
+    graph objects that launched). Nothing of a graph set is held: a held
+    one would keep its rings alive past their engine."""
+    import weakref
+
+    from raft_tpu_torch.core import graphs
+
+    names = ("captures", "recaptures", "replays", "capture_s")
+    total = dict.fromkeys(names, 0)
+    seen = weakref.WeakSet()
+    orig = graphs.FusedGraphs.run
+
+    def run(self, *a, **k):
+        before = [getattr(self, n) for n in names]
+        try:
+            return orig(self, *a, **k)
+        finally:
+            seen.add(self)
+            for n, b in zip(names, before):
+                total[n] += getattr(self, n) - b
+
+    graphs.FusedGraphs.run = run
+    try:
+        out = fn()
+    finally:
+        graphs.FusedGraphs.run = orig
+    return out, {"graph_objects_alive": len(seen),
+                 **{f"graph_{n}": v for n, v in total.items()}}
+
+
+def chaos_crash_cycles(dev, k, pooled):
+    """Seed 17 at ``phases=6`` with the compile and memory planes (crash
+    cycles after the freeze) on the card at ``fuse_k`` ``k``, the graph
+    pool on or off: (trace, facts)."""
+    import torch
+
+    from raft_tpu_torch.core import graphs
+
+    graphs.POOL.enabled = pooled
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    try:
+        with chaos_env(k):
+            (trace, rep), use = chaos_graph_use(
+                lambda: chaos_run("torture_run", 17, phases=6,
+                                  observe_compile=True, device=dev))
+    finally:
+        graphs.POOL.enabled = True
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    w, mem = rep.obs.compile, rep.obs.memory
+    viol = [str(v) for v in w.sentinel.violations]
+    facts = {
+        "fuse_k": k or 1, "graph_pool": pooled, "verdict": rep.verdict,
+        "crashes": rep.crashes, "wall_s": wall,
+        "sentinel_violations": len(viol),
+        "violations_by_event": {e: sum(1 for v in w.sentinel.violations
+                                       if v.event == e)
+                                for e in ("trace", "compile")},
+        "violation_list": viol,
+        "compile_events_single_fused": len(w.events("single.fused",
+                                                    "compile")),
+        **use,
+        "final_drift": mem.final_drift,
+        "allocated_bytes_before_run": a0,
+        "allocated_bytes_at_baseline": (mem.baseline.allocator or {}).get(
+            "cuda_allocated_bytes"),
+        "allocated_bytes_at_quiesce": ((mem.last.allocator or {}).get(
+            "cuda_allocated_bytes") if mem.last is not None else None),
+    }
+    return trace, facts
+
+
+def phase_chaos_path(dev, card_line):
+    """The chaos harness (``raft_tpu_torch.chaos``) on the card against the
+    same runs on the CPU (module doc, 11g)."""
+    import faulthandler
+
+    import torch
+
+    import raft_tpu_torch.raft.steady as steady
+    from raft_tpu_torch.chaos import LINEARIZABLE, VIOLATION
+    from raft_tpu_torch.chaos.runner import _default_cfg, _membership_cfg
+    from raft_tpu_torch.core import ring_cuda
+    from raft_tpu_torch.raft.engine import RaftEngine
+    from raft_tpu_torch.transport.group_mesh import GroupMesh
+
+    t_phase = time.perf_counter()
+    faulthandler.dump_traceback_later(CHAOS_WATCHDOG_S, exit=True)
+    res = {"phase": "chaos_path", "card": card_line}
+
+    def step(name):
+        print(f"chaos_path: {name} at "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    zero_counters(dev)
+    fired = {"n": 0}
+    fire = steady.FusedDriver.fire
+
+    def spy(self, r, horizon):
+        out = fire(self, r, horizon)
+        fired["n"] += bool(out)
+        return out
+
+    # ---- the pinned membership seeds, card against CPU, fuse_k 1 and 4
+    step("membership seeds")
+    steady.FusedDriver.fire = spy
+    try:
+        seeds = {}
+        for k in (None, 4):
+            for seed in CHAOS_SEEDS:
+                with chaos_env(k):
+                    f0 = fired["n"]
+                    card, rep = chaos_run("torture_run", seed, phases=4,
+                                          membership=True, device=dev)
+                    fused = fired["n"] - f0
+                    cpu, _ = chaos_run("torture_run", seed, phases=4,
+                                       membership=True, device="cpu")
+                chaos_same(card, cpu, f"seed {seed} fuse_k {k or 1}")
+                check(rep.verdict == LINEARIZABLE, rep.summary())
+                seeds[f"{seed}@{k or 1}"] = {
+                    "fingerprint": list(chaos_fingerprint(rep)),
+                    "msg_stats": rep.msg_stats,
+                    "nemesis_lines": len(rep.nemesis_log),
+                    "fused_windows_card": fused}
+            if k:
+                n = sum(v["fused_windows_card"] for s, v in seeds.items()
+                        if s.endswith(f"@{k}"))
+                check(n > 0, f"no fused window ran at fuse_k {k}")
+    finally:
+        steady.FusedDriver.fire = fire
+    res["membership_seeds"] = seeds
+    res["membership_equal_card_cpu"] = True
+    # ---- seed 17: crash cycles after the freeze. The first run at this
+    # shape is cold: a launch size first used after the freeze traces and
+    # captures then, as JAX's first run in a process compiles it. Then
+    # the graph pool off (every crash cycle captures anew: the fault),
+    # and on at fuse_k 1 and 4 (warm: each run takes the last one's
+    # graphs, so nothing is captured at all)
+    step("crash cycles")
+    with chaos_env(4):
+        cpu4, _ = chaos_run("torture_run", 17, phases=6,
+                            observe_compile=True, device="cpu")
+    cpu1, _ = chaos_run("torture_run", 17, phases=6, observe_compile=True,
+                        device="cpu")
+    crash = {}
+    for name, k, pooled in (("fuse_k4_cold", 4, True),
+                            ("fuse_k4_pool_off", 4, False),
+                            ("fuse_k1_pool_on", None, True),
+                            ("fuse_k4_pool_on", 4, True)):
+        trace, facts = chaos_crash_cycles(dev, k, pooled)
+        crash[name] = facts
+        print(f"chaos_path: seed 17 {name} "
+              f"{json.dumps(facts, default=str)}", flush=True)
+        chaos_same(trace, cpu4 if k else cpu1, f"seed 17 {name}")
+        check(facts["verdict"] == LINEARIZABLE and facts["crashes"] >= 1,
+              f"seed 17 {name}: {facts}")
+        check(facts["final_drift"] == [],
+              f"seed 17 {name} census: {facts['final_drift']}")
+        if k:
+            check(facts["graph_replays"] > 0, f"{name}: no graph replayed")
+        if pooled and name != "fuse_k4_cold":
+            check(facts["sentinel_violations"] == 0,
+                  f"seed 17 {name}: {facts['violation_list']}")
+            check(facts["graph_recaptures"] == 0
+                  and facts["graph_captures"] == 0,
+                  f"seed 17 {name}: {facts}")
+    res["crash_cycles"] = crash
+    # ---- the broken variant must be rejected on the card
+    step("broken variant")
+    card, rep = chaos_run("torture_run", 0, phases=8, keys=2,
+                          broken="dirty_reads", device=dev)
+    cpu, _ = chaos_run("torture_run", 0, phases=8, keys=2,
+                       broken="dirty_reads", device="cpu")
+    chaos_same(card, cpu, "dirty_reads")
+    check(rep.verdict == VIOLATION, f"dirty_reads: {rep.summary()}")
+    res["dirty_reads"] = {"verdict": rep.verdict, "key": repr(rep.check.key),
+                          "steps": rep.check.steps}
+    # ---- the other runners, card against CPU
+    step("drills")
+    k1_small = {"K1": ring_cuda.LAUNCHES["write_window_both"]}
+    drills, k5 = {}, {}
+    cases = [
+        ("multi", "torture_run_multi", (0,),
+         dict(n_groups=4, phases=8), {}),
+        ("overload", "overload_run", (0,), dict(rate_mult=5.0), {}),
+        ("reconfig", "reconfig_run", (0,), {}, {}),
+        ("reads", "reads_run", (3,), {}, {}),
+        ("reads_lease_skew", "reads_run", (3,),
+         dict(broken="lease_skew"), {}),
+        ("segments", "segment_storage_run", (7,), {}, {}),
+        ("migration", "migration_run", (0,),
+         dict(n_groups=4, n_moves=2, clients=2, keys=4),
+         {"mesh": GroupMesh([dev, dev])}),
+    ]
+    for name, fn, args, kw, card_kw in cases:
+        c5 = ring_cuda.LAUNCHES["write_window_cols"]
+        t0 = time.perf_counter()
+        card, rep = chaos_run(fn, *args, device=dev, **kw, **card_kw)
+        wall = time.perf_counter() - t0
+        k5[name] = ring_cuda.LAUNCHES["write_window_cols"] - c5
+        cpu_kw = {"mesh": GroupMesh(["cpu", "cpu"])} if card_kw else {}
+        cpu, _ = chaos_run(fn, *args, device="cpu", **kw, **cpu_kw)
+        chaos_same(card, cpu, name)
+        want = VIOLATION if kw.get("broken") else LINEARIZABLE
+        check(rep.verdict == want, f"{name}: {rep.summary()}")
+        drills[name] = {"verdict": rep.verdict, "ops": rep.ops,
+                        "card_wall_s": wall, "k5_launches": k5[name]}
+    check(k5["multi"] > 0 and k5["migration"] > 0,
+          f"K5 never launched on the multi-Raft chaos runs: {k5}")
+    res["drills"] = drills
+    torture = read_counters(dev)
+    res["launches_torture"] = {key: torture[key] for key in ("K1", "K2")}
+    check(torture["K1"] > k1_small["K1"] > 0, "K1 never launched")
+    check(torture["K3"] == 0 and torture["K4"] == 0,
+          "a flight launched under ChaosTransport")
+    # ---- one torture run at the north star's widths
+    step("north star widths")
+    engines = []
+    init = RaftEngine.__init__
+
+    def keep(self, *a, **k):
+        init(self, *a, **k)
+        engines.append(self)
+
+    ns = {}
+    for cap in (32768, 4096):
+        cfg = dataclasses.replace(
+            _membership_cfg(_default_cfg(11)), entry_bytes=256,
+            batch_size=1024, log_capacity=cap)
+        k2 = read_counters(dev)["K2"]
+        RaftEngine.__init__ = keep
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card, rep = chaos_run("torture_run", 11, phases=4,
+                                  membership=True, cfg=cfg, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            RaftEngine.__init__ = init
+        ticks = sum(e._tick_count for e in engines)
+        engines.clear()
+        check(rep.verdict == LINEARIZABLE, f"north star: {rep.summary()}")
+        ns[cap] = {"verdict": rep.verdict, "ops": rep.ops,
+                   "crashes": rep.crashes,
+                   "membership_ops": rep.membership_ops,
+                   "host_wall_s": wall, "leader_ticks": ticks,
+                   "ms_a_leader_tick": 1e3 * wall / max(ticks, 1),
+                   "ring_mb": cfg.rows * cfg.log_capacity
+                   * (cfg.entry_bytes + 4) / 1e6,
+                   "k2_launches": read_counters(dev)["K2"] - k2}
+        if cap == 4096:
+            cpu, _ = chaos_run("torture_run", 11, phases=4,
+                               membership=True, cfg=cfg, device="cpu")
+            chaos_same(card, cpu, "seed 11 at C = 4096")
+    res["north_star_widths"] = {"C=32768": ns[32768], "C=4096": ns[4096],
+                                "card": card_line}
+    after = read_counters(dev)
+    res["launches"] = {"K1": after["K1"], "K2": after["K2"],
+                       "K3": after["K3"], "K4": after["K4"]}
+    res["launches_northstar"] = {
+        key: after[key] - torture[key] for key in ("K1", "K2")}
+    res["k5_launches"] = {"chaos_multi": k5["multi"],
+                          "chaos_migration": k5["migration"]}
+    check(res["launches"]["K2"] > 0,
+          "K2 never launched on the chaos path")
+    torch.cuda.synchronize()
+    faulthandler.cancel_dump_traceback_later()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 #: phases ``--only=a,b`` runs alone (after the card and the build): the
 #: kernels against their plain versions, the mesh engine's (1-D and
 #: 2-D), and the resident main paths whose host code the mesh engine's
@@ -9854,7 +10235,9 @@ ONLY_PHASES = {"kernels": lambda dev: phase_kernels(ns_config(), dev),
                "group_mesh_card_equals_cpu":
                phase_group_mesh_card_equals_cpu,
                "obs_planes_path":
-               lambda dev: phase_obs_planes_path(dev, card_query())}
+               lambda dev: phase_obs_planes_path(dev, card_query()),
+               "chaos_path":
+               lambda dev: phase_chaos_path(dev, card_query())}
 
 
 def main() -> int:
@@ -9909,6 +10292,7 @@ def main() -> int:
     gmesh = phase_group_mesh_path(dev)
     gmesh_small = phase_group_mesh_card_equals_cpu(dev)
     planes = phase_obs_planes_path(dev, card_line)
+    chaos = phase_chaos_path(dev, card_line)
     mesh_errs = phase_mesh_kernels(cfg, ecfg, dev)
     mesh_kernel_times = time_mesh_kernels(
         cfg, dev, np.random.default_rng(SEED + 31), 21, mem_rate(card_line))
@@ -9960,6 +10344,13 @@ def main() -> int:
                     # the compile, memory and capture planes' engine
                     # runs (K1 in the graphs) and their K3 flights
                     by_path["obs_planes"] = planes["launches"][key]
+                if key in ("K1", "K2"):
+                    # the chaos harness: the torture runs and drills at
+                    # the torture configs, then the north-star widths
+                    by_path["chaos_torture"] = \
+                        chaos["launches_torture"][key]
+                    by_path["chaos_northstar"] = \
+                        chaos["launches_northstar"][key]
                 # the replicated KV store under member masks, and its
                 # reduced run on the card against the CPU
                 by_path["kv"] = kv_main["launches"][key]
@@ -10023,6 +10414,9 @@ def main() -> int:
             by_path["group_mesh_card_equals_cpu"] = gmesh_small["k5_launches"]
             # the ops server's demo MultiEngine (G = 4, C = 256, B = 8)
             by_path["obs_planes_serve_demo"] = planes["k5_launches"]
+            # the chaos harness's multi-Raft torture and migration drill
+            # (G = 4, C = 128, B = 4; the drill on two shards of the card)
+            by_path.update(chaos["k5_launches"])
         kernels.append({
             "name": f"K5 write_window_cols ({label})", "route": "cuda",
             "source": "raft_tpu_torch/csrc/ring.cu",

@@ -58,6 +58,21 @@ replay.
   plane (``obs.compile.emit``) with the capture's own seconds, attributed
   to the labeled call it ran under (``single.fused``, ``group.fused``,
   ``group_mesh.fused``).
+- **The pool** (:data:`POOL`, :class:`GraphPool`). A crash-restore
+  cycle builds a fresh transport and restores the engine onto new
+  tensors, which would capture every graph anew (JAX's process-wide
+  program cache compiles nothing anew). Instead the dead engine's
+  transport releases its rings, its staging buffer and its
+  :class:`FusedGraphs` (``SingleDeviceTransport.release``), and the next
+  transport of the same shape on the same device claims them in
+  ``init()``: it zeroes the rings and hands them to the engine, the
+  engine's staging ring takes the staging buffer back
+  (:meth:`GraphPool.staging_for`), so every graph set still holds what
+  it reads and replays with no capture. The chaos runner also releases
+  its last engine when a run ends, so the next run of the same shape
+  replays the graphs, as JAX's process-wide cache serves a second run.
+  Only a released transport's set is lent: two live engines never share
+  one.
 
 :class:`FusedGroupGraphs` does the same for the multi-Raft fused window
 (``core.step.fused_group_scan``, G groups × K ticks, one K5 launch a
@@ -71,7 +86,8 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Dict, Optional, Tuple
+import weakref
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -305,6 +321,134 @@ class FusedGraphs:
                         max_term=mt, repair_start=rs, frontier_len=fl)
         out = (gs.state(), infos, esc, ran, halted)
         return out if ring is None else out + (ring,)
+
+
+class _Lent:
+    """What a transport holds that the pool may lend on: the rings its
+    ``init()`` handed out, its staging buffer (None when no graph read
+    one) and its :class:`FusedGraphs` (None when it never fused on the
+    card), keyed by device, rows, commit quorum and ring shapes."""
+
+    def __init__(self, key: tuple, rings: Tuple[torch.Tensor, torch.Tensor],
+                 staging: Optional[torch.Tensor] = None,
+                 graphs: Optional[FusedGraphs] = None):
+        self.key = key
+        self.rings = rings
+        self.staging = staging
+        self.graphs = graphs
+
+    def n_graphs(self) -> int:
+        """The captured graphs this entry's graph sets hold."""
+        return 0 if self.graphs is None else sum(
+            len(gs.graphs) for gs in self.graphs.sets.values())
+
+
+class GraphPool:
+    """The process-wide pool of released cluster buffers and graph sets
+    (see the module doc). ``free`` holds what released transports left,
+    at most :attr:`MAX_FREE` entries (the oldest is dropped); ``claimed``
+    maps each live transport that claimed an entry with a staging buffer
+    to it, until its engine's staging ring has taken the buffer back.
+    ``lent`` counts the claims; ``enabled = False`` turns lending off
+    (every ``init()`` then allocates, every fused set is captured).
+    Lending is explicit: a transport lends only when its owner declares
+    its engine dead (``SingleDeviceTransport.release``), never on
+    collection, so a state kept past its engine is never reused."""
+
+    MAX_FREE = 4
+
+    def __init__(self):
+        self.enabled = True
+        self.free: List[_Lent] = []
+        self.claimed = weakref.WeakKeyDictionary()
+        self.lent = 0
+
+    @staticmethod
+    def hold(device, rows: int, commit_quorum,
+             rings: Tuple[torch.Tensor, torch.Tensor],
+             graphs: Optional[FusedGraphs]) -> _Lent:
+        """What a transport holds that it may lend; it sets ``.graphs``
+        on it when it builds them."""
+        return _Lent((torch.device(device), rows, commit_quorum,
+                      tuple(rings[0].shape), tuple(rings[1].shape)),
+                     rings, graphs=graphs)
+
+    def release(self, owner, held: _Lent) -> None:
+        """``owner``'s engine is dead: put what it holds in the free
+        list. Its staging buffer is the one its graph sets read, else the
+        one it claimed and its engine never took; a set over other
+        tensors can never be held again and is left out."""
+        claim = self.claimed.pop(owner, None)
+        if not self.enabled:
+            return
+        graphs = held.graphs
+        sets = graphs.sets if graphs is not None else {}
+        staging = next((gs.staging for gs in sets.values()), None)
+        if staging is None and claim is not None:
+            staging = claim.staging
+        for k in [k for k, gs in sets.items()
+                  if gs.staging is not staging
+                  or gs.log_payload is not held.rings[1]]:
+            del sets[k]
+        self.free.append(_Lent(held.key, held.rings, staging, graphs))
+        del self.free[:-self.MAX_FREE]
+
+    def claim(self, owner, device, rows: int, commit_quorum,
+              log_term_shape, log_payload_shape) -> Optional[_Lent]:
+        """The free entry of this shape for ``owner``'s ``init()``, its
+        rings zeroed, or None: of several, the one with the most graphs
+        captured, then the newest. The entry leaves the free list:
+        nothing else may claim it until ``owner`` lends it in turn."""
+        if not self.enabled:
+            return None
+        key = (torch.device(device), rows, commit_quorum,
+               tuple(log_term_shape), tuple(log_payload_shape))
+        fits = [(lent.n_graphs(), i) for i, lent in enumerate(self.free)
+                if lent.key == key]
+        if not fits:
+            return None
+        lent = self.free.pop(max(fits)[1])
+        for t in lent.rings:
+            t.zero_()
+        if lent.staging is not None:
+            self.claimed[owner] = lent
+        self.lent += 1
+        return lent
+
+    def staging_for(self, log_payload: torch.Tensor,
+                    shape) -> Optional[torch.Tensor]:
+        """The claimed staging buffer of the entry whose payload ring is
+        ``log_payload`` (the engine's), zeroed, if its shape is
+        ``shape``; else None (the caller allocates)."""
+        for owner, lent in list(self.claimed.items()):
+            if (lent.rings[1] is log_payload
+                    and tuple(lent.staging.shape) == tuple(shape)):
+                buf, lent.staging = lent.staging, None
+                del self.claimed[owner]
+                return buf.zero_()
+        return None
+
+    def buffers(self) -> dict:
+        """The tensors the pool holds (the memory plane's root: pooled
+        buffers are bounded by :attr:`MAX_FREE`, never a leak)."""
+        out = {f"free[{i}]": {
+            "rings": lent.rings, "staging": lent.staging,
+            "graphs": None if lent.graphs is None else lent.graphs.buffers()}
+            for i, lent in enumerate(self.free)}
+        for i, lent in enumerate(list(self.claimed.values())):
+            out[f"claimed[{i}]"] = {"staging": lent.staging}
+        return out
+
+    def clear(self) -> None:
+        """Drop every entry (what they held is freed with them) and zero
+        ``lent``."""
+        self.free.clear()
+        self.claimed = weakref.WeakKeyDictionary()
+        self.lent = 0
+
+
+#: the process-wide pool the single-device transports lend through
+POOL = GraphPool()
 
 
 def _set_buffers(sets: dict) -> dict:

@@ -154,10 +154,13 @@ RESIDENT = ResidentView()
 
 
 def init_state(cfg: RaftConfig, rows: Optional[int] = None,
-               device="cuda", words: Optional[int] = None) -> ReplicaState:
+               device="cuda", words: Optional[int] = None,
+               rings=None) -> ReplicaState:
     """Zero state for ``rows`` replica rows (default ``cfg.rows``) of
     ``words`` payload lanes each (default ``cfg.shard_words``; a 2-D mesh
-    rank holds W/P): term 0, no vote, empty log, commit 0."""
+    rank holds W/P): term 0, no vote, empty log, commit 0. ``rings``
+    (``log_term``, ``log_payload``), already zero, are used in place of
+    new ring tensors."""
     r = cfg.rows if rows is None else rows
     c = cfg.log_capacity
     w = cfg.shard_words if words is None else words
@@ -172,8 +175,8 @@ def init_state(cfg: RaftConfig, rows: Optional[int] = None,
         commit_index=zeros(r),
         match_index=zeros(r),
         match_term=zeros(r),
-        log_term=zeros(r, c),
-        log_payload=zeros(c, r * w),
+        log_term=zeros(r, c) if rings is None else rings[0],
+        log_payload=zeros(c, r * w) if rings is None else rings[1],
     )
 
 

@@ -28,7 +28,11 @@ plane, in two parts:
   group mesh's build (``group_mesh_build`` / ``group_mesh_ready``) and
   re-formation's (``reform_enter``, ``reform_propose``, ``reform_done``,
   ``reform_rejoin``, ``await_epoch``, ``await_epoch_done``,
-  ``declare_dead``); the chaos runners' wait for ROADMAP A17.
+  ``declare_dead``) and of the chaos runners (``raft_tpu_torch.chaos``:
+  ``torture_run``, ``torture_phase``, ``crash_restore``, ``quiesce``,
+  ``compile_sentinel_frozen``, ``check_history``, ``check_done`` and the
+  drills' own marks). The wire, transaction and cluster drills' marks
+  wait for their tiers (ROADMAP A17b-d).
 
 - :class:`StallWatchdog` — a daemon thread that fires when no
   :meth:`StallWatchdog.pet` arrives for ``deadline_s`` seconds: it dumps

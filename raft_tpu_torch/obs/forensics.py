@@ -11,11 +11,12 @@ reconstructs the minimal failure timeline from it WITHOUT re-running the
 seed: the last leader of each term, the faults in flight around the
 violation, and the op that broke linearizability.
 
-The JAX package's chaos runners write bundles whenever a run ends in
-anything but its expected verdict and a destination is configured
-(``bundle_dir=`` argument, or the ``RAFT_TPU_BUNDLE_DIR`` environment
-variable); the port's runners come with ROADMAP A17. The bundle format is
-the JAX package's, so either package's CLI explains either's bundles.
+The chaos runners (``raft_tpu_torch.chaos``, as the JAX package's) write
+bundles whenever a run ends in anything but its expected verdict and a
+destination is configured (``bundle_dir=`` argument, or the
+``RAFT_TPU_BUNDLE_DIR`` environment variable); the wire drill's joined
+bundles wait for the net tier (ROADMAP A17b). The bundle format is the
+JAX package's, so either package's CLI explains either's bundles.
 ``ObsStack.build(device=True)`` adds the device plane (``obs.device``): a
 bundle then carries the decoded device ring, which ``explain`` summarises
 and interleaves into the timeline. ``compile_plane=True`` adds the

@@ -243,7 +243,8 @@ class MemoryWatch:
         and engine's CUDA-graph buffers (``core.graphs``: packed inputs,
         outputs, static leaves), all allocated on first use, which must be
         attributed or their first appearance after ``set_baseline`` would
-        read as a leak. Held via weakref so a watched engine can be
+        read as a leak, and what the graph pool keeps for the next
+        cluster of the engine's shape (``core.graphs.POOL``). Held via weakref so a watched engine can be
         collected across crash-restore cycles. The watch's device becomes
         the engine's when it has none."""
         ref = weakref.ref(engine)
@@ -283,6 +284,13 @@ class MemoryWatch:
                 if hasattr(g, "buffers")]
             if graphs:
                 out["graphs"] = graphs
+            from raft_tpu_torch.core.graphs import POOL
+
+            pooled = POOL.buffers()
+            if pooled:
+                # what the graph pool keeps for the next cluster of this
+                # shape (bounded; claimed at the next restore)
+                out["graph_pool"] = pooled
             return out
 
         # host first: roots apply in registration order with later wins,

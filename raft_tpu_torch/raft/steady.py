@@ -62,6 +62,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from raft_tpu_torch.core.graphs import POOL
 from raft_tpu_torch.obs import profiling
 from raft_tpu_torch.obs.compile import labeled
 
@@ -108,7 +109,12 @@ class StagingRing:
     that reads the slot.
     """
 
-    def __init__(self, batch: int, words: int, slots: int, device=None):
+    def __init__(self, batch: int, words: int, slots: int, device=None,
+                 claim=None):
+        self.claim = claim
+        #   shape -> a pooled buffer or None (``core.graphs.POOL``'s
+        #   staging_for: a restored engine takes its dead predecessor's
+        #   buffer back, so the graphs that read it stay valid)
         self.B = batch
         self.W = words
         self.S = slots
@@ -123,8 +129,12 @@ class StagingRing:
 
     def _alloc(self) -> None:
         if self.buf is None:
-            self.buf = torch.zeros((self.S, self.B, self.W),
-                                   dtype=torch.int32, device=self.device)
+            shape = (self.S, self.B, self.W)
+            if self.claim is not None:
+                self.buf = self.claim(shape)
+            if self.buf is None:
+                self.buf = torch.zeros(shape, dtype=torch.int32,
+                                       device=self.device)
 
     def reset(self) -> None:
         """The queue mutated in a way the mirror cannot track (prepend,
@@ -207,8 +217,10 @@ class FusedDriver:
         self.e = engine
         cfg = engine.cfg
         slots = max(4, min(2 * engine.fuse_k, 256))
-        self.staging = StagingRing(cfg.batch_size, cfg.shard_words, slots,
-                                   device=engine._dev)
+        self.staging = StagingRing(
+            cfg.batch_size, cfg.shard_words, slots, device=engine._dev,
+            claim=lambda shape: POOL.staging_for(engine.state.log_payload,
+                                                 shape))
 
     # ------------------------------------------------------ engine hooks
     def on_submit(self) -> None:

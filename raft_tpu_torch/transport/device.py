@@ -11,6 +11,12 @@ the loop itself.
 
 Every call consumes the state it is given: the rings are updated in place
 and the returned state holds them.
+
+``release()`` declares the engine on a transport dead (the chaos runner's
+crash cycle): its rings, staging buffer and CUDA graphs go to the
+process-wide pool (``core.graphs.POOL``), and the next transport of the
+same shape on the same device takes them in ``init()``, so a restored
+engine replays the graphs instead of capturing them anew.
 """
 
 from __future__ import annotations
@@ -142,10 +148,41 @@ class SingleDeviceTransport(ResidentView):
         self._fused = _fused_program(cfg.rows, cfg.commit_quorum)
         self.graphs = None
         #   core.graphs.FusedGraphs on the card, built at the first fused
-        #   launch
+        #   launch (or taken over from a released transport by init())
+        self._held = None
+        #   what the pool may lend on (core.graphs.POOL): the rings init()
+        #   last handed out and the graphs
 
     def init(self) -> ReplicaState:
-        return init_state(self.cfg, device=self.device)
+        """A zero state. A released transport's rings of this shape on
+        this device are reused (zeroed), with its graphs."""
+        from raft_tpu_torch.core.graphs import POOL
+
+        cfg = self.cfg
+        lent = POOL.claim(
+            self, self.device, cfg.rows, cfg.commit_quorum,
+            (cfg.rows, cfg.log_capacity),
+            (cfg.log_capacity, cfg.rows * cfg.shard_words))
+        if lent is not None:
+            self.graphs = lent.graphs
+        state = init_state(cfg, device=self.device,
+                           rings=None if lent is None else lent.rings)
+        self._held = POOL.hold(self.device, cfg.rows, cfg.commit_quorum,
+                               (state.log_term, state.log_payload),
+                               self.graphs)
+        return state
+
+    def release(self) -> None:
+        """The engine on this transport is dead: lend its rings, staging
+        buffer and graphs to the next transport of this shape on this
+        device (``core.graphs.POOL``). The transport must not be used
+        again."""
+        from raft_tpu_torch.core.graphs import POOL
+
+        if self._held is not None:
+            POOL.release(self, self._held)
+        self.graphs = None
+        self._held = None
 
     def fetch(self, x):
         """Host copy of a device value."""
@@ -245,6 +282,8 @@ class SingleDeviceTransport(ResidentView):
                 self.graphs = FusedGraphs(self.cfg.rows,
                                           self.cfg.commit_quorum,
                                           self.device)
+                if self._held is not None:
+                    self._held.graphs = self.graphs
             return self.graphs.run(
                 state, staging, start_slot, counts, n_run, halted0, leader,
                 leader_term, alive, slow, member, repair_floor,

@@ -110,13 +110,21 @@ def test_make_transport_routes_multihost(caplog):
 
     got = run_ranks(mr.multihost_kind, 3, (KW,), timeout=120)
     assert got == [("MeshTransport", 0)] * 3
+    # the records are read from the module's own logger, so a change to
+    # the logging tree left by another file in the process cannot hide
+    # them
     with caplog.at_level(logging.WARNING,
                          logger="raft_tpu_torch.transport.base"):
-        t = make_transport(TConfig(**KW, transport="multihost"),
-                           device="cpu")
+        log = logging.getLogger("raft_tpu_torch.transport.base")
+        log.addHandler(caplog.handler)
+        try:
+            t = make_transport(TConfig(**KW, transport="multihost"),
+                               device="cpu")
+        finally:
+            log.removeHandler(caplog.handler)
     assert isinstance(t, SingleDeviceTransport)
-    assert any("multihost placement unavailable" in r.message
-               and "single process has 1" in r.message
+    assert any("multihost placement unavailable" in r.getMessage()
+               and "single process has 1" in r.getMessage()
                for r in caplog.records)
 
 

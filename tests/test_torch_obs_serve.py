@@ -218,10 +218,12 @@ def test_profile_endpoint_refuses_naming_a16b(tmp_path):
         watch.uninstall()
 
 
-def test_serve_demo_refuses_naming_a14(capsys):
+def test_serve_demo_serves_the_lifted_demo(capsys):
     """The lifted demo: ``serve_demo(device="cpu")`` boots the
     ``MultiEngine`` with both watches and serves while it drives traffic,
-    and ``python -m raft_tpu_torch.obs --serve`` runs it."""
+    and ``python -m raft_tpu_torch.obs --serve`` runs it. The queries wait
+    for the demo's first launch: on a loaded machine the serving thread
+    may not have driven a window within any fixed sleep."""
     import io
     import threading
 
@@ -234,7 +236,14 @@ def test_serve_demo_refuses_naming_a14(capsys):
         assert time.monotonic() - t0 < 60
         time.sleep(0.02)
     port = int(out.getvalue().split("127.0.0.1:")[1].split(" ")[0])
-    time.sleep(0.3)
+    while True:
+        st, body = _get(port, "/compile")
+        launched = st == 200 and json.loads(body)["programs"].get(
+            "group.replicate", {}).get("launches", 0) > 0
+        if launched or not th.is_alive():
+            break
+        assert time.monotonic() - t0 < 60
+        time.sleep(0.02)
     answers = {p: _get(port, p) for p in ("/compile", "/memory", "/status")}
     th.join(60)
     for path, (st, body) in answers.items():
