@@ -345,6 +345,33 @@ entries, batch 256, a 4096-slot ring each; ``bench.py``
     widths (3 -> 5 voters, 256-byte entries, B = 1 024, C = 32 768),
     LINEARIZABLE, its wall and ms a leader tick printed, and the same at
     C = 4 096 against the CPU. K1, K2 and K5 must launch;
+11h. ``wire_path``: the net tier (``raft_tpu_torch.net``) over loopback
+    sockets on the card: (a) the north star (``fuse_k`` 8, the drive
+    quantum 8 heartbeats) behind ``IngestServer(EngineBackend(RaftEngine,
+    ReplicatedKV))``, 311 296 SETs as SUBMIT_BATCH frames of 1 024 from
+    4 closed-loop connections, one frame in flight on each (shed entries
+    resubmitted), with linearizable and session reads of one key mixed
+    in, each against its last acknowledged value: 256 frames timed, 40
+    under the profiler, the last 8 at a one-heartbeat quantum (the steady
+    program); every committed window read back through
+    ``committed_entries`` and every live follower, the SHA-256 multiset
+    equal to the acknowledged entries', every batch staged at ingest and
+    none by the tick path, fused windows run, K1 and K2 launched;
+    entries/s through the wire (the read-back's seconds taken out, the
+    raw wall beside it), the pump's µs per phase and coverage, and the
+    idle share of 8 profiled pump iterations; (b) config A behind
+    ``RouterBackend`` + ``ShardedKV`` (the lease on), single-op SETs over
+    16 connections: 1 024 a group in a closed loop with 1 024 in flight
+    (SETs/s), then 512 a group at each of a quarter and half that rate in
+    an open loop (submit-to-durable-ack p50/p99 ms from when each was
+    due); each group's apply stream against its acknowledged SETs, every
+    SET read back linearizably, K5 launched;
+    (c) the wire drill (``wire_run(7)``) on the card and on the CPU, each
+    LINEARIZABLE with JAX's pinned invariants and 144 ops, and the serial
+    pin (12 submits, 4 reads, seed 9) equal card to CPU, traced and not,
+    nodelog lines included; (d) a traced drill's bundle, whose
+    ``python -m raft_tpu_torch.obs --explain`` prints the joined wire
+    forensics. No ERROR frame and no pump crash anywhere;
 
 Then the replica mesh: one replica row per rank of a ``torch.distributed``
 gloo group, all ranks on the one card (three processes time-sharing it,
@@ -10213,6 +10240,674 @@ def phase_chaos_path(dev, card_line):
     return res
 
 
+# ------------------------------------------------ the wire tier (net/)
+#: the north star served over the wire (``wire_path`` (a)): SUBMIT_BATCH
+#: frames of one batch each over WIRE_CONNS loopback connections, each
+#: connection a closed loop with one frame in flight (its next frame sent
+#: once the last is acknowledged), the shape of ``bench.py``
+#: ``bench_macro``'s ``macro_wire`` row; the timed stage's frames (a window
+#: of several seconds), then those served under torch.profiler (out of the
+#: timed stage: the profiler's start and stop take seconds), then those
+#: sent to a server driving one heartbeat a pump iteration (the tick
+#: path's steady program, K2, behind the same backend)
+WIRE_CONNS = 4
+WIRE_TIMED_FRAMES = 256
+WIRE_PROFILED_FRAMES = 40
+WIRE_TICKED_FRAMES = 8
+#: pump iterations of (a) under torch.profiler, and the first of them (a
+#: pump iteration ingests at most the WIRE_CONNS frames in flight, so the
+#: profiled stage's frames last past the window)
+WIRE_PROFILED_ITERS = 8
+WIRE_PROFILE_FROM = 2
+#: config A over the wire (``wire_path`` (b)), in ``bench_macro``'s two
+#: shapes, with single-op SUBMIT frames (the apply-stream check needs each
+#: SET's group and seq): ``macro_wire``'s closed loop, 16 connections with
+#: 64 entries in flight on each (its one 64-entry frame a connection), for
+#: the SETs/s the tier sustains; then ``macro_leader_kill``'s open loop
+#: (requests scheduled 8 at a time on an absolute clock, each timed from
+#: when it was due) at fractions of that rate below saturation, for the
+#: commit latency a client sees when no queue has formed
+WIRE_MACRO_CONNS = 16
+WIRE_MACRO_IN_FLIGHT = 64
+WIRE_PACE_SLICE = 8
+WIRE_PACED_LOADS = (0.25, 0.5)
+#: SETs a group: the closed loop's, and each paced rate's
+WIRE_CLOSED_SETS = 1024
+WIRE_PACED_SETS = 512
+
+def wire_fuse_config(capacity):
+    """The north star with K-tick fusion as ``tests/test_net_wire.py``'s
+    staged-ingest pin sets it (``fuse_k`` 8, PreVote)."""
+    return dataclasses.replace(fused_config(capacity, 8), prevote=True)
+
+
+class WireWatch:
+    """Every ``IngestServer`` built while the watch is on, and every ERROR
+    frame any of them encodes: ``check()`` fails on an ERROR frame, and on
+    a pump task that ended with an exception or never ended."""
+
+    def __enter__(self):
+        from raft_tpu_torch.net import protocol, server
+
+        self.servers, self.errors = [], []
+        self._proto, self._srv = protocol, server.IngestServer
+        self._enc = protocol.encode_error
+        self._init = server.IngestServer.__init__
+        watch = self
+
+        def encode_error(req_id, message, **kw):
+            watch.errors.append(message)
+            return watch._enc(req_id, message, **kw)
+
+        def init(srv, *a, **k):
+            watch._init(srv, *a, **k)
+            watch.servers.append(srv)
+
+        protocol.encode_error = encode_error
+        server.IngestServer.__init__ = init
+        return self
+
+    def __exit__(self, *exc):
+        self._proto.encode_error = self._enc
+        self._srv.__init__ = self._init
+
+    def check(self, what):
+        check(not self.errors, f"{what}: ERROR frames {self.errors[:4]}")
+        for srv in self.servers:
+            t = srv._pump_task
+            check(t is not None and t.done() and not t.cancelled()
+                  and t.exception() is None,
+                  f"{what}: a pump task ended badly: {t}")
+        return {"servers": len(self.servers), "error_frames": 0}
+
+
+def _pump_profiler(first, iters):
+    """A ``PumpProfiler`` that holds pump iterations [first, first +
+    iters) under torch.profiler (on the card): ``result()`` gives the
+    window's device busy time, wall and idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_tpu_torch.obs.hostprof import PumpProfiler
+
+    class Profiled(PumpProfiler):
+        prof = None
+        wall = None
+        t0 = 0.0
+
+        def iter_begin(self):
+            if self.iters == first:
+                torch.cuda.synchronize()
+                self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                self.t0 = time.perf_counter()
+            super().iter_begin()
+
+        def iter_end(self):
+            super().iter_end()
+            if self.prof is not None and self.wall is None \
+                    and self.iters == first + iters:
+                self.stop()
+
+        def stop(self):
+            torch.cuda.synchronize()
+            self.wall = time.perf_counter() - self.t0
+            self.prof.__exit__(None, None, None)
+
+        def result(self):
+            """The window's figures; a window the stage ended inside is
+            closed here and fails the run."""
+            if self.prof is not None and self.wall is None:
+                self.stop()
+                check(False, f"the stage ended after {self.iters} pump "
+                      f"iterations, inside the profiled window")
+            check(self.prof is not None, "no pump iteration profiled")
+            ev = [(e.name, e.time_range.elapsed_us())
+                  for e in self.prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(us for _, us in ev)
+            return {"profiled_iters": iters, "wall_ms": self.wall * 1e3,
+                    "device_busy_ms": busy / 1e3,
+                    "device_ops": len(ev),
+                    "device_idle_share": 1.0 - busy / (self.wall * 1e6)}
+
+    return Profiled()
+
+
+def wire_engine_run(cfg, dev):
+    """``wire_path`` (a) on the card: ``IngestServer(EngineBackend(
+    RaftEngine(cfg), ReplicatedKV))``, SETs of unique keys as SUBMIT_BATCH
+    frames of one batch each from ``WIRE_CONNS`` closed-loop connections
+    (shed entries resubmitted), while one more connection writes a key and
+    reads it back linearizably and through its session, each read against
+    the last acknowledged value. Three servers in turn on the one engine:
+    the timed stage and the profiled stage drive ``fuse_k`` heartbeats a
+    pump iteration (fused windows over the staged batches), the ticked
+    stage one. Every committed window is read back through
+    ``committed_entries`` and every live follower while it is in the ring
+    (on the loop's thread, between acknowledgements: its seconds are
+    counted and taken out of the wire rate); the per-entry SHA-256
+    multiset must equal the acknowledged entries'."""
+    import asyncio
+    from collections import Counter
+
+    import torch
+
+    from raft_tpu_torch.core.state import log_entries
+    from raft_tpu_torch.examples.kv import ReplicatedKV, encode_op
+    from raft_tpu_torch.net import EngineBackend, IngestServer, WireClient
+    from raft_tpu_torch.obs.hostprof import PumpProfiler
+    from raft_tpu_torch.raft import RaftEngine
+    from raft_tpu_torch.transport.device import SingleDeviceTransport
+
+    B, E, C = cfg.batch_size, cfg.entry_bytes, cfg.log_capacity
+    e = RaftEngine(cfg, SingleDeviceTransport(cfg, device=dev))
+    kv = ReplicatedKV(e)
+    e.run_until_leader()
+    n_frames = WIRE_TIMED_FRAMES + WIRE_PROFILED_FRAMES + WIRE_TICKED_FRAMES
+    entries = n_frames * B
+    rng = np.random.default_rng(SEED + 71)
+    vals = rng.integers(0, 256, (entries, E - 5 - 8), dtype=np.uint8)
+    items = [(b"w%07d" % i, vals[i].tobytes()) for i in range(entries)]
+    frames = [items[i:i + B] for i in range(0, entries, B)]
+    acked = Counter()              # sha256 of each acknowledged entry
+    read_back = Counter()          # ... of each entry read back
+    readers = {"hi": 0, "windows": 0, "readers": set(), "s": 0.0}
+    res = {"device": str(dev), "entries": entries, "frames": n_frames,
+           "conns": WIRE_CONNS, "frames_in_flight_per_conn": 1}
+
+    def digest(k, v):
+        return hashlib.sha256(encode_op(E, 1, k, v)).digest()
+
+    dig = {k: digest(k, v) for k, v in items}   # before any timing
+
+    def read_windows(final=False):
+        """Read [hi+1, min live commit index] through committed_entries
+        and every live follower, once it spans a fused window (or at the
+        end), in slices the ring still holds."""
+        t_read = time.perf_counter()
+        live = [r for r in range(cfg.rows) if e.alive[r]]
+        top = min(int(x) for x in
+                  e.state.commit_index.cpu()[live].tolist())
+        top = min(top, e.commit_watermark)
+        lo = readers["hi"] + 1
+        if top < lo or (not final and top - lo + 1 < cfg.fuse_k * B):
+            readers["s"] += time.perf_counter() - t_read
+            return
+        check(e.commit_watermark - lo < C, "the ring lapped a window "
+              "before it was read back")
+        for a in range(lo, top + 1, C // 2):
+            b = min(a + C // 2 - 1, top)
+            want = e.committed_entries(a, b)
+            readers["readers"].add("committed_entries")
+            for r in live:
+                if r == e.leader_id:
+                    continue
+                got = log_entries(e.state, r, a, b)
+                check(np.array_equal(np.asarray(got), want),
+                      f"row {r}'s read-back of [{a}, {b}] differs from "
+                      "committed_entries")
+                readers["readers"].add(f"row{r}")
+            for row in want:
+                read_back[hashlib.sha256(row.tobytes()).digest()] += 1
+            readers["windows"] += 1
+        readers["hi"] = top
+        readers["s"] += time.perf_counter() - t_read
+
+    lat_ms, reads = [], {"linearizable": 0, "session": 0}
+    shed = {"entries": 0}
+
+    async def bulk(c, mine):
+        """One closed-loop connection: each frame until all of it is
+        acknowledged (the depth gate sheds a frame's tail: resubmit it),
+        then the next."""
+        for frame in mine:
+            while frame:
+                t0 = time.perf_counter()
+                r = await c.submit_many(frame)
+                lat_ms.append((time.perf_counter() - t0) * 1e3)
+                acked.update(dig[k] for k, _ in frame[:r.accepted])
+                shed["entries"] += r.shed
+                frame = frame[r.accepted:]
+                read_windows()
+
+    async def reader(c, stop):
+        i = 0
+        while not stop.is_set():
+            v = b"rv%06d" % i
+            await c.submit(b"rk", v)
+            acked[digest(b"rk", v)] += 1
+            lin = await c.read(b"rk")
+            check(lin.value == v,
+                  f"linearizable read {lin.value!r} != last ack {v!r}")
+            ses = await c.read(b"rk", cls="session")
+            check(ses.value == v, f"session read {ses.value!r} != {v!r}")
+            reads["linearizable"] += 1
+            reads["session"] += 1
+            i += 1
+
+    async def stage(quantum, part, pump=None):
+        """One server on the engine: ``part``'s frames from WIRE_CONNS
+        connections and the reader on one more; (wall, server stats)."""
+        srv = IngestServer(EngineBackend(e, kv), pump=pump,
+                           drive_quantum_s=quantum)
+        port = await srv.start()
+        conns = [await WireClient("127.0.0.1", port).connect()
+                 for _ in range(WIRE_CONNS + 1)]
+        stop = asyncio.Event()
+        rd = asyncio.ensure_future(reader(conns[-1], stop))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        await asyncio.gather(*[bulk(c, part[j::WIRE_CONNS])
+                               for j, c in enumerate(conns[:-1])])
+        wall = time.perf_counter() - t0
+        stop.set()
+        await rd
+        for c in conns:
+            await c.close()
+        stats = srv.stats()
+        await srv.stop()
+        return wall, stats
+
+    hb = cfg.heartbeat_period
+    cut_p = WIRE_TIMED_FRAMES
+    cut_t = cut_p + WIRE_PROFILED_FRAMES
+    f0, t0n = e.fused_launches, e._tick_count
+    # timed: the drive quantum of the staged-ingest pin, fuse_k ticks
+    wall, stats = asyncio.run(stage(cfg.fuse_k * hb, frames[:cut_p],
+                                    PumpProfiler()))
+    read_s = readers["s"]
+    timed_lat = list(lat_ms)
+    # profiled: the same quantum, WIRE_PROFILED_ITERS pump iterations under
+    # torch.profiler (its start-up paid before the stage)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
+    pump = _pump_profiler(WIRE_PROFILE_FROM, WIRE_PROFILED_ITERS)
+    stats_p = asyncio.run(stage(cfg.fuse_k * hb, frames[cut_p:cut_t],
+                                pump))[1]
+    res["profiled"] = pump.result()
+    fused = e.fused_launches - f0
+    for st in (stats, stats_p):
+        check(st["wire_staged_batches"] > 0, "no batch staged at ingest")
+        check(st["tick_staged_batches"] == 0,
+              f"{st['tick_staged_batches']} batches re-packed by the tick "
+              "path")
+    check(fused > 0, "no fused window ran")
+    # ticked: one heartbeat a pump iteration, under the fused window's
+    # two-tick minimum, so every leader tick is the steady program's
+    f1 = e.fused_launches
+    wall2, stats2 = asyncio.run(stage(hb, frames[cut_t:]))
+    check(e.fused_launches == f1, "a window fused at a one-tick quantum")
+    read_windows(final=True)
+    check(e.commit_watermark == sum(acked.values()),
+          f"watermark {e.commit_watermark} != {sum(acked.values())} "
+          "acknowledged entries")
+    check(read_back == acked, "the read-back multiset differs from the "
+          "acknowledged entries'")
+    for k, v in items:
+        check(kv.get(k) == v, f"kv value of {k!r} differs")
+    ps = stats["pump"]
+    n1 = cut_p * B
+    every = (stats, stats_p, stats2)
+    res.update({
+        "timed_entries": n1, "wall_s": wall,
+        "read_back_s_in_wall": read_s,
+        "entries_per_s_wire": n1 / (wall - read_s),
+        "entries_per_s_wall": n1 / wall,
+        "ticked": {"entries": WIRE_TICKED_FRAMES * B, "wall_s": wall2,
+                   "entries_per_s_wall": WIRE_TICKED_FRAMES * B / wall2,
+                   "pump_iters": stats2["pump_iters"],
+                   "wire_staged_batches": stats2["wire_staged_batches"]},
+        "frame_acks": len(timed_lat),
+        "frame_ack_ms_p50": pct(timed_lat, 50),
+        "frame_ack_ms_p90": pct(timed_lat, 90),
+        "shed": shed, "acknowledged": sum(acked.values()),
+        "commit_watermark": e.commit_watermark,
+        "read_back_windows": readers["windows"],
+        "read_back_readers": sorted(readers["readers"]),
+        "reads_checked": reads, "fused_launches": fused,
+        "leader_ticks": e._tick_count - t0n,
+        "wire_staged_batches": stats["wire_staged_batches"]
+        + stats_p["wire_staged_batches"],
+        "tick_staged_batches": stats["tick_staged_batches"]
+        + stats_p["tick_staged_batches"],
+        "tick_tail_batches": stats["tick_tail_batches"]
+        + stats_p["tick_tail_batches"],
+        "pump_iters": stats["pump_iters"],
+        "bytes_in": sum(st["bytes_in"] for st in every),
+        "refusals": [st["refusals"] for st in every],
+        "pump_us_per_iter": ps["us_per_iter"],
+        "pump_coverage": ps["coverage"],
+        "coalesce_batch": ps["coalesce_batch"],
+    })
+    check(reads["linearizable"] > 0, "no read ran beside the bulk")
+    return res
+
+
+def wire_router_run(dev):
+    """``wire_path`` (b) on the card: config A (``group_config_a``)
+    behind ``RouterBackend`` + ``ShardedKV``, single-op SETs of unique keys
+    over ``WIRE_MACRO_CONNS`` connections: ``WIRE_CLOSED_SETS`` a group in
+    the closed loop (SETs/s, and the ack latency of a saturated tier),
+    then ``WIRE_PACED_SETS`` a group at each of ``WIRE_PACED_LOADS`` of
+    the closed loop's rate in the open loop (submit-to-durable-ack latency
+    from when each SET was due, and how late the generator ran). Each
+    group's apply stream against its acknowledged SETs in seq order
+    (SHA-256), then every acknowledged SET read back through a
+    linearizable read (a check: its rate is not reported). The read
+    plane's leader lease is on (``read_lease``, with the PreVote it
+    requires): a linearizable read is then certified by the lease, or by
+    a ReadIndex round when the lease has lapsed, instead of a quorum
+    round each."""
+    import asyncio
+
+    import torch
+
+    from raft_tpu_torch.core import ring_cuda
+    from raft_tpu_torch.examples import ShardedKV
+    from raft_tpu_torch.examples.kv import encode_op
+    from raft_tpu_torch.multi import MultiEngine, Router
+    from raft_tpu_torch.net import IngestServer, RouterBackend, WireClient
+
+    cfg, G = group_config_a()
+    cfg = multi_config(cfg, read_lease=True, prevote=True)
+    E = cfg.entry_bytes
+    e = MultiEngine(cfg, G, device=dev)
+    e.seed_leaders()
+    router = Router(e, drive=False)
+    skv = ShardedKV(e, router)
+    per_group = WIRE_CLOSED_SETS + WIRE_PACED_SETS * len(WIRE_PACED_LOADS)
+    S = KvStream(router, per_group, SEED + 73)
+    acked = [[] for _ in range(G)]
+    read_cls = {}
+    k5 = ring_cuda.LAUNCHES["write_window_cols"]
+
+    async def put(c, kvp, lat, t_due=None):
+        k, v = kvp
+        t0 = time.perf_counter() if t_due is None else t_due
+        r = await c.submit(k, v)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        check(r.group == router.group_of(k), "SET routed to another group")
+        acked[r.group].append((r.seq, k, v))
+
+    async def get(c, kvp, _lat):
+        _, k, v = kvp
+        out = await c.read(k)
+        check(out.value == v, f"linearizable read of {k!r} differs from "
+              "its acknowledged SET")
+        read_cls[out.cls] = read_cls.get(out.cls, 0) + 1
+
+    async def closed(conns, jobs, fn):
+        """Each connection keeps WIRE_MACRO_IN_FLIGHT requests in flight
+        until ``jobs`` is empty; (wall s, latencies ms)."""
+        jobs, lat = list(reversed(jobs)), []
+
+        async def worker(c):
+            while jobs:
+                await fn(c, jobs.pop(), lat)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        await asyncio.gather(*[worker(c) for c in conns
+                               for _ in range(WIRE_MACRO_IN_FLIGHT)])
+        return time.perf_counter() - t0, lat
+
+    async def paced(conns, jobs, rate):
+        """``jobs`` sent at ``rate`` a second, WIRE_PACE_SLICE at a time
+        on an absolute schedule, round robin over ``conns``: after a stall
+        every slice already due is sent at once; each latency from its
+        slice's due time."""
+        lat, tasks, late = [], [], []
+        interval = WIRE_PACE_SLICE / rate
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        i = 0
+        while i < len(jobs):
+            await asyncio.sleep(max(t0 + i // WIRE_PACE_SLICE * interval
+                                    - time.perf_counter(), 0.0))
+            now = time.perf_counter()
+            while i < len(jobs) \
+                    and t0 + i // WIRE_PACE_SLICE * interval <= now:
+                due = t0 + i // WIRE_PACE_SLICE * interval
+                late.append((now - due) * 1e3)
+                tasks.extend(asyncio.ensure_future(
+                    put(conns[(i + j) % len(conns)], kvp, lat, due))
+                    for j, kvp in enumerate(jobs[i:i + WIRE_PACE_SLICE]))
+                i += WIRE_PACE_SLICE
+        t_gen = time.perf_counter() - t0
+        await asyncio.gather(*tasks)
+        wall = time.perf_counter() - t0
+        return {"target_sets_per_s": rate,
+                "offered_sets_per_s": len(jobs) / t_gen,
+                "sets": len(jobs), "wall_s": wall,
+                "generator_late_ms_p50": pct(late, 50),
+                "generator_late_ms_p99": pct(late, 99),
+                "generator_late_ms_max": max(late),
+                "submit_to_durable_ack_ms_p50": pct(lat, 50),
+                "submit_to_durable_ack_ms_p99": pct(lat, 99),
+                "submit_to_durable_ack_ms_max": max(lat)}
+
+    async def main():
+        srv = IngestServer(RouterBackend(router, skv))
+        port = await srv.start()
+        conns = [await WireClient("127.0.0.1", port).connect()
+                 for _ in range(WIRE_MACRO_CONNS)]
+        wall, lat = await closed(conns, S.wave(WIRE_CLOSED_SETS), put)
+        out = {"closed": {
+            "sets": len(lat), "in_flight": WIRE_MACRO_CONNS
+            * WIRE_MACRO_IN_FLIGHT, "wall_s": wall,
+            "sets_per_s_wire": len(lat) / wall,
+            "submit_to_durable_ack_ms_p50": pct(lat, 50),
+            "submit_to_durable_ack_ms_p99": pct(lat, 99)}}
+        for load in WIRE_PACED_LOADS:
+            out[f"paced_{load}"] = await paced(
+                conns, S.wave(WIRE_PACED_SETS),
+                load * out["closed"]["sets_per_s_wire"])
+        out["reads"] = sum(len(a) for a in acked)
+        await closed(conns, [x for g in range(G) for x in acked[g]], get)
+        for c in conns:
+            await c.close()
+        out["stats"] = srv.stats()
+        await srv.stop()
+        return out
+
+    out = asyncio.run(main())
+    stats = out.pop("stats")
+    sha = []
+    for g in range(G):
+        h = hashlib.sha256()
+        for _, k, v in sorted(acked[g]):
+            h.update(encode_op(E, 1, k, v))
+        check(len(acked[g]) == per_group == int(S.n_apply[g]),
+              f"group {g}: {len(acked[g])} acknowledged, "
+              f"{int(S.n_apply[g])} applied")
+        check(h.hexdigest() == S.h_apply[g].hexdigest(),
+              f"group {g}'s apply stream differs from its acknowledged "
+              "SETs")
+        sha.append(h.hexdigest())
+    out.update({
+        "device": str(dev), "groups": G, "sets": G * per_group,
+        "conns": WIRE_MACRO_CONNS, "read_classes": read_cls,
+        "pump_iters": stats["pump_iters"], "refusals": stats["refusals"],
+        "sha256_group0": sha[0],
+        "k5_launches": ring_cuda.LAUNCHES["write_window_cols"] - k5,
+    })
+    return out
+
+
+def wire_serial_run(dev, traced):
+    """``tests/test_wire_trace.py``'s serial scenario (one connection, 12
+    submits and 4 reads, seed 9) on ``dev``: (commit watermark, per-op
+    CRC, the three applied values, the nodelog lines)."""
+    import asyncio
+    import zlib
+
+    from raft_tpu_torch.config import RaftConfig
+    from raft_tpu_torch.examples.kv import ReplicatedKV
+    from raft_tpu_torch.net import EngineBackend, IngestServer, WireClient
+    from raft_tpu_torch.obs.hostprof import PumpProfiler
+    from raft_tpu_torch.obs.registry import MetricsRegistry
+    from raft_tpu_torch.obs.spans import SpanTracker
+    from raft_tpu_torch.raft import RaftEngine
+    from raft_tpu_torch.transport.device import SingleDeviceTransport
+
+    cfg = RaftConfig(n_replicas=3, entry_bytes=32, batch_size=4,
+                     log_capacity=256, transport="single", seed=9,
+                     admission_max_writes=64)
+    lines = []
+    e = RaftEngine(cfg, SingleDeviceTransport(cfg, device=dev),
+                   trace=lines.append)
+    kv = ReplicatedKV(e)
+    e.run_until_leader()
+    srv_kw, cli_kw = {}, {}
+    if traced:
+        sspans, reg = SpanTracker(), MetricsRegistry()
+        e.spans = sspans
+        srv_kw = dict(spans=sspans, registry=reg,
+                      pump=PumpProfiler(registry=reg))
+        cli_kw = dict(spans=SpanTracker(), clock=lambda: e.clock.now)
+
+    async def main():
+        srv = IngestServer(EngineBackend(e, kv), **srv_kw)
+        port = await srv.start()
+        c = await WireClient("127.0.0.1", port, **cli_kw).connect()
+        trace = []
+        for i in range(12):
+            r = await c.submit(b"dk%d" % (i % 3), b"dv%d" % i)
+            trace.append(("ok", r.group, r.seq, r.floor))
+            if i % 3 == 0:
+                o = await c.read(b"dk0")
+                trace.append(("rd", o.index, o.value))
+        await c.close()
+        await srv.stop()
+        return trace
+
+    crc = 0
+    for item in asyncio.run(main()):
+        crc = zlib.crc32(repr(item).encode(), crc)
+    return (int(e.commit_watermark), crc, kv.get(b"dk0"), kv.get(b"dk1"),
+            kv.get(b"dk2"), lines)
+
+
+def wire_drill_check(rep, what):
+    """``tests/test_net_wire.py``'s pinned invariants of the wire drill."""
+    check(rep.verdict == "LINEARIZABLE", f"{what}: {rep.summary()}")
+    check(rep.shed_writes >= 1 and rep.not_leader_frames >= 1
+          and rep.leader_kills == 1
+          and rep.wire_refusals.get("depth", 0) >= 1
+          and rep.op_counts.get("ok", 0) > 50, f"{what}: {rep.summary()}")
+    check(rep.traced and rep.client_spans == rep.ops
+          and rep.server_spans >= rep.ops and rep.pump is not None
+          and rep.pump["coverage"] >= 0.9, f"{what}: trace plane")
+    check(rep.ops == 144, f"{what}: {rep.ops} ops, JAX's drill has 144")
+    return {"verdict": rep.verdict, "ops": rep.ops,
+            "op_counts": rep.op_counts, "shed_writes": rep.shed_writes,
+            "not_leader_frames": rep.not_leader_frames,
+            "wire_refusals": rep.wire_refusals,
+            "pump_coverage": rep.pump["coverage"],
+            "commit_digest": rep.commit_digest}
+
+
+def phase_wire_path(dev, card_line):
+    """The net tier on the card (module doc, 11h): (a) the north star
+    behind ``EngineBackend``, (b) config A behind ``RouterBackend``, (c)
+    the wire drill and the serial pin, card against CPU, (d) the joined
+    bundle explained."""
+    import faulthandler
+    import os
+    import tempfile
+
+    import torch
+
+    from raft_tpu_torch.chaos.runner import wire_run
+    from raft_tpu_torch.core import ring_cuda
+
+    t_phase = time.perf_counter()
+    faulthandler.enable()
+    res = {"phase": "wire_path", "card": card_line}
+
+    def step(name):
+        print(f"wire_path: {name} at "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    with WireWatch() as watch:
+        # (a) the north star behind EngineBackend: the counts from 0
+        step("the north star behind EngineBackend")
+        zero_counters(dev)
+        res["engine"] = wire_engine_run(wire_fuse_config(32768), dev)
+        res["engine"]["launches"] = {
+            k: v for k, v in read_counters(dev).items()
+            if k in ("K1", "K2", "K3", "K4")}
+        print(f"wire_path: engine {json.dumps(res['engine'])}", flush=True)
+        watch.check("wire engine")
+        check(res["engine"]["launches"]["K1"] > 0, "K1 never launched "
+              "behind the EngineBackend")
+        check(res["engine"]["launches"]["K2"] > 0, "K2 never launched "
+              "behind the EngineBackend")
+        check(res["engine"]["launches"]["K3"] == 0
+              and res["engine"]["launches"]["K4"] == 0,
+              "a flight launched behind the EngineBackend (its submits "
+              "never take submit_pipelined)")
+        # (b) config A behind RouterBackend + ShardedKV
+        step("config A behind RouterBackend")
+        ring_cuda.LAUNCHES["write_window_cols"] = 0
+        res["router"] = wire_router_run(dev)
+        print(f"wire_path: router {json.dumps(res['router'])}", flush=True)
+        watch.check("wire router")
+        check(res["router"]["k5_launches"] > 0, "K5 never launched "
+              "behind the RouterBackend")
+        # (c) the drill and the serial pin, card against CPU
+        step("the wire drill, card and CPU")
+        k5 = ring_cuda.LAUNCHES["write_window_cols"]
+        t0 = time.perf_counter()
+        card = wire_drill_check(wire_run(7, device=dev), "wire drill card")
+        card["wall_s"] = time.perf_counter() - t0
+        card["k5_launches"] = ring_cuda.LAUNCHES["write_window_cols"] - k5
+        cpu = wire_drill_check(wire_run(7, device="cpu"), "wire drill cpu")
+        res["drill"] = {"card": card, "cpu": cpu}
+        step("the serial pin, card and CPU")
+        c1 = read_counters(dev)
+        serial = {t: (wire_serial_run(dev, t), wire_serial_run("cpu", t))
+                  for t in (True, False)}
+        c2 = read_counters(dev)
+        for t, (a, b) in serial.items():
+            check(a == b, f"serial pin (traced={t}): card {a[:5]} != "
+                  f"CPU {b[:5]}")
+        check(serial[True][0][:5] == serial[False][0][:5],
+              "serial pin: trace on != off")
+        res["serial"] = {"watermark": serial[True][0][0],
+                         "crc": serial[True][0][1],
+                         "nodelog_lines": len(serial[True][0][5]),
+                         "launches": {k: c2[k] - c1[k]
+                                      for k in ("K1", "K2")}}
+        watch.check("wire drill")
+        # (d) the joined bundle, explained by the port's CLI
+        step("the joined bundle")
+        with tempfile.TemporaryDirectory() as tmp:
+            rep = wire_run(3, clients=2, ops_per_phase=4, bundle_dir=tmp,
+                           device=dev)
+            check(rep.bundle_path is not None, "no wire bundle written")
+            env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+            out = subprocess.run(
+                [sys.executable, "-m", "raft_tpu_torch.obs", "--explain",
+                 rep.bundle_path], cwd=HERE, env=env, capture_output=True,
+                text=True, timeout=120)
+            check(out.returncode == 0
+                  and "joined wire forensics" in out.stdout,
+                  f"--explain of the wire bundle: {out.stderr[-500:]}")
+        res["bundle"] = {"verdict": rep.verdict, "explained": True}
+        res["watch"] = watch.check("wire bundle")
+    res["k5_launches"] = {"config_a": res["router"]["k5_launches"],
+                          "drill": card["k5_launches"]}
+    torch.cuda.synchronize()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 #: phases ``--only=a,b`` runs alone (after the card and the build): the
 #: kernels against their plain versions, the mesh engine's (1-D and
 #: 2-D), and the resident main paths whose host code the mesh engine's
@@ -10237,7 +10932,9 @@ ONLY_PHASES = {"kernels": lambda dev: phase_kernels(ns_config(), dev),
                "obs_planes_path":
                lambda dev: phase_obs_planes_path(dev, card_query()),
                "chaos_path":
-               lambda dev: phase_chaos_path(dev, card_query())}
+               lambda dev: phase_chaos_path(dev, card_query()),
+               "wire_path":
+               lambda dev: phase_wire_path(dev, card_query())}
 
 
 def main() -> int:
@@ -10293,6 +10990,7 @@ def main() -> int:
     gmesh_small = phase_group_mesh_card_equals_cpu(dev)
     planes = phase_obs_planes_path(dev, card_line)
     chaos = phase_chaos_path(dev, card_line)
+    wire = phase_wire_path(dev, card_line)
     mesh_errs = phase_mesh_kernels(cfg, ecfg, dev)
     mesh_kernel_times = time_mesh_kernels(
         cfg, dev, np.random.default_rng(SEED + 31), 21, mem_rate(card_line))
@@ -10351,6 +11049,12 @@ def main() -> int:
                         chaos["launches_torture"][key]
                     by_path["chaos_northstar"] = \
                         chaos["launches_northstar"][key]
+                    # the net tier: the north star behind the
+                    # EngineBackend, and the serial pin's card runs
+                    by_path["wire_engine"] = \
+                        wire["engine"]["launches"][key]
+                    by_path["wire_serial"] = \
+                        wire["serial"]["launches"][key]
                 # the replicated KV store under member masks, and its
                 # reduced run on the card against the CPU
                 by_path["kv"] = kv_main["launches"][key]
@@ -10405,6 +11109,9 @@ def main() -> int:
                    {"group_main": group_main[cfg_key]["k5_launches"]})
         for path, ph in engine_paths:
             by_path[path] = ph["k5_launches"]
+        if key == "K5 A":
+            # config A behind the wire's RouterBackend
+            by_path["wire_config_a"] = wire["k5_launches"]["config_a"]
         if key == "K5 B":
             # the group-sharded layout: its two shards (one launch a shard
             # a tick) and the resident program beside them
@@ -10417,6 +11124,8 @@ def main() -> int:
             # the chaos harness's multi-Raft torture and migration drill
             # (G = 4, C = 128, B = 4; the drill on two shards of the card)
             by_path.update(chaos["k5_launches"])
+            # the wire drill's MultiEngine (G = 2, C = 128, B = 4)
+            by_path["wire_drill"] = wire["k5_launches"]["drill"]
         kernels.append({
             "name": f"K5 write_window_cols ({label})", "route": "cuda",
             "source": "raft_tpu_torch/csrc/ring.cu",

@@ -54,7 +54,7 @@ class Overloaded(Exception):
     ``fair_share`` / ``read_depth`` / ``circuit_open``; ``group`` is
     set when a multi-Raft group's queue refused.
 
-    At the wire (``raft_tpu.net``, docs/NETWORK.md) this contract IS
+    At the wire (``raft_tpu_torch.net``, docs/NETWORK.md) this contract IS
     the backpressure protocol: the ingest server converts every
     ``Overloaded`` into a ``REFUSED`` frame carrying the same reason
     and ``retry_after_s`` verbatim, written before anything queues

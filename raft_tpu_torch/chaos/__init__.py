@@ -26,8 +26,10 @@ property users actually observe).
   ``segment_storage_run``, ``reads_run`` and ``migration_run`` drills.
 
 Every run is the JAX runner's seed for seed (the same draws, nemesis
-log, history and report), on the card unless ``device="cpu"``. The wire,
-transaction and cluster drills are not ported yet (ROADMAP A17b–d).
+log, history and report), on the card unless ``device="cpu"``; the wire
+drill (``wire_run``) runs over the port's net tier and is held by its
+checker verdict and invariants. The transaction and cluster drills are
+not ported yet (ROADMAP A17c–d).
 
 One-command repro of any run: ``python -m raft_tpu_torch.chaos --seed N``.
 """
@@ -48,6 +50,7 @@ from raft_tpu_torch.chaos.runner import (
     ReconfigReport,
     SegmentReport,
     TortureReport,
+    WireReport,
     migration_run,
     overload_run,
     poisson,
@@ -56,6 +59,7 @@ from raft_tpu_torch.chaos.runner import (
     segment_storage_run,
     torture_run,
     torture_run_multi,
+    wire_run,
 )
 from raft_tpu_torch.chaos.storage import MirroredStore
 from raft_tpu_torch.chaos.transport import ChaosTransport
@@ -77,6 +81,7 @@ __all__ = [
     "ReconfigReport",
     "SegmentReport",
     "TortureReport",
+    "WireReport",
     "migration_run",
     "overload_run",
     "poisson",
@@ -85,6 +90,7 @@ __all__ = [
     "segment_storage_run",
     "torture_run",
     "torture_run_multi",
+    "wire_run",
     "MirroredStore",
     "ChaosTransport",
 ]

@@ -8,10 +8,11 @@ invocation a failing run's report names as its repro.
 
 The flags, their checks and the result lines are JAX's. ``--device``
 picks the engines' device: the card unless ``cpu`` is named (no fallback
-when no card is found). The wire, transaction and cluster drills are not
-ported yet: ``--wire`` (ROADMAP A17b), ``--txn`` (A17c) and
-``--cluster``, ``--cluster-storage`` and ``--cluster-net`` (A17d) exit
-with a message naming the item, after JAX's own argument checks.
+when no card is found). ``--wire`` runs the wire drill over the port's
+net tier. The transaction and cluster drills are not ported yet:
+``--txn`` (ROADMAP A17c) and ``--cluster``, ``--cluster-storage`` and
+``--cluster-net`` (A17d) exit with a message naming the item, after
+JAX's own argument checks.
 """
 
 from __future__ import annotations
@@ -28,12 +29,12 @@ from raft_tpu_torch.chaos.runner import (
     segment_storage_run,
     torture_run,
     torture_run_multi,
+    wire_run,
 )
 
 #: the drills of the JAX CLI that wait for their tier: flag -> what the
 #: exit names
 NOT_PORTED = (
-    ("wire", "--wire", "A17b (the net tier and wire_run)"),
     ("txn", "--txn", "A17c (the txn tier and txn_run)"),
     ("cluster", "--cluster", "A17d (the cluster tier and cluster_run)"),
     ("cluster_storage", "--cluster-storage",
@@ -416,6 +417,39 @@ def main(argv=None) -> int:
             return 2
 
     ok = True
+    if args.wire:
+        for seed in range(args.seed, args.seed + args.sweep):
+            rep = wire_run(
+                seed, clients=args.clients, keys=args.keys,
+                step_budget=args.step_budget,
+                blackbox_dir=args.blackbox_dir,
+                bundle_dir=args.bundle_dir, device=args.device,
+            )
+            print(rep.summary())
+            print(json.dumps({
+                "seed": seed,
+                "verdict": rep.verdict,
+                "per_class": {c: r.verdict
+                              for c, r in rep.per_class.items()},
+                "ops": rep.ops,
+                "op_counts": rep.op_counts,
+                "shed_writes": rep.shed_writes,
+                "not_leader_frames": rep.not_leader_frames,
+                "wire_refusals": rep.wire_refusals,
+                "leader_kills": rep.leader_kills,
+                "net": rep.net,
+                "commit_digest": rep.commit_digest,
+                "traced": rep.traced,
+                "client_spans": rep.client_spans,
+                "server_spans": rep.server_spans,
+                "bundle": rep.bundle_path,
+            }), flush=True)
+            ok = ok and (
+                rep.verdict == "LINEARIZABLE"
+                and rep.shed_writes >= 1
+                and rep.not_leader_frames >= 1
+            )
+        return 0 if ok else 1
     if args.reads:
         for seed in range(args.seed, args.seed + args.sweep):
             rep = reads_run(

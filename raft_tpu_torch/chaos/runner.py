@@ -13,10 +13,11 @@ rings, staging buffer and CUDA graphs to the restored one
 (``SingleDeviceTransport.release``; ``core.graphs`` keeps the pool), so
 on the card a restore captures no graph anew, as JAX's process-wide
 program cache compiles nothing anew; ``torture_run`` releases its last
-engine too, for the next run of the shape. The rest of the JAX module is not
-ported yet: ``wire_run`` (ROADMAP A17b, the ``net`` tier), ``txn_run``
-(A17c) and the cluster drills ``cluster_run``, ``cluster_storage_run``
-and ``cluster_net_run`` (A17d).
+engine too, for the next run of the shape. ``wire_run`` drives the same
+multi-Raft stack through the port's wire tier (``raft_tpu_torch.net``)
+over real loopback sockets. The rest of the JAX module is not ported
+yet: ``txn_run`` (ROADMAP A17c) and the cluster drills ``cluster_run``,
+``cluster_storage_run`` and ``cluster_net_run`` (A17d).
 
 
 ``torture_run`` drives a single-group ``RaftEngine`` (with a recorded
@@ -2630,3 +2631,345 @@ def multi_commit_digest(engine) -> str:
                 arch[idx], zlib.crc32(f"{idx}".encode(), crc)
             )
     return f"{crc:08x}"
+
+
+# ------------------------------------------------------- the wire drill
+@dataclasses.dataclass
+class WireReport:
+    """Result of :func:`wire_run` — torture traffic driven through a
+    REAL loopback TCP server (``raft_tpu_torch.net``) instead of in-process
+    calls, with the leader-kill and overload nemeses composed. Ops are
+    recorded in the same ``History`` the in-process runners use and
+    graded per read class (``check_read_classes``), so the wire tier
+    earns the same verdict currency as everything else: LINEARIZABLE
+    or it does not ship."""
+
+    seed: int
+    per_class: Dict[str, "CheckResult"]
+    ops: int
+    op_counts: Dict[str, int]
+    wire_refusals: Dict[str, int]
+    shed_writes: int             # open-loop arrivals typed-refused
+    not_leader_frames: int       # NOT_LEADER wire frames observed
+    leader_kills: int
+    net: dict                    # final server ``net`` stats section
+    read_classes: Dict[str, int]
+    repro: str
+    commit_digest: str = ""      # multi_commit_digest at quiesce
+    traced: bool = False         # the wire trace plane was armed
+    client_spans: int = 0        # client-side span count (traced runs)
+    server_spans: int = 0        # server-side wire-op span count
+    pump: Optional[dict] = None  # PumpProfiler.stats() (traced runs)
+    bundle_path: Optional[str] = None
+    #   one bundle carrying BOTH span tables (spans + client_spans)
+    #   when a bundle_dir was configured — the joined --explain input
+
+    @property
+    def verdict(self) -> str:
+        verdicts = [c.verdict for c in self.per_class.values()]
+        if VIOLATION in verdicts:
+            return VIOLATION
+        if any(v != LINEARIZABLE for v in verdicts):
+            return "UNDETERMINED"
+        return LINEARIZABLE
+
+    def summary(self) -> str:
+        cls = {c: r.verdict for c, r in self.per_class.items()}
+        return (
+            f"seed={self.seed} classes={cls} ops={self.ops} "
+            f"shed={self.shed_writes} "
+            f"not_leader={self.not_leader_frames} "
+            f"kills={self.leader_kills} "
+            f"conns={self.net.get('connections')} "
+            f"bytes_in={self.net.get('bytes_in')}"
+        )
+
+
+def wire_run(
+    seed: int,
+    clients: int = 4,
+    keys: int = 4,
+    ops_per_phase: int = 10,
+    groups: int = 2,
+    step_budget: int = 500_000,
+    blackbox_dir: Optional[str] = None,
+    trace: bool = True,
+    bundle_dir: Optional[str] = None,
+    device=None,
+) -> WireReport:
+    """The deterministic wire-plane drill (``--wire``): a sharded
+    Router stack served over a REAL loopback asyncio TCP server, with
+    torture traffic arriving as wire frames. Three phases, nemeses
+    composed:
+
+    1. steady traffic — ``clients`` wire clients (own connections, own
+       session tokens) running mixed writes / linearizable reads /
+       session reads;
+    2. LEADER KILL on the hottest group mid-traffic — clients ride
+       ``NOT_LEADER`` wire refusals + backoff through the election,
+       the row recovers after;
+    3. OVERLOAD — an open-loop burst of one-shot writers (retry-free
+       connections) past the admission depth bound: the gate's typed
+       refusals surface as ``REFUSED`` wire frames, recorded ``fail``
+       (provably no effect — the wire preserves the contract the
+       checker leans on).
+
+    Every client op is recorded in the shared ``History`` on the
+    engine's virtual clock (the asyncio loop and the engine share one
+    thread, so host execution order is real-time order — the same
+    soundness argument the in-process runners make) and graded with
+    ``check_read_classes``; the drill passes only if every class holds
+    its contract, a shed happened, and NOT_LEADER frames were ridden
+    through. No real-clock sleeps beyond the client's millisecond-scale
+    jittered backoff — the run is event-driven end to end.
+
+    ``trace=True`` (the default — the drill RUNS traced)
+    arms the full wire trace plane: one client-side span per op
+    (attempts/backoffs/redials), server-side wire spans adopting the
+    propagated context, the pump-phase profiler, and the net metrics
+    registry — all strictly additive (the determinism pin compares
+    trace on vs off on a serial deterministic scenario; the drill's
+    own asyncio/TCP interleaving is outside the seeded-replay domain,
+    which is exactly why its verdict currency is the history checker,
+    not replay identity). With a ``bundle_dir`` (argument or
+    ``RAFT_TPU_BUNDLE_DIR``), a traced run writes one repro bundle
+    carrying BOTH span tables — the ``--explain`` joined-forensics
+    input — regardless of verdict (the artifact is the point of the
+    traced drill, not a failure symptom).
+
+    ``device`` is the ``MultiEngine``'s (CUDA unless ``"cpu"``; off the
+    card it raises). The drill's interleaving over real sockets is
+    outside seeded replay, so it is held by the checker's verdict and
+    its pinned invariants, never field by field."""
+    import asyncio
+
+    from raft_tpu_torch.examples.kv_sharded import ShardedKV
+    from raft_tpu_torch.multi.engine import MultiEngine
+    from raft_tpu_torch.multi.router import Router
+    from raft_tpu_torch.net import (
+        IngestServer,
+        RouterBackend,
+        WireClient,
+        WireDisconnected,
+        WireRefused,
+    )
+    from raft_tpu_torch.net.client import WireError
+
+    cfg = dataclasses.replace(
+        _default_cfg(seed),
+        admission_max_writes=8,
+        admission_max_reads=64,
+    )
+    eng = MultiEngine(cfg, groups, device=device)
+    router = Router(eng, drive=False)
+    skv = ShardedKV(eng, router)
+    eng.seed_leaders()
+    history = History()
+    key_pool = [f"wk{i}".encode() for i in range(keys)]
+    rng = random.Random(f"wire:{seed}")
+    leader_kills = 0
+    shed_writes = 0
+
+    # -- the wire trace plane (strictly additive; trace=False is the
+    # -- byte-compatible untraced drill) ------------------------------
+    client_spans = server_spans = pump = registry = None
+    if trace:
+        from raft_tpu_torch.obs.hostprof import PumpProfiler
+        from raft_tpu_torch.obs.registry import MetricsRegistry
+        from raft_tpu_torch.obs.spans import SpanTracker
+
+        client_spans = SpanTracker()
+        server_spans = SpanTracker()
+        registry = MetricsRegistry()
+        pump = PumpProfiler(registry=registry)
+        # the engines' own causal hooks chain onto the server wire
+        # spans (ambient binding across the pump's dispatch)
+        eng.spans = server_spans
+
+    def _clock() -> float:
+        # both sides' spans stamp the SAME virtual clock (one thread),
+        # so the joined timeline is one consistent time axis
+        return eng.clock.now
+
+    def _g(key: bytes) -> int:
+        return router.group_of(key)
+
+    async def client_ops(wc: WireClient, cid: int, n: int) -> None:
+        """One serial client: the §6.3 discipline over the wire."""
+        crng = random.Random(f"wire:{seed}:{cid}")
+        for i in range(n):
+            key = key_pool[crng.randrange(len(key_pool))]
+            p = crng.random()
+            if p < 0.6:
+                value = f"c{cid}v{i}-{crng.randrange(1 << 20)}".encode()
+                rec = history.invoke(cid, WRITE, key, value,
+                                     eng.clock.now)
+                try:
+                    await wc.submit(key, value)
+                except WireRefused:
+                    # typed refusal: provably nothing queued — FAIL is
+                    # sound (the gate/NotLeader contract over the wire)
+                    rec.fail(history.stamp(eng.clock.now))
+                except (WireDisconnected, WireError, ConnectionError):
+                    rec.info()      # outcome unknown: may still commit
+                else:
+                    rec.ok(history.stamp(eng.clock.now))
+            else:
+                cls = "session" if p > 0.85 else "linearizable"
+                rec = history.invoke(cid, READ, key, None,
+                                     eng.clock.now)
+                if cls == "session":
+                    rec.ryw_floor = wc.session.floor.get(_g(key), 0)
+                try:
+                    out = await wc.read(key, cls=cls)
+                except (WireRefused, WireError, WireDisconnected,
+                        ConnectionError):
+                    # an unserved read has no effect, whatever killed it
+                    rec.fail(history.stamp(eng.clock.now))
+                else:
+                    rec.read_class = out.cls
+                    rec.serve_index = out.index
+                    rec.ok(history.stamp(eng.clock.now), out.value)
+
+    async def flood(port: int, n: int) -> int:
+        """Open-loop one-shot writers: no retries, unique client ids —
+        the overload nemesis at the wire."""
+        wc = await WireClient(
+            "127.0.0.1", port, pool=1, retries=0,
+            rng=random.Random(f"wire-flood:{seed}"),
+            spans=client_spans, clock=_clock, trace_node=1001,
+        ).connect()
+        shed = 0
+        async def one(j: int) -> None:
+            nonlocal shed
+            key = key_pool[j % len(key_pool)]
+            value = f"flood{j}-{rng.randrange(1 << 20)}".encode()
+            rec = history.invoke(1000 + j, WRITE, key, value,
+                                 eng.clock.now)
+            try:
+                await wc.submit(key, value)
+            except WireRefused:
+                shed += 1
+                rec.fail(history.stamp(eng.clock.now))
+            except (WireDisconnected, WireError, ConnectionError):
+                rec.info()
+            else:
+                rec.ok(history.stamp(eng.clock.now))
+        await asyncio.gather(*[one(j) for j in range(n)])
+        await wc.close()
+        return shed
+
+    async def main() -> dict:
+        nonlocal leader_kills, shed_writes
+        server = IngestServer(
+            RouterBackend(router, skv),
+            drive_quantum_s=2 * cfg.heartbeat_period,
+            spans=server_spans, registry=registry, pump=pump,
+        )
+        port = await server.start()
+        blackbox.mark("wire_serving", port=port)
+        wcs = [
+            await WireClient(
+                "127.0.0.1", port, pool=1, retries=48,
+                rng=random.Random(f"wire:{seed}:conn{cid}"),
+                spans=client_spans, clock=_clock, trace_node=cid + 1,
+            ).connect()
+            for cid in range(clients)
+        ]
+        # ---- phase 1: steady wire traffic ---------------------------
+        await asyncio.gather(*[
+            client_ops(wc, cid, ops_per_phase)
+            for cid, wc in enumerate(wcs)
+        ])
+        blackbox.mark("wire_steady_done", ops=len(history))
+        # ---- phase 2: leader kill mid-traffic -----------------------
+        hot = _g(key_pool[0])
+        lead = eng.leader_id[hot]
+        if lead is None:
+            lead = eng.run_until_leader(hot)
+        eng.fail(hot, lead)
+        leader_kills += 1
+        blackbox.mark("wire_leader_kill", group=hot, row=lead)
+        await asyncio.gather(*[
+            client_ops(wc, cid, ops_per_phase)
+            for cid, wc in enumerate(wcs)
+        ])
+        eng.recover(hot, lead)
+        blackbox.mark("wire_kill_ridden", ops=len(history))
+        # ---- phase 3: open-loop overload burst ----------------------
+        shed_writes = await flood(port, 3 * cfg.admission_max_writes)
+        await asyncio.gather(*[
+            client_ops(wc, cid, ops_per_phase)
+            for cid, wc in enumerate(wcs)
+        ])
+        # ---- quiesce ------------------------------------------------
+        for wc in wcs:
+            await wc.close()
+        stats = server.stats()
+        nl = sum(wc.stats["not_leader"] for wc in wcs)
+        await server.stop()
+        return {"net": stats, "not_leader": nl}
+
+    with blackbox.journal_for(f"wire_seed{seed}", blackbox_dir):
+        blackbox.mark("wire_run", seed=seed)
+        out = asyncio.run(main())
+        history.close()
+        blackbox.mark("check_history", ops=len(history))
+        per_class = check_read_classes(history, step_budget=step_budget)
+        blackbox.mark("check_done", verdicts={
+            c: r.verdict for c, r in per_class.items()
+        })
+    counts: Dict[str, int] = {}
+    for rec in history.ops:
+        c = getattr(rec, "read_class", None)
+        if c:
+            counts[c] = counts.get(c, 0) + 1
+    rep = WireReport(
+        seed=seed,
+        per_class=per_class,
+        ops=len(history),
+        op_counts=history.counts(),
+        wire_refusals=dict(out["net"].get("refusals", {})),
+        shed_writes=shed_writes,
+        not_leader_frames=out["not_leader"],
+        leader_kills=leader_kills,
+        net=out["net"],
+        read_classes=counts,
+        repro=f"python -m raft_tpu_torch.chaos --wire --seed {seed}"
+              + ("" if trace else " (untraced)"),
+        commit_digest=multi_commit_digest(eng),
+        traced=trace,
+        client_spans=len(client_spans) if client_spans else 0,
+        server_spans=(
+            sum(1 for sp in server_spans.spans
+                if sp.op.startswith("wire_"))
+            if server_spans else 0
+        ),
+        pump=out["net"].get("pump"),
+    )
+    dest = resolve_bundle_dir(bundle_dir)
+    if trace and dest is not None:
+        # the traced drill's artifact: BOTH span tables in one bundle
+        # (plus the op history and faults-free context) — what the
+        # joined --explain consumes; written on every verdict because
+        # the cross-process trace IS the deliverable here
+        try:
+            rep.bundle_path = write_bundle(
+                dest,
+                kind="wire",
+                seed=seed,
+                expected=LINEARIZABLE,
+                verdict=rep.verdict,
+                repro=rep.repro,
+                config=cfg,
+                history=history,
+                spans=server_spans,
+                client_spans=client_spans,
+                extra={"side": "server+client", "net": rep.net,
+                       "commit_digest": rep.commit_digest},
+            )
+        except OSError as ex:       # an unwritable dir must not eat
+            import sys              # the report it was meant to save
+
+            print(f"wire bundle not written: {ex}", file=sys.stderr)
+    return rep

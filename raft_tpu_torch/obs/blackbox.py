@@ -31,8 +31,10 @@ plane, in two parts:
   ``declare_dead``) and of the chaos runners (``raft_tpu_torch.chaos``:
   ``torture_run``, ``torture_phase``, ``crash_restore``, ``quiesce``,
   ``compile_sentinel_frozen``, ``check_history``, ``check_done`` and the
-  drills' own marks). The wire, transaction and cluster drills' marks
-  wait for their tiers (ROADMAP A17b-d).
+  drills' own marks, the wire drill's ``wire_run``, ``wire_serving``,
+  ``wire_steady_done``, ``wire_leader_kill`` and ``wire_kill_ridden``
+  among them). The transaction and cluster drills' marks wait for their
+  tiers (ROADMAP A17c-d).
 
 - :class:`StallWatchdog` — a daemon thread that fires when no
   :meth:`StallWatchdog.pet` arrives for ``deadline_s`` seconds: it dumps

@@ -14,9 +14,10 @@ violation, and the op that broke linearizability.
 The chaos runners (``raft_tpu_torch.chaos``, as the JAX package's) write
 bundles whenever a run ends in anything but its expected verdict and a
 destination is configured (``bundle_dir=`` argument, or the
-``RAFT_TPU_BUNDLE_DIR`` environment variable); the wire drill's joined
-bundles wait for the net tier (ROADMAP A17b). The bundle format is the
-JAX package's, so either package's CLI explains either's bundles.
+``RAFT_TPU_BUNDLE_DIR`` environment variable); the traced wire drill
+(``wire_run``) writes its joined bundle, both span tables, on every
+verdict. The bundle format is the JAX package's, so either package's
+CLI explains either's bundles.
 ``ObsStack.build(device=True)`` adds the device plane (``obs.device``): a
 bundle then carries the decoded device ring, which ``explain`` summarises
 and interleaves into the timeline. ``compile_plane=True`` adds the

@@ -35,7 +35,7 @@ scrapeable while the engine runs, without locks on the hot path:
               µs/iteration, attribution coverage and the
               coalesce-batch / frame-queue-age percentiles when a
               ``PumpProfiler`` is attached) when a
-              ``raft_tpu.net.IngestServer`` publishes to the same
+              ``raft_tpu_torch.net.IngestServer`` publishes to the same
               board — JSON
   /compile    the compile watch's snapshot (programs, traces, compiles,
               the event log, the retrace sentinel's verdicts)

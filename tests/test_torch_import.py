@@ -62,6 +62,11 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import raft_tpu_torch.multi, raft_tpu_torch.multi.engine\n"
         "import raft_tpu_torch.multi.router, raft_tpu_torch.multi.rebalancer\n"
         "import raft_tpu_torch.examples.kv_sharded\n"
+        "import raft_tpu_torch.net, raft_tpu_torch.net.protocol\n"
+        "import raft_tpu_torch.net.client, raft_tpu_torch.net.server\n"
+        "import raft_tpu_torch.cluster.netfault\n"
+        "import raft_tpu_torch.chaos, raft_tpu_torch.chaos.runner\n"
+        "import raft_tpu_torch.chaos.__main__\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax') or "
         "m == 'raft_tpu' or m.startswith(('jax.', 'raft_tpu.')))\n"
         "print(bad); sys.exit(1 if bad else 0)\n" % str(ROOT)
@@ -176,3 +181,72 @@ def test_make_transport_single_only(caplog):
             make_transport(RaftConfig(**kw, transport=name), device="cpu")
         assert str(got.value) == str(want.value).replace(
             "raft_tpu.golden", "raft_tpu_torch.golden")
+
+
+def test_net_server_leaves_the_cluster_package_unloaded():
+    """``net/server.py`` resolves the wire seam lazily: importing the net
+    tier loads nothing of ``raft_tpu_torch.cluster`` (the cluster tier's
+    node will import ``net``), and the seam module imports only the
+    standard library."""
+    code = (
+        "import sys; sys.path.insert(0, %r)\n"
+        "import raft_tpu_torch.net\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.startswith('raft_tpu_torch.cluster'))\n"
+        "print(bad); sys.exit(1 if bad else 0)\n" % str(ROOT)
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-I", "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    tree = ast.parse((ROOT / "raft_tpu_torch" / "cluster" /
+                      "netfault.py").read_text())
+    top = [n for n in tree.body if isinstance(n, (ast.Import,
+                                                  ast.ImportFrom))]
+    mods = {a.name for n in top if isinstance(n, ast.Import)
+            for a in n.names} | {n.module for n in top
+                                 if isinstance(n, ast.ImportFrom)}
+    assert mods <= set(sys.stdlib_module_names) | {"__future__"}, mods
+
+
+_RAW_STREAM_METHODS = ("read", "readexactly", "readuntil", "readline",
+                       "write", "writelines", "drain")
+
+
+def _dotted(node) -> str:
+    """'os.replace'-style name for a call target, best effort (the JAX
+    gate's)."""
+    parts = []
+    while isinstance(node, ast.Attribute):
+        parts.append(node.attr)
+        node = node.value
+    if isinstance(node, ast.Name):
+        parts.append(node.id)
+    return ".".join(reversed(parts))
+
+
+def test_peer_bytes_ride_the_netfault_seam():
+    """The port of ``tests/test_lint.py``'s seam gate over
+    ``raft_tpu_torch/net/server.py``: no ``open_connection``, no raw
+    socket, and no read, write or drain on a bare reader or writer —
+    every byte goes through ``cluster/netfault.py``'s ``RealConn`` /
+    ``FaultyConn`` (``.close()`` and ``asyncio.start_server`` are
+    fine)."""
+    rel = "raft_tpu_torch/net/server.py"
+    offenders = []
+    for node in ast.walk(ast.parse((ROOT / rel).read_text())):
+        if not isinstance(node, ast.Call):
+            continue
+        name = _dotted(node.func)
+        if (name == "asyncio.open_connection" or name == "socket.socket"
+                or name.endswith(".create_connection")):
+            offenders.append(f"{rel}:{node.lineno}: {name}")
+        elif (isinstance(node.func, ast.Attribute)
+                and node.func.attr in _RAW_STREAM_METHODS):
+            recv = _dotted(node.func.value)
+            tail = recv.rsplit(".", 1)[-1]
+            if tail in ("reader", "writer") or tail.endswith(
+                    ("_reader", "_writer")):
+                offenders.append(f"{rel}:{node.lineno}: "
+                                 f"{recv}.{node.func.attr}")
+    assert not offenders, "\n".join(offenders)
