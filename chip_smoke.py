@@ -372,6 +372,26 @@ entries, batch 256, a 4096-slot ring each; ``bench.py``
     nodelog lines included; (d) a traced drill's bundle, whose
     ``python -m raft_tpu_torch.obs --explain`` prints the joined wire
     forensics. No ERROR frame and no pump crash anywhere;
+11i. ``txn_path``: the transaction tier (``raft_tpu_torch.txn``) on the
+    card: (a) ``txn_run`` on two shards of the card at seed 7, plain,
+    with ``extra_nemeses`` and with ``lease_reads``, each equal field by
+    field to the same run on two CPU shards (report, commit-order
+    witness, single-key history), SERIALIZABLE, conserved, the plain and
+    lease runs at the digest the JAX package's tests pin, the lease
+    certifying most basis reads; the broken ``txn_partial_commit`` and
+    ``txn_dirty_read`` variants at seed 0 caught; (b) ``bench.py``
+    ``bench_txn``'s leg through ``IngestServer(RouterBackend,
+    txn=TxnCoordinator)``: 4 groups, 64-byte entries, B = 64, C = 2 048,
+    the write gate at 512, seed 17; 8 connections of 30 requests, 90 %
+    64-entry SUBMIT_BATCH frames over ``mk*`` and 10 % validated
+    two-account transfers over 16 ``ta*`` accounts: txn commit p50/p99
+    (the wire BEGIN + COMMIT round), committed transactions/s, the abort
+    rate, single-key entries/s and the raw wall; a shorter round under
+    torch.profiler for the idle share; then, out of both rounds, every
+    account read back with the sum conserved, every single key read back,
+    the outcomes in the coordinator's counts and decision map, no lock
+    held; (c) K5 at that shape against its plain version and timed. Only
+    K5 may launch. No ERROR frame and no pump crash;
 
 Then the replica mesh: one replica row per rank of a ``torch.distributed``
 gloo group, all ranks on the one card (three processes time-sharing it,
@@ -9904,8 +9924,10 @@ def chaos_run(fn, *args, **kw):
     """``raft_tpu_torch.chaos.runner.fn(*args, **kw)`` -> (trace, report):
     the trace is every report field but the live objects, and every
     history the checker was handed, one tuple an op (client, op, key,
-    value, invoke and complete times, status, read class)."""
-    from raft_tpu_torch.chaos import runner
+    value, invoke and complete times, status, read class), and every
+    commit-order witness ``check_serializable`` was handed (the txn
+    drill's), one tuple a transaction and the final state."""
+    from raft_tpu_torch.chaos import checker, runner
 
     seen = []
     saved = {n: getattr(runner, n)
@@ -9918,9 +9940,20 @@ def chaos_run(fn, *args, **kw):
                          for r in history.ops])
             return _orig(history, *a, **k)
         setattr(runner, name, wrap)
+    serializable = checker.check_serializable
+
+    def witness(records, final_state=None, initial=None):
+        seen.append([(r.txn_id, sorted(r.writes.items()),
+                      sorted(r.expects.items()), r.status, r.pos,
+                      r.invoke_t, r.complete_t) for r in records]
+                    + [sorted((final_state or {}).items())])
+        return serializable(records, final_state, initial)
+
+    checker.check_serializable = witness
     try:
         rep = getattr(runner, fn)(*args, **kw)
     finally:
+        checker.check_serializable = serializable
         for name, orig in saved.items():
             setattr(runner, name, orig)
     trace = {f.name: chaos_plain(getattr(rep, f.name))
@@ -10908,6 +10941,329 @@ def phase_wire_path(dev, card_line):
     return res
 
 
+# ------------------------------------------------ the transaction tier
+#: ``bench.py`` ``bench_txn``'s shape (:1818-1851): G groups, B-entry
+#: SUBMIT_BATCH frames, CONNS connections of REQS requests each, a 10 %
+#: share of validated two-account transfers over ACCOUNTS accounts (``ta*``)
+#: beside the single-key frames (``mk*``, a disjoint keyspace)
+TXN_G, TXN_B, TXN_CONNS, TXN_REQS, TXN_ACCOUNTS = 4, 64, 8, 30, 16
+TXN_SHARE = 0.10
+#: a second, shorter round of the same mix served under torch.profiler
+#: (out of the timed round): pump iterations [FROM, FROM + ITERS)
+TXN_PROFILED_REQS = 12
+TXN_PROFILE_FROM, TXN_PROFILED_ITERS = 2, 8
+#: the seed-7 drill's commit digest, as the JAX package's tests pin it
+#: (``tests/test_txn.py:509``)
+TXN_SEED7_DIGEST = "6961c982"
+
+
+def txn_bench_config():
+    """``bench_txn``'s deployment: 4 groups of 3, 64-byte entries, batch
+    64, a 2 048-slot ring, the write-depth gate at 512, seed 17."""
+    from raft_tpu_torch.config import RaftConfig
+
+    return RaftConfig(n_replicas=3, entry_bytes=64, batch_size=TXN_B,
+                      log_capacity=1 << 11, transport="single", seed=17,
+                      admission_max_writes=512)
+
+
+def txn_bench_run(dev):
+    """``txn_path`` (b) on the card: ``bench_txn``'s leg served through
+    ``IngestServer(RouterBackend, txn=TxnCoordinator)``: the accounts
+    seeded (100 each), then the timed round (``TXN_CONNS`` connections of
+    ``TXN_REQS`` requests, each a B-entry SUBMIT_BATCH or, with
+    probability ``TXN_SHARE``, a transfer that reads both balances and
+    commits both writes expecting both), then a shorter round under
+    torch.profiler for the idle share, then the checks, out of both
+    rounds: every account read back linearizably and the sum conserved,
+    every single key read back as written, each transfer's outcome in the
+    coordinator's counts and the replicated decision map, no lock held."""
+    import asyncio
+    import random as _random
+
+    import torch
+
+    from raft_tpu_torch.core import ring_cuda
+    from raft_tpu_torch.multi import MultiEngine, Router
+    from raft_tpu_torch.net import (IngestServer, RouterBackend, WireClient,
+                                    WireRefused)
+    from raft_tpu_torch.net.client import WireDisconnected, WireError
+    from raft_tpu_torch.txn import TxnCoordinator, TxnShardedKV
+
+    cfg = txn_bench_config()
+    eng = MultiEngine(cfg, TXN_G, device=dev)
+    router = Router(eng, drive=False)
+    skv = TxnShardedKV(eng, router)
+    eng.seed_leaders()
+    coord = TxnCoordinator(skv, decision_group=0)
+    payload = bytes(cfg.entry_bytes // 2)
+    keys = [b"mk%d" % i for i in range(64)]
+    accounts = [b"ta%d" % i for i in range(TXN_ACCOUNTS)]
+
+    async def serve(reqs, tag, pump=None, seed_accounts=False):
+        tally = {"lat": [], "committed": 0, "aborted": 0, "refused": 0,
+                 "unknown": 0, "single_acked": 0, "single_shed": 0,
+                 "reasons": {}}
+        srv = IngestServer(RouterBackend(router, skv), txn=coord,
+                           drive_quantum_s=cfg.heartbeat_period, pump=pump)
+        port = await srv.start()
+        cs = [await WireClient("127.0.0.1", port, txn=True,
+                               rng=_random.Random(f"bench-txn:{tag}{i}")
+                               ).connect() for i in range(TXN_CONNS)]
+        if seed_accounts:
+            for i, a in enumerate(accounts):
+                await cs[i % TXN_CONNS].submit(a, b"100")
+
+        async def one_txn(c, rng):
+            src, dst = rng.sample(range(TXN_ACCOUNTS), 2)
+            ka, kb = accounts[src], accounts[dst]
+            try:
+                va = (await c.read(ka)).value or b"0"
+                vb = (await c.read(kb)).value or b"0"
+            except (WireRefused, WireDisconnected, WireError):
+                tally["refused"] += 1
+                return
+            amt = 1 + rng.randrange(5)
+            t0 = time.perf_counter()
+            try:
+                r = await c.txn_commit(
+                    [(ka, b"%d" % (int(va) - amt)),
+                     (kb, b"%d" % (int(vb) + amt))],
+                    expects=[(ka, va), (kb, vb)])
+            except WireRefused:
+                tally["refused"] += 1
+                return
+            except (WireDisconnected, WireError):
+                tally["unknown"] += 1
+                return
+            tally["lat"].append((time.perf_counter() - t0) * 1e3)
+            tally["committed" if r.committed else "aborted"] += 1
+            if not r.committed:
+                tally["reasons"][r.reason] = \
+                    tally["reasons"].get(r.reason, 0) + 1
+
+        async def one_frame(c, j):
+            items = [(keys[(j * TXN_B + i) % len(keys)], payload)
+                     for i in range(TXN_B)]
+            try:
+                r = await c.submit_many(items)
+            except (WireRefused, WireDisconnected, WireError):
+                tally["single_shed"] += TXN_B
+            else:
+                tally["single_acked"] += r.accepted
+                tally["single_shed"] += r.shed
+
+        async def worker(i):
+            c = cs[i]
+            rng = _random.Random(f"bench-txn-mix:{tag}{i}")
+            for j in range(reqs):
+                if rng.random() < TXN_SHARE:
+                    await one_txn(c, rng)
+                else:
+                    await one_frame(c, j)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        await asyncio.gather(*[worker(i) for i in range(TXN_CONNS)])
+        tally["wall_s"] = time.perf_counter() - t0
+        for c in cs:
+            await c.close()
+        tally["stats"] = srv.stats()
+        await srv.stop()
+        return tally
+
+    async def verify():
+        srv = IngestServer(RouterBackend(router, skv), txn=coord,
+                           drive_quantum_s=cfg.heartbeat_period)
+        c = await WireClient("127.0.0.1", await srv.start()).connect()
+        bal = {a: (await c.read(a)).value for a in accounts}
+        singles = {k: (await c.read(k)).value for k in keys}
+        await c.close()
+        await srv.stop()
+        return bal, singles
+
+    k5 = ring_cuda.LAUNCHES["write_window_cols"]
+    timed = asyncio.run(serve(TXN_REQS, "", seed_accounts=True))
+    k5_timed = ring_cuda.LAUNCHES["write_window_cols"] - k5
+    prof = _pump_profiler(TXN_PROFILE_FROM, TXN_PROFILED_ITERS)
+    profiled = asyncio.run(serve(TXN_PROFILED_REQS, "profiled:", pump=prof))
+    idle = prof.result()
+    k5_all = ring_cuda.LAUNCHES["write_window_cols"] - k5
+    bal, singles = asyncio.run(verify())
+    check(all(v is not None for v in bal.values())
+          and sum(int(v) for v in bal.values()) == 100 * TXN_ACCOUNTS,
+          f"txn bench: the account sum is not conserved: {bal}")
+    acked = timed["single_acked"] + profiled["single_acked"]
+    check(acked > 0 and all(v == payload for v in singles.values()),
+          "txn bench: a single key does not read back as written")
+    committed = timed["committed"] + profiled["committed"]
+    aborted = timed["aborted"] + profiled["aborted"]
+    st = coord.status_snapshot()
+    check(committed > 0 and st["committed"] == committed
+          and st["aborted"] == aborted and st["decisions"] == committed
+          + aborted, f"txn bench: outcomes {committed}/{aborted} against "
+          f"the coordinator's {st}")
+    check(st["held"] == 0 and st["open_resolves"] == 0,
+          f"txn bench: locks left behind: {st}")
+    check(timed["unknown"] == profiled["unknown"] == 0,
+          "txn bench: a transaction's outcome came back unknown")
+    for t in (timed, profiled):
+        check(t["stats"]["pending_txns"] == 0, "txn bench: txns pending "
+              "at the server's stop")
+    lat, wall = timed["lat"], timed["wall_s"]
+    txns = timed["committed"] + timed["aborted"]
+    return {
+        "device": str(dev), "groups": TXN_G, "wire_batch": TXN_B,
+        "entry_bytes": cfg.entry_bytes, "log_capacity": cfg.log_capacity,
+        "connections": TXN_CONNS, "requests": TXN_CONNS * TXN_REQS,
+        "txns": txns, "txn_committed": timed["committed"],
+        "txn_aborted": timed["aborted"], "abort_reasons": timed["reasons"],
+        "txn_refused": timed["refused"], "txn_unknown": timed["unknown"],
+        "abort_rate": timed["aborted"] / max(txns, 1),
+        "txn_commit_ms_p50": pct(lat, 50) if lat else None,
+        "txn_commit_ms_p99": pct(lat, 99) if lat else None,
+        "txn_goodput_per_s": timed["committed"] / wall,
+        "single_entries": timed["single_acked"],
+        "single_shed": timed["single_shed"],
+        "single_goodput_entries_per_s": timed["single_acked"] / wall,
+        "lock_conflicts": st["lock_conflicts"],
+        "wall_s": wall, "pump_iters": timed["stats"]["pump_iters"],
+        "refusals": timed["stats"]["refusals"],
+        "profiled": {"requests": TXN_CONNS * TXN_PROFILED_REQS,
+                     "txn_committed": profiled["committed"],
+                     "txn_aborted": profiled["aborted"], **idle},
+        "coordinator": st,
+        "k5_launches": {"timed": k5_timed, "all": k5_all},
+    }
+
+
+def txn_drills(dev):
+    """``txn_path`` (a): ``txn_run`` on two shards of the card: seed 7
+    plain, with ``extra_nemeses`` and with ``lease_reads``, each equal to
+    the same run on two CPU shards field by field (report, witness,
+    single-key history), the plain and lease runs at the pinned digest;
+    the broken variants at seed 0 caught. K5 counted from here."""
+    from raft_tpu_torch.chaos import LINEARIZABLE, VIOLATION
+    from raft_tpu_torch.core import ring_cuda
+    from raft_tpu_torch.transport.group_mesh import GroupMesh
+
+    out, k5 = {}, 0
+    for name, seed, kw in (
+            ("seed7", 7, {}),
+            ("seed7_extra_nemeses", 7, {"extra_nemeses": True}),
+            ("seed7_lease_reads", 7, {"lease_reads": True}),
+            ("seed0_txn_partial_commit", 0,
+             {"broken": "txn_partial_commit"}),
+            ("seed0_txn_dirty_read", 0, {"broken": "txn_dirty_read"})):
+        c5 = ring_cuda.LAUNCHES["write_window_cols"]
+        t0 = time.perf_counter()
+        card, rep = chaos_run("txn_run", seed, device=dev,
+                              mesh=GroupMesh([dev, dev]), **kw)
+        wall = time.perf_counter() - t0
+        n5 = ring_cuda.LAUNCHES["write_window_cols"] - c5
+        k5 += n5
+        row = {"verdict": rep.verdict, "singles": rep.singles.verdict,
+               "txns": rep.txns, "committed": rep.committed,
+               "aborted": rep.aborted, "conflicts": rep.conflicts,
+               "moves": len(rep.moves), "nemeses": rep.nemeses,
+               "read_certs": rep.read_certs,
+               "commit_digest": rep.commit_digest, "card_wall_s": wall,
+               "k5_launches": n5}
+        if "broken" in kw:
+            check(rep.caught and rep.verdict == VIOLATION
+                  and not rep.conserved_ok,
+                  f"txn drill {name} not caught: {rep.summary()}")
+        else:
+            t0 = time.perf_counter()
+            cpu, _ = chaos_run("txn_run", seed, device="cpu",
+                               mesh=GroupMesh(["cpu", "cpu"]), **kw)
+            row["cpu_wall_s"] = time.perf_counter() - t0
+            chaos_same(card, cpu, f"txn drill {name}")
+            check(rep.verdict == "SERIALIZABLE" and rep.conserved_ok
+                  and rep.singles.verdict == LINEARIZABLE
+                  and rep.unresolved == 0 and rep.moves,
+                  f"txn drill {name}: {rep.summary()}")
+            if "extra_nemeses" not in kw:
+                check(rep.commit_digest == TXN_SEED7_DIGEST,
+                      f"txn drill {name}: digest {rep.commit_digest}, "
+                      f"pinned {TXN_SEED7_DIGEST}")
+        print(f"txn_path: drill {name} {json.dumps(row)}", flush=True)
+        out[name] = row
+    lease = out["seed7_lease_reads"]["read_certs"]
+    check(lease.get("lease", 0) > lease.get("read_index", 0),
+          f"txn drill: the lease did not certify most basis reads {lease}")
+    check(k5 > 0, "K5 never launched on the txn drills")
+    return out, k5
+
+
+def txn_k5_cases(dev, rng, n=24):
+    """K5 against its plain version at ``bench_txn``'s shape (G = 4, C =
+    2 048, B = 64, 64-byte entries): random starts (seams included),
+    counts and lane masks: the largest error."""
+    cfg, G = txn_bench_config(), TXN_G
+    C, B, R = cfg.log_capacity, cfg.batch_size, cfg.rows
+    M = R * cfg.shard_words
+    buf = dev_rand(rng, (G, C, M), dev)
+    err = 0
+    for i in range(n):
+        win = dev_rand(rng, (G, B, M), dev)
+        starts = rng.integers(0, C, G)
+        if i % 4 == 0:
+            starts[:] = C - rng.integers(1, B, G)    # across the seam
+        counts = rng.integers(0, B + 1, G)
+        err = max(err, k5_case(dev, buf, win, starts, counts,
+                               lane_masks(rng, G, M, R))[0])
+    return err
+
+
+def phase_txn_path(dev, card_line):
+    """The transaction tier on the card (module doc, 11i): (a) the drills,
+    card against CPU; (b) ``bench_txn``'s leg through the wire; (c) K5 at
+    the leg's shape against its plain version and timed."""
+    import faulthandler
+
+    import torch
+
+    from raft_tpu_torch.core import ring_cuda
+
+    t_phase = time.perf_counter()
+    faulthandler.enable()
+    res = {"phase": "txn_path", "card": card_line}
+
+    def step(name):
+        print(f"txn_path: {name} at "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    before = read_counters(dev)
+    with WireWatch() as watch:
+        step("the drills, card and CPU")
+        res["drills"], k5_drill = txn_drills(dev)
+        step("bench_txn's leg through the wire")
+        res["bench"] = txn_bench_run(dev)
+        print(f"txn_path: bench {json.dumps(res['bench'])}", flush=True)
+        res["watch"] = watch.check("txn bench")
+    after = read_counters(dev)
+    others = {k: after[k] - before[k] for k in ("K1", "K2", "K3", "K4")}
+    check(not any(others.values()),
+          f"the txn path launched a kernel other than K5: {others}")
+    check(res["bench"]["k5_launches"]["all"] > 0,
+          "K5 never launched behind the txn server")
+    step("K5 at the leg's shape")
+    rng = np.random.default_rng(SEED + 91)
+    res["k5_max_abs_err"] = txn_k5_cases(dev, rng)
+    check(res["k5_max_abs_err"] == 0, "K5 differs from its plain version "
+          "at bench_txn's shape")
+    res["k5_timing"] = k5_timing(txn_bench_config(), TXN_G, dev, rng,
+                                 mem_rate(card_line), 21)
+    res["k5_launches"] = {"drill": k5_drill,
+                          "bench": res["bench"]["k5_launches"]["all"]}
+    res["other_kernel_launches"] = others
+    torch.cuda.synchronize()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 #: phases ``--only=a,b`` runs alone (after the card and the build): the
 #: kernels against their plain versions, the mesh engine's (1-D and
 #: 2-D), and the resident main paths whose host code the mesh engine's
@@ -10934,7 +11290,9 @@ ONLY_PHASES = {"kernels": lambda dev: phase_kernels(ns_config(), dev),
                "chaos_path":
                lambda dev: phase_chaos_path(dev, card_query()),
                "wire_path":
-               lambda dev: phase_wire_path(dev, card_query())}
+               lambda dev: phase_wire_path(dev, card_query()),
+               "txn_path":
+               lambda dev: phase_txn_path(dev, card_query())}
 
 
 def main() -> int:
@@ -10991,6 +11349,7 @@ def main() -> int:
     planes = phase_obs_planes_path(dev, card_line)
     chaos = phase_chaos_path(dev, card_line)
     wire = phase_wire_path(dev, card_line)
+    txn = phase_txn_path(dev, card_line)
     mesh_errs = phase_mesh_kernels(cfg, ecfg, dev)
     mesh_kernel_times = time_mesh_kernels(
         cfg, dev, np.random.default_rng(SEED + 31), 21, mem_rate(card_line))
@@ -11126,6 +11485,9 @@ def main() -> int:
             by_path.update(chaos["k5_launches"])
             # the wire drill's MultiEngine (G = 2, C = 128, B = 4)
             by_path["wire_drill"] = wire["k5_launches"]["drill"]
+            # the txn drills' sharded MultiEngine (G = 4, C = 256, B = 4;
+            # two shards of the card)
+            by_path["txn_drill"] = txn["k5_launches"]["drill"]
         kernels.append({
             "name": f"K5 write_window_cols ({label})", "route": "cuda",
             "source": "raft_tpu_torch/csrc/ring.cu",
@@ -11137,6 +11499,19 @@ def main() -> int:
             "bound_by": "bytes", "library_ms": t["library_ms"],
             "library_is": LIBRARY_IS["K5"], "matches_plain": True,
         })
+    # K5 behind the txn server at bench_txn's shape, timed at that shape
+    t = txn["k5_timing"]
+    kernels.append({
+        "name": "K5 write_window_cols (multi-Raft G=4 txn bench)",
+        "route": "cuda", "source": "raft_tpu_torch/csrc/ring.cu",
+        "replaces": "raft_tpu/core/ring_pallas.py:208",
+        "launches": txn["k5_launches"]["bench"],
+        "launches_by_path": {"txn_bench": txn["k5_launches"]["bench"]},
+        "max_abs_err": txn["k5_max_abs_err"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": "bytes", "library_ms": t["library_ms"],
+        "library_is": LIBRARY_IS["K5"], "matches_plain": True,
+    })
     emit({"kernels": kernels})
     print(card_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

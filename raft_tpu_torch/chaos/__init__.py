@@ -23,13 +23,14 @@ property users actually observe).
 - ``chaos.runner``    — ``torture_run`` / ``torture_run_multi``: the
   end-to-end loop, reported with a one-line seed repro; plus the
   deterministic ``overload_run``, ``reconfig_run``,
-  ``segment_storage_run``, ``reads_run`` and ``migration_run`` drills.
+  ``segment_storage_run``, ``reads_run`` and ``migration_run`` drills,
+  and ``txn_run``, the cross-group transaction drill.
 
 Every run is the JAX runner's seed for seed (the same draws, nemesis
 log, history and report), on the card unless ``device="cpu"``; the wire
 drill (``wire_run``) runs over the port's net tier and is held by its
-checker verdict and invariants. The transaction and cluster drills are
-not ported yet (ROADMAP A17c–d).
+checker verdict and invariants. The cluster drills are not ported yet
+(ROADMAP A17d).
 
 One-command repro of any run: ``python -m raft_tpu_torch.chaos --seed N``.
 """
@@ -50,6 +51,7 @@ from raft_tpu_torch.chaos.runner import (
     ReconfigReport,
     SegmentReport,
     TortureReport,
+    TxnReport,
     WireReport,
     migration_run,
     overload_run,
@@ -59,6 +61,7 @@ from raft_tpu_torch.chaos.runner import (
     segment_storage_run,
     torture_run,
     torture_run_multi,
+    txn_run,
     wire_run,
 )
 from raft_tpu_torch.chaos.storage import MirroredStore
@@ -81,6 +84,7 @@ __all__ = [
     "ReconfigReport",
     "SegmentReport",
     "TortureReport",
+    "TxnReport",
     "WireReport",
     "migration_run",
     "overload_run",
@@ -90,6 +94,7 @@ __all__ = [
     "segment_storage_run",
     "torture_run",
     "torture_run_multi",
+    "txn_run",
     "wire_run",
     "MirroredStore",
     "ChaosTransport",

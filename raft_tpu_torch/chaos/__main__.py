@@ -9,10 +9,10 @@ invocation a failing run's report names as its repro.
 The flags, their checks and the result lines are JAX's. ``--device``
 picks the engines' device: the card unless ``cpu`` is named (no fallback
 when no card is found). ``--wire`` runs the wire drill over the port's
-net tier. The transaction and cluster drills are not ported yet:
-``--txn`` (ROADMAP A17c) and ``--cluster``, ``--cluster-storage`` and
-``--cluster-net`` (A17d) exit with a message naming the item, after
-JAX's own argument checks.
+net tier; ``--txn`` the transaction drill on two shards of ``--device``,
+as ``--migration`` does. The cluster drills are not ported yet:
+``--cluster``, ``--cluster-storage`` and ``--cluster-net`` (ROADMAP A17d)
+exit with a message naming the item, after JAX's own argument checks.
 """
 
 from __future__ import annotations
@@ -29,13 +29,13 @@ from raft_tpu_torch.chaos.runner import (
     segment_storage_run,
     torture_run,
     torture_run_multi,
+    txn_run,
     wire_run,
 )
 
 #: the drills of the JAX CLI that wait for their tier: flag -> what the
 #: exit names
 NOT_PORTED = (
-    ("txn", "--txn", "A17c (the txn tier and txn_run)"),
     ("cluster", "--cluster", "A17d (the cluster tier and cluster_run)"),
     ("cluster_storage", "--cluster-storage",
      "A17d (the cluster tier and cluster_storage_run)"),
@@ -45,8 +45,8 @@ NOT_PORTED = (
 
 
 def _two_shards(device):
-    """The migration drill's mesh: two shards of one device (the card's
-    first unless ``device`` names another)."""
+    """The migration and txn drills' mesh: two shards of one device (the
+    card's first unless ``device`` names another)."""
     import torch
 
     from raft_tpu_torch.transport.device import resolve_device
@@ -417,6 +417,47 @@ def main(argv=None) -> int:
             return 2
 
     ok = True
+    if args.txn:
+        for seed in range(args.seed, args.seed + args.sweep):
+            rep = txn_run(
+                seed, n_groups=args.groups, broken=args.broken,
+                step_budget=args.step_budget,
+                bundle_dir=args.bundle_dir,
+                blackbox_dir=args.blackbox_dir,
+                extra_nemeses=args.txn_extra,
+                lease_reads=args.txn_lease_reads,
+                device=args.device, mesh=_two_shards(args.device),
+            )
+            print(rep.summary())
+            print(json.dumps({
+                "seed": seed,
+                "verdict": rep.verdict,
+                "singles": rep.singles.verdict,
+                "txns": rep.txns,
+                "committed": rep.committed,
+                "aborted": rep.aborted,
+                "unresolved": rep.unresolved,
+                "conflicts": rep.conflicts,
+                "single_ops": rep.single_ops,
+                "conserved_ok": rep.conserved_ok,
+                "moves": rep.moves,
+                "nemeses": rep.nemeses,
+                "broken": rep.broken,
+                "commit_digest": rep.commit_digest,
+                "bundle": rep.bundle_path,
+                "read_certs": rep.read_certs,
+            }), flush=True)
+            if args.broken:
+                # the flag's contract: a CAUGHT violation IS success
+                ok = ok and rep.caught
+            else:
+                ok = ok and (
+                    rep.verdict == "SERIALIZABLE"
+                    and rep.conserved_ok
+                    and rep.singles.verdict == "LINEARIZABLE"
+                    and rep.committed >= 1
+                )
+        return 0 if ok else 1
     if args.wire:
         for seed in range(args.seed, args.seed + args.sweep):
             rep = wire_run(

@@ -1,23 +1,24 @@
 """The torture runner: workload + nemesis + history + checker, end to end
-(port of ``raft_tpu/chaos/runner.py`` up to ``multi_commit_digest``).
+(port of ``raft_tpu/chaos/runner.py`` up to ``txn_run``).
 
 The port runs JAX's runners seed for seed over its own engines: every
 random draw, nemesis line, history record and report field is the JAX
 runner's. What differs is where they run: every runner takes
 ``device=`` (CUDA unless ``"cpu"`` is named; off the card it raises, it
-never falls back), and ``torture_run_multi`` and ``migration_run`` take
-``mesh=`` (a ``transport.GroupMesh``; two shards of one device,
-``GroupMesh(["cuda:0", "cuda:0"])`` or ``GroupMesh(["cpu", "cpu"])``,
-stand in for JAX's two devices). A crash cycle hands the dead engine's
-rings, staging buffer and CUDA graphs to the restored one
+never falls back), and ``torture_run_multi``, ``migration_run`` and
+``txn_run`` take ``mesh=`` (a ``transport.GroupMesh``; two shards of one
+device, ``GroupMesh(["cuda:0", "cuda:0"])`` or ``GroupMesh(["cpu",
+"cpu"])``, stand in for JAX's two devices). A crash cycle hands the
+dead engine's rings, staging buffer and CUDA graphs to the restored one
 (``SingleDeviceTransport.release``; ``core.graphs`` keeps the pool), so
 on the card a restore captures no graph anew, as JAX's process-wide
 program cache compiles nothing anew; ``torture_run`` releases its last
 engine too, for the next run of the shape. ``wire_run`` drives the same
 multi-Raft stack through the port's wire tier (``raft_tpu_torch.net``)
-over real loopback sockets. The rest of the JAX module is not ported
-yet: ``txn_run`` (ROADMAP A17c) and the cluster drills ``cluster_run``,
-``cluster_storage_run`` and ``cluster_net_run`` (A17d).
+over real loopback sockets, and ``txn_run`` the transaction tier
+(``raft_tpu_torch.txn``) over a sharded one. The rest of the JAX module
+is not ported yet: the cluster drills ``cluster_run``,
+``cluster_storage_run`` and ``cluster_net_run`` (ROADMAP A17d).
 
 
 ``torture_run`` drives a single-group ``RaftEngine`` (with a recorded
@@ -2973,3 +2974,631 @@ def wire_run(
 
             print(f"wire bundle not written: {ex}", file=sys.stderr)
     return rep
+
+
+# ------------------------------------------------- transaction drill
+@dataclasses.dataclass
+class TxnReport:
+    """Result of :func:`txn_run` — the cross-group transaction
+    acceptance drill (docs/TXN.md): a transactional transfer workload
+    (conserved account sum) over a sharded ``MultiEngine`` with
+    single-key traffic alongside on a DISJOINT keyspace, under a
+    composed nemesis — leader kill, partition, one ``migrate_group``
+    mid-transaction — plus an abandoned-coordinator TTL case and a
+    deliberately racing pair. ``check`` is the serializability witness
+    verification (``chaos.checker.check_serializable``); ``singles``
+    grades the single-key history with the linearizability checker.
+
+    ``broken="txn_partial_commit"`` (coordinator commits after a
+    failed prewrite) and ``broken="txn_dirty_read"`` (reads serve
+    staged intents) must be CAUGHT: verdict VIOLATION, or the
+    conserved-sum invariant broken."""
+
+    seed: int
+    check: CheckResult
+    singles: CheckResult
+    txns: int
+    committed: int
+    aborted: int
+    unresolved: int
+    conflicts: int
+    single_ops: int
+    conserved_ok: bool
+    expected_total: int
+    observed_total: int
+    moves: List[dict]
+    nemeses: List[str]
+    broken: Optional[str]
+    repro: str
+    commit_digest: str = ""
+    bundle_path: Optional[str] = None
+    read_certs: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    @property
+    def verdict(self) -> str:
+        return self.check.verdict
+
+    @property
+    def caught(self) -> bool:
+        """For ``broken=`` variants: did the harness call it wrong?
+        Either the witness verification finds a VIOLATION or the
+        application-level conserved-sum invariant broke (the blind
+        dirty-read path shows up there when the poisoned basis is not
+        in the witness)."""
+        return self.check.verdict == VIOLATION or not self.conserved_ok
+
+    def summary(self) -> str:
+        return (
+            f"seed={self.seed} verdict={self.verdict} "
+            f"txns={self.txns} committed={self.committed} "
+            f"aborted={self.aborted} conflicts={self.conflicts} "
+            f"conserved={self.conserved_ok} "
+            f"singles={self.singles.verdict} moves={len(self.moves)}"
+            + (f" broken={self.broken} caught={self.caught}"
+               if self.broken else "")
+        )
+
+
+def txn_run(
+    seed: int,
+    n_groups: int = 4,
+    accounts: int = 6,
+    cfg: Optional[RaftConfig] = None,
+    broken: Optional[str] = None,
+    step_budget: int = 500_000,
+    bundle_dir: Optional[str] = None,
+    blackbox_dir: Optional[str] = None,
+    extra_nemeses: bool = False,
+    lease_reads: bool = False,
+    device=None,
+    mesh=None,
+) -> TxnReport:
+    """The deterministic transaction drill (``--txn``). Scripted
+    phases, every choice seeded:
+
+    1. seed transaction (every account <- 100) + validated transfers;
+    2. abandoned coordinator: a transaction's handle is dropped after
+       prewrite — its replicated locks sit until the TTL expires, and
+       the next writer's status-check kicks the resolver (DECIDE-abort,
+       first-decision-wins); a BLIND transfer (no wire expects; its
+       read basis recorded in the witness) then lands on the freed
+       keys — the ``txn_dirty_read`` store poisons that basis with the
+       aborted transaction's staged intents, which the witness replay
+       must reject;
+    3. racing pair: two transfers sharing an account begun
+       back-to-back, so BOTH prewrite and log order picks the lock
+       winner — the loser must abort (``txn_partial_commit`` commits
+       it anyway: a cross-group atomicity violation the replay / end
+       state comparison must catch);
+    4. leader kill mid-transaction (recovered), partition of a
+       participant group mid-transaction (healed), and ONE
+       ``migrate_group`` of a participant group mid-transaction —
+       the coordinator rides typed refusals through all three;
+    5. quiesce: unresolved records settle from the replicated decision
+       map, every account is read back (``final_state``), the
+       conserved-sum invariant is checked, and the witness + the
+       single-key history are graded.
+
+    Single-key traffic runs throughout on a DISJOINT keyspace
+    (``k*`` vs ``a*``): lock-oblivious plain writes landing inside a
+    lock window would genuinely break strict serializability, which is
+    a documented property of the mixed deployment (docs/TXN.md), not a
+    bug this drill should trip over.
+
+    ``extra_nemeses=True`` composes the round-16 remainder nemeses
+    into the same run (phase 4b): ``mem_replace`` (MultiEngine runs
+    fixed membership, so the replace window is the honest
+    approximation — a participant follower fails for a window and a
+    "replacement" rejoins on the same row via catch-up), a
+    ``wire_slow`` induced-slow-follower window (the wire fault the
+    mesh transport can express: traffic received, nothing appended),
+    and an open-loop ``overload`` burst through the admission gate on
+    the single-key plane — each landing mid-transaction or against
+    live lock traffic, named in ``nemeses``.
+
+    ``lease_reads=True`` arms the read-plane lease path
+    (``cfg.read_lease`` + prevote) and routes every transfer's basis
+    read through :meth:`TxnCoordinator.validated_read`: the expects a
+    transaction validates under its locks anchor to a leader-certified
+    read index — zero quorum rounds when the participant leader holds
+    a valid lease — instead of the bare applied map. ``read_certs``
+    on the report counts the certification classes ridden.
+
+    The run needs a sharded ``MultiEngine`` (``transport="mesh_groups"``),
+    as ``migration_run`` does: ``mesh=`` is a ``transport.GroupMesh`` of
+    two or more shards, which may repeat one device (two shards of
+    ``cuda:0`` on one card, of ``cpu`` in the tests), and ``device`` is
+    the engine's (CUDA unless ``"cpu"``; off the card it raises)."""
+    from raft_tpu_torch.chaos.checker import (
+        SERIALIZABLE,
+        TxnRecord,
+        check_serializable,
+    )
+    from raft_tpu_torch.chaos.history import FAIL, INFO, OK
+    from raft_tpu_torch.multi.engine import MultiEngine, NotLeader, ReadLagging
+    from raft_tpu_torch.multi.router import Router
+    from raft_tpu_torch.txn import TxnCoordinator, TxnItem, TxnShardedKV
+    from raft_tpu_torch.txn import ops as _T
+
+    with blackbox.journal_for(f"txn_seed{seed}", blackbox_dir):
+        blackbox.mark("txn_run", seed=seed, n_groups=n_groups,
+                      broken=broken or "")
+        base = cfg or RaftConfig(
+            n_replicas=3, entry_bytes=32, batch_size=4,
+            log_capacity=256, transport="mesh_groups", seed=seed,
+            # the lease path rests on §9.6 leader stickiness — read_lease
+            # refuses to arm without prevote (config.py validation)
+            prevote=lease_reads, read_lease=lease_reads,
+            # the overload window needs a gate that can actually shed:
+            # a write-depth bound far above steady drill traffic but
+            # inside the burst's open-loop spill
+            admission_max_writes=(12 if extra_nemeses else None),
+        )
+        eng = MultiEngine(base, n_groups, mesh=mesh, device=device)
+        if eng.n_shards < 2:
+            raise RuntimeError(
+                "txn_run needs a sharded layout (>= 2 devices for the "
+                f"gshard axis; engine degraded to {eng.transport_mode!r})"
+            )
+        router = Router(eng, drive=False)
+        skv = TxnShardedKV(
+            eng, router,
+            broken=(broken if broken == "txn_dirty_read" else None),
+        )
+        eng.seed_leaders()
+        hb = base.heartbeat_period
+        coord = TxnCoordinator(
+            skv, decision_group=0, ttl_s=40.0 * hb,
+            broken=(broken if broken == "txn_partial_commit" else None),
+            lease_reads=lease_reads,
+        )
+        rng = random.Random(f"txn-drill:{seed}")
+        acct = [b"a%d" % i for i in range(accounts)]
+        skeys = [b"k%d" % i for i in range(6)]
+        history = History()
+        records: List[TxnRecord] = []
+        inflight: List[tuple] = []
+        moves: List[dict] = []
+        nemeses: List[str] = []
+        conflicts = 0
+        single_count = [0]
+        _single_pending: List[tuple] = []
+
+        def now() -> float:
+            return eng.clock.now
+
+        def poll_inflight() -> None:
+            nonlocal inflight
+            keep = []
+            for rec, h in inflight:
+                if coord.poll(h, now()):
+                    _finish(rec, h)
+                else:
+                    keep.append((rec, h))
+            inflight = keep
+            done = [p for p in _single_pending
+                    if eng.is_durable(*p[1])]
+            for rec, handle in done:
+                rec.ok(history.stamp(now()))
+                _single_pending.remove((rec, handle))
+
+        def _finish(rec: TxnRecord, h) -> None:
+            rec.complete_t = history.stamp(now())
+            if h.status == "committed":
+                d = skv.decision(h.txn_id)
+                rec.status, rec.pos = OK, (d[2] if d else None)
+            else:
+                rec.status = FAIL
+
+        def drive(seconds: float) -> None:
+            t_end = now() + seconds
+            while now() < t_end:
+                eng.run_for(2 * hb)
+                coord.poll_all(now())
+                poll_inflight()
+
+        def single_op() -> None:
+            """One plain op on the disjoint keyspace, recorded in the
+            single-key history (mixed traffic: the txn plane must not
+            break the non-transactional path)."""
+            key = rng.choice(skeys)
+            single_count[0] += 1
+            if rng.random() < 0.3:
+                rec = history.invoke(7000 + single_count[0], READ, key,
+                                     None, now())
+                try:
+                    g, idx = router.read_index(key)
+                except Exception:
+                    rec.fail(history.stamp(now()))
+                    return
+                if skv.last_applied[g] < idx:
+                    drive(2 * hb)
+                if skv.last_applied[g] < idx:
+                    rec.fail(history.stamp(now()))
+                else:
+                    rec.ok(history.stamp(now()), skv.get(key))
+                return
+            value = b"s%d" % single_count[0]
+            rec = history.invoke(7000 + single_count[0], WRITE, key,
+                                 value, now())
+            try:
+                handle = skv.set(key, value)
+            except (NotLeader, Overloaded):
+                rec.fail(history.stamp(now()))
+                return
+            _single_pending.append((rec, handle))
+
+        def begin_txn(writes, expects, wire_expects=True,
+                      witness_expects=None, limit_s=600.0):
+            """Open one transaction under the drill's retry loop.
+            ``expects`` go to the coordinator (validated under locks)
+            only when ``wire_expects``; the WITNESS records
+            ``witness_expects`` (default: the validated set) — a blind
+            transaction's observed read basis still obligates the
+            serial order even though the server never certified it."""
+            nonlocal conflicts
+            rec = TxnRecord(
+                txn_id=0, writes=dict(writes),
+                expects=dict(witness_expects if witness_expects
+                             is not None else expects),
+                status=INFO, pos=None,
+                invoke_t=history.stamp(now()),
+            )
+            items = []
+            for k, v in writes.items():
+                it = TxnItem(k, value=v, delete=v is None)
+                if wire_expects and k in expects:
+                    it.has_expect, it.expect = True, expects[k]
+                items.append(it)
+            deadline = now() + limit_s
+            while True:
+                try:
+                    h = coord.begin(items)
+                    break
+                except _T.LockConflict as ex:
+                    conflicts += 1
+                    drive(max(ex.retry_after_s, 2 * hb))
+                except (NotLeader, Overloaded):
+                    drive(4 * hb)
+                if now() > deadline:
+                    rec.status = FAIL
+                    records.append(rec)
+                    return rec, None
+            rec.txn_id = h.txn_id
+            records.append(rec)
+            inflight.append((rec, h))
+            return rec, h
+
+        def settle(*handles, limit_s=600.0) -> None:
+            deadline = now() + limit_s
+            while any(not h.done for h in handles if h is not None):
+                if now() > deadline:
+                    break
+                drive(4 * hb)
+
+        def bal(key: bytes) -> Optional[bytes]:
+            """A transfer's basis read. With ``lease_reads`` armed it
+            goes through the coordinator's validated path (certified
+            read index, zero rounds under a valid lease), riding out
+            elections and apply lag like any router read; otherwise
+            the plain applied read the drill always used."""
+            for _ in range(80):
+                try:
+                    return coord.validated_read(key)
+                except (NotLeader, ReadLagging):
+                    drive(4 * hb)
+            return skv.get(key)
+
+        def transfer(src: bytes, dst: bytes, mid=None):
+            """One validated transfer src -> dst: read both balances,
+            expect them under the locks, write the moved amounts.
+            ``mid`` (if given) fires between prewrite and settle — how
+            the drill lands a nemesis INSIDE a transaction window."""
+            amt = rng.randint(1, 9)
+            bs, bd = bal(src), bal(dst)
+            writes = {
+                src: str(int(bs or b"0") - amt).encode(),
+                dst: str(int(bd or b"0") + amt).encode(),
+            }
+            rec, h = begin_txn(writes, {src: bs, dst: bd})
+            if h is not None and mid is not None:
+                mid(h)
+            if h is not None:
+                settle(h)
+            single_op()
+            return rec, h
+
+        # ---- phase 1: seed + baseline --------------------------------
+        blackbox.mark("txn_phase", name="seed")
+        _, h0 = begin_txn({a: b"100" for a in acct}, {})
+        settle(h0)
+        if h0 is None or h0.status != "committed":
+            raise RuntimeError("txn_run could not seed the accounts")
+        for _ in range(3):
+            i = rng.randrange(3, accounts)
+            j = rng.randrange(3, accounts)
+            while j == i:
+                j = rng.randrange(3, accounts)
+            transfer(acct[i], acct[j])
+
+        # ---- phase 2: abandoned coordinator + TTL + blind basis ------
+        blackbox.mark("txn_phase", name="abandon")
+        ab_amt = rng.randint(1, 9)
+        ab_rec, ab_h = begin_txn(
+            {acct[0]: str(100 - ab_amt).encode(),
+             acct[1]: str(100 + ab_amt).encode()},
+            {acct[0]: bal(acct[0]), acct[1]: bal(acct[1])},
+        )
+        if ab_h is not None:
+            # the coordinator dies here: drop the handle unpolled — its
+            # locks must resolve via TTL + status-check, not our help
+            inflight.remove((ab_rec, ab_h))
+        drive(6 * hb)                     # prewrites apply, locks live
+        for _ in range(2):                # traffic AWAY from a0..a2
+            i = rng.randrange(3, accounts)
+            j = rng.randrange(3, accounts)
+            while j == i:
+                j = rng.randrange(3, accounts)
+            transfer(acct[i], acct[j])
+        drive(45.0 * hb)                  # past the lock TTL
+        # blind transfer a0 -> a2: basis read NOW (an expired foreign
+        # lock still sits on a0 — the dirty-read store serves its
+        # staged, never-committed intent), written WITHOUT server-side
+        # expects, basis recorded in the witness
+        b0, b2 = bal(acct[0]), bal(acct[2])
+        blind_amt = rng.randint(1, 9)
+        _, bh = begin_txn(
+            {acct[0]: str(int(b0 or b"0") - blind_amt).encode(),
+             acct[2]: str(int(b2 or b"0") + blind_amt).encode()},
+            {}, wire_expects=False,
+            witness_expects={acct[0]: b0, acct[2]: b2},
+        )
+        settle(bh)
+
+        # ---- phase 3: racing pair ------------------------------------
+        blackbox.mark("txn_phase", name="race")
+        r_amt = rng.randint(1, 9)
+        ba3, ba4, ba5 = bal(acct[3]), bal(acct[4]), bal(acct[5])
+        _, rh1 = begin_txn(
+            {acct[3]: str(int(ba3 or b"0") - r_amt).encode(),
+             acct[4]: str(int(ba4 or b"0") + r_amt).encode()},
+            {acct[3]: ba3, acct[4]: ba4},
+        )
+        # begun back-to-back: rh1's locks are not APPLIED yet, so the
+        # conflict check passes and BOTH prewrite — log order picks
+        # the a4 lock winner, the loser must abort (lock_lost)
+        _, rh2 = begin_txn(
+            {acct[4]: str(int(ba4 or b"0") - r_amt).encode(),
+             acct[5]: str(int(ba5 or b"0") + r_amt).encode()},
+            {acct[4]: ba4, acct[5]: ba5},
+        )
+        settle(rh1, rh2)
+
+        # ---- phase 4: nemeses mid-transaction ------------------------
+        blackbox.mark("txn_phase", name="nemesis")
+        killed: List[tuple] = []
+        parted: List[int] = []
+
+        def kill_mid(h) -> None:
+            g = h.groups[0]
+            r = eng.leader_id[g]
+            if r is None:
+                r = 0
+            r = int(r)
+            eng.fail(g, r)
+            killed.append((g, r))
+            nemeses.append(f"kill g{g} r{r}")
+            blackbox.mark("txn_nemesis", kind="kill", group=g, replica=r)
+
+        def part_mid(h) -> None:
+            g = h.groups[-1]
+            r = eng.leader_id[g]
+            if r is None:
+                r = 0
+            r = int(r)
+            rest = [x for x in range(base.n_replicas) if x != r]
+            eng.partition(g, [[r], rest])
+            parted.append(g)
+            nemeses.append(f"partition g{g} leader {r} alone")
+            blackbox.mark("txn_nemesis", kind="partition", group=g)
+
+        def move_mid(h) -> None:
+            g = h.groups[0]
+            mv = eng.migrate_group(g, (eng.shard_of(g) + 1)
+                                   % eng.n_shards)
+            if mv is not None:
+                moves.append(mv)
+                nemeses.append(f"migrate g{g} -> shard {mv['dst']}")
+            blackbox.mark("txn_nemesis", kind="migrate", group=g,
+                          ok=mv is not None)
+
+        i, j = rng.randrange(accounts), rng.randrange(accounts)
+        while j == i:
+            j = rng.randrange(accounts)
+        transfer(acct[i], acct[j], mid=kill_mid)
+        for g, r in killed:
+            eng.recover(g, r)
+        transfer(acct[j], acct[i])
+
+        i, j = rng.randrange(accounts), rng.randrange(accounts)
+        while j == i:
+            j = rng.randrange(accounts)
+        transfer(acct[i], acct[j], mid=part_mid)
+        for g in parted:
+            eng.heal_partition(g)
+        transfer(acct[j], acct[i])
+
+        i, j = rng.randrange(accounts), rng.randrange(accounts)
+        while j == i:
+            j = rng.randrange(accounts)
+        transfer(acct[i], acct[j], mid=move_mid)
+        for _ in range(2):
+            i = rng.randrange(accounts)
+            j = rng.randrange(accounts)
+            while j == i:
+                j = rng.randrange(accounts)
+            transfer(acct[i], acct[j])
+
+        # ---- phase 4b: round-16 remainder nemeses (opt-in) -----------
+        if extra_nemeses:
+            blackbox.mark("txn_phase", name="nemesis_extra")
+
+            def _pick_pair():
+                a = rng.randrange(accounts)
+                b = rng.randrange(accounts)
+                while b == a:
+                    b = rng.randrange(accounts)
+                return a, b
+
+            # mem_replace: MultiEngine runs FIXED membership, so the
+            # replace window is approximated the only honest way the
+            # layer allows — a participant FOLLOWER fails mid-txn (the
+            # removed voter) and the "replacement" rejoins on the same
+            # row via log catch-up. Quorum survives (2/3 up), so the
+            # transaction must ride it out, not abort.
+            replaced: List[tuple] = []
+
+            def replace_mid(h) -> None:
+                g = h.groups[0]
+                lead = eng.leader_id[g]
+                r = next(
+                    (x for x in range(base.n_replicas)
+                     if x != lead and eng.alive[g, x]),
+                    None,
+                )
+                if r is None:
+                    return
+                eng.fail(g, r)
+                replaced.append((g, r))
+                nemeses.append(
+                    f"mem_replace g{g} r{r} (fixed-membership window)"
+                )
+                blackbox.mark("txn_nemesis", kind="mem_replace",
+                              group=g, replica=r)
+
+            i, j = _pick_pair()
+            transfer(acct[i], acct[j], mid=replace_mid)
+            drive(6 * hb)
+            for g, r in replaced:
+                eng.recover(g, r)
+            transfer(acct[j], acct[i])
+
+            # wire fault: the induced-slow follower — the wire-level
+            # fault the mesh transport expresses (traffic received,
+            # nothing appended, matchIndex goes stale) — for a window
+            # spanning a transaction's prewrite/validate.
+            slowed: List[tuple] = []
+
+            def wire_mid(h) -> None:
+                g = h.groups[-1]
+                lead = eng.leader_id[g]
+                r = next(
+                    (x for x in range(base.n_replicas) if x != lead),
+                    0,
+                )
+                eng.set_slow(g, r, True)
+                slowed.append((g, r))
+                nemeses.append(f"wire_slow g{g} r{r}")
+                blackbox.mark("txn_nemesis", kind="wire_slow",
+                              group=g, replica=r)
+
+            i, j = _pick_pair()
+            transfer(acct[i], acct[j], mid=wire_mid)
+            drive(8 * hb)
+            for g, r in slowed:
+                eng.set_slow(g, r, False)
+            transfer(acct[j], acct[i])
+
+            # overload window: an open-loop burst on the single-key
+            # plane — submits queue faster than the drill drives, the
+            # admission gate refuses the spill (typed), lock traffic
+            # keeps flowing underneath.
+            burst, refused = 64, 0
+            for _ in range(burst):
+                key = rng.choice(skeys)
+                single_count[0] += 1
+                value = b"o%d" % single_count[0]
+                rec = history.invoke(7000 + single_count[0], WRITE,
+                                     key, value, now())
+                try:
+                    handle = skv.set(key, value)
+                except (NotLeader, Overloaded, _T.LockConflict):
+                    refused += 1
+                    rec.fail(history.stamp(now()))
+                else:
+                    _single_pending.append((rec, handle))
+            nemeses.append(f"overload burst {burst} "
+                           f"({refused} refused)")
+            blackbox.mark("txn_nemesis", kind="overload",
+                          submitted=burst, refused=refused)
+            drive(12 * hb)
+            i, j = _pick_pair()
+            transfer(acct[i], acct[j])
+
+        # ---- phase 5: quiesce + grade --------------------------------
+        blackbox.mark("txn_phase", name="quiesce")
+        for g in range(eng.G):
+            eng.heal_partition(g)
+            for r in range(base.n_replicas):
+                if not eng.alive[g, r]:
+                    eng.recover(g, r)
+        for g in range(eng.G):
+            eng.run_until_leader(g, limit=3000.0)
+        deadline = now() + 600.0
+        while (inflight or coord._resolves) and now() < deadline:
+            drive(4 * hb)
+        drive(8 * hb)
+        # unresolved records settle from the REPLICATED decision map —
+        # the same authority a restarted coordinator replays
+        for rec in records:
+            if rec.status == INFO:
+                d = skv.decision(rec.txn_id)
+                if d is not None:
+                    rec.status = OK if d[0] else FAIL
+                    rec.pos = d[2] if d[0] else None
+        history.close()
+        final_state = {a: skv.get(a) for a in acct
+                       if skv.get(a) is not None}
+        observed = sum(int(v) for v in final_state.values())
+        expected_total = 100 * accounts
+        conserved_ok = observed == expected_total
+        blackbox.mark("txn_check", txns=len(records),
+                      observed=observed, expected=expected_total)
+        check = check_serializable(records, final_state=final_state,
+                                   initial={})
+        singles = check_history(history, step_budget=step_budget)
+        blackbox.mark("txn_done", verdict=check.verdict,
+                      singles=singles.verdict)
+
+    committed = sum(1 for r in records if r.status == OK)
+    aborted = sum(1 for r in records if r.status == FAIL)
+    unresolved = sum(1 for r in records if r.status == INFO)
+    repro = (
+        f"python -m raft_tpu_torch.chaos --txn --seed {seed}"
+        + (f" --broken {broken}" if broken else "")
+        + (" --txn-extra" if extra_nemeses else "")
+        + (" --txn-lease-reads" if lease_reads else "")
+    )
+    shim = type("_Shim", (), {
+        "seed": seed, "cfg": base, "history": history, "obs": None,
+    })()
+    expected = SERIALIZABLE if broken is None else VIOLATION
+    bundle_path = _maybe_bundle(
+        "txn", shim, check, expected, repro, nemeses, bundle_dir,
+        extra={"moves": moves, "conserved_ok": conserved_ok,
+               "observed_total": observed,
+               "coordinator": coord.status_snapshot()},
+        force_unexpected=(broken is None and not conserved_ok),
+    )
+    return TxnReport(
+        seed=seed, check=check, singles=singles, txns=len(records),
+        committed=committed, aborted=aborted, unresolved=unresolved,
+        conflicts=conflicts, single_ops=single_count[0],
+        conserved_ok=conserved_ok, expected_total=expected_total,
+        observed_total=observed, moves=moves, nemeses=nemeses,
+        broken=broken, repro=repro,
+        commit_digest=multi_commit_digest(eng),
+        bundle_path=bundle_path,
+        read_certs=dict(coord.read_certs) if lease_reads else {},
+    )
+

@@ -40,10 +40,11 @@ HELLO/WELCOME without it is byte-identical to the pre-capability
 encoding, and both decoders ignore trailing bytes they do not speak —
 so pre-trace peers interoperate byte-for-byte.
 
-The TXN_* and PEER_* frames are encoded and decoded here in full; the
-server answers them only once the transaction coordinator (ROADMAP
-A17c) and the cluster's ``PeerBackend`` (A17d) are attached, and until
-then treats them as unknown kinds, as the JAX server does without them.
+The TXN_* and PEER_* frames are encoded and decoded here in full. The
+server answers the TXN_* frames once a transaction coordinator
+(``raft_tpu_torch.txn``) is attached, and the PEER_* frames once the
+cluster's ``PeerBackend`` (ROADMAP A17d) is; without them it treats them
+as unknown kinds, as the JAX server does without them.
 """
 
 from __future__ import annotations

@@ -397,11 +397,12 @@ class IngestServer:
     """The serving tier (module docstring). ``port=0`` binds an
     ephemeral port — read ``.port`` after ``await start()``.
 
-    ``txn=`` (the transaction coordinator, ROADMAP A17c) and ``peer=``
-    (the cluster's ``PeerBackend``, A17d) are not ported yet: either one
-    not None raises naming its item. Without them the server answers
-    every TXN_* and PEER_* frame as JAX's does without them: an unknown
-    kind, a connection-level ERROR and a close."""
+    ``txn=`` takes a ``raft_tpu_torch.txn.TxnCoordinator``: it arms the
+    TXN_* frames and CAP_TXN, as JAX's does. ``peer=`` (the cluster's
+    ``PeerBackend``, ROADMAP A17d) is not ported yet: not None, it raises
+    naming its item. Without a coordinator or a peer backend the server
+    answers every TXN_* and PEER_* frame as JAX's does without them: an
+    unknown kind, a connection-level ERROR and a close."""
 
     def __init__(
         self,
@@ -451,10 +452,11 @@ class IngestServer:
         #   obs.hostprof.PumpProfiler — pump-phase attribution + the
         #   coalesce/queue-age distributions (None = detached: every
         #   profiled site costs one None check)
-        if txn is not None:
-            raise NotImplementedError(
-                "IngestServer(txn=...) is not ported to raft_tpu_torch "
-                "yet: ROADMAP A17c (the txn tier and txn_run)")
+        self.txn = txn
+        #   txn.coordinator.TxnCoordinator — arms the TXN_* frames and
+        #   the CAP_TXN capability bit; the pump's sweep phase polls
+        #   in-flight transactions exactly like awaited writes (None =
+        #   the server predates transactions byte-for-byte)
         if peer is not None:
             raise NotImplementedError(
                 "IngestServer(peer=...) is not ported to raft_tpu_torch "
@@ -474,6 +476,7 @@ class IngestServer:
         self._pending: List[_Req] = []
         self._awaiting_writes: Dict[Tuple[int, int], _Req] = {}
         self._pending_reads: List[Tuple[_Req, object]] = []
+        self._pending_txns: List[Tuple[_Req, object]] = []
         self._wakeup = asyncio.Event()
         self._running = False
         self.draining = False
@@ -622,9 +625,12 @@ class IngestServer:
                 # a server with no SpanTracker cannot honor the trace
                 # capability (it would echo contexts it never
                 # recorded, handing clients bogus join hints) — so it
-                # does not advertise it; nor CAP_TXN or CAP_PEER, whose
-                # coordinator and peer backend come with A17c and A17d
+                # does not advertise it; same for CAP_TXN without a
+                # coordinator to run the frames (CAP_PEER's backend comes
+                # with ROADMAP A17d)
                 speak = P.CAP_TRACE if self.spans is not None else 0
+                if self.txn is not None:
+                    speak |= P.CAP_TXN
                 conn.caps = caps & speak
                 entry_bytes, groups = self.backend.meta()
                 self._send(conn, P.encode_welcome(
@@ -647,10 +653,33 @@ class IngestServer:
                 req = _Req(conn, kind, req_id, key, cls=cls,
                            trace=trace)
                 self._count_request("read")
+            elif kind in (P.TXN_BEGIN, P.TXN_COMMIT, P.TXN_ABORT,
+                          P.TXN_STATUS) and self.txn is not None:
+                # a server WITHOUT a coordinator never advertised
+                # CAP_TXN, so these kinds fall to the unknown-kind
+                # close below — the additive-capability contract
+                if kind == P.TXN_BEGIN:
+                    req_id = P.decode_txn_begin(payload)
+                    req = _Req(conn, kind, req_id, b"", trace=trace)
+                elif kind == P.TXN_COMMIT:
+                    req_id, txn_id, writes, expects = \
+                        P.decode_txn_commit(payload)
+                    req = _Req(conn, kind, req_id, b"",
+                               value=(txn_id, writes, expects),
+                               trace=trace)
+                else:
+                    req_id, txn_id = (
+                        P.decode_txn_abort(payload)
+                        if kind == P.TXN_ABORT
+                        else P.decode_txn_status(payload)
+                    )
+                    req = _Req(conn, kind, req_id, b"", value=txn_id,
+                               trace=trace)
+                self._count_request(P.KIND_NAMES[kind])
             else:
-                # a kind we do not speak (TXN_* and PEER_* included:
-                # this server fronts neither a coordinator nor a peer
-                # backend) means the peer is desynced or newer than
+                # a kind we do not speak (PEER_* included: this server
+                # fronts no peer backend; TXN_* without a coordinator)
+                # means the peer is desynced or newer than
                 # us: per the protocol contract a
                 # connection-level ERROR CLOSES the stream (the reader
                 # loop breaks on conn.open below)
@@ -695,7 +724,7 @@ class IngestServer:
     async def _pump(self) -> None:
         while self._running:
             if not (self._pending or self._awaiting_writes
-                    or self._pending_reads):
+                    or self._pending_reads or self._pending_txns):
                 self._wakeup.clear()
                 # re-check under the cleared flag: a reader may have
                 # appended between the test above and the clear
@@ -776,6 +805,9 @@ class IngestServer:
                     self._ingest_submit(req)
                 elif req.kind == P.SUBMIT_BATCH:
                     self._ingest_submit_batch(req)
+                elif req.kind in (P.TXN_BEGIN, P.TXN_COMMIT,
+                                  P.TXN_ABORT, P.TXN_STATUS):
+                    self._ingest_txn(req)
                 else:
                     self._ingest_read(req)
             except Overloaded as ex:
@@ -865,6 +897,55 @@ class IngestServer:
             self._serve_read(req, out)
         else:
             self._pending_reads.append((req, out.handle))
+
+    def _ingest_txn(self, req: _Req) -> None:
+        """The transactional wire ops (gated on an attached
+        coordinator — HELLO never spoke CAP_TXN without one). BEGIN
+        answers inline: id allocation has no effect to refuse. COMMIT
+        runs the coordinator's conflict-check + prewrite fan-out —
+        LockConflict IS an Overloaded, so it rides the existing typed
+        REFUSED path (provably nothing queued) — then parks the handle
+        for the sweep phase, exactly like an awaited write. ABORT /
+        STATUS answer from the replicated decision map."""
+        txn = self.txn
+        if req.kind == P.TXN_BEGIN:
+            self._respond_txn(req, txn.allocate(), "open")
+            return
+        if req.kind == P.TXN_COMMIT:
+            from raft_tpu_torch.txn.coordinator import TxnItem
+            txn_id, writes, expects = req.value
+            items = {k: TxnItem(k, value=v, delete=v is None)
+                     for k, v in writes}
+            for k, v in expects:
+                it = items.get(k)
+                if it is None:
+                    items[k] = TxnItem(k, expect=v)
+                else:
+                    it.has_expect, it.expect = True, v
+            h = txn.begin(list(items.values()), txn_id=txn_id)
+            self._pending_txns.append((req, h))
+            return
+        # ABORT / STATUS: the decision map is the authority
+        txn_id = req.value
+        d = txn.store.decision(txn_id)
+        if d is not None:
+            self._respond_txn(req, txn_id,
+                              "committed" if d[0] else "aborted")
+        elif req.kind == P.TXN_ABORT:
+            # BEGIN placed nothing, so abandoning an uncommitted txn
+            # is trivially effect-free
+            self._respond_txn(req, txn_id, "aborted", "client_abort")
+        else:
+            self._respond_txn(req, txn_id, "unknown")
+
+    def _respond_txn(self, req: _Req, txn_id: int, status: str,
+                     reason: str = "") -> None:
+        self._finish_span(req, "ok", txn_status=status)
+        self._send(req.conn, P.encode_txn_state(
+            req.req_id, txn_id, status, reason,
+            trace=self._rtrace(req),
+        ))
+        self.responses_total += 1
 
     # ------------------------------------------------------- completions
     def _sweep_completions(self) -> None:
@@ -969,6 +1050,35 @@ class IngestServer:
             else:
                 self._serve_read(req, out)
         self._pending_reads = still
+        if self.txn is not None:
+            self.txn.poll_all(now)
+        if self._pending_txns:
+            still_t: List[Tuple[_Req, object]] = []
+            for req, h in self._pending_txns:
+                if self.txn.poll(h, now):
+                    if req.conn.open:
+                        self._respond_txn(req, h.txn_id, h.status,
+                                          h.reason)
+                elif (now - req.t_in > self.op_timeout_s
+                        or not req.conn.open):
+                    # outcome unknown to THIS request only: the
+                    # coordinator adopts the handle, so its locks
+                    # resolve without waiting out the TTL (the client
+                    # re-asks via TXN_STATUS)
+                    self.txn.adopt(h)
+                    if req.conn.open:
+                        self._finish_span(req, "info")
+                        self._send(req.conn, P.encode_error(
+                            req.req_id,
+                            "outcome unknown: transaction did not "
+                            "terminate within the op timeout",
+                            trace=self._rtrace(req),
+                        ))
+                        self.responses_total += 1
+                else:
+                    still_t.append((req, h))
+            self._pending_txns = still_t
+
     def _serve_read(self, req: _Req, out: _Done) -> None:
         req.conn.observe_floor(out.group, out.index)
         self._finish_span(req, "ok", read_class=out.cls)
@@ -1049,6 +1159,10 @@ class IngestServer:
         for req, _ in self._pending_reads:
             self._send(req.conn, P.encode_error(req.req_id, message))
         self._pending_reads = []
+        for req, h in self._pending_txns:
+            self.txn.adopt(h)
+            self._send(req.conn, P.encode_error(req.req_id, message))
+        self._pending_txns = []
         for req in self._pending:
             self._send(req.conn, P.encode_error(req.req_id, message))
         self._pending = []
@@ -1092,11 +1206,12 @@ class IngestServer:
             "draining": self.draining,
             "in_flight": (len(self._pending)
                           + len(self._awaiting_writes)
-                          + len(self._pending_reads)),
+                          + len(self._pending_reads)
+                          + len(self._pending_txns)),
             "pending_batch": len(self._pending),
             "awaiting_writes": len(self._awaiting_writes),
             "pending_reads": len(self._pending_reads),
-            "pending_txns": 0,      # the txn sweep comes with A17c
+            "pending_txns": len(self._pending_txns),
             "bytes_in": bytes_in,
             "bytes_out": bytes_out,
             "requests_total": dict(self.requests_total),
@@ -1115,3 +1230,6 @@ class IngestServer:
         if self.status_board is None:
             return
         self.status_board.publish(self.stats(), section="net")
+        if self.txn is not None:
+            self.status_board.publish(self.txn.status_snapshot(),
+                                      section="txn")

@@ -33,8 +33,9 @@ plane, in two parts:
   ``compile_sentinel_frozen``, ``check_history``, ``check_done`` and the
   drills' own marks, the wire drill's ``wire_run``, ``wire_serving``,
   ``wire_steady_done``, ``wire_leader_kill`` and ``wire_kill_ridden``
-  among them). The transaction and cluster drills' marks wait for their
-  tiers (ROADMAP A17c-d).
+  among them, and the txn drill's ``txn_run``, ``txn_phase``,
+  ``txn_nemesis``, ``txn_check`` and ``txn_done``). The cluster drills'
+  marks wait for their tier (ROADMAP A17d).
 
 - :class:`StallWatchdog` — a daemon thread that fires when no
   :meth:`StallWatchdog.pet` arrives for ``deadline_s`` seconds: it dumps

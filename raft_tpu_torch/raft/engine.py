@@ -168,11 +168,6 @@ def _pipeline_backend_ok(device) -> bool:
     return device is not None and torch.device(device).type == "cuda"
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to raft_tpu_torch yet (ROADMAP {item})")
-
-
 class LinearizableReadRefused(Exception):
     # not a RuntimeError: ReplicatedKV.linearizable_get's other failure
     # mode (the apply stream paused behind an archive gap) raises

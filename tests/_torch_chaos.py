@@ -9,8 +9,11 @@ A run's ``trace`` is every report field but the live objects (``obs``,
 ``bundle_path``, the ``repro`` string, which names its package), each
 ``CheckResult`` as (verdict, steps, key, detail), and every history the
 checker saw as one tuple an op: (client, op, key, value, invoke_t,
-complete_t, status, read_class, serve_index, ryw_floor). Two runs agree
-when their traces are equal: every field, op and virtual time.
+complete_t, status, read_class, serve_index, ryw_floor); the transaction
+drill's commit-order witness (the records ``check_serializable`` was
+handed) rides in the same list, one tuple a record and a last one with
+the final state. Two runs agree when their traces are equal: every
+field, op and virtual time.
 """
 
 from __future__ import annotations
@@ -34,6 +37,14 @@ def history_rows(history) -> list:
             for r in history.ops]
 
 
+def witness_rows(records, final_state=None, initial=None) -> list:
+    rows = [(r.txn_id, sorted(r.writes.items()), sorted(r.expects.items()),
+             r.status, r.pos, r.invoke_t, r.complete_t) for r in records]
+    rows.append(("final_state", sorted((final_state or {}).items()),
+                 sorted((initial or {}).items())))
+    return rows
+
+
 def check_tuple(c) -> tuple:
     return (c.verdict, c.steps, c.key, c.detail)
 
@@ -52,23 +63,34 @@ def _plain(v):
 def capture(runner):
     """Record every history ``runner``'s checker entry points are given
     (``check_history`` and ``check_read_classes``, as the module named
-    them at import)."""
+    them at import), and every witness ``check_serializable`` is given
+    (the txn drill imports it from the checker when it runs)."""
     seen = []
-    saved = {}
+    saved = []
     for name in ("check_history", "check_read_classes"):
         orig = getattr(runner, name)
-        saved[name] = orig
+        saved.append((runner, name, orig))
 
         def wrap(history, *a, _orig=orig, **kw):
             seen.append(history_rows(history))
             return _orig(history, *a, **kw)
 
         setattr(runner, name, wrap)
+    checker = importlib.import_module(
+        runner.__name__.rsplit(".", 1)[0] + ".checker")
+    orig_ser = checker.check_serializable
+    saved.append((checker, "check_serializable", orig_ser))
+
+    def wrap_ser(records, final_state=None, initial=None, *a, **kw):
+        seen.append(witness_rows(records, final_state, initial))
+        return orig_ser(records, final_state, initial, *a, **kw)
+
+    checker.check_serializable = wrap_ser
     try:
         yield seen
     finally:
-        for name, orig in saved.items():
-            setattr(runner, name, orig)
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
 
 
 def trace_of(rep, histories) -> dict:
@@ -94,15 +116,36 @@ def port_run(fn: str, *args, **kw) -> tuple:
     return run_traced("raft_tpu_torch", fn, *args, device="cpu", **kw)
 
 
+@contextlib.contextmanager
+def jax_devices(n):
+    """JAX's device list cut to its first ``n`` (None: all of them), as
+    a run on ``n`` devices sees it: two stand for the port's two-shard
+    ``GroupMesh``."""
+    import jax
+
+    if n is None:
+        yield
+        return
+    real = jax.devices
+    cut = real()[:n]
+    jax.devices = lambda *a, **k: cut
+    try:
+        yield
+    finally:
+        jax.devices = real
+
+
 @lru_cache(maxsize=None)
-def _jax_cached(fn, args, kw, env):
-    return run_traced("raft_tpu", fn, *args, **dict(kw))[0]
+def _jax_cached(fn, args, kw, env, devices):
+    with jax_devices(devices):
+        return run_traced("raft_tpu", fn, *args, **dict(kw))[0]
 
 
-def jax_run(fn: str, *args, **kw) -> dict:
-    """The JAX package's trace of the same call, once a worker."""
+def jax_run(fn: str, *args, devices=None, **kw) -> dict:
+    """The JAX package's trace of the same call, once a worker (on its
+    first ``devices`` devices when given)."""
     env = tuple(os.environ.get(k) for k in _ENV)
-    return _jax_cached(fn, args, tuple(sorted(kw.items())), env)
+    return _jax_cached(fn, args, tuple(sorted(kw.items())), env, devices)
 
 
 def assert_same(got: dict, want: dict) -> None:

@@ -64,22 +64,28 @@ def test_argument_errors_match_jax(argv, capsys):
 def test_unported_drills_name_their_roadmap_item(flag, item, capsys,
                                                 monkeypatch):
     """A drill whose tier is not ported exits 2 naming its item. The wire
-    drill's (A17b) is ported: ``--wire`` gets past the check and reaches
-    ``wire_run`` (stubbed here; ``test_torch_wire_drill.py`` runs the
-    drill itself)."""
+    drill's (A17b) and the txn drill's (A17c) are ported: ``--wire`` and
+    ``--txn`` get past the check and reach ``wire_run`` and ``txn_run``
+    (stubbed here; ``test_torch_wire_drill.py`` and
+    ``test_torch_txn_drill.py`` run the drills themselves), ``--txn`` on
+    two shards of ``--device``."""
     import raft_tpu_torch.chaos.__main__ as cli
 
     class Reached(Exception):
         pass
 
     def stub(seed, **kw):
-        raise Reached(seed, kw["device"])
+        mesh = kw.get("mesh")
+        raise Reached(seed, kw["device"],
+                      None if mesh is None else len(mesh.devices))
 
     monkeypatch.setattr(cli, "wire_run", stub)
-    if item == "A17b":
+    monkeypatch.setattr(cli, "txn_run", stub)
+    if item in ("A17b", "A17c"):
         with pytest.raises(Reached) as ex:
             tmain([flag, "--device", "cpu"])
-        assert ex.value.args == (0, "cpu")
+        assert ex.value.args == (
+            (0, "cpu", None) if item == "A17b" else (0, "cpu", 2))
         assert "not ported" not in capsys.readouterr().err
         return
     assert tmain([flag, "--device", "cpu"]) == 2

@@ -67,6 +67,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import raft_tpu_torch.cluster.netfault\n"
         "import raft_tpu_torch.chaos, raft_tpu_torch.chaos.runner\n"
         "import raft_tpu_torch.chaos.__main__\n"
+        "import raft_tpu_torch.txn, raft_tpu_torch.txn.ops\n"
+        "import raft_tpu_torch.txn.store, raft_tpu_torch.txn.coordinator\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax') or "
         "m == 'raft_tpu' or m.startswith(('jax.', 'raft_tpu.')))\n"
         "print(bad); sys.exit(1 if bad else 0)\n" % str(ROOT)

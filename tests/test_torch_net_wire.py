@@ -4,9 +4,9 @@ client, the deterministic ones held equal to the JAX package's run;
 interop across the packages (the port's client against JAX's server and
 JAX's client against the port's, every frame of a serial session equal
 in all four pairings); the port's ``txn_commit`` against JAX's server
-armed with JAX's own ``TxnCoordinator``; the ``txn=`` / ``peer=``
-refusals; and the TXN_* / PEER_* frames a server without them answers as
-JAX's does."""
+armed with JAX's own ``TxnCoordinator``; ``txn=`` accepted and the
+``peer=`` refusal; and the TXN_* / PEER_* frames a server without them
+answers as JAX's does."""
 
 import asyncio
 import struct
@@ -281,10 +281,13 @@ def test_txn_and_peer_frames_answered_as_jax_without_them(case):
 
 
 def test_txn_and_peer_arguments_name_their_roadmap_items():
+    """``peer=`` still waits for its tier and raises naming A17d; ``txn=``
+    (A17c, ported) arms the server (``test_torch_txn_wire.py`` drives
+    it)."""
     e = PT.engine(engine_cfg(PT))
     backend = PT.net.EngineBackend(e)
-    with pytest.raises(NotImplementedError, match="A17c"):
-        PT.net.IngestServer(backend, txn=object())
+    coord = object()
+    assert PT.net.IngestServer(backend, txn=coord).txn is coord
     with pytest.raises(NotImplementedError, match="A17d"):
         PT.net.IngestServer(backend, peer=object())
     PT.net.IngestServer(backend, txn=None, peer=None)
