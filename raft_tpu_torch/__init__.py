@@ -29,14 +29,7 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``, which
 runs the plain versions. This package never imports JAX.
 """
 
-from raft_tpu_torch.config import RaftConfig
-from raft_tpu_torch.core.state import ReplicaState, init_state
-from raft_tpu_torch.multi import MultiEngine, Router
-from raft_tpu_torch.transport import (
-    MeshTransport,
-    SingleDeviceTransport,
-    make_transport,
-)
+from raft_tpu_torch._lazy import exports
 
 __all__ = [
     "MeshTransport",
@@ -48,3 +41,12 @@ __all__ = [
     "init_state",
     "make_transport",
 ]
+
+# resolved on first use: a cluster replica imports the package without
+# PyTorch (``raft_tpu_torch._lazy``)
+__getattr__ = exports(__name__, {
+    "MeshTransport": "transport", "MultiEngine": "multi",
+    "RaftConfig": "config", "ReplicaState": "core.state",
+    "Router": "multi", "SingleDeviceTransport": "transport",
+    "init_state": "core.state", "make_transport": "transport",
+})

@@ -29,8 +29,10 @@ property users actually observe).
 Every run is the JAX runner's seed for seed (the same draws, nemesis
 log, history and report), on the card unless ``device="cpu"``; the wire
 drill (``wire_run``) runs over the port's net tier and is held by its
-checker verdict and invariants. The cluster drills are not ported yet
-(ROADMAP A17d).
+checker verdict and invariants. The cluster drills (``cluster_run``,
+``cluster_storage_run``, ``cluster_net_run`` in ``chaos.runner``) drive
+real replica processes of ``raft_tpu_torch.cluster`` and are held the
+same way: by their verdicts and receipts.
 
 One-command repro of any run: ``python -m raft_tpu_torch.chaos --seed N``.
 """

@@ -10,9 +10,10 @@ The flags, their checks and the result lines are JAX's. ``--device``
 picks the engines' device: the card unless ``cpu`` is named (no fallback
 when no card is found). ``--wire`` runs the wire drill over the port's
 net tier; ``--txn`` the transaction drill on two shards of ``--device``,
-as ``--migration`` does. The cluster drills are not ported yet:
-``--cluster``, ``--cluster-storage`` and ``--cluster-net`` (ROADMAP A17d)
-exit with a message naming the item, after JAX's own argument checks.
+as ``--migration`` does. ``--cluster``, ``--cluster-storage`` and
+``--cluster-net`` run the cluster drills over real replica processes
+(``python -m raft_tpu_torch.cluster.child``), which hold no tensor: they
+ignore ``--device``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ import json
 import sys
 
 from raft_tpu_torch.chaos.runner import (
+    cluster_net_run,
+    cluster_run,
+    cluster_storage_run,
     migration_run,
     overload_run,
     reads_run,
@@ -32,17 +36,6 @@ from raft_tpu_torch.chaos.runner import (
     txn_run,
     wire_run,
 )
-
-#: the drills of the JAX CLI that wait for their tier: flag -> what the
-#: exit names
-NOT_PORTED = (
-    ("cluster", "--cluster", "A17d (the cluster tier and cluster_run)"),
-    ("cluster_storage", "--cluster-storage",
-     "A17d (the cluster tier and cluster_storage_run)"),
-    ("cluster_net", "--cluster-net",
-     "A17d (the cluster tier and cluster_net_run)"),
-)
-
 
 def _two_shards(device):
     """The migration and txn drills' mesh: two shards of one device (the
@@ -410,13 +403,176 @@ def main(argv=None) -> int:
                  "(--broken peer_no_crc / lease_stale_round are its "
                  "only compositions)")
 
-    for attr, flag, item in NOT_PORTED:
-        if getattr(args, attr):
-            print(f"{flag} is not ported to raft_tpu_torch yet: ROADMAP "
-                  f"{item}", file=sys.stderr)
-            return 2
-
     ok = True
+    if args.cluster_net:
+        from raft_tpu_torch.cluster import ClusterBroken
+
+        for seed in range(args.seed, args.seed + args.sweep):
+            try:
+                rep = cluster_net_run(
+                    seed, nodes=args.cluster_nodes,
+                    clients=args.clients, keys=args.keys,
+                    step_budget=args.step_budget,
+                    blackbox_dir=args.blackbox_dir,
+                    broken=args.broken,
+                )
+            except ClusterBroken as ex:
+                print(json.dumps({
+                    "seed": seed, "verdict": "BROKEN_ENV",
+                    "error": str(ex).splitlines()[0],
+                }), flush=True)
+                return 1
+            print(rep.summary())
+            print(json.dumps({
+                "seed": seed,
+                "verdict": rep.verdict,
+                "per_class": {c: r.verdict
+                              for c, r in rep.per_class.items()},
+                "ops": rep.ops,
+                "op_counts": rep.op_counts,
+                "kills": rep.kills,
+                "restarts": rep.restarts,
+                "partitions": rep.partitions,
+                "frames_delayed": rep.frames_delayed,
+                "frames_dup": rep.frames_dup,
+                "frames_reordered": rep.frames_reordered,
+                "frames_replayed": rep.frames_replayed,
+                "conns_torn": rep.conns_torn,
+                "corrupt_injected": rep.corrupt_injected,
+                "corrupt_dropped": rep.corrupt_dropped,
+                "stale_round_ignored": rep.stale_round_ignored,
+                "demotions": rep.demotions,
+                "reelected": rep.reelected,
+                "reelect_s": rep.reelect_s,
+                "dialer_drops": rep.dialer_drops,
+                "redials": rep.redials,
+                "generation": rep.generation,
+                "segments_adopted": rep.segments_adopted,
+                "rejoined": rep.rejoined,
+                "digest_ok": rep.digest_ok,
+                "digest_detail": rep.digest_detail,
+                "broken": rep.broken,
+                "caught": rep.caught,
+                "caught_by": rep.caught_by,
+                "base_dir": rep.base_dir,
+            }), flush=True)
+            if args.broken:
+                # the flag's contract: a CAUGHT lie IS success
+                ok = ok and bool(rep.caught)
+            else:
+                ok = ok and (
+                    rep.verdict == "LINEARIZABLE"
+                    and rep.handoff_ok
+                    and rep.net_ok
+                )
+        return 0 if ok else 1
+    if args.cluster_storage:
+        from raft_tpu_torch.cluster import ClusterBroken
+
+        for seed in range(args.seed, args.seed + args.sweep):
+            try:
+                rep = cluster_storage_run(
+                    seed, nodes=args.cluster_nodes,
+                    clients=args.clients, keys=args.keys,
+                    step_budget=args.step_budget,
+                    blackbox_dir=args.blackbox_dir,
+                    broken=args.broken,
+                )
+            except ClusterBroken as ex:
+                print(json.dumps({
+                    "seed": seed, "verdict": "BROKEN_ENV",
+                    "error": str(ex).splitlines()[0],
+                }), flush=True)
+                return 1
+            print(rep.summary())
+            print(json.dumps({
+                "seed": seed,
+                "verdict": rep.verdict,
+                "per_class": {c: r.verdict
+                              for c, r in rep.per_class.items()},
+                "ops": rep.ops,
+                "op_counts": rep.op_counts,
+                "kills": rep.kills,
+                "restarts": rep.restarts,
+                "partitions": rep.partitions,
+                "generation": rep.generation,
+                "segments_adopted": rep.segments_adopted,
+                "segments_resealed": rep.segments_resealed,
+                "rejoined": rep.rejoined,
+                "wal_truncated": rep.wal_truncated,
+                "manifest_fallbacks": rep.manifest_fallbacks,
+                "segment_reconstructs": rep.segment_reconstructs,
+                "disk_full_sheds": rep.disk_full_sheds,
+                "stalls": rep.stalls,
+                "eio_exit": rep.eio_exit,
+                "eio_cert": rep.eio_cert,
+                "fsync_after_eio": rep.fsync_after_eio,
+                "digest_ok": rep.digest_ok,
+                "digest_detail": rep.digest_detail,
+                "broken": rep.broken,
+                "caught": rep.caught,
+                "caught_by": rep.caught_by,
+                "base_dir": rep.base_dir,
+            }), flush=True)
+            if args.broken:
+                # the flag's contract: a CAUGHT lie IS success
+                ok = ok and bool(rep.caught)
+            else:
+                ok = ok and (
+                    rep.verdict == "LINEARIZABLE"
+                    and rep.handoff_ok
+                    and rep.storage_ok
+                )
+        return 0 if ok else 1
+    if args.cluster:
+        from raft_tpu_torch.cluster import ClusterBroken
+
+        for seed in range(args.seed, args.seed + args.sweep):
+            try:
+                rep = cluster_run(
+                    seed, nodes=args.cluster_nodes,
+                    clients=args.clients, keys=args.keys,
+                    step_budget=args.step_budget,
+                    blackbox_dir=args.blackbox_dir,
+                )
+            except ClusterBroken as ex:
+                # fast-fail: the environment cannot spawn children at
+                # all — say so in the result line and stop burning time
+                print(json.dumps({
+                    "seed": seed, "verdict": "BROKEN_ENV",
+                    "error": str(ex).splitlines()[0],
+                }), flush=True)
+                return 1
+            print(rep.summary())
+            print(json.dumps({
+                "seed": seed,
+                "verdict": rep.verdict,
+                "per_class": {c: r.verdict
+                              for c, r in rep.per_class.items()},
+                "ops": rep.ops,
+                "op_counts": rep.op_counts,
+                "nodes": rep.nodes,
+                "kills": rep.kills,
+                "restarts": rep.restarts,
+                "partitions": rep.partitions,
+                "pauses": rep.pauses,
+                "flood_ops": rep.flood_ops,
+                "generation": rep.generation,
+                "segments_adopted": rep.segments_adopted,
+                "segments_resealed": rep.segments_resealed,
+                "snap_chunks_in": rep.snap_chunks_in,
+                "rejoined": rep.rejoined,
+                "incarnations": rep.incarnations,
+                "failovers": rep.failovers,
+                "base_dir": rep.base_dir,
+            }), flush=True)
+            ok = ok and (
+                rep.verdict == "LINEARIZABLE"
+                and rep.handoff_ok
+                and rep.kills >= 1
+                and rep.snap_chunks_in >= 1
+            )
+        return 0 if ok else 1
     if args.txn:
         for seed in range(args.seed, args.seed + args.sweep):
             rep = txn_run(

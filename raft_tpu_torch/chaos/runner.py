@@ -1,5 +1,5 @@
 """The torture runner: workload + nemesis + history + checker, end to end
-(port of ``raft_tpu/chaos/runner.py`` up to ``txn_run``).
+(port of ``raft_tpu/chaos/runner.py``).
 
 The port runs JAX's runners seed for seed over its own engines: every
 random draw, nemesis line, history record and report field is the JAX
@@ -16,9 +16,11 @@ program cache compiles nothing anew; ``torture_run`` releases its last
 engine too, for the next run of the shape. ``wire_run`` drives the same
 multi-Raft stack through the port's wire tier (``raft_tpu_torch.net``)
 over real loopback sockets, and ``txn_run`` the transaction tier
-(``raft_tpu_torch.txn``) over a sharded one. The rest of the JAX module
-is not ported yet: the cluster drills ``cluster_run``,
-``cluster_storage_run`` and ``cluster_net_run`` (ROADMAP A17d).
+(``raft_tpu_torch.txn``) over a sharded one. The cluster drills
+``cluster_run``, ``cluster_storage_run`` and ``cluster_net_run`` drive
+real replica processes (``raft_tpu_torch.cluster``): they take no
+``device=``, since a cluster replica is a pure host state machine that
+holds no tensor, as JAX's does.
 
 
 ``torture_run`` drives a single-group ``RaftEngine`` (with a recorded
@@ -3600,5 +3602,1544 @@ def txn_run(
         commit_digest=multi_commit_digest(eng),
         bundle_path=bundle_path,
         read_certs=dict(coord.read_certs) if lease_reads else {},
+    )
+
+
+# ------------------------------------------------- the cluster drill
+@dataclasses.dataclass
+class ClusterReport:
+    """Result of :func:`cluster_run` — the multi-process acceptance
+    drill (docs/CLUSTER.md): N REAL OS processes, each one replica
+    (``cluster.child``) on its own port, tortured with the faults the
+    in-process harness could only simulate — ``kill -9`` (the RAM tail
+    is GONE), SIGSTOP/SIGCONT, userspace partition, an open-loop write
+    burst, and restart-with-handoff on the same dirs. Every client op
+    is recorded in one ``History`` stamped by the DRIVER's monotonic
+    clock (one process, one clock — the real-time-order soundness
+    argument), so the per-class verdicts are the same currency every
+    other tier earns: LINEARIZABLE or it does not ship.
+
+    The restart evidence is the tentpole claim: the resurrected child
+    must ADOPT its prior generation's sealed segments by manifest
+    (``segments_adopted >= 1`` with ``segments_resealed == 0`` — the
+    durable work is never redone) and catch the cluster's commit via
+    the resumable snapshot stream (``snap_chunks_in >= 1``, resumed
+    from its sealed high-water mark)."""
+
+    seed: int
+    per_class: Dict[str, "CheckResult"]
+    ops: int
+    op_counts: Dict[str, int]
+    read_classes: Dict[str, int]
+    nodes: int
+    kills: int
+    restarts: int
+    partitions: int
+    pauses: int
+    flood_ops: int
+    generation: int          # restarted node's post-restart generation
+    segments_adopted: int    # sealed segments adopted via manifest
+    segments_resealed: int   # MUST stay 0: durable work never redone
+    snap_chunks_in: int      # resumable-stream chunks the rejoin rode
+    rejoined: bool           # restarted commit caught the cluster's
+    incarnations: int        # child_start marks in the victim journal
+    failovers: int           # client dead-dial failovers ridden
+    statuses: Dict[int, Optional[dict]]
+    base_dir: str            # where the forensics artifacts live
+    repro: str
+
+    @property
+    def verdict(self) -> str:
+        verdicts = [c.verdict for c in self.per_class.values()]
+        if VIOLATION in verdicts:
+            return VIOLATION
+        if any(v != LINEARIZABLE for v in verdicts):
+            return "UNDETERMINED"
+        return LINEARIZABLE
+
+    @property
+    def handoff_ok(self) -> bool:
+        """The durable-restart contract, in one bool."""
+        return (self.generation >= 2 and self.segments_adopted >= 1
+                and self.segments_resealed == 0 and self.rejoined)
+
+    def summary(self) -> str:
+        cls = {c: r.verdict for c, r in self.per_class.items()}
+        return (
+            f"seed={self.seed} classes={cls} ops={self.ops} "
+            f"procs={self.nodes} kills={self.kills} "
+            f"restarts={self.restarts} partitions={self.partitions} "
+            f"pauses={self.pauses} gen={self.generation} "
+            f"adopted={self.segments_adopted} "
+            f"resealed={self.segments_resealed} "
+            f"snap_in={self.snap_chunks_in} rejoined={self.rejoined} "
+            f"failovers={self.failovers}"
+        )
+
+
+def cluster_run(
+    seed: int,
+    nodes: int = 3,
+    clients: int = 3,
+    keys: int = 4,
+    ops_per_phase: int = 10,
+    preload: int = 96,
+    step_budget: int = 500_000,
+    base_dir: Optional[str] = None,
+    blackbox_dir: Optional[str] = None,
+) -> ClusterReport:
+    """The multi-process cluster drill (``--cluster``): spawn ``nodes``
+    real replica processes under a :class:`ClusterSupervisor`, drive
+    recorded client traffic through the wire tier, and compose the
+    process nemeses in sequence:
+
+    1. PRELOAD — enough committed writes that the hot tier spills and
+       seals segments (the durable handoff needs something to hand off);
+    2. steady traffic;
+    3. PARTITION a follower off (userspace deny-lists), keep writing on
+       the majority side, then ``kill -9`` the isolated follower — the
+       composed fault: a process that was partitioned AND died;
+    4. OVERLOAD — an open-loop burst of one-shot writers while the
+       victim is down (also widens the log gap past ``snap_threshold``,
+       so the rejoin MUST ride the resumable snapshot stream);
+    5. RESTART the victim on the same dirs + port: it adopts the prior
+       generation's sealed segments by manifest and streams the tail;
+       the drill polls its self-published status until its commit
+       catches the survivors' (the rejoin witness);
+    6. SIGSTOP a follower through live traffic, SIGCONT it (the
+       paused-not-dead partial failure), then a final read round.
+
+    Ops record ``ok``/``fail``/``info`` under the wire client's typed
+    exceptions (a mid-flight disconnect is ``info`` — the op may have
+    committed; a typed refusal is ``fail`` — provably no effect) and
+    the history is graded per read class. Raises
+    :class:`raft_tpu_torch.cluster.ClusterBroken` (fast-fail) when the
+    environment cannot spawn children at all — callers translate that
+    to a skip, not minutes of timeout burn."""
+    import asyncio
+    import time as _time
+
+    from raft_tpu_torch.cluster import ClusterSupervisor
+    from raft_tpu_torch.net import WireClient, WireDisconnected, WireRefused
+    from raft_tpu_torch.net.client import WireError
+
+    base = base_dir or tempfile.mkdtemp(prefix=f"cluster-seed{seed}-")
+    bdir = blackbox_dir or os.path.join(base, "blackbox")
+    sup = ClusterSupervisor(
+        nodes, base,
+        heartbeat_s=0.05, election_timeout_s=0.4,
+        snap_threshold=24, segment_entries=16, hot_entries=32,
+        env={"RAFT_TPU_BLACKBOX_DIR": bdir},
+    )
+    history = History()
+    key_pool = [f"ck{i}".encode() for i in range(keys)]
+    now = _time.monotonic
+    counters = [0] * (clients + 1)
+    kills = restarts = partitions = pauses = 0
+    flood_ops = 0
+    evidence: Dict[int, Optional[dict]] = {}
+    rejoined = False
+    victim = -1
+    failovers = 0
+
+    _WRITE_AMBIGUOUS = (WireDisconnected, WireError, ConnectionError,
+                        OSError)
+    _READ_DEAD = (WireRefused, WireError, WireDisconnected,
+                  ConnectionError, OSError)
+
+    async def write_one(wc, cid: int, key: bytes, value: bytes) -> None:
+        rec = history.invoke(cid, WRITE, key, value, now())
+        try:
+            await wc.submit(key, value)
+        except WireRefused:
+            rec.fail(history.stamp(now()))   # typed: provably no effect
+        except _WRITE_AMBIGUOUS:
+            rec.info()                        # outcome unknown
+        else:
+            rec.ok(history.stamp(now()))
+
+    async def client_ops(wc, cid: int, n: int, rng) -> None:
+        """One serial client: the §6.3 discipline over real processes."""
+        for _ in range(n):
+            key = key_pool[rng.randrange(len(key_pool))]
+            p = rng.random()
+            if p < 0.55:
+                counters[cid] += 1
+                await write_one(wc, cid, key,
+                                f"c{cid}v{counters[cid]}".encode())
+            else:
+                cls = "session" if p > 0.85 else "linearizable"
+                rec = history.invoke(cid, READ, key, None, now())
+                if cls == "session":
+                    rec.ryw_floor = wc.session.floor.get(0, 0)
+                try:
+                    out = await wc.read(key, cls=cls)
+                except _READ_DEAD:
+                    # an unserved read has no effect, whatever killed it
+                    rec.fail(history.stamp(now()))
+                else:
+                    rec.read_class = out.cls
+                    rec.serve_index = out.index
+                    rec.ok(history.stamp(now()), out.value)
+
+    async def preload_writes(wc, cid: int, n: int) -> None:
+        for _ in range(n):
+            counters[cid] += 1
+            i = counters[cid]
+            await write_one(wc, cid, key_pool[i % len(key_pool)],
+                            f"c{cid}v{i}".encode())
+
+    async def flood(n: int) -> int:
+        """Open-loop one-shot writers against whichever node answers:
+        no retries, unique client ids — the overload nemesis at the
+        process tier (and the gap-widener for the snap rejoin)."""
+        lead = sup.leader()
+        host, _, port = sup.addr(lead if lead is not None
+                                 else 0).rpartition(":")
+        wc = await WireClient(
+            host or "127.0.0.1", int(port), pool=1, retries=1,
+            rng=random.Random(f"cluster-flood:{seed}"),
+            addr_map=sup.addr_map(),
+        ).connect()
+        async def one(j: int) -> None:
+            key = key_pool[j % len(key_pool)]
+            await write_one(wc, 1000 + j, key, f"flood{j}".encode())
+        await asyncio.gather(*[one(j) for j in range(n)])
+        await wc.close()
+        return n
+
+    def _commit_of(i: int) -> int:
+        st = sup.status(i)
+        return int(st["commit"]) if st else 0
+
+    async def main() -> None:
+        nonlocal kills, restarts, partitions, pauses, flood_ops
+        nonlocal evidence, rejoined, victim, failovers
+        wcs = []
+        for cid in range(1, clients + 1):
+            host, _, port = sup.addr((cid - 1) % nodes).rpartition(":")
+            wcs.append(await WireClient(
+                host or "127.0.0.1", int(port), pool=1, retries=40,
+                max_backoff_s=0.25,
+                rng=random.Random(f"cluster:{seed}:conn{cid}"),
+                addr_map=sup.addr_map(),
+            ).connect())
+        rngs = [random.Random(f"cluster:{seed}:{cid}")
+                for cid in range(1, clients + 1)]
+
+        # ---- phase 0: preload — seal segments to hand off later -----
+        per = max(1, preload // clients)
+        blackbox.mark("cluster_preload", writes=per * clients)
+        await asyncio.gather(*[
+            preload_writes(wc, cid + 1, per)
+            for cid, wc in enumerate(wcs)
+        ])
+        # ---- phase 1: steady traffic --------------------------------
+        await asyncio.gather(*[
+            client_ops(wc, cid + 1, ops_per_phase, rngs[cid])
+            for cid, wc in enumerate(wcs)
+        ])
+        blackbox.mark("cluster_steady_done", ops=len(history))
+        # ---- phase 2: partition a follower, then kill -9 it ---------
+        lead = sup.leader()
+        victim = next(i for i in range(nodes)
+                      if i != (lead if lead is not None else 0))
+        majority = [i for i in range(nodes) if i != victim]
+        sup.partition([majority, [victim]])
+        partitions += 1
+        await asyncio.gather(*[
+            client_ops(wc, cid + 1, ops_per_phase // 2, rngs[cid])
+            for cid, wc in enumerate(wcs)
+        ])
+        sup.kill9(victim)
+        kills += 1
+        await asyncio.gather(*[
+            client_ops(wc, cid + 1, ops_per_phase // 2, rngs[cid])
+            for cid, wc in enumerate(wcs)
+        ])
+        sup.heal()
+        # ---- phase 3: open-loop burst while the victim is down ------
+        flood_ops = await flood(32)
+        await asyncio.gather(*[
+            client_ops(wc, cid + 1, ops_per_phase // 2, rngs[cid])
+            for cid, wc in enumerate(wcs)
+        ])
+        # ---- phase 4: restart-with-handoff --------------------------
+        target = max(_commit_of(i) for i in majority)
+        sup.restart(victim)
+        restarts += 1
+        deadline = now() + 15.0
+        while now() < deadline:
+            st = sup.status(victim)
+            if (st and st.get("generation", 1) >= 2
+                    and int(st.get("commit", 0)) >= target):
+                rejoined = True
+                break
+            await asyncio.sleep(0.1)
+        blackbox.mark("cluster_rejoin", node=victim, rejoined=rejoined,
+                      target=target)
+        await asyncio.gather(*[
+            client_ops(wc, cid + 1, ops_per_phase // 2, rngs[cid])
+            for cid, wc in enumerate(wcs)
+        ])
+        # ---- phase 5: SIGSTOP a follower through live traffic -------
+        lead = sup.leader()
+        candidates = [i for i in range(nodes)
+                      if i != (lead if lead is not None else 0)
+                      and sup.alive(i)]
+        # prefer a follower that is NOT the freshly restarted victim:
+        # pausing mid-catch-up is a different drill than paused-not-dead
+        paused = next((i for i in candidates if i != victim),
+                      candidates[0])
+
+        async def pause_cycle() -> None:
+            sup.pause(paused)
+            await asyncio.sleep(0.8)
+            sup.resume(paused)
+
+        pauses += 1
+        await asyncio.gather(pause_cycle(), *[
+            client_ops(wc, cid + 1, ops_per_phase // 2, rngs[cid])
+            for cid, wc in enumerate(wcs)
+        ])
+        # ---- quiesce + evidence -------------------------------------
+        for wc in wcs:
+            failovers += wc.stats.get("failovers", 0)
+            await wc.close()
+        await asyncio.sleep(0.7)   # one status-publish period
+        evidence = {i: sup.status(i) for i in range(nodes)}
+
+    with blackbox.journal_for(f"cluster_seed{seed}", bdir):
+        blackbox.mark("cluster_run", seed=seed, nodes=nodes)
+        try:
+            sup.start_all()
+            asyncio.run(main())
+        finally:
+            sup.stop_all()
+        history.close()
+        blackbox.mark("check_history", ops=len(history))
+        per_class = check_read_classes(history, step_budget=step_budget)
+        blackbox.mark("check_done", verdicts={
+            c: r.verdict for c, r in per_class.items()
+        })
+
+    vstat = evidence.get(victim) or {}
+    tier = vstat.get("tier", {})
+    incarnations = 0
+    try:
+        marks = blackbox.read_journal(os.path.join(
+            bdir, f"journal_cluster-n{victim}.jsonl"))
+        incarnations = sum(1 for m in marks
+                           if m.get("phase") == "child_start")
+    except Exception:
+        pass
+    counts: Dict[str, int] = {}
+    for rec in history.ops:
+        c = getattr(rec, "read_class", None)
+        if c:
+            counts[c] = counts.get(c, 0) + 1
+    return ClusterReport(
+        seed=seed,
+        per_class=per_class,
+        ops=len(history),
+        op_counts=history.counts(),
+        read_classes=counts,
+        nodes=nodes,
+        kills=kills,
+        restarts=restarts,
+        partitions=partitions,
+        pauses=pauses,
+        flood_ops=flood_ops,
+        generation=int(vstat.get("generation", 0)),
+        segments_adopted=int(tier.get("segments_adopted", 0)),
+        segments_resealed=int(tier.get("segments_resealed", -1)),
+        snap_chunks_in=int(vstat.get("snap_chunks_in", 0)),
+        rejoined=rejoined,
+        incarnations=incarnations,
+        failovers=failovers,
+        statuses=evidence,
+        base_dir=base,
+        repro=f"python -m raft_tpu_torch.chaos --cluster --seed {seed}",
+    )
+
+
+# ---------------------------------------- the cluster storage drill
+@dataclasses.dataclass
+class ClusterStorageReport:
+    """Result of :func:`cluster_storage_run` — the lying-disk nemesis
+    over the multi-process cluster tier (docs/CLUSTER.md storage-fault
+    model): every durable write the replicas make goes through the
+    ``FaultyIO`` VFS seam, and the drill composes seed-driven torn
+    writes, fsync stalls, a disk-full window, post-kill media rot
+    (mid-file WAL bit flip, torn manifest, flipped sealed shard), and
+    an fsync-EIO fail-stop with the process faults the cluster drill
+    already owns (partition, ``kill -9``, restart-with-handoff).
+
+    The healthy run must come back LINEARIZABLE per read class WITH
+    the recovery receipts: the victim truncated its WAL at the first
+    bad CRC (never skipped past it), rode the ``manifest.json.prev``
+    fallback, reconstructed the flipped shard through the RS decode,
+    the leader shed the full-disk window as typed refusals, and the
+    EIO'd node FAIL-STOPPED — death certificate published, exit 97,
+    and ZERO fsync calls after the EIO (the fsyncgate contract).
+
+    The broken variants are the teeth check: ``fsync_lies`` (acks ride
+    fsyncs that never persisted — a cluster-wide kill -9 must surface
+    the lost acked writes as a checker VIOLATION) and
+    ``wal_skip_corrupt`` (replay skips a corrupt record, silently
+    shifting every later index past Raft's (index, term) checks — the
+    commit-digest plane must catch the divergence). A broken run
+    SUCCEEDS only when ``caught``."""
+
+    seed: int
+    broken: Optional[str]
+    per_class: Dict[str, "CheckResult"]
+    ops: int
+    op_counts: Dict[str, int]
+    nodes: int
+    kills: int
+    restarts: int
+    partitions: int
+    generation: int           # torn victim's post-restart generation
+    segments_adopted: int
+    segments_resealed: int    # MUST stay 0 even off manifest.json.prev
+    rejoined: bool
+    wal_truncated: int        # records dropped at the first bad CRC
+    manifest_fallbacks: int   # recovery rode manifest.json.prev
+    segment_reconstructs: int  # flipped shard repaired via RS decode
+    disk_full_sheds: int      # typed refusals during the full window
+    stalls: int               # fsync-stall windows the victim absorbed
+    eio_cert: Optional[dict]  # the fail-stopped node's death.json
+    eio_exit: Optional[int]   # its exit code (97 = fail-stop contract)
+    fsync_after_eio: int      # MUST stay 0: no fsync retry after EIO
+    digest_ok: bool           # commit digests agree at shared ckpts
+    digest_detail: str
+    caught: Optional[bool]    # broken runs: the harness saw the lie
+    caught_by: str
+    statuses: Dict[int, Optional[dict]]
+    base_dir: str
+    repro: str
+
+    @property
+    def verdict(self) -> str:
+        verdicts = [c.verdict for c in self.per_class.values()]
+        if VIOLATION in verdicts:
+            return VIOLATION
+        if any(v != LINEARIZABLE for v in verdicts):
+            return "UNDETERMINED"
+        return LINEARIZABLE
+
+    @property
+    def handoff_ok(self) -> bool:
+        return (self.generation >= 2 and self.segments_adopted >= 1
+                and self.segments_resealed == 0 and self.rejoined)
+
+    @property
+    def fail_stop_ok(self) -> bool:
+        """The fsyncgate contract in one bool: the EIO'd node died
+        distinctly (exit 97), published its own death certificate, and
+        never called fsync again after the error."""
+        return (self.eio_cert is not None and self.eio_exit == 97
+                and self.fsync_after_eio == 0)
+
+    @property
+    def storage_ok(self) -> bool:
+        """Every recovery receipt the healthy run must produce."""
+        return (self.wal_truncated >= 1 and self.manifest_fallbacks >= 1
+                and self.segment_reconstructs >= 1
+                and self.disk_full_sheds >= 1 and self.stalls >= 1
+                and self.fail_stop_ok and self.digest_ok)
+
+    def summary(self) -> str:
+        cls = {c: r.verdict for c, r in self.per_class.items()}
+        core = (
+            f"seed={self.seed} classes={cls} ops={self.ops} "
+            f"gen={self.generation} adopted={self.segments_adopted} "
+            f"resealed={self.segments_resealed} rejoined={self.rejoined} "
+            f"wal_trunc={self.wal_truncated} "
+            f"manifest_fb={self.manifest_fallbacks} "
+            f"reconstructs={self.segment_reconstructs} "
+            f"full_sheds={self.disk_full_sheds} stalls={self.stalls} "
+            f"fail_stop={self.fail_stop_ok} digest_ok={self.digest_ok}"
+        )
+        if self.broken:
+            return (f"{core} broken={self.broken} caught={self.caught} "
+                    f"by={self.caught_by}")
+        return core
+
+
+def _digest_agreement(
+    statuses: Dict[int, Optional[dict]],
+) -> Tuple[bool, str]:
+    """Compare commit-digest checkpoints across nodes: every shared
+    checkpoint index must carry the same digest (replicas that applied
+    the same prefix MUST agree byte-for-byte). Returns (ok, detail);
+    zero overlap is ok=True with a detail saying so."""
+    ckpts: Dict[int, Dict[int, int]] = {}
+    for i, st in statuses.items():
+        if st:
+            ckpts[i] = {int(idx): int(d)
+                        for idx, d in st.get("digest_ckpts", [])}
+    overlap = 0
+    for i in ckpts:
+        for j in ckpts:
+            if j <= i:
+                continue
+            for idx in ckpts[i].keys() & ckpts[j].keys():
+                overlap += 1
+                if ckpts[i][idx] != ckpts[j][idx]:
+                    return False, (
+                        f"digest DIVERGED at idx {idx}: node {i} "
+                        f"{ckpts[i][idx]:#x} != node {j} "
+                        f"{ckpts[j][idx]:#x}")
+    if overlap == 0:
+        return True, "no shared checkpoint index"
+    return True, f"{overlap} shared checkpoints agree"
+
+
+def cluster_storage_run(
+    seed: int,
+    nodes: int = 3,
+    clients: int = 3,
+    keys: int = 4,
+    ops_per_phase: int = 10,
+    preload: int = 96,
+    step_budget: int = 500_000,
+    base_dir: Optional[str] = None,
+    blackbox_dir: Optional[str] = None,
+    broken: Optional[str] = None,
+) -> ClusterStorageReport:
+    """The storage-fault nemesis drill (``--cluster-storage``): the
+    multi-process cluster under a lying disk. Healthy composition:
+
+    1. PRELOAD — seal segments on every node (the faults need durable
+       state to chew on); all nodes boot with the ``FaultyIO`` seam
+       armed benign (``disk.json`` present, no faults yet);
+    2. arm TORN writes + fsync STALLS on one follower, keep traffic
+       flowing (acked writes still ride real fsyncs — torn prefixes
+       only ever leak UN-fsynced bytes, the crash-model guarantee);
+    3. PARTITION that follower, write through the majority, then
+       ``kill -9`` it — the RAM tail and the un-fsynced torn tail die;
+    4. rot the corpse: flip a mid-file WAL bit, tear the WAL tail
+       mid-record, truncate ``manifest.json`` half-written, flip one
+       payload bit in a sealed data shard (CRC sidecar left stale);
+    5. a wall-clock DISK-FULL window on the leader under traffic —
+       submits shed as typed refusals (provably no effect), never
+       corruption;
+    6. RESTART the victim on the rotten dirs: recovery must truncate
+       the WAL at the first bad CRC, fall back to
+       ``manifest.json.prev``, reconstruct the flipped shard through
+       the RS decode, and rejoin without resealing adopted work;
+    7. arm fsync-EIO on the OTHER follower mid-run: its next WAL fsync
+       fail-stops the process (death certificate, exit 97, no fsync
+       retry — fsyncgate), then restart it clean;
+    8. final traffic + quiesce; per-class check + cross-node commit-
+       digest comparison.
+
+    ``broken="fsync_lies"`` / ``broken="wal_skip_corrupt"`` run the
+    deliberately broken storage layers instead; see the report class.
+    Raises :class:`raft_tpu_torch.cluster.ClusterBroken` when the
+    environment cannot spawn children at all."""
+    import asyncio
+    import time as _time
+
+    from raft_tpu_torch.cluster import ClusterSupervisor
+    from raft_tpu_torch.cluster.storage import (
+        flip_file_bit, flip_sealed_shard, read_disk_stats,
+        tear_file_tail, torn_truncate, write_plan,
+    )
+    from raft_tpu_torch.net import WireClient, WireDisconnected, WireRefused
+    from raft_tpu_torch.net.client import WireError
+
+    assert broken in (None, "fsync_lies", "wal_skip_corrupt"), broken
+    base = base_dir or tempfile.mkdtemp(
+        prefix=f"cluster-storage-seed{seed}-")
+    bdir = blackbox_dir or os.path.join(base, "blackbox")
+    rng = random.Random(f"cluster-storage:{seed}")
+    env = {"RAFT_TPU_BLACKBOX_DIR": bdir}
+    if broken == "wal_skip_corrupt":
+        env["RAFT_TPU_WAL_SKIP_CORRUPT"] = "1"
+    # broken variants keep every write in the WAL + RAM (no sealing):
+    # fsync_lies must be able to LOSE the acked writes wholesale, and
+    # wal_skip_corrupt needs the whole log replayed from the WAL
+    hot = 32 if broken is None else 128
+    snap = 24 if broken is None else 10_000
+    sup = ClusterSupervisor(
+        nodes, base,
+        heartbeat_s=0.05, election_timeout_s=0.4,
+        snap_threshold=snap, segment_entries=16, hot_entries=hot,
+        # recovering under injection is EXPECTED to include rough
+        # starts; the death-certificate exemption plus extra headroom
+        # keeps the crash-loop verdict for genuinely broken envs
+        fast_fail=6,
+        env=env,
+    )
+    if broken != "wal_skip_corrupt":
+        # arm the VFS seam on every node from first boot (benign until
+        # a phase rewrites the plan; fsync_lies starts lying at once)
+        plan = {"seed": seed}
+        if broken == "fsync_lies":
+            plan["fsync_lies"] = True
+        for i in range(nodes):
+            write_plan(sup.node_dir(i), plan)
+
+    history = History()
+    key_pool = [f"sk{i}".encode() for i in range(keys)]
+    now = _time.monotonic
+    counters = [0] * (clients + 1)
+    kills = restarts = partitions = 0
+    evidence: Dict[int, Optional[dict]] = {}
+    rejoined = False
+    victim = eio_node = full_node = -1
+    eio_cert: Optional[dict] = None
+    eio_exit: Optional[int] = None
+    fsync_after_eio = -1
+    stalls = 0
+    caught: Optional[bool] = None
+    caught_by = ""
+    digest_ok, digest_detail = True, ""
+
+    _WRITE_AMBIGUOUS = (WireDisconnected, WireError, ConnectionError,
+                        OSError)
+    _READ_DEAD = (WireRefused, WireError, WireDisconnected,
+                  ConnectionError, OSError)
+
+    async def write_one(wc, cid: int, key: bytes, value: bytes) -> None:
+        rec = history.invoke(cid, WRITE, key, value, now())
+        try:
+            await wc.submit(key, value)
+        except WireRefused:
+            rec.fail(history.stamp(now()))   # typed: provably no effect
+        except _WRITE_AMBIGUOUS:
+            rec.info()                        # outcome unknown
+        else:
+            rec.ok(history.stamp(now()))
+
+    async def client_ops(wc, cid: int, n: int, crng) -> None:
+        for _ in range(n):
+            key = key_pool[crng.randrange(len(key_pool))]
+            p = crng.random()
+            if p < 0.55:
+                counters[cid] += 1
+                await write_one(wc, cid, key,
+                                f"c{cid}v{counters[cid]}".encode())
+            else:
+                cls = "session" if p > 0.85 else "linearizable"
+                rec = history.invoke(cid, READ, key, None, now())
+                if cls == "session":
+                    rec.ryw_floor = wc.session.floor.get(0, 0)
+                try:
+                    out = await wc.read(key, cls=cls)
+                except _READ_DEAD:
+                    rec.fail(history.stamp(now()))
+                else:
+                    rec.read_class = out.cls
+                    rec.serve_index = out.index
+                    rec.ok(history.stamp(now()), out.value)
+
+    async def preload_writes(wc, cid: int, n: int) -> None:
+        for _ in range(n):
+            counters[cid] += 1
+            i = counters[cid]
+            await write_one(wc, cid, key_pool[i % len(key_pool)],
+                            f"c{cid}v{i}".encode())
+
+    async def read_round(wc, cid: int) -> None:
+        for key in key_pool:
+            rec = history.invoke(cid, READ, key, None, now())
+            try:
+                out = await wc.read(key, cls="linearizable")
+            except _READ_DEAD:
+                rec.fail(history.stamp(now()))
+            else:
+                rec.read_class = out.cls
+                rec.serve_index = out.index
+                rec.ok(history.stamp(now()), out.value)
+
+    def _commit_of(i: int) -> int:
+        st = sup.status(i)
+        return int(st["commit"]) if st else 0
+
+    async def _connect(cid: int):
+        host, _, port = sup.addr((cid - 1) % nodes).rpartition(":")
+        return await WireClient(
+            host or "127.0.0.1", int(port), pool=1, retries=40,
+            max_backoff_s=0.25,
+            rng=random.Random(f"cluster-storage:{seed}:conn{cid}"),
+            addr_map=sup.addr_map(),
+        ).connect()
+
+    def _corrupt_dead_victim() -> None:
+        """Phase 4: media rot on the killed victim's durable files —
+        the recovery paths, not steady state, are on trial."""
+        ndir = sup.node_dir(victim)
+        wal = os.path.join(ndir, "wal.bin")
+        pos = flip_file_bit(wal, rng)                 # mid-file rot
+        torn = tear_file_tail(wal, 37)                # mid-record tear
+        manifest = os.path.join(ndir, "segments", "manifest.json")
+        m_torn = torn_truncate(manifest)              # half-written
+        shard = flip_sealed_shard(
+            os.path.join(ndir, "segments"), rng)      # stale CRC
+        blackbox.mark("storage_rot", node=victim, wal_flip_at=pos,
+                      wal_torn_to=torn, manifest_torn=m_torn,
+                      shard=shard)
+
+    async def main_healthy() -> None:
+        nonlocal kills, restarts, partitions, evidence, rejoined
+        nonlocal victim, eio_node, full_node, eio_cert, eio_exit
+        nonlocal fsync_after_eio, stalls
+        wcs = [await _connect(cid) for cid in range(1, clients + 1)]
+        rngs = [random.Random(f"cluster-storage:{seed}:{cid}")
+                for cid in range(1, clients + 1)]
+
+        # ---- phase 1: preload — seal segments on every node ---------
+        per = max(1, preload // clients)
+        blackbox.mark("storage_preload", writes=per * clients)
+        await asyncio.gather(*[
+            preload_writes(wc, cid + 1, per)
+            for cid, wc in enumerate(wcs)
+        ])
+        # ---- phase 2: torn writes + fsync stalls on a follower ------
+        lead = sup.leader()
+        lead = lead if lead is not None else 0
+        followers = [i for i in range(nodes) if i != lead]
+        victim, eio_node = followers[0], followers[-1]
+        write_plan(sup.node_dir(victim), {
+            "seed": seed, "torn": True,
+            "stall_every": 3, "stall_s": 0.05,
+        })
+        blackbox.mark("storage_arm_torn", node=victim)
+        await asyncio.gather(*[
+            client_ops(wc, cid + 1, ops_per_phase, rngs[cid])
+            for cid, wc in enumerate(wcs)
+        ])
+        # ---- phase 3: partition the torn victim, then kill -9 -------
+        sup.partition([[i for i in range(nodes) if i != victim],
+                       [victim]])
+        partitions += 1
+        await asyncio.gather(*[
+            client_ops(wc, cid + 1, ops_per_phase // 2, rngs[cid])
+            for cid, wc in enumerate(wcs)
+        ])
+        sup.kill9(victim)
+        kills += 1
+        sup.heal()
+        stats = read_disk_stats(sup.node_dir(victim))
+        stalls = int(stats.get("stalls", 0))
+        # ---- phase 4: media rot on the corpse -----------------------
+        _corrupt_dead_victim()
+        # ---- phase 5: disk-full window on the leader ----------------
+        full_node = sup.leader()
+        full_node = full_node if full_node is not None else lead
+        write_plan(sup.node_dir(full_node), {
+            "seed": seed, "full_until_ts": _time.time() + 0.8,
+        })
+        blackbox.mark("storage_arm_full", node=full_node)
+        await asyncio.gather(*[
+            client_ops(wc, cid + 1, ops_per_phase, rngs[cid])
+            for cid, wc in enumerate(wcs)
+        ])
+        # window expires by wall clock; restore the benign plan and
+        # let the shed submits' retries drain before the next phase
+        write_plan(sup.node_dir(full_node), {"seed": seed})
+        await asyncio.sleep(0.3)
+        # ---- phase 6: restart the victim on the rotten dirs ---------
+        write_plan(sup.node_dir(victim), {"seed": seed})  # faults off
+        target = max(_commit_of(i) for i in range(nodes) if i != victim)
+        sup.restart(victim)
+        restarts += 1
+        deadline = now() + 15.0
+        while now() < deadline:
+            st = sup.status(victim)
+            if (st and st.get("generation", 1) >= 2
+                    and int(st.get("commit", 0)) >= target):
+                rejoined = True
+                break
+            await asyncio.sleep(0.1)
+        blackbox.mark("storage_rejoin", node=victim, rejoined=rejoined,
+                      target=target)
+        await asyncio.gather(*[
+            client_ops(wc, cid + 1, ops_per_phase // 2, rngs[cid])
+            for cid, wc in enumerate(wcs)
+        ])
+        # ---- phase 7: fsync EIO on the other follower → fail-stop ---
+        write_plan(sup.node_dir(eio_node), {"seed": seed,
+                                            "eio_arm": True})
+        blackbox.mark("storage_arm_eio", node=eio_node)
+
+        async def _await_fail_stop() -> None:
+            nonlocal eio_exit
+            end = now() + 10.0
+            while now() < end:
+                if not sup.alive(eio_node):
+                    p = sup.procs.get(eio_node)
+                    eio_exit = p.poll() if p is not None else None
+                    return
+                await asyncio.sleep(0.1)
+
+        await asyncio.gather(_await_fail_stop(), *[
+            client_ops(wc, cid + 1, ops_per_phase, rngs[cid])
+            for cid, wc in enumerate(wcs)
+        ])
+        # the certificate and the no-retry proof, BEFORE the respawn
+        # unlinks death.json
+        eio_cert = sup.death_certificate(eio_node)
+        fsync_after_eio = int(read_disk_stats(
+            sup.node_dir(eio_node)).get("fsync_after_eio", -1))
+        blackbox.mark("storage_fail_stop", node=eio_node,
+                      exit=eio_exit, cert=bool(eio_cert))
+        write_plan(sup.node_dir(eio_node), {"seed": seed})  # disk fixed
+        sup.restart(eio_node)
+        restarts += 1
+        # ---- phase 8: final traffic + read round + quiesce ----------
+        await asyncio.gather(*[
+            client_ops(wc, cid + 1, ops_per_phase // 2, rngs[cid])
+            for cid, wc in enumerate(wcs)
+        ])
+        await read_round(wcs[0], 1)
+        for wc in wcs:
+            await wc.close()
+        await asyncio.sleep(0.7)   # one status-publish period
+        evidence = {i: sup.status(i) for i in range(nodes)}
+
+    async def main_fsync_lies() -> None:
+        """Every disk lies about fsync; a cluster-wide kill -9 drops
+        every acked-but-never-persisted write. The checker must see
+        the loss (reads of acked keys come back empty)."""
+        nonlocal kills, restarts, evidence, victim
+        wcs = [await _connect(cid) for cid in range(1, clients + 1)]
+        # enough acked writes to touch every key, few enough that
+        # nothing seals (segment writes are real; the WAL is the lie)
+        await asyncio.gather(*[
+            preload_writes(wc, cid + 1, 8)
+            for cid, wc in enumerate(wcs)
+        ])
+        for wc in wcs:
+            await wc.close()
+        victim = 0
+        for i in range(nodes):
+            sup.kill9(i)
+            kills += 1
+        blackbox.mark("storage_lies_killall", nodes=nodes)
+        for i in range(nodes):
+            sup.restart(i, wait_ready=False)
+            restarts += 1
+        for i in range(nodes):
+            sup.wait_ready(i)
+        # the read round that surfaces the loss
+        wc = await _connect(1)
+        deadline = now() + 10.0
+        while now() < deadline and sup.leader() is None:
+            await asyncio.sleep(0.1)
+        await read_round(wc, 1)
+        await wc.close()
+        await asyncio.sleep(0.7)
+        evidence = {i: sup.status(i) for i in range(nodes)}
+
+    async def main_wal_skip() -> None:
+        """Replay skips a corrupt WAL record (env-armed): every later
+        record shifts down one index, invisible to Raft's (index,
+        term) checks. The commit-digest plane must diverge."""
+        nonlocal kills, restarts, evidence, victim, rejoined
+        nonlocal caught, caught_by, digest_ok, digest_detail
+        wcs = [await _connect(cid) for cid in range(1, clients + 1)]
+        await asyncio.gather(*[
+            preload_writes(wc, cid + 1, max(1, 40 // clients))
+            for cid, wc in enumerate(wcs)
+        ])
+        lead = sup.leader()
+        lead = lead if lead is not None else 0
+        victim = next(i for i in range(nodes) if i != lead)
+        sup.kill9(victim)
+        kills += 1
+        # flip one payload bit mid-WAL: the skip-not-truncate replay
+        # swallows the record and shifts the suffix
+        wal = os.path.join(sup.node_dir(victim), "wal.bin")
+        step = 17 + 64           # _WAL_REC header + record payload
+        nrec = os.path.getsize(wal) // step
+        bad = max(1, int(nrec * 0.55))
+        off = bad * step + 17 + 5   # inside record bad+1's payload
+        with open(wal, "r+b") as f:
+            f.seek(off)
+            b = f.read(1)
+            f.seek(off)
+            f.write(bytes([b[0] ^ 0x01]))
+        blackbox.mark("storage_wal_flip", node=victim, record=bad + 1,
+                      offset=off, records=nrec)
+        sup.restart(victim)
+        restarts += 1
+        # a little fresh traffic so the leader's appends walk the
+        # victim's shifted log forward past a checkpoint index
+        await asyncio.gather(*[
+            client_ops(wc, cid + 1, ops_per_phase,
+                       random.Random(f"cluster-storage:{seed}:{cid}"))
+            for cid, wc in enumerate(wcs)
+        ])
+        target = max(_commit_of(i) for i in range(nodes) if i != victim)
+        deadline = now() + 15.0
+        while now() < deadline:
+            st = sup.status(victim)
+            if st and int(st.get("commit", 0)) >= target:
+                rejoined = True
+            evidence = {i: sup.status(i) for i in range(nodes)}
+            digest_ok, digest_detail = _digest_agreement(evidence)
+            if not digest_ok:
+                break
+            await asyncio.sleep(0.2)
+        for wc in wcs:
+            await wc.close()
+        await asyncio.sleep(0.7)
+        evidence = {i: sup.status(i) for i in range(nodes)}
+        ok2, det2 = _digest_agreement(evidence)
+        if not ok2:
+            digest_ok, digest_detail = ok2, det2
+        skipped = int((evidence.get(victim) or {})
+                      .get("wal_skipped_corrupt", 0))
+        caught = (not digest_ok) and skipped >= 1
+        caught_by = "digest" if caught else ""
+        blackbox.mark("storage_skip_verdict", caught=caught,
+                      skipped=skipped, detail=digest_detail)
+
+    mains = {None: main_healthy, "fsync_lies": main_fsync_lies,
+             "wal_skip_corrupt": main_wal_skip}
+    with blackbox.journal_for(f"cluster_storage_seed{seed}", bdir):
+        blackbox.mark("cluster_storage_run", seed=seed, nodes=nodes,
+                      broken=broken)
+        try:
+            sup.start_all()
+            asyncio.run(mains[broken]())
+        finally:
+            sup.stop_all()
+        history.close()
+        blackbox.mark("check_history", ops=len(history))
+        per_class = check_read_classes(history, step_budget=step_budget)
+        blackbox.mark("check_done", verdicts={
+            c: r.verdict for c, r in per_class.items()
+        })
+
+    if broken is None:
+        digest_ok, digest_detail = _digest_agreement(evidence)
+    elif broken == "fsync_lies":
+        verdicts = [c.verdict for c in per_class.values()]
+        caught = VIOLATION in verdicts
+        caught_by = "checker" if caught else ""
+        digest_detail = "n/a (fsync_lies)"
+
+    vstat = evidence.get(victim) or {}
+    tier = vstat.get("tier", {})
+    flag = {"fsync_lies": " --broken fsync_lies",
+            "wal_skip_corrupt": " --broken wal_skip_corrupt"}
+    return ClusterStorageReport(
+        seed=seed,
+        broken=broken,
+        per_class=per_class,
+        ops=len(history),
+        op_counts=history.counts(),
+        nodes=nodes,
+        kills=kills,
+        restarts=restarts,
+        partitions=partitions,
+        generation=int(vstat.get("generation", 0)),
+        segments_adopted=int(tier.get("segments_adopted", 0)),
+        segments_resealed=int(tier.get("segments_resealed", -1)),
+        rejoined=rejoined,
+        wal_truncated=int(vstat.get("wal_truncated_records", 0)),
+        manifest_fallbacks=int(tier.get("manifest_fallbacks", 0)),
+        segment_reconstructs=int(tier.get("segment_reconstructs", 0)),
+        disk_full_sheds=int(
+            (evidence.get(full_node) or {}).get("disk_full_shed", 0)),
+        stalls=stalls,
+        eio_cert=eio_cert,
+        eio_exit=eio_exit,
+        fsync_after_eio=fsync_after_eio,
+        digest_ok=digest_ok,
+        digest_detail=digest_detail,
+        caught=caught,
+        caught_by=caught_by,
+        statuses=evidence,
+        base_dir=base,
+        repro=(f"python -m raft_tpu_torch.chaos --cluster-storage "
+               f"--seed {seed}{flag.get(broken, '')}"),
+    )
+
+
+# ---------------------------------------- the cluster network drill
+@dataclasses.dataclass
+class ClusterNetReport:
+    """Result of :func:`cluster_net_run` — the lying-NETWORK nemesis
+    over the multi-process cluster tier (docs/CLUSTER.md network-fault
+    model): every peer byte rides the ``cluster/netfault.py`` seam,
+    and the drill composes seed-driven latency + jitter, a bandwidth
+    trickle, mid-frame connection tears, duplicate + reordered +
+    cross-redial-replayed delivery, and post-header bit corruption
+    with an ASYMMETRIC partition of the leader (its sends deliver, its
+    replies vanish — the send-only-leader wedge) and the process
+    faults the cluster tier already owns (``kill -9``,
+    restart-with-handoff).
+
+    The healthy run must come back LINEARIZABLE per read class WITH
+    the wire receipts: corruption was INJECTED and every corrupted
+    frame was DROPPED at the CRC check (never decoded into the log —
+    commit digests still agree), connections were torn and redialed,
+    duplicated/reordered replies were counted as zero lease evidence
+    (``stale_round_ignored``), and the asymmetrically-partitioned
+    leader DEMOTED itself (CheckQuorum) so a new leader rose within
+    the liveness window.
+
+    The broken variants are the teeth check: ``peer_no_crc`` (CRC
+    negotiation disabled — injected corruption is accepted and the
+    commit-digest plane must diverge) and ``lease_stale_round``
+    (append replies credit lease evidence at ARRIVAL time regardless
+    of round — delayed in-flight replies stretch a deposed leader's
+    lease past the next election and the per-class checker must flag
+    the stale read). A broken run SUCCEEDS only when ``caught``."""
+
+    seed: int
+    broken: Optional[str]
+    per_class: Dict[str, "CheckResult"]
+    ops: int
+    op_counts: Dict[str, int]
+    nodes: int
+    kills: int
+    restarts: int
+    partitions: int
+    frames_delayed: int       # releases scheduled late (latency/bw)
+    frames_dup: int
+    frames_reordered: int
+    frames_replayed: int      # cross-redial-incarnation duplicates
+    conns_torn: int           # mid-frame cut + FIN
+    corrupt_injected: int     # bit flips the nemesis put on the wire
+    corrupt_dropped: int      # frames the CRC check refused to decode
+    stale_round_ignored: int  # dup/reordered replies credited ZERO
+    demotions: int            # CheckQuorum step-downs (asym leader)
+    reelected: bool
+    reelect_s: float          # asym partition -> new leader wall time
+    dialer_drops: int         # bounded-buffer frame drops
+    redials: int
+    generation: int           # kill -9 victim's post-restart generation
+    segments_adopted: int
+    rejoined: bool
+    digest_ok: bool
+    digest_detail: str
+    caught: Optional[bool]    # broken runs: the harness saw the lie
+    caught_by: str
+    statuses: Dict[int, Optional[dict]]
+    base_dir: str
+    repro: str
+
+    @property
+    def verdict(self) -> str:
+        verdicts = [c.verdict for c in self.per_class.values()]
+        if VIOLATION in verdicts:
+            return VIOLATION
+        if any(v != LINEARIZABLE for v in verdicts):
+            return "UNDETERMINED"
+        return LINEARIZABLE
+
+    @property
+    def handoff_ok(self) -> bool:
+        return (self.generation >= 2 and self.segments_adopted >= 1
+                and self.rejoined)
+
+    @property
+    def net_ok(self) -> bool:
+        """Every wire receipt the healthy run must produce."""
+        return (self.frames_delayed >= 1 and self.frames_dup >= 1
+                and self.conns_torn >= 1 and self.redials >= 1
+                and self.corrupt_injected >= 1
+                and self.corrupt_dropped >= 1
+                and self.stale_round_ignored >= 1
+                and self.demotions >= 1 and self.reelected
+                and self.digest_ok)
+
+    def summary(self) -> str:
+        cls = {c: r.verdict for c, r in self.per_class.items()}
+        core = (
+            f"seed={self.seed} classes={cls} ops={self.ops} "
+            f"delayed={self.frames_delayed} dup={self.frames_dup} "
+            f"reordered={self.frames_reordered} "
+            f"replayed={self.frames_replayed} torn={self.conns_torn} "
+            f"corrupt={self.corrupt_injected}/{self.corrupt_dropped} "
+            f"stale_ignored={self.stale_round_ignored} "
+            f"demotions={self.demotions} reelected={self.reelected} "
+            f"reelect_s={self.reelect_s:.2f} redials={self.redials} "
+            f"drops={self.dialer_drops} gen={self.generation} "
+            f"rejoined={self.rejoined} digest_ok={self.digest_ok}"
+        )
+        if self.broken:
+            return (f"{core} broken={self.broken} caught={self.caught} "
+                    f"by={self.caught_by}")
+        return core
+
+
+def cluster_net_run(
+    seed: int,
+    nodes: int = 3,
+    clients: int = 3,
+    keys: int = 4,
+    ops_per_phase: int = 12,
+    preload: int = 96,
+    step_budget: int = 500_000,
+    base_dir: Optional[str] = None,
+    blackbox_dir: Optional[str] = None,
+    broken: Optional[str] = None,
+) -> ClusterNetReport:
+    """The network-fault nemesis drill (``--cluster-net``): the
+    multi-process cluster under a lying network. Healthy composition:
+
+    1. PRELOAD on a clean wire — the ``net.json`` seam is armed benign
+       on every node from first boot, and the per-peer ``CAP_CRC``
+       latches establish while frames are intact;
+    2. arm the full wire chaos on every node: latency + jitter,
+       bandwidth trickle, torn frames (mid-frame cut + FIN), duplicate
+       and reordered delivery, cross-redial replay, and post-header
+       bit corruption — every corrupted frame must be DROPPED at the
+       CRC check (counted, never decoded), every tear redialed;
+    3. ASYMMETRIC partition of the leader: its appends deliver (so
+       vote stickiness suppresses elections — the wedge) but every
+       reply to it vanishes; CheckQuorum must demote it within an
+       election timeout and a new leader must rise — the liveness
+       gate;
+    4. ``kill -9`` the ex-leader under live wire faults, write through
+       the survivors, restart it — the catch-up stream resumes across
+       torn connections from the last acked cursor;
+    5. final traffic, lift the faults, quiesce; per-class check +
+       cross-node commit-digest comparison + the wire receipts.
+
+    ``broken="peer_no_crc"`` / ``broken="lease_stale_round"`` run the
+    deliberately broken planes instead; see the report class. Raises
+    :class:`raft_tpu_torch.cluster.ClusterBroken` when the environment
+    cannot spawn children at all."""
+    import asyncio
+    import time as _time
+
+    from raft_tpu_torch.cluster import ClusterSupervisor
+    from raft_tpu_torch.cluster.netfault import (
+        merge_net_plan, read_net_stats, write_net_plan,
+    )
+    from raft_tpu_torch.net import WireClient, WireDisconnected, WireRefused
+    from raft_tpu_torch.net.client import WireError
+
+    assert broken in (None, "peer_no_crc", "lease_stale_round"), broken
+    base = base_dir or tempfile.mkdtemp(
+        prefix=f"cluster-net-seed{seed}-")
+    bdir = blackbox_dir or os.path.join(base, "blackbox")
+    env = {"RAFT_TPU_BLACKBOX_DIR": bdir}
+    if broken == "peer_no_crc":
+        env["RAFT_TPU_PEER_NO_CRC"] = "1"
+    elif broken == "lease_stale_round":
+        env["RAFT_TPU_LEASE_STALE_ROUND"] = "1"
+    sup = ClusterSupervisor(
+        nodes, base,
+        heartbeat_s=0.05,
+        # the stale-round variant ramps a reply delay under the sound
+        # CheckQuorum threshold (= the election timeout); the wider
+        # timeout gives the ramp honest headroom without changing what
+        # is on trial (the lease clock, not the election)
+        election_timeout_s=(0.6 if broken == "lease_stale_round"
+                            else 0.4),
+        snap_threshold=24, segment_entries=16, hot_entries=32,
+        fast_fail=6,
+        env=env,
+    )
+    for i in range(nodes):
+        # the seam must exist from first boot (the child arms NetFaults
+        # only when net.json is present); benign until a phase merges
+        # fault keys in
+        write_net_plan(sup.node_dir(i), {"seed": seed})
+
+    history = History()
+    key_pool = [f"nk{i}".encode() for i in range(keys)]
+    now = _time.monotonic
+    counters = [0] * (clients + 3)
+    kills = restarts = partitions = 0
+    evidence: Dict[int, Optional[dict]] = {}
+    wire_totals: Dict[str, int] = {}
+    corrupt_dropped_dead = 0     # killed incarnations' counted drops
+    stale_ignored_dead = 0
+    dialer_dead = {"drops": 0, "redials": 0}
+    rejoined = False
+    reelected = False
+    reelect_s = -1.0
+    demotions = 0
+    victim = -1
+    caught: Optional[bool] = None
+    caught_by = ""
+    digest_ok, digest_detail = True, ""
+
+    #: the full healthy-run wire chaos (frame units are per-node
+    #: GLOBAL every-N clocks, so cadence survives redials)
+    chaos = {
+        "delay_ms": 2, "jitter_ms": 3, "bw_bytes_s": 262144,
+        "dup_every": 5, "reorder_every": 9, "reorder_hold_ms": 30,
+        "corrupt_every": 4, "torn_every": 45, "replay_redial": True,
+    }
+
+    _WRITE_AMBIGUOUS = (WireDisconnected, WireError, ConnectionError,
+                        OSError)
+    _READ_DEAD = (WireRefused, WireError, WireDisconnected,
+                  ConnectionError, OSError)
+
+    def _harvest(i: int) -> None:
+        """Fold one node's published wire counters into the totals —
+        called before a kill (the next incarnation restarts at zero)
+        and once per node at the end."""
+        for k, v in read_net_stats(sup.node_dir(i)).items():
+            wire_totals[k] = wire_totals.get(k, 0) + int(v)
+
+    async def write_one(wc, cid: int, key: bytes, value: bytes) -> None:
+        rec = history.invoke(cid, WRITE, key, value, now())
+        try:
+            await wc.submit(key, value)
+        except WireRefused:
+            rec.fail(history.stamp(now()))   # typed: provably no effect
+        except _WRITE_AMBIGUOUS:
+            rec.info()                        # outcome unknown
+        else:
+            rec.ok(history.stamp(now()))
+
+    async def client_ops(wc, cid: int, n: int, crng) -> None:
+        for _ in range(n):
+            key = key_pool[crng.randrange(len(key_pool))]
+            p = crng.random()
+            if p < 0.55:
+                counters[cid] += 1
+                await write_one(wc, cid, key,
+                                f"c{cid}v{counters[cid]}".encode())
+            else:
+                cls = "session" if p > 0.85 else "linearizable"
+                rec = history.invoke(cid, READ, key, None, now())
+                if cls == "session":
+                    rec.ryw_floor = wc.session.floor.get(0, 0)
+                try:
+                    out = await wc.read(key, cls=cls)
+                except _READ_DEAD:
+                    rec.fail(history.stamp(now()))
+                else:
+                    rec.read_class = out.cls
+                    rec.serve_index = out.index
+                    rec.ok(history.stamp(now()), out.value)
+
+    async def preload_writes(wc, cid: int, n: int) -> None:
+        for _ in range(n):
+            counters[cid] += 1
+            i = counters[cid]
+            await write_one(wc, cid, key_pool[i % len(key_pool)],
+                            f"c{cid}v{i}".encode())
+
+    async def read_round(wc, cid: int) -> None:
+        for key in key_pool:
+            rec = history.invoke(cid, READ, key, None, now())
+            try:
+                out = await wc.read(key, cls="linearizable")
+            except _READ_DEAD:
+                rec.fail(history.stamp(now()))
+            else:
+                rec.read_class = out.cls
+                rec.serve_index = out.index
+                rec.ok(history.stamp(now()), out.value)
+
+    def _commit_of(i: int) -> int:
+        st = sup.status(i)
+        return int(st["commit"]) if st else 0
+
+    async def _connect(cid: int, pin: Optional[int] = None,
+                       retries: int = 40):
+        at = pin if pin is not None else (cid - 1) % nodes
+        host, _, port = sup.addr(at).rpartition(":")
+        return await WireClient(
+            host or "127.0.0.1", int(port), pool=1, retries=retries,
+            max_backoff_s=0.25,
+            rng=random.Random(f"cluster-net:{seed}:conn{cid}"),
+            addr_map=sup.addr_map() if pin is None else None,
+        ).connect()
+
+    async def main_healthy() -> None:
+        nonlocal kills, restarts, partitions, evidence, rejoined
+        nonlocal victim, demotions, reelected, reelect_s
+        nonlocal corrupt_dropped_dead, stale_ignored_dead
+        wcs = [await _connect(cid) for cid in range(1, clients + 1)]
+        rngs = [random.Random(f"cluster-net:{seed}:{cid}")
+                for cid in range(1, clients + 1)]
+
+        # ---- phase 1: preload on a clean wire (CRC latches set) -----
+        per = max(1, preload // clients)
+        blackbox.mark("net_preload", writes=per * clients)
+        await asyncio.gather(*[
+            preload_writes(wc, cid + 1, per)
+            for cid, wc in enumerate(wcs)
+        ])
+        # ---- phase 2: full wire chaos on every node -----------------
+        sup.net_fault(dict(chaos, seed=seed))
+        blackbox.mark("net_arm_chaos", plan=chaos)
+        await asyncio.gather(*[
+            client_ops(wc, cid + 1, ops_per_phase, rngs[cid])
+            for cid, wc in enumerate(wcs)
+        ])
+        # ---- phase 3: asymmetric partition of the leader ------------
+        lead = sup.leader()
+        lead = lead if lead is not None else 0
+        sup.partition_asym(lead)
+        partitions += 1
+        t0 = now()
+        deadline = t0 + 12.0
+        while now() < deadline:
+            st = sup.status(lead)
+            if st and int(st.get("leader_demotions", 0)) >= 1:
+                demotions = int(st["leader_demotions"])
+                break
+            await asyncio.sleep(0.05)
+        while now() < deadline:
+            for j in range(nodes):
+                st = sup.status(j)
+                if (j != lead and st and st.get("role") == "leader"
+                        and sup.alive(j)):
+                    reelected = True
+                    reelect_s = now() - t0
+                    break
+            if reelected:
+                break
+            await asyncio.sleep(0.05)
+        blackbox.mark("net_asym_verdict", lead=lead,
+                      demotions=demotions, reelected=reelected,
+                      reelect_s=round(max(reelect_s, 0.0), 3))
+        await asyncio.gather(*[
+            client_ops(wc, cid + 1, ops_per_phase // 2, rngs[cid])
+            for cid, wc in enumerate(wcs)
+        ])
+        sup.heal()
+        # ---- phase 4: kill -9 the ex-leader under live faults -------
+        victim = lead
+        st = sup.status(victim) or {}
+        corrupt_dropped_dead += int(st.get("peer_frames_corrupt", 0))
+        stale_ignored_dead += int(st.get("stale_round_ignored", 0))
+        for k in ("drops", "redials"):
+            dialer_dead[k] += int((st.get("dialer") or {}).get(k, 0))
+        _harvest(victim)
+        sup.kill9(victim)
+        kills += 1
+        await asyncio.gather(*[
+            client_ops(wc, cid + 1, ops_per_phase // 2, rngs[cid])
+            for cid, wc in enumerate(wcs)
+        ])
+        target = max(_commit_of(i) for i in range(nodes) if i != victim)
+        sup.restart(victim)
+        restarts += 1
+        deadline = now() + 20.0
+        while now() < deadline:
+            st = sup.status(victim)
+            if (st and st.get("generation", 1) >= 2
+                    and int(st.get("commit", 0)) >= target):
+                rejoined = True
+                break
+            await asyncio.sleep(0.1)
+        blackbox.mark("net_rejoin", node=victim, rejoined=rejoined,
+                      target=target)
+        # ---- phase 5: final traffic, lift faults, quiesce -----------
+        await asyncio.gather(*[
+            client_ops(wc, cid + 1, ops_per_phase // 2, rngs[cid])
+            for cid, wc in enumerate(wcs)
+        ])
+        sup.net_fault({k: None for k in chaos})
+        await read_round(wcs[0], 1)
+        for wc in wcs:
+            await wc.close()
+        await asyncio.sleep(0.7)   # one status-publish period
+        evidence = {i: sup.status(i) for i in range(nodes)}
+        for i in range(nodes):
+            _harvest(i)
+
+    async def main_peer_no_crc() -> None:
+        """CRC negotiation disabled on every node: injected corruption
+        decodes as a legal frame, the follower applies the flipped
+        record, and the commit-digest plane must diverge."""
+        nonlocal evidence, digest_ok, digest_detail, caught, caught_by
+        wcs = [await _connect(cid) for cid in range(1, clients + 1)]
+        await asyncio.gather(*[
+            preload_writes(wc, cid + 1, max(1, 40 // clients))
+            for cid, wc in enumerate(wcs)
+        ])
+        sup.net_fault({"seed": seed, "corrupt_every": 3})
+        blackbox.mark("net_arm_corrupt", crc=False)
+        deadline = now() + 25.0
+        while now() < deadline:
+            await asyncio.gather(*[
+                client_ops(wc, cid + 1, 4,
+                           random.Random(f"cluster-net:{seed}:{cid}"))
+                for cid, wc in enumerate(wcs)
+            ])
+            evidence = {i: sup.status(i) for i in range(nodes)}
+            digest_ok, digest_detail = _digest_agreement(evidence)
+            if not digest_ok:
+                break
+            await asyncio.sleep(0.2)
+        for wc in wcs:
+            await wc.close()
+        await asyncio.sleep(0.7)
+        evidence = {i: sup.status(i) for i in range(nodes)}
+        ok2, det2 = _digest_agreement(evidence)
+        if not ok2:
+            digest_ok, digest_detail = ok2, det2
+        for i in range(nodes):
+            _harvest(i)
+        injected = int(wire_totals.get("frames_corrupt_injected", 0))
+        caught = (not digest_ok) and injected >= 1
+        caught_by = "digest" if caught else ""
+        blackbox.mark("net_no_crc_verdict", caught=caught,
+                      injected=injected, detail=digest_detail)
+
+    async def main_lease_stale_round() -> None:
+        """Append replies credit lease evidence at ARRIVAL time (env-
+        armed). A reply-delay ramp on the followers fills the wire
+        with in-flight acks, then a ONE-SIDED partition (the followers
+        stop talking to — and hearing — the old leader, but its own
+        side stays open): the delayed acks keep arriving and keep
+        refreshing the broken lease while the majority elects a new
+        leader and commits a fresh write. The old leader serves the
+        overwritten value as a lease read — the per-class checker must
+        flag it."""
+        nonlocal evidence, caught, caught_by, partitions
+        wcs = [await _connect(cid) for cid in range(1, clients + 1)]
+        await asyncio.gather(*[
+            preload_writes(wc, cid + 1, max(1, 24 // clients))
+            for cid, wc in enumerate(wcs)
+        ])
+        lead = sup.leader()
+        lead = lead if lead is not None else 0
+        followers = [i for i in range(nodes) if i != lead]
+        # the ramp: each step widens the reply delay by LESS than the
+        # CheckQuorum threshold, so the arrival gap at each step never
+        # demotes the leader (the broken clock keeps ack ages near
+        # zero in steady state — masking CheckQuorum is the bug's own
+        # signature); scoped per-peer so follower<->follower traffic
+        # (the coming election) stays fast
+        for d in (450, 900, 1350, 1800, 2250):
+            for j in followers:
+                merge_net_plan(sup.node_dir(j), {
+                    "seed": seed,
+                    "to": {str(lead): {"delay_ms": d}},
+                })
+            await asyncio.sleep(0.55)
+        blackbox.mark("net_stale_ramp_done", lead=lead)
+        # one-sided partition: ONLY the followers deny (both their
+        # sends and their receives); the old leader's side stays open
+        # so the in-flight delayed acks land on it
+        for j in followers:
+            merge_net_plan(sup.node_dir(j), {"deny": [lead]})
+        partitions += 1
+        blackbox.mark("net_partition_one_sided", lead=lead)
+        new_lead = None
+        deadline = now() + 8.0
+        while now() < deadline and new_lead is None:
+            for j in followers:
+                st = sup.status(j)
+                if st and st.get("role") == "leader":
+                    new_lead = j
+                    break
+            await asyncio.sleep(0.05)
+        wk = key_pool[0]
+        if new_lead is not None:
+            wc2 = await _connect(clients + 1, pin=new_lead)
+            await write_one(wc2, clients + 1, wk,
+                            b"fresh-after-partition")
+            await wc2.close()
+        blackbox.mark("net_fresh_write", new_lead=new_lead)
+        # hammer reads at the OLD leader while stale in-flight acks
+        # keep its broken lease alive
+        wc3 = await _connect(clients + 2, pin=lead, retries=2)
+        t_end = now() + 2.2
+        while now() < t_end:
+            rec = history.invoke(clients + 2, READ, wk, None, now())
+            try:
+                out = await wc3.read(wk, cls="linearizable")
+            except _READ_DEAD:
+                rec.fail(history.stamp(now()))
+            else:
+                rec.read_class = out.cls
+                rec.serve_index = out.index
+                rec.ok(history.stamp(now()), out.value)
+            await asyncio.sleep(0.05)
+        await wc3.close()
+        for wc in wcs:
+            await wc.close()
+        await asyncio.sleep(0.7)
+        evidence = {i: sup.status(i) for i in range(nodes)}
+        for i in range(nodes):
+            _harvest(i)
+
+    mains = {None: main_healthy, "peer_no_crc": main_peer_no_crc,
+             "lease_stale_round": main_lease_stale_round}
+    with blackbox.journal_for(f"cluster_net_seed{seed}", bdir):
+        blackbox.mark("cluster_net_run", seed=seed, nodes=nodes,
+                      broken=broken)
+        try:
+            sup.start_all()
+            asyncio.run(mains[broken]())
+        finally:
+            sup.stop_all()
+        history.close()
+        blackbox.mark("check_history", ops=len(history))
+        per_class = check_read_classes(history, step_budget=step_budget)
+        blackbox.mark("check_done", verdicts={
+            c: r.verdict for c, r in per_class.items()
+        })
+
+    if broken is None:
+        digest_ok, digest_detail = _digest_agreement(evidence)
+    elif broken == "lease_stale_round":
+        verdicts = [c.verdict for c in per_class.values()]
+        caught = VIOLATION in verdicts
+        caught_by = "checker" if caught else ""
+        digest_detail = "n/a (lease_stale_round)"
+
+    def _sum_stat(key: str) -> int:
+        return sum(int((st or {}).get(key, 0))
+                   for st in evidence.values())
+
+    def _sum_dialer(key: str) -> int:
+        return sum(int(((st or {}).get("dialer") or {}).get(key, 0))
+                   for st in evidence.values())
+
+    vstat = evidence.get(victim) or {}
+    tier = vstat.get("tier", {})
+    flag = {"peer_no_crc": " --broken peer_no_crc",
+            "lease_stale_round": " --broken lease_stale_round"}
+    return ClusterNetReport(
+        seed=seed,
+        broken=broken,
+        per_class=per_class,
+        ops=len(history),
+        op_counts=history.counts(),
+        nodes=nodes,
+        kills=kills,
+        restarts=restarts,
+        partitions=partitions,
+        frames_delayed=int(wire_totals.get("frames_delayed", 0)),
+        frames_dup=int(wire_totals.get("frames_dup", 0)),
+        frames_reordered=int(wire_totals.get("frames_reordered", 0)),
+        frames_replayed=int(wire_totals.get("frames_replayed", 0)),
+        conns_torn=int(wire_totals.get("conns_torn", 0)),
+        corrupt_injected=int(
+            wire_totals.get("frames_corrupt_injected", 0)),
+        corrupt_dropped=(_sum_stat("peer_frames_corrupt")
+                         + corrupt_dropped_dead),
+        stale_round_ignored=(_sum_stat("stale_round_ignored")
+                             + stale_ignored_dead),
+        demotions=demotions,
+        reelected=reelected,
+        reelect_s=reelect_s,
+        dialer_drops=_sum_dialer("drops") + dialer_dead["drops"],
+        redials=_sum_dialer("redials") + dialer_dead["redials"],
+        generation=int(vstat.get("generation", 0)),
+        segments_adopted=int(tier.get("segments_adopted", 0)),
+        rejoined=rejoined,
+        digest_ok=digest_ok,
+        digest_detail=digest_detail,
+        caught=caught,
+        caught_by=caught_by,
+        statuses=evidence,
+        base_dir=base,
+        repro=(f"python -m raft_tpu_torch.chaos --cluster-net "
+               f"--seed {seed}{flag.get(broken, '')}"),
     )
 

@@ -40,13 +40,14 @@ import os
 import tempfile
 from typing import Dict, Optional, Tuple
 
+from typing import TYPE_CHECKING
+
 import numpy as np
 
-import torch
+if TYPE_CHECKING:
+    import torch
 
-from raft_tpu_torch.core.state import ReplicaState
-from raft_tpu_torch.ec.kernels import encode_device
-from raft_tpu_torch.ec.reconstruct import install_entries
+    from raft_tpu_torch.core.state import ReplicaState
 
 
 def _atomic_savez(path: str, **arrays) -> None:
@@ -369,6 +370,10 @@ def _ring_tail(snap: Snapshot, cap: int):
 def _shard_rows(state: ReplicaState, code, ents: np.ndarray) -> torch.Tensor:
     """u8[n, N, Sk]: every replica's RS shard row of ``ents``, encoded on
     the state's device (K6 on the card, ``encode_bitwise`` on the CPU)."""
+    import torch
+
+    from raft_tpu_torch.ec.kernels import encode_device
+
     return encode_device(code, torch.from_numpy(
         np.require(ents, requirements=["C", "W"])).to(state.device))
 
@@ -390,6 +395,8 @@ def install_snapshot(
     write (no collective; on the 2-D mesh each its byte slice,
     ``install_entries``); the others return their state unchanged.
     """
+    from raft_tpu_torch.ec.reconstruct import install_entries
+
     if view is not None and view.local_row(replica) is None:
         return state
     start, ents, terms = _ring_tail(snap, state.capacity)
@@ -414,6 +421,8 @@ def install_snapshot_all(
     would redo the full RS encode R times for R shard rows it already
     produced. ``rows`` is the cluster's row count (default: the state's);
     on the mesh (``view``) each rank installs the row it holds."""
+    from raft_tpu_torch.ec.reconstruct import install_entries
+
     start, ents, terms = _ring_tail(snap, state.capacity)
     shard_rows = None if code is None else _shard_rows(state, code, ents)
     n_rows = state.term.shape[0] if rows is None else rows

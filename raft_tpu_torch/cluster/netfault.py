@@ -3,7 +3,7 @@
 
 The storage seam (``cluster/storage.py``) sits under every durable
 write; this module is the symmetric seam for the wire. Production code
-in ``net/server.py`` (and the cluster tier's dialer, ROADMAP A17d)
+in ``net/server.py`` and ``cluster/dialer.py``
 never touches an asyncio transport directly (an AST gate in
 ``tests/test_torch_import.py`` pins the discipline) — it reads and
 writes through a :class:`RealConn`, and a drill swaps in a

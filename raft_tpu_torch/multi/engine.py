@@ -93,48 +93,13 @@ from raft_tpu_torch.raft.engine import (
     LEADER,
     VirtualClock,
 )
+from raft_tpu_torch.errors import NotLeader, ReadLagging
 from raft_tpu_torch.raft.ledger import (
     durable_range_covers,
     evict_commit_stamps,
 )
 from raft_tpu_torch.obs.compile import labeled
 from raft_tpu_torch.transport.device import resolve_device
-
-
-class NotLeader(Exception):
-    """A leader-required group operation (``submit_to_leader``,
-    ``read_index``) found no live, confirmable leader for the target
-    group. Carries ``group`` so a router can retry: drive the engine
-    until the group re-elects (``run_until_leader``), then resubmit
-    (``multi.router.Router``). Raised out of a batched router call,
-    ``partial`` carries the per-item results placed before the failure
-    (None = unplaced)."""
-
-    def __init__(self, group: int, msg: str = ""):
-        super().__init__(msg or f"group {group} has no current leader")
-        self.group = group
-        self.partial: Optional[list] = None
-
-
-class ReadLagging(Exception):
-    """A follower or session read could not be served within the
-    staleness bound: the chosen replica's replication cursor (or, for a
-    session read, the group's apply cursor) has not passed the required
-    index. ``replica`` is None for session reads; ``lag`` is entries
-    short; ``retry_after_s`` hints one replication round."""
-
-    def __init__(self, group: int, replica: Optional[int], lag: int,
-                 retry_after_s: float = 0.0):
-        which = ("apply stream" if replica is None
-                 else f"replica {replica}")
-        super().__init__(
-            f"group {group}: {which} lags the required read index by "
-            f"{lag} entries"
-        )
-        self.group = group
-        self.replica = replica
-        self.lag = lag
-        self.retry_after_s = retry_after_s
 
 
 class UnsupportedMembership(ValueError):

@@ -15,21 +15,7 @@ over a ``MultiEngine`` with ``RouterBackend(Router(e, drive=False), skv)``;
 connects to it.
 """
 
-from raft_tpu_torch.net.client import (
-    WireClient,
-    WireDisconnected,
-    WireRefused,
-)
-from raft_tpu_torch.net.protocol import (
-    FrameDecoder,
-    FrameTooLarge,
-    ProtocolError,
-)
-from raft_tpu_torch.net.server import (
-    EngineBackend,
-    IngestServer,
-    RouterBackend,
-)
+from raft_tpu_torch._lazy import exports
 
 __all__ = [
     "EngineBackend",
@@ -42,3 +28,13 @@ __all__ = [
     "WireDisconnected",
     "WireRefused",
 ]
+
+# resolved on first use, so ``net.protocol`` and ``net.server`` load
+# without the client's router (``raft_tpu_torch._lazy``)
+__getattr__ = exports(__name__, {
+    "EngineBackend": "server", "IngestServer": "server",
+    "RouterBackend": "server", "FrameDecoder": "protocol",
+    "FrameTooLarge": "protocol", "ProtocolError": "protocol",
+    "WireClient": "client", "WireDisconnected": "client",
+    "WireRefused": "client",
+})

@@ -43,7 +43,7 @@ so pre-trace peers interoperate byte-for-byte.
 The TXN_* and PEER_* frames are encoded and decoded here in full. The
 server answers the TXN_* frames once a transaction coordinator
 (``raft_tpu_torch.txn``) is attached, and the PEER_* frames once the
-cluster's ``PeerBackend`` (ROADMAP A17d) is; without them it treats them
+cluster's ``PeerBackend`` (``net/server.py``) is; without them it treats them
 as unknown kinds, as the JAX server does without them.
 """
 

@@ -71,13 +71,17 @@ zero extra device syncs attached or detached.
 from __future__ import annotations
 
 import asyncio
+import os
 import time
 from typing import Dict, List, Optional, Tuple
 
 from raft_tpu_torch.admission.gate import Overloaded
-from raft_tpu_torch.multi.engine import NotLeader, ReadLagging
+from raft_tpu_torch.errors import (
+    LinearizableReadRefused,
+    NotLeader,
+    ReadLagging,
+)
 from raft_tpu_torch.net import protocol as P
-from raft_tpu_torch.raft.engine import LinearizableReadRefused
 
 _NF = None
 
@@ -314,6 +318,97 @@ class RouterBackend:
         }
 
 
+class PeerBackend:
+    """The replica plane's server-side half (docs/CLUSTER.md): adapts a
+    ``cluster.node.RaftNode`` to the frame loop. Arms ``CAP_PEER`` and
+    the ``PEER_*`` kinds on the server it is attached to; a server
+    without one treats every peer frame as an unknown kind and closes —
+    the additive-capability contract, third time around.
+
+    Auth-before-anything: the first peer frame on a connection MUST be
+    ``PEER_HELLO`` with the cluster token; until it verifies, every
+    other peer kind is refused as a protocol error (the frame loop's
+    ERROR-and-close teardown). Peer frames are handled synchronously in
+    the reader task — pure host dict-ops, no device work — and replies
+    go back on the arrival connection."""
+
+    def __init__(self, node, auth=None):
+        self.node = node
+        self.auth = auth
+        self._peer_conns: Dict[int, object] = {}   # peer id -> last conn
+        self._flush_scheduled = False
+        self._no_crc = bool(os.environ.get("RAFT_TPU_PEER_NO_CRC"))
+
+    def on_frame(self, conn, kind: int, payload: bytes):
+        if kind == P.PEER_HELLO:
+            peer_id, last_idx, token, caps = \
+                P.decode_peer_hello_caps(payload)
+            if self.auth is not None:
+                self.auth.verify(token)       # raises PeerAuthError
+            conn.peer_id = peer_id
+            if caps & P.CAP_CRC and not self._no_crc:
+                # the dialer advertised CRC: seal every reply on this
+                # connection — our first flagged frame is what latches
+                # the dialer's own sealing (protocol.py CAP_CRC)
+                conn.crc_tx = True
+            wire = getattr(conn, "wire", None)
+            if wire is not None:
+                # re-scope the seam conn: peer traffic, not client —
+                # the fault plan distinguishes the two
+                wire.peer = peer_id
+                wire.client = False
+            self._peer_conns[peer_id] = conn
+            return self.node.on_peer_hello(peer_id, last_idx)
+        if getattr(conn, "peer_id", None) is None and self.auth is not None:
+            raise P.ProtocolError("peer frame before PEER_HELLO auth")
+        if getattr(conn, "peer_id", None) is not None:
+            self._peer_conns[conn.peer_id] = conn
+        out = self.node.on_peer_frame(kind, payload)
+        self._maybe_schedule_flush()
+        return out
+
+    # ------------------------------------------------- WAL group commit
+    def _maybe_schedule_flush(self) -> None:
+        """Group commit's scheduling half: when the node deferred acks
+        on an un-fsynced WAL tail, arrange ONE flush at the end of the
+        current event-loop sweep (``call_soon`` runs after every reader
+        task that already has buffered frames has handled them) — all
+        frames of the sweep share a single fsync, at zero added
+        latency. The ticker's ``flush_wal`` drain is only the laggard
+        fallback when no loop is running here."""
+        flush_pending = getattr(self.node, "wal_flush_pending", None)
+        if (self._flush_scheduled or flush_pending is None
+                or not flush_pending()):
+            return
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            return       # driven synchronously (unit tests): no sweep
+        self._flush_scheduled = True
+        loop.call_soon(self._do_flush)
+
+    def _do_flush(self) -> None:
+        self._flush_scheduled = False
+        try:
+            replies = self.node.flush_wal()
+        except Exception:
+            # a disk fail-stop lands here on a bare loop callback: the
+            # node has already flagged itself failed, and the ticker —
+            # which owns process teardown — re-raises on its next tick
+            return
+        for peer, frame in replies:
+            conn = self._peer_conns.get(peer)
+            if conn is not None and getattr(conn, "open", False):
+                conn.send(frame)
+            else:
+                # arrival connection died while the fsync ran: the
+                # dialer's outbound link carries the ack instead
+                self.node.outbox.append((peer, frame))
+
+    def status_snapshot(self) -> dict:
+        return self.node.status()
+
+
 class _Conn:
     """One accepted connection's server-side state."""
 
@@ -331,6 +426,8 @@ class _Conn:
         self.decoder = P.FrameDecoder(max_frame_bytes)
         self.session: Dict[int, int] = {}
         self.caps = 0            # negotiated capability intersection
+        self.peer_id = None      # set by an authenticated PEER_HELLO
+        self.crc_tx = False      # seal outbound frames (CAP_CRC peer)
         self.bytes_in = 0
         self.bytes_out = 0
         self.open = True
@@ -348,6 +445,8 @@ class _Conn:
         if not self.open:
             return 0
         try:
+            if self.crc_tx:
+                frame = P.crc_seal(frame)
             self.wire.write(frame)
             self.bytes_out += len(frame)
             return len(frame)
@@ -398,9 +497,9 @@ class IngestServer:
     ephemeral port — read ``.port`` after ``await start()``.
 
     ``txn=`` takes a ``raft_tpu_torch.txn.TxnCoordinator``: it arms the
-    TXN_* frames and CAP_TXN, as JAX's does. ``peer=`` (the cluster's
-    ``PeerBackend``, ROADMAP A17d) is not ported yet: not None, it raises
-    naming its item. Without a coordinator or a peer backend the server
+    TXN_* frames and CAP_TXN. ``peer=`` takes a :class:`PeerBackend`
+    over a ``raft_tpu_torch.cluster.RaftNode``: it arms the PEER_* frames
+    and CAP_PEER. Without a coordinator or a peer backend the server
     answers every TXN_* and PEER_* frame as JAX's does without them: an
     unknown kind, a connection-level ERROR and a close."""
 
@@ -457,10 +556,11 @@ class IngestServer:
         #   the CAP_TXN capability bit; the pump's sweep phase polls
         #   in-flight transactions exactly like awaited writes (None =
         #   the server predates transactions byte-for-byte)
-        if peer is not None:
-            raise NotImplementedError(
-                "IngestServer(peer=...) is not ported to raft_tpu_torch "
-                "yet: ROADMAP A17d (the cluster tier and its PeerBackend)")
+        self.peer = peer
+        #   PeerBackend — arms the PEER_* frames and CAP_PEER: this
+        #   server is one replica of a multi-process cluster and its
+        #   port carries replica-to-replica traffic alongside clients
+        #   (None = clients only, peer frames are unknown kinds)
         self.ssl = ssl
         #   ssl.SSLContext (cluster/auth.py server_ssl) — every byte of
         #   this port, client and peer alike, rides TLS when set
@@ -609,6 +709,8 @@ class IngestServer:
                     # never decode into the log; Raft's retransmit
                     # re-sends what mattered on the next heartbeat
                     self._refusal("peer_frame_corrupt")
+                    if self.peer is not None:
+                        self.peer.node.stats["peer_frames_corrupt"] += 1
                     return
             kind, trace, payload = P.split_trace(kind, payload)
             if kind == P.HELLO:
@@ -626,11 +728,13 @@ class IngestServer:
                 # capability (it would echo contexts it never
                 # recorded, handing clients bogus join hints) — so it
                 # does not advertise it; same for CAP_TXN without a
-                # coordinator to run the frames (CAP_PEER's backend comes
-                # with ROADMAP A17d)
+                # coordinator to run the frames, and CAP_PEER without a
+                # peer backend
                 speak = P.CAP_TRACE if self.spans is not None else 0
                 if self.txn is not None:
                     speak |= P.CAP_TXN
+                if self.peer is not None:
+                    speak |= P.CAP_PEER
                 conn.caps = caps & speak
                 entry_bytes, groups = self.backend.meta()
                 self._send(conn, P.encode_welcome(
@@ -676,11 +780,22 @@ class IngestServer:
                     req = _Req(conn, kind, req_id, b"", value=txn_id,
                                trace=trace)
                 self._count_request(P.KIND_NAMES[kind])
+            elif P.is_peer_kind(kind) and self.peer is not None:
+                # the replica plane: handled synchronously in the
+                # reader (pure host state transitions — the node's
+                # timers live on the ticker task and the pump's drive),
+                # replies written straight back on this connection. An
+                # auth failure raises PeerAuthError (a ProtocolError)
+                # into the handler below: ERROR + close, same teardown
+                # an unauthenticated prober gets for any bad frame.
+                self._count_request(P.KIND_NAMES[kind])
+                for reply in self.peer.on_frame(conn, kind, payload):
+                    self._send(conn, reply)
+                return
             else:
-                # a kind we do not speak (PEER_* included: this server
-                # fronts no peer backend; TXN_* without a coordinator)
-                # means the peer is desynced or newer than
-                # us: per the protocol contract a
+                # a kind we do not speak (PEER_* without a peer backend,
+                # TXN_* without a coordinator) means the peer is
+                # desynced or newer than us: per the protocol contract a
                 # connection-level ERROR CLOSES the stream (the reader
                 # loop breaks on conn.open below)
                 self._refusal("protocol_error")
@@ -1233,3 +1348,6 @@ class IngestServer:
         if self.txn is not None:
             self.status_board.publish(self.txn.status_snapshot(),
                                       section="txn")
+        if self.peer is not None:
+            self.status_board.publish(self.peer.status_snapshot(),
+                                      section="cluster")

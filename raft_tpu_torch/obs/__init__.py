@@ -35,8 +35,12 @@
   the engine's device, recorded beside the protocol steps (inside the
   fused window's CUDA graph too), flushed once per launch boundary into
   ``DeviceObs`` and interleaved with the recorder by
-  ``merged_timeline``. Its names are exported lazily: an engine with no
-  device plane attached never loads the module.
+  ``merged_timeline``. An engine with no device plane attached never
+  loads the module.
+
+Every name is exported lazily (``raft_tpu_torch._lazy``), so a process
+that needs one plane loads only that plane: a cluster replica imports
+``blackbox`` without PyTorch.
 
 Every artifact (recorder dumps, span tables, Prometheus text, SLO and
 status snapshots, bundles, journals) has the JAX package's format, so
@@ -44,48 +48,7 @@ either package's tools read either's (the device ring's packed flush
 too).
 """
 
-from raft_tpu_torch.obs import blackbox
-from raft_tpu_torch.obs.audit import AuditViolation, SafetyAuditor
-from raft_tpu_torch.obs.blackbox import (
-    BlackboxJournal,
-    StallWatchdog,
-    explain_journal,
-    explain_stall,
-    read_journal,
-)
-from raft_tpu_torch.obs.compile import (
-    CompileRecord,
-    CompileViolation,
-    CompileWatch,
-    RecompileError,
-    RetraceSentinel,
-    assert_no_recompiles,
-)
-from raft_tpu_torch.obs.events import Event, FlightRecorder, kind_of
-from raft_tpu_torch.obs.forensics import (
-    ObsStack,
-    explain,
-    load_bundle,
-    write_bundle,
-)
-from raft_tpu_torch.obs.hostprof import HostProfiler, PumpProfiler
-from raft_tpu_torch.obs.memory import (
-    DonationReport,
-    MemoryCensus,
-    MemoryWatch,
-    audit_donation,
-)
-from raft_tpu_torch.obs.metrics import LatencySummary, summarize_engine
-from raft_tpu_torch.obs.registry import MetricsRegistry, parse_prometheus
-from raft_tpu_torch.obs.serve import OpsServer, StatusBoard, serve_demo
-from raft_tpu_torch.obs.slo import (
-    LatencyDigest,
-    SLObjective,
-    SloAlert,
-    SloTracker,
-)
-from raft_tpu_torch.obs.spans import Span, SpanTracker
-from raft_tpu_torch.obs.trace import TraceRecord, TraceRecorder
+from raft_tpu_torch._lazy import exports
 
 __all__ = [
     "AuditViolation",
@@ -144,15 +107,32 @@ __all__ = [
     "write_bundle",
 ]
 
-#: the device plane's exports, loaded on first use (module doc)
+#: the device plane's exports (module doc)
 _DEVICE = ("COUNTER_METRICS", "COUNTER_NAMES", "KIND_NAMES", "REC_W",
            "ROLE_NAMES", "DeviceObs", "EventRing", "decode_records",
            "dev_record", "init_ring", "merged_timeline", "packed_flush")
 
-
-def __getattr__(name):
-    if name in _DEVICE:
-        from raft_tpu_torch.obs import device
-
-        return getattr(device, name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+# every export resolved on first use (``raft_tpu_torch._lazy``): a
+# process that needs only ``blackbox`` loads no other plane and no PyTorch
+__getattr__ = exports(__name__, {
+    "AuditViolation": "audit", "SafetyAuditor": "audit",
+    "BlackboxJournal": "blackbox", "StallWatchdog": "blackbox",
+    "explain_journal": "blackbox", "explain_stall": "blackbox",
+    "read_journal": "blackbox", "CompileRecord": "compile",
+    "CompileViolation": "compile", "CompileWatch": "compile",
+    "RecompileError": "compile", "RetraceSentinel": "compile",
+    "assert_no_recompiles": "compile", "Event": "events",
+    "FlightRecorder": "events", "kind_of": "events", "ObsStack": "forensics",
+    "explain": "forensics", "load_bundle": "forensics",
+    "write_bundle": "forensics", "HostProfiler": "hostprof",
+    "PumpProfiler": "hostprof", "DonationReport": "memory",
+    "MemoryCensus": "memory", "MemoryWatch": "memory",
+    "audit_donation": "memory", "LatencySummary": "metrics",
+    "summarize_engine": "metrics", "MetricsRegistry": "registry",
+    "parse_prometheus": "registry", "OpsServer": "serve",
+    "StatusBoard": "serve", "serve_demo": "serve", "LatencyDigest": "slo",
+    "SLObjective": "slo", "SloAlert": "slo", "SloTracker": "slo",
+    "Span": "spans", "SpanTracker": "spans", "TraceRecord": "trace",
+    "TraceRecorder": "trace",
+    **{name: "device" for name in _DEVICE},
+})

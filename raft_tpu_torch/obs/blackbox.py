@@ -34,8 +34,14 @@ plane, in two parts:
   drills' own marks, the wire drill's ``wire_run``, ``wire_serving``,
   ``wire_steady_done``, ``wire_leader_kill`` and ``wire_kill_ridden``
   among them, and the txn drill's ``txn_run``, ``txn_phase``,
-  ``txn_nemesis``, ``txn_check`` and ``txn_done``). The cluster drills'
-  marks wait for their tier (ROADMAP A17d).
+  ``txn_nemesis``, ``txn_check`` and ``txn_done``), and of the cluster
+  tier: the supervisor's ``cluster_spawn``, ``cluster_kill9``,
+  ``cluster_pause``/``cluster_resume``, ``cluster_partition*``,
+  ``cluster_heal``, ``cluster_net_fault`` and ``cluster_fail_stop``,
+  each child's ``child_start`` .. ``child_ready``, ``role_change`` and
+  ``child_fail_stop``, its node's election, WAL and snap-stream marks,
+  its dialer's ``peer_redial``/``peer_buf_drop``/``peer_conn_error``,
+  and the three cluster drills' own.
 
 - :class:`StallWatchdog` — a daemon thread that fires when no
   :meth:`StallWatchdog.pet` arrives for ``deadline_s`` seconds: it dumps

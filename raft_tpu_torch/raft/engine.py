@@ -144,6 +144,10 @@ from raft_tpu_torch.ec.reconstruct import (
     reconstruct,
 )
 from raft_tpu_torch.ec.rs import RSCode
+from raft_tpu_torch.errors import (
+    LinearizableReadRefused,
+    TicketEvicted,
+)
 from raft_tpu_torch.obs import blackbox
 from raft_tpu_torch.obs import profiling as _profiling
 from raft_tpu_torch.raft.lease import LeaseTable
@@ -166,23 +170,6 @@ def _pipeline_backend_ok(device) -> bool:
     hook (and the JAX engine's) to drive the flight through the plain
     versions."""
     return device is not None and torch.device(device).type == "cuda"
-
-
-class LinearizableReadRefused(Exception):
-    # not a RuntimeError: ReplicatedKV.linearizable_get's other failure
-    # mode (the apply stream paused behind an archive gap) raises
-    # RuntimeError, and the two call for different recovery actions
-    """``read_linearizable`` could not confirm leadership: the caller is
-    not leader, was deposed during the confirmation round, or cannot
-    reach a quorum of the configuration (a minority-side leader during a
-    partition). The read must be retried against the real leader."""
-
-
-class TicketEvicted(LinearizableReadRefused):
-    """A ``submit_read`` ticket was FIFO-evicted at the outstanding-ticket
-    cap (``READ_TICKET_CAP``), or idle past the admission TTL, before it
-    was polled; a consumed ticket polled after the eviction floor passed
-    it reads the same. The recovery is to re-issue the read."""
 
 
 class LearnerLagging(RuntimeError):

@@ -1,7 +1,8 @@
 """``python -m raft_tpu_torch.chaos`` against ``python -m raft_tpu.chaos``
 (argument errors, result lines, the forensics run of
-``.claude/skills/verify``; ``tests/test_device_obs.py:475``), the drills
-not ported yet, the device rule (the card unless ``--device cpu``, no
+``.claude/skills/verify``; ``tests/test_device_obs.py:475``), every drill
+flag reaching its runner (the cluster drills' result lines against JAX's
+over one report), the device rule (the card unless ``--device cpu``, no
 fallback), ``ChaosTransport``'s seam, and the bookkeeping of the graph
 pool (``core.graphs.POOL``) that hands a crashed engine's rings, staging
 buffer and CUDA graph sets to the restored one. Graph sets are captured
@@ -41,6 +42,11 @@ BAD_ARGS = [
     ["--cluster-storage", "--cluster-net"],
     ["--broken", "peer_no_crc"],
     ["--cluster-net", "--txn"],
+    ["--cluster", "--multi"],
+    ["--cluster-storage", "--broken", "peer_no_crc"],
+    ["--cluster-net", "--broken", "wal_skip_corrupt"],
+    ["--broken", "lease_stale_round"],
+    ["--broken", "wal_skip_corrupt"],
     ["--broken", "no_such_variant"],
 ]
 
@@ -63,34 +69,132 @@ def test_argument_errors_match_jax(argv, capsys):
     ("--cluster-storage", "A17d"), ("--cluster-net", "A17d")])
 def test_unported_drills_name_their_roadmap_item(flag, item, capsys,
                                                 monkeypatch):
-    """A drill whose tier is not ported exits 2 naming its item. The wire
-    drill's (A17b) and the txn drill's (A17c) are ported: ``--wire`` and
-    ``--txn`` get past the check and reach ``wire_run`` and ``txn_run``
-    (stubbed here; ``test_torch_wire_drill.py`` and
-    ``test_torch_txn_drill.py`` run the drills themselves), ``--txn`` on
-    two shards of ``--device``."""
+    """Every drill of the JAX CLI is ported: no flag exits naming a
+    ROADMAP item any more (the CLI has no ``NOT_PORTED`` table). Each
+    flag reaches its runner (stubbed here; ``test_torch_wire_drill.py``,
+    ``test_torch_txn_drill.py`` and ``test_torch_cluster_*.py`` run the
+    drills themselves): ``--wire`` on ``--device``, ``--txn`` on two
+    shards of it, and the cluster drills, which hold no tensor, with
+    JAX's arguments and no device."""
     import raft_tpu_torch.chaos.__main__ as cli
+
+    assert not hasattr(cli, "NOT_PORTED")
 
     class Reached(Exception):
         pass
 
     def stub(seed, **kw):
         mesh = kw.get("mesh")
-        raise Reached(seed, kw["device"],
-                      None if mesh is None else len(mesh.devices))
+        raise Reached(seed, kw.get("device"),
+                      None if mesh is None else len(mesh.devices),
+                      sorted(kw))
 
-    monkeypatch.setattr(cli, "wire_run", stub)
-    monkeypatch.setattr(cli, "txn_run", stub)
-    if item in ("A17b", "A17c"):
-        with pytest.raises(Reached) as ex:
-            tmain([flag, "--device", "cpu"])
-        assert ex.value.args == (
-            (0, "cpu", None) if item == "A17b" else (0, "cpu", 2))
-        assert "not ported" not in capsys.readouterr().err
-        return
-    assert tmain([flag, "--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert flag in err and item in err and "not ported" in err
+    for name in ("wire_run", "txn_run", "cluster_run", "cluster_storage_run",
+                 "cluster_net_run"):
+        monkeypatch.setattr(cli, name, stub)
+    with pytest.raises(Reached) as ex:
+        tmain([flag, "--device", "cpu"])
+    assert "not ported" not in capsys.readouterr().err
+    seed, device, shards, keys = ex.value.args
+    assert seed == 0
+    if item == "A17b":
+        assert (device, shards) == ("cpu", None)
+    elif item == "A17c":
+        assert (device, shards) == ("cpu", 2)
+    else:
+        assert device is None and shards is None
+        assert {"nodes", "clients", "keys", "step_budget",
+                "blackbox_dir"} <= set(keys)
+        assert ("broken" in keys) == (flag != "--cluster")
+
+
+class _Check:
+    def __init__(self, verdict):
+        self.verdict = verdict
+
+
+def _fake_report(flag, broken, healthy):
+    """One report object of the drill's shape, fed to both CLIs."""
+    from types import SimpleNamespace
+
+    verdict = "LINEARIZABLE" if healthy else "VIOLATION"
+    fields = dict(
+        verdict=verdict, per_class={"lease": _Check(verdict)}, ops=9,
+        op_counts={"write": 5}, nodes=3, kills=1, restarts=2,
+        partitions=1, pauses=1, flood_ops=32, generation=2,
+        segments_adopted=3, segments_resealed=0, snap_chunks_in=4,
+        rejoined=True, incarnations=2, failovers=0, handoff_ok=healthy,
+        wal_truncated=1, manifest_fallbacks=1, segment_reconstructs=1,
+        disk_full_sheds=2, stalls=1, eio_exit=97, eio_cert={"errno": 5},
+        fsync_after_eio=0, digest_ok=True, digest_detail="ok",
+        storage_ok=healthy, net_ok=healthy, frames_delayed=1,
+        frames_dup=1, frames_reordered=1, frames_replayed=1,
+        conns_torn=1, corrupt_injected=1, corrupt_dropped=1,
+        stale_round_ignored=1, demotions=1, reelected=True,
+        reelect_s=0.5, dialer_drops=0, redials=1, broken=broken,
+        caught=(None if broken is None else healthy),
+        caught_by="checker", base_dir="/x")
+    rep = SimpleNamespace(**fields)
+    rep.summary = lambda: f"{flag} summary"
+    return rep
+
+
+@pytest.mark.parametrize("argv", [
+    ["--cluster"], ["--cluster-storage"],
+    ["--cluster-storage", "--broken", "fsync_lies"],
+    ["--cluster-net"], ["--cluster-net", "--broken", "peer_no_crc"]],
+    ids=" ".join)
+@pytest.mark.parametrize("healthy", [True, False])
+def test_cluster_result_lines_and_exit_codes_equal_jax(argv, healthy,
+                                                       capsys, monkeypatch):
+    """Over one report, both CLIs print the same summary and JSON result
+    line and exit alike (a caught lie is success under ``--broken``)."""
+    import raft_tpu.chaos.__main__ as jcli
+    import raft_tpu_torch.chaos.__main__ as tcli
+
+    broken = argv[2] if len(argv) > 2 else None
+    rep = _fake_report(argv[0], broken, healthy)
+    fn = {"--cluster": "cluster_run", "--cluster-storage":
+          "cluster_storage_run", "--cluster-net": "cluster_net_run"}[argv[0]]
+    out = []
+    for cli, main in ((jcli, jmain), (tcli, tmain)):
+        monkeypatch.setattr(cli, fn, lambda seed, **kw: rep)
+        rc = main(argv)
+        out.append((rc, capsys.readouterr().out))
+    assert out[0] == out[1]
+    assert out[1][0] == (0 if healthy else 1)
+
+
+def test_cluster_broken_env_line_equals_jax(capsys, monkeypatch):
+    """``ClusterBroken`` (children cannot spawn) is the fast-fail
+    contract: one ``BROKEN_ENV`` line and exit 1, as JAX's."""
+    import raft_tpu.chaos.__main__ as jcli
+    import raft_tpu_torch.chaos.__main__ as tcli
+    from raft_tpu.cluster import ClusterBroken as JBroken
+    from raft_tpu_torch.cluster import ClusterBroken as TBroken
+
+    out = []
+    for cli, main, exc in ((jcli, jmain, JBroken), (tcli, tmain, TBroken)):
+        def boom(seed, _exc=exc, **kw):
+            raise _exc("3 consecutive young child deaths\nmore")
+
+        monkeypatch.setattr(cli, "cluster_run", boom)
+        out.append((main(["--cluster"]), capsys.readouterr().out))
+    assert out[0] == out[1]
+    assert json.loads(out[1][1])["verdict"] == "BROKEN_ENV"
+
+
+def test_cluster_net_flag_runs_a_caught_lie(capsys):
+    """One cluster drill end to end through the port's CLI: the
+    ``peer_no_crc`` variant (three real children, ~5 s) is caught by the
+    digest plane, which is the flag's success."""
+    rc, line = result_line(tmain, ["--cluster-net", "--seed", "7",
+                                   "--broken", "peer_no_crc"], capsys)
+    assert rc == 0
+    assert line["caught"] is True and line["caught_by"] == "digest"
+    import shutil
+
+    shutil.rmtree(line["base_dir"], ignore_errors=True)
 
 
 def result_line(main, argv, capsys):

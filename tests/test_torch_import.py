@@ -65,6 +65,11 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import raft_tpu_torch.net, raft_tpu_torch.net.protocol\n"
         "import raft_tpu_torch.net.client, raft_tpu_torch.net.server\n"
         "import raft_tpu_torch.cluster.netfault\n"
+        "import raft_tpu_torch.cluster.auth, raft_tpu_torch.cluster.node\n"
+        "import raft_tpu_torch.cluster.dialer\n"
+        "import raft_tpu_torch.cluster.supervisor\n"
+        "import raft_tpu_torch.cluster.child\n"
+        "from raft_tpu_torch.cluster import RaftNode, ClusterSupervisor\n"
         "import raft_tpu_torch.chaos, raft_tpu_torch.chaos.runner\n"
         "import raft_tpu_torch.chaos.__main__\n"
         "import raft_tpu_torch.txn, raft_tpu_torch.txn.ops\n"
@@ -228,15 +233,16 @@ def _dotted(node) -> str:
 
 
 def test_peer_bytes_ride_the_netfault_seam():
-    """The port of ``tests/test_lint.py``'s seam gate over
-    ``raft_tpu_torch/net/server.py``: no ``open_connection``, no raw
-    socket, and no read, write or drain on a bare reader or writer —
-    every byte goes through ``cluster/netfault.py``'s ``RealConn`` /
-    ``FaultyConn`` (``.close()`` and ``asyncio.start_server`` are
-    fine)."""
-    rel = "raft_tpu_torch/net/server.py"
+    """The port of ``tests/test_lint.py``'s seam gate over the dialer and
+    the server: no ``open_connection``, no raw socket, and no read, write
+    or drain on a bare reader or writer — every byte goes through
+    ``cluster/netfault.py``'s ``RealConn`` / ``FaultyConn`` (``.close()``
+    and ``asyncio.start_server`` are fine)."""
     offenders = []
-    for node in ast.walk(ast.parse((ROOT / rel).read_text())):
+    for rel, node in ((rel, node) for rel in (
+            "raft_tpu_torch/cluster/dialer.py",
+            "raft_tpu_torch/net/server.py")
+            for node in ast.walk(ast.parse((ROOT / rel).read_text()))):
         if not isinstance(node, ast.Call):
             continue
         name = _dotted(node.func)
@@ -252,3 +258,101 @@ def test_peer_bytes_ride_the_netfault_seam():
                 offenders.append(f"{rel}:{node.lineno}: "
                                  f"{recv}.{node.func.attr}")
     assert not offenders, "\n".join(offenders)
+
+
+def _write_mode_open(call) -> bool:
+    """open(...) with a write, append or create mode (a dynamic mode
+    counts), as the JAX gate reads it."""
+    if _dotted(call.func) != "open":
+        return False
+    mode = call.args[1] if len(call.args) >= 2 else None
+    for kw in call.keywords:
+        if kw.arg == "mode":
+            mode = kw.value
+    if mode is None:
+        return False
+    if not isinstance(mode, ast.Constant) or not isinstance(mode.value,
+                                                             str):
+        return True
+    return any(ch in mode.value for ch in "wax+")
+
+
+@pytest.mark.parametrize("rel", ["raft_tpu_torch/cluster/node.py",
+                                 "raft_tpu_torch/ckpt/tiered.py"])
+def test_durable_writes_ride_the_vfs_seam(rel):
+    """The port of ``tests/test_lint.py``'s fsync gate: in the replica and
+    the tiered store no write-mode ``open``, no ``os.fsync`` or
+    ``os.replace`` and no ``tempfile`` — every durable write goes through
+    ``cluster/storage.py``, where the lying disk can cover it."""
+    offenders = []
+    for node in ast.walk(ast.parse((ROOT / rel).read_text())):
+        if isinstance(node, ast.Call):
+            name = _dotted(node.func)
+            if (name in ("os.fsync", "os.replace")
+                    or name.startswith("tempfile.")
+                    or _write_mode_open(node)):
+                offenders.append(f"{rel}:{node.lineno}: {name}")
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            mods = [a.name for a in node.names]
+            if "tempfile" in mods or getattr(node, "module", None) == \
+                    "tempfile":
+                offenders.append(f"{rel}:{node.lineno}: import tempfile")
+    assert not offenders, "\n".join(offenders)
+
+
+def test_cluster_package_resolves_its_names_lazily():
+    """``raft_tpu_torch.cluster`` exports JAX's ``__all__``; importing the
+    package, or its wire and storage seams, loads no ``node.py`` (which
+    imports both seams back), and a name of ``__all__`` loads its module
+    on first use."""
+    import raft_tpu.cluster as jcluster
+
+    code = (
+        "import sys; sys.path.insert(0, %r)\n"
+        "import raft_tpu_torch.cluster as c\n"
+        "import raft_tpu_torch.cluster.netfault\n"
+        "import raft_tpu_torch.cluster.storage\n"
+        "import raft_tpu_torch.ckpt.tiered\n"
+        "assert 'raft_tpu_torch.cluster.node' not in sys.modules\n"
+        "print(sorted(c.__all__))\n"
+        "assert c.RaftNode.__module__ == 'raft_tpu_torch.cluster.node'\n"
+        "assert c.ClusterBroken.__module__.endswith('.supervisor')\n"
+        % str(ROOT)
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-I", "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip() == str(sorted(jcluster.__all__))
+
+
+def test_a_cluster_replica_loads_no_torch(tmp_path):
+    """A cluster replica is pure host code: the child entry point's
+    imports, a ``RaftNode`` that seals segments through the host codec,
+    and its restart adopting them load no PyTorch, so no child process
+    can open a CUDA context (the supervisor also hides the card)."""
+    code = (
+        "import sys; sys.path.insert(0, %r)\n"
+        "import raft_tpu_torch.cluster.child\n"
+        "from raft_tpu_torch.cluster.node import RaftNode, pack_record\n"
+        "from raft_tpu_torch.net import protocol as P\n"
+        "peers = {0: 'h:1', 1: 'h:2', 2: 'h:3'}\n"
+        "kw = dict(segment_entries=8, hot_entries=16, seed=1)\n"
+        "n = RaftNode(1, peers, %r, **kw)\n"
+        "recs = [(1, pack_record(b'k%%d' %% i, b'v')) for i in range(60)]\n"
+        "(k, pl), = P.FrameDecoder().feed(P.encode_peer_append(\n"
+        "    0, term=1, prev_idx=0, prev_term=0, commit=60, round_no=1,\n"
+        "    entries=recs))\n"
+        "n.on_peer_frame(k, pl)\n"
+        "assert n.store.stats['segments_sealed'] >= 1\n"
+        "r = RaftNode(1, peers, %r, **kw)\n"
+        "assert r.store.stats['segments_adopted'] >= 1 and r.last_idx == 60\n"
+        "bad = sorted(m for m in sys.modules if m == 'torch'\n"
+        "             or m.startswith('torch.'))\n"
+        "print(bad[:5]); sys.exit(1 if bad else 0)\n"
+        % (str(ROOT), str(tmp_path), str(tmp_path))
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-I", "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr

@@ -281,16 +281,20 @@ def test_txn_and_peer_frames_answered_as_jax_without_them(case):
 
 
 def test_txn_and_peer_arguments_name_their_roadmap_items():
-    """``peer=`` still waits for its tier and raises naming A17d; ``txn=``
-    (A17c, ported) arms the server (``test_torch_txn_wire.py`` drives
-    it)."""
+    """Both tiers are ported, so neither argument names a ROADMAP item any
+    more: ``txn=`` (A17c) and ``peer=`` (A17d) each arm the server
+    (``test_torch_txn_wire.py`` and ``test_torch_cluster_peer.py`` drive
+    them), as JAX's ``IngestServer`` takes them."""
     e = PT.engine(engine_cfg(PT))
     backend = PT.net.EngineBackend(e)
-    coord = object()
+    coord, peer = object(), object()
     assert PT.net.IngestServer(backend, txn=coord).txn is coord
-    with pytest.raises(NotImplementedError, match="A17d"):
-        PT.net.IngestServer(backend, peer=object())
-    PT.net.IngestServer(backend, txn=None, peer=None)
+    assert PT.net.IngestServer(backend, peer=peer).peer is peer
+    srv = PT.net.IngestServer(backend, txn=None, peer=None)
+    assert srv.txn is None and srv.peer is None
+    jsrv = JX.net.IngestServer(JX.net.EngineBackend(JX.engine(
+        engine_cfg(JX))), peer=peer)
+    assert jsrv.peer is peer
 
 
 # ------------------------------------------------------- session tokens
