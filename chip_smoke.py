@@ -412,6 +412,29 @@ entries, batch 256, a 4096-slot ring each; ``bench.py``
     nothing resealed on adoption); (c) K5 at the reference's shape
     against its plain version and timed. Only K5 may launch, only in the
     reference. No ERROR frame and no pump crash;
+11k. ``laps_path``: the lapped flight and the engine's fault paths. (a)
+    ``bench.py``'s lapped chunk (``bench_client_latency``) through
+    ``RaftEngine`` at ``RaftConfig(pipeline_max_laps=8)`` at the north
+    star: a warm chunk, then two timed chunks of 262 144 entries, each of
+    which must ride exactly one flight of 256 steps (K3's plan, then K4
+    across 8 laps), beside the one-ring chunk (a warm one and three timed
+    of 32 768 entries, one flight of 32 steps each); each chunk's wall,
+    entries/s and its parts (pack, fold and upload, the flight's device
+    ms, bookkeeping, intake), and the last ring read back through
+    ``committed_entries`` and from both followers against the input's
+    SHA-256; K4 at T = 256 against its plain version, then timed beside
+    its byte bound (only the last lap's windows reach the ring) and its
+    ``index_copy_`` + ``fill_`` yardstick at that shape; (b) the lapped
+    engine at C = 4 096 (8 laps: T = 32) on the card and on the CPU, the
+    flight gate opened there: nodelog lines, flights, read-backs and
+    every state leaf equal; (c) the JAX package's fault schedules
+    (``tests/_torch_faults.py``) on the card and on the CPU, equal in
+    nodelog lines, leaders by term, ``_ring_floor``, the watermark, every
+    row's retained committed bytes and every state leaf: the ring-lap
+    chaos seeds 22 and 25 (K1, K2), the EC lap chaos seed 12 (K2 on
+    K7-encoded windows, K6 in its heals), the pipelined multi-lap chaos
+    seed 3 (K3, K4 at T = 4), a partition schedule and a
+    PreVote/CheckQuorum storm;
 
 Then the replica mesh: one replica row per rank of a ``torch.distributed``
 gloo group, all ranks on the one card (three processes time-sharing it,
@@ -4251,20 +4274,49 @@ def time_steady_kernels(cfg, dev, rng, reps, consts=None):
     def plan():
         k3(turnover_ok=True)
 
+    out["K4" + tag] = k4_timing(cfg, st, vecs, wins32, counts, al, sl, prm,
+                                br, o3, reps, consts)
+    flight = dict(k3=k3, plan=plan, wins=wins32, counts=counts, prm=prm,
+                  br=br, out=o3, slow=sl, split=split)
+    if consts is None:      # the parity mode has no library counterpart
+        flight["library_ms"] = k4_yardstick_ms(st, vecs, wins32, reps)
+    return out, flight
+
+
+def k4_timing(cfg, st, vecs, wins, counts, al, sl, prm, br, out, reps,
+              consts=None):
+    """K4 (K4·ec with ``consts``) over the T = len(wins) steps of a
+    turnover flight on ``st``, each launch behind K3's plan (which decides
+    on the device; its writer exits): ((device ms, wrapper ms), plain ms,
+    bytes). The bytes: the window rows that survive the flight (the last
+    C/B steps' when T*B laps the ring) read once, every payload and term
+    slot written once, the plane read and written."""
+    from raft_tpu_torch.core import step_cuda as sc
+
+    C, B, L = cfg.log_capacity, cfg.batch_size, cfg.rows
+    M = L * cfg.shard_words
+    T, Mk = wins.shape[0], wins.shape[2]
+    tag = "" if consts is None else "·ec"
+    dev = wins.device
+
+    def plan():
+        sc.pipeline_flight(vecs, st.log_payload, st.log_term, wins, counts,
+                           al, sl, None, prm, br, True, out, consts)
+
     k4_calls = [0]
 
     def k4():
         k4_calls[0] += 1
-        sc.turnover_flight(vecs, st.log_payload, st.log_term, wins32, T,
-                           prm, o3, consts)
+        sc.turnover_flight(vecs, st.log_payload, st.log_term, wins, T, prm,
+                           out, consts)
 
     def k4p():
         w = sc.workspace(dev)
-        sc.pipeline_flight_plain(vecs, st.log_payload, st.log_term, wins32,
-                                 counts, al, sl, None, prm, br, True, o3, w,
+        sc.pipeline_flight_plain(vecs, st.log_payload, st.log_term, wins,
+                                 counts, al, sl, None, prm, br, True, out, w,
                                  consts)
-        sc.turnover_flight_plain(vecs, st.log_payload, st.log_term, wins32,
-                                 T, prm, o3, w, consts)
+        sc.turnover_flight_plain(vecs, st.log_payload, st.log_term, wins, T,
+                                 prm, out, w, consts)
 
     work = sc.workspace(dev)
     ran4 = int(work[sc.WK_RAN4])
@@ -4273,18 +4325,23 @@ def time_steady_kernels(cfg, dev, rng, reps, consts=None):
     # session that lost records is run again, with launches of its own)
     check(int(work[sc.WK_RAN4]) - ran4 == k4_calls[0] >= 2 * reps + 2,
           "timed turnover launches did not all run the flight")
-    # bytes: the T*B = C window rows that survive the flight read once,
-    # every payload and term slot written once
-    k4_bytes = T * B * Mk * 4 + C * M * 4 + L * C * 4 + 2 * 6 * L * 4
-    out["K4" + tag] = (k4_time, _host_ms(k4p, reps), k4_bytes)
-    flight = dict(k3=k3, plan=plan, wins=wins32, counts=counts, prm=prm,
-                  br=br, out=o3, slow=sl, split=split)
-    if consts is None:      # the parity mode has no library counterpart
-        check(T * B == C, "the yardstick needs one writer a slot")
-        flight["library_ms"] = ops_ms(ring_yardstick(
-            st.log_payload, st.log_term, wins32, int(vecs[2, 0]) % C, 1),
-            reps)
-    return out, flight
+    k4_bytes = (min(T * B, C) * Mk * 4 + C * M * 4 + L * C * 4
+                + 2 * 6 * L * 4)
+    return k4_time, _host_ms(k4p, reps), k4_bytes
+
+
+def k4_yardstick_ms(st, vecs, wins, reps):
+    """The library yardstick of a turnover flight: the rows of its last
+    C/B steps (the ones that reach the ring; T*B a multiple of C) as one
+    ``index_copy_`` from the flight's start slot, and the term ring as one
+    ``fill_``."""
+    B = wins.shape[1]
+    C = st.log_term.shape[1]
+    T = wins.shape[0]
+    check(T * B % C == 0, "the yardstick needs one writer a slot")
+    return ops_ms(ring_yardstick(st.log_payload, st.log_term,
+                                 wins[T - C // B:], int(vecs[2, 0]) % C, 1),
+                  reps)
 
 
 def k2_split(timed):
@@ -8718,6 +8775,8 @@ LIBRARY_IS = {
           "the window terms (all rows accepting, no conflict to check)",
     "K4": "index_copy_ of the T*B = C window rows and fill_ of the term "
           "ring",
+    "K4 lapped": "index_copy_ of the last lap's C window rows (the ones "
+                 "that reach the ring) and fill_ of the term ring",
     "K4·mesh": "index_copy_ of the T*B = C window rows and fill_ of the "
                "term row",
     "K5": "write-only yardstick: one index_copy_ of every group's window "
@@ -11911,6 +11970,335 @@ def phase_cluster_path(dev, card_line):
     return res
 
 
+# ------------------------------------ 11k. the lapped flight and the faults
+#: ``bench.py``'s lapped chunk (``bench_client_latency`` :823-870): rings a
+#: launch, and the chunks after the warm one that are timed; beside it the
+#: one-ring chunk (:796-821) and its timed chunks
+LAPS = 8
+LAPS_TIMED = 2
+ONE_RING_TIMED = 3
+#: (b)'s engine: 8 laps of a 4 096-slot ring (T = 32) card against CPU
+LAPS_SMALL_CAPACITY = 4096
+LAPS_SMALL_CHUNKS = (4096, 8 * 4096, 8 * 4096 + 4096, 2048)
+#: (c)'s fault schedules (``tests/_torch_faults.py``), card against CPU:
+#: the ring-lap chaos reproducers, an EC lap-chaos seed, the pipelined
+#: multi-lap chaos, one partition and one PreVote schedule
+LAP_CHAOS_RUNS = (("run_lap_chaos", (22,)), ("run_lap_chaos", (25,)),
+                  ("run_ec_lap_chaos", (12,)),
+                  ("run_pipelined_lap_chaos", (3,)),
+                  ("partition_safety", (0, 5)), ("pv_chaos_mix", ()))
+#: the kernels whose launches laps_path reports (``read_engine_ec_counters``)
+LAPS_KERNELS = ("K1", "K2", "K3", "K4", "K6 encode", "K6 decode", "K7")
+
+
+def lapped_config(capacity, laps):
+    from raft_tpu_torch.config import RaftConfig
+
+    return RaftConfig(n_replicas=3, entry_bytes=256, batch_size=1024,
+                      log_capacity=capacity, transport="single",
+                      pipeline_max_laps=laps)
+
+
+class ChunkClock:
+    """The parts of a timed ``submit_pipelined`` chunk: the host's pack
+    and fold (with the upload), each flight (CUDA events on the card, the
+    host wall of the call with its result read), and the chunk's
+    bookkeeping (seqs, commit stamps, the archive); the rest of the wall
+    is the intake (one ``submit`` an entry) and the gate."""
+
+    def __init__(self, e, dev):
+        import raft_tpu_torch.raft.engine as engine_mod
+
+        self.e, self.cuda = e, str(dev) != "cpu"
+        self.flights, self.parts = [], {}
+        self.mod, self.fold = engine_mod, engine_mod.fold_batch
+        self.pack, self.account = e._pack_entries, e._account_chunk_prefix
+        self.fly = e.t.replicate_pipeline
+        engine_mod.fold_batch = self._wrap("fold_batch_ms", self.fold)
+        e._pack_entries = self._wrap("pack_entries_ms", self.pack)
+        e._account_chunk_prefix = self._wrap("bookkeeping_ms", self.account)
+        e.t.replicate_pipeline = self._flight
+
+    def _wrap(self, key, fn):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.parts[key] = self.parts.get(key, 0.0) + \
+                    (time.perf_counter() - t0) * 1e3
+        return timed
+
+    def _flight(self, state, payloads, counts, *a, **k):
+        import torch
+
+        self.flights.append(int(counts.shape[0]))
+        t0 = time.perf_counter()
+        if self.cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        out = self.fly(state, payloads, counts, *a, **k)
+        if self.cuda:
+            ev[1].record()
+            torch.cuda.synchronize()
+            self.parts["flight_events_ms"] = self.parts.get(
+                "flight_events_ms", 0.0) + ev[0].elapsed_time(ev[1])
+        self.parts["flight_call_ms"] = self.parts.get(
+            "flight_call_ms", 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+    def start(self):
+        self.flights.clear()
+        self.parts.clear()
+
+    def close(self):
+        self.mod.fold_batch = self.fold
+        for name in ("_pack_entries", "_account_chunk_prefix"):
+            self.e.__dict__.pop(name, None)
+        self.e.t.replicate_pipeline = self.fly
+
+
+def lapped_chunks(cfg, dev, chunks, seed, clock=False):
+    """The engine at ``cfg`` on ``dev``: an election, then one
+    ``submit_pipelined`` chunk of seeded entries per entry count in
+    ``chunks``; after each, the flights it launched (and with ``clock``
+    its wall and the ``ChunkClock`` parts). At the end the last ring is
+    read back through ``committed_entries`` and from both followers, each
+    SHA-256 against the input's. Returns (result, fingerprint): the
+    fingerprint is what a card run and a CPU run must agree on (nodelog
+    lines, flights, watermark, read-back hashes, every state leaf)."""
+    import torch
+
+    from raft_tpu_torch.core.state import log_entries, state_to_numpy
+    from raft_tpu_torch.raft import RaftEngine
+    from raft_tpu_torch.transport.device import SingleDeviceTransport
+
+    lines = []
+    e = RaftEngine(cfg, SingleDeviceTransport(cfg, device=dev),
+                   trace=lines.append)
+    ck = ChunkClock(e, dev)
+    rng = np.random.default_rng(seed)
+    E, C = cfg.entry_bytes, cfg.log_capacity
+    sent = []
+    runs = []
+    try:
+        e.run_until_leader()
+        for n in chunks:
+            blob = rng.integers(0, 256, n * E, dtype=np.uint8).tobytes()
+            sent.append(blob)
+            ps = [blob[i * E:(i + 1) * E] for i in range(n)]
+            ck.start()
+            if ck.cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            seqs = e.submit_pipelined(ps)
+            if ck.cuda:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(e.is_durable(seqs[-1]), f"a chunk of {n} is not durable")
+            run = {"entries": n, "flights": list(ck.flights),
+                   "watermark": e.commit_watermark}
+            if clock:
+                parts = dict(ck.parts)
+                host = wall * 1e3 - parts.get("flight_events_ms", 0.0)
+                known = sum(v for k, v in parts.items()
+                            if k not in ("flight_events_ms",))
+                parts["intake_and_gate_ms"] = wall * 1e3 - known
+                run.update(wall_ms=wall * 1e3, entries_per_s_wall=n / wall,
+                           host_ms=host, parts=parts)
+            runs.append(run)
+    finally:
+        ck.close()
+    whole = b"".join(sent)
+    wm = e.commit_watermark
+    check(wm == len(whole) // E, f"committed {wm} of {len(whole) // E}")
+    lo = max(1, wm - C + 1)
+    want = hashlib.sha256(whole[(lo - 1) * E:wm * E]).hexdigest()
+    got = {"committed_entries": hashlib.sha256(
+        e.committed_entries(lo, wm).tobytes()).hexdigest()}
+    for r in range(cfg.rows):
+        if r != e.leader_id:
+            got[f"row{r}"] = hashlib.sha256(
+                log_entries(e.state, r, lo, wm).tobytes()).hexdigest()
+    for k, v in got.items():
+        check(v == want, f"lapped chunks: {k}'s last ring differs from the "
+                         "input's")
+    fp = {"lines": lines, "flights": [r["flights"] for r in runs],
+          "watermark": wm, "read_back": got,
+          "state": state_to_numpy(e.state)}
+    return {"chunks": runs, "last_ring": {"lo": lo, "hi": wm,
+                                          "sha256": want,
+                                          "readers": sorted(got)}}, fp
+
+
+def lapped_north_star(dev):
+    """(a) ``bench.py``'s lapped chunk and its one-ring baseline at the
+    north star (3 replicas, 256-byte entries, B = 1 024, C = 32 768): a
+    warm chunk, then timed chunks; each timed lapped chunk must ride
+    exactly one launch of LAPS·C/B steps, each timed one-ring chunk one
+    of C/B."""
+    C = 32768
+    out = {}
+    for name, laps, timed in (("one_ring", 1, ONE_RING_TIMED),
+                              ("lapped", LAPS, LAPS_TIMED)):
+        cfg = lapped_config(C, laps)
+        zero_ec_counters(dev)
+        res, _ = lapped_chunks(cfg, dev, [laps * C] * (1 + timed),
+                               SEED + 120 + laps, clock=True)
+        T = laps * C // cfg.batch_size
+        for run in res["chunks"][1:]:
+            check(run["flights"] == [T],
+                  f"{name}: a timed chunk launched {run['flights']}, not "
+                  f"one flight of {T} steps")
+        timed_runs = res["chunks"][1:]
+        best = min(timed_runs, key=lambda r: r["wall_ms"])
+        res.update(laps=laps, steps_per_flight=T,
+                   launches=read_engine_ec_counters(dev),
+                   best_wall_ms=best["wall_ms"],
+                   best_entries_per_s_wall=best["entries_per_s_wall"])
+        check(res["launches"]["K4"] >= timed,
+              f"{name}: K4 launched {res['launches']['K4']} times")
+        out[name] = res
+    return out
+
+
+def lapped_k4(dev, rate, reps=21):
+    """K4 at the lapped shape (T = LAPS·C/B = 256 steps at the north
+    star): held against its plain version on one flight, then timed (the
+    profiler's device time behind K3's plan), beside its byte bound (only
+    the last lap's windows reach the ring) and its ``index_copy_`` +
+    ``fill_`` yardstick at that shape."""
+    import torch
+
+    from raft_tpu_torch.core import step_cuda as sc
+
+    cfg = lapped_config(32768, LAPS)
+    C, B, L = cfg.log_capacity, cfg.batch_size, cfg.rows
+    T = LAPS * C // B
+    rng = np.random.default_rng(SEED + 131)
+    st = steady_state(cfg, dev, 5 * B, rng=rng)
+    wrote, err, commit = flight_case(cfg, dev, rng, st, T, T, [B] * T,
+                                     [1] * L, [0] * L, True)
+    check(wrote and err == 0 and commit == 5 * B + T * B,
+          f"K4 at T = {T}: wrote {wrote}, max_abs_err {err}, commit "
+          f"{commit}")
+    vecs = sc.pack(st)
+    wins = torch.stack([rand_window(rng, B, cfg.rows * cfg.shard_words, dev)
+                        for _ in range(T)])
+    counts = torch.full((T,), B, dtype=torch.int32, device=dev)
+    al = torch.ones(L, dtype=torch.bool, device=dev)
+    sl = torch.zeros(L, dtype=torch.bool, device=dev)
+    prm = sc.step_params(0, 1, 1, 0, 0, cfg.commit_quorum, L)
+    o3 = torch.zeros(L + 5, dtype=torch.int32, device=dev)
+    (ms, call_ms), plain_ms, nbytes = k4_timing(
+        cfg, st, vecs, wins, counts, al, sl, prm, sc.pick_br(B, C), o3, reps)
+    library = k4_yardstick_ms(st, vecs, wins, reps)
+    return {"steps": T, "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bytes": nbytes,
+            "bound_ms": nbytes / rate * 1e3, "library_ms": library,
+            "window_stack_bytes": int(wins.numel()) * 4}
+
+
+def fault_schedules():
+    """``tests/_torch_faults.py`` (the JAX package's fault schedules
+    written against the engine API; it imports no JAX), loaded from its
+    path: an installed package named ``tests`` may come first on
+    ``sys.path``."""
+    import importlib.util
+
+    name = "raft_tpu_torch_fault_schedules"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, HERE / "tests" / "_torch_faults.py")
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[name]
+
+
+def fault_run(name, args):
+    """A ``card_vs_cpu`` runner of one schedule of
+    ``tests/_torch_faults.py`` through the port's engine: its facts, and
+    as its fingerprint ``observe``'s fields, the schedule's own
+    observations and every state leaf."""
+    def run(cfg, where, plan, timed=False):
+        from raft_tpu_torch.core.state import state_to_numpy
+
+        F = fault_schedules()
+        pkg = F.package("port", where)
+        e, extra = getattr(F, name)(pkg, *args)
+        obs = F.observe(pkg, e)
+        facts = {"watermark": obs["watermark"], "lines": len(obs["lines"]),
+                 "terms": len(obs["leaders_by_term"]),
+                 "ring_floor": obs["ring_floor"],
+                 "archive_checked": obs["archive_checked"]}
+        return facts, dict(obs, extra=extra, state=state_to_numpy(e.state))
+    return run
+
+
+def lapped_run(cfg, where, chunks, timed=False):
+    """A ``card_vs_cpu`` runner of ``lapped_chunks``."""
+    return lapped_chunks(cfg, where, chunks, SEED + 140, clock=timed)
+
+
+def phase_laps_path(dev, card_line):
+    """The lapped flight and the engine's fault paths (module doc, 11k):
+    (a) ``bench.py``'s lapped chunk at the north star with its one-ring
+    baseline; K4 at T = 256 against its plain version, timed beside its
+    bound and yardstick; (b) the lapped engine at C = 4 096 on the card
+    against the CPU; (c) the fault schedules card against CPU."""
+    import torch
+
+    t_phase = time.perf_counter()
+    res = {"phase": "laps_path", "card": card_line}
+
+    def step(name):
+        print(f"laps_path: {name} at "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    rate = mem_rate(card_line)
+    step("(a) the lapped chunk")
+    res["north_star"] = lapped_north_star(dev)
+    step("(a) K4 at T = 256")
+    res["k4_lapped"] = lapped_k4(dev, rate)
+    # (b) 8 laps of a 4 096-slot ring, card against CPU
+    step("(b) the lapped engine, card vs CPU")
+    cfg = lapped_config(LAPS_SMALL_CAPACITY, LAPS)
+    card, small_launches, walls, _ = card_vs_cpu(
+        lapped_run, cfg, dev, LAPS_SMALL_CHUNKS,
+        "the lapped engine at C = 4 096")
+    T = LAPS * LAPS_SMALL_CAPACITY // cfg.batch_size
+    flights = [c["flights"] for c in card["chunks"]]
+    check(any(T in f for f in flights),
+          f"the lapped engine never flew {T} steps: {flights}")
+    res["engine_small"] = dict(card, launches=small_launches, walls_s=walls,
+                               card_equals_cpu=True)
+    engine_laps = {k: sum(r["launches"][k] for r in
+                          res["north_star"].values()) + small_launches[k]
+                   for k in LAPS_KERNELS}
+    # (c) the fault schedules, card against CPU
+    chaos = {k: 0 for k in LAPS_KERNELS}
+    res["faults"] = {}
+    for name, args in LAP_CHAOS_RUNS:
+        step(f"(c) {name}{args}")
+        facts, launches, walls, _ = card_vs_cpu(
+            fault_run(name, args), None, dev, None, f"{name}{args}")
+        for k in LAPS_KERNELS:
+            chaos[k] += launches[k]
+        res["faults"][f"{name}{args}"] = dict(facts, launches=launches,
+                                             walls_s=walls,
+                                             card_equals_cpu=True)
+    # the EC engine encodes its windows with K7 and steps them with K2
+    # (K2·ec's in-kernel parity is the scans' mode, not the engine's)
+    for k in ("K1", "K2", "K3", "K4", "K6 encode", "K7"):
+        check(chaos[k] > 0, f"lap chaos: {k} never launched: {chaos}")
+    res["launches"] = {"engine_laps": engine_laps, "lap_chaos": chaos}
+    torch.cuda.synchronize()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 #: phases ``--only=a,b`` runs alone (after the card and the build): the
 #: kernels against their plain versions, the mesh engine's (1-D and
 #: 2-D), and the resident main paths whose host code the mesh engine's
@@ -11941,7 +12329,9 @@ ONLY_PHASES = {"kernels": lambda dev: phase_kernels(ns_config(), dev),
                "txn_path":
                lambda dev: phase_txn_path(dev, card_query()),
                "cluster_path":
-               lambda dev: phase_cluster_path(dev, card_query())}
+               lambda dev: phase_cluster_path(dev, card_query()),
+               "laps_path":
+               lambda dev: phase_laps_path(dev, card_query())}
 
 
 def main() -> int:
@@ -12001,6 +12391,7 @@ def main() -> int:
     wire = phase_wire_path(dev, card_line)
     txn = phase_txn_path(dev, card_line)
     cluster = phase_cluster_path(dev, card_line)
+    laps = phase_laps_path(dev, card_line)
     mesh_errs = phase_mesh_kernels(cfg, ecfg, dev)
     mesh_kernel_times = time_mesh_kernels(
         cfg, dev, np.random.default_rng(SEED + 31), 21, mem_rate(card_line))
@@ -12086,6 +12477,13 @@ def main() -> int:
                 # RS(6,3): the EC cluster grown 5 -> 6 -> 4 on the card
                 by_path["ec_membership_card_equals_cpu"] = \
                     ec_member["launches"][key]
+            # the lapped flight through the engine (the north star's
+            # lapped and one-ring chunks, 8 laps at C = 4 096 card vs CPU)
+            # and the fault schedules on the card (laps_path)
+            for path in ("engine_laps", "lap_chaos"):
+                n = laps["launches"][path].get(key, 0)
+                if n:
+                    by_path[path] = n
             # the engine over the mesh: the mirrored ranks' launches
             for path, ph in engine_mesh.items():
                 n = ph["launches"].get(key, 0)
@@ -12150,6 +12548,23 @@ def main() -> int:
             "bound_by": "bytes", "library_ms": t["library_ms"],
             "library_is": LIBRARY_IS["K5"], "matches_plain": True,
         })
+    # K4 at the lapped chunk's shape (T = 256: 8 laps of the north star's
+    # ring in one flight), timed at that shape; its launches are the
+    # lapped chunks' flights of that length (also in K4's engine_laps)
+    t = laps["k4_lapped"]
+    n_lapped = sum(run["flights"].count(t["steps"]) for run in
+                   laps["north_star"]["lapped"]["chunks"])
+    kernels.append({
+        "name": f"K4 turnover_flight (lapped, T={t['steps']})",
+        "route": "cuda", "source": "raft_tpu_torch/csrc/steady.cu",
+        "replaces": "raft_tpu/core/step_pallas.py:1189",
+        "launches": n_lapped,
+        "launches_by_path": {"engine_laps_lapped_chunk": n_lapped},
+        "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": "bytes", "library_ms": t["library_ms"],
+        "library_is": LIBRARY_IS["K4 lapped"], "matches_plain": True,
+    })
     # K5 behind the txn server at bench_txn's shape, timed at that shape
     t = txn["k5_timing"]
     kernels.append({

@@ -492,6 +492,17 @@ def sc_ec2d_heal(make, ops, tmp):
                 got=ops.reconstruct(e, rows, 1, 6)), e
 
 
+def sc_chaos(make, ops, tmp):
+    """tests/test_chaos.py:268 ``test_chaos_over_mesh_transport``: the
+    chaos schedule (crashes, slow windows, campaigns, partitions,
+    membership changes) at ``Random(61000)``, 7 phases of 35 s, one row a
+    rank (``tests/_torch_faults.py``, which imports no JAX)."""
+    from tests._torch_faults import MESH_CHAOS, mesh_chaos
+
+    e = make(dict(MESH_CHAOS), recorder=True)
+    return mesh_chaos(e, ops.committed), e
+
+
 SCENARIOS = {
     "submit": (3, sc_submit), "failover": (3, sc_failover),
     "slow_heal": (3, sc_slow_heal), "lapped": (3, sc_lapped),
@@ -499,7 +510,7 @@ SCENARIOS = {
     "membership": (5, sc_membership), "restart": (3, sc_restart),
     "ec_restart": (5, sc_ec_restart), "pipeline": (3, sc_pipeline),
     "pipeline_ec": (5, sc_pipeline_ec), "fused": (3, sc_fused),
-    "device_obs": (3, sc_device_obs),
+    "device_obs": (3, sc_device_obs), "chaos": (5, sc_chaos),
     "membership4": (4, lambda m, o, t: sc_membership(m, o, t, rows=4)),
     "ec2d_roundtrip": (4, sc_ec2d_roundtrip), "ec2d_heal": (4, sc_ec2d_heal),
     **{f"slow_window_{s}": (3, (lambda s: lambda m, o, t:

@@ -4,181 +4,28 @@ engine beside the JAX package's: the same seeded interleaving of crashes,
 slow windows, disruptive candidacies, partitions and membership changes
 drives both engines, whose nodelog lines, majority-side snapshots and
 committed payloads must be equal, and the port's run must uphold the JAX
-test's invariants. ``:268`` (the same schedule over the replica mesh)
-waits for a spawned-rank case of its own."""
+test's invariants. The schedules live in ``tests/_torch_faults.py``;
+``:268`` (the same schedule over the replica mesh, one row a rank) is
+tests/test_torch_engine_mesh.py's ``test_chaos_over_mesh_transport``."""
 
 import random
 import tempfile
 from itertools import combinations
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
 
+from tests._torch_faults import (ALL, chaos_action, chaos_outcome,
+                                 check_chaos_invariants, package,
+                                 run_schedule)
+
 ENTRY = 16
-
-
-def package(name):
-    """The names the schedules use, from ``raft_tpu`` ("jax") or
-    ``raft_tpu_torch`` (its transport on the CPU)."""
-    import importlib
-
-    root = "raft_tpu" if name == "jax" else "raft_tpu_torch"
-
-    def get(mod, attr):
-        return getattr(importlib.import_module(f"{root}.{mod}"), attr)
-
-    transport = get("transport", "SingleDeviceTransport")
-    return SimpleNamespace(
-        RaftConfig=get("config", "RaftConfig"),
-        committed_payloads=get("core.state", "committed_payloads"),
-        reconstruct=get("ec.reconstruct", "reconstruct"),
-        RSCode=get("ec.rs", "RSCode"),
-        ReplicatedCounter=get("examples", "ReplicatedCounter"),
-        FlightRecorder=get("obs", "FlightRecorder"),
-        RaftEngine=get("raft", "RaftEngine"),
-        transport=(transport if name == "jax"
-                   else lambda cfg: transport(cfg, device="cpu")))
 
 
 def mk(pkg, **kw):
     cfg = pkg.RaftConfig(transport="single", **kw)
     tr = pkg.FlightRecorder()
     return cfg, pkg.RaftEngine(cfg, pkg.transport(cfg), recorder=tr), tr
-
-
-def chaos_action(e, rng, n, state, member_floor, kill_ok, slow_ok,
-                 actions, cut_any=False):
-    """One phase's fault or membership change, JAX's rules (``cut_any``:
-    the EC generator's partition cuts any row, not a member sample)."""
-    action = rng.choice(actions)
-    victim = rng.randrange(n)
-    members = [r for r in range(n) if e.member[r]]
-    dead = sum(1 for r in members if not e.alive[r])
-    if action == "kill":
-        if e.alive[victim] and e.member[victim] and kill_ok(members, dead):
-            e.fail(victim)
-    elif action == "recover":
-        if not e.alive[victim]:
-            e.recover(victim)
-    elif action == "slow":
-        if e.alive[victim] and e.member[victim] and slow_ok(members, dead):
-            e.set_slow(victim, True)
-    elif action == "unslow":
-        e.set_slow(victim, False)
-    elif action == "campaign":
-        e.force_campaign(victim)
-    elif action == "partition" and not state["part"]:
-        cut = [rng.randrange(n)] if cut_any else rng.sample(members, 1)
-        e.partition([cut, [r for r in range(n) if r not in cut]])
-        state["part"] = True
-    elif action == "heal" and state["part"]:
-        e.heal_partition()
-        state["part"] = False
-    elif action == "add":
-        spares = [r for r in range(n) if not e.member[r]]
-        if (spares and e._pending_config is None and not state["part"]
-                and e.leader_id is not None and dead == 0):
-            try:
-                e.add_voter(spares[0])
-            except RuntimeError:
-                pass
-    elif action == "remove":
-        cands = [r for r in members if r != e.leader_id and e.alive[r]]
-        if (len(members) > member_floor and cands and not state["part"]
-                and e._pending_config is None
-                and e.leader_id is not None and dead == 0):
-            try:
-                e.remove_server(rng.choice(cands))
-            except (RuntimeError, ValueError):
-                pass
-
-
-ALL = ["kill", "recover", "slow", "unslow", "campaign", "partition", "heal",
-       "add", "remove", "none"]
-NO_MEMBERSHIP = ["kill", "recover", "slow", "unslow", "campaign",
-                 "partition", "heal", "none"]
-
-
-def run_schedule(pkg, e, rng, phases, phase_s, kind):
-    """``tests/test_chaos.py``'s ``run_chaos`` (kind "plain"),
-    ``run_ec_chaos`` ("ec") and ``run_ec_member_chaos`` ("ec_member")."""
-    n, eb = e.cfg.rows, e.cfg.entry_bytes
-    quorum = e.cfg.commit_quorum
-    state = {"part": False}
-    if kind == "plain":
-        rules = dict(member_floor=3,
-                     kill_ok=lambda m, d: d + 1 <= (len(m) - 1) // 2,
-                     slow_ok=lambda m, d: True, actions=ALL)
-    elif kind == "ec":
-        rules = dict(member_floor=n + 1,
-                     kill_ok=lambda m, d: int((~e.alive).sum()) < 1,
-                     slow_ok=lambda m, d: not e.slow.any(),
-                     actions=NO_MEMBERSHIP, cut_any=True)
-    else:
-        rules = dict(member_floor=0,
-                     kill_ok=lambda m, d: len(m) - d - 1 >= quorum,
-                     slow_ok=lambda m, d: (not e.slow.any()
-                                           and len(m) - d - 1 >= quorum),
-                     actions=ALL)
-    e.run_until_leader()
-    snaps = []
-    for _ in range(phases):
-        for _ in range(rng.randrange(0, 5)):
-            e.submit(bytes(rng.getrandbits(8) for _ in range(eb)))
-        chaos_action(e, rng, n, state, **rules)
-        e.run_for(phase_s)
-        lead = e.leader_id
-        if lead is None:
-            continue
-        if kind == "plain":
-            if ((e.connectivity[lead] & e.member).sum()
-                    > int(e.member.sum()) // 2):
-                snaps.append([bytes(p) for p in
-                              pkg.committed_payloads(e.state, lead)])
-        elif kind == "ec":
-            if e.connectivity[lead].sum() >= 4:
-                snaps.append(int(np.asarray(e.state.commit_index)[lead]))
-        elif (e.connectivity[lead] & e.member).sum() >= quorum:
-            snaps.append(int(np.asarray(e.state.commit_index)[lead]))
-    e.heal_partition()
-    for r in range(n):
-        if not e.alive[r]:
-            e.recover(r)
-        e.set_slow(r, False)
-    probe = e.submit(bytes(eb))
-    e.run_until_committed(probe, limit=1500.0 if kind == "ec_member"
-                          else 1200.0)
-    e.run_for(6 * e.cfg.heartbeat_period)
-    return snaps
-
-
-def outcome(pkg, e, tr, snaps):
-    members = [r for r in range(e.cfg.rows) if e.member[r]]
-    return {"lines": tr.nodelog_lines(), "snaps": snaps,
-            "watermark": int(e.commit_watermark),
-            "member": [bool(x) for x in e.member],
-            "committed": {r: [bytes(p) for p in
-                              pkg.committed_payloads(e.state, r)]
-                          for r in members}}
-
-
-def check_plain(e, tr, out):
-    """``check_invariants``: election safety, state-machine safety over
-    the members, leader completeness over the snapshots."""
-    assert tr.dropped == 0
-    for term, leaders in tr.leaders_by_term().items():
-        assert len(leaders) <= 1, term
-    comm = out["committed"]
-    final = comm[e.leader_id]
-    for a in comm:
-        for b in comm:
-            m = min(len(comm[a]), len(comm[b]))
-            assert comm[a][:m] == comm[b][:m]
-    for snap in out["snaps"]:
-        assert final[:len(snap)] == snap
-    assert e._pending_config is None and len(final) >= 1
-    assert 3 <= len(comm) <= e.cfg.rows
 
 
 def check_ec(pkg, e, tr, snaps, holders):
@@ -209,9 +56,9 @@ def both(kind, seed, rng_seed, phases, phase_s, **cfg):
     for name in ("jax", "port"):
         pkg = package(name)
         _, e, tr = mk(pkg, seed=seed, **cfg)
-        snaps = run_schedule(pkg, e, random.Random(rng_seed), phases,
-                             phase_s, kind)
-        outs[name] = (pkg, e, tr, outcome(pkg, e, tr, snaps))
+        snaps = run_schedule(pkg.committed, e, random.Random(rng_seed),
+                             phases, phase_s, kind)
+        outs[name] = (pkg, e, tr, chaos_outcome(e, pkg.committed, snaps))
     want, got = outs["jax"][3], outs["port"][3]
     for key in want:
         assert got[key] == want[key], key
@@ -222,7 +69,7 @@ def test_chaos_schedule_matches_jax_and_upholds_invariants():
     pkg, e, tr, out = both("plain", 0, 31000, 10, 40.0, n_replicas=3,
                            max_replicas=5, entry_bytes=ENTRY, batch_size=4,
                            log_capacity=256)
-    check_plain(e, tr, out)
+    check_chaos_invariants(out, e.cfg.rows)
 
 
 def _ec_holders(e):
@@ -321,7 +168,7 @@ def session_run(pkg, seed):
         e2 = pkg.RaftEngine.restore(cfg, f"{td}/chaos.ckpt",
                                     pkg.transport(cfg))
         replayed = pkg.ReplicatedCounter(e2, replay=True).value
-    return (e, tr, outcome(pkg, e, tr, []), ctr.value,
+    return (e, tr, chaos_outcome(e, pkg.committed, []), ctr.value,
             sum(pair_amount.values()), replayed)
 
 
@@ -332,4 +179,4 @@ def test_exactly_once_counter_under_full_chaos_matches_jax():
         assert got[key] == want[2][key], key
     assert (value, total, replayed) == want[3:]
     assert value == total == replayed
-    check_plain(e, tr, got)
+    check_chaos_invariants(got, e.cfg.rows)

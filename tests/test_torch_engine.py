@@ -176,10 +176,13 @@ class Pair:
             jb, tb = (open(f, "rb").read() for f in self.vote_logs)
             assert tb == jb, "vote log files"
 
-    def check_all(self, read_back=True):
+    def check_all(self, read_back=True, archive_except=()):
         """Everything: the light checks, every state leaf, the stamps and
         latencies, the host buffers, the apply stream, and a committed
-        read-back through ``committed_entries``."""
+        read-back through ``committed_entries``. ``archive_except`` names
+        log indices whose archived (and applied) bytes the JAX engine is
+        known to get wrong on the CPU (its Pallas interpret mode); the
+        caller holds the port's against the submitted bytes there."""
         self.check()
         j, t = self.j, self.t
         assert_states_equal(j.state, t.state, "engine state")
@@ -193,11 +196,14 @@ class Pair:
         assert t._match_stall == j._match_stall
         assert (t.store.first, t.store.last) == (j.store.first, j.store.last)
         for idx in range(t.store.first, t.store.last + 1):
-            assert t.store.get(idx) == j.store.get(idx), f"archive {idx}"
+            if idx not in archive_except:
+                assert t.store.get(idx) == j.store.get(idx), f"archive {idx}"
         assert t.applied_index == j.applied_index
         assert t.in_flight_count == j.in_flight_count
         assert t.committed_total == j.committed_total
-        assert self.tapp == self.japp
+        assert [a for a in self.tapp if a[0] not in archive_except] == \
+            [a for a in self.japp if a[0] not in archive_except]
+        assert [a[0] for a in self.tapp] == [a[0] for a in self.japp]
         assert [i for i, _ in self.tapp] == list(
             range(self.starts[1], t.applied_index + 1))
         wm = t.commit_watermark

@@ -11,8 +11,9 @@ The schedules are the JAX package's mesh-engine cases, written once in
 restarts of tests/test_restart.py, the mesh pipeline cases of
 tests/test_pipeline.py, the mesh slow-follower shape of
 tests/test_differential_faults.py, TestMeshFused of
-tests/test_fused_ticks.py (fuse_k 8 against 1) and
-test_mesh_recorded_byte_compat of tests/test_device_obs.py. On every rank,
+tests/test_fused_ticks.py (fuse_k 8 against 1),
+test_mesh_recorded_byte_compat of tests/test_device_obs.py and
+test_chaos_over_mesh_transport of tests/test_chaos.py. On every rank,
 at every scenario's end, the nodelog lines, terms, roles, watermark and
 leader, the gathered whole state, the committed bytes and the scenario's
 own reads equal the JAX engine's, and that rank's own state leaves equal
@@ -36,6 +37,7 @@ from raft_tpu_torch.core.state import FIELDS, cut_row
 from raft_tpu_torch.transport import SingleDeviceTransport
 from raft_tpu_torch.transport.launch import run_ranks
 from tests import _mesh_ranks as mr
+from tests._torch_faults import check_chaos_invariants
 
 NAMES = {w: [n for n, (size, _) in mr.SCENARIOS.items() if size == w]
          for w in (3, 5)}
@@ -343,3 +345,16 @@ def test_mesh_recorded_byte_compat(ranks3, tmp_path_factory):
     JAX engine's (compared in ``check``)."""
     res = check("device_obs", ranks3, tmp_path_factory)
     assert res["dev"] == res["host"] and res["dev"]
+
+
+def test_chaos_over_mesh_transport(ranks5, tmp_path_factory):
+    """tests/test_chaos.py:268: the chaos schedule (crashes, slow windows,
+    campaigns, partitions and membership changes; ``Random(61000)``, 7
+    phases of 35 s) with one replica row a rank, 5 ranks for
+    ``max_replicas=5``. Every rank's nodelog lines, majority-side
+    snapshots, committed payloads and leaders by term equal the JAX
+    engine's on ``TpuMeshTransport`` (compared in ``check``), and the
+    port's run upholds ``check_invariants``."""
+    res = check("chaos", ranks5, tmp_path_factory)
+    check_chaos_invariants(res, 5)
+    assert res["snaps"] and res["watermark"] >= 1

@@ -39,6 +39,17 @@ B = 128
 ALL3, OK3 = [True] * 3, [False] * 3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def fresh_jax_traces_after():
+    """The JAX references below trace ``TpuMeshTransport`` programs whose
+    dispatch the JAX package's own tests witness at trace time
+    (``tests/test_step_mesh.py``, ``step_mesh.LAST_DISPATCH``); a later
+    test in the same process must trace them afresh, so JAX's caches are
+    cleared when this module ends."""
+    yield
+    jax.clear_caches()
+
+
 def _batch(seed, count, rows, entry=8):
     rng = np.random.default_rng(seed)
     data = rng.integers(0, 256, (B, entry), dtype=np.uint8)
