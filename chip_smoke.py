@@ -16,9 +16,12 @@ port's deployments. First the north star (3 replicas, 256-byte entries, batch
    K2 also on an empty window, a stale leader, a member mask, conflicts on
    two rows and the term_floor gate; a K3 flight also phase by phase: its
    plan's per-step record and outputs against ``pipeline_plan_plain``, its writer's
-   payload ring against ``pipeline_write_plain``), then through a
-   200-step randomized multi-term schedule (kernel path on the card,
-   plain path on the host);
+   payload ring against ``pipeline_write_plain``; K4 also launched alone
+   from a start slot set in the workspace: a leader term of 0, a term floor beyond the last tail, mixed
+   terms and votes, T = 256, start slots just before C with fewer windows
+   than steps, a flight short of a lap, and rows of 440, 24 and 60
+   bytes), then through a 200-step randomized multi-term schedule
+   (kernel path on the card, plain path on the host);
 4. drives the main path through ``SingleDeviceTransport``: election,
    repair-capable ticks healing a slow row, steady ticks, then the port's
    ``northstar.run_device`` on the same cluster with pipeline flights
@@ -35,7 +38,9 @@ port's deployments. First the north star (3 replicas, 256-byte entries, batch
    ``library_ms``, the same ring writes as one ``index_copy_`` and one
    ``fill_``; K1 beside its write yardstick, two ``index_copy_`` calls),
    ``launch_floor`` (the device time of a one-element ``fill_``), and
-   the main path per step.
+   the main path per step; ``k4_study``: K4 with the L2 warm and
+   flushed, in turns, and the launch that finds the flight kept by K3 and
+   exits.
 
 Then BASELINE config 4 (5 replicas, 256-byte entries, batch 1024, a
 32 768-slot ring, row 4 induced-slow):
@@ -424,7 +429,8 @@ entries, batch 256, a 4096-slot ring each; ``bench.py``
     ``committed_entries`` and from both followers against the input's
     SHA-256; K4 at T = 256 against its plain version, then timed beside
     its byte bound (only the last lap's windows reach the ring) and its
-    ``index_copy_`` + ``fill_`` yardstick at that shape; (b) the lapped
+    ``index_copy_`` + ``fill_`` yardstick at that shape, with
+    ``k4_study``; (b) the lapped
     engine at C = 4 096 (8 laps: T = 32) on the card and on the CPU, the
     flight gate opened there: nodelog lines, flights, read-backs and
     every state leaf equal; (c) the JAX package's fault schedules
@@ -817,6 +823,100 @@ def flight_case(cfg, dev, rng, st, T, P, counts, alive, slow, turnover_ok,
          (sk.log_term, sp.log_term)]), int(ok_[L])
 
 
+def rand_stack(rng, P, B, M, dev):
+    """P random windows [P, B, M], drawn on the device from a seed of
+    ``rng`` (the lapped flights' 201 MB stacks)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    return torch.randint(-2**31, 2**31 - 1, (P, B, M), generator=g,
+                         dtype=torch.int32, device=dev)
+
+
+def k4_case(dev, rng, L, W, C, B, T, P, s0, lterm=1, tfloor=1, plane=None):
+    """The resident K4 alone and its plain version on the same random
+    rings, windows and (6, L) plane, from start slot ``s0`` set in the
+    workspace with the turnover decision (as K3's plan publishes them):
+    the max error over every state, ring and out word."""
+    import torch
+
+    from raft_tpu_torch.core import step_cuda as sc
+
+    M = L * W
+    if plane is None:       # every row caught up at 5*B
+        plane = np.array([[lterm] * L, [-1] * L, [5 * B] * L, [5 * B] * L,
+                          [5 * B] * L, [lterm] * L], np.int32)
+    vecs0 = torch.from_numpy(plane).to(dev)
+    lp0 = rand_window(rng, C, M, dev)
+    lt0 = torch.from_numpy(rng.integers(0, 4, (L, C)).astype(
+        np.int32)).to(dev)
+    wins = rand_stack(rng, P, B, M, dev)
+    prm = sc.step_params(0, lterm, tfloor, 0, 0, None, L)
+    work = sc.workspace(dev)
+    work[sc.WK_PLAN] = 1
+    work[sc.WK_S0] = s0
+    res = []
+    for kernel in (True, False):
+        v, lp, lt = vecs0.clone(), lp0.clone(), lt0.clone()
+        out = torch.zeros(L + 5, dtype=torch.int32, device=dev)
+        r4 = int(work[sc.WK_RAN4])
+        if kernel:
+            sc.turnover_flight(v, lp, lt, wins, T, prm, out)
+        else:
+            sc.turnover_flight_plain(v, lp, lt, wins, T, prm, out, work)
+        res.append((v, lp, lt, out, int(work[sc.WK_RAN4]) - r4))
+    work[sc.WK_PLAN] = 0
+    (vk, pk, tk, ok_, rk), (vp, pp, tp, op, rp) = res
+    check(rk == rp == 1, f"K4 case: flights run {rk} (kernel), {rp} (plain)")
+    return max_err([(vk, vp), (pk, pp), (tk, tp), (ok_, op)])
+
+
+def mixed_plane(rng, L, last):
+    """Rows caught up at ``last`` at mixed terms, votes, commits and match
+    terms."""
+    return np.stack([rng.integers(0, 5, L), rng.integers(-1, L, L),
+                     np.full(L, last), rng.integers(0, last + 1, L),
+                     np.full(L, last), rng.integers(0, 4, L)]).astype(
+                         np.int32)
+
+
+#: the resident K4 set up directly (``k4_case``): (name, L, W, C, B, T, P,
+#: s0, keywords); "ns" is the north star (C = 32 768, B = 1 024)
+K4_CASES = [
+    ("ns", 3, 64, 32768, 1024, 32, 32, 5 * 1024, {}),
+    ("ns_lterm_0", 3, 64, 32768, 1024, 32, 32, 5 * 1024, {"lterm": 0}),
+    ("ns_tfloor_beyond", 3, 64, 32768, 1024, 32, 32, 5 * 1024,
+     {"tfloor": 37 * 1024 + 1}),
+    ("ns_mixed_plane", 3, 64, 32768, 1024, 32, 32, 5 * 1024,
+     {"lterm": 3, "mixed": True}),
+    ("ns_T256", 3, 64, 32768, 1024, 256, 256, 5 * 1024, {}),
+    # the start slot just before C, fewer windows than steps: the slot
+    # wraps 2 rows after the stack's first wrap (one chunk holds both)
+    ("ns_wrap_P1", 3, 64, 32768, 1024, 32, 1, 32768 - 1024 - 2, {}),
+    ("ns_wrap_P5", 3, 64, 32768, 1024, 32, 5, 32768 - 3, {}),
+    ("ns_lapped_wrap_P7", 3, 64, 32768, 1024, 40, 7, 32768 - 1, {}),
+    ("ns_partial_ring", 3, 64, 32768, 1024, 5, 3, 32768 - 2 * 1024 - 7, {}),
+    # rows that are not 16-byte multiples: config 3's 440-byte rows, the
+    # fault schedules' 24- and 60-byte rows
+    ("c3_rows", 5, 22, 32768, 1024, 32, 32, 5 * 1024, {}),
+    ("rows24", 3, 2, 256, 128, 4, 3, 5, {}),
+    ("rows24_wrap", 3, 2, 256, 128, 7, 2, 255, {"mixed": True}),
+    ("rows60", 5, 3, 288, 96, 5, 2, 17, {}),
+]
+
+
+def k4_cases(dev, rng, note):
+    """K4 against its plain version on ``K4_CASES``: {case: max error}."""
+    errs = {}
+    for name, L, W, C, B, T, P, s0, kw in K4_CASES:
+        kw = dict(kw)
+        if kw.pop("mixed", False):
+            kw["plane"] = mixed_plane(rng, L, 5 * B)
+        errs[name] = k4_case(dev, rng, L, W, C, B, T, P, s0, **kw)
+        note("K4", errs[name])
+    return errs
+
+
 def k1_case(dev, rng, L, M, C, B, s, count, acc, kind):
     """K1 and its plain version on the same random rings and window (L
     rows of M / L lanes): ``kind`` "random" (random terms and last
@@ -963,6 +1063,8 @@ def phase_kernels(cfg, dev, n_random=200):
           "K4 flight")
     check(flight(base, 2 * T + 5, 7, [B] * (2 * T + 5), [1, 1, 1],
                  [0, 0, 0], True) == "K4", "lapped K4")
+    # K4 alone, from start slots and planes the flights above do not give
+    cases["K4 direct"] = k4_cases(dev, rng, note)
 
     # randomized multi-term schedules: kernel path on the card, plain path
     # on the host, through the public step functions — at the north-star
@@ -4280,6 +4382,8 @@ def time_steady_kernels(cfg, dev, rng, reps, consts=None):
                   br=br, out=o3, slow=sl, split=split)
     if consts is None:      # the parity mode has no library counterpart
         flight["library_ms"] = k4_yardstick_ms(st, vecs, wins32, reps)
+        flight["k4_study"] = k4_study(st, vecs, wins32, counts, al, sl, prm,
+                                      br, o3, reps)
     return out, flight
 
 
@@ -4342,6 +4446,53 @@ def k4_yardstick_ms(st, vecs, wins, reps):
     return ops_ms(ring_yardstick(st.log_payload, st.log_term,
                                  wins[T - C // B:], int(vecs[2, 0]) % C, 1),
                   reps)
+
+
+def k4_study(st, vecs, wins, counts, al, sl, prm, br, out, reps):
+    """K4 with the L2 warm (the same rings and windows as the launch
+    before) and cold (a 64 MB fill before K3's plan, which decides the
+    turnover on the device), in turns (warm, cold, cold, warm): device ms;
+    and the launch that finds the flight kept by K3 and exits. Every
+    launch timed with the flight must run it, and the exit-only launches
+    none."""
+    import torch
+
+    from raft_tpu_torch.core import step_cuda as sc
+
+    T = wins.shape[0]
+    work = sc.workspace(wins.device)
+    scrub = torch.empty(1 << 24, dtype=torch.int32, device=wins.device)
+    calls = [0]
+
+    def k4():
+        calls[0] += 1
+        sc.turnover_flight(vecs, st.log_payload, st.log_term, wins, T, prm,
+                           out)
+
+    def plan():
+        sc.pipeline_flight(vecs, st.log_payload, st.log_term, wins, counts,
+                           al, sl, None, prm, br, True, out)
+
+    def cold():
+        scrub.fill_(0)
+        plan()
+
+    def kept():             # the plan's decision: K3 keeps the flight
+        work[sc.WK_PLAN] = 0
+
+    res = {}
+    for temp, before in (("warm", plan), ("cold", cold), ("cold", cold),
+                         ("warm", plan)):
+        ran4, calls[0] = int(work[sc.WK_RAN4]), 0
+        res.setdefault(f"{temp}_ms", []).append(
+            kernel_ms("K4", k4, reps, before=before)[0])
+        check(int(work[sc.WK_RAN4]) - ran4 == calls[0] >= 2 * reps,
+              "timed turnover launches did not all run the flight")
+    ran4, calls[0] = int(work[sc.WK_RAN4]), 0
+    res["exit_only_ms"] = kernel_ms("K4", k4, reps, before=kept)[0]
+    check(int(work[sc.WK_RAN4]) == ran4 and calls[0] >= 2 * reps,
+          "a K4 launch behind a kept flight ran it")
+    return res
 
 
 def k2_split(timed):
@@ -4455,6 +4606,7 @@ def phase_timing(cfg, dev, card_line, reps=21):
         res[k] = {"ms": ms, "call_ms": call_ms, "plain_ms": pms,
                   "bytes": nbytes, "bound_ms": nbytes / rate * 1e3}
     res["K4"]["library_ms"] = fl["library_ms"]
+    res["k4_study"] = fl["k4_study"]
     res["K1"]["library_ms"] = k1_library
     res["main_path_profile"] = profile_flights(cfg, dev)
     emit(res)
@@ -12193,10 +12345,12 @@ def lapped_k4(dev, rate, reps=21):
     (ms, call_ms), plain_ms, nbytes = k4_timing(
         cfg, st, vecs, wins, counts, al, sl, prm, sc.pick_br(B, C), o3, reps)
     library = k4_yardstick_ms(st, vecs, wins, reps)
+    study = k4_study(st, vecs, wins, counts, al, sl, prm, sc.pick_br(B, C),
+                     o3, reps)
     return {"steps": T, "max_abs_err": err, "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "bytes": nbytes,
             "bound_ms": nbytes / rate * 1e3, "library_ms": library,
-            "window_stack_bytes": int(wins.numel()) * 4}
+            "window_stack_bytes": int(wins.numel()) * 4, "study": study}
 
 
 def fault_schedules():

@@ -14,7 +14,9 @@
   the last step that covers it and accepts its row. Each step runs at its
   true start slot, so the flight equals the per-step scan for every input.
 - K4 ``turnover_flight`` — the write-only all-accept flight that turns the
-  ring over (``_run_turnover`` :1189 / ``_turnover_kernel`` :1130).
+  ring over (``_run_turnover`` :1189 / ``_turnover_kernel`` :1130): the
+  ring rows as a few contiguous runs copied in 16-byte vectors, the term
+  ring as a fill, and the T steps' bookkeeping in one closed form.
 
 With ``my_row >= 0`` each kernel runs in its mesh-local mode (K2·mesh,
 K3·mesh, K4·mesh: the ``local=True`` branches, ``step_pallas.py:217``,
@@ -779,8 +781,9 @@ def turnover_flight(vecs, log_payload, log_term, wins, T: int,
     same stream, and does its work only when that launch chose it. With
     ``my_row >= 0``, K4·mesh (a kernel of its own): one payload row and
     one term row, from the start slot ``s0`` that the mesh's host decision
-    gives, with the bookkeeping of all T steps in closed form; ``parts``
-    (K4·mesh on the card only) runs a subset of its parts, for timing."""
+    gives. Every mode writes the bookkeeping of all T steps in closed
+    form. ``parts`` (K4·mesh on the card only) runs a subset of its parts,
+    for timing."""
     key = _mode(vecs, log_term, ec_consts, my_row, None, "turnover_flight")
     if (my_row >= 0) != (s0 is not None):
         raise ValueError("K4·mesh takes its start slot from the caller; "

@@ -115,15 +115,29 @@
 //  per-step scan for every input: the TPU's affine-geometry restriction
 //  does not apply.
 //
-// K4 writes every slot once from the last step of the flight that covers
-// it (grid-stride over C*M/V); K4·ec does it per (slot, word pair) with
-// the source window row worked out once per slot, the k data words loaded
-// once and the m parity words computed in registers (ec_row_write).
+// K4 is a copy and a fill: every slot takes the window row of the last
+// step that covers it, and every term slot the leader's term. Its T steps'
+// bookkeeping collapses into one closed form (turnover_closed_form), which
+// one warp of an extra block writes, so nothing in K4 grows with T. The
+// rows that reach the ring form a few contiguous runs (they break where
+// the slot wraps at C and where the window stack wraps at P*B rows), so a
+// persistent grid (two blocks an SM) walks chunks of the flat words, a
+// run's ends worked out once in 32-bit arithmetic. A block moves a
+// chunk's 16-byte-aligned body as 16-byte vectors, kUnroll loads in
+// flight a thread, and the few words around it (all of a run whose source
+// and destination sit at different 16-byte phases) one by one, and fills
+// its share of the term ring. (On the H100 this loop beat one that moved
+// the bodies by the TMA's bulk copies through shared-memory stages: see
+// PERF.md §6.)
+// When K3's plan keeps the flight, every block exits on its first load.
+// K4·ec does it per (slot, word pair) with the source window row worked
+// out once per slot, the k data words loaded once and the m parity words
+// computed in registers (ec_row_write), and the same closed form.
 // K4·mesh is a kernel of its own: the host knows the start slot, so a
 // block takes runs of slots whose source rows it works out once each, its
 // threads move 16-byte vectors (word pairs, or words, at rows that are not
 // 16-byte multiples) several at a time, and one warp of an extra block
-// writes the closed-form bookkeeping of all T steps at once.
+// writes the closed form.
 #include <type_traits>
 
 #include "raft_common.cuh"
@@ -715,76 +729,13 @@ __global__ void __launch_bounds__(kWriteThreads)
 }
 
 // ----------------------------------------------------------------- K4
-// The closed-form epilogue of the turnover flight, step by step
-// (step_pallas.py:1161-1186).
-__device__ inline void turnover_epilogue(int* vec_g, int T,
-                                         const SteadyParams& p, int* out,
-                                         unsigned* work) {
-  const int L = p.L, B = p.B;
-  work[WK_RAN4] += 1;
-  int we = 0;
-  for (int t = 0; t < T; ++t) {
-    we = vec_g[VL * L + 0] + B;
-    const bool commit_ok = p.lterm >= 1 && we >= 1 && we >= p.tfloor;
-    for (int l = 0; l < L; ++l) {
-      const int t0 = vec_g[VT * L + l];
-      if (p.lterm > t0) vec_g[VV * L + l] = RT_NO_VOTE;
-      vec_g[VT * L + l] = max(t0, p.lterm);
-      vec_g[VL * L + l] = we;
-      vec_g[VMI * L + l] = we;
-      vec_g[VMT * L + l] = p.lterm;
-      if (commit_ok) vec_g[VC * L + l] = we;
-    }
-  }
-  for (int l = 0; l < L; ++l) out[l] = vec_g[VMI * L + l];
-  out[L + 0] = vec_g[VC * L + 0];
-  out[L + 1] = max(vec_g[VT * L + 0], p.lterm);
-  out[L + 2] = B;
-  out[L + 3] = floor_mod(we, p.C);
-  out[L + 4] = 0;
-}
-
-// The plan's decision and start slot come in work.
-template <int V>
-__global__ void turnover_kernel(int* vec_g, int* buf_p, int* log_term,
-                                const int* __restrict__ wins, int T, int P,
-                                SteadyParams p, int* out, unsigned* work) {
-  if (__ldcg(&work[WK_PLAN]) == 0) return;  // K3 ran the flight
-  const int s0 = (int)__ldcg(&work[WK_S0]);
-  const int C = p.C, B = p.B, M = p.M, L = p.L;
-  const int MV = M / V;
-  const long TB = (long)T * B;
-  const long gtid = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long gstride = (long)gridDim.x * blockDim.x;
-  // every slot once, from the LAST step of the flight that covers it
-  for (long e = gtid; e < (long)C * MV; e += gstride) {
-    const int d = (int)(e / MV);
-    const int v = (int)(e - (long)d * MV);
-    const long k = floor_mod(d - s0, C);
-    const long pos = k + ((TB - 1 - k) / C) * C;
-    const int t = (int)(pos / B);
-    const int jj = (int)(pos - (long)t * B);
-    const int* src = wins + ((size_t)(t % P) * B + jj) * p.Mk;
-    if (V == 4) {
-      reinterpret_cast<int4*>(buf_p + (size_t)d * M)[v] =
-          reinterpret_cast<const int4*>(src)[v];
-    } else {
-      buf_p[(size_t)d * M + v] = src[v];
-    }
-  }
-  const long terms = (long)L * C;
-  for (long e = gtid; e < terms; e += gstride) log_term[e] = p.lterm;
-  if (blockIdx.x == 0 && threadIdx.x == 0)
-    turnover_epilogue(vec_g, T, p, out, work);
-}
-
-// ------------------------------------------------------------ K4·mesh
 // The turnover bookkeeping in closed form, on one warp (lane l = row l).
 // Every row accepts every step and the commit condition only gets easier
-// as the tail grows, so the T steps of turnover_epilogue collapse into
-// one: the tail ends at VL[0] + T*B, a row adopts lterm (and drops its
-// vote) iff lterm exceeded its term at the start, and the commit moves to
-// the tail iff it may at the last step.
+// as the tail grows, so the T steps of the JAX kernel's per-step epilogue
+// (step_pallas.py:1161-1186) collapse into one: the tail ends at VL[0] +
+// T*B, a row adopts lterm (and drops its vote) iff lterm exceeded its term
+// at the start, and the commit moves to the tail iff it may at the last
+// step. K4, K4·ec and K4·mesh all run it.
 __device__ inline void turnover_closed_form(int* vec_g, int T, int B, int C,
                                             int L, int lterm, int tfloor,
                                             int* out, unsigned* work) {
@@ -814,6 +765,123 @@ __device__ inline void turnover_closed_form(int* vec_g, int T, int B, int C,
     out[L + 4] = 0;
     work[WK_RAN4] += 1;
   }
+}
+
+// K4's payload write is a copy. The rows that reach the ring are the
+// flight positions [T*B - n, T*B), n = min(T*B, C): position pos is row
+// pos mod P*B of the window stack (step t reads wins[t % P]) and lands in
+// slot (s0 + pos) mod C. So the n*M words to move break only where the
+// slot wraps at C and where the stack wraps at P*B rows: a few contiguous
+// runs. TurnGeom holds that geometry from flat row 0: window row r0,
+// slot d0.
+struct TurnGeom {
+  int n, M, C, PB, r0, d0;
+};
+
+// f(src word, dst word, len) for each run of the flat words [w0, w1) (w
+// = flat row * M + lane): the runs' ends are worked out once a run, in
+// 32-bit arithmetic (C*M and P*B*M stay below 2^31).
+template <class F>
+__device__ inline void for_runs(const TurnGeom& g, int w0, int w1, F f) {
+  const int k = w0 / g.M;
+  int off = w0 - k * g.M;
+  int d = g.d0 + k;
+  if (d >= g.C) d -= g.C;
+  int r = k % g.PB + g.r0;
+  if (r >= g.PB) r -= g.PB;
+  for (int w = w0; w < w1;) {
+    const int len = min(w1 - w, min(g.C - d, g.PB - r) * g.M - off);
+    f(r * g.M + off, d * g.M + off, len);
+    w += len;
+    const int rows = (off + len) / g.M;
+    off += len - rows * g.M;
+    d += rows;
+    if (d >= g.C) d -= g.C;
+    r += rows;
+    if (r >= g.PB) r -= g.PB;
+  }
+}
+
+// A run's words before its first 16-byte-aligned destination word (head)
+// and the whole 16-byte vectors after them (body, in words): none where
+// source and destination sit at different 16-byte phases (rows that are
+// not 16-byte multiples), whose runs move word by word.
+__device__ __forceinline__ void split_run(const int* src, const int* dst,
+                                          int len, int& head, int& body) {
+  const unsigned ps = (unsigned)(uintptr_t)src & 15u;
+  const unsigned pd = (unsigned)(uintptr_t)dst & 15u;
+  if (ps != pd) {
+    head = len;
+    body = 0;
+    return;
+  }
+  head = min(len, (int)(((16u - pd) & 15u) >> 2));
+  body = (len - head) & ~3;
+}
+
+static const int kTurnThreads = 512;
+static const int kTurnBlocksPerSM = 2;
+// a chunk: kUnroll 16-byte vectors a thread (32 KB)
+static const int kTurnChunk = kTurnThreads * kUnroll * 4;
+
+// The term ring: L*C words of lterm, as 16-byte vectors where aligned,
+// thread i of n.
+__device__ inline void fill_terms(int* log_term, int words, int lterm,
+                                  int i, int n) {
+  const int w4 = ((uintptr_t)log_term & 15) ? 0 : words / 4;
+  const int4 t4 = make_int4(lterm, lterm, lterm, lterm);
+  for (int e = i; e < w4; e += n) reinterpret_cast<int4*>(log_term)[e] = t4;
+  for (int e = 4 * w4 + i; e < words; e += n) log_term[e] = lterm;
+}
+
+// K4: the plan's decision and start slot come in work. The last block's
+// warp 0 writes the bookkeeping (turnover_closed_form); every other block
+// fills its share of the term ring and copies every gridDim-1-th chunk of
+// the flat words, each thread kUnroll vectors of a chunk with their loads
+// in flight together.
+__global__ void __launch_bounds__(kTurnThreads)
+    turnover_kernel(int* vec_g, int* __restrict__ buf_p,
+                    int* __restrict__ log_term, const int* __restrict__ wins,
+                    int T, SteadyParams p, int* out, unsigned* work,
+                    TurnGeom g) {
+  if (__ldcg(&work[WK_PLAN]) == 0) return;  // K3 ran the flight
+  const int copiers = gridDim.x - 1;
+  if ((int)blockIdx.x == copiers) {
+    if (threadIdx.x < 32)
+      turnover_closed_form(vec_g, T, p.B, p.C, p.L, p.lterm, p.tfloor, out,
+                           work);
+    return;
+  }
+  g.d0 += (int)__ldcg(&work[WK_S0]);
+  if (g.d0 >= g.C) g.d0 -= g.C;
+  const int words = g.n * g.M;
+  const int chunks = words / kTurnChunk + (words % kTurnChunk != 0);
+  fill_terms(log_term, p.L * p.C, p.lterm,
+             blockIdx.x * blockDim.x + threadIdx.x, copiers * blockDim.x);
+  const int t = threadIdx.x, nt = blockDim.x;
+  for (int c = blockIdx.x; c < chunks; c += copiers)
+    for_runs(g, c * kTurnChunk,
+             c * kTurnChunk + min(kTurnChunk, words - c * kTurnChunk),
+             [&](int so, int dO, int len) {
+               const int* s = wins + so;
+               int* d = buf_p + dO;
+               int head, body;
+               split_run(s, d, len, head, body);
+               for (int x = t; x < head; x += nt) d[x] = s[x];
+               const int4* s4 = reinterpret_cast<const int4*>(s + head);
+               int4* d4 = reinterpret_cast<int4*>(d + head);
+               const int nv = body / 4;
+               for (int v0 = t; v0 < nv; v0 += kUnroll * nt) {
+                 int4 val[kUnroll];
+#pragma unroll
+                 for (int u = 0; u < kUnroll; ++u)
+                   if (v0 + u * nt < nv) val[u] = __ldcs(s4 + v0 + u * nt);
+#pragma unroll
+                 for (int u = 0; u < kUnroll; ++u)
+                   if (v0 + u * nt < nv) d4[v0 + u * nt] = val[u];
+               }
+               for (int x = head + body + t; x < len; x += nt) d[x] = s[x];
+             });
 }
 
 // K4·mesh: the rank's payload row [C, W] and term row [1, C] from the
@@ -898,7 +966,8 @@ __global__ void __launch_bounds__(kWriteThreads)
 
 // K4·ec: one thread per (slot, word pair of the shard); the block's slots
 // come from blockIdx, and the source window row of each is worked out
-// once, by one thread, in 32-bit arithmetic.
+// once, by one thread, in 32-bit arithmetic. Block 0's warp 0 first writes
+// the closed-form bookkeeping.
 template <int V2>
 __global__ void __launch_bounds__(kThreads)
     turnover_ec_kernel(int* vec_g, int* buf_p, int* log_term,
@@ -908,6 +977,9 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ uint8_t ec_sh[RT_EC_BYTES];
   __shared__ int src_row[kThreads];
   if (__ldcg(&work[WK_PLAN]) == 0) return;  // K3 ran the flight
+  if (blockIdx.x == 0 && threadIdx.x < 32)
+    turnover_closed_form(vec_g, T, p.B, p.C, p.L, p.lterm, p.tfloor, out,
+                         work);
   load_ec_table(ec_sh, ec, p);
   const int s0 = (int)__ldcg(&work[WK_S0]);
   const int C = p.C, B = p.B, TB = T * B;
@@ -933,8 +1005,6 @@ __global__ void __launch_bounds__(kThreads)
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < p.L * C;
        e += gridDim.x * blockDim.x)
     log_term[e] = p.lterm;
-  if (blockIdx.x == 0 && threadIdx.x == 0)
-    turnover_epilogue(vec_g, T, p, out, work);
 }
 
 static SteadyParams make_params(int leader, int lterm, int tfloor, int rfloor,
@@ -956,10 +1026,6 @@ static SteadyParams make_params(int leader, int lterm, int tfloor, int rfloor,
   p.Mk = Mk;
   p.my = my;
   return p;
-}
-
-static int blocks_for(long work) {
-  return (int)max(1L, min((work + kThreads - 1) / kThreads, 8192L));
 }
 
 // K2: one steady step in place on vec (6, L), buf_p and log_term.
@@ -1092,7 +1158,8 @@ RT_EXPORT int rt_steady_pipeline(void* vec_g, void* buf_p, void* log_term,
 
 // K4: the write-only turnover flight. It exits at once unless the
 // preceding plan published the turnover decision in work. vec, ec as
-// rt_steady_pipeline.
+// rt_steady_pipeline (vec matters to K4·ec only: K4 finds each run's
+// 16-byte phase itself).
 RT_EXPORT int rt_turnover(void* vec_g, void* buf_p, void* log_term,
                           const void* wins, int T, int P, int lterm,
                           int tfloor, int L, int C, int B, int M, int Mk,
@@ -1114,16 +1181,29 @@ RT_EXPORT int rt_turnover(void* vec_g, void* buf_p, void* log_term,
 #undef RT_K4EC_ARGS
     return (int)cudaGetLastError();
   }
-  const int blocks = blocks_for((long)C * (M / vec));
-#define RT_K4_ARGS                                                         \
-  (int*)vec_g, (int*)buf_p, (int*)log_term, (const int*)wins, T, P, p,     \
-      (int*)out, (unsigned*)work
-  if (vec == 4) {
-    turnover_kernel<4><<<blocks, kThreads, 0, st>>>(RT_K4_ARGS);
-  } else {
-    turnover_kernel<1><<<blocks, kThreads, 0, st>>>(RT_K4_ARGS);
-  }
-#undef RT_K4_ARGS
+  // 32-bit index arithmetic throughout: sums of two slots or two window
+  // rows stay below 2^31
+  const long PB = (long)P * B;
+  if (T < 0 || P < 1 || B < 1 || L < 1 || L > RT_LMAX || M < 1 ||
+      Mk != M || C < 1 || C >= (1 << 30) || PB >= (1L << 30) ||
+      (long)C * M >= (1L << 31) || PB * M >= (1L << 31))
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t e = rt_sm_count(&sms);
+  if (e != cudaSuccess) return (int)e;
+  // the rows that reach the ring: flight positions [TB - n, TB)
+  const long TB = (long)T * B;
+  const long n = min(TB, (long)C);
+  const TurnGeom g = {(int)n, M, C, (int)PB, (int)((TB - n) % PB),
+                      (int)((TB - n) % C)};
+  const long words = n * M;
+  const int chunks = (int)((words + kTurnChunk - 1) / kTurnChunk);
+  // a persistent grid: at most kTurnBlocksPerSM copy blocks an SM, and
+  // the bookkeeping block
+  const int blocks = max(1, min(chunks, kTurnBlocksPerSM * sms)) + 1;
+  turnover_kernel<<<blocks, kTurnThreads, 0, st>>>(
+      (int*)vec_g, (int*)buf_p, (int*)log_term, (const int*)wins, T, p,
+      (int*)out, (unsigned*)work, g);
   return (int)cudaGetLastError();
 }
 

@@ -10,7 +10,19 @@ the JAX package's Pallas kernels in interpret mode:
 - K4 (turnover flight) against the JAX turnover kernel across laps, which
   interpret mode models faithfully.
 
+- K4 launched alone (the plan's decision and start slot set in the
+  workspace) against the JAX turnover kernel on bookkeeping planes the
+  main path does not give (a leader term of 0, a term floor beyond the
+  flight's last tail, rows at mixed terms, votes and commits), and its
+  closed-form bookkeeping (the mirror of ``test_torch_steady_mesh.py``)
+  against the plain step loop on random resident planes;
+- a Python mirror of the CUDA K4's copy (``csrc/steady.cu``
+  ``for_runs``: chunks, runs, aligned bodies) against the plain version's
+  ring.
+
 Every state leaf and RepInfo field is compared bit for bit."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +42,7 @@ from tests._torch_port import (
     rand_batch,
     to_port,
 )
+from tests.test_torch_steady_mesh import _closed_form
 
 B, C, N = 128, 256, 3
 ALL = [True] * N
@@ -240,3 +253,220 @@ def test_wrappers_take_plain_version_on_cpu():
     _flight(**FLIGHT, slow=OK)
     test_k2_scripted_matches_pallas("wrap_seam")
     assert tsc.LAUNCHES == counts
+
+
+# ------------------------------------------------- K4 off the main path
+# The resident K4 launched directly, as the plan leaves it (the turnover
+# decision and the start slot in the workspace), against the JAX turnover
+# kernel (``_run_turnover``, local=False) on bookkeeping planes the main
+# path does not give. One shape, so one compiled JAX program: 24-byte rows
+# (not 16-byte multiples), two ring laps over three windows.
+K4_C, K4_T, K4_P, K4_W = 256, 4, 3, 2
+
+
+@functools.lru_cache(maxsize=None)
+def _j_turnover(C, T, P, L, M):
+    BR = jsp._pick_br(B, C)
+
+    @jax.jit
+    def run(lp, lt, wins, s0, params, vecs):
+        st = jst.ReplicaState(*([jnp.zeros(L, jnp.int32)] * 6), lt, lp)
+        return jsp._run_turnover(st, wins, s0, params, vecs, BR, C // BR,
+                                 B // BR, P, T, C, M, M, L, None, True)
+    return run
+
+
+def _steady_plane(L, last, lterm=1):
+    """Every row caught up and committed at ``last``."""
+    return np.stack([np.full(L, lterm), np.full(L, -1), np.full(L, last),
+                     np.full(L, last), np.full(L, last),
+                     np.full(L, lterm)]).astype(np.int32)
+
+
+def _mixed_plane(L, last, seed=4):
+    """Rows caught up at ``last`` at mixed terms, votes, commits and match
+    terms."""
+    rng = np.random.default_rng(seed)
+    plane = _steady_plane(L, last)
+    plane[0] = rng.integers(0, 5, L)
+    plane[1] = rng.integers(-1, L, L)
+    plane[3] = rng.integers(0, last + 1, L)
+    plane[5] = rng.integers(0, 4, L)
+    return plane
+
+
+def _k4_resident(plane, wins, lp, lt, T, s0, lterm, tfloor):
+    """The resident K4 from start slot ``s0`` (set in the workspace with
+    the turnover decision) through the port's wrapper, on copies: (plane,
+    payload ring, term ring, out)."""
+    L = plane.shape[1]
+    vecs = torch.from_numpy(plane.copy())
+    lp, lt = torch.from_numpy(lp.copy()), torch.from_numpy(lt.copy())
+    out = torch.zeros(L + 5, dtype=torch.int32)
+    work = tsc.workspace("cpu")
+    work[tsc.WK_PLAN], work[tsc.WK_S0] = 1, s0
+    ran4 = int(work[tsc.WK_RAN4])
+    tsc.turnover_flight(vecs, lp, lt, torch.from_numpy(wins), T,
+                        tsc.step_params(0, lterm, tfloor, 0, 0, None, L), out)
+    assert int(work[tsc.WK_RAN4]) == ran4 + 1
+    work[tsc.WK_PLAN] = 0
+    return vecs.numpy(), lp.numpy(), lt.numpy(), out.numpy()
+
+
+#: (plane, leader term, term floor) off the main path; the flight's last
+#: tail is B + K4_T*B
+K4_PLANES = {
+    "steady": (_steady_plane(N, B), 1, 1),
+    "lterm_0": (_steady_plane(N, B), 0, 1),              # no commit
+    "tfloor_beyond": (_steady_plane(N, B), 1, B + K4_T * B + 1),
+    "mixed_plane": (_mixed_plane(N, B), 3, 1),
+}
+
+
+@pytest.mark.parametrize("s0", [0, 128])
+@pytest.mark.parametrize("name", sorted(K4_PLANES))
+def test_k4_resident_bookkeeping_matches_pallas(name, s0):
+    plane, lterm, tfloor = K4_PLANES[name]
+    rng = np.random.default_rng(17)
+    M = N * K4_W
+    wins = rng.integers(-2**31, 2**31, (K4_P, B, M), dtype=np.int64) \
+        .astype(np.int32)
+    lp = rng.integers(-2**31, 2**31, (K4_C, M), dtype=np.int64) \
+        .astype(np.int32)
+    lt = rng.integers(0, 4, (N, K4_C)).astype(np.int32)
+    params, _ = jsp._params_and_masks(
+        jnp.int32(0), jnp.int32(lterm), jnp.int32(tfloor), jnp.int32(0),
+        jnp.int32(0), jnp.ones(N, bool), jnp.zeros(N, bool), None, None, N)
+    js, ji = _j_turnover(K4_C, K4_T, K4_P, N, M)(
+        jnp.asarray(lp), jnp.asarray(lt), jnp.asarray(wins),
+        jnp.asarray([s0], jnp.int32), params, jnp.asarray(plane))
+    v, tlp, tlt, out = _k4_resident(plane, wins, lp, lt, K4_T, s0, lterm,
+                                    tfloor)
+    assert_states_equal(js, tsc.unpack(torch.from_numpy(v),
+                                       torch.from_numpy(tlt),
+                                       torch.from_numpy(tlp)), name)
+    np.testing.assert_array_equal(out[:N], np.asarray(ji.match).reshape(-1))
+    for k, f in enumerate(("commit_index", "max_term", "frontier_len")):
+        assert int(out[N + k]) == int(np.asarray(getattr(ji, f)).flat[0]), f
+    want_commit = plane[3] if name in ("lterm_0", "tfloor_beyond") else \
+        B + K4_T * B
+    np.testing.assert_array_equal(v[3], want_commit)
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 4, 5])
+def test_k4_resident_closed_form_mirror_matches_step_loop(L):
+    """The resident K4's bookkeeping as ``csrc/steady.cu``
+    ``turnover_closed_form`` writes it (the Python mirror of
+    ``tests/test_torch_steady_mesh.py``) against the plain step loop, on
+    random planes, T = 0 to 4 ring laps."""
+    rng = np.random.default_rng(100 + L)
+    C, Bk, W = 512, 128, 2
+    for _ in range(40):
+        T = int(rng.integers(0, 4 * C // Bk + 1))
+        last = rng.integers(0, 3 * C, L)
+        last[:] = last[0]                   # the rows share one tail
+        plane = np.stack([
+            rng.integers(0, 5, L), rng.integers(-1, L, L), last,
+            np.minimum(last, rng.integers(0, 3 * C, L)),
+            rng.integers(0, 3 * C, L), rng.integers(0, 5, L),
+        ]).astype(np.int32)
+        lterm = int(rng.integers(0, 5))
+        tfloor = int(rng.integers(0, int(last[0]) + T * Bk + 2 * Bk))
+        v, _, lt, out = _k4_resident(
+            plane, np.zeros((3, Bk, L * W), np.int32),
+            np.zeros((C, L * W), np.int32), np.zeros((L, C), np.int32), T,
+            int(rng.integers(0, C)), lterm, tfloor)
+        want_v, want_out = _closed_form(plane, T, Bk, C, lterm, tfloor)
+        np.testing.assert_array_equal(v, want_v)
+        np.testing.assert_array_equal(out, want_out)
+        np.testing.assert_array_equal(lt, lterm)
+
+
+# ------------------------------------------- K4's copy, as the kernel walks it
+def _k4_runs(M, C, PB, r0, d0, w0, w1):
+    """Python mirror of ``csrc/steady.cu`` ``for_runs``: the runs (source
+    word, destination word, length) of the flat words [w0, w1)."""
+    k = w0 // M
+    off = w0 - k * M
+    d = d0 + k - (C if d0 + k >= C else 0)
+    r = k % PB + r0
+    r -= PB if r >= PB else 0
+    w = w0
+    while w < w1:
+        ln = min(w1 - w, min(C - d, PB - r) * M - off)
+        yield r * M + off, d * M + off, ln
+        w += ln
+        rows = (off + ln) // M
+        off += ln - rows * M
+        d += rows
+        d -= C if d >= C else 0
+        r += rows
+        r -= PB if r >= PB else 0
+
+
+def _k4_copy_mirror(ring, wins, T, s0, CW):
+    """The resident K4's payload write as its copy blocks walk it (chunks
+    of CW flat words, each cut into runs, each run into the words before
+    its first 16-byte-aligned destination word, whole 16-byte vectors, and
+    the rest; the bases 16-byte aligned), in place on ``ring``. Returns how
+    often each ring word was written."""
+    C, M = ring.shape
+    P, Bw, _ = wins.shape
+    TB = T * Bw
+    n, PB = min(TB, C), P * Bw
+    r0 = (TB - n) % PB
+    d0 = (TB - n) % C + s0
+    d0 -= C if d0 >= C else 0
+    src, dst = wins.reshape(-1), ring.reshape(-1)
+    written = np.zeros(C * M, np.int64)
+    words = n * M
+    for c in range(-(-words // CW)):
+        for so, do, ln in _k4_runs(M, C, PB, r0, d0, c * CW,
+                                   c * CW + min(CW, words - c * CW)):
+            assert ln > 0
+            if so % 4 == do % 4:
+                head = min(ln, (4 - do % 4) % 4)
+                body = (ln - head) & ~3
+                assert (do + head) % 4 == 0 and (so + head) % 4 == 0
+                parts = [(0, head), (head, head + body), (head + body, ln)]
+            else:
+                parts = [(0, ln)]
+            for a, b in parts:
+                dst[do + a:do + b] = src[so + a:so + b]
+                written[do + a:do + b] += 1
+    return written
+
+
+@pytest.mark.parametrize("CW", [8192, 4096, 40, 12, 6])
+def test_k4_copy_runs_match_plain(CW):
+    """The kernel's run walk (its chunk of 8 192 words, and others, small
+    ones among them that cut rows) writes every slot the flight reaches
+    once, with the plain version's words, and no other: the start slot
+    anywhere, fewer windows than steps, rows of 24, 60 and 16·k bytes,
+    flights short of a lap and several laps long."""
+    rng = np.random.default_rng(CW)
+    shapes = [(3, 2, 256, 128), (5, 3, 288, 96), (3, 64, 1024, 128),
+              (5, 22, 512, 64), (1, 1, 64, 8)]
+    for L, W, C, Bk in shapes:
+        M = L * W
+        for _ in range(6):
+            T = int(rng.integers(1, 3 * C // Bk + 2))
+            P = int(rng.integers(1, T + 1))
+            s0 = int(rng.choice([0, C - 1, C - Bk - 2,
+                                 int(rng.integers(0, C))]))
+            wins = rng.integers(-2**31, 2**31, (P, Bk, M), dtype=np.int64) \
+                .astype(np.int32)
+            lp = rng.integers(-2**31, 2**31, (C, M), dtype=np.int64) \
+                .astype(np.int32)
+            ring = lp.copy()
+            written = _k4_copy_mirror(ring, wins, T, s0, CW)
+            _, want, _, _ = _k4_resident(
+                _steady_plane(L, Bk), wins, lp, np.zeros((L, C), np.int32),
+                T, s0, 1, 1)
+            np.testing.assert_array_equal(ring, want)
+            reached = np.zeros(C, bool)
+            reached[(s0 + np.arange(min(T * Bk, C)) + T * Bk
+                     - min(T * Bk, C)) % C] = True
+            np.testing.assert_array_equal(written.reshape(C, M),
+                                          np.repeat(reached[:, None], M, 1))
+
