@@ -20,7 +20,7 @@ port's deployments. First the north star (3 replicas, 256-byte entries, batch
    from a start slot set in the workspace: a leader term of 0, a term floor beyond the last tail, mixed
    terms and votes, T = 256, start slots just before C with fewer windows
    than steps, a flight short of a lap, and rows of 440, 24 and 60
-   bytes), then through a 200-step randomized multi-term schedule
+   bytes), then through a 100-step randomized multi-term schedule
    (kernel path on the card, plain path on the host);
 4. drives the main path through ``SingleDeviceTransport``: election,
    repair-capable ticks healing a slow row, steady ticks, then the port's
@@ -298,8 +298,8 @@ entries, batch 256, a 4096-slot ring each; ``bench.py``
     cross-shard ``swap_slots`` in place (data pointers kept, no graph
     recaptured) and the window alone in turns against the resident
     graphs; then ``MultiEngine`` + ``Router`` + ``ShardedKV`` at
-    ``fuse_k`` 32: 2 048 SETs a group through the sharded engine in waves
-    of 256, the first four taken in turns with the resident engine, a
+    ``fuse_k`` 32: 1 536 SETs a group through the sharded engine in waves
+    of 256, the first three taken in turns with the resident engine, a
     ``Router.rebalance`` migration mid-traffic, every group's apply
     stream and ring read-back against the input's SHA-256;
     prints entries/s, ms a fused window, K5 launches of each layout,
@@ -441,6 +441,17 @@ entries, batch 256, a 4096-slot ring each; ``bench.py``
     K7-encoded windows, K6 in its heals), the pipelined multi-lap chaos
     seed 3 (K3, K4 at T = 4), a partition schedule and a
     PreVote/CheckQuorum storm;
+11l. ``bench_path``: ``python -m raft_tpu_torch.bench --deadline-s 120``
+    (the port of ``bench.py``) as a child process: every line must parse,
+    the kernel gates must have run and passed (K1 against its plain
+    version at the gate's wrap, partial-count and conflict cases; the
+    multi-lap flight byte for byte against the per-step K2 scan, with and
+    without a slow row and at RS(5,3)), every finished leg's row must have
+    its keys and no ``error``, and ``c2_batched`` must have finished (its
+    flight committed T·B, which the bench asserts); prints each finished
+    leg's headline figures, its wall and the legs the deadline skipped;
+    the bench's kernel launches (its own counters, from its combined
+    object) join the kernel table under ``bench``;
 
 Then the replica mesh: one replica row per rank of a ``torch.distributed``
 gloo group, all ranks on the one card (three processes time-sharing it,
@@ -969,7 +980,7 @@ def k1_case(dev, rng, L, M, C, B, s, count, acc, kind):
     return max_err([(a[0], b[0]), (a[1], b[1]), (mm_k, mm_p)])
 
 
-def phase_kernels(cfg, dev, n_random=200):
+def phase_kernels(cfg, dev, n_random=100):
     """Every kernel against its plain version on the same inputs."""
     import torch
 
@@ -4751,7 +4762,7 @@ def ring_read_cases(ecfg, dev, rng, note):
             "row_sets": len(sets), "cases": n}
 
 
-def phase_ec_kernels(ecfg, dev, n_random=120):
+def phase_ec_kernels(ecfg, dev, n_random=60):
     """K6, K7 and K2-K4 in their in-kernel parity mode against their plain
     versions on the same inputs, at config 3 and at RS(4,2) with 8-byte
     entries and B = 128."""
@@ -6565,8 +6576,8 @@ def phase_multi_card_equals_cpu(dev):
 #: each wave; the first GMESH_TURNS waves run on both engines in turns
 #: (the sharded engine first on even waves), the rest on the sharded one
 GMESH_WAVE = 256
-GMESH_WAVES = 8           # 2 048 a group through the sharded engine
-GMESH_TURNS = 4           # 1 024 a group through the resident one
+GMESH_WAVES = 6           # 1 536 a group through the sharded engine
+GMESH_TURNS = 3           # 768 a group through the resident one
 GMESH_REBALANCE_WAVE = 5  # the Router's migration comes inside this wave
 
 
@@ -6585,7 +6596,7 @@ def same_sharded(t, sts, st, what):
                   f"{what}: state.{f} of shard {k} differs")
 
 
-def group_mesh_transport(dev, n_turns=8):
+def group_mesh_transport(dev, n_turns=4):
     """Config B's fused schedule (``group_main_b``) on two co-resident
     shards (``GroupMesh([dev, dev])``, 512 groups each, one graph set a
     shard) beside the resident program, launch for launch: 4 clean
@@ -11533,6 +11544,8 @@ CLUSTER_NODES, CLUSTER_CONNS, CLUSTER_N, CLUSTER_G = 3, 6, 900, 4
 #: writes through the survivors while the handoff row's victim is down
 #: (``bench_cluster``'s kill row writes at least 300 there)
 CLUSTER_GAP_N = 300
+#: writes of the reference's round under torch.profiler (its idle share)
+CLUSTER_PROFILED_N = 300
 #: attempts of the ``lease_stale_round`` variant: it provokes a stale
 #: lease read by timing (a reply-delay ramp, a one-sided partition) and
 #: misses it in some runs of either package; one catch is the receipt
@@ -11801,8 +11814,9 @@ def cluster_drills():
 def cluster_bench_run(dev):
     """``cluster_path`` (b): ``bench_cluster``'s goodput row against the
     3-process cluster beside the same shape against the single-process
-    wire reference on ``dev`` (a warm-up round, the timed round, then the
-    same round under torch.profiler for the card's idle share), then the
+    wire reference on ``dev`` (a warm-up round, the timed round, then
+    ``CLUSTER_PROFILED_N`` writes under torch.profiler for the card's idle
+    share), then the
     handoff row: the goodput's leader killed, ``CLUSTER_GAP_N`` writes
     through the survivors, the victim respawned on its own dirs (adopting
     its segments), killed again, and respawned on a wiped dir. Checks:
@@ -11899,13 +11913,14 @@ def cluster_bench_run(dev):
     k5_warm = ring_cuda.LAUNCHES["write_window_cols"] - k5
     timed = asyncio.run(ref_round(b"t", CLUSTER_N))
     k5_timed = ring_cuda.LAUNCHES["write_window_cols"] - k5 - k5_warm
-    profiled = asyncio.run(ref_round(b"p", CLUSTER_N, prof=True))
+    profiled = asyncio.run(ref_round(b"p", CLUSTER_PROFILED_N, prof=True))
     k5_ref = ring_cuda.LAUNCHES["write_window_cols"] - k5
     eng.run_for(4 * cfg.heartbeat_period)
     for g, seq, payload in sent:
         check(applied[g].get(seq) == payload,
               f"reference: group {g} entry {seq} not applied as sent")
-    check(timed["acked"] == CLUSTER_N and profiled["acked"] == CLUSTER_N,
+    check(timed["acked"] == CLUSTER_N
+          and profiled["acked"] == CLUSTER_PROFILED_N,
           f"reference: writes refused {timed['acked']} {profiled['acked']}")
     reference = {"warm_up": warm, "timed": timed, "profiled": profiled,
                  "k5_launches": {"warm_up": k5_warm, "timed": k5_timed,
@@ -12453,6 +12468,118 @@ def phase_laps_path(dev, card_line):
     return res
 
 
+# ------------------------------------------------ 11l. the bench (A18)
+#: bench_path: the port's bench as a child process, cut by its own deadline
+#: (the leg in flight at the deadline runs to its end)
+BENCH_DEADLINE_S = 120
+BENCH_TIMEOUT_S = 900
+#: the harness columns every executed leg's row carries
+BENCH_HARNESS_KEYS = {"compile_count", "compile_s", "mem_high_water_bytes"}
+#: a finished two-program row (c2_batched, c4_slow, c2_batch4096)
+BENCH_PROGRAM_KEYS = {"p50_us", "p99_us", "entries_per_sec", "method",
+                      "program", "p50_alt_program"} | BENCH_HARNESS_KEYS
+#: the headline figures printed of each leg (its row's top-level numbers
+#: otherwise)
+BENCH_HEADLINES = {
+    "c2_batched": ("p50_us", "p99_us", "entries_per_sec", "program",
+                   "p50_alt_program"),
+    "c4_slow": ("p50_us", "p99_us", "entries_per_sec", "program",
+                "p50_alt_program"),
+    "c2_batch4096": ("p50_us", "p99_us", "entries_per_sec", "program",
+                     "p50_alt_program", "p50_us_ring131k"),
+}
+
+
+def _bench_errors(row, where):
+    """Every ``error`` key in a row and its nested rows."""
+    if not isinstance(row, dict):
+        return []
+    found = [where] if "error" in row else []
+    for k, v in row.items():
+        found += _bench_errors(v, f"{where}.{k}")
+    return found
+
+
+def phase_bench_path(dev, card_line):
+    """The port's bench on the card (module doc, 11l)."""
+    t_phase = time.perf_counter()
+    res = {"phase": "bench_path", "card": card_line,
+           "deadline_s": BENCH_DEADLINE_S}
+    proc = subprocess.run(
+        [sys.executable, "-m", "raft_tpu_torch.bench", "--deadline-s",
+         str(BENCH_DEADLINE_S)], cwd=HERE, capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S)
+    check(proc.returncode == 0, f"the bench exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    objs = []
+    for ln in proc.stdout.splitlines():
+        if ln.strip():
+            try:
+                objs.append(json.loads(ln))
+            except json.JSONDecodeError:
+                check(False, f"a bench line does not parse: {ln[:200]}")
+    check(len(objs) >= 2 and "card" in objs[0] and "configs" in objs[-1],
+          "the bench printed no card line or no combined object")
+    head, final = objs[0], objs[-1]
+    check(card_line.startswith(str(head["card"])) and head["card"],
+          f"the bench names another card: {head}")
+    check(final["backend"] == "cuda" and final["card"] == head["card"],
+          "the bench's combined object names another device")
+    skipped = final.get("deadline_skipped", [])
+    check("kernel_gates" not in skipped, "the kernel gates did not run")
+    gates = final["launches_by_leg"].get("kernel_gates", {})
+    check(gates.get("K1", 0) > 0 and gates.get("K2", 0) > 0
+          and gates.get("K3", 0) > 0 and gates.get("K2·ec", 0) > 0,
+          f"the kernel gates launched too little: {gates}")
+    finished = {k: v for k, v in final["configs"].items()
+                if not (isinstance(v, dict) and v.get("skipped"))}
+    check("c2_batched" in finished, "c2_batched did not finish")
+    c2 = finished["c2_batched"]
+    check(c2["method"].startswith("device: "),
+          f"c2_batched was not timed on the card: {c2['method']}")
+    check(final["value"] == c2["p50_us"] and final["value"] > 0,
+          "the headline is not c2's p50")
+    for name, row in finished.items():
+        check(not _bench_errors(row, name),
+              f"bench leg {name} has an error: {_bench_errors(row, name)}")
+        if name in ("multi_group", "group_shard"):
+            continue        # rows of their own, emitted per G
+        check(BENCH_HARNESS_KEYS <= set(row),
+              f"bench leg {name} lacks the harness columns")
+        if name in BENCH_HEADLINES:
+            check(BENCH_PROGRAM_KEYS <= set(row),
+                  f"bench leg {name} lacks {BENCH_PROGRAM_KEYS - set(row)}")
+    def numbers(row):
+        return {k: v for k, v in row.items() if k not in BENCH_HARNESS_KEYS
+                and isinstance(v, (int, float)) and not isinstance(v, bool)}
+
+    for name, row in finished.items():
+        if name in BENCH_HEADLINES:
+            head_fig = {k: row.get(k) for k in BENCH_HEADLINES[name]}
+        else:
+            # a leg of sub-rows (one per K, G, class or row) prints each
+            head_fig = numbers(row) or {k: numbers(v) for k, v in row.items()
+                                        if isinstance(v, dict)}
+        print(f"bench_path: {name} {json.dumps(head_fig)} wall "
+              f"{final['leg_wall_s'].get(name)} s", flush=True)
+    launches = {}
+    for per in final["launches_by_leg"].values():
+        for k, n in per.items():
+            launches[k] = launches.get(k, 0) + n
+    check(launches.get("K3", 0) > 0 and launches.get("K4", 0) > 0,
+          f"the bench's flights launched no K3/K4: {launches}")
+    res.update(finished=sorted(finished), skipped=skipped,
+               leg_wall_s=final["leg_wall_s"],
+               run_wall_s=final["run_wall_s"], build_s=final["build_s"],
+               headline={k: final[k] for k in (
+                   "value", "p99_us", "entries_per_sec", "wall_slope_us",
+                   "method")},
+               launches=launches, launches_by_leg=final["launches_by_leg"])
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 #: phases ``--only=a,b`` runs alone (after the card and the build): the
 #: kernels against their plain versions, the mesh engine's (1-D and
 #: 2-D), and the resident main paths whose host code the mesh engine's
@@ -12485,7 +12612,9 @@ ONLY_PHASES = {"kernels": lambda dev: phase_kernels(ns_config(), dev),
                "cluster_path":
                lambda dev: phase_cluster_path(dev, card_query()),
                "laps_path":
-               lambda dev: phase_laps_path(dev, card_query())}
+               lambda dev: phase_laps_path(dev, card_query()),
+               "bench_path":
+               lambda dev: phase_bench_path(dev, card_query())}
 
 
 def main() -> int:
@@ -12561,6 +12690,7 @@ def main() -> int:
                    phase_mesh2d_card_equals_cpu(dev)}
     mesh_timing = phase_mesh_timing(cfg, dev, card_line, mesh_kernel_times,
                                     mesh_main)
+    bench = phase_bench_path(dev, card_line)
     kernels = []
     for table, err, main, tim in ((KERNELS, errs, main_res, timing),
                                   (EC_KERNELS, ec_errs, ec_main, ec_timing),
@@ -12644,6 +12774,10 @@ def main() -> int:
                 if key in ("K1", "K2·mesh", "K3·mesh", "K4·mesh",
                            "K6 encode", "K6 decode", "K7") and n:
                     by_path[path] = n
+            if bench["launches"].get(key):
+                # the port's bench (its legs until the deadline, and the
+                # kernel gates), counted in its own process
+                by_path["bench"] = bench["launches"][key]
             kernels.append({
                 "name": f"{key} {name}", "route": "cuda", "source": src,
                 "replaces": replaces, "launches": sum(by_path.values()),
@@ -12674,6 +12808,10 @@ def main() -> int:
         if key == "K5 A":
             # config A behind the wire's RouterBackend
             by_path["wire_config_a"] = wire["k5_launches"]["config_a"]
+            if bench["launches"].get("K5"):
+                # the port's bench legs the deadline left in (their
+                # group programs, at their own shapes)
+                by_path["bench"] = bench["launches"]["K5"]
         if key == "K5 B":
             # the group-sharded layout: its two shards (one launch a shard
             # a tick) and the resident program beside them

@@ -146,13 +146,16 @@ def _session_live() -> bool:
     return bool(torch.autograd.profiler._is_profiler_enabled)
 
 
-def _profiler():
+def _profiler(cpu: bool = True):
     """A ``torch.profiler.profile`` over the CPU (and CUDA when present),
-    profiling every thread where this torch can. Returns (profiler,
-    whether it profiles all threads)."""
+    profiling every thread where this torch can; with ``cpu=False`` over
+    CUDA alone where there is a card (the host's operator events are then
+    not recorded). Returns (profiler, whether it profiles all threads)."""
     import torch
 
-    acts = [torch.profiler.ProfilerActivity.CPU]
+    acts = []
+    if cpu or not torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CPU)
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     # the newest option set this torch accepts: every thread, and no
@@ -169,16 +172,16 @@ def _profiler():
 
 
 @contextlib.contextmanager
-def _session():
+def _session(cpu: bool = True):
     """One profiler session (serialized process-wide): yields the
     started profiler; always stopped on exit, since a leaked session
-    poisons every later one."""
+    poisons every later one. ``cpu`` as in ``_profiler``."""
     if not _capture_lock.acquire(blocking=False):
         raise CaptureBusy("a profiler capture is already in flight")
     try:
         if _session_live():
             raise CaptureBusy("another torch.profiler session is live")
-        prof, all_threads = _profiler()
+        prof, all_threads = _profiler(cpu)
         prof.start()
         try:
             yield prof, all_threads
@@ -286,8 +289,11 @@ def device_seconds(
     a long process a short session can lose its first (and now and then
     its last) device records, so on the card the call sits between two
     runs of one-element float64 adds, after a pause: a type the port never
-    runs on the card, whose records are dropped by name. With
-    ``trace_dir`` the raw trace is kept there (``op_breakdown`` reads
+    runs on the card, whose records are dropped by name. On the card the
+    session records CUDA activity alone: the host's operator events would
+    multiply the trace of a call of many small launches (a T-step
+    general-path scan) several times over, for nothing this sum reads.
+    With ``trace_dir`` the raw trace is kept there (``op_breakdown`` reads
     it)."""
     import torch
 
@@ -305,7 +311,7 @@ def device_seconds(
 
     pads()
     args = mk_args()
-    with _session() as (prof, _):
+    with _session(cpu=False) as (prof, _):
         pads()
         time.sleep(0.05)
         fn(*args)

@@ -16,7 +16,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "raft_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "raft_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "raft_tpu", "bench", "tools")
 
 
 def _forbidden(name: str) -> bool:
@@ -74,8 +74,28 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import raft_tpu_torch.chaos.__main__\n"
         "import raft_tpu_torch.txn, raft_tpu_torch.txn.ops\n"
         "import raft_tpu_torch.txn.store, raft_tpu_torch.txn.coordinator\n"
+        "import raft_tpu_torch.bench, raft_tpu_torch.tools.bench_diff\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax') or "
         "m == 'raft_tpu' or m.startswith(('jax.', 'raft_tpu.')))\n"
+        "print(bad); sys.exit(1 if bad else 0)\n" % str(ROOT)
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-I", "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_bench_modules_stand_alone():
+    """The port's bench and its regression gate load none of the JAX
+    side: neither JAX nor ``raft_tpu``, nor ``bench.py`` or
+    ``tools/``, though both sit beside the package."""
+    for rel in ("bench.py", "tools/bench_diff.py"):
+        assert (ROOT / "raft_tpu_torch" / rel) in PORT_FILES
+    code = (
+        "import sys; sys.path.insert(0, %r)\n"
+        "import raft_tpu_torch.bench, raft_tpu_torch.tools.bench_diff\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'flax', 'raft_tpu', 'bench', 'tools'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n" % str(ROOT)
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
