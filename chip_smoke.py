@@ -135,7 +135,8 @@ Then the engine's tick loop (``raft_tpu_torch.raft.RaftEngine``):
     saves and restores a checkpoint with the tier; then the first run at
     C = 4 096 on the card and on the CPU: nodelog lines, state leaves,
     read-backs and shard files equal; prints ms a seal, entries/s with
-    the tier on and off and replay entries/s; the files are deleted;
+    the tier on and off and replay entries/s; the files are deleted
+    (``--only=engine_tiered_path --tier-laps=N`` runs it at N laps);
 5h. drives the device event ring through the engine
     (``engine_device_obs_path``): ``fused_graph_vs_loop``'s cases again
     with an event ring on both sides (the recorded K-tick graph against
@@ -148,7 +149,9 @@ Then the engine's tick loop (``raft_tpu_torch.raft.RaftEngine``):
     boundary; at capacity 64 with every flush held to the end,
     ``dropped`` = total - 64 and the survivors equal to the full ring's
     last 64; then at C = 4 096 on the card and on the CPU, the packed ring
-    and the decoded events equal; prints ms a leader tick and device ops a
+    and the decoded events equal; last the K = 1 detached run once more,
+    equal to the first on lines, commit stamps, terms, roles, read-backs
+    and every state leaf; prints ms a leader tick and device ops a
     leader tick attached and detached at K = 1 and 8.
 
 Then BASELINE config 3 (5 replicas, RS(5,3) shards of 264-byte entries,
@@ -420,9 +423,9 @@ entries, batch 256, a 4096-slot ring each; ``bench.py``
 11k. ``laps_path``: the lapped flight and the engine's fault paths. (a)
     ``bench.py``'s lapped chunk (``bench_client_latency``) through
     ``RaftEngine`` at ``RaftConfig(pipeline_max_laps=8)`` at the north
-    star: a warm chunk, then two timed chunks of 262 144 entries, each of
+    star: a warm chunk, then a timed chunk of 262 144 entries, each of
     which must ride exactly one flight of 256 steps (K3's plan, then K4
-    across 8 laps), beside the one-ring chunk (a warm one and three timed
+    across 8 laps), beside the one-ring chunk (a warm one and two timed
     of 32 768 entries, one flight of 32 steps each); each chunk's wall,
     entries/s and its parts (pack, fold and upload, the flight's device
     ms, bookkeeping, intake), and the last ring read back through
@@ -518,8 +521,18 @@ not a multi-card run), built through ``make_transport`` with
 19. prints the kernel table, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
+Every phase from 3 on must find the steady kernels' ``WK_MM`` and
+``WK_TICKET`` workspace words at 0 when it starts and when it ends (one
+line a phase), and every comparison of two runs names its first
+differing key, index or seq with both values, the leader tick of a
+differing commit stamp, and the phases the process ran before.
+
 Any failure ends the run with a nonzero exit code before the last line.
 It needs the repository checkout around it and a CUDA device.
+
+``python3 chip_smoke.py --only=a,b`` runs the named phases alone (after
+the card and the build; ``ONLY_PHASES``), with no kernel table and no
+last line.
 """
 
 from __future__ import annotations
@@ -548,6 +561,157 @@ def emit(obj) -> None:
 def check(cond, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+#: the phases this process has entered, in order (``phase``): device
+#: state outlives a phase, so a failed comparison names them
+PHASES_RUN = []
+
+
+def _key_order(k):
+    return (type(k).__name__, k)
+
+
+def first_diff(a, b, path=()):
+    """Where two values first differ: ``(path, text)`` with the path of
+    keys and indices down to it and a text naming it and both values, or
+    None when they are equal. Dicts go key by key in key order (a key
+    missing on one side is a difference), lists index by index, arrays to
+    their first differing element; the text also gives the sizes of the
+    dict, list or array that holds the difference."""
+    at = "".join(f"[{k!r}]" for k in path)
+    where = at or "the value"
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return path, (f"{where}: {a.dtype}{list(a.shape)} vs "
+                          f"{b.dtype}{list(b.shape)}")
+        ne = np.flatnonzero(a.ravel() != b.ravel())
+        if not ne.size:
+            return None
+        i = tuple(int(x) for x in np.unravel_index(ne[0], a.shape))
+        return path + i, (f"{at}{list(i)}: {a[i]!r} vs {b[i]!r} "
+                          f"({ne.size} of {a.size} elements differ)")
+    if isinstance(a, dict) and isinstance(b, dict):
+        for k in sorted(a.keys() | b.keys(), key=_key_order):
+            if k not in a or k not in b:
+                got = [repr(x[k]) if k in x else "missing" for x in (a, b)]
+                return path + (k,), (f"{at}[{k!r}]: {got[0]} vs "
+                                     f"{got[1]} (sizes {len(a)} and "
+                                     f"{len(b)})")
+            d = first_diff(a[k], b[k], path + (k,))
+            if d is not None:
+                return d[0], f"{d[1]} (sizes {len(a)} and {len(b)})"
+        return None
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if type(a) is not type(b):
+            return path, f"{where}: a {type(a).__name__} vs a " \
+                         f"{type(b).__name__}"
+        for i in range(max(len(a), len(b))):
+            if i >= len(a) or i >= len(b):
+                got = [repr(x[i]) if i < len(x) else "missing"
+                       for x in (a, b)]
+                return path + (i,), (f"{at}[{i}]: {got[0]} vs {got[1]} "
+                                     f"(lengths {len(a)} and {len(b)})")
+            d = first_diff(a[i], b[i], path + (i,))
+            if d is not None:
+                return d[0], f"{d[1]} (lengths {len(a)} and {len(b)})"
+        return None
+    return None if a == b else (path, f"{where}: {a!r} vs {b!r}")
+
+
+def check_same(a, b, what: str, note=None) -> None:
+    """``check`` that ``a == b``; a failure names the first difference
+    (``first_diff``), what ``note(path)`` adds about it, and the phases
+    this process ran before."""
+    d = first_diff(a, b)
+    if d is not None:
+        extra = note(d[0]) if note is not None else ""
+        raise RuntimeError(f"check failed: {what} differ: first at {d[1]}"
+                           f"{extra}; phases run: {PHASES_RUN}")
+
+
+def stamp_ticks(e):
+    """Where ``e`` stamps its commit times: a list that fills while ``e``
+    runs with one (newest seq, leader tick count) pair per stamping that
+    committed something (``_evict_commit_stamps`` runs after every
+    stamping, with the new seqs last in ``commit_time``). One append a
+    stamping; ``stamp_tick`` turns it into a seq's tick."""
+    marks = []
+    seen = [e.committed_total]
+    evict = e._evict_commit_stamps
+
+    def note_then_evict():
+        if e.committed_total != seen[0]:
+            seen[0] = e.committed_total
+            marks.append((next(reversed(e.commit_time)), e._tick_count))
+        evict()
+
+    e._evict_commit_stamps = note_then_evict
+    return marks
+
+
+def stamp_tick(kept, seq):
+    """The leader tick count at which the run ``kept`` stamped ``seq``:
+    that of the first stamping whose newest seq is ``seq`` or later in
+    ``commit_time``'s order (a stamping whose newest seq was evicted lost
+    all its seqs), or None."""
+    order = {s: i for i, s in enumerate(kept["commit_time"])}
+    if seq not in order:
+        return None
+    return next((t for last, t in kept["stamp_ticks"]
+                 if order.get(last, -1) >= order[seq]), None)
+
+
+def same_kept(a, b, what: str, keys=None) -> None:
+    """Two runs' kept values (``keep`` of an engine run) equal on ``keys``
+    (default: every key of ``a``; each must be in both), each through
+    ``check_same``; a ``commit_time`` difference also names the leader
+    tick at which each run stamped that seq (``stamp_ticks``)."""
+    for k in keys if keys is not None else a:
+        check(k in a and k in b, f"{what}: {k} is missing from a run")
+        note = None
+        if k == "commit_time" and "stamp_ticks" in a and "stamp_ticks" in b:
+            def note(path):
+                seq = path[0] if path else None
+                return (f"; seq {seq!r} stamped at leader tick "
+                        f"{stamp_tick(a, seq)} vs {stamp_tick(b, seq)}")
+        check_same(a[k], b[k], f"{what}: {k}", note)
+
+
+def workspace_words():
+    """``WK_MM`` and ``WK_TICKET`` of the steady kernels' workspace on
+    the card (one fetch): K2's last-block ticket wants both 0 on entry,
+    and every K2 launch leaves them 0."""
+    from raft_tpu_torch.core import step_cuda
+
+    w = step_cuda.workspace("cuda:0")
+    return w[[step_cuda.WK_MM, step_cuda.WK_TICKET]].tolist()
+
+
+def phase(fn):
+    """A phase of the run: its name joins ``PHASES_RUN``, and the
+    workspace words (``workspace_words``) must read 0 at its start and
+    its end, both printed on a line of their own."""
+    import functools
+
+    name = fn.__name__[len("phase_"):]
+
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        PHASES_RUN.append(name)
+        start = workspace_words()
+        check(start == [0, 0], f"{name}: WK_MM, WK_TICKET = {start} at the "
+                               f"phase's start; phases run: {PHASES_RUN}")
+        out = fn(*args, **kw)
+        end = workspace_words()
+        emit({"workspace_words": name, "wk_mm_wk_ticket":
+              {"start": start, "end": end}})
+        check(end == [0, 0], f"{name}: WK_MM, WK_TICKET = {end} at the "
+                             f"phase's end; phases run: {PHASES_RUN}")
+        return out
+
+    return run
 
 
 # --------------------------------------------------------------- phase 1
@@ -980,6 +1144,7 @@ def k1_case(dev, rng, L, M, C, B, s, count, acc, kind):
     return max_err([(a[0], b[0]), (a[1], b[1]), (mm_k, mm_p)])
 
 
+@phase
 def phase_kernels(cfg, dev, n_random=100):
     """Every kernel against its plain version on the same inputs."""
     import torch
@@ -1292,6 +1457,7 @@ class Stream:
         self.done = {r: self.submitted for r in self.rows}
 
 
+@phase
 def phase_main_path(cfg, dev, entries=ENTRIES):
     import torch
 
@@ -1435,6 +1601,7 @@ def c4_config():
                       log_capacity=1 << 15, transport="single")
 
 
+@phase
 def phase_config4_main_path(dev):
     """Config 4 through ``SingleDeviceTransport``, both of the JAX bench's
     programs, each on a fresh cluster (row 0 elected in term 1, row 4
@@ -1500,7 +1667,7 @@ def phase_config4_main_path(dev):
                 def one(st=state, pay=pay):
                     box["out"] = call(tr, st, pay, cnt)
 
-                events, pwall = _device_events(one, 1)
+                events, pwall, whole = _device_events(one, 1)
                 state, info = box.pop("out")
             S.read_back(state)
         counters = read_counters(dev)
@@ -1543,7 +1710,8 @@ def phase_config4_main_path(dev):
             "latency_method": "device",
             # the last call under the profiler: where its time went
             "profiled_call": {
-                "wall_ms": pwall * 1e3, "device_busy_ms": busy / 1e3,
+                "wall_ms": pwall * 1e3,
+                "profile_whole": whole, "device_busy_ms": busy / 1e3,
                 "device_idle_share": 1.0 - busy / (pwall * 1e6),
                 "device_us_per_step": busy / steps,
                 "device_ms_by_kind": {k: v / 1e3
@@ -1606,6 +1774,7 @@ def engine_read_back(e, inp, lo, hi, what):
     return {"lo": lo, "hi": hi, "sha256": want, "readers": sorted(got)}
 
 
+@phase
 def phase_engine_main_path(cfg, dev):
     """The north star through ``RaftEngine`` at ``RaftConfig()``'s
     deployment (3 replicas, 256-byte entries, B = 1024, C = 32 768, the
@@ -1681,7 +1850,7 @@ def phase_engine_main_path(cfg, dev):
                     while e._tick_count < ticks0 + ENGINE_PROFILED_TICKS:
                         e.step_event()
 
-            events, pwall = _device_events(window, 1)
+            events, pwall, whole = _device_events(window, 1)
             # the launch annotations show as device ranges of their own
             # (``leader_tick#n``, spanning each tick's work): not device
             # work, so kept out of the busy time and the counts
@@ -1721,6 +1890,7 @@ def phase_engine_main_path(cfg, dev):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     res["profiled_ticks"] = {
         "ticks": ENGINE_PROFILED_TICKS, "wall_ms": pwall * 1e3,
+        "profile_whole": whole,
         "launch_annotations": len(annotations),
         "kernels_per_tick": len(kernels) / ENGINE_PROFILED_TICKS,
         "device_ops_per_tick": len(events) / ENGINE_PROFILED_TICKS,
@@ -2104,7 +2274,7 @@ def fused_engine_run(cfg, dev, timed):
         sync()
         t0 = time.perf_counter()
         if b == FUSED_TIMED_BURSTS + 1 and timed:
-            events, pwall = _device_events(
+            events, pwall, whole = _device_events(
                 lambda: e.run_for((FUSED_BURST // B + 2) * hb), 1)
         else:
             e.run_for((FUSED_BURST // B + 2) * hb)
@@ -2141,7 +2311,7 @@ def fused_engine_run(cfg, dev, timed):
             res["profiled_burst"] = {
                 "entries": FUSED_BURST, "leader_ticks": lt,
                 "fused_windows": wins, "fused_launches": launches,
-                "wall_ms": pwall * 1e3,
+                "wall_ms": pwall * 1e3, "profile_whole": whole,
                 "device_busy_ms": busy / 1e3,
                 "device_idle_share": 1.0 - busy / (pwall * 1e6),
                 "kernels": len(kern), "device_ops": len(events),
@@ -2201,20 +2371,11 @@ def fused_engine_run(cfg, dev, timed):
     return res, keep
 
 
-def same_runs(a, b, what):
-    """Two runs of the schedule: equal nodelog lines, commit stamps, terms,
-    roles, state leaves and read-backs."""
-    check(a["lines"] == b["lines"], f"{what}: nodelog lines differ")
-    check(a["commit_time"] == b["commit_time"],
-          f"{what}: commit stamps differ")
-    check(a["terms"] == b["terms"] and a["roles"] == b["roles"],
-          f"{what}: terms or roles differ")
-    for f in a["state"]:
-        check(np.array_equal(a["state"][f], b["state"][f]),
-              f"{what}: state.{f} differs")
-    check(a["reads"] == b["reads"], f"{what}: read-backs differ")
+#: what two runs of one engine schedule are held equal on
+SAME_RUN = ("lines", "commit_time", "terms", "roles", "state", "reads")
 
 
+@phase
 def phase_engine_fused_path(dev):
     """K-tick fusion through ``RaftEngine`` on the card: the graph against
     the uncaptured loop (``fused_graph_vs_loop``); the north star's
@@ -2240,7 +2401,8 @@ def phase_engine_fused_path(dev):
             fused_config(STEPS_PER_FLIGHT * 1024, k), dev, timed=True)
     res["launches"] = read_counters(dev)
     for k in FUSED_KS:
-        same_runs(keeps[1], keeps[k], f"fuse_k={k} against fuse_k=1")
+        same_kept(keeps[1], keeps[k], f"fuse_k={k} against fuse_k=1",
+                  SAME_RUN)
         check(runs[k]["fused_launches"] > 0,
               f"fuse_k={k}: no fused launch")
         check(runs[k]["graphs"]["k1_launches"] > 0,
@@ -2257,7 +2419,8 @@ def phase_engine_fused_path(dev):
     res["card_equals_cpu_launches"] = read_counters(dev)
     cpu, cpu_keep = fused_engine_run(small, "cpu", timed=False)
     t2 = time.perf_counter()
-    same_runs(card_keep, cpu_keep, "C = 4 096, fuse_k = 8: card vs CPU")
+    same_kept(card_keep, cpu_keep, "C = 4 096, fuse_k = 8: card vs CPU",
+              SAME_RUN)
     check(card["fused_launches"] == cpu["fused_launches"] > 0
           and card["fused_ticks"] == cpu["fused_ticks"],
           "card vs CPU: fused launches or ticks differ")
@@ -2487,11 +2650,13 @@ def obs_engine_run(cfg, dev, mode, plan=OBS_PLAN, serve=False,
             drain = (plan["burst"] // B + 2) * hb
             if profile and b == OBS_PROFILED_BURST:
                 t0n, f0 = e._tick_count, counts["fetches"]
-                events, _ = _device_events(lambda: e.run_for(drain), 1)
+                events, _, whole = _device_events(
+                    lambda: e.run_for(drain), 1)
                 lt = e._tick_count - t0n
                 dtoh = sum(1 for n, _ in events if "DtoH" in n)
                 res["profiled_burst"] = {
-                    "leader_ticks": lt, "dtoh_copies": dtoh,
+                    "leader_ticks": lt, "profile_whole": whole,
+                    "dtoh_copies": dtoh,
                     "dtoh_per_leader_tick": dtoh / lt,
                     "fetches": counts["fetches"] - f0,
                     "fetches_per_leader_tick":
@@ -2692,6 +2857,7 @@ def obs_bundle(e_cfg, stack, tmpdir):
             "explain_lines": len(out.stdout.splitlines())}
 
 
+@phase
 def phase_engine_obs_path(dev):
     """The observed engine at the north star's deployment (3 replicas,
     256-byte entries, B = 1024, C = 32 768): ``obs_engine_run``'s schedule
@@ -2773,6 +2939,7 @@ def phase_engine_obs_path(dev):
     return res
 
 
+@phase
 def phase_obs_card_equals_cpu(dev):
     """``obs_engine_run`` with the full plane at a 4 096-slot ring and
     ``fuse_k`` 8 on the card and on the CPU (the CPU's flight gate
@@ -2801,8 +2968,7 @@ def phase_obs_card_equals_cpu(dev):
             counters = read_counters(dev)
     card, cpu = keeps[str(dev)], keeps["cpu"]
     equal = sorted(k for k in card if k != "fetches_in_events")
-    for key in equal:
-        check(card[key] == cpu[key], f"obs card vs CPU: {key} differs")
+    same_kept(card, cpu, "obs card vs CPU", equal)
     check(runs[str(dev)]["fused_launches"] == runs["cpu"]["fused_launches"]
           > 0, "obs card vs CPU: fused launches differ")
     for key in ("K1", "K3", "K4"):
@@ -2820,6 +2986,7 @@ def phase_obs_card_equals_cpu(dev):
     return {"launches": counters}
 
 
+@phase
 def phase_config5_storm(dev):
     """BASELINE config 5 (``bench.py`` ``bench_storm``, both variants)
     through the port's engine on the card, then the same storm through it
@@ -3078,7 +3245,7 @@ def ec_engine_run(cfg, dev, steps, tmp, timed):
                     while e._tick_count < ticks0 + ENGINE_PROFILED_TICKS:
                         e.step_event()
 
-            events, pwall = _device_events(window, 1)
+            events, pwall, whole = _device_events(window, 1)
             events = [(n, us) for n, us in events
                       if not n.startswith("leader_tick#")]
         e.run_until_committed(seqs[-1])
@@ -3115,6 +3282,7 @@ def ec_engine_run(cfg, dev, steps, tmp, timed):
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         res["profiled_ticks"] = {
             "ticks": ENGINE_PROFILED_TICKS, "wall_ms": pwall * 1e3,
+            "profile_whole": whole,
             "kernels_per_tick": len(kernels) / ENGINE_PROFILED_TICKS,
             "copies_per_tick": len(copies) / ENGINE_PROFILED_TICKS,
             "device_ops_per_tick": len(events) / ENGINE_PROFILED_TICKS,
@@ -3275,6 +3443,7 @@ def ec_engine_run(cfg, dev, steps, tmp, timed):
     return res, fingerprint
 
 
+@phase
 def phase_engine_ec_path(dev):
     """``ec_engine_run`` at BASELINE config 3's full depth on the card;
     every check exact, and K7, K6 encode, K6 decode and K2 must launch,
@@ -3299,6 +3468,7 @@ def phase_engine_ec_path(dev):
     return res
 
 
+@phase
 def phase_engine_ec_card_equals_cpu(dev):
     """``ec_engine_run`` at a 4 096-slot ring, once with the transport on
     the card and once on the CPU (both engines' flight gates open, so
@@ -3332,16 +3502,9 @@ def phase_engine_ec_card_equals_cpu(dev):
             counters = read_engine_ec_counters(dev)
     (card, cf), (host, hf) = runs[str(dev)], runs["cpu"]
     for part in ("before", "after"):
-        c, h = cf[part], hf[part]
-        check(c["lines"] == h["lines"],
-              f"card vs CPU ({part}): the nodelog lines differ")
-        check(c["terms"] == h["terms"] and c["commit_time"] == h["commit_time"],
-              f"card vs CPU ({part}): terms or commit stamps differ")
-        for f in c["state"]:
-            check(np.array_equal(c["state"][f], h["state"][f]),
-                  f"card vs CPU ({part}): state.{f} differs")
-    check(cf["apply"] == hf["apply"] and cf["reads"] == hf["reads"],
-          "card vs CPU: the committed bytes differ")
+        same_kept(cf[part], hf[part], f"card vs CPU ({part})",
+                  ("lines", "terms", "commit_time", "state"))
+    same_kept(cf, hf, "card vs CPU: the committed bytes", ("apply", "reads"))
     for k in ("K7", "K6 encode", "K6 decode", "K2"):
         check(counters[k] > 0,
               f"engine_ec card run: {k} never launched: {counters}")
@@ -3753,7 +3916,7 @@ def kv_run(cfg, dev, plan, timed):
                         check(e.read_confirmed(tk) is not None,
                               "a lease ticket was not ready")
 
-        events, pwall = _device_events(window, 1)
+        events, pwall, whole = _device_events(window, 1)
         events = [(n_, us) for n_, us in events
                   if not n_.startswith("leader_tick#")]
         busy = sum(us for _, us in events)
@@ -3764,6 +3927,7 @@ def kv_run(cfg, dev, plan, timed):
             by_kind[kind] = by_kind.get(kind, 0.0) + us
         res["profiled_ticks"] = {
             "ticks": plan["profiled_ticks"], "wall_ms": pwall * 1e3,
+            "profile_whole": whole,
             "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / (pwall * 1e6),
             "device_ops_per_tick": len(events) / plan["profiled_ticks"],
@@ -3925,6 +4089,7 @@ def kv_run(cfg, dev, plan, timed):
     return res, fingerprint
 
 
+@phase
 def phase_kv_main_path(dev):
     """``kv_run`` at the north star's full ring (C = 32 768) on the card:
     every check exact; K1, K2 and K3 must launch on the path."""
@@ -3966,16 +4131,11 @@ def card_vs_cpu(runner, cfg, dev, plan, what):
         if where == dev:
             counters = read_engine_ec_counters(dev)
     (card, cf), (_, hf) = runs[str(dev)], runs["cpu"]
-    for k in cf:
-        if k == "state":
-            for f in cf[k]:
-                check(np.array_equal(cf[k][f], hf[k][f]),
-                      f"{what}, card vs CPU: state.{f} differs")
-        else:
-            check(cf[k] == hf[k], f"{what}, card vs CPU: {k} differs")
+    same_kept(cf, hf, f"{what}, card vs CPU")
     return card, counters, walls, sorted(cf)
 
 
+@phase
 def phase_kv_card_equals_cpu(dev):
     """``kv_run`` at a 4 096-slot ring on the card and on the CPU: nodelog
     lines, terms, roles, member/learner masks, commit stamps, every read
@@ -4109,6 +4269,7 @@ def ec_membership_run(cfg, dev, plan, timed=False):
     return res, fingerprint
 
 
+@phase
 def phase_ec_membership_card_equals_cpu(dev):
     """``ec_membership_run`` at C = 4 096 on the card and on the CPU:
     nodelog lines, terms, masks, commit stamps, read-backs, the applied
@@ -4167,66 +4328,79 @@ def _host_ms(fn, reps):
 
 #: what the profiled windows lost: sessions run, leading pad records lost
 #: (the most in one session, and in the session of the process's last
-#: window), sessions run again behind more pads
+#: window), sessions that kept none of their leading pads
 PROFILE_LOSS = {"sessions": 0, "max_pads_lost": 0, "last_pads_lost": 0,
-                "rerun": 0}
+                "lost_all": 0}
+#: leading pads of a profiler session, at least and at most
+#: (``_device_events``)
+PAD_LEAD, PAD_LEAD_MAX = 256, 4096
 
 
 def _device_events(fn, reps, before=None):
     """Device activity of ``reps`` calls under torch.profiler: a list of
     (name, microseconds) for every kernel, copy and fill on the card, and
-    the host wall seconds of the profiled loop."""
+    the host wall seconds of the profiled loop, and whether the list is
+    whole (the session kept some leading pad; callers print it beside
+    their figures as ``profile_whole``). ``fn`` runs exactly ``reps``
+    times: most callers profile an engine that ``fn`` advances, so a
+    session is never run again (a second ``run_for`` of a profiled burst
+    moves the engine's virtual clock, and with it every later commit
+    stamp, while its nodelog lines stay equal)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     # the pads are float64 fills, a type the port never uses on the card,
     # so their records can be told apart and dropped. A profile loses the
     # first device records of its session, more of them the longer the
-    # process has run (PERF.md §7), so the window is measured whole only
-    # where some leading pad was kept; else the session runs again behind
-    # four times the pads.
+    # process has run (PERF.md §7), so a session leads with four times the
+    # most pads any session of the process lost, within PAD_LEAD and
+    # PAD_LEAD_MAX: the window is whole where some leading pad was kept. A
+    # session that kept none is counted in PROFILE_LOSS["lost_all"]; a
+    # caller that needs every launch recorded (``kernel_ms``, ``ops_ms``)
+    # profiles its repeatable ``fn`` again itself, behind the larger lead
+    # this sets.
     pad = torch.zeros(1, dtype=torch.float64, device="cuda")
     trail = 32
-    for lead in (256, 1024, 4096):
+    lead = min(PAD_LEAD_MAX,
+               max(PAD_LEAD, 4 * PROFILE_LOSS["max_pads_lost"]))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(lead):
+            pad.add_(1)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(lead):
-                pad.add_(1)
-            torch.cuda.synchronize()
-            time.sleep(0.05)
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                if before:
-                    before()
-                fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            for _ in range(trail):
-                pad.add_(1)
-            torch.cuda.synchronize()
-        pads, recs = [], []
-        for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            if "CUDAFunctorOnSelf_add<double>" in e.name:
-                pads.append(e.time_range.start)
-            else:
-                recs.append(e)
-        dev = [(e.name, e.time_range.elapsed_us()) for e in recs]
-        first = min((e.time_range.start for e in recs), default=None)
-        kept = max(0, len(pads) - trail if first is None
-                   else sum(1 for t in pads if t < first))
-        PROFILE_LOSS["sessions"] += 1
-        PROFILE_LOSS["last_pads_lost"] = lead - kept
-        PROFILE_LOSS["max_pads_lost"] = max(PROFILE_LOSS["max_pads_lost"],
-                                            lead - kept)
-        if kept:
-            break
-        PROFILE_LOSS["rerun"] += 1
+        time.sleep(0.05)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            if before:
+                before()
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for _ in range(trail):
+            pad.add_(1)
+        torch.cuda.synchronize()
+    pads, recs = [], []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "CUDAFunctorOnSelf_add<double>" in e.name:
+            pads.append(e.time_range.start)
+        else:
+            recs.append(e)
+    dev = [(e.name, e.time_range.elapsed_us()) for e in recs]
+    first = min((e.time_range.start for e in recs), default=None)
+    kept = max(0, len(pads) - trail if first is None
+               else sum(1 for t in pads if t < first))
+    PROFILE_LOSS["sessions"] += 1
+    PROFILE_LOSS["last_pads_lost"] = lead - kept
+    PROFILE_LOSS["max_pads_lost"] = max(PROFILE_LOSS["max_pads_lost"],
+                                        lead - kept)
+    if not kept:
+        PROFILE_LOSS["lost_all"] += 1
         print(f"a profile kept none of its {lead} leading pads",
               file=sys.stderr)
-    return dev, wall
+    return dev, wall, kept > 0
 
 
 #: the CUDA functions behind each kernel, as the profiler names them (a
@@ -4262,7 +4436,7 @@ def kernel_ms(key, fn, reps, before=None, inner=1, split=None, fns=None):
     call_ms = _events_ms(fn, reps, inner=inner, before=before)
     fns = fns or KERNEL_FN[key]
     for attempt in range(6):
-        dev, _ = _device_events(fn, reps, before=before)
+        dev, _, _ = _device_events(fn, reps, before=before)
         mine = {f: [us for name, us in dev if f in name] for f in fns}
         if all(len(v) == reps for v in mine.values()):
             med = {f: statistics.median(v) / 1e3 for f, v in mine.items()}
@@ -4284,7 +4458,7 @@ def ops_ms(fn, reps):
     functions, n times the median of each one that runs n times a call,
     summed, from a profiler session that saw every call of each."""
     for attempt in range(6):
-        dev, _ = _device_events(fn, reps)
+        dev, _, _ = _device_events(fn, reps)
         by_name = {}
         for name, us in dev:
             by_name.setdefault(name, []).append(us)
@@ -4529,6 +4703,7 @@ def record_matches_plain(what, flight, state, out, wins, cnt, al, sl, mem,
     return True
 
 
+@phase
 def phase_timing(cfg, dev, card_line, reps=21):
     import torch
 
@@ -4639,7 +4814,7 @@ def profile_flights(cfg, dev, flights=4):
         box["run"] = run_device(cfg, flights * T * B, SEED + 5, device=dev,
                                 state=warm.state, rows=(1, 2))
 
-    events, wall = _device_events(run, 1)
+    events, wall, whole = _device_events(run, 1)
     for r, d in box["run"].row_digests.items():
         check(d == box["run"].input_digest, f"profiled read-back of row {r}")
     by_name = {}
@@ -4648,7 +4823,7 @@ def profile_flights(cfg, dev, flights=4):
         by_name[key] = by_name.get(key, 0.0) + us
     busy = sum(by_name.values())
     kern = by_name.get("K3", 0.0) + by_name.get("K4", 0.0)
-    return {"flights": flights, "wall_ms": wall * 1e3,
+    return {"flights": flights, "wall_ms": wall * 1e3, "profile_whole": whole,
             "kernel_us_per_step": kern / (flights * T),
             "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / (wall * 1e6) if wall else None,
@@ -4762,6 +4937,7 @@ def ring_read_cases(ecfg, dev, rng, note):
             "row_sets": len(sets), "cases": n}
 
 
+@phase
 def phase_ec_kernels(ecfg, dev, n_random=60):
     """K6, K7 and K2-K4 in their in-kernel parity mode against their plain
     versions on the same inputs, at config 3 and at RS(4,2) with 8-byte
@@ -4985,6 +5161,7 @@ def read_ec_counters(dev):
     }
 
 
+@phase
 def phase_ec_main_path(ecfg, dev, entries=ENTRIES):
     """Config 3 on a fresh cluster through SingleDeviceTransport: election,
     K7-fed ticks, a data-lane steady scan, ``run_device_ec`` to
@@ -5142,6 +5319,7 @@ def phase_ec_main_path(ecfg, dev, entries=ENTRIES):
     return result
 
 
+@phase
 def phase_ec_timing(ecfg, dev, card_line, reps=21):
     import torch
 
@@ -5270,7 +5448,7 @@ def profile_ec_flights(ecfg, dev, flights=4):
         box["run"] = run_device_ec(ecfg, flights * T * B, SEED + 15,
                                    device=dev, state=warm.state)
 
-    events, wall = _device_events(run, 1)
+    events, wall, whole = _device_events(run, 1)
     for rs, d in box["run"].set_digests.items():
         check(d == box["run"].input_digest, f"profiled read set {rs}")
     by_name = {}
@@ -5281,7 +5459,7 @@ def profile_ec_flights(ecfg, dev, flights=4):
         by_name[key] = by_name.get(key, 0.0) + us
     busy = sum(by_name.values())
     kern = by_name.get("K3·ec", 0.0) + by_name.get("K4·ec", 0.0)
-    return {"flights": flights, "wall_ms": wall * 1e3,
+    return {"flights": flights, "wall_ms": wall * 1e3, "profile_whole": whole,
             "entries_per_s_wall": flights * T * B / wall,
             "kernel_us_per_step": kern / (flights * T),
             "device_busy_ms": busy / 1e3,
@@ -5494,6 +5672,7 @@ def group_conflict(ls, vote, rep, leader, term, pays, C):
     return 1
 
 
+@phase
 def phase_group_kernels(dev, n_random=60):
     """K5 against its plain version on the card, bit for bit, at both
     group configurations' shapes, then a randomized multi-group schedule at
@@ -5808,6 +5987,7 @@ def group_main_b(dev):
             "sha256_group0": S.h_in[0].hexdigest(), "wall_s": wall}
 
 
+@phase
 def phase_group_main_path(dev):
     res = {"phase": "group_main_path", "config_a": group_main_a(dev),
            "config_b": group_main_b(dev)}
@@ -5846,6 +6026,7 @@ def k5_timing(cfg, G, dev, rng, rate, reps):
             "library_ms": library}
 
 
+@phase
 def phase_group_timing(dev, card_line, reps=21):
     """K5 per launch at both configurations' frontier windows (and at
     ``multi_card_equals_cpu``'s G = 4 shape) beside its plain version and
@@ -5897,7 +6078,7 @@ def phase_group_timing(dev, card_line, reps=21):
 
             ticks = G * GROUP_K
         call = _events_ms(fn, 7 if name == "A" else 3)
-        events, wall = _device_events(fn, 4 if name == "A" else 2)
+        events, wall, whole = _device_events(fn, 4 if name == "A" else 2)
         busy = sum(us for _, us in events)
         k5_us = sum(us for n_, us in events
                     if KERNEL_FN["K5"][0] in n_)
@@ -5909,7 +6090,7 @@ def phase_group_timing(dev, card_line, reps=21):
             "ms_per_call": call, "us_per_group_tick": call * 1e3 / ticks,
             # a host-clock-bound rate over CUDA events, not a device rate
             "entries_per_s_events": ticks * B / (call * 1e-3),
-            "device_busy_ms": busy / 1e3,
+            "device_busy_ms": busy / 1e3, "profile_whole": whole,
             "k5_ms_per_call": k5_us / 1e3 / launches,
             "device_idle_share": 1.0 - busy / (wall * 1e6),
             "device_kernels_per_call": len(events) / launches}
@@ -6018,6 +6199,7 @@ def pct(xs, q):
     return float(np.percentile(np.asarray(xs, np.float64), q))
 
 
+@phase
 def phase_engine_multi_path(dev):
     """Config A through ``MultiEngine`` + ``Router`` + ``ShardedKV`` on the
     card: round-robin leaders, SETs in four waves (a warm batch a group;
@@ -6073,7 +6255,7 @@ def phase_engine_multi_path(dev):
     # profiled: one wave's rounds under torch.profiler
     placed = kv.set_many(S.wave(MULTI_WAVES[3]))
     n0 = len(box["rounds"])
-    events, pwall = _device_events(lambda: e.run_for(2 * hb), 1)
+    events, pwall, whole = _device_events(lambda: e.run_for(2 * hb), 1)
     rounds = len(box["rounds"]) - n0
     drive_durable(e, placed)
     torch.cuda.synchronize()
@@ -6110,6 +6292,7 @@ def phase_engine_multi_path(dev):
         "failover": {"groups": lost, "wall_s": failover_wall,
                      "new_leaders": {str(g): e.leader_id[g] for g in lost}},
         "profiled": {"rounds": rounds, "host_wall_s": pwall,
+                     "profile_whole": whole,
                      "device_busy_ms": busy / 1e3,
                      "device_idle_share": 1.0 - busy / (pwall * 1e6),
                      "device_kernels_per_round": len(events) / rounds,
@@ -6365,11 +6548,12 @@ class FusedMultiRun:
             while e._q[0][2] != "l":
                 e.step_event(horizon=end)
             n0 = e.fused_launches
-            events, pwall = _device_events(
+            events, pwall, whole = _device_events(
                 lambda: e.step_event(horizon=end), 1)
             busy = sum(us for _, us in events)
             self.prof = {"fused_launches": e.fused_launches - n0,
                          "host_wall_ms": pwall * 1e3,
+                         "profile_whole": whole,
                          "device_busy_ms": busy / 1e3,
                          "device_idle_share": 1.0 - busy / (pwall * 1e6),
                          "device_kernels": len(events)}
@@ -6417,6 +6601,7 @@ class FusedMultiRun:
         return out
 
 
+@phase
 def phase_engine_multi_fused_path(dev):
     """Config B (1 024 groups) through ``MultiEngine``: the graph against
     the uncaptured loop (``group_graph_vs_loop``) and in turns
@@ -6548,19 +6733,15 @@ def multi_cmp_run(dev, C=256):
             "k5": ring_cuda.LAUNCHES["write_window_cols"]}
 
 
+@phase
 def phase_multi_card_equals_cpu(dev):
     """``multi_cmp_run`` on the card and on the CPU: nodelog lines,
     recorder events, state leaves, the packed group rings, decoded device
     events and the store equal."""
     card = multi_cmp_run(dev)
     cpu = multi_cmp_run("cpu")
-    for k in ("lines", "events", "dev_events", "data", "fused_launches"):
-        check(card[k] == cpu[k], f"multi card vs CPU: {k} differ")
-    for f in card["leaves"]:
-        check(np.array_equal(card["leaves"][f], cpu["leaves"][f]),
-              f"multi card vs CPU: state.{f} differs")
-    check(np.array_equal(card["rings"], cpu["rings"]),
-          "multi card vs CPU: the packed group rings differ")
+    same_kept(card, cpu, "multi card vs CPU", ("lines", "events",
+              "dev_events", "data", "fused_launches", "leaves", "rings"))
     check(card["k5"] > 0 and cpu["k5"] == 0 and card["fused_launches"] > 0,
           "K5 ran on the card (and only there), fused windows too")
     res = {"phase": "multi_card_equals_cpu", "groups": 4,
@@ -6963,6 +7144,7 @@ def group_mesh_engine(dev):
     return out
 
 
+@phase
 def phase_group_mesh_path(dev):
     """Config B on the group-sharded layout (``group_mesh_transport``,
     then ``group_mesh_engine``)."""
@@ -7040,18 +7222,16 @@ def gmesh_cmp_run(dev):
             "k5": ring_cuda.LAUNCHES["write_window_cols"]}
 
 
+@phase
 def phase_group_mesh_card_equals_cpu(dev):
     """``gmesh_cmp_run`` on the card and on the CPU: nodelog lines,
     recorder events, every gathered leaf, decoded device events,
     committed bytes and the slot table equal."""
     card = gmesh_cmp_run(dev)
     cpu = gmesh_cmp_run("cpu")
-    for k in ("lines", "events", "dev_events", "committed", "slot",
-              "fused_launches"):
-        check(card[k] == cpu[k], f"group mesh card vs CPU: {k} differ")
-    for f in card["leaves"]:
-        check(np.array_equal(card["leaves"][f], cpu["leaves"][f]),
-              f"group mesh card vs CPU: state.{f} differs")
+    same_kept(card, cpu, "group mesh card vs CPU", ("lines", "events",
+              "dev_events", "committed", "slot", "fused_launches",
+              "leaves"))
     check(card["k5"] > 0 and cpu["k5"] == 0 and card["fused_launches"] > 0
           and card["recaptures"] == 0,
           "K5 ran on the card (and only there), fused windows too, and "
@@ -7448,6 +7628,7 @@ def mesh_vs_resident(cfg, dev, n, rng):
             "final_commit": int(st.commit_index[leader])}
 
 
+@phase
 def phase_mesh_kernels(cfg, ecfg, dev, n_random=8):
     """K2·mesh, K3·mesh and K4·mesh of every row against their plain
     versions (the north star, R = 3; config 3, R = 5 with the EC quorum;
@@ -7659,6 +7840,7 @@ def mesh_rank_main(rank, world, cfg, device, entries):
             "main_path_wall_s": wall}
 
 
+@phase
 def phase_mesh_main_path(cfg, dev, entries=ENTRIES):
     """The north star on a 3-rank gloo mesh sharing ``dev`` (three
     processes time-sharing one card), every stage of every rank held
@@ -7791,6 +7973,7 @@ def mesh_ec_rank_main(rank, world, cfg, device, flights):
     return {"stages": stages, "launches": mesh_counters(dev)}
 
 
+@phase
 def phase_mesh_ec_path(ecfg, dev, flights=4):
     """BASELINE config 3 on a 5-rank gloo mesh sharing ``dev``: every
     rank's ring and scalars after every flight equal its row of the
@@ -8020,6 +8203,7 @@ def k4_mesh_split(cfg, dev, rng, reps, rate, k4, rings, wins, vecs, prm,
     return res
 
 
+@phase
 def phase_mesh_timing(cfg, dev, card_line, kernels, main, reps=21):
     """The mesh kernels' times (``kernels``, taken before any rank was
     spawned), ``bench_mesh1``'s counterpart and the 3-rank north star's
@@ -8318,7 +8502,7 @@ def engine_mesh_run(cfg, dev, plan, tmp, profile=False, dev_ring=None):
                 e.step_event()
 
         if profile:
-            events, pwall = _device_events(window, 1)
+            events, pwall, whole = _device_events(window, 1)
             busy = sum(us for _, us in events)
             by_name = {}
             for name, us in events:
@@ -8326,6 +8510,7 @@ def engine_mesh_run(cfg, dev, plan, tmp, profile=False, dev_ring=None):
                 by_name[k] = by_name.get(k, 0.0) + us
             res["profiled_ticks"] = {
                 "ticks": plan["profiled"], "wall_ms": pwall * 1e3,
+                "profile_whole": whole,
                 "device_busy_ms": busy / 1e3,
                 "device_idle_share": 1.0 - busy / (pwall * 1e6),
                 "device_ops_per_tick": len(events) / plan["profiled"],
@@ -8467,6 +8652,7 @@ def same_rows(ranks, ref, what):
               f"{what}: rank {r}'s row differs from the reference's")
 
 
+@phase
 def phase_engine_mesh_path(dev):
     """The north-star deployment through the mirrored engine on 3 gloo
     ranks sharing ``dev`` (``engine_mesh_run`` at the full plan, the mirror
@@ -8614,6 +8800,7 @@ def engine_mesh_ec_rank_main(rank, world, cfg, device, plan):
     return res
 
 
+@phase
 def phase_engine_mesh_ec_path(dev):
     """BASELINE config 3 (RS(5,3), 264-byte entries, B = 1024, C = 32 768)
     through the mirrored engine on 5 gloo ranks sharing ``dev``: a dead
@@ -8656,6 +8843,7 @@ def phase_engine_mesh_ec_path(dev):
     return out
 
 
+@phase
 def phase_mesh_engine_card_equals_cpu(dev):
     """``engine_mesh_run`` at the reduced plan (C = 4 096) with a flight
     recorder and a 256-record device event ring: 3 ranks on the card
@@ -8677,12 +8865,12 @@ def phase_mesh_engine_card_equals_cpu(dev):
         a, b = card[r], cpu[r]
         for k in ("lines_sha256", "rows", "apply", "flights",
                   "device_lines", "host_lines"):
-            check(a[k] == b[k], f"mesh card vs cpu rank {r}: {k}")
-        check(np.array_equal(a["packed_ring"], b["packed_ring"]),
-              f"mesh card vs cpu rank {r}: packed rings differ")
-        check([x["sha256"] for x in a["read_backs"]]
-              == [x["sha256"] for x in b["read_backs"]],
-              f"mesh card vs cpu rank {r}: read-backs differ")
+            check_same(a[k], b[k], f"mesh card vs cpu rank {r}: {k}")
+        check_same(a["packed_ring"], b["packed_ring"],
+                   f"mesh card vs cpu rank {r}: packed rings")
+        check_same([x["sha256"] for x in a["read_backs"]],
+                   [x["sha256"] for x in b["read_backs"]],
+                   f"mesh card vs cpu rank {r}: read-backs")
         check(a["device_lines"] == a["host_lines"] and a["device_lines"],
               f"mesh card rank {r}: the device ring's lines are not the "
               "host's")
@@ -8719,6 +8907,7 @@ def engine_mesh2d_checks(ranks, ref, what, keys, kernels, dev):
               f"{what} rank {g}: a resident kernel ran on the mesh")
 
 
+@phase
 def phase_engine_mesh2d_path(dev):
     """The north star on the 2-D mesh: 3 replicas x ``payload_shards`` 2
     = 6 gloo ranks sharing ``dev`` (256-byte entries, 32 words a rank, B
@@ -8796,6 +8985,7 @@ def phase_engine_mesh2d_path(dev):
     return out
 
 
+@phase
 def phase_engine_mesh2d_ec_path(dev):
     """BASELINE config 3 on the 2-D mesh: RS(5,3), 264-byte entries (an
     88-byte shard, 22 words, 11 a rank), B = 1024, C = 32 768, 5 replicas
@@ -8843,6 +9033,7 @@ def phase_engine_mesh2d_ec_path(dev):
     return out
 
 
+@phase
 def phase_mesh2d_card_equals_cpu(dev):
     """``engine_mesh_run`` at the reduced plan (C = 4 096) on the 2-D
     mesh, with a flight recorder and a 256-record device event ring: 6
@@ -8867,12 +9058,12 @@ def phase_mesh2d_card_equals_cpu(dev):
         a, b = card[g], cpu[g]
         for k in ("lines_sha256", "rows", "apply", "flights",
                   "device_lines", "host_lines"):
-            check(a[k] == b[k], f"mesh2d card vs cpu rank {g}: {k}")
-        check(np.array_equal(a["packed_ring"], b["packed_ring"]),
-              f"mesh2d card vs cpu rank {g}: packed rings differ")
-        check([x["sha256"] for x in a["read_backs"]]
-              == [x["sha256"] for x in b["read_backs"]],
-              f"mesh2d card vs cpu rank {g}: read-backs differ")
+            check_same(a[k], b[k], f"mesh2d card vs cpu rank {g}: {k}")
+        check_same(a["packed_ring"], b["packed_ring"],
+                   f"mesh2d card vs cpu rank {g}: packed rings")
+        check_same([x["sha256"] for x in a["read_backs"]],
+                   [x["sha256"] for x in b["read_backs"]],
+                   f"mesh2d card vs cpu rank {g}: read-backs")
         check(a["device_lines"] == a["host_lines"] and a["device_lines"],
               f"mesh2d card rank {g}: the device ring's lines are not the "
               "host's")
@@ -8995,6 +9186,7 @@ def host_cpu_name():
     return f"{name} ({procs} processors)"
 
 
+@phase
 def phase_native_codec(card_line):
     """The port's C++ host codec (``raft_tpu_torch.native``, built with
     ``g++`` here; a missing compiler fails the phase) on one 4 MiB segment
@@ -9141,6 +9333,7 @@ def tier_engine_run(cfg, dev, laps=TIER_LAPS, replay=True):
     lines = []
     e = RaftEngine(cfg, tr, trace=lines.append)
     fetches = counted_fetches(e)
+    ticks = stamp_ticks(e)
     inp = EngineInput(cfg)
     tiered = e._tiered_store is not None
     what = f"tier {'on' if tiered else 'off'} C={C} on {dev}"
@@ -9212,7 +9405,8 @@ def tier_engine_run(cfg, dev, laps=TIER_LAPS, replay=True):
                     "replay_entries_per_s": total / replay_s,
                     "replay_sha256": h.hexdigest()})
     keep = {"lines": lines, "commit_time": dict(e.commit_time),
-            "state": host_leaves(e.state), "reads": reads}
+            "state": host_leaves(e.state), "reads": reads,
+            "stamp_ticks": ticks}
     if tiered:
         keep["files"] = tier_files(e._tiered_store)
     return res, keep, e
@@ -9312,11 +9506,13 @@ def tier_dead_follower_run(cfg, dev, tmp):
     return res
 
 
-def phase_engine_tiered_path(dev):
+@phase
+def phase_engine_tiered_path(dev, laps=TIER_LAPS):
     """The tiered archive through ``RaftEngine`` on the card (module doc,
-    5g): the north star with ``tiered_log_dir`` (524 288 entries, 16 ring
-    laps, segments of C/2 sealed behind the 2C hot tail), replayed from
-    index 1; the same run with the tier off (equal ``_fetch`` counts);
+    5g): the north star with ``tiered_log_dir`` (``laps`` ring laps,
+    524 288 entries at the default 16, segments of C/2 sealed behind the
+    2C hot tail), replayed from index 1; the same run with the tier off
+    (equal ``_fetch`` counts, nodelog lines and read-backs);
     the dead-follower run with a damaged segment, a checkpoint and a
     restore; and the card against the CPU at C = 4 096 (nodelog lines,
     state leaves, read-backs and shard files equal). The shard files are
@@ -9332,17 +9528,16 @@ def phase_engine_tiered_path(dev):
     try:
         zero_counters(dev)
         C = STEPS_PER_FLIGHT * 1024
-        on, on_keep, e = tier_engine_run(tier_config(C, tmp), dev)
+        res["laps"] = laps
+        on, on_keep, e = tier_engine_run(tier_config(C, tmp), dev, laps)
         res["launches"] = read_counters(dev)
         del e
-        off, off_keep, e = tier_engine_run(tier_config(C, None), dev,
+        off, off_keep, e = tier_engine_run(tier_config(C, None), dev, laps,
                                            replay=False)
         del e
         check(on["fetches"] == off["fetches"],
               f"tier on vs off: {on['fetches']} vs {off['fetches']} fetches")
-        check(on_keep["lines"] == off_keep["lines"]
-              and on_keep["reads"] == off_keep["reads"],
-              "tier on vs off: nodelog lines or read-backs differ")
+        same_kept(on_keep, off_keep, "tier on vs off", ("lines", "reads"))
         res["tier_on"], res["tier_off"] = on, off
         for k in ("K1", "K2", "K3", "K4"):
             check(res["launches"][k] > 0, f"engine_tiered_path: {k} never "
@@ -9366,13 +9561,7 @@ def phase_engine_tiered_path(dev):
             if where == dev:
                 res["card_equals_cpu_launches"] = read_counters(dev)
         (_, ck, _), (_, hk, _) = small[str(dev)], small["cpu"]
-        for k in ck:
-            if k == "state":
-                for f in ck[k]:
-                    check(np.array_equal(ck[k][f], hk[k][f]),
-                          f"tier card vs CPU: state.{f} differs")
-            else:
-                check(ck[k] == hk[k], f"tier card vs CPU: {k} differs")
+        same_kept(ck, hk, "tier card vs CPU")
         res["card_equals_cpu"] = {
             "capacity": TIER_SMALL_CAPACITY, "equal": sorted(ck),
             "shard_files": len(ck["files"]), "walls_s": walls,
@@ -9398,17 +9587,51 @@ def host_twin_lines(lines):
             or "]commit index changed to " in ln]
 
 
+def dev_obs_schedule(e, inp, plan, read_back, drain=None, what="run"):
+    """``dev_obs_engine_run``'s schedule on an engine ``e`` through the
+    ``RaftEngine`` API alone (the port's engine or, in the tests, the JAX
+    package's): an election; ``plan["bursts"]`` bursts of
+    ``plan["burst"]`` entries, each drained by ``drain(b, seconds)``
+    (``e.run_for`` by default); one ``submit_pipelined`` ring of C
+    entries; four idle heartbeats; the leader failed, a re-election and
+    ``plan["after"]`` more entries. ``read_back(lo, hi, part)`` reads
+    each part back; returns the list of what it returned."""
+    B, C = e.cfg.batch_size, e.cfg.log_capacity
+    hb = e.cfg.heartbeat_period
+    drain = drain or (lambda b, seconds: e.run_for(seconds))
+    reads = []
+    e.run_until_leader()
+    for b in range(plan["bursts"]):
+        seqs = [e.submit(p) for p in inp.take(plan["burst"])]
+        drain(b, (plan["burst"] // B + 2) * hb)
+        check(e.is_durable(seqs[-1]), f"{what}: burst {b} did not drain")
+    reads.append(read_back(max(1, e.commit_watermark - C + 1),
+                           e.commit_watermark, "ticks"))
+    leader_last = e.commit_watermark
+    e.submit_pipelined(inp.take(C))
+    reads.append(read_back(leader_last + 1, e.commit_watermark, "flight"))
+    e.run_for(4 * hb)            # followers learn the final commit
+    e.fail(e.leader_id)
+    e.run_until_leader()
+    lo = e.commit_watermark + 1
+    seqs = [e.submit(p) for p in inp.take(plan["after"])]
+    e.run_for((plan["after"] // B + 4) * hb)
+    check(e.is_durable(seqs[-1]),
+          f"{what}: the entries after the failover did not commit")
+    reads.append(read_back(lo, e.commit_watermark, "after failover"))
+    return reads
+
+
 def dev_obs_engine_run(cfg, dev, capacity, plan=OBS_PLAN, profile=False,
                        defer_flush=False):
-    """``engine_obs_path``'s schedule (an election; ``plan["bursts"]``
-    bursts drained by ``run_for``; one ``submit_pipelined`` ring; idle
-    heartbeats; the leader failed, a re-election and ``plan["after"]``
-    more) with the device plane attached at ``capacity`` (None:
-    detached), a trace and a metrics registry (the host tallies) in
-    either case. ``defer_flush`` holds every flush until the end (one
-    flush: the ring laps in between). ``profile`` runs burst
+    """``dev_obs_schedule`` (``engine_obs_path``'s schedule) with the
+    device plane attached at ``capacity`` (None: detached), a trace and a
+    metrics registry (the host tallies) in either case; the pipelined
+    ring must go as one flight. ``defer_flush`` holds every flush until
+    the end (one flush: the ring laps in between). ``profile`` runs burst
     ``DEV_OBS_PROFILED_BURST`` under torch.profiler. Returns (recorded
-    values, what runs are compared on, the DeviceObs)."""
+    values, what runs are compared on, the DeviceObs); what is compared
+    also carries ``stamp_ticks``, the leader tick of each commit stamp."""
     import torch
 
     from raft_tpu_torch.obs.registry import MetricsRegistry
@@ -9418,7 +9641,7 @@ def dev_obs_engine_run(cfg, dev, capacity, plan=OBS_PLAN, profile=False,
     cuda = torch.device(dev).type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     B, C = cfg.batch_size, cfg.log_capacity
-    hb = cfg.heartbeat_period
+    t_run = time.perf_counter()
     tr = SingleDeviceTransport(cfg, device=dev)
     flights = []
     run_flight = tr.replicate_pipeline
@@ -9432,6 +9655,7 @@ def dev_obs_engine_run(cfg, dev, capacity, plan=OBS_PLAN, profile=False,
     e = RaftEngine(cfg, tr, trace=lines.append)
     e.metrics = MetricsRegistry()
     fetches = counted_fetches(e)
+    ticks = stamp_ticks(e)
     dobs = None
     flushes = [0]
     if capacity is not None:
@@ -9450,17 +9674,15 @@ def dev_obs_engine_run(cfg, dev, capacity, plan=OBS_PLAN, profile=False,
     what = (f"device obs {capacity} fuse_k={e.fuse_k} C={C} on {dev}")
     res = {"capacity": capacity, "fuse_k": e.fuse_k, "log_capacity": C,
            "device": str(dev)}
-    reads = []
-    e.run_until_leader()
-    burst_wall, burst_ticks = 0.0, 0
-    for b in range(plan["bursts"]):
-        seqs = [e.submit(p) for p in inp.take(plan["burst"])]
-        drain = (plan["burst"] // B + 2) * hb
+    timed = {"wall": 0.0, "ticks": 0}
+
+    def drain(b, seconds):
         t0n = e._tick_count
         sync()
         t0 = time.perf_counter()
         if profile and b == DEV_OBS_PROFILED_BURST:
-            events, pwall = _device_events(lambda: e.run_for(drain), 1)
+            events, pwall, whole = _device_events(
+                lambda: e.run_for(seconds), 1)
             lt = e._tick_count - t0n
             kern = [n for n, _ in events
                     if "emcpy" not in n and "emset" not in n]
@@ -9469,32 +9691,21 @@ def dev_obs_engine_run(cfg, dev, capacity, plan=OBS_PLAN, profile=False,
                 "device_ops_per_leader_tick": len(events) / lt,
                 "kernels_per_leader_tick": len(kern) / lt,
                 "device_busy_ms": sum(us for _, us in events) / 1e3,
-                "wall_ms": pwall * 1e3}
+                "wall_ms": pwall * 1e3, "profile_whole": whole}
         else:
-            e.run_for(drain)
+            e.run_for(seconds)
             sync()
-            burst_wall += time.perf_counter() - t0
-            burst_ticks += e._tick_count - t0n
-        check(e.is_durable(seqs[-1]), f"{what}: burst {b} did not drain")
-    reads.append(engine_read_back(e, inp, max(1, e.commit_watermark - C + 1),
-                                  e.commit_watermark, f"{what} ticks"))
-    leader_last = e.commit_watermark
-    e.submit_pipelined(inp.take(C))
+            timed["wall"] += time.perf_counter() - t0
+            timed["ticks"] += e._tick_count - t0n
+
+    reads = dev_obs_schedule(
+        e, inp, plan,
+        lambda lo, hi, part: engine_read_back(e, inp, lo, hi,
+                                              f"{what} {part}"),
+        drain, what)
     check(flights == [C // B],
-          f"{what}: the pipeline gate did not admit the ring: {flights}")
-    reads.append(engine_read_back(e, inp, leader_last + 1,
-                                  e.commit_watermark, f"{what} flight"))
-    e.run_for(4 * hb)            # followers learn the final commit
-    old = e.leader_id
-    e.fail(old)
-    e.run_until_leader()
-    lo = e.commit_watermark + 1
-    seqs = [e.submit(p) for p in inp.take(plan["after"])]
-    e.run_for((plan["after"] // B + 4) * hb)
-    check(e.is_durable(seqs[-1]),
-          f"{what}: the entries after the failover did not commit")
-    reads.append(engine_read_back(e, inp, lo, e.commit_watermark,
-                                  f"{what} after failover"))
+          f"{what}: the pipeline gate did not admit the ring as one "
+          f"flight: {flights}")
     sync()
     if defer_flush:
         e._flush_device_obs = flush
@@ -9511,8 +9722,9 @@ def dev_obs_engine_run(cfg, dev, capacity, plan=OBS_PLAN, profile=False,
         return int(sum(s["value"] for s in series))
 
     res.update({
-        "leader_ticks": e._tick_count, "leader_ticks_in_bursts": burst_ticks,
-        "ms_per_leader_tick": burst_wall / max(burst_ticks, 1) * 1e3,
+        "leader_ticks": e._tick_count,
+        "leader_ticks_in_bursts": timed["ticks"],
+        "ms_per_leader_tick": timed["wall"] / max(timed["ticks"], 1) * 1e3,
         "ms_method": "host clock around each burst's run_for, "
                      "synchronized (the profiled burst left out)",
         "fused_launches": e.fused_launches, "fetches": fetches[0],
@@ -9529,27 +9741,33 @@ def dev_obs_engine_run(cfg, dev, capacity, plan=OBS_PLAN, profile=False,
                                       dobs.counters.items()}}
     keep = {"lines": lines, "commit_time": dict(e.commit_time),
             "terms": e.terms.tolist(), "roles": list(e.roles),
-            "state": host_leaves(e.state), "reads": reads}
+            "state": host_leaves(e.state), "reads": reads,
+            "stamp_ticks": ticks}
     if dobs is not None:
         from raft_tpu_torch.obs.device import packed_flush
 
         keep["packed"] = packed_flush(e._dev_ring).cpu().numpy().tolist()
         keep["events"] = [ev.to_jsonable() for ev in dobs.events]
+    res["run_s"] = time.perf_counter() - t_run
     return res, keep, dobs
 
 
+@phase
 def phase_engine_device_obs_path(dev):
     """The device event ring through ``RaftEngine`` on the card (module
     doc, 5h): the recorded K-tick graph against the uncaptured recorded
     loop (``fused_graph_vs_loop(record=True)``); the north star at
-    ``fuse_k`` 1 and 8, detached and with ``attach_device_obs(4096)``:
-    every state leaf, read-back, nodelog line and launch count equal, the
-    decoded ``elect``/``commit`` lines equal to the trace's, the device
-    counters equal to the host tallies, and exactly one fetch more per
-    launch boundary; at capacity 64 with the flushes held to the end,
-    ``dropped`` = total - 64 and the survivors equal to the 4096 run's
-    last 64 records; and the card against the CPU at C = 4 096 (packed
-    ring and decoded events equal)."""
+    ``fuse_k`` 1 and 8, detached and with ``attach_device_obs(4096)``
+    (one burst of each run profiled): every state leaf, read-back,
+    nodelog line, commit stamp and launch count equal, the decoded
+    ``elect``/``commit`` lines equal to the trace's, the device counters
+    equal to the host tallies, and exactly one fetch more per launch
+    boundary; at capacity 64 with the flushes held to the
+    end, ``dropped`` = total - 64 and the survivors equal to the 4096
+    run's last 64 records; the card against the CPU at C = 4 096 (packed
+    ring and decoded events equal); and last the ``fuse_k`` 1 detached
+    run once more, equal to the first (a run must not depend on what the
+    process ran before it)."""
     import torch
 
     from raft_tpu_torch.obs.device import decode_records
@@ -9570,11 +9788,7 @@ def phase_engine_device_obs_path(dev):
         (det, dk, _), (att, ak, dobs) = runs[(k, "detached")], \
             runs[(k, "attached")]
         what = f"device obs fuse_k={k}"
-        for key in ("lines", "commit_time", "terms", "roles", "reads"):
-            check(dk[key] == ak[key], f"{what}: {key} differ attached")
-        for f in dk["state"]:
-            check(np.array_equal(dk["state"][f], ak["state"][f]),
-                  f"{what}: state.{f} differs attached")
+        same_kept(dk, ak, f"{what}: detached vs attached", SAME_RUN)
         check(launches[(k, "detached")] == launches[(k, "attached")],
               f"{what}: launch counts differ attached: "
               f"{launches[(k, 'detached')]} vs {launches[(k, 'attached')]}")
@@ -9645,17 +9859,18 @@ def phase_engine_device_obs_path(dev):
         if where == dev:
             res["card_equals_cpu_launches"] = read_counters(dev)
     ck, hk = small[str(dev)][1], small["cpu"][1]
-    for key in ck:
-        if key == "state":
-            for f in ck[key]:
-                check(np.array_equal(ck[key][f], hk[key][f]),
-                      f"device obs card vs CPU: state.{f} differs")
-        else:
-            check(ck[key] == hk[key], f"device obs card vs CPU: {key} "
-                                      "differs")
+    same_kept(ck, hk, "device obs card vs CPU")
     res["card_equals_cpu"] = {"capacity": OBS_SMALL_CAPACITY, "fuse_k": 8,
                               "equal": sorted(ck), "walls_s": walls,
                               "records": small[str(dev)][0]["device"]}
+    # the fuse_k 1 detached run once more, after everything above: equal
+    # to the first, or a run depends on what the process ran before it
+    again, again_keep, _ = dev_obs_engine_run(fused_config(C, 1), dev, None)
+    same_kept(runs[(1, "detached")][1], again_keep,
+              "device obs fuse_k=1, the first detached run vs the same "
+              "run at the end of the phase", SAME_RUN)
+    res["detached_again"] = {"equal": list(SAME_RUN),
+                             "run_s": again["run_s"]}
     torch.cuda.synchronize()
     res["phase_s"] = time.perf_counter() - t_phase
     emit(res)
@@ -9945,6 +10160,7 @@ def planes_serve_demo(dev):
     return {"result": res, "answers": answers}
 
 
+@phase
 def phase_obs_planes_path(dev, card_line):
     """The compile, memory and capture planes at the north star on the
     card (module doc, 7b)."""
@@ -10349,6 +10565,7 @@ def chaos_crash_cycles(dev, k, pooled):
     return trace, facts
 
 
+@phase
 def phase_chaos_path(dev, card_line):
     """The chaos harness (``raft_tpu_torch.chaos``) on the card against the
     same runs on the CPU (module doc, 11g)."""
@@ -11121,6 +11338,7 @@ def wire_drill_check(rep, what):
             "commit_digest": rep.commit_digest}
 
 
+@phase
 def phase_wire_path(dev, card_line):
     """The net tier on the card (module doc, 11h): (a) the north star
     behind ``EngineBackend``, (b) config A behind ``RouterBackend``, (c)
@@ -11485,6 +11703,7 @@ def txn_k5_cases(dev, rng, n=24):
     return err
 
 
+@phase
 def phase_txn_path(dev, card_line):
     """The transaction tier on the card (module doc, 11i): (a) the drills,
     card against CPU; (b) ``bench_txn``'s leg through the wire; (c) K5 at
@@ -12086,6 +12305,7 @@ def cluster_k5_cases(dev, rng, n=24):
     return err
 
 
+@phase
 def phase_cluster_path(dev, card_line):
     """The cluster tier (module doc, 11j): (a) the drills with three real
     child processes, no child on the card; (b) ``bench_cluster``'s goodput
@@ -12142,8 +12362,8 @@ def phase_cluster_path(dev, card_line):
 #: launch, and the chunks after the warm one that are timed; beside it the
 #: one-ring chunk (:796-821) and its timed chunks
 LAPS = 8
-LAPS_TIMED = 2
-ONE_RING_TIMED = 3
+LAPS_TIMED = 1
+ONE_RING_TIMED = 2
 #: (b)'s engine: 8 laps of a 4 096-slot ring (T = 32) card against CPU
 LAPS_SMALL_CAPACITY = 4096
 LAPS_SMALL_CHUNKS = (4096, 8 * 4096, 8 * 4096 + 4096, 2048)
@@ -12410,6 +12630,7 @@ def lapped_run(cfg, where, chunks, timed=False):
     return lapped_chunks(cfg, where, chunks, SEED + 140, clock=timed)
 
 
+@phase
 def phase_laps_path(dev, card_line):
     """The lapped flight and the engine's fault paths (module doc, 11k):
     (a) ``bench.py``'s lapped chunk at the north star with its one-ring
@@ -12500,6 +12721,7 @@ def _bench_errors(row, where):
     return found
 
 
+@phase
 def phase_bench_path(dev, card_line):
     """The port's bench on the card (module doc, 11l)."""
     t_phase = time.perf_counter()
@@ -12580,14 +12802,35 @@ def phase_bench_path(dev, card_line):
     return res
 
 
+def option(name, default=None):
+    """The value of ``--name=value`` (``""`` for a bare ``--name``) on the
+    command line, else ``default``."""
+    for a in sys.argv[1:]:
+        if a == f"--{name}":
+            return ""
+        if a.startswith(f"--{name}="):
+            return a.split("=", 1)[1]
+    return default
+
+
 #: phases ``--only=a,b`` runs alone (after the card and the build): the
 #: kernels against their plain versions, the mesh engine's (1-D and
-#: 2-D), and the resident main paths whose host code the mesh engine's
-#: seam runs through (for comparing two trees in turns)
+#: 2-D), the resident main paths whose host code the mesh engine's seam
+#: runs through (for comparing two trees in turns), and every phase up
+#: to ``engine_device_obs_path`` (to rerun the run's first phases in its
+#: order)
 ONLY_PHASES = {"kernels": lambda dev: phase_kernels(ns_config(), dev),
                "mesh_kernels": lambda dev: phase_mesh_kernels(
                    ns_config(), ec_config(), dev),
                "main_path": lambda dev: phase_main_path(ns_config(), dev),
+               "timing":
+               lambda dev: phase_timing(ns_config(), dev, card_query()),
+               "config4_main_path": phase_config4_main_path,
+               "engine_fused_path": phase_engine_fused_path,
+               "engine_obs_path": phase_engine_obs_path,
+               "obs_card_equals_cpu": phase_obs_card_equals_cpu,
+               "config5_storm": phase_config5_storm,
+               "native_codec": lambda dev: phase_native_codec(card_query()),
                "engine_main_path":
                lambda dev: phase_engine_main_path(ns_config(), dev),
                "kv_main_path": phase_kv_main_path,
@@ -12613,6 +12856,10 @@ ONLY_PHASES = {"kernels": lambda dev: phase_kernels(ns_config(), dev),
                lambda dev: phase_cluster_path(dev, card_query()),
                "laps_path":
                lambda dev: phase_laps_path(dev, card_query()),
+               # --tier-laps=N runs the tier's laps at N
+               "engine_tiered_path": lambda dev: phase_engine_tiered_path(
+                   dev, int(option("tier-laps", TIER_LAPS))),
+               "engine_device_obs_path": phase_engine_device_obs_path,
                "bench_path":
                lambda dev: phase_bench_path(dev, card_query())}
 
@@ -12631,11 +12878,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card_line = phase_card()
     phase_build()
-    only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:]
-            if a.startswith("--only=")]
+    only = option("only")
     if only:
         # a development run of some phases: no kernel table, no last line
-        for name in only[0]:
+        for name in only.split(","):
             ONLY_PHASES[name](dev)
         emit({"profile_loss": PROFILE_LOSS})
         return 0

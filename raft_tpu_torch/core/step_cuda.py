@@ -87,8 +87,10 @@ _LEADER, _LTERM, _TFLOOR, _RFLOOR, _FPT, _QUORUM, _MYROW = range(7)
 # mask rows (alive, slow, ack)
 _MAL, _MSL, _MAK = range(3)
 # workspace words (csrc/steady.cu ``WK_*``; the buffer holds at least
-# its WK_N words)
-WK_PLAN, WK_S0, WK_RAN3, WK_RAN4 = 5, 6, 7, 8
+# its WK_N words): K2's conflict bits and last-block ticket (0 on entry,
+# and K2 leaves them 0), the plan's turnover decision and start slot, and
+# the executed-flight counters
+WK_MM, WK_TICKET, WK_PLAN, WK_S0, WK_RAN3, WK_RAN4 = 0, 1, 5, 6, 7, 8
 _WORK_WORDS = 16
 # fields of the flight plan's per-step record: the window's start slot,
 # its count, the accept mask (bit l = row l) and the flight position of

@@ -194,8 +194,7 @@ class VirtualClock:
 
 
 class RaftEngine:
-    """One process hosting all replica control planes (the JAX engine's;
-    see the module docstring for what is not ported yet).
+    """One process hosting all replica control planes (the JAX engine's).
 
     Fault masks (``alive``/``slow``) are first-class: a "dead" replica's
     timers do not fire and the device step ignores it; ``connectivity``
