@@ -123,9 +123,9 @@ Then the engine's tick loop (``raft_tpu_torch.raft.RaftEngine``):
     4-of-6 row sets; prints host ms of encode and decode against the
     oracle's and the host CPU;
 5g. drives the tiered archive through the engine (``engine_tiered_path``):
-    the north star with ``tiered_log_dir`` in a temporary directory, 16
-    ring laps (524 288 entries: leader ticks and one ``submit_pipelined``
-    ring), 28 segments of C/2 sealed behind the 65 536-entry hot tail (~170
+    the north star with ``tiered_log_dir`` in a temporary directory, 6
+    ring laps (196 608 entries: leader ticks and one ``submit_pipelined``
+    ring), 8 segments of C/2 sealed behind the 65 536-entry hot tail (~49
     MiB of shard files); ``register_apply(replay=True)`` from index 1 must
     hash to the input; the same run with the tier off must make the same
     ``_fetch`` calls; a second run (hot tail C/2, segments of C/4) keeps a
@@ -473,10 +473,10 @@ not a multi-card run), built through ``make_transport`` with
 13. spawns 3 ranks (kernels built here first) and drives the multichip
     dry run's ladder on them — an election, repair-capable ticks (K1 on
     the local row) healing a slow row, a fused step (K2·mesh), a scan —
-    then the north star's 1 048 576 entries through 32-step flights
+    then the north star's 262 144 entries through 32-step flights
     (``northstar.run_device``; the host decides and K4·mesh alone turns
     the ring over) and a flight with row 2 slow and one with row 2 dead
-    (K3·mesh: 6 launches over the 3 ranks, against 96 of K4·mesh); after
+    (K3·mesh: 6 launches over the 3 ranks, against 24 of K4·mesh); after
     every stage every rank's scalars, rings and info must equal its row
     of the same schedule run here through ``SingleDeviceTransport``, each
     follower rank's committed bytes must hash to the input's, and every
@@ -518,6 +518,16 @@ not a multi-card run), built through ``make_transport`` with
     256-record device event ring on 3 card ranks and on 3 CPU ranks
     (``mesh_engine_card_equals_cpu``): nodelog lines, rows, packed rings,
     decoded lines and read-backs equal;
+18a. drives 16's schedule through ONE engine in this process over the
+    one-process mesh (``replica_mesh_path``: ``ReplicaMeshTransport``,
+    3 blocks of the card, the collectives device copies): read-backs,
+    apply stream, nodelog lines and every block's row equal to the
+    single-device run of 16, K1, K2·mesh, K3·mesh and K4·mesh launched
+    on every block (counted by the block's thread) and K2-K4 never, no
+    process group; then 18's schedule and RS(5,3) on 5 blocks at
+    C = 4 096 on the card against the CPU; prints ms a leader tick (host
+    clock and CUDA events), collectives, device copies and host copies a
+    tick, the idle share of 8 profiled ticks, beside 16's gloo figures;
 19. prints the kernel table, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -566,6 +576,9 @@ def check(cond, what: str) -> None:
 #: the phases this process has entered, in order (``phase``): device
 #: state outlives a phase, so a failed comparison names them
 PHASES_RUN = []
+PHASE_OUT: dict = {}
+#: every phase's return, by name (a later phase prints an earlier one's
+#: figures beside its own)
 
 
 def _key_order(k):
@@ -692,7 +705,8 @@ def workspace_words():
 def phase(fn):
     """A phase of the run: its name joins ``PHASES_RUN``, and the
     workspace words (``workspace_words``) must read 0 at its start and
-    its end, both printed on a line of their own."""
+    its end, both printed on a line of their own with the phase's host
+    wall."""
     import functools
 
     name = fn.__name__[len("phase_"):]
@@ -703,10 +717,13 @@ def phase(fn):
         start = workspace_words()
         check(start == [0, 0], f"{name}: WK_MM, WK_TICKET = {start} at the "
                                f"phase's start; phases run: {PHASES_RUN}")
+        t0 = time.perf_counter()
         out = fn(*args, **kw)
+        wall = time.perf_counter() - t0
+        PHASE_OUT[name] = out
         end = workspace_words()
         emit({"workspace_words": name, "wk_mm_wk_ticket":
-              {"start": start, "end": end}})
+              {"start": start, "end": end}, "phase_wall_s": wall})
         check(end == [0, 0], f"{name}: WK_MM, WK_TICKET = {end} at the "
                              f"phase's end; phases run: {PHASES_RUN}")
         return out
@@ -7247,6 +7264,8 @@ def phase_group_mesh_card_equals_cpu(dev):
 
 # ------------------------------------------------------- the replica mesh
 MESH_RANKS = 3
+#: the gloo mesh main path's north-star entries
+MESH_ENTRIES = 1 << 18
 #: a spawned rank still running after this many seconds fails the run
 MESH_DEADLINE_S = 420.0
 
@@ -8324,8 +8343,13 @@ def state_rows(e):
     mesh rank: on the mesh its own (row ``e.t.row``, its lane slice); on
     the resident layout every rank's part of the whole (rank ``g`` of
     ``rows * payload_shards``: row ``g // P`` with lane block ``g``)."""
+    from raft_tpu_torch.core.state import BlockState
+
     P = e.cfg.payload_shards
     st = e.state
+    if isinstance(st, BlockState):       # the one-process mesh: every block
+        return {str(g): part_digest(st.block(g), 0, st.log_payload[g])
+                for g in range(len(st.term))}
     if st.term.shape[0] != e.cfg.rows:
         return {str(e.t.rank): part_digest(st, 0, st.log_payload)}
     w = e.cfg.shard_words // P
@@ -8334,18 +8358,50 @@ def state_rows(e):
             for g in range(e.cfg.rows * P)}
 
 
+class BlockCounts:
+    """``TickMeter``'s view of the one-process mesh's comms: the replica
+    collectives, the tensors they copied between blocks and the host
+    copies, summed over the blocks (no host seconds: nothing waits on
+    another process)."""
+
+    def __init__(self, t):
+        self.t = t
+
+    @property
+    def collectives(self):
+        return sum(c.collectives for c in self.t.comms)
+
+    @property
+    def copies(self):
+        return sum(c.copies for c in self.t.comms)
+
+    @property
+    def host_copies(self):
+        return (sum(c.host_copies for c in self.t.comms)
+                + self.t.host_copies)
+
+
 class TickMeter:
     """Host ms of every leader tick (ended by a synchronize, so its device
-    work is inside), with the collectives (over the pshard column, and on
-    the 2-D mesh over the row group) and gathering fetches it made and
-    their host seconds."""
+    work is inside) and, on the card, its ms between CUDA events recorded
+    around it, with the collectives (over the pshard column, and on the
+    2-D mesh over the row group) and gathering fetches it made and their
+    host seconds; on the one-process mesh also the device copies and the
+    host copies a tick (``BlockCounts``)."""
 
     def __init__(self, e):
         import torch
 
         self.e, self.rows, self.on = e, [], True
         run = e._fire_leader_tick
-        comm = e.t.comm
+        comm = getattr(e.t, "comm", None)
+        blocks = hasattr(e.t, "comms")
+        if blocks:
+            comm = BlockCounts(e.t)
+        self.blocks = blocks
+        cuda = e.state.device.type == "cuda"
+        cards = sorted({str(d) for d in getattr(e.t, "devices", [])
+                        if d.type == "cuda"})
 
         def timed(r):
             if not self.on:
@@ -8356,10 +8412,19 @@ class TickMeter:
             rs0 = getattr(comm, "row_collective_s", 0.0)
             f0 = getattr(e.t, "fetches", 0)
             fs0 = getattr(e.t, "fetch_s", 0.0)
+            d0 = getattr(comm, "copies", 0)
+            h0 = getattr(comm, "host_copies", 0)
+            if cuda:
+                ev0, ev1 = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(2))
+                ev0.record()
             t0 = time.perf_counter()
             out = run(r)
-            if e.state.device.type == "cuda":
+            if cuda:
+                ev1.record()
                 torch.cuda.synchronize()
+                for d in cards:           # the one-process mesh's cards
+                    torch.cuda.synchronize(d)
             self.rows.append((
                 (time.perf_counter() - t0) * 1e3,
                 getattr(comm, "collectives", 0) - c0,
@@ -8367,7 +8432,10 @@ class TickMeter:
                 getattr(e.t, "fetches", 0) - f0,
                 getattr(e.t, "fetch_s", 0.0) - fs0,
                 getattr(comm, "row_collectives", 0) - r0,
-                getattr(comm, "row_collective_s", 0.0) - rs0))
+                getattr(comm, "row_collective_s", 0.0) - rs0,
+                ev0.elapsed_time(ev1) if cuda else float("nan"),
+                getattr(comm, "copies", 0) - d0,
+                getattr(comm, "host_copies", 0) - h0))
             return out
 
         e._fire_leader_tick = timed
@@ -8375,32 +8443,35 @@ class TickMeter:
     def summary(self):
         if not self.rows:
             return None
-        ms, col, col_s, fet, fet_s, row, row_s = (
+        ms, col, col_s, fet, fet_s, row, row_s, ev, dc, hc = (
             np.array(x, float) for x in zip(*self.rows))
-        return {"leader_ticks": len(ms),
-                "ms_per_tick_p50": float(np.percentile(ms, 50)),
-                "ms_per_tick_p99": float(np.percentile(ms, 99)),
-                "ms_per_tick_mean": float(ms.mean()),
-                "collectives_per_tick": float(col.mean()),
-                "host_ms_per_collective": float(col_s.sum() * 1e3
-                                                / max(col.sum(), 1)),
-                "gathering_fetches_per_tick": float(fet.mean()),
-                "host_ms_per_gathering_fetch": float(fet_s.sum() * 1e3
-                                                     / max(fet.sum(), 1)),
-                "row_collectives_per_tick": float(row.mean()),
-                "host_ms_per_row_collective": float(row_s.sum() * 1e3
-                                                    / max(row.sum(), 1))}
+        out = {"leader_ticks": len(ms),
+               "ms_per_tick_p50": float(np.percentile(ms, 50)),
+               "ms_per_tick_p99": float(np.percentile(ms, 99)),
+               "ms_per_tick_mean": float(ms.mean()),
+               "ms_per_tick_events_p50": float(np.percentile(ev, 50)),
+               "ms_per_tick_events_p99": float(np.percentile(ev, 99)),
+               "collectives_per_tick": float(col.mean()),
+               "host_ms_per_collective": float(col_s.sum() * 1e3
+                                               / max(col.sum(), 1)),
+               "gathering_fetches_per_tick": float(fet.mean()),
+               "host_ms_per_gathering_fetch": float(fet_s.sum() * 1e3
+                                                    / max(fet.sum(), 1)),
+               "row_collectives_per_tick": float(row.mean()),
+               "host_ms_per_row_collective": float(row_s.sum() * 1e3
+                                                   / max(row.sum(), 1))}
+        if self.blocks:
+            out["device_copies_per_tick"] = float(dc.mean())
+            out["host_copies_per_tick"] = float(hc.mean())
+        return out
 
 
 def caught_up(e, row, what, beats=64):
     """Run heartbeats until ``row``'s verified match reaches the leader's
     last index (each check a gathering fetch every rank makes)."""
-    import torch
-
     for _ in range(beats):
         e.run_for(e.cfg.heartbeat_period)
-        m, last = e._rows(torch.stack([e.state.match_index,
-                                       e.state.last_index]), 1)
+        m, last = e._leaf_rows(lambda s: [s.match_index, s.last_index])
         if int(m[row]) >= int(last[e.leader_id]):
             return
     raise RuntimeError(f"check failed: {what} never caught up")
@@ -8409,7 +8480,8 @@ def caught_up(e, row, what, beats=64):
 def collective_alone_ms(tr, reps=21):
     """Host ms of one small data-plane all_gather with every rank entering
     together (after a barrier): the fabric's own cost, no rank's host
-    work waited for (median; None on the resident layout)."""
+    work waited for (median; None on the resident layout). On the
+    one-process mesh, one all_gather on every block, synchronized."""
     import torch
     import torch.distributed as dist
 
@@ -8417,6 +8489,14 @@ def collective_alone_ms(tr, reps=21):
         return None
     x = torch.zeros(1, 6, dtype=torch.int32, device=tr.device)
     times = []
+    if hasattr(tr, "comms"):          # the one-process mesh: its blocks
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            tr.lockstep.run(lambda g: tr.comms[g].all_gather(x))
+            if x.is_cuda:
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
     for _ in range(reps):
         dist.barrier()
         t0 = time.perf_counter()
@@ -8425,7 +8505,8 @@ def collective_alone_ms(tr, reps=21):
     return statistics.median(times)
 
 
-def engine_mesh_run(cfg, dev, plan, tmp, profile=False, dev_ring=None):
+def engine_mesh_run(cfg, dev, plan, tmp, profile=False, dev_ring=None,
+                    transport_of=None):
     """The north star through ``RaftEngine`` on ``engine_transport``: an
     election; ``ticks`` leader ticks of B entries (K1 while repairing on
     the local row, K2·mesh once steady); one ``submit_pipelined`` of
@@ -8438,7 +8519,8 @@ def engine_mesh_run(cfg, dev, plan, tmp, profile=False, dev_ring=None):
     ``committed_entries`` and every live row, the apply stream hashed.
     ``profile``: a torch.profiler window of ``profiled`` ticks here.
     ``dev_ring``: a flight recorder and a device event ring of that
-    capacity (the packed ring is returned)."""
+    capacity (the packed ring is returned). ``transport_of(cfg, dev)``
+    places the engine (default ``engine_transport``)."""
     import os
 
     import torch
@@ -8451,7 +8533,8 @@ def engine_mesh_run(cfg, dev, plan, tmp, profile=False, dev_ring=None):
     lines = []
     vlog = os.path.join(tmp, "votes.log")
     rec = FlightRecorder() if dev_ring else None
-    e = RaftEngine(cfg, engine_transport(cfg, dev), trace=lines.append,
+    transport_of = transport_of or engine_transport
+    e = RaftEngine(cfg, transport_of(cfg, dev), trace=lines.append,
                    vote_log=vlog, recorder=rec)
     dobs = e.attach_device_obs(capacity=dev_ring) if dev_ring else None
     inp = EngineInput(cfg)
@@ -8591,7 +8674,7 @@ def engine_mesh_run(cfg, dev, plan, tmp, profile=False, dev_ring=None):
     pre_lines = list(lines)
     lines2 = []
     t0 = time.perf_counter()
-    e2 = RaftEngine.restore(cfg, path, engine_transport(cfg, dev),
+    e2 = RaftEngine.restore(cfg, path, transport_of(cfg, dev),
                             trace=lines2.append, vote_log=vlog)
     restore_s = time.perf_counter() - t0
     wm0 = e2.commit_watermark
@@ -8652,6 +8735,22 @@ def same_rows(ranks, ref, what):
               f"{what}: rank {r}'s row differs from the reference's")
 
 
+_ENGINE_MESH_REFS: dict = {}
+
+
+def engine_mesh_ref(cfg, dev, plan):
+    """The single-device engine's run of ``engine_mesh_run`` on ``dev``:
+    made once a process for a config and plan, so the gloo mesh's phase
+    and the one-process mesh's hold their runs against the same one."""
+    import tempfile
+
+    key = (str(dev), repr(cfg), tuple(sorted(plan.items())))
+    if key not in _ENGINE_MESH_REFS:
+        with tempfile.TemporaryDirectory(prefix="mesh_engine_ref_") as tmp:
+            _ENGINE_MESH_REFS[key] = engine_mesh_run(cfg, dev, plan, tmp)
+    return _ENGINE_MESH_REFS[key]
+
+
 @phase
 def phase_engine_mesh_path(dev):
     """The north-star deployment through the mirrored engine on 3 gloo
@@ -8671,8 +8770,7 @@ def phase_engine_mesh_path(dev):
     ranks = run_ranks(engine_mesh_rank_main, cfg.rows,
                       (cfg, str(dev), plan, True), timeout=MESH_DEADLINE_S)
     ranks_wall = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory(prefix="mesh_engine_ref_") as tmp:
-        ref = engine_mesh_run(cfg, dev, plan, tmp)
+    ref = engine_mesh_ref(cfg, dev, plan)
     for r, res in enumerate(ranks):
         for k in ("lines_sha256", "lines", "entries", "sha256_input",
                   "apply", "flights", "first_leader", "failover",
@@ -8726,7 +8824,7 @@ def phase_engine_mesh_path(dev):
     return out
 
 
-def engine_mesh_ec_run(cfg, dev, plan, tmp):
+def engine_mesh_ec_run(cfg, dev, plan, tmp, transport_of=None):
     """Config 3 through the mirrored EC engine: an election, ``ticks``
     leader ticks (K7 encodes each batch on every rank), a data row failed
     and ``degraded`` ticks committed at 4 of 5, a decoding read through
@@ -8741,7 +8839,8 @@ def engine_mesh_ec_run(cfg, dev, plan, tmp):
 
     B = cfg.batch_size
     lines = []
-    e = RaftEngine(cfg, engine_transport(cfg, dev), trace=lines.append)
+    transport_of = transport_of or engine_transport
+    e = RaftEngine(cfg, transport_of(cfg, dev), trace=lines.append)
     inp = EngineInput(cfg)
     res = {}
 
@@ -8773,7 +8872,7 @@ def engine_mesh_ec_run(cfg, dev, plan, tmp):
     res["healed"] = {"row": dead, "read_rows": rows}
     path = os.path.join(tmp, "ec.npz")
     e.save_checkpoint(path)
-    e2 = RaftEngine.restore(cfg, path, engine_transport(cfg, dev),
+    e2 = RaftEngine.restore(cfg, path, transport_of(cfg, dev),
                             trace=lines.append)
     e2.run_until_leader()
     lo = e2.commit_watermark + 1
@@ -8882,6 +8981,223 @@ def phase_mesh_engine_card_equals_cpu(dev):
            "launches": {k: sum(res["launches"][k] for res in card)
                         for k in card[0]["launches"]},
            "card_wall_s": runs[str(dev)][1], "cpu_wall_s": runs["cpu"][1]}
+    emit(out)
+    return out
+
+
+# ------------------------------------------- the one-process replica mesh
+#: the one-process mesh's RS(5,3) run on the card against the CPU, at
+#: C = 4 096 (a cut of the gloo EC plan's depth, not of any width; the
+#: healed row's read from index 1 needs the whole run inside one ring)
+REPLICA_MESH_EC_PLAN = dict(ticks=2, degraded=1, after=1024)
+REPLICA_MESH_KERNELS = ("K1", "K2·mesh", "K3·mesh", "K4·mesh")
+
+
+def replica_cards(dev) -> int:
+    """The cards the one-process mesh spreads over: every visible card
+    on the card (one card: every block on ``dev``), 1 elsewhere."""
+    import torch
+
+    return torch.cuda.device_count() if dev.type == "cuda" else 1
+
+
+def replica_transport(cfg, dev):
+    """The one-process mesh over ``rows * payload_shards`` blocks: block
+    g on visible card ``g % N`` (``replica_cards``), so on a machine of
+    one card every block on ``dev``."""
+    import torch
+
+    from raft_tpu_torch.transport import ReplicaMesh, ReplicaMeshTransport
+
+    n = cfg.rows * cfg.payload_shards
+    cards = replica_cards(dev)
+    if cards == 1:
+        return ReplicaMeshTransport(cfg, ReplicaMesh([dev] * n))
+    return ReplicaMeshTransport(cfg, ReplicaMesh(
+        [torch.device("cuda", g % cards) for g in range(n)]))
+
+
+class BlockLaunches:
+    """Launches of K1, K2·mesh, K3·mesh and K4·mesh a block while
+    entered: the kernel's own launch counter (``mesh_engine_counters``)
+    read around each call of the wrapper the mesh bodies call, its delta
+    booked to the ``LockStep`` block that made the call (block k runs on
+    the thread ``replica-mesh-block-k``, one block at a time, and a
+    wrapper call holds no collective). ``counts`` is what launched, so
+    its sum over the blocks must equal the counter's delta over the run
+    (``phase_replica_mesh_path`` checks it)."""
+
+    SITES = (("K1", "raft_tpu_torch.core.step", "write_window_both"),
+             ("K2·mesh", "raft_tpu_torch.core.step_mesh", "steady_step"),
+             ("K3·mesh", "raft_tpu_torch.core.step_mesh",
+              "pipeline_flight"),
+             ("K4·mesh", "raft_tpu_torch.core.step_mesh",
+              "turnover_flight"))
+
+    def __enter__(self):
+        import importlib
+        import threading
+
+        self.counts = {k: {} for k, _, _ in self.SITES}
+        self.saved = []
+        for key, mod_name, fn_name in self.SITES:
+            mod = importlib.import_module(mod_name)
+            inner = getattr(mod, fn_name)
+
+            def counted(*a, _inner=inner, _key=key, **kw):
+                before = mesh_engine_counters(None)[_key]
+                try:
+                    return _inner(*a, **kw)
+                finally:
+                    ran = mesh_engine_counters(None)[_key] - before
+                    name = threading.current_thread().name
+                    if ran and name.startswith("replica-mesh-block-"):
+                        g = int(name.rsplit("-", 1)[1])
+                        self.counts[_key][g] = \
+                            self.counts[_key].get(g, 0) + ran
+
+            setattr(mod, fn_name, counted)
+            self.saved.append((mod, fn_name, inner))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn_name, inner in self.saved:
+            setattr(mod, fn_name, inner)
+
+
+@phase
+def phase_replica_mesh_path(dev):
+    """The north star (``ENGINE_MESH_PLANS["full"]``) through ONE engine
+    in this process over the one-process mesh, 3 blocks of ``dev``
+    (``ReplicaMeshTransport``): every read-back and the apply stream
+    against the input's SHA-256; nodelog lines, flights and every block's
+    row equal to the single-device engine's on the same seed; K1,
+    K2·mesh, K3·mesh and K4·mesh launched on every block and the
+    resident K2, K3 and K4 never; no process group. Then the reduced
+    plan (C = 4 096, a device event ring) and RS(5,3) on 5 blocks
+    (``REPLICA_MESH_EC_PLAN``), each on the card against the CPU. Prints
+    ms a leader tick (host clock and CUDA events), the collectives,
+    device copies and host copies a tick, the idle share of 8 profiled
+    ticks, beside ``engine_mesh_path``'s gloo figures when that phase ran
+    before. On a machine of several cards the blocks spread over them
+    (``replica_transport``)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    plan = ENGINE_MESH_PLANS["full"]
+    cfg = engine_mesh_config(plan["capacity"])
+    zero_ec_counters(dev)
+    with BlockLaunches() as per_block, tempfile.TemporaryDirectory(
+            prefix="replica_mesh_") as tmp:
+        t0 = time.perf_counter()
+        res = engine_mesh_run(cfg, dev, plan, tmp, profile=True,
+                              transport_of=replica_transport)
+        run_wall = time.perf_counter() - t0
+    launches = mesh_engine_counters(dev)
+    check(not (dist.is_available() and dist.is_initialized()),
+          "replica mesh: a process group exists")
+    from raft_tpu_torch.core import step_cuda
+
+    for d in sorted({str(d) for d in replica_transport(cfg, dev).devices}):
+        w = step_cuda.workspace(d)
+        words = w[[step_cuda.WK_MM, step_cuda.WK_TICKET]].tolist()
+        check(words == [0, 0], f"replica mesh: {d}'s WK_MM, WK_TICKET = "
+                               f"{words} after the run")
+    ref = engine_mesh_ref(cfg, dev, plan)
+    for k in ("lines_sha256", "lines", "entries", "sha256_input", "apply",
+              "flights", "first_leader", "failover", "lapped"):
+        check(res[k] == ref[k], f"replica mesh: {k} {res[k]} != {ref[k]}")
+    check([x["sha256"] for x in res["read_backs"]]
+          == [x["sha256"] for x in ref["read_backs"]],
+          "replica mesh: read-backs differ from the single-device run's")
+    for g in range(cfg.rows):
+        check(res["rows"][str(g)] == ref["rows"][str(g)],
+              f"replica mesh: block {g} differs from its row of the "
+              "single-device run")
+    for k in REPLICA_MESH_KERNELS:
+        got = [per_block.counts[k].get(g, 0) for g in range(cfg.rows)]
+        check(all(got) or dev.type != "cuda",
+              f"replica mesh: {k} did not launch on every block: {got}")
+        check(sum(per_block.counts[k].values()) == launches[k],
+              f"replica mesh: {k}'s launches by block {got} do not add "
+              f"up to its counter's {launches[k]} for the run")
+    check(launches["K2"] == launches["K3"] == launches["K4"] == 0,
+          f"replica mesh: a resident kernel ran: {launches}")
+    # the reduced plan and RS(5,3), each on the card against the CPU
+    small = ENGINE_MESH_PLANS["reduced"]
+    scfg = engine_mesh_config(small["capacity"])
+    ecfg = dataclasses.replace(ec_engine_config(small["capacity"]),
+                               transport="tpu_mesh")
+    runs, ec_runs, walls = {}, {}, {}
+    zero_ec_counters(dev)
+    for where in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        with fly_on_cpu(where.type), tempfile.TemporaryDirectory(
+                prefix="replica_mesh_small_") as tmp:
+            runs[where.type] = engine_mesh_run(
+                scfg, where, small, tmp, dev_ring=ENGINE_MESH_DEV_RING,
+                transport_of=replica_transport)
+            ec_runs[where.type] = engine_mesh_ec_run(
+                ecfg, where, REPLICA_MESH_EC_PLAN, tmp,
+                transport_of=replica_transport)
+        walls[where.type] = time.perf_counter() - t0
+        if where.type == "cuda":
+            small_launches = mesh_engine_counters(dev)
+    card, cpu = runs["cuda"], runs["cpu"]
+    for k in ("lines_sha256", "rows", "apply", "flights", "device_lines",
+              "host_lines", "packed_ring"):
+        check_same(card[k], cpu[k], f"replica mesh card vs cpu: {k}")
+    check_same([x["sha256"] for x in card["read_backs"]],
+               [x["sha256"] for x in cpu["read_backs"]],
+               "replica mesh card vs cpu: read-backs")
+    check(card["device_lines"] == card["host_lines"] and card["device_lines"],
+          "replica mesh card: the device ring's lines are not the host's")
+    for k in ("lines_sha256", "entries", "decoding_read", "healed", "rows"):
+        check_same(ec_runs["cuda"][k], ec_runs["cpu"][k],
+                   f"replica mesh RS(5,3) card vs cpu: {k}")
+    gloo = PHASE_OUT.get("engine_mesh_path") or {}
+    cards = replica_cards(dev)
+    out = {"phase": "replica_mesh_path", "blocks": cfg.rows,
+           "backend": ("one process, 3 blocks of one card, the "
+                       "collectives device copies (not a multi-card "
+                       "figure)" if cards == 1 else
+                       f"one process, block g on card g % {cards}, the "
+                       "collectives copies between cards (times on the "
+                       "host clock and cuda:0's events only)"),
+           "cards": cards,
+           "capacity": cfg.log_capacity, "batch": cfg.batch_size,
+           "entry_bytes": cfg.entry_bytes, "entries": res["entries"],
+           "sha256_input": res["sha256_input"], "apply": res["apply"],
+           "read_backs": len(res["read_backs"]), "lines": res["lines"],
+           "flights": res["flights"], "failover": res["failover"],
+           "lapped": res["lapped"], "ticks": res["ticks"],
+           "ticks_note": "the 56 unprofiled leader ticks",
+           "collective_alone_ms": res["collective_alone_ms"],
+           "ticks_entries_per_s_wall": res["ticks_entries_per_s_wall"],
+           "chunk": res["chunk"], "checkpoint": res["checkpoint"],
+           "gathering_fetches": res["fetches"],
+           "profiled_ticks": res.get("profiled_ticks"),
+           "launches_per_block": per_block.counts,
+           "single_device_ref": {"ticks": ref["ticks"],
+                                 "chunk": ref["chunk"]},
+           "gloo_engine_mesh_path": {
+               "ticks_rank0": (gloo.get("ticks_per_rank") or [None])[0],
+               "profiled_ticks_rank0": gloo.get("profiled_ticks_rank0"),
+               "chunk_rank0": (gloo.get("chunk_per_rank") or [None])[0]}
+           if gloo else None,
+           "card_equals_cpu": {"capacity": scfg.log_capacity,
+                               "entries": card["entries"],
+                               "device_lines": len(card["device_lines"]),
+                               "ec_entries": ec_runs["cuda"]["entries"],
+                               "card_wall_s": walls["cuda"],
+                               "cpu_wall_s": walls["cpu"]},
+           "launches": {k: launches[k] + small_launches[k]
+                        for k in launches},
+           "run_wall_s": run_wall,
+           "phase_wall_s": time.perf_counter() - t_phase}
     emit(out)
     return out
 
@@ -9249,8 +9565,8 @@ def phase_native_codec(card_line):
 
 
 # ------------------------- 5g. the tiered archive through the engine (A13)
-TIER_LAPS = 16                # 524 288 entries through the north star
-TIER_PIPELINED_LAP = 7        # the lap that goes as one submit_pipelined ring
+TIER_LAPS = 6                 # 196 608 entries through the north star
+TIER_PIPELINED_LAP = 5        # the lap that goes as one submit_pipelined ring
 TIER_DEAD_LAPS = 3            # laps a follower misses in the second run
 TIER_SMALL_CAPACITY = 4096    # the card-vs-CPU run's ring
 
@@ -9510,7 +9826,7 @@ def tier_dead_follower_run(cfg, dev, tmp):
 def phase_engine_tiered_path(dev, laps=TIER_LAPS):
     """The tiered archive through ``RaftEngine`` on the card (module doc,
     5g): the north star with ``tiered_log_dir`` (``laps`` ring laps,
-    524 288 entries at the default 16, segments of C/2 sealed behind the
+    196 608 entries at the default 6, segments of C/2 sealed behind the
     2C hot tail), replayed from index 1; the same run with the tier off
     (equal ``_fetch`` counts, nodelog lines and read-backs);
     the dead-follower run with a damaged segment, a checkpoint and a
@@ -12838,6 +13154,7 @@ ONLY_PHASES = {"kernels": lambda dev: phase_kernels(ns_config(), dev),
                "engine_mesh_ec_path": phase_engine_mesh_ec_path,
                "mesh_engine_card_equals_cpu":
                phase_mesh_engine_card_equals_cpu,
+               "replica_mesh_path": phase_replica_mesh_path,
                "engine_mesh2d_path": phase_engine_mesh2d_path,
                "engine_mesh2d_ec_path": phase_engine_mesh2d_ec_path,
                "mesh2d_card_equals_cpu": phase_mesh2d_card_equals_cpu,
@@ -12924,12 +13241,13 @@ def main() -> int:
     mesh_errs = phase_mesh_kernels(cfg, ecfg, dev)
     mesh_kernel_times = time_mesh_kernels(
         cfg, dev, np.random.default_rng(SEED + 31), 21, mem_rate(card_line))
-    mesh_main = phase_mesh_main_path(cfg, dev)
+    mesh_main = phase_mesh_main_path(cfg, dev, MESH_ENTRIES)
     phase_mesh_ec_path(ecfg, dev)
     engine_mesh = {"engine_mesh": phase_engine_mesh_path(dev),
                    "engine_mesh_ec": phase_engine_mesh_ec_path(dev),
                    "mesh_engine_card_equals_cpu":
                    phase_mesh_engine_card_equals_cpu(dev),
+                   "replica_mesh": phase_replica_mesh_path(dev),
                    "engine_mesh2d": phase_engine_mesh2d_path(dev),
                    "engine_mesh2d_ec": phase_engine_mesh2d_ec_path(dev),
                    "mesh2d_card_equals_cpu":

@@ -16,11 +16,14 @@ replication data plane on one H100 with hand-written CUDA kernels
   ``torch.distributed`` group (``core.comm.MeshComm``), whose steady
   steps run the mesh-local mode of K2-K4 (``core.step_mesh``);
   ``transport.launch.run_ranks`` starts R local ranks;
+  ``transport.ReplicaMeshTransport`` the same mesh in one process, one
+  block a device, its collectives copies between the blocks' devices
+  (``core.comm.BlockComm``);
 - ``raft.RaftEngine`` — the engine's tick loop (timers, roles, elections,
   the leader tick, pipelined ingest, commit, the archive and the apply
   stream) over the transports, on the mesh as R lock-step mirrors, one
-  rank a replica row (``transport.multihost``); ``storm`` drives BASELINE
-  config 5;
+  rank a replica row (``transport.multihost``), or as one engine over the
+  one-process mesh; ``storm`` drives BASELINE config 5;
 - ``multi.MultiEngine`` — G independent Raft groups stepped by one batched
   program (kernel K5 in every group launch; the fused K-tick window as a
   CUDA graph), behind the key-routed ``multi.Router``.

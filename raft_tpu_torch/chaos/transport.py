@@ -68,7 +68,8 @@ import torch
 #: transport (absent there, absent here)
 _SEAM = ("resident", "device", "comm", "processes", "fetch_rows",
          "fetch_row", "fetch_row_lanes", "gather_window", "place_rows",
-         "local_row", "lane_slice", "exchange_digest", "gather_state")
+         "local_row", "lane_slice", "exchange_digest", "gather_state",
+         "on_row", "log_terms", "record_chunk", "entry_words")
 
 
 def _host(m) -> np.ndarray:

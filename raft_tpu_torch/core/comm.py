@@ -10,6 +10,10 @@ this interface — ``replica_ids``, ``local``, ``all_gather``,
   ``torch.distributed`` process group (L = 1); on the 2-D mesh one lane
   slice of a row per rank, the replica collectives running over the
   ranks that hold the same slice of every row.
+- ``BlockComm``: the same placement in ONE process (the JAX package's
+  single-controller mesh, ``transport.ReplicaMeshTransport``): one block
+  a device, each block's body on a thread of a ``LockStep``, the
+  collectives device-to-device copies between the blocks.
 
 Indices may be Python ints or 0-d device tensors; a tensor index goes
 through ``index_select``, which never reads the value back to the host.
@@ -18,6 +22,7 @@ through ``index_select``, which never reads the value back to the host.
 from __future__ import annotations
 
 import datetime
+import threading
 import time
 
 import numpy as np
@@ -181,6 +186,15 @@ class MeshComm:
         there: one copy of the operand to the host, none back."""
         return self.all_gather(x.cpu())
 
+    #: the mesh kernels' launch plane is gathered to the host, where every
+    #: rank takes the same decisions on it (``core.step_mesh``)
+    all_gather_plane = all_gather_host
+
+    def host_once(self, x: torch.Tensor) -> torch.Tensor:
+        """A value every rank holds alike, on the host: each rank's own
+        copy (a flight's decision read, ``core.step_mesh``)."""
+        return x.cpu()
+
     def all_gather_lanes(self, x: torch.Tensor) -> torch.Tensor:
         """Every lane slice of this rank's row on the host: [..., w] per
         rank -> [..., P*w], slice p at lanes [p*w, (p+1)*w) (one gather
@@ -237,3 +251,247 @@ class MeshComm:
         """The leader rank's lane block [B, w] (``w`` = the local lanes)."""
         blocks = self.all_gather(win[None])           # [R, B, w]
         return take(blocks, leader, 0)
+
+
+class LockStep:
+    """One body a block of the one-process mesh, run in lock step on
+    threads of its own (one a block, started once).
+
+    Exactly one block runs at a time. A block hands the turn to the next
+    one (in block order) when it reaches a collective or ends, so every
+    block's host code between two collectives runs alone: its launches
+    stay adjacent on its device's stream (the flight kernels' plan and
+    writer share per-device scratch), and the schedule is the same on
+    every run. At a collective each block deposits its operand and gets
+    every block's back once all have deposited. An error in one block
+    aborts the others at their next collective and raises in the caller;
+    a block that ends while another still waits at a collective raises
+    there (the bodies left lock step). Each thread runs with its block's
+    CUDA device current. ``for_devices`` shares one a device list, so
+    the threads are made once a process.
+
+    A block reads the others' operands when its turn comes, after the
+    blocks before it have run on past the collective. So an operand must
+    not be changed in place until the next collective: the bodies pass
+    fresh tensors or leaves they replace functionally. A read checks
+    each operand's version counter and raises if it moved."""
+
+    _shared: dict = {}
+
+    @classmethod
+    def for_devices(cls, devices) -> "LockStep":
+        key = tuple(str(torch.device(d)) for d in devices)
+        if key not in cls._shared:
+            cls._shared[key] = cls(devices)
+        return cls._shared[key]
+
+    def __init__(self, devices):
+        self.devices = [torch.device(d) for d in devices]
+        self.n = len(self.devices)
+        self._cv = threading.Condition()
+        self._tasks = [None] * self.n
+        self._threads = None
+        self._turn = None
+        self._active = [False] * self.n
+        self._seq = [0] * self.n
+        self._slots: dict = {}
+        self._results = [None] * self.n
+        self._error = None
+        self._aborted = False
+        self._calls = threading.Lock()
+
+    def _start(self) -> None:
+        self._threads = [threading.Thread(target=self._worker, args=(k,),
+                                          daemon=True,
+                                          name=f"replica-mesh-block-{k}")
+                         for k in range(self.n)]
+        for t in self._threads:
+            t.start()
+
+    def run(self, fn) -> list:
+        """``fn(k)`` on every block k in lock step; returns the results in
+        block order, or raises the first block's error."""
+        with self._calls, self._cv:
+            if self._threads is None:
+                self._start()
+            self._seq = [0] * self.n
+            self._slots = {}
+            self._error = None
+            self._aborted = False
+            self._results = [None] * self.n
+            self._active = [True] * self.n
+            self._tasks = [fn] * self.n
+            self._turn = 0
+            self._cv.notify_all()
+            while any(self._active):
+                self._cv.wait()
+            self._tasks = [None] * self.n
+            error, self._error = self._error, None
+            results, self._results = self._results, [None] * self.n
+            if error is not None:
+                raise error
+        return results
+
+    def _worker(self, k: int) -> None:
+        dev = self.devices[k]
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        while True:
+            with self._cv:
+                while self._tasks[k] is None or self._turn != k \
+                        or not self._active[k]:
+                    self._cv.wait()
+                fn = self._tasks[k]
+            try:
+                if self._aborted:
+                    raise _Aborted()
+                out = fn(k)
+            except BaseException as e:      # handed to the caller
+                with self._cv:
+                    if self._error is None and not isinstance(e, _Aborted):
+                        self._error = e
+                    self._aborted = True
+                    self._end(k)
+                continue
+            finally:
+                fn = None           # hold no task between runs
+            with self._cv:
+                self._results[k] = out
+                self._end(k)
+            out = None
+
+    def _end(self, k: int) -> None:
+        """Block k is done (lock held): hand the turn on."""
+        self._active[k] = False
+        self._tasks[k] = None
+        self._pass(k)
+
+    def _pass(self, k: int) -> None:
+        """The turn to the next active block after k (lock held)."""
+        for j in range(1, self.n + 1):
+            nxt = (k + j) % self.n
+            if self._active[nxt]:
+                self._turn = nxt
+                break
+        else:
+            self._turn = None
+        self._cv.notify_all()
+
+    def exchange(self, k: int, op: str, value, once=None) -> list:
+        """Block k's side of a collective: deposit ``value``, hand the turn
+        on, and once every block has deposited return all values in block
+        order. With ``once``, ``once(values)`` is computed by the first
+        block to read and its result returned to every block instead."""
+        with self._cv:
+            seq = self._seq[k]
+            self._seq[k] += 1
+            slot = self._slots.setdefault(seq, {"ops": [None] * self.n,
+                                                "vals": [None] * self.n,
+                                                "vers": [None] * self.n,
+                                                "read": 0})
+            slot["ops"][k] = op
+            slot["vals"][k] = value
+            slot["vers"][k] = getattr(value, "_version", None)
+            self._pass(k)
+            while self._turn != k and not self._aborted:
+                self._cv.wait()
+            if self._aborted:
+                raise _Aborted()
+            if slot["ops"] != [op] * self.n:
+                self._aborted = True
+                raise RuntimeError(
+                    f"replica mesh blocks left lock step at collective "
+                    f"{seq}: {slot['ops']} (None: the block ended)")
+            vals = slot["vals"]
+            moved = [j for j, v in enumerate(vals)
+                     if getattr(v, "_version", None) != slot["vers"][j]]
+            if moved:
+                self._aborted = True
+                raise RuntimeError(
+                    f"replica mesh collective {seq} ({op}): blocks {moved} "
+                    "changed their operand in place before every block "
+                    "had read it")
+            if once is not None:
+                if "once" not in slot:
+                    slot["once"] = once(vals)
+                vals = slot["once"]
+            slot["read"] += 1
+            if slot["read"] == self.n:
+                del self._slots[seq]
+            return vals
+
+
+class _Aborted(Exception):
+    """Another block failed: this one stops at its next collective."""
+
+
+class BlockComm:
+    """The replica-axis interface of ``MeshComm`` that the protocol
+    bodies use, for block ``block`` of the one-process mesh (row
+    ``block // P``, lane slice ``block % P``): ``rank``, ``pshard``,
+    ``local``, ``replica_ids``, ``all_gather``, ``all_gather_lanes``,
+    ``select_row`` and ``leader_cols``, each collective a ``LockStep``
+    exchange whose result is copied onto the operand's device (a copy
+    within the card when the blocks share one). An operand must not be
+    changed in place until the next collective (``LockStep``). No operand
+    goes through the host; ``host_once`` is a flight's one read of its
+    decision plane, counted in ``host_copies``. ``collectives`` counts the
+    replica collectives and ``copies`` the tensors they moved into this
+    block."""
+
+    def __init__(self, lockstep: LockStep, block: int, n_replicas: int,
+                 payload_shards: int = 1):
+        P = payload_shards
+        self.lockstep = lockstep
+        self.block = block
+        self.n_replicas = n_replicas
+        self.payload_shards = P
+        self.rank = block // P          # the replica row
+        self.pshard = block % P         # the lane slice
+        self._column = [r * P + self.pshard for r in range(n_replicas)]
+        self._row = [self.rank * P + q for q in range(P)]
+        self.collectives = 0
+        self.copies = 0
+        self.host_copies = 0
+
+    def replica_ids(self, device) -> torch.Tensor:
+        return torch.full((1,), self.rank, dtype=torch.int32, device=device)
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        return x[self.rank:self.rank + 1]
+
+    def _gather(self, op: str, x: torch.Tensor, members) -> list:
+        vals = self.lockstep.exchange(self.block, op, x)
+        self.collectives += 1
+        self.copies += len(members)
+        return [vals[m].to(x.device, copy=True) for m in members]
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """[1, ...] per-block values -> [R, ...] over the block's column,
+        on ``x``'s device."""
+        return torch.cat(self._gather("all_gather", x, self._column), 0)
+
+    #: the launch plane stays on the devices (a flight reads it to the
+    #: host once, ``host_once``)
+    all_gather_plane = all_gather
+
+    def all_gather_lanes(self, x: torch.Tensor) -> torch.Tensor:
+        """Every lane slice of this block's row: [..., w] a block ->
+        [..., P*w] over the row's P blocks, on ``x``'s device."""
+        return torch.cat(self._gather("all_gather_lanes", x, self._row), -1)
+
+    def host_once(self, x: torch.Tensor) -> torch.Tensor:
+        """A value every block holds alike, on the host: one host copy
+        for all blocks (block order's first reader makes it)."""
+        def copy(vals):
+            self.host_copies += 1
+            return vals[self.block].cpu()
+
+        return self.lockstep.exchange(self.block, "host_once", x, once=copy)
+
+    def select_row(self, x: torch.Tensor, idx) -> torch.Tensor:
+        return take(self.all_gather(x), idx, 0)
+
+    def leader_cols(self, win: torch.Tensor, leader, w: int) -> torch.Tensor:
+        """The leader row's lane block [B, w] (``w`` = the local lanes)."""
+        return take(self.all_gather(win[None]), leader, 0)

@@ -13,12 +13,17 @@ across with ``state_from_numpy`` / ``state_to_numpy``:
 On the mesh transport each rank holds one row of that layout (R = 1:
 vectors [1], ``log_term`` [1, C], ``log_payload`` [C, W]; on the 2-D mesh
 of P payload shards, rank ``g`` holds row ``g // P`` with lane block
-``g``, [C, W/P]); ``cut_row`` and ``stack_rows`` carry between the two. The functions here that read or
-write a given replica's row take ``view``: the row access of the
-transport that placed the state (``ResidentView`` for a state that holds
-every row, the default; ``transport.MeshTransport`` on the mesh, where a
-read of another rank's row is a collective every rank makes and a write
-lands only on the rank that holds the row).
+``g``, [C, W/P]); ``cut_row`` and ``stack_rows`` carry between the two.
+The one-process mesh (``transport.ReplicaMeshTransport``) holds every
+such block in one process, each on its own device: a ``BlockState``,
+whose leaves are ``Blocks`` (one tensor a block, block ``g`` = the rank
+``g`` part above). The functions here that read or write a given
+replica's row take ``view``: the row access of the transport that placed
+the state (``ResidentView`` for a state that holds every row, the
+default; ``transport.MeshTransport`` on the mesh, where a read of another
+rank's row is a collective every rank makes and a write lands only on the
+rank that holds the row; a ``BlockState`` carries its transport as its
+view).
 
 Log indices are 1-based; index i lives in ring slot ``(i - 1) % C``.
 
@@ -100,6 +105,42 @@ class ReplicaState:
     def clone(self) -> "ReplicaState":
         return ReplicaState(*(getattr(self, f).clone() for f in FIELDS))
 
+    #: the row access a state carries (a ``BlockState``'s transport);
+    #: None: the caller's ``view``, else ``RESIDENT`` (``view_of``)
+    view = None
+
+    def map(self, fn):
+        """``fn(state)``: one value for the rows this state holds (a
+        ``BlockState`` gives one a block, as ``Blocks``)."""
+        return fn(self)
+
+    def to_numpy(self) -> dict:
+        """Numpy leaves keyed by field name (``state_to_numpy``)."""
+        return {f: getattr(self, f).cpu().numpy() for f in FIELDS}
+
+
+class Blocks(tuple):
+    """One leaf of a ``BlockState``: one tensor a mesh block, in block
+    order (block ``g`` holds replica row ``g // P``'s part, on its own
+    device). Indexing picks a block; ``shape`` and ``device`` are block
+    0's, so a ``BlockState``'s ``capacity`` and
+    ``words_per_entry`` are a block's, as on a mesh rank."""
+
+    @property
+    def shape(self) -> torch.Size:
+        return self[0].shape
+
+    @property
+    def device(self) -> torch.device:
+        return self[0].device
+
+    def map(self, fn) -> "Blocks":
+        """``fn`` applied to every block's tensor."""
+        return Blocks(fn(t) for t in self)
+
+    def clone(self) -> "Blocks":
+        return self.map(torch.Tensor.clone)
+
 
 def host_copy(x) -> np.ndarray:
     """A host copy of a tensor (never a view of a CPU tensor that a step
@@ -149,8 +190,101 @@ class ResidentView:
         of them (a 2-D mesh rank holds one slice)."""
         return shards
 
+    def on_row(self, state, row: int, fn):
+        """A write to replica ``row``: ``fn(state, i, cut)`` on every part
+        of the state that holds the row (here the state itself, the row
+        at index ``i = row``; ``cut`` is ``lane_slice``), returning the
+        new state."""
+        return fn(state, row, self.lane_slice)
+
+    def log_terms(self, state, slots, row: Optional[int] = None
+                  ) -> np.ndarray:
+        """Host view of the term ring at ring ``slots`` (numpy ints):
+        every row's (``[R, n]``), or replica ``row``'s (``[n]``)."""
+        sel = state.log_term.index_select(
+            1, torch.as_tensor(np.asarray(slots, np.int64),
+                               device=state.device))
+        return host_copy(sel if row is None else sel[row])
+
+    def entry_words(self, state, replica: int, lo: int,
+                    hi: int) -> torch.Tensor:
+        """Replica ``replica``'s payload words of log indices [lo, hi]:
+        i32[hi-lo+1, W] (only those slots are read)."""
+        w = state.words_per_entry
+        slots = (torch.arange(lo, hi + 1, device=state.device,
+                              dtype=torch.int64) - 1) % state.capacity
+        rows = state.log_payload[:, replica * w:(replica + 1) * w]
+        return rows.index_select(0, slots)
+
 
 RESIDENT = ResidentView()
+
+
+@dataclasses.dataclass
+class BlockState(ReplicaState):
+    """A whole cluster's state on the one-process mesh: every leaf a
+    ``Blocks`` (vectors [1], ``log_term`` [1, C] and ``log_payload``
+    [C, W/P] a block, block ``g`` on ``view.devices[g]``) and ``view``
+    the transport that placed it, which the row reads and writes of this
+    module and of ``ec.reconstruct`` go through."""
+
+    view: object = None
+
+    def block(self, g: int) -> ReplicaState:
+        """Block ``g``'s own ``ReplicaState`` (its tensors, not copies)."""
+        return ReplicaState(*(getattr(self, f)[g] for f in FIELDS))
+
+    def blocks(self) -> list:
+        return [self.block(g) for g in range(len(self.term))]
+
+    @classmethod
+    def of(cls, blocks, view) -> "BlockState":
+        """The state of per-block ``ReplicaState``s, in block order."""
+        return cls(*(Blocks(getattr(b, f) for b in blocks)
+                     for f in FIELDS), view=view)
+
+    def map(self, fn) -> Blocks:
+        """``fn(block state)`` on every block."""
+        return Blocks(fn(b) for b in self.blocks())
+
+    def clone(self) -> "BlockState":
+        return BlockState(*(getattr(self, f).clone() for f in FIELDS),
+                          view=self.view)
+
+    def to_numpy(self) -> dict:
+        """The whole cluster's leaves (its view's ``gather_state``)."""
+        return self.view.gather_state(self)
+
+
+def view_of(state, view=None):
+    """The row access for ``state``: ``view`` when given, else the view
+    the state carries, else ``RESIDENT``."""
+    if view is not None:
+        return view
+    carried = getattr(state, "view", None)
+    return RESIDENT if carried is None else carried
+
+
+def wipe_row(state: ReplicaState, i: int, cut=None) -> ReplicaState:
+    """Row ``i`` of ``state`` zeroed (term, vote, log and indices: total
+    disk loss), its rings in place; ``cut`` is unused (``on_row``'s
+    signature)."""
+    w = state.words_per_entry
+    rows = torch.arange(state.term.shape[0], device=state.device) == i
+
+    def zeroed(v, fill=0):
+        return torch.where(rows, fill, v).to(v.dtype)
+
+    state.log_term[i].zero_()
+    state.log_payload[:, i * w:(i + 1) * w].zero_()
+    return state.replace(
+        term=zeroed(state.term),
+        voted_for=zeroed(state.voted_for, NO_VOTE),
+        last_index=zeroed(state.last_index),
+        commit_index=zeroed(state.commit_index),
+        match_index=zeroed(state.match_index),
+        match_term=zeroed(state.match_term),
+    )
 
 
 def init_state(cfg: RaftConfig, rows: Optional[int] = None,
@@ -328,8 +462,9 @@ def state_from_numpy(fields: dict, device="cuda") -> ReplicaState:
 
 def state_to_numpy(state: ReplicaState) -> dict:
     """Numpy leaves keyed by field name (the inverse of
-    ``state_from_numpy``)."""
-    return {f: getattr(state, f).cpu().numpy() for f in FIELDS}
+    ``state_from_numpy``); a ``BlockState`` gives the whole cluster's
+    (its view's ``gather_state``)."""
+    return state.to_numpy()
 
 
 def cut_row(fields: dict, r: int, payload_shards: int = 1) -> dict:
@@ -410,18 +545,12 @@ def log_entries(state: ReplicaState, replica: int, lo: int,
     one replica row. Only the requested slots leave the device; on the
     mesh (``view``) the holder's slots reach every rank, at full width
     (on the 2-D mesh stitched from the row's slices)."""
+    view = view_of(state, view)
     w = state.words_per_entry
     if hi < lo:
         full = w * getattr(view, "payload_shards", 1)
         return np.zeros((0, 4 * full), np.uint8)
-    idx = torch.arange(lo, hi + 1, device=state.device, dtype=torch.int64)
-    slots = (idx - 1) % state.capacity
-    if view is None or view.resident:
-        rows = state.log_payload[:, replica * w:(replica + 1) * w]
-        return unfold_bytes(rows.index_select(0, slots))
-    # this rank's row [N, w] with its row axis; the holder's reaches all
-    mine = state.log_payload.index_select(0, slots)[:, None]
-    return unfold_bytes(view.fetch_row_lanes(mine, replica, 1))
+    return unfold_bytes(view.entry_words(state, replica, lo, hi))
 
 
 def payload_slot_bytes(state: ReplicaState, replica: int) -> np.ndarray:
@@ -433,14 +562,15 @@ def payload_slot_bytes(state: ReplicaState, replica: int) -> np.ndarray:
 def committed_payloads(state: ReplicaState, replica: int,
                        view=None) -> np.ndarray:
     """The committed log prefix of one replica as raw bytes [n, S]."""
-    view = RESIDENT if view is None else view
+    view = view_of(state, view)
     hi = int(view.fetch_rows(state.commit_index)[replica])
     return log_entries(state, replica, 1, hi, view)
 
 
 def last_log_term(state: ReplicaState) -> torch.Tensor:
     """Term of each replica's last entry (0 for an empty log) — i32[R], or
-    i32[G, R] for a group-batched state."""
+    i32[G, R] for a group-batched state (``state.map(last_log_term)``
+    on a ``BlockState``)."""
     slot = slot_of(state.last_index.clamp(min=1), state.capacity)
     t = torch.gather(state.log_term, -1, slot[..., None].long())[..., 0]
     return torch.where(state.last_index > 0, t, 0)

@@ -15,12 +15,15 @@
 
 These four reach other replica rows only through ``comm``, where the JAX
 package does (``core.comm``): under ``SingleDeviceComm`` every row is
-resident, under ``MeshComm`` each rank holds its own row (L = 1) and the
-steady forms go to the mesh kernels of ``core.step_mesh`` exactly where
-the JAX package dispatches to them (``:225-245``, ``:584-598``): with
+resident, under ``MeshComm`` each rank holds its own row (L = 1), as does
+each block under ``BlockComm`` (the one-process mesh), and the steady
+forms go to the mesh kernels of ``core.step_mesh`` exactly where the JAX
+package dispatches to them (``:225-245``, ``:584-598``): with
 ``term_floor``, ``repair`` off or ``ec`` on, 128 | B and 128 | C, and a
 window of the full local lanes. Everywhere else the general path runs on
-the one local row.
+the one local row. An operand handed to ``comm`` must not be changed in
+place until the next collective: on the one-process mesh the other
+blocks read it later (``core.comm.LockStep`` checks this).
 
 The multi-Raft group data plane — G independent groups, every operand
 with a leading group axis (state from ``core.state.init_group_state``):
@@ -47,6 +50,7 @@ from typing import NamedTuple
 import torch
 
 from raft_tpu_torch.core.comm import (
+    BlockComm,
     MeshComm,
     SingleDeviceComm,
     take,
@@ -107,8 +111,8 @@ def _mesh_kernel_ok(comm, cap: int, B: int, lanes: int, state) -> bool:
     ``ring._pallas_ok``), kept as narrow as it is there because the
     kernels' closed forms hold only under the engine's steady-program
     invariants (``core.step_mesh``)."""
-    return (isinstance(comm, MeshComm) and B % 128 == 0 and cap % 128 == 0
-            and lanes == state.log_payload.shape[1])
+    return (isinstance(comm, (MeshComm, BlockComm)) and B % 128 == 0
+            and cap % 128 == 0 and lanes == state.log_payload.shape[1])
 
 
 def replicate_step(

@@ -61,18 +61,35 @@ LAST_DISPATCH: str | None = None
 def _gather_plane(comm, state: ReplicaState, leader: int):
     """The two launch collectives: every row's packed scalars -> (6, R)
     and every row's prev term (the slot before the leader's frontier)
-    -> [R]. The plane is gathered to the host, where every rank takes the
-    same decisions on it, and put on the state's device in one copy for
-    the kernels. Returns (vecs, prev) on the host and on the device."""
+    -> [R], each a ``comm.all_gather_plane`` (to the host over gloo, a
+    device copy on the one-process mesh), then put on the state's device
+    in one copy for the kernels. Returns (vecs, prev) on the device."""
     R = comm.n_replicas
     own = torch.stack([state.term, state.voted_for, state.last_index,
                        state.commit_index, state.match_index,
                        state.match_term], dim=1).to(torch.int32)   # [1, 6]
-    vecs = comm.all_gather_host(own).t().contiguous()              # (6, R)
-    prev_slot = slot_of(max(int(vecs[_VL, leader]), 1), state.capacity)
-    prev = comm.all_gather_host(state.log_term[0, prev_slot:prev_slot + 1])
+    vecs = comm.all_gather_plane(own).t().contiguous()             # (6, R)
+    prev_slot = slot_of(vecs[_VL, leader].clamp(min=1),
+                        state.capacity).reshape(1).long()
+    prev = comm.all_gather_plane(
+        state.log_term[0].index_select(0, prev_slot.to(state.device)))
     plane = torch.cat([vecs.reshape(-1), prev]).to(state.device)
-    return (vecs, prev), (plane[:6 * R].view(6, R), plane[6 * R:])
+    return plane[:6 * R].view(6, R), plane[6 * R:]
+
+
+def _host_plane(comm, vecs, prev, counts, masks):
+    """A flight's decision inputs: the gathered plane, the counts and the
+    masks, alike on every rank, read to the host in ONE copy
+    (``comm.host_once``: one for all blocks of the one-process mesh).
+    K4·mesh takes its start slot from the host, so a flight needs this
+    read; a step or a scan does not."""
+    R, T = vecs.shape[1], counts.shape[0]
+    packed = torch.cat([vecs.reshape(-1), prev, counts.to(vecs.device),
+                        masks.to(device=vecs.device,
+                                 dtype=torch.int32).reshape(-1)])
+    h = comm.host_once(packed)
+    return (h[:6 * R].view(6, R), h[6 * R:7 * R], h[7 * R:7 * R + T],
+            h[7 * R + T:].view(-1, R).bool())
 
 
 def _unpack_local(comm, vecs, state: ReplicaState) -> ReplicaState:
@@ -92,8 +109,8 @@ def _setup(comm, state, leader, leader_term, term_floor, repair_floor,
         state, leader, leader_term, term_floor, repair_floor,
         floor_prev_term, alive, slow, member, commit_quorum, ec,
         rows=comm.n_replicas)
-    host, (vecs, prev) = _gather_plane(comm, state, prm.leader)
-    return prm, alive, slow, member, vecs, prev, host
+    vecs, prev = _gather_plane(comm, state, prm.leader)
+    return prm, alive, slow, member, vecs, prev
 
 
 def mesh_replicate_step(comm, state: ReplicaState, client_payload,
@@ -108,7 +125,7 @@ def mesh_replicate_step(comm, state: ReplicaState, client_payload,
     global LAST_DISPATCH
     LAST_DISPATCH = "step"
     R = comm.n_replicas
-    prm, alive, slow, member, vecs, prev, _ = _setup(
+    prm, alive, slow, member, vecs, prev = _setup(
         comm, state, leader, leader_term, term_floor, repair_floor,
         floor_prev_term, alive, slow, member, commit_quorum, ec)
     out = torch.empty(2 * R + 5, dtype=torch.int32, device=state.device)
@@ -143,7 +160,7 @@ def mesh_scan_replicate(comm, state: ReplicaState, payloads, counts, leader,
     global LAST_DISPATCH
     LAST_DISPATCH = "scan"
     dev = state.device
-    prm, alive, slow, member, vecs, prev, _ = _setup(
+    prm, alive, slow, member, vecs, prev = _setup(
         comm, state, leader, leader_term, term_floor, repair_floor,
         floor_prev_term, alive, slow, member, commit_quorum, ec)
     payloads = payloads.to(dev).contiguous()
@@ -192,18 +209,20 @@ def mesh_pipeline(comm, state: ReplicaState, wins, counts, leader,
     R = comm.n_replicas
     dev = state.device
     C = state.capacity
-    prm, alive, slow, member, vecs, prev, (vecs_h, prev_h) = _setup(
+    prm, alive, slow, member, vecs, prev = _setup(
         comm, state, leader, leader_term, term_floor, repair_floor,
         floor_prev_term, alive, slow, member, commit_quorum, ec)
     wins = wins.to(dev).contiguous()
-    counts_h = torch.as_tensor(counts).to(dtype=torch.int32).cpu()
-    counts = counts_h.to(dev)
+    counts = torch.as_tensor(counts).to(dtype=torch.int32)
+    masks = torch.stack([alive, slow] + ([] if member is None
+                                         else [member]))
+    vecs_h, prev_h, counts_h, masks_h = _host_plane(comm, vecs, prev,
+                                                    counts, masks)
+    counts = counts.to(dev)
     P, B, _ = wins.shape
     T = counts.shape[0]
     if T < 1:
         raise ValueError("a flight needs at least one step")
-    masks_h = torch.stack([alive, slow] + ([] if member is None
-                                           else [member])).cpu()
     branch, s0 = flight_branch(
         vecs_h, prev_h, counts_h, masks_h[0], masks_h[1],
         None if member is None else masks_h[2], prm, B, C, comm.rank,

@@ -23,7 +23,10 @@ uses its C++ host codec (``RSCode.encode_host``, equal to the NumPy
 On the mesh (``view`` a ``transport.MeshTransport``) each rank holds one
 row: a read gathers the k donor rows' windows onto every rank's device
 first (``gather_window``, a collective every rank makes) and K6 decodes
-that block; a write lands only on the rank that holds the row. On the 2-D
+that block; a write lands only on the rank that holds the row
+(``view.on_row``). The one-process mesh (a ``core.state.BlockState``,
+which carries its view) gathers the donor block onto its first device
+with device copies and writes each of the row's blocks. On the 2-D
 mesh the donor block is gathered at full width (each donor's P slices
 stitched over the row group) and decoded whole, and a write lands on each
 of the row's P ranks as its byte slice of the shard (``view.lane_slice``).
@@ -36,7 +39,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from raft_tpu_torch.core.state import RESIDENT, ReplicaState, slot_of
+from raft_tpu_torch.core.state import ReplicaState, slot_of, view_of
 from raft_tpu_torch.ec.kernels import GfSource, decode_ring, encode_device
 from raft_tpu_torch.ec.rs import RSCode
 
@@ -74,7 +77,7 @@ def _reconstruct(state: ReplicaState, code: RSCode, rows: Sequence[int],
     rows = [int(r) for r in rows]
     if len(rows) != code.k:
         raise ValueError(f"need exactly k={code.k} shard rows, got {rows}")
-    view = RESIDENT if view is None else view
+    view = view_of(state, view)
     w = state.words_per_entry
     n = hi - lo + 1
     block = None
@@ -179,11 +182,17 @@ def install_entries(state: ReplicaState, replica: int, start: int, shards,
     or tensors. On the mesh only the rank holding ``replica`` writes (on
     the 2-D mesh each of its P ranks writes its byte slice of every
     shard); the others return their state unchanged."""
-    view = RESIDENT if view is None else view
-    replica = view.local_row(replica)
-    if replica is None:
-        return state
-    shards = view.lane_slice(shards)
+    return view_of(state, view).on_row(
+        state, replica, lambda st, i, cut: _install_rows(
+            st, i, start, cut(shards), terms, leader_term, commit_to,
+            batch))
+
+
+def _install_rows(state: ReplicaState, replica: int, start: int, shards,
+                  terms, leader_term: int, commit_to: int,
+                  batch: int) -> ReplicaState:
+    """``install_entries`` on a state that holds row ``replica`` (its
+    index there) and the bytes ``shards`` of it."""
     dev = state.device
     if isinstance(shards, np.ndarray):   # may be a read-only byte view
         shards = np.require(shards, requirements=["C", "W"])
@@ -214,7 +223,7 @@ def heal_replica(state: ReplicaState, code: RSCode, replica: int,
     Raises ``ValueError`` if any donor's ring has already lapped ``lo``
     (the slot would hold a newer entry's shard — decoding it would install
     silent garbage); such a replica needs a snapshot install instead."""
-    view = RESIDENT if view is None else view
+    view = view_of(state, view)
     donor_rows = [int(r) for r in donor_rows]
     donor_last = view.fetch_rows(state.last_index)[donor_rows]
     horizon = int(donor_last.max()) - state.capacity + 1
@@ -222,11 +231,9 @@ def heal_replica(state: ReplicaState, code: RSCode, replica: int,
         raise ValueError(
             f"heal range start {lo} below donor ring horizon {horizon}; "
             "replica needs snapshot install, not log repair")
-    dev = state.device
-    slots = (torch.arange(lo, hi + 1, device=dev, dtype=torch.int64) - 1) \
-        % state.capacity
-    terms_all = torch.from_numpy(view.fetch_row(
-        state.log_term.index_select(1, slots), donor_rows[0]))
+    slots = (np.arange(lo, hi + 1, dtype=np.int64) - 1) % state.capacity
+    terms_all = torch.from_numpy(view.log_terms(state, slots,
+                                                donor_rows[0]))
     mine = view.local_row(replica) is not None
     for ofs in range(0, hi - lo + 1, batch):
         a = lo + ofs

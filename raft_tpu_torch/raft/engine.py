@@ -102,6 +102,12 @@ divergence, or an exchange that does not complete within
 ``mirror_exchange_timeout_s``, raises ``MirrorDesyncError`` on every
 rank. In a one-process world the exchange is a no-op, as in the JAX
 engine.
+
+Over the one-process mesh (``transport.ReplicaMeshTransport``, JAX's
+own mode of its mesh) ONE engine drives every row, each on a device of
+its own: the state is a ``core.state.BlockState``, the same seam reads
+and writes it (a read is at most one device-to-host copy a device), and
+the writes to one row go through ``on_row``.
 """
 
 from __future__ import annotations
@@ -135,6 +141,7 @@ from raft_tpu_torch.core.state import (
     last_log_term,
     log_entries,
     pack_membership,
+    wipe_row,
 )
 from raft_tpu_torch.core.step_cuda import pick_br, shape_ok
 from raft_tpu_torch.ec.kernels import encode_device, encode_fold_device
@@ -509,6 +516,12 @@ class RaftEngine:
             return self._fetch(x)
         return self.t.fetch_rows(x, dim)
 
+    def _leaf_rows(self, fn) -> np.ndarray:
+        """Host [k, R] of the k per-row vectors ``fn(state)`` returns,
+        stacked where the rows sit (``ReplicaState.map``: one stack a
+        block on the one-process mesh) and read in one ``_rows``."""
+        return self._rows(self.state.map(lambda s: torch.stack(fn(s))), 1)
+
     def _log_terms(self, idx, row: Optional[int] = None) -> np.ndarray:
         """Host view of the term ring at 1-based log indices ``idx``: every
         row's (``[R, n]``), or replica ``row``'s (``[n]``). On the resident
@@ -519,11 +532,7 @@ class RaftEngine:
         if self.t.resident:
             terms = self._fetch(self.state.log_term)
             return terms[:, slots] if row is None else terms[row, slots]
-        sel = self.state.log_term.index_select(
-            1, torch.from_numpy(slots).to(self.state.device))
-        if row is None:
-            return self.t.fetch_rows(sel)
-        return self.t.fetch_row(sel, row, 0)
+        return self.t.log_terms(self.state, slots, row)
 
     def _dev_arr(self, x) -> torch.Tensor:
         """A host mask or count vector as a tensor on the device."""
@@ -568,9 +577,8 @@ class RaftEngine:
         fetch is skipped."""
         if self.recorder is None and self._trace is None:
             return ""
-        ci_li = self._rows(
-            torch.stack([self.state.commit_index, self.state.last_index]), 1
-        )   # one fetch for both fields
+        ci_li = self._leaf_rows(lambda s: [s.commit_index, s.last_index])
+        #   one fetch for both fields
         return self._nodelog_at(r, msg, int(ci_li[0, r]), int(ci_li[1, r]),
                                 kind, **fields)
 
@@ -991,10 +999,8 @@ class RaftEngine:
             return False
         if np.any(self.terms[eff] > self.leader_term):
             return False
-        lasts, matches, mterms, dterms = self._rows(torch.stack([
-            self.state.last_index, self.state.match_index,
-            self.state.match_term, self.state.term,
-        ]), 1)
+        lasts, matches, mterms, dterms = self._leaf_rows(lambda s: [
+            s.last_index, s.match_index, s.match_term, s.term])
         verified = (
             (lasts == leader_last) & (dterms <= self.leader_term)
             & (
@@ -1421,10 +1427,8 @@ class RaftEngine:
                 f"learner {r} is down; promotion requires a live, "
                 "caught-up learner"
             )
-        lasts_matches = self._rows(torch.stack([
-            self.state.last_index, self.state.match_index,
-            self.state.match_term,
-        ]), 1)
+        lasts_matches = self._leaf_rows(lambda s: [
+            s.last_index, s.match_index, s.match_term])
         leader_last = int(lasts_matches[0, lead])
         eff_match = (
             int(lasts_matches[1, r])
@@ -1696,14 +1700,10 @@ class RaftEngine:
         flush."""
         if self._dev_ring is None or pre is None:
             return
-        from raft_tpu_torch.obs.device import record_replicate_events
-
-        # the transport's comm: on the mesh the pre- and post-states are
-        # gathered, so every rank records the same events
-        record_replicate_events(
-            self._dev_ring, self.t.comm, pre,
-            self.state, info, r, term, -1, repair=False, ticks=ticks,
-        )
+        # on the mesh every rank (every block of the one-process mesh)
+        # records the same events
+        self.t.record_chunk(self._dev_ring, pre, self.state, info, r, term,
+                            ticks)
         self._flush_device_obs()
 
     # ---------------------------------------------------------- fault toggles
@@ -1746,25 +1746,9 @@ class RaftEngine:
                 f"replica {r} is alive; wipe() models disk loss of a "
                 "crashed server (fail() it first)"
             )
-        st = self.state
-        i = self.t.local_row(r)   # None: another rank holds the row
-        if i is not None:
-            w = st.words_per_entry
-            rows = torch.arange(st.term.shape[0], device=st.device) == i
-
-            def zeroed(v, fill=0):
-                return torch.where(rows, fill, v).to(v.dtype)
-
-            st.log_term[i].zero_()
-            st.log_payload[:, i * w:(i + 1) * w].zero_()
-            self.state = st.replace(
-                term=zeroed(st.term),
-                voted_for=zeroed(st.voted_for, NO_VOTE),
-                last_index=zeroed(st.last_index),
-                commit_index=zeroed(st.commit_index),
-                match_index=zeroed(st.match_index),
-                match_term=zeroed(st.match_term),
-            )
+        # on every part of the state that holds the row (none on a rank
+        # that does not)
+        self.state = self.t.on_row(self.state, r, wipe_row)
         self.terms[r] = 0
         self.lead_terms[r] = 0
         self.roles[r] = FOLLOWER
@@ -2167,8 +2151,8 @@ class RaftEngine:
         or when it heard a live leader within the minimum election
         timeout (leader stickiness). Nothing changes on the device."""
         eff = self._voter_reach(r)
-        lasts, last_terms = self._rows(torch.stack(
-            [self.state.last_index, last_log_term(self.state)]), 1)
+        lasts, last_terms = self._leaf_rows(
+            lambda s: [s.last_index, last_log_term(s)])
         cand_key = (int(last_terms[r]), int(lasts[r]))
         cand_term = int(self.terms[r]) + 1
         stick = self.cfg.follower_timeout[0]
@@ -2508,11 +2492,10 @@ class RaftEngine:
                 self._ring_floor[q] = max(
                     self._ring_floor[q], int(lasts[q]) - cap + 1
                 )
-        cut_t = torch.tensor(cut, dtype=self.state.last_index.dtype,
-                             device=self.state.device)
         self.state = self.state.replace(
-            last_index=torch.minimum(self.state.last_index, cut_t),
-            match_index=torch.minimum(self.state.match_index, cut_t),
+            last_index=self.state.map(lambda s: s.last_index.clamp(max=cut)),
+            match_index=self.state.map(
+                lambda s: s.match_index.clamp(max=cut)),
         )
         self._lasts_snapshot = None
         self._match_snapshot = None
@@ -2560,8 +2543,8 @@ class RaftEngine:
         match = self._fetch(match)
         if self.learner.any():
             if self._match_snapshot is None:
-                self._match_snapshot = self._rows(torch.stack(
-                    [self.state.match_index, self.state.match_term]), 1)
+                self._match_snapshot = self._leaf_rows(
+                    lambda s: [s.match_index, s.match_term])
             mi_mt = self._match_snapshot
             lr = self.learner
             match[lr] = np.where(mi_mt[1][lr] == term, mi_mt[0][lr], 0)

@@ -188,6 +188,17 @@ class SingleDeviceTransport(ResidentView):
         """Host copy of a device value."""
         return host_copy(x)
 
+    def record_chunk(self, ring, pre, state: ReplicaState, info,
+                     leader: int, term: int, ticks: int) -> None:
+        """The engine's chunk-granularity recording of a flight
+        (``obs.device.record_replicate_events`` over this transport's
+        comm), ``pre`` the ``obs.device.pre_of`` the engine took
+        before the launch."""
+        from raft_tpu_torch.obs.device import record_replicate_events
+
+        record_replicate_events(ring, self.comm, pre, state, info, leader,
+                                term, -1, repair=False, ticks=ticks)
+
     def gather_state(self, state: ReplicaState) -> dict:
         """The whole cluster's state as numpy leaves."""
         return state_to_numpy(state)

@@ -99,8 +99,8 @@ def visible_cards() -> List[torch.device]:
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if n == 0:
         raise RuntimeError(
-            "no CUDA device is available; the group mesh runs on the "
-            "visible cards unless mesh= or devices= names others")
+            "no CUDA device is available; a mesh runs on the visible "
+            "cards unless mesh= or devices= names others")
     return [torch.device("cuda", i) for i in range(n)]
 
 

@@ -1,6 +1,7 @@
 """Mesh transport: one replica row per rank of a ``torch.distributed``
 process group, or one lane slice of a row per rank on the 2-D mesh (port
-of ``raft_tpu/transport/tpu_mesh.py:61`` ``TpuMeshTransport``).
+of ``raft_tpu/transport/tpu_mesh.py:61`` ``TpuMeshTransport`` over
+several processes; its one-process mode is ``transport.replica_mesh``).
 
 Every rank constructs the transport and makes the same calls in the same
 order with the same arguments, as the JAX package's mirrored programs do
@@ -217,6 +218,48 @@ class MeshTransport:
             return shards
         sk = shards.shape[-1] // self.payload_shards
         return shards[..., self.pshard * sk:(self.pshard + 1) * sk]
+
+    def on_row(self, state: ReplicaState, row: int, fn) -> ReplicaState:
+        """A write to replica ``row``: ``fn(state, 0, lane_slice)`` on
+        the ranks that hold the row (each its own slice on the 2-D mesh);
+        the others return their state unchanged. No collective."""
+        i = self.local_row(row)
+        return state if i is None else fn(state, i, self.lane_slice)
+
+    def log_terms(self, state: ReplicaState, slots, row=None) -> np.ndarray:
+        """Host view of the term ring at ring ``slots`` (only those slots
+        leave the device): every row's ``[R, n]``, gathered from every
+        rank, or replica ``row``'s ``[n]``, broadcast from a rank that
+        holds it."""
+        sel = state.log_term.index_select(
+            1, torch.from_numpy(np.asarray(slots, np.int64)).to(
+                state.device))
+        if row is None:
+            return self.fetch_rows(sel)
+        return self.fetch_row(sel, row, 0)
+
+    def entry_words(self, state: ReplicaState, replica: int, lo: int,
+                    hi: int) -> np.ndarray:
+        """Replica ``replica``'s payload words of log indices [lo, hi] on
+        every rank, at full width (on the 2-D mesh stitched from the
+        row's slices): i32[hi-lo+1, W] on the host."""
+        slots = (torch.arange(lo, hi + 1, device=state.device,
+                              dtype=torch.int64) - 1) % state.capacity
+        # this rank's row [N, w] with its row axis; the holder's reaches all
+        mine = state.log_payload.index_select(0, slots)[:, None]
+        return self.fetch_row_lanes(mine, replica, 1)
+
+    def record_chunk(self, ring, pre, state: ReplicaState, info,
+                     leader: int, term: int, ticks: int) -> None:
+        """The engine's chunk-granularity recording of a flight
+        (``obs.device.record_replicate_events`` over this transport's
+        comm: the pre- and post-states are gathered, so every rank
+        records the same events), ``pre`` the ``obs.device.pre_of`` the
+        engine took before the launch."""
+        from raft_tpu_torch.obs.device import record_replicate_events
+
+        record_replicate_events(ring, self.comm, pre, state, info, leader,
+                                term, -1, repair=False, ticks=ticks)
 
     def gather_state(self, state: ReplicaState) -> dict:
         """The whole cluster's state as numpy leaves at full width

@@ -42,6 +42,10 @@ port goes:
 4. **Durability fences acks**: an entry is acknowledged once a checkpoint
    covering it is on disk.
 
+In one process ``"multihost"`` degrades as JAX's does to the flat local
+device list: ``one_process_transport``, the one-process mesh
+(``transport.replica_mesh``) over the first ``n_replicas * P`` devices.
+
 Placement (``replica_devices_across_hosts``) takes the JAX rules over any
 objects that carry ``process_index``. This port's mesh holds one lane
 slice of a row a rank: a world of ``rows * payload_shards`` ranks places
@@ -166,3 +170,21 @@ def multihost_transport(cfg: RaftConfig, device=None,
     # JAX's transport checks the placed devices: headroom rows are short
     check_mesh_size(cfg.rows, shards, len(placed))
     return MeshTransport(cfg, device=device, payload_shards=shards)
+
+
+def one_process_transport(cfg: RaftConfig, devices: Sequence,
+                          payload_shards: Optional[int] = None):
+    """``"multihost"`` in one process: JAX's degrade to the flat local
+    device list (``multihost.py:163-165``), the one-process
+    ``ReplicaMeshTransport`` over the first ``n_replicas *
+    payload_shards`` of ``devices`` (torch devices) that
+    ``replica_devices_across_hosts`` places."""
+    from raft_tpu_torch.transport.replica_mesh import (
+        ReplicaMesh,
+        ReplicaMeshTransport,
+    )
+
+    shards = cfg.payload_shards if payload_shards is None else payload_shards
+    placed = replica_devices_across_hosts(cfg.n_replicas, shards, devices)
+    return ReplicaMeshTransport(cfg, ReplicaMesh(placed),
+                                payload_shards=shards)

@@ -386,6 +386,11 @@ class _GatherFromWhole:
         slot = (max(int(self.vecs[2, self.leader]), 1) - 1) % C
         return self.log_term[:, slot].clone()
 
+    all_gather_plane = all_gather_host
+
+    def host_once(self, x):
+        return x.cpu()
+
 
 def test_mesh_turnover_is_decided_on_the_host(monkeypatch):
     """A turnover-eligible mesh flight (T·B >= C, feasible, every row
