@@ -86,7 +86,7 @@ Then the engine's tick loop (``raft_tpu_torch.raft.RaftEngine``):
     leader tick;
 5d. drives the engine with the host observability plane attached
     (``engine_obs_path``): the north star through ``RaftEngine`` at
-    ``fuse_k`` 1 and 8 (64 full leader ticks in bursts of 8 192, one
+    ``fuse_k`` 1 and 8 (48 full leader ticks in bursts of 8 192, one
     ``submit_pipelined`` ring, a failover, 4 096 more; every submit in a
     span of its own), each run detached, with spans, metrics, auditor,
     SLO and status board but no recorder or trace, and with the full
@@ -301,7 +301,7 @@ entries, batch 256, a 4096-slot ring each; ``bench.py``
     cross-shard ``swap_slots`` in place (data pointers kept, no graph
     recaptured) and the window alone in turns against the resident
     graphs; then ``MultiEngine`` + ``Router`` + ``ShardedKV`` at
-    ``fuse_k`` 32: 1 536 SETs a group through the sharded engine in waves
+    ``fuse_k`` 32: 1 280 SETs a group through the sharded engine in waves
     of 256, the first three taken in turns with the resident engine, a
     ``Router.rebalance`` migration mid-traffic, every group's apply
     stream and ring read-back against the input's SHA-256;
@@ -528,6 +528,14 @@ not a multi-card run), built through ``make_transport`` with
     C = 4 096 on the card against the CPU; prints ms a leader tick (host
     clock and CUDA events), collectives, device copies and host copies a
     tick, the idle share of 8 profiled ticks, beside 16's gloo figures;
+    then the fused window as CUDA graphs over the 3 blocks
+    (``MeshFusedGraphs``): each capture size's replay against the
+    uncaptured loop on every block's leaves and outputs, one launch
+    replayed against eager in turns, 5c's schedule at ``fuse_k`` 1, 8
+    and 32 equal to itself and to 5c's single-device runs (replays,
+    no recapture, captures as ``compile`` events, K1 by block adding up
+    to the counter), and the chaos schedule over 5 blocks at ``fuse_k``
+    8 on the card against the CPU;
 19. prints the kernel table, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -2224,7 +2232,18 @@ def fused_graph_vs_loop(cfg, dev, record=False):
     return out
 
 
-def fused_engine_run(cfg, dev, timed):
+def state_leaves(state):
+    """Every leaf of the whole cluster's state as host arrays: a
+    ``BlockState``'s blocks joined by its view (the single-device
+    layout's form), else ``host_leaves``."""
+    from raft_tpu_torch.core.state import BlockState
+
+    if isinstance(state, BlockState):
+        return state.to_numpy()
+    return host_leaves(state)
+
+
+def fused_engine_run(cfg, dev, timed, transport_of=None):
     """The fused phase's schedule through ``RaftEngine`` at ``cfg`` on
     ``dev``: an election; 65 536 entries in bursts of 8 192, each drained
     by ``run_for`` and read back (its last C entries when the ring is
@@ -2232,8 +2251,9 @@ def fused_engine_run(cfg, dev, timed):
     heartbeats; the leader failed, a re-election and 4 096 more. Bursts
     0-5 are timed on the host clock, burst 6 runs under a
     ``HostProfiler``, and with ``timed`` burst 7 under torch.profiler.
-    Returns what the K runs and the two devices are compared on, and what
-    is recorded."""
+    ``transport_of(cfg, dev)`` places the engine (default the
+    single-device transport). Returns what the K runs and the two devices
+    are compared on, and what is recorded."""
     import torch
 
     from raft_tpu_torch.obs import HostProfiler
@@ -2244,7 +2264,8 @@ def fused_engine_run(cfg, dev, timed):
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     B, C = cfg.batch_size, cfg.log_capacity
     hb = cfg.heartbeat_period
-    tr = SingleDeviceTransport(cfg, device=dev)
+    tr = (transport_of(cfg, dev) if transport_of is not None
+          else SingleDeviceTransport(cfg, device=dev))
     lines = []
     e = RaftEngine(cfg, tr, trace=lines.append)
     inp = EngineInput(cfg)
@@ -2384,12 +2405,15 @@ def fused_engine_run(cfg, dev, timed):
                          "capture_s_in_drain": capture_in_drain}
     keep = {"lines": lines, "commit_time": dict(e.commit_time),
             "terms": e.terms.tolist(), "roles": list(e.roles),
-            "state": host_leaves(e.state), "reads": reads}
+            "state": state_leaves(e.state), "reads": reads}
     return res, keep
 
 
 #: what two runs of one engine schedule are held equal on
 SAME_RUN = ("lines", "commit_time", "terms", "roles", "state", "reads")
+#: fuse_k -> (recorded, kept) of ``engine_fused_path``'s single-device
+#: runs, which ``replica_mesh_path`` holds its fused runs against
+FUSED_RUNS: dict = {}
 
 
 @phase
@@ -2417,6 +2441,7 @@ def phase_engine_fused_path(dev):
         runs[k], keeps[k] = fused_engine_run(
             fused_config(STEPS_PER_FLIGHT * 1024, k), dev, timed=True)
     res["launches"] = read_counters(dev)
+    FUSED_RUNS.update({k: (runs[k], keeps[k]) for k in runs})
     for k in FUSED_KS:
         same_kept(keeps[1], keeps[k], f"fuse_k={k} against fuse_k=1",
                   SAME_RUN)
@@ -2454,10 +2479,11 @@ def phase_engine_fused_path(dev):
 
 
 # ------------------------------------ 5c'. the engine with the obs plane
-#: ``engine_obs_path``'s schedule: 64 full leader ticks in bursts of 8 192
+#: ``engine_obs_path``'s schedule: 48 full leader ticks in bursts of 8 192
 #: drained by ``run_for``, one ``submit_pipelined`` ring, a failover and
-#: 4 096 more entries (``engine_main_path``'s deployment and schedule)
-OBS_PLAN = dict(bursts=8, burst=8192, after=4096)
+#: 4 096 more entries (``engine_main_path``'s deployment and schedule; a
+#: cut of its depth, PERF.md §4)
+OBS_PLAN = dict(bursts=6, burst=8192, after=4096)
 OBS_PROFILED_BURST = 2        # the burst run under torch.profiler
 OBS_SMALL_CAPACITY = 4096     # obs_card_equals_cpu's ring
 OBS_SCRAPE_PATHS = ("/status", "/metrics", "/slo", "/healthz")
@@ -6126,7 +6152,8 @@ MULTI_WAVES = (256, 2048, 256, 256)
 MULTI_B_WAVE = 64
 #: config B's waves: the first window is cut short by the election
 #: timers, the second captures, the last is profiled, the rest are timed
-MULTI_B_WAVES = 10
+#: (a cut of the depth, PERF.md §4)
+MULTI_B_WAVES = 6
 
 
 def multi_config(cfg, **over):
@@ -6774,9 +6801,9 @@ def phase_multi_card_equals_cpu(dev):
 #: each wave; the first GMESH_TURNS waves run on both engines in turns
 #: (the sharded engine first on even waves), the rest on the sharded one
 GMESH_WAVE = 256
-GMESH_WAVES = 6           # 1 536 a group through the sharded engine
+GMESH_WAVES = 5           # 1 280 a group through the sharded engine
 GMESH_TURNS = 3           # 768 a group through the resident one
-GMESH_REBALANCE_WAVE = 5  # the Router's migration comes inside this wave
+GMESH_REBALANCE_WAVE = 4  # the Router's migration comes inside this wave
 
 
 def same_sharded(t, sts, st, what):
@@ -9023,9 +9050,12 @@ class BlockLaunches:
     read around each call of the wrapper the mesh bodies call, its delta
     booked to the ``LockStep`` block that made the call (block k runs on
     the thread ``replica-mesh-block-k``, one block at a time, and a
-    wrapper call holds no collective). ``counts`` is what launched, so
-    its sum over the blocks must equal the counter's delta over the run
-    (``phase_replica_mesh_path`` checks it)."""
+    wrapper call holds no collective). A call made while its thread's
+    stream is capturing a CUDA graph launches nothing and is not booked;
+    a replay of the fused window's graphs (``MeshFusedGraphs.run``)
+    books its K1 launches by block (``k1_by_block``). ``counts`` is what
+    launched, so its sum over the blocks must equal the counter's delta
+    over the run (``phase_replica_mesh_path`` checks it)."""
 
     SITES = (("K1", "raft_tpu_torch.core.step", "write_window_both"),
              ("K2·mesh", "raft_tpu_torch.core.step_mesh", "steady_step"),
@@ -9045,24 +9075,350 @@ class BlockLaunches:
             inner = getattr(mod, fn_name)
 
             def counted(*a, _inner=inner, _key=key, **kw):
+                import torch
+
                 before = mesh_engine_counters(None)[_key]
                 try:
                     return _inner(*a, **kw)
                 finally:
                     ran = mesh_engine_counters(None)[_key] - before
                     name = threading.current_thread().name
-                    if ran and name.startswith("replica-mesh-block-"):
-                        g = int(name.rsplit("-", 1)[1])
-                        self.counts[_key][g] = \
-                            self.counts[_key].get(g, 0) + ran
+                    if (ran and name.startswith("replica-mesh-block-")
+                            and not (torch.cuda.is_available() and torch.cuda
+                                     .is_current_stream_capturing())):
+                        self.book(_key, int(name.rsplit("-", 1)[1]), ran)
 
             setattr(mod, fn_name, counted)
             self.saved.append((mod, fn_name, inner))
+        from raft_tpu_torch.core import graphs
+
+        run = graphs.MeshFusedGraphs.run
+
+        def replayed(fg, *a, **kw):
+            before = list(fg.k1_by_block)
+            try:
+                return run(fg, *a, **kw)
+            finally:
+                for g, (b, n) in enumerate(zip(before, fg.k1_by_block)):
+                    if n - b:
+                        self.book("K1", g, n - b)
+
+        graphs.MeshFusedGraphs.run = replayed
+        self.saved.append((graphs.MeshFusedGraphs, "run", run))
         return self
+
+    def book(self, key, g, n):
+        self.counts[key][g] = self.counts[key].get(g, 0) + n
 
     def __exit__(self, *exc):
         for mod, fn_name, inner in self.saved:
             setattr(mod, fn_name, inner)
+
+
+#: the launch sizes the fused graph set is held against its uncaptured
+#: loop at, and the replay-vs-eager pairs timed at each of FUSED_KS
+MESH_GRAPH_KS = (2, 4, 8, 16, 32)
+MESH_GRAPH_PAIRS = 3
+#: the launch size the recorded mode (``ring=``) is held at
+MESH_GRAPH_RECORDED_K = 8
+
+
+def mesh_blocks(st, t):
+    """A single-device ``ReplicaState`` of R rows split into the
+    one-process mesh's blocks (row g and its lane block on block g's
+    device): a ``BlockState`` over ``t``."""
+    from raft_tpu_torch.core.state import FIELDS, BlockState, ReplicaState
+
+    W = st.log_payload.shape[1] // st.term.shape[0]
+    blocks = []
+    for g, d in enumerate(t.devices):
+        leaves = {f: getattr(st, f)[g:g + 1].to(d).clone()
+                  for f in FIELDS if f != "log_payload"}
+        leaves["log_payload"] = st.log_payload[:, g * W:(g + 1) * W].to(
+            d).contiguous().clone()
+        blocks.append(ReplicaState(**leaves))
+    return BlockState.of(blocks, t)
+
+
+def mesh_fused_loop(t, st, staging, start, counts, n_run, halted0, leader,
+                    term, alive, slow, floor, fpt, ring=None):
+    """The one-process mesh's fused launch uncaptured: ``fused_steady_scan``
+    on every block of ``t`` in lock step, what ``MeshFusedGraphs``
+    captures. Returns every block's (state, infos, escaped, ran,
+    halted)."""
+    from raft_tpu_torch.core.step import fused_steady_scan
+
+    rings = t._rings(ring)
+
+    def body(g):
+        rec = {} if ring is None else {"ring": rings[g], "record": True}
+        return fused_steady_scan(
+            t.comms[g], t.cfg.commit_quorum, st.block(g),
+            staging.to(t.devices[g]), start, counts, n_run, halted0,
+            leader, term, alive, slow, floor_prev_term=fpt,
+            repair_floor=floor, **rec)[:5]
+    return t.lockstep.run(body)
+
+
+def mesh_block_outputs(block_out):
+    """One block's (state, infos, escaped, ran, halted) on the host."""
+    st, infos, esc, ran, halted = block_out
+    out = host_leaves(st)
+    for f in infos._fields:
+        out[f"info.{f}"] = getattr(infos, f).cpu().numpy().copy()
+    out["escaped"] = esc.cpu().numpy().copy()
+    out["ran"] = ran.cpu().numpy().copy()
+    out["halted"] = np.array(bool(halted))
+    return out
+
+
+def mesh_graph_vs_loop(dev, Ks=MESH_GRAPH_KS, pairs=MESH_GRAPH_PAIRS):
+    """``ReplicaMeshTransport.replicate_fused`` on 3 blocks of ``dev`` (one
+    replay of ``MeshFusedGraphs``) against the uncaptured loop on every
+    block (``mesh_fused_loop``), at the north star's shape with a window
+    crossing the ring seam, for each K of ``Ks``: a full window, ``n_run``
+    < K, an escape at the first tick (a quorum lost), ``halted0`` set, and
+    the escape's device ``halted`` fed to the next launch; at
+    ``MESH_GRAPH_RECORDED_K`` also recorded, each side into an event ring
+    of its own. Every block's leaves (the replay's static leaves against
+    the loop's) and every block's outputs (the graph's per-block packed
+    outputs, read right after the replay) must be equal. Then, at each K
+    of FUSED_KS, ``pairs`` launches of the same window replayed and run
+    eagerly in turns (host clock, synchronized, and CUDA events)."""
+    import torch
+
+    from raft_tpu_torch.core import graphs
+    from raft_tpu_torch.obs.device import init_ring
+
+    cfg = dataclasses.replace(fused_config(STEPS_PER_FLIGHT * 1024, 1),
+                              transport="tpu_mesh")
+    t = replica_transport(cfg, dev)
+    check(t.replays_graphs, "replica mesh: 3 blocks of one card replay no "
+                            "graphs")
+    rng = np.random.default_rng(SEED + 160)
+    B, C, W, R = (cfg.batch_size, cfg.log_capacity, cfg.shard_words,
+                  cfg.rows)
+    last = C - 3 * B + 5
+    base = mesh_blocks(steady_state(cfg, dev, last, rng=rng), t)
+    gst, lst = base.clone(), base.clone()
+    full = np.ones(R, bool)
+    lone = np.array([True] + [False] * (R - 1))
+    slow = np.zeros(R, bool)
+    floor, fpt = last - C + 1, 1
+    cases = []
+
+    def reset(st):
+        from raft_tpu_torch.core.state import FIELDS
+
+        for f in FIELDS:
+            for a, b in zip(getattr(st, f), getattr(base, f)):
+                a.copy_(b)
+
+    def launch(staging, start, counts, n_run, h_g, h_l, alive, rings=None):
+        g = t.replicate_fused(gst, staging, start, counts, n_run, h_g, 0, 1,
+                              alive, slow, repair_floor=floor,
+                              floor_prev_term=fpt,
+                              ring=rings[0] if rings else None)
+        K = len(counts)
+        S = staging.shape[0]
+        key = ("none", B, W, S, rings is not None)
+        outs = [o.clone() for o in t.graphs.sets[key].graphs[K].outs]
+        lo = mesh_fused_loop(t, lst, staging, start, counts, n_run, h_l, 0,
+                             1, alive, slow, floor, fpt,
+                             ring=rings[1] if rings else None)
+        return g, outs, lo
+
+    def same(g, outs, lo, K, what):
+        for b in range(R):
+            got = mesh_block_outputs(
+                (g[0].block(b),) + graphs.unpack_outputs(outs[b], K, R))
+            same_outputs(got, mesh_block_outputs(lo[b]),
+                         f"replica mesh graph vs loop, {what}, block {b}")
+
+    stagings = {}
+    for K in Ks:
+        S = 2 * K
+        staging = stagings[K] = torch.from_numpy(rng.integers(
+            -2**31, 2**31, (S, B, W), dtype=np.int64).astype(np.int32)).to(
+                dev)
+        fullc = np.full(K, B, np.int32)
+        rings = ([init_ring(4096, dev), init_ring(4096, dev)]
+                 if K == MESH_GRAPH_RECORDED_K else None)
+        for name, n_run, h0, alive in (("full", K, False, full),
+                                       ("partial_n_run", max(1, K // 2),
+                                        False, full),
+                                       ("halted0", K, True, full),
+                                       ("escape", K, False, lone)):
+            for rec in ((None, rings) if rings else (None,)):
+                reset(gst)
+                reset(lst)
+                g, outs, lo = launch(staging, S - 3, fullc, n_run, h0, h0,
+                                     alive, rec)
+                what = f"K={K} {name}{' recorded' if rec else ''}"
+                same(g, outs, lo, K, what)
+                if rec:
+                    for a, b in zip(rec[0].tensors(), rec[1].tensors()):
+                        check(torch.equal(a, b), f"replica mesh {what}: the "
+                                                 "event rings differ")
+                ran = int(lo[0][3].sum())
+                if name == "escape":
+                    # the next launch reads the escape's halted on the card
+                    check(bool(lo[0][4]) and bool(g[4]),
+                          f"replica mesh {what}: no escape")
+                    g2, outs2, lo2 = launch(staging, 1, fullc, K, g[4],
+                                            lo[0][4], full, rec)
+                    same(g2, outs2, lo2, K, f"{what}, then halted on the card")
+                    check(int(lo2[0][3].sum()) == 0,
+                          f"replica mesh {what}: ran after an escape")
+                cases.append({"K": K, "case": name, "recorded": bool(rec),
+                              "ran": ran, "equal": True})
+    sets = t.graphs.sets
+    per_k = {K: sum(K in gs.graphs for gs in sets.values()) for K in Ks}
+    check(all(per_k.values()) and t.graphs.recaptures == 0,
+          f"replica mesh graph vs loop: captures {per_k}, recaptures "
+          f"{t.graphs.recaptures}")
+    # one launch replayed against run eagerly, in turns on one window
+    timing = {}
+    for K in FUSED_KS:
+        staging = stagings[K]        # the set captured above: no capture
+        fullc = np.full(K, B, np.int32)
+        walls = {"replay": [], "eager": []}
+        events = {"replay": [], "eager": []}
+        for i in range(2 * pairs):
+            side = "replay" if i % 2 == 0 else "eager"
+            st = gst if side == "replay" else lst
+            reset(st)
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            if side == "replay":
+                t.replicate_fused(st, staging, 0, fullc, K, False, 0, 1, full,
+                                  slow, repair_floor=floor,
+                                  floor_prev_term=fpt)
+            else:
+                mesh_fused_loop(t, st, staging, 0, fullc, K, False, 0, 1,
+                                full, slow, floor, fpt)
+            ev[1].record()
+            torch.cuda.synchronize()
+            walls[side].append((time.perf_counter() - t0) * 1e3)
+            events[side].append(ev[0].elapsed_time(ev[1]))
+        timing[str(K)] = {
+            "pairs": pairs,
+            "replay_ms_median": float(np.median(walls["replay"])),
+            "eager_ms_median": float(np.median(walls["eager"])),
+            "replay_ms": walls["replay"], "eager_ms": walls["eager"],
+            "replay_events_ms_median": float(np.median(events["replay"])),
+            "eager_events_ms_median": float(np.median(events["eager"])),
+            "speedup": float(np.median(walls["eager"])
+                             / np.median(walls["replay"]))}
+    torch.cuda.synchronize()
+    fg = t.graphs
+    return {"cases": cases, "captures": fg.captures,
+            "capture_s": fg.capture_s, "replays": fg.replays,
+            "recaptures": fg.recaptures, "k1_by_block": fg.k1_by_block,
+            "one_launch": timing,
+            "method": "host clock around one launch, synchronized at both "
+                      "ends, and CUDA events; the replay and the eager loop "
+                      "in turns on the same window, reset before each"}
+
+
+def mesh_fused_runs(dev):
+    """``engine_fused_path``'s schedule (``fused_engine_run``) through one
+    engine over 3 blocks of ``dev`` at ``fuse_k`` 1, 8 and 32: the K > 1
+    runs equal to K = 1's and every run equal to the single-device
+    engine's at its K (``FUSED_RUNS``, run here when that phase did not
+    run) in nodelog lines, commit stamps, terms, roles, every leaf of the
+    cluster and read-backs, with fused launches served by replays and no
+    recapture, each capture a ``compile`` event of ``tpu_mesh.fused``,
+    and the per-block K1 launches adding up to the counter."""
+    from raft_tpu_torch.obs.compile import CompileWatch
+
+    runs, keeps, single = {}, {}, {}
+    for k in (1,) + FUSED_KS:
+        cfg = dataclasses.replace(fused_config(STEPS_PER_FLIGHT * 1024, k),
+                                  transport="tpu_mesh")
+        zero_ec_counters(dev)
+        with CompileWatch() as watch, BlockLaunches() as per_block:
+            runs[k], keeps[k] = fused_engine_run(
+                cfg, dev, timed=True, transport_of=replica_transport)
+        launches = mesh_engine_counters(dev)
+        got = [per_block.counts["K1"].get(g, 0) for g in range(cfg.rows)]
+        check(sum(got) == launches["K1"] and (k == 1 or all(got)),
+              f"replica mesh fuse_k={k}: K1 by block {got}, counter "
+              f"{launches['K1']}")
+        compiles = len(watch.events(program="tpu_mesh.fused",
+                                    event="compile"))
+        captured = (runs[k].get("graphs") or {}).get("captured", 0)
+        check(compiles == captured,
+              f"replica mesh fuse_k={k}: {compiles} compile events for "
+              f"{captured} captures")
+        runs[k].update(k1_by_block=got, compile_events=compiles,
+                       launches=launches)
+        if k not in FUSED_RUNS:
+            FUSED_RUNS[k] = fused_engine_run(fused_config(
+                STEPS_PER_FLIGHT * 1024, k), dev, timed=True)
+        single[k] = FUSED_RUNS[k][0]
+        same_kept(FUSED_RUNS[k][1], keeps[k],
+                  f"replica mesh fuse_k={k} against the single device",
+                  SAME_RUN)
+        check(runs[k]["sha256_apply_stream"]
+              == single[k]["sha256_apply_stream"],
+              f"replica mesh fuse_k={k}: the apply stream differs")
+    graphed = replica_cards(dev) == 1     # blocks on several cards: eager
+    for k in FUSED_KS:
+        same_kept(keeps[1], keeps[k], f"replica mesh fuse_k={k} against "
+                                      "fuse_k=1", SAME_RUN)
+        g = runs[k].get("graphs")
+        check(runs[k]["fused_launches"] > 0 and (
+            g["replays"] > 0 and g["recaptures"] == 0
+            and g["k1_launches"] > 0 if graphed else g is None),
+              f"replica mesh fuse_k={k}: {runs[k]['fused_launches']} fused "
+              f"launches, graphs {g}")
+    check(runs[1]["fused_launches"] == 0, "replica mesh fuse_k=1 fused")
+    out = {}
+    for k in (1,) + FUSED_KS:
+        r, s1 = runs[k], single[k]
+        out[str(k)] = {
+            "drain": r["drain"], "single_device_drain": s1["drain"],
+            "profiled_burst": r.get("profiled_burst"),
+            "single_device_profiled_burst": s1.get("profiled_burst"),
+            "fused_windows": r["fused_windows"],
+            "fused_launches": r["fused_launches"],
+            "fused_ticks": r["fused_ticks"],
+            "leader_ticks": r["leader_ticks"], "graphs": r.get("graphs"),
+            "single_device_graphs": s1.get("graphs"),
+            "k1_by_block": r["k1_by_block"],
+            "compile_events": r["compile_events"],
+            "launches": r["launches"], "read_backs": r["read_backs"],
+            "sha256_apply_stream": r["sha256_apply_stream"]}
+    return out
+
+
+def mesh_chaos_run(where):
+    """``tests/test_chaos.py:266``'s chaos schedule over the one-process
+    mesh (``MESH_CHAOS``, 5 blocks, ``tests/_torch_faults.py``) at
+    ``fuse_k`` 8 on ``where``: its outcome (nodelog lines, leaders by
+    term, watermark, snapshots, committed payloads), every leaf of the
+    cluster, and the fused launches and graph replays."""
+    from raft_tpu_torch.config import RaftConfig
+    from raft_tpu_torch.core.state import committed_payloads
+    from raft_tpu_torch.obs import FlightRecorder
+    from raft_tpu_torch.raft import RaftEngine
+
+    F = fault_schedules()
+    cfg = RaftConfig(**F.MESH_CHAOS, fuse_k=8, transport="tpu_mesh")
+    t = replica_transport(cfg, where)
+    e = RaftEngine(cfg, t, recorder=FlightRecorder())
+    out = F.mesh_chaos(e, lambda e, r: [bytes(p) for p in
+                                        committed_payloads(e.state, r)])
+    g = t.graphs
+    return {"outcome": out, "state": state_leaves(e.state),
+            "commit_time": dict(e.commit_time),
+            "fused_launches": e.fused_launches,
+            "replays": None if g is None else g.replays,
+            "captures": None if g is None else g.captures,
+            "recaptures": None if g is None else g.recaptures}
 
 
 @phase
@@ -9079,8 +9435,12 @@ def phase_replica_mesh_path(dev):
     ms a leader tick (host clock and CUDA events), the collectives,
     device copies and host copies a tick, the idle share of 8 profiled
     ticks, beside ``engine_mesh_path``'s gloo figures when that phase ran
-    before. On a machine of several cards the blocks spread over them
-    (``replica_transport``)."""
+    before. Then the fused window (``fused`` in the output):
+    ``mesh_graph_vs_loop``, ``mesh_fused_runs`` against
+    ``engine_fused_path``'s runs (run here when that phase did not), and
+    ``mesh_chaos_run`` on the card against the CPU. On a machine of
+    several cards the blocks spread over them (``replica_transport``)
+    and the fused window runs eagerly: the graph parts need one card."""
     import tempfile
 
     import torch
@@ -9158,8 +9518,41 @@ def phase_replica_mesh_path(dev):
     for k in ("lines_sha256", "entries", "decoding_read", "healed", "rows"):
         check_same(ec_runs["cuda"][k], ec_runs["cpu"][k],
                    f"replica mesh RS(5,3) card vs cpu: {k}")
-    gloo = PHASE_OUT.get("engine_mesh_path") or {}
     cards = replica_cards(dev)
+    # the fused window as CUDA graphs: the graph set against its loop,
+    # the fused engine at fuse_k 1, 8, 32 against itself and the single
+    # device, and the chaos schedule at fuse_k 8 on the card against the
+    # CPU
+    t0 = time.perf_counter()
+    graph_vs_loop = mesh_graph_vs_loop(dev) if cards == 1 else None
+    walls["graph_vs_loop"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fused = mesh_fused_runs(dev)
+    walls["fused_runs"] = time.perf_counter() - t0
+    fused_launches = {k: sum(r["launches"][k] for r in fused.values())
+                      for k in launches}
+    chaos = {}
+    for where in (dev, torch.device("cpu")):
+        zero_ec_counters(dev)
+        t0 = time.perf_counter()
+        chaos[where.type] = mesh_chaos_run(where)
+        walls[f"chaos_{where.type}"] = time.perf_counter() - t0
+        if where.type == "cuda":
+            chaos_launches = mesh_engine_counters(dev)
+    card_c, cpu_c = chaos["cuda"], chaos["cpu"]
+    for k in ("outcome", "state", "commit_time", "fused_launches"):
+        check_same(card_c[k], cpu_c[k],
+                   f"replica mesh chaos at fuse_k 8, card vs cpu: {k}")
+    check(card_c["fused_launches"] > 0 and (
+        card_c["replays"] > 0 if cards == 1 else card_c["replays"] is None),
+          f"replica mesh chaos: {card_c['fused_launches']} fused launches, "
+          f"{card_c['replays']} replays")
+    for d in sorted({str(d) for d in replica_transport(cfg, dev).devices}):
+        w = step_cuda.workspace(d)
+        words = w[[step_cuda.WK_MM, step_cuda.WK_TICKET]].tolist()
+        check(words == [0, 0], f"replica mesh: {d}'s WK_MM, WK_TICKET = "
+                               f"{words} after the fused runs")
+    gloo = PHASE_OUT.get("engine_mesh_path") or {}
     out = {"phase": "replica_mesh_path", "blocks": cfg.rows,
            "backend": ("one process, 3 blocks of one card, the "
                        "collectives device copies (not a multi-card "
@@ -9194,7 +9587,21 @@ def phase_replica_mesh_path(dev):
                                "ec_entries": ec_runs["cuda"]["entries"],
                                "card_wall_s": walls["cuda"],
                                "cpu_wall_s": walls["cpu"]},
+           "fused": {"card": card_query(),
+                     "graph_vs_loop": graph_vs_loop, "engine": fused,
+                     "chaos_card_equals_cpu": {
+                         "fuse_k": 8, "blocks": len(card_c["state"]["term"]),
+                         "watermark": card_c["outcome"]["watermark"],
+                         "lines": len(card_c["outcome"]["lines"]),
+                         "terms": len(card_c["outcome"]["leaders_by_term"]),
+                         "fused_launches": card_c["fused_launches"],
+                         "replays": card_c["replays"],
+                         "captures": card_c["captures"],
+                         "recaptures": card_c["recaptures"],
+                         "launches": chaos_launches},
+                     "walls_s": walls},
            "launches": {k: launches[k] + small_launches[k]
+                        + fused_launches[k] + chaos_launches[k]
                         for k in launches},
            "run_wall_s": run_wall,
            "phase_wall_s": time.perf_counter() - t_phase}
@@ -9894,6 +10301,9 @@ def phase_engine_tiered_path(dev, laps=TIER_LAPS):
 DEV_OBS_CAPACITY = 4096
 DEV_OBS_LAP_CAPACITY = 64
 DEV_OBS_PROFILED_BURST = 2
+#: the device ring's schedule: ``engine_obs_path``'s at its full depth (64
+#: full leader ticks), so the capacity-64 ring laps
+DEV_OBS_PLAN = dict(bursts=8, burst=8192, after=4096)
 
 
 def host_twin_lines(lines):
@@ -9938,7 +10348,7 @@ def dev_obs_schedule(e, inp, plan, read_back, drain=None, what="run"):
     return reads
 
 
-def dev_obs_engine_run(cfg, dev, capacity, plan=OBS_PLAN, profile=False,
+def dev_obs_engine_run(cfg, dev, capacity, plan=DEV_OBS_PLAN, profile=False,
                        defer_flush=False):
     """``dev_obs_schedule`` (``engine_obs_path``'s schedule) with the
     device plane attached at ``capacity`` (None: detached), a trace and a
@@ -13158,6 +13568,7 @@ ONLY_PHASES = {"kernels": lambda dev: phase_kernels(ns_config(), dev),
                "engine_mesh2d_path": phase_engine_mesh2d_path,
                "engine_mesh2d_ec_path": phase_engine_mesh2d_ec_path,
                "mesh2d_card_equals_cpu": phase_mesh2d_card_equals_cpu,
+               "engine_multi_fused_path": phase_engine_multi_fused_path,
                "group_mesh_path": phase_group_mesh_path,
                "group_mesh_card_equals_cpu":
                phase_group_mesh_card_equals_cpu,

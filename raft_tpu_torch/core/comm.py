@@ -274,7 +274,16 @@ class LockStep:
     blocks before it have run on past the collective. So an operand must
     not be changed in place until the next collective: the bodies pass
     fresh tensors or leaves they replace functionally. A read checks
-    each operand's version counter and raises if it moved."""
+    each operand's version counter and raises if it moved.
+
+    ``run(fn, stream=)`` runs every block's body with ``stream`` current
+    on its thread (PyTorch's current stream is per thread): the one
+    stream a CUDA graph captures, or its warm-up's side stream. All
+    blocks then enqueue on one stream, in the lock step's order, so
+    stream order is the collectives' order. ``run(fn, tally=)`` books
+    ``tally()``'s growth to the block that held the turn while it grew
+    (``tallies``): a launch counter read so counts each block's
+    launches."""
 
     _shared: dict = {}
 
@@ -299,6 +308,10 @@ class LockStep:
         self._error = None
         self._aborted = False
         self._calls = threading.Lock()
+        self._stream = None
+        self._tally = None
+        self._mark = 0
+        self.tallies = [0] * self.n
 
     def _start(self) -> None:
         self._threads = [threading.Thread(target=self._worker, args=(k,),
@@ -308,12 +321,17 @@ class LockStep:
         for t in self._threads:
             t.start()
 
-    def run(self, fn) -> list:
+    def run(self, fn, stream=None, tally=None) -> list:
         """``fn(k)`` on every block k in lock step; returns the results in
-        block order, or raises the first block's error."""
+        block order, or raises the first block's error. ``stream`` is made
+        current on every block's thread for the call; ``tally`` is booked
+        by block into ``tallies`` (class doc)."""
         with self._calls, self._cv:
             if self._threads is None:
                 self._start()
+            self._stream = stream
+            self._tally = tally
+            self.tallies = [0] * self.n
             self._seq = [0] * self.n
             self._slots = {}
             self._error = None
@@ -326,6 +344,7 @@ class LockStep:
             while any(self._active):
                 self._cv.wait()
             self._tasks = [None] * self.n
+            self._stream = self._tally = None
             error, self._error = self._error, None
             results, self._results = self._results, [None] * self.n
             if error is not None:
@@ -342,10 +361,16 @@ class LockStep:
                         or not self._active[k]:
                     self._cv.wait()
                 fn = self._tasks[k]
+                stream = self._stream
+                self._took()
             try:
                 if self._aborted:
                     raise _Aborted()
-                out = fn(k)
+                if stream is None:
+                    out = fn(k)
+                else:
+                    with torch.cuda.stream(stream):
+                        out = fn(k)
             except BaseException as e:      # handed to the caller
                 with self._cv:
                     if self._error is None and not isinstance(e, _Aborted):
@@ -366,8 +391,16 @@ class LockStep:
         self._tasks[k] = None
         self._pass(k)
 
+    def _took(self) -> None:
+        """A block takes the turn (lock held): mark the tally."""
+        if self._tally is not None:
+            self._mark = self._tally()
+
     def _pass(self, k: int) -> None:
-        """The turn to the next active block after k (lock held)."""
+        """The turn to the next active block after k, which held it (lock
+        held); k's tally grows by what grew while it held the turn."""
+        if self._tally is not None:
+            self.tallies[k] += self._tally() - self._mark
         for j in range(1, self.n + 1):
             nxt = (k + j) % self.n
             if self._active[nxt]:
@@ -397,6 +430,7 @@ class LockStep:
                 self._cv.wait()
             if self._aborted:
                 raise _Aborted()
+            self._took()
             if slot["ops"] != [op] * self.n:
                 self._aborted = True
                 raise RuntimeError(

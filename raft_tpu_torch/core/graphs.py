@@ -63,8 +63,9 @@ replay.
   tensors, which would capture every graph anew (JAX's process-wide
   program cache compiles nothing anew). Instead the dead engine's
   transport releases its rings, its staging buffer and its
-  :class:`FusedGraphs` (``SingleDeviceTransport.release``), and the next
-  transport of the same shape on the same device claims them in
+  :class:`FusedGraphs` (``SingleDeviceTransport.release``; a mesh's
+  :class:`MeshFusedGraphs`, ``ReplicaMeshTransport.release``), and the
+  next transport of the same shape on the same device(s) claims them in
   ``init()``: it zeroes the rings and hands them to the engine, the
   engine's staging ring takes the staging buffer back
   (:meth:`GraphPool.staging_for`), so every graph set still holds what
@@ -73,6 +74,13 @@ replay.
   replays the graphs, as JAX's process-wide cache serves a second run.
   Only a released transport's set is lent: two live engines never share
   one.
+
+:class:`MeshFusedGraphs` does the same for the one-process mesh
+(``transport.ReplicaMeshTransport`` with every block on one card), in
+the part of the JAX transport's jitted ``shard_map`` program
+(``tpu_mesh.fused``): one graph per launch size over all the blocks,
+captured with the blocks' bodies on their ``LockStep`` threads, its
+graph sets pooled the same way (``ReplicaMeshTransport.release``).
 
 :class:`FusedGroupGraphs` does the same for the multi-Raft fused window
 (``core.step.fused_group_scan``, G groups × K ticks, one K5 launch a
@@ -94,7 +102,7 @@ import torch
 
 from raft_tpu_torch.core import ring_cuda
 from raft_tpu_torch.core.comm import SingleDeviceComm
-from raft_tpu_torch.core.state import ReplicaState
+from raft_tpu_torch.core.state import BlockState, ReplicaState
 from raft_tpu_torch.core.step import RepInfo, fused_steady_scan
 from raft_tpu_torch.obs import compile as obs_compile
 
@@ -124,6 +132,73 @@ def member_kind(member) -> str:
     return "bool" if is_bool else "packed"
 
 
+def launch_size(K: int, R: int, kind: str) -> int:
+    """Length of the packed int32 inputs of one fused launch of K ticks
+    over R rows with member mode ``kind``."""
+    return len(HEAD) + K + (2 + (kind != "none")) * R
+
+
+def pack_launch(K: int, R: int, start_slot, n_run, halted_mode: int,
+                leader, leader_term, repair_floor, floor_prev_term, counts,
+                alive, slow, member) -> np.ndarray:
+    """The per-launch inputs of one fused launch as ONE int32 host array:
+    the ``HEAD`` scalars (``halted_mode`` 0 / 1, or
+    :data:`HALTED_ON_DEVICE`), counts[K], alive[R], slow[R] and, with a
+    member mode, member[R]. Host values; a tensor is read back."""
+    host = np.zeros(launch_size(K, R, member_kind(member)), np.int32)
+    scalars = dict(start_slot=start_slot, n_run=n_run, leader=leader,
+                   leader_term=leader_term, repair_floor=repair_floor,
+                   floor_prev_term=floor_prev_term)
+    for name, v in scalars.items():
+        host[_H[name]] = _host(v)
+    host[_H["halted"]] = halted_mode
+    base = len(HEAD)
+    for v, n in ((counts, K), (alive, R), (slow, R), (member, R)):
+        if v is not None:
+            host[base:base + n] = _host(v).reshape(-1)
+            base += n
+    return host
+
+
+def _launch_args(inp: torch.Tensor, K: int, R: int, kind: str) -> dict:
+    """:func:`pack_launch`'s inputs read from the device buffer ``inp``
+    as ``fused_steady_scan`` takes them (views, and the masks compared
+    against 0); ``mode`` is the halted input."""
+    head = inp[:len(HEAD)]
+    planes = inp[len(HEAD) + K:].reshape(-1, R)
+    member = None
+    if kind == "bool":
+        member = planes[2] != 0
+    elif kind == "packed":
+        member = planes[2]
+    out = {name: head[i] for i, name in enumerate(HEAD)}
+    out.update(mode=head[_H["halted"]], counts=inp[len(HEAD):len(HEAD) + K],
+               alive=planes[0] != 0, slow=planes[1] != 0, member=member)
+    return out
+
+
+def _pack_outputs(infos: RepInfo, esc: torch.Tensor, ran: torch.Tensor,
+                  halted: torch.Tensor) -> torch.Tensor:
+    """A launch's outputs as one int32 tensor: commit_index,
+    frontier_len, max_term, repair_start, escaped, ran (each [K]),
+    halted, match [K, R]."""
+    return torch.cat([
+        infos.commit_index, infos.frontier_len, infos.max_term,
+        infos.repair_start, esc, ran, halted.to(torch.int32).reshape(1),
+        infos.match.reshape(-1)])
+
+
+def unpack_outputs(snap: torch.Tensor, K: int, R: int) -> tuple:
+    """``(infos, escaped, ran, halted)`` as views of one launch's packed
+    outputs ``snap`` (:func:`_pack_outputs`); ``halted`` a 0-d bool view
+    of the flag's low byte."""
+    ci, fl, mt, rs, esc, ran = (snap[i * K:(i + 1) * K] for i in range(6))
+    halted = snap.view(torch.uint8)[4 * 6 * K].view(torch.bool)
+    infos = RepInfo(commit_index=ci, match=snap[6 * K + 1:].reshape(K, R),
+                    max_term=mt, repair_start=rs, frontier_len=fl)
+    return infos, esc, ran, halted
+
+
 class _Graph:
     """One captured launch size: the graph, its packed input buffer on
     the card, the pinned upload ring, its packed output, and the kernel
@@ -138,7 +213,9 @@ class _Graph:
         self.events = [None] * PINNED
         self.next = 0
         self.out: Optional[torch.Tensor] = None
+        self.outs: List[torch.Tensor] = []     # the mesh's: every block's
         self.launches = 0
+        self.by_block: List[int] = []          # the mesh's K1 a block
 
     def upload(self, host: np.ndarray) -> None:
         """One asynchronous copy of the packed inputs, from a pinned
@@ -184,6 +261,10 @@ class _GraphSet:
         return ReplicaState(**self.small, log_term=self.log_term,
                             log_payload=self.log_payload)
 
+    def ring_tensors(self) -> tuple:
+        """The state rings the set's graphs write in place."""
+        return (self.log_term, self.log_payload)
+
 
 class FusedGraphs:
     """CUDA graphs of ``fused_steady_scan`` for one transport's cluster
@@ -218,36 +299,23 @@ class FusedGraphs:
         """The captured region: the K-tick loop over the static state,
         its final small leaves and halted flag written back in place, and
         the outputs packed into one int32 tensor."""
-        R = self.rows
-        head = inp[:len(HEAD)]
-        counts = inp[len(HEAD):len(HEAD) + K]
-        planes = inp[len(HEAD) + K:].reshape(-1, R)
-        member = None
-        if kind == "bool":
-            member = planes[2] != 0
-        elif kind == "packed":
-            member = planes[2]
-        mode = head[_H["halted"]]
-        halted0 = torch.where(mode == HALTED_ON_DEVICE, gs.halted, mode == 1)
+        a = _launch_args(inp, K, self.rows, kind)
+        halted0 = torch.where(a["mode"] == HALTED_ON_DEVICE, gs.halted,
+                              a["mode"] == 1)
         rec = {} if gs.ring is None else {"ring": gs.ring, "record": True}
         st, infos, esc, ran, halted = fused_steady_scan(
             self.comm, self.commit_quorum, gs.state(), gs.staging,
-            head[_H["start_slot"]], counts, head[_H["n_run"]], halted0,
-            head[_H["leader"]], head[_H["leader_term"]], planes[0] != 0,
-            planes[1] != 0, head[_H["floor_prev_term"]],
-            head[_H["repair_floor"]], member, **rec)[:5]
+            a["start_slot"], a["counts"], a["n_run"], halted0, a["leader"],
+            a["leader_term"], a["alive"], a["slow"], a["floor_prev_term"],
+            a["repair_floor"], a["member"], **rec)[:5]
         for f in SMALL:
             gs.small[f].copy_(getattr(st, f))
         gs.halted.copy_(halted)
-        return torch.cat([
-            infos.commit_index, infos.frontier_len, infos.max_term,
-            infos.repair_start, esc, ran,
-            halted.to(torch.int32).reshape(1), infos.match.reshape(-1)])
+        return _pack_outputs(infos, esc, ran, halted)
 
     def _capture(self, gs: _GraphSet, K: int, kind: str) -> _Graph:
         t0 = time.perf_counter()
-        planes = 2 + (kind != "none")
-        g = _Graph(K, len(HEAD) + K + planes * self.rows, self.device)
+        g = _Graph(K, launch_size(K, self.rows, kind), self.device)
         # warm-up: every tick the masked no-op, so the state passes
         # through bit for bit (and the kernels' library loads here). It
         # leaves the shared halted flag set, which a launch of another
@@ -289,51 +357,298 @@ class FusedGraphs:
         g = gs.graphs.get(K)
         if g is None:
             g = gs.graphs[K] = self._capture(gs, K, kind)
-        R = self.rows
-        host = np.zeros(g.inp.shape[0], np.int32)
-        scalars = dict(start_slot=start_slot, n_run=n_run, leader=leader,
-                       leader_term=leader_term, repair_floor=repair_floor,
-                       floor_prev_term=floor_prev_term)
-        for name, v in scalars.items():
-            host[_H[name]] = _host(v)
         if isinstance(halted0, torch.Tensor) and halted0.is_cuda:
             if halted0 is not gs.last_halted:
                 gs.halted.copy_(halted0.reshape(()))
-            host[_H["halted"]] = HALTED_ON_DEVICE
+            mode = HALTED_ON_DEVICE
         else:
-            host[_H["halted"]] = int(bool(_host(halted0)))
-        base = len(HEAD)
-        for v, n in ((counts, K), (alive, R), (slow, R), (member, R)):
-            if v is not None:
-                host[base:base + n] = _host(v).reshape(-1)
-                base += n
-        g.upload(host)
+            mode = int(bool(_host(halted0)))
+        g.upload(pack_launch(K, self.rows, start_slot, n_run, mode, leader,
+                             leader_term, repair_floor, floor_prev_term,
+                             counts, alive, slow, member))
         g.graph.replay()
         ring_cuda.LAUNCHES["write_window_both"] += g.launches
         self.k1_launches += g.launches
         self.replays += 1
-        snap = g.out.clone()
-        views = [snap[i * K:(i + 1) * K] for i in range(6)]
-        ci, fl, mt, rs, esc, ran = views
-        halted = snap.view(torch.uint8)[4 * 6 * K].view(torch.bool)
+        infos, esc, ran, halted = unpack_outputs(g.out.clone(), K, self.rows)
         gs.last_halted = halted
-        infos = RepInfo(commit_index=ci, match=snap[6 * K + 1:].reshape(K, R),
-                        max_term=mt, repair_start=rs, frontier_len=fl)
         out = (gs.state(), infos, esc, ran, halted)
+        return out if ring is None else out + (ring,)
+
+
+class _MeshGraphSet:
+    """The graphs of one member mode and staging shape over the blocks'
+    rings of one mesh and one staging buffer: every block's static small
+    leaves and device halted flag, and, recorded, static copies of the
+    engine's event ring for blocks 1…n−1 (block 0 records into the
+    engine's own)."""
+
+    def __init__(self, state: BlockState, staging: torch.Tensor,
+                 ring=None):
+        n = len(state.term)
+        self.log_term = tuple(state.log_term)
+        self.log_payload = tuple(state.log_payload)
+        self.staging = staging
+        self.ring = ring
+        self.ring_copies = []
+        if ring is not None:
+            from raft_tpu_torch.obs.device import EventRing
+
+            self.ring_copies = [EventRing(*(
+                torch.empty_like(t, device=self.log_term[g].device)
+                for t in ring.tensors())) for g in range(1, n)]
+        self.small = [{f: torch.empty_like(getattr(state, f)[g])
+                       for f in SMALL} for g in range(n)]
+        self.halted = [torch.zeros((), dtype=torch.bool, device=t.device)
+                       for t in self.log_term]
+        self.last_halted: Optional[torch.Tensor] = None
+        self.graphs: Dict[int, _Graph] = {}
+
+    def ring_tensors(self) -> tuple:
+        """Every block's term ring, then every block's payload ring."""
+        return self.log_term + self.log_payload
+
+    def holds(self, state: BlockState, staging: torch.Tensor,
+              ring) -> bool:
+        return (all(a is b for a, b in zip(
+                    self.ring_tensors(),
+                    tuple(state.log_term) + tuple(state.log_payload)))
+                and len(state.term) == len(self.log_term)
+                and staging is self.staging
+                and (ring is None) == (self.ring is None)
+                and (ring is None or all(
+                    a is b for a, b in zip(ring.tensors(),
+                                           self.ring.tensors()))))
+
+    def block(self, g: int) -> ReplicaState:
+        return ReplicaState(**self.small[g], log_term=self.log_term[g],
+                            log_payload=self.log_payload[g])
+
+    def state(self, view) -> BlockState:
+        return BlockState.of([self.block(g)
+                              for g in range(len(self.small))], view)
+
+    def rings(self) -> list:
+        """The ring each block records into (None unrecorded)."""
+        if self.ring is None:
+            return [None] * len(self.small)
+        return [self.ring] + self.ring_copies
+
+
+class MeshFusedGraphs:
+    """CUDA graphs of the one-process mesh's fused window
+    (``transport.ReplicaMeshTransport.replicate_fused`` with every block
+    on one card): ``fused_steady_scan`` on every block, captured as ONE
+    graph per launch size over all the blocks. The counterpart of the JAX
+    transport's jitted ``shard_map`` program (``tpu_mesh.fused``,
+    ``raft_tpu/transport/tpu_mesh.py:428`` ``_fused_scan_program``), with
+    :class:`FusedGraphs`' rules:
+
+    - one graph per (member mode, K, B, W, S, recorded) and ring
+      identity: every block's two rings, the staging buffer and the
+      engine's event ring; one of another identity drops the set and
+      captures anew (``recaptures``);
+    - the capture runs the blocks' bodies on their ``LockStep`` threads
+      with the capture stream current on each (``LockStep.run(stream=)``,
+      capture error mode ``"thread_local"``), so every block's ops and
+      the collectives' device copies (``BlockComm``) land on one stream
+      in the lock step's order, and the blocks' allocations in the
+      graph's pool;
+    - static copies of every block's six small leaves, the blocks' rings
+      written in place, one packed per-launch input
+      (:func:`pack_launch`) read by every block, one device halted flag
+      a block, and one stream-ordered clone of block 0's packed outputs
+      a replay (every block returns the same replicated values);
+    - recorded, block 0 records into the engine's event ring and blocks
+      1…n−1 into static copies of it, which the graph refreshes from
+      block 0's ring before the blocks run;
+    - the warm-up runs every tick as the masked no-op, then puts the
+      halted flags and the event ring back;
+    - K1's launch count is restored after capture; each replay adds the
+      graph's K1 launches, and by block to ``k1_by_block`` (the capture's
+      ``LockStep`` tally).
+
+    ``captures``, ``replays``, ``recaptures``, ``k1_launches`` and
+    ``capture_s`` count what it did."""
+
+    def __init__(self, transport):
+        self.rows = transport.cfg.rows
+        self.commit_quorum = transport.cfg.commit_quorum
+        self.device = torch.device(transport.devices[0])
+        self.pool = None
+        self.sets: Dict[Tuple, _MeshGraphSet] = {}
+        self.captures = 0
+        self.replays = 0
+        self.recaptures = 0
+        self.k1_launches = 0
+        self.capture_s = 0.0
+        self.bind(transport)
+        self.k1_by_block = [0] * len(self.comms)
+
+    def bind(self, transport) -> None:
+        """Capture with ``transport``'s lock step and comms (a transport
+        that claims a released set from :data:`POOL`)."""
+        self.lockstep = transport.lockstep
+        self.comms = transport.comms
+        self.payload_shards = transport.payload_shards
+        self.words = transport.words
+
+    def buffers(self) -> dict:
+        """The tensors the graph sets hold (the memory plane's host
+        walk): per set every block's static leaves and halted flag, the
+        event ring's static copies, per graph its packed input, every
+        block's outputs and the pinned upload buffers."""
+        return {repr(key): {
+            "small": gs.small, "halted": gs.halted,
+            "ring_copies": [r.tensors() for r in gs.ring_copies],
+            "graphs": {K: {"inp": g.inp, "outs": g.outs, "pinned": g.pinned}
+                       for K, g in gs.graphs.items()},
+        } for key, gs in self.sets.items()}
+
+    def _body(self, gs: _MeshGraphSet, inp: torch.Tensor, K: int,
+              kind: str) -> list:
+        """The captured region: the event ring's copies refreshed, then on
+        every block in lock step the K-tick loop over its static state,
+        its final small leaves and halted flag written back in place;
+        returns every block's packed outputs (:func:`_pack_outputs`)."""
+        a = _launch_args(inp, K, self.rows, kind)
+        rings = gs.rings()
+        for copy in gs.ring_copies:
+            for dst, src in zip(copy.tensors(), gs.ring.tensors()):
+                dst.copy_(src)
+        P, w = self.payload_shards, self.words
+
+        def block(g):
+            stg = gs.staging
+            if stg.shape[-1] != w:             # JAX: P(None, None, pshard)
+                p = g % P
+                stg = stg[..., p * w:(p + 1) * w]
+            halted0 = torch.where(a["mode"] == HALTED_ON_DEVICE,
+                                  gs.halted[g], a["mode"] == 1)
+            rec = {} if rings[g] is None else {"ring": rings[g],
+                                               "record": True}
+            st, infos, esc, ran, halted = fused_steady_scan(
+                self.comms[g], self.commit_quorum, gs.block(g),
+                stg.contiguous(), a["start_slot"], a["counts"], a["n_run"],
+                halted0, a["leader"], a["leader_term"], a["alive"],
+                a["slow"], a["floor_prev_term"], a["repair_floor"],
+                a["member"], **rec)[:5]
+            for f in SMALL:
+                gs.small[g][f].copy_(getattr(st, f))
+            gs.halted[g].copy_(halted)
+            return _pack_outputs(infos, esc, ran, halted)
+
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+        return self.lockstep.run(
+            block, stream=stream,
+            tally=lambda: ring_cuda.LAUNCHES["write_window_both"])
+
+    def _capture(self, gs: _MeshGraphSet, K: int, kind: str) -> _Graph:
+        t0 = time.perf_counter()
+        g = _Graph(K, launch_size(K, self.rows, kind), self.device)
+        g.inp[_H["halted"]] = 1            # the warm-up: the masked no-op
+        flags = [h.clone() for h in gs.halted]
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        outs: list = []
+
+        def body():
+            outs[:] = self._body(gs, g.inp, K, kind)
+            return outs[0]
+
+        def after_warm():
+            for h, f in zip(gs.halted, flags):
+                h.copy_(f)
+
+        _capture(g, self.pool, self.device, gs.ring, body, after_warm,
+                 "write_window_both", mode="thread_local")
+        g.outs = list(outs)
+        g.by_block = list(self.lockstep.tallies)
+        if sum(g.by_block) != g.launches:
+            raise RuntimeError(
+                f"the mesh capture booked K1 launches {g.by_block} by block "
+                f"against {g.launches} captured")
+        self.captures += 1
+        dt = time.perf_counter() - t0
+        self.capture_s += dt
+        obs_compile.emit("compile", dt)
+        return g
+
+    def prepare(self, state: BlockState, staging: torch.Tensor, K: int,
+                member, ring=None) -> _MeshGraphSet:
+        """The graph set a launch replays (a new one, counted in
+        ``recaptures``, when a ring or the staging buffer changed
+        identity), with the caller's small leaves copied into its static
+        ones."""
+        S, B, W = staging.shape
+        key = (member_kind(member), B, W, S, ring is not None)
+        gs = self.sets.get(key)
+        if gs is None or not gs.holds(state, staging, ring):
+            if gs is not None:
+                self.recaptures += 1
+            gs = self.sets[key] = _MeshGraphSet(state, staging, ring)
+        for g, small in enumerate(gs.small):
+            for f in SMALL:
+                src = getattr(state, f)[g]
+                if src is not small[f]:
+                    small[f].copy_(src)
+        return gs
+
+    def halted_mode(self, gs: _MeshGraphSet, halted0) -> int:
+        """The packed ``halted`` input: a device flag (the one the last
+        replay returned, or another copied into every block's flag) reads
+        as :data:`HALTED_ON_DEVICE`, a host value as 0 / 1."""
+        if isinstance(halted0, torch.Tensor) and halted0.is_cuda:
+            if halted0 is not gs.last_halted:
+                for h in gs.halted:
+                    h.copy_(halted0.reshape(()))
+            return HALTED_ON_DEVICE
+        return int(bool(_host(halted0)))
+
+    def run(self, view, state: BlockState, staging: torch.Tensor,
+            start_slot, counts, n_run, halted0, leader, leader_term, alive,
+            slow, member, repair_floor, floor_prev_term, ring=None):
+        """One fused launch over every block by one replay:
+        ``fused_steady_scan``'s results ``(state, infos, escaped, ran,
+        halted[, ring])``, the state a ``BlockState`` of the static
+        leaves with ``view`` as its view, the outputs block 0's."""
+        K = int(counts.shape[0])
+        gs = self.prepare(state, staging, K, member, ring)
+        g = gs.graphs.get(K)
+        if g is None:
+            g = gs.graphs[K] = self._capture(gs, K, member_kind(member))
+        mode = self.halted_mode(gs, halted0)
+        g.upload(pack_launch(K, self.rows, start_slot, n_run, mode, leader,
+                             leader_term, repair_floor, floor_prev_term,
+                             counts, alive, slow, member))
+        g.graph.replay()
+        ring_cuda.LAUNCHES["write_window_both"] += g.launches
+        self.k1_launches += g.launches
+        for b, n in enumerate(g.by_block):
+            self.k1_by_block[b] += n
+        self.replays += 1
+        infos, esc, ran, halted = unpack_outputs(g.out.clone(), K, self.rows)
+        gs.last_halted = halted
+        out = (gs.state(view), infos, esc, ran, halted)
         return out if ring is None else out + (ring,)
 
 
 class _Lent:
     """What a transport holds that the pool may lend on: the rings its
-    ``init()`` handed out, its staging buffer (None when no graph read
-    one) and its :class:`FusedGraphs` (None when it never fused on the
-    card), keyed by device, rows, commit quorum and ring shapes."""
+    ``init()`` handed out (the term rings, then the payload rings: one of
+    each on one device, one a block on the mesh), its staging buffer
+    (None when no graph read one) and its :class:`FusedGraphs` or
+    :class:`MeshFusedGraphs` (None when it never fused on the card),
+    keyed by where it lives (a device, or the mesh's device tuple), rows,
+    commit quorum and ring shapes. ``payload`` is the first payload ring,
+    which names the entry to the engine's staging ring."""
 
-    def __init__(self, key: tuple, rings: Tuple[torch.Tensor, torch.Tensor],
-                 staging: Optional[torch.Tensor] = None,
-                 graphs: Optional[FusedGraphs] = None):
+    def __init__(self, key: tuple, rings: Tuple[torch.Tensor, ...],
+                 staging: Optional[torch.Tensor] = None, graphs=None):
         self.key = key
         self.rings = rings
+        self.payload = rings[len(rings) // 2]
         self.staging = staging
         self.graphs = graphs
 
@@ -364,14 +679,19 @@ class GraphPool:
         self.lent = 0
 
     @staticmethod
-    def hold(device, rows: int, commit_quorum,
-             rings: Tuple[torch.Tensor, torch.Tensor],
-             graphs: Optional[FusedGraphs]) -> _Lent:
-        """What a transport holds that it may lend; it sets ``.graphs``
-        on it when it builds them."""
-        return _Lent((torch.device(device), rows, commit_quorum,
-                      tuple(rings[0].shape), tuple(rings[1].shape)),
-                     rings, graphs=graphs)
+    def _key(where, rows: int, commit_quorum, shapes) -> tuple:
+        return (where, rows, commit_quorum,
+                tuple(tuple(sh) for sh in shapes))
+
+    @classmethod
+    def hold(cls, where, rows: int, commit_quorum,
+             rings: Tuple[torch.Tensor, ...], graphs) -> _Lent:
+        """What a transport holds that it may lend (``where``: its device,
+        or its mesh's device tuple; ``rings``: the term rings, then the
+        payload rings); it sets ``.graphs`` on it when it builds them."""
+        return _Lent(cls._key(where, rows, commit_quorum,
+                              [t.shape for t in rings]),
+                     tuple(rings), graphs=graphs)
 
     def release(self, owner, held: _Lent) -> None:
         """``owner``'s engine is dead: put what it holds in the free
@@ -388,21 +708,22 @@ class GraphPool:
             staging = claim.staging
         for k in [k for k, gs in sets.items()
                   if gs.staging is not staging
-                  or gs.log_payload is not held.rings[1]]:
+                  or not all(a is b for a, b in zip(gs.ring_tensors(),
+                                                    held.rings))]:
             del sets[k]
         self.free.append(_Lent(held.key, held.rings, staging, graphs))
         del self.free[:-self.MAX_FREE]
 
-    def claim(self, owner, device, rows: int, commit_quorum,
-              log_term_shape, log_payload_shape) -> Optional[_Lent]:
-        """The free entry of this shape for ``owner``'s ``init()``, its
-        rings zeroed, or None: of several, the one with the most graphs
+    def claim(self, owner, where, rows: int, commit_quorum,
+              shapes) -> Optional[_Lent]:
+        """The free entry of this shape for ``owner``'s ``init()``
+        (``shapes``: its rings' shapes, in ``hold``'s order), its rings
+        zeroed, or None: of several, the one with the most graphs
         captured, then the newest. The entry leaves the free list:
         nothing else may claim it until ``owner`` lends it in turn."""
         if not self.enabled:
             return None
-        key = (torch.device(device), rows, commit_quorum,
-               tuple(log_term_shape), tuple(log_payload_shape))
+        key = self._key(where, rows, commit_quorum, shapes)
         fits = [(lent.n_graphs(), i) for i, lent in enumerate(self.free)
                 if lent.key == key]
         if not fits:
@@ -415,13 +736,16 @@ class GraphPool:
         self.lent += 1
         return lent
 
-    def staging_for(self, log_payload: torch.Tensor,
+    def staging_for(self, log_payload,
                     shape) -> Optional[torch.Tensor]:
         """The claimed staging buffer of the entry whose payload ring is
-        ``log_payload`` (the engine's), zeroed, if its shape is
-        ``shape``; else None (the caller allocates)."""
+        ``log_payload`` (the engine's; on the mesh a ``Blocks``, matched
+        by block 0's), zeroed, if its shape is ``shape``; else None (the
+        caller allocates)."""
+        if isinstance(log_payload, tuple):
+            log_payload = log_payload[0]
         for owner, lent in list(self.claimed.items()):
-            if (lent.rings[1] is log_payload
+            if (lent.payload is log_payload
                     and tuple(lent.staging.shape) == tuple(shape)):
                 buf, lent.staging = lent.staging, None
                 del self.claimed[owner]
@@ -447,7 +771,8 @@ class GraphPool:
         self.lent = 0
 
 
-#: the process-wide pool the single-device transports lend through
+#: the process-wide pool the single-device and one-process mesh
+#: transports lend through
 POOL = GraphPool()
 
 
@@ -461,7 +786,7 @@ def _set_buffers(sets: dict) -> dict:
 
 
 def _capture(g: _Graph, pool, device, ring, body, after_warm,
-             counter: str) -> None:
+             counter: str, mode: str = "global") -> None:
     """Warm up and capture ``body`` into ``g``. The warm-up runs ``body``
     once eagerly on a side stream (the caller has set its inputs to the
     masked no-op); a recorded ring's four tensors are saved before it and
@@ -471,7 +796,9 @@ def _capture(g: _Graph, pool, device, ring, body, after_warm,
     without its full gc.collect() (tens of ms under an engine's host
     state) and empty_cache(). Capture launches nothing, so the kernel
     count ``ring_cuda.LAUNCHES[counter]`` is restored after it and the
-    launches the graph holds are kept in ``g.launches``."""
+    launches the graph holds are kept in ``g.launches``. ``mode`` is the
+    capture's error mode: the one-process mesh's blocks enqueue from
+    threads of their own, which ``"thread_local"`` allows."""
     saved = ring.save() if ring is not None else None
     cur = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
@@ -485,7 +812,7 @@ def _capture(g: _Graph, pool, device, ring, body, after_warm,
     before = ring_cuda.LAUNCHES[counter]
     side.wait_stream(cur)
     with torch.cuda.stream(side):
-        g.graph.capture_begin(pool=pool)
+        g.graph.capture_begin(pool=pool, capture_error_mode=mode)
         try:
             g.out = body()
         finally:

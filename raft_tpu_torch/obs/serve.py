@@ -293,15 +293,17 @@ def serve_demo(
     duration_s: Optional[float] = None,
     out=None,
     device=None,
+    stop=None,
 ) -> dict:
     """``python -m raft_tpu_torch.obs --serve``: boot a demo
     ``MultiEngine`` with the full online plane attached (registry, SLO
     tracker with a commit objective, safety auditor, status board, the
     compile watch with its retrace sentinel, the memory watch), drive
     synthetic traffic, and serve the ops endpoints until ``duration_s``
-    wall seconds elapse (or forever, until Ctrl-C, when ``None``). The
-    engine runs on the card unless ``device="cpu"`` is passed. Returns a
-    small result dict (the smoke test's hook)."""
+    wall seconds elapse (or forever, until Ctrl-C, when ``None``), or
+    until ``stop`` (a ``threading.Event``) is set; the traffic loop runs
+    at least once. The engine runs on the card unless ``device="cpu"`` is
+    passed. Returns a small result dict (the smoke test's hook)."""
     import time as _time
 
     from raft_tpu_torch.config import RaftConfig
@@ -352,7 +354,7 @@ def serve_demo(
     t0 = _time.monotonic()
     submitted = 0
     try:
-        while duration_s is None or _time.monotonic() - t0 < duration_s:
+        while True:
             for g in range(groups):
                 if eng.leader_id[g] is None:
                     continue
@@ -368,6 +370,10 @@ def serve_demo(
                 # sentinel armed
                 watch.sentinel.freeze()
             memory.census()
+            if (stop is not None and stop.is_set()) or (
+                    duration_s is not None
+                    and _time.monotonic() - t0 >= duration_s):
+                break
             _time.sleep(0.02)        # pace the virtual cluster for wall
     except KeyboardInterrupt:
         pass

@@ -44,15 +44,21 @@ inside the captured graph. With the device plane attached
 the engine's event ring inside the graph (``replicate_fused(ring=)``),
 and the booking flushes the ring once per launch boundary.
 
-Over the mesh (``transport.MeshTransport``) every rank's mirrored engine
-plans and books the same windows from its identical host state, and
-``replicate_fused`` runs the K-tick loop eagerly over the comm, never as
-a captured graph (its collectives are gloo host calls). The JAX
+Over the gloo mesh (``transport.MeshTransport``) every rank's mirrored
+engine plans and books the same windows from its identical host state,
+and ``replicate_fused`` runs the K-tick loop eagerly over the comm, never
+as a captured graph (its collectives are gloo host calls). The JAX
 ``FusedDriver`` refuses fusion when ``jax.process_count() > 1``; the
-port's mesh is R (or R x P) processes by construction, the counterpart
-of the JAX package's one-process mesh, which fuses, so the port fuses
-there too. The staging ring keeps full-width words; on the 2-D mesh the
-transport hands the scan each rank's slice of them.
+port's gloo mesh is R (or R x P) processes by construction, the
+counterpart of the JAX package's one-process mesh, which fuses, so the
+port fuses there too. Over the one-process mesh
+(``transport.ReplicaMeshTransport``) one engine plans and books, and a
+launch with every block on one card is one replay of a CUDA graph over
+all the blocks (``core.graphs.MeshFusedGraphs``); with blocks on several
+cards, and on the CPU, the blocks run the loop eagerly. The windows and
+their booking are the same on every transport. The staging ring keeps
+full-width words; on the 2-D mesh the transport hands the scan each
+block's (or rank's) slice of them.
 """
 
 from __future__ import annotations

@@ -161,8 +161,8 @@ class SingleDeviceTransport(ResidentView):
         cfg = self.cfg
         lent = POOL.claim(
             self, self.device, cfg.rows, cfg.commit_quorum,
-            (cfg.rows, cfg.log_capacity),
-            (cfg.log_capacity, cfg.rows * cfg.shard_words))
+            ((cfg.rows, cfg.log_capacity),
+             (cfg.log_capacity, cfg.rows * cfg.shard_words)))
         if lent is not None:
             self.graphs = lent.graphs
         state = init_state(cfg, device=self.device,

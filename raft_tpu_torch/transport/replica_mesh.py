@@ -42,7 +42,20 @@ What differs from the JAX transport is the mechanism, not the result:
   ``fetch_row_lanes``, ``log_terms``) make at most one device-to-host
   copy a device; ``gather_window`` (the EC decode's donor block) and the
   writes (``place_rows``, ``on_row``) stay on the devices.
-- Nothing is captured into a CUDA graph; the fused window runs eagerly.
+- The fused window (``replicate_fused``), JAX's jitted ``tpu_mesh.fused``
+  program (``tpu_mesh.py:428``): with every block on one card
+  (``replays_graphs``) a launch is one replay of a CUDA graph over all
+  the blocks, one graph per launch size (``core.graphs.MeshFusedGraphs``:
+  captured with the blocks' bodies on their lock-step threads and the
+  capture stream current on each, so the collectives' copies are nodes
+  of the graph). On the CPU, and with blocks on several cards, the
+  blocks run the K ticks eagerly in lock step: a decided mode, never a
+  fallback (a capture or replay that fails raises).
+- ``release()`` lends the rings, staging buffer and graph set of a dead
+  engine to the next transport of the same shape on the same devices
+  (``core.graphs.POOL``), which replays the graphs instead of capturing
+  them anew, as JAX's process-wide program cache (``tpu_mesh.py:50-58``)
+  serves a second ``TpuMeshTransport``.
 
 Several cards: ``ReplicaMesh(["cuda:0", "cuda:1", ...])`` puts the
 blocks on separate cards and the collectives copy between them (peer to
@@ -128,8 +141,18 @@ class ReplicaMeshTransport:
         self.comms = [BlockComm(self.lockstep, g, cfg.rows, P)
                       for g in range(need)]
         self._member_mode = cfg.max_replicas is not None
-        self._words = cfg.shard_words // P
+        self.words = cfg.shard_words // P
         #   the lanes W/P of a block's payload row
+        self.replays_graphs = (self.device.type == "cuda" and all(
+            d == self.device for d in self.devices))
+        #   whether replicate_fused replays CUDA graphs: every block on one
+        #   card; on the CPU, and with blocks on several cards, it runs
+        #   the K ticks eagerly (module doc)
+        self.graphs = None
+        #   core.graphs.MeshFusedGraphs, built at the first fused launch
+        #   (or taken over from a released transport by init())
+        self._held = None
+        #   what the pool may lend on (core.graphs.POOL)
         self.fetches = 0
         self.fetch_s = 0.0
         self.host_copies = 0
@@ -139,10 +162,41 @@ class ReplicaMeshTransport:
 
     # ------------------------------------------------------------ placement
     def init(self) -> BlockState:
-        """A fresh cluster: every block zeroed on its device."""
-        return BlockState.of(
-            [init_state(self.cfg, rows=1, device=d, words=self._words)
-             for d in self.devices], self)
+        """A fresh cluster: every block zeroed on its device. A released
+        transport's rings of this shape on these devices are reused
+        (zeroed), with its graphs."""
+        from raft_tpu_torch.core.graphs import POOL
+
+        cfg, n = self.cfg, len(self.devices)
+        where = tuple(self.devices)
+        shapes = ([(1, cfg.log_capacity)] * n
+                  + [(cfg.log_capacity, self.words)] * n)
+        lent = POOL.claim(self, where, cfg.rows, cfg.commit_quorum, shapes)
+        if lent is not None and lent.graphs is not None:
+            self.graphs = lent.graphs
+            self.graphs.bind(self)
+        state = BlockState.of(
+            [init_state(cfg, rows=1, device=d, words=self.words,
+                        rings=None if lent is None
+                        else (lent.rings[g], lent.rings[n + g]))
+             for g, d in enumerate(self.devices)], self)
+        self._held = POOL.hold(where, cfg.rows, cfg.commit_quorum,
+                               tuple(state.log_term)
+                               + tuple(state.log_payload), self.graphs)
+        return state
+
+    def release(self) -> None:
+        """The engine on this transport is dead: lend its rings, staging
+        buffer and graphs to the next transport of this shape on these
+        devices (``core.graphs.POOL``), as JAX's process-wide program
+        cache serves a second ``TpuMeshTransport``. The transport must
+        not be used again."""
+        from raft_tpu_torch.core.graphs import POOL
+
+        if self._held is not None:
+            POOL.release(self, self._held)
+        self.graphs = None
+        self._held = None
 
     def _lanes(self, payload, g: int) -> torch.Tensor:
         """Block ``g``'s lane block of a payload on its device: a
@@ -153,7 +207,7 @@ class ReplicaMeshTransport:
         if isinstance(payload, Blocks):
             return payload[g].to(dev).contiguous()
         payload = torch.as_tensor(payload)
-        w = self._words
+        w = self.words
         if payload.shape[-1] == w:
             return payload.to(dev).contiguous()
         if payload.shape[-1] != self.cfg.rows * self.cfg.shard_words:
@@ -268,9 +322,25 @@ class ReplicaMeshTransport:
         every block: ``staging`` [S, B, W] holds untiled words, every
         block's lane block on a full-copy cluster (on the 2-D mesh each
         block takes its slice). Returns ``(state, infos, escaped, ran,
-        halted[, ring])``. Eager: never captured into a CUDA graph."""
-        P, w = self.payload_shards, self._words
+        halted[, ring])``; the passed state is consumed. With every block
+        on one card (``replays_graphs``) the call is one replay of a CUDA
+        graph over all the blocks (``core.graphs.MeshFusedGraphs``);
+        otherwise the blocks run the loop eagerly in lock step."""
+        P, w = self.payload_shards, self.words
         staging = torch.as_tensor(staging)
+        if self.replays_graphs:
+            if member is None and self._member_mode:
+                member = np.ones(self.cfg.rows, bool)
+            if self.graphs is None:
+                from raft_tpu_torch.core.graphs import MeshFusedGraphs
+
+                self.graphs = MeshFusedGraphs(self)
+                if self._held is not None:
+                    self._held.graphs = self.graphs
+            return self.graphs.run(
+                self, state, staging, start_slot, counts, n_run, halted0,
+                leader, leader_term, alive, slow, member, repair_floor,
+                floor_prev_term, ring=ring)
         member = self._member(member)
 
         def body(g, comm, blk, ring_g):

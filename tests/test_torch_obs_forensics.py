@@ -226,6 +226,23 @@ def test_obs_stack_refuses_unported_planes(kw, item):
     assert not stack.compile.installed
 
 
+def settled(memory, take):
+    """``take()`` (a baseline or a drift: a census of the process) again
+    until two censuses in a row count the same bytes, and its last
+    result. The growth a bundle reports is the difference of two
+    censuses of the whole process, so each waits for the census it reads
+    to be still (in a worker that ran other files first, a collection's
+    finalizers or an array's deferred deletion may be under way)."""
+    out = take()
+    for _ in range(100):
+        before = memory.last.total_bytes
+        out = take()
+        if memory.last.total_bytes == before:
+            break
+        time.sleep(0.02)
+    return out
+
+
 def bundle_with_retrace_and_growth(pkg, tmp_path):
     """JAX's case through ``pkg``: a post-freeze retrace on
     ``single.fused`` and a held ``float32[99,3]`` buffer, then a bundle."""
@@ -252,9 +269,9 @@ def bundle_with_retrace_and_growth(pkg, tmp_path):
         obs.compile.sentinel.freeze()
         probe(b)                                   # post-freeze retrace
         assert obs.compile.sentinel.violations
-        obs.memory.set_baseline()
+        settled(obs.memory, obs.memory.set_baseline)
         leak = zeros()                             # census growth
-        obs.memory.final_drift = obs.memory.drift()
+        obs.memory.final_drift = settled(obs.memory, obs.memory.drift)
         assert obs.memory.final_drift
         path = fmod.write_bundle(
             str(tmp_path / pkg), kind="torture", seed=1,

@@ -221,31 +221,39 @@ def test_profile_endpoint_refuses_naming_a16b(tmp_path):
 def test_serve_demo_serves_the_lifted_demo(capsys):
     """The lifted demo: ``serve_demo(device="cpu")`` boots the
     ``MultiEngine`` with both watches and serves while it drives traffic,
-    and ``python -m raft_tpu_torch.obs --serve`` runs it. The queries wait
-    for the demo's first launch: on a loaded machine the serving thread
-    may not have driven a window within any fixed sleep."""
+    and ``python -m raft_tpu_torch.obs --serve`` runs it. The demo serves
+    until the test stops it (``stop=``), and the queries wait for the
+    demo's first commit (``raft_commits_total`` on ``/metrics``): on a
+    loaded machine the serving thread may not have driven a window, nor
+    the server stayed up, within any fixed wall-clock window."""
     import io
     import threading
 
-    out, box = io.StringIO(), {}
+    from raft_tpu_torch.obs.registry import parse_prometheus
+
+    out, box, stop = io.StringIO(), {}, threading.Event()
     th = threading.Thread(target=lambda: box.update(r=serve_demo(
-        port=0, groups=2, duration_s=1.5, out=out, device="cpu")))
+        port=0, groups=2, out=out, device="cpu", stop=stop)))
     th.start()
-    t0 = time.monotonic()
-    while "127.0.0.1:" not in out.getvalue():
-        assert time.monotonic() - t0 < 60
-        time.sleep(0.02)
-    port = int(out.getvalue().split("127.0.0.1:")[1].split(" ")[0])
-    while True:
-        st, body = _get(port, "/compile")
-        launched = st == 200 and json.loads(body)["programs"].get(
-            "group.replicate", {}).get("launches", 0) > 0
-        if launched or not th.is_alive():
-            break
-        assert time.monotonic() - t0 < 60
-        time.sleep(0.02)
-    answers = {p: _get(port, p) for p in ("/compile", "/memory", "/status")}
-    th.join(60)
+    try:
+        t0 = time.monotonic()
+        while "127.0.0.1:" not in out.getvalue():
+            assert th.is_alive() and time.monotonic() - t0 < 300
+            time.sleep(0.02)
+        port = int(out.getvalue().split("127.0.0.1:")[1].split(" ")[0])
+        while True:
+            st, text = _get(port, "/metrics", timeout=300)
+            commits = parse_prometheus(text).get("raft_commits_total", {})
+            if st == 200 and sum(commits.values()) > 0:
+                break
+            assert th.is_alive() and time.monotonic() - t0 < 300
+            time.sleep(0.02)
+        answers = {p: _get(port, p, timeout=300)
+                   for p in ("/compile", "/memory", "/status")}
+    finally:
+        stop.set()
+        th.join(300)
+    assert not th.is_alive()
     for path, (st, body) in answers.items():
         assert st == 200, path
     comp = json.loads(answers["/compile"][1])

@@ -9,7 +9,9 @@ The schedules are tests/_mesh_ranks.py's ``SCENARIOS``, the JAX
 package's mesh-engine cases (tests/test_engine_mesh.py: submit and read
 back, failover, slow-follower heal, lapped rejoin, RS(5,3) on 5 blocks,
 RS(4,2) on 4 x 2, grow and shrink; the restart with its vote log and
-checkpoint; fuse_k 8 against 1; the recorded event ring). At every
+checkpoint; fuse_k 8 against 1; the recorded event ring; the chaos
+schedule of tests/test_chaos.py and the slow-follower windows of
+tests/test_differential_faults.py). At every
 scenario's end the nodelog lines, terms, roles, watermark, leader, the
 whole state, the committed bytes and the scenario's own reads equal the
 JAX engine's, and every block's leaves equal its part of the JAX state
@@ -48,6 +50,7 @@ from raft_tpu_torch.transport import (
 from tests import _mesh_ranks as mr
 from tests import test_torch_engine_mesh as em
 from tests import test_torch_mesh2d as m2
+from tests._torch_faults import MESH_CHAOS, check_chaos_invariants, mesh_chaos
 
 assert_same = em.assert_same
 
@@ -91,6 +94,19 @@ def mesh_make(P: int = 1):
         None if P == 1 else dict(payload_shards=P))
 
 
+#: scenario -> (observations, engine) of its run on the CPU blocks, kept
+#: for the cases that compare a second run of the port against it
+_BLOCK_RUNS: dict = {}
+
+
+def block_run(name, tmp_path_factory, P: int = 1):
+    if name not in _BLOCK_RUNS:
+        _BLOCK_RUNS[name] = mr.run_scenario(
+            name, mesh_make(P), StateOps(),
+            str(tmp_path_factory.mktemp("blocks")))
+    return _BLOCK_RUNS[name]
+
+
 def check(name, tmp_path_factory, P: int = 1) -> dict:
     """The scenario on one engine over the CPU blocks, held against the
     JAX mesh engine (and the single-device engine against it too);
@@ -99,8 +115,7 @@ def check(name, tmp_path_factory, P: int = 1) -> dict:
         jobs, sobs = em.reference(name, tmp_path_factory)
     else:
         jobs, sobs = m2.reference(name)
-    obs, e = mr.run_scenario(name, mesh_make(P), StateOps(),
-                             str(tmp_path_factory.mktemp("blocks")))
+    obs, e = block_run(name, tmp_path_factory, P)
     assert not dist.is_initialized()
     assert isinstance(e.state, BlockState) and e.t.processes == 1
     assert e.t.comm_host_copies() == 0, "a collective copied to the host"
@@ -210,6 +225,63 @@ def test_more_mesh_scenarios(name, tmp_path_factory):
     res = check(name, tmp_path_factory)
     assert res["durable"] if "pipeline" in name else \
         res["after"] == res["pre"] + res["post"]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_slow_follower_differential(seed, tmp_path_factory):
+    """tests/test_differential_faults.py:70-96, its mesh case
+    (``mk_engine(mesh=True)``, :44-54, JAX's one-process
+    ``TpuMeshTransport``): the engine half equal to the JAX engine's, and
+    every replica's committed log the golden oracle's."""
+    from raft_tpu.golden import GoldenCluster
+
+    res = check(f"slow_window_{seed}", tmp_path_factory)
+    ps = res["ps"]
+    c = GoldenCluster(3, seed=seed)
+    g_lead = c.run_until_leader()
+    slow_name = f"Server{(int(g_lead.id.removeprefix('Server')) + 1) % 3}"
+    c.set_slow(slow_name, True)
+    for p in ps[:5]:
+        g_lead.client_append(p)
+    em._golden_settle(c)
+    c.set_slow(slow_name, False)
+    for p in ps[5:]:
+        g_lead.client_append(p)
+    em._golden_settle(c)
+    for r in range(3):
+        assert res["committed"][r] == ps, f"engine replica {r}"
+    assert g_lead.committed_payloads() == res["committed"][res["leader"]]
+
+
+def test_chaos_over_one_process_mesh(tmp_path_factory):
+    """tests/test_chaos.py:266 ``test_chaos_over_mesh_transport`` on JAX's
+    one-process ``TpuMeshTransport``: the chaos schedule (crashes, slow
+    windows, campaigns, partitions and membership changes;
+    ``Random(61000)``, 7 phases of 35 s) on one engine over 5 CPU blocks
+    for ``max_replicas=5``. Its nodelog lines, majority-side snapshots,
+    committed payloads, leaders by term, every block's leaves and the
+    whole state equal the JAX engine's (compared in ``check``), and the
+    run upholds ``check_invariants``."""
+    res = check("chaos", tmp_path_factory)
+    check_chaos_invariants(res, 5)
+    assert res["snaps"] and res["watermark"] >= 1
+
+
+def test_chaos_fused_equals_single_ticks(tmp_path_factory):
+    """The port's own case: the chaos schedule at ``fuse_k`` 8 on the
+    one-process mesh equals it at ``fuse_k`` 1 (lines, commit stamps,
+    committed bytes, the chaos outcome and every block's leaves), with
+    fusion engaged. Fusion may change when work runs, never what
+    commits."""
+    one_obs, one = block_run("chaos", tmp_path_factory)
+    e = mesh_make()(dict(MESH_CHAOS, fuse_k=8), recorder=True)
+    out = mesh_chaos(e, StateOps().committed)
+    assert e.fused_launches > 0 and one.fused_launches == 0
+    assert e.lines == one.lines
+    assert e.commit_time == one.commit_time
+    assert_same(out, one_obs["result"], "chaos fuse_k 8")
+    assert_same(mr.final_obs(e, StateOps()), one_obs["final"],
+                "chaos fuse_k 8 final")
 
 
 def _count_reads(t) -> dict:
