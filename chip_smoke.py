@@ -7833,9 +7833,13 @@ def _timed_gathers():
 
 
 def rank_device(device):
-    """A spawned rank's device: every rank shares the one card."""
+    """A spawned rank's device: the one card every rank shares (gloo), or
+    with ``device`` None the rank's own card, which ``run_ranks``' NCCL
+    launch made current (``cuda:<rank>``)."""
     import torch
 
+    if device is None:
+        return torch.device("cuda", torch.cuda.current_device())
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -7886,26 +7890,23 @@ def mesh_rank_main(rank, world, cfg, device, entries):
             "main_path_wall_s": wall}
 
 
-@phase
-def phase_mesh_main_path(cfg, dev, entries=ENTRIES):
-    """The north star on a 3-rank gloo mesh sharing ``dev`` (three
-    processes time-sharing one card), every stage of every rank held
+#: the mesh main path's stages and the mesh entry point each must name
+MESH_DISPATCH = {"election": None, "ticks_row2_slow": None, "heal": None,
+                 "fused_step": "step", "scan": "scan",
+                 "north_star": "pipeline", "flight_row2_slow": "pipeline",
+                 "flight_row2_dead": "pipeline"}
+
+
+def check_mesh_main(ranks, cfg, dev, entries, what):
+    """Every stage of every rank of the mesh main path (``mesh_rank_main``)
     against its row of the same schedule run by ``SingleDeviceTransport``
-    here on the card."""
-    import dataclasses
-
+    on ``dev``; each follower rank's committed bytes against the input's
+    SHA-256; every mesh kernel launched on each rank, K3·mesh on the
+    slow-row and dead-row flights only and K4·mesh on every turnover
+    flight. Returns the single-device run's stages."""
     from raft_tpu_torch.transport.device import SingleDeviceTransport
-    from raft_tpu_torch.transport.launch import run_ranks
 
-    t0 = time.perf_counter()
-    ranks = run_ranks(mesh_rank_main, MESH_RANKS,
-                      (dataclasses.replace(cfg, transport="tpu_mesh"),
-                       str(dev), entries), timeout=MESH_DEADLINE_S)
-    ranks_wall = time.perf_counter() - t0
-    dispatch = {"election": None, "ticks_row2_slow": None, "heal": None,
-                "fused_step": "step", "scan": "scan",
-                "north_star": "pipeline", "flight_row2_slow": "pipeline",
-                "flight_row2_dead": "pipeline"}
+    dispatch = MESH_DISPATCH
     ref = {}
 
     def record(name, st, info):
@@ -7916,20 +7917,22 @@ def phase_mesh_main_path(cfg, dev, entries=ENTRIES):
     tr = SingleDeviceTransport(cfg, device=dev)
     mesh_drive(tr, cfg, dev, entries, record)
     for r, res in enumerate(ranks):
-        check(list(res["stages"]) == list(dispatch), f"rank {r} stages")
+        check(list(res["stages"]) == list(dispatch), f"{what}: rank {r} "
+                                                     "stages")
         for name in dispatch:
             got, want = res["stages"][name], ref[name][r]
             for k in ("vec", "terms", "payload", "info", "dispatch"):
-                check(got[k] == want[k],
-                      f"rank {r} after {name}: {k} {got[k]} != {want[k]}")
+                check(got[k] == want[k], f"{what}: rank {r} after {name}: "
+                                         f"{k} {got[k]} != {want[k]}")
         for k in ("K1", "K2·mesh", "K3·mesh", "K4·mesh", "K3_flights_run",
                   "K4_flights_run"):
             # (a rehearsal on the CPU runs the plain versions: no launch)
             check(res["launches"][k] > 0 or dev.type != "cuda",
-                  f"rank {r}: {k} never ran")
+                  f"{what}: rank {r}: {k} never ran")
         if r > 0:
             check(res["row_digests"][str(r)] == res["input_digest"],
-                  f"rank {r}'s committed bytes differ from the input")
+                  f"{what}: rank {r}'s committed bytes differ from the "
+                  "input")
     flights = ranks[0]["flights"]
     if dev.type == "cuda":
         # the turnover flights go to K4·mesh from the host's decision;
@@ -7937,7 +7940,27 @@ def phase_mesh_main_path(cfg, dev, entries=ENTRIES):
         k3 = sum(res["launches"]["K3·mesh"] for res in ranks)
         k4 = sum(res["launches"]["K4·mesh"] for res in ranks)
         check(k3 == 2 * MESH_RANKS and k4 == flights * MESH_RANKS,
-              f"mesh main path: {k3} K3·mesh and {k4} K4·mesh launches")
+              f"{what}: {k3} K3·mesh and {k4} K4·mesh launches")
+    return ref
+
+
+@phase
+def phase_mesh_main_path(cfg, dev, entries=ENTRIES):
+    """The north star on a 3-rank gloo mesh sharing ``dev`` (three
+    processes time-sharing one card), every stage of every rank held
+    against its row of the same schedule run by ``SingleDeviceTransport``
+    here on the card."""
+    import dataclasses
+
+    from raft_tpu_torch.transport.launch import run_ranks
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_rank_main, MESH_RANKS,
+                      (dataclasses.replace(cfg, transport="tpu_mesh"),
+                       str(dev), entries), timeout=MESH_DEADLINE_S)
+    ranks_wall = time.perf_counter() - t0
+    ref = check_mesh_main(ranks, cfg, dev, entries, "mesh main path")
+    dispatch, flights = MESH_DISPATCH, ranks[0]["flights"]
     result = {
         "phase": "mesh_main_path", "ranks": MESH_RANKS,
         "backend": "gloo, all ranks on cuda:0 (three processes "
@@ -8414,7 +8437,10 @@ class TickMeter:
     around it, with the collectives (over the pshard column, and on the
     2-D mesh over the row group) and gathering fetches it made and their
     host seconds; on the one-process mesh also the device copies and the
-    host copies a tick (``BlockCounts``)."""
+    host copies a tick (``BlockCounts``); on the multi-process mesh
+    (``MeshComm``) the comm's copies to the host and back to the card a
+    tick, and on the card the device ms of its collectives a tick (CUDA
+    events around each, ``MeshComm.events``)."""
 
     def __init__(self, e):
         import torch
@@ -8426,6 +8452,7 @@ class TickMeter:
         if blocks:
             comm = BlockCounts(e.t)
         self.blocks = blocks
+        self.mesh = hasattr(comm, "device_copies")
         cuda = e.state.device.type == "cuda"
         cards = sorted({str(d) for d in getattr(e.t, "devices", [])
                         if d.type == "cuda"})
@@ -8441,17 +8468,24 @@ class TickMeter:
             fs0 = getattr(e.t, "fetch_s", 0.0)
             d0 = getattr(comm, "copies", 0)
             h0 = getattr(comm, "host_copies", 0)
+            u0 = getattr(comm, "device_copies", 0)
+            if self.mesh and cuda:
+                comm.events = []        # this tick's collectives only
             if cuda:
                 ev0, ev1 = (torch.cuda.Event(enable_timing=True)
                             for _ in range(2))
                 ev0.record()
             t0 = time.perf_counter()
             out = run(r)
+            col_ev = float("nan")
             if cuda:
                 ev1.record()
                 torch.cuda.synchronize()
                 for d in cards:           # the one-process mesh's cards
                     torch.cuda.synchronize(d)
+                if self.mesh:
+                    col_ev = sum(a.elapsed_time(b) for a, b in comm.events)
+                    comm.events = None
             self.rows.append((
                 (time.perf_counter() - t0) * 1e3,
                 getattr(comm, "collectives", 0) - c0,
@@ -8462,7 +8496,8 @@ class TickMeter:
                 getattr(comm, "row_collective_s", 0.0) - rs0,
                 ev0.elapsed_time(ev1) if cuda else float("nan"),
                 getattr(comm, "copies", 0) - d0,
-                getattr(comm, "host_copies", 0) - h0))
+                getattr(comm, "host_copies", 0) - h0,
+                getattr(comm, "device_copies", 0) - u0, col_ev))
             return out
 
         e._fire_leader_tick = timed
@@ -8470,13 +8505,15 @@ class TickMeter:
     def summary(self):
         if not self.rows:
             return None
-        ms, col, col_s, fet, fet_s, row, row_s, ev, dc, hc = (
+        ms, col, col_s, fet, fet_s, row, row_s, ev, dc, hc, uc, cev = (
             np.array(x, float) for x in zip(*self.rows))
         out = {"leader_ticks": len(ms),
                "ms_per_tick_p50": float(np.percentile(ms, 50)),
+               "ms_per_tick_p90": float(np.percentile(ms, 90)),
                "ms_per_tick_p99": float(np.percentile(ms, 99)),
                "ms_per_tick_mean": float(ms.mean()),
                "ms_per_tick_events_p50": float(np.percentile(ev, 50)),
+               "ms_per_tick_events_p90": float(np.percentile(ev, 90)),
                "ms_per_tick_events_p99": float(np.percentile(ev, 99)),
                "collectives_per_tick": float(col.mean()),
                "host_ms_per_collective": float(col_s.sum() * 1e3
@@ -8490,6 +8527,13 @@ class TickMeter:
         if self.blocks:
             out["device_copies_per_tick"] = float(dc.mean())
             out["host_copies_per_tick"] = float(hc.mean())
+        if self.mesh:
+            # the comm's own copies (the gloo plane's upload in
+            # core.step_mesh and the engine's reads are not the comm's:
+            # the profiled ticks count every copy)
+            out["comm_dtoh_copies_per_tick"] = float(hc.mean())
+            out["comm_htod_copies_per_tick"] = float(uc.mean())
+            out["collective_device_ms_per_tick"] = float(np.mean(cev))
         return out
 
 
@@ -8532,8 +8576,24 @@ def collective_alone_ms(tr, reps=21):
     return statistics.median(times)
 
 
+def copies_and_collectives(events, n):
+    """Of a profiled window's device events over ``n`` ticks: the copies
+    a tick by direction (``Memcpy DtoH``, ``HtoD``, ...), and the NCCL
+    kernels a tick with their device ms."""
+    copies, nccl = {}, []
+    for name, us in events:
+        if name.startswith("Memcpy "):
+            kind = name.split()[1]
+            copies[kind] = copies.get(kind, 0) + 1
+        elif name.startswith("nccl"):
+            nccl.append(us)
+    return {"copies_per_tick": {k: v / n for k, v in sorted(copies.items())},
+            "nccl_kernels_per_tick": len(nccl) / n,
+            "nccl_device_ms_per_tick": sum(nccl) / 1e3 / n}
+
+
 def engine_mesh_run(cfg, dev, plan, tmp, profile=False, dev_ring=None,
-                    transport_of=None):
+                    transport_of=None, keep=False):
     """The north star through ``RaftEngine`` on ``engine_transport``: an
     election; ``ticks`` leader ticks of B entries (K1 while repairing on
     the local row, K2·mesh once steady); one ``submit_pipelined`` of
@@ -8547,7 +8607,10 @@ def engine_mesh_run(cfg, dev, plan, tmp, profile=False, dev_ring=None,
     ``profile``: a torch.profiler window of ``profiled`` ticks here.
     ``dev_ring``: a flight recorder and a device event ring of that
     capacity (the packed ring is returned). ``transport_of(cfg, dev)``
-    places the engine (default ``engine_transport``)."""
+    places the engine (default ``engine_transport``). ``keep``: the run's
+    ``SAME_RUN`` values under ``kept`` (nodelog lines, commit stamps,
+    terms and roles before and after the restore, the whole state at
+    both points, every read-back's SHA-256)."""
     import os
 
     import torch
@@ -8613,7 +8676,14 @@ def engine_mesh_run(cfg, dev, plan, tmp, profile=False, dev_ring=None,
 
         if profile:
             events, pwall, whole = _device_events(window, 1)
+            # the process group's ranges on the device (``nccl:*``) repeat
+            # its kernels' spans: no work of their own
+            events = [(n, us) for n, us in events
+                      if not n.startswith("nccl:")]
             busy = sum(us for _, us in events)
+            # an NCCL kernel spins from its launch until every rank has
+            # joined: its span is mostly the wait for the slowest host
+            spin = sum(us for n, us in events if n.startswith("nccl"))
             by_name = {}
             for name, us in events:
                 k = kernel_of(name) or name[:40]
@@ -8623,7 +8693,10 @@ def engine_mesh_run(cfg, dev, plan, tmp, profile=False, dev_ring=None,
                 "profile_whole": whole,
                 "device_busy_ms": busy / 1e3,
                 "device_idle_share": 1.0 - busy / (pwall * 1e6),
+                "device_idle_share_without_nccl":
+                1.0 - (busy - spin) / (pwall * 1e6),
                 "device_ops_per_tick": len(events) / plan["profiled"],
+                **copies_and_collectives(events, plan["profiled"]),
                 "device_ms_by_kind": {k: v / 1e3
                                       for k, v in by_name.items()}}
         else:
@@ -8693,6 +8766,9 @@ def engine_mesh_run(cfg, dev, plan, tmp, profile=False, dev_ring=None,
                      "ms_per_exchange": (e.mirror_exchange_s * 1e3
                                          / max(e.mirror_exchanges, 1))}
     packed = None if dobs is None else e._fetch(packed_flush(e._dev_ring))
+    # the whole state at full width (on the multi-process mesh gathered
+    # from every rank: a collective every rank makes)
+    state1 = e.t.gather_state(e.state) if keep else None
     # 5. checkpoint and restore (the vote log replayed over it)
     path = os.path.join(tmp, "cluster.npz")
     t0 = time.perf_counter()
@@ -8728,6 +8804,14 @@ def engine_mesh_run(cfg, dev, plan, tmp, profile=False, dev_ring=None,
             "\n".join(pre_lines + ["--"] + lines2).encode()).hexdigest(),
         "rows": state_rows(e2), "fetches": getattr(e.t, "fetches", 0)
         + getattr(e2.t, "fetches", 0)})
+    if keep:
+        res["kept"] = {"lines": pre_lines + ["--"] + lines2,
+                       "commit_time": [dict(e.commit_time),
+                                       dict(e2.commit_time)],
+                       "terms": [e.terms.tolist(), e2.terms.tolist()],
+                       "roles": [list(e.roles), list(e2.roles)],
+                       "state": [state1, e2.t.gather_state(e2.state)],
+                       "reads": [x["sha256"] for x in reads]}
     if packed is not None:
         res["packed_ring"] = packed
         res["device_lines"] = dobs.nodelog_lines()
@@ -8737,9 +8821,10 @@ def engine_mesh_run(cfg, dev, plan, tmp, profile=False, dev_ring=None,
 
 
 def engine_mesh_rank_main(rank, world, cfg, device, plan, profile,
-                          dev_ring=None):
+                          dev_ring=None, keep=False):
     """One rank of the mirrored engine (spawned): the counts set to 0, the
-    schedule, the counts read."""
+    schedule, the counts read. ``profile``: rank 0 profiles its ticks, or
+    with "all" every rank (each on its own card)."""
     import tempfile
 
     dev = rank_device(device)
@@ -8747,9 +8832,11 @@ def engine_mesh_rank_main(rank, world, cfg, device, plan, profile,
     with tempfile.TemporaryDirectory(prefix=f"mesh_engine_{rank}_") as tmp:
         with fly_on_cpu(dev.type):
             res = engine_mesh_run(cfg, dev, plan, tmp,
-                                  profile=(profile and rank == 0
+                                  profile=(bool(profile)
+                                           and (profile == "all"
+                                                or rank == 0)
                                            and dev.type == "cuda"),
-                                  dev_ring=dev_ring)
+                                  dev_ring=dev_ring, keep=keep)
     res["launches"] = mesh_engine_counters(dev)
     return res
 
@@ -8774,8 +8861,36 @@ def engine_mesh_ref(cfg, dev, plan):
     key = (str(dev), repr(cfg), tuple(sorted(plan.items())))
     if key not in _ENGINE_MESH_REFS:
         with tempfile.TemporaryDirectory(prefix="mesh_engine_ref_") as tmp:
-            _ENGINE_MESH_REFS[key] = engine_mesh_run(cfg, dev, plan, tmp)
+            _ENGINE_MESH_REFS[key] = engine_mesh_run(cfg, dev, plan, tmp,
+                                                     keep=True)
     return _ENGINE_MESH_REFS[key]
+
+
+def check_engine_ranks(ranks, ref, dev, what):
+    """The mirrored engine's ranks (``engine_mesh_rank_main``) against the
+    single-device run ``ref``: the nodelog lines' digest and count, the
+    entries, input and apply stream, the flights, the leaders, every
+    read-back's SHA-256, every rank's row; mirror exchanges made; K1,
+    K2·mesh, K3·mesh and K4·mesh launched on every rank and the resident
+    K2, K3 and K4 never."""
+    for r, res in enumerate(ranks):
+        for k in ("lines_sha256", "lines", "entries", "sha256_input",
+                  "apply", "flights", "first_leader", "failover",
+                  "lapped"):
+            check(res[k] == ref[k], f"{what} rank {r}: {k} "
+                                    f"{res[k]} != {ref[k]}")
+        check([x["sha256"] for x in res["read_backs"]]
+              == [x["sha256"] for x in ref["read_backs"]],
+              f"{what} rank {r}: read-backs differ")
+        check(res["mirror"]["exchanges"] > 0,
+              f"{what} rank {r}: no mirror digest exchange")
+        for k in ("K1", "K2·mesh", "K3·mesh", "K4·mesh"):
+            check(res["launches"][k] > 0 or dev.type != "cuda",
+                  f"{what} rank {r}: {k} never launched")
+        check(res["launches"]["K2"] == res["launches"]["K3"]
+              == res["launches"]["K4"] == 0,
+              f"{what} rank {r}: a resident kernel ran on the mesh")
+    same_rows(ranks, ref, what)
 
 
 @phase
@@ -8798,24 +8913,7 @@ def phase_engine_mesh_path(dev):
                       (cfg, str(dev), plan, True), timeout=MESH_DEADLINE_S)
     ranks_wall = time.perf_counter() - t0
     ref = engine_mesh_ref(cfg, dev, plan)
-    for r, res in enumerate(ranks):
-        for k in ("lines_sha256", "lines", "entries", "sha256_input",
-                  "apply", "flights", "first_leader", "failover",
-                  "lapped"):
-            check(res[k] == ref[k], f"engine mesh rank {r}: {k} "
-                                    f"{res[k]} != {ref[k]}")
-        check([x["sha256"] for x in res["read_backs"]]
-              == [x["sha256"] for x in ref["read_backs"]],
-              f"engine mesh rank {r}: read-backs differ")
-        check(res["mirror"]["exchanges"] > 0,
-              f"engine mesh rank {r}: no mirror digest exchange")
-        for k in ("K1", "K2·mesh", "K3·mesh", "K4·mesh"):
-            check(res["launches"][k] > 0 or dev.type != "cuda",
-                  f"engine mesh rank {r}: {k} never launched")
-        check(res["launches"]["K2"] == res["launches"]["K3"]
-              == res["launches"]["K4"] == 0,
-              f"engine mesh rank {r}: a resident kernel ran on the mesh")
-    same_rows(ranks, ref, "engine mesh")
+    check_engine_ranks(ranks, ref, dev, "engine mesh")
     r0 = ranks[0]
     out = {"phase": "engine_mesh_path", "ranks": cfg.rows,
            "backend": "gloo, all ranks on one card (three processes "
@@ -9802,6 +9900,214 @@ def phase_mesh2d_card_equals_cpu(dev):
                         for k in card[0]["launches"]},
            "card_wall_s": runs[str(dev)][1], "cpu_wall_s": runs["cpu"][1],
            "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+# ------------------- 18. the multi-process mesh over NCCL (ROADMAP §D 6)
+NCCL_RANKS = 3                 # nccl_mesh_path's ranks, one card each
+NCCL_DESYNC_DEADLINE_S = 120.0
+NCCL_MESH_KERNELS = ("K1", "K2·mesh", "K3·mesh", "K4·mesh")
+
+
+def mesh_ranks_module():
+    """``tests/_mesh_ranks.py`` (the mesh tests' rank programs; it
+    imports no JAX), loaded from its path as ``fault_schedules`` loads
+    its module."""
+    import importlib.util
+
+    name = "raft_tpu_torch_mesh_ranks"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, HERE / "tests" / "_mesh_ranks.py")
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[name]
+
+
+def nccl_desync_rank_main(rank, world):
+    """``tests/_mesh_ranks.py`` ``desync`` on this rank's own card (as
+    ``tests/test_torch_multihost.py::test_three_process_desync_fail_stop``
+    runs it over gloo): rank 1 perturbs a host mirror."""
+    return mesh_ranks_module().desync(rank, world, 1, 1, device=None)
+
+
+def one_process_on_cards(cfg, dev):
+    """The one-process mesh with block g on card g (the NCCL ranks'
+    placement, in one process)."""
+    import torch
+
+    from raft_tpu_torch.transport import ReplicaMesh, ReplicaMeshTransport
+
+    return ReplicaMeshTransport(cfg, ReplicaMesh(
+        [torch.device("cuda", g) for g in range(cfg.rows)]))
+
+
+@phase
+def phase_nccl_mesh_path(dev):
+    """The multi-process mesh over NCCL, one card a rank, every replica
+    collective on the cards (``run_ranks(..., backend="nccl")``). Needs
+    ``NCCL_RANKS`` visible cards; with fewer it prints that it did not
+    run and does nothing else (never two NCCL ranks on one card, never
+    gloo in its place). On three or more: ``engine_mesh_path``'s schedule
+    (``ENGINE_MESH_PLANS["full"]``) on 3 NCCL ranks, on 3 gloo ranks
+    sharing ``dev`` and on the single device, every NCCL rank equal to
+    its gloo rank and to the single device on nodelog lines, commit
+    stamps seq by seq, terms, roles, the whole state before and after the
+    restore, and every read-back's SHA-256, with K1, K2·mesh, K3·mesh
+    and K4·mesh launched as often on each NCCL rank as on its gloo rank;
+    the same schedule through the one-process mesh over cards 0-2 beside
+    them; ``mesh_main_path``'s north star (``MESH_ENTRIES``) on 3 NCCL
+    ranks against the single device, every follower's committed bytes
+    against the input's SHA-256; and ``desync`` on 3 NCCL ranks, a
+    ``MirrorDesyncError`` on every rank within the exchange timeout.
+    Prints per rank: ms a leader tick (host clock and CUDA events, p50
+    and p90), collectives a tick and their device ms, the comm's copies
+    to the host and back a tick, every copy a tick and the idle share
+    over 8 profiled ticks, the launches."""
+    import tempfile
+
+    import torch
+
+    from raft_tpu_torch.core import step_cuda
+    from raft_tpu_torch.transport.launch import run_ranks
+
+    cards = torch.cuda.device_count()
+    if cards < NCCL_RANKS:
+        out = {"phase": "nccl_mesh_path", "ran": False, "cards": cards,
+               "needs": NCCL_RANKS}
+        emit(out)
+        return out
+    t_phase = time.perf_counter()
+    plan = ENGINE_MESH_PLANS["full"]
+    cfg = engine_mesh_config(plan["capacity"])
+    walls = {}
+    # 1. the engine: NCCL ranks (each profiles its own card), gloo ranks
+    # sharing dev (rank 0 profiles), the single device
+    t0 = time.perf_counter()
+    nccl = run_ranks(engine_mesh_rank_main, cfg.rows,
+                     (cfg, None, plan, "all", None, True), backend="nccl",
+                     timeout=MESH_DEADLINE_S)
+    walls["engine_nccl"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gloo = run_ranks(engine_mesh_rank_main, cfg.rows,
+                     (cfg, str(dev), plan, True, None, True),
+                     timeout=MESH_DEADLINE_S)
+    walls["engine_gloo"] = time.perf_counter() - t0
+    ref = engine_mesh_ref(cfg, dev, plan)
+    check_engine_ranks(nccl, ref, dev, "nccl mesh")
+    check_engine_ranks(gloo, ref, dev, "gloo mesh")
+    for r in range(cfg.rows):
+        same_kept(nccl[r]["kept"], gloo[r]["kept"],
+                  f"nccl mesh rank {r} vs gloo rank {r}", SAME_RUN)
+        same_kept(nccl[r]["kept"], ref["kept"],
+                  f"nccl mesh rank {r} vs the single device", SAME_RUN)
+        for k in NCCL_MESH_KERNELS:
+            check(nccl[r]["launches"][k] == gloo[r]["launches"][k],
+                  f"nccl mesh rank {r}: {k} launched "
+                  f"{nccl[r]['launches'][k]} times, "
+                  f"{gloo[r]['launches'][k]} on gloo")
+    # 2. the one-process mesh over cards 0-2, in this process
+    zero_ec_counters(dev)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="nccl_one_process_") as tmp:
+        one = engine_mesh_run(cfg, dev, plan, tmp, profile=True,
+                              transport_of=one_process_on_cards, keep=True)
+    walls["engine_one_process"] = time.perf_counter() - t0
+    one_launches = mesh_engine_counters(dev)
+    same_kept(one["kept"], ref["kept"],
+              "one-process mesh on 3 cards vs the single device", SAME_RUN)
+    for g in range(cfg.rows):
+        w = step_cuda.workspace(f"cuda:{g}")
+        words = w[[step_cuda.WK_MM, step_cuda.WK_TICKET]].tolist()
+        check(words == [0, 0], f"nccl_mesh_path: cuda:{g}'s WK_MM, "
+                               f"WK_TICKET = {words} after the run")
+    # 3. the 1-D north star on NCCL ranks
+    ns = ns_config()
+    t0 = time.perf_counter()
+    main = run_ranks(mesh_rank_main, MESH_RANKS,
+                     (dataclasses.replace(ns, transport="tpu_mesh"), None,
+                      MESH_ENTRIES), backend="nccl",
+                     timeout=MESH_DEADLINE_S)
+    walls["mesh_main_nccl"] = time.perf_counter() - t0
+    check_mesh_main(main, ns, dev, MESH_ENTRIES, "nccl mesh main path")
+    # 4. a forced divergence: fail-stop on every rank, within the bound
+    t0 = time.perf_counter()
+    desync = run_ranks(nccl_desync_rank_main, NCCL_RANKS, backend="nccl",
+                       timeout=NCCL_DESYNC_DEADLINE_S)
+    walls["desync"] = time.perf_counter() - t0
+    for r, o in enumerate(desync):
+        check(o["synced"] == 8 and o["caught"] is not None
+              and "per-process digests" in o["caught"],
+              f"nccl desync: rank {r} did not fail-stop: {o}")
+        check(o["detect_s"] < o["timeout_s"],
+              f"nccl desync: rank {r} took {o['detect_s']:.3f} s, over "
+              f"the {o['timeout_s']} s exchange timeout")
+    digests = {o["caught"].split("per-process digests ")[1].split(" (")[0]
+               for o in desync}
+    check(len(digests) == 1, f"nccl desync: the ranks name different "
+                             f"digests: {digests}")
+    launches = {k: sum(res["launches"][k] for res in nccl + main)
+                for k in NCCL_MESH_KERNELS}
+    out = {"phase": "nccl_mesh_path", "ran": True, "cards": cards,
+           "card": card_query(), "ranks": cfg.rows,
+           "backend": "nccl, rank k on cuda:k; beside it gloo (3 ranks "
+                      "on cuda:0) and the one-process mesh (block g on "
+                      "cuda:g)",
+           "capacity": cfg.log_capacity, "batch": cfg.batch_size,
+           "entry_bytes": cfg.entry_bytes, "entries": nccl[0]["entries"],
+           "sha256_input": nccl[0]["sha256_input"],
+           "same_as_gloo_and_single_device": list(SAME_RUN),
+           "read_backs": len(nccl[0]["read_backs"]),
+           "lines": nccl[0]["lines"], "flights": nccl[0]["flights"],
+           "ticks_note": "the 56 unprofiled leader ticks; host ms a "
+                         "collective includes waiting for the slowest "
+                         "rank; the comm's copies are its own, the "
+                         "profiled ticks' copies every copy",
+           "nccl": {
+               "ticks_per_rank": [res["ticks"] for res in nccl],
+               "profiled_ticks_per_rank": [res.get("profiled_ticks")
+                                           for res in nccl],
+               "collective_alone_ms": [res["collective_alone_ms"]
+                                       for res in nccl],
+               "ticks_entries_per_s_wall": [
+                   res["ticks_entries_per_s_wall"] for res in nccl],
+               "chunk_per_rank": [res["chunk"] for res in nccl],
+               "mirror_per_rank": [res["mirror"] for res in nccl],
+               "launches_per_rank": [res["launches"] for res in nccl]},
+           "gloo": {
+               "ticks_per_rank": [res["ticks"] for res in gloo],
+               "profiled_ticks_rank0": gloo[0].get("profiled_ticks"),
+               "collective_alone_ms": [res["collective_alone_ms"]
+                                       for res in gloo],
+               "chunk_rank0": gloo[0]["chunk"],
+               "launches_per_rank": [res["launches"] for res in gloo]},
+           "one_process": {
+               "ticks": one["ticks"],
+               "profiled_ticks": one.get("profiled_ticks"),
+               "collective_alone_ms": one["collective_alone_ms"],
+               "chunk": one["chunk"], "launches": one_launches},
+           "single_device_ref": {"ticks": ref["ticks"],
+                                 "chunk": ref["chunk"]},
+           "mesh_main": {
+               "entries": MESH_ENTRIES,
+               "sha256_input": main[0]["input_digest"],
+               "sha256_rows": {str(r): main[r]["row_digests"].get(str(r))
+                               for r in range(1, MESH_RANKS)},
+               "north_star_ms_per_flight": max(
+                   res["north_star_wall_s"] for res in main) * 1e3
+               / main[0]["flights"],
+               "gather_ms_per_call": [res["gather_s"] * 1e3
+                                      / res["gather_calls"]
+                                      for res in main],
+               "gather_alone_ms": [res["gather_alone_ms"] for res in main],
+               "launches_per_rank": [res["launches"] for res in main]},
+           "desync": {"detect_s_per_rank": [o["detect_s"] for o in desync],
+                      "timeout_s": desync[0]["timeout_s"],
+                      "digests": digests.pop()},
+           "launches": launches, "walls_s": walls,
+           "phase_wall_s": time.perf_counter() - t_phase}
     emit(out)
     return out
 
@@ -13568,6 +13874,8 @@ ONLY_PHASES = {"kernels": lambda dev: phase_kernels(ns_config(), dev),
                "engine_mesh2d_path": phase_engine_mesh2d_path,
                "engine_mesh2d_ec_path": phase_engine_mesh2d_ec_path,
                "mesh2d_card_equals_cpu": phase_mesh2d_card_equals_cpu,
+               # 3 NCCL ranks, one card each (a not-run line on fewer)
+               "nccl_mesh_path": phase_nccl_mesh_path,
                "engine_multi_fused_path": phase_engine_multi_fused_path,
                "group_mesh_path": phase_group_mesh_path,
                "group_mesh_card_equals_cpu":
@@ -13663,6 +13971,7 @@ def main() -> int:
                    "engine_mesh2d_ec": phase_engine_mesh2d_ec_path(dev),
                    "mesh2d_card_equals_cpu":
                    phase_mesh2d_card_equals_cpu(dev)}
+    nccl_mesh = phase_nccl_mesh_path(dev)
     mesh_timing = phase_mesh_timing(cfg, dev, card_line, mesh_kernel_times,
                                     mesh_main)
     bench = phase_bench_path(dev, card_line)
@@ -13749,6 +14058,10 @@ def main() -> int:
                 if key in ("K1", "K2·mesh", "K3·mesh", "K4·mesh",
                            "K6 encode", "K6 decode", "K7") and n:
                     by_path[path] = n
+            if nccl_mesh["ran"] and nccl_mesh["launches"].get(key):
+                # the NCCL mesh's ranks, one card each (engine and north
+                # star; not run on fewer than 3 cards)
+                by_path["nccl_mesh"] = nccl_mesh["launches"][key]
             if bench["launches"].get(key):
                 # the port's bench (its legs until the deadline, and the
                 # kernel gates), counted in its own process

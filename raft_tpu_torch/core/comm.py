@@ -81,31 +81,60 @@ class SingleDeviceComm:
         return take_groups(blocks, leaders, 2).repeat(1, 1, self.n_replicas)
 
 
+#: the process-group backends ``MeshComm`` runs over
+MESH_BACKENDS = ("gloo", "nccl")
+
+
+def _all_gather_flat(out: torch.Tensor, src: torch.Tensor, group) -> None:
+    """One flat all_gather: ``src`` [1, ...] of every rank into ``out``
+    [n, ...] in group rank order (``all_gather_single``, the name torch
+    gives ``all_gather_into_tensor`` from 2.13)."""
+    import torch.distributed as dist
+
+    gather = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    gather(out, src, group=group)
+
+
 class MeshComm:
     """One replica row per rank of a ``torch.distributed`` group (L = 1).
 
-    The group (the default group when None) must be a gloo group of
-    ``n_replicas * payload_shards`` ranks: the mesh has run only so, on
-    the CPU or with every rank sharing one GPU. Rank ``g`` of the group
-    holds replica row ``g // P`` and lane slice ``g % P`` of it
-    (``P = payload_shards``, the JAX package's ``(replica, pshard)``
-    mesh). The replica collectives (``all_gather``, ``broadcast_host``,
-    ``select_row``, ``leader_cols``) run over the rank's pshard
-    *column*, the ranks ``{r*P + p : r}``, whose subgroup rank is the
-    replica row (``rank``): the counterpart of JAX's ``MeshComm(rows,
-    "replica")`` under a 2-D ``shard_map``. ``all_gather_lanes`` runs
-    over the rank's *row*, ``{r*P + q : q}``, for reads that reassemble a
-    row's lanes. At P = 1 the column is the group itself and there is no
-    row group: the groups and collectives are those of the 1-D mesh.
+    The group (the default group when None) is a gloo or an NCCL group of
+    ``n_replicas * payload_shards`` ranks: NCCL with one card a rank, gloo
+    on the CPU or with ranks sharing one card (NCCL refuses two ranks on
+    one device). Rank ``g`` of the group holds replica row ``g // P`` and
+    lane slice ``g % P`` of it (``P = payload_shards``, the JAX package's
+    ``(replica, pshard)`` mesh). The replica collectives (``all_gather``,
+    ``broadcast_host``, ``select_row``, ``leader_cols``) run over the
+    rank's pshard *column*, the ranks ``{r*P + p : r}``, whose subgroup
+    rank is the replica row (``rank``): the counterpart of JAX's
+    ``MeshComm(rows, "replica")`` under a 2-D ``shard_map``.
+    ``all_gather_lanes`` runs over the rank's *row*, ``{r*P + q : q}``,
+    for reads that reassemble a row's lanes. At P = 1 the column is the
+    group itself and there is no row group: the groups and collectives
+    are those of the 1-D mesh. The row and column subgroups take the
+    group's backend.
 
-    Each collective is one list-form ``dist.all_gather`` (or one
-    broadcast). A CUDA operand is staged through a host copy and the
-    result put back on the operand's device, since gloo's collectives
-    move host memory. Bool operands travel as uint8. Every rank must make
-    the same calls in the same order, as the mirrored programs of the
-    transport do. The mirror digest exchange (``exchange_int64``) runs
-    over every rank of the group on a gloo group of its own, with
-    ``exchange_timeout_s`` as its timeout."""
+    Each collective is one flat all_gather (``all_gather_single``) or one
+    broadcast that takes its operand where it lies and leaves the result
+    there: on the rank's card over NCCL, with no host copy. The ``_host``
+    forms (``all_gather_host``, ``broadcast_host``, ``all_gather_lanes``,
+    ``gather_lanes(host=True)``, ``host_once``) then make exactly one copy
+    of the result to the host (``host_copies``). Over gloo a CUDA operand
+    is staged: one copy to the host before the collective (counted in
+    ``host_copies``), the result put back on the operand's device after
+    it (``device_copies``) or, in a ``_host`` form, left on the host; a
+    CPU operand (the tests') takes the NCCL path's code. Bool operands
+    travel as uint8. Every rank must make the same calls in the same
+    order, as the mirrored programs of the transport do. The mirror
+    digest exchange (``exchange_int64``) runs over every rank of the
+    group on a gloo group of its own, whatever the group's backend, with
+    ``exchange_timeout_s`` as its timeout: it exchanges a host int64 and
+    turns a dead or diverged peer into a fail-stop.
+
+    ``events``, when a list, gets a pair of CUDA events recorded on the
+    current stream around every collective on a CUDA operand (the
+    device time of the collectives; the caller reads and clears it)."""
 
     def __init__(self, n_replicas: int, group=None,
                  exchange_timeout_s: float = 60.0, payload_shards: int = 1):
@@ -118,12 +147,12 @@ class MeshComm:
                 f"MeshComm over {n_replicas} replicas x {P} payload shards "
                 f"needs a process group of {n_replicas * P} ranks, got "
                 f"{size}")
-        backend = dist.get_backend(group)
-        if backend != "gloo":
+        backend = str(dist.get_backend(group))
+        if backend not in MESH_BACKENDS:
             raise ValueError(
-                f"MeshComm runs over a gloo group, got {backend!r}: a "
-                "device backend (NCCL, one GPU per rank) is not tried yet "
-                "(ROADMAP A15b)")
+                f"MeshComm runs over a gloo or an nccl group, got "
+                f"{backend!r}")
+        self.backend = backend
         self.n_replicas = n_replicas
         self.payload_shards = P
         self.group_rank = dist.get_rank(group)
@@ -136,6 +165,11 @@ class MeshComm:
         self.row_collectives = 0
         self.row_collective_s = 0.0
         #   the same for the row-group gathers (2-D mesh only)
+        self.host_copies = 0
+        self.device_copies = 0
+        #   copies to the host (a staged operand, a ``_host`` form's
+        #   result) and back to a card (a staged result)
+        self.events = None
         ranks = None if group is None else dist.get_process_group_ranks(
             group)
         world = list(range(size)) if ranks is None else list(ranks)
@@ -148,10 +182,10 @@ class MeshComm:
         self.group = group
         self._row_group = None
         if P > 1:
-            cols = [dist.new_group(ranks=world[p::P], backend="gloo")
+            cols = [dist.new_group(ranks=world[p::P], backend=backend)
                     for p in range(P)]
             rows = [dist.new_group(ranks=world[r * P:(r + 1) * P],
-                                   backend="gloo")
+                                   backend=backend)
                     for r in range(n_replicas)]
             self.group = cols[self.pshard]
             self._row_group = rows[self.rank]
@@ -165,72 +199,155 @@ class MeshComm:
     def local(self, x: torch.Tensor) -> torch.Tensor:
         return x[self.rank:self.rank + 1]
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """[1, ...] per-rank values -> [R, ...] on every rank."""
-        import torch.distributed as dist
+    # -- the flat path: each step returns (tensor, staged), the tensor
+    # where the collective left it (the host when gloo staged it)
 
-        src = x.contiguous()
+    def _run(self, op, cuda: bool, row: bool = False) -> None:
+        """One collective ``op()``, counted and timed (host seconds; CUDA
+        events into ``events`` for a CUDA operand)."""
+        pair = None
+        if cuda and self.events is not None:
+            pair = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            pair[0].record()
+        t0 = time.perf_counter()
+        op()
+        dt = time.perf_counter() - t0
+        if pair is not None:
+            pair[1].record()
+            self.events.append(pair)
+        if row:
+            self.row_collectives += 1
+            self.row_collective_s += dt
+        else:
+            self.collectives += 1
+            self.collective_s += dt
+
+    def _operand(self, x: torch.Tensor):
+        """``x`` as a collective takes it: bool as uint8, contiguous, and
+        on the host when gloo must stage it (a CUDA operand)."""
+        src = x.detach()
         if src.dtype == torch.bool:
             src = src.to(torch.uint8)
-        if src.is_cuda:
+        staged = self.backend == "gloo" and src.is_cuda
+        if staged:
             src = src.cpu()
-        parts = [torch.empty_like(src) for _ in range(self.n_replicas)]
-        t0 = time.perf_counter()
-        dist.all_gather(parts, src, group=self.group)
-        self.collective_s += time.perf_counter() - t0
-        self.collectives += 1
-        return torch.cat(parts, 0).to(device=x.device, dtype=x.dtype)
+            self.host_copies += 1
+        return src.contiguous(), staged
+
+    def _gather(self, x: torch.Tensor, row: bool = False):
+        """Every rank's ``x`` of the column (``row``: of the row group)
+        stacked: [n, *x.shape]."""
+        group, n = ((self._row_group, self.payload_shards) if row
+                    else (self.group, self.n_replicas))
+        src, staged = self._operand(x)
+        out = src.new_empty((n,) + tuple(src.shape))
+        self._run(lambda: _all_gather_flat(out, src[None], group),
+                  src.is_cuda, row)
+        return out, staged
+
+    def _stitch(self, x: torch.Tensor, staged: bool):
+        """``x`` [..., w] with its row's lane slices stitched over the row
+        group: [..., P*w], slice p at lanes [p*w, (p+1)*w)."""
+        if self._row_group is None:
+            return x, staged
+        out, again = self._gather(x, row=True)          # [P, ..., w]
+        return (out.movedim(0, -2).reshape(*x.shape[:-1], -1),
+                staged or again)
+
+    def _bcast(self, x: torch.Tensor, row: int):
+        """Rank ``row``'s ``x`` on every rank of the column (each passes
+        its own ``x`` of the same shape; a copy is broadcast into)."""
+        import torch.distributed as dist
+
+        buf, staged = self._operand(x)
+        if not staged:
+            buf = buf.clone()
+        root = row if self.group is None else dist.get_global_rank(
+            self.group, row)
+        self._run(lambda: dist.broadcast(buf, src=root, group=self.group),
+                  buf.is_cuda)
+        return buf, staged
+
+    def _finish(self, t: torch.Tensor, x: torch.Tensor, staged: bool,
+                host: bool) -> torch.Tensor:
+        """A result in ``x``'s dtype: with ``host`` on the host (one copy,
+        none when gloo staged it there), else on ``x``'s device (one copy
+        back when staged)."""
+        if host and not staged:
+            self.host_copies += 1
+            t = t.to("cpu", copy=True)
+        elif not host and staged:
+            self.device_copies += 1
+            t = t.to(x.device)
+        return t.to(x.dtype)
+
+    # -- the replica collectives
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """[1, ...] per-rank values -> [R, ...] on every rank, on ``x``'s
+        device."""
+        out, staged = self._gather(x)
+        return self._finish(out.reshape((-1,) + tuple(x.shape[1:])), x,
+                            staged, host=False)
 
     def all_gather_host(self, x: torch.Tensor) -> torch.Tensor:
         """``all_gather`` with the result on the host, for decisions taken
-        there: one copy of the operand to the host, none back."""
-        return self.all_gather(x.cpu())
+        there: one copy of the result to the host (over gloo, of the
+        operand before the collective, and none after)."""
+        out, staged = self._gather(x)
+        return self._finish(out.reshape((-1,) + tuple(x.shape[1:])), x,
+                            staged, host=True)
 
-    #: the mesh kernels' launch plane is gathered to the host, where every
-    #: rank takes the same decisions on it (``core.step_mesh``)
-    all_gather_plane = all_gather_host
+    def all_gather_plane(self, x: torch.Tensor) -> torch.Tensor:
+        """The mesh kernels' launch plane (``core.step_mesh``): gathered
+        where it lies, on the card over NCCL, where the kernels read it;
+        over gloo a CUDA operand's plane goes to the host, where every
+        rank takes the same decisions on it."""
+        if self.backend == "gloo" and x.is_cuda:
+            return self.all_gather_host(x)
+        return self.all_gather(x)
 
     def host_once(self, x: torch.Tensor) -> torch.Tensor:
         """A value every rank holds alike, on the host: each rank's own
-        copy (a flight's decision read, ``core.step_mesh``)."""
-        return x.cpu()
+        copy (a flight's decision read, ``core.step_mesh``), one copy."""
+        self.host_copies += 1
+        return x.detach().to("cpu", copy=True)
 
     def all_gather_lanes(self, x: torch.Tensor) -> torch.Tensor:
         """Every lane slice of this rank's row on the host: [..., w] per
         rank -> [..., P*w], slice p at lanes [p*w, (p+1)*w) (one gather
-        over the row group; ``x`` on the host at P = 1)."""
-        import torch.distributed as dist
+        over the row group, then one copy of the result to the host; at
+        P = 1 the copy alone)."""
+        out, staged = self._stitch(x.detach(), False)
+        return self._finish(out, x, staged, host=True)
 
-        if self._row_group is None:
-            return x.detach().cpu()
-        src = x.detach().to("cpu", copy=True).contiguous()
-        dtype = src.dtype
-        if dtype == torch.bool:
-            src = src.to(torch.uint8)
-        parts = [torch.empty_like(src) for _ in range(self.payload_shards)]
-        t0 = time.perf_counter()
-        dist.all_gather(parts, src, group=self._row_group)
-        self.row_collective_s += time.perf_counter() - t0
-        self.row_collectives += 1
-        return torch.cat(parts, -1).to(dtype)
+    def gather_lanes(self, x: torch.Tensor, rows=None,
+                     host: bool = False) -> torch.Tensor:
+        """Every row of the column ([1, ..., w] per rank), or the rows
+        ``rows`` of it, each at full width: [k, ..., P*w] (one gather over
+        the column and, on the 2-D mesh, one over the row group). On
+        ``x``'s device, or with ``host`` on the host (one copy of the
+        result)."""
+        out, staged = self._gather(x)
+        out = out.reshape((-1,) + tuple(x.shape[1:]))
+        if rows is not None:
+            out = out.index_select(0, torch.as_tensor(
+                list(rows), dtype=torch.int64, device=out.device))
+        out, staged = self._stitch(out, staged)
+        return self._finish(out, x, staged, host)
 
-    def broadcast_host(self, x: torch.Tensor, row: int) -> torch.Tensor:
+    def broadcast_host(self, x: torch.Tensor, row: int,
+                       lanes: bool = False) -> torch.Tensor:
         """Rank ``row``'s ``x`` on the host of every rank: every rank
         passes its own ``x`` of the same shape and dtype (the other
-        ranks' values are overwritten)."""
-        import torch.distributed as dist
-
-        buf = x.detach().to("cpu", copy=True).contiguous()
-        dtype = buf.dtype
-        if dtype == torch.bool:
-            buf = buf.to(torch.uint8)
-        src = row if self.group is None else dist.get_global_rank(
-            self.group, row)
-        t0 = time.perf_counter()
-        dist.broadcast(buf, src=src, group=self.group)
-        self.collective_s += time.perf_counter() - t0
-        self.collectives += 1
-        return buf.to(dtype)
+        ranks' values are overwritten). ``lanes``: its lane slices
+        stitched over the row group first (the broadcast of each slice
+        rides its own column). One copy of the result to the host."""
+        buf, staged = self._bcast(x, row)
+        if lanes:
+            buf, staged = self._stitch(buf, staged)
+        return self._finish(buf, x, staged, host=True)
 
     def exchange_int64(self, value: int) -> np.ndarray:
         """One int64 from every rank of the group (all R*P), in rank

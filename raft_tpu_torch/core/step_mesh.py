@@ -61,9 +61,10 @@ LAST_DISPATCH: str | None = None
 def _gather_plane(comm, state: ReplicaState, leader: int):
     """The two launch collectives: every row's packed scalars -> (6, R)
     and every row's prev term (the slot before the leader's frontier)
-    -> [R], each a ``comm.all_gather_plane`` (to the host over gloo, a
-    device copy on the one-process mesh), then put on the state's device
-    in one copy for the kernels. Returns (vecs, prev) on the device."""
+    -> [R], each a ``comm.all_gather_plane``: on the card over NCCL and
+    on the one-process mesh (a device copy there), feeding the kernels
+    with no host round trip; to the host over gloo, then put on the
+    state's device in one copy. Returns (vecs, prev) on the device."""
     R = comm.n_replicas
     own = torch.stack([state.term, state.voted_for, state.last_index,
                        state.commit_index, state.match_index,

@@ -44,12 +44,13 @@ inside the captured graph. With the device plane attached
 the engine's event ring inside the graph (``replicate_fused(ring=)``),
 and the booking flushes the ring once per launch boundary.
 
-Over the gloo mesh (``transport.MeshTransport``) every rank's mirrored
-engine plans and books the same windows from its identical host state,
-and ``replicate_fused`` runs the K-tick loop eagerly over the comm, never
-as a captured graph (its collectives are gloo host calls). The JAX
+Over the multi-process mesh (``transport.MeshTransport``, gloo or NCCL)
+every rank's mirrored engine plans and books the same windows from its
+identical host state, and ``replicate_fused`` runs the K-tick loop
+eagerly over the comm, never as a captured graph (a gloo collective is a
+host call; the NCCL mesh's graphs are not written yet). The JAX
 ``FusedDriver`` refuses fusion when ``jax.process_count() > 1``; the
-port's gloo mesh is R (or R x P) processes by construction, the
+port's multi-process mesh is R (or R x P) processes by construction, the
 counterpart of the JAX package's one-process mesh, which fuses, so the
 port fuses there too. Over the one-process mesh
 (``transport.ReplicaMeshTransport``) one engine plans and books, and a

@@ -71,8 +71,10 @@ def make_transport(cfg: RaftConfig, device=None, devices=None) -> "Transport":
     ``"tpu_mesh"`` needs ``n_replicas * payload_shards`` places for its
     blocks:
 
-    - inside an initialised process group of that many ranks it gives a
-      ``MeshTransport`` over the world group, one block a rank, which
+    - inside an initialised process group of that many ranks (gloo, or
+      NCCL with one card a rank: the backend does not enter the
+      decision) it gives a ``MeshTransport`` over the world group, one
+      block a rank, which
       raises JAX's ``ValueError`` when the config has membership
       headroom (``cfg.rows`` rows need ``rows * P`` ranks; build such a
       mesh with ``MeshTransport(cfg, ...)`` in a world of that size);

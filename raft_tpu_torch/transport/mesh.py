@@ -23,9 +23,13 @@ program on its own slice; the replica collectives ride the column and
 the reads that reassemble a row's lanes ride the row group
 (``MeshComm``).
 
-The group is gloo: ranks that share one GPU (NCCL refuses two ranks on
-one device) or run on the CPU, as the tests do. A device backend, one GPU
-per rank, is not tried yet and ``MeshComm`` refuses it.
+The group is NCCL with one card a rank (``launch.run_ranks(...,
+backend="nccl")``, ``multihost.initialize_multihost``), where every
+replica collective runs on the device, or gloo: ranks that share one GPU
+(NCCL refuses two ranks on one device) or run on the CPU, as the tests
+do; over gloo a CUDA operand is staged through the host (``MeshComm``).
+Under NCCL the transport's device is the rank's own card (the current
+CUDA device, which the launcher sets before the group exists).
 Payloads may be given whole (the folded [..., R*W] batch, of which each
 rank keeps its own lane block) or already cut (``shard_rows``).
 
@@ -36,13 +40,16 @@ the host view of every row / one row of a row-sharded value, which is a
 collective every rank reaches in lock step (JAX: ``tpu_mesh.py:228``,
 the reshard to fully replicated), ``fetch_row_lanes`` and
 ``gather_window`` the same for payload words at full width (stitched
-from the row group's slices), ``place_rows`` the inverse: this rank's
+from the row group's slices). Each makes its gather or broadcast where
+the operand lies (on the card over NCCL) and then one copy of the result
+to the host (``gather_window``'s stays on the device); ``place_rows``
+the inverse: this rank's
 row of a host [R, ...] value, and ``lane_slice`` this rank's byte slice
 of a shard batch, which every payload write goes through. The recorded
 programs (``ring=``) run the same steps with ``record=True``: every rank
 writes the identical event ring from gathered pre- and post-states.
 Nothing on the mesh is captured into a CUDA graph: a gloo collective is
-a host call. The compile plane's labels keep the JAX text
+a host call, and the NCCL mesh's fused window runs eagerly too. The compile plane's labels keep the JAX text
 (``tpu_mesh.replicate``, ``.replicate_many``, ``.pipeline``, ``.fused``,
 ``.vote``) and sit on the methods, where JAX labels its cached programs.
 """
@@ -111,6 +118,16 @@ class MeshTransport:
         self.cfg = cfg
         self.payload_shards = P
         self.device = resolve_device(device)
+        if dist.get_backend(group) == "nccl":
+            # NCCL moves CUDA tensors only, on the card the rank's
+            # launcher made current (one card a rank)
+            if self.device.type != "cuda":
+                raise ValueError(
+                    f"an NCCL mesh holds its rows on the ranks' cards, got "
+                    f"device {str(self.device)!r}")
+            if self.device.index is None:
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
         # write-before-block (obs.blackbox): the group checks and the
         # groups' creation below are the mesh's first collectives
         blackbox.mark("mesh_build", rows=cfg.rows, payload_shards=P,
@@ -176,8 +193,7 @@ class MeshTransport:
         lanes: replica ``row``'s value at full width, its P slices
         stitched over the row group (a second collective, 2-D only)."""
         t0 = self._gathering("fetch_row_lanes")
-        part = self.comm.broadcast_host(x.select(dim, 0), row)
-        out = self.comm.all_gather_lanes(part)
+        out = self.comm.broadcast_host(x.select(dim, 0), row, lanes=True)
         self.fetch_s += time.perf_counter() - t0
         return out.numpy()
 
@@ -192,10 +208,7 @@ class MeshTransport:
         slots = (torch.arange(lo, hi + 1, device=state.device,
                               dtype=torch.int64) - 1) % state.capacity
         mine = state.log_payload.index_select(0, slots)       # [N, w]
-        every = self.comm.all_gather_host(mine[None])         # [R, N, w]
-        pick = every.index_select(0, torch.as_tensor(list(rows),
-                                                     dtype=torch.int64))
-        pick = self.comm.all_gather_lanes(pick)               # [k, N, W]
+        pick = self.comm.gather_lanes(mine[None], rows)       # [k, N, W]
         out = pick.permute(1, 0, 2).reshape(hi - lo + 1, -1).to(self.device)
         self.fetch_s += time.perf_counter() - t0
         return out.contiguous()
@@ -267,11 +280,11 @@ class MeshTransport:
         leaf and, on the 2-D mesh, one over the row group for the
         payload, on every rank)."""
         parts = {f: self.comm.all_gather_host(getattr(state, f)[None])
-                 .numpy() for f in FIELDS}
-        lanes = self.comm.all_gather_lanes(
-            torch.from_numpy(parts["log_payload"])).numpy()   # [R, C, W]
+                 .numpy() for f in FIELDS if f != "log_payload"}
+        lanes = self.comm.gather_lanes(state.log_payload[None],
+                                       host=True).numpy()     # [R, C, W]
         return stack_rows([
-            {**{f: parts[f][r] for f in FIELDS}, "log_payload": lanes[r]}
+            {**{f: parts[f][r] for f in parts}, "log_payload": lanes[r]}
             for r in range(self.cfg.rows)])
 
     def exchange_digest(self, value: int) -> np.ndarray:
@@ -288,7 +301,7 @@ class MeshTransport:
     def commit_index(self, state: ReplicaState, row: int) -> int:
         """Replica ``row``'s commit index (a collective: every rank calls
         it)."""
-        return int(self.comm.all_gather(state.commit_index)[row])
+        return int(self.comm.all_gather_host(state.commit_index)[row])
 
     def shard_rows(self, payload) -> torch.Tensor:
         """This rank's lane block ``g`` of a folded [..., R*W] batch, on

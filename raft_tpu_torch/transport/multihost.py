@@ -3,8 +3,8 @@
 
 The reference's "network" is a map of Go channels inside one process, so
 all three replicas die together. Here each replica row lives in its own
-OS process, a rank of a ``torch.distributed`` gloo group, and every
-process runs the FULL engine as a mirrored deterministic event loop:
+OS process, a rank of a ``torch.distributed`` group, and every process
+runs the FULL engine as a mirrored deterministic event loop:
 
     from raft_tpu_torch.transport.multihost import (
         initialize_multihost, multihost_transport,
@@ -13,6 +13,15 @@ process runs the FULL engine as a mirrored deterministic event loop:
                          process_id=i)           # no-op if R == 1
     t = multihost_transport(cfg)                 # this rank's row
     eng = RaftEngine(cfg, t, vote_log=f"votes-{i}.log")
+
+The backend follows JAX's rule (``jax.distributed`` runs a TPU's or a
+GPU's collectives on the devices, and gloo only on the CPU,
+``multihost.py:103-120``): a process that holds a card of its own joins
+an NCCL group on ``cuda:<local rank>`` and every replica collective runs
+on the cards; a process with no card joins a gloo group. Ranks that
+share one card (NCCL refuses that) pass ``backend="gloo"``, and their
+collectives go through the host. The mirror digest exchange rides a
+gloo group of its own under either backend (``core.comm.MeshComm``).
 
 Every process has the same config and seed, so the same timers fire and
 the same decisions are taken, and every process issues the same
@@ -58,6 +67,7 @@ host, since a host failure takes the whole replica, never part of it.
 from __future__ import annotations
 
 import datetime
+import os
 from typing import NamedTuple, Optional, Sequence
 
 from raft_tpu_torch.config import RaftConfig
@@ -85,21 +95,43 @@ def world_size() -> int:
 
 def initialize_multihost(init_method: Optional[str] = None,
                          num_processes: int = 1, process_id: int = 0,
-                         timeout_s: float = 600.0) -> None:
-    """Join this process to the gloo group of ``num_processes`` ranks at
+                         timeout_s: float = 600.0,
+                         backend: Optional[str] = None) -> None:
+    """Join this process to the group of ``num_processes`` ranks at
     ``init_method`` (``tcp://host:port`` or ``file://path``) as rank
-    ``process_id``; a no-op for one process."""
+    ``process_id``; a no-op for one process. ``backend`` None takes JAX's
+    rule (module docstring): NCCL where this process sees a card, gloo
+    on the CPU. Under NCCL the process holds card ``$LOCAL_RANK`` of its
+    host (``process_id`` when unset), made current before the group
+    exists; ``timeout_s`` bounds every collective, so a dead peer's
+    stalled collective ends the process instead of hanging it. Raises
+    ``RuntimeError`` when that card is not visible."""
     if num_processes <= 1:
         return
+    import torch
     import torch.distributed as dist
 
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if backend is None:
+        backend = "nccl" if cards else "gloo"
+    kw = {}
+    if backend == "nccl":
+        local = int(os.environ.get("LOCAL_RANK", process_id))
+        if local >= cards:
+            raise RuntimeError(
+                f"an NCCL rank holds a card of its own: local rank {local} "
+                f"of {cards} visible cards")
+        torch.cuda.set_device(local)
+        kw["device_id"] = torch.device("cuda", local)
     # write-before-block (obs.blackbox): the rendezvous is the first
     # cross-process wait; a dead peer or a wrong address hangs here
     blackbox.mark("distributed_init", coordinator=str(init_method),
-                  num_processes=num_processes, process_id=process_id)
+                  num_processes=num_processes, process_id=process_id,
+                  backend=backend)
     dist.init_process_group(
-        "gloo", init_method=init_method, world_size=num_processes,
-        rank=process_id, timeout=datetime.timedelta(seconds=timeout_s))
+        backend, init_method=init_method, world_size=num_processes,
+        rank=process_id, timeout=datetime.timedelta(seconds=timeout_s),
+        **kw)
     blackbox.mark("distributed_init_done", process_id=process_id)
 
 
@@ -157,7 +189,8 @@ def multihost_transport(cfg: RaftConfig, device=None,
                         payload_shards: Optional[int] = None
                         ) -> MeshTransport:
     """A ``MeshTransport`` over the world group, this rank holding its
-    part of its replica row on ``device`` (CUDA unless ``device="cpu"``):
+    part of its replica row on ``device`` (CUDA unless ``device="cpu"``;
+    under NCCL, by default, the rank's own card ``cuda:<local rank>``):
     JAX's ``multihost_transport`` (``multihost.py:225``). The world must
     be ``rows * P`` ranks (``P = payload_shards``, default
     ``cfg.payload_shards``), ranks ``r*P .. r*P + P - 1`` holding replica

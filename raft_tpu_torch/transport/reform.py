@@ -23,7 +23,8 @@ package can share one directory:
   coordinator address, the checkpoint to restore and the dead replica
   rows. The address is ``host:port``; ``Epoch.init_method`` gives it as
   the ``tcp://`` rendezvous of ``torch.distributed.init_process_group``
-  (gloo), where the JAX package hands it to ``jax.distributed``.
+  (``multihost.initialize_multihost``; re-formation is held over gloo
+  only), where the JAX package hands it to ``jax.distributed``.
 - **Coordinator derivation**: the lowest fresh pid proposes the next
   epoch, a rule every survivor evaluates alike; write-once epoch files
   make a racing duplicate harmless (first link wins).

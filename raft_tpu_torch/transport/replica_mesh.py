@@ -7,7 +7,7 @@ The JAX package builds its mesh transport over the first R·P devices of
 one process: one engine whose replica rows sit on separate chips, one
 ``shard_map`` program a call, and a plain ``np.asarray`` for a host read
 (``tpu_mesh.py:218-247``). This module is that mode; ``transport.mesh``
-is the multi-process one (one gloo rank a block).
+is the multi-process one (one gloo or NCCL rank a block).
 
 Placement (JAX ``tpu_mesh.py:106-111``): block ``g = r*P + p`` lives on
 ``mesh.devices[g]`` and holds row ``r``'s six vectors [1] and term ring

@@ -13,6 +13,8 @@ import it."""
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -685,10 +687,11 @@ def kernel_engine(rank: int, world: int) -> dict:
 
 
 def desync(rank: int, world: int, payload_shards: int = 1,
-           bad: int = 1) -> dict:
+           bad: int = 1, device="cpu") -> dict:
     """tests/test_multiprocess.py:510: rank ``bad`` perturbs a host
     mirror; the digest splits at the next check and every rank
-    fail-stops (on the 2-D mesh every rank of every column)."""
+    fail-stops (on the 2-D mesh every rank of every column). ``device``
+    None: the rank's own card (an NCCL group)."""
     from raft_tpu_torch.raft import RaftEngine
     from raft_tpu_torch.raft.engine import MirrorDesyncError
     from raft_tpu_torch.transport import multihost_transport
@@ -698,16 +701,18 @@ def desync(rank: int, world: int, payload_shards: int = 1,
                      log_capacity=64, transport="multihost", seed=7,
                      mirror_check_every=8, mirror_exchange_timeout_s=30.0,
                      payload_shards=payload_shards)
-    e = RaftEngine(cfg, multihost_transport(cfg, device="cpu"))
+    e = RaftEngine(cfg, multihost_transport(cfg, device=device))
     lead = e.run_until_leader()
     rng = np.random.default_rng(1)
     ps = [rng.integers(0, 256, 16, np.uint8).tobytes() for _ in range(8)]
     seqs = [e.submit(p) for p in ps]
     e.run_until_committed(seqs[-1])
-    out = dict(synced=e.commit_watermark, caught=None)
+    out = dict(synced=e.commit_watermark, caught=None,
+               timeout_s=cfg.mirror_exchange_timeout_s)
     if rank == bad:
         victim = next(q for q in range(3) if q != lead)
         e.terms[victim] += 1
+    t0 = time.monotonic()
     try:
         for p in ps:
             e.submit(p)
@@ -716,6 +721,71 @@ def desync(rank: int, world: int, payload_shards: int = 1,
                 break
     except MirrorDesyncError as ex:
         out["caught"] = str(ex)
+        out["detect_s"] = time.monotonic() - t0
+    return out
+
+
+# ----------------------------------------------- the flat (device) path
+# tests/test_torch_mesh_device_comm.py: one spawn of 6 ranks runs the
+# transport programs at P = 1 on ranks 0-2 (a subgroup) and at P = 2 on
+# all six, and every host read of the transport on each final state.
+
+def mesh_reads(tr, state, lo: int, hi: int) -> dict:
+    """Every host read of a ``MeshTransport`` on ``state``, log indices
+    [lo, hi] for the ring reads (the engine's seam; ``gather_state`` the
+    whole cluster at full width)."""
+    R = tr.cfg.rows
+    slots = (np.arange(lo, hi + 1) - 1) % state.capacity
+    return {
+        "fetch_rows": tr.fetch_rows(state.last_index),
+        "commit_index": [tr.commit_index(state, r) for r in range(R)],
+        "log_terms": tr.log_terms(state, slots),
+        "log_terms_row": [tr.log_terms(state, slots, row=r)
+                          for r in range(R)],
+        "entry_words": [tr.entry_words(state, r, lo, hi) for r in range(R)],
+        "gather_window": tr.gather_window(state, [R - 1, 0], lo, hi)
+        .numpy(),
+        "gather_state": tr.gather_state(state),
+    }
+
+
+def device_comm_rank(rank: int, world: int, programs1: dict,
+                     programs2: dict, window) -> dict:
+    """``programs1`` at P = 1 on the subgroup of ranks 0-2 (ranks 3-5
+    take part in each transport's group creation only: ``new_group`` is
+    a collective of the whole world) and ``programs2`` at P = 2 on all
+    six ranks, each stage's (leaves, info, dispatch) as ``run_programs``
+    returns them, and ``mesh_reads`` over ``window`` on every program's
+    final state."""
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    sub = dist.new_group(ranks=[0, 1, 2], backend="gloo")
+    out = {"p1": {}, "p2": {}, "reads1": {}, "reads2": {}}
+
+    def run(name, tr, stages, key):
+        state = tr.init()
+        res = out[key][name] = []
+        for stage in stages:
+            step_mesh.LAST_DISPATCH = None
+            state, info = apply_stage(tr, state, stage)
+            leaves = {f: v.copy() for f, v in state_to_numpy(state).items()}
+            res.append((leaves, info_numpy(info), step_mesh.LAST_DISPATCH))
+        out["reads" + key[1:]][name] = mesh_reads(tr, state, *window)
+
+    for name, (cfg_kw, stages) in programs1.items():
+        if rank < 3:
+            tr = MeshTransport(RaftConfig(**cfg_kw, transport="tpu_mesh"),
+                               group=sub, device="cpu")
+            assert tr.comm.backend == "gloo" and tr.rank == rank
+            run(name, tr, stages, "p1")
+        else:       # the transport's digest group, made by every rank
+            dist.new_group(ranks=[0, 1, 2], backend="gloo")
+    for name, (cfg_kw, stages) in programs2.items():
+        tr = make_transport(RaftConfig(**cfg_kw, transport="tpu_mesh"),
+                            device="cpu")
+        assert isinstance(tr, MeshTransport) and tr.rank == rank
+        run(name, tr, stages, "p2")
     return out
 
 

@@ -333,15 +333,15 @@ def test_a_failed_or_hung_rank_fails_the_run():
 
 
 def test_mesh_comm_takes_a_gloo_group_only(monkeypatch):
-    """The mesh has run only over gloo; a group of another backend is
-    refused before any collective."""
+    """The mesh runs over gloo or NCCL (one card a rank); a group of a
+    third backend is refused before any collective."""
     import torch.distributed as dist
 
     from raft_tpu_torch.core.comm import MeshComm
 
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 3)
-    monkeypatch.setattr(dist, "get_backend", lambda group=None: "nccl")
-    with pytest.raises(ValueError, match="gloo group, got 'nccl'"):
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: "mpi")
+    with pytest.raises(ValueError, match="gloo or an nccl group, got 'mpi'"):
         MeshComm(3)
 
 
